@@ -7,29 +7,39 @@ Needs one CUDA card and nvcc (CUDA_HOME, /usr/local/cuda or PATH); runs
 from the repository root and imports nothing of JAX. Phases, each of which
 fails the run on error:
 
-  1. builds every kernel of the q1 path from csrc/ (one nvcc per source,
-     all started together) and prints the build time and ptxas's register
-     counts;
-  2. holds each kernel against its plain PyTorch version on the card, on
-     the q1 spec, a min/max/sum_sq/count spec and a spec that reaches the
-     rest of the expression whitelist (zoo_spec), at sizes ragged against
-     the block size, with nulls, a high-cardinality case whose leftover
-     flag must trip, and the main path's own 16M-row inputs (integers and
-     flags exact, f64 rtol 1e-9);
+  1. builds every kernel of the q1 and q3 paths (the fused scan-aggregate
+     specs, csrc/murmur3.cu, csrc/probe_verify.cu, csrc/row_gather.cu; one
+     nvcc per source, all started together) and prints the build time and
+     ptxas's register and spill counts;
+  2. holds each kernel against its plain PyTorch version on the card:
+     fused_scan_agg on three specs at sizes ragged against the block size,
+     with nulls and a high-cardinality case whose leftover flag must trip;
+     murmur3 of i64 and i32 lanes on ragged sizes with negative values and
+     seeds chained over columns with nulls (exact); probe-verify on random
+     lanes with duplicate build keys, buckets shared by several keys, empty
+     ranges and a candidate bucket smaller than the total (exact on the
+     slots below the total); the packed row gather with -1 and out-of-range
+     indices, f64 lanes and NaN payloads (exact bits); and every kernel on
+     its main path's own inputs;
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
-     16,777,216 rows through the port's execs, with every launch counter
-     set to 0 just before and read just after, and checks the result
-     against bench.py's numpy oracle (integers exact, f64 rtol 1e-9) and
-     the speculation flag (must stay False);
-  4. times the steady state (ITERS runs, one synchronisation) and each
-     kernel against its plain version and its bound.
+     16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
+     join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
+     x 524,288 orders, a second time with the join's speculative size
+     cache warm, and q3 with INT order keys, all through the port's execs,
+     with every launch counter set to 0 just before each path and read just
+     after; checks q1 against bench.numpy_oracle and q3 against
+     bench.q3_oracle (integers and keys exact, f64 rtol 1e-9) and the
+     speculation flags (must stay False);
+  4. times the q1 and q3 steady states (one synchronisation per run of
+     iterations) and each kernel against its plain version, its bound and,
+     for the row gather, torch.index_select.
 
-With --profile TRACE it also runs the q1 steady state under torch.profiler,
+With --profile TRACE it also runs each steady state under torch.profiler,
 prints the device's busy share and time by kernel, and writes the Chrome
-trace to the file TRACE.
+traces to TRACE (q1) and TRACE with "_q3" before its suffix (q3).
 
-The last lines are the card as nvidia-smi names it, a JSON line with one
-record per ported kernel, and {"ok": true, "device": {...}}.
+The last lines are a JSON line with one record per ported kernel, the card
+as nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -43,6 +53,9 @@ import numpy as np
 
 ROWS = 1 << 24          # bench.py ROWS: the q1 lane's size
 ITERS = 30              # steady-state runs of the whole q1 plan
+Q3_ORDERS = 1 << 19     # bench.py N_ORDERS
+Q3_LINES = 1 << 21      # bench.py N_LINES
+Q3_ITERS = 10           # steady-state runs of the whole q3 plan
 KERNEL_REPS = 20        # timed launches per kernel measurement
 RTOL = 1e-9
 
@@ -52,6 +65,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 DEVICE = "cuda"
+
+#: device-side names of the ported kernels' __global__ functions
+PORTED_KERNEL_PREFIXES = ("fsa_", "m3_long", "m3_int", "probe_verify",
+                          "row_gather")
 
 BUCKETS = 32            # G of the q1 lane (min(32, slots))
 OUT_CAP = 128           # bucket_capacity(slots * rounds)
@@ -274,11 +291,12 @@ def ops_per_row(spec):
     return n + 1 + len(spec.agg_ops)
 
 
-def profile_q1(plan, iters, trace_path):
-    """Where a q1 iteration's time goes: torch.profiler over `iters` runs.
-    Prints the device's busy share of the profiled wall time (the union
-    of kernel intervals), kernels per iteration, and device time by kernel
-    name; writes the Chrome trace to `trace_path`."""
+def profile_plan(label, plan, iters, trace_path):
+    """Where an iteration's time goes: torch.profiler over `iters` runs of
+    `plan` under one speculation scope. Prints the device's busy share of
+    the profiled wall time (the union of kernel intervals), device
+    activities per iteration, and device time by kernel name; writes the
+    Chrome trace to `trace_path`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,7 +305,8 @@ def profile_q1(plan, iters, trace_path):
         list(plan.execute())
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 list(plan.execute())
@@ -306,23 +325,450 @@ def profile_q1(plan, iters, trace_path):
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"profile q1 ({iters} iterations under the profiler): "
+    print(f"profile {label} ({iters} iterations under the profiler): "
           f"{wall_us / iters / 1e3:.3f} ms/iteration, device busy "
           f"{busy / iters / 1e3:.3f} ms/iteration = {busy / wall_us:.1%}, "
           f"{len(kernels) / iters:.0f} device activities/iteration")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {t / iters / 1e3:9.4f} ms/it {n // iters:5d}x  {name[:90]}")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"  {t / iters / 1e3:9.4f} ms/it {n / iters:7.1f}x  {name[:90]}")
+    ported = [(name, t, n) for name, (t, n) in by_name.items()
+              if name.startswith(PORTED_KERNEL_PREFIXES)]
+    print(f"  ported kernels: {sum(t for _, t, _ in ported) / iters / 1e3:.4f}"
+          f" ms/it in {sum(n for _, _, n in ported) / iters:.0f} launches")
+    for name, t, n in sorted(ported, key=lambda r: -r[1]):
+        print(f"  {t / iters / 1e3:9.4f} ms/it {n / iters:7.1f}x  {name[:90]}")
+    # the same device time by the PyTorch operator that launched it, with
+    # its input shapes: which call of the plan each kernel belongs to
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.self_device_time_total > 0]
+    print("  by operator and input shapes:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / iters / 1e3:9.4f} ms/it "
+              f"{e.count / iters:7.1f}x  {e.key} {e.input_shapes}"[:150])
     trace_path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace_path))
     print(f"trace: {trace_path}")
+
+
+# -- q3 -------------------------------------------------------------------
+
+def q3_data(key_dtype=np.int64):
+    """bench.build_q3_data: the same seed, the same arrays; the order keys
+    optionally narrowed to int32 (the INT-key variant)."""
+    rng = np.random.default_rng(1)
+    d = {
+        "o_orderkey": np.arange(Q3_ORDERS, dtype=np.int64),
+        "o_flag": rng.integers(0, 10, Q3_ORDERS, dtype=np.int32),
+        "l_orderkey": rng.integers(0, Q3_ORDERS, Q3_LINES, dtype=np.int64),
+        "l_price": rng.random(Q3_LINES) * 1000.0,
+        "l_disc": rng.random(Q3_LINES) * 0.1,
+        "l_flag": rng.integers(0, 4, Q3_LINES, dtype=np.int32),
+    }
+    for k in ("o_orderkey", "l_orderkey"):
+        d[k] = d[k].astype(key_dtype)
+    return d
+
+
+def q3_oracle(d):
+    """bench.q3_oracle."""
+    keep_o = d["o_flag"] < 5
+    keep_l = d["l_flag"] != 0
+    okeys = d["o_orderkey"][keep_o]
+    lkey = d["l_orderkey"][keep_l]
+    rev = (d["l_price"] * (1.0 - d["l_disc"]))[keep_l]
+    sel = np.isin(lkey, okeys)
+    lkey, rev = lkey[sel], rev[sel]
+    order = np.argsort(lkey, kind="stable")
+    lkey, rev = lkey[order], rev[order]
+    uk, starts = np.unique(lkey, return_index=True)
+    sums = np.add.reduceat(rev, starts)
+    top = np.argsort(-sums, kind="stable")[:10]
+    return {int(uk[i]): float(sums[i]) for i in top}
+
+
+def q3_plan(d, dev, key_type):
+    """bench.py make_q3_plan, in the port (the operator tree)."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
+    from spark_rapids_tpu_torch.exec.aggregate import AggregateExec
+    from spark_rapids_tpu_torch.exec.basic import (
+        FilterExec, InMemoryScanExec, ProjectExec)
+    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    from spark_rapids_tpu_torch.exec.sort import TopNExec
+    from spark_rapids_tpu_torch.expr.aggexprs import Sum
+    from spark_rapids_tpu_torch.expr.core import col, lit
+    kt = getattr(t, key_type)
+    o_schema = t.Schema((t.StructField("o_orderkey", kt),
+                         t.StructField("o_flag", t.INT)))
+    l_schema = t.Schema((t.StructField("l_orderkey", kt),
+                         t.StructField("l_price", t.DOUBLE),
+                         t.StructField("l_disc", t.DOUBLE),
+                         t.StructField("l_flag", t.INT)))
+
+    def mk(schema, n):
+        cap = bucket_capacity(n)
+        return ColumnarBatch([Column.from_numpy(d[f.name], f.data_type,
+                                                capacity=cap, device=dev)
+                              for f in schema.fields], n, schema)
+
+    o_scan = FilterExec(col("o_flag") < lit(5),
+                        InMemoryScanExec([mk(o_schema, Q3_ORDERS)], o_schema))
+    l_scan = FilterExec(col("l_flag") != lit(0),
+                        InMemoryScanExec([mk(l_schema, Q3_LINES)], l_schema))
+    joined = HashJoinExec(l_scan, o_scan, [col("l_orderkey")],
+                          [col("o_orderkey")], "inner", build_side="right")
+    proj = ProjectExec([
+        col("l_orderkey"),
+        (col("l_price") * (lit(1.0) - col("l_disc"))).alias("rev")], joined)
+    agg = AggregateExec([col("l_orderkey")], [(Sum(col("rev")), "revenue")],
+                        proj)
+    agg._spec_enabled = False  # as bench.py: the exact tier
+    return TopNExec(10, [(col("revenue"), False)], agg)
+
+
+def check_q3(rows, oracle, label):
+    if len(rows) != 10 or {int(k) for k, _ in rows} != set(oracle):
+        raise AssertionError(f"{label}: top-10 keys {rows} != oracle {oracle}")
+    for k, v in rows:
+        if abs(v - oracle[int(k)]) > RTOL * abs(oracle[int(k)]):
+            raise AssertionError(f"{label}: key {k} revenue {v} != oracle "
+                                 f"{oracle[int(k)]}")
+
+
+# -- launch counters --------------------------------------------------------
+
+def kernel_wrappers():
+    """Every ported kernel's wrapper, whose `launches` counts its launches
+    (and nothing else)."""
+    from spark_rapids_tpu_torch.ops import (
+        fused_scan_agg, murmur3_lanes, probe_verify, row_gather)
+    return {"fused_scan_agg": fused_scan_agg.fused_scan_agg,
+            "murmur3_long_lanes": murmur3_lanes.murmur3_long_lanes,
+            "murmur3_int_lanes": murmur3_lanes.murmur3_int_lanes,
+            "fused_probe_verify": probe_verify.fused_probe_verify,
+            "dma_row_gather": row_gather.dma_row_gather}
+
+
+def drive_counted(label, plan, need):
+    """Run `plan` once under a speculation scope with every launch counter
+    set to 0 just before and read just after; fail if the flag tripped or
+    a kernel in `need` was not launched. Returns (rows, counts)."""
+    import torch
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with speculation_scope() as scope:
+        out = list(plan.execute())
+        torch.cuda.synchronize()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        tripped = scope.tripped()
+    if tripped:
+        raise AssertionError(f"{label}: speculation flag tripped")
+    idle = [k for k in need if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle} "
+                             f"(counts {counts})")
+    return [r for b in out for r in b.to_pylist()], counts
+
+
+# -- the q3 kernels against their plain versions ----------------------------
+
+def _exact(label, got, want):
+    import torch
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: kernel != plain version")
+
+
+def _random_ints(rng, n, np_dtype):
+    info = np.iinfo(np_dtype)
+    v = rng.integers(info.min, info.max, n, dtype=np_dtype, endpoint=True)
+    edges = np.array([0, -1, info.min, info.max], dtype=np_dtype)
+    v[: min(n, 4)] = edges[: min(n, 4)]
+    return v
+
+
+def _u32_seeds(rng, n):
+    return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+
+
+def compare_murmur3(dev):
+    import torch
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
+    for n in (1, 1000, 65537, (1 << 20) + 3):
+        rng = np.random.default_rng(n)
+        seeds = torch.from_numpy(_u32_seeds(rng, n)).to(dev)
+        v64 = torch.from_numpy(_random_ints(rng, n, np.int64)).to(dev)
+        v32 = torch.from_numpy(_random_ints(rng, n, np.int32)).to(dev)
+        _exact(f"murmur3_long n={n}", [m3.murmur3_long_lanes(v64, seeds)],
+               [hashing.murmur3_long_plain(v64, seeds)])
+        _exact(f"murmur3_int n={n}", [m3.murmur3_int_lanes(v32, seeds)],
+               [hashing.murmur3_int_plain(v32, seeds)])
+    # seeds chained over columns with nulls: LONG, INT, DOUBLE (NaN, -0.0)
+    rng = np.random.default_rng(11)
+    n = 300_001
+    dbl = rng.normal(0, 1e6, n)
+    dbl[::7], dbl[::11] = np.nan, -0.0
+    specs = [(_random_ints(rng, n, np.int64), t.LONG),
+             (_random_ints(rng, n, np.int32), t.INT), (dbl, t.DOUBLE)]
+    cols = {d: [Column.from_numpy(v, dt, device=d,
+                                  validity=np.random.default_rng(i).random(n)
+                                  > 0.2)
+                for i, (v, dt) in enumerate(specs)]
+            for d in (dev, "cpu")}
+    _exact("murmur3_batch chained",
+           [hashing.murmur3_batch(cols[dev]).cpu()],
+           [hashing.murmur3_batch(cols["cpu"])])
+    print("compare murmur3 long/int: 4 sizes and a 3-column chain, exact")
+
+
+def _probe_case(rng, dev, n_stream, build_cap, n_lanes, dom, max_count,
+                cand_cap):
+    """Random probe inputs: build lanes from a small domain (duplicate
+    keys), ranges of 0..max_count candidates (empty ones included) over
+    rows holding other keys too, ~5% invalid keys on both sides."""
+    import torch
+    counts = rng.integers(0, max_count + 1, n_stream).astype(np.int32)
+    counts[rng.random(n_stream) < 0.3] = 0
+    lo = rng.integers(0, build_cap - max_count, n_stream).astype(np.int32)
+    bk = rng.integers(0, dom, (build_cap, n_lanes)).astype(np.int32)
+    sk = rng.integers(0, dom, (n_stream, n_lanes)).astype(np.int32)
+    perm = rng.permutation(build_cap).astype(np.int32)
+    args = [torch.from_numpy(x).to(dev) for x in (lo, counts, bk)] + [
+        torch.from_numpy(rng.random(build_cap) > 0.05).to(dev),
+        torch.from_numpy(sk).to(dev),
+        torch.from_numpy(rng.random(n_stream) > 0.05).to(dev),
+        torch.from_numpy(perm).to(dev)]
+    return args, cand_cap, int(counts.astype(np.int64).sum())
+
+
+def compare_probe(label, args, cand_cap, total):
+    """Kernel against the plain version: exact below the candidate total;
+    (False, -1, -1, -1) above it."""
+    import torch
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
+    got = pv.fused_probe_verify(*args, cand_cap)
+    want = pv.fused_probe_verify_plain(*args, cand_cap)
+    live = min(total, cand_cap)
+    _exact(label, [x[:live] for x in got], [x[:live] for x in want])
+    v, s, p, r = (x[live:] for x in got)
+    if bool(v.any()) or not all(bool((x == -1).all()) for x in (s, p, r)):
+        raise AssertionError(f"{label}: slots past the total not empty")
+    return int(got[0].sum())
+
+
+def compare_probe_cases(dev):
+    rng = np.random.default_rng(21)
+    cases = [("probe dup keys L=2", (300_000, 1 << 16, 2, 50, 6, 1 << 20)),
+             ("probe L=1 cap<total", (100_003, 1 << 12, 1, 9, 9, 1 << 17)),
+             ("probe sparse", (65_537, 1 << 20, 2, 1 << 30, 2, 1 << 16))]
+    for label, shape in cases:
+        args, cap, total = _probe_case(rng, dev, *shape)
+        hits = compare_probe(label, args, cap, total)
+        print(f"compare {label}: total={total} cand_cap={cap} "
+              f"verified={hits}, exact")
+
+
+def _gather_inputs(rng, dev, n_rows, n_out):
+    import torch
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.ops.rowpack import pack_rows
+    dbl = rng.normal(0, 1e3, n_rows)
+    dbl[::5] = np.nan
+    cols = [Column.from_numpy(v, dt, device=dev,
+                              validity=rng.random(n_rows) > 0.1)
+            for v, dt in ((_random_ints(rng, n_rows, np.int64), t.LONG),
+                          (dbl, t.DOUBLE),
+                          (_random_ints(rng, n_rows, np.int32), t.INT),
+                          (rng.random(n_rows) > 0.5, t.BOOLEAN),
+                          (rng.random(n_rows), t.DOUBLE))]
+    plan, imat, fmat = pack_rows(cols)
+    cap = imat.shape[0]
+    idx = rng.integers(0, cap, n_out).astype(np.int32)
+    idx[::9] = -1
+    idx[::13] = cap + 5
+    idx[::17] = np.iinfo(np.int32).min
+    return plan, imat, fmat, torch.from_numpy(idx).to(dev)
+
+
+def compare_gather(dev):
+    import torch
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    rng = np.random.default_rng(31)
+    for n_rows, n_out in ((1000, 1), (70_001, 65_537), (1 << 20, 3 << 19)):
+        plan, imat, fmat, idx = _gather_inputs(rng, dev, n_rows, n_out)
+        gi, gf = rg.pallas_gather_rows(plan, imat, fmat, idx)
+        wi, wf = gather_rows(plan, imat, fmat, idx)
+        _exact(f"row gather n_out={n_out}",
+               [gi, gf.view(torch.int64)], [wi, wf.view(torch.int64)])
+        safe = torch.where((idx >= 0) & (idx < imat.shape[0]), idx, 0)
+        _exact(f"dma_row_gather n_out={n_out}",
+               [rg.dma_row_gather(imat, idx)], [imat[safe.long()]])
+    print("compare row gather: 3 shapes with -1/out-of-range indices and "
+          "NaN f64 payloads, exact bits")
+
+
+class Q3Inputs:
+    """The inputs q3's main path gives each kernel, taken from the port's
+    own exec: the join's build table and stream keys, its candidate
+    ranges and bucket, and the stream-side payload gather by the verified
+    pairs' stream rows (the join's output gather, in slot order)."""
+
+    def __init__(self, plan):
+        import torch
+        from spark_rapids_tpu_torch.columnar.column import bucket_capacity
+        from spark_rapids_tpu_torch.ops import hashing, join as oj
+        from spark_rapids_tpu_torch.ops import probe_verify as pv
+        from spark_rapids_tpu_torch.ops.rowpack import pack_rows
+        j = plan.child._source
+        build = j._build()
+        stream = next(iter(j.children[0].execute()))
+        lo, counts, skeys, total = j._counts_kernel(build, stream)
+        self.total = int(total)
+        self.cand_cap = bucket_capacity(max(self.total, 1))
+        sk_lanes, svalid = oj.int_key_lanes(skeys)
+        bk_lanes, bvalid = build.key_lanes
+        self.probe = [lo, counts, bk_lanes, bvalid, sk_lanes, svalid,
+                      build.perm]
+        self.build_rows, self.stream_rows = build.capacity, counts.shape[0]
+        self.n_lanes = bk_lanes.shape[1]
+        key = skeys[0].data
+        seed = hashing.i32_bits(torch.full_like(key, oj.JOIN_HASH_SEED,
+                                                dtype=torch.int64))
+        self.hash = (key, seed)
+        verified, s_idx, _, _ = pv.fused_probe_verify_plain(
+            *self.probe, self.cand_cap)
+        sel = s_idx[verified]
+        s_map = torch.full((self.cand_cap,), -1, dtype=torch.int32,
+                           device=key.device)
+        s_map[: sel.shape[0]] = sel
+        self.gather = (*pack_rows(list(stream.columns)), s_map)
+
+
+def compare_main_path_inputs(inputs, int_inputs):
+    import torch
+    from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    key, seed = inputs.hash
+    _exact("murmur3_long q3 stream keys", [m3.murmur3_long_lanes(key, seed)],
+           [hashing.murmur3_long_plain(key, seed)])
+    ikey, iseed = int_inputs.hash
+    _exact("murmur3_int q3 INT stream keys",
+           [m3.murmur3_int_lanes(ikey, iseed)],
+           [hashing.murmur3_int_plain(ikey, iseed)])
+    hits = compare_probe("probe q3", inputs.probe, inputs.cand_cap,
+                         inputs.total)
+    compare_probe("probe q3 INT keys", int_inputs.probe, int_inputs.cand_cap,
+                  int_inputs.total)
+    plan, imat, fmat, idx = inputs.gather
+    gi, gf = rg.pallas_gather_rows(plan, imat, fmat, idx)
+    wi, wf = gather_rows(plan, imat, fmat, idx)
+    _exact("row gather q3 stream payload", [gi, gf.view(torch.int64)],
+           [wi, wf.view(torch.int64)])
+    print(f"compare q3 main-path inputs: {inputs.stream_rows} stream keys, "
+          f"{inputs.build_rows} build rows, candidate total {inputs.total} "
+          f"in {inputs.cand_cap} slots, {hits} verified pairs; exact")
+
+
+# -- bounds -----------------------------------------------------------------
+
+#: integer operations a row of murmur3 costs (mix_k1: 2 multiplies and a
+#: 3-op rotate per word; mix_h1: xor, rotate, multiply, add per word; fmix 7)
+M3_OPS = {8: 2 * 5 + 2 * 6 + 7, 4: 5 + 6 + 7}
+
+
+def bound(nbytes, nops):
+    """(bound ms, what bounds it) at the H100's published rates."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = nops / PEAK_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def time_q3_kernels(inputs, int_inputs, counts, int_counts):
+    """Each q3 kernel at its main-path shape: kernel, plain version, bound
+    and (the gather) torch.index_select on the same matrix."""
+    import torch
+    from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    records = []
+
+    def rec(name, source, replaces, launches, ms, plain_ms, bnd, lib_ms):
+        # max_abs_err is 0: phase 2 held every output of these kernels
+        # bit for bit against the plain version, and fails otherwise
+        b_ms, b_by = bnd
+        print(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound"
+              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        records.append({"name": name, "route": "cuda",
+                        "source": f"spark_rapids_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms})
+
+    for name, inp, width, cnt, fn, plain, line in (
+            ("murmur3_long_lanes", inputs, 8, counts, m3.murmur3_long_lanes,
+             hashing.murmur3_long_plain, 70),
+            ("murmur3_int_lanes", int_inputs, 4, int_counts,
+             m3.murmur3_int_lanes, hashing.murmur3_int_plain, 78)):
+        key, seed = inp.hash
+        n = key.shape[0]
+        hargs = (key, seed)
+        rec(name, "murmur3.cu", f"spark_rapids_tpu/ops/pallas_kernels.py:"
+            f"{line}", cnt[name],
+            cuda_ms(lambda: fn(*hargs), reps),
+            cuda_ms(lambda: plain(*hargs), plain_reps),
+            bound(n * (width + 4 + 4), n * M3_OPS[width]), None)
+
+    args, cap = inputs.probe, inputs.cand_cap
+    n, b, L = inputs.stream_rows, inputs.build_rows, inputs.n_lanes
+    live = min(inputs.total, cap)
+    # inputs read once (lo, counts, build and stream lanes and validity,
+    # perm) and the four outputs written once; per live slot a binary
+    # search of log2(n) steps (3 operations each) and the lane compares
+    probe_bytes = 8 * n + b * (4 * L + 1 + 4) + n * (4 * L + 1) + 13 * cap
+    probe_ops = live * (3 * int(np.ceil(np.log2(n + 1))) + 8 + 2 * L) \
+        + (cap - live) * 4
+    rec("fused_probe_verify", "probe_verify.cu",
+        "spark_rapids_tpu/ops/pallas_join.py:52",
+        counts["fused_probe_verify"],
+        cuda_ms(lambda: pv.fused_probe_verify(*args, cap), reps),
+        cuda_ms(lambda: pv.fused_probe_verify_plain(*args, cap), plain_reps),
+        bound(probe_bytes, probe_ops), None)
+
+    plan, imat, fmat, idx = inputs.gather
+    lanes = imat.shape[1] + 2 * fmat.shape[1]
+    mat = torch.cat([imat, fmat.view(torch.int32)], dim=1).contiguous()
+    safe = torch.where((idx >= 0) & (idx < mat.shape[0]), idx, 0)
+    rec("dma_row_gather", "row_gather.cu",
+        "spark_rapids_tpu/ops/pallas_gather.py:101",
+        counts["dma_row_gather"],
+        cuda_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat, idx), reps),
+        cuda_ms(lambda: gather_rows(plan, imat, fmat, idx), plain_reps),
+        bound(4 * idx.shape[0] * (1 + 2 * lanes), 0),
+        cuda_ms(lambda: torch.index_select(mat, 0, safe), reps))
+    return records
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1 steady state (device busy share, time by "
-             "kernel) and write its Chrome trace to TRACE")
+        help="also profile the q1 and q3 steady states (device busy share, "
+             "time by kernel) and write their Chrome traces to TRACE and "
+             "TRACE with _q3 before its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -345,7 +791,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # -- data and plan (host set-up) --------------------------------------
+    # -- data and plans (host set-up) --------------------------------------
     t0 = time.perf_counter()
     d = q1_data()
     oracle = q1_oracle(d)
@@ -362,11 +808,17 @@ def main() -> int:
     zoo, zoo_schema = zoo_spec()
     if mm_spec is None or zoo is None:
         raise AssertionError("a comparison chain did not compile to a spec")
-    print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracle, plan)")
+    d3, d3i = q3_data(), q3_data(np.int32)
+    q3_want = q3_oracle(d3)
+    q3 = q3_plan(d3, dev, "LONG")
+    q3i = q3_plan(d3i, dev, "INT")
+    print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
-    sources = [fsa.kernel_source(s) for s in (q1_spec, mm_spec, zoo)]
+    sources = [fsa.kernel_source(s) for s in (q1_spec, mm_spec, zoo)] + [
+        build.csrc_source(name)
+        for name in ("murmur3.cu", "probe_verify.cu", "row_gather.cu")]
     build.build_all(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} "
           f"kernel sources")
@@ -399,20 +851,15 @@ def main() -> int:
         fsa.fused_scan_agg_plain(q1_spec, batch, BUCKETS, OUT_CAP),
         "q1 main-path inputs")
     print(f"compare q1 main-path inputs: max_abs_err={main_err:.3g}")
+    compare_murmur3(dev)
+    compare_probe_cases(dev)
+    compare_gather(dev)
+    q3_in, q3i_in = Q3Inputs(q3), Q3Inputs(q3i)
+    compare_main_path_inputs(q3_in, q3i_in)
     torch.cuda.synchronize()
 
-    # -- phase 3: the main path, counted ------------------------------------
-    fsa.fused_scan_agg.launches = 0
-    with speculation_scope() as scope:
-        out = list(plan.execute())
-        torch.cuda.synchronize()
-        launches = fsa.fused_scan_agg.launches
-        tripped = scope.tripped()
-    if launches < 1:
-        raise AssertionError("the q1 path did not launch fused_scan_agg")
-    if tripped:
-        raise AssertionError("speculation flag tripped on the q1 path")
-    rows = [r for b in out for r in b.to_pylist()]
+    # -- phase 3: the main paths, counted -----------------------------------
+    rows, q1_counts = drive_counted("q1", plan, ["fused_scan_agg"])
     if sorted(r[0] for r in rows) != sorted(oracle):
         raise AssertionError(f"q1 groups {rows} != oracle {oracle}")
     for k, qty, dp, cnt in rows:
@@ -421,7 +868,22 @@ def main() -> int:
             raise AssertionError(f"q1 group {k}: {(qty, dp, cnt)} != "
                                  f"oracle {oracle[k]}")
     print(f"q1 at {ROWS} rows: {len(rows)} groups equal to the numpy "
-          f"oracle; fused_scan_agg launches={launches}")
+          f"oracle; launches {q1_counts}")
+    q3_need = ["murmur3_long_lanes", "fused_probe_verify", "dma_row_gather"]
+    rows, q3_counts = drive_counted("q3", q3, q3_need)
+    check_q3(rows, q3_want, "q3")
+    print(f"q3 at {Q3_LINES} x {Q3_ORDERS}: top 10 equal to the numpy "
+          f"oracle; launches {q3_counts}")
+    rows, warm_counts = drive_counted("q3 warm", q3, q3_need)
+    check_q3(rows, q3_want, "q3 warm")
+    print(f"q3 again, speculative size cache warm: equal to the oracle; "
+          f"launches {warm_counts}")
+    rows, q3i_counts = drive_counted(
+        "q3 INT keys", q3i,
+        ["murmur3_int_lanes", "fused_probe_verify", "dma_row_gather"])
+    check_q3(rows, q3_want, "q3 INT keys")
+    print(f"q3 with INT order keys: equal to the oracle; launches "
+          f"{q3i_counts}")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -438,8 +900,25 @@ def main() -> int:
     print(f"q1 steady state: {q1_ms:.3f} ms/iteration, "
           f"{in_bytes / q1_ms / 1e6:.1f} GB/s of column data "
           f"({ITERS} iterations, one sync)")
+    q3_bytes = sum(v.nbytes for v in d3.values())
+    with speculation_scope() as scope:
+        list(q3.execute())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q3_ITERS):
+            list(q3.execute())
+        torch.cuda.synchronize()
+        q3_ms = (time.perf_counter() - t0) * 1e3 / Q3_ITERS
+        if scope.tripped():
+            raise AssertionError("q3 speculation flag tripped in steady "
+                                 "state")
+    print(f"q3 steady state: {q3_ms:.3f} ms/iteration, "
+          f"{q3_bytes / q3_ms / 1e6:.1f} GB/s of column data "
+          f"({Q3_ITERS} iterations, one sync)")
     if args.profile:
-        profile_q1(plan, 10, args.profile)
+        profile_plan("q1", plan, 10, args.profile)
+        profile_plan("q3", q3, Q3_ITERS, args.profile.with_name(
+            args.profile.stem + "_q3" + args.profile.suffix))
 
     ms = cuda_ms(lambda: fsa._partials_cuda(q1_spec, batch, BUCKETS),
                  KERNEL_REPS)
@@ -447,26 +926,25 @@ def main() -> int:
                        max(3, KERNEL_REPS // 4))
     S0, S1 = fsa._slots(q1_spec)
     out_bytes = BUCKETS * (S0 + S1) * 8 + 4
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ROWS * ops_per_row(q1_spec) / PEAK_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound(in_bytes + out_bytes,
+                               ROWS * ops_per_row(q1_spec))
     print(f"fused_scan_agg: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}), "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / ms:.1%} of the bound")
-    record = {"kernels": [{
+    records = [{
         "name": "fused_scan_agg",
         "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/fused_scan_agg.cu.in",
         "replaces": "spark_rapids_tpu/ops/pallas_fused.py:215",
-        "launches": launches,
+        "launches": q1_counts["fused_scan_agg"],
         "max_abs_err": main_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
-    }]}
-    print(json.dumps(record))
+    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts)
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """AggregateExec in complete mode — the counterpart of
-spark_rapids_tpu/exec/aggregate.py on its speculative streaming tier.
+spark_rapids_tpu/exec/aggregate.py.
 
-Flow per source batch (`_streaming_step`, one step per batch, no host
-synchronisation):
+Speculative tier (inside a speculation scope, `_spec_enabled`), one step
+per source batch with no host synchronisation (`_streaming_step`):
   1. the absorbed filter/project chain and the pre-projection
      [group keys..., agg inputs...] run inside the fused scan-aggregate
      kernel (ops/fused_scan_agg.py) when the chain compiles to a spec;
@@ -12,9 +12,14 @@ synchronisation):
   3. dirty buckets raise a device-side speculation flag, recorded with
      the active speculation scope and read once with the results.
 
-Not ported yet: the exact tier (sort-based group-by and the in-program
-fallback), partial/final modes, spill and retry. Outside a speculation
-scope the exec raises rather than run a tier that does not exist.
+Exact tier (outside a scope, under force_exact, or `_spec_enabled`
+False): each source batch aggregates through
+ops/maskedagg.masked_groupby_exact (masked buckets, or the sort-based
+group-by when rows are left over) into a full-capacity partial; partials
+merge pairwise on the device (`_tree_merge_device`), MERGE_FAN_IN at a
+time, and big ones shrink to a tight bucket after one host read.
+
+Not ported yet: partial/final modes, spill and retry (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, bucket_capacity
 from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
-from ..ops.basic import concat_columns, sanitize
+from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
-from ..ops.maskedagg import masked_groupby, masked_reduce
+from ..ops.maskedagg import (
+    masked_groupby, masked_groupby_exact, masked_reduce,
+)
 from ..types import Schema, StructField
 from .base import AGG_TIME, TpuExec
 from .basic import bind_projection, eval_projection, projection_schema
@@ -55,6 +62,9 @@ class AggregateExec(TpuExec):
         in_schema = child.output_schema
         self._slots = GROUP_SLOTS
         self._rounds = ROUNDS
+        # False pins the exact tier even inside a speculation scope (a
+        # plan whose key cardinality is known to overflow the buckets)
+        self._spec_enabled = True
 
         # pre-projection: keys then the union of agg inputs
         self._pre_exprs = list(self.group_exprs)
@@ -226,13 +236,113 @@ class AggregateExec(TpuExec):
         return ColumnarBatch(cols, batch.num_rows, self.output_schema,
                              batch._host_rows)
 
+    # -- exact tier --------------------------------------------------------
+    def _run_groupby(self, keys, agg_inputs, batch: ColumnarBatch,
+                     row_mask=None) -> ColumnarBatch:
+        """Exact group-by of one keys+inputs batch into a keys+buffers
+        batch at the batch's capacity (one row for a grand aggregate)."""
+        if not keys:
+            results = masked_reduce(agg_inputs, batch.num_rows, row_mask,
+                                    128)
+            return self._build_small_batch(
+                [], [("raw", r) for r in results],
+                torch.ones((), dtype=torch.int32, device=batch.device))
+        out_keys, results, num_groups = masked_groupby_exact(
+            keys, agg_inputs, batch.num_rows, batch.capacity, row_mask,
+            self._slots, self._rounds)
+        return self._build_small_batch(out_keys, results, num_groups)
+
+    def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Re-aggregate a keys+buffers batch with the merge ops (the JAX
+        package's auto path: masked buckets, sort-based when rows are left
+        over)."""
+        keys, agg_inputs = self._merge_inputs(batch)
+        return self._run_groupby(keys, agg_inputs, batch)
+
+    def _fused_update_exact(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Exact tier, one source batch: fused steps -> pre-project ->
+        masked buckets with the sort-based fallback."""
+        cur, mask = self._apply_fused(batch)
+        pre = eval_projection(self._pre_bound, cur, self._pre_schema)
+        keys, agg_inputs = self._update_inputs(pre)
+        return self._run_groupby(keys, agg_inputs, pre, mask)
+
+    def _concat_merge_pair(self, a: ColumnarBatch, b: ColumnarBatch,
+                           cap: int) -> ColumnarBatch:
+        """Device-only merge of two keys+buffers partials: concat into one
+        `cap`-capacity batch, then re-aggregate. Output groups <=
+        a_groups + b_groups <= cap, so this is exact."""
+        cols = [concat_columns(ca, cb, a.num_rows, b.num_rows, cap)
+                for ca, cb in zip(a.columns, b.columns)]
+        both = ColumnarBatch(cols, a.num_rows + b.num_rows,
+                             self._buffer_schema)
+        return self._merge_batch(both)
+
+    def _tree_merge_device(self, batches: List[ColumnarBatch]
+                           ) -> ColumnarBatch:
+        """Pairwise merge levels, each pair concatenated into the bucket of
+        its capacities and re-aggregated — no host reads."""
+        level = list(batches)
+        while len(level) > 1:
+            nxt = [self._concat_merge_pair(
+                level[i], level[i + 1],
+                bucket_capacity(level[i].capacity + level[i + 1].capacity))
+                for i in range(0, len(level) - 1, 2)]
+            if len(level) % 2:
+                nxt.append(level[-1])
+            level = nxt
+        return level[0]
+
+    def _shrink(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Move the groups into the tightest bucket (one host read)."""
+        rows = batch.num_rows_host
+        small = bucket_capacity(max(rows, 1))
+        if small >= batch.capacity:
+            return batch
+        cols = [slice_rows(c, 0, rows, small) for c in batch.columns]
+        return ColumnarBatch(cols, rows, batch.schema)
+
+    #: merge this many partials on the device before one host read shrinks
+    #: the running result into a tight bucket
+    MERGE_FAN_IN = 8
+
+    #: partials at or above this capacity shrink eagerly (one host read
+    #: each) instead of holding full-size buckets in device memory
+    SHRINK_THRESHOLD_CAP = 1 << 16
+
+    def _absorb_partial(self, aggregated: List[ColumnarBatch],
+                        out: ColumnarBatch) -> None:
+        """Keep live partials bounded: big partials after the first shrink
+        at once (the first is held as it is: a single-batch input pays no
+        host read), and every MERGE_FAN_IN partials merge into one."""
+        if out.capacity >= self.SHRINK_THRESHOLD_CAP and aggregated:
+            out = self._shrink(out)
+        aggregated.append(out)
+        if len(aggregated) >= self.MERGE_FAN_IN:
+            aggregated[:] = [self._shrink(self._tree_merge_device(aggregated))]
+
+    def _execute_exact(self) -> Iterator[ColumnarBatch]:
+        agg_time = self.metrics[AGG_TIME]
+        aggregated: List[ColumnarBatch] = []
+        with agg_time.ns_timer():
+            for batch in self._source.execute():
+                self._absorb_partial(aggregated,
+                                     self._fused_update_exact(batch))
+            if not aggregated:
+                if self.group_exprs:
+                    return  # no input, no groups
+                # a grand aggregate over empty input still emits one row
+                empty = empty_batch(self._source.output_schema,
+                                    device=self._source.device)
+                aggregated.append(self._fused_update_exact(empty))
+            yield self._evaluate(self._tree_merge_device(aggregated))
+
     # -- drive -------------------------------------------------------------
     def internal_execute(self) -> Iterator[ColumnarBatch]:
-        if not speculation_allowed():
-            raise NotImplementedError(
-                "the exact aggregation tier is not ported: run the plan "
-                "under exec.speculation.speculation_scope()")
-        yield from self._execute_speculative()
+        if self._spec_enabled and speculation_allowed():
+            yield from self._execute_speculative()
+        else:
+            yield from self._execute_exact()
 
     def _execute_speculative(self) -> Iterator[ColumnarBatch]:
         """One step per source batch folds into an O(1)-size device state;
@@ -251,9 +361,9 @@ class AggregateExec(TpuExec):
                 state, flag, evaluated = self._streaming_step(
                     batch, state, flag)
         if state is None:
-            if self.group_exprs:
-                return  # no input, no groups
-            raise NotImplementedError(
-                "a grand aggregate over empty input needs the exact tier")
+            # no input: the exact tier gives the empty result (no groups,
+            # or the one row of a grand aggregate)
+            yield from self._execute_exact()
+            return
         current_scope().record(flag)
         yield evaluated

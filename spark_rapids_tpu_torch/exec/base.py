@@ -99,6 +99,14 @@ class TpuExec:
             it.close()
 
     @property
+    def device(self):
+        """The device the plan's leaves name (None: the port's default)."""
+        for c in self.children:
+            if c.device is not None:
+                return c.device
+        return None
+
+    @property
     def child(self) -> "TpuExec":
         if len(self.children) != 1:
             raise ValueError(f"{type(self).__name__} has "
@@ -106,16 +114,22 @@ class TpuExec:
         return self.children[0]
 
     def collect(self) -> List[tuple]:
-        """Materialize results under a speculation scope. The exact tier
-        is not ported, so a tripped overflow flag raises instead of
-        re-running the plan exactly."""
-        from .speculation import speculation_scope
-        with speculation_scope() as scope:
+        """Materialize results. Opens a speculation scope: aggregates may
+        run their masked-bucket tier and joins their cached candidate
+        sizes, flagging overflow on the device; the flags cost one host
+        read here, and a trip re-runs the plan with every operator on its
+        exact tier."""
+        from .speculation import force_exact, speculation_scope
+
+        def run() -> List[tuple]:
             out: List[tuple] = []
             for batch in self.execute():
                 out.extend(batch.to_pylist())
+            return out
+
+        with speculation_scope() as scope:
+            out = run()
             if scope.tripped():
-                raise RuntimeError(
-                    "speculative aggregation overflowed its bucket table "
-                    "and the exact tier is not ported yet")
+                with force_exact():
+                    out = run()
         return out

@@ -19,16 +19,23 @@ from .base import TpuExec
 
 
 class InMemoryScanExec(TpuExec):
-    """Leaf feeding pre-built device batches."""
+    """Leaf feeding pre-built device batches. `device` names the plan's
+    device when there are no batches to take it from."""
 
-    def __init__(self, batches: Sequence[ColumnarBatch], schema: Schema):
+    def __init__(self, batches: Sequence[ColumnarBatch], schema: Schema,
+                 device=None):
         super().__init__()
         self._batches = list(batches)
         self._schema = schema
+        self._device = device
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
+
+    @property
+    def device(self):
+        return self._batches[0].device if self._batches else self._device
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         yield from self._batches

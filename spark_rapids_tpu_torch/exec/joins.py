@@ -1,0 +1,252 @@
+"""HashJoinExec — the counterpart of spark_rapids_tpu/exec/joins.py for
+INNER equi-joins on integer-like keys.
+
+Per stream batch:
+  1. `_counts_kernel`: the stream keys (an absorbed child filter ANDed
+     into their validity), each row's candidate range in the bucketed
+     build table (ops/join.probe_counts) and the int64 candidate total;
+  2. the candidate bucket: measured (one host read of the total) or,
+     inside a speculation scope, the bucket cached for this shape, with a
+     device flag recorded with the scope in case the total outgrew it;
+  3. `_probe_kernel`: the fused probe-verify kernel
+     (ops/probe_verify.fused_probe_verify), then key-grouped emission —
+     one sort puts verified pairs first with equal join keys contiguous —
+     and one packed payload gather per side (ops/gather).
+
+The JAX package picks between this fused route and an XLA
+expand-then-verify route by measurement; the port has the one route.
+Other join types, residual conditions and non-integer keys raise
+NotImplementedError (ROADMAP A.3).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence
+
+import torch
+
+from ..columnar.batch import ColumnarBatch, empty_batch
+from ..columnar.column import Column, bucket_capacity
+from ..expr.core import Expression, UnresolvedAttribute
+from ..ops import gather as G
+from ..ops.basic import active_mask, concat_columns
+from ..ops.hashing import u32_of
+from ..ops.join import BuildTable, int_key_lanes, probe_counts
+from ..ops.probe_verify import fused_probe_verify
+from ..ops.rowpack import unpack_rows
+from ..ops.sort import lexsort
+from ..types import Schema
+from .base import TpuExec
+from .basic import FilterExec, bind_projection
+
+INNER = "inner"
+BUILD_TIME = "buildTime"
+JOIN_TIME = "joinTime"
+
+
+def concat_batches(batches: Sequence[ColumnarBatch],
+                   schema: Schema) -> ColumnarBatch:
+    """Concatenate batches' active rows on the device, pairwise into the
+    bucket of the capacities."""
+    out = batches[0]
+    for b in batches[1:]:
+        cap = bucket_capacity(out.capacity + b.capacity)
+        cols = [concat_columns(x, y, out.num_rows, b.num_rows, cap)
+                for x, y in zip(out.columns, b.columns)]
+        out = ColumnarBatch(cols, out.num_rows + b.num_rows, schema)
+    return out
+
+
+class HashJoinExec(TpuExec):
+    #: speculative sizing-cache entries expire after this many uses so one
+    #: pathological batch cannot inflate candidate buckets forever
+    SPEC_REFRESH = 512
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 join_type: str = INNER, build_side: str = "right",
+                 condition: Optional[Expression] = None):
+        super().__init__(left, right)
+        if join_type != INNER or condition is not None:
+            raise NotImplementedError(
+                f"{join_type} joins and join conditions wait for a later "
+                f"slice (ROADMAP A.3)")
+        if build_side not in ("left", "right"):
+            raise ValueError(f"build_side must be left or right, not "
+                             f"{build_side!r}")
+        self.join_type = join_type
+        self.build_side = build_side
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        # (stream_cap, build_cap) -> cand_cap: lets a speculation scope
+        # skip the per-batch sizing read
+        self._size_cache = {}
+        self._spec_uses = {}
+        # an inner join emits matched rows only, so a child filter on
+        # either side becomes a key-validity mask (an invalid key never
+        # matches) instead of a compaction
+        kids = list(self.children)
+        self._filters: List[Optional[List[Expression]]] = [None, None]
+        for side in (0, 1):
+            preds = []
+            while isinstance(kids[side], FilterExec):
+                preds.append(kids[side]._bound)
+                kids[side] = kids[side].child
+            self._filters[side] = preds or None
+        self.children = kids
+        self._stream_side = 0 if build_side == "right" else 1
+        s, b = self._stream_side, 1 - self._stream_side
+        keys = (self.left_keys, self.right_keys)
+        self._stream_keys = bind_projection(keys[s],
+                                            kids[s].output_schema)
+        self._build_keys = bind_projection(keys[b], kids[b].output_schema)
+
+    @property
+    def output_schema(self) -> Schema:
+        return Schema(tuple(self.children[0].output_schema.fields)
+                      + tuple(self.children[1].output_schema.fields))
+
+    def additional_metrics(self):
+        return (BUILD_TIME, JOIN_TIME)
+
+    @property
+    def output_grouped_by(self):
+        """Output batches are emitted key-grouped: one equivalence class
+        per key pair (left key == right key on every emitted row), by the
+        names the output schema carries once."""
+        out_names = [f.name for f in self.output_schema.fields]
+        classes = []
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            names = {e.name for e in (lk, rk)
+                     if isinstance(e, UnresolvedAttribute)
+                     and out_names.count(e.name) == 1}
+            if not names:
+                return None
+            classes.append(frozenset(names))
+        return tuple(classes)
+
+    @staticmethod
+    def _key_columns(bound, preds, batch: ColumnarBatch) -> List[Column]:
+        cols = [e.columnar_eval(batch) for e in bound]
+        if preds:
+            keep = None
+            for p in preds:
+                c = p.columnar_eval(batch)
+                k = c.data & c.validity  # Spark: null predicate rows drop
+                keep = k if keep is None else keep & k
+            cols = [Column(c.data, c.validity & keep, c.dtype) for c in cols]
+        return cols
+
+    # -- build -------------------------------------------------------------
+    def _build(self):
+        b = 1 - self._stream_side
+        child = self.children[b]
+        with self.metrics[BUILD_TIME].ns_timer():
+            batches = list(child.execute())
+            batch = concat_batches(batches, child.output_schema) \
+                if batches else empty_batch(child.output_schema,
+                                            device=child.device)
+            keys = self._key_columns(self._build_keys, self._filters[b],
+                                     batch)
+            table = BuildTable.build(keys, list(batch.columns),
+                                     batch.num_rows, batch.capacity)
+        if table.key_lanes is None:
+            raise NotImplementedError(
+                "join keys other than integer-like wait for a later slice "
+                "(ROADMAP A.3)")
+        return table
+
+    # -- probe -------------------------------------------------------------
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        build = self._build()
+        join_time = self.metrics[JOIN_TIME]
+        for stream_batch in self.children[self._stream_side].execute():
+            with join_time.ns_timer():
+                out = self._probe_one(build, stream_batch)
+            yield out
+
+    def _counts_kernel(self, build: BuildTable, stream_batch: ColumnarBatch):
+        skey_cols = self._key_columns(self._stream_keys,
+                                      self._filters[self._stream_side],
+                                      stream_batch)
+        lo, counts, _ = probe_counts(build, skey_cols,
+                                     stream_batch.num_rows,
+                                     stream_batch.capacity)
+        return lo, counts, skey_cols, torch.sum(counts, dtype=torch.int64)
+
+    def _candidate_capacity(self, key, total_dev) -> int:
+        from .speculation import current_scope, speculation_allowed
+        cached = self._size_cache.get(key)
+        if cached is not None and speculation_allowed():
+            self._spec_uses[key] = self._spec_uses.get(key, 0) + 1
+            if self._spec_uses[key] > self.SPEC_REFRESH:
+                # expire: the next probe re-measures (no monotone max),
+                # so buckets can shrink back
+                del self._size_cache[key]
+                self._spec_uses[key] = 0
+                cached = None
+        if cached is not None and speculation_allowed():
+            # speculative sizing: reuse the bucket, let the scope re-run
+            # the plan exactly if this batch outgrew it
+            current_scope().record(total_dev > cached)
+            return cached
+        cand_cap = bucket_capacity(max(int(total_dev), 1))  # host read
+        if cached is not None:
+            cand_cap = max(cand_cap, cached)  # monotone while cached
+        self._size_cache[key] = cand_cap
+        return cand_cap
+
+    def _probe_one(self, build: BuildTable, stream_batch: ColumnarBatch
+                   ) -> ColumnarBatch:
+        lo, counts, skey_cols, total_dev = self._counts_kernel(
+            build, stream_batch)
+        cand_cap = self._candidate_capacity(
+            (stream_batch.capacity, build.capacity), total_dev)
+        return self._probe_kernel(build, stream_batch, lo, counts,
+                                  skey_cols, total_dev, cand_cap)
+
+    def _probe_kernel(self, build: BuildTable, stream_batch: ColumnarBatch,
+                      lo, counts, skey_cols, total_dev, cand_cap: int
+                      ) -> ColumnarBatch:
+        plan_p, pmat_b, pfmat_b = build.pack
+        sk = int_key_lanes(skey_cols)
+        bk_lanes, bvalid = build.key_lanes
+        if sk is None or sk[0].shape[1] != bk_lanes.shape[1]:
+            raise NotImplementedError(
+                "join keys of unequal widths or non-integer types wait for "
+                "a later slice (ROADMAP A.3)")
+        sk_lanes, svalid = sk
+        verified, s_idx, b_pos, b_row = fused_probe_verify(
+            lo, counts, bk_lanes, bvalid, sk_lanes, svalid, build.perm,
+            cand_cap)
+
+        # key-grouped emission: verified pairs first, equal join keys
+        # contiguous (any consistent total order over the key bits groups
+        # them), so a downstream group-by on the keys may skip its sort
+        dev = verified.device
+        kflag = verified & active_mask(total_dev, cand_cap, dev)
+        safe_c = torch.clamp(b_pos, 0, bk_lanes.shape[0] - 1).long()
+        klanes = torch.where(kflag[:, None], bk_lanes[safe_c], 0)
+        perm_c = lexsort([((~kflag).to(torch.int64), 1)]
+                         + [(u32_of(klanes[:, j]), 32)
+                            for j in range(klanes.shape[1])])
+        n_pairs = torch.sum(kflag, dtype=torch.int32)
+
+        # ONE index materialization of the compacted pairs, then one
+        # packed payload gather per side
+        i = torch.arange(cand_cap, dtype=torch.int32, device=dev)
+        from_pairs = i < n_pairs
+        bsel = torch.where(from_pairs, perm_c.to(torch.int32), -1)
+        lane_mat = torch.stack([s_idx, b_pos], dim=1)
+        g = G.gather_lane_matrix(lane_mat, bsel)
+        s_map = torch.where(from_pairs, g[:, 0], -1)
+        b_pos_out = torch.where(from_pairs, g[:, 1], -1)
+        pmat_out, pfmat_out = G.gather_rows(plan_p, pmat_b, pfmat_b,
+                                            b_pos_out)
+        bcols = unpack_rows(plan_p, pmat_out, pfmat_out)
+        scols = G.gather_batch_columns(stream_batch.columns, s_map,
+                                       num_rows=n_pairs)
+        left, right = (scols, bcols) if self.build_side == "right" \
+            else (bcols, scols)
+        return ColumnarBatch(left + right, n_pairs, self.output_schema)

@@ -6,11 +6,10 @@ emits small partials plus a device `leftover` flag instead of paying for
 an exact fallback on every batch. Inside a speculation scope the flag is
 never read per batch (a device-to-host sync costs more than the kernel);
 it is recorded as a device scalar and checked once when results are
-materialized.
-
-The exact tier is not ported yet, so a tripped flag cannot re-run the plan
-exactly: the code that materializes results (TpuExec.collect, the
-tests, chip_smoke.py) raises instead of returning the incomplete result.
+materialized. The hash join's speculative candidate sizing (exec/joins.py)
+records its overflow flag the same way. If any flag tripped, the scope
+owner (TpuExec.collect) re-runs the plan under `force_exact()`: every
+aggregate takes its exact tier and every join measures its candidates.
 """
 
 from __future__ import annotations

@@ -110,3 +110,29 @@ def compiler_log(source: str) -> str:
 
 def load(path: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
+
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+
+#: libraries of the fixed sources under csrc/, loaded once per process
+_csrc_libs = {}
+
+
+def csrc_source(name: str) -> str:
+    """The text of a fixed kernel source under csrc/."""
+    return (CSRC_DIR / name).read_text()
+
+
+def csrc_library(name: str, signatures) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/`name`, declaring each entry point's
+    ctypes signature: `signatures` maps a function name to its argtypes
+    (every entry point returns the launch's CUDA error as an int)."""
+    lib = _csrc_libs.get(name)
+    if lib is None:
+        lib = load(build(csrc_source(name)))
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+        _csrc_libs[name] = lib
+    return lib

@@ -50,18 +50,56 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
     return Column(data, valid, a.dtype)
 
 
-def compact_columns(columns: Sequence[Column], keep: torch.Tensor, num_rows
-                    ) -> Tuple[Tuple[Column, ...], torch.Tensor]:
-    """Filter: move the kept active rows to the front, in order, without a
-    host sync (a stable sort on the drop flag, as the JAX package's
-    compaction_order does). The caller has AND-ed validity into `keep`."""
+def gather_column(col: Column, indices: torch.Tensor,
+                  out_valid=None) -> Column:
+    """Gather rows by int32 indices; the index length is the output
+    capacity. `out_valid` masks output rows; out-of-range indices give
+    invalid rows."""
+    from .gather import record
+    record(1, nbytes=indices.shape[0] * col.data.element_size())
+    in_range = (indices >= 0) & (indices < col.capacity)
+    safe = torch.where(in_range, indices, torch.zeros_like(indices)).long()
+    valid = col.validity[safe] & in_range
+    if out_valid is not None:
+        valid = valid & out_valid
+    data = torch.where(valid, col.data[safe],
+                       torch.zeros((), dtype=col.data.dtype,
+                                   device=col.device))
+    return Column(data, valid, col.dtype)
+
+
+def compaction_order(keep: torch.Tensor, num_rows):
+    """Stable permutation (int32) moving kept active rows to the front, and
+    the kept count: the engine's copy_if. Slots >= the count hold the
+    DROPPED rows' indices: every caller masks the tail (or uses
+    masked_compaction_order)."""
     cap = keep.shape[0]
     k = keep & active_mask(num_rows, cap, keep.device)
-    _, perm = torch.sort((~k).to(torch.uint8), stable=True)
-    new_rows = k.sum(dtype=torch.int32)
-    out_valid = active_mask(new_rows, cap)
-    out = []
-    for c in columns:
-        data = torch.where(out_valid, c.data[perm], torch.zeros_like(c.data))
-        out.append(Column(data, c.validity[perm] & out_valid, c.dtype))
+    _, perm = torch.sort((~k).to(torch.int32), stable=True)
+    return perm.to(torch.int32), k.sum(dtype=torch.int32)
+
+
+def masked_compaction_order(keep: torch.Tensor, num_rows):
+    """compaction_order with the tail slots (>= the kept count) set to -1,
+    so an unmasked gather yields invalid rows."""
+    perm, new_rows = compaction_order(keep, num_rows)
+    out_valid = active_mask(new_rows, keep.shape[0])
+    return torch.where(out_valid, perm, -1), new_rows
+
+
+def compact_columns(columns: Sequence[Column], keep: torch.Tensor, num_rows
+                    ) -> Tuple[Tuple[Column, ...], torch.Tensor]:
+    """Filter: keep rows where `keep` is True (the caller has AND-ed
+    validity into it). The kept rows move to the front through the gather
+    engine: two or more fixed-width columns ride one packed row gather."""
+    from .gather import gather_batch_columns
+    perm, new_rows = compaction_order(keep, num_rows)
+    out_valid = active_mask(new_rows, keep.shape[0])
+    out = gather_batch_columns(columns, perm, out_valid=out_valid)
     return tuple(out), new_rows
+
+
+def slice_rows(col: Column, start, length, out_capacity: int) -> Column:
+    """Rows [start, start+length) moved to the front of a fresh column."""
+    pos = torch.arange(out_capacity, dtype=torch.int32, device=col.device)
+    return gather_column(col, pos + start, pos < length)

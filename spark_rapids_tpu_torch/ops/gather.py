@@ -1,0 +1,100 @@
+"""The gather engine — the counterpart of spark_rapids_tpu/ops/gather.py:
+one routing and accounting point for every materializing row gather.
+
+- `gather_rows` is the packed row gather: the Hopper kernel
+  (ops/row_gather.py) for CUDA tensors, the plain version
+  (ops/rowpack.gather_rows) for CPU tensors. There is no tier selector:
+  on the card the kernel always serves it.
+- `gather_lane_matrix` reads a small index-lane matrix with a plain torch
+  index, as the JAX package leaves it to XLA.
+- `gather_batch_columns` gathers a batch's columns by an index map: two
+  or more fixed-width columns ride one packed row gather, a single column
+  takes the per-column path (ops/basic.gather_column).
+- `GatherStats` counts the gathers, as `counters()` reports them.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Sequence
+
+import torch
+
+__all__ = ["GatherStats", "gather_rows", "gather_lane_matrix",
+           "gather_batch_columns", "record", "counters"]
+
+
+class GatherStats:
+    """Gather totals: materializing gathers, how many rode a packed row
+    gather, how many the kernel served, and the bytes they wrote."""
+
+    __slots__ = ("count", "packed_count", "kernel_count", "bytes")
+
+    def __init__(self):
+        self.count = self.packed_count = self.kernel_count = self.bytes = 0
+
+
+_proc = GatherStats()
+_proc_lock = threading.Lock()
+
+
+def counters() -> dict:
+    with _proc_lock:
+        return {"count": _proc.count, "packed_count": _proc.packed_count,
+                "kernel_count": _proc.kernel_count, "bytes": _proc.bytes}
+
+
+def record(n: int = 1, packed: bool = False, kernel: bool = False,
+           nbytes: int = 0) -> None:
+    with _proc_lock:
+        _proc.count += n
+        _proc.packed_count += n if packed else 0
+        _proc.kernel_count += n if kernel else 0
+        _proc.bytes += nbytes
+
+
+def gather_rows(plan, imat, fmat, idx):
+    """Packed row gather (drop-in for rowpack.gather_rows)."""
+    lanes = imat.shape[1] + (2 * fmat.shape[1] if fmat is not None else 0)
+    on_card = imat.device.type == "cuda"
+    record(1, packed=True, kernel=on_card, nbytes=idx.shape[0] * lanes * 4)
+    if on_card:
+        from .row_gather import pallas_gather_rows
+        return pallas_gather_rows(plan, imat, fmat, idx.to(torch.int32))
+    from .rowpack import gather_rows as plain_gather_rows
+    return plain_gather_rows(plan, imat, fmat, idx)
+
+
+def gather_lane_matrix(mat, idx):
+    """Row gather of a small index-lane matrix: rows out of range read
+    row 0 — callers mask by their own selection predicate."""
+    record(1, packed=True, nbytes=idx.shape[0] * mat.shape[1] * 4)
+    in_range = (idx >= 0) & (idx < mat.shape[0])
+    return mat[torch.where(in_range, idx, torch.zeros_like(idx)).long()]
+
+
+def gather_batch_columns(columns: Sequence, idx, num_rows=None,
+                         out_valid=None) -> List:
+    """Gather a batch's columns by an index map. `num_rows` masks output
+    slots >= num_rows; `out_valid` masks by predicate; indices already
+    -1-masked pass neither."""
+    from .basic import active_mask, gather_column
+    from .rowpack import pack_rows, split_packable, unpack_rows
+    midx = idx
+    if num_rows is not None:
+        midx = torch.where(active_mask(num_rows, idx.shape[0], idx.device),
+                           idx, -1)
+    elif out_valid is not None:
+        midx = torch.where(out_valid, idx, -1)
+    out: List = [None] * len(columns)
+    p_idx, o_idx = split_packable(columns)
+    if len(p_idx) > 1:
+        plan, imat, fmat = pack_rows([columns[i] for i in p_idx])
+        gi, gf = gather_rows(plan, imat, fmat, midx)
+        for j, c in zip(p_idx, unpack_rows(plan, gi, gf)):
+            out[j] = c
+    else:
+        o_idx = sorted(p_idx + o_idx)
+    for j in o_idx:
+        out[j] = gather_column(columns[j], midx)
+    return out

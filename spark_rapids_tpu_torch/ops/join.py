@@ -1,0 +1,233 @@
+"""Equi-join gather-map ops — the counterpart of spark_rapids_tpu/ops/join.py
+for fixed-width keys.
+
+No device hash table with collision chains: the build side sorts by a
+pair of u32 murmur3 hashes, a top-B-bits bucket offsets table gives each
+stream row its candidate range, candidates expand into (stream, build)
+index pairs, and an exact key verify drops hash collisions (a collision
+costs a false candidate, never a wrong row). Equi-keys never match null
+keys.
+
+Hash lanes are int32 tensors holding u32 bits (ops/hashing.py); wherever
+their unsigned value matters (the bucket shift, the sort) they widen to
+int64 with `u32_of`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..columnar.column import Column
+from .basic import active_mask, compaction_order, gather_column
+from .hashing import murmur3_batch, u32_of
+from .rowpack import pack_rows
+from .sort import lexsort
+
+JOIN_HASH_SEED = 0x5370_6172  # arbitrary fixed seed, 'Spar'
+JOIN_HASH_SEED2 = 0x85EB_CA6B
+
+
+def join_hash_pair(key_cols: Sequence[Column], lo_too: bool = True):
+    """Internal join bucket hash: two independent murmur3 passes (u32
+    bits); the second only when `lo_too`."""
+    h_hi = murmur3_batch(list(key_cols), seed=JOIN_HASH_SEED)
+    if not lo_too:
+        return h_hi, None
+    return h_hi, murmur3_batch(list(key_cols), seed=JOIN_HASH_SEED2)
+
+
+def _keys_valid(key_cols: Sequence[Column], num_rows, capacity: int):
+    v = active_mask(num_rows, capacity, key_cols[0].device)
+    for c in key_cols:
+        v = v & c.validity
+    return v
+
+
+def _bucket_bits(capacity: int) -> int:
+    """Static bucket-count exponent: ~2 slots per build row, capped so
+    the offsets table stays small."""
+    return min(21, max(10, (capacity - 1).bit_length() + 1))
+
+
+def int_key_lanes(key_cols: Sequence[Column]
+                  ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Key columns as an int32 (capacity, L) matrix of u32 equality lanes
+    plus a combined bool validity, or None when any key is not
+    integer-like (float `==` and varlen compares are not bit equality).
+    Up-to-32-bit types widen to one i32 lane (injective); 64-bit types
+    split into (lo, hi) lanes. A single key needs no copy: an INT column
+    is its own (cap, 1) matrix and a LONG column its own (cap, 2) view."""
+    lanes = []
+    valid = None
+    for c in key_cols:
+        d = c.data
+        if d.dtype.is_floating_point:
+            return None
+        if d.dtype.itemsize == 8:
+            lanes.append(d.contiguous().view(torch.int32).view(-1, 2))
+        else:
+            lanes.append(d.to(torch.int32).view(-1, 1))
+        valid = c.validity if valid is None else (valid & c.validity)
+    if valid is None:
+        return None
+    mat = lanes[0] if len(lanes) == 1 else torch.cat(lanes, dim=1)
+    return mat, valid
+
+
+def candidate_fill_inputs(lo, counts, out_capacity: int):
+    """The candidate-expansion inputs of the cummax formulation: `seg`,
+    each nonempty range's start slot carrying its owner row (disjoint by
+    construction), and the (lo, start) 2-lane matrix."""
+    n_rows = counts.shape[0]
+    cum32 = torch.cumsum(counts, 0, dtype=torch.int32)   # inclusive
+    start = cum32 - counts                                # exclusive
+    pos = torch.where(counts > 0, torch.clamp(start, max=out_capacity),
+                      out_capacity).long()
+    j = torch.arange(n_rows, dtype=torch.int32, device=counts.device)
+    seg = torch.zeros(out_capacity + 1, dtype=torch.int32,
+                      device=counts.device)
+    seg.scatter_reduce_(0, pos, j, reduce="amax")
+    return seg[:out_capacity], torch.stack([lo, start], dim=1)
+
+
+class BuildTable:
+    """Hash-bucketed build side: rows sorted by the u32 hash pair, a
+    top-B-bits bucket offsets table, the payload packed in sorted order,
+    and the keys' u32 equality lanes in sorted order for the probe kernel.
+    (The JAX package also packs the keys in sorted order for its XLA
+    verify route, which the port does not have.)"""
+
+    def __init__(self, bucket_table, perm, valid_count, num_rows,
+                 key_cols: Sequence[Column], payload: Sequence[Column],
+                 capacity: int, pair_table, pack, key_lanes):
+        self.bucket_table = bucket_table  # (2^B + 1,) int32 offsets
+        self.perm = perm                  # sorted position -> build row
+        self.valid_count = valid_count
+        self.num_rows = num_rows
+        self.key_cols = list(key_cols)
+        self.payload = list(payload)
+        self.capacity = capacity
+        self.pair_table = pair_table      # (2^B, 2) int32 [lo, hi)
+        # (plan, u32 matrix, f64 matrix): the payload packed in sorted
+        # order, gathered once per output batch
+        self.pack = pack
+        # (int32 (capacity, L) lanes, bool validity) in sorted order, or
+        # None for keys that are not integer-like
+        self.key_lanes = key_lanes
+
+    @staticmethod
+    def build(key_cols: Sequence[Column], payload: Sequence[Column],
+              num_rows, capacity: int) -> "BuildTable":
+        from .gather import gather_rows
+        for c in list(key_cols) + list(payload):
+            if type(c) is not Column:
+                raise NotImplementedError(
+                    "join columns other than fixed-width wait for a later "
+                    "slice (ROADMAP A.3)")
+        valid = _keys_valid(key_cols, num_rows, capacity)
+        # invalid/inactive rows sort last (max hash, then the invalid
+        # flag) and stay out of every range via the valid-count boundary
+        h_hi, h_lo = join_hash_pair(key_cols)
+        big = 0xFFFF_FFFF
+        k_hi = torch.where(valid, u32_of(h_hi), big)
+        k_lo = torch.where(valid, u32_of(h_lo), big)
+        # (k_hi, k_lo) as one signed order lane of the u64 pair:
+        # (hi * 2^32 + lo) - 2^63, computed without overflow
+        word = (k_hi - 0x80000000) * (1 << 32) + k_lo
+        perm = lexsort([(word, 64), ((~valid).to(torch.int64), 1)])
+        sorted_hi = k_hi[perm]
+        perm = perm.to(torch.int32)
+        valid_count = torch.sum(valid, dtype=torch.int32)
+        B = _bucket_bits(capacity)
+        n_buckets = 1 << B
+        iota = torch.arange(capacity, dtype=torch.int32, device=perm.device)
+        seg = torch.where(iota < valid_count, sorted_hi >> (32 - B),
+                          n_buckets)
+        counts = torch.zeros(n_buckets + 1, dtype=torch.int32,
+                             device=perm.device)
+        counts.index_add_(0, seg, torch.ones_like(iota))
+        bucket_table = torch.cat([
+            torch.zeros(1, dtype=torch.int32, device=perm.device),
+            torch.cumsum(counts[:n_buckets], 0, dtype=torch.int32)])
+        pair_table = torch.stack([bucket_table[:-1], bucket_table[1:]],
+                                 dim=1)
+        plan_p, pmat, pfmat = pack_rows(payload)
+        pmat_s, pfmat_s = gather_rows(plan_p, pmat, pfmat, perm)
+        pack = (plan_p, pmat_s, pfmat_s)
+        key_lanes = None
+        kl = int_key_lanes(key_cols)
+        if kl is not None:
+            lanes, kvalid = kl
+            p = perm.long()
+            key_lanes = (lanes[p], kvalid[p])
+        return BuildTable(bucket_table, perm, valid_count, num_rows,
+                          key_cols, payload, capacity, pair_table, pack,
+                          key_lanes)
+
+
+def probe_counts(build: BuildTable, stream_keys: Sequence[Column],
+                 stream_rows, stream_cap: int):
+    """Per-stream-row candidate range: (lo, counts, key validity). One
+    gather of the bucket's [lo, hi) pair; bucket-mates with other keys
+    are dropped by the key verify downstream."""
+    valid = _keys_valid(stream_keys, stream_rows, stream_cap)
+    h_hi, _ = join_hash_pair(stream_keys, lo_too=False)
+    b = u32_of(h_hi) >> (32 - _bucket_bits(build.capacity))
+    pair = build.pair_table[b]
+    hi = torch.minimum(pair[:, 1], build.valid_count)
+    lo = torch.minimum(pair[:, 0], hi)
+    counts = torch.where(valid, hi - lo, 0)
+    return lo, counts, valid
+
+
+def expand_candidates(lo, counts, out_capacity: int):
+    """Flatten candidate ranges into (stream_idx, build_pos) pairs, and the
+    int64 total. Pair i belongs to the stream row whose cumulative count
+    interval contains i: range starts scatter their owner row, a cummax
+    forward-fills it, one 2-lane gather turns flat positions into build
+    positions. Slots >= total have stream_idx -1."""
+    if out_capacity >= (1 << 31):
+        raise NotImplementedError(
+            "candidate buckets of 2^31 or more wait for the int64 "
+            "expansion (ROADMAP A.3)")
+    dev = counts.device
+    total = torch.sum(counts, dtype=torch.int64)
+    i = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    if counts.shape[0] == 0:
+        return torch.full_like(i, -1), torch.zeros_like(i), total
+    seg, ls = candidate_fill_inputs(lo, counts, out_capacity)
+    row_f = torch.cummax(seg, 0).values
+    g = ls[row_f.long()]
+    stream_idx = torch.where(i.to(torch.int64) < total, row_f, -1)
+    build_pos = g[:, 0] + (i - g[:, 1])
+    return stream_idx, build_pos, total
+
+
+def verify_pairs(build: BuildTable, stream_keys: Sequence[Column],
+                 stream_idx, build_pos, pair_valid):
+    """Exact key equality per candidate pair (nulls never match)."""
+    build_row = gather_column_indices(build.perm, build_pos)
+    ok = pair_valid
+    for bk, sk in zip(build.key_cols, stream_keys):
+        b = gather_column(bk, build_row)
+        s = gather_column(sk, stream_idx)
+        ok = ok & (b.data == s.data) & b.validity & s.validity
+    return ok, build_row
+
+
+def gather_column_indices(arr, idx):
+    in_range = (idx >= 0) & (idx < arr.shape[0])
+    safe = torch.where(in_range, idx, torch.zeros_like(idx)).long()
+    return torch.where(in_range, arr[safe], -1)
+
+
+def inner_gather_maps(verified, stream_idx, build_row, total):
+    """Compact verified pairs to the front: (stream_map, build_map, rows)."""
+    cap = verified.shape[0]
+    perm, n = compaction_order(verified, total)
+    act = active_mask(n, cap)
+    p = perm.long()
+    return (torch.where(act, stream_idx[p], -1),
+            torch.where(act, build_row[p], -1), n)

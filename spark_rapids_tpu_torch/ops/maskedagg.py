@@ -248,11 +248,19 @@ def masked_groupby(key_columns: Sequence[Column],
     `leftover` is True the output is INCOMPLETE (rows of dirty buckets are
     dropped): the caller runs under a speculation scope and must not
     return the result."""
-    G, R = group_slots, rounds
-    n_slots = R * G
-    out_cap = bucket_capacity(n_slots)
     seg, occ, key_slots, leftover = masked_group_assignment(
-        key_columns, num_rows, capacity, row_mask, G, R)
+        key_columns, num_rows, capacity, row_mask, group_slots, rounds)
+    out_keys, results, num_groups = _place_slots(
+        key_columns, agg_inputs, seg, occ, key_slots,
+        bucket_capacity(group_slots * rounds))
+    return out_keys, results, num_groups, leftover
+
+
+def _place_slots(key_columns, agg_inputs, seg, occ, key_slots,
+                 out_cap: int):
+    """Reduce each aggregate over the resolved slots and place the
+    occupied slots densely in an `out_cap` bucket."""
+    n_slots = occ.shape[0]
     act = seg < n_slots
     dense = torch.cumsum(occ.to(torch.int32), 0) - 1
     num_groups = torch.sum(occ, dtype=torch.int32)
@@ -272,7 +280,37 @@ def masked_groupby(key_columns: Sequence[Column],
                            out_cap)
         out_keys.append(Column(torch.where(v, d, torch.zeros_like(d)), v,
                                c.dtype))
-    return out_keys, results, num_groups, leftover
+    return out_keys, results, num_groups
+
+
+def masked_groupby_exact(key_columns: Sequence[Column],
+                         agg_inputs: Sequence[Tuple[str, Optional[Column]]],
+                         num_rows, capacity: int, row_mask=None,
+                         group_slots: int = 32, rounds: int = 2):
+    """Exact full-capacity group-by: the masked-bucket assignment, then
+    either its dense placement or, when rows are left over, the exact
+    sort-based group-by (ops/aggregate.groupby_aggregate). Output
+    capacity == input capacity on both branches.
+
+    The JAX package chooses the branch inside the program (lax.cond) and
+    never synchronises; eager PyTorch has no in-graph branch, so this
+    reads `leftover` on the host once per call."""
+    from .aggregate import groupby_aggregate
+    from .basic import compact_columns
+    seg, occ, key_slots, leftover = masked_group_assignment(
+        key_columns, num_rows, capacity, row_mask, group_slots, rounds)
+    if not bool(leftover):
+        return _place_slots(key_columns, agg_inputs, seg, occ, key_slots,
+                            capacity)
+    keys, aggs, n = list(key_columns), list(agg_inputs), num_rows
+    if row_mask is not None:
+        # the sort-based path needs the kept rows packed at the front
+        inputs = [c for _, c in agg_inputs if c is not None]
+        packed, n = compact_columns(keys + inputs, row_mask, num_rows)
+        keys, rest = list(packed[: len(keys)]), iter(packed[len(keys):])
+        aggs = [(op, next(rest) if c is not None else None)
+                for op, c in agg_inputs]
+    return groupby_aggregate(keys, aggs, n, capacity)
 
 
 def place_dense(vals, valids, occ, target, out_cap: int):

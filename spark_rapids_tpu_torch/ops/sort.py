@@ -1,7 +1,5 @@
-"""Order-key lanes — the counterpart of the part of
-spark_rapids_tpu/ops/sort.py that the masked-bucket group-by uses
-(`_numeric_order_key`, `_float_order_bits`). Sort kernels wait for a
-later slice.
+"""Multi-column sorts over order-key lanes — the counterpart of
+spark_rapids_tpu/ops/sort.py for fixed-width columns.
 
 The JAX package maps a column to an unsigned lane (u8/u16/u32/u64) that
 sorts ascending in value order. PyTorch has no shifts, remainders or
@@ -12,9 +10,18 @@ carries the same lane in an int64 tensor ("signed order lane"):
     which makes signed int64 order equal the unsigned order.
 Both are exact encodings of the JAX lane: comparisons, min/max and the
 bucket hash (ops/maskedagg._bucket_hash) give the same answers.
+
+`jax.lax.sort` takes many key lanes at once; torch.sort takes one. So
+`lexsort` packs neighbouring narrow lanes into one int64 word while their
+widths fit in 63 bits, and runs stable sorts from the last word to the
+first. Starting from the identity permutation, stability makes the row
+index the final tie-break: the JAX package's trailing iota key.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -70,3 +77,117 @@ def _numeric_order_key(col: Column) -> torch.Tensor:
         # u = data ^ sign; signed lane = u ^ sign = data
         return data
     return data.to(torch.int64) + (1 << (bits - 1))
+
+
+@dataclass(frozen=True)
+class SortOrder:
+    """One ORDER BY term: column ordinal + direction + null placement.
+
+    Spark defaults: ascending => nulls first, descending => nulls last.
+    """
+    ordinal: int
+    ascending: bool = True
+    nulls_first: bool = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        if self.nulls_first is None:
+            object.__setattr__(self, "nulls_first", self.ascending)
+
+
+#: (lane, width): an int64 tensor holding values in [0, 2^width), or a
+#: signed order lane when width is 64
+Lane = Tuple[torch.Tensor, int]
+
+
+def order_key_lanes(columns: Sequence[Column], orders: Sequence[SortOrder],
+                    num_rows, capacity: int) -> List[Lane]:
+    """The full lane stack [activity, (nulls, value)*] whose ascending
+    lexicographic order is the requested Spark ordering, inactive rows
+    last."""
+    from .basic import active_mask
+    dev = columns[0].device if columns else num_rows.device
+    act = active_mask(num_rows, capacity, dev)
+    lanes: List[Lane] = [((~act).to(torch.int64), 1)]
+    for o in orders:
+        col = columns[o.ordinal]
+        valid = col.validity & act
+        # nulls_first => a null ranks 0, else 1
+        null_rank = valid if o.nulls_first else ~valid
+        lanes.append((null_rank.to(torch.int64), 1))
+        bits = lane_bits(col.data.dtype)
+        zero = INT64_MIN if bits == 64 else 0
+        v = torch.where(valid, _numeric_order_key(col),
+                        torch.full((), zero, dtype=torch.int64, device=dev))
+        if not o.ascending:
+            v = ~v if bits == 64 else ((1 << bits) - 1) - v
+        lanes.append((v, bits))
+    return lanes
+
+
+def lexsort(lanes: Sequence[Lane]) -> torch.Tensor:
+    """Stable permutation (int64) ordering rows by `lanes`
+    lexicographically, ties by row index."""
+    words: List[torch.Tensor] = []
+    cur, used = None, 0
+    for lane, bits in lanes:
+        if bits == 64 or cur is None or used + bits > 63:
+            if cur is not None:
+                words.append(cur)
+            cur, used = lane, bits
+        else:
+            cur, used = (cur << bits) | lane, used + bits
+    if cur is not None:
+        words.append(cur)
+    n = words[0].shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=words[0].device)
+    for w in reversed(words):
+        _, order = torch.sort(w[perm], stable=True)
+        perm = perm[order]
+    return perm
+
+
+def sort_permutation(columns: Sequence[Column], orders: Sequence[SortOrder],
+                     num_rows, capacity: int) -> torch.Tensor:
+    """Stable sort permutation: int32 (capacity,) such that gathering by it
+    yields rows in the requested order, inactive rows last."""
+    return lexsort(order_key_lanes(columns, orders, num_rows,
+                                   capacity)).to(torch.int32)
+
+
+def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
+                       num_rows, capacity: int
+                       ) -> Tuple[List[Column], torch.Tensor]:
+    """Sort all columns of a batch; returns (sorted columns, permutation).
+    The columns move by one packed row gather through the gather engine
+    (the JAX package carries them as extra operands of its sort)."""
+    from .gather import gather_rows
+    from .rowpack import pack_rows, unpack_rows
+    perm = sort_permutation(columns, orders, num_rows, capacity)
+    plan, imat, fmat = pack_rows(columns)
+    gi, gf = gather_rows(plan, imat, fmat, perm)
+    return unpack_rows(plan, gi, gf), perm
+
+
+def group_segment_ids(key_columns: Sequence[Column], num_rows,
+                      capacity: int):
+    """For KEY-SORTED columns: (segment_ids int32 (capacity,), num_groups).
+
+    Rows with equal keys (nulls equal, Spark GROUP BY semantics) share an
+    id; ids are dense 0..num_groups-1 in sorted order; inactive rows get
+    id == capacity."""
+    from .basic import active_mask
+    dev = key_columns[0].device
+    act = active_mask(num_rows, capacity, dev)
+    orders = [SortOrder(i) for i in range(len(key_columns))]
+    lanes = order_key_lanes(key_columns, orders, num_rows, capacity)[1:]
+    boundary = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    for lane, _ in lanes:
+        boundary |= lane != torch.roll(lane, 1)
+    boundary[0] = True
+    boundary &= act
+    seg = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    num_groups = torch.where(
+        torch.as_tensor(num_rows, device=dev) > 0,
+        torch.max(torch.where(act, seg, -1)) + 1, 0).to(torch.int32)
+    seg = torch.where(act, seg, capacity)
+    return seg, num_groups

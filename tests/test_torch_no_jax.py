@@ -27,6 +27,11 @@ import spark_rapids_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+q3 = ["ops.hashing", "ops.murmur3_lanes", "ops.rowpack", "ops.row_gather",
+      "ops.gather", "ops.aggregate", "ops.join", "ops.probe_verify",
+      "exec.joins", "exec.sort"]
+missing = [m for m in q3 if pkg.__name__ + "." + m not in mods]
+assert not missing, missing
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))

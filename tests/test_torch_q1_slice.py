@@ -3,19 +3,13 @@ aggregate tree built in both packages at 16K rows, run under a speculation
 scope, against each other and against bench.numpy_oracle.
 
 Groups must come out in the same order with exact integers; f64 sums
-agree to rtol 1e-12 (summation order). The JAX exec path calls
-`jax.core.trace_state_clean`, which jax 0.9 moved to
-`jax._src.core.trace_state_clean`; a module-scoped fixture installs that
-alias only when it is missing and removes it (and the dispatch module's
-cached lookup) at teardown, so no other test file sees it.
+agree to rtol 1e-12 (summation order). The JAX exec path needs the jax
+0.9 aliases of test_torch_jax_ref.jax_aliases, installed for this module
+only.
 """
 
 import numpy as np
 import pytest
-import torch
-
-import spark_rapids_tpu  # noqa: F401  (enables jax x64)
-import jax
 
 import bench
 from spark_rapids_tpu import types as jt
@@ -35,23 +29,15 @@ from spark_rapids_tpu_torch.exec import speculation as tspec
 from spark_rapids_tpu_torch.expr import aggexprs as taggexprs
 from spark_rapids_tpu_torch.expr import core as tcore
 
+from test_torch_jax_ref import jax_aliases
+
 ROWS = 1 << 14
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _jax_trace_state_alias():
-    from spark_rapids_tpu.obs import dispatch
-    installed = not hasattr(jax.core, "trace_state_clean")
-    original_lookup = dispatch._trace_state_clean
-    if installed:
-        jax.core.trace_state_clean = jax._src.core.trace_state_clean
-    try:
+def _aliases():
+    with jax_aliases():
         yield
-    finally:
-        if installed:
-            del jax.core.trace_state_clean
-        dispatch._trace_state_clean = original_lookup
-        dispatch.reset_dispatch_ledger()
 
 
 @pytest.fixture(scope="module")
@@ -148,10 +134,14 @@ def test_q1_slice_collect_and_metrics(data):
 
 
 def test_q1_outside_speculation_scope_raises(data):
-    _, _, tb, tschema = _batches(data)
-    plan = _q1_plan(tbasic, tagg, taggexprs, tcore, tb, tschema)
-    with pytest.raises(NotImplementedError):
-        list(plan.execute())
+    """Outside a speculation scope q1 no longer raises: it runs the exact
+    tier, in the same group order as the JAX package's exact tier."""
+    jb, jschema, tb, tschema = _batches(data)
+    jplan = _q1_plan(jbasic, jagg, jaggexprs, jcore, jb, jschema)
+    tplan = _q1_plan(tbasic, tagg, taggexprs, tcore, tb, tschema)
+    jrows = [r for b in jplan.execute() for r in b.to_pylist()]
+    trows = [r for b in tplan.execute() for r in b.to_pylist()]
+    _assert_rows_close(trows, jrows)
 
 
 def test_ineligible_chain_takes_masked_groupby_like_jax(data):
