@@ -7,10 +7,11 @@ Needs one CUDA card and nvcc (CUDA_HOME, /usr/local/cuda or PATH); runs
 from the repository root and imports nothing of JAX. Phases, each of which
 fails the run on error:
 
-  1. builds every kernel of the q1 and q3 paths (the fused scan-aggregate
-     specs, csrc/murmur3.cu, csrc/probe_verify.cu, csrc/row_gather.cu; one
-     nvcc per source, all started together) and prints the build time and
-     ptxas's register and spill counts;
+  1. builds every kernel of the q1, q3 and q19 paths (the fused
+     scan-aggregate specs, csrc/murmur3.cu, csrc/probe_verify.cu,
+     csrc/row_gather.cu, csrc/dict_gather.cu; one nvcc per source, all
+     started together) and prints the build time and ptxas's register and
+     spill counts;
   2. holds each kernel against its plain PyTorch version on the card:
      fused_scan_agg on three specs at sizes ragged against the block size,
      with nulls and a high-cardinality case whose leftover flag must trip;
@@ -19,24 +20,32 @@ fails the run on error:
      lanes with duplicate build keys, buckets shared by several keys, empty
      ranges and a candidate bucket smaller than the total (exact on the
      slots below the total); the packed row gather with -1 and out-of-range
-     indices, f64 lanes and NaN payloads (exact bits); and every kernel on
-     its main path's own inputs;
+     indices, f64 lanes and NaN payloads (exact bits); the dictionary
+     gather at the TPU kernel's own (4096, 128) x (16384, 128) shape and on
+     one-lane 1- and 4-byte tables staged in shared memory and read from
+     global memory, with codes of -1, n and above on ragged row counts
+     (exact); and every kernel on its main path's own inputs;
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
      x 524,288 orders, a second time with the join's speculative size
-     cache warm, and q3 with INT order keys, all through the port's execs,
-     with every launch counter set to 0 just before each path and read just
-     after; checks q1 against bench.numpy_oracle and q3 against
-     bench.q3_oracle (integers and keys exact, f64 rtol 1e-9) and the
-     speculation flags (must stay False);
-  4. times the q1 and q3 steady states (one synchronisation per run of
-     iterations) and each kernel against its plain version, its bound and,
-     for the row gather, torch.index_select.
+     cache warm, q3 with INT order keys, and TPC-H Q19 at scale factor 1
+     (6,001,215 lineitems x 200,000 parts, four dictionary-encoded string
+     columns, code-space predicates, a join with a residual condition, a
+     grand aggregate), all through the port's execs, with every launch
+     counter set to 0 just before each path and read just after; checks q1
+     against bench.numpy_oracle, q3 against bench.q3_oracle (integers and
+     keys exact, f64 rtol 1e-9), q19 against q19_oracle (the qualifying
+     row count exact, revenue rtol 1e-9) and the speculation flags (must
+     stay False);
+  4. times the q1, q3 and q19 steady states (one synchronisation per run
+     of iterations) and each kernel against its plain version, its bound
+     and, for the row gather and the dictionary gather, the one PyTorch
+     call that computes the same function.
 
 With --profile TRACE it also runs each steady state under torch.profiler,
 prints the device's busy share and time by kernel, and writes the Chrome
-traces to TRACE (q1) and TRACE with "_q3" before its suffix (q3).
+traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
 The last lines are a JSON line with one record per ported kernel, the card
 as nvidia-smi names it, and {"ok": true, "device": {...}}.
@@ -68,7 +77,7 @@ DEVICE = "cuda"
 
 #: device-side names of the ported kernels' __global__ functions
 PORTED_KERNEL_PREFIXES = ("fsa_", "m3_long", "m3_int", "probe_verify",
-                          "row_gather")
+                          "row_gather", "void dict_gather")
 
 BUCKETS = 32            # G of the q1 lane (min(32, slots))
 OUT_CAP = 128           # bucket_capacity(slots * rounds)
@@ -436,18 +445,211 @@ def check_q3(rows, oracle, label):
                                  f"{oracle[int(k)]}")
 
 
+# -- q19 --------------------------------------------------------------------
+
+Q19_PARTS = 200_000      # TPC-H SF1 part rows (clause 4.2.5)
+Q19_LINES = 6_001_215    # TPC-H SF1 lineitem rows
+Q19_ITERS = 10           # steady-state runs of the whole q19 plan
+#: clause 2.4.19.4's validation parameters, one disjunct each:
+#: (brand, containers, quantity, largest p_size)
+Q19_TERMS = (
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 15))
+#: the query's text; the data hold 'REG AIR', so 'AIR REG' matches no row
+Q19_SHIPMODES = ("AIR", "AIR REG")
+Q19_INSTRUCT = "DELIVER IN PERSON"
+Q19_QTY_SPAN = 10        # l_quantity between q and q + 10
+
+#: clause 4.2.2.13's value lists
+BRANDS = tuple(f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6))
+CONTAINERS = tuple(f"{a} {b}" for a in ("SM", "LG", "MED", "JUMBO", "WRAP")
+                   for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK",
+                             "CAN", "DRUM"))
+SHIPINSTRUCTS = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                 "TAKE BACK RETURN")
+SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+
+Q19_PART_FIELDS = (("p_partkey", "LONG"), ("p_brand", "STRING"),
+                   ("p_size", "INT"), ("p_container", "STRING"))
+Q19_LINE_FIELDS = (("l_partkey", "LONG"), ("l_quantity", "DOUBLE"),
+                   ("l_extendedprice", "DOUBLE"), ("l_discount", "DOUBLE"),
+                   ("l_shipinstruct", "STRING"), ("l_shipmode", "STRING"))
+
+
+def q19_data(n_part=Q19_PARTS, n_line=Q19_LINES, seed=19):
+    """part and lineitem columns by TPC-H's generation rules (clause
+    4.2.3), from a fixed seed. A string column is (int32 codes, values):
+    the values are its dictionary, as a Parquet dictionary page holds it."""
+    rng = np.random.default_rng(seed)
+    partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    retail = (90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)) / 100
+    l_partkey = rng.integers(1, n_part + 1, n_line, dtype=np.int64)
+    qty = rng.integers(1, 51, n_line).astype(np.float64)
+
+    def codes(values, n):
+        return rng.integers(0, len(values), n).astype(np.int32), values
+
+    return {
+        "p_partkey": partkey,
+        "p_brand": codes(BRANDS, n_part),
+        "p_size": rng.integers(1, 51, n_part).astype(np.int32),
+        "p_container": codes(CONTAINERS, n_part),
+        "l_partkey": l_partkey,
+        "l_quantity": qty,
+        "l_extendedprice": qty * retail[l_partkey - 1],
+        "l_discount": rng.integers(0, 11, n_line) / 100.0,
+        "l_shipinstruct": codes(SHIPINSTRUCTS, n_line),
+        "l_shipmode": codes(SHIPMODES, n_line),
+    }
+
+
+def q19_oracle(d, terms=Q19_TERMS, span=Q19_QTY_SPAN,
+               shipmodes=Q19_SHIPMODES):
+    """Q19 in numpy: (revenue or None, qualifying lineitem rows). A
+    string literal matches the rows whose value equals it (none when it
+    is not among the values)."""
+    def isin(name, literals, rows=slice(None)):
+        c, values = d[name]
+        return np.isin(c[rows], [values.index(x) for x in literals
+                                 if x in values])
+
+    p = d["l_partkey"] - 1
+    qty = d["l_quantity"]
+    size = d["p_size"][p]
+    keep = isin("l_shipmode", shipmodes) & isin("l_shipinstruct",
+                                                (Q19_INSTRUCT,))
+    any_term = np.zeros_like(keep)
+    for brand, containers, q, s in terms:
+        any_term |= (isin("p_brand", (brand,), p)
+                     & isin("p_container", containers, p)
+                     & (qty >= q) & (qty <= q + span)
+                     & (size >= 1) & (size <= s))
+    keep &= any_term
+    n = int(keep.sum())
+    rev = float((d["l_extendedprice"] * (1.0 - d["l_discount"]))[keep].sum())
+    return (rev if n else None), n
+
+
+def port_modules():
+    """The port's types, expressions and execs Q19 is built from."""
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.exec import aggregate, basic, joins
+    from spark_rapids_tpu_torch.expr import aggexprs, core, predicates
+    return SimpleNamespace(t=t, core=core, pred=predicates, basic=basic,
+                           joins=joins, agg=aggregate, aggexprs=aggexprs)
+
+
+def q19_schemas(t):
+    return [t.Schema(tuple(t.StructField(n, getattr(t, ty)) for n, ty in fs))
+            for fs in (Q19_LINE_FIELDS, Q19_PART_FIELDS)]
+
+
+def q19_batches(d, dev):
+    """The port's lineitem and part batches: fixed-width columns and
+    DictionaryColumns built from the same numpy arrays."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column, string_buffers
+    from spark_rapids_tpu_torch.columnar.encoded import dictionary_from_numpy
+    out = []
+    for schema in q19_schemas(port_modules().t):
+        cols = []
+        for f in schema.fields:
+            v = d[f.name]
+            if isinstance(v, tuple):
+                cols.append(dictionary_from_numpy(
+                    v[0], *string_buffers(v[1]), device=dev))
+            else:
+                cols.append(Column.from_numpy(v, f.data_type, device=dev))
+        out.append(ColumnarBatch(cols, d[schema.fields[0].name].shape[0],
+                                 schema))
+    return out
+
+
+def q19_plan(m, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
+             shipmodes=Q19_SHIPMODES):
+    """TPC-H Q19 as Spark plans it, in the package whose modules `m`
+    holds (`port_modules()`, or the JAX package's in the tests):
+
+      l = Filter(l_shipmode IN (...) AND l_shipinstruct = '...', scan)
+      p = Filter(p_size >= 1 AND (term 1 OR term 2 OR term 3), scan)
+      j = HashJoin(l, p, l_partkey = p_partkey, inner, build right,
+                   condition = the query's three-way OR)
+      Aggregate(sum(l_extendedprice * (1 - l_discount)), Project(j))"""
+    col, lit, pr = m.core.col, m.core.lit, m.pred
+    l_schema, p_schema = l_batch.schema, p_batch.schema
+
+    def all_of(*es):
+        out = es[0]
+        for e in es[1:]:
+            out = pr.And(out, e)
+        return out
+
+    def any_of(*es):
+        out = es[0]
+        for e in es[1:]:
+            out = pr.Or(out, e)
+        return out
+
+    ship = [pr.In(col("l_shipmode"), list(shipmodes)),
+            pr.EqualTo(col("l_shipinstruct"), lit(Q19_INSTRUCT))]
+    part_terms, terms_all = [], []
+    for brand, containers, q, s in terms:
+        part = [pr.EqualTo(col("p_brand"), lit(brand)),
+                pr.In(col("p_container"), list(containers))]
+        part_terms.append(all_of(*part, pr.LessThanOrEqual(col("p_size"),
+                                                           lit(s))))
+        terms_all.append(all_of(
+            *part,
+            pr.GreaterThanOrEqual(col("l_quantity"), lit(float(q))),
+            pr.LessThanOrEqual(col("l_quantity"), lit(float(q + span))),
+            pr.GreaterThanOrEqual(col("p_size"), lit(1)),
+            pr.LessThanOrEqual(col("p_size"), lit(s)), *ship))
+    b = m.basic
+    lines = b.FilterExec(all_of(*ship), b.InMemoryScanExec([l_batch],
+                                                           l_schema))
+    parts = b.FilterExec(
+        pr.And(pr.GreaterThanOrEqual(col("p_size"), lit(1)),
+               any_of(*part_terms)),
+        b.InMemoryScanExec([p_batch], p_schema))
+    joined = m.joins.HashJoinExec(lines, parts, [col("l_partkey")],
+                                  [col("p_partkey")], "inner",
+                                  build_side="right",
+                                  condition=any_of(*terms_all))
+    proj = b.ProjectExec([col("l_extendedprice"), col("l_discount")], joined)
+    return m.agg.AggregateExec(
+        [], [(m.aggexprs.Sum(col("l_extendedprice")
+                             * (lit(1.0) - col("l_discount"))), "revenue")],
+        proj)
+
+
+def check_q19(rows, pairs, oracle, label):
+    want, want_pairs = oracle
+    got = rows[0][0] if len(rows) == 1 else rows
+    if pairs != want_pairs:
+        raise AssertionError(f"{label}: {pairs} qualifying rows != oracle "
+                             f"{want_pairs}")
+    if want is None:
+        if got is not None:
+            raise AssertionError(f"{label}: revenue {got} != oracle None")
+    elif got is None or abs(got - want) > RTOL * abs(want):
+        raise AssertionError(f"{label}: revenue {got} != oracle {want}")
+
+
 # -- launch counters --------------------------------------------------------
 
 def kernel_wrappers():
     """Every ported kernel's wrapper, whose `launches` counts its launches
     (and nothing else)."""
     from spark_rapids_tpu_torch.ops import (
-        fused_scan_agg, murmur3_lanes, probe_verify, row_gather)
+        dict_gather, fused_scan_agg, murmur3_lanes, probe_verify, row_gather)
     return {"fused_scan_agg": fused_scan_agg.fused_scan_agg,
             "murmur3_long_lanes": murmur3_lanes.murmur3_long_lanes,
             "murmur3_int_lanes": murmur3_lanes.murmur3_int_lanes,
             "fused_probe_verify": probe_verify.fused_probe_verify,
-            "dma_row_gather": row_gather.dma_row_gather}
+            "dma_row_gather": row_gather.dma_row_gather,
+            "dict_gather": dict_gather.dict_gather}
 
 
 def drive_counted(label, plan, need):
@@ -615,21 +817,23 @@ def compare_gather(dev):
           "NaN f64 payloads, exact bits")
 
 
-class Q3Inputs:
-    """The inputs q3's main path gives each kernel, taken from the port's
-    own exec: the join's build table and stream keys, its candidate
-    ranges and bucket, and the stream-side payload gather by the verified
-    pairs' stream rows (the join's output gather, in slot order)."""
+class JoinInputs:
+    """The inputs a main path gives each join kernel, taken from the
+    port's own join exec: its build table and stream keys, the candidate
+    ranges and bucket, and the row gathers the path makes (the build
+    permute of the packable payload, and both sides' payload gathers by
+    the verified pairs, in slot order). Dictionary columns take the
+    per-column path, so only the packable columns are packed."""
 
-    def __init__(self, plan):
+    def __init__(self, j):
         import torch
         from spark_rapids_tpu_torch.columnar.column import bucket_capacity
         from spark_rapids_tpu_torch.ops import hashing, join as oj
         from spark_rapids_tpu_torch.ops import probe_verify as pv
-        from spark_rapids_tpu_torch.ops.rowpack import pack_rows
-        j = plan.child._source
+        from spark_rapids_tpu_torch.ops.rowpack import is_packable, pack_rows
+        j.stamp_inputs()
         build = j._build()
-        stream = next(iter(j.children[0].execute()))
+        stream = next(iter(j.children[j._stream_side].execute()))
         lo, counts, skeys, total = j._counts_kernel(build, stream)
         self.total = int(total)
         self.cand_cap = bucket_capacity(max(self.total, 1))
@@ -643,39 +847,61 @@ class Q3Inputs:
         seed = hashing.i32_bits(torch.full_like(key, oj.JOIN_HASH_SEED,
                                                 dtype=torch.int64))
         self.hash = (key, seed)
-        verified, s_idx, _, _ = pv.fused_probe_verify_plain(
+        verified, s_idx, b_pos, _ = pv.fused_probe_verify_plain(
             *self.probe, self.cand_cap)
-        sel = s_idx[verified]
-        s_map = torch.full((self.cand_cap,), -1, dtype=torch.int32,
-                           device=key.device)
-        s_map[: sel.shape[0]] = sel
-        self.gather = (*pack_rows(list(stream.columns)), s_map)
+
+        def by_pairs(lane):
+            sel = lane[verified]
+            out = torch.full((self.cand_cap,), -1, dtype=torch.int32,
+                             device=key.device)
+            out[: sel.shape[0]] = sel
+            return out
+
+        plan_b, pmat_b, pfmat_b, ppi, _ = build.pack
+        self.gathers = {
+            "stream payload": (*pack_rows([c for c in stream.columns
+                                           if is_packable(c)]),
+                               by_pairs(s_idx)),
+            "build permute": (*pack_rows([build.payload[i] for i in ppi]),
+                              build.perm),
+            "build payload": (plan_b, pmat_b, pfmat_b, by_pairs(b_pos)),
+        }
 
 
-def compare_main_path_inputs(inputs, int_inputs):
+def compare_join_inputs(label, inputs):
+    """Each join kernel against its plain version, exactly, on a main
+    path's own inputs: the stream keys' hash, the probe and every row
+    gather."""
     import torch
     from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
     from spark_rapids_tpu_torch.ops import row_gather as rg
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
     key, seed = inputs.hash
-    _exact("murmur3_long q3 stream keys", [m3.murmur3_long_lanes(key, seed)],
-           [hashing.murmur3_long_plain(key, seed)])
-    ikey, iseed = int_inputs.hash
-    _exact("murmur3_int q3 INT stream keys",
-           [m3.murmur3_int_lanes(ikey, iseed)],
-           [hashing.murmur3_int_plain(ikey, iseed)])
-    hits = compare_probe("probe q3", inputs.probe, inputs.cand_cap,
+    if key.dtype == torch.int64:
+        name, fn, plain = ("murmur3_long", m3.murmur3_long_lanes,
+                           hashing.murmur3_long_plain)
+    else:
+        name, fn, plain = ("murmur3_int", m3.murmur3_int_lanes,
+                           hashing.murmur3_int_plain)
+    _exact(f"{name} {label} stream keys", [fn(key, seed)], [plain(key, seed)])
+    hits = compare_probe(f"probe {label}", inputs.probe, inputs.cand_cap,
                          inputs.total)
-    compare_probe("probe q3 INT keys", int_inputs.probe, int_inputs.cand_cap,
-                  int_inputs.total)
-    plan, imat, fmat, idx = inputs.gather
-    gi, gf = rg.pallas_gather_rows(plan, imat, fmat, idx)
-    wi, wf = gather_rows(plan, imat, fmat, idx)
-    _exact("row gather q3 stream payload", [gi, gf.view(torch.int64)],
-           [wi, wf.view(torch.int64)])
-    print(f"compare q3 main-path inputs: {inputs.stream_rows} stream keys, "
+    shapes = []
+    for what, (plan, imat, fmat, idx) in inputs.gathers.items():
+        got = rg.pallas_gather_rows(plan, imat, fmat, idx)
+        want = gather_rows(plan, imat, fmat, idx)
+        if [x is None for x in got] != [x is None for x in want]:
+            raise AssertionError(f"row gather {label} {what}: kernel != "
+                                 f"plain version")
+        _exact(f"row gather {label} {what}",
+               *([x.view(torch.int64) if x.is_floating_point() else x
+                  for x in out if x is not None] for out in (got, want)))
+        shapes.append(f"{what} {idx.shape[0]} of {imat.shape[0]} rows")
+    print(f"compare {label} main-path inputs: {name} of {key.shape[0]} "
+          f"stream keys, probe of {inputs.stream_rows} stream rows into "
           f"{inputs.build_rows} build rows, candidate total {inputs.total} "
-          f"in {inputs.cand_cap} slots, {hits} verified pairs; exact")
+          f"in {inputs.cand_cap} slots, {hits} verified pairs; row gathers "
+          f"{'; '.join(shapes)}; exact")
 
 
 # -- bounds -----------------------------------------------------------------
@@ -748,7 +974,7 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
         cuda_ms(lambda: pv.fused_probe_verify_plain(*args, cap), plain_reps),
         bound(probe_bytes, probe_ops), None)
 
-    plan, imat, fmat, idx = inputs.gather
+    plan, imat, fmat, idx = inputs.gathers["stream payload"]
     lanes = imat.shape[1] + 2 * fmat.shape[1]
     mat = torch.cat([imat, fmat.view(torch.int32)], dim=1).contiguous()
     safe = torch.where((idx >= 0) & (idx < mat.shape[0]), idx, 0)
@@ -762,13 +988,116 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
     return records
 
 
+# -- the dictionary gather ---------------------------------------------------
+
+#: the TPU kernel's shape (tools/exp_gather.py:158-165): an int32 table of
+#: DG_TABLE x 128 and DG_ROWS x 128 indices in [0, DG_TABLE)
+DG_TABLE, DG_ROWS = 4096, 16384
+
+
+def _dg_inputs(dev, seed=41):
+    import torch
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 1 << 30, (DG_TABLE, 128), dtype=np.int32)
+    idx = rng.integers(0, DG_TABLE, (DG_ROWS, 128), dtype=np.int32)
+    return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def compare_dict_gather(dev, q19_lines):
+    """The kernel against dict_gather_plain, exactly: dg's own shape; one
+    lane of 1- and 4-byte elements at n = 7, 4096, just under the card's
+    shared-memory budget and 1,048,576 (global-memory mode) with codes of
+    -1, n and above on ragged row counts; and q19's l_shipmode take."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.encoded import dict_take, literal_hits
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    table, idx = _dg_inputs(dev)
+    _exact("dict_gather dg shape", [dg.dict_gather(table, idx)],
+           [dg.dict_gather_plain(table, idx)])
+    budget = dg.smem_budget()
+    rng = np.random.default_rng(43)
+    modes = []
+    for elt, dtype in ((1, torch.bool), (4, torch.int32)):
+        for n in (7, 4096, budget // elt - 1, 1 << 20):
+            lb = dg.lanes_per_block(n, 1, elt, budget)
+            if (lb == 0) != (n == 1 << 20):
+                raise AssertionError(f"dict_gather n={n} elt={elt}: mode "
+                                     f"lb={lb}")
+            modes.append(("staged" if lb else "global", n, elt))
+            if dtype == torch.bool:
+                t = torch.from_numpy(rng.random((n, 1)) > 0.5).to(dev)
+            else:
+                t = torch.from_numpy(_random_ints(rng, n, np.int32)
+                                     .reshape(n, 1)).to(dev)
+            for rows in (1, 1000, 65537, (1 << 20) + 3):
+                c = rng.integers(-2, n + 2, rows).astype(np.int32)
+                c[::7] = -1
+                c[::11] = n
+                c[::13] = np.iinfo(np.int32).max
+                c[::17] = np.iinfo(np.int32).min
+                c = torch.from_numpy(c).to(dev).reshape(rows, 1)
+                _exact(f"dict_gather n={n} elt={elt} rows={rows}",
+                       [dg.dict_gather(t, c)], [dg.dict_gather_plain(t, c)])
+    mode = q19_lines.column("l_shipmode")
+    hit = literal_hits(mode, "AIR")
+    _exact("dict_gather q19 l_shipmode take", [dict_take(hit, mode.codes)],
+           [dg.dict_gather_plain(hit.reshape(-1, 1),
+                                 mode.codes.reshape(-1, 1)).reshape(-1)])
+    print(f"compare dict_gather: dg (4096, 128) x (16384, 128); one lane "
+          f"{modes} each at 4 row counts with -1/n/INT_MAX/INT_MIN codes; "
+          f"q19 l_shipmode {mode.capacity} codes; exact (budget {budget} B)")
+
+
+def time_dict_gather(q19_lines, launches):
+    """The dictionary gather at dg's shape and at q19's 1-byte take over
+    the l_shipmode codes: kernel, plain version, byte bound and the one
+    PyTorch call that computes the same function (torch.gather; a table
+    index for one lane) on the same inputs, the indices clamped and
+    widened to int64 beforehand (PyTorch indexes with int64). Returns the
+    record of the q19 take, the main path's shape."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.encoded import literal_hits
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    dev = q19_lines.device
+    table, idx = _dg_inputs(dev)
+    idx64 = idx.long()
+    mode = q19_lines.column("l_shipmode")
+    hit = literal_hits(mode, "AIR").reshape(-1, 1)
+    codes = mode.codes.reshape(-1, 1)
+    safe64 = codes.clamp(0, hit.shape[0] - 1).reshape(-1).long()
+    flat = hit.reshape(-1)
+    out = {}
+    for label, t, i, lib in (
+            ("dg (4096, 128) x (16384, 128) int32", table, idx,
+             lambda: torch.gather(table, 0, idx64)),
+            (f"q19 l_shipmode take, {codes.shape[0]} codes into "
+             f"{hit.shape[0]} bool entries", hit, codes,
+             lambda: flat[safe64])):
+        rows, lanes = i.shape
+        n, elt = t.shape[0], t.element_size()
+        ms = cuda_ms(lambda: dg.dict_gather(t, i), reps)
+        plain_ms = cuda_ms(lambda: dg.dict_gather_plain(t, i), plain_reps)
+        lib_ms = cuda_ms(lib, reps)
+        b = bound(rows * lanes * (4 + elt) + n * lanes * elt, 0)
+        print(f"dict_gather {label}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+              f"{b[0] / ms:.1%} of the bound, library {lib_ms:.4f} ms")
+        out = {"name": "dict_gather", "route": "cuda",
+               "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
+               "replaces": "tools/exp_gather.py:168", "launches": launches,
+               "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1 and q3 steady states (device busy share, "
-             "time by kernel) and write their Chrome traces to TRACE and "
-             "TRACE with _q3 before its suffix")
+        help="also profile the q1, q3 and q19 steady states (device busy "
+             "share, time by kernel) and write their Chrome traces to TRACE "
+             "and TRACE with _q3 or _q19 before its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -812,13 +1141,18 @@ def main() -> int:
     q3_want = q3_oracle(d3)
     q3 = q3_plan(d3, dev, "LONG")
     q3i = q3_plan(d3i, dev, "INT")
+    d19 = q19_data()
+    q19_want = q19_oracle(d19)
+    l19, p19 = q19_batches(d19, dev)
+    q19 = q19_plan(port_modules(), l19, p19)
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
     sources = [fsa.kernel_source(s) for s in (q1_spec, mm_spec, zoo)] + [
         build.csrc_source(name)
-        for name in ("murmur3.cu", "probe_verify.cu", "row_gather.cu")]
+        for name in ("murmur3.cu", "probe_verify.cu", "row_gather.cu",
+                     "dict_gather.cu")]
     build.build_all(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} "
           f"kernel sources")
@@ -854,8 +1188,12 @@ def main() -> int:
     compare_murmur3(dev)
     compare_probe_cases(dev)
     compare_gather(dev)
-    q3_in, q3i_in = Q3Inputs(q3), Q3Inputs(q3i)
-    compare_main_path_inputs(q3_in, q3i_in)
+    q3_in = JoinInputs(q3.child._source)
+    q3i_in = JoinInputs(q3i.child._source)
+    compare_join_inputs("q3", q3_in)
+    compare_join_inputs("q3 INT keys", q3i_in)
+    compare_join_inputs("q19", JoinInputs(q19._source))
+    compare_dict_gather(dev, l19)
     torch.cuda.synchronize()
 
     # -- phase 3: the main paths, counted -----------------------------------
@@ -884,6 +1222,16 @@ def main() -> int:
     check_q3(rows, q3_want, "q3 INT keys")
     print(f"q3 with INT order keys: equal to the oracle; launches "
           f"{q3i_counts}")
+    join_rows = q19._source.metrics["numOutputRows"]
+    before = join_rows.value
+    rows, q19_counts = drive_counted(
+        "q19", q19, ["dict_gather", "murmur3_long_lanes",
+                     "fused_probe_verify", "dma_row_gather"])
+    pairs = join_rows.value - before
+    check_q19(rows, pairs, q19_want, "q19")
+    print(f"q19 at SF1 ({Q19_LINES} x {Q19_PARTS}): revenue {rows[0][0]!r} "
+          f"over {pairs} qualifying rows, equal to the numpy oracle; "
+          f"launches {q19_counts}")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -915,10 +1263,30 @@ def main() -> int:
     print(f"q3 steady state: {q3_ms:.3f} ms/iteration, "
           f"{q3_bytes / q3_ms / 1e6:.1f} GB/s of column data "
           f"({Q3_ITERS} iterations, one sync)")
+    q19_bytes = sum(
+        x.nbytes for b in (l19, p19) for c in b.columns
+        for x in ((c.codes, c.validity, c.dict_data, c.dict_offsets)
+                  if hasattr(c, "codes") else (c.data, c.validity)))
+    with speculation_scope() as scope:
+        list(q19.execute())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q19_ITERS):
+            list(q19.execute())
+        torch.cuda.synchronize()
+        q19_ms = (time.perf_counter() - t0) * 1e3 / Q19_ITERS
+        if scope.tripped():
+            raise AssertionError("q19 speculation flag tripped in steady "
+                                 "state")
+    print(f"q19 steady state: {q19_ms:.3f} ms/iteration, "
+          f"{q19_bytes / q19_ms / 1e6:.1f} GB/s of column data "
+          f"({q19_bytes} bytes, {Q19_ITERS} iterations, one sync)")
     if args.profile:
         profile_plan("q1", plan, 10, args.profile)
         profile_plan("q3", q3, Q3_ITERS, args.profile.with_name(
             args.profile.stem + "_q3" + args.profile.suffix))
+        profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
+            args.profile.stem + "_q19" + args.profile.suffix))
 
     ms = cuda_ms(lambda: fsa._partials_cuda(q1_spec, batch, BUCKETS),
                  KERNEL_REPS)
@@ -943,7 +1311,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts)
+    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + [
+        time_dict_gather(l19, q19_counts["dict_gather"])]
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

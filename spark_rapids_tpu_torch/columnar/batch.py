@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..types import Schema
-from .column import Column, resolve_device
+from .column import Column, bucket_capacity, resolve_device
 
 
 class ColumnarBatch:
@@ -91,13 +91,25 @@ class ColumnarBatch:
                 f"schema={self.schema.names})")
 
 
+def _empty_column(dtype, capacity: int, dev) -> Column:
+    valid = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    if dtype.torch_dtype is None:
+        # a string column: NULL_CODE rows into an empty dictionary (one
+        # padded bucket of zero-length entries)
+        from .encoded import NULL_CODE, DictionaryColumn
+        return DictionaryColumn(
+            torch.full((capacity,), NULL_CODE, dtype=torch.int32,
+                       device=dev),
+            torch.zeros(bucket_capacity(1), dtype=torch.uint8, device=dev),
+            torch.zeros(bucket_capacity(1) + 1, dtype=torch.int32,
+                        device=dev), valid, dtype)
+    return Column(torch.zeros(capacity, dtype=dtype.torch_dtype, device=dev),
+                  valid, dtype)
+
+
 def empty_batch(schema: Schema, capacity: int = 128,
                 device=None) -> ColumnarBatch:
     dev = resolve_device(device)
-    cols = [Column(torch.zeros(capacity, dtype=f.data_type.torch_dtype,
-                               device=dev),
-                   torch.zeros(capacity, dtype=torch.bool, device=dev),
-                   f.data_type)
-            for f in schema.fields]
+    cols = [_empty_column(f.data_type, capacity, dev) for f in schema.fields]
     return ColumnarBatch(cols, torch.zeros((), dtype=torch.int32, device=dev),
                          schema, 0)

@@ -1,5 +1,6 @@
-"""Device columns — the counterpart of spark_rapids_tpu/columnar/column.py
-(fixed-width columns only).
+"""Device columns — the counterpart of spark_rapids_tpu/columnar/column.py:
+fixed-width columns, and string columns as far as a dictionary needs them
+(columnar/encoded.py).
 
 Every column is padded to a power-of-two capacity bucket, exactly as in
 the JAX package, and the logical row count rides beside the data as a
@@ -11,12 +12,12 @@ are always invalid.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..types import DataType
+from ..types import BinaryType, DataType, StringType
 
 #: minimum capacity bucket (the JAX package's TPU lane width, kept so the
 #: two packages pad identically)
@@ -104,3 +105,106 @@ class Column:
 
     def __repr__(self):
         return f"Column({self.dtype!r}, cap={self.capacity})"
+
+
+class StringColumn(Column):
+    """Varlen column: uint8 byte buffer + int32 offsets (Arrow layout).
+
+    offsets has shape (capacity + 1,) and repeats its last value over the
+    padding rows, so their lengths are zero; the byte buffer is padded to
+    its own bucket. The port has no string operators yet: a StringColumn
+    is the dictionary of a DictionaryColumn (columnar/encoded.py)."""
+
+    __slots__ = ("offsets",)
+
+    def __init__(self, data: torch.Tensor, offsets: torch.Tensor,
+                 validity: torch.Tensor, dtype: DataType = StringType()):
+        super().__init__(data, validity, dtype)
+        self.offsets = offsets
+
+    @staticmethod
+    def from_numpy(data: np.ndarray, offsets: np.ndarray,
+                   validity: Optional[np.ndarray] = None,
+                   dtype: DataType = StringType(),
+                   capacity: Optional[int] = None,
+                   device=None) -> "StringColumn":
+        """From Arrow-layout numpy buffers of n rows: `offsets` (n + 1,)
+        int32 from 0, `data` the bytes. Pads rows to `capacity` (default
+        the bucket of n) and bytes to their own bucket."""
+        dev = resolve_device(device)
+        offsets = np.asarray(offsets, dtype=np.int32)
+        n = offsets.shape[0] - 1
+        cap = capacity or bucket_capacity(n)
+        total = int(offsets[n]) if n >= 0 else 0
+        off = np.full(cap + 1, total, dtype=np.int32)
+        off[: n + 1] = offsets
+        buf = np.zeros(bucket_capacity(max(total, 1)), dtype=np.uint8)
+        buf[:total] = np.asarray(data, dtype=np.uint8)[:total]
+        if validity is None:
+            validity = np.ones(n, dtype=np.bool_)
+        valid = _pad_np(np.asarray(validity, dtype=np.bool_), cap,
+                        fill=False)
+        return StringColumn(torch.from_numpy(buf).to(dev),
+                            torch.from_numpy(off).to(dev),
+                            torch.from_numpy(valid).to(dev), dtype)
+
+    @staticmethod
+    def from_pylist(values: Sequence[Optional[str]],
+                    capacity: Optional[int] = None,
+                    dtype: DataType = StringType(),
+                    device=None) -> "StringColumn":
+        data, offsets = string_buffers(values)
+        return StringColumn.from_numpy(
+            data, offsets, np.array([v is not None for v in values],
+                                    dtype=np.bool_),
+            dtype, capacity, device)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def byte_capacity(self) -> int:
+        return int(self.data.shape[0])
+
+    def with_capacity(self, capacity: int) -> "StringColumn":
+        """Grow (never shrink) the row bucket with zero-length rows."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        extra = capacity - cap
+        offsets = torch.cat([self.offsets, self.offsets[-1:].expand(extra)])
+        validity = torch.cat([self.validity,
+                              self.validity.new_zeros(extra)])
+        return StringColumn(self.data, offsets, validity, self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        data = self.data.cpu().numpy()
+        off = self.offsets.cpu().numpy()
+        valid = self.validity[:num_rows].cpu().numpy()
+        binary = isinstance(self.dtype, BinaryType)
+        out: List = []
+        for i in range(num_rows):
+            if not valid[i]:
+                out.append(None)
+                continue
+            b = data[off[i]: off[i + 1]].tobytes()
+            out.append(b if binary else b.decode("utf-8"))
+        return out
+
+    def __repr__(self):
+        return (f"StringColumn(cap={self.capacity}, "
+                f"bytes={self.byte_capacity})")
+
+
+def string_buffers(values: Sequence[Optional[object]]):
+    """Python strings (or bytes; None as empty) -> Arrow-layout numpy
+    (bytes uint8, offsets int32 (n + 1,))."""
+    raw = [b"" if v is None else
+           (v.encode("utf-8") if isinstance(v, str) else bytes(v))
+           for v in values]
+    offsets = np.zeros(len(raw) + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(np.fromiter(map(len, raw), np.int64, len(raw)))
+    return np.frombuffer(b"".join(raw), dtype=np.uint8), offsets

@@ -1,0 +1,219 @@
+"""Dictionary-encoded string columns — the counterpart of
+spark_rapids_tpu/columnar/encoded.py, as far as code-space predicates
+need it.
+
+A `DictionaryColumn` carries a device int32 code lane plus the per-batch
+dictionary (Arrow (offsets, bytes) layout, bucket-padded like every other
+buffer). Equality and IN against a string literal compare the literal with
+each dictionary entry once and take each row's answer from that per-entry
+hit lane by its code (`encoded_equal_literal` -> `dict_take`), never
+decoding a row. `dict_take` runs the Hopper kernel of ops/dict_gather.py
+on CUDA tensors.
+
+Null and inactive rows hold `NULL_CODE` (-1). The column carries
+`data=None`, as in the JAX package, so an operator that was not taught the
+encoded layout fails on `.data` instead of misreading codes as values.
+
+Not ported yet (ROADMAP A.5): the late-materialization seam
+(`materialize_column`/`materialize_batch`, the decode through the gather
+engine) and the output seam of `collect()` beyond `to_pylist`,
+`dictionary_hashes` and string-key joins, and `dictionary_from_arrow`
+with the Parquet scan. The numpy constructor `dictionary_from_numpy`
+takes the scan's place.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..types import BOOLEAN, BinaryType, DataType, StringType
+from .column import (Column, StringColumn, _pad_np, bucket_capacity,
+                     resolve_device)
+
+__all__ = ["NULL_CODE", "DictionaryColumn", "dictionary_from_numpy",
+           "dict_take", "literal_hits", "encoded_equal_literal",
+           "batch_has_encoded", "counters"]
+
+#: sentinel code for null/inactive rows, out of range for every dictionary
+NULL_CODE = -1
+
+_COUNTER_LOCK = threading.Lock()
+_COUNTERS = {
+    "cols_encoded": 0,           # DictionaryColumns built at the scan seam
+    "code_space_predicates": 0,  # predicates evaluated on int32 codes
+}
+
+
+def _note(**deltas) -> None:
+    with _COUNTER_LOCK:
+        for k, v in deltas.items():
+            _COUNTERS[k] += v
+
+
+def counters() -> Dict[str, int]:
+    with _COUNTER_LOCK:
+        return dict(_COUNTERS)
+
+
+class DictionaryColumn(Column):
+    """Encoded varlen column: int32 codes into a per-batch dictionary.
+
+    codes    — int32 (capacity,); NULL_CODE for null/inactive rows
+    validity — bool (capacity,)
+    dict_offsets / dict_data — the dictionary's Arrow (offsets, bytes)
+        buffers, bucket-padded like a StringColumn's; padded dictionary
+        slots are zero-length entries no valid code refers to
+    """
+
+    __slots__ = ("codes", "dict_data", "dict_offsets")
+
+    def __init__(self, codes: torch.Tensor, dict_data: torch.Tensor,
+                 dict_offsets: torch.Tensor, validity: torch.Tensor,
+                 dtype: DataType = StringType()):
+        super().__init__(None, validity, dtype)
+        self.codes = codes
+        self.dict_data = dict_data
+        self.dict_offsets = dict_offsets
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def dict_capacity(self) -> int:
+        return int(self.dict_offsets.shape[0]) - 1
+
+    @property
+    def dict_byte_capacity(self) -> int:
+        return int(self.dict_data.shape[0])
+
+    def dict_view(self) -> StringColumn:
+        """The dictionary itself as a StringColumn (every entry valid —
+        padded slots are zero-length and unreferenced)."""
+        return StringColumn(self.dict_data, self.dict_offsets,
+                            torch.ones(self.dict_capacity, dtype=torch.bool,
+                                       device=self.device), self.dtype)
+
+    def with_capacity(self, capacity: int) -> "DictionaryColumn":
+        """Grow (never shrink) the row bucket with NULL_CODE rows."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        extra = capacity - cap
+        codes = torch.cat([self.codes,
+                           self.codes.new_full((extra,), NULL_CODE)])
+        validity = torch.cat([self.validity,
+                              self.validity.new_zeros(extra)])
+        return DictionaryColumn(codes, self.dict_data, self.dict_offsets,
+                                validity, self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        """Host decode of the first `num_rows` rows (the test and output
+        surface)."""
+        codes = self.codes[:num_rows].cpu().numpy()
+        valid = self.validity[:num_rows].cpu().numpy()
+        data = self.dict_data.cpu().numpy()
+        off = self.dict_offsets.cpu().numpy()
+        binary = isinstance(self.dtype, BinaryType)
+        out: List = []
+        for i in range(num_rows):
+            c = int(codes[i])
+            if not valid[i] or c < 0 or c >= self.dict_capacity:
+                out.append(None)
+                continue
+            b = data[off[c]: off[c + 1]].tobytes()
+            out.append(b if binary else b.decode("utf-8"))
+        return out
+
+    def __repr__(self):
+        return (f"DictionaryColumn(cap={self.capacity}, "
+                f"dict={self.dict_capacity}x{self.dict_byte_capacity}B)")
+
+
+def dictionary_from_numpy(codes: np.ndarray, dict_data: np.ndarray,
+                          dict_offsets: np.ndarray,
+                          validity: Optional[np.ndarray] = None,
+                          dtype: DataType = StringType(),
+                          capacity: Optional[int] = None,
+                          device=None) -> DictionaryColumn:
+    """The scan seam: n int32 codes into a dictionary of m entries given
+    as Arrow buffers (`dict_offsets` (m + 1,) from 0, `dict_data` the
+    bytes), as `dictionary_from_arrow` builds it in the JAX package:
+    invalid rows get NULL_CODE, codes pad to `capacity` (default the
+    bucket of n) with NULL_CODE, the dictionary pads to the bucket of m
+    entries with zero-length slots and its bytes to their own bucket."""
+    dev = resolve_device(device)
+    codes = np.array(codes, dtype=np.int32)
+    n = codes.shape[0]
+    valid = np.ones(n, dtype=np.bool_) if validity is None \
+        else np.asarray(validity, dtype=np.bool_)
+    np.putmask(codes, ~valid, NULL_CODE)
+    m = int(np.asarray(dict_offsets).shape[0]) - 1
+    view = StringColumn.from_numpy(dict_data, dict_offsets, None, dtype,
+                                   bucket_capacity(m), dev)
+    cap = capacity or bucket_capacity(n)
+    col = DictionaryColumn(
+        torch.from_numpy(_pad_np(codes, cap, fill=NULL_CODE)).to(dev),
+        view.data, view.offsets,
+        torch.from_numpy(_pad_np(valid, cap, fill=False)).to(dev), dtype)
+    _note(cols_encoded=1)
+    return col
+
+
+def dict_take(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[clip(codes[i], 0, n - 1)] for a per-dictionary table
+    (a literal's hit mask, precomputed hashes): the one-lane case of the
+    dictionary gather kernel, accounted on the gather engine (a
+    code-indexed take is a row gather)."""
+    from ..ops import gather as gather_engine
+    from ..ops.dict_gather import dict_gather
+    rows = int(codes.shape[0])
+    gather_engine.record(1, kernel=table.device.type == "cuda",
+                         nbytes=rows * table.element_size())
+    return dict_gather(table.reshape(-1, 1),
+                       codes.to(torch.int32).reshape(-1, 1)).reshape(rows)
+
+
+def literal_hits(col: DictionaryColumn, value) -> torch.Tensor:
+    """bool (dict_capacity,): which dictionary entries equal the string
+    (or bytes) literal — dict_capacity byte compares, once per batch."""
+    dev = col.device
+    raw = value.encode("utf-8") if isinstance(value, str) else bytes(value)
+    m = len(raw)
+    dlens = col.dict_offsets[1:] - col.dict_offsets[:-1]
+    if m == 0:
+        return dlens == 0
+    lit = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+    pos = col.dict_offsets[:-1, None].to(torch.int64) \
+        + torch.arange(m, dtype=torch.int64, device=dev)[None, :]
+    entry = col.dict_data[pos.clamp(0, col.dict_byte_capacity - 1)]
+    return (dlens == m) & torch.all(entry == lit[None, :], dim=1)
+
+
+def encoded_equal_literal(col: DictionaryColumn, value) -> Column:
+    """EqualTo(dictionary column, string literal) in code space: compare
+    the literal with every dictionary entry once, then take each row's
+    answer from that hit lane by its code. Returns a BOOLEAN Column with
+    Spark's three-valued logic (null rows stay null; a null literal gives
+    null everywhere)."""
+    _note(code_space_predicates=1)
+    if value is None:
+        zeros = torch.zeros(col.capacity, dtype=torch.bool,
+                            device=col.device)
+        return Column(zeros, zeros, BOOLEAN)
+    row_hit = dict_take(literal_hits(col, value), col.codes)
+    return Column(row_hit & col.validity, col.validity, BOOLEAN)
+
+
+def batch_has_encoded(batch) -> bool:
+    return any(isinstance(c, DictionaryColumn) for c in batch.columns)

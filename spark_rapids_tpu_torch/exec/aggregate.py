@@ -32,6 +32,8 @@ from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, bucket_capacity
 from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
+from ..expr.predicates import (_string_free_subtree, encoded_safe_predicate,
+                               encoded_safe_projection)
 from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
@@ -106,6 +108,24 @@ class AggregateExec(TpuExec):
             self._scan_agg_spec = compile_scan_agg_spec(
                 self._fused_steps, self._pre_bound, self._pre_schema,
                 self._key_count, agg_op_slots, self._source.output_schema)
+
+    @property
+    def consumes_encoded(self) -> bool:
+        """Whether the absorbed chain takes dictionary-encoded input from
+        the source: every absorbed filter and projection evaluates in code
+        space, and the keys and aggregate inputs touch no string column
+        (aggregate state holds values, not codes). This diverges from
+        the JAX package, whose aggregate takes no encoded input: it
+        decodes at the source's boundary (late materialization). The
+        results are the same; the property goes when that seam is ported
+        (ROADMAP A.5)."""
+        for step in self._fused_steps:
+            if step[0] == "filter":
+                if not encoded_safe_predicate(step[1]):
+                    return False
+            elif not all(encoded_safe_projection(e) for e in step[1]):
+                return False
+        return all(_string_free_subtree(e) for e in self._pre_bound)
 
     def _make_buffer_schema(self) -> Schema:
         fields = list(self._pre_schema.fields[: self._key_count])
@@ -338,6 +358,10 @@ class AggregateExec(TpuExec):
             yield self._evaluate(self._tree_merge_device(aggregated))
 
     # -- drive -------------------------------------------------------------
+    def encoded_inputs(self) -> Sequence[TpuExec]:
+        # the absorbed chain reads the source's batches directly
+        return [self._source]
+
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         if self._spec_enabled and speculation_allowed():
             yield from self._execute_speculative()

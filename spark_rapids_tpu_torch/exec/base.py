@@ -13,6 +13,7 @@ from typing import Dict, Iterator, List, Sequence
 import torch
 
 from ..columnar.batch import ColumnarBatch
+from ..columnar.encoded import batch_has_encoded
 from ..types import Schema
 
 NUM_OUTPUT_ROWS = "numOutputRows"
@@ -64,6 +65,21 @@ class _NsTimer:
 class TpuExec:
     """Base columnar operator."""
 
+    #: True when this exec's kernels accept DictionaryColumn inputs from
+    #: its children (code-space predicates, pass-through projections).
+    #: Execs override it, usually with the eligibility walk over their
+    #: bound expressions (expr/predicates.encoded_safe_predicate); the
+    #: default False keeps an operator from misreading the encoded layout.
+    consumes_encoded: bool = False
+
+    #: stamped by the parent's execute() before this exec's first batch is
+    #: pulled: whether encoded columns may cross this exec's output
+    #: boundary. Where they may not, the JAX package decodes them there
+    #: (late materialization); the port raises until that seam is ported
+    #: (ROADMAP A.5). The root of a plan is never stamped; collect() lets
+    #: its encoded batches out, since to_pylist decodes on the host.
+    _encoded_ok_for_parent: bool = False
+
     def __init__(self, *children: "TpuExec"):
         self.children: List[TpuExec] = list(children)
         self.metrics: Dict[str, TpuMetric] = {
@@ -81,15 +97,38 @@ class TpuExec:
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
 
+    def encoded_inputs(self) -> Sequence["TpuExec"]:
+        """The execs whose batches this exec's kernels read, and so the
+        ones its `consumes_encoded` speaks for: its children, or the
+        source of a chain it absorbs."""
+        return self.children
+
+    def stamp_inputs(self) -> None:
+        """Tell each exec in `encoded_inputs` whether encoded columns may
+        cross its output boundary; execute() does it before the first
+        batch is pulled."""
+        for c in self.encoded_inputs():
+            c._encoded_ok_for_parent = self.consumes_encoded
+
     def execute(self) -> Iterator[ColumnarBatch]:
         """Counts output rows around the operator's own iterator. When an
         exception or an abandoned consumer unwinds through this frame, the
         internal iterator is closed here, so its own finally blocks run
         now rather than whenever the garbage collector gets to them."""
+        return self._execute(self._encoded_ok_for_parent)
+
+    def _execute(self, encoded_out: bool) -> Iterator[ColumnarBatch]:
+        self.stamp_inputs()
         rows = self.metrics[NUM_OUTPUT_ROWS]
         it = self.internal_execute()
         try:
             for batch in it:
+                if not encoded_out and batch_has_encoded(batch):
+                    raise NotImplementedError(
+                        f"{type(self).__name__} emits dictionary-encoded "
+                        f"columns to a consumer that cannot take them; late "
+                        f"materialization waits for a later slice (ROADMAP "
+                        f"A.5)")
                 if batch._host_rows is not None:
                     rows.add(batch._host_rows)
                 else:
@@ -123,7 +162,9 @@ class TpuExec:
 
         def run() -> List[tuple]:
             out: List[tuple] = []
-            for batch in self.execute():
+            # to_pylist decodes dictionary columns on the host: the output
+            # seam takes encoded root batches
+            for batch in self._execute(encoded_out=True):
                 out.extend(batch.to_pylist())
             return out
 

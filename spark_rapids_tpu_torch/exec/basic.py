@@ -13,14 +13,17 @@ from typing import Iterator, List, Sequence
 
 from ..columnar.batch import ColumnarBatch
 from ..expr.core import Expression, output_name, resolve
+from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops.basic import compact_columns, sanitize
 from ..types import Schema, StructField
 from .base import TpuExec
 
 
 class InMemoryScanExec(TpuExec):
-    """Leaf feeding pre-built device batches. `device` names the plan's
-    device when there are no batches to take it from."""
+    """Leaf feeding pre-built device batches, DictionaryColumns as they
+    are (its parent's `consumes_encoded` decides whether they may cross
+    its output). `device` names the plan's device when there are no
+    batches to take it from."""
 
     def __init__(self, batches: Sequence[ColumnarBatch], schema: Schema,
                  device=None):
@@ -71,6 +74,12 @@ class ProjectExec(TpuExec):
     def output_schema(self) -> Schema:
         return self._schema
 
+    @property
+    def consumes_encoded(self) -> bool:
+        # every projection passes an encoded column through untouched or
+        # touches strings only in code-space positions
+        return all(encoded_safe_projection(e) for e in self._bound)
+
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():
             yield eval_projection(self._bound, batch, self._schema)
@@ -90,6 +99,12 @@ class FilterExec(TpuExec):
     @property
     def output_schema(self) -> Schema:
         return self.child.output_schema
+
+    @property
+    def consumes_encoded(self) -> bool:
+        # equality / IN / null predicates evaluate in code space, and the
+        # compaction gathers a dictionary column's codes
+        return encoded_safe_predicate(self._bound)
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():

@@ -1,5 +1,5 @@
 """HashJoinExec — the counterpart of spark_rapids_tpu/exec/joins.py for
-INNER equi-joins on integer-like keys.
+INNER equi-joins on integer-like keys, with an optional residual condition.
 
 Per stream batch:
   1. `_counts_kernel`: the stream keys (an absorbed child filter ANDed
@@ -9,14 +9,18 @@ Per stream batch:
      inside a speculation scope, the bucket cached for this shape, with a
      device flag recorded with the scope in case the total outgrew it;
   3. `_probe_kernel`: the fused probe-verify kernel
-     (ops/probe_verify.fused_probe_verify), then key-grouped emission —
+     (ops/probe_verify.fused_probe_verify), the residual condition over
+     the candidate pairs (`_eval_condition`), then key-grouped emission —
      one sort puts verified pairs first with equal join keys contiguous —
-     and one packed payload gather per side (ops/gather).
+     and one packed payload gather per side (ops/gather); dictionary
+     columns ride the per-column path by row index.
 
-The JAX package picks between this fused route and an XLA
-expand-then-verify route by measurement; the port has the one route.
-Other join types, residual conditions and non-integer keys raise
-NotImplementedError (ROADMAP A.3).
+Dictionary-encoded columns stay encoded through the join when the
+absorbed filters and the condition evaluate in code space
+(`consumes_encoded`). The JAX package picks between this fused route and
+an XLA expand-then-verify route by measurement; the port has the one
+route. Other join types and non-integer keys raise NotImplementedError
+(ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, bucket_capacity
-from ..expr.core import Expression, UnresolvedAttribute
+from ..columnar.encoded import DictionaryColumn, batch_has_encoded
+from ..expr.core import Expression, UnresolvedAttribute, resolve
+from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops import gather as G
-from ..ops.basic import active_mask, concat_columns
+from ..ops.basic import active_mask, concat_columns, gather_column
 from ..ops.hashing import u32_of
 from ..ops.join import BuildTable, int_key_lanes, probe_counts
 from ..ops.probe_verify import fused_probe_verify
@@ -68,15 +74,15 @@ class HashJoinExec(TpuExec):
                  join_type: str = INNER, build_side: str = "right",
                  condition: Optional[Expression] = None):
         super().__init__(left, right)
-        if join_type != INNER or condition is not None:
+        if join_type != INNER:
             raise NotImplementedError(
-                f"{join_type} joins and join conditions wait for a later "
-                f"slice (ROADMAP A.3)")
+                f"{join_type} joins wait for a later slice (ROADMAP A.3)")
         if build_side not in ("left", "right"):
             raise ValueError(f"build_side must be left or right, not "
                              f"{build_side!r}")
         self.join_type = join_type
         self.build_side = build_side
+        self.condition = condition
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         # (stream_cap, build_cap) -> cand_cap: lets a speculation scope
@@ -101,6 +107,23 @@ class HashJoinExec(TpuExec):
         self._stream_keys = bind_projection(keys[s],
                                             kids[s].output_schema)
         self._build_keys = bind_projection(keys[b], kids[b].output_schema)
+        # the residual condition, bound to the pair schema (left columns
+        # then right columns: the output schema)
+        self._cond_bound = None if condition is None \
+            else resolve(condition, self.output_schema)
+
+    @property
+    def consumes_encoded(self) -> bool:
+        """Encoded inputs are fine when every key is a bare reference or
+        string-reference-free and the absorbed filters and the residual
+        condition pass the code-space walk."""
+        keys = self._stream_keys + self._build_keys
+        if not all(encoded_safe_projection(e) for e in keys):
+            return False
+        preds = [p for f in self._filters for p in (f or ())]
+        if self._cond_bound is not None:
+            preds.append(self._cond_bound)
+        return all(encoded_safe_predicate(p) for p in preds)
 
     @property
     def output_schema(self) -> Schema:
@@ -127,7 +150,21 @@ class HashJoinExec(TpuExec):
         return tuple(classes)
 
     @staticmethod
-    def _key_columns(bound, preds, batch: ColumnarBatch) -> List[Column]:
+    def _mask_keys(key_cols, keep) -> List[Column]:
+        """AND an absorbed filter's mask into key validity (an invalid key
+        never matches, so the filtered rows vanish from the output)."""
+        out = []
+        for c in key_cols:
+            v = c.validity & keep
+            if isinstance(c, DictionaryColumn):
+                out.append(DictionaryColumn(c.codes, c.dict_data,
+                                            c.dict_offsets, v, c.dtype))
+            else:
+                out.append(Column(c.data, v, c.dtype))
+        return out
+
+    @classmethod
+    def _key_columns(cls, bound, preds, batch: ColumnarBatch) -> List[Column]:
         cols = [e.columnar_eval(batch) for e in bound]
         if preds:
             keep = None
@@ -135,7 +172,7 @@ class HashJoinExec(TpuExec):
                 c = p.columnar_eval(batch)
                 k = c.data & c.validity  # Spark: null predicate rows drop
                 keep = k if keep is None else keep & k
-            cols = [Column(c.data, c.validity & keep, c.dtype) for c in cols]
+            cols = cls._mask_keys(cols, keep)
         return cols
 
     # -- build -------------------------------------------------------------
@@ -144,6 +181,12 @@ class HashJoinExec(TpuExec):
         child = self.children[b]
         with self.metrics[BUILD_TIME].ns_timer():
             batches = list(child.execute())
+            if len(batches) > 1 and any(map(batch_has_encoded, batches)):
+                # distinct per-batch dictionaries do not concatenate; the
+                # JAX package decodes them first
+                raise NotImplementedError(
+                    "a build side of several dictionary-encoded batches "
+                    "needs late materialization (ROADMAP A.5)")
             batch = concat_batches(batches, child.output_schema) \
                 if batches else empty_batch(child.output_schema,
                                             device=child.device)
@@ -209,7 +252,7 @@ class HashJoinExec(TpuExec):
     def _probe_kernel(self, build: BuildTable, stream_batch: ColumnarBatch,
                       lo, counts, skey_cols, total_dev, cand_cap: int
                       ) -> ColumnarBatch:
-        plan_p, pmat_b, pfmat_b = build.pack
+        plan_p, pmat_b, pfmat_b, ppi, poi = build.pack
         sk = int_key_lanes(skey_cols)
         bk_lanes, bvalid = build.key_lanes
         if sk is None or sk[0].shape[1] != bk_lanes.shape[1]:
@@ -220,6 +263,9 @@ class HashJoinExec(TpuExec):
         verified, s_idx, b_pos, b_row = fused_probe_verify(
             lo, counts, bk_lanes, bvalid, sk_lanes, svalid, build.perm,
             cand_cap)
+        if self._cond_bound is not None:
+            verified = verified & self._eval_condition(
+                build, stream_batch, s_idx, b_row)
 
         # key-grouped emission: verified pairs first, equal join keys
         # contiguous (any consistent total order over the key bits groups
@@ -234,19 +280,45 @@ class HashJoinExec(TpuExec):
         n_pairs = torch.sum(kflag, dtype=torch.int32)
 
         # ONE index materialization of the compacted pairs, then one
-        # packed payload gather per side
+        # packed payload gather per side; dictionary columns of the build
+        # side gather their codes by original build row
         i = torch.arange(cand_cap, dtype=torch.int32, device=dev)
         from_pairs = i < n_pairs
         bsel = torch.where(from_pairs, perm_c.to(torch.int32), -1)
-        lane_mat = torch.stack([s_idx, b_pos], dim=1)
+        lane_mat = torch.stack([s_idx, b_pos] + ([b_row] if poi else []),
+                               dim=1)
         g = G.gather_lane_matrix(lane_mat, bsel)
         s_map = torch.where(from_pairs, g[:, 0], -1)
         b_pos_out = torch.where(from_pairs, g[:, 1], -1)
-        pmat_out, pfmat_out = G.gather_rows(plan_p, pmat_b, pfmat_b,
-                                            b_pos_out)
-        bcols = unpack_rows(plan_p, pmat_out, pfmat_out)
+        bcols: List[Optional[Column]] = [None] * len(build.payload)
+        if ppi:
+            pmat_out, pfmat_out = G.gather_rows(plan_p, pmat_b, pfmat_b,
+                                                b_pos_out)
+            for j, c in zip(ppi, unpack_rows(plan_p, pmat_out, pfmat_out)):
+                bcols[j] = c
+        if poi:
+            b_map = torch.where(from_pairs, g[:, 2], -1)
+            for j in poi:
+                bcols[j] = gather_column(build.payload[j], b_map)
         scols = G.gather_batch_columns(stream_batch.columns, s_map,
                                        num_rows=n_pairs)
         left, right = (scols, bcols) if self.build_side == "right" \
             else (bcols, scols)
         return ColumnarBatch(left + right, n_pairs, self.output_schema)
+
+    def _eval_condition(self, build: BuildTable, stream_batch: ColumnarBatch,
+                        s_idx, b_row) -> torch.Tensor:
+        """The residual condition over the candidate pairs: a pair batch
+        of both sides' columns gathered at (stream_idx, build_row), in
+        candidate-slot order; slots past the total (-1) come out null and
+        drop, as do pairs whose condition is null."""
+        cand_cap = s_idx.shape[0]
+        # per column, as the JAX package gathers them: a packed gather
+        # would pack every stream row to move a bucket of candidates
+        scols = [gather_column(c, s_idx) for c in stream_batch.columns]
+        bcols = [gather_column(c, b_row) for c in build.payload]
+        left, right = (scols, bcols) if self.build_side == "right" \
+            else (bcols, scols)
+        pair = ColumnarBatch(left + right, cand_cap, self.output_schema)
+        pred = self._cond_bound.columnar_eval(pair)
+        return pred.data & pred.validity

@@ -1,4 +1,5 @@
-"""Expression layer: the fixed-width subset the q1 slice runs."""
+"""Expression layer: the fixed-width subset and the code-space string
+predicates the ported slices run."""
 
 from .core import (  # noqa: F401
     Alias, BoundReference, Expression, Literal, UnresolvedAttribute, col, lit,
@@ -9,5 +10,5 @@ from .arithmetic import (  # noqa: F401
 )
 from .predicates import (  # noqa: F401
     And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, IsNotNull,
-    IsNull, LessThan, LessThanOrEqual, Not, Or,
+    In, IsNull, LessThan, LessThanOrEqual, Not, Or,
 )

@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..columnar.column import Column
-from ..types import BOOLEAN, DOUBLE, INT, LONG, DataType
+from ..types import BOOLEAN, DOUBLE, INT, LONG, STRING, DataType, StringType
 
 
 class Expression:
@@ -140,6 +140,12 @@ class Literal(LeafExpression):
         return False
 
     def columnar_eval(self, batch) -> Column:
+        if isinstance(self._dtype, StringType):
+            # EqualTo and In take a string literal's value in code space;
+            # nothing here consumes a per-row string column yet
+            raise NotImplementedError(
+                "string literals as columns wait for a later slice (ROADMAP "
+                "A.8)")
         cap, dev = batch.capacity, batch.device
         data = torch.full((cap,), self.value, dtype=self._dtype.torch_dtype,
                           device=dev)
@@ -157,6 +163,8 @@ def _infer_literal_type(value) -> DataType:
         return INT if -(2**31) <= value < 2**31 else LONG
     if isinstance(value, float):
         return DOUBLE
+    if isinstance(value, (str, bytes)):
+        return STRING
     raise TypeError(f"cannot infer literal type for {value!r}")
 
 

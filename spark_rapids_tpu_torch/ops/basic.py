@@ -3,7 +3,9 @@
 Conventions carried over from the JAX package:
   * shapes stay at the capacity bucket while the row count lives in a
     device scalar, so no op here synchronises with the host;
-  * rows with index >= num_rows are "inactive": validity False, data zero.
+  * rows with index >= num_rows are "inactive": validity False, data zero
+    (a DictionaryColumn's code NULL_CODE); a dictionary column's gathers
+    move its codes only, and its dictionary rides along untouched.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..columnar.column import Column
+from ..columnar.encoded import NULL_CODE, DictionaryColumn
 
 
 def active_mask(num_rows, capacity: int, device=None) -> torch.Tensor:
@@ -25,6 +28,10 @@ def active_mask(num_rows, capacity: int, device=None) -> torch.Tensor:
 def sanitize(col: Column, num_rows) -> Column:
     """Force the inactive tail to (zero, invalid) so padded slots never leak."""
     act = active_mask(num_rows, col.capacity, col.device)
+    if isinstance(col, DictionaryColumn):
+        codes = torch.where(act, col.codes, NULL_CODE)
+        return DictionaryColumn(codes, col.dict_data, col.dict_offsets,
+                                col.validity & act, col.dtype)
     data = torch.where(act, col.data, torch.zeros_like(col.data))
     return Column(data, col.validity & act, col.dtype)
 
@@ -56,12 +63,18 @@ def gather_column(col: Column, indices: torch.Tensor,
     capacity. `out_valid` masks output rows; out-of-range indices give
     invalid rows."""
     from .gather import record
-    record(1, nbytes=indices.shape[0] * col.data.element_size())
+    encoded = isinstance(col, DictionaryColumn)
+    record(1, nbytes=indices.shape[0]
+           * (4 if encoded else col.data.element_size()))
     in_range = (indices >= 0) & (indices < col.capacity)
     safe = torch.where(in_range, indices, torch.zeros_like(indices)).long()
     valid = col.validity[safe] & in_range
     if out_valid is not None:
         valid = valid & out_valid
+    if encoded:
+        codes = torch.where(valid, col.codes[safe], NULL_CODE)
+        return DictionaryColumn(codes, col.dict_data, col.dict_offsets,
+                                valid, col.dtype)
     data = torch.where(valid, col.data[safe],
                        torch.zeros((), dtype=col.data.dtype,
                                    device=col.device))
@@ -91,7 +104,8 @@ def compact_columns(columns: Sequence[Column], keep: torch.Tensor, num_rows
                     ) -> Tuple[Tuple[Column, ...], torch.Tensor]:
     """Filter: keep rows where `keep` is True (the caller has AND-ed
     validity into it). The kept rows move to the front through the gather
-    engine: two or more fixed-width columns ride one packed row gather."""
+    engine: two or more fixed-width columns ride one packed row gather,
+    a dictionary column's codes the per-column path."""
     from .gather import gather_batch_columns
     perm, new_rows = compaction_order(keep, num_rows)
     out_valid = active_mask(new_rows, keep.shape[0])

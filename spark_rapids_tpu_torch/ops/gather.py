@@ -9,7 +9,9 @@ one routing and accounting point for every materializing row gather.
   index, as the JAX package leaves it to XLA.
 - `gather_batch_columns` gathers a batch's columns by an index map: two
   or more fixed-width columns ride one packed row gather, a single column
-  takes the per-column path (ops/basic.gather_column).
+  and every dictionary column (its codes; `rowpack.is_packable` refuses
+  any subclass of Column) take the per-column path
+  (ops/basic.gather_column).
 - `GatherStats` counts the gathers, as `counters()` reports them.
 """
 

@@ -110,8 +110,10 @@ class BuildTable:
         self.payload = list(payload)
         self.capacity = capacity
         self.pair_table = pair_table      # (2^B, 2) int32 [lo, hi)
-        # (plan, u32 matrix, f64 matrix): the payload packed in sorted
-        # order, gathered once per output batch
+        # (plan, u32 matrix, f64 matrix, packed idx, other idx): the
+        # packable payload columns packed in sorted order, gathered once
+        # per output batch; the others (dictionary columns) are gathered
+        # by original build row
         self.pack = pack
         # (int32 (capacity, L) lanes, bool validity) in sorted order, or
         # None for keys that are not integer-like
@@ -121,10 +123,11 @@ class BuildTable:
     def build(key_cols: Sequence[Column], payload: Sequence[Column],
               num_rows, capacity: int) -> "BuildTable":
         from .gather import gather_rows
-        for c in list(key_cols) + list(payload):
+        from .rowpack import split_packable
+        for c in key_cols:
             if type(c) is not Column:
                 raise NotImplementedError(
-                    "join columns other than fixed-width wait for a later "
+                    "join keys other than fixed-width wait for a later "
                     "slice (ROADMAP A.3)")
         valid = _keys_valid(key_cols, num_rows, capacity)
         # invalid/inactive rows sort last (max hash, then the invalid
@@ -153,9 +156,16 @@ class BuildTable:
             torch.cumsum(counts[:n_buckets], 0, dtype=torch.int32)])
         pair_table = torch.stack([bucket_table[:-1], bucket_table[1:]],
                                  dim=1)
-        plan_p, pmat, pfmat = pack_rows(payload)
-        pmat_s, pfmat_s = gather_rows(plan_p, pmat, pfmat, perm)
-        pack = (plan_p, pmat_s, pfmat_s)
+        ppi, poi = split_packable(payload)
+        for i in poi:
+            if not is_gatherable(payload[i]):
+                raise NotImplementedError(
+                    f"join payload columns of {type(payload[i]).__name__} "
+                    f"wait for a later slice (ROADMAP A.3)")
+        plan_p, pmat, pfmat = pack_rows([payload[i] for i in ppi])
+        pmat_s, pfmat_s = gather_rows(plan_p, pmat, pfmat, perm) \
+            if ppi else (pmat, pfmat)
+        pack = (plan_p, pmat_s, pfmat_s, tuple(ppi), tuple(poi))
         key_lanes = None
         kl = int_key_lanes(key_cols)
         if kl is not None:
@@ -165,6 +175,13 @@ class BuildTable:
         return BuildTable(bucket_table, perm, valid_count, num_rows,
                           key_cols, payload, capacity, pair_table, pack,
                           key_lanes)
+
+
+def is_gatherable(col: Column) -> bool:
+    """A column ops/basic.gather_column moves: fixed-width, or a
+    dictionary column (its codes)."""
+    from ..columnar.encoded import DictionaryColumn
+    return type(col) is Column or isinstance(col, DictionaryColumn)
 
 
 def probe_counts(build: BuildTable, stream_keys: Sequence[Column],

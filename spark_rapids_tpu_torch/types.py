@@ -6,8 +6,11 @@ Physical encodings on the card:
   - BOOLEAN           -> torch.bool (validity is carried separately)
   - DATE              -> int32 days since epoch
   - TIMESTAMP         -> int64 microseconds since epoch UTC
+  - STRING / BINARY   -> uint8 bytes + int32 offsets (columnar/column.py
+                         StringColumn), or int32 codes into a per-batch
+                         dictionary (columnar/encoded.py DictionaryColumn)
 
-Strings, decimals and nested types wait for a later slice of the port.
+Decimals and nested types wait for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -96,6 +99,14 @@ class DoubleType(FractionalType):
     torch_dtype = torch.float64
 
 
+class StringType(DataType):
+    """UTF-8 bytes + int32 offsets (Arrow layout); no fixed-width tensor."""
+
+
+class BinaryType(DataType):
+    """Raw bytes, laid out as StringType."""
+
+
 class DateType(DataType):
     """Days since unix epoch, proleptic Gregorian (int32)."""
     torch_dtype = torch.int32
@@ -116,6 +127,8 @@ FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
 TIMESTAMP = TimestampType()
+STRING = StringType()
+BINARY = BinaryType()
 
 _NP_DTYPES = {
     torch.bool: np.dtype(np.bool_), torch.int8: np.dtype(np.int8),

@@ -30,7 +30,8 @@ for m in mods:
 q3 = ["ops.hashing", "ops.murmur3_lanes", "ops.rowpack", "ops.row_gather",
       "ops.gather", "ops.aggregate", "ops.join", "ops.probe_verify",
       "exec.joins", "exec.sort"]
-missing = [m for m in q3 if pkg.__name__ + "." + m not in mods]
+q19 = ["columnar.encoded", "ops.dict_gather"]
+missing = [m for m in q3 + q19 if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
 leaked = sorted(m for m in sys.modules
