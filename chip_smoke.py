@@ -14,7 +14,8 @@ fails the run on error:
      spill counts;
   2. holds each kernel against its plain PyTorch version on the card:
      fused_scan_agg on three specs at sizes ragged against the block size,
-     with nulls and a high-cardinality case whose leftover flag must trip;
+     with nulls, a high-cardinality case whose leftover flag must trip and
+     a case whose lanes see more buckets than their register cache holds;
      murmur3 of i64 and i32 lanes on ragged sizes with negative values and
      seeds chained over columns with nulls (exact); probe-verify on random
      lanes with duplicate build keys, buckets shared by several keys, empty
@@ -22,9 +23,10 @@ fails the run on error:
      slots below the total); the packed row gather with -1 and out-of-range
      indices, f64 lanes and NaN payloads (exact bits); the dictionary
      gather at the TPU kernel's own (4096, 128) x (16384, 128) shape and on
-     one-lane 1- and 4-byte tables staged in shared memory and read from
-     global memory, with codes of -1, n and above on ragged row counts
-     (exact); and every kernel on its main path's own inputs;
+     1- and 4-byte tables of 1, 3, 5 and 128 lanes through both of its
+     kernels (one-lane tables staged and not), with codes of -1, n
+     and above on ragged row counts, aligned and as x[1:] views (exact);
+     and every kernel on its main path's own inputs;
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -37,11 +39,16 @@ fails the run on error:
      against bench.numpy_oracle, q3 against bench.q3_oracle (integers and
      keys exact, f64 rtol 1e-9), q19 against q19_oracle (the qualifying
      row count exact, revenue rtol 1e-9) and the speculation flags (must
-     stay False);
+     stay False), and that q1 launched fused_scan_agg once and q19
+     dict_gather 42 times;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
-     call that computes the same function.
+     call that computes the same function; fused_scan_agg's and
+     dict_gather's launches are timed apart from their wrappers' calls,
+     and dict_gather at both of its shapes (q19's take and dg's). Kernel
+     times are the device's, with the L2 cache flushed before each run
+     (device_ms).
 
 With --profile TRACE it also runs each steady state under torch.profiler,
 prints the device's busy share and time by kernel, and writes the Chrome
@@ -269,7 +276,34 @@ def compare_outputs(got, want, label):
     return ng, left, err
 
 
+#: bytes written before each timed launch: ten times the H100's 50 MB L2
+FLUSH_BYTES = 512 << 20
+
+
+def device_ms(fn, reps):
+    """Mean device time of `fn`'s launches with the L2 cache cold, as the
+    main path finds it: before each run a FLUSH_BYTES write evicts L2 and
+    keeps the card busy while the host enqueues `fn` between two events,
+    so the events bracket its device work and no host gap."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def cuda_ms(fn, reps):
+    """Mean time of `reps` back-to-back runs of `fn` between two events:
+    the device's time when it outruns the host, else the host's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -954,8 +988,8 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
         hargs = (key, seed)
         rec(name, "murmur3.cu", f"spark_rapids_tpu/ops/pallas_kernels.py:"
             f"{line}", cnt[name],
-            cuda_ms(lambda: fn(*hargs), reps),
-            cuda_ms(lambda: plain(*hargs), plain_reps),
+            device_ms(lambda: fn(*hargs), reps),
+            device_ms(lambda: plain(*hargs), plain_reps),
             bound(n * (width + 4 + 4), n * M3_OPS[width]), None)
 
     args, cap = inputs.probe, inputs.cand_cap
@@ -970,8 +1004,9 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
     rec("fused_probe_verify", "probe_verify.cu",
         "spark_rapids_tpu/ops/pallas_join.py:52",
         counts["fused_probe_verify"],
-        cuda_ms(lambda: pv.fused_probe_verify(*args, cap), reps),
-        cuda_ms(lambda: pv.fused_probe_verify_plain(*args, cap), plain_reps),
+        device_ms(lambda: pv.fused_probe_verify(*args, cap), reps),
+        device_ms(lambda: pv.fused_probe_verify_plain(*args, cap),
+                  plain_reps),
         bound(probe_bytes, probe_ops), None)
 
     plan, imat, fmat, idx = inputs.gathers["stream payload"]
@@ -981,10 +1016,11 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
     rec("dma_row_gather", "row_gather.cu",
         "spark_rapids_tpu/ops/pallas_gather.py:101",
         counts["dma_row_gather"],
-        cuda_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat, idx), reps),
-        cuda_ms(lambda: gather_rows(plan, imat, fmat, idx), plain_reps),
+        device_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat, idx),
+                  reps),
+        device_ms(lambda: gather_rows(plan, imat, fmat, idx), plain_reps),
         bound(4 * idx.shape[0] * (1 + 2 * lanes), 0),
-        cuda_ms(lambda: torch.index_select(mat, 0, safe), reps))
+        device_ms(lambda: torch.index_select(mat, 0, safe), reps))
     return records
 
 
@@ -1003,58 +1039,103 @@ def _dg_inputs(dev, seed=41):
     return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
 
 
+def _dg_launch(table, idx):
+    """One launch of the dictionary gather kernel, its output and plan made
+    here; counts no launch. Returns (output, plan, a callable that
+    launches it again into the same output)."""
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    out = dg._output(table, idx)
+    plan = dg.plan_for(table, idx, out)
+
+    def again():
+        dg._launch(table, idx, out, plan)
+
+    again()
+    return out, plan, again
+
+
 def compare_dict_gather(dev, q19_lines):
-    """The kernel against dict_gather_plain, exactly: dg's own shape; one
-    lane of 1- and 4-byte elements at n = 7, 4096, just under the card's
-    shared-memory budget and 1,048,576 (global-memory mode) with codes of
-    -1, n and above on ragged row counts; and q19's l_shipmode take."""
+    """The kernel against dict_gather_plain, exactly: dg's own shape; 1-
+    and 4-byte tables with 1, 3, 5 and 128 lanes, one lane at n = 7,
+    4096, just over the staged size and 1,048,576, with codes of -1, n
+    and above on row counts that are not multiples of four, each also
+    with the index and table taken as x[1:] views (off the 16-byte
+    alignment for one lane); a 128-lane index view off alignment; and
+    q19's l_shipmode take."""
     import torch
     from spark_rapids_tpu_torch.columnar.encoded import dict_take, literal_hits
     from spark_rapids_tpu_torch.ops import dict_gather as dg
     table, idx = _dg_inputs(dev)
-    _exact("dict_gather dg shape", [dg.dict_gather(table, idx)],
-           [dg.dict_gather_plain(table, idx)])
-    budget = dg.smem_budget()
+    want = dg.dict_gather_plain(table, idx)
+    _exact("dict_gather dg shape", [dg.dict_gather(table, idx)], [want])
     rng = np.random.default_rng(43)
-    modes = []
+    plans = {}
     for elt, dtype in ((1, torch.bool), (4, torch.int32)):
-        for n in (7, 4096, budget // elt - 1, 1 << 20):
-            lb = dg.lanes_per_block(n, 1, elt, budget)
-            if (lb == 0) != (n == 1 << 20):
-                raise AssertionError(f"dict_gather n={n} elt={elt}: mode "
-                                     f"lb={lb}")
-            modes.append(("staged" if lb else "global", n, elt))
-            if dtype == torch.bool:
-                t = torch.from_numpy(rng.random((n, 1)) > 0.5).to(dev)
+        for lanes in (1, 3, 5, 128):
+            if lanes == 1:
+                ns = (7, 4096, dg.STAGE_BYTES // elt + 1, 1 << 20)
+                row_counts = (1, 1000, 65537, (1 << 20) + 3)
             else:
-                t = torch.from_numpy(_random_ints(rng, n, np.int32)
-                                     .reshape(n, 1)).to(dev)
-            for rows in (1, 1000, 65537, (1 << 20) + 3):
-                c = rng.integers(-2, n + 2, rows).astype(np.int32)
-                c[::7] = -1
-                c[::11] = n
-                c[::13] = np.iinfo(np.int32).max
-                c[::17] = np.iinfo(np.int32).min
-                c = torch.from_numpy(c).to(dev).reshape(rows, 1)
-                _exact(f"dict_gather n={n} elt={elt} rows={rows}",
-                       [dg.dict_gather(t, c)], [dg.dict_gather_plain(t, c)])
+                ns = (7, 4096) + ((1 << 14,) if lanes == 128 else ())
+                row_counts = (1, 1001, 16387)
+            for n in ns:
+                for rows in row_counts:
+                    for view in (0, 1):
+                        shape = (n + view, lanes)
+                        if dtype == torch.bool:
+                            t = rng.random(shape) > 0.5
+                        else:
+                            t = _random_ints(rng, shape[0] * lanes,
+                                             np.int32).reshape(shape)
+                        c = rng.integers(-2, n + 2, (rows + view) * lanes)
+                        c[::7] = -1
+                        c[::11] = n
+                        c[::13] = np.iinfo(np.int32).max
+                        c[::17] = np.iinfo(np.int32).min
+                        t = torch.from_numpy(t).to(dev)[view:]
+                        c = torch.from_numpy(c.astype(np.int32)).to(
+                            dev).reshape(rows + view, lanes)[view:]
+                        label = (f"dict_gather n={n} L={lanes} elt={elt} "
+                                 f"rows={rows} view={view}")
+                        got = dg.dict_gather(t, c)
+                        _exact(label, [got], [dg.dict_gather_plain(t, c)])
+                        plan = dg.plan_for(t, c, got)
+                        key = ("scalar", "flat")[plan.kind] + (
+                            " staged" if plan.staged else "") + (
+                            " head" if plan.head else "")
+                        plans[key] = plans.get(key, 0) + 1
+    for elt, dtype in ((1, torch.uint8), (4, torch.int32)):
+        t = torch.from_numpy(_random_ints(rng, 4096 * 128, np.int32)
+                             .reshape(4096, 128)).to(dev).to(dtype)
+        flat = torch.from_numpy(rng.integers(-1, 4097, 1001 * 128 + 1)
+                                .astype(np.int32)).to(dev)
+        c = flat[1:].view(1001, 128)
+        got, plan, _ = _dg_launch(t, c)
+        _exact(f"dict_gather 128 lanes elt={elt} index off alignment",
+               [got], [dg.dict_gather_plain(t, c)])
+        if plan.head != 3:
+            raise AssertionError(f"index off alignment: plan {plan}")
     mode = q19_lines.column("l_shipmode")
     hit = literal_hits(mode, "AIR")
     _exact("dict_gather q19 l_shipmode take", [dict_take(hit, mode.codes)],
            [dg.dict_gather_plain(hit.reshape(-1, 1),
                                  mode.codes.reshape(-1, 1)).reshape(-1)])
-    print(f"compare dict_gather: dg (4096, 128) x (16384, 128); one lane "
-          f"{modes} each at 4 row counts with -1/n/INT_MAX/INT_MIN codes; "
-          f"q19 l_shipmode {mode.capacity} codes; exact (budget {budget} B)")
+    print(f"compare dict_gather: dg (4096, 128) x (16384, 128); 1- and "
+          f"4-byte tables, L in (1, 3, 5, 128), aligned and x[1:] views, "
+          f"plans {plans}; 128 lanes off alignment; q19 l_shipmode "
+          f"{mode.capacity} codes; exact ({dg.sm_count()} SMs)")
 
 
 def time_dict_gather(q19_lines, launches):
-    """The dictionary gather at dg's shape and at q19's 1-byte take over
-    the l_shipmode codes: kernel, plain version, byte bound and the one
-    PyTorch call that computes the same function (torch.gather; a table
-    index for one lane) on the same inputs, the indices clamped and
-    widened to int64 beforehand (PyTorch indexes with int64). Returns the
-    record of the q19 take, the main path's shape."""
+    """The dictionary gather at q19's 1-byte take over the l_shipmode
+    codes and at dg's shape: the kernel's launches alone (its plan and
+    output made once) on the device with L2 cold, the same back to back
+    (as PR 3 timed its wrapper), the wrapper's whole call, the plain
+    version, the byte bound and the one PyTorch call that computes the
+    same function (a table index for one lane; torch.gather) on the same
+    inputs, the indices clamped and widened to int64 beforehand (PyTorch
+    indexes with int64). Returns the records of both shapes, the q19
+    take's (the main path's) first."""
     import torch
     from spark_rapids_tpu_torch.columnar.encoded import literal_hits
     from spark_rapids_tpu_torch.ops import dict_gather as dg
@@ -1067,27 +1148,34 @@ def time_dict_gather(q19_lines, launches):
     codes = mode.codes.reshape(-1, 1)
     safe64 = codes.clamp(0, hit.shape[0] - 1).reshape(-1).long()
     flat = hit.reshape(-1)
-    out = {}
-    for label, t, i, lib in (
-            ("dg (4096, 128) x (16384, 128) int32", table, idx,
-             lambda: torch.gather(table, 0, idx64)),
-            (f"q19 l_shipmode take, {codes.shape[0]} codes into "
-             f"{hit.shape[0]} bool entries", hit, codes,
-             lambda: flat[safe64])):
+    out = []
+    for name, label, t, i, lib in (
+            ("dict_gather", f"q19 l_shipmode take, {codes.shape[0]} codes "
+             f"into {hit.shape[0]} bool entries", hit, codes,
+             lambda: flat[safe64]),
+            ("dict_gather_dg_shape", "dg (4096, 128) x (16384, 128) int32",
+             table, idx, lambda: torch.gather(table, 0, idx64))):
         rows, lanes = i.shape
         n, elt = t.shape[0], t.element_size()
-        ms = cuda_ms(lambda: dg.dict_gather(t, i), reps)
-        plain_ms = cuda_ms(lambda: dg.dict_gather_plain(t, i), plain_reps)
-        lib_ms = cuda_ms(lib, reps)
+        _, plan, again = _dg_launch(t, i)
+        ms = device_ms(again, reps)
+        b2b_ms = cuda_ms(again, reps)
+        call_ms = device_ms(lambda: dg.dict_gather(t, i), reps)
+        plain_ms = device_ms(lambda: dg.dict_gather_plain(t, i), plain_reps)
+        lib_ms = device_ms(lib, reps)
         b = bound(rows * lanes * (4 + elt) + n * lanes * elt, 0)
-        print(f"dict_gather {label}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
-              f"{b[0] / ms:.1%} of the bound, library {lib_ms:.4f} ms")
-        out = {"name": "dict_gather", "route": "cuda",
-               "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
-               "replaces": "tools/exp_gather.py:168", "launches": launches,
-               "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms}
+        print(f"dict_gather {label}: kernel {ms:.4f} ms on the device, L2 "
+              f"cold ({('scalar', 'flat')[plan.kind]}"
+              f"{' staged' if plan.staged else ''}, {plan.grid} blocks), "
+              f"{b2b_ms:.4f} ms back to back; wrapper call {call_ms:.4f} ms;"
+              f" plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}), "
+              f"{b[0] / ms:.1%} of the bound; library {lib_ms:.4f} ms")
+        out.append({"name": name, "route": "cuda",
+                    "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
+                    "replaces": "tools/exp_gather.py:168",
+                    "launches": launches, "max_abs_err": 0.0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b[0],
+                    "bound_by": b[1], "library_ms": lib_ms})
     return out
 
 
@@ -1172,6 +1260,10 @@ def main() -> int:
                       random_batch(zoo_schema, n, 3, dev, n + 2), 32))
     cases.append(("minmax high-cardinality", mm_spec,
                   random_batch(mm_schema, 200_000, 5000, dev, 7), 8))
+    # 32 keys over 32 buckets: each lane sees more buckets than its cache
+    # holds (4 for q1's spec), so the warp flushes mid-run
+    cases.append(("q1 cache overflow G=32 key domain 32", q1_spec,
+                  random_batch(schema, 1 << 20, 32, dev, 9), 32))
     for label, spec, b, G in cases:
         ng, left, err = compare_outputs(
             fsa.fused_scan_agg(spec, b, G, OUT_CAP),
@@ -1198,6 +1290,8 @@ def main() -> int:
 
     # -- phase 3: the main paths, counted -----------------------------------
     rows, q1_counts = drive_counted("q1", plan, ["fused_scan_agg"])
+    if q1_counts["fused_scan_agg"] != 1:
+        raise AssertionError(f"q1: {q1_counts} (one fused_scan_agg launch)")
     if sorted(r[0] for r in rows) != sorted(oracle):
         raise AssertionError(f"q1 groups {rows} != oracle {oracle}")
     for k, qty, dp, cnt in rows:
@@ -1229,6 +1323,8 @@ def main() -> int:
                      "fused_probe_verify", "dma_row_gather"])
     pairs = join_rows.value - before
     check_q19(rows, pairs, q19_want, "q19")
+    if q19_counts["dict_gather"] != 42:
+        raise AssertionError(f"q19: {q19_counts} (42 dict_gather launches)")
     print(f"q19 at SF1 ({Q19_LINES} x {Q19_PARTS}): revenue {rows[0][0]!r} "
           f"over {pairs} qualifying rows, equal to the numpy oracle; "
           f"launches {q19_counts}")
@@ -1288,15 +1384,20 @@ def main() -> int:
         profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
             args.profile.stem + "_q19" + args.profile.suffix))
 
-    ms = cuda_ms(lambda: fsa._partials_cuda(q1_spec, batch, BUCKETS),
-                 KERNEL_REPS)
-    plain_ms = cuda_ms(lambda: fsa._partials_plain(q1_spec, batch, BUCKETS),
-                       max(3, KERNEL_REPS // 4))
-    S0, S1 = fsa._slots(q1_spec)
-    out_bytes = BUCKETS * (S0 + S1) * 8 + 4
+    launch = fsa.kernel_launcher(q1_spec, batch, BUCKETS)
+    ms = device_ms(launch, KERNEL_REPS)
+    b2b_ms = cuda_ms(launch, KERNEL_REPS)
+    call_ms = device_ms(
+        lambda: fsa._partials_cuda(q1_spec, batch, BUCKETS), KERNEL_REPS)
+    plain_ms = device_ms(
+        lambda: fsa._partials_plain(q1_spec, batch, BUCKETS),
+        max(3, KERNEL_REPS // 4))
+    out_bytes = BUCKETS * sum(fsa._slots(q1_spec)) * 8
     bound_ms, bound_by = bound(in_bytes + out_bytes,
                                ROWS * ops_per_row(q1_spec))
-    print(f"fused_scan_agg: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"fused_scan_agg: kernel launches {ms:.4f} ms on the device, "
+          f"{b2b_ms:.4f} ms back to back; wrapper call with its "
+          f"allocations {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / ms:.1%} of the bound")
     records = [{
@@ -1311,8 +1412,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + [
-        time_dict_gather(l19, q19_counts["dict_gather"])]
+    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + \
+        time_dict_gather(l19, q19_counts["dict_gather"])
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,62 +11,122 @@ On CUDA tensors it launches csrc/dict_gather.cu and adds one to
 `dict_gather.launches`; on CPU tensors it runs `dict_gather_plain`; any
 other device raises. Empty inputs launch nothing.
 
-The kernel stages `lanes_per_block(...)` lanes of the table per block in
-shared memory when a lane's column fits the card's opt-in budget, and
-reads the table from global memory otherwise (one kernel, a template
-parameter; csrc/dict_gather.cu says why).
+`plan` chooses, on the host, the kernel and its shape from the lane
+count, the table's size, the index and output addresses and the card's SM
+count (read once per process); its parts are pure functions:
+`vector_width`, `align_split`, `lanes_per_block` and `grid_shape`
+(csrc/dict_gather.cu says why).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 _SOURCE = "dict_gather.cu"
 _SIGNATURES = {
     "dict_gather_run": [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p],
-    "dict_gather_smem_optin": [ctypes.POINTER(ctypes.c_int)],
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "dict_gather_sms": [ctypes.POINTER(ctypes.c_int)],
 }
 
 #: element types the kernel copies (it moves their bits: 1 or 4 bytes)
 _ELEMENT_TYPES = (torch.bool, torch.int8, torch.uint8, torch.int32,
                   torch.float32)
 
-_smem_budget: Optional[int] = None
+#: the kernels of csrc/dict_gather.cu (its KIND_* values)
+SCALAR, FLAT = 0, 1
+
+#: threads per block of both kernels; 8 blocks fill an SM's 2048 threads
+THREADS = 256
+BLOCKS_PER_SM = 2048 // THREADS
+#: one-lane tables up to this size are staged whole by every block
+STAGE_BYTES = 4096
 
 
-def lanes_per_block(n: int, lanes: int, elt: int, budget: int) -> int:
-    """Lanes of an (n, lanes) table of `elt`-byte elements one block
-    stages in `budget` bytes of shared memory: all of them when they fit,
-    else the largest power of two that does; 0 when one lane does not
-    fit (the kernel then reads the table from global memory)."""
-    per_lane = n * elt
-    if per_lane <= 0 or per_lane > budget:
-        return 0
-    lb = min(lanes, budget // per_lane)
-    if lb < lanes:
-        lb = 1 << (lb.bit_length() - 1)
-    return lb
+class Plan(NamedTuple):
+    kind: int       # SCALAR or FLAT
+    staged: bool    # FLAT: the one-lane table staged in shared memory
+    shift: int      # FLAT: log2 of the lanes
+    head: int       # FLAT: elements before the first aligned quad
+    nvec: int       # FLAT: quads of four elements
+    grid: int       # blocks
+    smem: int       # dynamic shared memory of a block, bytes
 
 
-def smem_budget() -> int:
-    """The current card's opt-in shared-memory budget of one block."""
-    global _smem_budget
-    if _smem_budget is None:
+def _pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
+
+
+def vector_width(lanes: int) -> int:
+    """Elements a thread takes at a time: four (one 16-byte load of codes)
+    when the lane count is a power of two, so an element's lane is its
+    flat position masked, else one."""
+    return 4 if _pow2(lanes) else 1
+
+
+def align_split(idx_addr: int, out_addr: int, elt: int,
+                total: int) -> Tuple[int, int, int]:
+    """(head, quads, tail) of `total` elements: the scalar head up to the
+    index pointer's first 16-byte boundary, the quads loaded 16 bytes and
+    stored 4 * elt bytes at a time, the scalar tail. When the output's
+    phase does not match the index pointer's, every element is scalar."""
+    head = min(total, (-idx_addr % 16) // 4)
+    if (out_addr + head * elt) % (4 * elt):
+        return total, 0, 0
+    quads = (total - head) // 4
+    return head, quads, total - head - 4 * quads
+
+
+def lanes_per_block(n: int, lanes: int, elt: int) -> int:
+    """Lanes of an (n, lanes) table every block stages in shared memory:
+    the one lane of a table of up to STAGE_BYTES; else 0, and the kernel
+    reads the table through the read-only path (it stays in L2)."""
+    return 1 if lanes == 1 and n * elt <= STAGE_BYTES else 0
+
+
+def grid_shape(work: int, sms: int) -> int:
+    """Blocks of one launch, a thread for each of `work` quads (or
+    elements): one wave of the card, BLOCKS_PER_SM blocks on each of its
+    `sms` SMs, fewer when the work does not fill it."""
+    return max(1, min(-(-work // THREADS), sms * BLOCKS_PER_SM))
+
+
+def plan(n: int, lanes: int, elt: int, rows: int, idx_addr: int,
+         out_addr: int, sms: int) -> Plan:
+    """The kernel and launch shape for an (n, lanes) table of `elt`-byte
+    elements gathered by (rows, lanes) indices at the given addresses."""
+    total = rows * lanes
+    if vector_width(lanes) == 1:
+        return Plan(SCALAR, False, 0, 0, 0, grid_shape(total, sms), 0)
+    head, quads, _ = align_split(idx_addr, out_addr, elt, total)
+    staged = lanes_per_block(n, lanes, elt) == 1
+    return Plan(FLAT, staged, lanes.bit_length() - 1, head, quads,
+                grid_shape(max(quads, head, 1), sms),
+                n * elt if staged else 0)
+
+
+_sms: Optional[int] = None
+
+
+def sm_count() -> int:
+    """The current card's SM count, read once per process."""
+    global _sms
+    if _sms is None:
         from ..kernels.build import csrc_library
-        lib = csrc_library(_SOURCE, _SIGNATURES)
         out = ctypes.c_int(0)
-        err = lib.dict_gather_smem_optin(ctypes.byref(out))
+        err = csrc_library(_SOURCE, _SIGNATURES).dict_gather_sms(
+            ctypes.byref(out))
         if err != 0:
-            raise RuntimeError(f"dict_gather: cannot read the shared-memory "
-                               f"budget: CUDA error {err}")
-        _smem_budget = int(out.value)
-    return _smem_budget
+            raise RuntimeError(f"dict_gather: cannot read the SM count: "
+                               f"CUDA error {err}")
+        _sms = int(out.value)
+    return _sms
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -100,6 +160,40 @@ def dict_gather_plain(table: torch.Tensor, idx: torch.Tensor
     return table.reshape(-1)[safe * lanes + lane]
 
 
+def _output(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The (rows, L) output, allocated at the index pointer's phase within
+    16 bytes (a contiguous view into a buffer 3 elements longer), so that
+    both reach their 16-byte boundary after the same head."""
+    rows, lanes = idx.shape
+    phase = idx.data_ptr() % 16 // 4
+    buf = torch.empty(rows * lanes + 3, dtype=table.dtype,
+                      device=table.device)
+    return buf[phase: phase + rows * lanes].view(rows, lanes)
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+            p: Plan) -> None:
+    from ..kernels.build import csrc_library
+    n, lanes = table.shape
+    lib = csrc_library(_SOURCE, _SIGNATURES)
+    err = lib.dict_gather_run(
+        p.kind, int(p.staged), table.data_ptr(), n, lanes,
+        table.element_size(), p.shift, idx.data_ptr(), idx.shape[0],
+        out.data_ptr(), p.head, p.nvec, p.grid, p.smem,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dict_gather kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def plan_for(table: torch.Tensor, idx: torch.Tensor,
+             out: torch.Tensor) -> Plan:
+    """`plan` for these tensors on the current card."""
+    n, lanes = table.shape
+    return plan(n, lanes, table.element_size(), idx.shape[0],
+                idx.data_ptr(), out.data_ptr(), sm_count())
+
+
 def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, l] = table[clamp(idx[i, l], 0, n - 1), l]."""
     _check(table, idx)
@@ -108,23 +202,11 @@ def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type != "cuda":
         raise ValueError(f"dict_gather runs on cuda or cpu, not "
                          f"{table.device}")
-    from ..kernels.build import csrc_library
     table, idx = table.contiguous(), idx.contiguous()
-    n, lanes = table.shape
-    rows = idx.shape[0]
-    out = torch.empty((rows, lanes), dtype=table.dtype, device=table.device)
+    out = _output(table, idx)
     if out.numel() == 0:
         return out   # nothing to gather: no launch
-    elt = table.element_size()
-    lb = lanes_per_block(n, lanes, elt, smem_budget())
-    lib = csrc_library(_SOURCE, _SIGNATURES)
-    err = lib.dict_gather_run(
-        table.data_ptr(), n, lanes, elt, idx.data_ptr(), rows,
-        out.data_ptr(), lb, torch.cuda.current_stream(table.device)
-        .cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dict_gather kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch(table, idx, out, plan_for(table, idx, out))
     dict_gather.launches += 1
     return out
 

@@ -11,7 +11,9 @@ Structure:
   `columnar_eval` inside its body; here the emitter repeats those
   evaluation rules in C++, null rules included;
 - the row function is pasted into csrc/fused_scan_agg.cu.in, which holds
-  the hashing, bucketing and accumulation; one library is built per spec
+  the hashing, bucketing and accumulation: one pass over the rows that
+  accumulates each bucket's key statistics and aggregates together, and a
+  fold of the block records (two launches); one library is built per spec
   digest (kernels/build.py);
 - `fused_scan_agg` is the wrapper: it launches the kernel for CUDA
   tensors and runs the plain version (`fused_scan_agg_plain`, plain
@@ -63,9 +65,12 @@ _FUNCTIONS_MARK = "// @FUNCTIONS@\n"
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / \
     "fused_scan_agg.cu.in"
 
-#: threads per block of the two row kernels (the C side may use fewer when
-#: the per-warp partials would not fit in shared memory)
+#: threads per block of the row kernel (the C side may use fewer when the
+#: per-warp partials would not fit in shared memory)
 BLOCK_THREADS = 256
+
+#: consecutive rows a lane takes per step, with vector loads
+RUN = 4
 
 
 @dataclass(eq=False)
@@ -79,6 +84,7 @@ class ScanAggSpec:
     source_dtypes: Tuple    # DataType per source column
     cuda_source: str        # emitted spec part of the kernel (see emit_cuda)
     _lib: Optional[ctypes.CDLL] = field(default=None, repr=False)
+    _blocks_per_sm: dict = field(default_factory=dict, repr=False)
 
 
 def _expr_supported(expr) -> bool:
@@ -265,20 +271,57 @@ def _library(spec: ScanAggSpec) -> ctypes.CDLL:
     if spec._lib is None:
         from ..kernels import build
         lib = build.load(build.build(kernel_source(spec)))
-        fn = lib.fsa_run
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + \
-            [ctypes.c_void_p] * 6
+        lib.fsa_run.restype = ctypes.c_int
+        lib.fsa_run.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + \
+            [ctypes.c_void_p] * 3
+        lib.fsa_blocks_per_sm.restype = ctypes.c_int
+        lib.fsa_blocks_per_sm.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
         spec._lib = lib
     return spec._lib
 
 
 def _slots(spec: ScanAggSpec) -> Tuple[int, int]:
+    """Words of a bucket: 4 per key (min and max order bits, any valid,
+    any null), then 2 per aggregate (its accumulator, has-valid)."""
     return 4 * spec.key_count, 2 * len(spec.agg_ops)
 
 
-def _partials_cuda(spec: ScanAggSpec, batch, G: int):
+def cache_entries(registers: int) -> int:
+    """Buckets a lane caches, at `registers` 32-bit registers an entry:
+    4 (q1's returnflag has 4 values) while that stays within 48 registers,
+    fewer for wider entries (their registers would spill)."""
+    return max(1, min(4, 48 // registers))
+
+
+def grid_blocks(capacity: int, sms: int, per_sm: int) -> int:
+    """Blocks of fsa_rows: one wave of the card (`per_sm` resident blocks
+    on each of `sms` SMs), fewer when the rows do not fill it (a block
+    takes BLOCK_THREADS * RUN rows a step)."""
+    return max(1, min(math.ceil(capacity / (BLOCK_THREADS * RUN)),
+                      sms * per_sm))
+
+
+def _blocks_per_sm(spec: ScanAggSpec, G: int) -> int:
+    """fsa_rows' resident blocks per SM at G buckets, asked of the card
+    once per spec and G."""
+    per_sm = spec._blocks_per_sm.get(G)
+    if per_sm is None:
+        out = ctypes.c_int(0)
+        err = _library(spec).fsa_blocks_per_sm(G, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"fused_scan_agg: no resident block at G={G}:"
+                               f" CUDA error {err}")
+        per_sm = spec._blocks_per_sm[G] = int(out.value)
+    return per_sm
+
+
+def _prepare(spec: ScanAggSpec, batch, G: int):
+    """Check the batch against the spec and allocate the scratch and the
+    output words. Returns (library, fsa_run's arguments, (scratch,
+    words))."""
     cols = batch.columns
     if len(cols) != len(spec.source_dtypes):
         raise ValueError(f"spec expects {len(spec.source_dtypes)} source "
@@ -295,52 +338,71 @@ def _partials_cuda(spec: ScanAggSpec, batch, G: int):
     if nrows.dtype != torch.int32 or nrows.device != dev:
         raise TypeError("num_rows must be an int32 scalar on the device")
     lib = _library(spec)
-    S0, S1 = _slots(spec)
+    S = sum(_slots(spec))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = max(1, min(math.ceil(batch.capacity / BLOCK_THREADS),
-                          4 * sms))
-    u64 = torch.int64
-    part0 = torch.empty(n_blocks * G * S0, dtype=u64, device=dev)
-    kstat = torch.empty((G, S0), dtype=u64, device=dev)
-    bits = torch.empty(1, dtype=torch.int32, device=dev)
-    part1 = torch.empty(n_blocks * G * S1, dtype=u64, device=dev)
-    aggout = torch.empty((G, S1), dtype=u64, device=dev)
+    nb = grid_blocks(batch.capacity, sms, _blocks_per_sm(spec, G))
+    part = torch.empty(nb * G * S, dtype=torch.int64, device=dev)
+    words = torch.empty((G, S), dtype=torch.int64, device=dev)
     data_ptrs = (ctypes.c_void_p * len(cols))(
         *[c.data.data_ptr() for c in cols])
     valid_ptrs = (ctypes.c_void_p * len(cols))(
         *[c.validity.data_ptr() for c in cols])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fsa_run(ctypes.cast(data_ptrs, ctypes.c_void_p),
-                      ctypes.cast(valid_ptrs, ctypes.c_void_p),
-                      nrows.data_ptr(), batch.capacity, G, n_blocks,
-                      part0.data_ptr(), kstat.data_ptr(), bits.data_ptr(),
-                      part1.data_ptr(), aggout.data_ptr(), stream)
-    fused_scan_agg.launches += 1
+    # (a cast keeps its pointer array alive)
+    args = (ctypes.cast(data_ptrs, ctypes.c_void_p),
+            ctypes.cast(valid_ptrs, ctypes.c_void_p), nrows.data_ptr(),
+            batch.capacity, G, nb, part.data_ptr(), words.data_ptr(), stream)
+    return lib, args, (part, words)
+
+
+def _launch(lib: ctypes.CDLL, args) -> None:
+    err = lib.fsa_run(*args)
     if err != 0:
         raise RuntimeError(f"fused_scan_agg kernel launch failed: CUDA "
                            f"error {err}")
-    return _unpack_partials(spec, kstat, aggout)
 
 
-def _unpack_partials(spec: ScanAggSpec, kstat, aggout):
-    """Kernel words -> the plain version's statistics layout."""
+def _partials_cuda(spec: ScanAggSpec, batch, G: int):
+    lib, args, (_, words) = _prepare(spec, batch, G)
+    _launch(lib, args)
+    fused_scan_agg.launches += 1
+    return _unpack_partials(spec, words)
+
+
+def kernel_launcher(spec: ScanAggSpec, batch, G: int):
+    """A callable that launches the kernel alone on `batch`, into scratch
+    and output words allocated once here: for timing the launches apart
+    from the wrapper's allocations. It counts no launch."""
+    lib, args, buffers = _prepare(spec, batch, G)
+
+    def launch():
+        _launch(lib, args)
+        return buffers   # the closure keeps the scratch alive
+
+    return launch
+
+
+def _unpack_partials(spec: ScanAggSpec, words):
+    """Kernel words [G][S0 + S1] -> the plain version's statistics
+    layout."""
+    S0, _ = _slots(spec)
     kstats = []
     for k, dt in enumerate(spec.key_dtypes):
-        mn, mx = kstat[:, 4 * k], kstat[:, 4 * k + 1]
+        mn, mx = words[:, 4 * k], words[:, 4 * k + 1]
         if lane_bits(dt.torch_dtype) == 64:  # u64 words -> signed lanes
             mn, mx = mn ^ INT64_MIN, mx ^ INT64_MIN
-        kstats.append((mn, mx, kstat[:, 4 * k + 2] != 0,
-                       kstat[:, 4 * k + 3] != 0))
+        kstats.append((mn, mx, words[:, 4 * k + 2] != 0,
+                       words[:, 4 * k + 3] != 0))
     astats = []
     for a, ((op, _), dt) in enumerate(zip(spec.agg_ops, spec.agg_dtypes)):
-        word = aggout[:, 2 * a].contiguous()
+        word = words[:, S0 + 2 * a].contiguous()
         if op in ("count", "count_star"):
             astats.append((word.to(torch.int32), None))
             continue
         adt = acc_dtype(op, dt.torch_dtype)
         vals = word.view(torch.float64).to(adt) if adt.is_floating_point \
             else word.to(adt)
-        astats.append((vals, aggout[:, 2 * a + 1] != 0))
+        astats.append((vals, words[:, S0 + 2 * a + 1] != 0))
     return kstats, astats
 
 
@@ -394,7 +456,8 @@ class _Emitter:
     Each value is an (expression name, validity name, DataType) triple."""
 
     def __init__(self, source_dtypes):
-        self.lines: List[str] = []
+        self.loads: List[str] = []    # a run's loads, before the row loop
+        self.lines: List[str] = []    # one row's evaluation, in the loop
         self.n = 0
         self.source_dtypes = source_dtypes
         self.loaded = {}
@@ -404,20 +467,29 @@ class _Emitter:
         return f"t{self.n}"
 
     def line(self, s: str) -> None:
-        self.lines.append("    " + s)
+        self.lines.append("        " + s)
 
     def source(self, ordinal: int):
+        """A source column's value and validity in row k of the run: its
+        RUN values loaded into an array (RUN bytes of BOOLEAN data, and
+        of validity, packed into one 32-bit word) at first reference."""
         if ordinal not in self.loaded:
             dt = self.source_dtypes[ordinal]
-            ct = _ctype(dt)
             x, v = f"c{ordinal}", f"c{ordinal}v"
             if dt.torch_dtype == torch.bool:
-                self.line(f"const bool {x} = ((const unsigned char*)"
-                          f"cols.data[{ordinal}])[row] != 0;")
+                self.loads.append(f"    const unsigned {x}_ = load_bytes("
+                                  f"cols.data[{ordinal}], base, m);")
+                self.line(f"const bool {x} = (({x}_ >> (8 * k)) & 0xFFu) "
+                          f"!= 0u;")
             else:
-                self.line(f"const {ct} {x} = ((const {ct}*)"
-                          f"cols.data[{ordinal}])[row];")
-            self.line(f"const bool {v} = cols.valid[{ordinal}][row] != 0;")
+                ct = _ctype(dt)
+                self.loads += [
+                    f"    {ct} {x}_[RUN];",
+                    f"    load_run({x}_, cols.data[{ordinal}], base, m);"]
+                self.line(f"const {ct} {x} = {x}_[k];")
+            self.loads.append(f"    const unsigned {v}_ = load_bytes("
+                              f"cols.valid[{ordinal}], base, m);")
+            self.line(f"const bool {v} = (({v}_ >> (8 * k)) & 0xFFu) != 0u;")
             self.loaded[ordinal] = (x, v, dt)
         return self.loaded[ordinal]
 
@@ -576,9 +648,12 @@ class _Emitter:
 
 
 def emit_cuda(spec: ScanAggSpec) -> str:
-    """The spec's part of the kernel source: sizes, initial and combine
-    kinds of the partial slots, and the per-row functions `scan_row` (the
-    absorbed chain), `bucket_of`, `phase0_step` and `phase1_step`."""
+    """The spec's part of the kernel source: sizes, the kind and initial
+    value of each word of a bucket (`kind_of`, `init_word`), and the
+    functions `scan_run` (a lane's run of RUN rows: the loads of the
+    columns the chain reads, then the absorbed chain of each row, folded
+    into the lane's accumulators), `bucket_of` and `row_step` (one row into
+    a bucket's words)."""
     em = _Emitter(spec.source_dtypes)
     env = _LazySources(em)
     keep = []
@@ -589,7 +664,7 @@ def emit_cuda(spec: ScanAggSpec) -> str:
         else:
             env = [em.emit(e, env) for e in step[1]]
     pre = [em.emit(e, env) for e in spec.pre_bound]
-    em.line(f"r.keep = {' && '.join(keep) if keep else 'true'};")
+    em.line(f"r.keep = {' && '.join(keep + ['k < m'])};")
     for k, (x, v, dt) in enumerate(pre[: spec.key_count]):
         em.line(f"r.kbits[{k}] = order_bits({x});")
         em.line(f"r.kvalid[{k}] = {v};")
@@ -604,87 +679,119 @@ def emit_cuda(spec: ScanAggSpec) -> str:
 
     K, A = spec.key_count, len(spec.agg_ops)
     S0, S1 = _slots(spec)
+    lay = _EntryLayout()
+    init, kind, steps, hash_lines = [], [], [], []
+
+    def word(k: str, v: str):
+        """Add word s of kind k, initial value v: its storage in an Entry
+        (a C lvalue), or for a flag its index s."""
+        kind.append(k)
+        init.append(v)
+        return lay.place(len(kind) - 1, k)
+
+    for k, dt in enumerate(spec.key_dtypes):
+        wide = lane_bits(dt.torch_dtype) == 64
+        if wide:
+            mn = word("K_MIN_U", "0xFFFFFFFFFFFFFFFFull")
+            mx = word("K_MAX_U", "0ull")
+            x = f"r.kbits[{k}]"
+            hash_lines += [
+                f"    h = mix32(h ^ (unsigned)r.kbits[{k}], SALT);",
+                f"    h = mix32(h ^ (unsigned)(r.kbits[{k}] >> 32), "
+                f"SALT + 0x51u);"]
+        else:
+            mn = word("K_MIN_U32", "0xFFFFFFFFull")
+            mx = word("K_MAX_U32", "0ull")
+            x = f"(unsigned)r.kbits[{k}]"
+            hash_lines.append(
+                f"    h = mix32(h ^ (unsigned)r.kbits[{k}], SALT);")
+        hash_lines.append(f"    h = mix32(h ^ (unsigned)r.kvalid[{k}], "
+                          f"SALT + 0xA3u);")
+        av, an = word("K_OR", "0ull"), word("K_OR", "0ull")
+        steps += [f"    if (r.kvalid[{k}]) {{",
+                  f"        {mn} = {x} < {mn} ? {x} : {mn};",
+                  f"        {mx} = {x} > {mx} ? {x} : {mx};",
+                  "    }",
+                  f"    {lay.set_bit(av, f'r.kvalid[{k}]')}",
+                  f"    {lay.set_bit(an, f'!r.kvalid[{k}]')}"]
+    for a, ((op, _), dt) in enumerate(zip(spec.agg_ops, spec.agg_dtypes)):
+        v = f"r.avalid[{a}]"
+        if op in ("count_star", "count"):
+            acc = word("K_CNT", "0ull")
+            word("K_OR", "0ull")   # has-valid unused: counts are never null
+            steps.append(f"    {acc} += 1u;" if op == "count_star"
+                         else f"    {acc} += (unsigned){v};")
+            continue
+        fl = _is_float(dt)
+        x = f"r.af[{a}]" if fl else f"r.ai[{a}]"
+        if op in ("sum", "sum_sq"):
+            acc = word("K_SUM_F" if fl else "K_SUM_I", "0ull")
+            if fl:
+                val = f"{x} * {x}" if op == "sum_sq" else x
+                upd = f"{acc} = f64_word(as_f64({acc}) + {val});"
+            else:
+                u = f"(unsigned long long){x}"
+                upd = f"{acc} += {u} * {u};" if op == "sum_sq" \
+                    else f"{acc} += {u};"
+        elif fl:
+            acc = word("K_MIN_F" if op == "min" else "K_MAX_F",
+                       "DBITS_POS_INF" if op == "min" else "DBITS_NEG_INF")
+            upd = f"{acc} = f64_word({op}_nan(as_f64({acc}), {x}));"
+        else:
+            neutral = minmax_neutral(op, acc_dtype(op, dt.torch_dtype))
+            acc = word("K_MIN_I" if op == "min" else "K_MAX_I",
+                       f"(unsigned long long){_c_literal(neutral, LONG)}")
+            cmp = "<" if op == "min" else ">"
+            upd = (f"{acc} = {x} {cmp} (long long){acc} ? "
+                   f"(unsigned long long){x} : {acc};")
+        has = word("K_OR", "0ull")
+        steps += [f"    if ({v}) {upd}", f"    {lay.set_bit(has, v)}"]
+
     out = [
         f"#define N_COLS {len(spec.source_dtypes)}",
         f"#define N_KEYS {K}",
         f"#define N_AGGS {A}",
         f"#define S0 {S0}",
         f"#define S1 {S1}",
+        f"#define S {S0 + S1}",
+        f"#define RUN {RUN}",
+        f"#define CACHE {cache_entries(lay.registers())}",
         "",
         _FUNCTIONS_MARK.rstrip("\n"),
-    ]
-    init0, kind0, steps0, hash_lines = [], [], [], []
-    for k, dt in enumerate(spec.key_dtypes):
-        bits = lane_bits(dt.torch_dtype)
-        neutral = "0xFFFFFFFFFFFFFFFFull" if bits == 64 else "0xFFFFFFFFull"
-        init0 += [neutral, "0ull", "0ull", "0ull"]
-        kind0 += ["K_MIN_U", "K_MAX_U", "K_OR", "K_OR"]
-        steps0.append(f"    key_step(mine, r.kvalid[{k}], r.kbits[{k}], "
-                      f"{neutral}, g, lane, acc + {4 * k});")
-        if bits == 64:
-            hash_lines += [
-                f"    h = mix32(h ^ (unsigned)r.kbits[{k}], SALT);",
-                f"    h = mix32(h ^ (unsigned)(r.kbits[{k}] >> 32), "
-                f"SALT + 0x51u);"]
-        else:
-            hash_lines.append(
-                f"    h = mix32(h ^ (unsigned)r.kbits[{k}], SALT);")
-        hash_lines.append(f"    h = mix32(h ^ (unsigned)r.kvalid[{k}], "
-                          f"SALT + 0xA3u);")
-    init1, kind1, steps1 = [], [], []
-    for a, ((op, _), dt) in enumerate(zip(spec.agg_ops, spec.agg_dtypes)):
-        acc = f"acc + {2 * a}"
-        if op == "count_star":
-            init1 += ["0ull", "0ull"]
-            kind1 += ["K_SUM_I", "K_OR"]
-            steps1.append(f"    count_star_step(peers, g, lane, {acc});")
-            continue
-        if op == "count":
-            init1 += ["0ull", "0ull"]
-            kind1 += ["K_SUM_I", "K_OR"]
-            steps1.append(f"    count_step(mine, r.avalid[{a}], g, lane, "
-                          f"{acc});")
-            continue
-        fl = _is_float(dt)
-        sq = "true" if op == "sum_sq" else "false"
-        if op in ("sum", "sum_sq"):
-            init1 += ["0ull", "0ull"]
-            kind1 += ["K_SUM_F" if fl else "K_SUM_I", "K_OR"]
-            fn = "sum_f_step" if fl else "sum_i_step"
-            val = f"r.af[{a}]" if fl else f"r.ai[{a}]"
-            steps1.append(f"    {fn}(mine, r.avalid[{a}], {val}, {sq}, g, "
-                          f"lane, {acc});")
-            continue
-        adt = acc_dtype(op, dt.torch_dtype)
-        neutral = minmax_neutral(op, adt)
-        if fl:
-            init1 += ["DBITS_POS_INF" if op == "min" else "DBITS_NEG_INF",
-                      "0ull"]
-            kind1 += ["K_MIN_F" if op == "min" else "K_MAX_F", "K_OR"]
-            steps1.append(f"    {op}_f_step(mine, r.avalid[{a}], r.af[{a}], "
-                          f"g, lane, {acc});")
-        else:
-            lit_ = _c_literal(neutral, LONG)
-            init1 += [f"(unsigned long long){lit_}", "0ull"]
-            kind1 += ["K_MIN_I" if op == "min" else "K_MAX_I", "K_OR"]
-            steps1.append(f"    {op}_i_step(mine, r.avalid[{a}], r.ai[{a}], "
-                          f"{lit_}, g, lane, {acc});")
-
-    out += [
-        f"__device__ const int KIND0[S0] = {{{', '.join(kind0)}}};",
-        f"__device__ const int KIND1[S1] = {{{', '.join(kind1)}}};",
-        "",
-        "__device__ __forceinline__ void init0(unsigned long long* acc) {",
-        *[f"    acc[{s}] = {v};" for s, v in enumerate(init0)],
+        "__device__ __forceinline__ int kind_of(int s) {",
+        "    switch (s) {",
+        *[f"    case {i}: return {k};" for i, k in enumerate(kind)],
+        "    }",
+        "    return 0;",
         "}",
         "",
-        "__device__ __forceinline__ void init1(unsigned long long* acc) {",
-        *[f"    acc[{s}] = {v};" for s, v in enumerate(init1)],
+        "__device__ __forceinline__ unsigned long long init_word(int s) {",
+        "    switch (s) {",
+        *[f"    case {i}: return {v};" for i, v in enumerate(init)],
+        "    }",
+        "    return 0ull;",
         "}",
         "",
-        "__device__ __forceinline__ void scan_row(const Cols& cols, "
-        "long long row, Row& r) {",
-        *em.lines,
+        "// a bucket's words in a lane's cache: flag bits, 32-bit words,",
+        "// 64-bit words",
+        "struct Entry {",
+        f"    unsigned f[{max(1, lay.n_flags)}];",
+        f"    unsigned u[{max(1, len(lay.u))}];",
+        f"    unsigned long long w[{max(1, len(lay.w))}];",
+        "};",
+        "",
+        "__device__ __forceinline__ void init_entry(Entry& e) {",
+        *[f"    e.f[{i}] = 0u;" for i in range(max(1, lay.n_flags))],
+        *[f"    e.u[{i}] = (unsigned){init[s]};" for i, s in enumerate(lay.u)],
+        *[f"    e.w[{i}] = {init[s]};" for i, s in enumerate(lay.w)],
+        "}",
+        "",
+        "__device__ __forceinline__ unsigned long long entry_word("
+        "const Entry& e, int s) {",
+        "    switch (s) {",
+        *[f"    case {i}: return {lay.read(i)};" for i in range(len(kind))],
+        "    }",
+        "    return 0ull;",
         "}",
         "",
         "__device__ __forceinline__ int bucket_of(const Row& r, int G) {",
@@ -693,17 +800,66 @@ def emit_cuda(spec: ScanAggSpec) -> str:
         "    return (int)(h % (unsigned)G);",
         "}",
         "",
-        "__device__ __forceinline__ void phase0_step(const Row& r, bool mine, "
-        "int g, int lane, unsigned long long* acc) {",
-        *steps0,
+        "__device__ __forceinline__ void row_step(const Row& r, Entry& e) {",
+        *steps,
         "}",
         "",
-        "__device__ __forceinline__ void phase1_step(const Row& r, bool mine, "
-        "unsigned peers, int g, int lane, unsigned long long* acc) {",
-        *steps1,
+        "template <typename LaneT>",
+        "__device__ __forceinline__ void scan_run(const Cols& cols, "
+        "long long base, int m, LaneT& lane) {",
+        *em.loads,
+        "#pragma unroll",
+        "    for (int k = 0; k < RUN; ++k) {",
+        "        Row r = {};",
+        *em.lines,
+        "        lane.fold(r);",
+        "    }",
         "}",
     ]
     return "\n".join(out) + "\n"
+
+
+class _EntryLayout:
+    """Where each word of a bucket lives in a cache entry: OR words are
+    bits of `f`, the 32-bit kinds (32-bit key order bits, counts) are `u`
+    words, the rest 64-bit `w` words."""
+
+    def __init__(self):
+        self.where = {}          # flag word -> (f index, bit)
+        self.reads = {}          # word -> C expression of its value
+        self.u: List[int] = []
+        self.w: List[int] = []
+        self.n_bits = 0
+
+    @property
+    def n_flags(self) -> int:
+        return -(-self.n_bits // 32)
+
+    def place(self, s: int, kind: str):
+        if kind == "K_OR":
+            f, b = divmod(self.n_bits, 32)
+            self.n_bits += 1
+            self.where[s] = (f, b)
+            self.reads[s] = f"(e.f[{f}] >> {b}) & 1u"
+            return s
+        if kind in ("K_MIN_U32", "K_MAX_U32", "K_CNT"):
+            self.u.append(s)
+            ref = f"e.u[{len(self.u) - 1}]"
+        else:
+            self.w.append(s)
+            ref = f"e.w[{len(self.w) - 1}]"
+        self.reads[s] = ref
+        return ref
+
+    def set_bit(self, s: int, cond: str) -> str:
+        f, b = self.where[s]
+        return f"e.f[{f}] |= (unsigned)({cond}) << {b};"
+
+    def read(self, s: int) -> str:
+        return self.reads[s]
+
+    def registers(self) -> int:
+        return self.n_flags + len(self.u) + 2 * len(self.w)
 
 
 class _LazySources:

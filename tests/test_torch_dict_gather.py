@@ -8,6 +8,8 @@ table of R = 256 rows instead of 4096, and run in interpret mode. The
 plain version must equal it, `jnp.take_along_axis` and the JAX
 `dict_take` exactly (integers and bools: no tolerance). The kernel itself
 runs only on a card: chip_smoke.py holds it against the plain version.
+The host-side choices of its launch (`plan` and its parts) are pure
+functions, tested here at the shapes chip_smoke.py gives them.
 """
 
 import numpy as np
@@ -25,8 +27,8 @@ from spark_rapids_tpu_torch.ops import dict_gather as dg
 
 from test_torch_jax_ref import jax_aliases
 
-#: an H100's opt-in shared-memory budget of one block, in bytes
-H100_SMEM = 232_448
+#: an H100's SM count
+H100_SMS = 132
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -140,16 +142,79 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(table, idx, err):
 
 
 @pytest.mark.parametrize("n,lanes,elt,want", [
-    (4096, 128, 4, 8),          # dg: 8 lanes x 4096 x 4 B = 128 KB
     (128, 1, 1, 1),             # a hit mask: staged whole
-    (58_111, 1, 4, 1),          # just under the budget
-    (232_448, 1, 1, 1),         # exactly the budget
-    (232_449, 1, 1, 0),         # one byte over: global memory
+    (150, 1, 1, 1),             # Q19's largest dictionary
+    (4096, 1, 1, 1),            # exactly STAGE_BYTES
+    (1024, 1, 4, 1),
+    (4097, 1, 1, 0),            # one byte over: read through L2
     (1 << 20, 1, 4, 0),
-    (300, 5, 1, 5),             # every lane fits
-    (4096, 20, 4, 8),           # 14 would fit: a power of two is taken
+    (4096, 128, 4, 0),          # dg: 2 MB, read through L2
+    (7, 128, 1, 0),             # multi-lane tables are never staged
+    (300, 5, 1, 0),
 ])
 def test_lanes_per_block(n, lanes, elt, want):
-    lb = dg.lanes_per_block(n, lanes, elt, H100_SMEM)
+    lb = dg.lanes_per_block(n, lanes, elt)
     assert lb == want
-    assert lb == 0 or n * lb * elt <= H100_SMEM
+    assert lb == 0 or n * lb * elt <= dg.STAGE_BYTES
+
+
+@pytest.mark.parametrize("lanes,want", [
+    (1, 4), (2, 4), (4, 4), (128, 4), (3, 1), (5, 1), (12, 1)])
+def test_vector_width(lanes, want):
+    assert dg.vector_width(lanes) == want
+
+
+@pytest.mark.parametrize("elt", [1, 4])
+@pytest.mark.parametrize("offset,total,want", [
+    (0, 1000, (0, 250, 0)),     # aligned, a multiple of four
+    (0, 1003, (0, 250, 3)),     # a scalar tail
+    (1, 1000, (3, 249, 1)),     # x[1:] of a one-lane index: 3 to the boundary
+    (2, 1000, (2, 249, 2)),
+    (3, 1000, (1, 249, 3)),
+    (1, 2, (2, 0, 0)),          # shorter than the head
+    (0, 0, (0, 0, 0)),
+])
+def test_align_split_with_the_output_at_the_index_phase(elt, offset, total,
+                                                         want):
+    # the wrapper allocates the output `offset` elements into a buffer
+    # whose base is aligned, as the index pointer is `offset` int32s past
+    # a 16-byte boundary
+    base = 1 << 20
+    assert dg.align_split(base + 4 * offset, base + elt * offset, elt,
+                          total) == want
+
+
+def test_align_split_with_mismatched_phases_is_all_scalar():
+    assert dg.align_split(4, 0, 4, 1000) == (1000, 0, 0)
+    assert dg.align_split(0, 1, 1, 1000) == (1000, 0, 0)
+
+
+@pytest.mark.parametrize("work,want", [
+    (2_097_152, 1056),          # Q19's take over 8,388,608 codes: one wave
+    (524_288, 1056),            # dg's 2,097,152 elements
+    (65_536, 256),              # the 262,144-code takes
+    (256, 1),                   # the 1,024-slot candidate bucket
+    (3000, 12),                 # a scalar launch over 3,000 elements
+    (0, 1),
+])
+def test_grid_shape(work, want):
+    assert dg.grid_shape(work, H100_SMS) == want
+
+
+@pytest.mark.parametrize("n,lanes,elt,rows,offset,want", [
+    # Q19's 1-byte takes: the flat kernel, the hit mask staged
+    (150, 1, 1, 8_388_608, 0, (dg.FLAT, True, 0, 0, 2_097_152, 1056, 150)),
+    (150, 1, 1, 262_144, 0, (dg.FLAT, True, 0, 0, 65_536, 256, 150)),
+    (150, 1, 1, 1024, 1, (dg.FLAT, True, 0, 3, 255, 1, 150)),
+    # a one-lane table over STAGE_BYTES stays in global memory
+    (1 << 20, 1, 4, 65_537, 0, (dg.FLAT, False, 0, 0, 16_384, 64, 0)),
+    # dg's shape: the table in L2, lanes by mask
+    (4096, 128, 4, 16_384, 0, (dg.FLAT, False, 7, 0, 524_288, 1056, 0)),
+    # an unaligned multi-lane view: a head of 3 elements
+    (4096, 128, 4, 100, 1, (dg.FLAT, False, 7, 3, 3199, 13, 0)),
+    (4096, 3, 4, 1000, 0, (dg.SCALAR, False, 0, 0, 0, 12, 0)),
+])
+def test_plan(n, lanes, elt, rows, offset, want):
+    base = 1 << 20
+    assert tuple(dg.plan(n, lanes, elt, rows, base + 4 * offset,
+                         base + elt * offset, H100_SMS)) == want

@@ -6,6 +6,9 @@
 - its plain version against masked_groupby with one round (the equality
   the CUDA kernel is held to on the card), leftover case included;
 - the CUDA source the emitter produces for the q1 spec (golden);
+- the epilogue ignores the aggregate words of dirty buckets (the one-pass
+  kernel accumulates them, the plain version and the TPU kernel do not);
+- the host-side choices of the kernel's shape (pure functions);
 - the wrapper on CPU tensors takes the plain version and counts no launch.
 """
 
@@ -30,7 +33,7 @@ from spark_rapids_tpu_torch.expr import core as tcore
 from spark_rapids_tpu_torch.expr import arithmetic as tarith
 from spark_rapids_tpu_torch.expr import predicates as tpred
 from spark_rapids_tpu_torch.ops import fused_scan_agg as fsa
-from spark_rapids_tpu_torch.ops.maskedagg import masked_groupby
+from spark_rapids_tpu_torch.ops.maskedagg import clean_buckets, masked_groupby
 
 
 class _NS:
@@ -223,49 +226,74 @@ Q1_GOLDEN = """\
 #define N_AGGS 3
 #define S0 4
 #define S1 6
+#define S 10
+#define RUN 4
+#define CACHE 4
 
 // @FUNCTIONS@
-__device__ const int KIND0[S0] = {K_MIN_U, K_MAX_U, K_OR, K_OR};
-__device__ const int KIND1[S1] = {K_SUM_I, K_OR, K_SUM_F, K_OR, K_SUM_I, K_OR};
-
-__device__ __forceinline__ void init0(unsigned long long* acc) {
-    acc[0] = 0xFFFFFFFFull;
-    acc[1] = 0ull;
-    acc[2] = 0ull;
-    acc[3] = 0ull;
+__device__ __forceinline__ int kind_of(int s) {
+    switch (s) {
+    case 0: return K_MIN_U32;
+    case 1: return K_MAX_U32;
+    case 2: return K_OR;
+    case 3: return K_OR;
+    case 4: return K_SUM_I;
+    case 5: return K_OR;
+    case 6: return K_SUM_F;
+    case 7: return K_OR;
+    case 8: return K_CNT;
+    case 9: return K_OR;
+    }
+    return 0;
 }
 
-__device__ __forceinline__ void init1(unsigned long long* acc) {
-    acc[0] = 0ull;
-    acc[1] = 0ull;
-    acc[2] = 0ull;
-    acc[3] = 0ull;
-    acc[4] = 0ull;
-    acc[5] = 0ull;
+__device__ __forceinline__ unsigned long long init_word(int s) {
+    switch (s) {
+    case 0: return 0xFFFFFFFFull;
+    case 1: return 0ull;
+    case 2: return 0ull;
+    case 3: return 0ull;
+    case 4: return 0ull;
+    case 5: return 0ull;
+    case 6: return 0ull;
+    case 7: return 0ull;
+    case 8: return 0ull;
+    case 9: return 0ull;
+    }
+    return 0ull;
 }
 
-__device__ __forceinline__ void scan_row(const Cols& cols, long long row, Row& r) {
-    const long long c1 = ((const long long*)cols.data[1])[row];
-    const bool c1v = cols.valid[1][row] != 0;
-    const bool t2 = c1v && true;
-    const bool t1 = (c1 <= ((long long)((int)45))) && t2;
-    const int c0 = ((const int*)cols.data[0])[row];
-    const bool c0v = cols.valid[0][row] != 0;
-    const double c2 = ((const double*)cols.data[2])[row];
-    const bool c2v = cols.valid[2][row] != 0;
-    const double c3 = ((const double*)cols.data[3])[row];
-    const bool c3v = cols.valid[3][row] != 0;
-    const bool t4 = true && c3v;
-    const double t3 = t4 ? (__longlong_as_double(4607182418800017408LL) - c3) : (double)0;
-    const bool t6 = c2v && t4;
-    const double t5 = t6 ? (c2 * t3) : (double)0;
-    r.keep = (t1 && t2);
-    r.kbits[0] = order_bits(c0);
-    r.kvalid[0] = c0v;
-    r.ai[0] = (long long)c1;
-    r.avalid[0] = c1v;
-    r.af[1] = (double)t5;
-    r.avalid[1] = t6;
+// a bucket's words in a lane's cache: flag bits, 32-bit words,
+// 64-bit words
+struct Entry {
+    unsigned f[1];
+    unsigned u[3];
+    unsigned long long w[2];
+};
+
+__device__ __forceinline__ void init_entry(Entry& e) {
+    e.f[0] = 0u;
+    e.u[0] = (unsigned)0xFFFFFFFFull;
+    e.u[1] = (unsigned)0ull;
+    e.u[2] = (unsigned)0ull;
+    e.w[0] = 0ull;
+    e.w[1] = 0ull;
+}
+
+__device__ __forceinline__ unsigned long long entry_word(const Entry& e, int s) {
+    switch (s) {
+    case 0: return e.u[0];
+    case 1: return e.u[1];
+    case 2: return (e.f[0] >> 0) & 1u;
+    case 3: return (e.f[0] >> 1) & 1u;
+    case 4: return e.w[0];
+    case 5: return (e.f[0] >> 2) & 1u;
+    case 6: return e.w[1];
+    case 7: return (e.f[0] >> 3) & 1u;
+    case 8: return e.u[2];
+    case 9: return (e.f[0] >> 4) & 1u;
+    }
+    return 0ull;
 }
 
 __device__ __forceinline__ int bucket_of(const Row& r, int G) {
@@ -275,14 +303,60 @@ __device__ __forceinline__ int bucket_of(const Row& r, int G) {
     return (int)(h % (unsigned)G);
 }
 
-__device__ __forceinline__ void phase0_step(const Row& r, bool mine, int g, int lane, unsigned long long* acc) {
-    key_step(mine, r.kvalid[0], r.kbits[0], 0xFFFFFFFFull, g, lane, acc + 0);
+__device__ __forceinline__ void row_step(const Row& r, Entry& e) {
+    if (r.kvalid[0]) {
+        e.u[0] = (unsigned)r.kbits[0] < e.u[0] ? (unsigned)r.kbits[0] : e.u[0];
+        e.u[1] = (unsigned)r.kbits[0] > e.u[1] ? (unsigned)r.kbits[0] : e.u[1];
+    }
+    e.f[0] |= (unsigned)(r.kvalid[0]) << 0;
+    e.f[0] |= (unsigned)(!r.kvalid[0]) << 1;
+    if (r.avalid[0]) e.w[0] += (unsigned long long)r.ai[0];
+    e.f[0] |= (unsigned)(r.avalid[0]) << 2;
+    if (r.avalid[1]) e.w[1] = f64_word(as_f64(e.w[1]) + r.af[1]);
+    e.f[0] |= (unsigned)(r.avalid[1]) << 3;
+    e.u[2] += 1u;
 }
 
-__device__ __forceinline__ void phase1_step(const Row& r, bool mine, unsigned peers, int g, int lane, unsigned long long* acc) {
-    sum_i_step(mine, r.avalid[0], r.ai[0], false, g, lane, acc + 0);
-    sum_f_step(mine, r.avalid[1], r.af[1], false, g, lane, acc + 2);
-    count_star_step(peers, g, lane, acc + 4);
+template <typename LaneT>
+__device__ __forceinline__ void scan_run(const Cols& cols, long long base, int m, LaneT& lane) {
+    long long c1_[RUN];
+    load_run(c1_, cols.data[1], base, m);
+    const unsigned c1v_ = load_bytes(cols.valid[1], base, m);
+    int c0_[RUN];
+    load_run(c0_, cols.data[0], base, m);
+    const unsigned c0v_ = load_bytes(cols.valid[0], base, m);
+    double c2_[RUN];
+    load_run(c2_, cols.data[2], base, m);
+    const unsigned c2v_ = load_bytes(cols.valid[2], base, m);
+    double c3_[RUN];
+    load_run(c3_, cols.data[3], base, m);
+    const unsigned c3v_ = load_bytes(cols.valid[3], base, m);
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+        Row r = {};
+        const long long c1 = c1_[k];
+        const bool c1v = ((c1v_ >> (8 * k)) & 0xFFu) != 0u;
+        const bool t2 = c1v && true;
+        const bool t1 = (c1 <= ((long long)((int)45))) && t2;
+        const int c0 = c0_[k];
+        const bool c0v = ((c0v_ >> (8 * k)) & 0xFFu) != 0u;
+        const double c2 = c2_[k];
+        const bool c2v = ((c2v_ >> (8 * k)) & 0xFFu) != 0u;
+        const double c3 = c3_[k];
+        const bool c3v = ((c3v_ >> (8 * k)) & 0xFFu) != 0u;
+        const bool t4 = true && c3v;
+        const double t3 = t4 ? (__longlong_as_double(4607182418800017408LL) - c3) : (double)0;
+        const bool t6 = c2v && t4;
+        const double t5 = t6 ? (c2 * t3) : (double)0;
+        r.keep = (t1 && t2) && k < m;
+        r.kbits[0] = order_bits(c0);
+        r.kvalid[0] = c0v;
+        r.ai[0] = (long long)c1;
+        r.avalid[0] = c1v;
+        r.af[1] = (double)t5;
+        r.avalid[1] = t6;
+        lane.fold(r);
+    }
 }
 """
 
@@ -293,4 +367,64 @@ def test_q1_cuda_source_golden():
     full = fsa.kernel_source(tspec)
     assert "@SIZES@" not in full and "@FUNCTIONS@" not in full
     assert full.index("#define N_KEYS 1") < full.index("struct Row")
-    assert full.index("struct Row") < full.index("void scan_row")
+    assert full.index("struct Row") < full.index("void scan_run")
+    assert full.index("#define CACHE 4") < full.index("struct Lane")
+    assert "scan_run(cols, base, m, ln)" in full
+
+
+@pytest.mark.parametrize("key_dom,G", [(10, 16), (12, 8), (400, 8)])
+def test_finish_ignores_dirty_buckets_aggregate_words(key_dom, G):
+    """The kernel accumulates every kept row into its bucket, dirty or
+    not; the plain version (and the TPU kernel's phase 1) only the rows of
+    clean buckets. _finish places only clean, occupied buckets, so any
+    value in a dirty bucket's aggregate words gives the same output."""
+    _, tspec, js, ts = _specs(_minmax_chain)
+    _, tb = _batches(js, ts, 5000, 8192, np.random.default_rng(9), key_dom)
+    kstats, astats = fsa._partials_plain(tspec, tb, G)
+    clean, occupied = clean_buckets(kstats)
+    dirty = occupied & ~clean
+    assert bool(dirty.any())
+    S = sum(fsa._slots(tspec))
+    words = torch.from_numpy(np.random.default_rng(key_dom).integers(
+        -2**63, 2**63 - 1, (G, S), dtype=np.int64, endpoint=True))
+    _, arbitrary = fsa._unpack_partials(tspec, words)
+    mixed = [(torch.where(dirty, b, a),
+              None if ha is None else torch.where(dirty, hb, ha))
+             for (a, ha), (b, hb) in zip(astats, arbitrary)]
+    want = fsa._finish(tspec, kstats, astats, 128)
+    got = fsa._finish(tspec, kstats, mixed, 128)
+    assert int(got[2]) == int(want[2]) and bool(got[3]) == bool(want[3])
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.data, b.data) and torch.equal(a.validity,
+                                                           b.validity)
+    for (_, (ad, av)), (_, (bd, bv)) in zip(got[1], want[1]):
+        assert torch.equal(av, bv)
+        if ad.is_floating_point():   # NaN results compare by their bits
+            ad, bd = ad.view(torch.int64), bd.view(torch.int64)
+        assert torch.equal(ad, bd)
+
+
+@pytest.mark.parametrize("capacity,sms,per_sm,want", [
+    (1 << 24, 132, 1, 132),       # q1: one wave, a block an SM
+    (1 << 24, 132, 2, 264),
+    (1024, 132, 2, 1),            # one block takes 1,024 rows a step
+    (65_536, 132, 2, 64),
+    (1 << 20, 132, 3, 396),
+])
+def test_grid_blocks(capacity, sms, per_sm, want):
+    assert fsa.grid_blocks(capacity, sms, per_sm) == want
+
+
+@pytest.mark.parametrize("chain,words,cache", [
+    # 1 key x 4 + 3 aggregates x 2 words; an entry holds 5 flag bits, three
+    # 32-bit words (min, max, count) and two 64-bit sums: 8 registers
+    (_q1_chain, 10, 4),
+    # 1 LONG key x 4 + 9 aggregates x 2 words: 21 registers
+    (_minmax_chain, 22, 2),
+])
+def test_cache_entries(chain, words, cache):
+    _, tspec, _, _ = _specs(chain)
+    assert sum(fsa._slots(tspec)) == words
+    assert f"#define CACHE {cache}" in tspec.cuda_source
+    assert [fsa.cache_entries(r) for r in (8, 12, 13, 21, 24, 25, 48, 49)] \
+        == [4, 4, 3, 2, 2, 1, 1, 1]
