@@ -54,8 +54,9 @@ With --profile TRACE it also runs each steady state under torch.profiler,
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
-The last lines are a JSON line with one record per ported kernel, the card
-as nvidia-smi names it, and {"ok": true, "device": {...}}.
+The last lines are a JSON line with one record per ported kernel (the
+dictionary gather's holds its times at dg's shape under "dg_shape"), the
+card as nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -1039,21 +1040,6 @@ def _dg_inputs(dev, seed=41):
     return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
 
 
-def _dg_launch(table, idx):
-    """One launch of the dictionary gather kernel, its output and plan made
-    here; counts no launch. Returns (output, plan, a callable that
-    launches it again into the same output)."""
-    from spark_rapids_tpu_torch.ops import dict_gather as dg
-    out = dg._output(table, idx)
-    plan = dg.plan_for(table, idx, out)
-
-    def again():
-        dg._launch(table, idx, out, plan)
-
-    again()
-    return out, plan, again
-
-
 def compare_dict_gather(dev, q19_lines):
     """The kernel against dict_gather_plain, exactly: dg's own shape; 1-
     and 4-byte tables with 1, 3, 5 and 128 lanes, one lane at n = 7,
@@ -1110,7 +1096,8 @@ def compare_dict_gather(dev, q19_lines):
         flat = torch.from_numpy(rng.integers(-1, 4097, 1001 * 128 + 1)
                                 .astype(np.int32)).to(dev)
         c = flat[1:].view(1001, 128)
-        got, plan, _ = _dg_launch(t, c)
+        got, plan, launch = dg.launcher(t, c)
+        launch()
         _exact(f"dict_gather 128 lanes elt={elt} index off alignment",
                [got], [dg.dict_gather_plain(t, c)])
         if plan.head != 3:
@@ -1134,8 +1121,9 @@ def time_dict_gather(q19_lines, launches):
     version, the byte bound and the one PyTorch call that computes the
     same function (a table index for one lane; torch.gather) on the same
     inputs, the indices clamped and widened to int64 beforehand (PyTorch
-    indexes with int64). Returns the records of both shapes, the q19
-    take's (the main path's) first."""
+    indexes with int64). Returns the kernel's record at the q19 take (the
+    main path's shape, with its `launches`) holding under "dg_shape" the
+    same times at dg's shape, which no path launches (launches 0)."""
     import torch
     from spark_rapids_tpu_torch.columnar.encoded import literal_hits
     from spark_rapids_tpu_torch.ops import dict_gather as dg
@@ -1149,17 +1137,18 @@ def time_dict_gather(q19_lines, launches):
     safe64 = codes.clamp(0, hit.shape[0] - 1).reshape(-1).long()
     flat = hit.reshape(-1)
     out = []
-    for name, label, t, i, lib in (
-            ("dict_gather", f"q19 l_shipmode take, {codes.shape[0]} codes "
-             f"into {hit.shape[0]} bool entries", hit, codes,
-             lambda: flat[safe64]),
-            ("dict_gather_dg_shape", "dg (4096, 128) x (16384, 128) int32",
-             table, idx, lambda: torch.gather(table, 0, idx64))):
+    for label, t, i, lib, n_launches in (
+            (f"q19 l_shipmode take, {codes.shape[0]} codes into "
+             f"{hit.shape[0]} bool entries", hit, codes,
+             lambda: flat[safe64], launches),
+            ("dg (4096, 128) x (16384, 128) int32", table, idx,
+             lambda: torch.gather(table, 0, idx64), 0)):
         rows, lanes = i.shape
         n, elt = t.shape[0], t.element_size()
-        _, plan, again = _dg_launch(t, i)
-        ms = device_ms(again, reps)
-        b2b_ms = cuda_ms(again, reps)
+        _, plan, launch = dg.launcher(t, i)
+        launch()
+        ms = device_ms(launch, reps)
+        b2b_ms = cuda_ms(launch, reps)
         call_ms = device_ms(lambda: dg.dict_gather(t, i), reps)
         plain_ms = device_ms(lambda: dg.dict_gather_plain(t, i), plain_reps)
         lib_ms = device_ms(lib, reps)
@@ -1170,13 +1159,14 @@ def time_dict_gather(q19_lines, launches):
               f"{b2b_ms:.4f} ms back to back; wrapper call {call_ms:.4f} ms;"
               f" plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}), "
               f"{b[0] / ms:.1%} of the bound; library {lib_ms:.4f} ms")
-        out.append({"name": name, "route": "cuda",
-                    "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
-                    "replaces": "tools/exp_gather.py:168",
-                    "launches": launches, "max_abs_err": 0.0, "ms": ms,
+        out.append({"launches": n_launches, "max_abs_err": 0.0, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b[0],
                     "bound_by": b[1], "library_ms": lib_ms})
-    return out
+    take, dg_shape = out
+    return {"name": "dict_gather", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
+            "replaces": "tools/exp_gather.py:168", **take,
+            "dg_shape": dg_shape}
 
 
 def main() -> int:
@@ -1384,7 +1374,7 @@ def main() -> int:
         profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
             args.profile.stem + "_q19" + args.profile.suffix))
 
-    launch = fsa.kernel_launcher(q1_spec, batch, BUCKETS)
+    launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
     b2b_ms = cuda_ms(launch, KERNEL_REPS)
     call_ms = device_ms(
@@ -1412,8 +1402,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + \
-        time_dict_gather(l19, q19_counts["dict_gather"])
+    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + [
+        time_dict_gather(l19, q19_counts["dict_gather"])]
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

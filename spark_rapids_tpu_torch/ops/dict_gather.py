@@ -14,8 +14,9 @@ other device raises. Empty inputs launch nothing.
 `plan` chooses, on the host, the kernel and its shape from the lane
 count, the table's size, the index and output addresses and the card's SM
 count (read once per process); its parts are pure functions:
-`vector_width`, `align_split`, `lanes_per_block` and `grid_shape`
-(csrc/dict_gather.cu says why).
+`vector_width`, `align_split`, `staged` and `grid_shape`
+(csrc/dict_gather.cu says why). `launcher` prepares one launch for timing
+it alone.
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ class Plan(NamedTuple):
     head: int       # FLAT: elements before the first aligned quad
     nvec: int       # FLAT: quads of four elements
     grid: int       # blocks
-    smem: int       # dynamic shared memory of a block, bytes
 
 
 def _pow2(x: int) -> bool:
@@ -83,11 +83,11 @@ def align_split(idx_addr: int, out_addr: int, elt: int,
     return head, quads, total - head - 4 * quads
 
 
-def lanes_per_block(n: int, lanes: int, elt: int) -> int:
-    """Lanes of an (n, lanes) table every block stages in shared memory:
-    the one lane of a table of up to STAGE_BYTES; else 0, and the kernel
-    reads the table through the read-only path (it stays in L2)."""
-    return 1 if lanes == 1 and n * elt <= STAGE_BYTES else 0
+def staged(n: int, lanes: int, elt: int) -> bool:
+    """Whether every block stages an (n, lanes) table in shared memory:
+    a one-lane table of up to STAGE_BYTES is; any other the kernel reads
+    through the read-only path (it stays in L2)."""
+    return lanes == 1 and n * elt <= STAGE_BYTES
 
 
 def grid_shape(work: int, sms: int) -> int:
@@ -103,12 +103,10 @@ def plan(n: int, lanes: int, elt: int, rows: int, idx_addr: int,
     elements gathered by (rows, lanes) indices at the given addresses."""
     total = rows * lanes
     if vector_width(lanes) == 1:
-        return Plan(SCALAR, False, 0, 0, 0, grid_shape(total, sms), 0)
+        return Plan(SCALAR, False, 0, 0, 0, grid_shape(total, sms))
     head, quads, _ = align_split(idx_addr, out_addr, elt, total)
-    staged = lanes_per_block(n, lanes, elt) == 1
-    return Plan(FLAT, staged, lanes.bit_length() - 1, head, quads,
-                grid_shape(max(quads, head, 1), sms),
-                n * elt if staged else 0)
+    return Plan(FLAT, staged(n, lanes, elt), lanes.bit_length() - 1, head,
+                quads, grid_shape(max(quads, head, 1), sms))
 
 
 _sms: Optional[int] = None
@@ -175,11 +173,12 @@ def _launch(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
             p: Plan) -> None:
     from ..kernels.build import csrc_library
     n, lanes = table.shape
+    elt = table.element_size()
     lib = csrc_library(_SOURCE, _SIGNATURES)
     err = lib.dict_gather_run(
-        p.kind, int(p.staged), table.data_ptr(), n, lanes,
-        table.element_size(), p.shift, idx.data_ptr(), idx.shape[0],
-        out.data_ptr(), p.head, p.nvec, p.grid, p.smem,
+        p.kind, int(p.staged), table.data_ptr(), n, lanes, elt, p.shift,
+        idx.data_ptr(), idx.shape[0], out.data_ptr(), p.head, p.nvec, p.grid,
+        n * elt if p.staged else 0,
         torch.cuda.current_stream(table.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dict_gather kernel launch failed: CUDA error "
@@ -194,6 +193,21 @@ def plan_for(table: torch.Tensor, idx: torch.Tensor,
                 idx.data_ptr(), out.data_ptr(), sm_count())
 
 
+def launcher(table: torch.Tensor, idx: torch.Tensor):
+    """One launch of the kernel on CUDA tensors, its output allocated and
+    its plan made here. Returns (output, plan, a callable that launches
+    the kernel alone into that output): for timing the launch apart from
+    the wrapper's host work. It counts no launch."""
+    table, idx = table.contiguous(), idx.contiguous()
+    out = _output(table, idx)
+    p = plan_for(table, idx, out)
+
+    def launch():
+        _launch(table, idx, out, p)
+
+    return out, p, launch
+
+
 def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, l] = table[clamp(idx[i, l], 0, n - 1), l]."""
     _check(table, idx)
@@ -202,11 +216,10 @@ def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type != "cuda":
         raise ValueError(f"dict_gather runs on cuda or cpu, not "
                          f"{table.device}")
-    table, idx = table.contiguous(), idx.contiguous()
-    out = _output(table, idx)
-    if out.numel() == 0:
-        return out   # nothing to gather: no launch
-    _launch(table, idx, out, plan_for(table, idx, out))
+    if idx.numel() == 0:
+        return _output(table, idx)   # nothing to gather: no launch
+    out, _, launch = launcher(table, idx)
+    launch()
     dict_gather.launches += 1
     return out
 

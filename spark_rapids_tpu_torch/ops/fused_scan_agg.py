@@ -369,7 +369,7 @@ def _partials_cuda(spec: ScanAggSpec, batch, G: int):
     return _unpack_partials(spec, words)
 
 
-def kernel_launcher(spec: ScanAggSpec, batch, G: int):
+def launcher(spec: ScanAggSpec, batch, G: int):
     """A callable that launches the kernel alone on `batch`, into scratch
     and output words allocated once here: for timing the launches apart
     from the wrapper's allocations. It counts no launch."""

@@ -142,20 +142,21 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(table, idx, err):
 
 
 @pytest.mark.parametrize("n,lanes,elt,want", [
-    (128, 1, 1, 1),             # a hit mask: staged whole
-    (150, 1, 1, 1),             # Q19's largest dictionary
-    (4096, 1, 1, 1),            # exactly STAGE_BYTES
-    (1024, 1, 4, 1),
-    (4097, 1, 1, 0),            # one byte over: read through L2
-    (1 << 20, 1, 4, 0),
-    (4096, 128, 4, 0),          # dg: 2 MB, read through L2
-    (7, 128, 1, 0),             # multi-lane tables are never staged
-    (300, 5, 1, 0),
+    (128, 1, 1, True),          # a hit mask: staged whole
+    (150, 1, 1, True),          # Q19's largest dictionary
+    (4096, 1, 1, True),         # exactly STAGE_BYTES
+    (1024, 1, 4, True),
+    (4097, 1, 1, False),        # one byte over: read through L2
+    (1 << 20, 1, 4, False),
+    (4096, 128, 4, False),      # dg: 2 MB, read through L2
+    (7, 128, 1, False),         # multi-lane tables are never staged
+    (300, 5, 1, False),
 ])
 def test_lanes_per_block(n, lanes, elt, want):
-    lb = dg.lanes_per_block(n, lanes, elt)
-    assert lb == want
-    assert lb == 0 or n * lb * elt <= dg.STAGE_BYTES
+    # the staging decision: a block holds the whole one-lane table or none
+    staged = dg.staged(n, lanes, elt)
+    assert staged is want
+    assert not staged or n * elt <= dg.STAGE_BYTES
 
 
 @pytest.mark.parametrize("lanes,want", [
@@ -203,16 +204,16 @@ def test_grid_shape(work, want):
 
 @pytest.mark.parametrize("n,lanes,elt,rows,offset,want", [
     # Q19's 1-byte takes: the flat kernel, the hit mask staged
-    (150, 1, 1, 8_388_608, 0, (dg.FLAT, True, 0, 0, 2_097_152, 1056, 150)),
-    (150, 1, 1, 262_144, 0, (dg.FLAT, True, 0, 0, 65_536, 256, 150)),
-    (150, 1, 1, 1024, 1, (dg.FLAT, True, 0, 3, 255, 1, 150)),
+    (150, 1, 1, 8_388_608, 0, (dg.FLAT, True, 0, 0, 2_097_152, 1056)),
+    (150, 1, 1, 262_144, 0, (dg.FLAT, True, 0, 0, 65_536, 256)),
+    (150, 1, 1, 1024, 1, (dg.FLAT, True, 0, 3, 255, 1)),
     # a one-lane table over STAGE_BYTES stays in global memory
-    (1 << 20, 1, 4, 65_537, 0, (dg.FLAT, False, 0, 0, 16_384, 64, 0)),
+    (1 << 20, 1, 4, 65_537, 0, (dg.FLAT, False, 0, 0, 16_384, 64)),
     # dg's shape: the table in L2, lanes by mask
-    (4096, 128, 4, 16_384, 0, (dg.FLAT, False, 7, 0, 524_288, 1056, 0)),
+    (4096, 128, 4, 16_384, 0, (dg.FLAT, False, 7, 0, 524_288, 1056)),
     # an unaligned multi-lane view: a head of 3 elements
-    (4096, 128, 4, 100, 1, (dg.FLAT, False, 7, 3, 3199, 13, 0)),
-    (4096, 3, 4, 1000, 0, (dg.SCALAR, False, 0, 0, 0, 12, 0)),
+    (4096, 128, 4, 100, 1, (dg.FLAT, False, 7, 3, 3199, 13)),
+    (4096, 3, 4, 1000, 0, (dg.SCALAR, False, 0, 0, 0, 12)),
 ])
 def test_plan(n, lanes, elt, rows, offset, want):
     base = 1 << 20

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: in a fresh interpreter where `jax` and
-`spark_rapids_tpu` cannot be imported, every module of the port,
-chip_smoke.py and kernel_variants.py import, and an entry point asked for no device raises when
+`spark_rapids_tpu` cannot be imported, every module of the port and
+chip_smoke.py import, and an entry point asked for no device raises when
 there is no card instead of falling back to the CPU."""
 
 import shutil
@@ -34,7 +34,6 @@ q19 = ["columnar.encoded", "ops.dict_gather"]
 missing = [m for m in q3 + q19 if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
-import kernel_variants
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))
 assert not leaked, leaked
