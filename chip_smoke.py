@@ -19,14 +19,20 @@ fails the run on error:
      murmur3 of i64 and i32 lanes on ragged sizes with negative values and
      seeds chained over columns with nulls (exact); probe-verify on random
      lanes with duplicate build keys, buckets shared by several keys, empty
-     ranges and a candidate bucket smaller than the total (exact on the
-     slots below the total); the packed row gather with -1 and out-of-range
-     indices, f64 lanes and NaN payloads (exact bits); the dictionary
+     ranges, one to three key lanes, a candidate bucket smaller than the
+     total or equal to it, a total of 0, ranges longer than a tile, wholly
+     empty tiles and over 1,000 tiles (exact on the slots below the
+     total), its scratch left zero; the packed row gather at every width
+     the main paths pack and at widths of its generic kernel, with -1,
+     out-of-range and INT32_MIN indices or all of them out of range, f64
+     lanes with NaN payloads and a matrix off alignment (exact bits); the
+     dictionary
      gather at the TPU kernel's own (4096, 128) x (16384, 128) shape and on
      1- and 4-byte tables of 1, 3, 5 and 128 lanes through both of its
      kernels (one-lane tables staged and not), with codes of -1, n
      and above on ragged row counts, aligned and as x[1:] views (exact);
-     and every kernel on its main path's own inputs;
+     and every kernel on its main path's own inputs (every row gather of
+     each path captured from a run of a fresh plan);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -39,14 +45,17 @@ fails the run on error:
      against bench.numpy_oracle, q3 against bench.q3_oracle (integers and
      keys exact, f64 rtol 1e-9), q19 against q19_oracle (the qualifying
      row count exact, revenue rtol 1e-9) and the speculation flags (must
-     stay False), and that q1 launched fused_scan_agg once and q19
-     dict_gather 42 times;
+     stay False), and the launches: fused_scan_agg once per q1,
+     dict_gather 42 times per q19, fused_probe_verify once and
+     dma_row_gather 5 times per q3 (3 per q19);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
-     call that computes the same function; fused_scan_agg's and
-     dict_gather's launches are timed apart from their wrappers' calls,
-     and dict_gather at both of its shapes (q19's take and dg's). Kernel
+     call that computes the same function; fused_scan_agg's,
+     dict_gather's, fused_probe_verify's and dma_row_gather's launches are
+     timed apart from their wrappers' calls too, dict_gather at both of its
+     shapes (q19's take and dg's), the probe at q3's and q19's and the row
+     gather at every shape of q3 and q19 (summed per iteration). Kernel
      times are the device's, with the L2 cache flushed before each run
      (device_ms).
 
@@ -55,7 +64,9 @@ prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
 The last lines are a JSON line with one record per ported kernel (the
-dictionary gather's holds its times at dg's shape under "dg_shape"), the
+dictionary gather's holds its times at dg's shape under "dg_shape", the
+probe's Q19's under "q19_shape", the row gather's every shape under
+"shapes"), the
 card as nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -765,13 +776,24 @@ def compare_murmur3(dev):
 
 
 def _probe_case(rng, dev, n_stream, build_cap, n_lanes, dom, max_count,
-                cand_cap):
+                cand_cap, long_rows=0, empty_tiles=False, zero=False):
     """Random probe inputs: build lanes from a small domain (duplicate
     keys), ranges of 0..max_count candidates (empty ones included) over
-    rows holding other keys too, ~5% invalid keys on both sides."""
+    rows holding other keys too, ~5% invalid keys on both sides;
+    optionally `long_rows` ranges longer than a tile of the kernel, every
+    third tile wholly empty, or no candidate at all. A `cand_cap` of None
+    is the candidate total."""
     import torch
+    from spark_rapids_tpu_torch.ops.probe_verify import TILE
     counts = rng.integers(0, max_count + 1, n_stream).astype(np.int32)
     counts[rng.random(n_stream) < 0.3] = 0
+    if long_rows:
+        counts[rng.integers(0, n_stream, long_rows)] = 3 * TILE + 7
+    if empty_tiles:
+        for t in range(0, n_stream, 3 * TILE):
+            counts[t: t + TILE] = 0
+    if zero:
+        counts[:] = 0
     lo = rng.integers(0, build_cap - max_count, n_stream).astype(np.int32)
     bk = rng.integers(0, dom, (build_cap, n_lanes)).astype(np.int32)
     sk = rng.integers(0, dom, (n_stream, n_lanes)).astype(np.int32)
@@ -781,7 +803,8 @@ def _probe_case(rng, dev, n_stream, build_cap, n_lanes, dom, max_count,
         torch.from_numpy(sk).to(dev),
         torch.from_numpy(rng.random(n_stream) > 0.05).to(dev),
         torch.from_numpy(perm).to(dev)]
-    return args, cand_cap, int(counts.astype(np.int64).sum())
+    total = int(counts.astype(np.int64).sum())
+    return args, total if cand_cap is None else cand_cap, total
 
 
 def compare_probe(label, args, cand_cap, total):
@@ -800,15 +823,42 @@ def compare_probe(label, args, cand_cap, total):
 
 
 def compare_probe_cases(dev):
+    """The probe on random inputs: duplicate keys, one, two and three key
+    lanes, a bucket below the total, ranges longer than a tile, wholly
+    empty tiles, a total of 0, a total equal to the bucket, stream rows
+    that are not a multiple of the tile, and over 1,000 tiles so that the
+    look-back crosses many blocks; then the kernels' scratch must be
+    zero again."""
+    import torch
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
     rng = np.random.default_rng(21)
-    cases = [("probe dup keys L=2", (300_000, 1 << 16, 2, 50, 6, 1 << 20)),
-             ("probe L=1 cap<total", (100_003, 1 << 12, 1, 9, 9, 1 << 17)),
-             ("probe sparse", (65_537, 1 << 20, 2, 1 << 30, 2, 1 << 16))]
-    for label, shape in cases:
-        args, cap, total = _probe_case(rng, dev, *shape)
+    cases = [
+        ("probe dup keys L=2", (300_000, 1 << 16, 2, 50, 6, 1 << 20), {}),
+        ("probe L=1 cap<total", (100_003, 1 << 12, 1, 9, 9, 1 << 17), {}),
+        ("probe sparse", (65_537, 1 << 20, 2, 1 << 30, 2, 1 << 16), {}),
+        ("probe L=3", (50_001, 1 << 12, 3, 4, 3, 1 << 17), {}),
+        ("probe ranges longer than a tile",
+         (300_000, 1 << 16, 2, 50, 3, 1 << 20), {"long_rows": 40}),
+        ("probe empty tiles", (100_003, 1 << 14, 2, 50, 3, 1 << 18),
+         {"empty_tiles": True}),
+        ("probe total 0", (70_001, 1 << 12, 2, 50, 3, 1 << 12),
+         {"zero": True}),
+        ("probe total = bucket", (123_457, 1 << 14, 2, 50, 4, None), {}),
+        ("probe 1,026 tiles L=1", (4_200_001, 1 << 18, 1, 1 << 16, 3,
+                                   1 << 23), {}),
+    ]
+    for label, shape, opts in cases:
+        args, cap, total = _probe_case(rng, dev, *shape, **opts)
         hits = compare_probe(label, args, cap, total)
-        print(f"compare {label}: total={total} cand_cap={cap} "
-              f"verified={hits}, exact")
+        print(f"compare {label}: {args[1].shape[0]} stream rows "
+              f"({pv.tile_count(args[1].shape[0])} tiles), total={total} "
+              f"cand_cap={cap} verified={hits}, exact")
+    torch.cuda.synchronize()
+    # the ticket and the chunks' words go back to zero (word 1 keeps the
+    # last total)
+    if any(bool(b[0] != 0) or bool(b[pv.SCRATCH_HEAD:].any())
+           for b in pv._scratch.values()):
+        raise AssertionError("probe: the kernel left its scratch non-zero")
 
 
 def _gather_inputs(rng, dev, n_rows, n_out):
@@ -834,38 +884,86 @@ def _gather_inputs(rng, dev, n_rows, n_out):
     return plan, imat, fmat, torch.from_numpy(idx).to(dev)
 
 
+def _width_case(rng, dev, la, lb, cap, n_out, out_of_range=False):
+    """An int32 (cap, la) matrix of random bits and, when lb, an f64 (cap,
+    lb / 2) matrix of random bits (NaN payloads among them), with indices
+    in range but for -1, cap + 5 and INT32_MIN among them, or all out of
+    range."""
+    import torch
+    from types import SimpleNamespace
+    imat = torch.from_numpy(_random_ints(rng, cap * la, np.int32)
+                            .reshape(cap, la)).to(dev)
+    fmat = torch.from_numpy(_random_ints(rng, cap * lb // 2, np.int64)
+                            .reshape(cap, lb // 2)).to(dev).view(
+                                torch.float64) if lb else None
+    idx = rng.integers(0, cap, n_out).astype(np.int32)
+    idx[::9] = -1
+    idx[::13] = cap + 5
+    idx[::17] = np.iinfo(np.int32).min
+    if out_of_range:
+        idx = np.where(idx % 2 == 0, -1, cap + idx % 7).astype(np.int32)
+    return (SimpleNamespace(n_valid_lanes=1), imat, fmat,
+            torch.from_numpy(idx).to(dev))
+
+
 def compare_gather(dev):
+    """The packed row gather against the plain version, exact bits: every
+    (la, lb) that the main paths pack and widths that take the generic
+    kernel, lb = 0, all indices out of range, slot counts that are not a
+    multiple of the rows a thread takes, a matrix off its 16-byte
+    alignment, and the packed columns of five types."""
     import torch
     from spark_rapids_tpu_torch.ops import row_gather as rg
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
     rng = np.random.default_rng(31)
-    for n_rows, n_out in ((1000, 1), (70_001, 65_537), (1 << 20, 3 << 19)):
-        plan, imat, fmat, idx = _gather_inputs(rng, dev, n_rows, n_out)
+    kinds = {}
+
+    def check(label, plan, imat, fmat, idx):
         gi, gf = rg.pallas_gather_rows(plan, imat, fmat, idx)
         wi, wf = gather_rows(plan, imat, fmat, idx)
-        _exact(f"row gather n_out={n_out}",
-               [gi, gf.view(torch.int64)], [wi, wf.view(torch.int64)])
+        _exact(label, [gi] + ([gf.view(torch.int64)] if gf is not None
+                              else []),
+               [wi] + ([wf.view(torch.int64)] if wf is not None else []))
+        k = rg.gather_launcher(plan, imat, fmat, idx)[2].kind
+        kinds[k] = kinds.get(k, 0) + 1
+
+    for la, lb in ((4, 0), (4, 4), (3, 2), (3, 6), (3, 0), (3, 4), (2, 2),
+                   (5, 6), (2, 0)):
+        for cap, n_out in ((1000, 1), (70_001, 65_537),
+                           (1 << 20, 3 * (1 << 18) + 3)):
+            for oor in (False, True):
+                check(f"row gather ({la}, {lb}) {n_out} of {cap}"
+                      f"{' all out of range' if oor else ''}",
+                      *_width_case(rng, dev, la, lb, cap, n_out, oor))
+    plan, imat, fmat, idx = _width_case(rng, dev, 4, 4, 4097, 10_001)
+    flat = torch.empty(imat.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(imat.shape)
+    off.copy_(imat)
+    check("row gather (4, 4) matrix off alignment", plan, off, fmat, idx)
+    for n_rows, n_out in ((1000, 1), (70_001, 65_537), (1 << 20, 3 << 19)):
+        plan, imat, fmat, idx = _gather_inputs(rng, dev, n_rows, n_out)
+        check(f"row gather packed n_out={n_out}", plan, imat, fmat, idx)
         safe = torch.where((idx >= 0) & (idx < imat.shape[0]), idx, 0)
         _exact(f"dma_row_gather n_out={n_out}",
                [rg.dma_row_gather(imat, idx)], [imat[safe.long()]])
-    print("compare row gather: 3 shapes with -1/out-of-range indices and "
-          "NaN f64 payloads, exact bits")
+    missing = (set(rg.FIXED.values()) | {rg.ANY}) - set(kinds)
+    if missing:
+        raise AssertionError(f"row gather: kernels not exercised {missing}")
+    print(f"compare row gather: widths (4,0) (4,4) (3,2) (3,6) (3,0) (3,4) "
+          f"(2,2) (5,6) (2,0) at 3 shapes, all out of range too, a matrix "
+          f"off alignment, packed columns of 5 types; kernels used "
+          f"{ {rg.kind_name(k): v for k, v in kinds.items()} }; exact bits")
 
 
 class JoinInputs:
-    """The inputs a main path gives each join kernel, taken from the
-    port's own join exec: its build table and stream keys, the candidate
-    ranges and bucket, and the row gathers the path makes (the build
-    permute of the packable payload, and both sides' payload gathers by
-    the verified pairs, in slot order). Dictionary columns take the
-    per-column path, so only the packable columns are packed."""
+    """The inputs a main path gives the join's hash and probe kernels,
+    taken from the port's own join exec: its build table and stream keys,
+    the candidate ranges and bucket."""
 
     def __init__(self, j):
         import torch
         from spark_rapids_tpu_torch.columnar.column import bucket_capacity
         from spark_rapids_tpu_torch.ops import hashing, join as oj
-        from spark_rapids_tpu_torch.ops import probe_verify as pv
-        from spark_rapids_tpu_torch.ops.rowpack import is_packable, pack_rows
         j.stamp_inputs()
         build = j._build()
         stream = next(iter(j.children[j._stream_side].execute()))
@@ -882,31 +980,52 @@ class JoinInputs:
         seed = hashing.i32_bits(torch.full_like(key, oj.JOIN_HASH_SEED,
                                                 dtype=torch.int64))
         self.hash = (key, seed)
-        verified, s_idx, b_pos, _ = pv.fused_probe_verify_plain(
-            *self.probe, self.cand_cap)
-
-        def by_pairs(lane):
-            sel = lane[verified]
-            out = torch.full((self.cand_cap,), -1, dtype=torch.int32,
-                             device=key.device)
-            out[: sel.shape[0]] = sel
-            return out
-
-        plan_b, pmat_b, pfmat_b, ppi, _ = build.pack
-        self.gathers = {
-            "stream payload": (*pack_rows([c for c in stream.columns
-                                           if is_packable(c)]),
-                               by_pairs(s_idx)),
-            "build permute": (*pack_rows([build.payload[i] for i in ppi]),
-                              build.perm),
-            "build payload": (plan_b, pmat_b, pfmat_b, by_pairs(b_pos)),
-        }
 
 
-def compare_join_inputs(label, inputs):
+#: which call of a main path a row gather is, by the functions on its
+#: stack (the first rule whose functions are all there names it)
+GATHER_SITES = (
+    (("groupby_aggregate", "sort_batch_columns"), "group-by sort"),
+    (("sort_batch_columns",), "TopN sort"),
+    (("compact_columns",), "exact-tier compaction"),
+    (("build",), "build permute"),
+    (("_probe_kernel", "gather_batch_columns"), "stream payload"),
+    (("_probe_kernel",), "build payload"),
+)
+
+
+def capture_row_gathers(plan):
+    """Run `plan` once under a speculation scope and keep the inputs of
+    every packed row gather it makes (each goes through the gather
+    engine's `gather_rows`), in call order: [(site, pack plan, u32
+    matrix, f64 matrix or None, int32 index)]."""
+    import inspect
+    import torch
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    from spark_rapids_tpu_torch.ops import gather as G
+    calls, real = [], G.gather_rows
+
+    def record(pack, imat, fmat, idx):
+        names = {f.function for f in inspect.stack(0)[1:]}
+        site = next((label for need, label in GATHER_SITES
+                     if all(n in names for n in need)), "other")
+        calls.append((site, pack, imat, fmat, idx.to(torch.int32).clone()))
+        return real(pack, imat, fmat, idx)
+
+    G.gather_rows = record
+    try:
+        with speculation_scope():
+            list(plan.execute())
+            torch.cuda.synchronize()
+    finally:
+        G.gather_rows = real
+    return calls
+
+
+def compare_join_inputs(label, inputs, gathers):
     """Each join kernel against its plain version, exactly, on a main
-    path's own inputs: the stream keys' hash, the probe and every row
-    gather."""
+    path's own inputs: the stream keys' hash, the probe, and every row
+    gather that the path makes (`capture_row_gathers`)."""
     import torch
     from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
     from spark_rapids_tpu_torch.ops import row_gather as rg
@@ -922,21 +1041,26 @@ def compare_join_inputs(label, inputs):
     hits = compare_probe(f"probe {label}", inputs.probe, inputs.cand_cap,
                          inputs.total)
     shapes = []
-    for what, (plan, imat, fmat, idx) in inputs.gathers.items():
+    for site, plan, imat, fmat, idx in gathers:
         got = rg.pallas_gather_rows(plan, imat, fmat, idx)
         want = gather_rows(plan, imat, fmat, idx)
         if [x is None for x in got] != [x is None for x in want]:
-            raise AssertionError(f"row gather {label} {what}: kernel != "
+            raise AssertionError(f"row gather {label} {site}: kernel != "
                                  f"plain version")
-        _exact(f"row gather {label} {what}",
+        _exact(f"row gather {label} {site}",
                *([x.view(torch.int64) if x.is_floating_point() else x
                   for x in out if x is not None] for out in (got, want)))
-        shapes.append(f"{what} {idx.shape[0]} of {imat.shape[0]} rows")
+        shapes.append(f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
+                      f"({_widths(imat, fmat)})")
     print(f"compare {label} main-path inputs: {name} of {key.shape[0]} "
           f"stream keys, probe of {inputs.stream_rows} stream rows into "
           f"{inputs.build_rows} build rows, candidate total {inputs.total} "
           f"in {inputs.cand_cap} slots, {hits} verified pairs; row gathers "
           f"{'; '.join(shapes)}; exact")
+
+
+def _widths(imat, fmat):
+    return f"la={imat.shape[1]}, lb={2 * fmat.shape[1] if fmat is not None else 0}"
 
 
 # -- bounds -----------------------------------------------------------------
@@ -954,14 +1078,10 @@ def bound(nbytes, nops):
                                    else "operations")
 
 
-def time_q3_kernels(inputs, int_inputs, counts, int_counts):
-    """Each q3 kernel at its main-path shape: kernel, plain version, bound
-    and (the gather) torch.index_select on the same matrix."""
-    import torch
+def time_murmur3(inputs, int_inputs, counts, int_counts):
+    """Both murmur3 kernels at q3's stream keys: kernel, plain version and
+    bound."""
     from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
-    from spark_rapids_tpu_torch.ops import probe_verify as pv
-    from spark_rapids_tpu_torch.ops import row_gather as rg
-    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
     reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
     records = []
 
@@ -993,36 +1113,130 @@ def time_q3_kernels(inputs, int_inputs, counts, int_counts):
             device_ms(lambda: plain(*hargs), plain_reps),
             bound(n * (width + 4 + 4), n * M3_OPS[width]), None)
 
-    args, cap = inputs.probe, inputs.cand_cap
-    n, b, L = inputs.stream_rows, inputs.build_rows, inputs.n_lanes
-    live = min(inputs.total, cap)
-    # inputs read once (lo, counts, build and stream lanes and validity,
-    # perm) and the four outputs written once; per live slot a binary
-    # search of log2(n) steps (3 operations each) and the lane compares
-    probe_bytes = 8 * n + b * (4 * L + 1 + 4) + n * (4 * L + 1) + 13 * cap
-    probe_ops = live * (3 * int(np.ceil(np.log2(n + 1))) + 8 + 2 * L) \
-        + (cap - live) * 4
-    rec("fused_probe_verify", "probe_verify.cu",
-        "spark_rapids_tpu/ops/pallas_join.py:52",
-        counts["fused_probe_verify"],
-        device_ms(lambda: pv.fused_probe_verify(*args, cap), reps),
-        device_ms(lambda: pv.fused_probe_verify_plain(*args, cap),
-                  plain_reps),
-        bound(probe_bytes, probe_ops), None)
-
-    plan, imat, fmat, idx = inputs.gathers["stream payload"]
-    lanes = imat.shape[1] + 2 * fmat.shape[1]
-    mat = torch.cat([imat, fmat.view(torch.int32)], dim=1).contiguous()
-    safe = torch.where((idx >= 0) & (idx < mat.shape[0]), idx, 0)
-    rec("dma_row_gather", "row_gather.cu",
-        "spark_rapids_tpu/ops/pallas_gather.py:101",
-        counts["dma_row_gather"],
-        device_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat, idx),
-                  reps),
-        device_ms(lambda: gather_rows(plan, imat, fmat, idx), plain_reps),
-        bound(4 * idx.shape[0] * (1 + 2 * lanes), 0),
-        device_ms(lambda: torch.index_select(mat, 0, safe), reps))
     return records
+
+
+def probe_need(args, cap, total):
+    """Bytes and operations the probe function needs on these inputs:
+    every count read; lo, validity and key lanes of each stream row that
+    owns a slot below `cap`; build lanes, validity and perm of each
+    distinct build row a slot reads; 13 bytes written per slot; per live
+    slot the build position, the clamp and the compares, 4 stores past
+    the total."""
+    import torch
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
+    lo, counts = args[0], args[1]
+    n, b, L = counts.shape[0], args[6].shape[0], args[2].shape[1]
+    live = min(total, cap)
+    _, s_idx, b_pos, _ = pv.fused_probe_verify_plain(*args, cap)
+    owners = int(torch.unique(s_idx[:live]).numel())
+    touched = int(torch.unique(b_pos[:live].clamp(0, b - 1)).numel())
+    nbytes = 4 * n + owners * (4 + 1 + 4 * L) + touched * (4 * L + 1 + 4) \
+        + 13 * cap
+    return nbytes, live * (8 + 2 * L) + (cap - live) * 4
+
+
+def time_probe(inputs, q19_inputs, launches):
+    """fused_probe_verify at q3's and Q19's main-path inputs: the
+    wrapper's whole device work (comparable to the earlier records, which
+    timed the wrapper), its kernel launch alone, the plain version and
+    the bound of what the function needs. The record holds q3's shape
+    with Q19's under "q19_shape"."""
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    out = []
+    for label, inp in (("q3", inputs), ("q19", q19_inputs)):
+        args, cap = inp.probe, inp.cand_cap
+        _, launch = pv.launcher(*args, cap)
+        launch()
+        kernel_ms = device_ms(launch, reps)
+        ms = device_ms(lambda: pv.fused_probe_verify(*args, cap), reps)
+        plain_ms = device_ms(lambda: pv.fused_probe_verify_plain(*args, cap),
+                             plain_reps)
+        b_ms, b_by = bound(*probe_need(args, cap, inp.total))
+        print(f"fused_probe_verify {label} ({inp.stream_rows} stream rows, "
+              f"{pv.tile_count(inp.stream_rows)} tiles, total {inp.total} in "
+              f"{cap} slots): wrapper {ms:.4f} ms on the device, kernel "
+              f"launch {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+        out.append({"launches": launches[label], "max_abs_err": 0.0,
+                    "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    q3, q19 = out
+    return {"name": "fused_probe_verify", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/probe_verify.cu",
+            "replaces": "spark_rapids_tpu/ops/pallas_join.py:52", **q3,
+            "q19_shape": q19}
+
+
+def time_row_gathers(paths, launches):
+    """dma_row_gather at every shape the main paths give it (`paths`:
+    {path: capture_row_gathers(plan)}): the kernel's launch alone, the
+    wrapper's whole call, the plain version, the bound (the index, each
+    distinct row an in-range index reads, row 0 once, every output row
+    written) and the faster of the two PyTorch calls that compute the
+    same function on the same matrix (index_select, a tensor index), all
+    on the device with L2 cold. The record's own numbers are the q3
+    stream payload's (the shape earlier records timed); "shapes" lists
+    every shape and "per_iteration" sums each path's kernel time."""
+    import torch
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    shapes, per_it, main = [], {}, None
+    for path, calls in paths.items():
+        per_it[path] = 0.0
+        for site, plan, imat, fmat, idx in calls:
+            n, cap = idx.shape[0], imat.shape[0]
+            lanes = imat.shape[1] + (2 * fmat.shape[1] if fmat is not None
+                                     else 0)
+            _, _, p, launch = rg.gather_launcher(plan, imat, fmat, idx)
+            launch()
+            kernel_ms = device_ms(launch, reps)
+            ms = device_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat,
+                                                         idx), reps)
+            plain_ms = device_ms(lambda: gather_rows(plan, imat, fmat, idx),
+                                 plain_reps)
+            mat = torch.cat([imat] + ([fmat.view(torch.int32)]
+                                      if fmat is not None else []),
+                            dim=1).contiguous()
+            ok = (idx >= 0) & (idx < cap)
+            safe = torch.where(ok, idx, 0).long()
+            lib = {"index_select": device_ms(
+                       lambda: torch.index_select(mat, 0, safe), reps),
+                   "mat[idx]": device_ms(lambda: mat[safe], reps)}
+            lib_name = min(lib, key=lib.get)
+            rows_read = int(torch.unique(idx[ok]).numel())
+            b_ms, b_by = bound(4 * n + 4 * lanes * (rows_read + 1 + n), 0)
+            per_it[path] += kernel_ms
+            rec = {"path": path, "site": site, "n": n, "cap": cap,
+                   "la": imat.shape[1], "lb": lanes - imat.shape[1],
+                   "kernel": rg.kind_name(p.kind),
+                   "in_range": int(ok.sum()), "kernel_ms": kernel_ms,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "library_ms": lib[lib_name], "library": lib_name}
+            shapes.append(rec)
+            print(f"dma_row_gather {path} {site} ({n} of {cap} rows, "
+                  f"{rec['in_range']} in range, la={rec['la']} "
+                  f"lb={rec['lb']}, kernel {rec['kernel']}): kernel "
+                  f"{kernel_ms:.4f} ms, wrapper {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / kernel_ms:.1%} of the bound; index_select "
+                  f"{lib['index_select']:.4f} ms, mat[idx] "
+                  f"{lib['mat[idx]']:.4f} ms")
+            if path == "q3" and site == "stream payload":
+                main = dict(rec, bound_by=b_by)
+    print("dma_row_gather per iteration: " + ", ".join(
+        f"{k} {v:.4f} ms in {len(paths[k])} launches"
+        for k, v in per_it.items()))
+    return {"name": "dma_row_gather", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/row_gather.cu",
+            "replaces": "spark_rapids_tpu/ops/pallas_gather.py:101",
+            "launches": launches, "max_abs_err": 0.0, "ms": main["ms"],
+            "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shapes": shapes,
+            "per_iteration": per_it}
 
 
 # -- the dictionary gather ---------------------------------------------------
@@ -1272,9 +1486,16 @@ def main() -> int:
     compare_gather(dev)
     q3_in = JoinInputs(q3.child._source)
     q3i_in = JoinInputs(q3i.child._source)
-    compare_join_inputs("q3", q3_in)
-    compare_join_inputs("q3 INT keys", q3i_in)
-    compare_join_inputs("q19", JoinInputs(q19._source))
+    q19_in = JoinInputs(q19._source)
+    # every row gather of each path, captured from a run of a fresh plan
+    # (the counted runs below start with the join's size cache cold)
+    gathers = {"q3": capture_row_gathers(q3_plan(d3, dev, "LONG")),
+               "q3 INT keys": capture_row_gathers(q3_plan(d3i, dev, "INT")),
+               "q19": capture_row_gathers(q19_plan(port_modules(), l19,
+                                                   p19))}
+    compare_join_inputs("q3", q3_in, gathers["q3"])
+    compare_join_inputs("q3 INT keys", q3i_in, gathers["q3 INT keys"])
+    compare_join_inputs("q19", q19_in, gathers["q19"])
     compare_dict_gather(dev, l19)
     torch.cuda.synchronize()
 
@@ -1292,6 +1513,8 @@ def main() -> int:
     print(f"q1 at {ROWS} rows: {len(rows)} groups equal to the numpy "
           f"oracle; launches {q1_counts}")
     q3_need = ["murmur3_long_lanes", "fused_probe_verify", "dma_row_gather"]
+    # launches per run of each path: every row gather and probe call
+    want = {"dma_row_gather": (5, 3), "fused_probe_verify": (1, 1)}
     rows, q3_counts = drive_counted("q3", q3, q3_need)
     check_q3(rows, q3_want, "q3")
     print(f"q3 at {Q3_LINES} x {Q3_ORDERS}: top 10 equal to the numpy "
@@ -1315,6 +1538,13 @@ def main() -> int:
     check_q19(rows, pairs, q19_want, "q19")
     if q19_counts["dict_gather"] != 42:
         raise AssertionError(f"q19: {q19_counts} (42 dict_gather launches)")
+    for label, counts in (("q3", q3_counts), ("q3 warm", warm_counts),
+                          ("q3 INT keys", q3i_counts), ("q19", q19_counts)):
+        for name, (n3, n19) in want.items():
+            need = n19 if label == "q19" else n3
+            if counts[name] != need:
+                raise AssertionError(f"{label}: {counts[name]} {name} "
+                                     f"launches, not {need}")
     print(f"q19 at SF1 ({Q19_LINES} x {Q19_PARTS}): revenue {rows[0][0]!r} "
           f"over {pairs} qualifying rows, equal to the numpy oracle; "
           f"launches {q19_counts}")
@@ -1402,7 +1632,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + time_q3_kernels(q3_in, q3i_in, q3_counts, q3i_counts) + [
+    }] + time_murmur3(q3_in, q3i_in, q3_counts, q3i_counts) + [
+        time_probe(q3_in, q19_in, {"q3": q3_counts["fused_probe_verify"],
+                                   "q19": q19_counts["fused_probe_verify"]}),
+        time_row_gathers({k: gathers[k] for k in ("q3", "q19")},
+                         q3_counts["dma_row_gather"]),
         time_dict_gather(l19, q19_counts["dict_gather"])]
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -2,65 +2,297 @@
 // Replaces the TPU kernel `dma_row_gather` (spark_rapids_tpu/ops/
 // pallas_gather.py), reached there through `pallas_gather_rows`.
 //
-// Bound: bytes. The index (4 bytes a row) and each gathered row are read
-// once and each output row written once: for an (n, L) u32 gather that is
-// 4n + 2 * 4nL bytes. A lineitem row of q3 packs into L = 8 words (one
-// validity word, two for the LONG key, one INT, four for two DOUBLEs), so
-// a million gathered rows move 68 MB, 20 us at 3.35 TB/s.
+// Bound: bytes. The function reads the index (4 bytes a row), each
+// distinct row that an in-range index names, row 0 once (what every
+// out-of-range slot copies), and writes every output row: for n indices
+// into (cap, L) u32 rows that is at most 4n + 4L * (min(n, cap) + 1 + n).
+// q3's stream payload (L = 8, 2,097,152 slots, some 0.8 M of them in
+// range) moves about 96 MB, 29 us at 3.35 TB/s.
 //
-// Design: the TPU kernel walks index tiles through SMEM and keeps a window
-// of per-row DMAs in flight, because a TPU's XLA gather is loop-bound.
-// On Hopper a gather is a plain load: thread t copies word (t % L) of
-// output row (t / L), so a warp covers 32 consecutive output words — the
-// stores coalesce, the loads of one source row are contiguous, and many
-// warps in flight hide the random-row latency. Two matrices ride one
-// launch: the u32 matrix `a` and the f64 matrix viewed as u32 lanes `b`,
-// so the JAX wrapper's concatenation and split never copy the data.
-// An index outside [0, cap) reads row 0 and the first `nv` lanes of `a`
-// (the validity words) come back zero: the engine's out-of-range contract,
-// applied in the kernel instead of in a pass before and one after.
+// Design. What bounds a gather on Hopper is how many random row reads a
+// thread keeps in flight and how few instructions each costs, so:
+//   - a thread owns whole rows: ROWS of them per step, every index
+//     loaded first (the next step's while this step's rows move), then
+//     the loads of every row of both matrices, then the stores, so 2 *
+//     ROWS random reads are in flight per thread (a copy of one matrix's
+//     rows before the other's loads would wait twice);
+//   - the widths the main paths pack are compile-time (row_gather_fixed:
+//     (la, lb) = (4, 0), (4, 4), (3, 0), (3, 4), (3, 2), (2, 2), (3, 6):
+//     q3's and q19's payloads with LONG or INT keys), so a row moves in 16-,
+//     8- or 4-byte pieces with no division; any other width, or a matrix
+//     off the pieces' alignment, takes row_gather_any, one word at a time;
+//   - a slot whose index is outside [0, cap) loads nothing: each block
+//     reads row 0 once into shared memory, its first `nv` lanes of `a`
+//     (the validity words) zeroed, and stores that copy there;
+//   - offsets are 32-bit when every one fits (I = int), else 64-bit;
+//   - one wave of blocks, a grid-stride loop; both matrices (the u32 lanes
+//     `a` and the f64 lanes viewed as u32 `b`) ride one launch.
+// Asking L2 for a small matrix first (a bulk prefetch), 8 or 2 rows a
+// thread and evict-first stores measured no faster at the main paths'
+// shapes (PERF.md, Findings). ops/row_gather.plan() picks the kernel on
+// the host.
 
 #include <cuda_runtime.h>
 
-__global__ void row_gather(const int* __restrict__ idx, long long n,
-                           long long cap, const unsigned* __restrict__ a,
-                           int la, unsigned* __restrict__ oa,
-                           const unsigned* __restrict__ b, int lb,
-                           unsigned* __restrict__ ob, int nv) {
-    const int L = la + lb;
-    const long long total = n * L;
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += step) {
-        const long long r = t / L;
-        const int k = (int)(t - r * L);
-        const long long i = idx[r];
-        const bool ok = i >= 0 && i < cap;
-        const long long s = ok ? i : 0;
-        if (k < la) {
-            unsigned v = cap > 0 ? a[s * la + k] : 0u;
-            if (!ok && k < nv) v = 0u;
-            oa[r * la + k] = v;
+#define THREADS 256
+#define ROWS 4
+
+template <int V> struct Vec;
+template <> struct Vec<1> { typedef unsigned type; };
+template <> struct Vec<2> { typedef uint2 type; };
+template <> struct Vec<4> { typedef uint4 type; };
+
+template <int V>
+__device__ __forceinline__ void unpack(typename Vec<V>::type v,
+                                       unsigned* w);
+template <> __device__ __forceinline__ void unpack<1>(unsigned v,
+                                                      unsigned* w) {
+    w[0] = v;
+}
+template <> __device__ __forceinline__ void unpack<2>(uint2 v, unsigned* w) {
+    w[0] = v.x; w[1] = v.y;
+}
+template <> __device__ __forceinline__ void unpack<4>(uint4 v, unsigned* w) {
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+
+template <int V>
+__device__ __forceinline__ typename Vec<V>::type pack(const unsigned* w);
+template <> __device__ __forceinline__ unsigned pack<1>(const unsigned* w) {
+    return w[0];
+}
+template <> __device__ __forceinline__ uint2 pack<2>(const unsigned* w) {
+    return make_uint2(w[0], w[1]);
+}
+template <> __device__ __forceinline__ uint4 pack<4>(const unsigned* w) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// row 0 of both matrices, validity lanes zeroed, into shared memory
+__device__ __forceinline__ void stage_row0(unsigned* row0, long long cap,
+                                           const unsigned* a, int la,
+                                           const unsigned* b, int lb,
+                                           int nv) {
+    for (int k = threadIdx.x; k < la + lb; k += blockDim.x) {
+        unsigned v = 0u;
+        if (cap > 0 && k >= nv) v = k < la ? a[k] : b[k - la];
+        row0[k] = v;
+    }
+    __syncthreads();
+}
+
+// One matrix's part of ROWS rows into registers: a load for each row in
+// range, the staged row 0 for the others.
+template <int L, int V, typename I>
+__device__ __forceinline__ void load_rows(const unsigned* __restrict__ m,
+                                          const unsigned* row0, const I* s,
+                                          const bool* ok,
+                                          unsigned (*w)[L > 0 ? L : 1]) {
+    if (L == 0) return;
+    typedef typename Vec<V>::type T;
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        if (ok[k]) {
+            const T* src = reinterpret_cast<const T*>(m + s[k] * L);
+#pragma unroll
+            for (int p = 0; p < L / V; ++p) unpack<V>(__ldg(src + p),
+                                                      w[k] + p * V);
         } else {
-            const int kk = k - la;
-            ob[r * lb + kk] = cap > 0 ? b[s * lb + kk] : 0u;
+#pragma unroll
+            for (int q = 0; q < L; ++q) w[k][q] = row0[q];
         }
+    }
+}
+
+template <int L, int V, typename I>
+__device__ __forceinline__ void store_rows(unsigned* __restrict__ o,
+                                           unsigned (*w)[L > 0 ? L : 1],
+                                           const I* r, I n) {
+    if (L == 0) return;
+    typedef typename Vec<V>::type T;
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        if (r[k] < n) {
+            T* dst = reinterpret_cast<T*>(o + r[k] * L);
+#pragma unroll
+            for (int p = 0; p < L / V; ++p) dst[p] = pack<V>(w[k] + p * V);
+        }
+    }
+}
+
+// The index of rows r0, r0 + stride, ... (-1 past n).
+template <typename I>
+__device__ __forceinline__ void load_idx(const int* __restrict__ idx, I r0,
+                                         I stride, I n, int* iv) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+        const I r = r0 + k * stride;
+        iv[k] = r < n ? __ldg(idx + r) : -1;
+    }
+}
+
+template <int LA, int VA, int LB, int VB, typename I>
+__global__ void __launch_bounds__(THREADS)
+row_gather_fixed(const int* __restrict__ idx, I n, I cap,
+                 const unsigned* __restrict__ a, unsigned* __restrict__ oa,
+                 const unsigned* __restrict__ b, unsigned* __restrict__ ob,
+                 int nv) {
+    __shared__ unsigned row0[LA + LB];
+    const I stride = (I)gridDim.x * THREADS;
+    I r0 = (I)blockIdx.x * THREADS + threadIdx.x;
+    int iv[ROWS];
+    load_idx(idx, r0, stride, n, iv);   // in flight while row 0 is staged
+    stage_row0(row0, cap, a, LA, b, LB, nv);
+    for (; r0 < n; r0 += ROWS * stride) {
+        I r[ROWS], s[ROWS];
+        bool ok[ROWS];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) {
+            r[k] = r0 + k * stride;
+            ok[k] = iv[k] >= 0 && (I)iv[k] < cap;
+            s[k] = ok[k] ? (I)iv[k] : 0;
+        }
+        load_idx(idx, r0 + ROWS * stride, stride, n, iv);   // the next step's
+        // every row load of both matrices before the first store, so that
+        // 2 * ROWS random reads are in flight per thread
+        unsigned wa[ROWS][LA > 0 ? LA : 1], wb[ROWS][LB > 0 ? LB : 1];
+        load_rows<LA, VA, I>(a, row0, s, ok, wa);
+        load_rows<LB, VB, I>(b, row0 + LA, s, ok, wb);
+        store_rows<LA, VA, I>(oa, wa, r, n);
+        store_rows<LB, VB, I>(ob, wb, r, n);
+    }
+}
+
+template <typename I>
+__global__ void __launch_bounds__(THREADS)
+row_gather_any(const int* __restrict__ idx, I n, I cap,
+               const unsigned* __restrict__ a, int la,
+               unsigned* __restrict__ oa, const unsigned* __restrict__ b,
+               int lb, unsigned* __restrict__ ob, int nv) {
+    extern __shared__ unsigned row0[];
+    const I stride = (I)gridDim.x * THREADS;
+    I r0 = (I)blockIdx.x * THREADS + threadIdx.x;
+    int iv[ROWS];
+    load_idx(idx, r0, stride, n, iv);
+    stage_row0(row0, cap, a, la, b, lb, nv);
+    for (; r0 < n; r0 += ROWS * stride) {
+        I r[ROWS], s[ROWS];
+        bool ok[ROWS];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) {
+            r[k] = r0 + k * stride;
+            ok[k] = iv[k] >= 0 && (I)iv[k] < cap;
+            s[k] = ok[k] ? (I)iv[k] : 0;
+        }
+        load_idx(idx, r0 + ROWS * stride, stride, n, iv);
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) {
+            if (r[k] >= n) continue;
+            for (int q = 0; q < la; ++q)
+                oa[r[k] * la + q] = ok[k] ? __ldg(a + s[k] * la + q)
+                                          : row0[q];
+            for (int q = 0; q < lb; ++q)
+                ob[r[k] * lb + q] = ok[k] ? __ldg(b + s[k] * lb + q)
+                                          : row0[la + q];
+        }
+    }
+}
+
+// The kernels, by the KIND_* numbers of ops/row_gather.py: (la, va, lb,
+// vb) of each fixed width; KIND_ANY takes any width.
+enum { KIND_ANY = 0, KIND_4_0 = 1, KIND_4_4 = 2, KIND_3_2 = 3,
+       KIND_3_6 = 4, KIND_3_0 = 5, KIND_3_4 = 6, KIND_2_2 = 7, N_KINDS = 8 };
+
+template <typename I>
+static const void* kernel_of(int kind) {
+    switch (kind) {
+        case KIND_4_0: return (const void*)row_gather_fixed<4, 4, 0, 1, I>;
+        case KIND_4_4: return (const void*)row_gather_fixed<4, 4, 4, 4, I>;
+        case KIND_3_2: return (const void*)row_gather_fixed<3, 1, 2, 2, I>;
+        case KIND_3_6: return (const void*)row_gather_fixed<3, 1, 6, 2, I>;
+        case KIND_3_0: return (const void*)row_gather_fixed<3, 1, 0, 1, I>;
+        case KIND_3_4: return (const void*)row_gather_fixed<3, 1, 4, 4, I>;
+        case KIND_2_2: return (const void*)row_gather_fixed<2, 2, 2, 2, I>;
+        case KIND_ANY: return (const void*)row_gather_any<I>;
+        default: return nullptr;
+    }
+}
+
+// Blocks of `kind` (64-bit offsets when `wide`) resident on one SM, and
+// the card's SM count: what ops/row_gather.grid_shape needs.
+extern "C" int row_gather_limits(int kind, int wide, int* blocks_per_sm,
+                                 int* sms) {
+    const void* k = wide ? kernel_of<long long>(kind) : kernel_of<int>(kind);
+    if (k == nullptr) return (int)cudaErrorInvalidValue;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks_per_sm, k, THREADS, 0);
+    return (int)e;
+}
+
+template <typename I>
+static void launch(int kind, int grid, cudaStream_t st, const int* idx,
+                   I n, I cap, const unsigned* a, int la, unsigned* oa,
+                   const unsigned* b, int lb, unsigned* ob, int nv) {
+    switch (kind) {
+        case KIND_4_0:
+            row_gather_fixed<4, 4, 0, 1, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_4_4:
+            row_gather_fixed<4, 4, 4, 4, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_3_2:
+            row_gather_fixed<3, 1, 2, 2, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_3_6:
+            row_gather_fixed<3, 1, 6, 2, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_3_0:
+            row_gather_fixed<3, 1, 0, 1, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_3_4:
+            row_gather_fixed<3, 1, 4, 4, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        case KIND_2_2:
+            row_gather_fixed<2, 2, 2, 2, I><<<grid, THREADS, 0, st>>>(
+                idx, n, cap, a, oa, b, ob, nv);
+            break;
+        default:
+            row_gather_any<I><<<grid, THREADS,
+                                (size_t)(la + lb) * sizeof(unsigned), st>>>(
+                idx, n, cap, a, la, oa, b, lb, ob, nv);
     }
 }
 
 // idx: n i32; a: cap x la u32, oa: n x la; b: cap x lb u32 (lb may be 0,
 // then b and ob are unused), ob: n x lb; nv: validity lanes of a to zero
-// for out-of-range indices. Returns the launch's CUDA error (0 = none).
-extern "C" int row_gather_run(const void* idx, long long n, long long cap,
-                              const void* a, int la, void* oa,
-                              const void* b, int lb, void* ob, int nv,
-                              void* stream) {
-    const long long total = n * (long long)(la + lb);
-    if (total <= 0) return 0;
-    long long blocks = (total + 255) / 256;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    row_gather<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)idx, n, cap, (const unsigned*)a, la, (unsigned*)oa,
-        (const unsigned*)b, lb, (unsigned*)ob, nv);
+// for out-of-range indices; kind, wide and grid from ops/row_gather.plan.
+// Returns the launch's CUDA error (0 = none).
+extern "C" int row_gather_run(int kind, int wide, int grid, const void* idx,
+                              long long n, long long cap, const void* a,
+                              int la, void* oa, const void* b, int lb,
+                              void* ob, int nv, void* stream) {
+    if (n <= 0 || la + lb <= 0) return 0;
+    if (kind < 0 || kind >= N_KINDS || grid <= 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (wide)
+        launch<long long>(kind, grid, st, (const int*)idx, n, cap,
+                          (const unsigned*)a, la, (unsigned*)oa,
+                          (const unsigned*)b, lb, (unsigned*)ob, nv);
+    else
+        launch<int>(kind, grid, st, (const int*)idx, (int)n, (int)cap,
+                    (const unsigned*)a, la, (unsigned*)oa,
+                    (const unsigned*)b, lb, (unsigned*)ob, nv);
     return (int)cudaGetLastError();
 }

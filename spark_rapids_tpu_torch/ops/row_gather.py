@@ -10,23 +10,118 @@ reads row 0 with its validity lanes zeroed — bit-identical to the plain
 version. Both launch csrc/row_gather.cu on CUDA tensors and count each
 launch in `dma_row_gather.launches`; on CPU tensors they run the plain
 version (no launch); any other device raises.
+
+`plan` chooses, on the host, the kernel and its launch shape; its parts
+are pure functions: `vector_words`, `kernel_kind`, `index_wide` and
+`grid_shape` (csrc/row_gather.cu says why). `launcher` prepares one
+launch for timing it alone.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from .rowpack import gather_rows as gather_rows_plain
 
 _SOURCE = "row_gather.cu"
-_SIGNATURES = {"row_gather_run": [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p]}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "row_gather_run": [_I, _I, _I, _P, ctypes.c_longlong,
+                       ctypes.c_longlong, _P, _I, _P, _P, _I, _P, _I, _P],
+    "row_gather_limits": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+}
+
+#: the kernels of csrc/row_gather.cu (its KIND_* values): any width, one
+#: word at a time, or a fixed (la, lb) in vector pieces
+ANY = 0
+#: (la, words of a's pieces, lb, words of b's pieces) -> kind
+FIXED = {(4, 4, 0, 1): 1, (4, 4, 4, 4): 2, (3, 1, 2, 2): 3, (3, 1, 6, 2): 4,
+         (3, 1, 0, 1): 5, (3, 1, 4, 4): 6, (2, 2, 2, 2): 7}
+
+#: threads per block and rows a thread takes per step (THREADS, ROWS)
+THREADS = 256
+ROWS = 4
+
+
+class Plan(NamedTuple):
+    kind: int       # ANY or one of FIXED's values
+    wide: bool      # 64-bit offsets
+    grid: int       # blocks
+
+
+def kind_name(kind: int) -> str:
+    """The name "la_lb" of a fixed-width kernel, "any" for the generic one."""
+    return next((f"{k[0]}_{k[2]}" for k, v in FIXED.items() if v == kind),
+                "any")
+
+
+def vector_words(lanes: int, *addrs: int) -> int:
+    """The widest piece (4, 2 or 1 words) that a row of `lanes` u32 words
+    splits into with every row of the matrices at `addrs` aligned to it."""
+    for v in (4, 2, 1):
+        if lanes % v == 0 and all(a % (4 * v) == 0 for a in addrs):
+            return v
+    return 1
+
+
+def kernel_kind(la: int, lb: int, a_addrs: Tuple[int, ...],
+                b_addrs: Tuple[int, ...]) -> int:
+    """The fixed-width kernel for (la, lb) at these matrix and output
+    addresses, or ANY when none is compiled for them (another width, or a
+    matrix off its pieces' alignment)."""
+    va = vector_words(la, *a_addrs)
+    vb = vector_words(lb, *b_addrs) if lb else 1
+    return FIXED.get((la, va, lb, vb), ANY)
+
+
+def index_wide(n: int, cap: int, lanes: int, grid: int) -> bool:
+    """Whether the kernel needs 64-bit offsets: any word offset of either
+    side, or a row the grid-stride loop reaches (its index prefetch runs
+    one step ahead), at or past 2^31."""
+    return (max(n, cap) * max(lanes, 1) >= 1 << 31
+            or n + 2 * ROWS * grid * THREADS >= 1 << 31)
+
+
+def grid_shape(n: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of one launch: one wave of the card, fewer when the rows do
+    not fill it (ROWS a thread)."""
+    return max(1, min(-(-n // (THREADS * ROWS)), sms * blocks_per_sm))
+
+
+def plan(n: int, cap: int, la: int, lb: int, a_addrs: Tuple[int, ...],
+         b_addrs: Tuple[int, ...], limits) -> Plan:
+    """The kernel and launch shape for n indices into (cap, la) u32 rows
+    and (cap, lb) f64-as-u32 rows; `limits(kind, wide)` gives (SMs, blocks
+    per SM) of that kernel on the card."""
+    kind = kernel_kind(la, lb, a_addrs, b_addrs)
+    grid = grid_shape(n, *limits(kind, False))
+    wide = index_wide(n, cap, max(la, lb), grid)
+    if wide:
+        grid = grid_shape(n, *limits(kind, True))
+    return Plan(kind, wide, grid)
+
+
+_limits: Dict[Tuple[int, int, bool], Tuple[int, int]] = {}
+
+
+def card_limits(kind: int, wide: bool) -> Tuple[int, int]:
+    """(SMs, blocks per SM) of a kernel on the current card, read once per
+    process."""
+    dev = torch.cuda.current_device()
+    key = (dev, kind, wide)
+    if key not in _limits:
+        from ..kernels.build import csrc_library
+        bps, sms = ctypes.c_int(0), ctypes.c_int(0)
+        err = csrc_library(_SOURCE, _SIGNATURES).row_gather_limits(
+            kind, int(wide), ctypes.byref(bps), ctypes.byref(sms))
+        if err != 0 or bps.value < 1:
+            raise RuntimeError(f"row_gather: cannot read the card's limits:"
+                               f" CUDA error {err}")
+        _limits[key] = (sms.value, bps.value)
+    return _limits[key]
 
 
 def _matrix(m: torch.Tensor, name: str) -> torch.Tensor:
@@ -35,11 +130,13 @@ def _matrix(m: torch.Tensor, name: str) -> torch.Tensor:
     return m.contiguous()
 
 
-def _launch(idx: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
-            nv: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One kernel launch gathering rows of `a` (int32 (cap, la)) and, when
-    given, of `b` (int32 (cap, lb)) by `idx`."""
-    from ..kernels.build import csrc_library
+def launcher(idx: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
+             nv: int):
+    """One launch gathering rows of `a` (int32 (cap, la)) and, when given,
+    of `b` (int32 (cap, lb)) by `idx`, its outputs allocated and its plan
+    made here. Returns (oa, ob, plan, a callable that launches the kernel
+    into them, or None when there is nothing to copy). It counts no
+    launch."""
     dev = a.device
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError("the gather index must be a 1-D int32 tensor")
@@ -48,23 +145,40 @@ def _launch(idx: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None and b.shape[0] != a.shape[0]:
         raise ValueError("both matrices need the same row count")
     idx = idx.contiguous()
-    n, cap = idx.shape[0], a.shape[0]
-    oa = torch.empty((n, a.shape[1]), dtype=torch.int32, device=dev)
+    n, cap, la = idx.shape[0], a.shape[0], a.shape[1]
     lb = b.shape[1] if b is not None else 0
+    oa = torch.empty((n, la), dtype=torch.int32, device=dev)
     ob = torch.empty((n, lb), dtype=torch.int32, device=dev) \
         if b is not None else None
-    if n * (a.shape[1] + lb) == 0:
-        return oa, ob   # nothing to copy: no launch
+    if n * (la + lb) == 0:
+        return oa, ob, None, None
+    from ..kernels.build import csrc_library
+    p = plan(n, cap, la, lb, (a.data_ptr(), oa.data_ptr()),
+             (b.data_ptr(), ob.data_ptr()) if b is not None else (),
+             card_limits)
     lib = csrc_library(_SOURCE, _SIGNATURES)
-    err = lib.row_gather_run(
-        idx.data_ptr(), n, cap, a.data_ptr(), a.shape[1], oa.data_ptr(),
-        b.data_ptr() if b is not None else None, lb,
-        ob.data_ptr() if ob is not None else None, nv,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather kernel launch failed: CUDA error "
-                           f"{err}")
-    dma_row_gather.launches += 1
+    args = (p.kind, int(p.wide), p.grid, idx.data_ptr(), n, cap,
+            a.data_ptr(), la, oa.data_ptr(),
+            b.data_ptr() if b is not None else None, lb,
+            ob.data_ptr() if ob is not None else None, nv,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(keep=(idx, a, b, oa, ob)):
+        # `keep` holds the tensors whose addresses `args` carries
+        err = lib.row_gather_run(*args)
+        if err != 0:
+            raise RuntimeError(f"row_gather kernel launch failed: CUDA "
+                               f"error {err}")
+
+    return oa, ob, p, launch
+
+
+def _launch(idx: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
+            nv: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    oa, ob, _, launch = launcher(idx, a, b, nv)
+    if launch is not None:
+        launch()
+        dma_row_gather.launches += 1
     return oa, ob
 
 
@@ -101,12 +215,24 @@ def pallas_gather_rows(plan, imat: torch.Tensor,
                          f"{imat.device}")
     if imat.dtype != torch.int32:
         raise TypeError(f"imat must be int32, not {imat.dtype}")
-    fbits = None
-    if fmat is not None:
-        fmat = _matrix(fmat, "fmat")
-        if fmat.dtype != torch.float64:
-            raise TypeError(f"fmat must be float64, not {fmat.dtype}")
-        fbits = fmat.view(torch.int32)
-    gi, gfb = _launch(idx, imat, fbits, plan.n_valid_lanes)
+    gi, gfb = _launch(idx, imat, _fbits(fmat), plan.n_valid_lanes)
     gf = gfb.view(torch.float64) if gfb is not None else None
     return gi, gf
+
+
+def _fbits(fmat: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The f64 matrix as int32 (cap, 2 * lanes), the kernel's `b`."""
+    if fmat is None:
+        return None
+    fmat = _matrix(fmat, "fmat")
+    if fmat.dtype != torch.float64:
+        raise TypeError(f"fmat must be float64, not {fmat.dtype}")
+    return fmat.view(torch.int32)
+
+
+def gather_launcher(plan, imat: torch.Tensor, fmat: Optional[torch.Tensor],
+                    idx: torch.Tensor):
+    """`launcher` for pallas_gather_rows' arguments on CUDA tensors:
+    (oa, ob, plan, launch)."""
+    return launcher(idx.to(torch.int32), _matrix(imat, "imat"),
+                    _fbits(fmat), plan.n_valid_lanes)

@@ -246,3 +246,78 @@ def test_gather_wrappers_check_inputs_and_refuse_other_devices():
         trg.dma_row_gather(mat[:, 0], idx)
     with pytest.raises(ValueError):
         trg.dma_row_gather(mat.to("meta"), idx.to("meta"))
+
+
+# -- the kernel's host-side choices (ops/row_gather.plan) -------------------
+
+@pytest.mark.parametrize("lanes, addrs, words", [
+    (4, (0, 16), 4), (4, (0, 8), 2), (4, (0, 4), 1), (8, (32, 64), 4),
+    (3, (0, 16), 1), (2, (0, 8), 2), (6, (0, 16), 2), (6, (4, 16), 1),
+    (1, (4,), 1)])
+def test_row_gather_vector_words(lanes, addrs, words):
+    assert trg.vector_words(lanes, *addrs) == words
+
+
+# every (la, lb) that q3 (LONG or INT keys) and q19 pack: the build
+# permute and payload, the stream payload, the group-by and TopN sorts
+MAIN_PATH_WIDTHS = [(4, 0), (4, 4), (3, 2), (3, 6), (3, 0), (3, 4), (2, 2)]
+
+
+@pytest.mark.parametrize("la, lb", MAIN_PATH_WIDTHS)
+def test_row_gather_main_path_widths_take_a_fixed_kernel(la, lb):
+    kind = trg.kernel_kind(la, lb, (256, 4096), (512, 8192) if lb else ())
+    assert kind != trg.ANY and trg.kind_name(kind) == f"{la}_{lb}"
+    # off the pieces' alignment a width goes to the generic kernel unless
+    # its pieces are single words anyway
+    off = trg.kernel_kind(la, lb, (260, 4096), (516, 8192) if lb else ())
+    assert off == (kind if la == 3 and lb in (0,) else trg.ANY)
+
+
+@pytest.mark.parametrize("la, lb", [(5, 6), (2, 0), (1, 0), (4, 2), (8, 0)])
+def test_row_gather_other_widths_take_the_generic_kernel(la, lb):
+    kind = trg.kernel_kind(la, lb, (0, 0), (0, 0) if lb else ())
+    assert kind == trg.ANY and trg.kind_name(kind) == "any"
+
+
+def test_row_gather_offsets_widen_only_past_int32():
+    grid = 1056
+    assert not trg.index_wide(1 << 21, 1 << 21, 8, grid)
+    assert trg.index_wide(1 << 28, 1 << 10, 8, grid)      # n * lanes
+    assert trg.index_wide(1 << 10, 1 << 28, 8, grid)      # cap * lanes
+    # the index prefetch runs a step past the last row
+    n = (1 << 31) - trg.ROWS * grid * trg.THREADS
+    assert trg.index_wide(n, 1, 1, grid)
+
+
+@pytest.mark.parametrize("n, grid", [(1, 1), (1000, 1), (70_001, 69),
+                                     (3 * (1 << 18) + 3, 132 * 8)])
+def test_row_gather_grid_stride_visits_every_row_once(n, grid):
+    """The kernel's loop: thread t of block b takes rows r0 + k * stride
+    (k < ROWS) and steps r0 by ROWS * stride while r0 < n."""
+    stride = grid * trg.THREADS
+    r0 = torch.arange(stride, dtype=torch.int64)
+    seen = []
+    while bool((r0 < n).any()):
+        live = r0 < n
+        for k in range(trg.ROWS):
+            r = r0[live] + k * stride
+            seen.append(r[r < n])
+        r0 = r0 + trg.ROWS * stride
+    rows = torch.cat(seen).sort().values
+    assert torch.equal(rows, torch.arange(n, dtype=torch.int64))
+    assert trg.grid_shape(n, 132, 8) == min(-(-n // (trg.THREADS * trg.ROWS)),
+                                            132 * 8)
+
+
+def test_row_gather_plan_uses_the_card_limits():
+    seen = []
+
+    def limits(kind, wide):
+        seen.append((kind, wide))
+        return 132, 8
+
+    p = trg.plan(2_097_152, 524_288, 4, 0, (0, 0), (), limits)
+    assert p == trg.Plan(trg.FIXED[(4, 4, 0, 1)], False, 132 * 8)
+    assert seen == [(p.kind, False)]
+    p = trg.plan(100, 5000, 5, 6, (0, 0), (0, 0), limits)
+    assert p == trg.Plan(trg.ANY, False, 1)

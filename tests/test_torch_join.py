@@ -343,3 +343,136 @@ def test_hash_join_exec_refuses_what_it_does_not_port():
     with pytest.raises(NotImplementedError):
         tjoins.HashJoinExec(left, right, [tcore.col("l_price")],
                             [tcore.col("o_key")], "inner").collect()
+
+
+# -- the kernel's grid and its tiled arithmetic -----------------------------
+
+@pytest.mark.parametrize("n_stream, tiles", [
+    (0, 0), (1, 1), (tpv.TILE, 1), (tpv.TILE + 1, 2),
+    (2_097_152, 2_097_152 // tpv.TILE), (8_388_608, 8_388_608 // tpv.TILE)])
+def test_probe_tile_count(n_stream, tiles):
+    assert tpv.tile_count(n_stream) == tiles
+
+
+@pytest.mark.parametrize("n_tiles, sms, bps", [
+    (0, 132, 8), (1, 132, 8), (512, 132, 8), (1056, 132, 8), (1057, 132, 8),
+    (2048, 132, 8), (2048, 132, 3), (5, 1, 1), (100_000, 132, 8)])
+def test_probe_grid_is_one_wave_of_whole_chunks(n_tiles, sms, bps):
+    per, chunks = tpv.grid(n_tiles, sms, bps)
+    if n_tiles == 0:
+        assert (per, chunks) == (1, 0)
+        return
+    assert 1 <= chunks <= sms * bps                # one wave
+    assert (chunks - 1) * per < n_tiles <= chunks * per
+    assert per == -(-n_tiles // (sms * bps))       # fewest tiles a block
+
+
+@pytest.mark.parametrize("chunks, cap, sms, want", [
+    (0, 128, 132, 1), (512, 2_097_152, 132, 1056), (512, 1024, 132, 1),
+    (2048, 4096, 132, 4), (5000, 1024, 132, 5),
+    (1, 1 << 30, 132, 132 * tpv.TAIL_BLOCKS_PER_SM)])
+def test_probe_tail_grid(chunks, cap, sms, want):
+    assert tpv.tail_grid(chunks, cap, sms) == want
+
+
+def _look_back(aggs, rng, window=32):
+    """Each chunk's exclusive offset by the kernel's look-back: walk the
+    predecessors a window at a time, each word holding its aggregate or
+    (at random, as a race would leave it) its inclusive prefix, summing up
+    to and including the nearest inclusive word."""
+    incl = np.cumsum(aggs)
+    out = []
+    for c in range(len(aggs)):
+        off, pred = 0, c - 1
+        while pred >= 0:
+            t = np.arange(pred, pred - window, -1)
+            words = [(True, 0) if x < 0 else
+                     ((True, incl[x]) if x == 0 or rng.random() < 0.2
+                      else (False, aggs[x])) for x in t]
+            stop = next((i for i, (f, _) in enumerate(words) if f),
+                        window - 1)
+            off += sum(v for _, v in words[:stop + 1])
+            if any(f for f, _ in words):
+                break
+            pred -= window
+        out.append(off)
+    return np.array(out, dtype=np.int64)
+
+
+def _tiled_expand(lo, counts, cap, tile, per, rng):
+    """csrc/probe_verify.cu's arithmetic in torch: chunks of `per` tiles,
+    their offsets by look-back, each tile's exclusive scan (a tile with no
+    candidate skipped), and each slot's owner by the kernel's binary
+    search of the tile prefix. Returns (stream_idx, build_pos) over `cap`
+    slots, -1 where no slot was emitted."""
+    n = counts.shape[0]
+    n_tiles = -(-n // tile)
+    chunks = -(-n_tiles // per)
+    padded = torch.zeros(max(chunks * per * tile, 1), dtype=torch.int64)
+    padded[:n] = counts.to(torch.int64)
+    aggs = padded[:chunks * per * tile].view(chunks, -1).sum(1).numpy()
+    offsets = _look_back(aggs, rng)
+    s_idx = torch.full((cap,), -1, dtype=torch.int64)
+    b_pos = torch.full((cap,), -1, dtype=torch.int64)
+    for c in range(chunks):
+        e = int(offsets[c])
+        if aggs[c] == 0 or e >= cap:
+            continue
+        for k in range(per):
+            if e >= cap:
+                break
+            base = (c * per + k) * tile
+            cnt = padded[base: base + tile]
+            excl = torch.cat([torch.zeros(1, dtype=torch.int64),
+                              torch.cumsum(cnt, 0)])
+            tile_sum = int(excl[-1])
+            if tile_sum == 0:
+                continue
+            emit = min(tile_sum, cap - e)
+            p = torch.arange(emit, dtype=torch.int64)
+            r = torch.zeros(emit, dtype=torch.int64)
+            step = tile // 2
+            while step >= 1:
+                r = torch.where(excl[r + step] <= p, r + step, r)
+                step //= 2
+            j = base + r
+            s_idx[e: e + emit] = j
+            b_pos[e: e + emit] = lo.to(torch.int64)[j] + (p - excl[r])
+            e += tile_sum
+    return s_idx, b_pos
+
+
+def _counts_case(seed, n, kind):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, n).astype(np.int32)
+    counts[rng.random(n) < 0.4] = 0
+    if kind == "long ranges":
+        counts[rng.integers(0, n, 5)] = 3 * 64 + 7
+    elif kind == "empty tiles":
+        for t in range(0, n, 3 * 64):
+            counts[t: t + 64] = 0
+    elif kind == "total 0":
+        counts[:] = 0
+    lo = rng.integers(0, 1 << 20, n).astype(np.int32)
+    return torch.from_numpy(lo), torch.from_numpy(counts)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "long ranges", "empty tiles",
+                                  "total 0"])
+@pytest.mark.parametrize("n, per", [(64 * 170 + 13, 1), (64 * 170 + 13, 3),
+                                    (77, 2)])
+@pytest.mark.parametrize("cap_of", ["fits", "equal", "below"])
+def test_tiled_probe_arithmetic_equals_expand_candidates(kind, n, per,
+                                                         cap_of):
+    lo, counts = _counts_case(n + per, n, kind)
+    total = int(counts.to(torch.int64).sum())
+    cap = {"fits": total + 100, "equal": max(total, 1),
+           "below": max(total // 3, 1)}[cap_of]
+    want_s, want_p, want_total = tj.expand_candidates(lo, counts, cap)
+    assert int(want_total) == total
+    got_s, got_p = _tiled_expand(lo, counts, cap, 64, per,
+                                 np.random.default_rng(n))
+    live = min(total, cap)
+    assert torch.equal(got_s[:live], want_s[:live].to(torch.int64))
+    assert torch.equal(got_p[:live], want_p[:live].to(torch.int64))
+    assert (got_s[live:] == -1).all() and (want_s[live:] == -1).all()
