@@ -1050,17 +1050,14 @@ def compare_join_inputs(label, inputs, gathers):
         _exact(f"row gather {label} {site}",
                *([x.view(torch.int64) if x.is_floating_point() else x
                   for x in out if x is not None] for out in (got, want)))
+        lb = 2 * fmat.shape[1] if fmat is not None else 0
         shapes.append(f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
-                      f"({_widths(imat, fmat)})")
+                      f"(la={imat.shape[1]}, lb={lb})")
     print(f"compare {label} main-path inputs: {name} of {key.shape[0]} "
           f"stream keys, probe of {inputs.stream_rows} stream rows into "
           f"{inputs.build_rows} build rows, candidate total {inputs.total} "
           f"in {inputs.cand_cap} slots, {hits} verified pairs; row gathers "
           f"{'; '.join(shapes)}; exact")
-
-
-def _widths(imat, fmat):
-    return f"la={imat.shape[1]}, lb={2 * fmat.shape[1] if fmat is not None else 0}"
 
 
 # -- bounds -----------------------------------------------------------------

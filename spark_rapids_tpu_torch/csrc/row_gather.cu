@@ -198,24 +198,20 @@ row_gather_any(const int* __restrict__ idx, I n, I cap,
     }
 }
 
-// The kernels, by the KIND_* numbers of ops/row_gather.py: (la, va, lb,
-// vb) of each fixed width; KIND_ANY takes any width.
-enum { KIND_ANY = 0, KIND_4_0 = 1, KIND_4_4 = 2, KIND_3_2 = 3,
-       KIND_3_6 = 4, KIND_3_0 = 5, KIND_3_4 = 6, KIND_2_2 = 7, N_KINDS = 8 };
+// The fixed-width kernels, by the kind numbers of ops/row_gather.FIXED:
+// X(kind, la, words of a's pieces, lb, words of b's pieces); kind 0 is
+// row_gather_any.
+#define FIXED_KINDS(X) \
+    X(1, 4, 4, 0, 1) X(2, 4, 4, 4, 4) X(3, 3, 1, 2, 2) X(4, 3, 1, 6, 2) \
+    X(5, 3, 1, 0, 1) X(6, 3, 1, 4, 4) X(7, 2, 2, 2, 2)
 
 template <typename I>
 static const void* kernel_of(int kind) {
-    switch (kind) {
-        case KIND_4_0: return (const void*)row_gather_fixed<4, 4, 0, 1, I>;
-        case KIND_4_4: return (const void*)row_gather_fixed<4, 4, 4, 4, I>;
-        case KIND_3_2: return (const void*)row_gather_fixed<3, 1, 2, 2, I>;
-        case KIND_3_6: return (const void*)row_gather_fixed<3, 1, 6, 2, I>;
-        case KIND_3_0: return (const void*)row_gather_fixed<3, 1, 0, 1, I>;
-        case KIND_3_4: return (const void*)row_gather_fixed<3, 1, 4, 4, I>;
-        case KIND_2_2: return (const void*)row_gather_fixed<2, 2, 2, 2, I>;
-        case KIND_ANY: return (const void*)row_gather_any<I>;
-        default: return nullptr;
-    }
+#define KERNEL_OF(k, la, va, lb, vb)                                  \
+    if (kind == k) return (const void*)row_gather_fixed<la, va, lb, vb, I>;
+    FIXED_KINDS(KERNEL_OF)
+#undef KERNEL_OF
+    return kind == 0 ? (const void*)row_gather_any<I> : nullptr;
 }
 
 // Blocks of `kind` (64-bit offsets when `wide`) resident on one SM, and
@@ -238,40 +234,16 @@ template <typename I>
 static void launch(int kind, int grid, cudaStream_t st, const int* idx,
                    I n, I cap, const unsigned* a, int la, unsigned* oa,
                    const unsigned* b, int lb, unsigned* ob, int nv) {
-    switch (kind) {
-        case KIND_4_0:
-            row_gather_fixed<4, 4, 0, 1, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_4_4:
-            row_gather_fixed<4, 4, 4, 4, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_3_2:
-            row_gather_fixed<3, 1, 2, 2, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_3_6:
-            row_gather_fixed<3, 1, 6, 2, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_3_0:
-            row_gather_fixed<3, 1, 0, 1, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_3_4:
-            row_gather_fixed<3, 1, 4, 4, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        case KIND_2_2:
-            row_gather_fixed<2, 2, 2, 2, I><<<grid, THREADS, 0, st>>>(
-                idx, n, cap, a, oa, b, ob, nv);
-            break;
-        default:
-            row_gather_any<I><<<grid, THREADS,
-                                (size_t)(la + lb) * sizeof(unsigned), st>>>(
-                idx, n, cap, a, la, oa, b, lb, ob, nv);
+#define LAUNCH(k, la_, va, lb_, vb)                                   \
+    if (kind == k) {                                                   \
+        row_gather_fixed<la_, va, lb_, vb, I><<<grid, THREADS, 0, st>>>( \
+            idx, n, cap, a, oa, b, ob, nv);                            \
+        return;                                                        \
     }
+    FIXED_KINDS(LAUNCH)
+#undef LAUNCH
+    row_gather_any<I><<<grid, THREADS, (size_t)(la + lb) * sizeof(unsigned),
+                        st>>>(idx, n, cap, a, la, oa, b, lb, ob, nv);
 }
 
 // idx: n i32; a: cap x la u32, oa: n x la; b: cap x lb u32 (lb may be 0,
@@ -283,7 +255,7 @@ extern "C" int row_gather_run(int kind, int wide, int grid, const void* idx,
                               int la, void* oa, const void* b, int lb,
                               void* ob, int nv, void* stream) {
     if (n <= 0 || la + lb <= 0) return 0;
-    if (kind < 0 || kind >= N_KINDS || grid <= 0)
+    if (kernel_of<int>(kind) == nullptr || grid <= 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (wide)
