@@ -95,8 +95,9 @@ PEAK_OPS_PER_S = 67e12
 DEVICE = "cuda"
 
 #: device-side names of the ported kernels' __global__ functions
-PORTED_KERNEL_PREFIXES = ("fsa_", "m3_long", "m3_int", "probe_verify",
-                          "row_gather", "void dict_gather")
+PORTED_KERNEL_PREFIXES = ("fsa_", "m3_long", "m3_int",
+                          "void probe_scan_emit", "probe_tail",
+                          "void row_gather", "void dict_gather")
 
 BUCKETS = 32            # G of the q1 lane (min(32, slots))
 OUT_CAP = 128           # bucket_capacity(slots * rounds)
