@@ -15,11 +15,11 @@
 // writes 13 bytes. At q3's shape (2,097,152 stream rows and slots, two
 // lanes a key) that is some 51 MB, about 15 us at 3.35 TB/s.
 //
-// Design: the counts are scanned and the slots emitted in one pass (the
+// Design: the counts are scanned and the slots emitted in one launch (the
 // single-pass prefix scan with decoupled look-back of Merrill and
-// Garland), and a second small launch writes the tail; the wrapper runs
-// no prefix sum. The TPU kernel carries the owner row through sequential
-// grid steps; Hopper blocks run in no order, so:
+// Garland); the wrapper runs no prefix sum. The TPU kernel carries the
+// owner row through sequential grid steps; Hopper blocks run in no
+// order, so:
 //   - probe_scan_emit runs one wave of blocks (ops/probe_verify.grid). A
 //     block takes the chunk of `per` tiles of TILE stream rows that an
 //     atomic ticket gives it, so it only ever waits on chunks that running
@@ -38,9 +38,12 @@
 //     perm) issued before the first store and none conditional on
 //     another's value; the four outputs are stored coalesced. The build
 //     side's random reads cost most of the emit (PERF.md);
-//   - probe_tail writes [total, out_cap) and returns the scratch (the
-//     ticket and the chunks' words) to zero for the next launch on its
-//     stream.
+//   - the slots [total, out_cap) go in pieces of TAIL_PIECE to blocks
+//     that finish their own slots once the total is out; a block never
+//     waits for it (a grid-wide wait could deadlock when not every block
+//     is resident): the block that publishes the total takes pieces until
+//     none is left. The last block to finish returns the scratch to zero
+//     for the next launch on its stream.
 // The prefix is 64-bit (saturating at 2^56), so it is exact for any
 // count; the slot arithmetic is 32-bit, as out_cap < 2^31.
 
@@ -60,8 +63,10 @@
 #define ST_VALUE ((1ull << 62) - 1)
 #define SAT (1ll << 56)
 
-// scratch words: [0] ticket, [1] the total, [2 + t] chunk t's status
-#define SCRATCH_HEAD 2
+// scratch words: [0] chunk ticket, [1] the total (ST_INCL once out),
+// [2] tail piece ticket, [3] blocks done, [4 + t] chunk t's status
+#define SCRATCH_HEAD 4
+#define TAIL_PIECE 8192          // tail slots a block writes per ticket
 
 __device__ __forceinline__ long long sat_add(long long a, long long b) {
     const long long s = a + b;
@@ -158,7 +163,8 @@ __device__ __forceinline__ long long look_back(
         if (lane == 0)
             store_status(status + chunk, ST_INCL | sat_add(off, agg_s));
     }
-    if (lane == 0 && chunk == n_chunks - 1) scratch[1] = sat_add(off, agg_s);
+    if (lane == 0 && chunk == n_chunks - 1)
+        store_status(scratch + 1, ST_INCL | sat_add(off, agg_s));
     return off;
 }
 
@@ -181,6 +187,8 @@ probe_scan_emit(const int* __restrict__ counts, const int* __restrict__ lo,
     __shared__ long long red[WARPS];
     __shared__ long long wsum[MAX_PER][WARPS];
     __shared__ long long s_offset;
+    __shared__ long long s_piece;
+    __shared__ unsigned long long s_total;
     __shared__ int s_chunk;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -216,10 +224,9 @@ probe_scan_emit(const int* __restrict__ counts, const int* __restrict__ lo,
     }
     __syncthreads();
     long long E = s_offset;           // the next tile's first slot
-    if (agg == 0 || E >= out_cap) return;
     int held = per - 1;               // the tile whose counts c holds
 
-    for (int k = 0; k < per && E < out_cap; ++k) {
+    for (int k = 0; agg > 0 && k < per && E < out_cap; ++k) {
         const int base = first + k * TILE;
         if (per > 1 && k < MAX_PER) {
             long long t = 0;
@@ -319,27 +326,42 @@ probe_scan_emit(const int* __restrict__ counts, const int* __restrict__ lo,
         }
         E += tile_sum;
     }
-}
 
-// The tail [total, out_cap) after probe_scan_emit (total = 0 when there
-// was no chunk), and the scratch's ticket and chunk words back to zero.
-__global__ void __launch_bounds__(THREADS)
-probe_tail(int n_chunks, int out_cap, unsigned char* __restrict__ verified,
-           int* __restrict__ s_idx, int* __restrict__ b_pos,
-           int* __restrict__ b_row, unsigned long long* __restrict__ scratch) {
-    const long long total = n_chunks > 0 ? (long long)scratch[1] : 0;
-    const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
-    const long long step = (long long)gridDim.x * THREADS;
-    for (long long i = (total < out_cap ? total : out_cap) + gid; i < out_cap;
-         i += step) {
-        verified[i] = 0;
-        s_idx[i] = -1;
-        b_pos[i] = -1;
-        b_row[i] = -1;
+    // The slots past the total, in pieces taken from a ticket once the
+    // total is out. No block waits for it: the block that publishes it
+    // takes pieces until none is left, and others help if they finish
+    // after it. The last block to finish returns the scratch to zero.
+    if (tid == 0) s_total = load_status(scratch + 1);
+    __syncthreads();
+    if (s_total & ST_INCL) {
+        const long long total = (long long)(s_total & ST_VALUE);
+        const long long tail0 = total < out_cap ? total : out_cap;
+        for (;;) {
+            if (tid == 0) s_piece = (long long)atomicAdd(scratch + 2, 1ull);
+            __syncthreads();
+            const long long start = tail0 + s_piece * TAIL_PIECE;
+            __syncthreads();
+            if (start >= out_cap) break;
+            const long long end = start + TAIL_PIECE < out_cap
+                                      ? start + TAIL_PIECE : out_cap;
+            for (long long i = start + tid; i < end; i += THREADS) {
+                verified[i] = 0;
+                s_idx[i] = -1;
+                b_pos[i] = -1;
+                b_row[i] = -1;
+            }
+        }
     }
-    for (long long t = gid; t < n_chunks; t += step)
-        scratch[SCRATCH_HEAD + t] = 0ull;
-    if (gid == 0) scratch[0] = 0ull;
+    if (tid == 0) {
+        __threadfence();
+        s_piece = (long long)atomicAdd(scratch + 3, 1ull);
+    }
+    __syncthreads();
+    if (s_piece == n_chunks - 1) {
+        for (int t = tid; t < n_chunks; t += THREADS)
+            scratch[SCRATCH_HEAD + t] = 0ull;
+        if (tid < SCRATCH_HEAD) scratch[tid] = 0ull;
+    }
 }
 
 // Blocks of probe_scan_emit (one- or two-lane keys, or any count) that one
@@ -362,9 +384,9 @@ extern "C" int probe_verify_limits(int n_lanes, int* blocks_per_sm,
 // counts, lo: n_stream i32; bk: build_cap x n_lanes i32, bvalid: build_cap
 // bytes; sk: n_stream x n_lanes i32, svalid: n_stream bytes; perm:
 // build_cap i32; outputs: out_cap each; scratch: SCRATCH_HEAD + n_chunks
-// u64 words, zero but for the total (the launches leave them so); per,
-// n_chunks and tail_grid from ops/probe_verify. Two launches (one when
-// there is no stream row). Returns the first CUDA error (0 = none).
+// zero u64 words (the launch leaves them so); per and n_chunks (at least
+// 1) from ops/probe_verify.grid. One launch. Returns its CUDA error (0 =
+// none).
 extern "C" int probe_verify_run(const void* counts, const void* lo,
                                 int n_stream, int per, int n_chunks,
                                 const void* bk, const void* bvalid,
@@ -372,34 +394,25 @@ extern "C" int probe_verify_run(const void* counts, const void* lo,
                                 const void* svalid, int n_lanes,
                                 const void* perm, int out_cap,
                                 void* verified, void* s_idx, void* b_pos,
-                                void* b_row, void* scratch, int tail_grid,
-                                void* stream) {
+                                void* b_row, void* scratch, void* stream) {
     if (out_cap <= 0) return 0;
-    if (build_cap <= 0 || n_lanes <= 0 || tail_grid <= 0 || n_stream < 0 ||
-        per <= 0 || (long long)n_chunks * per * TILE < n_stream ||
+    if (build_cap <= 0 || n_lanes <= 0 || n_stream < 0 || per <= 0 ||
+        n_chunks <= 0 || (long long)n_chunks * per * TILE < n_stream ||
         (long long)(n_chunks - 1) * per * TILE >= (n_stream > 0 ? n_stream
                                                                 : 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    unsigned long long* sc = (unsigned long long*)scratch;
 #define PV_ARGS (const int*)counts, (const int*)lo, n_stream, per, n_chunks, \
         (const int*)bk, (const unsigned char*)bvalid, build_cap, \
         (const int*)sk, (const unsigned char*)svalid, n_lanes, \
         (const int*)perm, out_cap, (unsigned char*)verified, (int*)s_idx, \
-        (int*)b_pos, (int*)b_row, sc
-    if (n_chunks > 0) {
-        if (n_lanes == 1)
-            probe_scan_emit<1><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
-        else if (n_lanes == 2)
-            probe_scan_emit<2><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
-        else
-            probe_scan_emit<0><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
+        (int*)b_pos, (int*)b_row, (unsigned long long*)scratch
+    if (n_lanes == 1)
+        probe_scan_emit<1><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
+    else if (n_lanes == 2)
+        probe_scan_emit<2><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
+    else
+        probe_scan_emit<0><<<n_chunks, THREADS, 0, st>>>(PV_ARGS);
 #undef PV_ARGS
-    probe_tail<<<tail_grid, THREADS, 0, st>>>(
-        n_chunks, out_cap, (unsigned char*)verified, (int*)s_idx, (int*)b_pos,
-        (int*)b_row, sc);
     return (int)cudaGetLastError();
 }

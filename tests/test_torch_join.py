@@ -356,23 +356,15 @@ def test_probe_tile_count(n_stream, tiles):
 
 @pytest.mark.parametrize("n_tiles, sms, bps", [
     (0, 132, 8), (1, 132, 8), (512, 132, 8), (1056, 132, 8), (1057, 132, 8),
-    (2048, 132, 8), (2048, 132, 3), (5, 1, 1), (100_000, 132, 8)])
+    (2048, 132, 8), (2048, 132, 3), (5, 1, 1), (100_000, 132, 8),
+    (512, 132, 4), (2048, 132, 4), (1026, 132, 4), (3, 132, 4), (0, 1, 1),
+    (8448, 132, 4), (8449, 132, 4)])
 def test_probe_grid_is_one_wave_of_whole_chunks(n_tiles, sms, bps):
     per, chunks = tpv.grid(n_tiles, sms, bps)
-    if n_tiles == 0:
-        assert (per, chunks) == (1, 0)
-        return
+    tiles = max(n_tiles, 1)                        # no row: one empty tile
     assert 1 <= chunks <= sms * bps                # one wave
-    assert (chunks - 1) * per < n_tiles <= chunks * per
-    assert per == -(-n_tiles // (sms * bps))       # fewest tiles a block
-
-
-@pytest.mark.parametrize("chunks, cap, sms, want", [
-    (0, 128, 132, 1), (512, 2_097_152, 132, 1056), (512, 1024, 132, 1),
-    (2048, 4096, 132, 4), (5000, 1024, 132, 5),
-    (1, 1 << 30, 132, 132 * tpv.TAIL_BLOCKS_PER_SM)])
-def test_probe_tail_grid(chunks, cap, sms, want):
-    assert tpv.tail_grid(chunks, cap, sms) == want
+    assert (chunks - 1) * per < tiles <= chunks * per
+    assert per == -(-tiles // (sms * bps))         # fewest tiles a block
 
 
 def _look_back(aggs, rng, window=32):
