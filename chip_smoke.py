@@ -9,15 +9,21 @@ fails the run on error:
 
   1. builds every kernel of the q1, q3 and q19 paths (the fused
      scan-aggregate specs, csrc/murmur3.cu, csrc/probe_verify.cu,
-     csrc/row_gather.cu, csrc/dict_gather.cu; one nvcc per source, all
-     started together) and prints the build time and ptxas's register and
+     csrc/row_gather.cu, csrc/dict_gather.cu), and the murmur3 kernel
+     this one replaced, which phase 4 times against
+     (REPLACED_MURMUR3_SOURCE); one nvcc per source,
+     all started together; prints the build time and ptxas's register and
      spill counts;
   2. holds each kernel against its plain PyTorch version on the card:
      fused_scan_agg on three specs at sizes ragged against the block size,
      with nulls, a high-cardinality case whose leftover flag must trip and
      a case whose lanes see more buckets than their register cache holds;
-     murmur3 of i64 and i32 lanes on ragged sizes with negative values and
-     seeds chained over columns with nulls (exact); probe-verify on random
+     the murmur3 chain over all nine key types with nulls, -0.0, NaNs and
+     negative values, aligned and as x[1:] views, at 0 rows and row counts
+     ragged around a thread's 4 rows and a block's 1,024, over 1 to 4
+     columns in one launch and 5 and 9 in more, with one seed, two and
+     per-row seed planes, and its i64 and i32 lanes with per-row seeds
+     (exact); probe-verify on random
      lanes with duplicate build keys, buckets shared by several keys, empty
      ranges, one to three key lanes, a candidate bucket smaller than the
      total or equal to it, a total of 0, ranges longer than a tile, wholly
@@ -31,8 +37,9 @@ fails the run on error:
      1- and 4-byte tables of 1, 3, 5 and 128 lanes through both of its
      kernels (one-lane tables staged and not), with codes of -1, n
      and above on ragged row counts, aligned and as x[1:] views (exact);
-     and every kernel on its main path's own inputs (every row gather of
-     each path captured from a run of a fresh plan);
+     and every kernel on its main path's own inputs (the murmur3 chain on
+     each join's build keys with both seeds and its stream keys, every row
+     gather of each path captured from a run of a fresh plan);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -46,12 +53,18 @@ fails the run on error:
      keys exact, f64 rtol 1e-9), q19 against q19_oracle (the qualifying
      row count exact, revenue rtol 1e-9) and the speculation flags (must
      stay False), and the launches: fused_scan_agg once per q1,
-     dict_gather 42 times per q19, fused_probe_verify once and
-     dma_row_gather 5 times per q3 (3 per q19);
+     dict_gather 42 times per q19, murmur3_columns twice (one launch per
+     join side, both build seeds in one) and the per-row-seed lanes never
+     per q3, INT-key q3 and q19, fused_probe_verify once and dma_row_gather
+     5 times per q3 (3 per q19);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
-     call that computes the same function; fused_scan_agg's,
+     call that computes the same function; the murmur3 lanes at q3's
+     stream keys and the chain at the q3 build pair, q3 stream and q19
+     stream, each in turns with what ran there before (the replaced lane
+     kernel; its seed plane, lane kernel and select per seed);
+     fused_scan_agg's,
      dict_gather's, fused_probe_verify's and dma_row_gather's launches are
      timed apart from their wrappers' calls too, dict_gather at both of its
      shapes (q19's take and dg's), the probe at q3's and q19's and the row
@@ -59,14 +72,15 @@ fails the run on error:
      times are the device's, with the L2 cache flushed before each run
      (device_ms).
 
-With --profile TRACE it also runs each steady state under torch.profiler,
+With --profile TRACE it also runs each steady state under torch.profiler
+(after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
 The last lines are a JSON line with one record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
-"shapes"), the
+"shapes", the murmur3 chain's three sites under "sites"), the
 card as nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -95,9 +109,8 @@ PEAK_OPS_PER_S = 67e12
 DEVICE = "cuda"
 
 #: device-side names of the ported kernels' __global__ functions
-PORTED_KERNEL_PREFIXES = ("fsa_", "m3_long", "m3_int",
-                          "void probe_scan_emit", "void row_gather",
-                          "void dict_gather")
+PORTED_KERNEL_PREFIXES = ("fsa_", "void m3_rows", "void probe_scan_emit",
+                          "void row_gather", "void dict_gather")
 
 BUCKETS = 32            # G of the q1 lane (min(32, slots))
 OUT_CAP = 128           # bucket_capacity(slots * rounds)
@@ -293,13 +306,14 @@ def compare_outputs(got, want, label):
 FLUSH_BYTES = 512 << 20
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, flush_bytes=FLUSH_BYTES):
     """Mean device time of `fn`'s launches with the L2 cache cold, as the
-    main path finds it: before each run a FLUSH_BYTES write evicts L2 and
-    keeps the card busy while the host enqueues `fn` between two events,
-    so the events bracket its device work and no host gap."""
+    main path finds it: before each run a write of `flush_bytes` evicts L2
+    and keeps the card busy while the host enqueues `fn` between two
+    events, so the events bracket its device work and no host gap (a
+    function of many launches needs a longer write to stay ahead)."""
     import torch
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     fn()
     pairs = []
     for _ in range(reps):
@@ -692,6 +706,7 @@ def kernel_wrappers():
     from spark_rapids_tpu_torch.ops import (
         dict_gather, fused_scan_agg, murmur3_lanes, probe_verify, row_gather)
     return {"fused_scan_agg": fused_scan_agg.fused_scan_agg,
+            "murmur3_columns": murmur3_lanes.murmur3_columns,
             "murmur3_long_lanes": murmur3_lanes.murmur3_long_lanes,
             "murmur3_int_lanes": murmur3_lanes.murmur3_int_lanes,
             "fused_probe_verify": probe_verify.fused_probe_verify,
@@ -744,36 +759,111 @@ def _u32_seeds(rng, n):
         np.uint32).view(np.int32)
 
 
-def compare_murmur3(dev):
+#: every key type the murmur3 kernel hashes
+M3_TYPES = ("BOOLEAN", "BYTE", "SHORT", "INT", "DATE", "LONG", "TIMESTAMP",
+            "FLOAT", "DOUBLE")
+
+
+def _m3_values(rng, n, type_name):
+    """Keys of a type: integers with their edges and negatives, floats with
+    NaNs of several payloads and signs, -0.0, 0.0 and infinities."""
+    from spark_rapids_tpu_torch import types as t
+    dt = getattr(t, type_name)
+    if type_name == "BOOLEAN":
+        return rng.integers(0, 2, n).astype(np.bool_)
+    if type_name in ("FLOAT", "DOUBLE"):
+        v = rng.normal(0, 1e6, n)
+        v[::7], v[::11], v[::13] = np.nan, -0.0, 0.0
+        v[::17], v[::19] = np.inf, -np.inf
+        v = v.astype(dt.np_dtype)
+        bits = v.view(np.uint64 if type_name == "DOUBLE" else np.uint32)
+        bits[3::23] = (0xFFF0000000000001 if type_name == "DOUBLE"
+                       else 0xFFC00001)
+        return v
+    return _random_ints(rng, n, dt.np_dtype)
+
+
+def _m3_column(rng, dev, n, type_name, view):
+    """A key column of n rows with ~20% nulls; as x[1:] views of its data
+    and validity when `view`."""
     import torch
     from spark_rapids_tpu_torch import types as t
     from spark_rapids_tpu_torch.columnar.column import Column
+    m = n + int(view)
+    data = torch.from_numpy(_m3_values(rng, m, type_name)).to(dev)
+    valid = torch.from_numpy(rng.random(m) > 0.2).to(dev)
+    if view:
+        data, valid = data[1:], valid[1:]
+    return Column(data, valid, getattr(t, type_name))
+
+
+def compare_murmur3(dev):
+    """The murmur3 kernel against its plain version, exactly: the chain
+    over every key type with nulls, aligned and as x[1:] views, at row
+    counts ragged around a thread's rows (4) and a block's (1,024), at 0
+    rows, over 1 to 4 columns in one launch and 5 and 9 in two and three,
+    with one seed, two, and per-row seed planes; and the per-row-seed
+    lanes (the TPU kernels' interface) on views and ragged sizes."""
+    import torch
     from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
-    for n in (1, 1000, 65537, (1 << 20) + 3):
+    sizes = (0, 1, 3, 4, 5, 7, 9, 1023, 1024, 1025, 2049, 65537,
+             (1 << 20) + 3)
+    cases = 0
+    for n in sizes:
         rng = np.random.default_rng(n)
-        seeds = torch.from_numpy(_u32_seeds(rng, n)).to(dev)
-        v64 = torch.from_numpy(_random_ints(rng, n, np.int64)).to(dev)
-        v32 = torch.from_numpy(_random_ints(rng, n, np.int32)).to(dev)
-        _exact(f"murmur3_long n={n}", [m3.murmur3_long_lanes(v64, seeds)],
-               [hashing.murmur3_long_plain(v64, seeds)])
-        _exact(f"murmur3_int n={n}", [m3.murmur3_int_lanes(v32, seeds)],
-               [hashing.murmur3_int_plain(v32, seeds)])
-    # seeds chained over columns with nulls: LONG, INT, DOUBLE (NaN, -0.0)
-    rng = np.random.default_rng(11)
-    n = 300_001
-    dbl = rng.normal(0, 1e6, n)
-    dbl[::7], dbl[::11] = np.nan, -0.0
-    specs = [(_random_ints(rng, n, np.int64), t.LONG),
-             (_random_ints(rng, n, np.int32), t.INT), (dbl, t.DOUBLE)]
-    cols = {d: [Column.from_numpy(v, dt, device=d,
-                                  validity=np.random.default_rng(i).random(n)
-                                  > 0.2)
-                for i, (v, dt) in enumerate(specs)]
-            for d in (dev, "cpu")}
-    _exact("murmur3_batch chained",
-           [hashing.murmur3_batch(cols[dev]).cpu()],
-           [hashing.murmur3_batch(cols["cpu"])])
-    print("compare murmur3 long/int: 4 sizes and a 3-column chain, exact")
+        for ncols in (1, 2, 3, 4, 5, 9):
+            names = [M3_TYPES[(i * 5 + n) % len(M3_TYPES)]
+                     for i in range(ncols)]
+            for view in (False, True):
+                cols = [_m3_column(rng, dev, n, name, view and i % 2 == 0)
+                        for i, name in enumerate(names)]
+                plane = torch.from_numpy(_u32_seeds(rng, n + 1)).to(dev)
+                for seeds in ([42], [0x5370_6172, 0x85EB_CA6B], [plane[:n]],
+                              [plane[1:], -5]):
+                    before = m3.murmur3_columns.launches
+                    got = m3.murmur3_columns(cols, seeds)
+                    launches = m3.murmur3_columns.launches - before
+                    if launches != (-(-ncols // m3.MAX_COLS) if n else 0):
+                        raise AssertionError(
+                            f"murmur3_columns n={n} {ncols} columns: "
+                            f"{launches} launches")
+                    _exact(f"murmur3_columns n={n} {names} view={view} "
+                           f"{len(seeds)} seeds", got,
+                           m3.murmur3_columns_plain(cols, seeds))
+                    cases += 1
+    # each kind alone, both seeds, aligned and as views, past two blocks
+    for name in M3_TYPES:
+        for view in (False, True):
+            rng = np.random.default_rng(len(name))
+            c = _m3_column(rng, dev, 2049, name, view)
+            _exact(f"murmur3_columns {name} view={view}",
+                   m3.murmur3_columns([c], [42, 7]),
+                   m3.murmur3_columns_plain([c], [42, 7]))
+            col_seed = torch.from_numpy(_u32_seeds(rng, 2049)).to(dev)
+            _exact(f"murmur3_column {name} view={view}",
+                   [hashing.murmur3_column(c, col_seed)],
+                   [hashing.murmur3_column_plain(c, col_seed)])
+            cases += 2
+    for n in (1, 9, 1000, 65537, (1 << 20) + 3):
+        rng = np.random.default_rng(n)
+        seeds = torch.from_numpy(_u32_seeds(rng, n + 1)).to(dev)
+        v64 = torch.from_numpy(_random_ints(rng, n + 1, np.int64)).to(dev)
+        v32 = torch.from_numpy(_random_ints(rng, n + 1, np.int32)).to(dev)
+        for a, b in ((slice(0, n), slice(0, n)), (slice(1, None),
+                                                  slice(1, None)),
+                     (slice(1, None), slice(0, n))):
+            _exact(f"murmur3_long n={n}",
+                   [m3.murmur3_long_lanes(v64[a], seeds[b])],
+                   [hashing.murmur3_long_plain(v64[a], seeds[b])])
+            _exact(f"murmur3_int n={n}",
+                   [m3.murmur3_int_lanes(v32[a], seeds[b])],
+                   [hashing.murmur3_int_plain(v32[a], seeds[b])])
+            cases += 2
+    print(f"compare murmur3: {cases} cases (the chain over the 9 key types "
+          f"with nulls, aligned and x[1:] views, {len(sizes)} row counts "
+          f"from 0 to {sizes[-1]}, 1 to 9 columns in up to 3 launches, one "
+          f"seed, two and per-row seed planes; the long and int lanes), "
+          f"exact")
 
 
 def _probe_case(rng, dev, n_stream, build_cap, n_lanes, dom, max_count,
@@ -974,6 +1064,10 @@ class JoinInputs:
                       build.perm]
         self.build_rows, self.stream_rows = build.capacity, counts.shape[0]
         self.n_lanes = bk_lanes.shape[1]
+        # the murmur3 chain's inputs: the build pair's keys, the stream's
+        self.build_keys, self.stream_keys = build.key_cols, list(skeys)
+        # the lanes' (rows 2 and 3): the stream key with the join seed as
+        # a per-row plane
         key = skeys[0].data
         seed = hashing.i32_bits(torch.full_like(key, oj.JOIN_HASH_SEED,
                                                 dtype=torch.int64))
@@ -1025,17 +1119,16 @@ def compare_join_inputs(label, inputs, gathers):
     path's own inputs: the stream keys' hash, the probe, and every row
     gather that the path makes (`capture_row_gathers`)."""
     import torch
-    from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
+    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
     from spark_rapids_tpu_torch.ops import row_gather as rg
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
-    key, seed = inputs.hash
-    if key.dtype == torch.int64:
-        name, fn, plain = ("murmur3_long", m3.murmur3_long_lanes,
-                           hashing.murmur3_long_plain)
-    else:
-        name, fn, plain = ("murmur3_int", m3.murmur3_int_lanes,
-                           hashing.murmur3_int_plain)
-    _exact(f"{name} {label} stream keys", [fn(key, seed)], [plain(key, seed)])
+    pair = [oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2]
+    _exact(f"murmur3 {label} build pair",
+           m3.murmur3_columns(inputs.build_keys, pair),
+           m3.murmur3_columns_plain(inputs.build_keys, pair))
+    _exact(f"murmur3 {label} stream keys",
+           m3.murmur3_columns(inputs.stream_keys, pair[:1]),
+           m3.murmur3_columns_plain(inputs.stream_keys, pair[:1]))
     hits = compare_probe(f"probe {label}", inputs.probe, inputs.cand_cap,
                          inputs.total)
     shapes = []
@@ -1051,18 +1144,28 @@ def compare_join_inputs(label, inputs, gathers):
         lb = 2 * fmat.shape[1] if fmat is not None else 0
         shapes.append(f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
                       f"(la={imat.shape[1]}, lb={lb})")
-    print(f"compare {label} main-path inputs: {name} of {key.shape[0]} "
-          f"stream keys, probe of {inputs.stream_rows} stream rows into "
-          f"{inputs.build_rows} build rows, candidate total {inputs.total} "
-          f"in {inputs.cand_cap} slots, {hits} verified pairs; row gathers "
+    print(f"compare {label} main-path inputs: murmur3 of "
+          f"{inputs.build_rows} build keys (two seeds) and "
+          f"{inputs.stream_rows} stream keys, probe of {inputs.stream_rows} "
+          f"stream rows into {inputs.build_rows} build rows, candidate "
+          f"total {inputs.total} in {inputs.cand_cap} slots, {hits} "
+          f"verified pairs; row gathers "
           f"{'; '.join(shapes)}; exact")
 
 
 # -- bounds -----------------------------------------------------------------
 
-#: integer operations a row of murmur3 costs (mix_k1: 2 multiplies and a
-#: 3-op rotate per word; mix_h1: xor, rotate, multiply, add per word; fmix 7)
-M3_OPS = {8: 2 * 5 + 2 * 6 + 7, 4: 5 + 6 + 7}
+#: integer operations of murmur3 (mix_k1: 2 multiplies and a 3-op rotate
+#: per 32-bit word, once a key whatever the seeds; mix_h1: xor, rotate,
+#: multiply, add per word and seed; fmix 7 per seed)
+M3_K1_OPS, M3_H1_OPS, M3_FMIX_OPS = 5, 6, 7
+
+
+def m3_ops(width, seeds):
+    """Operations of one key of `width` bytes into `seeds` running hashes,
+    the null rule's select included."""
+    words = 2 if width == 8 else 1
+    return words * M3_K1_OPS + seeds * (words * M3_H1_OPS + M3_FMIX_OPS + 1)
 
 
 def bound(nbytes, nops):
@@ -1073,41 +1176,232 @@ def bound(nbytes, nops):
                                    else "operations")
 
 
-def time_murmur3(inputs, int_inputs, counts, int_counts):
-    """Both murmur3 kernels at q3's stream keys: kernel, plain version and
-    bound."""
-    from spark_rapids_tpu_torch.ops import hashing, murmur3_lanes as m3
+# -- the murmur3 kernel against the composition it replaced -----------------
+
+#: the murmur3 kernel that csrc/murmur3.cu replaced: one row a thread, a
+#: u32 seed per row. Phase 4 times the murmur3 kernel against it and the
+#: torch passes that murmur3_batch ran around it (`replaced_murmur3_batch`);
+#: it is built here for that comparison and nothing else.
+REPLACED_MURMUR3_SOURCE = r"""
+#include <cuda_runtime.h>
+#define C1 0xCC9E2D51u
+#define C2 0x1B873593u
+__device__ __forceinline__ unsigned rotl32(unsigned x, int r) {
+    return (x << r) | (x >> (32 - r));
+}
+__device__ __forceinline__ unsigned mix_k1(unsigned k1) {
+    return rotl32(k1 * C1, 15) * C2;
+}
+__device__ __forceinline__ unsigned mix_h1(unsigned h1, unsigned k1) {
+    return rotl32(h1 ^ k1, 13) * 5u + 0xE6546B64u;
+}
+__device__ __forceinline__ unsigned fmix(unsigned h, unsigned length) {
+    h ^= length; h ^= h >> 16; h *= 0x85EBCA6Bu; h ^= h >> 13;
+    h *= 0xC2B2AE35u; return h ^ (h >> 16);
+}
+__global__ void replaced_m3_long(const unsigned long long* __restrict__ data,
+                            const unsigned* __restrict__ seed,
+                            unsigned* __restrict__ out, long long n) {
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += step) {
+        const unsigned long long v = data[i];
+        unsigned h = mix_h1(seed[i], mix_k1((unsigned)v));
+        h = mix_h1(h, mix_k1((unsigned)(v >> 32)));
+        out[i] = fmix(h, 8u);
+    }
+}
+__global__ void replaced_m3_int(const unsigned* __restrict__ data,
+                           const unsigned* __restrict__ seed,
+                           unsigned* __restrict__ out, long long n) {
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += step) {
+        out[i] = fmix(mix_h1(seed[i], mix_k1(data[i])), 4u);
+    }
+}
+static int blocks_for(long long n, int threads) {
+    long long b = (n + threads - 1) / threads;
+    return (int)(b < 132 * 16 ? b : 132 * 16);
+}
+extern "C" int m3_long_run(const void* data, const void* seed, void* out,
+                           long long n, void* stream) {
+    if (n <= 0) return 0;
+    replaced_m3_long<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        (const unsigned long long*)data, (const unsigned*)seed,
+        (unsigned*)out, n);
+    return (int)cudaGetLastError();
+}
+extern "C" int m3_int_run(const void* data, const void* seed, void* out,
+                          long long n, void* stream) {
+    if (n <= 0) return 0;
+    replaced_m3_int<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)data, (const unsigned*)seed, (unsigned*)out, n);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def replaced_lanes():
+    """The replaced lane kernels, (data, seeds) -> out each: (long, int)."""
+    import ctypes
+    import torch
+    from spark_rapids_tpu_torch.kernels import build
+    lib = build.load(build.build(REPLACED_MURMUR3_SOURCE))
+
+    def entry(name):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+
+        def run(data, seeds):
+            out = torch.empty_like(seeds)
+            err = fn(data.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                     data.numel(),
+                     torch.cuda.current_stream(data.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"replaced {name}: CUDA error {err}")
+            return out
+        return run
+    return entry("m3_long_run"), entry("m3_int_run")
+
+
+def replaced_murmur3_batch(lanes, columns, seed):
+    """The replaced murmur3_batch over LONG or INT keys: the seed plane
+    (full, & 0xFFFFFFFF, then ^, - and .to(int32) into int32 bits), then
+    per column its lane kernel and the null rule's select."""
+    import torch
+    long_lanes, int_lanes = lanes
+    c0 = columns[0]
+    h = torch.full((c0.capacity,), seed, dtype=torch.int64,
+                   device=c0.data.device)
+    h = h & 0xFFFFFFFF
+    h = ((h ^ 0x80000000) - 0x80000000).to(torch.int32)
+    for col in columns:
+        k = long_lanes if col.data.dtype == torch.int64 else int_lanes
+        h = torch.where(col.validity, k(col.data, h), h)
+    return h
+
+
+def _m3_record(name, replaces, launches, ms, plain_ms, bnd, **extra):
+    # max_abs_err is 0: phase 2 held every output of the murmur3 kernel
+    # bit for bit against the plain version, and fails otherwise
+    b_ms, b_by = bnd
+    return {"name": name, "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, **extra}
+
+
+def in_turns(old, new, reps, old_flush=FLUSH_BYTES, passes=2):
+    """device_ms of two functions in turns (old, new, new, old, ...):
+    ([new's passes], [old's passes])."""
+    olds, news = [], []
+    for _ in range(passes):
+        olds.append(device_ms(old, reps, old_flush))
+        news += [device_ms(new, reps) for _ in range(2)]
+        olds.append(device_ms(old, reps, old_flush))
+    return news, olds
+
+
+def copy_ms(nbytes, reps):
+    """A device copy moving `nbytes` (half read, half written): what this
+    timing gives a pure stream of those bytes on this card."""
+    import torch
+    a = torch.ones(nbytes // 2, dtype=torch.uint8, device="cuda")
+    b = torch.empty_like(a)
+    return device_ms(lambda: b.copy_(a), reps)
+
+
+def time_murmur3(inputs, int_inputs, q19_inputs, counts, int_counts):
+    """The murmur3 kernel on the device, L2 cold, each time the median of
+    four runs in turns with what it replaced. Rows 2 and 3 (the lanes with
+    a per-row seed, the TPU kernels' interface) at q3's stream keys
+    against the replaced kernel; then the chain (`murmur3_columns`) at the
+    q3 build pair, the q3 stream and the Q19 stream against the
+    composition it replaced (seed plane, lane kernel and select, once a
+    seed; timed behind a 4x longer L2 flush so that the host enqueues its
+    launches before the card reaches them); each beside the plain
+    version, the bound and a copy of the same bytes. No one PyTorch call
+    computes murmur3, so library_ms is null."""
+    import statistics
+    from spark_rapids_tpu_torch.ops import hashing, join as oj
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
     reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    med = statistics.median
+    lanes = replaced_lanes()
     records = []
-
-    def rec(name, source, replaces, launches, ms, plain_ms, bnd, lib_ms):
-        # max_abs_err is 0: phase 2 held every output of these kernels
-        # bit for bit against the plain version, and fails otherwise
-        b_ms, b_by = bnd
-        print(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound"
-              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
-        records.append({"name": name, "route": "cuda",
-                        "source": f"spark_rapids_tpu_torch/csrc/{source}",
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms})
-
-    for name, inp, width, cnt, fn, plain, line in (
-            ("murmur3_long_lanes", inputs, 8, counts, m3.murmur3_long_lanes,
-             hashing.murmur3_long_plain, 70),
-            ("murmur3_int_lanes", int_inputs, 4, int_counts,
-             m3.murmur3_int_lanes, hashing.murmur3_int_plain, 78)):
+    for name, inp, cnt, width, fn, plain, old, line in (
+            ("murmur3_long_lanes", inputs, counts, 8, m3.murmur3_long_lanes,
+             hashing.murmur3_long_plain, lanes[0], 70),
+            ("murmur3_int_lanes", int_inputs, int_counts, 4,
+             m3.murmur3_int_lanes, hashing.murmur3_int_plain, lanes[1], 78)):
         key, seed = inp.hash
         n = key.shape[0]
-        hargs = (key, seed)
-        rec(name, "murmur3.cu", f"spark_rapids_tpu/ops/pallas_kernels.py:"
-            f"{line}", cnt[name],
-            device_ms(lambda: fn(*hargs), reps),
-            device_ms(lambda: plain(*hargs), plain_reps),
-            bound(n * (width + 4 + 4), n * M3_OPS[width]), None)
+        _exact(f"replaced {name}", [old(key, seed)], [plain(key, seed)])
+        ms, old_ms = in_turns(lambda: old(key, seed), lambda: fn(key, seed),
+                           reps)
+        plain_ms = device_ms(lambda: plain(key, seed), plain_reps)
+        nbytes = n * (width + 4 + 4)
+        copy = copy_ms(nbytes, reps)
+        b_ms, b_by = bound(nbytes, n * m3_ops(width, 1))
+        print(f"{name} at {n} rows: {med(ms):.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}), the replaced kernel "
+              f"{med(old_ms):.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in old_ms)})"
+              f", plain {plain_ms:.4f} ms, a copy of its bytes {copy:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / med(ms):.1%} of "
+              f"the bound")
+        records.append(_m3_record(
+            name, f"spark_rapids_tpu/ops/pallas_kernels.py:{line}",
+            cnt[name], med(ms), plain_ms, (b_ms, b_by), ms_runs=ms,
+            replaced_ms=med(old_ms), replaced_ms_runs=old_ms, copy_ms=copy))
+    pair = (oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2)
+    sites = {}
+    for site, cols, seeds in (
+            ("q3 build pair", inputs.build_keys, pair),
+            ("q3 stream", inputs.stream_keys, pair[:1]),
+            ("q19 stream", q19_inputs.stream_keys, pair[:1])):
+        n = cols[0].capacity
+        _exact(f"replaced composition {site}",
+               [replaced_murmur3_batch(lanes, cols, s) for s in seeds],
+               m3.murmur3_columns(cols, seeds))
 
+        def old(cols=cols, seeds=seeds):
+            return [replaced_murmur3_batch(lanes, cols, s) for s in seeds]
+
+        def new(cols=cols, seeds=seeds):
+            return m3.murmur3_columns(cols, seeds)
+        ms, old_ms = in_turns(old, new, reps, old_flush=4 * FLUSH_BYTES)
+        plain_ms = device_ms(
+            lambda: m3.murmur3_columns_plain(cols, seeds), plain_reps)
+        widths = [c.data.element_size() for c in cols]
+        nbytes = n * (sum(widths) + len(cols) + 4 * len(seeds))
+        copy = copy_ms(nbytes, reps)
+        b_ms, b_by = bound(nbytes,
+                           n * sum(m3_ops(w, len(seeds)) for w in widths))
+        print(f"murmur3_columns {site} ({n} rows, {len(cols)} column(s), "
+              f"{len(seeds)} seed(s)): {med(ms):.4f} ms in one launch (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}), the replaced composition "
+              f"{med(old_ms):.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in old_ms)})"
+              f", plain {plain_ms:.4f} ms, a copy of its bytes {copy:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / med(ms):.1%} of "
+              f"the bound")
+        sites[site] = {"rows": n, "seeds": len(seeds), "ms": med(ms),
+                       "ms_runs": ms, "replaced_ms": med(old_ms),
+                       "replaced_ms_runs": old_ms,
+                       "plain_ms": plain_ms, "copy_ms": copy,
+                       "bound_ms": b_ms, "bound_by": b_by}
+    q3s = sites["q3 stream"]
+    records.append(_m3_record(
+        "murmur3_columns", "spark_rapids_tpu/ops/pallas_kernels.py:70, "
+        "spark_rapids_tpu/ops/pallas_kernels.py:78",
+        counts["murmur3_columns"], q3s["ms"], q3s["plain_ms"],
+        (q3s["bound_ms"], q3s["bound_by"]), ms_runs=q3s["ms_runs"],
+        replaced_ms=q3s["replaced_ms"], sites=sites))
     return records
 
 
@@ -1439,10 +1733,11 @@ def main() -> int:
     sources = [fsa.kernel_source(s) for s in (q1_spec, mm_spec, zoo)] + [
         build.csrc_source(name)
         for name in ("murmur3.cu", "probe_verify.cu", "row_gather.cu",
-                     "dict_gather.cu")]
+                     "dict_gather.cu")] + [REPLACED_MURMUR3_SOURCE]
     build.build_all(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} "
-          f"kernel sources")
+          f"kernel sources (the last is the replaced murmur3, phase 4's "
+          f"yardstick)")
     for src in sources:
         for line in build.compiler_log(src).splitlines():
             if "registers" in line or "spill" in line:
@@ -1507,9 +1802,13 @@ def main() -> int:
                                  f"oracle {oracle[k]}")
     print(f"q1 at {ROWS} rows: {len(rows)} groups equal to the numpy "
           f"oracle; launches {q1_counts}")
-    q3_need = ["murmur3_long_lanes", "fused_probe_verify", "dma_row_gather"]
-    # launches per run of each path: every row gather and probe call
-    want = {"dma_row_gather": (5, 3), "fused_probe_verify": (1, 1)}
+    q3_need = ["murmur3_columns", "fused_probe_verify", "dma_row_gather"]
+    # launches per run of each path: every row gather and probe call, and
+    # one murmur3 launch per join side (both seeds of the build in one);
+    # the per-row-seed lanes are off the main paths
+    want = {"dma_row_gather": (5, 3), "fused_probe_verify": (1, 1),
+            "murmur3_columns": (2, 2), "murmur3_long_lanes": (0, 0),
+            "murmur3_int_lanes": (0, 0)}
     rows, q3_counts = drive_counted("q3", q3, q3_need)
     check_q3(rows, q3_want, "q3")
     print(f"q3 at {Q3_LINES} x {Q3_ORDERS}: top 10 equal to the numpy "
@@ -1518,17 +1817,14 @@ def main() -> int:
     check_q3(rows, q3_want, "q3 warm")
     print(f"q3 again, speculative size cache warm: equal to the oracle; "
           f"launches {warm_counts}")
-    rows, q3i_counts = drive_counted(
-        "q3 INT keys", q3i,
-        ["murmur3_int_lanes", "fused_probe_verify", "dma_row_gather"])
+    rows, q3i_counts = drive_counted("q3 INT keys", q3i, q3_need)
     check_q3(rows, q3_want, "q3 INT keys")
     print(f"q3 with INT order keys: equal to the oracle; launches "
           f"{q3i_counts}")
     join_rows = q19._source.metrics["numOutputRows"]
     before = join_rows.value
     rows, q19_counts = drive_counted(
-        "q19", q19, ["dict_gather", "murmur3_long_lanes",
-                     "fused_probe_verify", "dma_row_gather"])
+        "q19", q19, ["dict_gather"] + q3_need)
     pairs = join_rows.value - before
     check_q19(rows, pairs, q19_want, "q19")
     if q19_counts["dict_gather"] != 42:
@@ -1592,12 +1888,6 @@ def main() -> int:
     print(f"q19 steady state: {q19_ms:.3f} ms/iteration, "
           f"{q19_bytes / q19_ms / 1e6:.1f} GB/s of column data "
           f"({q19_bytes} bytes, {Q19_ITERS} iterations, one sync)")
-    if args.profile:
-        profile_plan("q1", plan, 10, args.profile)
-        profile_plan("q3", q3, Q3_ITERS, args.profile.with_name(
-            args.profile.stem + "_q3" + args.profile.suffix))
-        profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
-            args.profile.stem + "_q19" + args.profile.suffix))
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -1627,12 +1917,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + time_murmur3(q3_in, q3i_in, q3_counts, q3i_counts) + [
+    }] + time_murmur3(q3_in, q3i_in, q19_in, q3_counts, q3i_counts) + [
         time_probe(q3_in, q19_in, {"q3": q3_counts["fused_probe_verify"],
                                    "q19": q19_counts["fused_probe_verify"]}),
         time_row_gathers({k: gathers[k] for k in ("q3", "q19")},
                          q3_counts["dma_row_gather"]),
         time_dict_gather(l19, q19_counts["dict_gather"])]
+    # after the kernel timings: a profiled process times short launches
+    # slower and less evenly
+    if args.profile:
+        profile_plan("q1", plan, 10, args.profile)
+        profile_plan("q3", q3, Q3_ITERS, args.profile.with_name(
+            args.profile.stem + "_q3" + args.profile.suffix))
+        profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
+            args.profile.stem + "_q19" + args.profile.suffix))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

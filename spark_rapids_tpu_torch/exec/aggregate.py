@@ -19,7 +19,8 @@ group-by when rows are left over) into a full-capacity partial; partials
 merge pairwise on the device (`_tree_merge_device`), MERGE_FAN_IN at a
 time, and big ones shrink to a tight bucket after one host read.
 
-Not ported yet: partial/final modes, spill and retry (ROADMAP A.4).
+Not ported yet: partial/final modes (ROADMAP A.2), spill and retry
+(ROADMAP A.4).
 """
 
 from __future__ import annotations

@@ -2,14 +2,15 @@
 murmur3 half of spark_rapids_tpu/ops/hashing.py, for fixed-width columns.
 
 A u32 hash lane is an int32 tensor holding the u32 bit pattern (the JAX
-package's uint32 lane, bitcast). On a CUDA tensor `murmur3_int` and
-`murmur3_long` launch the Hopper kernels of ops/murmur3_lanes.py; on a
-CPU tensor they run the plain version below. PyTorch's CPU has no shifts
+package's uint32 lane, bitcast). On CUDA tensors `murmur3_batch` and
+`murmur3_column` launch the Hopper kernel of ops/murmur3_lanes.py once
+(the chain, the null rule and the float normalisation inside it); on CPU
+tensors they run the plain versions below. PyTorch's CPU has no shifts
 or remainders on uint32, so the plain version computes in int64 holding
 32-bit values and masks after every step (`_mul32` keeps products below
 2^63).
 
-Strings and xxhash64 wait for a later slice (ROADMAP B.1).
+Strings wait for a later slice (ROADMAP A.5), xxhash64 too (A.3).
 """
 
 from __future__ import annotations
@@ -75,19 +76,6 @@ def murmur3_long_plain(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return i32_bits(_fmix(h1, 8))
 
 
-def murmur3_int(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """v: int32 lanes; seed: u32 lanes (int32 bits). The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    from .murmur3_lanes import murmur3_int_lanes
-    return murmur3_int_lanes(v, seed)
-
-
-def murmur3_long(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """v: int64 lanes; seed: u32 lanes (int32 bits)."""
-    from .murmur3_lanes import murmur3_long_lanes
-    return murmur3_long_lanes(v, seed)
-
-
 def _normalize_float(data: torch.Tensor) -> torch.Tensor:
     """Spark normalizes -0.0 to 0.0 before hashing."""
     return torch.where(data == 0, torch.zeros_like(data), data)
@@ -101,32 +89,51 @@ def _f64_bits_signed(data: torch.Tensor) -> torch.Tensor:
                        torch.full_like(bits, 0x7FF8000000000000), bits)
 
 
-def murmur3_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
-    """Per-row murmur3 update: null rows leave the running hash unchanged
-    (Spark semantics). seed is u32 lanes (the running hash)."""
+def murmur3_column_plain(col: Column, seed: torch.Tensor) -> torch.Tensor:
+    """Per-row murmur3 update in plain PyTorch: null rows leave the running
+    hash unchanged (Spark semantics). seed is u32 lanes (the running
+    hash)."""
     dt = col.dtype
     if isinstance(dt, (BooleanType, ByteType, ShortType, IntegerType,
                        DateType)):
-        h = murmur3_int(col.data.to(torch.int32), seed)
+        h = murmur3_int_plain(col.data.to(torch.int32), seed)
     elif isinstance(dt, (LongType, TimestampType)):
-        h = murmur3_long(col.data, seed)
+        h = murmur3_long_plain(col.data, seed)
     elif isinstance(dt, FloatType):
-        h = murmur3_int(_normalize_float(col.data).view(torch.int32), seed)
+        h = murmur3_int_plain(_normalize_float(col.data).view(torch.int32),
+                              seed)
     elif isinstance(dt, DoubleType):
-        h = murmur3_long(_f64_bits_signed(_normalize_float(col.data)), seed)
+        h = murmur3_long_plain(_f64_bits_signed(_normalize_float(col.data)),
+                               seed)
     else:
         raise NotImplementedError(
-            f"murmur3 of {dt} waits for a later slice (ROADMAP B.1)")
+            f"murmur3 of {dt} waits for a later slice (ROADMAP A.5)")
     return torch.where(col.validity, h, seed)
 
 
-def murmur3_batch(columns, seed: int = 42) -> torch.Tensor:
-    """Spark Murmur3Hash(cols..., seed) -> int32 lanes: each column's hash
-    is the next column's seed."""
+def murmur3_batch_plain(columns, seed: int = 42) -> torch.Tensor:
+    """Spark Murmur3Hash(cols..., seed) -> int32 lanes in plain PyTorch:
+    each column's hash is the next column's seed."""
     c0 = columns[0]
     h = torch.full((c0.capacity,), seed, dtype=torch.int64,
                    device=c0.device)
     h = i32_bits(h & _M32)
     for col in columns:
-        h = murmur3_column(col, h)
+        h = murmur3_column_plain(col, h)
     return h
+
+
+def murmur3_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
+    """Per-row murmur3 update of the running hash `seed` (u32 lanes) by
+    one column; null rows leave it unchanged. One launch on CUDA
+    tensors."""
+    from .murmur3_lanes import murmur3_columns
+    return murmur3_columns([col], [seed])[0]
+
+
+def murmur3_batch(columns, seed: int = 42) -> torch.Tensor:
+    """Spark Murmur3Hash(cols..., seed) -> int32 lanes: each column's hash
+    is the next column's seed. One launch per four columns on CUDA
+    tensors."""
+    from .murmur3_lanes import murmur3_columns
+    return murmur3_columns(list(columns), [seed])[0]

@@ -21,7 +21,8 @@ import torch
 
 from ..columnar.column import Column
 from .basic import active_mask, compaction_order, gather_column
-from .hashing import murmur3_batch, u32_of
+from .hashing import u32_of
+from .murmur3_lanes import murmur3_columns
 from .rowpack import pack_rows
 from .sort import lexsort
 
@@ -30,12 +31,12 @@ JOIN_HASH_SEED2 = 0x85EB_CA6B
 
 
 def join_hash_pair(key_cols: Sequence[Column], lo_too: bool = True):
-    """Internal join bucket hash: two independent murmur3 passes (u32
-    bits); the second only when `lo_too`."""
-    h_hi = murmur3_batch(list(key_cols), seed=JOIN_HASH_SEED)
-    if not lo_too:
-        return h_hi, None
-    return h_hi, murmur3_batch(list(key_cols), seed=JOIN_HASH_SEED2)
+    """Internal join bucket hash: murmur3 chains of the keys from two
+    independent seeds (u32 bits), the second only when `lo_too`; both
+    from one read of the keys, one launch on a card."""
+    seeds = (JOIN_HASH_SEED, JOIN_HASH_SEED2) if lo_too else (JOIN_HASH_SEED,)
+    h = murmur3_columns(list(key_cols), seeds)
+    return h[0], (h[1] if lo_too else None)
 
 
 def _keys_valid(key_cols: Sequence[Column], num_rows, capacity: int):

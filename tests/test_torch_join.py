@@ -14,6 +14,9 @@ exec/joins.py) with the JAX package.
   nulls on both sides and a candidate bucket smaller than the total.
 - `HashJoinExec` (inner, filters absorbed as key validity) row for row
   against the JAX exec.
+- The bucket hash pair (`join_hash_pair`, both seeds from one chain) over
+  key lists of mixed kinds with nulls, longer than one launch of the
+  murmur3 kernel, and a build table and probe over two key columns.
 """
 
 import numpy as np
@@ -244,6 +247,82 @@ def test_inner_gather_maps_match_jax():
     assert int(got[2]) == int(want[2]) > 0
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+#: join key lists of mixed kinds: two columns, five (more than one
+#: launch of the murmur3 kernel), all nine fixed-width kinds
+MIXED_KEYS = {
+    "two": ["INT", "LONG"],
+    "five": ["SHORT", "DOUBLE", "BOOLEAN", "TIMESTAMP", "FLOAT"],
+    "nine": ["BOOLEAN", "BYTE", "SHORT", "INT", "DATE", "LONG", "TIMESTAMP",
+             "FLOAT", "DOUBLE"],
+}
+
+
+def _mixed_key(rng, type_name, cap):
+    """Exactly `cap` rows of a key type: negative values, NaN and -0.0
+    among the floats, ~10% nulls."""
+    if type_name == "BOOLEAN":
+        vals = rng.integers(0, 2, cap).astype(np.bool_)
+    elif type_name in ("FLOAT", "DOUBLE"):
+        vals = rng.normal(0, 100, cap)
+        vals[::5], vals[::7] = np.nan, -0.0
+        vals = vals.astype(getattr(tt, type_name).np_dtype)
+    else:
+        vals = rng.integers(-500, 500, cap).astype(
+            getattr(tt, type_name).np_dtype)
+    valid = rng.random(cap) > 0.1
+    jc = JColumn(jnp.asarray(vals), jnp.asarray(valid), getattr(jt, type_name))
+    tc = TColumn(torch.from_numpy(vals.copy()), torch.from_numpy(valid),
+                 getattr(tt, type_name))
+    return jc, tc
+
+
+@pytest.mark.parametrize("cap", [0, 13, 2048])
+@pytest.mark.parametrize("keys", list(MIXED_KEYS))
+def test_join_hash_pair_of_mixed_key_lists_matches_jax(keys, cap):
+    rng = np.random.default_rng(cap + 3 * len(keys))
+    pairs = [_mixed_key(rng, name, cap) for name in MIXED_KEYS[keys]]
+    jhi, jlo = jj.join_hash_pair([p[0] for p in pairs])
+    thi, tlo = tj.join_hash_pair([p[1] for p in pairs])
+    assert thi.shape == tlo.shape == (cap,)
+    np.testing.assert_array_equal(thi.numpy().view(np.uint32),
+                                  np.asarray(jhi))
+    np.testing.assert_array_equal(tlo.numpy().view(np.uint32),
+                                  np.asarray(jlo))
+    only_hi, none = tj.join_hash_pair([p[1] for p in pairs], lo_too=False)
+    assert none is None and torch.equal(only_hi, thi)
+
+
+def test_build_and_probe_over_two_key_columns_match_jax():
+    rng = np.random.default_rng(31)
+    n_b, n_s = 3000, 7000
+    b_int = rng.integers(0, 60, n_b).astype(np.int32)
+    b_long = (rng.permutation(n_b) * 7919 - 5000).astype(np.int64)
+    s_idx = rng.integers(0, n_b, n_s)
+    s_int = np.where(rng.random(n_s) < 0.7, b_int[s_idx],
+                     rng.integers(0, 60, n_s)).astype(np.int32)
+    s_long = b_long[s_idx]
+    bk = [_pair(b_int, "INT", rng.random(n_b) > 0.05, BUILD_CAP),
+          _pair(b_long, "LONG", rng.random(n_b) > 0.05, BUILD_CAP)]
+    sk = [_pair(s_int, "INT", rng.random(n_s) > 0.05, STREAM_CAP),
+          _pair(s_long, "LONG", rng.random(n_s) > 0.05, STREAM_CAP)]
+    jb = jj.BuildTable.build([k[0] for k in bk], [bk[1][0]],
+                             jnp.int32(n_b), BUILD_CAP)
+    tb = tj.BuildTable.build([k[1] for k in bk], [bk[1][1]],
+                             torch.tensor(n_b), BUILD_CAP)
+    assert int(tb.valid_count) == int(jb.valid_count)
+    np.testing.assert_array_equal(tb.bucket_table.numpy(),
+                                  np.asarray(jb.bucket_table))
+    np.testing.assert_array_equal(tb.perm.numpy(), np.asarray(jb.perm))
+    jlo, jcounts, jvalid = jj.probe_counts(jb, [k[0] for k in sk],
+                                           jnp.int32(n_s), STREAM_CAP)
+    tlo, tcounts, tvalid = tj.probe_counts(tb, [k[1] for k in sk],
+                                           torch.tensor(n_s), STREAM_CAP)
+    np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    assert int(np.asarray(jcounts).sum()) > 0
 
 
 def test_cpu_probe_counts_no_launch():
