@@ -1295,11 +1295,11 @@ def _m3_record(name, replaces, launches, ms, plain_ms, bnd, **extra):
             "bound_by": b_by, "library_ms": None, **extra}
 
 
-def in_turns(old, new, reps, old_flush=FLUSH_BYTES, passes=2):
-    """device_ms of two functions in turns (old, new, new, old, ...):
-    ([new's passes], [old's passes])."""
+def in_turns(old, new, reps, old_flush=FLUSH_BYTES):
+    """device_ms of two functions in turns (old, new, new, old, old, new,
+    new, old): ([new's four runs], [old's four runs])."""
     olds, news = [], []
-    for _ in range(passes):
+    for _ in range(2):
         olds.append(device_ms(old, reps, old_flush))
         news += [device_ms(new, reps) for _ in range(2)]
         olds.append(device_ms(old, reps, old_flush))
@@ -1384,8 +1384,8 @@ def time_murmur3(inputs, int_inputs, q19_inputs, counts, int_counts):
                            n * sum(m3_ops(w, len(seeds)) for w in widths))
         print(f"murmur3_columns {site} ({n} rows, {len(cols)} column(s), "
               f"{len(seeds)} seed(s)): {med(ms):.4f} ms in one launch (runs "
-              f"{', '.join(f'{x:.4f}' for x in ms)}), the replaced composition "
-              f"{med(old_ms):.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}), the replaced "
+              f"composition {med(old_ms):.4f} ms (runs "
               f"{', '.join(f'{x:.4f}' for x in old_ms)})"
               f", plain {plain_ms:.4f} ms, a copy of its bytes {copy:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / med(ms):.1%} of "
