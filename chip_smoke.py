@@ -57,6 +57,20 @@ fails the run on error:
      join side, both build seeds in one) and the per-row-seed lanes never
      per q3, INT-key q3 and q19, fused_probe_verify once and dma_row_gather
      5 times per q3 (3 per q19);
+  3b. drives the paths of late materialization and the memory runtime,
+     each counted the same way, with its host reads (the synchronizing
+     CUDA calls of the run): P1, Q19 again, whose join output decodes at
+     the join -> aggregate boundary (the decode counters must move); P2,
+     the q3 plan with its lineitems as 16 batches of 131,072 rows, once
+     unconstrained and then under a device budget from that run's peak
+     catalog bytes (a quarter of it, or the bytes the plan held in use at
+     once where that is more) and a host limit of an eighth, with one
+     injected split-and-retry OOM in the first aggregate update: it must
+     spill to the host and the disk, unspill, split, equal q3's oracle
+     and leave the catalog empty; P3, a SortExec over q3's lineitems as
+     32 batches of 65,536 rows by l_orderkey ASC, l_price DESC, out of
+     core in two merge passes under the same budget rule, equal to
+     np.lexsort's order, catalog empty;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -70,18 +84,23 @@ fails the run on error:
      shapes (q19's take and dg's), the probe at q3's and q19's and the row
      gather at every shape of q3 and q19 (summed per iteration). Kernel
      times are the device's, with the L2 cache flushed before each run
-     (device_ms).
+     (device_ms). Also P2's and P3's ms per iteration under their
+     budgets, Q19's decode counters per iteration, and the spill lane's
+     rates on the full lineitem batch: the copy into pinned memory, the
+     disk write and read, and the copy back to the card.
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
-The last lines are a JSON line with one record per ported kernel (the
+The last lines are a JSON line with the records of P1-P3 and the spill
+rates, a JSON line with one record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
-"shapes", the murmur3 chain's three sites under "sites"), the
-card as nvidia-smi names it, and {"ok": true, "device": {...}}.
+"shapes", the murmur3 chain's three sites under "sites", and each
+kernel's launches on P1-P3 under "path_launches"), the card as
+nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -456,11 +475,33 @@ def q3_oracle(d):
     return {int(uk[i]): float(sums[i]) for i in top}
 
 
-def q3_plan(d, dev, key_type):
-    """bench.py make_q3_plan, in the port (the operator tree)."""
+def q3_schemas(key_type):
+    """(orders, lineitem) schemas of the q3 lane."""
     from spark_rapids_tpu_torch import types as t
+    kt = getattr(t, key_type)
+    return (t.Schema((t.StructField("o_orderkey", kt),
+                      t.StructField("o_flag", t.INT))),
+            t.Schema((t.StructField("l_orderkey", kt),
+                      t.StructField("l_price", t.DOUBLE),
+                      t.StructField("l_disc", t.DOUBLE),
+                      t.StructField("l_flag", t.INT))))
+
+
+def q3_batches(d, dev, schema, n, parts=1):
+    """The first n rows of `schema`'s columns as `parts` batches of
+    equal size."""
     from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
     from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
+    step = n // parts
+    cap = bucket_capacity(step)
+    return [ColumnarBatch([Column.from_numpy(
+        d[f.name][i: i + step], f.data_type, capacity=cap, device=dev)
+        for f in schema.fields], step, schema) for i in range(0, n, step)]
+
+
+def q3_plan(d, dev, key_type, line_batches=1):
+    """bench.py make_q3_plan, in the port (the operator tree); the
+    lineitems fed as `line_batches` batches of equal size."""
     from spark_rapids_tpu_torch.exec.aggregate import AggregateExec
     from spark_rapids_tpu_torch.exec.basic import (
         FilterExec, InMemoryScanExec, ProjectExec)
@@ -468,24 +509,11 @@ def q3_plan(d, dev, key_type):
     from spark_rapids_tpu_torch.exec.sort import TopNExec
     from spark_rapids_tpu_torch.expr.aggexprs import Sum
     from spark_rapids_tpu_torch.expr.core import col, lit
-    kt = getattr(t, key_type)
-    o_schema = t.Schema((t.StructField("o_orderkey", kt),
-                         t.StructField("o_flag", t.INT)))
-    l_schema = t.Schema((t.StructField("l_orderkey", kt),
-                         t.StructField("l_price", t.DOUBLE),
-                         t.StructField("l_disc", t.DOUBLE),
-                         t.StructField("l_flag", t.INT)))
-
-    def mk(schema, n):
-        cap = bucket_capacity(n)
-        return ColumnarBatch([Column.from_numpy(d[f.name], f.data_type,
-                                                capacity=cap, device=dev)
-                              for f in schema.fields], n, schema)
-
-    o_scan = FilterExec(col("o_flag") < lit(5),
-                        InMemoryScanExec([mk(o_schema, Q3_ORDERS)], o_schema))
-    l_scan = FilterExec(col("l_flag") != lit(0),
-                        InMemoryScanExec([mk(l_schema, Q3_LINES)], l_schema))
+    o_schema, l_schema = q3_schemas(key_type)
+    o_scan = FilterExec(col("o_flag") < lit(5), InMemoryScanExec(
+        q3_batches(d, dev, o_schema, Q3_ORDERS), o_schema))
+    l_scan = FilterExec(col("l_flag") != lit(0), InMemoryScanExec(
+        q3_batches(d, dev, l_schema, Q3_LINES, line_batches), l_schema))
     joined = HashJoinExec(l_scan, o_scan, [col("l_orderkey")],
                           [col("o_orderkey")], "inner", build_side="right")
     proj = ProjectExec([
@@ -718,13 +746,29 @@ def drive_counted(label, plan, need):
     """Run `plan` once under a speculation scope with every launch counter
     set to 0 just before and read just after; fail if the flag tripped or
     a kernel in `need` was not launched. Returns (rows, counts)."""
+    out, counts, _ = drive_batches(label, plan, need)
+    return [r for b in out for r in b.to_pylist()], counts
+
+
+def drive_batches(label, plan, need):
+    """drive_counted's run, returning (batches, counts, host reads): the
+    host reads are the synchronizing CUDA calls the run made (CUDA's sync
+    debug mode warns on each), counted between the counter reset and the
+    counter read."""
+    import warnings
     import torch
     from spark_rapids_tpu_torch.exec.speculation import speculation_scope
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    with speculation_scope() as scope:
-        out = list(plan.execute())
+    with speculation_scope() as scope, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = list(plan.execute())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         counts = {name: w.launches for name, w in wrappers.items()}
         tripped = scope.tripped()
@@ -734,7 +778,166 @@ def drive_counted(label, plan, need):
     if idle:
         raise AssertionError(f"{label}: kernels not launched: {idle} "
                              f"(counts {counts})")
-    return [r for b in out for r in b.to_pylist()], counts
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    return out, counts, reads
+
+
+# -- slice 4: late materialization and the memory runtime -----------------
+
+P2_LINE_BATCHES = 16     # q3's lineitems as 16 batches of 131,072 rows
+P3_LINE_BATCHES = 32     # the sort's input: 32 batches of 65,536 rows
+P_ITERS = 3              # timed runs of P2 and P3 each
+
+
+def sort_plan(d, dev):
+    """P3: SortExec over q3's lineitems in P3_LINE_BATCHES batches, by
+    l_orderkey ASC, l_price DESC (out of core: more runs than the fan-in)."""
+    from spark_rapids_tpu_torch.exec.basic import InMemoryScanExec
+    from spark_rapids_tpu_torch.exec.sort import SortExec
+    from spark_rapids_tpu_torch.expr.core import col
+    schema = q3_schemas("LONG")[1]
+    return SortExec([(col("l_orderkey"), True, None),
+                     (col("l_price"), False, None)],
+                    InMemoryScanExec(q3_batches(d, dev, schema, Q3_LINES,
+                                                P3_LINE_BATCHES), schema))
+
+
+def check_sort(batches, d, label):
+    """Every row, in the order np.lexsort((-l_price, l_orderkey)) gives
+    (the random f64 prices make ties practically absent)."""
+    order = np.lexsort((-d["l_price"], d["l_orderkey"]))
+    names = [f.name for f in q3_schemas("LONG")[1].fields]
+    got = {n: [] for n in names}
+    rows = 0
+    for b in batches:
+        n = b.num_rows_host
+        rows += n
+        for name, c in zip(names, b.columns):
+            if not bool(c.validity[:n].all()):
+                raise AssertionError(f"{label}: nulls in {name}")
+            got[name].append(c.data[:n].cpu().numpy())
+    if rows != Q3_LINES:
+        raise AssertionError(f"{label}: {rows} rows, not {Q3_LINES}")
+    for name in names:
+        if not np.array_equal(np.concatenate(got[name]), d[name][order]):
+            raise AssertionError(f"{label}: {name} out of order")
+
+
+def drive_under_budget(label, make_plan, need, check, split):
+    """P2 / P3: the plan once unconstrained, then under a device budget
+    from that run's peak catalog bytes: a quarter of the peak, or what the
+    plan held in use at once (no spill frees that) where that is more;
+    the host limit an eighth of the peak. With `split`, one injected
+    split-and-retry OOM in the first guarded step. Returns (the
+    constrained plan, its counts, a record of the run)."""
+    from spark_rapids_tpu_torch import memory as M
+
+    def run(tag, limit, host_limit):
+        cat = M.reset_buffer_catalog(host_limit=host_limit)
+        budget = M.reset_memory_budget(limit)
+        M.register_task(1)
+        if split:
+            M.force_split_and_retry_oom(1)
+        plan = make_plan()
+        t0 = time.perf_counter()
+        out, counts, reads = drive_batches(f"{label} {tag}", plan, need)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(out, f"{label} {tag}")
+        cat.drain_writeback()
+        return plan, cat, budget, counts, reads, ms
+    _, cat, budget, _, _, _ = run("unconstrained", None, None)
+    peak, pinned = budget.peak, cat.peak_pinned_bytes
+    limit, host_limit = max(peak // 4, pinned), peak // 8
+    rule = "a quarter of the peak" if limit == peak // 4 \
+        else "what it holds in use at once"
+    print(f"{label}: unconstrained peak catalog {peak} bytes, in use at "
+          f"once {pinned}; budget {limit} ({rule}), host limit "
+          f"{host_limit}")
+    plan, cat, budget, counts, reads, ms = run("under budget", limit,
+                                               host_limit)
+    # the later phases run under the default budget again
+    M.reset_buffer_catalog()
+    M.reset_memory_budget()
+    c = cat.counters()
+    retries, splits = M.task_retry_counts()
+    if not (c["to_host"] and c["to_disk"] and c["to_device"]):
+        raise AssertionError(f"{label}: spills {c} (host, disk and "
+                             f"unspills must each be > 0)")
+    if split and splits < 1:
+        raise AssertionError(f"{label}: no split ({retries}, {splits})")
+    if cat.num_entries() or cat.device_bytes():
+        raise AssertionError(f"{label}: catalog left {cat.num_entries()} "
+                             f"entries, {cat.device_bytes()} device bytes")
+    rec = {"peak_bytes": peak, "pinned_bytes": pinned, "budget": limit,
+           "host_limit": host_limit, "retries": retries, "splits": splits,
+           "host_reads": reads, "first_run_ms": ms, **c}
+    print(f"{label}: equal to its oracle under the budget; spills {c}, "
+          f"retries {retries}, splits {splits}, host reads {reads}; "
+          f"launches {counts}; catalog empty")
+    return plan, counts, rec
+
+
+def time_under_budget(plan, rec):
+    """ms per iteration of a budgeted plan (fresh catalog, same budget,
+    no injection), one synchronisation per run."""
+    import torch
+    from spark_rapids_tpu_torch import memory as M
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    times = []
+    for _ in range(P_ITERS):
+        cat = M.reset_buffer_catalog(host_limit=rec["host_limit"])
+        M.reset_memory_budget(rec["budget"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with speculation_scope():
+            for _b in plan.execute():
+                pass
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        cat.drain_writeback()
+    M.reset_buffer_catalog()
+    M.reset_memory_budget()
+    return times
+
+
+def spill_rates(batch):
+    """GB/s of each hop of the spill lane on `batch`'s leaves, through the
+    catalog's own functions: the copy into pinned memory (to its event),
+    the CRC-stamped disk write (fsync'd) and read, and the copy back to
+    the card. One warm-up, then the mean of three."""
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch.memory import catalog as C
+    leaves, _ = batch.flatten()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-spill-")
+    path = f"{tmp}/rate.npz"
+    try:
+        def d2h():
+            host, ev = C.copy_to_host(leaves)
+            ev.synchronize()
+            return host
+        host = d2h()
+
+        def h2d():
+            C.copy_to_device(host, batch.device)
+            torch.cuda.synchronize()
+        hops = {"d2h_pinned": d2h,
+                "disk_write": lambda: C.write_spill_file(path, host),
+                "disk_read": lambda: C.read_spill_file(path),
+                "h2d": h2d}
+        out = {}
+        for name, fn in hops.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            out[name] = nbytes * 3 / (time.perf_counter() - t0) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return nbytes, out
 
 
 # -- the q3 kernels against their plain versions ----------------------------
@@ -1840,6 +2043,36 @@ def main() -> int:
           f"over {pairs} qualifying rows, equal to the numpy oracle; "
           f"launches {q19_counts}")
 
+    # -- phase 3b: late materialization and the memory runtime -------------
+    from spark_rapids_tpu_torch.columnar import encoded
+    before, rows_before = encoded.counters(), join_rows.value
+    out, p1_counts, p1_reads = drive_batches(
+        "P1 q19 decoded", q19, ["dict_gather"] + q3_need)
+    dec = {k: encoded.counters()[k] - before[k]
+           for k in ("materializations", "materialized_bytes")}
+    check_q19([r for b in out for r in b.to_pylist()],
+              join_rows.value - rows_before, q19_want, "P1")
+    if dec["materializations"] < 1:
+        raise AssertionError(f"P1: no decode at the boundary ({dec})")
+    print(f"P1 q19 decoded at the join->aggregate boundary: equal to the "
+          f"oracle; {dec} (one host read each); host reads in the run "
+          f"{p1_reads}; launches {p1_counts}")
+    p2, p2_counts, p2_rec = drive_under_budget(
+        "P2 q3 under budget",
+        lambda: q3_plan(d3, dev, "LONG", P2_LINE_BATCHES), q3_need,
+        lambda out, label: check_q3([r for b in out for r in b.to_pylist()],
+                                    q3_want, label), split=True)
+    p3, p3_counts, p3_rec = drive_under_budget(
+        "P3 out-of-core sort", lambda: sort_plan(d3, dev),
+        ["dma_row_gather"], lambda out, label: check_sort(out, d3, label),
+        split=False)
+    p3_rec["merge_passes"] = p3.metrics["mergePasses"].value
+    p3_rec["merge_host_reads"] = p3.metrics["mergeHostReads"].value
+    if p3_rec["merge_passes"] != 2:
+        raise AssertionError(f"P3: {p3_rec['merge_passes']} merge passes")
+    print(f"P3: {p3_rec['merge_passes']} merge passes, "
+          f"{p3_rec['merge_host_reads']} merge host reads")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -1877,6 +2110,7 @@ def main() -> int:
     with speculation_scope() as scope:
         list(q19.execute())  # warm
         torch.cuda.synchronize()
+        before = encoded.counters()
         t0 = time.perf_counter()
         for _ in range(Q19_ITERS):
             list(q19.execute())
@@ -1885,9 +2119,21 @@ def main() -> int:
         if scope.tripped():
             raise AssertionError("q19 speculation flag tripped in steady "
                                  "state")
-    print(f"q19 steady state: {q19_ms:.3f} ms/iteration, "
-          f"{q19_bytes / q19_ms / 1e6:.1f} GB/s of column data "
-          f"({q19_bytes} bytes, {Q19_ITERS} iterations, one sync)")
+    per_iter = {k: (encoded.counters()[k] - before[k]) / Q19_ITERS
+                for k in ("materializations", "materialized_bytes")}
+    print(f"q19 steady state, decoded at the boundary (P1): {q19_ms:.3f} "
+          f"ms/iteration, {q19_bytes / q19_ms / 1e6:.1f} GB/s of column "
+          f"data ({q19_bytes} bytes, {Q19_ITERS} iterations, one sync); "
+          f"per iteration {per_iter}")
+    for label, plan_, rec in (("P2 q3 under budget", p2, p2_rec),
+                              ("P3 out-of-core sort", p3, p3_rec)):
+        rec["ms"] = time_under_budget(plan_, rec)
+        print(f"{label}: {rec['ms']} ms per iteration ({P_ITERS} runs, "
+              f"budget {rec['budget']}, host limit {rec['host_limit']})")
+    rate_bytes, rates = spill_rates(q3_batches(
+        d3, dev, q3_schemas("LONG")[1], Q3_LINES)[0])
+    print(f"spill lane on the {rate_bytes}-byte lineitem batch, GB/s: "
+          f"{rates}")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -1931,6 +2177,15 @@ def main() -> int:
             args.profile.stem + "_q3" + args.profile.suffix))
         profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
             args.profile.stem + "_q19" + args.profile.suffix))
+    for r in records:
+        r["path_launches"] = {
+            "P1_q19_decoded": p1_counts.get(r["name"], 0),
+            "P2_q3_budget": p2_counts.get(r["name"], 0),
+            "P3_sort_out_of_core": p3_counts.get(r["name"], 0)}
+    print(json.dumps({"paths": {"P1": dict(dec, host_reads=p1_reads,
+                                           ms=q19_ms),
+                                "P2": p2_rec, "P3": p3_rec,
+                                "spill_gb_s": rates}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -81,6 +81,39 @@ class ColumnarBatch:
         return [tuple(d[name][i] for name in names)
                 for i in range(self.num_rows_host)]
 
+    def flatten(self) -> Tuple[List[torch.Tensor], tuple]:
+        """The batch as tensor leaves and a description to rebuild it
+        from them (`unflatten`): each column's leaves in the JAX pytree's
+        order, then the int32 row count, as the JAX package flattens a
+        batch for its spill catalog. The description also keeps the host
+        row count when it is known, so a batch back from a spill needs no
+        host read for it."""
+        leaves: List[torch.Tensor] = []
+        kinds = []
+        for c in self.columns:
+            own = c.leaves()
+            leaves.extend(own)
+            kinds.append((type(c), c.dtype, len(own)))
+        leaves.append(self.num_rows)
+        return leaves, (self.schema, tuple(kinds), self._host_rows)
+
+    @staticmethod
+    def unflatten(treedef: tuple, leaves: Sequence[torch.Tensor]
+                  ) -> "ColumnarBatch":
+        schema, kinds, host_rows = treedef
+        cols, pos = [], 0
+        for cls, dtype, n in kinds:
+            cols.append(cls.from_leaves(dtype, leaves[pos: pos + n]))
+            pos += n
+        return ColumnarBatch(cols, leaves[pos], schema, host_rows)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every leaf at its padded size: the JAX catalog's
+        `_leaf_nbytes` of the same batch (bool validity is one byte a
+        row, the row count a 4-byte scalar)."""
+        return sum(t.numel() * t.element_size() for t in self.flatten()[0])
+
     def with_columns(self, columns: Sequence[Column],
                      schema: Schema) -> "ColumnarBatch":
         return ColumnarBatch(columns, self.num_rows, schema, self._host_rows)

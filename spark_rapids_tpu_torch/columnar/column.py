@@ -85,6 +85,15 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    def leaves(self) -> tuple:
+        """The column's tensors, in the JAX package's pytree order (the
+        spill catalog moves them between tiers)."""
+        return (self.data, self.validity)
+
+    @classmethod
+    def from_leaves(cls, dtype: DataType, leaves) -> "Column":
+        return cls(*leaves, dtype)
+
     def with_capacity(self, capacity: int) -> "Column":
         """Grow (never shrink) the padding bucket."""
         cap = self.capacity
@@ -112,8 +121,9 @@ class StringColumn(Column):
 
     offsets has shape (capacity + 1,) and repeats its last value over the
     padding rows, so their lengths are zero; the byte buffer is padded to
-    its own bucket. The port has no string operators yet: a StringColumn
-    is the dictionary of a DictionaryColumn (columnar/encoded.py)."""
+    its own bucket. A StringColumn is the dictionary of a
+    DictionaryColumn (columnar/encoded.py) or a decoded one
+    (`materialize_column`); ops/strings.py gathers and concatenates it."""
 
     __slots__ = ("offsets",)
 
@@ -166,6 +176,9 @@ class StringColumn(Column):
     @property
     def byte_capacity(self) -> int:
         return int(self.data.shape[0])
+
+    def leaves(self) -> tuple:
+        return (self.data, self.offsets, self.validity)
 
     def with_capacity(self, capacity: int) -> "StringColumn":
         """Grow (never shrink) the row bucket with zero-length rows."""

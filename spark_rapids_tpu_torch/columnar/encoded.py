@@ -1,6 +1,6 @@
 """Dictionary-encoded string columns — the counterpart of
 spark_rapids_tpu/columnar/encoded.py, as far as code-space predicates
-need it.
+and late materialization need it.
 
 A `DictionaryColumn` carries a device int32 code lane plus the per-batch
 dictionary (Arrow (offsets, bytes) layout, bucket-padded like every other
@@ -14,12 +14,17 @@ Null and inactive rows hold `NULL_CODE` (-1). The column carries
 `data=None`, as in the JAX package, so an operator that was not taught the
 encoded layout fails on `.data` instead of misreading codes as values.
 
-Not ported yet (ROADMAP A.5): the late-materialization seam
-(`materialize_column`/`materialize_batch`, the decode through the gather
-engine) and the output seam of `collect()` beyond `to_pylist`,
-`dictionary_hashes` and string-key joins, and `dictionary_from_arrow`
-with the Parquet scan. The numpy constructor `dictionary_from_numpy`
-takes the scan's place.
+Late materialization: where an operator's parent cannot consume encoded
+columns, its output decodes at the batch boundary (exec/base.py,
+`materialize_batch`): a dictionary decode is a row gather of the
+dictionary by the code lane (ops/strings.gather_string), into a byte
+bucket sized by one host read per column (`decoded_byte_bucket`).
+`collect()` lets encoded root batches out, since `to_pylist` decodes on
+the host.
+
+Not ported yet (ROADMAP A.5): `dictionary_hashes` and string-key joins,
+and `dictionary_from_arrow` with the Parquet scan. The numpy constructor
+`dictionary_from_numpy` takes the scan's place.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from .column import (Column, StringColumn, _pad_np, bucket_capacity,
 
 __all__ = ["NULL_CODE", "DictionaryColumn", "dictionary_from_numpy",
            "dict_take", "literal_hits", "encoded_equal_literal",
-           "batch_has_encoded", "counters"]
+           "batch_has_encoded", "decoded_byte_bucket", "materialize_column",
+           "materialize_batch", "counters"]
 
 #: sentinel code for null/inactive rows, out of range for every dictionary
 NULL_CODE = -1
@@ -45,6 +51,8 @@ _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {
     "cols_encoded": 0,           # DictionaryColumns built at the scan seam
     "code_space_predicates": 0,  # predicates evaluated on int32 codes
+    "materializations": 0,       # columns decoded (one host read each)
+    "materialized_bytes": 0,     # byte buckets of the decoded columns
 }
 
 
@@ -94,6 +102,9 @@ class DictionaryColumn(Column):
     @property
     def dict_byte_capacity(self) -> int:
         return int(self.dict_data.shape[0])
+
+    def leaves(self) -> tuple:
+        return (self.codes, self.dict_data, self.dict_offsets, self.validity)
 
     def dict_view(self) -> StringColumn:
         """The dictionary itself as a StringColumn (every entry valid —
@@ -217,3 +228,37 @@ def encoded_equal_literal(col: DictionaryColumn, value) -> Column:
 
 def batch_has_encoded(batch) -> bool:
     return any(isinstance(c, DictionaryColumn) for c in batch.columns)
+
+
+# -- late materialization: the one decode chokepoint ------------------------
+
+def decoded_byte_bucket(col: DictionaryColumn) -> int:
+    """Byte bucket a full decode of `col` needs: one host read of the
+    byte total, so the decoded buffer is sized tight."""
+    dlens = col.dict_offsets[1:] - col.dict_offsets[:-1]
+    safe = torch.clamp(col.codes, 0, col.dict_capacity - 1).long()
+    total = torch.sum(torch.where(col.validity, dlens[safe], 0))
+    return bucket_capacity(max(int(total), 1))
+
+
+def materialize_column(col):
+    """Decode a DictionaryColumn into a full-width StringColumn: a row
+    gather of the dictionary by the code lane (NULL_CODE rows come out
+    invalid by the gather's -1 masking). Other columns pass through."""
+    if not isinstance(col, DictionaryColumn):
+        return col
+    byte_cap = decoded_byte_bucket(col)
+    from ..ops.basic import gather_column
+    out = gather_column(col.dict_view(), col.codes, out_valid=col.validity,
+                        out_byte_capacity=byte_cap)
+    _note(materializations=1, materialized_bytes=byte_cap)
+    return out
+
+
+def materialize_batch(batch):
+    """Decode every encoded column of a batch (identity when none is): the
+    JAX package's "boundary", "output" and "concat" seams."""
+    if not batch_has_encoded(batch):
+        return batch
+    return batch.with_columns([materialize_column(c)
+                               for c in batch.columns], batch.schema)

@@ -16,11 +16,17 @@ Exact tier (outside a scope, under force_exact, or `_spec_enabled`
 False): each source batch aggregates through
 ops/maskedagg.masked_groupby_exact (masked buckets, or the sort-based
 group-by when rows are left over) into a full-capacity partial; partials
-merge pairwise on the device (`_tree_merge_device`), MERGE_FAN_IN at a
-time, and big ones shrink to a tight bucket after one host read.
+are held as SpillableBatches and merge pairwise on the device
+(`_tree_merge_device`), MERGE_FAN_IN at a time, and big ones shrink to a
+tight bucket after one host read.
 
-Not ported yet: partial/final modes (ROADMAP A.2), spill and retry
-(ROADMAP A.4).
+Both tiers run each source batch as a SpillableBatch under
+`with_retry(..., split_in_half_by_rows)`, and the merge of the held
+partials under `with_retry` with a policy that splits the set of
+partials (memory/retry.py), as the JAX package does. The aggregate takes
+no dictionary-encoded input: its source decodes at its output boundary.
+
+Not ported yet: partial/final modes (ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, bucket_capacity
 from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
-from ..expr.predicates import (_string_free_subtree, encoded_safe_predicate,
-                               encoded_safe_projection)
+from ..memory.retry import split_in_half_by_rows, with_retry
+from ..memory.spillable import SpillableBatch
 from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
@@ -42,7 +48,8 @@ from ..ops.maskedagg import (
 )
 from ..types import Schema, StructField
 from .base import AGG_TIME, TpuExec
-from .basic import bind_projection, eval_projection, projection_schema
+from .basic import (bind_projection, eval_projection, projection_schema,
+                    run_spillable)
 from .speculation import current_scope, speculation_allowed
 
 #: buckets per round and rounds of the masked-bucket group-by (the JAX
@@ -109,24 +116,6 @@ class AggregateExec(TpuExec):
             self._scan_agg_spec = compile_scan_agg_spec(
                 self._fused_steps, self._pre_bound, self._pre_schema,
                 self._key_count, agg_op_slots, self._source.output_schema)
-
-    @property
-    def consumes_encoded(self) -> bool:
-        """Whether the absorbed chain takes dictionary-encoded input from
-        the source: every absorbed filter and projection evaluates in code
-        space, and the keys and aggregate inputs touch no string column
-        (aggregate state holds values, not codes). This diverges from
-        the JAX package, whose aggregate takes no encoded input: it
-        decodes at the source's boundary (late materialization). The
-        results are the same; the property goes when that seam is ported
-        (ROADMAP A.5)."""
-        for step in self._fused_steps:
-            if step[0] == "filter":
-                if not encoded_safe_predicate(step[1]):
-                    return False
-            elif not all(encoded_safe_projection(e) for e in step[1]):
-                return False
-        return all(_string_free_subtree(e) for e in self._pre_bound)
 
     def _make_buffer_schema(self) -> Schema:
         fields = list(self._pre_schema.fields[: self._key_count])
@@ -331,32 +320,84 @@ class AggregateExec(TpuExec):
     #: each) instead of holding full-size buckets in device memory
     SHRINK_THRESHOLD_CAP = 1 << 16
 
-    def _absorb_partial(self, aggregated: List[ColumnarBatch],
+    def _absorb_partial(self, aggregated: List[SpillableBatch],
                         out: ColumnarBatch) -> None:
         """Keep live partials bounded: big partials after the first shrink
         at once (the first is held as it is: a single-batch input pays no
-        host read), and every MERGE_FAN_IN partials merge into one."""
+        host read), every partial is held spillable, and every
+        MERGE_FAN_IN partials merge into one."""
         if out.capacity >= self.SHRINK_THRESHOLD_CAP and aggregated:
             out = self._shrink(out)
-        aggregated.append(out)
+        aggregated.append(SpillableBatch.from_batch(out))
         if len(aggregated) >= self.MERGE_FAN_IN:
-            aggregated[:] = [self._shrink(self._tree_merge_device(aggregated))]
+            merged = self._shrink(self._merge_all(list(aggregated)))
+            aggregated[:] = [SpillableBatch.from_batch(merged)]
+
+    def _merge_all(self, aggregated: List[SpillableBatch]) -> ColumnarBatch:
+        """Merge held partials on the device; under OOM the retry
+        framework splits the set of partials (a single one by rows) and
+        the halves' results merge again (merge ops are associative and
+        commutative)."""
+        extra_owned: List[SpillableBatch] = []
+
+        def split_set(items: List[SpillableBatch]):
+            if len(items) < 2:
+                halves = split_in_half_by_rows(items[0])
+                extra_owned.extend(halves)
+                return [[h] for h in halves]
+            half = len(items) // 2
+            return [items[:half], items[half:]]
+
+        def do(items: List[SpillableBatch]) -> ColumnarBatch:
+            batches: List[ColumnarBatch] = []
+            try:
+                for s in items:
+                    batches.append(s.get_batch())
+                return self._tree_merge_device(batches)
+            finally:
+                # an acquire that raised leaves the rest unpinned
+                for s in items[:len(batches)]:
+                    s.release()
+
+        try:
+            outs = list(with_retry(aggregated, do, split_policy=split_set))
+        finally:
+            for s in aggregated + extra_owned:
+                s.close()
+        if len(outs) == 1:
+            return outs[0]
+        return self._merge_all([SpillableBatch.from_batch(b) for b in outs])
 
     def _execute_exact(self) -> Iterator[ColumnarBatch]:
         agg_time = self.metrics[AGG_TIME]
-        aggregated: List[ColumnarBatch] = []
-        with agg_time.ns_timer():
-            for batch in self._source.execute():
-                self._absorb_partial(aggregated,
-                                     self._fused_update_exact(batch))
-            if not aggregated:
-                if self.group_exprs:
-                    return  # no input, no groups
-                # a grand aggregate over empty input still emits one row
-                empty = empty_batch(self._source.output_schema,
-                                    device=self._source.device)
-                aggregated.append(self._fused_update_exact(empty))
-            yield self._evaluate(self._tree_merge_device(aggregated))
+        aggregated: List[SpillableBatch] = []
+        try:
+            with agg_time.ns_timer():
+                for batch in self._source.execute():
+                    for out in run_spillable(batch,
+                                             self._fused_update_exact):
+                        self._absorb_partial(aggregated, out)
+                if not aggregated:
+                    if self.group_exprs:
+                        return  # no input, no groups
+                    # a grand aggregate over empty input emits one row
+                    empty = empty_batch(self._source.output_schema,
+                                        device=self._source.device)
+                    yield self._evaluate(self._fused_update_exact(empty))
+                    return
+                if len(aggregated) == 1:
+                    # a single partial already has unique keys
+                    only = aggregated.pop()
+                    merged = only.get_batch()
+                    only.release()
+                    only.close()
+                else:
+                    merged = self._merge_all(aggregated)
+                    aggregated.clear()
+            yield self._evaluate(merged)
+        finally:
+            for s in aggregated:
+                s.close()
 
     # -- drive -------------------------------------------------------------
     def encoded_inputs(self) -> Sequence[TpuExec]:
@@ -372,7 +413,8 @@ class AggregateExec(TpuExec):
     def _execute_speculative(self) -> Iterator[ColumnarBatch]:
         """One step per source batch folds into an O(1)-size device state;
         the overflow flag is recorded with the active scope, never read
-        here."""
+        here. A split input's halves fold one after the other; a retried
+        step starts again from the state before it."""
         agg_time = self.metrics[AGG_TIME]
         state = flag = evaluated = None
         with agg_time.ns_timer():
@@ -383,8 +425,11 @@ class AggregateExec(TpuExec):
                                         device=batch.device)
                     flag = torch.zeros((), dtype=torch.bool,
                                        device=batch.device)
-                state, flag, evaluated = self._streaming_step(
-                    batch, state, flag)
+                box = [state, flag, None]
+                for out in run_spillable(batch, lambda b: self._streaming_step(
+                        b, box[0], box[1])):
+                    box[:] = out
+                state, flag, evaluated = box
         if state is None:
             # no input: the exact tier gives the empty result (no groups,
             # or the one row of a grand aggregate)

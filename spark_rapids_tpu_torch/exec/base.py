@@ -13,7 +13,7 @@ from typing import Dict, Iterator, List, Sequence
 import torch
 
 from ..columnar.batch import ColumnarBatch
-from ..columnar.encoded import batch_has_encoded
+from ..columnar.encoded import materialize_batch
 from ..types import Schema
 
 NUM_OUTPUT_ROWS = "numOutputRows"
@@ -74,10 +74,10 @@ class TpuExec:
 
     #: stamped by the parent's execute() before this exec's first batch is
     #: pulled: whether encoded columns may cross this exec's output
-    #: boundary. Where they may not, the JAX package decodes them there
-    #: (late materialization); the port raises until that seam is ported
-    #: (ROADMAP A.5). The root of a plan is never stamped; collect() lets
-    #: its encoded batches out, since to_pylist decodes on the host.
+    #: boundary. Where they may not, they decode there (late
+    #: materialization, columnar/encoded.materialize_batch). The root of
+    #: a plan is never stamped, so execute() at the root decodes; collect()
+    #: lets its encoded batches out, since to_pylist decodes on the host.
     _encoded_ok_for_parent: bool = False
 
     def __init__(self, *children: "TpuExec"):
@@ -111,10 +111,12 @@ class TpuExec:
             c._encoded_ok_for_parent = self.consumes_encoded
 
     def execute(self) -> Iterator[ColumnarBatch]:
-        """Counts output rows around the operator's own iterator. When an
-        exception or an abandoned consumer unwinds through this frame, the
-        internal iterator is closed here, so its own finally blocks run
-        now rather than whenever the garbage collector gets to them."""
+        """Counts output rows around the operator's own iterator, and
+        decodes encoded columns at the boundary when the parent cannot
+        take them. When an exception or an abandoned consumer unwinds
+        through this frame, the internal iterator is closed here, so its
+        own finally blocks run now rather than whenever the garbage
+        collector gets to them."""
         return self._execute(self._encoded_ok_for_parent)
 
     def _execute(self, encoded_out: bool) -> Iterator[ColumnarBatch]:
@@ -123,12 +125,8 @@ class TpuExec:
         it = self.internal_execute()
         try:
             for batch in it:
-                if not encoded_out and batch_has_encoded(batch):
-                    raise NotImplementedError(
-                        f"{type(self).__name__} emits dictionary-encoded "
-                        f"columns to a consumer that cannot take them; late "
-                        f"materialization waits for a later slice (ROADMAP "
-                        f"A.5)")
+                if not encoded_out:
+                    batch = materialize_batch(batch)
                 if batch._host_rows is not None:
                     rows.add(batch._host_rows)
                 else:

@@ -1,7 +1,9 @@
 """Basic execs — the counterpart of the scan, filter and project execs of
 spark_rapids_tpu/exec/basic.py.
 
-Filter and project also offer `fused_step`: an AggregateExec absorbs the
+Filter and project run each input batch as a SpillableBatch under
+`with_retry(..., split_in_half_by_rows)` (memory/retry.py), as the JAX
+package's filter and project do. They also offer `fused_step`: an AggregateExec absorbs the
 chain above its source into its own per-batch step (whole-stage fusion),
 where the filter becomes a row mask and no intermediate column is
 compacted or materialized.
@@ -14,6 +16,8 @@ from typing import Iterator, List, Sequence
 from ..columnar.batch import ColumnarBatch
 from ..expr.core import Expression, output_name, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
+from ..memory.retry import split_in_half_by_rows, with_retry
+from ..memory.spillable import SpillableBatch
 from ..ops.basic import compact_columns, sanitize
 from ..types import Schema, StructField
 from .base import TpuExec
@@ -63,6 +67,25 @@ def eval_projection(bound: Sequence[Expression], batch: ColumnarBatch,
     return batch.with_columns(cols, schema)
 
 
+def run_spillable(batch: ColumnarBatch, step) -> Iterator:
+    """`step` over one input batch held as a SpillableBatch, retried and
+    split in halves by rows under OOM; one result per (sub-)input. The
+    aggregate and the sort drive their steps through it too."""
+    spillable = SpillableBatch.from_batch(batch)
+
+    def run(s: SpillableBatch) -> ColumnarBatch:
+        b = s.get_batch()
+        try:
+            return step(b)
+        finally:
+            s.release()
+    try:
+        yield from with_retry(spillable, run,
+                              split_policy=split_in_half_by_rows)
+    finally:
+        spillable.close()
+
+
 class ProjectExec(TpuExec):
     def __init__(self, exprs: Sequence[Expression], child: TpuExec):
         super().__init__(child)
@@ -82,7 +105,8 @@ class ProjectExec(TpuExec):
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():
-            yield eval_projection(self._bound, batch, self._schema)
+            yield from run_spillable(batch, lambda b: eval_projection(
+                self._bound, b, self._schema))
 
     def fused_step(self):
         """Whole-stage fusion hook: this operator as a pure step a consumer
@@ -108,11 +132,14 @@ class FilterExec(TpuExec):
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():
-            pred = self._bound.columnar_eval(batch)
-            # Spark: null predicate rows are dropped
-            keep = pred.data & pred.validity
-            cols, n = compact_columns(batch.columns, keep, batch.num_rows)
-            yield ColumnarBatch(cols, n, batch.schema)
+            yield from run_spillable(batch, self._filter)
+
+    def _filter(self, batch: ColumnarBatch) -> ColumnarBatch:
+        pred = self._bound.columnar_eval(batch)
+        # Spark: null predicate rows are dropped
+        keep = pred.data & pred.validity
+        cols, n = compact_columns(batch.columns, keep, batch.num_rows)
+        return ColumnarBatch(cols, n, batch.schema)
 
     def fused_step(self):
         """Fusion hook: in a fused stage the filter contributes a row MASK

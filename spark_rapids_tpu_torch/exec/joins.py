@@ -17,7 +17,11 @@ Per stream batch:
 
 Dictionary-encoded columns stay encoded through the join when the
 absorbed filters and the condition evaluate in code space
-(`consumes_encoded`). The JAX package picks between this fused route and
+(`consumes_encoded`). A build side of several batches decodes each batch
+before the concat (distinct dictionaries do not concatenate), as the JAX
+package does at its "concat" seam. Decoded string payloads gather into
+byte buckets sized by their measured join need, read with the candidate
+total. The JAX package picks between this fused route and
 an XLA expand-then-verify route by measurement; the port has the one
 route. Other join types and non-integer keys raise NotImplementedError
 (ROADMAP A.3).
@@ -30,8 +34,8 @@ from typing import Iterator, List, Optional, Sequence
 import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
-from ..columnar.column import Column, bucket_capacity
-from ..columnar.encoded import DictionaryColumn, batch_has_encoded
+from ..columnar.column import Column, StringColumn, bucket_capacity
+from ..columnar.encoded import DictionaryColumn, materialize_batch
 from ..expr.core import Expression, UnresolvedAttribute, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops import gather as G
@@ -41,6 +45,7 @@ from ..ops.join import BuildTable, int_key_lanes, probe_counts
 from ..ops.probe_verify import fused_probe_verify
 from ..ops.rowpack import unpack_rows
 from ..ops.sort import lexsort
+from ..ops.strings import string_lengths
 from ..types import Schema
 from .base import TpuExec
 from .basic import FilterExec, bind_projection
@@ -50,16 +55,46 @@ BUILD_TIME = "buildTime"
 JOIN_TIME = "joinTime"
 
 
+def _string_byte_needs(stream_columns, build: BuildTable, lo, counts,
+                       num_rows):
+    """The exact byte need of each string column of the join output, on
+    the device, in column order (stream side, then build payload). A
+    stream row is emitted count_i times among the candidates (plus at
+    most once more, the JAX package's outer-join tail); the build side's
+    need is the byte prefix sum over each row's candidate range."""
+    cnt = counts.to(torch.int64)
+    act = active_mask(num_rows, counts.shape[0])
+    needs = []
+    for c in stream_columns:
+        if isinstance(c, StringColumn):
+            lens = torch.where(act, string_lengths(c), 0).to(torch.int64)
+            needs.append(torch.sum(cnt * lens) + torch.sum(lens))
+    lo64 = lo.long()
+    for prefix in build.payload_prefix:
+        needs.append(torch.sum(prefix[lo64 + cnt] - prefix[lo64]))
+    return needs
+
+
+def _byte_caps(columns, needs) -> tuple:
+    """Per-column output byte bucket of the string columns (None for the
+    others), from fetched needs in column order."""
+    it = iter(needs)
+    return tuple(bucket_capacity(max(int(next(it)), 8))
+                 if isinstance(c, StringColumn) else None for c in columns)
+
+
 def concat_batches(batches: Sequence[ColumnarBatch],
                    schema: Schema) -> ColumnarBatch:
     """Concatenate batches' active rows on the device, pairwise into the
-    bucket of the capacities."""
+    bucket of the capacities (the host row count is kept when known)."""
     out = batches[0]
     for b in batches[1:]:
         cap = bucket_capacity(out.capacity + b.capacity)
         cols = [concat_columns(x, y, out.num_rows, b.num_rows, cap)
                 for x, y in zip(out.columns, b.columns)]
-        out = ColumnarBatch(cols, out.num_rows + b.num_rows, schema)
+        host = None if out._host_rows is None or b._host_rows is None \
+            else out._host_rows + b._host_rows
+        out = ColumnarBatch(cols, out.num_rows + b.num_rows, schema, host)
     return out
 
 
@@ -89,6 +124,8 @@ class HashJoinExec(TpuExec):
         # skip the per-batch sizing read
         self._size_cache = {}
         self._spec_uses = {}
+        # the same key -> the string columns' byte buckets
+        self._caps_cache = {}
         # an inner join emits matched rows only, so a child filter on
         # either side becomes a key-validity mask (an invalid key never
         # matches) instead of a compaction
@@ -181,12 +218,10 @@ class HashJoinExec(TpuExec):
         child = self.children[b]
         with self.metrics[BUILD_TIME].ns_timer():
             batches = list(child.execute())
-            if len(batches) > 1 and any(map(batch_has_encoded, batches)):
-                # distinct per-batch dictionaries do not concatenate; the
-                # JAX package decodes them first
-                raise NotImplementedError(
-                    "a build side of several dictionary-encoded batches "
-                    "needs late materialization (ROADMAP A.5)")
+            if len(batches) > 1:
+                # distinct per-batch dictionaries do not concatenate:
+                # decode first; a single batch stays encoded
+                batches = [materialize_batch(b) for b in batches]
             batch = concat_batches(batches, child.output_schema) \
                 if batches else empty_batch(child.output_schema,
                                             device=child.device)
@@ -218,7 +253,11 @@ class HashJoinExec(TpuExec):
                                      stream_batch.capacity)
         return lo, counts, skey_cols, torch.sum(counts, dtype=torch.int64)
 
-    def _candidate_capacity(self, key, total_dev) -> int:
+    def _candidate_capacity(self, key, total_dev, needs=(), columns=()):
+        """The candidate bucket, and the byte buckets of the string
+        columns in `columns` (stream side, then build payload) from their
+        device `needs`: cached inside a speculation scope, with a device
+        flag for outgrowing them; else measured by one host read."""
         from .speculation import current_scope, speculation_allowed
         cached = self._size_cache.get(key)
         if cached is not None and speculation_allowed():
@@ -230,28 +269,47 @@ class HashJoinExec(TpuExec):
                 self._spec_uses[key] = 0
                 cached = None
         if cached is not None and speculation_allowed():
-            # speculative sizing: reuse the bucket, let the scope re-run
-            # the plan exactly if this batch outgrew it
-            current_scope().record(total_dev > cached)
-            return cached
-        cand_cap = bucket_capacity(max(int(total_dev), 1))  # host read
+            # speculative sizing: reuse the buckets, let the scope re-run
+            # the plan exactly if this batch outgrew them
+            caps = self._caps_cache.get(key, ())
+            flag = total_dev > cached
+            for need, cap in zip(needs, [c for c in caps if c is not None]):
+                flag = flag | (need > cap)
+            current_scope().record(flag)
+            return cached, caps
+        # one host read of the total and the byte needs
+        fetched = torch.stack([total_dev] + list(needs)).tolist() \
+            if needs else [int(total_dev)]
+        cand_cap = bucket_capacity(max(fetched[0], 1))
+        caps = _byte_caps(columns, fetched[1:])
         if cached is not None:
-            cand_cap = max(cand_cap, cached)  # monotone while cached
+            # monotone while cached
+            cand_cap = max(cand_cap, cached)
+            caps = tuple(None if c is None else max(c, o)
+                         for c, o in zip(caps, self._caps_cache[key]))
         self._size_cache[key] = cand_cap
-        return cand_cap
+        self._caps_cache[key] = caps
+        return cand_cap, caps
 
     def _probe_one(self, build: BuildTable, stream_batch: ColumnarBatch
                    ) -> ColumnarBatch:
         lo, counts, skey_cols, total_dev = self._counts_kernel(
             build, stream_batch)
-        cand_cap = self._candidate_capacity(
-            (stream_batch.capacity, build.capacity), total_dev)
+        columns = list(stream_batch.columns) + list(build.payload)
+        needs = _string_byte_needs(stream_batch.columns, build, lo, counts,
+                                   stream_batch.num_rows) \
+            if any(isinstance(c, StringColumn) for c in columns) else []
+        cand_cap, caps = self._candidate_capacity(
+            (stream_batch.capacity, build.capacity), total_dev, needs,
+            columns)
+        n_s = len(stream_batch.columns)
         return self._probe_kernel(build, stream_batch, lo, counts,
-                                  skey_cols, total_dev, cand_cap)
+                                  skey_cols, total_dev, cand_cap,
+                                  caps[:n_s], caps[n_s:])
 
     def _probe_kernel(self, build: BuildTable, stream_batch: ColumnarBatch,
-                      lo, counts, skey_cols, total_dev, cand_cap: int
-                      ) -> ColumnarBatch:
+                      lo, counts, skey_cols, total_dev, cand_cap: int,
+                      s_caps=(), b_caps=()) -> ColumnarBatch:
         plan_p, pmat_b, pfmat_b, ppi, poi = build.pack
         sk = int_key_lanes(skey_cols)
         bk_lanes, bvalid = build.key_lanes
@@ -265,7 +323,7 @@ class HashJoinExec(TpuExec):
             cand_cap)
         if self._cond_bound is not None:
             verified = verified & self._eval_condition(
-                build, stream_batch, s_idx, b_row)
+                build, stream_batch, s_idx, b_row, s_caps, b_caps)
 
         # key-grouped emission: verified pairs first, equal join keys
         # contiguous (any consistent total order over the key bits groups
@@ -299,15 +357,17 @@ class HashJoinExec(TpuExec):
         if poi:
             b_map = torch.where(from_pairs, g[:, 2], -1)
             for j in poi:
-                bcols[j] = gather_column(build.payload[j], b_map)
+                bcols[j] = gather_column(
+                    build.payload[j], b_map,
+                    out_byte_capacity=b_caps[j] if b_caps else None)
         scols = G.gather_batch_columns(stream_batch.columns, s_map,
-                                       num_rows=n_pairs)
+                                       num_rows=n_pairs, byte_caps=s_caps)
         left, right = (scols, bcols) if self.build_side == "right" \
             else (bcols, scols)
         return ColumnarBatch(left + right, n_pairs, self.output_schema)
 
     def _eval_condition(self, build: BuildTable, stream_batch: ColumnarBatch,
-                        s_idx, b_row) -> torch.Tensor:
+                        s_idx, b_row, s_caps=(), b_caps=()) -> torch.Tensor:
         """The residual condition over the candidate pairs: a pair batch
         of both sides' columns gathered at (stream_idx, build_row), in
         candidate-slot order; slots past the total (-1) come out null and
@@ -315,8 +375,12 @@ class HashJoinExec(TpuExec):
         cand_cap = s_idx.shape[0]
         # per column, as the JAX package gathers them: a packed gather
         # would pack every stream row to move a bucket of candidates
-        scols = [gather_column(c, s_idx) for c in stream_batch.columns]
-        bcols = [gather_column(c, b_row) for c in build.payload]
+        s_caps = s_caps or (None,) * len(stream_batch.columns)
+        b_caps = b_caps or (None,) * len(build.payload)
+        scols = [gather_column(c, s_idx, out_byte_capacity=bc)
+                 for c, bc in zip(stream_batch.columns, s_caps)]
+        bcols = [gather_column(c, b_row, out_byte_capacity=bc)
+                 for c, bc in zip(build.payload, b_caps)]
         left, right = (scols, bcols) if self.build_side == "right" \
             else (bcols, scols)
         pair = ColumnarBatch(left + right, cand_cap, self.output_schema)

@@ -1,11 +1,20 @@
 """SortExec and TopNExec — the counterpart of spark_rapids_tpu/exec/sort.py
-with in-memory runs.
+(reference GpuSortExec's per-batch sort, GpuOutOfCoreSortIterator's
+spill-backed merge, and GpuTopN).
 
 Each input batch sorts with one stable lexicographic sort over its
-order-key lanes (ops/sort.py) and one packed row gather; several runs
-concatenate on the device and sort once more. With a `limit` each sorted
-run keeps its first `limit` rows in a bucket of that size. The
-out-of-core merge of spilled runs waits for ROADMAP A.4.
+order-key lanes (ops/sort.py) and one packed row gather, under
+`with_retry` (split in halves by rows), and the sorted run is held as a
+SpillableBatch. A small merge concatenates the runs and sorts once more,
+under `with_retry_no_split`. With more runs than MERGE_FAN_IN and no
+limit the merge is out of core: the runs stay spillable, and a streamed
+k-way merge keeps only one chunk per run on the device, emits every row
+that is provably final (lexicographically <= the smallest last row of the
+runs that still have chunks to load, compared on the sort's own order-key
+lanes), and holds the merged chunks of an intermediate pass spillable.
+The device footprint is bounded by the fan-in times the chunk size,
+whatever the input size. With a `limit` (TopNExec) each sorted run keeps
+its first `limit` rows, and the merge stays in memory.
 """
 
 from __future__ import annotations
@@ -17,13 +26,44 @@ import torch
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import bucket_capacity
 from ..expr.core import BoundReference, resolve
-from ..ops.basic import sanitize, slice_rows
-from ..ops.sort import SortOrder, sort_batch_columns
+from ..memory.retry import with_retry_no_split
+from ..memory.spillable import SpillableBatch
+from ..ops.basic import active_mask, sanitize, slice_rows
+from ..ops.sort import SortOrder, order_key_lanes, sort_batch_columns
 from ..types import Schema
 from .base import TpuExec
+from .basic import run_spillable
 from .joins import concat_batches
 
 SORT_TIME = "sortTime"
+#: passes of the out-of-core merge, the last (streamed to the consumer)
+#: included
+MERGE_PASSES = "mergePasses"
+#: host reads of the out-of-core merge: one per round of loaded chunks
+MERGE_HOST_READS = "mergeHostReads"
+
+#: spark.rapids.sql.sort.outOfCore.enabled
+SORT_OOC_ENABLED = True
+
+
+def _lex_leq(lanes: List[torch.Tensor], bound: List[torch.Tensor]):
+    """Per row: lane tuple <= bound tuple (lexicographic, on the device)."""
+    less = torch.zeros(lanes[0].shape, dtype=torch.bool,
+                       device=lanes[0].device)
+    eq = torch.ones_like(less)
+    for lane, b in zip(lanes, bound):
+        less = less | (eq & (lane < b))
+        eq = eq & (lane == b)
+    return less | eq
+
+
+def _lex_less_scalar(a: List[torch.Tensor], b: List[torch.Tensor]):
+    less = torch.zeros((), dtype=torch.bool, device=a[0].device)
+    eq = torch.ones_like(less)
+    for x, y in zip(a, b):
+        less = less | (eq & (x < y))
+        eq = eq & (x == y)
+    return less
 
 
 def resolve_sort_orders(orders: Sequence, schema: Schema) -> List[SortOrder]:
@@ -44,7 +84,31 @@ def resolve_sort_orders(orders: Sequence, schema: Schema) -> List[SortOrder]:
     return out
 
 
+def _close_all(spillables) -> None:
+    for s in spillables:
+        s.close()
+
+
+def _take(s: SpillableBatch) -> ColumnarBatch:
+    """The batch of `s` on the device, and `s` closed. The promotion runs
+    under the retry lane: under the catalog lock an unspill cannot wait
+    for the writer to free the budget, so it raises TpuRetryOOM until the
+    writeback has landed (the JAX package loads without a retry here)."""
+    def load(x: SpillableBatch) -> ColumnarBatch:
+        b = x.get_batch()
+        x.release()
+        return b
+    try:
+        return with_retry_no_split(s, load)
+    finally:
+        s.close()
+
+
 class SortExec(TpuExec):
+    #: runs merged per streaming pass; the device holds about
+    #: 2 x MERGE_FAN_IN chunks of the runs' capacity
+    MERGE_FAN_IN = 8
+
     def __init__(self, orders: Sequence, child: TpuExec,
                  limit: Optional[int] = None):
         super().__init__(child)
@@ -56,7 +120,7 @@ class SortExec(TpuExec):
         return self.child.output_schema
 
     def additional_metrics(self):
-        return (SORT_TIME,)
+        return (SORT_TIME, MERGE_PASSES, MERGE_HOST_READS)
 
     def _sort_one(self, batch: ColumnarBatch) -> ColumnarBatch:
         cols, _ = sort_batch_columns(batch.columns, self.orders,
@@ -75,17 +139,184 @@ class SortExec(TpuExec):
         return ColumnarBatch(cols, n, batch.schema)
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
-        with self.metrics[SORT_TIME].ns_timer():
-            runs = [self._sort_one(b) for b in self.child.execute()]
+        runs: List[SpillableBatch] = []
+        try:
+            with self.metrics[SORT_TIME].ns_timer():
+                for batch in self.child.execute():
+                    for sorted_batch in run_spillable(batch, self._sort_one):
+                        runs.append(SpillableBatch.from_batch(sorted_batch))
             if not runs:
                 return
-            out = runs[0] if len(runs) == 1 else self._sort_one(
-                concat_batches(runs, self.output_schema))
-        yield out
+            if len(runs) == 1:
+                yield _take(runs.pop())
+                return
+            if (self.limit is None and len(runs) > self.MERGE_FAN_IN
+                    and SORT_OOC_ENABLED):
+                lists = [[r] for r in runs]
+                runs.clear()
+                yield from self._merge_out_of_core(lists)
+                return
+            merge, runs = runs, []
+            with self.metrics[SORT_TIME].ns_timer():
+                out = self._merge(merge)
+            yield out
+        finally:
+            _close_all(runs)
+
+    def _merge(self, runs: List[SpillableBatch]) -> ColumnarBatch:
+        """Small merge: concatenate every run and sort once (a split
+        escalates: the runs are already the split unit)."""
+        def do(items):
+            batches: List[ColumnarBatch] = []
+            try:
+                for s in items:
+                    batches.append(s.get_batch())
+                return self._sort_one(
+                    concat_batches(batches, self.output_schema))
+            finally:
+                # an acquire that raised leaves the rest unpinned
+                for s in items[:len(batches)]:
+                    s.release()
+        try:
+            return with_retry_no_split(runs, do)
+        finally:
+            _close_all(runs)
+
+    def _merge_out_of_core(self, run_lists: List[List[SpillableBatch]]
+                           ) -> Iterator[ColumnarBatch]:
+        """Multi-pass streamed merge: each pass merges groups of
+        MERGE_FAN_IN runs into spillable chunks; the last pass streams to
+        the consumer. On error, or when the consumer abandons the merge,
+        every spillable left is closed."""
+        fan = self.MERGE_FAN_IN
+        passes = self.metrics[MERGE_PASSES]
+        live: List[List[SpillableBatch]] = run_lists
+        nxt: List[List[SpillableBatch]] = []
+        try:
+            while len(live) > fan:
+                passes.add(1)
+                nxt = []
+                for g in range(0, len(live), fan):
+                    group = live[g:g + fan]
+                    if len(group) == 1:
+                        nxt.append(group[0])
+                        continue
+                    merged: List[SpillableBatch] = []
+                    nxt.append(merged)
+                    for b in self._stream_merge(group):
+                        merged.append(SpillableBatch.from_batch(b))
+                live, nxt = nxt, []
+            passes.add(1)
+            if len(live) == 1:
+                while live[0]:
+                    yield _take(live[0].pop(0))
+                return
+            yield from self._stream_merge(live)
+        finally:
+            for r in live + nxt:
+                _close_all(r)
+
+    def _stream_merge(self, queues: List[List[SpillableBatch]]
+                      ) -> Iterator[ColumnarBatch]:
+        """Streamed k-way merge of sorted chunked runs.
+
+        A row may be emitted once it is lexicographically <= the last
+        loaded row of every run that still has chunks to load: any later
+        row of such a run is >= its loaded last row. Each head keeps its
+        unemitted suffix on the device; emptied heads load their run's
+        next chunk. One host read (the heads' emit counts) per round.
+        The run lists are consumed in place, so an abandoned or failed
+        merge leaves exactly the unconsumed spillables to the caller."""
+        reads = self.metrics[MERGE_HOST_READS]
+        heads: List[Optional[ColumnarBatch]] = [None] * len(queues)
+        # merged chunks are cut to the input chunk bucket, so the chunk
+        # size (and the memory bound) stays the same across passes
+        chunk_cap = max((bucket_capacity(max(s.num_rows, 1))
+                         for q in queues for s in q), default=128)
+
+        def emit(batch: ColumnarBatch) -> Iterator[ColumnarBatch]:
+            n = batch.num_rows_host
+            if n <= chunk_cap:
+                yield batch
+                return
+            for start in range(0, n, chunk_cap):
+                m = min(chunk_cap, n - start)
+                yield ColumnarBatch([slice_rows(c, start, m, chunk_cap)
+                                     for c in batch.columns], m,
+                                    batch.schema)
+
+        def lanes_of(h: ColumnarBatch):
+            # without the activity lane
+            return [lane for lane, _ in order_key_lanes(
+                h.columns, self.orders, h.num_rows, h.capacity)[1:]]
+
+        lane_cache: dict = {}
+        while True:
+            for i, q in enumerate(queues):
+                if heads[i] is None and q:
+                    heads[i] = _take(q.pop(0))
+                    lane_cache.pop(i, None)
+            live = [i for i, h in enumerate(heads) if h is not None]
+            if not live:
+                return
+            constrainers = [i for i in live if queues[i]]
+            if not constrainers:
+                # everything is loaded: one final merge of the heads
+                batches = [heads[i] for i in live]
+                merged = concat_batches(batches, self.output_schema) \
+                    if len(batches) > 1 else batches[0]
+                yield from emit(self._sort_one(merged))
+                return
+            for i in live:
+                if i not in lane_cache:
+                    lane_cache[i] = lanes_of(heads[i])
+            # the bound: the lexicographic min of the constrainers' last
+            # rows
+            bound = None
+            for i in constrainers:
+                last = heads[i].num_rows_host - 1
+                b = [lane[last] for lane in lane_cache[i]]
+                if bound is None:
+                    bound = b
+                else:
+                    take = _lex_less_scalar(b, bound)
+                    bound = [torch.where(take, x, y)
+                             for x, y in zip(b, bound)]
+            counts = []
+            for i in live:
+                h = heads[i]
+                leq = _lex_leq(lane_cache[i], bound) \
+                    & active_mask(h.num_rows, h.capacity)
+                counts.append(torch.sum(leq, dtype=torch.int32))
+            fetched = torch.stack(counts).tolist()  # the round's host read
+            reads.add(1)
+            parts: List[ColumnarBatch] = []
+            for i, cnt in zip(live, fetched):
+                h = heads[i]
+                n = h.num_rows_host
+                if cnt > 0:
+                    cap = bucket_capacity(max(cnt, 1))
+                    parts.append(ColumnarBatch(
+                        [slice_rows(c, 0, cnt, cap) for c in h.columns],
+                        cnt, h.schema))
+                if cnt >= n:
+                    heads[i] = None  # fully emitted: load the next chunk
+                    lane_cache.pop(i, None)
+                elif cnt > 0:
+                    rest = n - cnt
+                    cap = bucket_capacity(max(rest, 1))
+                    heads[i] = ColumnarBatch(
+                        [slice_rows(c, cnt, rest, cap) for c in h.columns],
+                        rest, h.schema)
+                    lane_cache.pop(i, None)
+            if parts:
+                merged = concat_batches(parts, self.output_schema) \
+                    if len(parts) > 1 else parts[0]
+                yield from emit(self._sort_one(merged))
 
 
 class TopNExec(SortExec):
-    """Sort + limit per batch; the merge keeps `limit` rows."""
+    """Sort + limit per batch; the merge keeps `limit` rows in memory."""
 
     def __init__(self, limit: int, orders: Sequence, child: TpuExec,
                  offset: int = 0):

@@ -5,7 +5,9 @@ Conventions carried over from the JAX package:
     device scalar, so no op here synchronises with the host;
   * rows with index >= num_rows are "inactive": validity False, data zero
     (a DictionaryColumn's code NULL_CODE); a dictionary column's gathers
-    move its codes only, and its dictionary rides along untouched.
+    move its codes only, and its dictionary rides along untouched;
+  * a StringColumn gathers through ops/strings.gather_string, into the
+    caller's byte capacity.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
 from ..columnar.encoded import NULL_CODE, DictionaryColumn
 
 
@@ -32,6 +34,9 @@ def sanitize(col: Column, num_rows) -> Column:
         codes = torch.where(act, col.codes, NULL_CODE)
         return DictionaryColumn(codes, col.dict_data, col.dict_offsets,
                                 col.validity & act, col.dtype)
+    if isinstance(col, StringColumn):
+        return StringColumn(col.data, col.offsets, col.validity & act,
+                            col.dtype)
     data = torch.where(act, col.data, torch.zeros_like(col.data))
     return Column(data, col.validity & act, col.dtype)
 
@@ -40,7 +45,12 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
                    out_capacity: int) -> Column:
     """Concatenate two columns' active rows (the coalesce primitive).
 
-    out_capacity must be >= a_rows + b_rows in the worst case."""
+    out_capacity must be >= a_rows + b_rows in the worst case. Two
+    dictionary columns concatenate only as views of one dictionary;
+    distinct dictionaries are decoded first (`materialize_batch`)."""
+    if isinstance(a, StringColumn):
+        from .strings import concat_string
+        return concat_string(a, b, a_rows, b_rows, out_capacity)
     idx = torch.arange(out_capacity, dtype=torch.int32, device=a.device)
     from_b = idx >= a_rows
     b_idx = idx - a_rows
@@ -51,21 +61,32 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
         y_safe = torch.clamp(b_idx, 0, y.shape[0] - 1).long()
         return torch.where(from_b, y[y_safe], x[x_safe])
 
+    if isinstance(a, DictionaryColumn):
+        if not (isinstance(b, DictionaryColumn)
+                and a.dict_data is b.dict_data
+                and a.dict_offsets is b.dict_offsets):
+            raise ValueError("concat of distinct dictionaries: "
+                             "materialize first")
+        valid = cat(a.validity, b.validity) & out_valid
+        codes = torch.where(out_valid, cat(a.codes, b.codes), NULL_CODE)
+        return DictionaryColumn(codes, a.dict_data, a.dict_offsets, valid,
+                                a.dtype)
     data = cat(a.data, b.data)
     valid = cat(a.validity, b.validity) & out_valid
     data = torch.where(out_valid, data, torch.zeros_like(data))
     return Column(data, valid, a.dtype)
 
 
-def gather_column(col: Column, indices: torch.Tensor,
-                  out_valid=None) -> Column:
+def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
+                  out_byte_capacity=None) -> Column:
     """Gather rows by int32 indices; the index length is the output
     capacity. `out_valid` masks output rows; out-of-range indices give
-    invalid rows."""
+    invalid rows. `out_byte_capacity` is a string column's output byte
+    bucket (default: its input's)."""
     from .gather import record
     encoded = isinstance(col, DictionaryColumn)
     record(1, nbytes=indices.shape[0]
-           * (4 if encoded else col.data.element_size()))
+           * (col.data.element_size() if type(col) is Column else 4))
     in_range = (indices >= 0) & (indices < col.capacity)
     safe = torch.where(in_range, indices, torch.zeros_like(indices)).long()
     valid = col.validity[safe] & in_range
@@ -75,6 +96,9 @@ def gather_column(col: Column, indices: torch.Tensor,
         codes = torch.where(valid, col.codes[safe], NULL_CODE)
         return DictionaryColumn(codes, col.dict_data, col.dict_offsets,
                                 valid, col.dtype)
+    if isinstance(col, StringColumn):
+        from .strings import gather_string
+        return gather_string(col, safe, valid, out_byte_capacity)
     data = torch.where(valid, col.data[safe],
                        torch.zeros((), dtype=col.data.dtype,
                                    device=col.device))

@@ -76,10 +76,11 @@ def gather_lane_matrix(mat, idx):
 
 
 def gather_batch_columns(columns: Sequence, idx, num_rows=None,
-                         out_valid=None) -> List:
+                         out_valid=None, byte_caps=()) -> List:
     """Gather a batch's columns by an index map. `num_rows` masks output
     slots >= num_rows; `out_valid` masks by predicate; indices already
-    -1-masked pass neither."""
+    -1-masked pass neither. `byte_caps` holds each string column's output
+    byte bucket (None or absent: its input's)."""
     from .basic import active_mask, gather_column
     from .rowpack import pack_rows, split_packable, unpack_rows
     midx = idx
@@ -98,5 +99,7 @@ def gather_batch_columns(columns: Sequence, idx, num_rows=None,
     else:
         o_idx = sorted(p_idx + o_idx)
     for j in o_idx:
-        out[j] = gather_column(columns[j], midx)
+        out[j] = gather_column(columns[j], midx,
+                               out_byte_capacity=byte_caps[j]
+                               if byte_caps else None)
     return out

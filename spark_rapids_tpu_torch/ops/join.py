@@ -102,7 +102,8 @@ class BuildTable:
 
     def __init__(self, bucket_table, perm, valid_count, num_rows,
                  key_cols: Sequence[Column], payload: Sequence[Column],
-                 capacity: int, pair_table, pack, key_lanes):
+                 capacity: int, pair_table, pack, key_lanes,
+                 payload_prefix=()):
         self.bucket_table = bucket_table  # (2^B + 1,) int32 offsets
         self.perm = perm                  # sorted position -> build row
         self.valid_count = valid_count
@@ -119,6 +120,9 @@ class BuildTable:
         # (int32 (capacity, L) lanes, bool validity) in sorted order, or
         # None for keys that are not integer-like
         self.key_lanes = key_lanes
+        # per string payload column: int64 (capacity + 1,) prefix sums of
+        # its row byte lengths in sorted order (the join's byte needs)
+        self.payload_prefix = tuple(payload_prefix)
 
     @staticmethod
     def build(key_cols: Sequence[Column], payload: Sequence[Column],
@@ -173,16 +177,26 @@ class BuildTable:
             lanes, kvalid = kl
             p = perm.long()
             key_lanes = (lanes[p], kvalid[p])
+        from ..columnar.column import StringColumn
+        from .strings import string_lengths
+        p = perm.long()
+        prefix = [torch.cat([torch.zeros(1, dtype=torch.int64,
+                                         device=perm.device),
+                             torch.cumsum(string_lengths(c)[p], 0,
+                                          dtype=torch.int64)])
+                  for c in payload if isinstance(c, StringColumn)]
         return BuildTable(bucket_table, perm, valid_count, num_rows,
                           key_cols, payload, capacity, pair_table, pack,
-                          key_lanes)
+                          key_lanes, prefix)
 
 
 def is_gatherable(col: Column) -> bool:
-    """A column ops/basic.gather_column moves: fixed-width, or a
-    dictionary column (its codes)."""
+    """A column ops/basic.gather_column moves: fixed-width, a dictionary
+    column (its codes) or a string column."""
+    from ..columnar.column import StringColumn
     from ..columnar.encoded import DictionaryColumn
-    return type(col) is Column or isinstance(col, DictionaryColumn)
+    return type(col) is Column or isinstance(col, (DictionaryColumn,
+                                                   StringColumn))
 
 
 def probe_counts(build: BuildTable, stream_keys: Sequence[Column],

@@ -158,14 +158,24 @@ def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
                        num_rows, capacity: int
                        ) -> Tuple[List[Column], torch.Tensor]:
     """Sort all columns of a batch; returns (sorted columns, permutation).
-    The columns move by one packed row gather through the gather engine
-    (the JAX package carries them as extra operands of its sort)."""
+    The fixed-width columns move by one packed row gather through the
+    gather engine (the JAX package carries them as extra operands of its
+    sort); a string or dictionary column is gathered by the permutation
+    on its own."""
+    from .basic import gather_column
     from .gather import gather_rows
-    from .rowpack import pack_rows, unpack_rows
+    from .rowpack import pack_rows, split_packable, unpack_rows
     perm = sort_permutation(columns, orders, num_rows, capacity)
-    plan, imat, fmat = pack_rows(columns)
-    gi, gf = gather_rows(plan, imat, fmat, perm)
-    return unpack_rows(plan, gi, gf), perm
+    p_idx, o_idx = split_packable(columns)
+    out: List = [None] * len(columns)
+    if p_idx:
+        plan, imat, fmat = pack_rows([columns[i] for i in p_idx])
+        gi, gf = gather_rows(plan, imat, fmat, perm)
+        for j, c in zip(p_idx, unpack_rows(plan, gi, gf)):
+            out[j] = c
+    for j in o_idx:
+        out[j] = gather_column(columns[j], perm.to(torch.int32))
+    return out, perm
 
 
 def group_segment_ids(key_columns: Sequence[Column], num_rows,

@@ -19,6 +19,7 @@ from spark_rapids_tpu.columnar.batch import ColumnarBatch as JBatch
 from spark_rapids_tpu.columnar.column import Column as JColumn
 from spark_rapids_tpu.columnar.column import StringColumn as JString
 from spark_rapids_tpu.exec import basic as jbasic
+from spark_rapids_tpu.exec import sort as jsortexec
 from spark_rapids_tpu.expr import arithmetic as jarith
 from spark_rapids_tpu.expr import core as jcore
 from spark_rapids_tpu.expr import predicates as jpred
@@ -272,17 +273,25 @@ def test_filter_keeps_columns_encoded_and_collect_decodes():
     out = list(tplan.collect())
     assert out == [tuple(r) for r in plan(jb, JP, jbasic).collect()]
     assert len(out) > 100
-    # under a consumer that cannot take encoded columns the port raises
-    # (late materialization is not ported) where the JAX package decodes
-    sort = tsortexec.SortExec([(tcore.col("q"), True, None)],
-                              plan(tb, TP, tbasic))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        list(sort.execute())
+    # under a consumer that cannot take encoded columns both packages
+    # decode at the filter's output boundary: the sort sees strings and
+    # emits them in the same order (nulls first, ties by input order)
+    def sort(b, p, basic, sortexec):
+        return sortexec.SortExec([(p["core"].col("q"), True, None)],
+                                 plan(b, p, basic))
+
+    tsorted = list(sort(tb, TP, tbasic, tsortexec).execute())
+    assert all(isinstance(c, TString) for c in tsorted[0].columns[:2])
+    assert [r for b in tsorted for r in b.to_pylist()] == \
+        [tuple(r) for b in sort(jb, JP, jbasic, jsortexec).execute()
+         for r in b.to_pylist()]
     # a pass-through projection takes the filter's encoded output, and
     # so does collect(), which decodes on the host; execute() at the root
-    # raises instead of handing encoded columns to an unknown consumer
+    # decodes at the boundary instead of handing encoded columns to an
+    # unknown consumer
     proj = tbasic.ProjectExec([tcore.col("m")], tplan)
     assert proj.collect() == [(r[0],) for r in out]
     assert tplan._encoded_ok_for_parent
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        list(tbasic.ProjectExec([tcore.col("m")], tplan).execute())
+    root = list(tbasic.ProjectExec([tcore.col("m")], tplan).execute())
+    assert isinstance(root[0].columns[0], TString)
+    assert [r for b in root for r in b.to_pylist()] == [(r[0],) for r in out]

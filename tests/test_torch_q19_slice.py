@@ -116,14 +116,18 @@ def test_q19_plan_shape():
     plan = cs.q19_plan(cs.port_modules(), tl, tp)
     join = plan._source
     # the join absorbed both filters as key masks and keeps the strings
-    # encoded; the aggregate absorbed the projection and reads the join
+    # encoded; the aggregate absorbed the projection and reads the join,
+    # whose output decodes at the boundary, as in the JAX package
     assert type(join).__name__ == "HashJoinExec"
     assert [type(c).__name__ for c in join.children] == \
         ["InMemoryScanExec", "InMemoryScanExec"]
     assert [s[0] for s in plan._fused_steps] == ["project"]
-    assert join.consumes_encoded and plan.consumes_encoded
+    assert join.consumes_encoded and not plan.consumes_encoded
+    before = tenc.counters()["materializations"]
     rows = plan.collect()
-    assert join._encoded_ok_for_parent
+    assert not join._encoded_ok_for_parent
+    # the four string columns of the join's one output batch
+    assert tenc.counters()["materializations"] - before == 4
     rev = cs.q19_oracle(d)[0]
     if rev is None:
         assert rows == [(None,)]
