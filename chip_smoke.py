@@ -70,7 +70,20 @@ fails the run on error:
      and leave the catalog empty; P3, a SortExec over q3's lineitems as
      32 batches of 65,536 rows by l_orderkey ASC, l_price DESC, out of
      core in two merge passes under the same budget rule, equal to
-     np.lexsort's order, catalog empty;
+     np.lexsort's order, catalog empty. Then the scan ingest path, read
+     with collect() (its output fetched in one packed device->host copy
+     a batch): P4, q3 from host data (HostSource: each step builds one
+     batch of host columns from numpy and uploads it in one packed copy)
+     through two SourceScanExecs, the lineitems as 16 batches of 131,072
+     rows and the orders as 4, the admission semaphore at 2 permits, at
+     pipeline depth 0 and 2: each equal to q3's oracle, the two depths'
+     rows bit-identical, 20 uploads in 20 transfers and one fetch, the
+     launches of the same plan over the same batches built on the card
+     (counted in the same run), no permit held and the catalog
+     empty after; P5, Q19 at SF1 from host data, one batch a table with
+     its four DictionaryColumns packed as codes, validity, dictionary
+     bytes and offsets, at depth 2: equal to q19_oracle, 2 uploads, one
+     fetch, the launches of phase 3's q19;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -87,19 +100,26 @@ fails the run on error:
      (device_ms). Also P2's and P3's ms per iteration under their
      budgets, Q19's decode counters per iteration, and the spill lane's
      rates on the full lineitem batch: the copy into pinned memory, the
-     disk write and read, and the copy back to the card.
+     disk write and read, and the packed copy back to the card
+     (upload_leaves). Then P4's ms per iteration at depth 0 and 2 in
+     turns (no staging-pool miss may follow P4's first iteration) and
+     P5's; a fresh and a cached pinned allocation of Q19's staging
+     bucket; and on one q3 lineitem batch and Q19's lineitem batch the
+     host pack's GB/s, the copy's GB/s, the whole packed upload's ms and
+     a per-buffer build's ms (from_numpy_columns, or the Q19 columns
+     built on the card buffer by buffer).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
 
-The last lines are a JSON line with the records of P1-P3 and the spill
-rates, a JSON line with one record per ported kernel (the
+The last lines are a JSON line with the records of P1-P5, the spill
+rates and the ingest rates, a JSON line with one record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
 "shapes", the murmur3 chain's three sites under "sites", and each
-kernel's launches on P1-P3 under "path_launches"), the card as
+kernel's launches on P1-P5 under "path_launches"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -499,30 +519,80 @@ def q3_batches(d, dev, schema, n, parts=1):
         for f in schema.fields], step, schema) for i in range(0, n, step)]
 
 
-def q3_plan(d, dev, key_type, line_batches=1):
-    """bench.py make_q3_plan, in the port (the operator tree); the
-    lineitems fed as `line_batches` batches of equal size."""
-    from spark_rapids_tpu_torch.exec.aggregate import AggregateExec
-    from spark_rapids_tpu_torch.exec.basic import (
-        FilterExec, InMemoryScanExec, ProjectExec)
-    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
-    from spark_rapids_tpu_torch.exec.sort import TopNExec
-    from spark_rapids_tpu_torch.expr.aggexprs import Sum
-    from spark_rapids_tpu_torch.expr.core import col, lit
-    o_schema, l_schema = q3_schemas(key_type)
-    o_scan = FilterExec(col("o_flag") < lit(5), InMemoryScanExec(
-        q3_batches(d, dev, o_schema, Q3_ORDERS), o_schema))
-    l_scan = FilterExec(col("l_flag") != lit(0), InMemoryScanExec(
-        q3_batches(d, dev, l_schema, Q3_LINES, line_batches), l_schema))
-    joined = HashJoinExec(l_scan, o_scan, [col("l_orderkey")],
-                          [col("o_orderkey")], "inner", build_side="right")
-    proj = ProjectExec([
+def q3_tree(m, orders, lines):
+    """bench.py make_q3_plan's operator tree above the two leaf execs, in
+    the package whose modules `m` holds (`port_modules()`, or the JAX
+    package's in the tests)."""
+    col, lit, b = m.core.col, m.core.lit, m.basic
+    joined = m.joins.HashJoinExec(
+        b.FilterExec(col("l_flag") != lit(0), lines),
+        b.FilterExec(col("o_flag") < lit(5), orders), [col("l_orderkey")],
+        [col("o_orderkey")], "inner", build_side="right")
+    proj = b.ProjectExec([
         col("l_orderkey"),
         (col("l_price") * (lit(1.0) - col("l_disc"))).alias("rev")], joined)
-    agg = AggregateExec([col("l_orderkey")], [(Sum(col("rev")), "revenue")],
-                        proj)
+    agg = m.agg.AggregateExec([col("l_orderkey")],
+                              [(m.aggexprs.Sum(col("rev")), "revenue")], proj)
     agg._spec_enabled = False  # as bench.py: the exact tier
-    return TopNExec(10, [(col("revenue"), False)], agg)
+    return m.sort.TopNExec(10, [(col("revenue"), False)], agg)
+
+
+def q3_plan(d, dev, key_type, line_batches=1, order_batches=1):
+    """bench.py make_q3_plan in the port over batches built on `dev`; the
+    lineitems fed as `line_batches` batches of equal size, the orders as
+    `order_batches`."""
+    m = port_modules()
+    o_schema, l_schema = q3_schemas(key_type)
+    return q3_tree(m, m.basic.InMemoryScanExec(
+        q3_batches(d, dev, o_schema, Q3_ORDERS, order_batches), o_schema),
+        m.basic.InMemoryScanExec(
+            q3_batches(d, dev, l_schema, Q3_LINES, line_batches), l_schema))
+
+
+class HostSource:
+    """A scan's source of host data: each step of `batches()` builds one
+    batch's host columns from numpy (CPU tensors at their capacity) and
+    uploads them to `device` in one packed copy (to_device_batch).
+    `parts` are zero-argument callables giving (columns, row count)."""
+
+    def __init__(self, schema, parts, device):
+        self.schema = schema
+        self._parts = list(parts)
+        self.device = device
+
+    def batches(self):
+        from spark_rapids_tpu_torch.columnar.upload import to_device_batch
+        for make in self._parts:
+            cols, n = make()
+            yield to_device_batch(cols, n, self.schema, self.device)
+
+
+def q3_host_parts(d, schema, n, parts):
+    """The first n rows of `schema`'s columns as `parts` callables, each
+    making one batch's host columns (equal sizes)."""
+    from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
+    step = n // parts
+    cap = bucket_capacity(step)
+
+    def part(i):
+        return lambda: ([Column.from_numpy(d[f.name][i: i + step],
+                                           f.data_type, capacity=cap,
+                                           device="cpu")
+                         for f in schema.fields], step)
+    return [part(i) for i in range(0, n, step)]
+
+
+def q3_source_plan(d, dev, depth, line_batches, order_batches):
+    """q3 over two SourceScanExecs of host data at pipeline `depth`."""
+    m = port_modules()
+    o_schema, l_schema = q3_schemas("LONG")
+
+    def scan(schema, n, parts):
+        return m.basic.SourceScanExec(
+            HostSource(schema, q3_host_parts(d, schema, n, parts), dev),
+            schema, depth)
+    return q3_tree(m, scan(o_schema, Q3_ORDERS, order_batches),
+                   scan(l_schema, Q3_LINES, line_batches))
 
 
 def check_q3(rows, oracle, label):
@@ -624,10 +694,11 @@ def port_modules():
     """The port's types, expressions and execs Q19 is built from."""
     from types import SimpleNamespace
     from spark_rapids_tpu_torch import types as t
-    from spark_rapids_tpu_torch.exec import aggregate, basic, joins
+    from spark_rapids_tpu_torch.exec import aggregate, basic, joins, sort
     from spark_rapids_tpu_torch.expr import aggexprs, core, predicates
     return SimpleNamespace(t=t, core=core, pred=predicates, basic=basic,
-                           joins=joins, agg=aggregate, aggexprs=aggexprs)
+                           joins=joins, agg=aggregate, aggexprs=aggexprs,
+                           sort=sort)
 
 
 def q19_schemas(t):
@@ -635,31 +706,54 @@ def q19_schemas(t):
             for fs in (Q19_LINE_FIELDS, Q19_PART_FIELDS)]
 
 
-def q19_batches(d, dev):
-    """The port's lineitem and part batches: fixed-width columns and
-    DictionaryColumns built from the same numpy arrays."""
-    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+def q19_columns(d, schema, dev):
+    """The port's columns of one Q19 table on `dev`, and its row count:
+    fixed-width columns and DictionaryColumns from the numpy arrays."""
     from spark_rapids_tpu_torch.columnar.column import Column, string_buffers
     from spark_rapids_tpu_torch.columnar.encoded import dictionary_from_numpy
-    out = []
-    for schema in q19_schemas(port_modules().t):
-        cols = []
-        for f in schema.fields:
-            v = d[f.name]
-            if isinstance(v, tuple):
-                cols.append(dictionary_from_numpy(
-                    v[0], *string_buffers(v[1]), device=dev))
-            else:
-                cols.append(Column.from_numpy(v, f.data_type, device=dev))
-        out.append(ColumnarBatch(cols, d[schema.fields[0].name].shape[0],
-                                 schema))
-    return out
+    cols = []
+    for f in schema.fields:
+        v = d[f.name]
+        if isinstance(v, tuple):
+            cols.append(dictionary_from_numpy(
+                v[0], *string_buffers(v[1]), device=dev))
+        else:
+            cols.append(Column.from_numpy(v, f.data_type, device=dev))
+    return cols, d[schema.fields[0].name].shape[0]
+
+
+def q19_batches(d, dev):
+    """The port's lineitem and part batches, built on `dev`."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    return [ColumnarBatch(*q19_columns(d, schema, dev), schema)
+            for schema in q19_schemas(port_modules().t)]
+
+
+def q19_source_plan(d, dev, depth):
+    """Q19 over two SourceScanExecs, each one batch of host data."""
+    m = port_modules()
+
+    def scan(schema):
+        return m.basic.SourceScanExec(HostSource(
+            schema, [lambda: q19_columns(d, schema, "cpu")], dev), schema,
+            depth)
+    return q19_tree(m, *[scan(s) for s in q19_schemas(m.t)])
 
 
 def q19_plan(m, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
              shipmodes=Q19_SHIPMODES):
-    """TPC-H Q19 as Spark plans it, in the package whose modules `m`
-    holds (`port_modules()`, or the JAX package's in the tests):
+    """q19_tree over one batch of each table."""
+    b = m.basic
+    return q19_tree(m, b.InMemoryScanExec([l_batch], l_batch.schema),
+                    b.InMemoryScanExec([p_batch], p_batch.schema), terms,
+                    span, shipmodes)
+
+
+def q19_tree(m, line_scan, part_scan, terms=Q19_TERMS, span=Q19_QTY_SPAN,
+             shipmodes=Q19_SHIPMODES):
+    """TPC-H Q19 as Spark plans it above the two leaf execs, in the
+    package whose modules `m` holds (`port_modules()`, or the JAX
+    package's in the tests):
 
       l = Filter(l_shipmode IN (...) AND l_shipinstruct = '...', scan)
       p = Filter(p_size >= 1 AND (term 1 OR term 2 OR term 3), scan)
@@ -667,7 +761,6 @@ def q19_plan(m, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
                    condition = the query's three-way OR)
       Aggregate(sum(l_extendedprice * (1 - l_discount)), Project(j))"""
     col, lit, pr = m.core.col, m.core.lit, m.pred
-    l_schema, p_schema = l_batch.schema, p_batch.schema
 
     def all_of(*es):
         out = es[0]
@@ -696,12 +789,10 @@ def q19_plan(m, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
             pr.GreaterThanOrEqual(col("p_size"), lit(1)),
             pr.LessThanOrEqual(col("p_size"), lit(s)), *ship))
     b = m.basic
-    lines = b.FilterExec(all_of(*ship), b.InMemoryScanExec([l_batch],
-                                                           l_schema))
+    lines = b.FilterExec(all_of(*ship), line_scan)
     parts = b.FilterExec(
         pr.And(pr.GreaterThanOrEqual(col("p_size"), lit(1)),
-               any_of(*part_terms)),
-        b.InMemoryScanExec([p_batch], p_schema))
+               any_of(*part_terms)), part_scan)
     joined = m.joins.HashJoinExec(lines, parts, [col("l_partkey")],
                                   [col("p_partkey")], "inner",
                                   build_side="right",
@@ -845,7 +936,7 @@ def drive_under_budget(label, make_plan, need, check, split):
         check(out, f"{label} {tag}")
         cat.drain_writeback()
         return plan, cat, budget, counts, reads, ms
-    _, cat, budget, _, _, _ = run("unconstrained", None, None)
+    _, cat, budget, free_counts, _, _ = run("unconstrained", None, None)
     peak, pinned = budget.peak, cat.peak_pinned_bytes
     limit, host_limit = max(peak // 4, pinned), peak // 8
     rule = "a quarter of the peak" if limit == peak // 4 \
@@ -870,7 +961,8 @@ def drive_under_budget(label, make_plan, need, check, split):
                              f"entries, {cat.device_bytes()} device bytes")
     rec = {"peak_bytes": peak, "pinned_bytes": pinned, "budget": limit,
            "host_limit": host_limit, "retries": retries, "splits": splits,
-           "host_reads": reads, "first_run_ms": ms, **c}
+           "host_reads": reads, "first_run_ms": ms,
+           "unconstrained_launches": free_counts, **c}
     print(f"{label}: equal to its oracle under the budget; spills {c}, "
           f"retries {retries}, splits {splits}, host reads {reads}; "
           f"launches {counts}; catalog empty")
@@ -903,11 +995,13 @@ def time_under_budget(plan, rec):
 def spill_rates(batch):
     """GB/s of each hop of the spill lane on `batch`'s leaves, through the
     catalog's own functions: the copy into pinned memory (to its event),
-    the CRC-stamped disk write (fsync'd) and read, and the copy back to
-    the card. One warm-up, then the mean of three."""
+    the CRC-stamped disk write (fsync'd) and read, and the packed copy
+    back to the card (upload_leaves, as an unspill). One warm-up, then the
+    mean of three."""
     import shutil
     import tempfile
     import torch
+    from spark_rapids_tpu_torch.columnar.upload import upload_leaves
     from spark_rapids_tpu_torch.memory import catalog as C
     leaves, _ = batch.flatten()
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -921,7 +1015,7 @@ def spill_rates(batch):
         host = d2h()
 
         def h2d():
-            C.copy_to_device(host, batch.device)
+            upload_leaves(host, batch.device)
             torch.cuda.synchronize()
         hops = {"d2h_pinned": d2h,
                 "disk_write": lambda: C.write_spill_file(path, host),
@@ -938,6 +1032,137 @@ def spill_rates(batch):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return nbytes, out
+
+
+# -- slice 5: the scan ingest path -----------------------------------------
+
+P4_ORDER_BATCHES = 4     # q3's orders as 4 host batches of 131,072 rows
+P4_ITERS = 4             # timed runs of P4 at each depth, in turns
+P5_ITERS = 3             # timed runs of P5
+
+
+def io_counters():
+    """The upload and fetch counters and the staging pool's misses."""
+    from spark_rapids_tpu_torch.columnar import transfer, upload
+    return dict(upload.counters(), **transfer.counters())
+
+
+def drive_collect(label, plan, need):
+    """`plan.collect()` with every launch counter set to 0 just before and
+    read just after, and the upload and fetch counters' deltas over the
+    run; fails if a kernel in `need` was not launched. collect() re-runs a
+    plan whose speculation flag tripped, which doubles its launches: the
+    callers compare the launches with a plain run's. Returns (rows,
+    launches, io deltas, ms)."""
+    import torch
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    before = io_counters()
+    t0 = time.perf_counter()
+    rows = plan.collect()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: w.launches for name, w in wrappers.items()}
+    io = {k: v - before[k] for k, v in io_counters().items()}
+    idle = [k for k in need if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle} "
+                             f"(counts {counts})")
+    return rows, counts, io, ms
+
+
+def check_scan_io(label, io, uploads, fetches):
+    """One host->device transfer per scanned batch, one device->host
+    transfer per collected batch."""
+    if io["uploads"] != uploads or io["transfers"] != uploads:
+        raise AssertionError(f"{label}: {io['uploads']} uploads in "
+                             f"{io['transfers']} transfers, not {uploads}")
+    if io["d2h_copies"] != fetches:
+        raise AssertionError(f"{label}: {io['d2h_copies']} device->host "
+                             f"copies, not {fetches}")
+
+
+def check_idle(label):
+    """No admission permit held, the catalog empty, after a path."""
+    from spark_rapids_tpu_torch.memory import buffer_catalog, tpu_semaphore
+    sem = tpu_semaphore()
+    if sem.holders() or sem.available != sem.permits:
+        raise AssertionError(f"{label}: {sem.holders()} tasks hold "
+                             f"permits, {sem.available} of {sem.permits} "
+                             f"free")
+    if buffer_catalog().num_entries():
+        raise AssertionError(f"{label}: catalog holds "
+                             f"{buffer_catalog().num_entries()} entries")
+
+
+def upload_rates(make_cols, n, schema, dev, per_buffer):
+    """The packed upload of one batch, step by step: ms of building its
+    host columns (`make_cols()`); of taking a staging buffer from the
+    pool and freeing it (`acquire_ms`: for a batch larger than the pool
+    keeps, a pinned allocation from PyTorch's caching host allocator);
+    GB/s of the host pack into the buffer (acquire included) and of its
+    one copy to the card (to a synchronisation); ms of the whole packed
+    upload and of `per_buffer()`, a build of the same batch on the card
+    one buffer at a time. One warm-up, then the mean of three, each
+    between synchronisations."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import upload
+    pool = upload.staging_pool()
+    cols = make_cols()
+
+    def acquire():
+        pool.release(pool.acquire(total))
+
+    def pack():
+        buf, _ = upload.pack_host_batch(cols, n, pool)
+        pool.release(buf)
+
+    def copy():
+        buf, _ = upload.pack_host_batch(cols, n, pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf[:total].to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        pool.release(buf)
+        return time.perf_counter() - t0
+
+    def mean_ms(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sum(times) / 3 * 1e3
+
+    total = upload.HEADER_BYTES + upload.layout_nbytes(
+        [upload.column_layout(c) for c in cols])
+    pack_ms = mean_ms(pack)
+    copy()
+    copy_s = sum(copy() for _ in range(3)) / 3
+    return {"bytes": total, "build_ms": mean_ms(make_cols),
+            "acquire_ms": mean_ms(acquire),
+            "pack_gb_s": total / pack_ms / 1e6,
+            "link_gb_s": total / copy_s / 1e9,
+            "upload_ms": mean_ms(lambda: upload.to_device_batch(
+                cols, n, schema, dev)),
+            "per_buffer_ms": mean_ms(per_buffer)}
+
+
+def pinned_alloc_ms(nbytes):
+    """ms of a fresh pinned allocation of `nbytes` and of the same one
+    again after it was freed (PyTorch's caching host allocator)."""
+    import torch
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        out.append((time.perf_counter() - t0) * 1e3)
+        del buf
+    return out
 
 
 # -- the q3 kernels against their plain versions ----------------------------
@@ -2073,6 +2298,73 @@ def main() -> int:
     print(f"P3: {p3_rec['merge_passes']} merge passes, "
           f"{p3_rec['merge_host_reads']} merge host reads")
 
+    # -- phase 3b, slice 5: q3 and Q19 from host data ----------------------
+    t_scan = time.perf_counter()
+    from spark_rapids_tpu_torch.columnar import upload
+    from spark_rapids_tpu_torch.memory import reset_tpu_semaphore
+    from spark_rapids_tpu_torch.memory.semaphore import CONCURRENT_TPU_TASKS
+    reset_tpu_semaphore(CONCURRENT_TPU_TASKS)
+    upload.reset_staging_pool()
+    p4_batches = P2_LINE_BATCHES + P4_ORDER_BATCHES
+    # the yardstick: the same plan over the same batches built on the
+    # card, with no injected split (which adds two row gathers to P2's
+    # own unconstrained run)
+    rows, p2_free, _, _ = drive_collect(
+        "q3 over device batches", q3_plan(d3, dev, "LONG", P2_LINE_BATCHES,
+                                          P4_ORDER_BATCHES), q3_need)
+    check_q3(rows, q3_want, "q3 over device batches")
+    print(f"q3 over {P2_LINE_BATCHES} lineitem and {P4_ORDER_BATCHES} "
+          f"order batches built on the card, no injection: launches "
+          f"{p2_free} (P2's unconstrained run with its injected split: "
+          f"{p2_rec['unconstrained_launches']})")
+    p4_rows, p4_counts, p4_io = {}, {}, {}
+    for depth in (0, 2):
+        label = f"P4 q3 from the host, depth {depth}"
+        rows, counts, io, ms = drive_collect(
+            label, q3_source_plan(d3, dev, depth, P2_LINE_BATCHES,
+                                  P4_ORDER_BATCHES), q3_need)
+        check_q3(rows, q3_want, label)
+        check_scan_io(label, io, p4_batches, 1)
+        if counts != p2_free:
+            raise AssertionError(f"{label}: launches {counts} != those of "
+                                 f"q3 over device batches {p2_free}")
+        check_idle(label)
+        p4_rows[depth], p4_counts[depth], p4_io[depth] = rows, counts, io
+        print(f"{label}: equal to the oracle in {ms:.1f} ms (first run); "
+              f"{io['uploads']} uploads in {io['transfers']} transfers, "
+              f"{io['d2h_copies']} device->host copy, pool misses "
+              f"{io['pool_misses']}; launches {counts}, as q3 over "
+              f"device batches; no permit held, catalog empty")
+    if [(k, np.float64(v).tobytes()) for k, v in p4_rows[0]] != \
+            [(k, np.float64(v).tobytes()) for k, v in p4_rows[2]]:
+        raise AssertionError(f"P4: depth 0 rows {p4_rows[0]} != depth 2 "
+                             f"rows {p4_rows[2]}")
+    print("P4: depth 0 and depth 2 rows bit-identical")
+    q19_bucket = upload._byte_bucket(
+        upload.HEADER_BYTES + upload.layout_nbytes(
+            [upload.column_layout(c) for c in l19.columns]))
+    pinned_ms = pinned_alloc_ms(q19_bucket)
+    print(f"pinned allocation of Q19's {q19_bucket}-byte staging bucket: "
+          f"{pinned_ms[0]:.2f} ms fresh, {pinned_ms[1]:.2f} ms from "
+          f"PyTorch's caching host allocator")
+    q19s = q19_source_plan(d19, dev, 2)
+    join_rows = q19s._source.metrics["numOutputRows"]
+    rows_before = join_rows.value
+    rows, p5_counts, p5_io, p5_first_ms = drive_collect(
+        "P5 q19 from the host", q19s, ["dict_gather"] + q3_need)
+    check_q19(rows, join_rows.value - rows_before, q19_want, "P5")
+    check_scan_io("P5", p5_io, 2, 1)
+    if p5_counts != q19_counts:
+        raise AssertionError(f"P5: launches {p5_counts} != phase 3's q19 "
+                             f"{q19_counts}")
+    check_idle("P5")
+    print(f"P5 q19 from the host, depth 2: equal to the oracle in "
+          f"{p5_first_ms:.1f} ms (first run); {p5_io['uploads']} uploads "
+          f"in {p5_io['transfers']} transfers, {p5_io['d2h_copies']} "
+          f"device->host copy, pool misses {p5_io['pool_misses']}; "
+          f"launches {p5_counts} (phase 3's q19: {q19_counts})")
+    print(f"P4 and P5 (phase 3b): {time.perf_counter() - t_scan:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -2135,6 +2427,69 @@ def main() -> int:
     print(f"spill lane on the {rate_bytes}-byte lineitem batch, GB/s: "
           f"{rates}")
 
+    t_scan = time.perf_counter()
+    # P4 in turns with its yardstick, the same plan over the same batches
+    # built on the card ("device"), then P5; the pool's misses
+    # after P4's first iteration (phase 3b) must stay 0
+    misses = io_counters()["pool_misses"]
+    p4_ms = {"device": [], 0: [], 2: []}
+    plans = {k: q3_source_plan(d3, dev, k, P2_LINE_BATCHES,
+                               P4_ORDER_BATCHES) for k in (0, 2)}
+    plans["device"] = q3_plan(d3, dev, "LONG", P2_LINE_BATCHES,
+                              P4_ORDER_BATCHES)
+    for i in range(P4_ITERS):
+        order = ("device", 0, 2) if i % 2 == 0 else (2, 0, "device")
+        for k in order:
+            t0 = time.perf_counter()
+            check_q3(plans[k].collect(), q3_want, f"P4 {k}")
+            torch.cuda.synchronize()
+            p4_ms[k].append((time.perf_counter() - t0) * 1e3)
+    p4_misses = io_counters()["pool_misses"] - misses
+    if p4_misses:
+        raise AssertionError(f"P4: {p4_misses} staging pool misses after "
+                             f"the first iteration")
+    check_idle("P4 timed")
+    print(f"P4 ms per iteration ({P4_ITERS} each, in turns): depth 0 "
+          f"{p4_ms[0]}, depth 2 {p4_ms[2]}; the same plan over batches "
+          f"built on the card {p4_ms['device']}; pool misses after the "
+          f"first iteration {p4_misses}")
+    p5_ms = []
+    misses = io_counters()["pool_misses"]
+    for _ in range(P5_ITERS):
+        t0 = time.perf_counter()
+        q19s.collect()
+        torch.cuda.synchronize()
+        p5_ms.append((time.perf_counter() - t0) * 1e3)
+    p5_misses = io_counters()["pool_misses"] - misses
+    check_idle("P5 timed")
+    print(f"P5 ms per iteration: {p5_ms}; pool misses {p5_misses} (the "
+          f"lineitem bucket is larger than the pool keeps)")
+    l_schema = q3_schemas("LONG")[1]
+    step = Q3_LINES // P2_LINE_BATCHES
+    q19_l_schema = q19_schemas(t)[0]
+
+    def q3_per_buffer():
+        ColumnarBatch.from_numpy_columns(
+            [(d3[f.name][:step], np.ones(step, np.bool_))
+             for f in l_schema.fields], l_schema, step, device=dev)
+
+    first_part = q3_host_parts(d3, l_schema, Q3_LINES, P2_LINE_BATCHES)[0]
+    ingest = {
+        "q3_lineitem_batch": upload_rates(
+            lambda: first_part()[0], step, l_schema, dev, q3_per_buffer),
+        "q19_lineitem_batch": upload_rates(
+            lambda: q19_columns(d19, q19_l_schema, "cpu")[0], Q19_LINES,
+            q19_l_schema, dev, lambda: q19_columns(d19, q19_l_schema, dev))}
+    for k, v in ingest.items():
+        print(f"ingest of the {k} ({v['bytes']} packed bytes): host build "
+              f"{v['build_ms']:.3f} ms, staging acquire "
+              f"{v['acquire_ms']:.3f} ms, host pack {v['pack_gb_s']:.2f} "
+              f"GB/s, copy {v['link_gb_s']:.2f} GB/s; packed upload "
+              f"{v['upload_ms']:.3f} ms, per-buffer build "
+              f"{v['per_buffer_ms']:.3f} ms")
+    print(f"P4, P5 and the upload rates (phase 4): "
+          f"{time.perf_counter() - t_scan:.1f} s")
+
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
     b2b_ms = cuda_ms(launch, KERNEL_REPS)
@@ -2181,11 +2536,20 @@ def main() -> int:
         r["path_launches"] = {
             "P1_q19_decoded": p1_counts.get(r["name"], 0),
             "P2_q3_budget": p2_counts.get(r["name"], 0),
-            "P3_sort_out_of_core": p3_counts.get(r["name"], 0)}
-    print(json.dumps({"paths": {"P1": dict(dec, host_reads=p1_reads,
-                                           ms=q19_ms),
-                                "P2": p2_rec, "P3": p3_rec,
-                                "spill_gb_s": rates}}))
+            "P3_sort_out_of_core": p3_counts.get(r["name"], 0),
+            "P4_q3_from_host": p4_counts[2].get(r["name"], 0),
+            "P5_q19_from_host": p5_counts.get(r["name"], 0)}
+    print(json.dumps({"paths": {
+        "P1": dict(dec, host_reads=p1_reads, ms=q19_ms),
+        "P2": p2_rec, "P3": p3_rec, "spill_gb_s": rates,
+        "P4": {"ms": {("device_batches" if k == "device" else
+                       f"depth_{k}"): v for k, v in p4_ms.items()},
+               "io": {f"depth_{k}": v for k, v in p4_io.items()},
+               "launches": p4_counts[2], "pool_misses_after_first": 0},
+        "P5": {"ms": p5_ms, "first_run_ms": p5_first_ms, "io": p5_io,
+               "launches": p5_counts, "pool_misses": p5_misses,
+               "pinned_alloc_ms": pinned_ms},
+        "ingest": ingest}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from .column import Column, bucket_capacity, resolve_device
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "num_rows", "schema", "_host_rows")
+    __slots__ = ("columns", "num_rows", "schema", "_host_rows", "_upload")
 
     def __init__(self, columns: Sequence[Column], num_rows, schema: Schema,
                  host_rows: Optional[int] = None):
@@ -32,6 +32,9 @@ class ColumnarBatch:
         self.num_rows = num_rows
         self.schema = schema
         self._host_rows = host_rows
+        #: (event, device buffer) of an upload on a side stream that the
+        #: consumer has not waited on yet (columnar/upload.await_upload)
+        self._upload = None
 
     @property
     def capacity(self) -> int:
@@ -70,10 +73,46 @@ class ColumnarBatch:
                                torch.from_numpy(valid).to(dev), f.data_type))
         return ColumnarBatch(cols, int(num_rows), schema)
 
+    @staticmethod
+    def from_arrow(table, device=None, encoded=None) -> "ColumnarBatch":
+        """pyarrow Table/RecordBatch -> batch on `device` (default: the
+        card), one capacity bucket. The scan's ingest seam: the columns
+        are built on the host (dictionary arrays as DictionaryColumns
+        when `encoded`, default encoded.SCAN_ENCODED) and cross in one
+        packed upload (columnar/upload.py)."""
+        from ..types import StructField
+        from .column import column_from_arrow
+        from .upload import to_device_batch
+        n = table.num_rows
+        cap = bucket_capacity(n)
+        fields, cols = [], []
+        for name in table.column_names:
+            col = column_from_arrow(table.column(name), device="cpu",
+                                    encoded=encoded)
+            if col.capacity < cap:
+                col = col.with_capacity(cap)
+            cols.append(col)
+            fields.append(StructField(name, col.dtype))
+        return to_device_batch(cols, n, Schema(tuple(fields)), device)
+
+    def to_arrow(self):
+        """The batch as a pyarrow Table, fetched in one packed copy."""
+        import pyarrow as pa
+        from .column import column_to_arrow
+        from .transfer import fetch_batch_host
+        cols, n = fetch_batch_host(self)
+        self._host_rows = n
+        return pa.table([column_to_arrow(c, n) for c in cols],
+                        names=self.schema.names)
+
     def to_pydict(self) -> dict:
-        n = self.num_rows_host
+        """The batch's rows by column, fetched in one packed copy
+        (columnar/transfer.py); dictionary columns decode on the host."""
+        from .transfer import fetch_batch_host
+        cols, n = fetch_batch_host(self)
+        self._host_rows = n
         return {f.name: c.to_pylist(n)
-                for f, c in zip(self.schema.fields, self.columns)}
+                for f, c in zip(self.schema.fields, cols)}
 
     def to_pylist(self) -> List[tuple]:
         d = self.to_pydict()

@@ -221,3 +221,87 @@ def string_buffers(values: Sequence[Optional[object]]):
     offsets = np.zeros(len(raw) + 1, dtype=np.int32)
     offsets[1:] = np.cumsum(np.fromiter(map(len, raw), np.int64, len(raw)))
     return np.frombuffer(b"".join(raw), dtype=np.uint8), offsets
+
+
+# -- the arrow seams (pyarrow is imported only inside these functions) ------
+
+def _string_from_arrow_buffers(arr, dt: DataType, n: int,
+                               device=None) -> StringColumn:
+    """Arrow string/binary array -> StringColumn straight from its
+    (validity bitmap, offsets, bytes) buffers, each copied once into its
+    padded buffer (the JAX package's `_string_from_arrow_buffers`)."""
+    import pyarrow as pa
+    if pa.types.is_large_string(arr.type):
+        arr = arr.cast(pa.string())
+    elif pa.types.is_large_binary(arr.type):
+        arr = arr.cast(pa.binary())
+    bufs = arr.buffers()
+    off_all = np.frombuffer(bufs[1], dtype=np.int32)
+    cap = bucket_capacity(n)
+    off = np.empty(cap + 1, dtype=np.int32)
+    off[: n + 1] = off_all[arr.offset: arr.offset + n + 1]
+    base = int(off[0]) if n else 0
+    if base:
+        off[: n + 1] -= base
+    total = int(off[n]) if n else 0
+    off[n + 1:] = total
+    data = np.zeros(bucket_capacity(max(total, 1)), dtype=np.uint8)
+    if total:
+        data[:total] = np.frombuffer(bufs[2], dtype=np.uint8, count=total,
+                                     offset=base)
+    if bufs[0] is None:
+        validity = np.ones(n, dtype=np.bool_)
+    else:
+        bits = np.frombuffer(bufs[0], dtype=np.uint8)
+        validity = np.unpackbits(bits, bitorder="little")[
+            arr.offset: arr.offset + n].astype(np.bool_)
+    # Arrow lets null slots span bytes; the engine's lengths are 0 there
+    if n and not validity.all():
+        lens = np.diff(off[: n + 1])
+        if (lens[~validity] != 0).any():
+            return StringColumn.from_pylist(arr.to_pylist(), dtype=dt,
+                                            device=device)
+    dev = resolve_device(device)
+    return StringColumn(torch.from_numpy(data).to(dev),
+                        torch.from_numpy(off).to(dev),
+                        torch.from_numpy(_pad_np(validity, cap, False))
+                        .to(dev), dt)
+
+
+def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
+                      encoded: Optional[bool] = None) -> Column:
+    """pyarrow Array/ChunkedArray -> column on `device` (the scan builds
+    host columns with device="cpu"). A dictionary array of strings stays
+    a DictionaryColumn when `encoded` (default encoded.SCAN_ENCODED), else
+    it decodes. Decimal, nested and null types wait for their slice
+    (ROADMAP A.8)."""
+    import pyarrow as pa
+    from ..types import BOOLEAN, from_arrow
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_dictionary(arr.type):
+        from .encoded import SCAN_ENCODED, dictionary_from_arrow
+        if SCAN_ENCODED if encoded is None else encoded:
+            dt = dtype or from_arrow(arr.type.value_type)
+            if isinstance(dt, (StringType, BinaryType)):
+                enc = dictionary_from_arrow(arr, dt, device)
+                if enc is not None:
+                    return enc
+        arr = arr.dictionary_decode()
+    dt = dtype or from_arrow(arr.type)
+    n = len(arr)
+    if isinstance(dt, (StringType, BinaryType)):
+        return _string_from_arrow_buffers(arr, dt, n, device)
+    validity = np.asarray(arr.is_valid(), dtype=np.bool_)
+    if dt == BOOLEAN:
+        dense = np.asarray(arr.fill_null(False), dtype=np.bool_)
+    else:
+        dense = np.asarray(arr.fill_null(0)).astype(dt.np_dtype)
+    return Column.from_numpy(dense, dt, device=device, validity=validity)
+
+
+def column_to_arrow(col: Column, num_rows: int):
+    """A host column's first `num_rows` rows as a pyarrow array."""
+    import pyarrow as pa
+    from ..types import to_arrow
+    return pa.array(col.to_pylist(num_rows), type=to_arrow(col.dtype))

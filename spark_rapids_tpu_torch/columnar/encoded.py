@@ -22,9 +22,10 @@ bucket sized by one host read per column (`decoded_byte_bucket`).
 `collect()` lets encoded root batches out, since `to_pylist` decodes on
 the host.
 
-Not ported yet (ROADMAP A.5): `dictionary_hashes` and string-key joins,
-and `dictionary_from_arrow` with the Parquet scan. The numpy constructor
-`dictionary_from_numpy` takes the scan's place.
+The scan builds a DictionaryColumn from an Arrow dictionary array
+(`dictionary_from_arrow`, io/parquet.py) or from numpy
+(`dictionary_from_numpy`). Not ported yet (ROADMAP A.5):
+`dictionary_hashes` and string-key joins.
 """
 
 from __future__ import annotations
@@ -39,13 +40,17 @@ from ..types import BOOLEAN, BinaryType, DataType, StringType
 from .column import (Column, StringColumn, _pad_np, bucket_capacity,
                      resolve_device)
 
-__all__ = ["NULL_CODE", "DictionaryColumn", "dictionary_from_numpy",
+__all__ = ["NULL_CODE", "SCAN_ENCODED", "DictionaryColumn",
+           "dictionary_from_numpy", "dictionary_from_arrow",
            "dict_take", "literal_hits", "encoded_equal_literal",
            "batch_has_encoded", "decoded_byte_bucket", "materialize_column",
            "materialize_batch", "counters"]
 
 #: sentinel code for null/inactive rows, out of range for every dictionary
 NULL_CODE = -1
+#: spark.rapids.tpu.scan.encoded.enabled: a scan keeps dictionary-encoded
+#: string columns encoded
+SCAN_ENCODED = True
 
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {
@@ -179,6 +184,38 @@ def dictionary_from_numpy(codes: np.ndarray, dict_data: np.ndarray,
         torch.from_numpy(_pad_np(valid, cap, fill=False)).to(dev), dtype)
     _note(cols_encoded=1)
     return col
+
+
+def dictionary_from_arrow(arr, dt: DataType, device=None
+                          ) -> Optional[DictionaryColumn]:
+    """pyarrow DictionaryArray -> DictionaryColumn on `device`, or None
+    when the array is not an encodable shape (values that are not
+    strings or bytes, nulls inside the dictionary): the caller decodes it
+    then."""
+    import pyarrow as pa
+    from .column import _string_from_arrow_buffers
+    dic = arr.dictionary
+    if not (pa.types.is_string(dic.type) or pa.types.is_large_string(dic.type)
+            or pa.types.is_binary(dic.type)
+            or pa.types.is_large_binary(dic.type)):
+        return None
+    if dic.null_count:
+        return None
+    dev = resolve_device(device)
+    n = len(arr)
+    validity = np.asarray(arr.is_valid(), dtype=np.bool_)
+    idx = arr.indices
+    if idx.null_count:
+        idx = idx.fill_null(0)
+    codes = np.asarray(idx).astype(np.int32, copy=True)
+    np.putmask(codes, ~validity, NULL_CODE)
+    cap = bucket_capacity(n)
+    view = _string_from_arrow_buffers(dic, dt, len(dic), dev)
+    _note(cols_encoded=1)
+    return DictionaryColumn(
+        torch.from_numpy(_pad_np(codes, cap, fill=NULL_CODE)).to(dev),
+        view.data, view.offsets,
+        torch.from_numpy(_pad_np(validity, cap, fill=False)).to(dev), dt)
 
 
 def dict_take(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

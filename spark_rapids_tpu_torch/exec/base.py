@@ -7,6 +7,7 @@ Operators form a tree; `execute()` returns an iterator of ColumnarBatch.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Iterator, List, Sequence
 
@@ -18,6 +19,20 @@ from ..types import Schema
 
 NUM_OUTPUT_ROWS = "numOutputRows"
 AGG_TIME = "computeAggTime"
+PIPELINE_WAIT = "pipelineWaitNs"
+PIPELINE_FULL_WAIT = "pipelineFullWaitNs"
+PIPELINE_WALL = "pipelineWallNs"
+NUM_UPLOADS = "numUploads"
+UPLOAD_PACK_TIME = "uploadPackTimeNs"
+
+#: the metrics of an exec that runs a pipelined() input stage (bind them
+#: with TpuExec.pipeline_stage)
+PIPELINE_STAGE_METRICS = (PIPELINE_WAIT, PIPELINE_FULL_WAIT, PIPELINE_WALL)
+#: the metrics of an exec that uploads batches (columnar/upload.metric_sink)
+UPLOAD_METRICS = (NUM_UPLOADS, UPLOAD_PACK_TIME)
+
+#: per-operator ids (the admission semaphore's task ids, stage labels)
+_OP_IDS = itertools.count(1)
 
 
 class TpuMetric:
@@ -82,6 +97,7 @@ class TpuExec:
 
     def __init__(self, *children: "TpuExec"):
         self.children: List[TpuExec] = list(children)
+        self._op_id = next(_OP_IDS)
         self.metrics: Dict[str, TpuMetric] = {
             NUM_OUTPUT_ROWS: TpuMetric(NUM_OUTPUT_ROWS)}
         for name in self.additional_metrics():
@@ -96,6 +112,25 @@ class TpuExec:
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
+
+    @property
+    def runs_own_pipeline_stage(self) -> bool:
+        """True when this exec's execute() drives a pipelined() producer
+        stage of its own: a consumer that would wrap its input in another
+        stage skips it then."""
+        return False
+
+    def pipeline_stage(self, source, label: str, depth=None):
+        """The one way an exec wraps an input in a pipelined() stage:
+        binds the PIPELINE_STAGE_METRICS (which its additional_metrics()
+        registers) and tags the label with the op id. Callers drive the
+        stage inside try/finally with stage.close()."""
+        from .pipeline import pipelined
+        return pipelined(source, depth=depth,
+                         label=f"{label}-{self._op_id}",
+                         wait_metric=self.metrics[PIPELINE_WAIT],
+                         full_metric=self.metrics[PIPELINE_FULL_WAIT],
+                         wall_metric=self.metrics[PIPELINE_WALL])
 
     def encoded_inputs(self) -> Sequence["TpuExec"]:
         """The execs whose batches this exec's kernels read, and so the

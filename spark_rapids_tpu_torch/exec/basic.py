@@ -20,7 +20,8 @@ from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
 from ..ops.basic import compact_columns, sanitize
 from ..types import Schema, StructField
-from .base import TpuExec
+from .base import (NUM_UPLOADS, PIPELINE_STAGE_METRICS, UPLOAD_METRICS,
+                   UPLOAD_PACK_TIME, TpuExec)
 
 
 class InMemoryScanExec(TpuExec):
@@ -46,6 +47,84 @@ class InMemoryScanExec(TpuExec):
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         yield from self._batches
+
+
+class SourceScanExec(TpuExec):
+    """Leaf driving a source's `batches()` stream: a source that builds
+    host columns and uploads each batch (`columnar/upload.to_device_batch`,
+    as io/parquet.ParquetSource does). Behind a pipeline stage (`depth`,
+    default exec/pipeline.PIPELINE_DEPTH) the decode and upload of batch
+    N+1 run on a producer thread while the operators above compute batch
+    N, the upload on the card's upload stream; each batch is made safe on
+    the consumer's stream before it leaves (`await_upload`). At depth 0 it
+    is a synchronous drive of the same iterator, with the same output. The
+    source names the device (its `device` attribute)."""
+
+    def __init__(self, source, schema: Schema, depth=None):
+        super().__init__()
+        self._source = source
+        self._schema = schema
+        self._depth = depth
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def device(self):
+        return getattr(self._source, "device", None)
+
+    def additional_metrics(self):
+        return PIPELINE_STAGE_METRICS + UPLOAD_METRICS
+
+    @property
+    def runs_own_pipeline_stage(self) -> bool:
+        return True
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        from ..columnar.upload import await_upload
+        stage = self.pipeline_stage(self._produce(), "scan", self._depth)
+        try:
+            for batch in stage:
+                yield await_upload(batch)
+        finally:
+            stage.close()
+
+    def _produce(self) -> Iterator[ColumnarBatch]:
+        """On the producer thread when pipelined: the decode and upload of
+        a batch happen inside `next(it)`, under the admission semaphore.
+        The permit is held only around one batch, so a scan idling on a
+        full prefetch queue holds no permit."""
+        from ..columnar.upload import metric_sink, on_upload_stream
+        from ..memory.semaphore import tpu_semaphore
+        from .pipeline import cancelled
+        sem = tpu_semaphore()
+        # a source that runs a plan of its own to build its data does so
+        # before this scan holds a permit: that plan's scans take their
+        # own, and nesting them deadlocks a one-permit semaphore
+        prepare = getattr(self._source, "ensure_materialized", None)
+        if prepare is not None:
+            prepare()
+        it = iter(self._source.batches())
+        try:
+            while True:
+                if not sem.acquire_if_necessary(self._op_id,
+                                                cancel=cancelled):
+                    return  # the consumer closed the stage meanwhile
+                try:
+                    with metric_sink(self.metrics[NUM_UPLOADS],
+                                     self.metrics[UPLOAD_PACK_TIME]), \
+                            on_upload_stream(self.device):
+                        batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    sem.release_if_necessary(self._op_id)
+                yield batch
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
 
 def bind_projection(exprs: Sequence[Expression], schema: Schema

@@ -49,6 +49,19 @@ class _State(threading.local):
 _state = _State()
 
 
+def capture_context():
+    """(scope, forced_exact) of this thread, captured at a pipeline stage
+    boundary so that the producer thread inherits it."""
+    return _state.scope, _state.forced_exact
+
+
+def adopt_context(scope, forced_exact: bool) -> None:
+    """Install a captured context on this (producer) thread: work behind
+    the boundary records its flags into the consumer's scope."""
+    _state.scope = scope
+    _state.forced_exact = forced_exact
+
+
 def current_scope() -> Optional[SpeculationScope]:
     return _state.scope
 

@@ -1,10 +1,8 @@
 """Memory and OOM-retry runtime — the counterpart of
 spark_rapids_tpu/memory/: the device budget, the three-tier spill
-catalog, spillable batches and the retry/split discipline with its
-injection API.
-
-Not ported yet: `semaphore.py`, `device_manager.py` and `host_alloc.py`
-(ROADMAP A.5, with the source scan and the packed upload that use them).
+catalog, spillable batches, the retry/split discipline with its injection
+API, the admission semaphore, the device manager and the bounded host
+allocator.
 """
 
 from .budget import MemoryBudget, memory_budget, reset_memory_budget
@@ -19,6 +17,10 @@ from .retry import (
     is_oom_error, oom_guard, register_task, split_in_half_by_rows,
     task_retry_counts, unregister_task, with_retry, with_retry_no_split,
 )
+from .device_manager import DeviceManager, device_manager
+from .host_alloc import HostAlloc, HostAllocation, HostOOM, host_alloc
+from .semaphore import (SemaphoreTimeout, TpuSemaphore, reset_tpu_semaphore,
+                        tpu_semaphore)
 from .spillable import SpillableBatch
 
 __all__ = [
@@ -30,5 +32,8 @@ __all__ = [
     "force_retry_oom", "force_split_and_retry_oom", "is_oom_error",
     "oom_guard", "register_task", "split_in_half_by_rows",
     "task_retry_counts", "unregister_task", "with_retry",
-    "with_retry_no_split", "SpillableBatch",
+    "with_retry_no_split", "SpillableBatch", "DeviceManager",
+    "device_manager", "HostAlloc", "HostAllocation", "HostOOM", "host_alloc",
+    "SemaphoreTimeout", "TpuSemaphore", "reset_tpu_semaphore",
+    "tpu_semaphore",
 ]

@@ -25,11 +25,16 @@ A failed disk write raises: on the spilling thread in the synchronous
 lane, and at the entry's next `acquire` (and at `drain_writeback`) when
 the writer failed.
 
+An unspill promotes an entry's host leaves in one packed copy
+(`columnar/upload.upload_leaves`), as the reference does: the leaves are
+views of one device buffer. A spill to the host already lays the leaves
+out packed in one pinned buffer, which the unspill copies as it is; leaves
+read back from disk are packed into a pooled staging buffer first, which
+returns to its pool when the copy's event completes. Nothing here waits on
+the card.
+
 Left out with the modules they belong to (ROADMAP A.9): the workload
-quota's owners, fault points, spill events and phase attribution. The
-reference uploads on unspill through its packed upload
-(columnar/upload.py, ROADMAP A.5); the port copies each pinned leaf with
-`.to(device, non_blocking=True)`.
+quota's owners, fault points, spill events and phase attribution.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..columnar.upload import packed_host_leaves, upload_leaves
 
 #: spark.rapids.memory.host.spillStorageSize
 HOST_SPILL_LIMIT = 4 << 30
@@ -80,25 +87,20 @@ def _nbytes(leaves) -> int:
 
 
 def copy_to_host(leaves):
-    """Queue the copy of each leaf into host memory: pinned memory and a
-    non-blocking copy on the current stream for CUDA tensors, with a CUDA
-    event recorded after the copies (None for CPU tensors, which are
-    copied at once). The host tensors are valid once the event has
-    completed."""
+    """Queue the copy of each leaf into host memory: for CUDA tensors a
+    non-blocking copy on the current stream into views of one pinned
+    buffer, laid out as the packed upload packs them (so the unspill is
+    one copy of that buffer, with no host pack), and a CUDA event recorded
+    after the copies; CPU tensors are copied at once (event None). The
+    host tensors are valid once the event has completed."""
     if not any(t.is_cuda for t in leaves):
         return [t.clone() for t in leaves], None
-    host = []
-    for t in leaves:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host = packed_host_leaves(leaves, pinned=True)
+    for h, t in zip(host, leaves):
         h.copy_(t, non_blocking=True)
-        host.append(h)
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
-
-
-def copy_to_device(host_leaves, device: torch.device):
-    return [h.to(device, non_blocking=True) for h in host_leaves]
 
 
 #: spill file container: magic | u32 crc32 | u64 payload length | npz
@@ -375,7 +377,7 @@ class BufferCatalog:
             finally:
                 entry.in_use -= 1
             try:
-                leaves = copy_to_device(entry.host_leaves, entry.device)
+                leaves = upload_leaves(entry.host_leaves, entry.device)
             except BaseException:
                 memory_budget().release(entry.nbytes)
                 raise

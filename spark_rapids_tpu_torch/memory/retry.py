@@ -90,6 +90,17 @@ def unregister_task():
     _state.inject_mode = None
 
 
+def capture_task_state() -> dict:
+    """This thread's task state (task id, injection, retry counts),
+    captured at a pipeline stage boundary for the producer thread."""
+    return dict(vars(_state))
+
+
+def adopt_task_state(state: dict) -> None:
+    """Install a captured task state on this (producer) thread."""
+    vars(_state).update(state)
+
+
 def current_task_id() -> Optional[int]:
     return _state.task_id
 

@@ -186,3 +186,41 @@ class Schema:
 
     def __getitem__(self, i):
         return self.fields[i]
+
+
+def from_arrow(at) -> DataType:
+    """A pyarrow type as the engine's (a dictionary type as its value
+    type: the encoding is the column's layout, not its type). Types the
+    port lacks raise, naming ROADMAP A.8."""
+    import pyarrow as pa
+    checks = ((pa.types.is_boolean, BOOLEAN), (pa.types.is_int8, BYTE),
+              (pa.types.is_int16, SHORT), (pa.types.is_int32, INT),
+              (pa.types.is_int64, LONG), (pa.types.is_float32, FLOAT),
+              (pa.types.is_float64, DOUBLE), (pa.types.is_string, STRING),
+              (pa.types.is_large_string, STRING),
+              (pa.types.is_binary, BINARY),
+              (pa.types.is_large_binary, BINARY),
+              (pa.types.is_date32, DATE))
+    for check, dt in checks:
+        if check(at):
+            return dt
+    if pa.types.is_timestamp(at) and at.tz is not None:
+        return TIMESTAMP
+    if pa.types.is_dictionary(at):
+        return from_arrow(at.value_type)
+    raise NotImplementedError(
+        f"arrow type {at} waits for its slice (ROADMAP A.8)")
+
+
+def to_arrow(dt: DataType):
+    import pyarrow as pa
+    out = {BooleanType: pa.bool_(), ByteType: pa.int8(),
+           ShortType: pa.int16(), IntegerType: pa.int32(),
+           LongType: pa.int64(), FloatType: pa.float32(),
+           DoubleType: pa.float64(), StringType: pa.string(),
+           BinaryType: pa.binary(), DateType: pa.date32(),
+           TimestampType: pa.timestamp("us", tz="UTC")}.get(type(dt))
+    if out is None:
+        raise NotImplementedError(f"{dt!r} waits for its slice "
+                                  f"(ROADMAP A.8)")
+    return out

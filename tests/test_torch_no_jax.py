@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: in a fresh interpreter where `jax` and
-`spark_rapids_tpu` cannot be imported, every module of the port and
-chip_smoke.py import, and an entry point asked for no device raises when
-there is no card instead of falling back to the CPU."""
+"""The PyTorch port stands alone: in a fresh interpreter where `jax`,
+`spark_rapids_tpu` and `pyarrow` cannot be imported (the machine with the
+card has no pyarrow), every module of the port and chip_smoke.py import,
+the Parquet reader raises a clear ImportError only when it is called, and
+an entry point asked for no device raises when there is no card instead
+of falling back to the CPU."""
 
 import shutil
 import subprocess
@@ -18,7 +20,8 @@ import importlib, pkgutil, sys
 
 class _Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
+                                  "pyarrow"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -31,13 +34,27 @@ q3 = ["ops.hashing", "ops.murmur3_lanes", "ops.rowpack", "ops.row_gather",
       "ops.gather", "ops.aggregate", "ops.join", "ops.probe_verify",
       "exec.joins", "exec.sort"]
 q19 = ["columnar.encoded", "ops.dict_gather"]
-missing = [m for m in q3 + q19 if pkg.__name__ + "." + m not in mods]
+ingest = ["columnar.upload", "columnar.transfer", "exec.pipeline",
+          "memory.semaphore", "memory.device_manager", "memory.host_alloc",
+          "io.parquet", "io.multifile", "io.retrying"]
+missing = [m for m in q3 + q19 + ingest
+           if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
+                                       "pyarrow"))
 assert not leaked, leaked
 print("MODULES", len(mods))
+
+from spark_rapids_tpu_torch.io.parquet import ParquetSource
+try:
+    ParquetSource("any.parquet", device="cpu")
+except ImportError as e:
+    assert "pyarrow" in str(e), e
+    print("PARQUET", e)
+else:
+    raise AssertionError("ParquetSource without pyarrow must raise")
 
 import numpy as np
 import torch
@@ -60,6 +77,7 @@ def test_port_imports_without_jax_and_refuses_implicit_cpu():
     n = int(proc.stdout.split("MODULES", 1)[1].split()[0])
     assert n >= 20, proc.stdout
     assert "RAISED" in proc.stdout
+    assert "PARQUET the Parquet reader needs pyarrow" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
