@@ -39,7 +39,10 @@ fails the run on error:
      and above on ragged row counts, aligned and as x[1:] views (exact);
      and every kernel on its main path's own inputs (the murmur3 chain on
      each join's build keys with both seeds and its stream keys, every row
-     gather of each path captured from a run of a fresh plan);
+     gather of each path captured from a run of a fresh plan: q3, q19,
+     P6's filter compaction and sort and P7's build permute and payloads;
+     every dictionary gather of P7, its take of the ship-mode hash table
+     by the stream's codes among them);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -83,7 +86,23 @@ fails the run on error:
      empty after; P5, Q19 at SF1 from host data, one batch a table with
      its four DictionaryColumns packed as codes, validity, dictionary
      bytes and offsets, at depth 2: equal to q19_oracle, 2 uploads, one
-     fetch, the launches of phase 3's q19;
+     fetch, the launches of phase 3's q19. Then the string keys: P6,
+     TPC-H Q1 at SF1 (clause 2.4.1, DELTA 90) over the 6,001,215
+     lineitems, l_returnflag and l_linestatus DictionaryColumns that
+     decode at the aggregate's boundary, grouped by the 2-round hash
+     group-by and ordered by the two strings: 4 groups equal to
+     tpch_q1_oracle in the order A/F, N/F, N/O, R/F, 2 row gathers; P7,
+     the lineitems (l_shipmode encoded) joined to the 7 ship modes on the
+     string key, once with the build key a StringColumn and once a
+     DictionaryColumn in another order, then summed by mode: equal to
+     shipmode_oracle, the dictionaries hashed once each (dict_gather 1
+     and 3 times), 2 row gathers, no probe kernel; P8, count(*) by
+     1,048,576 distinct c_name strings in one batch at capacity, its
+     route printed, every count 1 and the keys the input's; and the
+     card's xxhash64_batch and murmur3_string of those names and of
+     random bytes and UTF-8 text of 0-70 bytes, bit for bit against
+     numpy references of Spark's hashes (np_xxhash64_bytes,
+     np_murmur3_bytes);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -93,9 +112,10 @@ fails the run on error:
      kernel; its seed plane, lane kernel and select per seed);
      fused_scan_agg's,
      dict_gather's, fused_probe_verify's and dma_row_gather's launches are
-     timed apart from their wrappers' calls too, dict_gather at both of its
-     shapes (q19's take and dg's), the probe at q3's and q19's and the row
-     gather at every shape of q3 and q19 (summed per iteration). Kernel
+     timed apart from their wrappers' calls too, dict_gather at three
+     shapes (q19's take, P7's stream take and dg's), the probe at q3's and
+     q19's and the row gather at every shape of q3, q19, P6 and P7 (summed
+     per iteration). Kernel
      times are the device's, with the L2 cache flushed before each run
      (device_ms). Also P2's and P3's ms per iteration under their
      budgets, Q19's decode counters per iteration, and the spill lane's
@@ -107,23 +127,26 @@ fails the run on error:
      bucket; and on one q3 lineitem batch and Q19's lineitem batch the
      host pack's GB/s, the copy's GB/s, the whole packed upload's ms and
      a per-buffer build's ms (from_numpy_columns, or the Q19 columns
-     built on the card buffer by buffer).
+     built on the card buffer by buffer). Last, P6's and P7's ms per
+     iteration in steady state (one synchronisation per run).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
-traces to TRACE (q1) and TRACE with "_q3" or "_q19" before its suffix.
+traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6" or "_p7" before
+its suffix.
 
-The last lines are a JSON line with the records of P1-P5, the spill
+The last lines are a JSON line with the records of P1-P8, the spill
 rates and the ingest rates, a JSON line with one record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
 "shapes", the murmur3 chain's three sites under "sites", and each
-kernel's launches on P1-P5 under "path_launches"), the card as
+kernel's launches on P1-P8 under "path_launches"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import datetime
 import json
 import subprocess
 import sys
@@ -636,10 +659,22 @@ Q19_LINE_FIELDS = (("l_partkey", "LONG"), ("l_quantity", "DOUBLE"),
                    ("l_shipinstruct", "STRING"), ("l_shipmode", "STRING"))
 
 
+#: clause 4.2.3: order dates run from STARTDATE to ENDDATE - 151 days,
+#: CURRENTDATE splits returned from open lines (days since the epoch)
+ORDER_DATE_FIRST = 8035          # 1992-01-01
+ORDER_DATE_LAST = 10440          # 1998-08-02
+CURRENT_DATE = 9298              # 1995-06-17
+RETURNFLAGS = ("A", "N", "R")
+LINESTATUSES = ("F", "O")
+
+
 def q19_data(n_part=Q19_PARTS, n_line=Q19_LINES, seed=19):
     """part and lineitem columns by TPC-H's generation rules (clause
     4.2.3), from a fixed seed. A string column is (int32 codes, values):
-    the values are its dictionary, as a Parquet dictionary page holds it."""
+    the values are its dictionary, as a Parquet dictionary page holds it.
+    Q1's columns (l_tax, l_shipdate, l_returnflag, l_linestatus) are drawn
+    after the others, so those are what they were without them; each line
+    draws its own order date (Q1 reads no order column)."""
     rng = np.random.default_rng(seed)
     partkey = np.arange(1, n_part + 1, dtype=np.int64)
     retail = (90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)) / 100
@@ -649,7 +684,7 @@ def q19_data(n_part=Q19_PARTS, n_line=Q19_LINES, seed=19):
     def codes(values, n):
         return rng.integers(0, len(values), n).astype(np.int32), values
 
-    return {
+    d = {
         "p_partkey": partkey,
         "p_brand": codes(BRANDS, n_part),
         "p_size": rng.integers(1, 51, n_part).astype(np.int32),
@@ -661,6 +696,19 @@ def q19_data(n_part=Q19_PARTS, n_line=Q19_LINES, seed=19):
         "l_shipinstruct": codes(SHIPINSTRUCTS, n_line),
         "l_shipmode": codes(SHIPMODES, n_line),
     }
+    d["l_tax"] = rng.integers(0, 9, n_line) / 100.0
+    order = rng.integers(ORDER_DATE_FIRST, ORDER_DATE_LAST + 1, n_line)
+    ship = order + rng.integers(1, 122, n_line)
+    receipt = ship + rng.integers(1, 31, n_line)
+    returned = np.where(rng.integers(0, 2, n_line) == 0,
+                        RETURNFLAGS.index("R"), RETURNFLAGS.index("A"))
+    d["l_shipdate"] = ship.astype(np.int32)
+    d["l_returnflag"] = (np.where(receipt <= CURRENT_DATE, returned,
+                                  RETURNFLAGS.index("N")).astype(np.int32),
+                         RETURNFLAGS)
+    d["l_linestatus"] = ((ship > CURRENT_DATE).astype(np.int32),
+                         LINESTATUSES)
+    return d
 
 
 def q19_oracle(d, terms=Q19_TERMS, span=Q19_QTY_SPAN,
@@ -719,7 +767,8 @@ def q19_columns(d, schema, dev):
                 v[0], *string_buffers(v[1]), device=dev))
         else:
             cols.append(Column.from_numpy(v, f.data_type, device=dev))
-    return cols, d[schema.fields[0].name].shape[0]
+    first = d[schema.fields[0].name]
+    return cols, (first[0] if isinstance(first, tuple) else first).shape[0]
 
 
 def q19_batches(d, dev):
@@ -1165,6 +1214,433 @@ def pinned_alloc_ms(nbytes):
     return out
 
 
+# -- slice 6: string keys ---------------------------------------------------
+
+#: clause 2.4.1.3's validation DELTA = 90: l_shipdate <= 1998-12-01 - 90
+Q1_SHIP_CUTOFF = datetime.date(1998, 9, 2)
+Q1_LINE_FIELDS = (("l_quantity", "DOUBLE"), ("l_extendedprice", "DOUBLE"),
+                  ("l_discount", "DOUBLE"), ("l_tax", "DOUBLE"),
+                  ("l_shipdate", "DATE"), ("l_returnflag", "STRING"),
+                  ("l_linestatus", "STRING"))
+#: Q1's groups in its ORDER BY, and the route the aggregate must take
+Q1_GROUPS = (("A", "F"), ("N", "F"), ("N", "O"), ("R", "F"))
+P7_LINE_FIELDS = (("l_shipmode", "STRING"), ("l_extendedprice", "DOUBLE"))
+P8_NAMES = 1 << 20       # distinct c_name keys of P8, one batch at capacity
+P6_ITERS = 5             # timed runs of P6 and of each P7 build key
+ROUTES = ("hash_rounds_2", "hash_rounds_6", "sort_fallback")
+
+
+def tpch_q1_tree(m, line_scan, cutoff=None):
+    """TPC-H Q1 (clause 2.4.1) as Spark plans it above the lineitem scan,
+    in the package whose modules `m` holds:
+
+      Sort(l_returnflag, l_linestatus,
+           Aggregate(group by l_returnflag, l_linestatus: sum(l_quantity),
+                     sum(l_extendedprice), sum(price * (1 - discount)),
+                     sum(price * (1 - discount) * (1 + tax)), avg(l_quantity),
+                     avg(l_extendedprice), avg(l_discount), count(*),
+                     Filter(l_shipdate <= cutoff, scan)))
+
+    `cutoff` is the literal expression (default: a DATE literal of
+    Q1_SHIP_CUTOFF)."""
+    col, lit, ax = m.core.col, m.core.lit, m.aggexprs
+    cutoff = lit(Q1_SHIP_CUTOFF) if cutoff is None else cutoff
+    lines = m.basic.FilterExec(
+        m.pred.LessThanOrEqual(col("l_shipdate"), cutoff), line_scan)
+    price, disc = col("l_extendedprice"), col("l_discount")
+    disc_price = price * (lit(1.0) - disc)
+    agg = m.agg.AggregateExec(
+        [col("l_returnflag"), col("l_linestatus")],
+        [(ax.Sum(col("l_quantity")), "sum_qty"),
+         (ax.Sum(price), "sum_base_price"),
+         (ax.Sum(disc_price), "sum_disc_price"),
+         (ax.Sum(disc_price * (lit(1.0) + col("l_tax"))), "sum_charge"),
+         (ax.Average(col("l_quantity")), "avg_qty"),
+         (ax.Average(price), "avg_price"),
+         (ax.Average(disc), "avg_disc"),
+         (ax.Count(), "count_order")], lines)
+    return m.sort.SortExec([(col("l_returnflag"), True),
+                            (col("l_linestatus"), True)], agg)
+
+
+def tpch_q1_oracle(d, cutoff_days=None):
+    """Q1 in numpy: one row per group in ORDER BY order."""
+    cut = (Q1_SHIP_CUTOFF - datetime.date(1970, 1, 1)).days \
+        if cutoff_days is None else cutoff_days
+    keep = d["l_shipdate"] <= cut
+    rf = np.asarray(d["l_returnflag"][1])[d["l_returnflag"][0]]
+    ls = np.asarray(d["l_linestatus"][1])[d["l_linestatus"][0]]
+    qty, price = d["l_quantity"], d["l_extendedprice"]
+    disc, tax = d["l_discount"], d["l_tax"]
+    rows = []
+    for f, s in sorted(set(zip(rf[keep], ls[keep]))):
+        g = keep & (rf == f) & (ls == s)
+        n = int(g.sum())
+        dp = price[g] * (1.0 - disc[g])
+        rows.append((f, s, qty[g].sum(), price[g].sum(), dp.sum(),
+                     (dp * (1.0 + tax[g])).sum(), qty[g].sum() / n,
+                     price[g].sum() / n, disc[g].sum() / n, n))
+    return rows
+
+
+def check_rows(rows, oracle, label, exact=()):
+    """Rows against the oracle's in order: the columns in `exact` and
+    every str or int equal, floats to rtol 1e-9 (summation order)."""
+    if len(rows) != len(oracle):
+        raise AssertionError(f"{label}: {len(rows)} rows != oracle "
+                             f"{len(oracle)}")
+    for got, want in zip(rows, oracle):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if isinstance(w, (str, int, np.integer)) or i in exact:
+                ok = g == w
+            else:
+                ok = g is not None and abs(g - w) <= RTOL * abs(w)
+            if not ok:
+                raise AssertionError(f"{label}: row {got} != oracle {want}")
+
+
+def tpch_q1_batch(d, dev):
+    """Q1's lineitem batch on `dev`: the flags as DictionaryColumns."""
+    m = port_modules()
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    schema = m.t.Schema(tuple(m.t.StructField(n, getattr(m.t, ty))
+                              for n, ty in Q1_LINE_FIELDS))
+    return ColumnarBatch(*q19_columns(d, schema, dev), schema)
+
+
+def shipmode_table(seed=7):
+    """P7's build side: clause 4.2.2.13's seven ship modes, each with a
+    DOUBLE surcharge drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    return SHIPMODES, np.round(1.0 + rng.integers(1, 26, 7) / 100.0, 2)
+
+
+def shipmode_join_tree(m, line_scan, mode_scan):
+    """P7: the lineitems join the ship-mode table on the string key, then
+    sum(l_extendedprice * surcharge) and count(*) by the build side's mode:
+
+      Aggregate(group by sm_mode: sum(charge), count(*),
+        Project(sm_mode, l_extendedprice * sm_surcharge as charge,
+          HashJoin(lines, modes, l_shipmode = sm_mode, inner, build
+                   right)))"""
+    col = m.core.col
+    joined = m.joins.HashJoinExec(line_scan, mode_scan, [col("l_shipmode")],
+                                  [col("sm_mode")], "inner",
+                                  build_side="right")
+    proj = m.basic.ProjectExec(
+        [col("sm_mode"),
+         (col("l_extendedprice") * col("sm_surcharge")).alias("charge")],
+        joined)
+    return m.agg.AggregateExec(
+        [col("sm_mode")], [(m.aggexprs.Sum(col("charge")), "surcharge"),
+                           (m.aggexprs.Count(), "lines")], proj)
+
+
+def shipmode_oracle(d, surcharge):
+    """P7 in numpy: (mode, sum, count) for every mode, by mode."""
+    codes, modes = d["l_shipmode"]
+    price = d["l_extendedprice"]
+    return [(modes[k], float((price[codes == k] * surcharge[k]).sum()),
+             int((codes == k).sum())) for k in np.argsort(modes)]
+
+
+def shipmode_batches(d, dev, encoded_build):
+    """P7's (lineitem batch, ship-mode batch) on `dev`: the stream's
+    l_shipmode dictionary-encoded; the build's mode a StringColumn, or
+    with `encoded_build` a DictionaryColumn whose dictionary lists the
+    modes in reverse order."""
+    m = port_modules()
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import (Column, StringColumn,
+                                                        string_buffers)
+    from spark_rapids_tpu_torch.columnar.encoded import dictionary_from_numpy
+    schema = m.t.Schema(tuple(m.t.StructField(n, getattr(m.t, ty))
+                              for n, ty in P7_LINE_FIELDS))
+    lines = ColumnarBatch(*q19_columns(d, schema, dev), schema)
+    modes, surcharge = shipmode_table()
+    if encoded_build:
+        words = modes[::-1]
+        mode_col = dictionary_from_numpy(
+            np.array([words.index(x) for x in modes], np.int32),
+            *string_buffers(words), device=dev)
+    else:
+        mode_col = StringColumn.from_pylist(list(modes), device=dev)
+    mschema = m.t.Schema((m.t.StructField("sm_mode", m.t.STRING),
+                          m.t.StructField("sm_surcharge", m.t.DOUBLE)))
+    build = ColumnarBatch([mode_col, Column.from_numpy(
+        surcharge, m.t.DOUBLE, device=dev)], len(modes), mschema)
+    return lines, build
+
+
+def customer_names(n, seed=8):
+    """n distinct names in TPC-H's c_name form (clause 4.2.3,
+    'Customer#%09d'), shuffled: a (n, 18) uint8 matrix."""
+    keys = np.random.default_rng(seed).permutation(n) + 1
+    mat = np.empty((n, 18), np.uint8)
+    mat[:, :9] = np.frombuffer(b"Customer#", np.uint8)
+    for i in range(9):
+        mat[:, 17 - i] = ord("0") + (keys // 10 ** i) % 10
+    return mat
+
+
+def names_batch(mat, dev):
+    """P8's batch: one StringColumn of the names at capacity rows."""
+    m = port_modules()
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    n, w = mat.shape
+    col = StringColumn.from_numpy(mat.reshape(-1),
+                                  np.arange(n + 1, dtype=np.int32) * w,
+                                  device=dev)
+    schema = m.t.Schema((m.t.StructField("c_name", m.t.STRING),))
+    return ColumnarBatch([col], n, schema)
+
+
+def names_count_tree(m, scan):
+    """P8: count(*) grouped by c_name."""
+    return m.agg.AggregateExec([m.core.col("c_name")],
+                               [(m.aggexprs.Count(), "n")], scan)
+
+
+def route_counts(agg):
+    return {r: agg.metrics[r].value for r in ROUTES}
+
+
+# numpy references of Spark's string hashes, on a padded (rows, width)
+# uint8 matrix and the rows' lengths: written from Spark's
+# Murmur3_x86_32.hashUnsafeBytes and XXH64.hashUnsafeBytes, independent
+# of the port's torch code
+
+def np_murmur3_bytes(mat, lengths, seed):
+    """uint32 hashes, from one seed for every row."""
+    c1, c2 = np.uint32(0xCC9E2D51), np.uint32(0x1B873593)
+
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    def mix(h, k):
+        k = rotl(k * c1, 15) * c2
+        h = rotl(h ^ k, 13)
+        return h * np.uint32(5) + np.uint32(0xE6546B64)
+
+    n = mat.shape[0]
+    rows = np.arange(n)
+    m32 = mat.astype(np.uint32)
+    lengths = np.asarray(lengths, np.int64)
+    h = np.full(n, seed, np.uint32)
+    nw = lengths // 4
+    for t in range(int(nw.max(initial=0))):
+        w = m32[:, 4 * t] | (m32[:, 4 * t + 1] << np.uint32(8)) \
+            | (m32[:, 4 * t + 2] << np.uint32(16)) \
+            | (m32[:, 4 * t + 3] << np.uint32(24))
+        h = np.where(t < nw, mix(h, w), h)
+    for j in range(3):
+        pos = nw * 4 + j
+        b = mat[rows, np.minimum(pos, mat.shape[1] - 1)].view(np.int8)
+        h = np.where(pos < lengths, mix(h, b.astype(np.int32).view(
+            np.uint32)), h)
+    h = h ^ lengths.astype(np.uint32)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h *= np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def np_xxhash64_bytes(mat, lengths, seed):
+    """uint64 hashes, from one seed for every row."""
+    p1, p2 = np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F)
+    p3, p4 = np.uint64(0x165667B19E3779F9), np.uint64(0x85EBCA77C2B2AE63)
+    p5 = np.uint64(0x27D4EB2F165667C5)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    def rnd(acc, k):
+        return rotl(acc + k * p2, 31) * p1
+
+    n, width = mat.shape
+    rows = np.arange(n)
+    lengths = np.asarray(lengths, np.int64)
+    m64 = np.zeros((n, width + 8), np.uint64)
+    m64[:, :width] = mat
+
+    def word(pos, nbytes):
+        out = np.zeros(n, np.uint64)
+        for j in range(nbytes):
+            p = np.minimum(pos + j, width + 7)
+            out |= m64[rows, p] << np.uint64(8 * j)
+        return out
+
+    s = np.full(n, seed, np.uint64)
+    v = [s + p1 + p2, s + p2, s + 0, s - p1]
+    stripes = lengths // 32
+    for k in range(int(stripes.max(initial=0))):
+        act = k < stripes
+        for i in range(4):
+            at = np.full(n, 32 * k + 8 * i, np.int64)
+            v[i] = np.where(act, rnd(v[i], word(at, 8)), v[i])
+    big = rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)
+    for i in range(4):
+        big = (big ^ rnd(np.uint64(0), v[i])) * p1 + p4
+    h = np.where(lengths >= 32, big, s + p5)
+    h = h + lengths.astype(np.uint64)
+    pos = stripes * 32
+    while True:
+        act = pos + 8 <= lengths
+        if not act.any():
+            break
+        h = np.where(act, rotl(h ^ rnd(np.uint64(0), word(pos, 8)), 27)
+                     * p1 + p4, h)
+        pos = np.where(act, pos + 8, pos)
+    act = pos + 4 <= lengths
+    h = np.where(act, rotl(h ^ (word(pos, 4) * p1), 23) * p2 + p3, h)
+    pos = np.where(act, pos + 4, pos)
+    while True:
+        act = pos < lengths
+        if not act.any():
+            break
+        h = np.where(act, rotl(h ^ (word(pos, 1) * p5), 11) * p1, h)
+        pos = np.where(act, pos + 1, pos)
+    h ^= h >> np.uint64(33)
+    h *= p2
+    h ^= h >> np.uint64(29)
+    h *= p3
+    return h ^ (h >> np.uint64(32))
+
+
+def hash_probe_strings(seed=9):
+    """Strings of every length 0-70, of random bytes (many >= 0x80) and of
+    multibyte UTF-8 text, as a padded matrix and lengths."""
+    rng = np.random.default_rng(seed)
+    rows = [bytes(rng.integers(0, 256, n, dtype=np.uint8))
+            for n in range(71) for _ in range(4)]
+    rows += [("ü€𝄞" * k)[:k].encode() for k in range(30)]
+    width = max(len(r) for r in rows)
+    mat = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        mat[i, :len(r)] = np.frombuffer(r, np.uint8)
+    return mat, np.array([len(r) for r in rows], np.int64)
+
+
+def compare_string_hashes(mat, lengths, dev, label):
+    """The card's xxhash64_batch and murmur3_string of the rows, seed 42,
+    bit for bit against the numpy references."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    from spark_rapids_tpu_torch.ops import hashing
+    n = len(lengths)
+    offsets = np.zeros(n + 1, np.int32)
+    offsets[1:] = np.cumsum(lengths)
+    keep = np.arange(mat.shape[1])[None, :] < np.asarray(lengths)[:, None]
+    col = StringColumn.from_numpy(mat[keep], offsets, capacity=n,
+                                  device=dev)
+    xx = hashing.xxhash64_batch([col], 42).cpu().numpy().view(np.uint64)
+    m3 = hashing.murmur3_string(col, 42).cpu().numpy().view(np.uint32)
+    torch.cuda.synchronize()
+    want_xx = np_xxhash64_bytes(mat, lengths, 42)
+    want_m3 = np_murmur3_bytes(mat, lengths, 42)
+    bad = int((xx != want_xx).sum() + (m3 != want_m3).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} string hashes differ from "
+                             f"the numpy references")
+    print(f"string hashes of {label} ({n} rows, up to {int(max(lengths))} "
+          f"bytes): xxhash64_batch and murmur3_string equal to numpy's "
+          f"bit for bit")
+
+
+def scan_of(m, batch):
+    return m.basic.InMemoryScanExec([batch], batch.schema)
+
+
+def drive_string_paths(m, dev, q1t_batch, q1t_want, p7_batches, p7_want,
+                       names):
+    """Phase 3b's string-key paths, each counted with drive_batches and
+    held to its numpy oracle: P6 (TPC-H Q1 over the dictionary-encoded
+    flags, by the 2-round hash route), P7 (the ship-mode join on the
+    string key, for each build key in `p7_batches`), P8 (count(*) by the
+    distinct `names`), then the card's string hashes against numpy's.
+    Returns P6's plan, and each path's launches and record."""
+    from spark_rapids_tpu_torch.columnar import encoded
+    p6 = tpch_q1_tree(m, scan_of(m, q1t_batch))
+    before = encoded.counters()
+    out, p6_counts, p6_reads = drive_batches("P6 TPC-H Q1", p6,
+                                             ["dma_row_gather"])
+    rows = [r for b in out for r in b.to_pylist()]
+    check_rows(rows, q1t_want, "P6")
+    if tuple(r[:2] for r in rows) != Q1_GROUPS:
+        raise AssertionError(f"P6: groups {[r[:2] for r in rows]} != "
+                             f"{Q1_GROUPS}")
+    p6_rec = {"routes": route_counts(p6.child), "host_reads": p6_reads,
+              "materializations": encoded.counters()["materializations"]
+              - before["materializations"]}
+    want_counts = {"dma_row_gather": 2, "dict_gather": 0,
+                   "fused_probe_verify": 0, "murmur3_columns": 0}
+    if p6_rec["routes"] != {"hash_rounds_2": 1, "hash_rounds_6": 0,
+                            "sort_fallback": 0} \
+            or any(p6_counts[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"P6: routes {p6_rec['routes']}, launches "
+                             f"{p6_counts} (one 2-round hash group-by; "
+                             f"{want_counts})")
+    print(f"P6 TPC-H Q1 ({q1t_batch.num_rows_host} lineitems): "
+          f"{len(rows)} groups "
+          f"{[r[:2] for r in rows]} equal to the numpy oracle; routes "
+          f"{p6_rec['routes']}; {p6_rec['materializations']} boundary "
+          f"decodes; host reads {p6_reads}; launches {p6_counts}")
+    p7_counts, p7_rec = {}, {}
+    for enc, (lines7, build7) in p7_batches.items():
+        label = "P7 ship-mode join, build key " + (
+            "a DictionaryColumn" if enc else "a StringColumn")
+        plan7 = shipmode_join_tree(m, scan_of(m, lines7), scan_of(m, build7))
+        before = encoded.counters()["dict_hash_tables"]
+        out, counts, reads = drive_batches(
+            label, plan7, ["dict_gather", "dma_row_gather"])
+        tables = encoded.counters()["dict_hash_tables"] - before
+        check_rows(sorted(r for b in out for r in b.to_pylist()), p7_want,
+                   label)
+        want_counts = {"dict_gather": 3 if enc else 1, "dma_row_gather": 2,
+                       "fused_probe_verify": 0, "murmur3_columns": 0}
+        if tables < 1 or any(counts[k] != v
+                             for k, v in want_counts.items()):
+            raise AssertionError(f"{label}: {tables} dictionary hash "
+                                 f"tables, launches {counts} (want "
+                                 f"{want_counts})")
+        key = "dictionary_build" if enc else "string_build"
+        p7_counts[key] = counts
+        p7_rec[key] = {"routes": route_counts(plan7), "host_reads": reads,
+                       "dict_hash_tables": tables}
+        print(f"{label}: 7 groups equal to the numpy oracle; "
+              f"{tables} dictionary hash tables; routes "
+              f"{p7_rec[key]['routes']}; host reads {reads}; launches "
+              f"{counts}")
+    nb = names_batch(names, dev)
+    p8 = names_count_tree(m, scan_of(m, nb))
+    out, p8_counts, p8_reads = drive_batches("P8 count by c_name", p8, [])
+    got = out[0]
+    n8 = got.num_rows_host
+    keys = got.columns[0]
+    lens = (keys.offsets[1:n8 + 1] - keys.offsets[:n8]).cpu().numpy()
+    key_bytes = keys.data[:n8 * names.shape[1]].cpu().numpy()
+    cnt = got.columns[1].data[:n8].cpu().numpy()
+    if len(out) != 1 or n8 != len(names) or (lens != names.shape[1]).any() \
+            or (cnt != 1).any() or not np.array_equal(
+                np.unique(key_bytes.reshape(n8, -1), axis=0),
+                np.unique(names, axis=0)):
+        raise AssertionError(f"P8: {n8} groups, counts {np.unique(cnt)}: "
+                             f"not the {len(names)} names once each")
+    p8_rec = {"routes": route_counts(p8), "host_reads": p8_reads,
+              "groups": n8}
+    print(f"P8 count(*) by {len(names)} distinct c_name keys in one batch: "
+          f"{n8} groups, every count 1, the keys the input's; route "
+          f"{p8_rec['routes']}; host reads {p8_reads}; launches "
+          f"{p8_counts}")
+    compare_string_hashes(names, np.full(len(names), names.shape[1]), dev,
+                          "P8's c_name keys")
+    compare_string_hashes(*hash_probe_strings(), dev,
+                          "random bytes of 0-70 and UTF-8 text")
+    return p6, p6_counts, p6_rec, p7_counts, p7_rec, p8_counts, p8_rec
+
+
 # -- the q3 kernels against their plain versions ----------------------------
 
 def _exact(label, got, want):
@@ -1506,7 +1982,8 @@ class JoinInputs:
 #: stack (the first rule whose functions are all there names it)
 GATHER_SITES = (
     (("groupby_aggregate", "sort_batch_columns"), "group-by sort"),
-    (("sort_batch_columns",), "TopN sort"),
+    (("sort_batch_columns",), "sort"),
+    (("_filter", "compact_columns"), "filter compaction"),
     (("compact_columns",), "exact-tier compaction"),
     (("build",), "build permute"),
     (("_probe_kernel", "gather_batch_columns"), "stream payload"),
@@ -1546,10 +2023,7 @@ def compare_join_inputs(label, inputs, gathers):
     """Each join kernel against its plain version, exactly, on a main
     path's own inputs: the stream keys' hash, the probe, and every row
     gather that the path makes (`capture_row_gathers`)."""
-    import torch
     from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
-    from spark_rapids_tpu_torch.ops import row_gather as rg
-    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
     pair = [oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2]
     _exact(f"murmur3 {label} build pair",
            m3.murmur3_columns(inputs.build_keys, pair),
@@ -1559,6 +2033,24 @@ def compare_join_inputs(label, inputs, gathers):
            m3.murmur3_columns_plain(inputs.stream_keys, pair[:1]))
     hits = compare_probe(f"probe {label}", inputs.probe, inputs.cand_cap,
                          inputs.total)
+    shapes = compare_row_gathers(label, gathers)
+    print(f"compare {label} main-path inputs: murmur3 of "
+          f"{inputs.build_rows} build keys (two seeds) and "
+          f"{inputs.stream_rows} stream keys, probe of {inputs.stream_rows} "
+          f"stream rows into {inputs.build_rows} build rows, candidate "
+          f"total {inputs.total} in {inputs.cand_cap} slots, {hits} "
+          f"verified pairs; row gathers "
+          f"{'; '.join(shapes)}; exact")
+
+
+def compare_row_gathers(label, gathers):
+    """dma_row_gather against its plain version, exactly, at every row
+    gather a main path made (`capture_row_gathers`); returns the shapes."""
+    import torch
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    if not gathers:
+        raise AssertionError(f"{label}: no row gather captured")
     shapes = []
     for site, plan, imat, fmat, idx in gathers:
         got = rg.pallas_gather_rows(plan, imat, fmat, idx)
@@ -1572,13 +2064,49 @@ def compare_join_inputs(label, inputs, gathers):
         lb = 2 * fmat.shape[1] if fmat is not None else 0
         shapes.append(f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
                       f"(la={imat.shape[1]}, lb={lb})")
-    print(f"compare {label} main-path inputs: murmur3 of "
-          f"{inputs.build_rows} build keys (two seeds) and "
-          f"{inputs.stream_rows} stream keys, probe of {inputs.stream_rows} "
-          f"stream rows into {inputs.build_rows} build rows, candidate "
-          f"total {inputs.total} in {inputs.cand_cap} slots, {hits} "
-          f"verified pairs; row gathers "
-          f"{'; '.join(shapes)}; exact")
+    return shapes
+
+
+def capture_dict_gathers(plan):
+    """Run `plan` once under a speculation scope and keep the inputs of
+    every dictionary gather it launches (each `dict_take` goes through
+    ops/dict_gather.dict_gather), in call order: [(table, index)]."""
+    import torch
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    calls, real = [], dg.dict_gather
+
+    def record(table, idx):
+        calls.append((table.clone(), idx.clone()))
+        return real(table, idx)
+
+    # the wrapper counts its launches on the module's `dict_gather`, which
+    # is `record` meanwhile; those launches are the capture's own
+    record.launches = real.launches
+    dg.dict_gather = record
+    try:
+        with speculation_scope():
+            list(plan.execute())
+            torch.cuda.synchronize()
+    finally:
+        dg.dict_gather = real
+    return calls
+
+
+def compare_dict_takes(label, takes):
+    """dict_gather against dict_gather_plain, exactly, at every dictionary
+    gather a main path made (`capture_dict_gathers`); returns the shapes
+    (index rows x lanes into table entries, element bytes)."""
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    if not takes:
+        raise AssertionError(f"{label}: no dictionary gather captured")
+    shapes = []
+    for k, (t, i) in enumerate(takes):
+        _exact(f"dict_gather {label} take {k}", [dg.dict_gather(t, i)],
+               [dg.dict_gather_plain(t, i)])
+        shapes.append(f"{i.shape[0]}x{i.shape[1]} codes into "
+                      f"{t.shape[0]} entries of {t.element_size()} bytes")
+    return shapes
 
 
 # -- bounds -----------------------------------------------------------------
@@ -2044,17 +2572,20 @@ def compare_dict_gather(dev, q19_lines):
           f"{mode.capacity} codes; exact ({dg.sm_count()} SMs)")
 
 
-def time_dict_gather(q19_lines, launches):
+def time_dict_gather(q19_lines, launches, p7_take, p7_launches):
     """The dictionary gather at q19's 1-byte take over the l_shipmode
-    codes and at dg's shape: the kernel's launches alone (its plan and
+    codes, at P7's take of the ship-mode hash table by the stream's codes
+    (`p7_take`: (table, index) as captured) and at dg's shape: the
+    kernel's launches alone (its plan and
     output made once) on the device with L2 cold, the same back to back
     (as PR 3 timed its wrapper), the wrapper's whole call, the plain
     version, the byte bound and the one PyTorch call that computes the
     same function (a table index for one lane; torch.gather) on the same
     inputs, the indices clamped and widened to int64 beforehand (PyTorch
     indexes with int64). Returns the kernel's record at the q19 take (the
-    main path's shape, with its `launches`) holding under "dg_shape" the
-    same times at dg's shape, which no path launches (launches 0)."""
+    main path's shape, with its `launches`) holding under "p7_take" the
+    same times at P7's take (with `p7_launches`, one P7 run's) and under
+    "dg_shape" at dg's shape, which no path launches (launches 0)."""
     import torch
     from spark_rapids_tpu_torch.columnar.encoded import literal_hits
     from spark_rapids_tpu_torch.ops import dict_gather as dg
@@ -2067,11 +2598,17 @@ def time_dict_gather(q19_lines, launches):
     codes = mode.codes.reshape(-1, 1)
     safe64 = codes.clamp(0, hit.shape[0] - 1).reshape(-1).long()
     flat = hit.reshape(-1)
+    p7_table, p7_codes = p7_take
+    p7_flat = p7_table.reshape(-1)
+    p7_safe64 = p7_codes.clamp(0, p7_table.shape[0] - 1).reshape(-1).long()
     out = []
     for label, t, i, lib, n_launches in (
             (f"q19 l_shipmode take, {codes.shape[0]} codes into "
              f"{hit.shape[0]} bool entries", hit, codes,
              lambda: flat[safe64], launches),
+            (f"P7 ship-mode hash take, {p7_codes.shape[0]} codes into "
+             f"{p7_table.shape[0]} int32 entries", p7_table, p7_codes,
+             lambda: p7_flat[p7_safe64], p7_launches),
             ("dg (4096, 128) x (16384, 128) int32", table, idx,
              lambda: torch.gather(table, 0, idx64), 0)):
         rows, lanes = i.shape
@@ -2093,10 +2630,10 @@ def time_dict_gather(q19_lines, launches):
         out.append({"launches": n_launches, "max_abs_err": 0.0, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b[0],
                     "bound_by": b[1], "library_ms": lib_ms})
-    take, dg_shape = out
+    take, p7, dg_shape = out
     return {"name": "dict_gather", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/dict_gather.cu",
-            "replaces": "tools/exp_gather.py:168", **take,
+            "replaces": "tools/exp_gather.py:168", **take, "p7_take": p7,
             "dg_shape": dg_shape}
 
 
@@ -2104,9 +2641,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1, q3 and q19 steady states (device busy "
-             "share, time by kernel) and write their Chrome traces to TRACE "
-             "and TRACE with _q3 or _q19 before its suffix")
+        help="also profile the q1, q3, q19, P6 and P7 steady states "
+             "(device busy share, time by kernel) and write their Chrome "
+             "traces to TRACE and TRACE with _q3, _q19, _p6 or _p7 before "
+             "its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2154,6 +2692,12 @@ def main() -> int:
     q19_want = q19_oracle(d19)
     l19, p19 = q19_batches(d19, dev)
     q19 = q19_plan(port_modules(), l19, p19)
+    q1t_batch = tpch_q1_batch(d19, dev)
+    q1t_want = tpch_q1_oracle(d19)
+    p7_want = shipmode_oracle(d19, shipmode_table()[1])
+    p7_batches = {enc: shipmode_batches(d19, dev, enc)
+                  for enc in (False, True)}
+    names = customer_names(P8_NAMES)
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -2215,6 +2759,27 @@ def main() -> int:
     compare_join_inputs("q3 INT keys", q3i_in, gathers["q3 INT keys"])
     compare_join_inputs("q19", q19_in, gathers["q19"])
     compare_dict_gather(dev, l19)
+    # the string paths' own gathers (phase 3b drives them): P6's filter
+    # compaction and sort, P7's build permute and payloads, and P7's
+    # dictionary-hash takes by the stream's codes
+    pm = port_modules()
+    gathers["P6"] = capture_row_gathers(tpch_q1_tree(pm,
+                                                     scan_of(pm, q1t_batch)))
+    p7_takes = {}
+    for enc, (lines7, build7) in p7_batches.items():
+        key = "P7 dictionary build" if enc else "P7 string build"
+        gathers[key] = capture_row_gathers(shipmode_join_tree(
+            pm, scan_of(pm, lines7), scan_of(pm, build7)))
+        p7_takes[key] = capture_dict_gathers(shipmode_join_tree(
+            pm, scan_of(pm, lines7), scan_of(pm, build7)))
+    for key in ("P6", "P7 string build", "P7 dictionary build"):
+        print(f"compare {key} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
+    for key, takes in p7_takes.items():
+        if not any(i.shape[0] >= q1t_batch.num_rows_host for _, i in takes):
+            raise AssertionError(f"{key}: no take by the stream's codes")
+        print(f"compare {key} main-path dictionary gathers: "
+              f"{'; '.join(compare_dict_takes(key, takes))}; exact")
     torch.cuda.synchronize()
 
     # -- phase 3: the main paths, counted -----------------------------------
@@ -2365,6 +2930,14 @@ def main() -> int:
           f"launches {p5_counts} (phase 3's q19: {q19_counts})")
     print(f"P4 and P5 (phase 3b): {time.perf_counter() - t_scan:.1f} s")
 
+    # -- phase 3b, slice 6: string keys ------------------------------------
+    t_str = time.perf_counter()
+    m = port_modules()
+    strings = drive_string_paths(m, dev, q1t_batch, q1t_want, p7_batches,
+                                 p7_want, names)
+    p6, p6_counts, p6_rec, p7_counts, p7_rec, p8_counts, p8_rec = strings
+    print(f"P6-P8 (phase 3b): {time.perf_counter() - t_str:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -2490,6 +3063,28 @@ def main() -> int:
     print(f"P4, P5 and the upload rates (phase 4): "
           f"{time.perf_counter() - t_scan:.1f} s")
 
+    # P6 and P7 in steady state, as Q19 (one synchronisation per run of
+    # iterations); each run reads its hash route's leftover flag
+    def steady_ms(plan_):
+        list(plan_.execute())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(P6_ITERS):
+            list(plan_.execute())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / P6_ITERS
+
+    p6_rec["ms"] = steady_ms(p6)
+    print(f"P6 TPC-H Q1 steady state: {p6_rec['ms']:.3f} ms/iteration "
+          f"({P6_ITERS} iterations, one sync)")
+    for enc, (lines7, build7) in p7_batches.items():
+        key = "dictionary_build" if enc else "string_build"
+        p7_rec[key]["ms"] = steady_ms(
+            shipmode_join_tree(m, scan_of(m, lines7), scan_of(m, build7)))
+        print(f"P7 ship-mode join ({key}) steady state: "
+              f"{p7_rec[key]['ms']:.3f} ms/iteration ({P6_ITERS} "
+              f"iterations, one sync)")
+
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
     b2b_ms = cuda_ms(launch, KERNEL_REPS)
@@ -2521,9 +3116,13 @@ def main() -> int:
     }] + time_murmur3(q3_in, q3i_in, q19_in, q3_counts, q3i_counts) + [
         time_probe(q3_in, q19_in, {"q3": q3_counts["fused_probe_verify"],
                                    "q19": q19_counts["fused_probe_verify"]}),
-        time_row_gathers({k: gathers[k] for k in ("q3", "q19")},
-                         q3_counts["dma_row_gather"]),
-        time_dict_gather(l19, q19_counts["dict_gather"])]
+        time_row_gathers({k: gathers[k] for k in (
+            "q3", "q19", "P6", "P7 string build", "P7 dictionary build")},
+            q3_counts["dma_row_gather"]),
+        time_dict_gather(l19, q19_counts["dict_gather"],
+                         max(p7_takes["P7 string build"],
+                             key=lambda ti: ti[1].shape[0]),
+                         p7_counts["string_build"]["dict_gather"])]
     # after the kernel timings: a profiled process times short launches
     # slower and less evenly
     if args.profile:
@@ -2532,13 +3131,25 @@ def main() -> int:
             args.profile.stem + "_q3" + args.profile.suffix))
         profile_plan("q19", q19, Q19_ITERS, args.profile.with_name(
             args.profile.stem + "_q19" + args.profile.suffix))
+        profile_plan("P6", p6, P6_ITERS, args.profile.with_name(
+            args.profile.stem + "_p6" + args.profile.suffix))
+        lines7, build7 = p7_batches[False]
+        profile_plan("P7", shipmode_join_tree(
+            m, scan_of(m, lines7), scan_of(m, build7)), P6_ITERS,
+            args.profile.with_name(args.profile.stem + "_p7"
+                                   + args.profile.suffix))
     for r in records:
         r["path_launches"] = {
             "P1_q19_decoded": p1_counts.get(r["name"], 0),
             "P2_q3_budget": p2_counts.get(r["name"], 0),
             "P3_sort_out_of_core": p3_counts.get(r["name"], 0),
             "P4_q3_from_host": p4_counts[2].get(r["name"], 0),
-            "P5_q19_from_host": p5_counts.get(r["name"], 0)}
+            "P5_q19_from_host": p5_counts.get(r["name"], 0),
+            "P6_tpch_q1": p6_counts.get(r["name"], 0),
+            "P7_string_join": p7_counts["string_build"].get(r["name"], 0),
+            "P7_dictionary_join": p7_counts["dictionary_build"].get(
+                r["name"], 0),
+            "P8_names_count": p8_counts.get(r["name"], 0)}
     print(json.dumps({"paths": {
         "P1": dict(dec, host_reads=p1_reads, ms=q19_ms),
         "P2": p2_rec, "P3": p3_rec, "spill_gb_s": rates,
@@ -2549,7 +3160,7 @@ def main() -> int:
         "P5": {"ms": p5_ms, "first_run_ms": p5_first_ms, "io": p5_io,
                "launches": p5_counts, "pool_misses": p5_misses,
                "pinned_alloc_ms": pinned_ms},
-        "ingest": ingest}}))
+        "ingest": ingest, "P6": p6_rec, "P7": p7_rec, "P8": p8_rec}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

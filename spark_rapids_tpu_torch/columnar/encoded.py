@@ -22,10 +22,15 @@ bucket sized by one host read per column (`decoded_byte_bucket`).
 `collect()` lets encoded root batches out, since `to_pylist` decodes on
 the host.
 
+Join keys: a hash join hashes a dictionary key's entries once
+(`dictionary_hashes`, counted in `dict_hash_tables`) and takes each row's
+hash by code; the key verify compares bytes through (start, length) spans
+into the original buffers (`row_byte_lanes`, `bytes_equal_at`), since two
+sides' dictionaries differ and code equality means nothing across them.
+
 The scan builds a DictionaryColumn from an Arrow dictionary array
 (`dictionary_from_arrow`, io/parquet.py) or from numpy
-(`dictionary_from_numpy`). Not ported yet (ROADMAP A.5):
-`dictionary_hashes` and string-key joins.
+(`dictionary_from_numpy`).
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ from .column import (Column, StringColumn, _pad_np, bucket_capacity,
 
 __all__ = ["NULL_CODE", "SCAN_ENCODED", "DictionaryColumn",
            "dictionary_from_numpy", "dictionary_from_arrow",
-           "dict_take", "literal_hits", "encoded_equal_literal",
+           "dict_take", "dictionary_hashes", "row_byte_lanes",
+           "bytes_equal_rows", "bytes_equal_at", "literal_hits",
+           "encoded_equal_literal",
            "batch_has_encoded", "decoded_byte_bucket", "materialize_column",
            "materialize_batch", "counters"]
 
@@ -58,6 +65,7 @@ _COUNTERS = {
     "code_space_predicates": 0,  # predicates evaluated on int32 codes
     "materializations": 0,       # columns decoded (one host read each)
     "materialized_bytes": 0,     # byte buckets of the decoded columns
+    "dict_hash_tables": 0,       # per-dictionary murmur3 tables
 }
 
 
@@ -230,6 +238,77 @@ def dict_take(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                          nbytes=rows * table.element_size())
     return dict_gather(table.reshape(-1, 1),
                        codes.to(torch.int32).reshape(-1, 1)).reshape(rows)
+
+
+def dictionary_hashes(col: DictionaryColumn, seed: int) -> torch.Tensor:
+    """murmur3 of every dictionary entry, once (int32 bits,
+    (dict_capacity,)): a join's per-row hashes are then one dict_take of
+    this table by the code lane instead of a hash per row."""
+    from ..ops.hashing import murmur3_string
+    _note(dict_hash_tables=1)
+    return murmur3_string(col.dict_view(), seed)
+
+
+# -- byte spans: hashing and the join's key verify without a decode ---------
+
+def row_byte_lanes(col):
+    """(lengths, starts, data): each row's byte span in a flat buffer, for
+    a StringColumn or a DictionaryColumn (whose rows point through their
+    codes into the dictionary's bytes; null rows have length 0)."""
+    if isinstance(col, DictionaryColumn):
+        dlens = col.dict_offsets[1:] - col.dict_offsets[:-1]
+        safe = torch.clamp(col.codes, 0, col.dict_capacity - 1).long()
+        lengths = torch.where(col.validity, dlens[safe], 0)
+        return lengths, col.dict_offsets[:-1][safe], col.dict_data
+    from ..ops.strings import string_lengths
+    return string_lengths(col), col.offsets[:-1], col.data
+
+
+def _bytes_equal_spans(la, sa, da, lb, sb, db) -> torch.Tensor:
+    """Byte equality of the spans (sa, la) of `da` and (sb, lb) of `db`,
+    row by row, eight bytes a step up to the longest common length (one
+    host read: the loop's bound). The port's one byte-span comparator:
+    the join's key verify, the hash group-by's key check
+    (ops/hashagg._keys_equal_rows) and ops/strings.string_equal."""
+    ok = la == lb
+    longest = torch.where(ok, la, 0)
+    steps = -(-int(longest.max()) // 8) if longest.numel() else 0
+    j = torch.arange(8, dtype=torch.int64, device=la.device)
+    sa, sb, la = sa.to(torch.int64), sb.to(torch.int64), la.to(torch.int64)
+    for step in range(steps):
+        off = 8 * step
+        pa = torch.clamp(sa[:, None] + off + j, 0, da.shape[0] - 1)
+        pb = torch.clamp(sb[:, None] + off + j, 0, db.shape[0] - 1)
+        same = (da[pa] == db[pb]) | ((off + j)[None, :] >= la[:, None])
+        ok = ok & torch.all(same, dim=1)
+    return ok
+
+
+def bytes_equal_rows(a, b) -> torch.Tensor:
+    """Row-wise byte equality of two varlen columns (string or dictionary,
+    any mix), validity aside: callers AND it in."""
+    return _bytes_equal_spans(*row_byte_lanes(a), *row_byte_lanes(b))
+
+
+def _span_lanes_at(col, idx):
+    """(lengths, starts, data, validity) of col[idx] as spans into col's
+    own buffer, nothing gathered byte by byte; indices out of range give
+    invalid rows of length 0."""
+    lengths, starts, data = row_byte_lanes(col)
+    in_range = (idx >= 0) & (idx < lengths.shape[0])
+    safe = torch.where(in_range, idx, 0).long()
+    valid = col.validity[safe] & in_range
+    return torch.where(valid, lengths[safe], 0), starts[safe], data, valid
+
+
+def bytes_equal_at(a, a_idx, b, b_idx) -> torch.Tensor:
+    """The join's varlen key verify: a[a_idx] equals b[b_idx] byte for
+    byte and both are valid. It compares spans into the original buffers:
+    a gather of the candidates' bytes would need a byte bucket sized for
+    the join's fan-out, not the batch's."""
+    la, sa, da, va = _span_lanes_at(a, a_idx)
+    lb, sb, db, vb = _span_lanes_at(b, b_idx)
+    return _bytes_equal_spans(la, sa, da, lb, sb, db) & va & vb
 
 
 def literal_hits(col: DictionaryColumn, value) -> torch.Tensor:

@@ -20,6 +20,15 @@ are held as SpillableBatches and merge pairwise on the device
 (`_tree_merge_device`), MERGE_FAN_IN at a time, and big ones shrink to a
 tight bucket after one host read.
 
+String keys or buffers (`_masked_ok` False) have no masked buckets: the
+aggregate absorbs no chain and runs the exact drive, each source batch
+and each merge through the hash group-by (ops/hashagg.py) at 2 rounds,
+then at 6, then the sort-based group-by with string lanes; the route
+reads `leftover` on the host after each hash attempt, as the JAX package
+does, and counts the route that produced the result (`hash_rounds_2`,
+`hash_rounds_6`, `sort_fallback`). Its partials merge by one concat and
+one re-aggregation.
+
 Both tiers run each source batch as a SpillableBatch under
 `with_retry(..., split_in_half_by_rows)`, and the merge of the held
 partials under `with_retry` with a policy that splits the set of
@@ -41,21 +50,28 @@ from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
 from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
+from ..ops.aggregate import groupby_aggregate, groupby_aggregate_hash
 from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
     masked_groupby, masked_groupby_exact, masked_reduce,
 )
-from ..types import Schema, StructField
+from ..types import BinaryType, Schema, StringType, StructField
 from .base import AGG_TIME, TpuExec
 from .basic import (bind_projection, eval_projection, projection_schema,
                     run_spillable)
+from .joins import concat_batches
 from .speculation import current_scope, speculation_allowed
 
 #: buckets per round and rounds of the masked-bucket group-by (the JAX
 #: package's defaults for the same settings)
 GROUP_SLOTS = 32
 ROUNDS = 2
+
+#: the string-key routes, counted by the one that produced a result
+HASH_ROUNDS = (2, 6)
+HASH_ROUTE = "hash_rounds_{}"
+SORT_FALLBACK = "sort_fallback"
 
 
 def _result_column(data, valid, dtype) -> Column:
@@ -95,9 +111,10 @@ class AggregateExec(TpuExec):
         self._buffer_schema = self._make_buffer_schema()
 
         # whole-stage fusion: inline the upstream filter/project chain
-        # into this operator's per-batch step
+        # into this operator's per-batch step (masked buckets only: the
+        # string route reads its child's batches)
         steps, node = [], child
-        while hasattr(node, "fused_step"):
+        while self._masked_ok and hasattr(node, "fused_step"):
             steps.append(node.fused_step())
             node = node.child
         self._fused_steps = list(reversed(steps))
@@ -106,7 +123,7 @@ class AggregateExec(TpuExec):
         # the fused scan-aggregate kernel, when every absorbed expression
         # is in its whitelist
         self._scan_agg_spec = None
-        if self.group_exprs:
+        if self.group_exprs and self._masked_ok:
             agg_op_slots = []
             for i, (fn, _) in enumerate(self.aggregates):
                 for op, slot in fn.update_ops():
@@ -132,7 +149,30 @@ class AggregateExec(TpuExec):
         return Schema(tuple(key_fields + agg_fields))
 
     def additional_metrics(self):
-        return (AGG_TIME,)
+        return (AGG_TIME, SORT_FALLBACK) + tuple(
+            HASH_ROUTE.format(r) for r in HASH_ROUNDS)
+
+    @property
+    def _masked_ok(self) -> bool:
+        """True when the masked-bucket tiers apply: every key and buffer is
+        fixed-width (strings have no masked order lanes)."""
+        return not any(isinstance(f.data_type, (StringType, BinaryType))
+                       for f in self._buffer_schema.fields)
+
+    @property
+    def _hash_path_ok(self) -> bool:
+        """The hash group-by serves every aggregate but min/max over a
+        string buffer, which needs order lanes (update and merge both see
+        them as min/max over the string buffer)."""
+        pos = self._key_count
+        for fn, _ in self.aggregates:
+            for op in fn.merge_ops():
+                bt = self._buffer_schema.fields[pos].data_type
+                if op in ("min", "max") and isinstance(
+                        bt, (StringType, BinaryType)):
+                    return False
+                pos += 1
+        return True
 
     # -- per-batch step ----------------------------------------------------
     def _update_inputs(self, batch: ColumnarBatch):
@@ -178,6 +218,9 @@ class AggregateExec(TpuExec):
         cols = list(out_keys)
         buf_fields = self._buffer_schema.fields[self._key_count:]
         for r, f in zip(results, buf_fields):
+            if r[0] == "col":
+                cols.append(r[1])
+                continue
             data, valid = r[1]
             cols.append(_result_column(data, valid, f.data_type))
         return ColumnarBatch(cols, num_groups, self._buffer_schema)
@@ -265,9 +308,41 @@ class AggregateExec(TpuExec):
     def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Re-aggregate a keys+buffers batch with the merge ops (the JAX
         package's auto path: masked buckets, sort-based when rows are left
-        over)."""
+        over; the string route without masked buckets)."""
         keys, agg_inputs = self._merge_inputs(batch)
-        return self._run_groupby(keys, agg_inputs, batch)
+        if self._masked_ok:
+            return self._run_groupby(keys, agg_inputs, batch)
+        return self._string_route(keys, agg_inputs, batch)
+
+    def _update_and_aggregate(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Exact first pass of one source batch."""
+        if self._masked_ok:
+            return self._fused_update_exact(batch)
+        pre = eval_projection(self._pre_bound, batch, self._pre_schema)
+        keys, agg_inputs = self._update_inputs(pre)
+        return self._string_route(keys, agg_inputs, pre)
+
+    def _string_route(self, keys, agg_inputs, batch: ColumnarBatch
+                      ) -> ColumnarBatch:
+        """Group-by without masked buckets: the hash path at 2 rounds, then
+        6, then the exact sort path with string lanes that cover the
+        longest string key or min/max input. Each hash attempt costs one
+        host read of its `leftover` flag."""
+        if not keys:
+            return self._run_groupby(keys, agg_inputs, batch)
+        n, cap = batch.num_rows, batch.capacity
+        if self._hash_path_ok:
+            for rounds in HASH_ROUNDS:
+                out_keys, results, num_groups, leftover = \
+                    groupby_aggregate_hash(keys, agg_inputs, n, cap, rounds)
+                if not bool(leftover):
+                    self.metrics[HASH_ROUTE.format(rounds)].add(1)
+                    return self._build_small_batch(out_keys, results,
+                                                   num_groups)
+        self.metrics[SORT_FALLBACK].add(1)
+        out_keys, results, num_groups = groupby_aggregate(
+            keys, agg_inputs, n, cap)
+        return self._build_small_batch(out_keys, results, num_groups)
 
     def _fused_update_exact(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Exact tier, one source batch: fused steps -> pre-project ->
@@ -353,7 +428,10 @@ class AggregateExec(TpuExec):
             try:
                 for s in items:
                     batches.append(s.get_batch())
-                return self._tree_merge_device(batches)
+                if self._masked_ok:
+                    return self._tree_merge_device(batches)
+                return self._merge_batch(concat_batches(
+                    batches, self._buffer_schema))
             finally:
                 # an acquire that raised leaves the rest unpinned
                 for s in items[:len(batches)]:
@@ -375,7 +453,7 @@ class AggregateExec(TpuExec):
             with agg_time.ns_timer():
                 for batch in self._source.execute():
                     for out in run_spillable(batch,
-                                             self._fused_update_exact):
+                                             self._update_and_aggregate):
                         self._absorb_partial(aggregated, out)
                 if not aggregated:
                     if self.group_exprs:
@@ -405,7 +483,7 @@ class AggregateExec(TpuExec):
         return [self._source]
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
-        if self._spec_enabled and speculation_allowed():
+        if self._masked_ok and self._spec_enabled and speculation_allowed():
             yield from self._execute_speculative()
         else:
             yield from self._execute_exact()

@@ -1,5 +1,5 @@
 """HashJoinExec — the counterpart of spark_rapids_tpu/exec/joins.py for
-INNER equi-joins on integer-like keys, with an optional residual condition.
+INNER equi-joins, with an optional residual condition.
 
 Per stream batch:
   1. `_counts_kernel`: the stream keys (an absorbed child filter ANDed
@@ -8,11 +8,16 @@ Per stream batch:
   2. the candidate bucket: measured (one host read of the total) or,
      inside a speculation scope, the bucket cached for this shape, with a
      device flag recorded with the scope in case the total outgrew it;
-  3. `_probe_kernel`: the fused probe-verify kernel
-     (ops/probe_verify.fused_probe_verify), the residual condition over
-     the candidate pairs (`_eval_condition`), then key-grouped emission —
-     one sort puts verified pairs first with equal join keys contiguous —
-     and one packed payload gather per side (ops/gather); dictionary
+  3. `_probe_kernel`: for integer-like keys the fused probe-verify
+     kernel (ops/probe_verify.fused_probe_verify), for key lists with a
+     string or dictionary key the candidate expansion and the key verify of
+     ops/join.py (`expand_candidates`, `verify_pairs`, a varlen key byte
+     for byte through spans into each side's own buffers); the residual
+     condition over the candidate pairs (`_eval_condition`); then the
+     emission, key-grouped for integer-like keys (one sort puts verified
+     pairs first with equal join keys contiguous), in candidate order
+     otherwise (a stable compaction), as the JAX package emits; and one
+     packed payload gather per side (ops/gather); string and dictionary
      columns ride the per-column path by row index.
 
 Dictionary-encoded columns stay encoded through the join when the
@@ -21,10 +26,12 @@ absorbed filters and the condition evaluate in code space
 before the concat (distinct dictionaries do not concatenate), as the JAX
 package does at its "concat" seam. Decoded string payloads gather into
 byte buckets sized by their measured join need, read with the candidate
-total. The JAX package picks between this fused route and
-an XLA expand-then-verify route by measurement; the port has the one
-route. Other join types and non-integer keys raise NotImplementedError
-(ROADMAP A.3).
+total. The JAX package picks between the fused route and its XLA
+expand-then-verify route by measurement; the port takes the fused route
+for integer-like keys of equal widths, the other for key lists with a
+string or dictionary key. Other join types, and other fixed-width keys
+(floating-point, unequal widths), raise NotImplementedError (ROADMAP
+A.3).
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ from ..columnar.encoded import DictionaryColumn, materialize_batch
 from ..expr.core import Expression, UnresolvedAttribute, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops import gather as G
-from ..ops.basic import active_mask, concat_columns, gather_column
+from ..ops.basic import (active_mask, compaction_order, concat_columns,
+                         gather_column)
 from ..ops.hashing import u32_of
-from ..ops.join import BuildTable, int_key_lanes, probe_counts
+from ..ops.join import (BuildTable, expand_candidates, int_key_lanes,
+                        probe_counts, verify_pairs)
 from ..ops.probe_verify import fused_probe_verify
 from ..ops.rowpack import unpack_rows
 from ..ops.sort import lexsort
@@ -172,9 +181,13 @@ class HashJoinExec(TpuExec):
 
     @property
     def output_grouped_by(self):
-        """Output batches are emitted key-grouped: one equivalence class
-        per key pair (left key == right key on every emitted row), by the
-        names the output schema carries once."""
+        """Output batches of fixed-width keys are emitted key-grouped: one
+        equivalence class per key pair (left key == right key on every
+        emitted row), by the names the output schema carries once. String
+        keys are emitted in candidate order (None)."""
+        if not all(e.data_type.is_fixed_width
+                   for e in self._stream_keys + self._build_keys):
+            return None
         out_names = [f.name for f in self.output_schema.fields]
         classes = []
         for lk, rk in zip(self.left_keys, self.right_keys):
@@ -196,6 +209,8 @@ class HashJoinExec(TpuExec):
             if isinstance(c, DictionaryColumn):
                 out.append(DictionaryColumn(c.codes, c.dict_data,
                                             c.dict_offsets, v, c.dtype))
+            elif isinstance(c, StringColumn):
+                out.append(StringColumn(c.data, c.offsets, v, c.dtype))
             else:
                 out.append(Column(c.data, v, c.dtype))
         return out
@@ -227,13 +242,8 @@ class HashJoinExec(TpuExec):
                                             device=child.device)
             keys = self._key_columns(self._build_keys, self._filters[b],
                                      batch)
-            table = BuildTable.build(keys, list(batch.columns),
-                                     batch.num_rows, batch.capacity)
-        if table.key_lanes is None:
-            raise NotImplementedError(
-                "join keys other than integer-like wait for a later slice "
-                "(ROADMAP A.3)")
-        return table
+            return BuildTable.build(keys, list(batch.columns),
+                                    batch.num_rows, batch.capacity)
 
     # -- probe -------------------------------------------------------------
     def internal_execute(self) -> Iterator[ColumnarBatch]:
@@ -312,30 +322,44 @@ class HashJoinExec(TpuExec):
                       s_caps=(), b_caps=()) -> ColumnarBatch:
         plan_p, pmat_b, pfmat_b, ppi, poi = build.pack
         sk = int_key_lanes(skey_cols)
-        bk_lanes, bvalid = build.key_lanes
-        if sk is None or sk[0].shape[1] != bk_lanes.shape[1]:
+        fused = build.key_lanes is not None and sk is not None \
+            and sk[0].shape[1] == build.key_lanes[0].shape[1]
+        if fused:
+            bk_lanes, bvalid = build.key_lanes
+            sk_lanes, svalid = sk
+            verified, s_idx, b_pos, b_row = fused_probe_verify(
+                lo, counts, bk_lanes, bvalid, sk_lanes, svalid, build.perm,
+                cand_cap)
+        elif not any(isinstance(c, (StringColumn, DictionaryColumn))
+                     for c in skey_cols):
             raise NotImplementedError(
-                "join keys of unequal widths or non-integer types wait for "
-                "a later slice (ROADMAP A.3)")
-        sk_lanes, svalid = sk
-        verified, s_idx, b_pos, b_row = fused_probe_verify(
-            lo, counts, bk_lanes, bvalid, sk_lanes, svalid, build.perm,
-            cand_cap)
+                "join keys of unequal widths or floating-point types wait "
+                "for a later slice (ROADMAP A.3)")
+        else:
+            s_idx, b_pos, _ = expand_candidates(lo, counts, cand_cap)
+            pair_valid = s_idx >= 0
+            b_pos = torch.where(pair_valid, b_pos, -1)
+            verified, b_row = verify_pairs(build, skey_cols, s_idx, b_pos,
+                                           pair_valid)
         if self._cond_bound is not None:
             verified = verified & self._eval_condition(
                 build, stream_batch, s_idx, b_row, s_caps, b_caps)
 
-        # key-grouped emission: verified pairs first, equal join keys
-        # contiguous (any consistent total order over the key bits groups
-        # them), so a downstream group-by on the keys may skip its sort
         dev = verified.device
-        kflag = verified & active_mask(total_dev, cand_cap, dev)
-        safe_c = torch.clamp(b_pos, 0, bk_lanes.shape[0] - 1).long()
-        klanes = torch.where(kflag[:, None], bk_lanes[safe_c], 0)
-        perm_c = lexsort([((~kflag).to(torch.int64), 1)]
-                         + [(u32_of(klanes[:, j]), 32)
-                            for j in range(klanes.shape[1])])
-        n_pairs = torch.sum(kflag, dtype=torch.int32)
+        if fused:
+            # key-grouped emission: verified pairs first, equal join keys
+            # contiguous (any consistent total order over the key bits
+            # groups them), so a downstream group-by may skip its sort
+            kflag = verified & active_mask(total_dev, cand_cap, dev)
+            safe_c = torch.clamp(b_pos, 0, bk_lanes.shape[0] - 1).long()
+            klanes = torch.where(kflag[:, None], bk_lanes[safe_c], 0)
+            perm_c = lexsort([((~kflag).to(torch.int64), 1)]
+                             + [(u32_of(klanes[:, j]), 32)
+                                for j in range(klanes.shape[1])])
+            n_pairs = torch.sum(kflag, dtype=torch.int32)
+        else:
+            # verified pairs first, in candidate order
+            perm_c, n_pairs = compaction_order(verified, total_dev)
 
         # ONE index materialization of the compacted pairs, then one
         # packed payload gather per side; dictionary columns of the build

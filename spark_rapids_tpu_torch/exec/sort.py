@@ -15,6 +15,12 @@ lanes), and holds the merged chunks of an intermediate pass spillable.
 The device footprint is bounded by the fan-in times the chunk size,
 whatever the input size. With a `limit` (TopNExec) each sorted run keeps
 its first `limit` rows, and the merge stays in memory.
+
+String keys order by prefix lanes (ops/sort.string_order_lanes: the
+prefix, then the length) at a word count that covers the batch's longest key (`string_words_for`, one
+host read per string key and batch). The streamed merge compares lanes
+across runs, so every head's lanes are built at one word count, the
+largest any live head needs; a head that needs more rebuilds them all.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from ..expr.core import BoundReference, resolve
 from ..memory.retry import with_retry_no_split
 from ..memory.spillable import SpillableBatch
 from ..ops.basic import active_mask, sanitize, slice_rows
-from ..ops.sort import SortOrder, order_key_lanes, sort_batch_columns
+from ..ops.sort import (SortOrder, order_key_lanes, sort_batch_columns,
+                        string_words_for)
 from ..types import Schema
 from .base import TpuExec
 from .basic import run_spillable
@@ -122,9 +129,14 @@ class SortExec(TpuExec):
     def additional_metrics(self):
         return (SORT_TIME, MERGE_PASSES, MERGE_HOST_READS)
 
+    def _string_words(self, batch: ColumnarBatch) -> int:
+        return string_words_for(batch.columns,
+                                [o.ordinal for o in self.orders])
+
     def _sort_one(self, batch: ColumnarBatch) -> ColumnarBatch:
         cols, _ = sort_batch_columns(batch.columns, self.orders,
-                                     batch.num_rows, batch.capacity)
+                                     batch.num_rows, batch.capacity,
+                                     self._string_words(batch))
         out = ColumnarBatch(cols, batch.num_rows, batch.schema,
                             batch._host_rows)
         if self.limit is None:
@@ -245,17 +257,22 @@ class SortExec(TpuExec):
                                      for c in batch.columns], m,
                                     batch.schema)
 
-        def lanes_of(h: ColumnarBatch):
+        def lanes_of(h: ColumnarBatch, words: int):
             # without the activity lane
             return [lane for lane, _ in order_key_lanes(
-                h.columns, self.orders, h.num_rows, h.capacity)[1:]]
+                h.columns, self.orders, h.num_rows, h.capacity, words)[1:]]
 
+        # lanes per head, rebuilt when the head changes or the common
+        # string word count grows (lanes of two widths do not compare)
         lane_cache: dict = {}
+        words_cache: dict = {}
+        words = 1
         while True:
             for i, q in enumerate(queues):
                 if heads[i] is None and q:
                     heads[i] = _take(q.pop(0))
                     lane_cache.pop(i, None)
+                    words_cache[i] = self._string_words(heads[i])
             live = [i for i, h in enumerate(heads) if h is not None]
             if not live:
                 return
@@ -267,9 +284,13 @@ class SortExec(TpuExec):
                     if len(batches) > 1 else batches[0]
                 yield from emit(self._sort_one(merged))
                 return
+            need = max(words_cache[i] for i in live)
+            if need > words:
+                lane_cache.clear()
+                words = need
             for i in live:
                 if i not in lane_cache:
-                    lane_cache[i] = lanes_of(heads[i])
+                    lane_cache[i] = lanes_of(heads[i], words)
             # the bound: the lexicographic min of the constrainers' last
             # rows
             bound = None

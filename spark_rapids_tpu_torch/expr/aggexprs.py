@@ -1,11 +1,12 @@
 """Declarative aggregate functions — the counterpart of
-spark_rapids_tpu/expr/aggexprs.py for Sum, Count, Min and Max. Each
+spark_rapids_tpu/expr/aggexprs.py for Sum, Count, Min, Max and Average. Each
 function declares its buffer ops for the masked-bucket group-by
 (ops/maskedagg.py, ops/fused_scan_agg.py) and a final `evaluate`.
 
 Spark semantics:
   * sum(int*) -> long, sum(float|double) -> double; all-null group -> null
   * count(x) counts non-null, count(*) counts rows; never null
+  * avg -> double, from (sum, count) buffers; null when the count is 0
   * min/max ignore nulls; null for all-null groups
 """
 
@@ -131,3 +132,28 @@ class Max(Min):
 
     def merge_ops(self):
         return ["max"]
+
+
+class Average(AggregateFunction):
+    name = "avg"
+
+    def update_ops(self):
+        return [("sum", 0), ("count", 0)]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def buffer_types(self, input_types):
+        return [DoubleType(), LongType()]
+
+    def result_type(self, input_types):
+        return DoubleType()
+
+    def evaluate(self, buffers, input_types):
+        s, c = buffers
+        cnt = torch.where(c.validity, c.data, torch.zeros_like(c.data))
+        ok = (cnt > 0) & s.validity
+        denom = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+        data = s.data.to(torch.float64) / denom.to(torch.float64)
+        return Column(torch.where(ok, data, torch.zeros_like(data)), ok,
+                      DoubleType())

@@ -12,12 +12,14 @@ these evaluation rules, null rules included, one row at a time.
 
 from __future__ import annotations
 
+import datetime
 from typing import List, Optional, Sequence
 
 import torch
 
 from ..columnar.column import Column
-from ..types import BOOLEAN, DOUBLE, INT, LONG, STRING, DataType, StringType
+from ..types import (BOOLEAN, DATE, DOUBLE, INT, LONG, STRING, DataType,
+                     StringType)
 
 
 class Expression:
@@ -125,11 +127,16 @@ class LeafExpression(Expression):
 
 
 class Literal(LeafExpression):
+    """A constant. A `datetime.date` is a DATE literal, held as its days
+    since the epoch (the column's int32 value)."""
+
     def __init__(self, value, dtype: Optional[DataType] = None):
         if value is None:
             raise NotImplementedError("null literals wait for a later slice")
-        self.value = value
         self._dtype = dtype or _infer_literal_type(value)
+        if isinstance(value, datetime.date):
+            value = (value - _EPOCH).days
+        self.value = value
 
     @property
     def data_type(self):
@@ -156,7 +163,15 @@ class Literal(LeafExpression):
         return f"lit({self.value!r})"
 
 
+_EPOCH = datetime.date(1970, 1, 1)
+
+
 def _infer_literal_type(value) -> DataType:
+    if isinstance(value, datetime.datetime):
+        raise TypeError("timestamp literals wait for a later slice "
+                        "(ROADMAP A.8)")
+    if isinstance(value, datetime.date):
+        return DATE
     if isinstance(value, bool):
         return BOOLEAN
     if isinstance(value, int):

@@ -1,5 +1,5 @@
 """Equi-join gather-map ops — the counterpart of spark_rapids_tpu/ops/join.py
-for fixed-width keys.
+for fixed-width, string and dictionary keys.
 
 No device hash table with collision chains: the build side sorts by a
 pair of u32 murmur3 hashes, a top-B-bits bucket offsets table gives each
@@ -11,6 +11,17 @@ keys.
 Hash lanes are int32 tensors holding u32 bits (ops/hashing.py); wherever
 their unsigned value matters (the bucket shift, the sort) they widen to
 int64 with `u32_of`.
+
+Integer-like keys hash through the murmur3 kernel's chain
+(ops/murmur3_lanes.murmur3_columns) and verify in the probe kernel
+(ops/probe_verify.py) against the build side's u32 key lanes. A key list
+with a string or dictionary column hashes through ops/hashing's
+murmur3_batch, a dictionary by its entries once (`dictionary_hashes`, then
+a `dict_take` by code), so that a string and its encoded form land in the
+same bucket; it expands its candidates (`expand_candidates`) and verifies
+them here (`verify_pairs`), a varlen key byte for byte through spans into
+both sides' own buffers (columnar/encoded.bytes_equal_at): the two sides'
+dictionaries differ, and code equality means nothing across them.
 """
 
 from __future__ import annotations
@@ -19,9 +30,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
+from ..columnar.encoded import DictionaryColumn, bytes_equal_at
 from .basic import active_mask, compaction_order, gather_column
-from .hashing import u32_of
+from .hashing import _is_varlen, murmur3_batch, u32_of
 from .murmur3_lanes import murmur3_columns
 from .rowpack import pack_rows
 from .sort import lexsort
@@ -32,10 +44,15 @@ JOIN_HASH_SEED2 = 0x85EB_CA6B
 
 def join_hash_pair(key_cols: Sequence[Column], lo_too: bool = True):
     """Internal join bucket hash: murmur3 chains of the keys from two
-    independent seeds (u32 bits), the second only when `lo_too`; both
-    from one read of the keys, one launch on a card."""
+    independent seeds (u32 bits), the second only when `lo_too`. Fixed-
+    width keys hash both seeds from one read of the keys, one launch on a
+    card; a key list with a string or dictionary column hashes each seed
+    through murmur3_batch."""
     seeds = (JOIN_HASH_SEED, JOIN_HASH_SEED2) if lo_too else (JOIN_HASH_SEED,)
-    h = murmur3_columns(list(key_cols), seeds)
+    if any(_is_varlen(c) for c in key_cols):
+        h = [murmur3_batch(key_cols, seed) for seed in seeds]
+    else:
+        h = murmur3_columns(list(key_cols), seeds)
     return h[0], (h[1] if lo_too else None)
 
 
@@ -63,6 +80,8 @@ def int_key_lanes(key_cols: Sequence[Column]
     lanes = []
     valid = None
     for c in key_cols:
+        if type(c) is not Column:
+            return None
         d = c.data
         if d.dtype.is_floating_point:
             return None
@@ -96,9 +115,10 @@ def candidate_fill_inputs(lo, counts, out_capacity: int):
 class BuildTable:
     """Hash-bucketed build side: rows sorted by the u32 hash pair, a
     top-B-bits bucket offsets table, the payload packed in sorted order,
-    and the keys' u32 equality lanes in sorted order for the probe kernel.
-    (The JAX package also packs the keys in sorted order for its XLA
-    verify route, which the port does not have.)"""
+    and, for integer-like keys, their u32 equality lanes in sorted order
+    for the probe kernel. (The JAX package also packs fixed-width keys in
+    sorted order for its XLA verify route; the port's verify route, which
+    the other keys take, compares the key columns by row.)"""
 
     def __init__(self, bucket_table, perm, valid_count, num_rows,
                  key_cols: Sequence[Column], payload: Sequence[Column],
@@ -130,10 +150,10 @@ class BuildTable:
         from .gather import gather_rows
         from .rowpack import split_packable
         for c in key_cols:
-            if type(c) is not Column:
+            if not is_gatherable(c):
                 raise NotImplementedError(
-                    "join keys other than fixed-width wait for a later "
-                    "slice (ROADMAP A.3)")
+                    f"join keys of {type(c).__name__} wait for a later "
+                    f"slice (ROADMAP A.3)")
         valid = _keys_valid(key_cols, num_rows, capacity)
         # invalid/inactive rows sort last (max hash, then the invalid
         # flag) and stay out of every range via the valid-count boundary
@@ -177,7 +197,6 @@ class BuildTable:
             lanes, kvalid = kl
             p = perm.long()
             key_lanes = (lanes[p], kvalid[p])
-        from ..columnar.column import StringColumn
         from .strings import string_lengths
         p = perm.long()
         prefix = [torch.cat([torch.zeros(1, dtype=torch.int64,
@@ -193,8 +212,6 @@ class BuildTable:
 def is_gatherable(col: Column) -> bool:
     """A column ops/basic.gather_column moves: fixed-width, a dictionary
     column (its codes) or a string column."""
-    from ..columnar.column import StringColumn
-    from ..columnar.encoded import DictionaryColumn
     return type(col) is Column or isinstance(col, (DictionaryColumn,
                                                    StringColumn))
 
@@ -239,10 +256,18 @@ def expand_candidates(lo, counts, out_capacity: int):
 
 def verify_pairs(build: BuildTable, stream_keys: Sequence[Column],
                  stream_idx, build_pos, pair_valid):
-    """Exact key equality per candidate pair (nulls never match)."""
+    """Exact key equality per candidate pair (nulls never match): a string
+    or dictionary key byte for byte through spans into each side's own
+    buffer, any mix of the two; a fixed-width key by value. Returns (ok,
+    build_row)."""
     build_row = gather_column_indices(build.perm, build_pos)
     ok = pair_valid
     for bk, sk in zip(build.key_cols, stream_keys):
+        if _is_varlen(bk) != _is_varlen(sk):
+            raise TypeError(f"join keys {bk!r} and {sk!r} do not compare")
+        if _is_varlen(bk):
+            ok = ok & bytes_equal_at(bk, build_row, sk, stream_idx)
+            continue
         b = gather_column(bk, build_row)
         s = gather_column(sk, stream_idx)
         ok = ok & (b.data == s.data) & b.validity & s.validity

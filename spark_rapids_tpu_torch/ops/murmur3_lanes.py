@@ -72,12 +72,14 @@ Seed = Union[int, torch.Tensor]
 
 def _data_dtype(dt) -> torch.dtype:
     """The torch dtype the kernel hashes a column of `dt` as; raises for
-    the types that wait for a later slice."""
+    the types it does not take."""
     for cls, dtype in _DTYPES:
         if isinstance(dt, cls):
             return dtype
     raise NotImplementedError(
-        f"murmur3 of {dt} waits for a later slice (ROADMAP A.5)")
+        f"the murmur3 kernel hashes fixed-width columns, not {dt}: strings "
+        f"hash through ops/hashing.murmur3_batch (ROADMAP A.5), the other "
+        f"types wait for a later slice (A.8)")
 
 
 # -- the launch plan (pure functions) -----------------------------------------

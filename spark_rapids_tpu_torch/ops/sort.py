@@ -1,5 +1,5 @@
 """Multi-column sorts over order-key lanes — the counterpart of
-spark_rapids_tpu/ops/sort.py for fixed-width columns.
+spark_rapids_tpu/ops/sort.py for fixed-width and string columns.
 
 The JAX package maps a column to an unsigned lane (u8/u16/u32/u64) that
 sorts ascending in value order. PyTorch has no shifts, remainders or
@@ -11,6 +11,18 @@ carries the same lane in an int64 tensor ("signed order lane"):
 Both are exact encodings of the JAX lane: comparisons, min/max and the
 bucket hash (ops/maskedagg._bucket_hash) give the same answers.
 
+A string orders by `string_words` 8-byte lanes of its first bytes, big
+endian and zero-padded (`string_prefix_lanes`), so that unsigned lane
+order is UTF-8 binary order and a string sorts before its extensions;
+each lane is a signed order lane (the u64 with its top bit flipped).
+Its byte length follows as one more lane (`string_order_lanes`): zero
+padding alone ties strings that differ only by trailing NUL bytes ("ab"
+and "ab\0"), which Spark orders shorter first and groups apart. The JAX
+package has no such lane and ties them (ROADMAP C.5).
+`string_words_for` picks a word count that covers the longest string
+(one host read), which makes the order exact; callers that pass no
+`string_words` get that count.
+
 `jax.lax.sort` takes many key lanes at once; torch.sort takes one. So
 `lexsort` packs neighbouring narrow lanes into one int64 word while their
 widths fit in 63 bits, and runs stable sorts from the last word to the
@@ -21,14 +33,18 @@ index the final tie-break: the JAX package's trailing iota key.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column
+from ..columnar.column import Column, StringColumn
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
+
+#: fewest 8-byte words of string prefix used as sort lanes (32 bytes
+#: cover TPC-H's and TPC-DS's key domains)
+DEFAULT_STRING_WORDS = 4
 
 
 def lane_bits(torch_dtype: torch.dtype) -> int:
@@ -94,17 +110,67 @@ class SortOrder:
             object.__setattr__(self, "nulls_first", self.ascending)
 
 
+def string_prefix_lanes(col: StringColumn, num_words: int
+                        ) -> List[torch.Tensor]:
+    """The first 8 * num_words bytes of each row as big-endian u64 words,
+    zero-padded, each as a signed order lane (int64)."""
+    starts = col.offsets[:-1].to(torch.int64)
+    lengths = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+    j = torch.arange(8, dtype=torch.int64, device=col.device)
+    lanes = []
+    for w in range(num_words):
+        at = w * 8 + j
+        pos = torch.clamp(starts[:, None] + at, 0, col.byte_capacity - 1)
+        byte = torch.where(at[None, :] < lengths[:, None],
+                           col.data[pos].to(torch.int64), 0)
+        word = byte[:, 0]
+        for b in range(1, 8):
+            word = (word << 8) | byte[:, b]
+        lanes.append(word ^ INT64_MIN)
+    return lanes
+
+
+def string_order_lanes(col: StringColumn, num_words: int) -> List["Lane"]:
+    """A string's order lanes: its prefix lanes, then its byte length (32
+    bits), which breaks the ties of zero padding."""
+    lengths = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+    return [(v, 64) for v in string_prefix_lanes(col, num_words)] \
+        + [(lengths, 32)]
+
+
+def string_words_for(columns: Sequence[Column], ordinals: Sequence[int]
+                     ) -> int:
+    """The word count that makes string ordering exact for these columns:
+    the longest string's length (one host read per string column), in
+    8-byte words, rounded up to a power of two from DEFAULT_STRING_WORDS
+    so that lane counts bucket like capacities."""
+    words = DEFAULT_STRING_WORDS
+    for i in ordinals:
+        col = columns[i]
+        if isinstance(col, StringColumn):
+            lengths = col.offsets[1:] - col.offsets[:-1]
+            need = max(1, -(-int(lengths.max()) // 8))
+            while words < need:
+                words *= 2
+    return words
+
+
 #: (lane, width): an int64 tensor holding values in [0, 2^width), or a
 #: signed order lane when width is 64
 Lane = Tuple[torch.Tensor, int]
 
 
 def order_key_lanes(columns: Sequence[Column], orders: Sequence[SortOrder],
-                    num_rows, capacity: int) -> List[Lane]:
-    """The full lane stack [activity, (nulls, value)*] whose ascending
-    lexicographic order is the requested Spark ordering, inactive rows
-    last."""
+                    num_rows, capacity: int,
+                    string_words: Optional[int] = None) -> List[Lane]:
+    """The full lane stack [activity, (nulls, value lanes)*] whose
+    ascending lexicographic order is the requested Spark ordering,
+    inactive rows last. `string_words` None: string_words_for the
+    ordered columns."""
     from .basic import active_mask
+    if string_words is None:
+        string_words = string_words_for(columns,
+                                        [o.ordinal for o in orders])
     dev = columns[0].device if columns else num_rows.device
     act = active_mask(num_rows, capacity, dev)
     lanes: List[Lane] = [((~act).to(torch.int64), 1)]
@@ -114,13 +180,17 @@ def order_key_lanes(columns: Sequence[Column], orders: Sequence[SortOrder],
         # nulls_first => a null ranks 0, else 1
         null_rank = valid if o.nulls_first else ~valid
         lanes.append((null_rank.to(torch.int64), 1))
-        bits = lane_bits(col.data.dtype)
-        zero = INT64_MIN if bits == 64 else 0
-        v = torch.where(valid, _numeric_order_key(col),
-                        torch.full((), zero, dtype=torch.int64, device=dev))
-        if not o.ascending:
-            v = ~v if bits == 64 else ((1 << bits) - 1) - v
-        lanes.append((v, bits))
+        if isinstance(col, StringColumn):
+            values = string_order_lanes(col, string_words)
+        else:
+            values = [(_numeric_order_key(col), lane_bits(col.data.dtype))]
+        for v, bits in values:
+            zero = INT64_MIN if bits == 64 else 0
+            v = torch.where(valid, v, torch.full((), zero, dtype=torch.int64,
+                                                 device=dev))
+            if not o.ascending:
+                v = ~v if bits == 64 else ((1 << bits) - 1) - v
+            lanes.append((v, bits))
     return lanes
 
 
@@ -147,15 +217,17 @@ def lexsort(lanes: Sequence[Lane]) -> torch.Tensor:
 
 
 def sort_permutation(columns: Sequence[Column], orders: Sequence[SortOrder],
-                     num_rows, capacity: int) -> torch.Tensor:
+                     num_rows, capacity: int,
+                     string_words: Optional[int] = None) -> torch.Tensor:
     """Stable sort permutation: int32 (capacity,) such that gathering by it
     yields rows in the requested order, inactive rows last."""
-    return lexsort(order_key_lanes(columns, orders, num_rows,
-                                   capacity)).to(torch.int32)
+    return lexsort(order_key_lanes(columns, orders, num_rows, capacity,
+                                   string_words)).to(torch.int32)
 
 
 def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
-                       num_rows, capacity: int
+                       num_rows, capacity: int,
+                       string_words: Optional[int] = None
                        ) -> Tuple[List[Column], torch.Tensor]:
     """Sort all columns of a batch; returns (sorted columns, permutation).
     The fixed-width columns move by one packed row gather through the
@@ -165,7 +237,8 @@ def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
     from .basic import gather_column
     from .gather import gather_rows
     from .rowpack import pack_rows, split_packable, unpack_rows
-    perm = sort_permutation(columns, orders, num_rows, capacity)
+    perm = sort_permutation(columns, orders, num_rows, capacity,
+                            string_words)
     p_idx, o_idx = split_packable(columns)
     out: List = [None] * len(columns)
     if p_idx:
@@ -179,7 +252,7 @@ def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
 
 
 def group_segment_ids(key_columns: Sequence[Column], num_rows,
-                      capacity: int):
+                      capacity: int, string_words: Optional[int] = None):
     """For KEY-SORTED columns: (segment_ids int32 (capacity,), num_groups).
 
     Rows with equal keys (nulls equal, Spark GROUP BY semantics) share an
@@ -189,7 +262,8 @@ def group_segment_ids(key_columns: Sequence[Column], num_rows,
     dev = key_columns[0].device
     act = active_mask(num_rows, capacity, dev)
     orders = [SortOrder(i) for i in range(len(key_columns))]
-    lanes = order_key_lanes(key_columns, orders, num_rows, capacity)[1:]
+    lanes = order_key_lanes(key_columns, orders, num_rows, capacity,
+                            string_words)[1:]
     boundary = torch.zeros(capacity, dtype=torch.bool, device=dev)
     for lane, _ in lanes:
         boundary |= lane != torch.roll(lane, 1)

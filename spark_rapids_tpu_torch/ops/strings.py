@@ -1,11 +1,14 @@
 """Varlen (string/binary) ops over the (offsets, bytes) layout — the
-counterpart of spark_rapids_tpu/ops/strings.py, as far as the late-
-materialization seam needs it: the row gather that decodes a dictionary
-column, and the concat of decoded build batches.
+counterpart of spark_rapids_tpu/ops/strings.py, as far as late
+materialization and string keys need it: the row gather that decodes a
+dictionary column, the concat of decoded build batches, and row-wise
+string equality.
 
-Every op is dense: for each output byte, `torch.searchsorted` on the
-output offsets finds its row, so a row gather of strings is two gathers
-over a static byte capacity (the caller's `out_byte_capacity`).
+The gather and the concat are dense: for each byte, `torch.searchsorted`
+on the offsets finds its row, so a row gather of strings is two gathers
+over a static byte capacity (the caller's `out_byte_capacity`). Equality
+compares byte spans through columnar/encoded._bytes_equal_spans, the
+comparator that the join's verify and the hash group-by share.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from ..columnar.column import StringColumn
+from ..columnar.column import Column, StringColumn
+from ..types import BOOLEAN
 
 
 def string_lengths(col: StringColumn) -> torch.Tensor:
@@ -88,3 +92,10 @@ def concat_string(a: StringColumn, b: StringColumn, a_rows, b_rows,
     data = torch.where(row_from_b, b.data[b_pos.long()], a.data[a_pos.long()])
     data = torch.where(in_use, data, 0).to(torch.uint8)
     return StringColumn(data, new_offsets, validity, a.dtype)
+
+
+def string_equal(a: StringColumn, b: StringColumn) -> Column:
+    """Row-wise string equality: equal lengths, then equal bytes
+    (columnar/encoded.bytes_equal_rows). Null when either side is."""
+    from ..columnar.encoded import bytes_equal_rows
+    return Column(bytes_equal_rows(a, b), a.validity & b.validity, BOOLEAN)

@@ -51,8 +51,19 @@ def _aliases():
 
 
 def both_column(values, type_name, validity=None, capacity=None):
-    """(JAX column, port column) from one numpy column: an ndarray, or
-    (int32 codes, dictionary values) for a string column."""
+    """(JAX column, port column) from one numpy column: an ndarray, a list
+    of str, bytes or None for a plain string column, or (int32 codes,
+    dictionary values) for a dictionary-encoded one."""
+    if isinstance(values, list):
+        valid = [v is not None for v in values] if validity is None \
+            else list(validity)
+        t = TString.from_pylist([v if ok else None
+                                 for v, ok in zip(values, valid)],
+                                capacity=capacity, device="cpu")
+        j = JString(jnp.asarray(t.data.numpy()),
+                    jnp.asarray(t.offsets.numpy()),
+                    jnp.asarray(t.validity.numpy()), jt.StringType())
+        return j, t
     if isinstance(values, tuple):
         codes, words = values
         t = tenc.dictionary_from_numpy(codes, *string_buffers(words),
