@@ -13,7 +13,8 @@ fails the run on error:
      this one replaced, which phase 4 times against
      (REPLACED_MURMUR3_SOURCE); one nvcc per source,
      all started together; prints the build time and ptxas's register and
-     spill counts;
+     spill counts; then the shuffle's host block codec
+     (csrc/blockcodec.cpp) with the host compiler;
   2. holds each kernel against its plain PyTorch version on the card:
      fused_scan_agg on three specs at sizes ragged against the block size,
      with nulls, a high-cardinality case whose leftover flag must trip and
@@ -42,7 +43,9 @@ fails the run on error:
      gather of each path captured from a run of a fresh plan: q3, q19,
      P6's filter compaction and sort and P7's build permute and payloads;
      every dictionary gather of P7, its take of the ship-mode hash table
-     by the stream's codes among them);
+     by the stream's codes among them; every row gather of P9-P11, the
+     exchanges' reorders among them, the murmur3 chain at the exchange's
+     pid shape, and P11's join kernels at its first partition pair);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -102,7 +105,26 @@ fails the run on error:
      card's xxhash64_batch and murmur3_string of those names and of
      random bytes and UTF-8 text of 0-70 bytes, bit for bit against
      numpy references of Spark's hashes (np_xxhash64_bytes,
-     np_murmur3_bytes);
+     np_murmur3_bytes). Then the host shuffle, each path through 16
+     partitions (Spark's default 200 cut for the run's time limit), read
+     with collect()'s run and failing where collect() would re-run it:
+     P9, bench q1 as 16 batches of 1,048,576 rows split into a partial
+     aggregate (the fused kernel with the filter and project absorbed),
+     a HostShuffleExchangeExec on the flag and a final aggregate, equal to
+     bench.numpy_oracle; P10, TPC-H Q1 at SF1 with its string route split
+     the same way over both flags, then the sort: 4 groups equal to
+     tpch_q1_oracle in the order A/F, N/F, N/O, R/F; P11, q3 as 16
+     lineitem and 4 order batches, both filtered sides exchanged on the
+     order key into a ShuffledHashJoinExec, partial -> exchange -> final,
+     TopN(10), LONG and INT keys, equal to bench.q3_oracle. Each path's
+     launches equal what its plan implies (expect_p9, expect_p10,
+     expect_p11: one murmur3 launch and one reorder gather a map batch
+     with rows on fixed-width keys, none for P10's string keys, the probe
+     once a stream batch of a partition pair with rows on both sides;
+     P11's row gathers at least the floor its filters, reorders, join and
+     TopN imply), every exchange reads each frame it wrote with one
+     upload, the shuffle root is empty after, the catalog empty and no
+     permit held;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -127,8 +149,17 @@ fails the run on error:
      bucket; and on one q3 lineitem batch and Q19's lineitem batch the
      host pack's GB/s, the copy's GB/s, the whole packed upload's ms and
      a per-buffer build's ms (from_numpy_columns, or the Q19 columns
-     built on the card buffer by buffer). Last, P6's and P7's ms per
-     iteration in steady state (one synchronisation per run).
+     built on the card buffer by buffer). Then P6's and P7's ms per
+     iteration in steady state (one synchronisation per run). Last, P9,
+     P10 and P11 in steady state (3 runs each, one synchronisation a run)
+     with each exchange's phase times per run from its metrics (write,
+     split, the split's device->host copy, serialize, LZ4 summed over the
+     writer pool, file IO, read wait, the read seam's upload) and P11's
+     join build and probe time; the split's fetch of one q3 lineitem map
+     batch in GB/s (fetch_split_host, and the copy alone); the murmur3
+     chain at the pid shape (131,072 LONG and INT keys, seed 42); and
+     dma_row_gather at every reorder shape beside index_select and, where
+     a fixed-width kernel serves it, the generic kernel.
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
@@ -136,12 +167,14 @@ prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6" or "_p7" before
 its suffix.
 
-The last lines are a JSON line with the records of P1-P8, the spill
-rates and the ingest rates, a JSON line with one record per ported kernel (the
+The last lines are a JSON line with the records of P1-P11, the spill
+rates, the ingest rates and the split's fetch rates, a JSON line with one
+record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
-"shapes", the murmur3 chain's three sites under "sites", and each
-kernel's launches on P1-P8 under "path_launches"), the card as
+"shapes" and the reorders' under "reorder_shapes", the murmur3 chain's
+three sites under "sites" and the pid hash under "pid_shapes", and each
+kernel's launches on P1-P11 under "path_launches"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -542,21 +575,34 @@ def q3_batches(d, dev, schema, n, parts=1):
         for f in schema.fields], step, schema) for i in range(0, n, step)]
 
 
-def q3_tree(m, orders, lines):
+def q3_tree(m, orders, lines, n_parts=None):
     """bench.py make_q3_plan's operator tree above the two leaf execs, in
     the package whose modules `m` holds (`port_modules()`, or the JAX
-    package's in the tests)."""
+    package's in the tests). With `n_parts`, the plan the JAX package's
+    planner makes of it over the host shuffle (P11): each filtered side
+    hash-exchanged on its order key into n_parts partitions, a
+    ShuffledHashJoinExec, and the aggregate split into partial -> hash
+    exchange -> final."""
     col, lit, b = m.core.col, m.core.lit, m.basic
-    joined = m.joins.HashJoinExec(
-        b.FilterExec(col("l_flag") != lit(0), lines),
-        b.FilterExec(col("o_flag") < lit(5), orders), [col("l_orderkey")],
-        [col("o_orderkey")], "inner", build_side="right")
+    lines = b.FilterExec(col("l_flag") != lit(0), lines)
+    orders = b.FilterExec(col("o_flag") < lit(5), orders)
+    lk, ok = [col("l_orderkey")], [col("o_orderkey")]
+    if n_parts is None:
+        joined = m.joins.HashJoinExec(lines, orders, lk, ok, "inner",
+                                      build_side="right")
+    else:
+        joined = m.exchange.ShuffledHashJoinExec(
+            shuffle_of(m, lk, lines, n_parts),
+            shuffle_of(m, ok, orders, n_parts), lk, ok, "inner",
+            build_side="right")
     proj = b.ProjectExec([
         col("l_orderkey"),
         (col("l_price") * (lit(1.0) - col("l_disc"))).alias("rev")], joined)
-    agg = m.agg.AggregateExec([col("l_orderkey")],
-                              [(m.aggexprs.Sum(col("rev")), "revenue")], proj)
-    agg._spec_enabled = False  # as bench.py: the exact tier
+    aggs = [(m.aggexprs.Sum(col("rev")), "revenue")]
+    # as bench.py: the exact tier
+    agg = m.agg.AggregateExec(lk, aggs, proj) if n_parts is None \
+        else shuffled_aggregate(m, lk, aggs, proj, n_parts, exact=True)
+    agg._spec_enabled = False
     return m.sort.TopNExec(10, [(col("revenue"), False)], agg)
 
 
@@ -742,11 +788,12 @@ def port_modules():
     """The port's types, expressions and execs Q19 is built from."""
     from types import SimpleNamespace
     from spark_rapids_tpu_torch import types as t
-    from spark_rapids_tpu_torch.exec import aggregate, basic, joins, sort
+    from spark_rapids_tpu_torch.exec import (aggregate, basic, exchange,
+                                             joins, sort)
     from spark_rapids_tpu_torch.expr import aggexprs, core, predicates
     return SimpleNamespace(t=t, core=core, pred=predicates, basic=basic,
                            joins=joins, agg=aggregate, aggexprs=aggexprs,
-                           sort=sort)
+                           sort=sort, exchange=exchange)
 
 
 def q19_schemas(t):
@@ -1230,7 +1277,7 @@ P6_ITERS = 5             # timed runs of P6 and of each P7 build key
 ROUTES = ("hash_rounds_2", "hash_rounds_6", "sort_fallback")
 
 
-def tpch_q1_tree(m, line_scan, cutoff=None):
+def tpch_q1_tree(m, line_scan, cutoff=None, n_parts=None):
     """TPC-H Q1 (clause 2.4.1) as Spark plans it above the lineitem scan,
     in the package whose modules `m` holds:
 
@@ -1242,23 +1289,26 @@ def tpch_q1_tree(m, line_scan, cutoff=None):
                      Filter(l_shipdate <= cutoff, scan)))
 
     `cutoff` is the literal expression (default: a DATE literal of
-    Q1_SHIP_CUTOFF)."""
+    Q1_SHIP_CUTOFF). With `n_parts` the aggregate is split into partial
+    -> hash exchange on both flags into n_parts partitions -> final
+    (P10)."""
     col, lit, ax = m.core.col, m.core.lit, m.aggexprs
     cutoff = lit(Q1_SHIP_CUTOFF) if cutoff is None else cutoff
     lines = m.basic.FilterExec(
         m.pred.LessThanOrEqual(col("l_shipdate"), cutoff), line_scan)
     price, disc = col("l_extendedprice"), col("l_discount")
     disc_price = price * (lit(1.0) - disc)
-    agg = m.agg.AggregateExec(
-        [col("l_returnflag"), col("l_linestatus")],
-        [(ax.Sum(col("l_quantity")), "sum_qty"),
-         (ax.Sum(price), "sum_base_price"),
-         (ax.Sum(disc_price), "sum_disc_price"),
-         (ax.Sum(disc_price * (lit(1.0) + col("l_tax"))), "sum_charge"),
-         (ax.Average(col("l_quantity")), "avg_qty"),
-         (ax.Average(price), "avg_price"),
-         (ax.Average(disc), "avg_disc"),
-         (ax.Count(), "count_order")], lines)
+    group = [col("l_returnflag"), col("l_linestatus")]
+    aggs = [(ax.Sum(col("l_quantity")), "sum_qty"),
+            (ax.Sum(price), "sum_base_price"),
+            (ax.Sum(disc_price), "sum_disc_price"),
+            (ax.Sum(disc_price * (lit(1.0) + col("l_tax"))), "sum_charge"),
+            (ax.Average(col("l_quantity")), "avg_qty"),
+            (ax.Average(price), "avg_price"),
+            (ax.Average(disc), "avg_disc"),
+            (ax.Count(), "count_order")]
+    agg = m.agg.AggregateExec(group, aggs, lines) if n_parts is None \
+        else shuffled_aggregate(m, group, aggs, lines, n_parts)
     return m.sort.SortExec([(col("l_returnflag"), True),
                             (col("l_linestatus"), True)], agg)
 
@@ -1641,6 +1691,491 @@ def drive_string_paths(m, dev, q1t_batch, q1t_want, p7_batches, p7_want,
     return p6, p6_counts, p6_rec, p7_counts, p7_rec, p8_counts, p8_rec
 
 
+# -- slice 7: the host shuffle and the partial/final aggregate --------------
+
+#: partitions of P9-P11's exchanges: Spark's spark.sql.shuffle.partitions
+#: is 200, cut to 16 for the run's time limit
+P_PARTS = 16
+P9_BATCHES = 16          # q1's rows as 16 batches of 1,048,576
+P11_LINE_BATCHES = 16    # q3's lineitems as 16 batches of 131,072 (P2's)
+P11_ORDER_BATCHES = 4    # q3's orders as 4 batches of 131,072 (P4's)
+P_SHUFFLE_ITERS = 3      # timed runs of P9, P10 and P11 each
+#: the exchange metrics P9-P11 record, per exchange
+EXCHANGE_METRICS = (
+    "numInputBatches", "numMapsWithRows", "numReorderGathers",
+    "numFramesWritten", "numFramesRead", "numUploads", "shuffleRawBytes",
+    "dataSize", "shuffleWriteTime", "shufflePackTimeNs",
+    "shuffleFetchTimeNs", "shuffleFetchBytes", "shuffleSerializeTimeNs",
+    "shuffleCompressTimeNs", "shuffleIoTimeNs", "shuffleReadTime",
+    "uploadPackTimeNs", "pipelineWaitNs")
+
+
+def shuffle_of(m, keys, child, n_parts, partitioning="hash"):
+    """A HostShuffleExchangeExec in the package `m` holds, with its
+    `exchange_kw` (the tests give the JAX package's its conf there)."""
+    return m.exchange.HostShuffleExchangeExec(
+        keys, child, n_parts, partitioning=partitioning,
+        **getattr(m, "exchange_kw", {}))
+
+
+def shuffled_aggregate(m, group, aggs, child, n_parts, exact=False):
+    """partial -> hash exchange on the partial's keys into n_parts
+    partitions -> final, as the JAX package's planner builds it
+    (`_convert_host_shuffled_aggregate`); a grand aggregate goes through
+    one single partition. `exact` pins both stages to the exact tier."""
+    partial = m.agg.AggregateExec(group, aggs, child, mode="partial")
+    keys = [m.core.col(n) for n in partial.output_schema.names[:len(group)]]
+    exchange = shuffle_of(m, keys, partial, n_parts) if group \
+        else shuffle_of(m, [], partial, 1, "single")
+    final = m.agg.AggregateExec(group, aggs, exchange, mode="final",
+                                input_types=partial._input_types)
+    if exact:
+        partial._spec_enabled = final._spec_enabled = False
+    return final
+
+
+def q1_tree(m, scan, n_parts):
+    """bench.py's q1 plan (filter -> project -> aggregate) with the
+    aggregate split over the host shuffle (P9): the partial absorbs the
+    filter and project into the fused scan-aggregate kernel."""
+    col, lit, b, ax = m.core.col, m.core.lit, m.basic, m.aggexprs
+    filt = b.FilterExec(col("quantity") <= lit(45), scan)
+    proj = b.ProjectExec([
+        col("returnflag"), col("quantity"),
+        (col("extendedprice") * (lit(1.0) - col("discount")))
+        .alias("disc_price")], filt)
+    return shuffled_aggregate(
+        m, [col("returnflag")], [(ax.Sum(col("quantity")), "sum_qty"),
+                                 (ax.Sum(col("disc_price")), "sum_disc"),
+                                 (ax.Count(), "cnt")], proj, n_parts)
+
+
+def check_q1(rows, oracle, label):
+    """q1's groups against bench.numpy_oracle: counts and integer sums
+    exact, the f64 sum to rtol 1e-9."""
+    if sorted(r[0] for r in rows) != sorted(oracle):
+        raise AssertionError(f"{label}: groups {rows} != oracle {oracle}")
+    for k, qty, dp, cnt in rows:
+        oq, odp, oc = oracle[k]
+        if qty != oq or cnt != oc or abs(dp - odp) > RTOL * abs(odp):
+            raise AssertionError(f"{label}: group {k}: {(qty, dp, cnt)} "
+                                 f"!= oracle {oracle[k]}")
+
+
+def exchanges_of(plan):
+    """The plan's HostShuffleExchangeExecs, in tree order."""
+    from spark_rapids_tpu_torch.exec.exchange import HostShuffleExchangeExec
+    out, todo = [], [plan]
+    while todo:
+        node = todo.pop(0)
+        if isinstance(node, HostShuffleExchangeExec):
+            out.append(node)
+        todo.extend(node.children)
+    return out
+
+
+def exchange_snapshot(plan):
+    """Every exchange's EXCHANGE_METRICS, in tree order."""
+    return [{k: ex.metrics[k].value for k in EXCHANGE_METRICS}
+            for ex in exchanges_of(plan)]
+
+
+def shuffle_root_empty(label):
+    """No shuffle registered and no file under the shuffle root."""
+    import os
+    from spark_rapids_tpu_torch.shuffle.manager import shuffle_manager
+    mgr = shuffle_manager()
+    left = os.listdir(mgr.root_dir())
+    if left or mgr.registered():
+        raise AssertionError(f"{label}: {mgr.registered()} shuffles "
+                             f"registered, files left {left}")
+
+
+def drive_shuffled(label, plan, need, expect):
+    """collect()'s run of `plan` (its speculation scope, its to_pylist
+    fetch) with every launch counter set to 0 just before and read just
+    after, failing where collect() would re-run it (a tripped flag).
+    `expect(counts, exchanges, plan)` returns the launches the plan
+    implies for each kernel it names; every count must equal it. Then
+    each exchange's frames and uploads (one a frame read, all written
+    frames read), the shuffle root (empty) and the catalog and permits
+    (idle). Returns (rows, counts, per-exchange metrics, ms, the run's
+    upload, fetch and staging-pool counters)."""
+    import torch
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    wrappers = kernel_wrappers()
+    before = exchange_snapshot(plan)
+    io_before = io_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with speculation_scope() as scope:
+        rows = [r for b in plan._execute(encoded_out=True)
+                for r in b.to_pylist()]
+        tripped = scope.tripped()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: w.launches for name, w in wrappers.items()}
+    io = {k: v - io_before[k] for k, v in io_counters().items()}
+    if tripped:
+        raise AssertionError(f"{label}: speculation flag tripped")
+    idle = [k for k in need if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle} "
+                             f"(counts {counts})")
+    exs = [{k: v - b[k] for k, v in a.items()}
+           for a, b in zip(exchange_snapshot(plan), before)]
+    on_card = plan.device is not None and plan.device.type == "cuda"
+    for i, e in enumerate(exs):
+        # one upload a frame read on a card; on the CPU the read seam
+        # passes the host batch through
+        uploads = e["numFramesRead"] if on_card else 0
+        if e["numFramesRead"] != e["numFramesWritten"] \
+                or e["numUploads"] != uploads:
+            raise AssertionError(f"{label}: exchange {i}: "
+                                 f"{e['numFramesWritten']} frames written, "
+                                 f"{e['numFramesRead']} read, "
+                                 f"{e['numUploads']} uploads")
+        if e["numReorderGathers"] != e["numMapsWithRows"]:
+            raise AssertionError(f"{label}: exchange {i}: "
+                                 f"{e['numReorderGathers']} reorder gathers "
+                                 f"for {e['numMapsWithRows']} map batches "
+                                 f"with rows")
+    want = expect(counts, exs, plan)
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"{label}: launches (counted, implied) "
+                             f"{wrong}; all {counts}")
+    shuffle_root_empty(label)
+    check_idle(label)
+    return rows, counts, exs, ms, io
+
+
+def expect_p9(counts, exs, plan):
+    """P9: fused_scan_agg once a source batch; one murmur3 launch and one
+    row gather a map batch with rows (the partial's one state batch)."""
+    maps = sum(e["numMapsWithRows"] for e in exs)
+    return {"fused_scan_agg": P9_BATCHES, "murmur3_columns": maps,
+            "dma_row_gather": maps, "fused_probe_verify": 0,
+            "dict_gather": 0, "murmur3_long_lanes": 0,
+            "murmur3_int_lanes": 0}
+
+
+def expect_p10(counts, exs, plan):
+    """P10: string keys hash in plain torch (no murmur3 launch); row
+    gathers: the filter's compaction, one reorder a map batch with rows,
+    the final sort."""
+    maps = sum(e["numMapsWithRows"] for e in exs)
+    return {"fused_scan_agg": 0, "murmur3_columns": 0, "dma_row_gather":
+            1 + maps + 1, "fused_probe_verify": 0, "dict_gather": 0,
+            "murmur3_long_lanes": 0, "murmur3_int_lanes": 0}
+
+
+def p11_join(plan):
+    """The ShuffledHashJoinExec of a q3_tree(n_parts=...) plan."""
+    from spark_rapids_tpu_torch.exec.exchange import ShuffledHashJoinExec
+    node = plan
+    while not isinstance(node, ShuffledHashJoinExec):
+        node = node.children[0]
+    return node
+
+
+def expect_p11(counts, exs, plan):
+    """P11: murmur3 once a map batch with rows on each of the three
+    exchanges, and in the join once a partition pair (the build keys,
+    both seeds) and once a stream batch; the probe once a stream batch of
+    a pair with rows on both sides. The row gathers the plan implies at
+    least: each filter's compaction a batch, one reorder a map batch with
+    rows, the join's build permute a pair and its two payload gathers a
+    stream batch, the TopN's sort; the aggregates' sort-path group-bys
+    add the rest (data-dependent: how many of their updates and merges
+    leave rows over), which `p11_row_gathers` reports."""
+    j = p11_join(plan)
+    pairs = j.metrics["numPartitionPairs"].value - j._pairs_before
+    stream = j.metrics["numStreamBatches"].value - j._stream_before
+    maps = sum(e["numMapsWithRows"] for e in exs)
+    floor = P11_LINE_BATCHES + P11_ORDER_BATCHES + maps + pairs \
+        + 2 * stream + 1
+    if counts["dma_row_gather"] < floor:
+        raise AssertionError(f"P11: {counts['dma_row_gather']} row gathers, "
+                             f"fewer than the {floor} the plan implies")
+    plan._p11_row_gathers = {
+        "filter_compactions": P11_LINE_BATCHES + P11_ORDER_BATCHES,
+        "reorders": maps, "join_build_permutes": pairs,
+        "join_payloads": 2 * stream, "topn_sort": 1,
+        "aggregate_sort_paths": counts["dma_row_gather"] - floor}
+    plan._p11_pairs = (pairs, stream)
+    return {"fused_scan_agg": 0, "murmur3_columns": maps + pairs + stream,
+            "fused_probe_verify": stream, "dict_gather": 0,
+            "murmur3_long_lanes": 0, "murmur3_int_lanes": 0}
+
+
+def p11_plan(d, dev, key_type):
+    """q3 shuffled (P11) over 16 lineitem and 4 order batches on `dev`."""
+    m = port_modules()
+    o_schema, l_schema = q3_schemas(key_type)
+    plan = q3_tree(m, m.basic.InMemoryScanExec(
+        q3_batches(d, dev, o_schema, Q3_ORDERS, P11_ORDER_BATCHES), o_schema),
+        m.basic.InMemoryScanExec(
+            q3_batches(d, dev, l_schema, Q3_LINES, P11_LINE_BATCHES),
+            l_schema), n_parts=P_PARTS)
+    return plan
+
+
+def drive_p11(label, plan, want):
+    j = p11_join(plan)
+    j._pairs_before = j.metrics["numPartitionPairs"].value
+    j._stream_before = j.metrics["numStreamBatches"].value
+    out = drive_shuffled(label, plan, ["murmur3_columns",
+                                       "fused_probe_verify",
+                                       "dma_row_gather"], expect_p11)
+    check_q3(out[0], want, label)
+    return out
+
+
+def describe_exchanges(exs):
+    return "; ".join(
+        f"exchange {i}: {e['numMapsWithRows']} of {e['numInputBatches']} "
+        f"map batches with rows, {e['numFramesWritten']} frames "
+        f"({e['shuffleRawBytes']} raw bytes, {e['dataSize']} stored), "
+        f"{e['numUploads']} uploads" for i, e in enumerate(exs))
+
+
+def drive_shuffle_paths(dev, q1_batches, q1_want, q1t_batch, q1t_want, d3,
+                        d3i, q3_want):
+    """Phase 3b's shuffle paths, each counted with drive_shuffled and held
+    to its oracle: P9 (bench q1 over 16 batches, partial -> exchange ->
+    final), P10 (TPC-H Q1 at SF1, the string route split the same way,
+    then the sort), P11 (q3 shuffled, LONG and INT order keys). Returns
+    {path: (plan, launches, record)}."""
+    m = port_modules()
+    out = {}
+    p9 = q1_tree(m, m.basic.InMemoryScanExec(q1_batches,
+                                             q1_batches[0].schema), P_PARTS)
+    if p9.child.child._scan_agg_spec is None:
+        raise AssertionError("P9: the partial did not compile to a spec")
+    rows, counts, exs, ms, io = drive_shuffled(
+        "P9 q1 shuffled", p9, ["fused_scan_agg"], expect_p9)
+    check_q1(rows, q1_want, "P9")
+    out["P9"] = (p9, counts, {"first_run_ms": ms, "exchanges": exs,
+                              "io": io})
+    print(f"P9 q1 shuffled ({P9_BATCHES} batches of "
+          f"{q1_batches[0].num_rows_host} rows, {P_PARTS} partitions): "
+          f"{len(rows)} groups equal to the numpy oracle in {ms:.1f} ms "
+          f"(first run); {describe_exchanges(exs)}; io {io}; launches "
+          f"{counts}; shuffle root empty, catalog empty, no permit held")
+    p10 = tpch_q1_tree(m, scan_of(m, q1t_batch), n_parts=P_PARTS)
+    rows, counts, exs, ms, io = drive_shuffled(
+        "P10 TPC-H Q1 shuffled", p10, ["dma_row_gather"], expect_p10)
+    check_rows(rows, q1t_want, "P10")
+    if tuple(r[:2] for r in rows) != Q1_GROUPS:
+        raise AssertionError(f"P10: groups {[r[:2] for r in rows]} != "
+                             f"{Q1_GROUPS}")
+    final = p10.child
+    partial = final.child.child
+    routes = {"partial": route_counts(partial), "final": route_counts(final)}
+    out["P10"] = (p10, counts, {"first_run_ms": ms, "exchanges": exs,
+                                "routes": routes, "io": io})
+    print(f"P10 TPC-H Q1 shuffled ({q1t_batch.num_rows_host} lineitems, "
+          f"{P_PARTS} partitions): {len(rows)} groups "
+          f"{[r[:2] for r in rows]} equal to the numpy oracle in "
+          f"{ms:.1f} ms (first run); routes {routes}; "
+          f"{describe_exchanges(exs)}; io {io}; launches {counts}")
+    for key, data in (("LONG", d3), ("INT", d3i)):
+        label = f"P11 q3 shuffled, {key} keys"
+        plan = p11_plan(data, dev, key)
+        rows, counts, exs, ms, io = drive_p11(label, plan, q3_want)
+        pairs, stream = plan._p11_pairs
+        rec = {"first_run_ms": ms, "exchanges": exs, "io": io,
+               "pairs": pairs,
+               "stream_batches": stream,
+               "row_gathers": plan._p11_row_gathers}
+        out["P11" if key == "LONG" else "P11_INT"] = (plan, counts, rec)
+        print(f"{label} ({Q3_LINES} x {Q3_ORDERS}, {P11_LINE_BATCHES} + "
+              f"{P11_ORDER_BATCHES} batches, {P_PARTS} partitions): top 10 "
+              f"equal to the numpy oracle in {ms:.1f} ms (first run); "
+              f"{pairs} partition pairs joined, {stream} stream batches "
+              f"probed; row gathers {plan._p11_row_gathers}; "
+              f"{describe_exchanges(exs)}; io {io}; launches {counts}")
+    return out
+
+
+def time_shuffle_paths(paths, q1_want, q1t_want, q3_want):
+    """P9-P11 in steady state: P_SHUFFLE_ITERS runs each, one
+    synchronisation a run, each checked against its oracle; the
+    exchanges' phase times per run from their metrics (ms: write, split,
+    the split's fetch, serialize (the writer pool's wall) and LZ4 (summed
+    over its threads), file IO, read wait, the read seam's upload pack)
+    and the fetch's GB/s."""
+    import torch
+    checks = {"P9": lambda r: check_q1(r, q1_want, "P9 timed"),
+              "P10": lambda r: check_rows(r, q1t_want, "P10 timed"),
+              "P11": lambda r: check_q3(r, q3_want, "P11 timed")}
+    recs = {}
+    for name, check in checks.items():
+        plan = paths[name][0]
+        before = exchange_snapshot(plan)
+        join = p11_join(plan)._join if name == "P11" else None
+        join_before = join and (join.metrics["buildTime"].value,
+                                join.metrics["joinTime"].value)
+        runs = []
+        for _ in range(P_SHUFFLE_ITERS):
+            t0 = time.perf_counter()
+            rows = plan.collect()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            check(rows)
+        shuffle_root_empty(f"{name} timed")
+        check_idle(f"{name} timed")
+        phases = []
+        for a, b in zip(exchange_snapshot(plan), before):
+            e = {k: (v - b[k]) / P_SHUFFLE_ITERS for k, v in a.items()}
+            ph = {k: e[m_] / 1e6 for k, m_ in (
+                ("write_ms", "shuffleWriteTime"),
+                ("split_ms", "shufflePackTimeNs"),
+                ("fetch_ms", "shuffleFetchTimeNs"),
+                ("serialize_ms", "shuffleSerializeTimeNs"),
+                ("lz4_thread_ms", "shuffleCompressTimeNs"),
+                ("io_ms", "shuffleIoTimeNs"),
+                ("read_wait_ms", "shuffleReadTime"),
+                ("upload_pack_ms", "uploadPackTimeNs"))}
+            ph["fetch_gb_s"] = e["shuffleFetchBytes"] / max(
+                e["shuffleFetchTimeNs"], 1)
+            ph["frames"] = e["numFramesWritten"]
+            ph["raw_bytes"] = e["shuffleRawBytes"]
+            ph["stored_bytes"] = e["dataSize"]
+            phases.append(ph)
+        recs[name] = {"ms": runs, "exchanges": phases}
+        if join is not None:
+            # the inner join's own host clock per run: its builds and its
+            # probes (the rest is the exchanges and the aggregates)
+            recs[name]["join_build_ms"], recs[name]["join_probe_ms"] = (
+                (join.metrics[k].value - b) / P_SHUFFLE_ITERS / 1e6
+                for k, b in zip(("buildTime", "joinTime"), join_before))
+        print(f"{name} steady state: ms per run {runs} "
+              f"({P_SHUFFLE_ITERS} runs, one sync each)"
+              + (f", the join's builds {recs[name]['join_build_ms']:.1f} ms "
+                 f"and probes {recs[name]['join_probe_ms']:.1f} ms a run"
+                 if join is not None else "")
+              + "; per run, by exchange: " + "; ".join(
+                  ", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+                  for ph in phases))
+    return recs
+
+
+def split_fetch_rates(dev, d3, reps=5):
+    """The split's one device->host copy on a q3 lineitem map batch
+    (131,072 rows): fetch_split_host whole (the pack and the copy into
+    pageable memory) and the copy alone, GB/s over the packed bytes."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import transfer
+    m = port_modules()
+    _, l_schema = q3_schemas("LONG")
+    b = q3_batches(d3, dev, l_schema, Q3_LINES, P11_LINE_BATCHES)[0]
+    ex = shuffle_of(m, [m.core.col("l_orderkey")],
+                    m.basic.InMemoryScanExec([b], l_schema), P_PARTS)
+    counts, cols = ex._split_kernel(b, 0)
+    buf = transfer.pack_split(counts, cols)
+    nbytes = buf.shape[0]
+    out = {"bytes": nbytes}
+    for key, fn in (("fetch_split_host", lambda: transfer.fetch_split_host(
+            counts, cols)), ("copy", lambda: buf.cpu())):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        out[key] = {"ms": ms, "gb_s": nbytes / ms / 1e6}
+    print(f"the split's fetch of a {Q3_LINES // P11_LINE_BATCHES}-row q3 "
+          f"lineitem map batch ({nbytes} bytes): fetch_split_host "
+          f"{out['fetch_split_host']['ms']:.3f} ms "
+          f"({out['fetch_split_host']['gb_s']:.2f} GB/s), the copy alone "
+          f"{out['copy']['ms']:.3f} ms ({out['copy']['gb_s']:.2f} GB/s)")
+    return out
+
+
+def compare_pid_hash(dev, d3, d3i):
+    """The murmur3 chain against its plain version at the exchange's pid
+    shape: one q3 lineitem map batch's order key, seed 42, LONG and INT.
+    Returns {key type: [the key column]}."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    from spark_rapids_tpu_torch.parallel.exchange import SHUFFLE_SEED
+    out = {}
+    for key, data in (("LONG", d3), ("INT", d3i)):
+        _, l_schema = q3_schemas(key)
+        b = q3_batches(data, dev, l_schema, Q3_LINES, P11_LINE_BATCHES)[0]
+        cols = out[key] = [b.columns[0]]
+        _exact(f"murmur3 pid {key}", m3.murmur3_columns(cols, [SHUFFLE_SEED]),
+               m3.murmur3_columns_plain(cols, [SHUFFLE_SEED]))
+        print(f"compare murmur3_columns at the pid shape ({b.capacity} "
+              f"{key} keys, seed {SHUFFLE_SEED}): exact")
+    return out
+
+
+def time_pid_hash(pid_cols):
+    """The murmur3 chain at the exchange's pid shape
+    (`compare_pid_hash`'s columns), L2 cold, beside the plain version and
+    the bound."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    from spark_rapids_tpu_torch.parallel.exchange import SHUFFLE_SEED
+    out = {}
+    for key, cols in pid_cols.items():
+        n, w = cols[0].capacity, cols[0].data.element_size()
+        ms = device_ms(lambda: m3.murmur3_columns(cols, [SHUFFLE_SEED]),
+                       KERNEL_REPS)
+        plain_ms = device_ms(
+            lambda: m3.murmur3_columns_plain(cols, [SHUFFLE_SEED]),
+            max(3, KERNEL_REPS // 4))
+        b_ms, b_by = bound(n * (w + 1 + 4), n * m3_ops(w, 1))
+        out[key] = {"rows": n, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+        print(f"murmur3_columns at the pid shape ({n} {key} keys, seed "
+              f"{SHUFFLE_SEED}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+    return out
+
+
+def p11_join_inputs(plan):
+    """JoinInputs of P11's inner join at its first partition pair with
+    rows on both sides (its first stream batch); the exchanges' files go
+    when their outer streams close."""
+    j = p11_join(plan)
+    j.stamp_inputs()
+    lit_ = j.children[0].execute_partitions()
+    rit = j.children[1].execute_partitions()
+    try:
+        for lp, rp in zip(lit_, rit):
+            build = [b for b in rp if b.num_rows_host]
+            stream = [b for b in lp if b.num_rows_host]
+            if build and stream:
+                break
+        j._rscan.set_batches(build)
+        j._lscan.set_batches(stream[:1])
+        return JoinInputs(j._join)
+    finally:
+        lit_.close()
+        rit.close()
+
+
+def reorder_gathers(captured):
+    """The exchange reorders among captured row gathers, one per distinct
+    shape: {path: [calls]}."""
+    out = {}
+    for path, calls in captured.items():
+        seen = {}
+        for call in calls:
+            site, plan, imat, fmat, idx = call
+            if site != "exchange reorder":
+                continue
+            lb = 2 * fmat.shape[1] if fmat is not None else 0
+            seen.setdefault((idx.shape[0], imat.shape[0], imat.shape[1], lb),
+                            call)
+        out[path] = list(seen.values())
+    return out
+
+
 # -- the q3 kernels against their plain versions ----------------------------
 
 def _exact(label, got, want):
@@ -1920,7 +2455,7 @@ def compare_gather(dev):
         kinds[k] = kinds.get(k, 0) + 1
 
     for la, lb in ((4, 0), (4, 4), (3, 2), (3, 6), (3, 0), (3, 4), (2, 2),
-                   (5, 6), (2, 0)):
+                   (6, 2), (9, 14), (5, 6), (2, 0)):
         for cap, n_out in ((1000, 1), (70_001, 65_537),
                            (1 << 20, 3 * (1 << 18) + 3)):
             for oor in (False, True):
@@ -1942,7 +2477,8 @@ def compare_gather(dev):
     if missing:
         raise AssertionError(f"row gather: kernels not exercised {missing}")
     print(f"compare row gather: widths (4,0) (4,4) (3,2) (3,6) (3,0) (3,4) "
-          f"(2,2) (5,6) (2,0) at 3 shapes, all out of range too, a matrix "
+          f"(2,2) (6,2) (9,14) (5,6) (2,0) at 3 shapes, all out of range "
+          f"too, a matrix "
           f"off alignment, packed columns of 5 types; kernels used "
           f"{ {rg.kind_name(k): v for k, v in kinds.items()} }; exact bits")
 
@@ -1981,6 +2517,7 @@ class JoinInputs:
 #: which call of a main path a row gather is, by the functions on its
 #: stack (the first rule whose functions are all there names it)
 GATHER_SITES = (
+    (("reorder_columns",), "exchange reorder"),
     (("groupby_aggregate", "sort_batch_columns"), "group-by sort"),
     (("sort_batch_columns",), "sort"),
     (("_filter", "compact_columns"), "filter compaction"),
@@ -2414,6 +2951,78 @@ def time_probe(inputs, q19_inputs, launches):
             "q19_shape": q19}
 
 
+def time_gather_call(path, site, plan, imat, fmat, idx):
+    """One captured row gather on the device, L2 cold: the kernel's
+    launch alone, the wrapper's whole call, the plain version, the bound
+    (the index, each distinct row an in-range index reads, row 0 once,
+    every output row written) and the faster of the two PyTorch calls
+    that compute the same function on the same matrix (index_select, a
+    tensor index)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import row_gather as rg
+    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    n, cap = idx.shape[0], imat.shape[0]
+    lanes = imat.shape[1] + (2 * fmat.shape[1] if fmat is not None else 0)
+    _, _, p, launch = rg.gather_launcher(plan, imat, fmat, idx)
+    launch()
+    kernel_ms = device_ms(launch, reps)
+    ms = device_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat, idx),
+                   reps)
+    plain_ms = device_ms(lambda: gather_rows(plan, imat, fmat, idx),
+                         plain_reps)
+    mat = torch.cat([imat] + ([fmat.view(torch.int32)]
+                              if fmat is not None else []),
+                    dim=1).contiguous()
+    ok = (idx >= 0) & (idx < cap)
+    safe = torch.where(ok, idx, 0).long()
+    lib = {"index_select": device_ms(
+               lambda: torch.index_select(mat, 0, safe), reps),
+           "mat[idx]": device_ms(lambda: mat[safe], reps)}
+    lib_name = min(lib, key=lib.get)
+    rows_read = int(torch.unique(idx[ok]).numel())
+    b_ms, b_by = bound(4 * n + 4 * lanes * (rows_read + 1 + n), 0)
+    generic_ms = None
+    if p.kind != rg.ANY:
+        # the generic kernel at the same shape: the matrices copied off
+        # their pieces' alignment
+        _, _, pg, launch_g = rg.launcher(
+            idx, _off_aligned(imat), _off_aligned(fmat.view(torch.int32))
+            if fmat is not None else None, plan.n_valid_lanes)
+        if pg.kind != rg.ANY:
+            raise AssertionError(f"{site}: the off-aligned copy still takes "
+                                 f"{rg.kind_name(pg.kind)}")
+        launch_g()
+        generic_ms = device_ms(launch_g, reps)
+    rec = {"path": path, "site": site, "n": n, "cap": cap,
+           "la": imat.shape[1], "lb": lanes - imat.shape[1],
+           "kernel": rg.kind_name(p.kind), "in_range": int(ok.sum()),
+           "kernel_ms": kernel_ms, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib[lib_name], "library": lib_name,
+           "index_select_ms": lib["index_select"],
+           "generic_kernel_ms": generic_ms}
+    print(f"dma_row_gather {path} {site} ({n} of {cap} rows, "
+          f"{rec['in_range']} in range, la={rec['la']} lb={rec['lb']}, "
+          f"kernel {rec['kernel']}): kernel {kernel_ms:.4f} ms, wrapper "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / kernel_ms:.1%} of the bound; index_select "
+          f"{lib['index_select']:.4f} ms, mat[idx] {lib['mat[idx]']:.4f} ms"
+          + (f"; the generic kernel {generic_ms:.4f} ms"
+             if generic_ms is not None else ""))
+    return rec
+
+
+def _off_aligned(m):
+    """A copy of the int32 matrix `m` whose rows start 4 bytes past its
+    allocation's 16-byte boundary."""
+    import torch
+    flat = torch.empty(m.numel() + 1, dtype=torch.int32, device=m.device)
+    out = flat[1:].view(m.shape)
+    out.copy_(m)
+    return out
+
+
 def time_row_gathers(paths, launches):
     """dma_row_gather at every shape the main paths give it (`paths`:
     {path: capture_row_gathers(plan)}): the kernel's launch alone, the
@@ -2424,53 +3033,15 @@ def time_row_gathers(paths, launches):
     on the device with L2 cold. The record's own numbers are the q3
     stream payload's (the shape earlier records timed); "shapes" lists
     every shape and "per_iteration" sums each path's kernel time."""
-    import torch
-    from spark_rapids_tpu_torch.ops import row_gather as rg
-    from spark_rapids_tpu_torch.ops.rowpack import gather_rows
-    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
     shapes, per_it, main = [], {}, None
     for path, calls in paths.items():
         per_it[path] = 0.0
-        for site, plan, imat, fmat, idx in calls:
-            n, cap = idx.shape[0], imat.shape[0]
-            lanes = imat.shape[1] + (2 * fmat.shape[1] if fmat is not None
-                                     else 0)
-            _, _, p, launch = rg.gather_launcher(plan, imat, fmat, idx)
-            launch()
-            kernel_ms = device_ms(launch, reps)
-            ms = device_ms(lambda: rg.pallas_gather_rows(plan, imat, fmat,
-                                                         idx), reps)
-            plain_ms = device_ms(lambda: gather_rows(plan, imat, fmat, idx),
-                                 plain_reps)
-            mat = torch.cat([imat] + ([fmat.view(torch.int32)]
-                                      if fmat is not None else []),
-                            dim=1).contiguous()
-            ok = (idx >= 0) & (idx < cap)
-            safe = torch.where(ok, idx, 0).long()
-            lib = {"index_select": device_ms(
-                       lambda: torch.index_select(mat, 0, safe), reps),
-                   "mat[idx]": device_ms(lambda: mat[safe], reps)}
-            lib_name = min(lib, key=lib.get)
-            rows_read = int(torch.unique(idx[ok]).numel())
-            b_ms, b_by = bound(4 * n + 4 * lanes * (rows_read + 1 + n), 0)
-            per_it[path] += kernel_ms
-            rec = {"path": path, "site": site, "n": n, "cap": cap,
-                   "la": imat.shape[1], "lb": lanes - imat.shape[1],
-                   "kernel": rg.kind_name(p.kind),
-                   "in_range": int(ok.sum()), "kernel_ms": kernel_ms,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "library_ms": lib[lib_name], "library": lib_name}
+        for call in calls:
+            rec = time_gather_call(path, *call)
+            per_it[path] += rec["kernel_ms"]
             shapes.append(rec)
-            print(f"dma_row_gather {path} {site} ({n} of {cap} rows, "
-                  f"{rec['in_range']} in range, la={rec['la']} "
-                  f"lb={rec['lb']}, kernel {rec['kernel']}): kernel "
-                  f"{kernel_ms:.4f} ms, wrapper {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"{b_ms / kernel_ms:.1%} of the bound; index_select "
-                  f"{lib['index_select']:.4f} ms, mat[idx] "
-                  f"{lib['mat[idx]']:.4f} ms")
-            if path == "q3" and site == "stream payload":
-                main = dict(rec, bound_by=b_by)
+            if path == "q3" and rec["site"] == "stream payload":
+                main = rec
     print("dma_row_gather per iteration: " + ", ".join(
         f"{k} {v:.4f} ms in {len(paths[k])} launches"
         for k, v in per_it.items()))
@@ -2698,6 +3269,11 @@ def main() -> int:
     p7_batches = {enc: shipmode_batches(d19, dev, enc)
                   for enc in (False, True)}
     names = customer_names(P8_NAMES)
+    step = ROWS // P9_BATCHES
+    p9_batches = [ColumnarBatch([Column.from_numpy(
+        d[f.name][i: i + step], f.data_type, capacity=bucket_capacity(step),
+        device=dev) for f in schema.fields], step, schema)
+        for i in range(0, ROWS, step)]
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -2710,6 +3286,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} "
           f"kernel sources (the last is the replaced murmur3, phase 4's "
           f"yardstick)")
+    t0 = time.perf_counter()
+    from spark_rapids_tpu_torch import native
+    native.native_lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s for the shuffle's host "
+          f"block codec (csrc/blockcodec.cpp, {build.cxx_path()})")
     for src in sources:
         for line in build.compiler_log(src).splitlines():
             if "registers" in line or "spill" in line:
@@ -2780,6 +3361,22 @@ def main() -> int:
             raise AssertionError(f"{key}: no take by the stream's codes")
         print(f"compare {key} main-path dictionary gathers: "
               f"{'; '.join(compare_dict_takes(key, takes))}; exact")
+    # the shuffle paths' own inputs (phase 3b drives them): every row
+    # gather of P9-P11 (the exchanges' reorders among them), the pid
+    # hash, and P11's join kernels at a partition pair
+    gathers["P9"] = capture_row_gathers(q1_tree(pm, pm.basic.InMemoryScanExec(
+        p9_batches, schema), P_PARTS))
+    gathers["P10"] = capture_row_gathers(tpch_q1_tree(
+        pm, scan_of(pm, q1t_batch), n_parts=P_PARTS))
+    gathers["P11"] = capture_row_gathers(p11_plan(d3, dev, "LONG"))
+    for key in ("P9", "P10"):
+        print(f"compare {key} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
+    compare_join_inputs("P11 (its first partition pair)",
+                        p11_join_inputs(p11_plan(d3, dev, "LONG")),
+                        gathers["P11"])
+    pid_cols = compare_pid_hash(dev, d3, d3i)
+    shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
     # -- phase 3: the main paths, counted -----------------------------------
@@ -2938,6 +3535,12 @@ def main() -> int:
     p6, p6_counts, p6_rec, p7_counts, p7_rec, p8_counts, p8_rec = strings
     print(f"P6-P8 (phase 3b): {time.perf_counter() - t_str:.1f} s")
 
+    # -- phase 3b, slice 7: the host shuffle --------------------------------
+    t_shuf = time.perf_counter()
+    shuffled = drive_shuffle_paths(dev, p9_batches, oracle, q1t_batch,
+                                   q1t_want, d3, d3i, q3_want)
+    print(f"P9-P11 (phase 3b): {time.perf_counter() - t_shuf:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -3085,6 +3688,16 @@ def main() -> int:
               f"{p7_rec[key]['ms']:.3f} ms/iteration ({P6_ITERS} "
               f"iterations, one sync)")
 
+    t_shuf = time.perf_counter()
+    shuffle_recs = time_shuffle_paths(shuffled, oracle, q1t_want, q3_want)
+    fetch_rates = split_fetch_rates(dev, d3)
+    pid_recs = time_pid_hash(pid_cols)
+    reorder_recs = [time_gather_call(path, *call) for path, calls in
+                    reorder_gathers({k: gathers[k] for k in
+                                     ("P9", "P10", "P11")}).items()
+                    for call in calls]
+    print(f"P9-P11 timings (phase 4): {time.perf_counter() - t_shuf:.1f} s")
+
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
     b2b_ms = cuda_ms(launch, KERNEL_REPS)
@@ -3149,7 +3762,16 @@ def main() -> int:
             "P7_string_join": p7_counts["string_build"].get(r["name"], 0),
             "P7_dictionary_join": p7_counts["dictionary_build"].get(
                 r["name"], 0),
-            "P8_names_count": p8_counts.get(r["name"], 0)}
+            "P8_names_count": p8_counts.get(r["name"], 0),
+            "P9_q1_shuffled": shuffled["P9"][1].get(r["name"], 0),
+            "P10_tpch_q1_shuffled": shuffled["P10"][1].get(r["name"], 0),
+            "P11_q3_shuffled": shuffled["P11"][1].get(r["name"], 0),
+            "P11_q3_shuffled_int_keys": shuffled["P11_INT"][1].get(
+                r["name"], 0)}
+        if r["name"] == "murmur3_columns":
+            r["pid_shapes"] = pid_recs
+        if r["name"] == "dma_row_gather":
+            r["reorder_shapes"] = reorder_recs
     print(json.dumps({"paths": {
         "P1": dict(dec, host_reads=p1_reads, ms=q19_ms),
         "P2": p2_rec, "P3": p3_rec, "spill_gb_s": rates,
@@ -3160,7 +3782,9 @@ def main() -> int:
         "P5": {"ms": p5_ms, "first_run_ms": p5_first_ms, "io": p5_io,
                "launches": p5_counts, "pool_misses": p5_misses,
                "pinned_alloc_ms": pinned_ms},
-        "ingest": ingest, "P6": p6_rec, "P7": p7_rec, "P8": p8_rec}}))
+        "ingest": ingest, "P6": p6_rec, "P7": p7_rec, "P8": p8_rec,
+        **{k: dict(v[2], timed=shuffle_recs.get(k)) for k, v in
+           shuffled.items()}, "split_fetch": fetch_rates}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

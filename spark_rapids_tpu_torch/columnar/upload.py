@@ -418,18 +418,22 @@ def promote_batch(batch, device=None):
 def promote_stream(it, device=None, num_metric=None,
                    time_metric=None):
     """A host-batch iterator with each batch promoted (one upload each),
-    attributed to an exec's metric pair when given. Closing it closes
-    the wrapped iterator."""
+    attributed to an exec's metric pair when given. On a card the copies
+    run on the card's upload stream, so each promoted batch carries its
+    copy's event: the consumer calls `await_upload` before using it.
+    Closing the iterator closes the wrapped one."""
+    dev = resolve_device(device)
     try:
         for b in it:
-            if num_metric is not None:
-                # promote inside the sink, yield outside it: a generator
-                # suspends at yield with its thread-locals in place
-                with metric_sink(num_metric, time_metric):
-                    out = promote_batch(b, device)
-                yield out
-            else:
-                yield promote_batch(b, device)
+            # promote inside the sink, yield outside it: a generator
+            # suspends at yield with its thread-locals in place
+            with on_upload_stream(dev):
+                if num_metric is not None:
+                    with metric_sink(num_metric, time_metric):
+                        out = promote_batch(b, dev)
+                else:
+                    out = promote_batch(b, dev)
+            yield out
     finally:
         close = getattr(it, "close", None)
         if close is not None:

@@ -1,5 +1,12 @@
-"""AggregateExec in complete mode — the counterpart of
-spark_rapids_tpu/exec/aggregate.py.
+"""AggregateExec — the counterpart of spark_rapids_tpu/exec/aggregate.py.
+
+Modes, as in Spark's partial/final split: `complete` aggregates its
+input and evaluates; `partial` stops before the evaluation and emits the
+keys and aggregation buffers (it feeds an exchange); `final` takes such
+keys+buffers batches (its input schema is its buffer schema), merges
+them with the merge ops and evaluates, with result types from the
+partial's `input_types`. Final mode never takes the fused kernel and
+absorbs no chain: its child's batches are buffers already.
 
 Speculative tier (inside a speculation scope, `_spec_enabled`), one step
 per source batch with no host synchronisation (`_streaming_step`):
@@ -34,13 +41,11 @@ Both tiers run each source batch as a SpillableBatch under
 partials under `with_retry` with a policy that splits the set of
 partials (memory/retry.py), as the JAX package does. The aggregate takes
 no dictionary-encoded input: its source decodes at its output boundary.
-
-Not ported yet: partial/final modes (ROADMAP A.2).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,7 +61,7 @@ from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
     masked_groupby, masked_groupby_exact, masked_reduce,
 )
-from ..types import BinaryType, Schema, StringType, StructField
+from ..types import BinaryType, DataType, Schema, StringType, StructField
 from .base import AGG_TIME, TpuExec
 from .basic import (bind_projection, eval_projection, projection_schema,
                     run_spillable)
@@ -74,6 +79,9 @@ HASH_ROUTE = "hash_rounds_{}"
 SORT_FALLBACK = "sort_fallback"
 
 
+MODES = ("complete", "partial", "final")
+
+
 def _result_column(data, valid, dtype) -> Column:
     return Column(data.to(dtype.torch_dtype), valid, dtype)
 
@@ -81,8 +89,16 @@ def _result_column(data, valid, dtype) -> Column:
 class AggregateExec(TpuExec):
     def __init__(self, group_exprs: Sequence[Expression],
                  aggregates: Sequence[Tuple[AggregateFunction, str]],
-                 child: TpuExec):
+                 child: TpuExec, mode: str = "complete",
+                 input_types: Optional[List[List[DataType]]] = None):
+        """`input_types`: per aggregate, its original input types, which a
+        final-mode instance takes from its partial (`_input_types`) so
+        that its result types are the single-stage plan's; without them
+        final mode derives them from the buffer types."""
         super().__init__(child)
+        if mode not in MODES:
+            raise ValueError(f"unknown aggregate mode {mode!r}")
+        self.mode = mode
         self.group_exprs = list(group_exprs)
         self.aggregates = list(aggregates)
         in_schema = child.output_schema
@@ -91,6 +107,16 @@ class AggregateExec(TpuExec):
         # False pins the exact tier even inside a speculation scope (a
         # plan whose key cardinality is known to overflow the buckets)
         self._spec_enabled = True
+        self._key_count = len(group_exprs)
+        self._fused_steps: list = []
+        self._source: TpuExec = child
+        self._scan_agg_spec = None
+
+        if mode == "final":
+            # the input is a partial's keys+buffers
+            self._input_types = input_types
+            self._buffer_schema = in_schema
+            return
 
         # pre-projection: keys then the union of agg inputs
         self._pre_exprs = list(self.group_exprs)
@@ -104,7 +130,6 @@ class AggregateExec(TpuExec):
             self._input_slots.append(slots)
         self._pre_bound = bind_projection(self._pre_exprs, in_schema)
         self._pre_schema = projection_schema(self._pre_exprs, in_schema)
-        self._key_count = len(group_exprs)
         self._input_types = [
             [self._pre_schema.fields[s].data_type for s in slots]
             for slots in self._input_slots]
@@ -118,11 +143,10 @@ class AggregateExec(TpuExec):
             steps.append(node.fused_step())
             node = node.child
         self._fused_steps = list(reversed(steps))
-        self._source: TpuExec = node
+        self._source = node
 
         # the fused scan-aggregate kernel, when every absorbed expression
         # is in its whitelist
-        self._scan_agg_spec = None
         if self.group_exprs and self._masked_ok:
             agg_op_slots = []
             for i, (fn, _) in enumerate(self.aggregates):
@@ -141,10 +165,23 @@ class AggregateExec(TpuExec):
                 fields.append(StructField(f"{name}#buf{j}", bt, True))
         return Schema(tuple(fields))
 
+    def _buffer_types(self, i: int) -> List[DataType]:
+        """Aggregate i's buffer types, from the buffer schema."""
+        pos = self._key_count + sum(len(fn.merge_ops())
+                                    for fn, _ in self.aggregates[:i])
+        n_buf = len(self.aggregates[i][0].merge_ops())
+        return [f.data_type
+                for f in self._buffer_schema.fields[pos: pos + n_buf]]
+
     @property
     def output_schema(self) -> Schema:
+        if self.mode == "partial":
+            return self._buffer_schema
         key_fields = list(self._buffer_schema.fields[: self._key_count])
-        agg_fields = [StructField(name, fn.result_type(self._input_types[i]))
+        agg_fields = [StructField(name, fn.result_type(self._input_types[i])
+                                  if self._input_types is not None else
+                                  fn.result_type_from_buffer(
+                                      self._buffer_types(i)))
                       for i, (fn, name) in enumerate(self.aggregates)]
         return Schema(tuple(key_fields + agg_fields))
 
@@ -228,8 +265,10 @@ class AggregateExec(TpuExec):
     def _streaming_step(self, batch: ColumnarBatch, state: ColumnarBatch,
                         flag: torch.Tensor):
         """One step per source batch: fused chain -> masked-bucket partial
-        -> fold into the O(1) running state -> evaluate. Overflow only
-        raises the device flag."""
+        -> fold into the O(1) running state -> evaluate (not in partial
+        mode). In final mode the batch's buffers go through the masked
+        buckets with the merge ops. Overflow only raises the device
+        flag."""
         out_cap = self._small_cap()
         if self._scan_agg_spec is not None:
             # ONE fused kernel: scan -> filter -> project -> masked-bucket
@@ -239,18 +278,22 @@ class AggregateExec(TpuExec):
             flag = flag | leftover
             part = self._build_small_batch(out_keys, results, num_groups)
         else:
-            cur, mask = self._apply_fused(batch)
-            pre = eval_projection(self._pre_bound, cur, self._pre_schema)
-            keys, agg_inputs = self._update_inputs(pre)
+            if self.mode == "final":
+                cur, mask = batch, None
+                keys, agg_inputs = self._merge_inputs(batch)
+            else:
+                cur, mask = self._apply_fused(batch)
+                cur = eval_projection(self._pre_bound, cur, self._pre_schema)
+                keys, agg_inputs = self._update_inputs(cur)
             if not keys:
                 results = [("raw", r) for r in masked_reduce(
-                    agg_inputs, pre.num_rows, mask, out_cap)]
+                    agg_inputs, cur.num_rows, mask, out_cap)]
                 part = self._build_small_batch(
                     [], results, torch.ones((), dtype=torch.int32,
                                             device=batch.device))
             else:
                 out_keys, results, num_groups, leftover = masked_groupby(
-                    keys, agg_inputs, pre.num_rows, pre.capacity, mask,
+                    keys, agg_inputs, cur.num_rows, cur.capacity, mask,
                     self._slots, self._rounds)
                 flag = flag | leftover
                 part = self._build_small_batch(out_keys, results, num_groups)
@@ -274,7 +317,9 @@ class AggregateExec(TpuExec):
                 self._slots, self._rounds)
             flag = flag | mleft
             new_state = self._build_small_batch(mk, mres, mgroups)
-        return new_state, flag, self._evaluate(new_state)
+        evaluated = None if self.mode == "partial" \
+            else self._evaluate(new_state)
+        return new_state, flag, evaluated
 
     def _evaluate(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Final projection buffers -> results."""
@@ -283,7 +328,9 @@ class AggregateExec(TpuExec):
         for i, (fn, _) in enumerate(self.aggregates):
             n_buf = len(fn.merge_ops())
             bufs = list(batch.columns[pos: pos + n_buf])
-            col = fn.evaluate(bufs, self._input_types[i])
+            input_types = self._input_types[i] \
+                if self._input_types is not None else [b.dtype for b in bufs]
+            col = fn.evaluate(bufs, input_types)
             cols.append(sanitize(col, batch.num_rows))
             pos += n_buf
         return ColumnarBatch(cols, batch.num_rows, self.output_schema,
@@ -449,16 +496,21 @@ class AggregateExec(TpuExec):
     def _execute_exact(self) -> Iterator[ColumnarBatch]:
         agg_time = self.metrics[AGG_TIME]
         aggregated: List[SpillableBatch] = []
+        first_pass = self._merge_batch if self.mode == "final" \
+            else self._update_and_aggregate
         try:
             with agg_time.ns_timer():
                 for batch in self._source.execute():
-                    for out in run_spillable(batch,
-                                             self._update_and_aggregate):
+                    for out in run_spillable(batch, first_pass):
                         self._absorb_partial(aggregated, out)
                 if not aggregated:
-                    if self.group_exprs:
+                    if self.group_exprs or self.mode == "partial":
                         return  # no input, no groups
                     # a grand aggregate over empty input emits one row
+                    if self.mode == "final":
+                        yield self._evaluate(self._merge_batch(empty_batch(
+                            self._buffer_schema, device=self.device)))
+                        return
                     empty = empty_batch(self._source.output_schema,
                                         device=self._source.device)
                     yield self._evaluate(self._fused_update_exact(empty))
@@ -472,7 +524,8 @@ class AggregateExec(TpuExec):
                 else:
                     merged = self._merge_all(aggregated)
                     aggregated.clear()
-            yield self._evaluate(merged)
+            yield merged if self.mode == "partial" \
+                else self._evaluate(merged)
         finally:
             for s in aggregated:
                 s.close()
@@ -514,4 +567,4 @@ class AggregateExec(TpuExec):
             yield from self._execute_exact()
             return
         current_scope().record(flag)
-        yield evaluated
+        yield state if self.mode == "partial" else evaluated

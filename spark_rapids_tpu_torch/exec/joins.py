@@ -94,17 +94,27 @@ def _byte_caps(columns, needs) -> tuple:
 
 def concat_batches(batches: Sequence[ColumnarBatch],
                    schema: Schema) -> ColumnarBatch:
-    """Concatenate batches' active rows on the device, pairwise into the
-    bucket of the capacities (the host row count is kept when known)."""
-    out = batches[0]
-    for b in batches[1:]:
-        cap = bucket_capacity(out.capacity + b.capacity)
-        cols = [concat_columns(x, y, out.num_rows, b.num_rows, cap)
-                for x, y in zip(out.columns, b.columns)]
-        host = None if out._host_rows is None or b._host_rows is None \
-            else out._host_rows + b._host_rows
-        out = ColumnarBatch(cols, out.num_rows + b.num_rows, schema, host)
-    return out
+    """Concatenate batches' active rows on the device, as the JAX
+    package's exec/coalesce.concat_batches does: pairwise in a tree (each
+    row copied O(log k) times), each pair into the tight bucket of its
+    row count when both counts are known on the host, else into the
+    bucket of its capacities (no host read)."""
+    level = list(batches)
+    while len(level) > 1:
+        nxt = []
+        for a, b in zip(level[0::2], level[1::2]):
+            host = None if a._host_rows is None or b._host_rows is None \
+                else a._host_rows + b._host_rows
+            cap = bucket_capacity(host) if host is not None \
+                else bucket_capacity(a.capacity + b.capacity)
+            cols = [concat_columns(x, y, a.num_rows, b.num_rows, cap)
+                    for x, y in zip(a.columns, b.columns)]
+            nxt.append(ColumnarBatch(cols, a.num_rows + b.num_rows, schema,
+                                     host))
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
 
 
 class HashJoinExec(TpuExec):

@@ -48,6 +48,13 @@ class AggregateFunction:
     def result_type(self, input_types: Sequence[DataType]) -> DataType:
         raise NotImplementedError
 
+    def result_type_from_buffer(self, buffer_types: Sequence[DataType]
+                                ) -> DataType:
+        """The result type in final mode when only the buffer types are
+        known: the buffer types taken as the input types, which every
+        aggregate here maps to the same result."""
+        return self.result_type(buffer_types)
+
     def evaluate(self, buffers: List[Column],
                  input_types: Sequence[DataType]) -> Column:
         """Final projection from merged buffer columns to the result."""

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each kernel source is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with ctypes (no PyTorch headers: a build
@@ -6,6 +6,8 @@ takes seconds, not minutes). Libraries are cached in `_build/` beside the
 package, named by the SHA-256 of source and flags, so a source is
 compiled once per checkout. Builds happen at first use; `start` and
 `wait` let a caller compile several sources at once, one nvcc each.
+`build_host` compiles a host C++ source (the shuffle's block codec,
+csrc/blockcodec.cpp) the same way with the host compiler (`cxx_path`).
 
 Usage:
     from spark_rapids_tpu_torch.kernels import build
@@ -42,6 +44,43 @@ def nvcc_path() -> str:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
                            "toolkit's bin directory on PATH")
     return found
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, else g++ or c++ on PATH."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler: set CXX or put g++ on PATH")
+
+
+HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def build_host(source: str) -> Path:
+    """Compile the host C++ `source` (if not cached) with `cxx_path()`
+    into `_build/`, named by the SHA-256 of source and flags, and return
+    the library path. Raises with the compiler's output on failure."""
+    digest = hashlib.sha256(
+        (source + "\0" + " ".join(HOST_CXX_FLAGS)).encode()).hexdigest()[:24]
+    lib = BUILD_DIR / f"h_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = lib.with_suffix(".cpp")
+    tmp_src = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.cpp")
+    tmp_src.write_text(source)
+    os.replace(tmp_src, src)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([cxx_path(), *HOST_CXX_FLAGS, "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx_path()} failed on {src}:\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def library_path(source: str) -> Path:
