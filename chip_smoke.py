@@ -125,6 +125,22 @@ fails the run on error:
      TopN imply), every exchange reads each frame it wrote with one
      upload, the shuffle root is empty after, the catalog empty and no
      permit held;
+  3c. builds the same queries again as DataFrame queries of the port's
+     session (TpuSession(conf, "cuda"), api/functions) over the batches
+     phase 3 built: q1, q3 with LONG and INT keys and the exact tier by
+     conf (spark.rapids.tpu.agg.speculative.enabled=false), Q19, P6 and
+     P11 (spark.rapids.sql.shuffle.partitions=16, broadcastSizeThreshold
+     -1); prints each one's explain() text and its plan ms (wrap_and_tag
+     and convert, timed apart), holds q1's, P6's and P11's converted trees
+     to the hand-built plans' shapes, drives each converted tree counted
+     as phase 3 does (the speculation flags must stay False) and holds it
+     to its oracle, then collect()s it through the session, counted,
+     which must launch the same; every launch count that differs from the
+     hand-built plan's must be accounted for by a planned node, which is
+     printed (a BroadcastExchangeExec over a FilterExec compacts the build
+     side the hand-built join masks; a CoalesceBatchesExec that merged
+     batches runs the operators above it fewer times); the catalog empty,
+     no permit held and the shuffle root empty after each;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -159,7 +175,9 @@ fails the run on error:
      batch in GB/s (fetch_split_host, and the copy alone); the murmur3
      chain at the pid shape (131,072 LONG and INT keys, seed 42); and
      dma_row_gather at every reorder shape beside index_select and, where
-     a fixed-width kernel serves it, the generic kernel.
+     a fixed-width kernel serves it, the generic kernel. Then q1, q3 and
+     Q19 through the session (df.collect(), the plan included) and as
+     their hand-built plans (plan.collect()), in turns, 5 runs each.
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
@@ -168,13 +186,16 @@ traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6" or "_p7" before
 its suffix.
 
 The last lines are a JSON line with the records of P1-P11, the spill
-rates, the ingest rates and the split's fetch rates, a JSON line with one
+rates, the ingest rates, the split's fetch rates and the planned queries
+of phase 3c (under "planned": plan ms, launches beside the hand-built
+plan's, the differences and the session timings), a JSON line with one
 record per ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape", the row gather's every shape under
 "shapes" and the reorders' under "reorder_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
-kernel's launches on P1-P11 under "path_launches"), the card as
+kernel's launches on P1-P11 and the planned queries under
+"path_launches"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -3208,6 +3229,267 @@ def time_dict_gather(q19_lines, launches, p7_take, p7_launches):
             "dg_shape": dg_shape}
 
 
+# -- slice 8: the planner and the session (phase 3c) -------------------------
+
+#: the confs of the planned paths: q3, Q19 and P11 pin their aggregates to
+#: the exact tier as the hand-built plans do (`_spec_enabled = False`);
+#: P11 plans its joins over the host shuffle into P_PARTS partitions
+#: instead of broadcasting the orders
+Q3_CONF = {"spark.rapids.tpu.agg.speculative.enabled": "false"}
+P11_CONF = dict(Q3_CONF, **{"spark.rapids.sql.shuffle.partitions":
+                            str(P_PARTS),
+                            "spark.rapids.sql.broadcastSizeThreshold": "-1"})
+SESSION_ITERS = 5        # phase 4's session-against-hand-built runs each
+
+
+def session_modules():
+    """The port's session API, functions, expressions and planner."""
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch.api import functions, session
+    from spark_rapids_tpu_torch.expr import core, predicates
+    from spark_rapids_tpu_torch.plan import overrides
+    return SimpleNamespace(core=core, pred=predicates, F=functions,
+                           session=session, overrides=overrides)
+
+
+def q1_df(m, sess, batches):
+    """bench.py's q1 as a DataFrame query: filter -> select(disc_price)
+    -> group by returnflag: sum, sum, count."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    df = sess.from_batches(batches, batches[0].schema)
+    return (df.filter(col("quantity") <= lit(45))
+            .select(col("returnflag"), col("quantity"),
+                    (col("extendedprice") * (lit(1.0) - col("discount")))
+                    .alias("disc_price"))
+            .group_by("returnflag")
+            .agg((F.sum("quantity"), "sum_qty"),
+                 (F.sum("disc_price"), "sum_disc"), (F.count(), "cnt")))
+
+
+def q3_df(m, sess, order_batches, line_batches):
+    """bench.py's q3 as a DataFrame query: both sides filtered, joined on
+    the order key, revenue by order, its top 10."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    lines = sess.from_batches(line_batches, line_batches[0].schema) \
+        .filter(col("l_flag") != lit(0))
+    orders = sess.from_batches(order_batches, order_batches[0].schema) \
+        .filter(col("o_flag") < lit(5))
+    return (lines.join(orders, left_on="l_orderkey", right_on="o_orderkey")
+            .select(col("l_orderkey"),
+                    (col("l_price") * (lit(1.0) - col("l_disc")))
+                    .alias("rev"))
+            .group_by("l_orderkey").agg((F.sum("rev"), "revenue"))
+            .sort((col("revenue"), False)).limit(10))
+
+
+def q19_df(m, sess, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
+           shipmodes=Q19_SHIPMODES):
+    """TPC-H Q19 as a DataFrame query (q19_tree's predicates): the
+    filtered lineitems joined to the filtered parts on the part key with
+    the three-way OR as the join's condition, then the grand sum."""
+    col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
+
+    def all_of(*es):
+        out = es[0]
+        for e in es[1:]:
+            out = pr.And(out, e)
+        return out
+
+    def any_of(*es):
+        out = es[0]
+        for e in es[1:]:
+            out = pr.Or(out, e)
+        return out
+
+    ship = [pr.In(col("l_shipmode"), list(shipmodes)),
+            pr.EqualTo(col("l_shipinstruct"), lit(Q19_INSTRUCT))]
+    part_terms, terms_all = [], []
+    for brand, containers, q, s in terms:
+        part = [pr.EqualTo(col("p_brand"), lit(brand)),
+                pr.In(col("p_container"), list(containers))]
+        part_terms.append(all_of(*part, pr.LessThanOrEqual(col("p_size"),
+                                                           lit(s))))
+        terms_all.append(all_of(
+            *part,
+            pr.GreaterThanOrEqual(col("l_quantity"), lit(float(q))),
+            pr.LessThanOrEqual(col("l_quantity"), lit(float(q + span))),
+            pr.GreaterThanOrEqual(col("p_size"), lit(1)),
+            pr.LessThanOrEqual(col("p_size"), lit(s)), *ship))
+    lines = sess.from_batches([l_batch], l_batch.schema) \
+        .filter(all_of(*ship))
+    parts = sess.from_batches([p_batch], p_batch.schema).filter(
+        pr.And(pr.GreaterThanOrEqual(col("p_size"), lit(1)),
+               any_of(*part_terms)))
+    return (lines.join(parts, left_on="l_partkey", right_on="p_partkey",
+                       condition=any_of(*terms_all))
+            .select(col("l_extendedprice"), col("l_discount"))
+            .agg((F.sum(col("l_extendedprice")
+                        * (lit(1.0) - col("l_discount"))), "revenue")))
+
+
+def tpch_q1_df(m, sess, l_batch, cutoff=None):
+    """TPC-H Q1 (P6) as a DataFrame query: tpch_q1_tree's filter, its
+    eight aggregates by the two string flags, ordered by them."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    cutoff = lit(Q1_SHIP_CUTOFF) if cutoff is None else cutoff
+    price, disc = col("l_extendedprice"), col("l_discount")
+    disc_price = price * (lit(1.0) - disc)
+    return (sess.from_batches([l_batch], l_batch.schema)
+            .filter(m.pred.LessThanOrEqual(col("l_shipdate"), cutoff))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg((F.sum("l_quantity"), "sum_qty"),
+                 (F.sum(price), "sum_base_price"),
+                 (F.sum(disc_price), "sum_disc_price"),
+                 (F.sum(disc_price * (lit(1.0) + col("l_tax"))),
+                  "sum_charge"),
+                 (F.avg("l_quantity"), "avg_qty"), (F.avg(price), "avg_price"),
+                 (F.avg(disc), "avg_disc"), (F.count(), "count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def planned(m, df):
+    """df's plan through the session's planner, timed: (exec tree, ms of
+    wrap_and_tag, ms of convert). A plan that cannot run raises with the
+    explain text, and the execs are built under the session's conf, as
+    apply() does."""
+    m.session.set_active_conf(df.session.conf)
+    overrides = m.overrides.TpuOverrides(df.session.conf)
+    t0 = time.perf_counter()
+    meta = overrides.wrap_and_tag(df.logical_plan())
+    t1 = time.perf_counter()
+    if not overrides._all_ok(meta):
+        raise m.overrides.PlanNotSupported(meta.explain())
+    tree = meta.convert()
+    t2 = time.perf_counter()
+    return tree, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def exec_nodes(node):
+    out = [node]
+    for c in node.children:
+        out.extend(exec_nodes(c))
+    return out
+
+
+def plan_shape(node):
+    """An exec tree's classes, nested, with the scan under a coalesce
+    reduced to its leaf ("Scan"): the shape the planner and the
+    hand-built plans share."""
+    name = type(node).__name__
+    if name in ("CoalesceBatchesExec", "SourceScanExec", "InMemoryScanExec"):
+        return "Scan"
+    return (name, tuple(plan_shape(c) for c in node.children))
+
+
+def explain_launches(label, tree, counts, hand_counts):
+    """Every kernel whose launches differ from the hand-built plan's, with
+    the planned node that accounts for it; a difference no node accounts
+    for raises. A FilterExec below a BroadcastExchangeExec compacts its
+    batches (one packed row gather each), where the hand-built join masks
+    its build side's keys instead; a CoalesceBatchesExec that merged its
+    input batches runs the operators above it over fewer batches."""
+    nodes = exec_nodes(tree)
+    compacted = sum(
+        n.child.child.metrics["numOutputBatches"].value
+        for n in nodes if type(n).__name__ == "BroadcastExchangeExec"
+        and type(n.child).__name__ == "FilterExec"
+        and type(n.child.child).__name__ == "CoalesceBatchesExec")
+    merges = [(n.metrics["numInputBatches"].value,
+               n.metrics["numOutputBatches"].value) for n in nodes
+              if type(n).__name__ == "CoalesceBatchesExec"
+              and n.metrics["numInputBatches"].value
+              > n.metrics["numOutputBatches"].value]
+    notes = []
+    for name in sorted(counts):
+        d = counts[name] - hand_counts[name]
+        if d == 0:
+            continue
+        if name == "dma_row_gather" and d == compacted and not merges:
+            notes.append(f"{name} {counts[name]} (hand-built "
+                         f"{hand_counts[name]}): BroadcastExchangeExec over "
+                         f"FilterExec compacts {compacted} build batch(es) "
+                         f"the hand-built join masks")
+        elif d < 0 and merges:
+            merged = " and ".join(f"{a} batches into {b}" for a, b in merges)
+            notes.append(f"{name} {counts[name]} (hand-built "
+                         f"{hand_counts[name]}): CoalesceBatchesExec merged "
+                         f"{merged}")
+        else:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times, the hand-built plan "
+                                 f"{hand_counts[name]}, and no planned node "
+                                 f"accounts for it")
+    return notes
+
+
+def drive_planned(label, m, df, need, hand_counts, check, hand_shape=None):
+    """Phase 3c for one query: print its explain text, plan it (timed),
+    check its shape against the hand-built plan's when given, drive it
+    once counted (drive_batches: the speculation flags must stay False),
+    hold its rows with `check`, explain every launch count that differs
+    from the hand-built plan's, then collect() it through the session once
+    more, counted, which must launch the same. `check(rows, label,
+    operator metrics)` raises on a wrong result. Returns a record."""
+    print(f"{label} explain:\n{df.explain()}")
+    tree, tag_ms, convert_ms = planned(m, df)
+    shape = plan_shape(tree)
+    if hand_shape is not None and shape != hand_shape:
+        raise AssertionError(f"{label}: planned {shape} != hand-built "
+                             f"{hand_shape}")
+    out, counts, reads = drive_batches(label, tree, need)
+    check([r for b in out for r in b.to_pylist()], label,
+          m.session._operator_metrics(tree))
+    notes = explain_launches(label, tree, counts, hand_counts)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows = df.collect()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    again = {name: w.launches for name, w in wrappers.items()}
+    check(rows, label + " collect()", df.session.last_query_metrics())
+    if again != counts:
+        raise AssertionError(f"{label}: collect() launched {again}, the "
+                             f"counted run {counts}")
+    check_idle(label)
+    shuffle_root_empty(label)
+    print(f"{label}: plan {tag_ms + convert_ms:.3f} ms (wrap_and_tag "
+          f"{tag_ms:.3f}, convert {convert_ms:.3f}); collect() "
+          f"{collect_ms:.3f} ms (its plan included, one run); launches "
+          f"{counts}; hand-built {hand_counts}; host reads {reads}")
+    for note in notes:
+        print(f"  {label}: {note}")
+    return {"plan_ms": tag_ms + convert_ms, "wrap_and_tag_ms": tag_ms,
+            "convert_ms": convert_ms, "collect_ms": collect_ms,
+            "launches": counts,
+            "hand_built_launches": hand_counts, "differences": notes}
+
+
+def time_session_paths(paths):
+    """Phase 4: each of q1, q3 and Q19 through the session (plan
+    included: df.collect()) and as its hand-built plan (plan.collect()),
+    in turns, SESSION_ITERS runs each, one synchronisation a run.
+    `paths` maps a label to (df, hand-built plan, check(rows, label))."""
+    import torch
+    out = {}
+    for label, (df, hand, check) in paths.items():
+        ms = {"session": [], "hand_built": []}
+        for i in range(SESSION_ITERS):
+            order = ("hand_built", "session") if i % 2 == 0 \
+                else ("session", "hand_built")
+            for k in order:
+                t0 = time.perf_counter()
+                rows = df.collect() if k == "session" else hand.collect()
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+                check(rows, f"{label} {k}")
+        out[label] = ms
+        print(f"{label} ms per run, in turns ({SESSION_ITERS} each): "
+              f"session {[round(x, 3) for x in ms['session']]}, hand-built "
+              f"{[round(x, 3) for x in ms['hand_built']]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3464,8 +3746,7 @@ def main() -> int:
     t_scan = time.perf_counter()
     from spark_rapids_tpu_torch.columnar import upload
     from spark_rapids_tpu_torch.memory import reset_tpu_semaphore
-    from spark_rapids_tpu_torch.memory.semaphore import CONCURRENT_TPU_TASKS
-    reset_tpu_semaphore(CONCURRENT_TPU_TASKS)
+    reset_tpu_semaphore()  # spark.rapids.sql.concurrentGpuTasks permits
     upload.reset_staging_pool()
     p4_batches = P2_LINE_BATCHES + P4_ORDER_BATCHES
     # the yardstick: the same plan over the same batches built on the
@@ -3540,6 +3821,52 @@ def main() -> int:
     shuffled = drive_shuffle_paths(dev, p9_batches, oracle, q1t_batch,
                                    q1t_want, d3, d3i, q3_want)
     print(f"P9-P11 (phase 3b): {time.perf_counter() - t_shuf:.1f} s")
+
+    # -- phase 3c, slice 8: the same queries planned from DataFrames -------
+    t_plan = time.perf_counter()
+    sm = session_modules()
+    TpuSession = sm.session.TpuSession
+    sess, q3_sess = TpuSession(device=DEVICE), TpuSession(Q3_CONF, DEVICE)
+    p11_sess = TpuSession(P11_CONF, DEVICE)
+
+    def q3_side_batches(d_, key, n_lines=1, n_orders=1):
+        o_schema, l_schema = q3_schemas(key)
+        return (q3_batches(d_, dev, o_schema, Q3_ORDERS, n_orders),
+                q3_batches(d_, dev, l_schema, Q3_LINES, n_lines))
+
+    def q19_pairs(metrics):
+        return next(v["numOutputRows"] for k, v in metrics.items()
+                    if k.startswith("HashJoinExec#"))
+
+    q3_need = ["murmur3_columns", "fused_probe_verify", "dma_row_gather"]
+    session_dfs = {
+        "q1": q1_df(sm, sess, [batch]),
+        "q3": q3_df(sm, q3_sess, *q3_side_batches(d3, "LONG")),
+        "q3 INT keys": q3_df(sm, q3_sess, *q3_side_batches(d3i, "INT")),
+        "q19": q19_df(sm, sess, l19, p19),
+        "P6": tpch_q1_df(sm, sess, q1t_batch),
+        "P11": q3_df(sm, p11_sess, *q3_side_batches(
+            d3, "LONG", P11_LINE_BATCHES, P11_ORDER_BATCHES))}
+    planned_recs = {}
+    for label, need, hand, check, hand_shape in (
+            ("q1", ["fused_scan_agg"], q1_counts,
+             lambda r, lb, _: check_q1(r, oracle, lb), plan_shape(plan)),
+            ("q3", q3_need, q3_counts,
+             lambda r, lb, _: check_q3(r, q3_want, lb), None),
+            ("q3 INT keys", q3_need, q3i_counts,
+             lambda r, lb, _: check_q3(r, q3_want, lb), None),
+            ("q19", ["dict_gather"] + q3_need, q19_counts,
+             lambda r, lb, mx: check_q19(r, q19_pairs(mx), q19_want, lb),
+             None),
+            ("P6", ["dma_row_gather"], p6_counts,
+             lambda r, lb, _: check_rows(r, q1t_want, lb), plan_shape(p6)),
+            ("P11", q3_need, shuffled["P11"][1],
+             lambda r, lb, _: check_q3(r, q3_want, lb),
+             plan_shape(shuffled["P11"][0]))):
+        planned_recs[label] = drive_planned(
+            f"{label} planned", sm, session_dfs[label], need, hand, check,
+            hand_shape)
+    print(f"phase 3c: {time.perf_counter() - t_plan:.1f} s")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -3697,6 +4024,14 @@ def main() -> int:
                                      ("P9", "P10", "P11")}).items()
                     for call in calls]
     print(f"P9-P11 timings (phase 4): {time.perf_counter() - t_shuf:.1f} s")
+    t_sess = time.perf_counter()
+    session_ms = time_session_paths({
+        "q1": (session_dfs["q1"], plan,
+               lambda r, lb: check_q1(r, oracle, lb)),
+        "q3": (session_dfs["q3"], q3, lambda r, lb: check_q3(r, q3_want, lb)),
+        "q19": (session_dfs["q19"], q19, lambda r, lb: check_q19(
+            r, q19_want[1], q19_want, lb))})
+    print(f"session timings (phase 4): {time.perf_counter() - t_sess:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -3767,7 +4102,9 @@ def main() -> int:
             "P10_tpch_q1_shuffled": shuffled["P10"][1].get(r["name"], 0),
             "P11_q3_shuffled": shuffled["P11"][1].get(r["name"], 0),
             "P11_q3_shuffled_int_keys": shuffled["P11_INT"][1].get(
-                r["name"], 0)}
+                r["name"], 0),
+            **{f"planned_{k.replace(' ', '_')}": v["launches"].get(
+                r["name"], 0) for k, v in planned_recs.items()}}
         if r["name"] == "murmur3_columns":
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
@@ -3784,7 +4121,9 @@ def main() -> int:
                "pinned_alloc_ms": pinned_ms},
         "ingest": ingest, "P6": p6_rec, "P7": p7_rec, "P8": p8_rec,
         **{k: dict(v[2], timed=shuffle_recs.get(k)) for k, v in
-           shuffled.items()}, "split_fetch": fetch_rates}}))
+           shuffled.items()}, "split_fetch": fetch_rates,
+        "planned": {k: dict(v, ms=session_ms.get(k)) for k, v in
+                    planned_recs.items()}}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,13 @@ path. The TPU's Pallas kernels become hand-written CUDA C++ kernels for
 Hopper (csrc/, built at first use by kernels/build.py).
 
 Entry points run on CUDA unless the caller passes device="cpu"; without
-a card they raise instead of falling back.
+a card they raise instead of falling back. Users reach the engine through
+`TpuSession` (api/session.py), its DataFrames and `functions`, configured
+by a `RapidsConf` (config.py).
 """
 
 from .columnar.batch import ColumnarBatch  # noqa: F401
 from .columnar.column import Column, bucket_capacity  # noqa: F401
+from .config import RapidsConf  # noqa: F401
+from .api import functions  # noqa: F401
+from .api.session import TpuSession  # noqa: F401

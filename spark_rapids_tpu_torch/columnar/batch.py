@@ -57,6 +57,23 @@ class ColumnarBatch:
         return self.columns[name_or_idx]
 
     @staticmethod
+    def from_pydict(data: dict, schema: Schema,
+                    capacity: Optional[int] = None,
+                    device=None) -> "ColumnarBatch":
+        """Python lists by column name (None for null) -> a batch on
+        `device` (default: the card) at one capacity bucket."""
+        lengths = {len(v) for v in data.values()} or {0}
+        if len(lengths) != 1:
+            raise ValueError("ragged input columns")
+        n = lengths.pop()
+        cap = capacity or bucket_capacity(n)
+        from .column import build_column
+        dev = resolve_device(device)
+        cols = [build_column(data[f.name], f.data_type, cap, dev)
+                for f in schema.fields]
+        return ColumnarBatch(cols, n, schema)
+
+    @staticmethod
     def from_numpy_columns(columns: Sequence[Tuple[np.ndarray, np.ndarray]],
                            schema: Schema, num_rows: int,
                            device=None) -> "ColumnarBatch":
@@ -78,7 +95,7 @@ class ColumnarBatch:
         """pyarrow Table/RecordBatch -> batch on `device` (default: the
         card), one capacity bucket. The scan's ingest seam: the columns
         are built on the host (dictionary arrays as DictionaryColumns
-        when `encoded`, default encoded.SCAN_ENCODED) and cross in one
+        when `encoded`, default the scan.encoded conf) and cross in one
         packed upload (columnar/upload.py)."""
         from ..types import StructField
         from .column import column_from_arrow

@@ -44,6 +44,31 @@ def bucket_capacity(n: int) -> int:
     return 1 << (int(n - 1).bit_length())
 
 
+def _logical_to_physical(dtype: DataType):
+    """Value converter for host ingestion: the logical Python values
+    Spark's rows carry (datetime.date, datetime.datetime) beside the raw
+    physical encodings (int days, int microseconds)."""
+    import datetime as _dt
+
+    from ..types import DateType, TimestampType
+    if isinstance(dtype, DateType):
+        epoch = _dt.date(1970, 1, 1)
+        return lambda v: (v - epoch).days if isinstance(v, _dt.date) \
+            and not isinstance(v, _dt.datetime) else v
+    if isinstance(dtype, TimestampType):
+        epoch = _dt.datetime(1970, 1, 1)
+        one_us = _dt.timedelta(microseconds=1)
+
+        def conv_ts(v):
+            if not isinstance(v, _dt.datetime):
+                return v
+            if v.tzinfo is not None:
+                v = v.astimezone(_dt.timezone.utc).replace(tzinfo=None)
+            return (v - epoch) // one_us
+        return conv_ts
+    return lambda v: v
+
+
 def _pad_np(arr: np.ndarray, capacity: int, fill=0) -> np.ndarray:
     if arr.shape[0] == capacity:
         return arr
@@ -76,6 +101,18 @@ class Column:
         valid = _pad_np(validity.astype(np.bool_), cap, fill=False)
         return Column(torch.from_numpy(data).to(dev),
                       torch.from_numpy(valid).to(dev), dtype)
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: DataType,
+                    capacity: Optional[int] = None,
+                    device=None) -> "Column":
+        """Python values (None for null) -> column on `device`."""
+        validity = np.array([v is not None for v in values], dtype=np.bool_)
+        fill = np.zeros((), dtype=dtype.np_dtype).item()
+        conv = _logical_to_physical(dtype)
+        dense = np.array([fill if v is None else conv(v) for v in values],
+                         dtype=dtype.np_dtype)
+        return Column.from_numpy(dense, dtype, capacity, device, validity)
 
     @property
     def capacity(self) -> int:
@@ -212,6 +249,14 @@ class StringColumn(Column):
                 f"bytes={self.byte_capacity})")
 
 
+def build_column(values: Sequence, dtype: DataType,
+                 capacity: Optional[int] = None, device=None) -> Column:
+    """Python values -> a column of the class for `dtype` on `device`."""
+    if dtype.torch_dtype is None:
+        return StringColumn.from_pylist(values, capacity, dtype, device)
+    return Column.from_pylist(values, dtype, capacity, device)
+
+
 def string_buffers(values: Sequence[Optional[object]]):
     """Python strings (or bytes; None as empty) -> Arrow-layout numpy
     (bytes uint8, offsets int32 (n + 1,))."""
@@ -272,7 +317,8 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
                       encoded: Optional[bool] = None) -> Column:
     """pyarrow Array/ChunkedArray -> column on `device` (the scan builds
     host columns with device="cpu"). A dictionary array of strings stays
-    a DictionaryColumn when `encoded` (default encoded.SCAN_ENCODED), else
+    a DictionaryColumn when `encoded` (default: the active conf's
+    spark.rapids.tpu.scan.encoded.enabled), else
     it decodes. Decimal, nested and null types wait for their slice
     (ROADMAP A.8)."""
     import pyarrow as pa
@@ -280,8 +326,11 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     if pa.types.is_dictionary(arr.type):
-        from .encoded import SCAN_ENCODED, dictionary_from_arrow
-        if SCAN_ENCODED if encoded is None else encoded:
+        from ..config import SCAN_ENCODED, active_conf
+        from .encoded import dictionary_from_arrow
+        if encoded is None:
+            encoded = active_conf().get(SCAN_ENCODED)
+        if encoded:
             dt = dtype or from_arrow(arr.type.value_type)
             if isinstance(dt, (StringType, BinaryType)):
                 enc = dictionary_from_arrow(arr, dt, device)

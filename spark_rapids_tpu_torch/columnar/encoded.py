@@ -45,7 +45,7 @@ from ..types import BOOLEAN, BinaryType, DataType, StringType
 from .column import (Column, StringColumn, _pad_np, bucket_capacity,
                      resolve_device)
 
-__all__ = ["NULL_CODE", "SCAN_ENCODED", "DictionaryColumn",
+__all__ = ["NULL_CODE", "DictionaryColumn",
            "dictionary_from_numpy", "dictionary_from_arrow",
            "dict_take", "dictionary_hashes", "row_byte_lanes",
            "bytes_equal_rows", "bytes_equal_at", "literal_hits",
@@ -55,9 +55,6 @@ __all__ = ["NULL_CODE", "SCAN_ENCODED", "DictionaryColumn",
 
 #: sentinel code for null/inactive rows, out of range for every dictionary
 NULL_CODE = -1
-#: spark.rapids.tpu.scan.encoded.enabled: a scan keeps dictionary-encoded
-#: string columns encoded
-SCAN_ENCODED = True
 
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {

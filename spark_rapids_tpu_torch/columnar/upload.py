@@ -18,7 +18,11 @@ of host columns (CPU tensors, at their capacity) crosses in one copy:
 
 Staging buffers come from a pool of power-of-two buckets (`StagingPool`):
 pinned memory where there is a card, grown on a miss, at most
-UPLOAD_POOL_BYTES of idle buffers kept. A copied buffer goes back to the
+spark.rapids.tpu.transfer.packedUpload.poolBytes of idle buffers kept
+(read when the pool is made). `configure(conf)`, which the session calls,
+pre-sizes the pool's ladder of buckets up to the bucket of
+spark.rapids.sql.batchSizeBytes, within the pool's bytes, as the JAX
+package does. A copied buffer goes back to the
 pool only once its copy's event has completed (`release_when_ready`): the
 upload path never synchronizes, since the catalog's unspill runs it under
 the catalog lock. On the CPU `.to("cpu")` returns the staging tensor
@@ -38,8 +42,7 @@ their slice (ROADMAP A.8). Not ported by design: the TPU's double-double
 f64 staging (`_host_bytes` with `dd`) and PJRT's zero-copy probe
 (`_put_aliased`): the port compares the copy's pointer with the staging
 buffer's. Left out with their modules (ROADMAP A.9): the
-`device.dispatch` fault point and the upload events; with the planner
-and API (ROADMAP A.7): the pool's pre-sizing from the batch-size conf.
+`device.dispatch` fault point and the upload events.
 """
 
 from __future__ import annotations
@@ -52,20 +55,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import BATCH_SIZE_BYTES, UPLOAD_POOL_BYTES, active_conf
 from .column import Column, resolve_device
 from .transfer import (HEADER_BYTES, column_layout, layout_nbytes,
                        leaf_bytes, padded, unpack_columns)
 
 __all__ = [
-    "UPLOAD_POOL_BYTES", "StagingPool", "staging_pool", "reset_staging_pool",
+    "StagingPool", "staging_pool", "reset_staging_pool", "configure",
     "counters", "pack_host_batch", "packed_upload_batch", "to_device_batch",
     "promote_batch", "promote_stream", "upload_leaves", "metric_sink",
     "upload_stream", "await_upload",
 ]
-
-#: spark.rapids.tpu.transfer.packedUpload.poolBytes: idle staging bytes
-#: the pool keeps
-UPLOAD_POOL_BYTES = 256 << 20
 
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {"uploads": 0, "transfers": 0, "bytes": 0, "pack_ns": 0,
@@ -97,13 +97,14 @@ class StagingPool:
     """Reusable host staging buffers (uint8 tensors, pinned when `pinned`,
     by default where there is a card). acquire() takes the bucket's most
     recently returned buffer or allocates one on a miss; release() returns
-    it and trims the least recently used idle buffers past `pool_bytes`.
-    Buffers in flight are counted but never capped."""
+    it and trims the least recently used idle buffers past `pool_bytes`
+    (default: packedUpload.poolBytes of the active conf). Buffers in
+    flight are counted but never capped."""
 
     def __init__(self, pool_bytes: Optional[int] = None,
                  pinned: Optional[bool] = None):
-        self.pool_bytes = UPLOAD_POOL_BYTES if pool_bytes is None \
-            else pool_bytes
+        self.pool_bytes = active_conf().get(UPLOAD_POOL_BYTES) \
+            if pool_bytes is None else pool_bytes
         self.pinned = torch.cuda.is_available() if pinned is None \
             else pinned
         self._lock = threading.Lock()
@@ -194,6 +195,30 @@ class StagingPool:
                 self._pooled -= oldest
                 self.trims += 1
 
+    def presize(self, target_bytes: int, pool_cap: int) -> int:
+        """Pre-populate one idle buffer per power-of-two bucket from 256
+        bytes up to the bucket of `target_bytes`, while the pooled bytes
+        stay within `pool_cap`; a bucket that already has an idle buffer
+        is skipped. Returns the bytes allocated."""
+        top = _byte_bucket(max(int(target_bytes), 256))
+        added = 0
+        bucket = 256
+        while bucket <= top:
+            with self._lock:
+                have = bool(self._free.get(bucket))
+                room = self._pooled + bucket <= pool_cap
+            if not have and room:
+                buf = torch.empty(bucket, dtype=torch.uint8,
+                                  pin_memory=self.pinned)
+                with self._lock:
+                    self._tick += 1
+                    self._free.setdefault(bucket, []).append(
+                        (self._tick, buf))
+                    self._pooled += bucket
+                added += bucket
+            bucket <<= 1
+        return added
+
     def discard(self, buf: torch.Tensor) -> None:
         """Drop an acquired buffer without pooling it: an aliased upload
         (the device tensors are the buffer) or a failed one."""
@@ -230,10 +255,32 @@ def staging_pool() -> StagingPool:
 
 
 def reset_staging_pool() -> StagingPool:
-    global _POOL
+    global _POOL, _PRESIZED_FOR
     with _POOL_LOCK:
         _POOL = StagingPool()
+        _PRESIZED_FOR = None
         return _POOL
+
+
+#: (batchSizeBytes, poolBytes) the process pool was last pre-sized for
+_PRESIZED_FOR: Optional[Tuple[int, int]] = None
+
+
+def configure(conf=None) -> None:
+    """Pre-size the process pool's ladder of buckets from
+    spark.rapids.sql.batchSizeBytes within packedUpload.poolBytes, once
+    per pair of values (poolBytes 0: no pool, nothing to do)."""
+    global _PRESIZED_FOR
+    conf = conf if conf is not None else active_conf()
+    cap = max(int(conf.get(UPLOAD_POOL_BYTES)), 0)
+    if cap <= 0:
+        return
+    key = (int(conf.get(BATCH_SIZE_BYTES)), cap)
+    with _POOL_LOCK:
+        if _PRESIZED_FOR == key:
+            return
+        _PRESIZED_FOR = key
+    staging_pool().presize(*key)
 
 
 # -- streams ------------------------------------------------------------------

@@ -8,7 +8,9 @@ them with the merge ops and evaluates, with result types from the
 partial's `input_types`. Final mode never takes the fused kernel and
 absorbs no chain: its child's batches are buffers already.
 
-Speculative tier (inside a speculation scope, `_spec_enabled`), one step
+Speculative tier (inside a speculation scope, `_spec_enabled`: the conf
+spark.rapids.tpu.agg.speculative.enabled read at construction with the
+bucket settings and spark.rapids.tpu.fusion.enabled), one step
 per source batch with no host synchronisation (`_streaming_step`):
   1. the absorbed filter/project chain and the pre-projection
      [group keys..., agg inputs...] run inside the fused scan-aggregate
@@ -51,6 +53,8 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, bucket_capacity
+from ..config import (AGG_GROUP_SLOTS, AGG_ROUNDS, AGG_SPECULATIVE,
+                      FUSION_ENABLED, active_conf)
 from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
 from ..memory.retry import split_in_half_by_rows, with_retry
@@ -65,13 +69,8 @@ from ..types import BinaryType, DataType, Schema, StringType, StructField
 from .base import AGG_TIME, TpuExec
 from .basic import (bind_projection, eval_projection, projection_schema,
                     run_spillable)
-from .joins import concat_batches
+from .coalesce import concat_batches
 from .speculation import current_scope, speculation_allowed
-
-#: buckets per round and rounds of the masked-bucket group-by (the JAX
-#: package's defaults for the same settings)
-GROUP_SLOTS = 32
-ROUNDS = 2
 
 #: the string-key routes, counted by the one that produced a result
 HASH_ROUNDS = (2, 6)
@@ -102,11 +101,15 @@ class AggregateExec(TpuExec):
         self.group_exprs = list(group_exprs)
         self.aggregates = list(aggregates)
         in_schema = child.output_schema
-        self._slots = GROUP_SLOTS
-        self._rounds = ROUNDS
+        # the masked-bucket settings, read at construction as the JAX
+        # package reads them
+        conf = active_conf()
+        self._slots = max(8, min(64, conf.get(AGG_GROUP_SLOTS)))
+        self._rounds = max(1, conf.get(AGG_ROUNDS))
         # False pins the exact tier even inside a speculation scope (a
         # plan whose key cardinality is known to overflow the buckets)
-        self._spec_enabled = True
+        self._spec_enabled = conf.get(AGG_SPECULATIVE)
+        self._fusion_enabled = conf.get(FUSION_ENABLED)
         self._key_count = len(group_exprs)
         self._fused_steps: list = []
         self._source: TpuExec = child
@@ -139,7 +142,8 @@ class AggregateExec(TpuExec):
         # into this operator's per-batch step (masked buckets only: the
         # string route reads its child's batches)
         steps, node = [], child
-        while self._masked_ok and hasattr(node, "fused_step"):
+        while self._fusion_enabled and self._masked_ok \
+                and hasattr(node, "fused_step"):
             steps.append(node.fused_step())
             node = node.child
         self._fused_steps = list(reversed(steps))

@@ -53,7 +53,7 @@ class SourceScanExec(TpuExec):
     """Leaf driving a source's `batches()` stream: a source that builds
     host columns and uploads each batch (`columnar/upload.to_device_batch`,
     as io/parquet.ParquetSource does). Behind a pipeline stage (`depth`,
-    default exec/pipeline.PIPELINE_DEPTH) the decode and upload of batch
+    default exec/pipeline.pipeline_depth()) the decode and upload of batch
     N+1 run on a producer thread while the operators above compute batch
     N, the upload on the card's upload stream; each batch is made safe on
     the consumer's stream before it leaves (`await_upload`). At depth 0 it

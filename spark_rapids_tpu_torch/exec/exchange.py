@@ -183,16 +183,19 @@ class HostShuffleExchangeExec(TpuExec):
     `execute_partitions()`."""
 
     def __init__(self, partition_exprs: Sequence[Expression], child: TpuExec,
-                 n_partitions: int, partitioning: str = "hash",
+                 n_partitions: int, conf=None, partitioning: str = "hash",
                  range_order=None, codec: Optional[int] = None):
         """partitioning is hash, roundrobin, single or range (the
         reference's GpuHashPartitioningBase, GpuRoundRobinPartitioning,
         GpuSinglePartitioning, GpuRangePartitioner). Range mode takes
         `range_order` = (ordinal, ascending, nulls_first) on the child's
         schema. `codec` is the frames' (shuffle/serializer CODEC_LZ4 by
-        default, or CODEC_COPY)."""
+        default, or CODEC_COPY). `conf` (default: the active conf, read
+        here) sizes the shuffle manager's pools and places its files."""
         super().__init__(child)
+        from ..config import active_conf
         from ..shuffle.serializer import CODEC_LZ4
+        self._conf = conf or active_conf()
         if partitioning not in PARTITIONINGS:
             raise ValueError(f"unknown partitioning {partitioning!r}")
         if int(n_partitions) < 1:
@@ -303,7 +306,8 @@ class HostShuffleExchangeExec(TpuExec):
         lane. Returns the writer."""
         from ..shuffle.manager import (HostShuffleWriter, note_shuffle,
                                        partition_batch_host)
-        writer = HostShuffleWriter(handle, map_id, mgr, self.codec)
+        writer = HostShuffleWriter(handle, map_id, mgr, self.codec,
+                                   self._conf)
         if not n:
             # an empty batch: zero frames, no partitioning work
             writer.write([[] for _ in range(self.n_partitions)])
@@ -448,7 +452,7 @@ class HostShuffleExchangeExec(TpuExec):
             else:
                 source, bounds = self.child.execute(), None
             self._write_phase(source, bounds, handle, mgr)
-            reader = HostShuffleReader(handle, mgr)
+            reader = HostShuffleReader(handle, mgr, self._conf)
             dev = self.device
             try:
                 for p in range(self.n_partitions):
@@ -529,7 +533,17 @@ class HostShuffleExchangeExec(TpuExec):
 class BroadcastExchangeExec(TpuExec):
     """Materialize the child once as a single batch on its device and
     replay it to every execution (reference
-    GpuBroadcastExchangeExec.scala:352)."""
+    GpuBroadcastExchangeExec.scala:352).
+
+    Dictionary-encoded columns cross it as they are when the child gives
+    one batch; several batches decode before their concat (their
+    dictionaries differ), as CoalesceBatchesExec does. The JAX package
+    decodes at this boundary always; the port keeps a broadcast build side
+    encoded because its string predicates run in code space only (ROADMAP
+    C.9): a planned Q19's join condition reads the part side's codes, as
+    the hand-built plan's does."""
+
+    consumes_encoded = True
 
     def __init__(self, child: TpuExec):
         super().__init__(child)
@@ -544,7 +558,7 @@ class BroadcastExchangeExec(TpuExec):
 
     def materialize(self) -> ColumnarBatch:
         if self._materialized is None:
-            from .joins import concat_batches
+            from .coalesce import concat_batches
             self.stamp_inputs()
             with self.metrics[BROADCAST_TIME].ns_timer():
                 batches = list(self.child.execute())
@@ -554,7 +568,10 @@ class BroadcastExchangeExec(TpuExec):
                 elif len(batches) == 1:
                     out = batches[0]
                 else:
-                    out = concat_batches(batches, self.output_schema)
+                    from ..columnar.encoded import materialize_batch
+                    out = concat_batches([materialize_batch(b)
+                                          for b in batches],
+                                         self.output_schema)
             self.metrics[PARTITION_SIZE].add(out.nbytes)
             self._materialized = out
         return self._materialized

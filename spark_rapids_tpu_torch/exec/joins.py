@@ -46,8 +46,7 @@ from ..columnar.encoded import DictionaryColumn, materialize_batch
 from ..expr.core import Expression, UnresolvedAttribute, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops import gather as G
-from ..ops.basic import (active_mask, compaction_order, concat_columns,
-                         gather_column)
+from ..ops.basic import active_mask, compaction_order, gather_column
 from ..ops.hashing import u32_of
 from ..ops.join import (BuildTable, expand_candidates, int_key_lanes,
                         probe_counts, verify_pairs)
@@ -58,6 +57,7 @@ from ..ops.strings import string_lengths
 from ..types import Schema
 from .base import TpuExec
 from .basic import FilterExec, bind_projection
+from .coalesce import concat_batches
 
 INNER = "inner"
 BUILD_TIME = "buildTime"
@@ -90,31 +90,6 @@ def _byte_caps(columns, needs) -> tuple:
     it = iter(needs)
     return tuple(bucket_capacity(max(int(next(it)), 8))
                  if isinstance(c, StringColumn) else None for c in columns)
-
-
-def concat_batches(batches: Sequence[ColumnarBatch],
-                   schema: Schema) -> ColumnarBatch:
-    """Concatenate batches' active rows on the device, as the JAX
-    package's exec/coalesce.concat_batches does: pairwise in a tree (each
-    row copied O(log k) times), each pair into the tight bucket of its
-    row count when both counts are known on the host, else into the
-    bucket of its capacities (no host read)."""
-    level = list(batches)
-    while len(level) > 1:
-        nxt = []
-        for a, b in zip(level[0::2], level[1::2]):
-            host = None if a._host_rows is None or b._host_rows is None \
-                else a._host_rows + b._host_rows
-            cap = bucket_capacity(host) if host is not None \
-                else bucket_capacity(a.capacity + b.capacity)
-            cols = [concat_columns(x, y, a.num_rows, b.num_rows, cap)
-                    for x, y in zip(a.columns, b.columns)]
-            nxt.append(ColumnarBatch(cols, a.num_rows + b.num_rows, schema,
-                                     host))
-        if len(level) % 2:
-            nxt.append(level[-1])
-        level = nxt
-    return level[0]
 
 
 class HashJoinExec(TpuExec):

@@ -13,12 +13,13 @@ Contracts (tests/test_torch_pipeline.py):
   items produced before it (its traceback travels on the exception);
 * `close()` (or abandoning the wrapping generator, whose `finally` calls
   it) unblocks a producer stuck on a full queue, closes the source and
-  joins the thread; a producer wedged past PIPELINE_CLOSE_TIMEOUT_MS is
+  joins the thread; a producer wedged past pipeline.closeTimeoutMs is
   left behind (`stuck`), a daemon thread;
 * depth <= 0 is the plain synchronous iterator.
 
 The consumer's thread-local state is captured when the stage is built and
-installed on the producer: the speculation scope and `forced_exact`
+installed on the producer: the active conf (config.active_conf), the
+speculation scope and `forced_exact`
 (exec/speculation.py) and the retry runtime's task state
 (memory/retry.py), so that work behind the boundary records its flags into
 the consumer's scope and runs as the consumer's task.
@@ -38,12 +39,8 @@ import threading
 import time
 from typing import Any, Iterable, Optional
 
-#: spark.rapids.tpu.pipeline.enabled
-PIPELINE_ENABLED = True
-#: spark.rapids.tpu.pipeline.depth
-PIPELINE_DEPTH = 2
-#: spark.rapids.tpu.pipeline.closeTimeoutMs
-PIPELINE_CLOSE_TIMEOUT_MS = 10000
+from ..config import (PIPELINE_CLOSE_TIMEOUT_MS, PIPELINE_DEPTH,
+                      PIPELINE_ENABLED, active_conf, set_active_conf)
 
 _END = object()
 
@@ -67,9 +64,13 @@ def cancelled() -> bool:
     return ev is not None and ev.is_set()
 
 
-def pipeline_depth() -> int:
-    """The configured prefetch depth, 0 when pipelining is off."""
-    return max(0, PIPELINE_DEPTH) if PIPELINE_ENABLED else 0
+def pipeline_depth(conf=None) -> int:
+    """The configured prefetch depth (of `conf`, default the active
+    conf), 0 when pipelining is off."""
+    conf = conf if conf is not None else active_conf()
+    if not conf.get(PIPELINE_ENABLED):
+        return 0
+    return max(0, conf.get(PIPELINE_DEPTH))
 
 
 def pipelined(source: Iterable[Any], depth: Optional[int] = None,
@@ -133,7 +134,9 @@ class PipelinedIterator:
         self._wait_metric = wait_metric
         self._full_metric = full_metric
         self._wall_metric = wall_metric
-        self._close_timeout_s = max(0.1, PIPELINE_CLOSE_TIMEOUT_MS / 1000.0)
+        self._conf = active_conf()
+        self._close_timeout_s = max(
+            0.1, self._conf.get(PIPELINE_CLOSE_TIMEOUT_MS) / 1000.0)
         #: True once close() gave up joining a wedged producer
         self.stuck = False
         self.wait_ns = 0
@@ -157,6 +160,7 @@ class PipelinedIterator:
         try:
             from ..memory.retry import adopt_task_state
             from .speculation import adopt_context
+            set_active_conf(self._conf)
             adopt_context(*self._spec_ctx)
             adopt_task_state(self._task_state)
             _tls.cancel_event = self._closed
@@ -226,7 +230,7 @@ class PipelinedIterator:
     def close(self) -> None:
         """Shut the stage down (idempotent): unblock and join the
         producer, drain the queue, report the stalls. A producer still
-        alive after PIPELINE_CLOSE_TIMEOUT_MS is left behind (`stuck`)."""
+        alive after pipeline.closeTimeoutMs is left behind (`stuck`)."""
         self._closed.set()
         self._drain()
         deadline = time.monotonic() + self._close_timeout_s

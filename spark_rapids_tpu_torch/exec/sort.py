@@ -31,6 +31,7 @@ import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import bucket_capacity
+from ..config import SORT_OOC_ENABLED, active_conf
 from ..expr.core import BoundReference, resolve
 from ..memory.retry import with_retry_no_split
 from ..memory.spillable import SpillableBatch
@@ -40,7 +41,7 @@ from ..ops.sort import (SortOrder, order_key_lanes, sort_batch_columns,
 from ..types import Schema
 from .base import TpuExec
 from .basic import run_spillable
-from .joins import concat_batches
+from .coalesce import concat_batches
 
 SORT_TIME = "sortTime"
 #: passes of the out-of-core merge, the last (streamed to the consumer)
@@ -48,9 +49,6 @@ SORT_TIME = "sortTime"
 MERGE_PASSES = "mergePasses"
 #: host reads of the out-of-core merge: one per round of loaded chunks
 MERGE_HOST_READS = "mergeHostReads"
-
-#: spark.rapids.sql.sort.outOfCore.enabled
-SORT_OOC_ENABLED = True
 
 
 def _lex_leq(lanes: List[torch.Tensor], bound: List[torch.Tensor]):
@@ -121,6 +119,8 @@ class SortExec(TpuExec):
         super().__init__(child)
         self.orders = resolve_sort_orders(orders, child.output_schema)
         self.limit = limit
+        #: spark.rapids.sql.sort.outOfCore.enabled, read at construction
+        self._ooc_enabled = active_conf().get(SORT_OOC_ENABLED)
 
     @property
     def output_schema(self) -> Schema:
@@ -163,7 +163,7 @@ class SortExec(TpuExec):
                 yield _take(runs.pop())
                 return
             if (self.limit is None and len(runs) > self.MERGE_FAN_IN
-                    and SORT_OOC_ENABLED):
+                    and self._ooc_enabled):
                 lists = [[r] for r in runs]
                 runs.clear()
                 yield from self._merge_out_of_core(lists)

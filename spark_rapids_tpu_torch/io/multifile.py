@@ -3,7 +3,10 @@ spark_rapids_tpu/io/multifile.py (the reference's multithreaded reader,
 GpuMultiFileReader.scala:345).
 
 A thread pool decodes the next chunks on the host while the device
-consumes the current batch, emitting in order. Left out with their module
+consumes the current batch, emitting in order. The pool's size
+(spark.rapids.sql.multiThreadedRead.numThreads), the look-ahead window
+(fetchAheadWindow) and the IO retry settings are read from the active
+conf on the thread that drives the reader, never on a pool thread. Left out with their module
 (ROADMAP A.9): the query id carried onto the pool's threads.
 """
 
@@ -16,11 +19,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
 
 from ..columnar.batch import ColumnarBatch
-
-#: spark.rapids.sql.multiThreadedRead.numThreads
-MULTITHREADED_READ_NUM_THREADS = 8
-#: spark.rapids.sql.multiThreadedRead.fetchAheadWindow (0: 2 x threads)
-MULTITHREADED_READ_FETCH_AHEAD = 0
+from ..config import (IO_RETRIES, IO_RETRY_BACKOFF_MS,
+                      MULTITHREADED_READ_FETCH_AHEAD,
+                      MULTITHREADED_READ_NUM_THREADS, active_conf)
 
 
 def expand_paths(path) -> List[str]:
@@ -53,8 +54,9 @@ def shared_read_pool(num_threads: Optional[int] = None
                      ) -> ThreadPoolExecutor:
     """The process-wide decode pool."""
     global _pool, _pool_size
-    num_threads = max(1, int(MULTITHREADED_READ_NUM_THREADS
-                             if num_threads is None else num_threads))
+    if num_threads is None:
+        num_threads = active_conf().get(MULTITHREADED_READ_NUM_THREADS)
+    num_threads = max(1, int(num_threads))
     with _pool_lock:
         if _pool is None or num_threads > _pool_size:
             # a running drive still submits to the pool it captured, so
@@ -68,8 +70,9 @@ def shared_read_pool(num_threads: Optional[int] = None
 
 
 def fetch_ahead_window(num_threads: int) -> int:
-    """Decode tasks a reader keeps in flight ahead of its consumer."""
-    window = MULTITHREADED_READ_FETCH_AHEAD
+    """Decode tasks a reader keeps in flight ahead of its consumer
+    (fetchAheadWindow of the active conf; 0: twice the threads)."""
+    window = active_conf().get(MULTITHREADED_READ_FETCH_AHEAD)
     return window if window > 0 else 2 * max(1, num_threads)
 
 
@@ -81,16 +84,19 @@ def threaded_chunks(tasks: Sequence[Callable[[], object]],
     bounded IO retry (io/retrying.py). One thread, or one task, runs them
     on the caller's thread."""
     from .retrying import with_io_retry
+    conf = active_conf()
+    retries, backoff_ms = conf.get(IO_RETRIES), conf.get(IO_RETRY_BACKOFF_MS)
 
     def retrying(t: Callable[[], object], i: int) -> object:
-        return with_io_retry(t, "multifile_read", salt=str(i))
+        return with_io_retry(t, "multifile_read", retries, backoff_ms,
+                             salt=str(i))
 
     if num_threads <= 1 or len(tasks) <= 1:
         for i, t in enumerate(tasks):
             yield retrying(t, i)
         return
     pool = shared_read_pool(max(num_threads,
-                                MULTITHREADED_READ_NUM_THREADS))
+                                conf.get(MULTITHREADED_READ_NUM_THREADS)))
     if window is None:
         window = fetch_ahead_window(num_threads)
     futures = [pool.submit(retrying, t, i)

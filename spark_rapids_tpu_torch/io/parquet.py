@@ -8,16 +8,22 @@ pruning by `columns`. Row-group pruning evaluates pushed-down conjuncts
 (column, op, literal) against the footer's min/max/null-count statistics:
 pruned groups are never decoded, and `row_groups_read` /
 `row_groups_pruned` record the effect. String columns come back as
-dictionary arrays, kept as DictionaryColumns, when `encoded` (default
-columnar/encoded.SCAN_ENCODED). Reader types: MULTITHREADED (the default:
+dictionary arrays, kept as DictionaryColumns, when `encoded`. Reader
+types: MULTITHREADED (the default:
 `num_threads` decode threads), COALESCING (small row groups stitched into
 one host table of about `batch_rows` before the upload) and PERFILE (the
 same drive as MULTITHREADED, as in the JAX package).
 
+The settings a caller leaves out are read from `conf` (default: the
+active conf) when the source is built: `num_threads` from
+spark.rapids.sql.multiThreadedRead.numThreads, `reader_type` from
+spark.rapids.sql.format.parquet.reader.type and `encoded` from
+spark.rapids.tpu.scan.encoded.enabled.
+
 pyarrow is imported only when a reader is built, so the package imports
 without it; building one without pyarrow raises ImportError. Waiting for
-their slices: the writer (`write_parquet` takes a DataFrame, ROADMAP A.7)
-and the LEGACY datetime rebase on read (ROADMAP A.8).
+their slices: the writer (`write_parquet`, ROADMAP A.5) and the LEGACY
+datetime rebase on read (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -28,11 +34,10 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import resolve_device
 from ..types import Schema, StructField
-from .multifile import (MULTITHREADED_READ_NUM_THREADS, arrow_to_batches,
-                        expand_paths, threaded_chunks)
+from ..config import (MULTITHREADED_READ_NUM_THREADS, PARQUET_READER_TYPE,
+                      SCAN_ENCODED, active_conf)
+from .multifile import arrow_to_batches, expand_paths, threaded_chunks
 
-#: spark.rapids.sql.format.parquet.reader.type
-PARQUET_READER_TYPE = "MULTITHREADED"
 READER_TYPES = ("MULTITHREADED", "COALESCING", "PERFILE")
 #: rows per emitted batch
 DEFAULT_BATCH_ROWS = 1 << 20
@@ -86,8 +91,9 @@ class ParquetSource:
     """A scan's source over Parquet files (a path, directory, glob or a
     list of them); batches land on `device` (default: the card)."""
 
-    def __init__(self, path, columns: Optional[Sequence[str]] = None,
-                 num_threads: int = MULTITHREADED_READ_NUM_THREADS,
+    def __init__(self, path, conf=None,
+                 columns: Optional[Sequence[str]] = None,
+                 num_threads: Optional[int] = None,
                  batch_rows: int = DEFAULT_BATCH_ROWS,
                  filters: Optional[Sequence[Tuple[str, str, object]]] = None,
                  reader_type: Optional[str] = None,
@@ -97,16 +103,19 @@ class ParquetSource:
         self.paths = expand_paths(path)
         if not self.paths:
             raise FileNotFoundError(f"no parquet files at {path!r}")
+        conf = conf or active_conf()
         self.columns = list(columns) if columns is not None else None
-        self.num_threads = num_threads
+        self.num_threads = conf.get(MULTITHREADED_READ_NUM_THREADS) \
+            if num_threads is None else num_threads
         self.batch_rows = batch_rows
         self.filters = list(filters or [])
-        self.reader_type = (reader_type or PARQUET_READER_TYPE).upper()
+        self.reader_type = (reader_type
+                            or conf.get(PARQUET_READER_TYPE)).upper()
         if self.reader_type not in READER_TYPES:
             raise ValueError(f"reader type {self.reader_type!r} not in "
                              f"{READER_TYPES}")
-        from ..columnar.encoded import SCAN_ENCODED
-        self.encoded = SCAN_ENCODED if encoded is None else encoded
+        self.encoded = conf.get(SCAN_ENCODED) if encoded is None \
+            else encoded
         self.device = resolve_device(device)
         arrow_schema = pq.read_schema(self.paths[0])
         fields = []
@@ -139,6 +148,22 @@ class ParquetSource:
     def estimated_size_bytes(self) -> int:
         """Bytes on disk (compressed: an underestimate)."""
         return sum(os.path.getsize(p) for p in self.paths)
+
+    def encoded_columns(self) -> List[str]:
+        """The string columns a scan of this source passes on
+        dictionary-encoded: with the encoded lane on, those of a source
+        that reads as one batch (one row group of at most `batch_rows`;
+        the coalesce above a scan of several decodes them to
+        concatenate)."""
+        names = self._read_dictionary()
+        if not names:
+            return []
+        pq = _parquet()
+        mds = [pq.ParquetFile(p).metadata for p in self.paths]
+        groups = [md.row_group(i).num_rows for md in mds
+                  for i in range(md.num_row_groups)]
+        return names if len(groups) == 1 and groups[0] <= self.batch_rows \
+            else []
 
     def _read_dictionary(self) -> Optional[List[str]]:
         """The string and binary columns pyarrow should return as

@@ -1,8 +1,11 @@
 """Bounded IO retry with exponential backoff — the counterpart of
 spark_rapids_tpu/io/retrying.py.
 
-Transient OSErrors in the multi-file readers get IO_RETRIES more chances
-before the failure surfaces. Only transient-looking errors retry: a
+Transient OSErrors in the multi-file readers get spark.rapids.tpu.io.retries
+more chances before the failure surfaces, the first sleep between them
+spark.rapids.tpu.io.retryBackoffMs (doubled per attempt). A caller on a
+pool thread passes both, read on the thread that owns the drive
+(io/multifile.threaded_chunks): the active conf is thread-local. Only transient-looking errors retry: a
 missing file, a directory in a file's place or a permission wall fail the
 same way on every attempt. Left out with their module (ROADMAP A.9): the
 `io.multifile_read` fault point and the `io_retry` events.
@@ -15,12 +18,10 @@ import time
 import zlib
 from typing import Callable, Optional, TypeVar
 
+from ..config import IO_RETRIES, IO_RETRY_BACKOFF_MS, active_conf
+
 T = TypeVar("T")
 
-#: spark.rapids.tpu.io.retries
-IO_RETRIES = 3
-#: spark.rapids.tpu.io.retryBackoffMs: the first sleep, doubled per attempt
-IO_RETRY_BACKOFF_MS = 50
 _BACKOFF_CAP_MS = 2000
 
 #: OSError subclasses no retry can fix
@@ -49,11 +50,16 @@ def with_io_retry(fn: Callable[[], T], what: str,
                   retries: Optional[int] = None,
                   backoff_ms: Optional[int] = None, salt: str = "") -> T:
     """Run `fn`, retrying transient OSErrors up to `retries` times
-    (default IO_RETRIES). `salt` names the work item (a chunk index) so
+    (default: the active conf's io.retries; `backoff_ms` its
+    io.retryBackoffMs). `salt` names the work item (a chunk index) so
     that concurrent callers back off differently."""
-    retries = max(0, IO_RETRIES if retries is None else retries)
-    base_ms = max(1, IO_RETRY_BACKOFF_MS if backoff_ms is None
-                  else backoff_ms)
+    if retries is None or backoff_ms is None:
+        conf = active_conf()
+        retries = conf.get(IO_RETRIES) if retries is None else retries
+        backoff_ms = conf.get(IO_RETRY_BACKOFF_MS) if backoff_ms is None \
+            else backoff_ms
+    retries = max(0, retries)
+    base_ms = max(1, backoff_ms)
     attempt = 0
     while True:
         attempt += 1

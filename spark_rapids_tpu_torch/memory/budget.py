@@ -21,22 +21,23 @@ from typing import Optional
 
 import torch
 
+from ..config import HBM_BUDGET_BYTES, HBM_POOL_FRACTION, active_conf
 from .retry import TpuRetryOOM
 
-#: spark.rapids.memory.tpu.allocFraction
-HBM_POOL_FRACTION = 0.9
-#: spark.rapids.memory.tpu.budgetBytes (0 = derive from the fraction)
-HBM_BUDGET_BYTES = 0
 #: device memory assumed when no card is present (the budget then only
 #: accounts CPU tensors, as in the tests); the reference's TPU default
 _DEFAULT_DEVICE_BYTES = 16 << 30
 
 
 class MemoryBudget:
+    """`limit_bytes` defaults to spark.rapids.memory.tpu.budgetBytes of
+    the active conf, else its allocFraction of the card's memory."""
+
     def __init__(self, limit_bytes: Optional[int] = None):
         if limit_bytes is None:
-            limit_bytes = HBM_BUDGET_BYTES or int(
-                _detect_hbm() * HBM_POOL_FRACTION)
+            conf = active_conf()
+            limit_bytes = conf.get(HBM_BUDGET_BYTES) or int(
+                _detect_hbm() * conf.get(HBM_POOL_FRACTION))
         self.limit = limit_bytes
         self.used = 0
         self._lock = threading.Lock()

@@ -54,13 +54,8 @@ import numpy as np
 import torch
 
 from ..columnar.upload import packed_host_leaves, upload_leaves
-
-#: spark.rapids.memory.host.spillStorageSize
-HOST_SPILL_LIMIT = 4 << 30
-#: spark.rapids.memory.spillDirectory ("" = the system temp directory)
-SPILL_DIR = ""
-#: spark.rapids.tpu.spill.asyncWrite
-SPILL_ASYNC_WRITE = True
+from ..config import (HOST_SPILL_LIMIT, SPILL_ASYNC_WRITE, SPILL_DIR,
+                      active_conf)
 
 
 class StorageTier(IntEnum):
@@ -164,19 +159,22 @@ class _Entry:
 
 
 class BufferCatalog:
-    """`host_limit`, `spill_dir` and `async_write` default to the module
-    constants (the reference reads them from its confs)."""
+    """`host_limit`, `spill_dir` and `async_write` default to the active
+    conf's host.spillStorageSize, spillDirectory ("": the temporary
+    directory) and spill.asyncWrite, read here."""
 
     def __init__(self, host_limit: Optional[int] = None,
                  spill_dir: Optional[str] = None,
                  async_write: Optional[bool] = None):
         self._entries: Dict[str, _Entry] = {}
         self._lock = threading.RLock()
-        self.host_limit = HOST_SPILL_LIMIT if host_limit is None \
+        conf = active_conf()
+        self.host_limit = conf.get(HOST_SPILL_LIMIT) if host_limit is None \
             else host_limit
-        self.async_write = SPILL_ASYNC_WRITE if async_write is None \
-            else async_write
-        self._spill_dir: Optional[str] = spill_dir or SPILL_DIR or None
+        self.async_write = conf.get(SPILL_ASYNC_WRITE) \
+            if async_write is None else async_write
+        self._spill_dir: Optional[str] = \
+            spill_dir or conf.get(SPILL_DIR) or None
         self._own_dir = False
         self._write_q: Optional["queue.Queue"] = None
         self._writer: Optional[threading.Thread] = None

@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from .budget import HBM_BUDGET_BYTES, HBM_POOL_FRACTION, reset_memory_budget
+from ..config import HBM_BUDGET_BYTES, HBM_POOL_FRACTION, active_conf
+from .budget import reset_memory_budget
 from .semaphore import reset_tpu_semaphore
 
 
@@ -49,8 +50,9 @@ class DeviceManager:
                 self.device = torch.device("cuda", ordinal)
                 torch.cuda.set_device(self.device)
                 free, total = torch.cuda.mem_get_info(self.device)
-                reset_memory_budget(HBM_BUDGET_BYTES or int(
-                    min(free, total * HBM_POOL_FRACTION)))
+                conf = active_conf()
+                reset_memory_budget(conf.get(HBM_BUDGET_BYTES) or int(
+                    min(free, total * conf.get(HBM_POOL_FRACTION))))
             reset_tpu_semaphore()
             self.initialized = True
             return self

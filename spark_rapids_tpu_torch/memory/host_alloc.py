@@ -154,13 +154,13 @@ _DEFAULT_LOCK = threading.Lock()
 
 def host_alloc() -> HostAlloc:
     """The process-wide pool: the host spill limit
-    (catalog.HOST_SPILL_LIMIT), a quarter of it pinned where there is a
-    card."""
+    (spark.rapids.memory.host.spillStorageSize of the active conf when
+    the pool is made), a quarter of it pinned where there is a card."""
     global _DEFAULT
     with _DEFAULT_LOCK:
         if _DEFAULT is None:
-            from .catalog import HOST_SPILL_LIMIT
-            pinned = HOST_SPILL_LIMIT // 4 if torch.cuda.is_available() \
-                else 0
-            _DEFAULT = HostAlloc(HOST_SPILL_LIMIT, pinned_bytes=pinned)
+            from ..config import HOST_SPILL_LIMIT, active_conf
+            limit = active_conf().get(HOST_SPILL_LIMIT)
+            pinned = limit // 4 if torch.cuda.is_available() else 0
+            _DEFAULT = HostAlloc(limit, pinned_bytes=pinned)
         return _DEFAULT

@@ -12,10 +12,15 @@ allocator failure on the card (`torch.cuda.OutOfMemoryError`) takes the
 retry lane too (`is_oom_error`).
 
 `force_retry_oom` / `force_split_and_retry_oom` arm injection on this
-thread for the next guarded sections (the reference's RmmSpark test API).
+thread for the next guarded sections (the reference's RmmSpark test API);
+`register_task` arms it from spark.rapids.sql.test.injectRetryOOM
+('retry:N' or 'split:N'). `with_retry` reads its attempts and backoff
+(spark.rapids.sql.retry.maxAttempts, spark.rapids.tpu.retry.backoffMs)
+from its thread's active conf (a pipeline producer adopts its
+consumer's).
 
-Left out with the modules they belong to (ROADMAP A.9): the injection
-conf read at task registration, the `device.dispatch` fault point in
+Left out with the modules they belong to (ROADMAP A.9): the
+`device.dispatch` fault point in
 `oom_guard`, the oom_retry events and phase attribution, and the batch
 right-sizing after a split.
 """
@@ -29,11 +34,11 @@ from typing import Callable, Iterator, List, Optional, TypeVar
 
 import torch
 
-#: spark.rapids.sql.retry.maxAttempts
-RETRY_MAX_ATTEMPTS = 10
-#: spark.rapids.tpu.retry.backoffMs: the first sleep between attempts,
-#: doubled per attempt up to _OOM_BACKOFF_CAP_MS
-OOM_RETRY_BACKOFF_MS = 5
+from ..config import (OOM_RETRY_BACKOFF_MS, RETRY_MAX_ATTEMPTS,
+                      TEST_RETRY_OOM_INJECTION_MODE, active_conf)
+
+#: the cap of the sleep between attempts, which starts at
+#: spark.rapids.tpu.retry.backoffMs and doubles per attempt
 _OOM_BACKOFF_CAP_MS = 200
 
 
@@ -75,14 +80,22 @@ _state = _TaskState()
 
 
 def register_task(task_id: int):
-    """Associate this thread with a task; resets injection and the
-    retry counters."""
+    """Associate this thread with a task; resets the retry counters and
+    arms the injection that spark.rapids.sql.test.injectRetryOOM asks
+    for ('retry:N' / 'split:N': at the Nth guarded section), if any."""
     _state.task_id = task_id
     _state.guarded_calls = 0
     _state.retry_count = 0
     _state.split_retry_count = 0
-    _state.inject_mode = None
-    _state.inject_remaining = 0
+    inj = active_conf().get(TEST_RETRY_OOM_INJECTION_MODE)
+    if inj:
+        mode, _, n = inj.partition(":")
+        _state.inject_mode = mode
+        _state.inject_at = int(n or 1)
+        _state.inject_remaining = 1
+    else:
+        _state.inject_mode = None
+        _state.inject_remaining = 0
 
 
 def unregister_task():
@@ -143,10 +156,10 @@ R = TypeVar("R")
 def _oom_backoff_s(attempt: int) -> float:
     """min(base * 2^(attempt-1), cap) plus up to 25% jitter that is a
     pure hash of (task, attempt), as the reference's faults.backoff_s."""
-    if OOM_RETRY_BACKOFF_MS <= 0:
+    base_ms = active_conf().get(OOM_RETRY_BACKOFF_MS)
+    if base_ms <= 0:
         return 0.0
-    ms = min(OOM_RETRY_BACKOFF_MS * (1 << (attempt - 1)),
-             _OOM_BACKOFF_CAP_MS)
+    ms = min(base_ms * (1 << (attempt - 1)), _OOM_BACKOFF_CAP_MS)
     frac = zlib.crc32(f"oom:{_state.task_id}:{attempt}".encode()) / 2 ** 32
     return ms * (1.0 + 0.25 * frac) / 1000.0
 
@@ -195,7 +208,7 @@ def with_retry(input_item: T, fn: Callable[[T], R],
     idempotent; inputs should be spillable while waiting."""
     from .budget import spill_for_retry
     from .spillable import SpillableBatch
-    max_attempts = RETRY_MAX_ATTEMPTS
+    max_attempts = active_conf().get(RETRY_MAX_ATTEMPTS)
     queue: List[T] = [input_item]
     owned: set = set()  # split products with_retry must close itself
 

@@ -1,7 +1,7 @@
 """TpuSemaphore — device admission control, the counterpart of
 spark_rapids_tpu/memory/semaphore.py (reference GpuSemaphore.scala:51).
 
-At most CONCURRENT_TPU_TASKS tasks hold the device at once; the others
+At most spark.rapids.sql.concurrentGpuTasks tasks hold the device at once; the others
 block in `acquire_if_necessary`, their operator state held as spillable
 batches. The wait accumulates in `total_wait_ns` (the reference's
 semWaitTime).
@@ -26,8 +26,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
-#: spark.rapids.sql.concurrentGpuTasks
-CONCURRENT_TPU_TASKS = 2
+from ..config import CONCURRENT_TPU_TASKS, active_conf
 
 _POLL_S = 0.05
 
@@ -107,13 +106,14 @@ class _TaskHold:
 
 
 class TpuSemaphore:
-    """`permits` defaults to CONCURRENT_TPU_TASKS. `timeout_s` bounds a
+    """`permits` defaults to spark.rapids.sql.concurrentGpuTasks of the
+    active conf, read here. `timeout_s` bounds a
     task's first acquire (None: wait as long as it takes, the reference's
     behaviour); past it the acquire raises SemaphoreTimeout."""
 
     def __init__(self, permits: Optional[int] = None,
                  timeout_s: Optional[float] = None):
-        self.permits = permits or CONCURRENT_TPU_TASKS
+        self.permits = permits or active_conf().get(CONCURRENT_TPU_TASKS)
         self.timeout_s = timeout_s
         self._pool = _FairPermits(self.permits)
         self._holders: Dict[int, _TaskHold] = {}

@@ -15,9 +15,13 @@ into place, data first, index last; only then is the output registered
 with its handle, so a reader never sees a partial shard. `unregister`
 removes the files.
 
-The port has no confs (ROADMAP A.7): the pool sizes are class constants
-(`WRITER_THREADS`, `READER_THREADS`) and the root directory an argument
-(default: a fresh directory under the process's temporary directory).
+The pool sizes are spark.rapids.shuffle.multiThreaded.{writer,reader}.threads
+and the root directory a fresh directory under `root`, else under
+spark.rapids.memory.spillDirectory, else under the temporary directory;
+each is read, from the conf the exchange captured at its construction,
+when the pool or the directory is made (first use), as the JAX package
+reads them. A writer or reader is built on the exchange's thread, never
+on a pool thread.
 Left out with their planes (ROADMAP A.9): partition-granular recovery
 from captured lineage (`_refresh_invalidated`, `_recover_block`, the
 dead-peer bookkeeping `bind_peer_output`/`invalidate_peer_outputs`), the
@@ -39,6 +43,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..columnar.batch import ColumnarBatch
+from ..config import (SHUFFLE_READER_THREADS, SHUFFLE_WRITER_THREADS,
+                      SPILL_DIR, RapidsConf, active_conf)
 from ..types import Schema
 from .serializer import (CODEC_LZ4, deserialize_batch, host_gather_batch,
                          host_slice_batch, serialize_batch_stats,
@@ -86,12 +92,15 @@ class HostShuffleWriter:
     RapidsShuffleThreadedWriterBase)."""
 
     def __init__(self, handle: HostShuffleHandle, map_id: int,
-                 manager: "HostShuffleManager", codec: int = CODEC_LZ4):
+                 manager: "HostShuffleManager", codec: int = CODEC_LZ4,
+                 conf: Optional[RapidsConf] = None):
+        conf = conf or active_conf()
         self.handle = handle
         self.map_id = map_id
         self.manager = manager
         self.codec = codec
-        self._pool = manager.writer_pool()
+        self._pool = manager.writer_pool(conf)
+        manager.root_dir(conf)
         self.bytes_written = 0
         self.frames_written = 0
         self.raw_bytes = 0
@@ -193,10 +202,11 @@ class HostShuffleReader:
     RapidsShuffleThreadedReaderBase)."""
 
     def __init__(self, handle: HostShuffleHandle,
-                 manager: "HostShuffleManager"):
+                 manager: "HostShuffleManager",
+                 conf: Optional[RapidsConf] = None):
         self.handle = handle
         self.manager = manager
-        self._pool = manager.reader_pool()
+        self._pool = manager.reader_pool(conf or active_conf())
         #: one parse of each map output's index table
         self._index_cache: Dict[str, Tuple[int, ...]] = {}
         self._index_lock = threading.Lock()
@@ -265,11 +275,6 @@ class HostShuffleManager:
     """Registry and block file manager (Spark's ShuffleManager SPI and
     RapidsDiskBlockManager)."""
 
-    #: spark.rapids.shuffle.multiThreaded.writer.threads
-    WRITER_THREADS = 8
-    #: spark.rapids.shuffle.multiThreaded.reader.threads
-    READER_THREADS = 8
-
     def __init__(self, root: Optional[str] = None):
         self._lock = threading.Lock()
         self._next_id = 0
@@ -280,33 +285,35 @@ class HostShuffleManager:
         self._reader_pool: Optional[ThreadPoolExecutor] = None
 
     # -- dirs & pools ------------------------------------------------------
-    def root_dir(self) -> str:
+    def root_dir(self, conf: Optional[RapidsConf] = None) -> str:
         """The directory of this manager's map outputs, made at first
-        use (under `root`, else the temporary directory)."""
+        use (under `root`, else the spill directory of `conf`, else the
+        temporary directory)."""
         with self._lock:
             if self._root is None:
+                base = self._base or (conf or active_conf()).get(SPILL_DIR)
                 self._root = tempfile.mkdtemp(
                     prefix="tpu-shuffle-",
-                    dir=self._base or tempfile.gettempdir())
+                    dir=base or tempfile.gettempdir())
             return self._root
 
     def map_data_path(self, shuffle_id: int, map_id: int) -> str:
         return os.path.join(self.root_dir(),
                             f"shuffle_{shuffle_id}_{map_id}.data")
 
-    def writer_pool(self) -> ThreadPoolExecutor:
+    def writer_pool(self, conf: RapidsConf) -> ThreadPoolExecutor:
         with self._lock:
             if self._writer_pool is None:
                 self._writer_pool = ThreadPoolExecutor(
-                    max_workers=max(1, self.WRITER_THREADS),
+                    max_workers=max(1, conf.get(SHUFFLE_WRITER_THREADS)),
                     thread_name_prefix="shuffle-writer")
             return self._writer_pool
 
-    def reader_pool(self) -> ThreadPoolExecutor:
+    def reader_pool(self, conf: RapidsConf) -> ThreadPoolExecutor:
         with self._lock:
             if self._reader_pool is None:
                 self._reader_pool = ThreadPoolExecutor(
-                    max_workers=max(1, self.READER_THREADS),
+                    max_workers=max(1, conf.get(SHUFFLE_READER_THREADS)),
                     thread_name_prefix="shuffle-reader")
             return self._reader_pool
 

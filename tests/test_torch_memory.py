@@ -25,7 +25,6 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch as TBatch
 from spark_rapids_tpu_torch.columnar.column import Column as TColumn
 from spark_rapids_tpu_torch.columnar.column import StringColumn as TString
 from spark_rapids_tpu_torch.memory import catalog as tcatalog
-from spark_rapids_tpu_torch.memory import retry as tretry
 from spark_rapids_tpu_torch.memory import (
     SpillableBatch, SpillFileCorruption, StorageTier, TpuRetryOOM,
     TpuSplitAndRetryOOM, buffer_catalog, force_retry_oom,
@@ -198,8 +197,10 @@ def test_with_retry_no_split_escalates():
 
 
 def test_retry_gives_up_after_max_attempts(monkeypatch):
-    monkeypatch.setattr(tretry, "RETRY_MAX_ATTEMPTS", 3)
-    monkeypatch.setattr(tretry, "OOM_RETRY_BACKOFF_MS", 0)
+    from spark_rapids_tpu_torch import config as tconf
+    monkeypatch.setattr(tconf._active, "conf", tconf.RapidsConf({
+        "spark.rapids.sql.retry.maxAttempts": "3",
+        "spark.rapids.tpu.retry.backoffMs": "0"}), raising=False)
     register_task(2)
     calls = []
 
