@@ -45,7 +45,15 @@ fails the run on error:
      every dictionary gather of P7, its take of the ship-mode hash table
      by the stream's codes among them; every row gather of P9-P11, the
      exchanges' reorders among them, the murmur3 chain at the exchange's
-     pid shape, and P11's join kernels at its first partition pair);
+     pid shape, and P11's join kernels at its first partition pair;
+     every row gather of P13, its semi join's hash, probe and gathers,
+     its anti join's probe and its dictionary gathers at the
+     o_orderstatus and n_name filters; P12's join kernels and row
+     gathers; P14's at a left outer join built on each side and a full
+     outer join (the unmatched stream tail, the unmatched build rows);
+     every row gather of P15's planned nested-loop join, its chunks
+     among them; every row gather of P16's planned semi join and its
+     join kernels at its first partition pair);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -141,6 +149,27 @@ fails the run on error:
      side the hand-built join masks; a CoalesceBatchesExec that merged
      batches runs the operators above it fewer times); the catalog empty,
      no permit held and the shuffle root empty after each;
+  3d. drives the join types, the nested-loop join and the basic operators
+     over TPC-H data made by clause 4.2.3's rules at SF1
+     (tpch_join_data: 1,500,000 orders, ~6.0 M lineitems, 10,000
+     suppliers, 25 nations; o_orderstatus and n_name DictionaryColumns),
+     each held to a numpy oracle with its launches counted and printed:
+     P12, TPC-H Q4 (clause 2.4.4, a left semi join), hand-built and
+     planned at the default confs; P13, TPC-H Q21 (clause 2.4.21, a left
+     semi and a left anti join with residual conditions, three inner
+     joins, TopN(100) by numwait DESC, s_name), hand-built and planned
+     with broadcasts off (at the default confs the planner of either
+     package takes the adaptive join there); P14, q3's filtered sides
+     under every join type on both build sides where allowed (row count,
+     both sides' key multisets and null counts); P15, 1,048,576
+     lineitems left-outer-joined to 11 discount bands on a band condition
+     (planned: a NestedLoopJoinExec over a broadcast), counted by band;
+     P16, Q4's semi and anti joins through 16 partitions of the host
+     shuffle (planned, broadcasts off, at the default tier); then a range
+     of 2^24 ids summed, the union of the orders' two halves counted by
+     priority, a limit of 100 at offset 1,000 and TPC-H Q1's count and
+     sum over the grouping sets ((l_returnflag, l_linestatus), ())
+     through an Expand, each planned from DataFrames;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -177,7 +206,9 @@ fails the run on error:
      dma_row_gather at every reorder shape beside index_select and, where
      a fixed-width kernel serves it, the generic kernel. Then q1, q3 and
      Q19 through the session (df.collect(), the plan included) and as
-     their hand-built plans (plan.collect()), in turns, 5 runs each.
+     their hand-built plans (plan.collect()), in turns, 5 runs each. Then
+     P12-P16 (3 runs each, one synchronisation a run), and the probe at
+     Q21's semi and anti joins and the row gather at every shape of Q21.
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
@@ -188,13 +219,15 @@ its suffix.
 The last lines are a JSON line with the records of P1-P11, the spill
 rates, the ingest rates, the split's fetch rates and the planned queries
 of phase 3c (under "planned": plan ms, launches beside the hand-built
-plan's, the differences and the session timings), a JSON line with one
-record per ported kernel (the
+plan's, the differences and the session timings) and phase 3d's (under
+"join_paths": launches, rows and ms), a JSON line with one record per
+ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
-probe's Q19's under "q19_shape", the row gather's every shape under
-"shapes" and the reorders' under "reorder_shapes", the murmur3 chain's
+probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
+gather's every shape under "shapes", the reorders' under
+"reorder_shapes" and Q21's under "q21_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
-kernel's launches on P1-P11 and the planned queries under
+kernel's launches on P1-P16 and the planned queries under
 "path_launches"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
@@ -2158,11 +2191,10 @@ def time_pid_hash(pid_cols):
     return out
 
 
-def p11_join_inputs(plan):
-    """JoinInputs of P11's inner join at its first partition pair with
-    rows on both sides (its first stream batch); the exchanges' files go
-    when their outer streams close."""
-    j = p11_join(plan)
+def shuffled_join_inputs(j):
+    """JoinInputs of a ShuffledHashJoinExec built on the right, at its
+    first partition pair with rows on both sides (its first stream
+    batch); the exchanges' files go when their outer streams close."""
     j.stamp_inputs()
     lit_ = j.children[0].execute_partitions()
     rit = j.children[1].execute_partitions()
@@ -2544,6 +2576,9 @@ GATHER_SITES = (
     (("_filter", "compact_columns"), "filter compaction"),
     (("compact_columns",), "exact-tier compaction"),
     (("build",), "build permute"),
+    (("_emit_stream_flags",), "semi/anti compaction"),
+    (("_emit_build_unmatched",), "unmatched build rows"),
+    (("_join_stream",), "nested-loop chunk"),
     (("_probe_kernel", "gather_batch_columns"), "stream payload"),
     (("_probe_kernel",), "build payload"),
 )
@@ -2609,7 +2644,7 @@ def compare_row_gathers(label, gathers):
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
     if not gathers:
         raise AssertionError(f"{label}: no row gather captured")
-    shapes = []
+    shapes = {}
     for site, plan, imat, fmat, idx in gathers:
         got = rg.pallas_gather_rows(plan, imat, fmat, idx)
         want = gather_rows(plan, imat, fmat, idx)
@@ -2620,9 +2655,12 @@ def compare_row_gathers(label, gathers):
                *([x.view(torch.int64) if x.is_floating_point() else x
                   for x in out if x is not None] for out in (got, want)))
         lb = 2 * fmat.shape[1] if fmat is not None else 0
-        shapes.append(f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
-                      f"(la={imat.shape[1]}, lb={lb})")
-    return shapes
+        shape = (f"{site} {idx.shape[0]} of {imat.shape[0]} rows "
+                 f"(la={imat.shape[1]}, lb={lb})")
+        shapes[shape] = shapes.get(shape, 0) + 1
+    # a shape met more than once (a nested-loop join's chunks, the
+    # partitions of a shuffle) is printed once with its count
+    return [s if n == 1 else f"{s} x{n}" for s, n in shapes.items()]
 
 
 def capture_dict_gathers(plan):
@@ -2939,46 +2977,53 @@ def probe_need(args, cap, total):
     return nbytes, live * (8 + 2 * L) + (cap - live) * 4
 
 
-def time_probe(inputs, q19_inputs, launches):
-    """fused_probe_verify at q3's and Q19's main-path inputs: the
-    wrapper's whole device work (comparable to the earlier records, which
-    timed the wrapper), its kernel launch alone, the plain version and
-    the bound of what the function needs. The record holds q3's shape
-    with Q19's under "q19_shape"."""
+def time_probe_shape(label, inp):
+    """fused_probe_verify at one join's inputs (JoinInputs): the wrapper's
+    whole device work, its kernel launch alone, the plain version and the
+    bound of what the function needs."""
     from spark_rapids_tpu_torch.ops import probe_verify as pv
     reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
-    out = []
-    for label, inp in (("q3", inputs), ("q19", q19_inputs)):
-        args, cap = inp.probe, inp.cand_cap
-        _, launch = pv.launcher(*args, cap)
-        launch()
-        kernel_ms = device_ms(launch, reps)
-        ms = device_ms(lambda: pv.fused_probe_verify(*args, cap), reps)
-        plain_ms = device_ms(lambda: pv.fused_probe_verify_plain(*args, cap),
-                             plain_reps)
-        b_ms, b_by = bound(*probe_need(args, cap, inp.total))
-        print(f"fused_probe_verify {label} ({inp.stream_rows} stream rows, "
-              f"{pv.tile_count(inp.stream_rows)} tiles, total {inp.total} in "
-              f"{cap} slots): wrapper {ms:.4f} ms on the device, kernel "
-              f"launch {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
-        out.append({"launches": launches[label], "max_abs_err": 0.0,
-                    "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    q3, q19 = out
+    args, cap = inp.probe, inp.cand_cap
+    _, launch = pv.launcher(*args, cap)
+    launch()
+    kernel_ms = device_ms(launch, reps)
+    ms = device_ms(lambda: pv.fused_probe_verify(*args, cap), reps)
+    plain_ms = device_ms(lambda: pv.fused_probe_verify_plain(*args, cap),
+                         plain_reps)
+    b_ms, b_by = bound(*probe_need(args, cap, inp.total))
+    print(f"fused_probe_verify {label} ({inp.stream_rows} stream rows, "
+          f"{pv.tile_count(inp.stream_rows)} tiles, {inp.build_rows} build "
+          f"rows, total {inp.total} in {cap} slots): wrapper {ms:.4f} ms on "
+          f"the device, kernel launch {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / ms:.1%} of the bound")
+    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "stream_rows": inp.stream_rows,
+            "build_rows": inp.build_rows, "candidates": inp.total,
+            "cand_cap": cap}
+
+
+def time_probe(inputs, q19_inputs, launches):
+    """fused_probe_verify at q3's and Q19's main-path inputs
+    (time_probe_shape: comparable to the earlier records, which timed the
+    wrapper). The record holds q3's shape with Q19's under "q19_shape"."""
+    q3, q19 = (dict(time_probe_shape(label, inp), launches=launches[label])
+               for label, inp in (("q3", inputs), ("q19", q19_inputs)))
     return {"name": "fused_probe_verify", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/probe_verify.cu",
             "replaces": "spark_rapids_tpu/ops/pallas_join.py:52", **q3,
             "q19_shape": q19}
 
 
-def time_gather_call(path, site, plan, imat, fmat, idx):
+def time_gather_call(path, site, plan, imat, fmat, idx, generic=True):
     """One captured row gather on the device, L2 cold: the kernel's
     launch alone, the wrapper's whole call, the plain version, the bound
     (the index, each distinct row an in-range index reads, row 0 once,
     every output row written) and the faster of the two PyTorch calls
     that compute the same function on the same matrix (index_select, a
-    tensor index)."""
+    tensor index). With `generic`, a shape a fixed-width kernel serves is
+    timed on the generic kernel too."""
     import torch
     from spark_rapids_tpu_torch.ops import row_gather as rg
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
@@ -3004,7 +3049,7 @@ def time_gather_call(path, site, plan, imat, fmat, idx):
     rows_read = int(torch.unique(idx[ok]).numel())
     b_ms, b_by = bound(4 * n + 4 * lanes * (rows_read + 1 + n), 0)
     generic_ms = None
-    if p.kind != rg.ANY:
+    if p.kind != rg.ANY and generic:
         # the generic kernel at the same shape: the matrices copied off
         # their pieces' alignment
         _, _, pg, launch_g = rg.launcher(
@@ -3427,9 +3472,10 @@ def drive_planned(label, m, df, need, hand_counts, check, hand_shape=None):
     check its shape against the hand-built plan's when given, drive it
     once counted (drive_batches: the speculation flags must stay False),
     hold its rows with `check`, explain every launch count that differs
-    from the hand-built plan's, then collect() it through the session once
-    more, counted, which must launch the same. `check(rows, label,
-    operator metrics)` raises on a wrong result. Returns a record."""
+    from the hand-built plan's (when there is one: `hand_counts`), then
+    collect() it through the session once more, counted, which must
+    launch the same. `check(rows, label, operator metrics)` raises on a
+    wrong result. Returns a record."""
     print(f"{label} explain:\n{df.explain()}")
     tree, tag_ms, convert_ms = planned(m, df)
     shape = plan_shape(tree)
@@ -3439,7 +3485,8 @@ def drive_planned(label, m, df, need, hand_counts, check, hand_shape=None):
     out, counts, reads = drive_batches(label, tree, need)
     check([r for b in out for r in b.to_pylist()], label,
           m.session._operator_metrics(tree))
-    notes = explain_launches(label, tree, counts, hand_counts)
+    notes = explain_launches(label, tree, counts, hand_counts) \
+        if hand_counts is not None else []
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
@@ -3461,8 +3508,9 @@ def drive_planned(label, m, df, need, hand_counts, check, hand_shape=None):
         print(f"  {label}: {note}")
     return {"plan_ms": tag_ms + convert_ms, "wrap_and_tag_ms": tag_ms,
             "convert_ms": convert_ms, "collect_ms": collect_ms,
-            "launches": counts,
-            "hand_built_launches": hand_counts, "differences": notes}
+            "launches": counts, "collect_launches": again,
+            "hand_built_launches": hand_counts, "differences": notes,
+            "host_reads": reads, "shape": repr(shape)}
 
 
 def time_session_paths(paths):
@@ -3488,6 +3536,811 @@ def time_session_paths(paths):
               f"session {[round(x, 3) for x in ms['session']]}, hand-built "
               f"{[round(x, 3) for x in ms['hand_built']]}")
     return out
+
+
+# -- slice 9: the join types, the nested-loop join and the basic operators
+# -- (phase 3d) -------------------------------------------------------------
+
+TPCH_SF = 1.0            # P12, P13 and P16 at TPC-H SF1 (clause 4.2.3)
+#: clause 4.2.3's order priorities and the 25 nations by n_nationkey
+ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                    "5-LOW")
+NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+           "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN",
+           "JORDAN", "KENYA", "MOROCCO", "PERU", "CHINA", "ROMANIA",
+           "SAUDI ARABIA", "VIETNAM", "RUSSIA", "UNITED KINGDOM",
+           "UNITED STATES", "MOZAMBIQUE")
+ORDER_STATUSES = ("F", "O", "P")
+Q4_DATE = datetime.date(1993, 7, 1)      # clause 2.4.4.3's DATE
+Q4_END = datetime.date(1993, 10, 1)      # DATE + 3 months
+Q21_NATION = "SAUDI ARABIA"              # clause 2.4.21.3's NATION
+Q21_LIMIT = 100
+P14_KINDS = (("inner", "right"), ("inner", "left"), ("left_outer", "right"),
+             ("left_outer", "left"), ("right_outer", "right"),
+             ("right_outer", "left"), ("full_outer", "right"),
+             ("full_outer", "left"), ("left_semi", "right"),
+             ("left_anti", "right"), ("existence", "right"))
+P15_LINES = 1 << 20      # P15's lineitems
+P15_BANDS = 11           # discount bands [k/100, (k+1)/100), k = 0..10
+P_JOIN_ITERS = 3         # phase 4's timed runs of P12-P16 each
+#: P13's conf: with a join's estimated size unknown (a join below it) the
+#: planner of either package takes the adaptive join (AdaptiveJoinExec,
+#: ROADMAP A.3 / A.9) unless broadcasts are off
+Q21_CONF = dict(Q3_CONF, **{"spark.rapids.sql.broadcastSizeThreshold": "-1"})
+#: P15's conf: the exact aggregate, as q3's (the chunks' band ranges
+#: differ, and the speculative tier would trip and re-run)
+P15_CONF = Q3_CONF
+P16_CONF = P11_CONF
+
+
+def days(date):
+    return (date - datetime.date(1970, 1, 1)).days
+
+
+def tpch_join_data(sf=TPCH_SF, seed=21):
+    """orders, lineitem, supplier and nation by TPC-H's generation rules
+    (clause 4.2.3) at scale factor `sf`, from a fixed seed: sparse order
+    keys (8 of every 32), 1-7 lines an order, l_suppkey by the partsupp
+    formula over a random part, the ship, commit and receipt dates off
+    the order date, o_orderstatus from its lines' statuses, and suppliers
+    spread over the 25 nations. A string column is (int32 codes, values)."""
+    rng = np.random.default_rng(seed)
+    n_orders, n_supp = int(sf * 1_500_000), max(int(sf * 10_000), 4)
+    n_part = max(int(sf * 200_000), 1)
+    i = np.arange(n_orders, dtype=np.int64)
+    okey = (i // 8) * 32 + i % 8 + 1
+    odate = rng.integers(ORDER_DATE_FIRST, ORDER_DATE_LAST + 1, n_orders)
+    nlines = rng.integers(1, 8, n_orders)
+    owner = np.repeat(i, nlines)
+    n_line = owner.shape[0]
+    part = rng.integers(1, n_part + 1, n_line)
+    corner = rng.integers(0, 4, n_line)
+    supp = (part + corner * (n_supp // 4 + (part - 1) // n_supp)) \
+        % n_supp + 1
+    od = odate[owner]
+    ship = od + rng.integers(1, 122, n_line)
+    commit = od + rng.integers(30, 91, n_line)
+    receipt = ship + rng.integers(1, 31, n_line)
+    shipped = np.bincount(owner, weights=ship <= CURRENT_DATE,
+                          minlength=n_orders)
+    status = np.where(shipped == nlines, 0, np.where(shipped == 0, 1, 2))
+    return {
+        "o_orderkey": okey, "o_orderdate": odate.astype(np.int32),
+        "o_orderpriority": (rng.integers(0, 5, n_orders).astype(np.int32),
+                            ORDER_PRIORITIES),
+        "o_orderstatus": (status.astype(np.int32), ORDER_STATUSES),
+        "l_orderkey": okey[owner], "l_suppkey": supp.astype(np.int64),
+        "l_shipdate": ship.astype(np.int32),
+        "l_commitdate": commit.astype(np.int32),
+        "l_receiptdate": receipt.astype(np.int32),
+        "l_discount": rng.integers(0, 11, n_line) / 100.0,
+        "s_suppkey": np.arange(1, n_supp + 1, dtype=np.int64),
+        "s_name": (np.arange(n_supp, dtype=np.int32),
+                   tuple(f"Supplier#{k:09d}" for k in range(1, n_supp + 1))),
+        "s_nationkey": rng.integers(0, 25, n_supp).astype(np.int32),
+        "n_nationkey": np.arange(25, dtype=np.int32),
+        "n_name": (np.arange(25, dtype=np.int32), NATIONS)}
+
+
+#: the tables' columns: (name, type, encoded) — an encoded STRING column
+#: is a DictionaryColumn, the others StringColumns (group and sort keys)
+JOIN_TABLES = {
+    "orders": (("o_orderkey", "LONG", False), ("o_orderdate", "DATE", False),
+               ("o_orderpriority", "STRING", False),
+               ("o_orderstatus", "STRING", True)),
+    "lineitem": (("l_orderkey", "LONG", False), ("l_suppkey", "LONG", False),
+                 ("l_shipdate", "DATE", False),
+                 ("l_commitdate", "DATE", False),
+                 ("l_receiptdate", "DATE", False),
+                 ("l_discount", "DOUBLE", False)),
+    "supplier": (("s_suppkey", "LONG", False), ("s_name", "STRING", False),
+                 ("s_nationkey", "INT", False)),
+    "nation": (("n_nationkey", "INT", False), ("n_name", "STRING", True))}
+
+
+def join_table_spec(d, table, rows=None):
+    """A table's columns as {name: (values, type name, None)}, the form
+    the parity tests build both packages' batches from: an encoded column
+    as (codes, values), a plain string column as a list of str."""
+    out = {}
+    for name, ty, encoded in JOIN_TABLES[table]:
+        v = d[name]
+        if isinstance(v, tuple):
+            codes = v[0] if rows is None else v[0][rows]
+            v = (codes, v[1]) if encoded else [v[1][c] for c in codes]
+        elif rows is not None:
+            v = v[rows]
+        out[name] = (v, ty, None)
+    return out
+
+
+def string_column(codes, words, dev):
+    """A StringColumn of words[codes], built without a Python loop over
+    the rows."""
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    enc = [w.encode("utf-8") for w in words]
+    lens = np.array([len(b) for b in enc], np.int64)
+    width = max(int(lens.max()), 1)
+    mat = np.zeros((len(enc), width), np.uint8)
+    for k, b in enumerate(enc):
+        mat[k, :len(b)] = np.frombuffer(b, np.uint8)
+    row_lens = lens[codes]
+    keep = np.arange(width)[None, :] < row_lens[:, None]
+    offsets = np.concatenate([[0], np.cumsum(row_lens)]).astype(np.int32)
+    return StringColumn.from_numpy(mat[codes][keep], offsets, device=dev)
+
+
+def join_batch(d, table, dev, rows=None):
+    """One table of tpch_join_data as a port batch on `dev` (optionally
+    the rows `rows` only)."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column, string_buffers
+    from spark_rapids_tpu_torch.columnar.encoded import dictionary_from_numpy
+    cols, n = [], None
+    for name, ty, encoded in JOIN_TABLES[table]:
+        v = d[name]
+        if isinstance(v, tuple):
+            codes = v[0] if rows is None else v[0][rows]
+            cols.append(dictionary_from_numpy(
+                codes, *string_buffers(v[1]), device=dev) if encoded
+                else string_column(codes, v[1], dev))
+            n = codes.shape[0]
+        else:
+            v = v if rows is None else v[rows]
+            cols.append(Column.from_numpy(v, getattr(t, ty), device=dev))
+            n = v.shape[0]
+    schema = t.Schema(tuple(t.StructField(name, getattr(t, ty))
+                            for name, ty, _ in JOIN_TABLES[table]))
+    return ColumnarBatch(cols, n, schema)
+
+
+def join_batches(d, dev):
+    return {k: join_batch(d, k, dev) for k in JOIN_TABLES}
+
+
+def date_lit(m, date):
+    """A DATE literal as days since the epoch, in either package."""
+    return m.core.Literal(days(date), m.t.DATE)
+
+
+def q4_tree(m, orders_scan, lines_scan, anti=False, n_parts=None):
+    """TPC-H Q4 (clause 2.4.4) as Spark plans it, in the package `m`
+    holds: the orders of the quarter left-semi-joined (NOT EXISTS:
+    left-anti) to the lineitems with l_commitdate < l_receiptdate on the
+    order key, the lineitems built on the right; count(*) by
+    o_orderpriority, ordered by it. With `n_parts` (P16) both sides are
+    hash-exchanged on the order key into a ShuffledHashJoinExec and the
+    count split into partial -> exchange -> final, without the sort."""
+    col, pr = m.core.col, m.pred
+    orders = m.basic.FilterExec(pr.And(
+        pr.GreaterThanOrEqual(col("o_orderdate"), date_lit(m, Q4_DATE)),
+        pr.LessThan(col("o_orderdate"), date_lit(m, Q4_END))), orders_scan)
+    lines = m.basic.FilterExec(
+        pr.LessThan(col("l_commitdate"), col("l_receiptdate")), lines_scan)
+    ok, lk = [col("o_orderkey")], [col("l_orderkey")]
+    jt = "left_anti" if anti else "left_semi"
+    if n_parts is None:
+        joined = m.joins.HashJoinExec(orders, lines, ok, lk, jt,
+                                      build_side="right")
+    else:
+        joined = m.exchange.ShuffledHashJoinExec(
+            shuffle_of(m, ok, orders, n_parts),
+            shuffle_of(m, lk, lines, n_parts), ok, lk, jt,
+            build_side="right")
+    group = [col("o_orderpriority")]
+    aggs = [(m.aggexprs.Count(), "order_count")]
+    if n_parts is not None:
+        return shuffled_aggregate(m, group, aggs, joined, n_parts)
+    agg = m.agg.AggregateExec(group, aggs, joined)
+    return m.sort.SortExec([(col("o_orderpriority"), True)], agg)
+
+
+def q4_oracle(d, anti=False):
+    """Q4 in numpy: (o_orderpriority, order_count) in priority order."""
+    n_orders = d["o_orderkey"].shape[0]
+    late = d["l_commitdate"] < d["l_receiptdate"]
+    owner = order_index(d["l_orderkey"][late])
+    has = np.bincount(owner, minlength=n_orders) > 0
+    od = d["o_orderdate"]
+    keep = (od >= days(Q4_DATE)) & (od < days(Q4_END)) \
+        & (~has if anti else has)
+    counts = np.bincount(d["o_orderpriority"][0][keep], minlength=5)
+    return [(ORDER_PRIORITIES[k], int(counts[k])) for k in range(5)
+            if counts[k]]
+
+
+def order_index(keys):
+    """Row of each sparse order key (clause 4.2.3's 8 of every 32)."""
+    k = keys - 1
+    return (k // 32) * 8 + k % 32
+
+
+def ne(m, a, b):
+    return m.pred.Not(m.pred.EqualTo(m.core.col(a), m.core.col(b)))
+
+
+def q21_tree(m, lines_scan, l2_scan, l3_scan, supp_scan, orders_scan,
+             nation_scan, nation=Q21_NATION):
+    """TPC-H Q21 (clause 2.4.21) as Spark's optimizer plans it, in the
+    package `m` holds: l1 (l_receiptdate > l_commitdate) left-semi-joined
+    to l2 on the order key with l2_suppkey <> l_suppkey, left-anti-joined
+    to l3 (late lines) with the same condition, then inner joins to the
+    suppliers, the orders with o_orderstatus = 'F' and the nation
+    `nation` (clause 2.4.21.3's 'SAUDI ARABIA'), each built on the right; count(*) by s_name,
+    TopN(100) by numwait DESC, s_name. l2 and l3 are the lineitem scan
+    under renaming projections."""
+    col, lit, pr, b = m.core.col, m.core.lit, m.pred, m.basic
+    l1 = b.FilterExec(pr.GreaterThan(col("l_receiptdate"),
+                                     col("l_commitdate")), lines_scan)
+    l3 = b.FilterExec(pr.GreaterThan(col("l3_receiptdate"),
+                                     col("l3_commitdate")), l3_scan)
+    semi = m.joins.HashJoinExec(
+        l1, l2_scan, [col("l_orderkey")], [col("l2_orderkey")], "left_semi",
+        build_side="right", condition=ne(m, "l2_suppkey", "l_suppkey"))
+    anti = m.joins.HashJoinExec(
+        semi, l3, [col("l_orderkey")], [col("l3_orderkey")], "left_anti",
+        build_side="right", condition=ne(m, "l3_suppkey", "l_suppkey"))
+    with_s = m.joins.HashJoinExec(anti, supp_scan, [col("l_suppkey")],
+                                  [col("s_suppkey")], "inner")
+    orders = b.FilterExec(pr.EqualTo(col("o_orderstatus"), lit("F")),
+                          orders_scan)
+    with_o = m.joins.HashJoinExec(with_s, orders, [col("l_orderkey")],
+                                  [col("o_orderkey")], "inner")
+    nation = b.FilterExec(pr.EqualTo(col("n_name"), lit(nation)),
+                          nation_scan)
+    with_n = m.joins.HashJoinExec(with_o, nation, [col("s_nationkey")],
+                                  [col("n_nationkey")], "inner")
+    agg = m.agg.AggregateExec([col("s_name")],
+                              [(m.aggexprs.Count(), "numwait")], with_n)
+    return m.sort.TopNExec(Q21_LIMIT, [(col("numwait"), False),
+                                       (col("s_name"), True)], agg)
+
+
+def l2_exprs(m):
+    col = m.core.col
+    return [col("l_orderkey").alias("l2_orderkey"),
+            col("l_suppkey").alias("l2_suppkey")]
+
+
+def l3_exprs(m):
+    col = m.core.col
+    return [col("l_orderkey").alias("l3_orderkey"),
+            col("l_suppkey").alias("l3_suppkey"),
+            col("l_commitdate").alias("l3_commitdate"),
+            col("l_receiptdate").alias("l3_receiptdate")]
+
+
+def q21_plan(m, batches, nation=Q21_NATION):
+    """Q21 over in-memory scans of tpch_join_data's batches (a dict by
+    table, of the package `m` holds)."""
+    def scan(k):
+        return m.basic.InMemoryScanExec([batches[k]], batches[k].schema)
+    return q21_tree(m, scan("lineitem"),
+                    m.basic.ProjectExec(l2_exprs(m), scan("lineitem")),
+                    m.basic.ProjectExec(l3_exprs(m), scan("lineitem")),
+                    scan("supplier"), scan("orders"), scan("nation"),
+                    nation)
+
+
+def q21_join(plan, depth):
+    """The exec `depth` steps down q21_tree's left spine: 5 is the anti
+    join, 6 the semi join."""
+    for _ in range(depth):
+        plan = plan.children[0]
+    return plan
+
+
+def q4_plan(m, batches, anti=False, n_parts=None):
+    def scan(k):
+        return m.basic.InMemoryScanExec([batches[k]], batches[k].schema)
+    return q4_tree(m, scan("orders"), scan("lineitem"), anti, n_parts)
+
+
+def q21_oracle(d, nation=Q21_NATION):
+    """Q21 in numpy: (s_name, numwait), numwait descending then s_name,
+    the first 100."""
+    lok, supp = d["l_orderkey"], d["l_suppkey"]
+    late = d["l_receiptdate"] > d["l_commitdate"]
+    oi = order_index(lok)
+    n_orders = d["o_orderkey"].shape[0]
+    pair = oi * (supp.max() + 1) + supp
+
+    def per_order(mask):
+        return np.bincount(oi[mask], minlength=n_orders)
+
+    def per_pair(mask):
+        u, inv = np.unique(pair[mask], return_inverse=True)
+        counts = np.bincount(inv, minlength=u.shape[0])
+        pos = np.clip(np.searchsorted(u, pair), 0, max(u.shape[0] - 1, 0))
+        return np.where(u[pos] == pair, counts[pos], 0) if u.shape[0] \
+            else np.zeros_like(pair)
+    everything = np.ones_like(late)
+    other_lines = per_order(everything)[oi] - per_pair(everything)
+    other_late = per_order(late)[oi] - per_pair(late)
+    status = d["o_orderstatus"][0][oi]
+    keep = late & (other_lines > 0) & (other_late == 0) \
+        & (status == ORDER_STATUSES.index("F")) \
+        & (d["s_nationkey"][supp - 1] == NATIONS.index(nation))
+    counts = np.bincount(supp[keep] - 1, minlength=d["s_suppkey"].shape[0])
+    names = d["s_name"][1]
+    rows = [(names[k], int(counts[k])) for k in np.nonzero(counts)[0]]
+    rows.sort(key=lambda r: (-r[1], r[0]))
+    return rows[:Q21_LIMIT]
+
+
+def q4_df(m, sess, batches, anti=False, sort=True):
+    """Q4 as a DataFrame query (how="left_semi", or "left_anti")."""
+    col, pr, F = m.core.col, m.pred, m.F
+    orders = sess.from_batches([batches["orders"]],
+                               batches["orders"].schema).filter(pr.And(
+        pr.GreaterThanOrEqual(col("o_orderdate"), date_lit(m, Q4_DATE)),
+        pr.LessThan(col("o_orderdate"), date_lit(m, Q4_END))))
+    lines = sess.from_batches([batches["lineitem"]],
+                              batches["lineitem"].schema).filter(
+        pr.LessThan(col("l_commitdate"), col("l_receiptdate")))
+    q = orders.join(lines, left_on="o_orderkey", right_on="l_orderkey",
+                    how="left_anti" if anti else "left_semi") \
+        .group_by("o_orderpriority").agg((F.count(), "order_count"))
+    return q.sort("o_orderpriority") if sort else q
+
+
+def q21_df(m, sess, batches, nation=Q21_NATION):
+    """Q21 as a DataFrame query: the semi and anti joins with their
+    conditions (how="left_semi", "left_anti"), then the inner joins."""
+    col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
+
+    def df(k):
+        return sess.from_batches([batches[k]], batches[k].schema)
+    lines = df("lineitem")
+    l1 = lines.filter(pr.GreaterThan(col("l_receiptdate"),
+                                     col("l_commitdate")))
+    l2 = lines.select(*l2_exprs(m))
+    l3 = lines.select(*l3_exprs(m)).filter(
+        pr.GreaterThan(col("l3_receiptdate"), col("l3_commitdate")))
+    return (l1.join(l2, left_on="l_orderkey", right_on="l2_orderkey",
+                    how="left_semi", condition=ne(m, "l2_suppkey",
+                                                  "l_suppkey"))
+            .join(l3, left_on="l_orderkey", right_on="l3_orderkey",
+                  how="left_anti", condition=ne(m, "l3_suppkey",
+                                                "l_suppkey"))
+            .join(df("supplier"), left_on="l_suppkey", right_on="s_suppkey")
+            .join(df("orders").filter(pr.EqualTo(col("o_orderstatus"),
+                                                 lit("F"))),
+                  left_on="l_orderkey", right_on="o_orderkey")
+            .join(df("nation").filter(pr.EqualTo(col("n_name"),
+                                                 lit(nation))),
+                  left_on="s_nationkey", right_on="n_nationkey")
+            .group_by("s_name").agg((F.count(), "numwait"))
+            .sort((col("numwait"), False), "s_name").limit(Q21_LIMIT))
+
+
+def p14_tree(m, orders_scan, lines_scan, jt, build):
+    """P14: q3's filtered sides (lineitems l_flag != 0 on the left, orders
+    o_flag < 5 on the right) joined on the order key under `jt`, built
+    on `build`."""
+    col, lit, b = m.core.col, m.core.lit, m.basic
+    lines = b.FilterExec(col("l_flag") != lit(0), lines_scan)
+    orders = b.FilterExec(col("o_flag") < lit(5), orders_scan)
+    return m.joins.HashJoinExec(lines, orders, [col("l_orderkey")],
+                                [col("o_orderkey")], jt, build_side=build)
+
+
+def p14_plans(m, d3, dev):
+    """P14's plans over q3's LONG-key batches, made once: a function of
+    (join type, build side)."""
+    o_schema, l_schema = q3_schemas("LONG")
+    o_b = q3_batches(d3, dev, o_schema, Q3_ORDERS)
+    l_b = q3_batches(d3, dev, l_schema, Q3_LINES)
+    return lambda jt, build: p14_tree(
+        m, m.basic.InMemoryScanExec(o_b, o_schema),
+        m.basic.InMemoryScanExec(l_b, l_schema), jt, build)
+
+
+def p14_oracle(d, jt):
+    """P14 in numpy: (rows, sorted left keys, sorted right keys, left
+    nulls, right nulls) — the keys of the non-null rows; existence's
+    right "keys" are its flags."""
+    lk = d["l_orderkey"][d["l_flag"] != 0]
+    ok = d["o_orderkey"][d["o_flag"] < 5]
+    hit = np.isin(lk, ok)
+    o_hit = np.isin(ok, lk)
+    if jt == "left_semi":
+        return len(lk[hit]), np.sort(lk[hit]), None, 0, 0
+    if jt == "left_anti":
+        return len(lk[~hit]), np.sort(lk[~hit]), None, 0, 0
+    if jt == "existence":
+        return len(lk), np.sort(lk), np.sort(hit), 0, 0
+    left = [lk[hit]]
+    right = [lk[hit]]
+    l_null = r_null = 0
+    if jt in ("left_outer", "full_outer"):
+        left.append(lk[~hit])
+        r_null = int((~hit).sum())
+    if jt in ("right_outer", "full_outer"):
+        right.append(ok[~o_hit])
+        l_null = int((~o_hit).sum())
+    rows = int(hit.sum()) + r_null + l_null
+    return (rows, np.sort(np.concatenate(left)),
+            np.sort(np.concatenate(right)), l_null, r_null)
+
+
+def p14_check(batches, d, jt, label):
+    """P14's output against p14_oracle: the row count, both sides' key
+    multisets and null counts, read from the device tensors."""
+    n = [b.num_rows_host for b in batches]
+    rows = sum(n)
+    want = p14_oracle(d, jt)
+    ncols = len(batches[0].columns) if batches else 0
+
+    def side(i):
+        if not batches:
+            return np.zeros(0, np.int64), 0
+        data = np.concatenate([b.columns[i].data[:k].cpu().numpy()
+                               for b, k in zip(batches, n)])
+        valid = np.concatenate([b.columns[i].validity[:k].cpu().numpy()
+                                for b, k in zip(batches, n)])
+        return np.sort(data[valid]), int((~valid).sum())
+    lkeys, l_null = side(0)
+    right = side(4) if jt not in ("left_semi", "left_anti") \
+        and ncols > 4 else (None, 0)
+    rkeys, r_null = right
+    got = (rows, lkeys, rkeys, l_null, r_null)
+    ok = rows == want[0] and np.array_equal(lkeys, want[1]) \
+        and (want[2] is None or np.array_equal(rkeys, want[2])) \
+        and l_null == want[3] and r_null == want[4]
+    if not ok:
+        raise AssertionError(f"{label}: rows {rows}, nulls ({l_null}, "
+                             f"{r_null}) != oracle rows {want[0]}, nulls "
+                             f"({want[3]}, {want[4]}), or the keys differ")
+    return got
+
+
+def p15_df(m, sess, lines, bands):
+    """P15: the lineitems (l_discount, l_orderkey) left-outer-joined to
+    the discount bands with no equi-key, on l_discount >= lo AND
+    l_discount < hi (Spark's BroadcastNestedLoopJoin), then count(*) by
+    band."""
+    col, pr, F = m.core.col, m.pred, m.F
+    cond = pr.And(pr.GreaterThanOrEqual(col("l_discount"), col("lo")),
+                  pr.LessThan(col("l_discount"), col("hi")))
+    return (sess.from_batches([lines], lines.schema)
+            .join(sess.from_batches([bands], bands.schema),
+                  how="left_outer", condition=cond)
+            .group_by("band").agg((F.count(), "lines")))
+
+
+def p15_batches(d, dev):
+    """P15's inputs: the first P15_LINES lineitems' discount and order
+    key, and the P15_BANDS bands."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    n = min(P15_LINES, d["l_discount"].shape[0])
+    ls = t.Schema((t.StructField("l_discount", t.DOUBLE),
+                   t.StructField("l_orderkey", t.LONG)))
+    lines = ColumnarBatch([Column.from_numpy(d["l_discount"][:n], t.DOUBLE,
+                                             device=dev),
+                           Column.from_numpy(d["l_orderkey"][:n], t.LONG,
+                                             device=dev)], n, ls)
+    k = np.arange(P15_BANDS)
+    bs = t.Schema((t.StructField("band", t.INT), t.StructField("lo", t.DOUBLE),
+                   t.StructField("hi", t.DOUBLE)))
+    bands = ColumnarBatch([Column.from_numpy(k.astype(np.int32), t.INT,
+                                             device=dev),
+                           Column.from_numpy(k / 100.0, t.DOUBLE, device=dev),
+                           Column.from_numpy((k + 1) / 100.0, t.DOUBLE,
+                                             device=dev)], P15_BANDS, bs)
+    return lines, bands
+
+
+def p15_oracle(d):
+    n = min(P15_LINES, d["l_discount"].shape[0])
+    disc = d["l_discount"][:n]
+    band = np.floor(disc * 100 + 0.5).astype(np.int64)
+    lo, hi = np.arange(P15_BANDS) / 100.0, (np.arange(P15_BANDS) + 1) / 100.0
+    ok = (disc >= lo[band]) & (disc < hi[band])   # each line in its band
+    if not ok.all():
+        raise AssertionError("P15: a discount outside its band")
+    counts = np.bincount(band, minlength=P15_BANDS)
+    return sorted((int(k), int(c)) for k, c in enumerate(counts) if c)
+
+
+def basic_dfs(m, sess, batches, q1t_batch):
+    """The basic operators planned from DataFrames: a range summed, the
+    union of the orders' two halves counted by priority, a limit with an
+    offset, and TPC-H Q1's aggregate over the grouping sets
+    ((l_returnflag, l_linestatus), ()) through an Expand."""
+    col, lit, F, L = m.core.col, m.core.lit, m.F, m.L
+    halves = [sess.from_batches([b], b.schema)
+              for b in batches["orders_halves"]]
+    t = m.t
+    sets = [[col("l_returnflag"), col("l_linestatus"), col("l_quantity"),
+             lit(0).alias("gid")],
+            [m.core.Literal(None, t.STRING).alias("l_returnflag"),
+             m.core.Literal(None, t.STRING).alias("l_linestatus"),
+             col("l_quantity"), lit(3).alias("gid")]]
+    lines = sess.from_batches([q1t_batch], q1t_batch.schema)
+    expand = m.session.DataFrame(
+        L.LogicalExpand(sets, lines.logical_plan()), sess)
+    return {
+        "range": sess.range(0, 1 << 24).agg((F.sum("id"), "total")),
+        "union": halves[0].union(halves[1]).group_by("o_orderpriority")
+        .agg((F.count(), "orders")),
+        "limit": halves[0].select(col("o_orderkey"), col("o_orderdate"))
+        .limit(100, offset=1000),
+        "expand": expand.group_by("l_returnflag", "l_linestatus", "gid")
+        .agg((F.sum("l_quantity"), "sum_qty"), (F.count(), "n"))}
+
+
+def basic_oracles(d, d19):
+    n_orders = d["o_orderkey"].shape[0]
+    counts = np.bincount(d["o_orderpriority"][0], minlength=5)
+    rf = np.asarray(d19["l_returnflag"][1])[d19["l_returnflag"][0]]
+    ls = np.asarray(d19["l_linestatus"][1])[d19["l_linestatus"][0]]
+    qty = d19["l_quantity"]
+    expand = [(None, None, 3, float(qty.sum()), int(qty.shape[0]))]
+    for f, s in sorted(set(zip(rf, ls))):
+        g = (rf == f) & (ls == s)
+        expand.append((str(f), str(s), 0, float(qty[g].sum()),
+                       int(g.sum())))
+    half = n_orders // 2
+    return {
+        "range": [((1 << 24) * ((1 << 24) - 1) // 2,)],
+        "union": sorted((ORDER_PRIORITIES[k], int(counts[k]))
+                        for k in range(5)),
+        "limit": [(int(d["o_orderkey"][i]), int(d["o_orderdate"][i]))
+                  for i in range(1000, 1100)],
+        "expand": sorted(expand, key=repr), "half": half}
+
+
+def check_basic(label, rows, want):
+    """A basic operator's rows against its oracle: exact, the expand's
+    sums to rtol 1e-9 (summation order)."""
+    if label in ("union", "expand"):
+        rows = sorted(rows, key=repr)
+    ok = len(rows) == len(want)
+    for got, w in zip(rows, want):
+        for g, x in zip(got, w):
+            if isinstance(x, float):
+                ok = ok and g is not None and abs(g - x) <= RTOL * abs(x)
+            else:
+                ok = ok and g == x
+    if not ok:
+        raise AssertionError(f"{label}: {rows[:5]}... != oracle "
+                             f"{want[:5]}...")
+
+
+def join_session_modules():
+    """session_modules() with the port's types and logical plans."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.plan import logical
+    m = session_modules()
+    m.t, m.L = t, logical
+    return m
+
+
+def exact_rows(want):
+    def check(rows, label, _metrics=None):
+        if rows != want:
+            raise AssertionError(f"{label}: {rows[:8]} != oracle {want[:8]}")
+    return check
+
+
+def sorted_rows(want):
+    def check(rows, label, _metrics=None):
+        if sorted(rows, key=repr) != sorted(want, key=repr):
+            raise AssertionError(f"{label}: {sorted(rows)[:8]} != oracle "
+                                 f"{sorted(want)[:8]}")
+    return check
+
+
+Q_NEED = ["murmur3_columns", "fused_probe_verify", "dma_row_gather"]
+
+
+def drive_join_paths(dev, d, batches, d3, d19, q1t_batch):
+    """Phase 3d: P12 (Q4), P13 (Q21), P14 (q3's join under each join
+    type), P15 (the nested-loop band join), P16 (Q4's semi and anti joins
+    over the host shuffle) and the basic operators, each held to its
+    numpy oracle with its launches counted. Returns (counts by path,
+    records, the runs phase 4 times)."""
+    pm, sm = port_modules(), join_session_modules()
+    TpuSession = sm.session.TpuSession
+    counts, recs, runs = {}, {}, {}
+    q4_want, q4_anti_want = q4_oracle(d), q4_oracle(d, anti=True)
+    q21_want = q21_oracle(d)
+    print(f"P12-P16 data (TPC-H clause 4.2.3, SF{TPCH_SF:g}): "
+          f"{d['o_orderkey'].shape[0]} orders, {d['l_orderkey'].shape[0]} "
+          f"lineitems, {d['s_suppkey'].shape[0]} suppliers, 25 nations")
+
+    # P12: Q4, hand-built then planned at the default confs
+    q4 = q4_plan(pm, batches)
+    rows, counts["P12"] = drive_counted("P12 Q4", q4, Q_NEED)
+    exact_rows(q4_want)(rows, "P12 Q4")
+    print(f"P12 TPC-H Q4 (left_semi): {rows} equal to the numpy oracle; "
+          f"launches {counts['P12']}")
+    recs["P12_planned"] = drive_planned(
+        "P12 Q4 planned", sm, q4_df(sm, TpuSession(device=dev), batches),
+        Q_NEED, counts["P12"], exact_rows(q4_want))
+    runs["P12"] = (lambda: q4.collect(), exact_rows(q4_want))
+
+    # P13: Q21, hand-built then planned with broadcasts off
+    q21 = q21_plan(pm, batches)
+    rows, counts["P13"] = drive_counted("P13 Q21", q21,
+                                        ["dict_gather"] + Q_NEED)
+    exact_rows(q21_want)(rows, "P13 Q21")
+    semi = q21_join(q21, 6)
+    print(f"P13 TPC-H Q21 (left_semi, left_anti, 3 inner joins, TopN by a "
+          f"string): {len(rows)} rows equal to the numpy oracle, first "
+          f"{rows[:3]}; launches {counts['P13']}; semi join output "
+          f"{semi.metrics['numOutputRows'].value} rows")
+    recs["P13_planned"] = drive_planned(
+        "P13 Q21 planned", sm,
+        q21_df(sm, TpuSession(Q21_CONF, dev), batches),
+        ["dict_gather"] + Q_NEED, counts["P13"], exact_rows(q21_want))
+    runs["P13"] = (lambda: q21.collect(), exact_rows(q21_want))
+
+    # P14: q3's filtered sides under each join type
+    p14 = p14_plans(pm, d3, dev)
+    recs["P14"] = {}
+    for jt, build in P14_KINDS:
+        label = f"P14 {jt} build {build}"
+
+        def tree(jt=jt, build=build):
+            return p14(jt, build)
+        need = Q_NEED if jt != "existence" else Q_NEED[:2]
+        out, c, _ = drive_batches(label, tree(), need)
+        rows_, _, _, ln, rn = p14_check(out, d3, jt, label)
+        counts[f"P14_{jt}_{build}"] = c
+        recs["P14"][f"{jt}_{build}"] = {"rows": rows_, "left_nulls": ln,
+                                        "right_nulls": rn, "launches": c}
+        runs[f"P14 {jt} {build}"] = (tree, None)
+        print(f"{label}: {rows_} rows, nulls left {ln} right {rn}, keys "
+              f"equal to the numpy oracle; launches {c}")
+
+    # P15: the nested-loop band join, planned
+    lines15, bands15 = p15_batches(d, dev)
+    p15_want = p15_oracle(d)
+    p15 = p15_df(sm, TpuSession(P15_CONF, dev), lines15, bands15)
+    recs["P15"] = drive_planned("P15 band join planned", sm, p15,
+                                ["dma_row_gather"], None,
+                                sorted_rows(p15_want))
+    counts["P15"] = recs["P15"]["launches"]
+    if "NestedLoopJoinExec" not in recs["P15"]["shape"]:
+        raise AssertionError(f"P15: planned {recs['P15']['shape']}")
+    runs["P15"] = (p15.collect, sorted_rows(p15_want))
+
+    # P16: Q4's semi and anti joins over the host shuffle, planned, at the
+    # default tier (each partition pair sizes its own buckets)
+    for anti, want in ((False, q4_want), (True, q4_anti_want)):
+        key = "P16_anti" if anti else "P16_semi"
+        p16 = q4_df(sm, TpuSession(P16_CONF, dev), batches, anti,
+                    sort=False)
+        recs[key] = drive_planned(f"{key} Q4 shuffled planned", sm, p16,
+                                  Q_NEED, None, sorted_rows(want))
+        counts[key] = recs[key]["launches"]
+        if "ShuffledHashJoinExec" not in recs[key]["shape"]:
+            raise AssertionError(f"{key}: planned {recs[key]['shape']}")
+        runs[key] = (p16.collect, sorted_rows(want))
+
+    # Range, Union, Limit and Expand, planned
+    half = d["o_orderkey"].shape[0] // 2
+    n_orders = d["o_orderkey"].shape[0]
+    batches = dict(batches, orders_halves=[
+        join_batch(d, "orders", dev, slice(0, half)),
+        join_batch(d, "orders", dev, slice(half, n_orders))])
+    dfs = basic_dfs(sm, TpuSession(device=dev), batches, q1t_batch)
+    wants = basic_oracles(d, d19)
+    recs["basic"] = {}
+    for label, df in dfs.items():
+        rec = drive_planned(
+            f"{label} planned", sm, df, [], None,
+            lambda r, lb, _m, label=label: check_basic(label, r,
+                                                       wants[label]))
+        recs["basic"][label] = rec
+        counts[f"basic_{label}"] = rec["launches"]
+    return counts, recs, runs
+
+
+def time_join_paths(runs):
+    """Phase 4: each path of phase 3d, P_JOIN_ITERS runs, one
+    synchronisation a run: P12's and P13's hand-built plans collect()ed,
+    P14's joins executed on the card, P15 and P16 through the session
+    (df.collect(), the plan included)."""
+    import torch
+    out = {}
+    for label, (run, check) in runs.items():
+        ms = []
+        for _ in range(P_JOIN_ITERS):
+            t0 = time.perf_counter()
+            if check is None:
+                list(run().execute())
+                torch.cuda.synchronize()
+            else:
+                rows = run()
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if check is not None:
+                check(rows, f"{label} timed")
+        out[label] = ms
+        print(f"{label} ms per run ({P_JOIN_ITERS}): "
+              f"{[round(x, 3) for x in ms]}")
+    check_idle("phase 3d timed")
+    return out
+
+
+#: P14's joins whose kernels phase 2 holds to their plain versions: the
+#: unmatched stream tail, the unmatched build rows, and both
+P14_COMPARED = (("left_outer", "right"), ("left_outer", "left"),
+                ("full_outer", "right"))
+#: the join's row gather sites (GATHER_SITES) that phase 2 must reach
+JOIN_GATHER_SITES = ("build permute", "semi/anti compaction",
+                     "unmatched build rows", "nested-loop chunk",
+                     "stream payload", "build payload")
+
+
+def compare_join_paths(dev, d, batches, d3, sites):
+    """Phase 2 for phase 3d's other paths, each kernel against its plain
+    version, exactly, at the path's own inputs: P12's semi join (hash,
+    probe, every row gather), P14's outer joins in P14_COMPARED, every
+    row gather of P15's planned nested-loop join, and P16's planned semi
+    join (every row gather, the join's kernels at its first partition
+    pair). Fails unless every label of JOIN_GATHER_SITES was met here or
+    in `sites` (the sites P13's capture met)."""
+    from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    pm, sm = port_modules(), join_session_modules()
+    sites = set(sites)
+
+    def compare(label, calls, inputs=None):
+        sites.update(site for site, *_ in calls)
+        if inputs is not None:
+            compare_join_inputs(label, inputs, calls)
+        else:
+            print(f"compare {label} main-path row gathers: "
+                  f"{'; '.join(compare_row_gathers(label, calls))}; exact")
+
+    compare("P12 Q4 semi join", capture_row_gathers(q4_plan(pm, batches)),
+            JoinInputs(find_exec(q4_plan(pm, batches), "HashJoinExec")))
+    p14 = p14_plans(pm, d3, dev)
+    for jt, build in P14_COMPARED:
+        compare(f"P14 {jt} build {build}",
+                capture_row_gathers(p14(jt, build)),
+                JoinInputs(p14(jt, build)))
+    sess15 = sm.session.TpuSession(P15_CONF, dev)
+    compare("P15 band join planned", capture_row_gathers(planned(
+        sm, p15_df(sm, sess15, *p15_batches(d, dev)))[0]))
+
+    def p16():
+        sess = sm.session.TpuSession(P16_CONF, dev)
+        return planned(sm, q4_df(sm, sess, batches, sort=False))[0]
+    compare("P16 Q4 shuffled semi join planned (its first partition pair)",
+            capture_row_gathers(p16()),
+            shuffled_join_inputs(find_exec(p16(), "ShuffledHashJoinExec")))
+    set_active_conf(RapidsConf())     # the sessions' confs are not kept
+    missing = [label for label in JOIN_GATHER_SITES if label not in sites]
+    if missing:
+        raise AssertionError(f"phase 2: no join row gather compared at "
+                             f"{missing}")
+
+
+def find_exec(tree, name):
+    """The first exec of class `name` in `tree`, depth first."""
+    return next(n for n in exec_nodes(tree) if type(n).__name__ == name)
+
+
+def q21_kernel_shapes(batches, launches):
+    """fused_probe_verify and dma_row_gather at Q21's shapes: the probe
+    at the semi and the anti join's inputs (time_probe_shape), every row
+    gather of a run of the plan (time_gather_call)."""
+    pm = port_modules()
+    probes = {}
+    for key, depth in (("semi", 6), ("anti", 5)):
+        j = q21_join(q21_plan(pm, batches), depth)
+        probes[key] = dict(time_probe_shape(f"Q21 {key}", JoinInputs(j)),
+                           launches=launches)
+    gathers = [time_gather_call("P13", *call, generic=False)
+               for call in capture_row_gathers(q21_plan(pm, batches))]
+    return probes, gathers
 
 
 def main() -> int:
@@ -3556,6 +4409,8 @@ def main() -> int:
         d[f.name][i: i + step], f.data_type, capacity=bucket_capacity(step),
         device=dev) for f in schema.fields], step, schema)
         for i in range(0, ROWS, step)]
+    dj = tpch_join_data()
+    jb = join_batches(dj, dev)
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -3655,9 +4510,32 @@ def main() -> int:
         print(f"compare {key} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
     compare_join_inputs("P11 (its first partition pair)",
-                        p11_join_inputs(p11_plan(d3, dev, "LONG")),
+                        shuffled_join_inputs(p11_join(p11_plan(d3, dev,
+                                                               "LONG"))),
                         gathers["P11"])
     pid_cols = compare_pid_hash(dev, d3, d3i)
+    # the join types' own inputs (phase 3d drives them): every row gather
+    # of Q21, its semi join's hash, probe and gathers, its anti join's
+    # probe, its dictionary gathers; then compare_join_paths
+    gathers["P13"] = capture_row_gathers(q21_plan(pm, jb))
+    compare_join_inputs("P13 Q21 semi join", JoinInputs(q21_join(
+        q21_plan(pm, jb), 6)), gathers["P13"])
+    anti_in = JoinInputs(q21_join(q21_plan(pm, jb), 5))
+    hits = compare_probe("probe P13 Q21 anti join", anti_in.probe,
+                         anti_in.cand_cap, anti_in.total)
+    print(f"compare P13 Q21 anti join probe: {anti_in.stream_rows} stream "
+          f"rows into {anti_in.build_rows} build rows, candidate total "
+          f"{anti_in.total} in {anti_in.cand_cap} slots, {hits} verified "
+          f"pairs; exact")
+    q21_takes = capture_dict_gathers(q21_plan(pm, jb))
+    if not any(i.shape[0] >= jb["orders"].num_rows_host
+               for _, i in q21_takes):
+        raise AssertionError("P13: no dictionary gather over o_orderstatus")
+    print(f"compare P13 Q21 main-path dictionary gathers: "
+          f"{'; '.join(compare_dict_takes('P13', q21_takes))}; exact")
+    del q21_takes
+    compare_join_paths(dev, dj, jb, d3,
+                       {site for site, *_ in gathers["P13"]})
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -3868,6 +4746,12 @@ def main() -> int:
             hand_shape)
     print(f"phase 3c: {time.perf_counter() - t_plan:.1f} s")
 
+    # -- phase 3d, slice 9: the join types and the basic operators --------
+    t_join = time.perf_counter()
+    join_counts, join_recs, join_runs = drive_join_paths(
+        dev, dj, jb, d3, d19, q1t_batch)
+    print(f"phase 3d: {time.perf_counter() - t_join:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -4032,6 +4916,12 @@ def main() -> int:
         "q19": (session_dfs["q19"], q19, lambda r, lb: check_q19(
             r, q19_want[1], q19_want, lb))})
     print(f"session timings (phase 4): {time.perf_counter() - t_sess:.1f} s")
+    t_join = time.perf_counter()
+    join_ms = time_join_paths(join_runs)
+    q21_probes, q21_gathers = q21_kernel_shapes(
+        jb, join_counts["P13"]["fused_probe_verify"])
+    print(f"P12-P16 timings and Q21's kernel shapes (phase 4): "
+          f"{time.perf_counter() - t_join:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -4104,11 +4994,19 @@ def main() -> int:
             "P11_q3_shuffled_int_keys": shuffled["P11_INT"][1].get(
                 r["name"], 0),
             **{f"planned_{k.replace(' ', '_')}": v["launches"].get(
-                r["name"], 0) for k, v in planned_recs.items()}}
+                r["name"], 0) for k, v in planned_recs.items()},
+            **{k: v.get(r["name"], 0) for k, v in join_counts.items()},
+            "P12_planned": join_recs["P12_planned"]["launches"].get(
+                r["name"], 0),
+            "P13_planned": join_recs["P13_planned"]["launches"].get(
+                r["name"], 0)}
         if r["name"] == "murmur3_columns":
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
             r["reorder_shapes"] = reorder_recs
+            r["q21_shapes"] = q21_gathers
+        if r["name"] == "fused_probe_verify":
+            r["q21_shapes"] = q21_probes
     print(json.dumps({"paths": {
         "P1": dict(dec, host_reads=p1_reads, ms=q19_ms),
         "P2": p2_rec, "P3": p3_rec, "spill_gb_s": rates,
@@ -4123,7 +5021,8 @@ def main() -> int:
         **{k: dict(v[2], timed=shuffle_recs.get(k)) for k, v in
            shuffled.items()}, "split_fetch": fetch_rates,
         "planned": {k: dict(v, ms=session_ms.get(k)) for k, v in
-                    planned_recs.items()}}}))
+                    planned_recs.items()},
+        "join_paths": dict(join_recs, counts=join_counts, ms=join_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

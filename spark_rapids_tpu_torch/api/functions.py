@@ -1,14 +1,15 @@
 """Column functions — the counterpart of spark_rapids_tpu/api/functions.py
 (the pyspark.sql.functions analog), for the expressions and aggregates
-the port has: `col`, `lit`, `sum`, `count`, `avg` (`mean`), `min`, `max`
-and `abs`, with the JAX package's names and signatures. The rest of the
+the port has: `col`, `lit`, `sum`, `count`, `avg` (`mean`), `min`, `max`,
+`abs`, and the conditionals `when`, `coalesce`, `nvl` (`ifnull`), `nvl2`
+and `nullif`, with the JAX package's names and signatures. The rest of the
 JAX package's functions come with their expressions (ROADMAP A.8), each
 wave adding its own here.
 """
 
 from __future__ import annotations
 
-from ..expr import arithmetic
+from ..expr import arithmetic, conditional
 from ..expr.aggexprs import Average, Count, Max, Min, Sum
 from ..expr.core import Expression, col, lit  # noqa: F401
 
@@ -45,3 +46,29 @@ def max(x):  # noqa: A001
 # arithmetic ---------------------------------------------------------------
 def abs(x):  # noqa: A001
     return arithmetic.Abs(_e(x))
+
+
+# conditionals -------------------------------------------------------------
+def coalesce(*xs):
+    return conditional.Coalesce(*[_e(x) for x in xs])
+
+
+def when(cond, value):
+    """CASE WHEN cond THEN value END (null elsewhere); a CaseWhen with more
+    branches or an ELSE is built directly."""
+    return conditional.CaseWhen([(_e(cond), _e(value))], None)
+
+
+def nvl(a, b):
+    return conditional.Nvl(_e(a), _e(b))
+
+
+ifnull = nvl
+
+
+def nvl2(a, b, c):
+    return conditional.Nvl2(_e(a), _e(b), _e(c))
+
+
+def nullif(a, b):
+    return conditional.NullIf(_e(a), _e(b))

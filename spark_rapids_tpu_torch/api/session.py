@@ -19,9 +19,9 @@ the query history, telemetry, the faults and the health surfaces
 (`cancel_query`, `health`, `active_queries`, `last_query_profile`).
 `last_query_metrics()` is the executed plan's operator metrics. The other
 methods raise NotImplementedError naming their items: the pandas UDFs
-(A.8 wave 4), windows, explode and cache (A.8 wave 3), union and sample
-(A.8 wave 1), the other readers (A.8 wave 5) and the writers (Parquet's
-with A.5, the others with A.8 wave 5).
+(A.8 wave 4), windows, explode and cache (A.8 wave 3), sample (A.8 wave
+1), the other readers (A.8 wave 5) and the writers (Parquet's with A.5,
+the others with A.8 wave 5).
 """
 
 from __future__ import annotations
@@ -117,7 +117,8 @@ class TpuSession:
               step: int = 1) -> "DataFrame":
         if end is None:
             start, end = 0, start
-        return self._df(L.LogicalRange(start, end, step))
+        return self._df(L.LogicalRange(start, end, step,
+                                       device=self.device))
 
     def read_parquet(self, path) -> "DataFrame":
         from ..io.parquet import ParquetSource
@@ -240,10 +241,9 @@ class DataFrame:
     def _using_join(self, other: "DataFrame", names: List[str], how: str,
                     condition) -> "DataFrame":
         """Rename the right keys, join, project the duplicate away; the
-        surviving key is left's (right's for right_outer)."""
-        if how == "full_outer":
-            # the surviving key is coalesce(left, right)
-            _not_ported("a full_outer USING join (Coalesce)", "A.8 wave 1")
+        surviving key is left's (right's for right_outer, coalesce(left,
+        right) for full_outer)."""
+        from ..expr.conditional import Coalesce
         tmp = {n: f"__using_r_{n}" for n in names}
         rproj = other.select(*[col(n).alias(tmp[n]) if n in tmp else col(n)
                                for n in other.columns])
@@ -252,8 +252,12 @@ class DataFrame:
                                [col(tmp[n]) for n in names], how, condition)
         out: List[Expression] = []
         for n in names:
-            out.append(col(tmp[n]).alias(n) if how == "right_outer"
-                       else col(n))
+            if how == "right_outer":
+                out.append(col(tmp[n]).alias(n))
+            elif how == "full_outer":
+                out.append(Coalesce(col(n), col(tmp[n])).alias(n))
+            else:
+                out.append(col(n))
         out += [col(n) for n in self.columns if n not in names]
         out += [col(n) for n in other.columns if n not in names]
         return self._with(L.LogicalProject(out, joined))
@@ -298,7 +302,7 @@ class DataFrame:
                                                mode="single"))
 
     def union(self, other: "DataFrame") -> "DataFrame":
-        _not_ported("union", "A.8 wave 1")
+        return self._with(L.LogicalUnion(self._plan, other._plan))
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
         _not_ported("sample", "A.8 wave 1")

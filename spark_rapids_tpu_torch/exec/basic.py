@@ -1,5 +1,5 @@
-"""Basic execs — the counterpart of the scan, filter and project execs of
-spark_rapids_tpu/exec/basic.py.
+"""Basic execs — the counterpart of the scan, filter, project, range,
+union, limit and expand execs of spark_rapids_tpu/exec/basic.py.
 
 Filter and project run each input batch as a SpillableBatch under
 `with_retry(..., split_in_half_by_rows)` (memory/retry.py), as the JAX
@@ -13,13 +13,16 @@ from __future__ import annotations
 
 from typing import Iterator, List, Sequence
 
+import torch
+
 from ..columnar.batch import ColumnarBatch
+from ..columnar.column import Column, bucket_capacity, resolve_device
 from ..expr.core import Expression, output_name, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
-from ..ops.basic import compact_columns, sanitize
-from ..types import Schema, StructField
+from ..ops.basic import compact_columns, sanitize, slice_rows
+from ..types import LONG, Schema, StructField
 from .base import (NUM_UPLOADS, PIPELINE_STAGE_METRICS, UPLOAD_METRICS,
                    UPLOAD_PACK_TIME, TpuExec)
 
@@ -224,3 +227,147 @@ class FilterExec(TpuExec):
         """Fusion hook: in a fused stage the filter contributes a row MASK
         (ANDed into the consumer's reductions) instead of a compaction."""
         return ("filter", self._bound)
+
+
+class RangeExec(TpuExec):
+    """Ids start, start + step, ... below end, generated on the device in
+    batches of `batch_rows` (reference GpuRangeExec)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 batch_rows: int = 1 << 20, name: str = "id", device=None):
+        super().__init__()
+        if step == 0:
+            raise ValueError("a range's step must not be 0")
+        self.start, self.end, self.step = start, end, step
+        self.batch_rows = batch_rows
+        self._schema = Schema((StructField(name, LONG, False),))
+        self._device = resolve_device(device)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def device(self):
+        return self._device
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        emitted = 0
+        while emitted < total:
+            n = min(self.batch_rows, total - emitted)
+            cap = bucket_capacity(n)
+            base = self.start + emitted * self.step
+            i = torch.arange(cap, dtype=torch.int64, device=self._device)
+            act = i < n
+            data = torch.where(act, base + i * self.step, 0)
+            yield ColumnarBatch([Column(data, act, LONG)], n, self._schema)
+            emitted += n
+
+
+class UnionExec(TpuExec):
+    """The children's batches one after another, under the first child's
+    schema (reference GpuUnionExec). Batches pass through untouched, so
+    encoded columns may too."""
+
+    consumes_encoded = True
+
+    def __init__(self, *children: TpuExec):
+        super().__init__(*children)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        for c in self.children:
+            for batch in c.execute():
+                yield ColumnarBatch(batch.columns, batch.num_rows,
+                                    self.output_schema, batch._host_rows)
+
+
+class LocalLimitExec(TpuExec):
+    """The first `limit` rows (reference GpuLocalLimitExec): whole batches
+    while they fit, the batch that crosses the limit sliced, one host read
+    of each batch's row count."""
+
+    #: slicing gathers a dictionary column's codes
+    consumes_encoded = True
+
+    def __init__(self, limit: int, child: TpuExec):
+        super().__init__(child)
+        self.limit = limit
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        remaining = self.limit
+        for batch in self.child.execute():
+            if remaining <= 0:
+                break
+            n = batch.num_rows_host
+            if n <= remaining:
+                remaining -= n
+                yield batch
+            else:
+                cols = [slice_rows(c, 0, remaining, batch.capacity)
+                        for c in batch.columns]
+                yield ColumnarBatch(cols, remaining, batch.schema)
+                remaining = 0
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """The single-partition limit, with an optional offset: `offset` rows
+    skipped, then at most `limit` kept."""
+
+    def __init__(self, limit: int, child: TpuExec, offset: int = 0):
+        super().__init__(limit, child)
+        self.offset = offset
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        if self.offset == 0:
+            yield from super().internal_execute()
+            return
+        to_skip, remaining = self.offset, self.limit
+        for batch in self.child.execute():
+            n = batch.num_rows_host
+            if to_skip >= n:
+                to_skip -= n
+                continue
+            start, to_skip = to_skip, 0
+            take = min(n - start, remaining)
+            if take <= 0:
+                break
+            cols = [slice_rows(c, start, take, batch.capacity)
+                    for c in batch.columns]
+            yield ColumnarBatch(cols, take, batch.schema)
+            remaining -= take
+            if remaining <= 0:
+                break
+
+
+class ExpandExec(TpuExec):
+    """N projections of every input batch (reference GpuExpandExec, the
+    operator of GROUPING SETS and rollups): one output batch per
+    projection, in projection order, rather than the rows interleaved —
+    the same multiset of rows. The schema is the first projection's."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 child: TpuExec):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        self._schema = projection_schema(self.projections[0],
+                                         child.output_schema)
+        self._bound = [bind_projection(p, child.output_schema)
+                       for p in self.projections]
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        for batch in self.child.execute():
+            for bound in self._bound:
+                yield eval_projection(bound, batch, self._schema)

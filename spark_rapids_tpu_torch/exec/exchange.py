@@ -39,6 +39,7 @@ conversion, the runtime statistics and the `obs` events (ROADMAP A.9).
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Iterator, List, Optional, Sequence
 
@@ -586,12 +587,18 @@ class ShuffledHashJoinExec(TpuExec):
     GpuShuffledHashJoinExec.scala): rows with equal keys land in one
     partition, so the union of the per-partition joins is the join.
 
-    One inner HashJoinExec is reused across partitions. The build side's
-    partition is materialized (as any hash build must be); the stream
-    side's blocks flow through the join one at a time. An inner join
-    skips a partition whose build or stream side holds no row: it emits
-    nothing there, and no kernel launches on zero rows. Left out: the
-    adaptive single-build conversion (ROADMAP A.9)."""
+    One HashJoinExec is reused across partitions, for every join type it
+    has; each partition pair runs it afresh, so its build flags start
+    over, and under its own partition index, so its candidate and byte
+    buckets are sized for that pair (a bucket cached from one pair would
+    be outgrown by a larger one). The build side's partition is materialized (as any hash build
+    must be); the stream side's blocks flow through the join one at a
+    time. A pair is skipped only where it can emit nothing: an empty
+    build side where no unmatched stream row is emitted (inner, semi, a
+    build-preserving outer join), an empty stream side where no unmatched
+    build row is (everything but a build-preserving outer join). No
+    kernel launches on zero rows there. Left out: the adaptive
+    single-build conversion (ROADMAP A.9)."""
 
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: Sequence[Expression],
@@ -640,11 +647,17 @@ class ShuffledHashJoinExec(TpuExec):
             stream.close()
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
-        build_right = self._join.build_side == "right"
+        from .joins import EXISTENCE, LEFT_ANTI
+        join = self._join
+        build_right = join.build_side == "right"
+        # does an empty side still leave rows to emit?
+        stream_unmatched = join._stream_preserved \
+            or join.join_type in (LEFT_ANTI, EXISTENCE)
+        build_unmatched = join._need_build_flags
         lit_ = self.children[0].execute_partitions()
         rit = self.children[1].execute_partitions()
         try:
-            while True:
+            for pid in itertools.count():
                 lp = next(lit_, None)
                 rp = next(rit, None)
                 if (lp is None) != (rp is None):
@@ -654,22 +667,30 @@ class ShuffledHashJoinExec(TpuExec):
                     return
                 stream, build = (lp, rp) if build_right else (rp, lp)
                 batches = list(self._nonempty(build))
-                if not batches:
-                    stream.close()
-                    continue
                 rows = self._nonempty(stream)
-                first = next(rows, None)
-                if first is None:
+                first = None
+                if batches or stream_unmatched:
+                    first = next(rows, None)
+                if (not batches and not stream_unmatched) or (
+                        first is None and not build_unmatched):
+                    rows.close()
+                    stream.close()
                     continue
                 scan_s, scan_b = (self._lscan, self._rscan) if build_right \
                     else (self._rscan, self._lscan)
                 scan_b.set_batches(batches)
-                scan_s.set_stream(self._counted(first, rows))
+                scan_s.set_stream(self._counted(first, rows)
+                                  if first is not None else _no_batches())
                 self.metrics[NUM_PARTITION_PAIRS].add(1)
-                yield from self._join.execute()
+                join.partition = pid
+                yield from join.execute()
         finally:
             lit_.close()
             rit.close()
+
+
+def _no_batches() -> Iterator[ColumnarBatch]:
+    yield from ()
 
 
 def _chain(first: ColumnarBatch, rest) -> Iterator[ColumnarBatch]:

@@ -18,8 +18,8 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..columnar.column import Column
-from ..types import (BOOLEAN, DATE, DOUBLE, INT, LONG, STRING, DataType,
-                     StringType)
+from ..types import (BOOLEAN, DATE, DOUBLE, INT, LONG, NULL, STRING,
+                     BinaryType, DataType, StringType)
 
 
 class Expression:
@@ -128,11 +128,11 @@ class LeafExpression(Expression):
 
 class Literal(LeafExpression):
     """A constant. A `datetime.date` is a DATE literal, held as its days
-    since the epoch (the column's int32 value)."""
+    since the epoch (the column's int32 value). `Literal(None, dtype)` is
+    a typed null: every row null over zero data (a string null over
+    zero-length rows), as in the JAX package; `lit(None)` is of NullType."""
 
     def __init__(self, value, dtype: Optional[DataType] = None):
-        if value is None:
-            raise NotImplementedError("null literals wait for a later slice")
         self._dtype = dtype or _infer_literal_type(value)
         if isinstance(value, datetime.date):
             value = (value - _EPOCH).days
@@ -144,29 +144,51 @@ class Literal(LeafExpression):
 
     @property
     def nullable(self):
-        return False
+        return self.value is None
 
     def columnar_eval(self, batch) -> Column:
-        if isinstance(self._dtype, StringType):
-            # EqualTo and In take a string literal's value in code space;
-            # nothing here consumes a per-row string column yet
-            raise NotImplementedError(
-                "string literals as columns wait for a later slice (ROADMAP "
-                "A.8)")
         cap, dev = batch.capacity, batch.device
-        data = torch.full((cap,), self.value, dtype=self._dtype.torch_dtype,
+        dt = self._dtype
+        valid = torch.full((cap,), self.value is not None, dtype=torch.bool,
+                           device=dev)
+        if isinstance(dt, (StringType, BinaryType)):
+            return _string_literal(self.value, cap, dev, valid, dt)
+        if self.value is None:
+            tdt = dt.torch_dtype or torch.int8
+            return Column(torch.zeros(cap, dtype=tdt, device=dev), valid, dt)
+        data = torch.full((cap,), self.value, dtype=dt.torch_dtype,
                           device=dev)
-        return Column(data, torch.ones(cap, dtype=torch.bool, device=dev),
-                      self._dtype)
+        return Column(data, valid, dt)
 
     def __repr__(self):
         return f"lit({self.value!r})"
+
+
+def _string_literal(value, cap: int, dev, valid, dtype) -> Column:
+    """The literal repeated over `cap` rows, as the JAX package lays it
+    out: a byte bucket of the pattern tiled, offsets at its length."""
+    import numpy as np
+    from ..columnar.column import StringColumn, bucket_capacity
+    b = value.encode("utf-8") if isinstance(value, str) else (value or b"")
+    byte_cap = bucket_capacity(max(len(b), 1) * cap)
+    lengths = torch.full((cap,), len(b), dtype=torch.int32, device=dev)
+    offsets = torch.cat([lengths.new_zeros(1),
+                         torch.cumsum(lengths, 0, dtype=torch.int32)])
+    if b:
+        reps = -(-byte_cap // len(b))
+        data = np.tile(np.frombuffer(b, dtype=np.uint8), reps)[:byte_cap]
+    else:
+        data = np.zeros(byte_cap, dtype=np.uint8)
+    return StringColumn(torch.from_numpy(data.copy()).to(dev), offsets,
+                        valid, dtype)
 
 
 _EPOCH = datetime.date(1970, 1, 1)
 
 
 def _infer_literal_type(value) -> DataType:
+    if value is None:
+        return NULL
     if isinstance(value, datetime.datetime):
         raise TypeError("timestamp literals wait for a later slice "
                         "(ROADMAP A.8)")

@@ -288,3 +288,62 @@ def inner_gather_maps(verified, stream_idx, build_row, total):
     p = perm.long()
     return (torch.where(act, stream_idx[p], -1),
             torch.where(act, build_row[p], -1), n)
+
+
+def matched_flags(verified, idx, capacity: int):
+    """bool (capacity,): whether any verified slot names each row (idx may
+    repeat; slots with idx < 0 name none)."""
+    safe = torch.clamp(idx, 0, max(capacity - 1, 0)).long()
+    contrib = (verified & (idx >= 0)).to(torch.int32)
+    flags = torch.zeros(capacity, dtype=torch.int32, device=idx.device)
+    return flags.scatter_reduce_(0, safe, contrib, reduce="amax") > 0
+
+
+def outer_extend_maps(s_map, b_map, n_pairs, unmatched_idx, n_unmatched,
+                      null_on: str, out_capacity: int):
+    """Append unmatched rows (the other side -1, so null) after the
+    matched pairs. null_on: the side that is null on the appended rows
+    ('build' for a left outer join, 'stream' for a right outer one)."""
+    dev = s_map.device
+    i = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    total = n_pairs + n_unmatched
+    from_un = (i >= n_pairs) & (i < total)
+    un_i = torch.clamp(i - n_pairs, 0, unmatched_idx.shape[0] - 1).long()
+    pair_i = torch.clamp(i, 0, s_map.shape[0] - 1).long()
+    in_pairs = i < n_pairs
+    un = unmatched_idx[un_i]
+    s_pairs = torch.where(in_pairs, s_map[pair_i], -1)
+    b_pairs = torch.where(in_pairs, b_map[pair_i], -1)
+    if null_on == "build":
+        return (torch.where(from_un, un, s_pairs),
+                torch.where(from_un, -1, b_pairs), total)
+    return (torch.where(from_un, -1, s_pairs),
+            torch.where(from_un, un, b_pairs), total)
+
+
+def unmatched_indices(matched, num_rows, capacity: int):
+    """Indices of the active rows whose flag is False, compacted in row
+    order (-1 past their count), and the count."""
+    act = active_mask(num_rows, capacity, matched.device)
+    perm, n = compaction_order(act & ~matched, num_rows)
+    return torch.where(active_mask(n, capacity), perm, -1), n
+
+
+def cross_pairs(stream_rows: int, build_rows: int, chunk_start: int,
+                out_capacity: int, device=None):
+    """Nested-loop candidates on `device`: the (stream, build) pairs whose
+    flat index stream * build_rows + build lies in [chunk_start,
+    chunk_start + out_capacity), and how many there are. The row counts
+    are host ints (the exec reads them once a batch). The flat index is
+    int64: stream_rows * build_rows passes 2^31 well inside practical
+    cartesian products."""
+    dev = device
+    i = torch.arange(out_capacity, dtype=torch.int64, device=dev) \
+        + int(chunk_start)
+    total = int(stream_rows) * int(build_rows)
+    ok = i < total
+    safe_build = max(int(build_rows), 1)
+    s = torch.where(ok, i // safe_build, -1).to(torch.int32)
+    b = torch.where(ok, i % safe_build, -1).to(torch.int32)
+    n = min(max(total - int(chunk_start), 0), out_capacity)
+    return s, b, torch.tensor(n, dtype=torch.int32, device=dev)

@@ -3,9 +3,9 @@ the engine's Catalyst analog: a small logical algebra that the override
 layer (overrides.py) wraps, tags and converts to TpuExec trees (reference
 GpuOverrides.scala wrap/tag/convert over SparkPlan).
 
-These are the nodes the ported DataFrame methods build. The expand,
-generate, window, sample and pandas nodes come with their operators
-(ROADMAP A.8).
+These are the nodes the ported DataFrame methods build, and the expand
+node of grouping sets. The generate, window, sample and pandas nodes
+come with their operators (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression
-from ..types import BOOLEAN, LongType, Schema, StructField
+from ..types import LongType, Schema, StructField
 
 
 class LogicalPlan:
@@ -53,8 +53,12 @@ class LogicalScan(LogicalPlan):
 
 
 class LogicalRange(LogicalPlan):
-    def __init__(self, start: int, end: int, step: int = 1, name: str = "id"):
+    """`device` is the session's: a range has no batches to take it from."""
+
+    def __init__(self, start: int, end: int, step: int = 1, name: str = "id",
+                 device=None):
         self.start, self.end, self.step, self.name = start, end, step, name
+        self.device = device
 
     @property
     def schema(self) -> Schema:
@@ -112,22 +116,6 @@ class LogicalAggregate(LogicalPlan):
         return f"Aggregate keys={self.group_exprs!r} [{aggs}]"
 
 
-def join_schema(left: Schema, right: Schema, join_type: str) -> Schema:
-    """The output schema of a join of these sides (the JAX package's
-    HashJoinExec.output_schema, for every join type: the port's join
-    execs run inner joins only, ROADMAP A.3)."""
-    if join_type in ("left_semi", "left_anti"):
-        return left
-    if join_type == "existence":
-        return Schema(tuple(left.fields)
-                      + (StructField("exists", BOOLEAN, False),))
-    lf = [StructField(f.name, f.data_type, f.nullable or join_type in
-                      ("right_outer", "full_outer")) for f in left.fields]
-    rf = [StructField(f.name, f.data_type, f.nullable or join_type in
-                      ("left_outer", "full_outer")) for f in right.fields]
-    return Schema(tuple(lf + rf))
-
-
 class LogicalJoin(LogicalPlan):
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
@@ -142,8 +130,9 @@ class LogicalJoin(LogicalPlan):
 
     @property
     def schema(self) -> Schema:
-        return join_schema(self.children[0].schema, self.children[1].schema,
-                           self.join_type)
+        from ..exec.joins import join_output_schema
+        return join_output_schema(self.children[0].schema,
+                                  self.children[1].schema, self.join_type)
 
     def describe(self):
         return (f"Join {self.join_type} lkeys={self.left_keys!r} "
@@ -187,6 +176,19 @@ class LogicalUnion(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
+
+
+class LogicalExpand(LogicalPlan):
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 child: LogicalPlan):
+        self.projections = [list(p) for p in projections]
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        from ..exec.basic import projection_schema
+        return projection_schema(self.projections[0],
+                                 self.children[0].schema)
 
 
 class LogicalRepartition(LogicalPlan):

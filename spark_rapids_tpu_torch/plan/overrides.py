@@ -6,18 +6,19 @@ GpuTransitionOverrides' coalesce insertion :322).
 As in the JAX package, the engine has no host engine underneath: a node
 that cannot run on the card makes `apply` raise PlanNotSupported with the
 whole explain report. The rules cover what the port has: the expressions
-of expr/{core,arithmetic,predicates,aggexprs} and the scan, project,
-filter, aggregate (single-stage, or partial -> host exchange -> final),
-inner hash join (broadcast, host-shuffled or single-partition), sort,
-TopN and repartition operators. Each node or branch whose operator is
-not ported yet is tagged off during tagging, with a reason naming its
-ROADMAP item, so nothing raises mid-run:
+of expr/{core,arithmetic,predicates,conditional,aggexprs} and the scan,
+project, filter, range, union, limit, expand, aggregate (single-stage,
+or partial -> host exchange -> final), hash join of every join type
+(broadcast, host-shuffled or single-partition), nested-loop join of a
+keyless join (over a broadcast when the right side fits), sort, TopN and
+repartition operators. Each node or branch whose operator is not ported
+yet is tagged off during tagging, with a reason naming its ROADMAP item,
+so nothing raises mid-run:
 
-- Range, Limit, Union and the range-partitioned sort (PartitionWiseSortExec):
-  A.8 wave 1;
-- joins other than inner, keyless joins (NestedLoopJoinExec) and the
-  adaptive join the JAX package plans when a side's size is unknown
-  (AdaptiveJoinExec): A.3;
+- the range-partitioned sort (PartitionWiseSortExec): A.8 wave 1;
+- the adaptive join the JAX package plans when a side's size is unknown
+  (AdaptiveJoinExec): A.3 and A.9;
+- aggregate functions the port lacks: A.2;
 - a node the JAX package would run on its host row engine
   (`_can_host_fallback`), the cost-based placement and the UDF compiler:
   A.8 wave 4 (their confs raise in config.RapidsConf);
@@ -50,19 +51,21 @@ from ..config import (ADAPTIVE_AUTO_BROADCAST_MAX_BYTES, ADAPTIVE_ENABLED,
                       RapidsConf, active_conf, set_active_conf)
 from ..exec.aggregate import AggregateExec
 from ..exec.base import TpuExec
-from ..exec.basic import (FilterExec, ProjectExec, SourceScanExec,
+from ..exec.basic import (ExpandExec, FilterExec, GlobalLimitExec,
+                          ProjectExec, RangeExec, SourceScanExec, UnionExec,
                           bind_projection)
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import (BroadcastExchangeExec, HostShuffleExchangeExec,
                              ShuffledHashJoinExec)
-from ..exec.joins import HashJoinExec
+from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, HashJoinExec,
+                          NestedLoopJoinExec)
 from ..exec.sort import SortExec, TopNExec, resolve_sort_orders
-from ..expr import aggexprs, arithmetic, predicates
+from ..expr import aggexprs, arithmetic, conditional, predicates
 from ..expr.core import (
     Alias, BoundReference, Expression, Literal, UnresolvedAttribute,
     output_name, resolve,
 )
-from ..types import BinaryType, StringType
+from ..types import BinaryType, Schema, StringType
 from . import logical as L
 from .meta import BaseMeta, ExprMeta, ExprRule
 from .typesig import (
@@ -72,7 +75,7 @@ from .typesig import (
 
 #: the reasons of nodes that are not ported, by ROADMAP item
 WAVE1 = "waits for ROADMAP A.8 wave 1"
-JOINS = "waits for ROADMAP A.3"
+JOINS = "waits for ROADMAP A.3 and A.9"
 HOST_TIER = "waits for ROADMAP A.8 wave 4"
 STRINGS = "waits for ROADMAP A.8 wave 2"
 
@@ -126,6 +129,15 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
     _r(rules, predicates.IsNotNull, "non-null check", commonly_supported,
        BOOLEAN)
     _r(rules, predicates.In, "IN list", comparable, BOOLEAN)
+    # conditional
+    _r(rules, conditional.If, "if/else", commonly_supported)
+    _r(rules, conditional.CaseWhen, "case/when", commonly_supported)
+    _r(rules, conditional.Coalesce, "first non-null", commonly_supported)
+    _r(rules, conditional.IsNaN, "NaN check", fp, BOOLEAN)
+    _r(rules, conditional.NaNvl, "NaN replacement", fp, fp)
+    _r(rules, conditional.Nvl, "nvl/ifnull")
+    _r(rules, conditional.Nvl2, "nvl2")
+    _r(rules, conditional.NullIf, "nullif")
     _EXPR_RULES = rules
     return rules
 
@@ -276,6 +288,12 @@ def _strings_ok(e: Expression, schema, encoded) -> bool:
     return code_space_ok(bound, encoded)
 
 
+def _pair_schema(p: L.LogicalJoin) -> Schema:
+    """The schema a join's condition binds to: left columns, then right."""
+    return Schema(tuple(p.children[0].schema.fields)
+                  + tuple(p.children[1].schema.fields))
+
+
 class PlanMeta(BaseMeta):
     def __init__(self, plan: L.LogicalPlan, conf: RapidsConf):
         super().__init__()
@@ -309,6 +327,8 @@ class PlanMeta(BaseMeta):
             if p.condition is not None:
                 out.append((p.condition, None))  # pair-scope, binds later
             return out
+        if isinstance(p, L.LogicalExpand):
+            return [(e, child_sch) for proj in p.projections for e in proj]
         if isinstance(p, L.LogicalSort):
             out = []
             for o in p.orders:
@@ -351,13 +371,7 @@ class PlanMeta(BaseMeta):
         """Tag off the nodes whose operators the port lacks, naming the
         ROADMAP item that brings each."""
         p = self.plan
-        if isinstance(p, L.LogicalRange):
-            self.will_not_work_on_tpu(f"RangeExec {WAVE1}")
-        elif isinstance(p, L.LogicalLimit):
-            self.will_not_work_on_tpu(f"GlobalLimitExec {WAVE1}")
-        elif isinstance(p, L.LogicalUnion):
-            self.will_not_work_on_tpu(f"UnionExec {WAVE1}")
-        elif isinstance(p, L.LogicalSort) and p.limit is None \
+        if isinstance(p, L.LogicalSort) and p.limit is None \
                 and self._host_shuffle_partitions() > 1 \
                 and self._range_sort_order(p) is not None:
             self.will_not_work_on_tpu(
@@ -371,13 +385,13 @@ class PlanMeta(BaseMeta):
                         f"aggregate {type(fn).__name__} waits for ROADMAP "
                         "A.2")
         elif isinstance(p, L.LogicalJoin):
-            if p.join_type != "inner":
-                self.will_not_work_on_tpu(
-                    f"{p.join_type} joins {JOINS}")
             strategy = self._join_strategy(p)[0]
-            if strategy == "nested_loop":
+            if strategy.endswith("nested_loop") \
+                    and p.join_type not in NESTED_LOOP_JOIN_TYPES:
                 self.will_not_work_on_tpu(
-                    f"keyless joins (NestedLoopJoinExec) {JOINS}")
+                    f"a keyless {p.join_type} join: NestedLoopJoinExec "
+                    f"joins {', '.join(NESTED_LOOP_JOIN_TYPES)}, as in the "
+                    "JAX package")
             elif strategy == "adaptive":
                 self.will_not_work_on_tpu(
                     "a join with a side of unknown size (AdaptiveJoinExec) "
@@ -406,13 +420,20 @@ class PlanMeta(BaseMeta):
                 return enc
             return [output_name(e, f"col{i}") for i, e in enumerate(exprs)
                     if _bare_name(e) in enc]
-        if isinstance(p, L.LogicalJoin) \
-                and self._join_strategy(p)[0] != "shuffled":
+        if isinstance(p, L.LogicalJoin) and self._join_strategy(p)[0] in (
+                "broadcast_right", "broadcast_left", "hash"):
             enc = self.children[0].encoded_out() \
                 | self.children[1].encoded_out()
             if p.condition is None \
-                    or _strings_ok(p.condition, p.schema, enc):
+                    or _strings_ok(p.condition, _pair_schema(p), enc):
+                if p.join_type in ("left_semi", "left_anti", "existence"):
+                    return self.children[0].encoded_out()
                 return enc
+        if isinstance(p, L.LogicalUnion):
+            return frozenset.intersection(*(c.encoded_out()
+                                            for c in self.children))
+        if isinstance(p, L.LogicalLimit):
+            return self.children[0].encoded_out()
         return ()
 
     def _tag_strings(self) -> None:
@@ -426,10 +447,15 @@ class PlanMeta(BaseMeta):
             checks += [(e, p.children[0].schema,
                         self.children[0].encoded_out()) for e in p.exprs]
         elif isinstance(p, L.LogicalJoin) and p.condition is not None:
-            enc = frozenset() if self._join_strategy(p)[0] == "shuffled" \
-                else self.children[0].encoded_out() \
-                | self.children[1].encoded_out()
-            checks.append((p.condition, p.schema, enc))
+            enc = self.children[0].encoded_out() \
+                | self.children[1].encoded_out() \
+                if self._join_strategy(p)[0] in (
+                    "broadcast_right", "broadcast_left", "hash") \
+                else frozenset()
+            checks.append((p.condition, _pair_schema(p), enc))
+        elif isinstance(p, L.LogicalExpand):
+            checks += [(e, p.children[0].schema, frozenset())
+                       for proj in p.projections for e in proj]
         elif isinstance(p, L.LogicalAggregate):
             child = p.children[0]
             checks += [(e, child.schema, frozenset()) for e in
@@ -523,7 +549,8 @@ class PlanMeta(BaseMeta):
         shuffle.partitions, raised by the sub-partition split of a big
         build side), else the adaptive join when a size is unknown, else
         the single-partition hash join; keyless joins go to the
-        nested-loop join. Returns (kind, n_parts)."""
+        nested-loop join, over a broadcast of the right side when it fits.
+        Returns (kind, n_parts)."""
         thr = self.conf.get(BROADCAST_SIZE_THRESHOLD)
         # adaptive cap: an estimate past adaptive.autoBroadcastMaxBytes
         # must not plan a broadcast the runtime replanner would demote
@@ -540,7 +567,8 @@ class PlanMeta(BaseMeta):
         can_bcast_l = thr >= 0 and size_l is not None and size_l <= thr \
             and jt in ("inner", "right_outer")
         if not p.left_keys:
-            return "nested_loop", 1
+            return ("broadcast_nested_loop" if can_bcast_r
+                    else "nested_loop"), 1
         # prefer broadcasting the smaller eligible side
         if can_bcast_r and can_bcast_l and size_l < size_r:
             can_bcast_r = False
@@ -589,6 +617,12 @@ class PlanMeta(BaseMeta):
         if kind == "hash":
             return HashJoinExec(kids[0], kids[1], p.left_keys, p.right_keys,
                                 p.join_type, condition=p.condition)
+        if kind == "broadcast_nested_loop":
+            return NestedLoopJoinExec(kids[0], BroadcastExchangeExec(kids[1]),
+                                      p.join_type, p.condition)
+        if kind == "nested_loop":
+            return NestedLoopJoinExec(kids[0], kids[1], p.join_type,
+                                      p.condition)
         raise PlanNotSupported(f"no conversion for a {kind} join")
 
     def convert(self) -> TpuExec:
@@ -612,6 +646,9 @@ class PlanMeta(BaseMeta):
         kids = [c.convert() for c in self.children]
         if isinstance(p, L.LogicalScan):
             return CoalesceBatchesExec(SourceScanExec(p.source, p.schema))
+        if isinstance(p, L.LogicalRange):
+            return RangeExec(p.start, p.end, p.step, name=p.name,
+                             device=p.device)
         if isinstance(p, L.LogicalProject):
             return ProjectExec(p.exprs, kids[0])
         if isinstance(p, L.LogicalFilter):
@@ -632,6 +669,12 @@ class PlanMeta(BaseMeta):
                 partitioning=p.mode)
         if isinstance(p, L.LogicalJoin):
             return self._convert_join(p, kids)
+        if isinstance(p, L.LogicalLimit):
+            return GlobalLimitExec(p.limit, kids[0], offset=p.offset)
+        if isinstance(p, L.LogicalUnion):
+            return UnionExec(*kids)
+        if isinstance(p, L.LogicalExpand):
+            return ExpandExec(p.projections, kids[0])
         raise PlanNotSupported(f"no conversion for {type(p).__name__}")
 
 

@@ -3,9 +3,9 @@ spark_rapids_tpu/plan/typesig.py (reference TypeChecks.scala:168 TypeSig /
 :1456 ExprChecks; drives both tagging and the generated supported-ops
 documentation).
 
-The tags are the JAX package's. The port has no DECIMAL, TIMESTAMP_NTZ,
-NULL or nested types yet (ROADMAP A.8): their tags name no class here,
-so no type of the port matches them.
+The tags are the JAX package's. The port has no DECIMAL, TIMESTAMP_NTZ
+or nested types yet (ROADMAP A.8): their tags name no class here, so no
+type of the port matches them.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ from typing import FrozenSet, Optional
 
 from ..types import (
     BinaryType, BooleanType, ByteType, DataType, DateType, DoubleType,
-    FloatType, IntegerType, LongType, ShortType, StringType, TimestampType,
+    FloatType, IntegerType, LongType, NullType, ShortType, StringType,
+    TimestampType,
 )
 
 _ALL_TAGS = {
@@ -22,7 +23,7 @@ _ALL_TAGS = {
     "INT": IntegerType, "LONG": LongType, "FLOAT": FloatType,
     "DOUBLE": DoubleType, "DATE": DateType, "TIMESTAMP": TimestampType,
     "TIMESTAMP_NTZ": None, "STRING": StringType, "BINARY": BinaryType,
-    "NULL": None, "DECIMAL": None, "ARRAY": None, "MAP": None,
+    "NULL": NullType, "DECIMAL": None, "ARRAY": None, "MAP": None,
     "STRUCT": None,
 }
 

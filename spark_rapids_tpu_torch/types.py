@@ -107,6 +107,10 @@ class BinaryType(DataType):
     """Raw bytes, laid out as StringType."""
 
 
+class NullType(DataType):
+    """The type of an untyped null literal: all rows null, no data."""
+
+
 class DateType(DataType):
     """Days since unix epoch, proleptic Gregorian (int32)."""
     torch_dtype = torch.int32
@@ -129,6 +133,7 @@ DATE = DateType()
 TIMESTAMP = TimestampType()
 STRING = StringType()
 BINARY = BinaryType()
+NULL = NullType()
 
 _NP_DTYPES = {
     torch.bool: np.dtype(np.bool_), torch.int8: np.dtype(np.int8),

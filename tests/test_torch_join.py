@@ -414,14 +414,25 @@ def test_hash_join_exec_duplicate_build_keys_match_as_multisets():
 
 
 def test_hash_join_exec_refuses_what_it_does_not_port():
-    _, tplan = _join_plans(8, "right")
+    """What the JAX package refuses, the port refuses at construction: a
+    semi join built on the left, a join type HashJoinExec does not have.
+    A key the probe kernel does not take (DOUBLE against LONG) runs the
+    expand-and-verify route and matches the JAX package row for row."""
+    jplan, tplan = _join_plans(8, "right")
     left, right = tplan.children
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="builds on the right"):
         tjoins.HashJoinExec(left, right, [tcore.col("l_key")],
-                            [tcore.col("o_key")], "left_outer")
-    with pytest.raises(NotImplementedError):
-        tjoins.HashJoinExec(left, right, [tcore.col("l_price")],
-                            [tcore.col("o_key")], "inner").collect()
+                            [tcore.col("o_key")], "left_semi",
+                            build_side="left")
+    with pytest.raises(ValueError, match="not 'cross'"):
+        tjoins.HashJoinExec(left, right, [tcore.col("l_key")],
+                            [tcore.col("o_key")], "cross")
+    jl, jr = jplan.children
+    got = _rows(tjoins.HashJoinExec(left, right, [tcore.col("l_price")],
+                                    [tcore.col("o_key")], "inner"))
+    want = _rows(jjoins.HashJoinExec(jl, jr, [jcore.col("l_price")],
+                                     [jcore.col("o_key")], "inner"))
+    assert got == want
 
 
 # -- the kernel's grid and its tiled arithmetic -----------------------------

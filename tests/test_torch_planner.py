@@ -324,31 +324,78 @@ def _port_df():
     return ts, ts.from_batches([tb], tb.schema)
 
 
-@pytest.mark.parametrize("case", ["union", "left join", "range", "limit",
-                                  "keyless join"])
+@pytest.mark.parametrize("case", ["sample", "range-partitioned sort",
+                                  "adaptive join", "first", "windows"])
 def test_unported_nodes_raise_naming_their_item(case):
+    """Nodes the port has not ported raise naming their ROADMAP item: at
+    planning (PlanNotSupported with the explain report), or at the
+    DataFrame method that would build a node the port lacks."""
     ts, df = _port_df()
-    if case == "union":
-        df = tsession.DataFrame(tL.LogicalUnion(df.logical_plan(),
-                                                df.logical_plan()), ts)
+    if case in ("sample", "windows"):
+        item = "A.8 wave 1" if case == "sample" else "A.8 wave 3"
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            df.sample(0.5) if case == "sample" else df.with_windows()
+        return
+    if case == "range-partitioned sort":
+        sess = tsession.TpuSession({"spark.rapids.sql.shuffle.partitions":
+                                    "4"}, device="cpu")
+        df = tsession.DataFrame(df.sort("k").logical_plan(), sess)
         item = "A.8 wave 1"
-    elif case == "left join":
-        df = df.join(df.select(tcore.col("k").alias("k2")), left_on="k",
-                     right_on="k2", how="left_outer")
+    elif case == "adaptive join":
+        sess = tsession.TpuSession(
+            {"spark.rapids.sql.broadcastSizeThreshold": "100"}, device="cpu")
+        side = tsession.DataFrame(df.group_by("k").agg(
+            (tF.count(), "n")).logical_plan(), sess)
+        df = tsession.DataFrame(df.logical_plan(), sess).join(
+            side.select(tcore.col("k").alias("k2"), tcore.col("n")),
+            left_on="k", right_on="k2", how="left_outer")
         item = "A.3"
-    elif case == "range":
-        df = ts.range(10)
-        item = "A.8 wave 1"
-    elif case == "limit":
-        df = df.limit(3)
-        item = "A.8 wave 1"
     else:
-        df = df.join(df.select(tcore.col("k").alias("k2")))
-        item = "A.3"
+        # the JAX package's first(): an aggregate function the port's
+        # rule table lacks
+        from spark_rapids_tpu_torch.expr.aggexprs import Min
+
+        class FirstValue(Min):
+            name = "first"
+        df = df.group_by("k").agg((FirstValue(tcore.col("v")), "f"))
+        item = "A.2"
     with pytest.raises(tover.PlanNotSupported) as e:
         df.collect()
     assert f"ROADMAP {item}" in str(e.value)
     assert e.value.report == df.explain()
+
+
+def _ported_node_frames(m, sess, batches):
+    """The five nodes of the earlier tag-offs as queries of one package:
+    a union, a left outer join, a range, a limit with an offset and a
+    keyless (nested-loop) join with a condition."""
+    col, lit = m.core.col, m.core.lit
+    df = sess.from_batches(batches, batches[0].schema)
+    other = df.select(col("k").alias("k2"), (col("v") * lit(2.0))
+                      .alias("w")).filter(col("k2") > lit(2))
+    return {
+        "union": df.union(df.filter(col("k") < lit(4))),
+        "left join": df.join(other, left_on="k", right_on="k2",
+                             how="left_outer"),
+        "range": sess.range(3, 40, 4),
+        "limit": df.limit(3, offset=2),
+        "keyless join": df.join(other.filter(col("k2") < lit(5)),
+                                condition=col("k") < col("k2")),
+    }
+
+
+@pytest.mark.parametrize("conf", ["default", "no broadcast"])
+@pytest.mark.parametrize("case", ["union", "left join", "range", "limit",
+                                  "keyless join"])
+def test_ported_nodes_plan_and_match_jax(case, conf):
+    js, ts = sessions(CONFS[conf])
+    jb, tb = split_batches({"k": (np.arange(8, dtype=np.int64), "LONG"),
+                            "v": (np.arange(8) * 0.5, "DOUBLE")}, 8, 2)
+    jdf = _ported_node_frames(JAX, js, jb)[case]
+    tdf = _ported_node_frames(TORCH, ts, tb)[case]
+    assert tree(converted(TORCH, tdf)) == tree(converted(JAX, jdf))
+    assert tdf.collect() == jdf.collect()
+    assert tdf.explain().startswith("*")
 
 
 def test_disabled_operator_and_sql_off_tag_off():
