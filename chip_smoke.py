@@ -53,7 +53,9 @@ fails the run on error:
      outer join (the unmatched stream tail, the unmatched build rows);
      every row gather of P15's planned nested-loop join, its chunks
      among them; every row gather of P16's planned semi join and its
-     join kernels at its first partition pair);
+     join kernels at its first partition pair; P19's murmur3 chain and
+     probe at both joins, every row gather (the TopN's sort moves the
+     decimal128 revenue as two limb lanes) and its dictionary take);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -170,6 +172,22 @@ fails the run on error:
      priority, a limit of 100 at offset 1,000 and TPC-H Q1's count and
      sum over the grouping sets ((l_returnflag, l_linestatus), ())
      through an Expand, each planned from DataFrames;
+  3e. drives the rest of A.8 wave 1 on the true TPC-H types, each planned
+     from DataFrames and held to an exact oracle (every decimal to the
+     last digit, as Python ints) with its launches counted: P17, TPC-H Q1
+     (DELTA 90) over P6's 6,001,215 lineitems with DECIMAL(12, 2) money
+     and a DATE ship date, l_shipdate <= date_sub(DATE '1998-12-01', 90),
+     sums to DECIMAL(22, 2) and (36, 4) and count(*) by the two flags;
+     P18, TPC-H Q6 over the same lines, a grand decimal128 sum; P19,
+     TPC-H Q3 at SF1 (150,000 customers, c_mktsegment = 'BUILDING' on the
+     codes, P12's orders and lineitems with o_custkey, o_shippriority and
+     DECIMAL(12, 2) prices), a decimal128 revenue by three keys, TopN(10),
+     broadcasts off; P20, the lineitems' sample(0.1, seed=7) (the rows
+     the port's threefry keeps on the CPU) with a cast to string against
+     Python's Decimal, round, bround, two shifts and from_utc_timestamp
+     at +05:30; the orders sorted by (o_orderdate, o_orderkey) over 16
+     host partitions (PartitionWiseSortExec) against np.lexsort; and
+     count(*) by year(o_orderdate);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -209,30 +227,37 @@ fails the run on error:
      their hand-built plans (plan.collect()), in turns, 5 runs each. Then
      P12-P16 (3 runs each, one synchronisation a run), and the probe at
      Q21's semi and anti joins and the row gather at every shape of Q21.
+     Then P17-P20 (collect() of the planned tree, 3 runs each, one
+     synchronisation a run) and rows 2, 4, 5 and 6 at every P19 shape
+     (p19_kernel_shapes).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
-traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6" or "_p7" before
+traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6", "_p7",
+"_p17", "_p18", "_p19", "_p20_sample", "_p20_sort" or "_p20_year" before
 its suffix.
 
 The last lines are a JSON line with the records of P1-P11, the spill
 rates, the ingest rates, the split's fetch rates and the planned queries
 of phase 3c (under "planned": plan ms, launches beside the hand-built
 plan's, the differences and the session timings) and phase 3d's (under
-"join_paths": launches, rows and ms), a JSON line with one record per
+"join_paths": launches, rows and ms) and phase 3e's (under
+"types_paths"), a JSON line with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
 gather's every shape under "shapes", the reorders' under
 "reorder_shapes" and Q21's under "q21_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
-kernel's launches on P1-P16 and the planned queries under
-"path_launches"), the card as
+kernel's launches on P1-P20 and the planned queries under
+"path_launches", and rows 2, 4, 5 and 6 at P19's shapes under
+"p19_shapes"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import datetime
 import json
 import subprocess
@@ -4343,14 +4368,503 @@ def q21_kernel_shapes(batches, launches):
     return probes, gathers
 
 
+# -- slice 10: decimals, dates and the rest of A.8 wave 1 (phase 3e) --------
+
+#: TPC-H's substitution values: Q1 (clause 2.4.1.3), Q6 (2.4.6.3), Q3
+#: (2.4.3.3); every money column is DECIMAL(12, 2), as the spec defines it
+Q1_DATE, Q1_DELTA = datetime.date(1998, 12, 1), 90
+Q6_DATE, Q6_DISCOUNT, Q6_QUANTITY = datetime.date(1994, 1, 1), 6, 24
+Q3_SEGMENT, Q3_DATE = "BUILDING", datetime.date(1995, 3, 15)
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+MONEY = (12, 2)
+P20_FRACTION, P20_SEED = 0.1, 7
+P20_ZONE = "+05:30"
+P20_ZONE_US = (5 * 3600 + 30 * 60) * 1_000_000
+#: P19 and P20 plan with broadcasts off (a join whose side is a join
+#: takes AdaptiveJoinExec at the default confs, ROADMAP A.3 / A.9); P20's
+#: sort plans over P_PARTS host partitions
+P19_CONF = Q21_CONF
+P20_SORT_CONF = dict(Q3_CONF, **{"spark.rapids.sql.shuffle.partitions":
+                                 str(P_PARTS)})
+P_TYPES_ITERS = 3        # phase 4's timed runs of P17-P20 each
+TYPES_NEED = {"P17": ["dma_row_gather"], "P18": ["dma_row_gather"],
+              "P19": ["murmur3_columns", "fused_probe_verify",
+                      "dma_row_gather", "dict_gather"],
+              "P20 sample": ["dma_row_gather"],
+              "P20 sort": ["dma_row_gather"], "P20 year": []}
+
+
+def money(x):
+    """Unscaled DECIMAL(12, 2) lanes (int64 cents) of a float column whose
+    values are whole cents."""
+    return np.rint(np.asarray(x) * 100).astype(np.int64)
+
+
+def decimal_lines(d):
+    """P17's and P18's lineitems on true types, from q19_data's draws (P6's
+    6,001,215 lines at SF1): the money columns as unscaled DECIMAL(12, 2)
+    (l_extendedprice from the integer quantity and clause 4.2.3's retail
+    price in cents), l_shipdate a DATE, the flags as dictionaries."""
+    pk = d["l_partkey"]
+    retail = 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)
+    qty = d["l_quantity"].astype(np.int64)
+    return {"l_quantity": qty * 100, "l_extendedprice": qty * retail,
+            "l_discount": money(d["l_discount"]), "l_tax": money(d["l_tax"]),
+            "l_shipdate": d["l_shipdate"],
+            "l_returnflag": d["l_returnflag"],
+            "l_linestatus": d["l_linestatus"]}
+
+
+def types_batch(m, cols, dev):
+    """A port batch of {name: numpy lane or (codes, values)}: an int64
+    lane whose name is a money column is DECIMAL(12, 2), an int32 lane
+    named *date a DATE, (codes, values) a DictionaryColumn."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column, string_buffers
+    from spark_rapids_tpu_torch.columnar.encoded import dictionary_from_numpy
+    t = m.t
+    fields, out, n = [], [], None
+    for name, v in cols.items():
+        if isinstance(v, tuple):
+            out.append(dictionary_from_numpy(v[0], *string_buffers(v[1]),
+                                             device=dev))
+            dt, n = t.STRING, v[0].shape[0]
+        else:
+            dt = t.DecimalType(*MONEY) if name.split("_")[-1] in (
+                "quantity", "extendedprice", "discount", "tax") \
+                else t.DATE if name.endswith("date") \
+                else t.INT if v.dtype == np.int32 else t.LONG
+            out.append(Column.from_numpy(v, dt, device=dev))
+            n = v.shape[0]
+        fields.append(t.StructField(name, dt))
+    return ColumnarBatch(out, n, t.Schema(tuple(fields)))
+
+
+def dec_lit(m, unscaled):
+    return m.core.Literal(int(unscaled), m.t.DecimalType(*MONEY))
+
+
+def q1_types_df(m, sess, batch):
+    """P17: TPC-H Q1 (clause 2.4.1, DELTA 90) on DECIMAL and DATE columns:
+    l_shipdate <= date_sub(DATE '1998-12-01', 90), grouped and ordered by
+    the two flags, with sum_qty, sum_base_price, sum_disc_price and
+    count(*). The three avg columns are left out (the JAX package's
+    decimal avg raises) and sum_charge too (a decimal128 multiply, tagged
+    off in both packages)."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    price, disc = col("l_extendedprice"), col("l_discount")
+    cutoff = F.date_sub(date_lit(m, Q1_DATE), lit(Q1_DELTA))
+    return (sess.from_batches([batch], batch.schema)
+            .filter(m.pred.LessThanOrEqual(col("l_shipdate"), cutoff))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg((F.sum("l_quantity"), "sum_qty"),
+                 (F.sum(price), "sum_base_price"),
+                 (F.sum(price * (lit(1) - disc)), "sum_disc_price"),
+                 (F.count(), "count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def q1_types_oracle(dl):
+    """P17 exactly: unscaled Python ints (DECIMAL(22, 2), (22, 2),
+    (36, 4)) per group in ORDER BY order."""
+    keep = dl["l_shipdate"] <= days(Q1_DATE) - Q1_DELTA
+    rf = np.asarray(dl["l_returnflag"][1])[dl["l_returnflag"][0]]
+    ls = np.asarray(dl["l_linestatus"][1])[dl["l_linestatus"][0]]
+    dp = dl["l_extendedprice"] * (100 - dl["l_discount"])
+    rows = []
+    for f, s in sorted(set(zip(rf[keep], ls[keep]))):
+        g = keep & (rf == f) & (ls == s)
+        rows.append((f, s, int(dl["l_quantity"][g].sum()),
+                     int(dl["l_extendedprice"][g].sum()),
+                     int(dp[g].sum()), int(g.sum())))
+    return rows
+
+
+def q6_types_df(m, sess, batch):
+    """P18: TPC-H Q6 (clause 2.4.6: DATE 1994-01-01, DISCOUNT 0.06,
+    QUANTITY 24), the year's end through add_months: a grand
+    sum(l_extendedprice * l_discount), DECIMAL(25, 4) summed to
+    DECIMAL(35, 4)."""
+    col, pr, F = m.core.col, m.pred, m.F
+    start = date_lit(m, Q6_DATE)
+    cond = pr.And(pr.And(
+        pr.GreaterThanOrEqual(col("l_shipdate"), start),
+        pr.LessThan(col("l_shipdate"), F.add_months(start, 12))), pr.And(
+        pr.And(pr.GreaterThanOrEqual(col("l_discount"),
+                                     dec_lit(m, Q6_DISCOUNT - 1)),
+               pr.LessThanOrEqual(col("l_discount"),
+                                  dec_lit(m, Q6_DISCOUNT + 1))),
+        pr.LessThan(col("l_quantity"), dec_lit(m, Q6_QUANTITY * 100))))
+    return (sess.from_batches([batch], batch.schema).filter(cond)
+            .agg((F.sum(col("l_extendedprice") * col("l_discount")),
+                  "revenue")))
+
+
+def q6_types_oracle(dl):
+    sd, disc = dl["l_shipdate"], dl["l_discount"]
+    end = datetime.date(Q6_DATE.year + 1, Q6_DATE.month, Q6_DATE.day)
+    keep = (sd >= days(Q6_DATE)) & (sd < days(end)) \
+        & (disc >= Q6_DISCOUNT - 1) & (disc <= Q6_DISCOUNT + 1) \
+        & (dl["l_quantity"] < Q6_QUANTITY * 100)
+    rev = (dl["l_extendedprice"] * disc)[keep]
+    return [(int(rev.sum()) if keep.any() else None,)]
+
+
+def q3_types_data(dj, seed=23):
+    """P19's columns beside tpch_join_data's (drawn from their own seed so
+    that P12-P16's data stay as they were): clause 4.2.3's customers
+    (c_custkey 1..150,000 x SF, c_mktsegment of five values), o_custkey
+    (never a multiple of 3, as the spec's rule leaves a third of the
+    customers without orders), o_shippriority (0), and the lines'
+    l_extendedprice (quantity x retail price in cents, over a random
+    part) and l_discount as DECIMAL(12, 2)."""
+    rng = np.random.default_rng(seed)
+    n_orders, n_line = dj["o_orderkey"].shape[0], dj["l_orderkey"].shape[0]
+    n_cust = max(n_orders // 10, 3)
+    cust = rng.integers(1, n_cust + 1, n_orders)
+    cust = np.where(cust % 3 == 0, np.maximum(cust - 1, 1), cust)
+    pk = rng.integers(1, max(n_orders // 7.5, 1) + 1, n_line)
+    retail = 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)
+    qty = rng.integers(1, 51, n_line)
+    return {"c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+            "c_mktsegment": (rng.integers(0, 5, n_cust).astype(np.int32),
+                             SEGMENTS),
+            "o_custkey": cust.astype(np.int64),
+            "o_shippriority": np.zeros(n_orders, np.int32),
+            "l_extendedprice": (qty * retail).astype(np.int64),
+            "l_discount": money(dj["l_discount"])}
+
+
+def q3_types_tables(dj, q3d):
+    return {"customer": {k: q3d[k] for k in ("c_custkey", "c_mktsegment")},
+            "orders": {"o_orderkey": dj["o_orderkey"],
+                       "o_custkey": q3d["o_custkey"],
+                       "o_orderdate": dj["o_orderdate"],
+                       "o_shippriority": q3d["o_shippriority"]},
+            "lineitem": {"l_orderkey": dj["l_orderkey"],
+                         "l_extendedprice": q3d["l_extendedprice"],
+                         "l_discount": q3d["l_discount"],
+                         "l_shipdate": dj["l_shipdate"]}}
+
+
+def q3_types_df(m, sess, b):
+    """P19: TPC-H Q3 (clause 2.4.3: SEGMENT BUILDING, DATE 1995-03-15):
+    customer x orders x lineitem, revenue = sum(l_extendedprice *
+    (1 - l_discount)) as decimal128 by (l_orderkey, o_orderdate,
+    o_shippriority), its top 10 by revenue desc, o_orderdate."""
+    col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
+
+    def df(k):
+        return sess.from_batches([b[k]], b[k].schema)
+    cust = df("customer").filter(pr.EqualTo(col("c_mktsegment"),
+                                            lit(Q3_SEGMENT)))
+    orders = df("orders").filter(pr.LessThan(col("o_orderdate"),
+                                             date_lit(m, Q3_DATE)))
+    lines = df("lineitem").filter(pr.GreaterThan(col("l_shipdate"),
+                                                 date_lit(m, Q3_DATE)))
+    return (cust.join(orders, left_on="c_custkey", right_on="o_custkey")
+            .join(lines, left_on="o_orderkey", right_on="l_orderkey")
+            .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg((F.sum(col("l_extendedprice")
+                        * (lit(1) - col("l_discount"))), "revenue"))
+            .sort((col("revenue"), False), "o_orderdate").limit(10))
+
+
+def q3_types_oracle(dj, q3d):
+    """P19 exactly: (l_orderkey, o_orderdate, o_shippriority, revenue as
+    unscaled DECIMAL(36, 4)) of the top 10."""
+    seg = q3d["c_mktsegment"]
+    building = np.zeros(q3d["c_custkey"].shape[0] + 1, bool)
+    building[q3d["c_custkey"]] = np.asarray(seg[1])[seg[0]] == Q3_SEGMENT
+    cut = days(Q3_DATE)
+    o_ok = building[q3d["o_custkey"]] & (dj["o_orderdate"] < cut)
+    pos = np.searchsorted(dj["o_orderkey"], dj["l_orderkey"])
+    l_ok = o_ok[pos] & (dj["l_shipdate"] > cut)
+    rev = q3d["l_extendedprice"] * (100 - q3d["l_discount"])
+    n_orders = dj["o_orderkey"].shape[0]
+    total = np.zeros(n_orders, np.int64)
+    np.add.at(total, pos[l_ok], rev[l_ok])
+    idx = np.nonzero(np.bincount(pos[l_ok], minlength=n_orders) > 0)[0]
+    order = np.lexsort((dj["o_orderdate"][idx], -total[idx]))[:10]
+    return [(int(dj["o_orderkey"][i]), int(dj["o_orderdate"][i]),
+             int(q3d["o_shippriority"][i]), int(total[i]))
+            for i in idx[order]]
+
+
+def p20_lines(dj, q3d):
+    """P20's lineitems: P19's, with l_orderkey, l_extendedprice and
+    l_shipdate."""
+    return {"l_orderkey": dj["l_orderkey"],
+            "l_extendedprice": q3d["l_extendedprice"],
+            "l_shipdate": dj["l_shipdate"]}
+
+
+def p20_dfs(m, sess, sort_sess, lines, orders):
+    """P20, each planned from DataFrames: the lineitems' sample(0.1,
+    seed=7) with cast(l_extendedprice as string), round and bround of it,
+    two shifts of l_orderkey and from_utc_timestamp at a fixed offset;
+    the orders sorted by (o_orderdate, o_orderkey) over P_PARTS host
+    partitions (PartitionWiseSortExec); count(*) by year(o_orderdate)
+    (Q9's o_year)."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    mt, bw = m.math, m.bitwise
+    price, key = col("l_extendedprice"), col("l_orderkey")
+    sample = (sess.from_batches([lines], lines.schema)
+              .sample(P20_FRACTION, seed=P20_SEED)
+              .select(key, col("l_shipdate"),
+                      price.cast(m.t.STRING).alias("price_str"),
+                      mt.Round(price, 0).alias("price_round"),
+                      mt.BRound(price, 1).alias("price_bround"),
+                      F.shiftleft(key, lit(3)).alias("shl"),
+                      F.shiftrightunsigned(-key, lit(60)).alias("ushr"),
+                      F.from_utc_timestamp(col("l_shipdate").cast(
+                          m.t.TIMESTAMP), P20_ZONE).alias("local")))
+    sort = (sort_sess.from_batches([orders], orders.schema)
+            .sort("o_orderdate", "o_orderkey"))
+    year = (sess.from_batches([orders], orders.schema)
+            .select(F.year("o_orderdate").alias("o_year"))
+            .group_by("o_year").agg((F.count(), "n")).sort("o_year"))
+    return {"P20 sample": sample, "P20 sort": sort, "P20 year": year}
+
+
+def p20_oracles(lines_np, orders_np, keep):
+    """P20's rows from numpy and Python: `keep` is the sample's mask, from
+    the port's threefry on the CPU (tests/test_torch_sample_sort.py holds
+    it to jax.random)."""
+    import decimal
+    k = lines_np["l_orderkey"][keep]
+    p = lines_np["l_extendedprice"][keep]
+    sd = lines_np["l_shipdate"][keep]
+
+    def rnd(v, m, even):
+        q, r = divmod(int(v), m)
+        up = 2 * r > m or (2 * r == m and (q % 2 == 1 if even else True))
+        return (q + up) * m
+
+    def i64(v):
+        return (v + 2**63) % 2**64 - 2**63
+
+    ctx = decimal.Context(prec=40)
+    sample = [(int(a), int(b), format(decimal.Decimal(int(c)).scaleb(
+        -2, ctx), "f"), rnd(c, 100, False), rnd(c, 10, True),
+        i64(int(a) << 3), (-int(a) % 2**64) >> 60,
+        int(b) * 86_400_000_000 + P20_ZONE_US)
+        for a, b, c in zip(k, sd, p)]
+    okey, odate = orders_np["o_orderkey"], orders_np["o_orderdate"]
+    order = np.lexsort((okey, odate))
+    y = (np.datetime64("1970-01-01") + odate.astype("timedelta64[D]")) \
+        .astype("datetime64[Y]").astype(np.int64) + 1970
+    uy, cnt = np.unique(y, return_counts=True)
+    return {"P20 sample": sample,
+            "P20 sort": [(int(okey[i]), int(odate[i])) for i in order],
+            "P20 year": [(int(a), int(b)) for a, b in zip(uy, cnt)]}
+
+
+def sample_keep(n, capacity):
+    """The rows SampleExec keeps of batch 0 (capacity rows, n active) for
+    P20's fraction and seed, from the port's threefry on the CPU."""
+    from spark_rapids_tpu_torch.ops import threefry
+    k = threefry.fold_in(threefry.key(P20_SEED), 0)
+    u = threefry.uniform(k, capacity).numpy()[:n]
+    return u < np.float32(P20_FRACTION)
+
+
+def types_modules():
+    """join_session_modules() with the port's math and bitwise
+    expressions."""
+    from spark_rapids_tpu_torch.expr import bitwise, math
+    m = join_session_modules()
+    m.math, m.bitwise = math, bitwise
+    return m
+
+
+def types_inputs(dev, d19, dj, q3d):
+    """P17-P20's batches on `dev` and their exact oracles."""
+    m = types_modules()
+    dl = decimal_lines(d19)
+    l20np = p20_lines(dj, q3d)
+    o20np = {"o_orderkey": dj["o_orderkey"], "o_orderdate": dj["o_orderdate"]}
+    b = {"lines": types_batch(m, dl, dev),
+         "q3": {k: types_batch(m, v, dev)
+                for k, v in q3_types_tables(dj, q3d).items()},
+         "l20": types_batch(m, l20np, dev), "o20": types_batch(m, o20np, dev)}
+    wants = {"P17": q1_types_oracle(dl), "P18": q6_types_oracle(dl),
+             "P19": q3_types_oracle(dj, q3d)}
+    keep = sample_keep(b["l20"].num_rows_host, b["l20"].capacity)
+    wants.update(p20_oracles(l20np, o20np, keep))
+    return m, b, wants
+
+
+def types_dfs(m, dev, b):
+    TpuSession = m.session.TpuSession
+    sess = TpuSession(device=dev)
+    dfs = {"P17": q1_types_df(m, sess, b["lines"]),
+           "P18": q6_types_df(m, sess, b["lines"]),
+           "P19": q3_types_df(m, TpuSession(P19_CONF, dev), b["q3"])}
+    dfs.update(p20_dfs(m, sess, TpuSession(P20_SORT_CONF, dev), b["l20"],
+                       b["o20"]))
+    return dfs
+
+
+def drive_types_paths(dev, m, b, wants):
+    """Phase 3e: P17-P20, each planned from DataFrames and held to its
+    exact oracle (every decimal to the last digit) with its launches
+    counted (drive_planned). Returns (counts, records, the runs phase 4
+    times)."""
+    dfs = types_dfs(m, dev, b)
+    counts, recs, runs = {}, {}, {}
+    for label, df in dfs.items():
+        check = exact_rows(wants[label])
+        recs[label] = drive_planned(f"{label} planned", m, df,
+                                    TYPES_NEED[label], None, check)
+        counts[label] = recs[label]["launches"]
+        # phase 4 times collect() of the planned tree (its rows fetched
+        # and turned into Python tuples); --profile traces its execute()
+        runs[label] = (planned(m, df)[0].collect, check)
+        print(f"{label}: {len(wants[label])} rows equal to the exact "
+              f"oracle, first {wants[label][:2]}")
+    if "PartitionWiseSortExec" not in recs["P20 sort"]["shape"]:
+        raise AssertionError(f"P20 sort: planned {recs['P20 sort']['shape']}")
+    if recs["P19"]["shape"].count("HashJoinExec") != 2:
+        raise AssertionError(f"P19: planned {recs['P19']['shape']}")
+    return counts, recs, runs
+
+
+@contextlib.contextmanager
+def default_conf_after():
+    """Put the default conf back as the active one on exit: planning makes
+    a session's conf active, and execs built later (P9's, phase 3b's)
+    read theirs from the active conf at construction."""
+    from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    try:
+        yield
+    finally:
+        set_active_conf(RapidsConf())
+
+
+def p19_joins(m, dev, b):
+    """A fresh planned P19 tree and its two hash joins (the upper one
+    first)."""
+    tree = planned(m, types_dfs(m, dev, b)["P19"])[0]
+    return tree, [n for n in exec_nodes(tree)
+                  if type(n).__name__ == "HashJoinExec"]
+
+
+def compare_types_paths(dev, m, b):
+    """Phase 2 at P17-P20's own shapes: the murmur3 chain and the probe
+    at both of P19's joins' inputs, every row gather of a run of each
+    path (P19's group-by and TopN move the decimal limbs as two lanes)
+    and every dictionary take of P19 (c_mktsegment = 'BUILDING' on the
+    codes), each kernel against its plain version, exactly."""
+    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
+    pair = [oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2]
+    for k in range(2):
+        inp = JoinInputs(p19_joins(m, dev, b)[1][k])
+        _exact(f"murmur3 P19 join {k} build pair",
+               m3.murmur3_columns(inp.build_keys, pair),
+               m3.murmur3_columns_plain(inp.build_keys, pair))
+        _exact(f"murmur3 P19 join {k} stream keys",
+               m3.murmur3_columns(inp.stream_keys, pair[:1]),
+               m3.murmur3_columns_plain(inp.stream_keys, pair[:1]))
+        hits = compare_probe(f"probe P19 join {k}", inp.probe, inp.cand_cap,
+                             inp.total)
+        print(f"compare P19 join {k}: murmur3 of {inp.build_rows} build "
+              f"keys (two seeds) and {inp.stream_rows} stream keys, probe "
+              f"of {inp.stream_rows} stream rows into {inp.build_rows} "
+              f"build rows, candidate total {inp.total} in {inp.cand_cap} "
+              f"slots, {hits} verified pairs; exact")
+    gathers = capture_row_gathers(p19_joins(m, dev, b)[0])
+    print(f"compare P19 main-path row gathers: "
+          f"{'; '.join(compare_row_gathers('P19', gathers))}; exact")
+    takes = capture_dict_gathers(p19_joins(m, dev, b)[0])
+    print(f"compare P19 main-path dictionary gathers: "
+          f"{'; '.join(compare_dict_takes('P19', takes))}; exact")
+    # the other paths of phase 3e launch only row gathers: P17's filter
+    # compaction and sort (the decimal128 sum buffers as hi/lo lanes),
+    # P18's, the sample's compaction, the 16 partitions' sorts, the count
+    # by year's
+    for label in ("P17", "P18", "P20 sample", "P20 sort", "P20 year"):
+        gathers = capture_row_gathers(
+            planned(m, types_dfs(m, dev, b)[label])[0])
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
+        del gathers
+
+
+def p19_kernel_shapes(dev, m, b, counts):
+    """Phase 4: each kernel at P19's shapes, L2 cold: the murmur3 chain at
+    both joins' build pairs and stream keys, the probe at both joins
+    (time_probe_shape), every row gather (time_gather_call) and every
+    dictionary take of a run; each with its plain version, bound and
+    launches in P19's counted run. Returns {kernel name: record}."""
+    import torch
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
+    reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
+    pair = (oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2)
+    out = {"murmur3_columns": [], "fused_probe_verify": [],
+           "dma_row_gather": [], "dict_gather": []}
+    for k in range(2):
+        inp = JoinInputs(p19_joins(m, dev, b)[1][k])
+        out["fused_probe_verify"].append(
+            time_probe_shape(f"P19 join {k}", inp))
+        for site, cols, seeds in (("build pair", inp.build_keys, pair),
+                                  ("stream", inp.stream_keys, pair[:1])):
+            n = cols[0].capacity
+            widths = [c.data.element_size() for c in cols]
+            ms = device_ms(lambda: m3.murmur3_columns(cols, seeds), reps)
+            plain_ms = device_ms(
+                lambda: m3.murmur3_columns_plain(cols, seeds), plain_reps)
+            b_ms, b_by = bound(n * (sum(w + 1 for w in widths)
+                                    + 4 * len(seeds)),
+                               n * sum(m3_ops(w, len(seeds))
+                                       for w in widths))
+            print(f"murmur3_columns P19 join {k} {site} ({n} rows, "
+                  f"{len(cols)} columns, {len(seeds)} seeds): {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / ms:.1%} of the bound")
+            out["murmur3_columns"].append({
+                "site": f"join {k} {site}", "rows": n, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "max_abs_err": 0.0})
+    out["dma_row_gather"] = [
+        time_gather_call("P19", *call, generic=False)
+        for call in capture_row_gathers(p19_joins(m, dev, b)[0])]
+    for t, i in capture_dict_gathers(p19_joins(m, dev, b)[0]):
+        rows, lanes = i.shape
+        flat = t.reshape(-1)
+        safe = i.clamp(0, t.shape[0] - 1).reshape(-1).long()
+        ms = device_ms(lambda: dg.dict_gather(t, i), reps)
+        plain_ms = device_ms(lambda: dg.dict_gather_plain(t, i), plain_reps)
+        lib_ms = device_ms(lambda: flat[safe], reps) if lanes == 1 \
+            else device_ms(lambda: torch.gather(t, 0, i.long()), reps)
+        b_ms, b_by = bound(rows * lanes * (4 + t.element_size())
+                           + t.shape[0] * lanes * t.element_size(), 0)
+        print(f"dict_gather P19 take ({rows}x{lanes} codes into "
+              f"{t.shape[0]} entries of {t.element_size()} bytes): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), library {lib_ms:.4f} ms")
+        out["dict_gather"].append({
+            "rows": rows, "lanes": lanes, "entries": t.shape[0], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "max_abs_err": 0.0})
+    for name, recs in out.items():
+        total = sum(r["ms"] for r in recs)
+        print(f"{name} at P19's shapes: {counts.get(name, 0)} launches in "
+              f"the counted run; {len(recs)} shapes timed, {total:.4f} ms "
+              f"summed")
+    return {name: {"launches": counts.get(name, 0), "shapes": recs}
+            for name, recs in out.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1, q3, q19, P6 and P7 steady states "
-             "(device busy share, time by kernel) and write their Chrome "
-             "traces to TRACE and TRACE with _q3, _q19, _p6 or _p7 before "
-             "its suffix")
+        help="also profile the q1, q3, q19, P6, P7 and P17-P20 steady "
+             "states (device busy share, time by kernel) and write their "
+             "Chrome traces to TRACE and TRACE with _q3, _q19, _p6, _p7, "
+             "_p17 ... _p20_year before its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4411,6 +4925,7 @@ def main() -> int:
         for i in range(0, ROWS, step)]
     dj = tpch_join_data()
     jb = join_batches(dj, dev)
+    tm, tb, types_want = types_inputs(dev, d19, dj, q3_types_data(dj))
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -4536,6 +5051,11 @@ def main() -> int:
     del q21_takes
     compare_join_paths(dev, dj, jb, d3,
                        {site for site, *_ in gathers["P13"]})
+    # P17-P20's own inputs (phase 3e drives them): P19's hashes, probes
+    # and dictionary takes, every row gather of each path (decimal limbs
+    # among the payloads)
+    with default_conf_after():
+        compare_types_paths(dev, tm, tb)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -4752,6 +5272,13 @@ def main() -> int:
         dev, dj, jb, d3, d19, q1t_batch)
     print(f"phase 3d: {time.perf_counter() - t_join:.1f} s")
 
+    # -- phase 3e, slice 10: decimals, dates, sample and the range sort ----
+    t_types = time.perf_counter()
+    with default_conf_after():
+        types_counts, types_recs, types_runs = drive_types_paths(
+            dev, tm, tb, types_want)
+    print(f"phase 3e: {time.perf_counter() - t_types:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -4922,6 +5449,12 @@ def main() -> int:
         jb, join_counts["P13"]["fused_probe_verify"])
     print(f"P12-P16 timings and Q21's kernel shapes (phase 4): "
           f"{time.perf_counter() - t_join:.1f} s")
+    t_types = time.perf_counter()
+    types_ms = time_join_paths(types_runs)
+    with default_conf_after():
+        p19_shapes = p19_kernel_shapes(dev, tm, tb, types_counts["P19"])
+    print(f"P17-P20 timings and P19's kernel shapes (phase 4): "
+          f"{time.perf_counter() - t_types:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -4976,6 +5509,12 @@ def main() -> int:
             m, scan_of(m, lines7), scan_of(m, build7)), P6_ITERS,
             args.profile.with_name(args.profile.stem + "_p7"
                                    + args.profile.suffix))
+        for label, (run, _) in types_runs.items():
+            tag = label.lower().replace(" ", "_")
+            profile_plan(label, run.__self__, P_TYPES_ITERS,
+                         args.profile.with_name(
+                             f"{args.profile.stem}_{tag}"
+                             f"{args.profile.suffix}"))
     for r in records:
         r["path_launches"] = {
             "P1_q19_decoded": p1_counts.get(r["name"], 0),
@@ -4999,7 +5538,11 @@ def main() -> int:
             "P12_planned": join_recs["P12_planned"]["launches"].get(
                 r["name"], 0),
             "P13_planned": join_recs["P13_planned"]["launches"].get(
-                r["name"], 0)}
+                r["name"], 0),
+            **{k.replace(" ", "_"): v.get(r["name"], 0)
+               for k, v in types_counts.items()}}
+        if r["name"] in p19_shapes:
+            r["p19_shapes"] = p19_shapes[r["name"]]
         if r["name"] == "murmur3_columns":
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
@@ -5022,7 +5565,9 @@ def main() -> int:
            shuffled.items()}, "split_fetch": fetch_rates,
         "planned": {k: dict(v, ms=session_ms.get(k)) for k, v in
                     planned_recs.items()},
-        "join_paths": dict(join_recs, counts=join_counts, ms=join_ms)}}))
+        "join_paths": dict(join_recs, counts=join_counts, ms=join_ms),
+        "types_paths": dict(types_recs, counts=types_counts,
+                            ms=types_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,9 @@ the query history, telemetry, the faults and the health surfaces
 (`cancel_query`, `health`, `active_queries`, `last_query_profile`).
 `last_query_metrics()` is the executed plan's operator metrics. The other
 methods raise NotImplementedError naming their items: the pandas UDFs
-(A.8 wave 4), windows, explode and cache (A.8 wave 3), sample (A.8 wave
-1), the other readers (A.8 wave 5) and the writers (Parquet's with A.5,
-the others with A.8 wave 5).
+(A.8 wave 4), windows, explode and cache (A.8 wave 3), the other
+readers (A.8 wave 5) and the writers (Parquet's with A.5, the others with
+A.8 wave 5).
 """
 
 from __future__ import annotations
@@ -305,7 +305,9 @@ class DataFrame:
         return self._with(L.LogicalUnion(self._plan, other._plan))
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
-        _not_ported("sample", "A.8 wave 1")
+        """Bernoulli sample (Spark df.sample; reference GpuSampleExec):
+        the rows the JAX package keeps for the same seed."""
+        return self._with(L.LogicalSample(fraction, seed, self._plan))
 
     def with_windows(self, *window_exprs) -> "DataFrame":
         _not_ported("with_windows", "A.8 wave 3")

@@ -12,7 +12,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import Schema
+from ..types import DecimalType, Schema
 from .column import Column, bucket_capacity, resolve_device
 
 
@@ -182,6 +182,10 @@ class ColumnarBatch:
 
 def _empty_column(dtype, capacity: int, dev) -> Column:
     valid = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    if isinstance(dtype, DecimalType) and dtype.is_decimal128:
+        from .column import Decimal128Column
+        zero = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        return Decimal128Column.from_limbs(zero, zero.clone(), valid, dtype)
     if dtype.torch_dtype is None:
         # a string column: NULL_CODE rows into an empty dictionary (one
         # padded bucket of zero-length entries)

@@ -1,6 +1,7 @@
 """Device columns — the counterpart of spark_rapids_tpu/columnar/column.py:
-fixed-width columns, and string columns as far as a dictionary needs them
-(columnar/encoded.py).
+fixed-width columns, string columns as far as a dictionary needs them
+(columnar/encoded.py), and decimal128 columns (`Decimal128Column`, two
+int64 limb children).
 
 Every column is padded to a power-of-two capacity bucket, exactly as in
 the JAX package, and the logical row count rides beside the data as a
@@ -17,7 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import BinaryType, DataType, StringType
+from ..types import BinaryType, DataType, DecimalType, StringType
 
 #: minimum capacity bucket (the JAX package's TPU lane width, kept so the
 #: two packages pad identically)
@@ -46,26 +47,37 @@ def bucket_capacity(n: int) -> int:
 
 def _logical_to_physical(dtype: DataType):
     """Value converter for host ingestion: the logical Python values
-    Spark's rows carry (datetime.date, datetime.datetime) beside the raw
-    physical encodings (int days, int microseconds)."""
+    Spark's rows carry (datetime.date, datetime.datetime, decimal.Decimal)
+    beside the raw physical encodings (int days, int microseconds,
+    unscaled ints)."""
     import datetime as _dt
+    import decimal as _dec
 
-    from ..types import DateType, TimestampType
+    from ..types import DateType, TimestampNTZType, TimestampType
     if isinstance(dtype, DateType):
         epoch = _dt.date(1970, 1, 1)
         return lambda v: (v - epoch).days if isinstance(v, _dt.date) \
             and not isinstance(v, _dt.datetime) else v
-    if isinstance(dtype, TimestampType):
+    if isinstance(dtype, (TimestampType, TimestampNTZType)):
         epoch = _dt.datetime(1970, 1, 1)
         one_us = _dt.timedelta(microseconds=1)
+        ntz = isinstance(dtype, TimestampNTZType)
 
         def conv_ts(v):
             if not isinstance(v, _dt.datetime):
                 return v
             if v.tzinfo is not None:
-                v = v.astimezone(_dt.timezone.utc).replace(tzinfo=None)
+                # NTZ keeps the wall clock; TIMESTAMP converts the instant
+                v = v.replace(tzinfo=None) if ntz \
+                    else v.astimezone(_dt.timezone.utc).replace(tzinfo=None)
             return (v - epoch) // one_us
         return conv_ts
+    if isinstance(dtype, DecimalType):
+        scale = dtype.scale
+        ctx = _dec.Context(prec=_dec.MAX_PREC)   # no rounding to 28 digits
+        return lambda v: int(v.scaleb(scale, ctx).to_integral_value(
+            rounding=_dec.ROUND_HALF_UP, context=ctx)) \
+            if isinstance(v, _dec.Decimal) else v
     return lambda v: v
 
 
@@ -145,9 +157,9 @@ class Column:
             self.dtype)
 
     def to_pylist(self, num_rows: int) -> List:
-        data = self.data[:num_rows].cpu().numpy()
-        valid = self.validity[:num_rows].cpu().numpy()
-        return [data[i].item() if valid[i] else None for i in range(num_rows)]
+        data = self.data[:num_rows].cpu().numpy().tolist()
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
+        return [v if ok else None for v, ok in zip(data, valid)]
 
     def __repr__(self):
         return f"Column({self.dtype!r}, cap={self.capacity})"
@@ -231,16 +243,16 @@ class StringColumn(Column):
         return StringColumn(self.data, offsets, validity, self.dtype)
 
     def to_pylist(self, num_rows: int) -> List:
-        data = self.data.cpu().numpy()
-        off = self.offsets.cpu().numpy()
-        valid = self.validity[:num_rows].cpu().numpy()
+        raw = self.data.cpu().numpy().tobytes()
+        off = self.offsets[: num_rows + 1].cpu().numpy().tolist()
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
         binary = isinstance(self.dtype, BinaryType)
         out: List = []
-        for i in range(num_rows):
-            if not valid[i]:
+        for i, ok in enumerate(valid):
+            if not ok:
                 out.append(None)
                 continue
-            b = data[off[i]: off[i + 1]].tobytes()
+            b = raw[off[i]: off[i + 1]]
             out.append(b if binary else b.decode("utf-8"))
         return out
 
@@ -249,9 +261,121 @@ class StringColumn(Column):
                 f"bytes={self.byte_capacity})")
 
 
+class Decimal128Column(Column):
+    """DECIMAL(p>18): the 128-bit unscaled value as two int64 limb
+    children, `hi` with the sign and `lo` read as unsigned (ops/
+    decimal128.py), sharing the column's validity. It has no `data`
+    tensor: every path that moves rows takes the limbs (the gather
+    engine packs them as two more 8-byte lanes of its row gather).
+    `to_pylist` gives the unscaled Python ints, as the JAX package's
+    does; `to_decimal_list` scales them."""
+
+    __slots__ = ("children",)
+
+    def __init__(self, children, validity: torch.Tensor,
+                 dtype: DecimalType):
+        if len(children) != 2:
+            raise ValueError("a decimal128 column has two limbs")
+        super().__init__(None, validity, dtype)
+        self.children = tuple(children)
+
+    @property
+    def hi(self) -> Column:
+        return self.children[0]
+
+    @property
+    def lo(self) -> Column:
+        return self.children[1]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    @staticmethod
+    def from_limbs(hi: torch.Tensor, lo: torch.Tensor,
+                   validity: torch.Tensor,
+                   dtype: DecimalType) -> "Decimal128Column":
+        from ..types import LONG
+        return Decimal128Column((Column(hi, validity, LONG),
+                                 Column(lo, validity, LONG)), validity, dtype)
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: DecimalType,
+                    capacity: Optional[int] = None,
+                    device=None) -> "Decimal128Column":
+        """Unscaled ints or decimal.Decimal values (None for null)."""
+        dev = resolve_device(device)
+        n = len(values)
+        cap = capacity or bucket_capacity(n)
+        conv = _logical_to_physical(dtype)
+        his = np.zeros(cap, np.int64)
+        los = np.zeros(cap, np.int64)
+        valid = np.zeros(cap, np.bool_)
+        for i, v in enumerate(values):
+            if v is None:
+                continue
+            u = int(conv(v)) & ((1 << 128) - 1)
+            lo, hi = u & ((1 << 64) - 1), u >> 64
+            los[i] = lo - (1 << 64) if lo >= (1 << 63) else lo
+            his[i] = hi - (1 << 64) if hi >= (1 << 63) else hi
+            valid[i] = True
+        return Decimal128Column.from_limbs(
+            torch.from_numpy(his).to(dev), torch.from_numpy(los).to(dev),
+            torch.from_numpy(valid).to(dev), dtype)
+
+    def leaves(self) -> tuple:
+        return (self.hi.data, self.lo.data, self.validity)
+
+    @classmethod
+    def from_leaves(cls, dtype: DataType, leaves) -> "Decimal128Column":
+        return cls.from_limbs(*leaves, dtype)
+
+    def with_capacity(self, capacity: int) -> "Decimal128Column":
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        extra = capacity - cap
+        return Decimal128Column.from_limbs(
+            torch.cat([self.hi.data, self.hi.data.new_zeros(extra)]),
+            torch.cat([self.lo.data, self.lo.data.new_zeros(extra)]),
+            torch.cat([self.validity, self.validity.new_zeros(extra)]),
+            self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        """Unscaled 128-bit values as Python ints (None for null)."""
+        hi = self.hi.data[:num_rows].cpu().numpy().tolist()
+        lo = self.lo.data[:num_rows].cpu().numpy().tolist()
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
+        # hi carries the sign; lo reads as unsigned
+        return [(h << 64) + (l & ((1 << 64) - 1)) if ok else None
+                for h, l, ok in zip(hi, lo, valid)]
+
+    def to_decimal_list(self, num_rows: int) -> List:
+        return to_decimals(self.to_pylist(num_rows), self.dtype)
+
+    def __repr__(self):
+        return f"Decimal128Column({self.dtype!r}, cap={self.capacity})"
+
+
+def to_decimals(unscaled: Sequence, dtype: DecimalType) -> List:
+    """Unscaled ints of a decimal column as decimal.Decimal values."""
+    import decimal as _d
+    ctx = _d.Context(prec=_d.MAX_PREC)    # exact: no rounding to 28 digits
+    return [None if v is None else _d.Decimal(v).scaleb(-dtype.scale, ctx)
+            for v in unscaled]
+
+
 def build_column(values: Sequence, dtype: DataType,
                  capacity: Optional[int] = None, device=None) -> Column:
     """Python values -> a column of the class for `dtype` on `device`."""
+    if isinstance(dtype, DecimalType) and dtype.is_decimal128:
+        return Decimal128Column.from_pylist(values, dtype, capacity, device)
     if dtype.torch_dtype is None:
         return StringColumn.from_pylist(values, capacity, dtype, device)
     return Column.from_pylist(values, dtype, capacity, device)
@@ -319,8 +443,8 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     host columns with device="cpu"). A dictionary array of strings stays
     a DictionaryColumn when `encoded` (default: the active conf's
     spark.rapids.tpu.scan.encoded.enabled), else
-    it decodes. Decimal, nested and null types wait for their slice
-    (ROADMAP A.8)."""
+    it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane; decimal128
+    arrays wait for ROADMAP A.5, nested and null types for A.8."""
     import pyarrow as pa
     from ..types import BOOLEAN, from_arrow
     if isinstance(arr, pa.ChunkedArray):
@@ -342,6 +466,14 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     if isinstance(dt, (StringType, BinaryType)):
         return _string_from_arrow_buffers(arr, dt, n, device)
     validity = np.asarray(arr.is_valid(), dtype=np.bool_)
+    if isinstance(dt, DecimalType):
+        if dt.is_decimal128:
+            raise NotImplementedError(
+                f"{dt!r} arrow arrays (decimal128) wait for ROADMAP A.5")
+        conv = _logical_to_physical(dt)
+        dense = np.array([0 if v is None else conv(v)
+                          for v in arr.to_pylist()], dtype=np.int64)
+        return Column.from_numpy(dense, dt, device=device, validity=validity)
     if dt == BOOLEAN:
         dense = np.asarray(arr.fill_null(False), dtype=np.bool_)
     else:
@@ -350,7 +482,15 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
 
 
 def column_to_arrow(col: Column, num_rows: int):
-    """A host column's first `num_rows` rows as a pyarrow array."""
+    """A host column's first `num_rows` rows as a pyarrow array (a
+    DECIMAL(p<=18) as decimal.Decimal values; decimal128 waits for
+    ROADMAP A.5)."""
     import pyarrow as pa
     from ..types import to_arrow
-    return pa.array(col.to_pylist(num_rows), type=to_arrow(col.dtype))
+    if isinstance(col, Decimal128Column):
+        raise NotImplementedError(
+            f"{col.dtype!r} arrow arrays (decimal128) wait for ROADMAP A.5")
+    vals = col.to_pylist(num_rows)
+    if isinstance(col.dtype, DecimalType):
+        vals = to_decimals(vals, col.dtype)
+    return pa.array(vals, type=to_arrow(col.dtype))

@@ -9,7 +9,8 @@ side then takes views of it apart.
 Layout, little-endian: the int32 row count, then every column's leaves in
 `Column.leaves()` order (a fixed-width column's data and validity; a
 StringColumn's bytes, offsets and validity; a DictionaryColumn's codes,
-dictionary bytes, dictionary offsets and validity). The row count and each
+dictionary bytes, dictionary offsets and validity; a Decimal128Column's
+hi limb, lo limb and validity). The row count and each
 leaf start on an ALIGN-byte boundary, zero-padded, so that every leaf of
 any dtype is a `Tensor.view` of the one buffer on either side. The JAX
 package packs its blocks back to back (XLA's bitcasts need no alignment):
@@ -17,7 +18,7 @@ the wire bytes of the two packages differ, their columns do not. The packed
 upload (columnar/upload.py) lays out the host pack the same way, and the
 two are byte-identical (tests/test_torch_upload.py).
 
-Other column kinds wait for their slice (ROADMAP A.8). Not ported by
+Nested column kinds wait for their slice (ROADMAP A.8). Not ported by
 design: the TPU's double-double staging of f64 (`_dd_split`); the H100
 moves f64 as it is.
 """
@@ -30,7 +31,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .column import Column, StringColumn
+from .column import Column, Decimal128Column, StringColumn
 from .encoded import DictionaryColumn
 
 #: every block of the layout starts on this byte boundary
@@ -38,7 +39,7 @@ ALIGN = 16
 #: the row count's block
 HEADER_BYTES = ALIGN
 
-_KINDS = (Column, StringColumn, DictionaryColumn)
+_KINDS = (Column, StringColumn, DictionaryColumn, Decimal128Column)
 
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {"d2h_copies": 0, "d2h_bytes": 0}
@@ -65,8 +66,8 @@ def column_layout(col: Column) -> tuple:
     what sizes a pack and rebuilds the column from one."""
     if type(col) not in _KINDS:
         raise NotImplementedError(
-            f"{type(col).__name__} columns wait for their slice "
-            f"(ROADMAP A.8)")
+            f"{type(col).__name__} columns: nested kinds wait for their "
+            f"slice (ROADMAP A.8)")
     return (type(col), col.dtype,
             tuple((t.dtype, t.numel()) for t in col.leaves()))
 

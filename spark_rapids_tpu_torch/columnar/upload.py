@@ -37,8 +37,9 @@ the event, and the one device buffer is recorded on its stream for the
 caching allocator.
 
 Every failure raises: there is no per-buffer lane to fall back to.
-Column kinds other than Column, StringColumn and DictionaryColumn wait for
-their slice (ROADMAP A.8). Not ported by design: the TPU's double-double
+Column, StringColumn, DictionaryColumn and Decimal128Column pack (a
+decimal128 column as its two limbs); nested kinds wait for their slice
+(ROADMAP A.8). Not ported by design: the TPU's double-double
 f64 staging (`_host_bytes` with `dd`) and PJRT's zero-copy probe
 (`_put_aliased`): the port compares the copy's pointer with the staging
 buffer's. Left out with their modules (ROADMAP A.9): the

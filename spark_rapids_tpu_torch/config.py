@@ -32,7 +32,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.shuffle.planExchange` | A.6 (the mesh planner) | any: there is no mesh, as in the JAX package without one |
 | `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
 | `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
-| `sql.decimalType.enabled` | A.8 (decimal128) | any: the port has no decimal type |
 | `sql.udfCompiler.enabled`, `sql.optimizer.enabled` | A.8 wave 4 (udf_compiler, the cost-based placement) | false |
 | `sql.debug.dumpPath`, `tpu.test.faults` | A.9 (faults) | default |
 | `tpu.profile.{enabled,dir}`, `sql.metrics.level`, `tpu.eventLog.{enabled,dir,level,maxBytes}`, `tpu.dispatch.storm.{traces,windowMs}`, `tpu.telemetry.{enabled,intervalMs,historySize}`, `tpu.history.{enabled,dir,maxBytes}` | A.9 (obs) | default |
@@ -987,7 +986,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     SHUFFLE_PLAN_EXCHANGE.key: ("ROADMAP A.6", _ANY),
     UPLOAD_PACKED.key: ("ROADMAP A.5", ()),
     PARQUET_REBASE_MODE_READ.key: ("ROADMAP A.8", ()),
-    DECIMAL_ENABLED.key: ("ROADMAP A.8", _ANY),
     UDF_COMPILER_ENABLED.key: ("ROADMAP A.8 wave 4", ()),
     OPTIMIZER_ENABLED.key: ("ROADMAP A.8 wave 4", ()),
     DEBUG_DUMP_PATH.key: ("ROADMAP A.9 (faults)", ()),

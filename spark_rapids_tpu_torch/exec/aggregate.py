@@ -29,8 +29,9 @@ are held as SpillableBatches and merge pairwise on the device
 (`_tree_merge_device`), MERGE_FAN_IN at a time, and big ones shrink to a
 tight bucket after one host read.
 
-String keys or buffers (`_masked_ok` False) have no masked buckets: the
-aggregate absorbs no chain and runs the exact drive, each source batch
+String keys or buffers, and decimal128 ones such as every decimal sum's
+buffer (`_masked_ok` False), have no masked buckets: the aggregate
+absorbs no chain and runs the exact drive, each source batch
 and each merge through the hash group-by (ops/hashagg.py) at 2 rounds,
 then at 6, then the sort-based group-by with string lanes; the route
 reads `leftover` on the host after each hash attempt, as the JAX package
@@ -52,7 +53,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
-from ..columnar.column import Column, bucket_capacity
+from ..columnar.column import Column, Decimal128Column, bucket_capacity
 from ..config import (AGG_GROUP_SLOTS, AGG_ROUNDS, AGG_SPECULATIVE,
                       FUSION_ENABLED, active_conf)
 from ..expr.aggexprs import AggregateFunction
@@ -65,7 +66,8 @@ from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
     masked_groupby, masked_groupby_exact, masked_reduce,
 )
-from ..types import BinaryType, DataType, Schema, StringType, StructField
+from ..types import (BinaryType, DataType, DecimalType, Schema, StringType,
+                     StructField)
 from .base import AGG_TIME, TpuExec
 from .basic import (bind_projection, eval_projection, projection_schema,
                     run_spillable)
@@ -82,6 +84,10 @@ MODES = ("complete", "partial", "final")
 
 
 def _result_column(data, valid, dtype) -> Column:
+    """A reduction's result lanes as a column: a (hi, lo) pair of limb
+    lanes (a decimal sum's buffer) as a Decimal128Column."""
+    if isinstance(data, tuple):
+        return Decimal128Column.from_limbs(data[0], data[1], valid, dtype)
     return Column(data.to(dtype.torch_dtype), valid, dtype)
 
 
@@ -196,8 +202,12 @@ class AggregateExec(TpuExec):
     @property
     def _masked_ok(self) -> bool:
         """True when the masked-bucket tiers apply: every key and buffer is
-        fixed-width (strings have no masked order lanes)."""
+        fixed-width and one lane wide (strings have no masked order lanes;
+        a decimal128 key or buffer, every decimal sum's, takes the hash
+        route, as in the JAX package)."""
         return not any(isinstance(f.data_type, (StringType, BinaryType))
+                       or (isinstance(f.data_type, DecimalType)
+                           and f.data_type.is_decimal128)
                        for f in self._buffer_schema.fields)
 
     @property

@@ -1,5 +1,5 @@
 """Basic execs — the counterpart of the scan, filter, project, range,
-union, limit and expand execs of spark_rapids_tpu/exec/basic.py.
+union, limit, expand and sample execs of spark_rapids_tpu/exec/basic.py.
 
 Filter and project run each input batch as a SpillableBatch under
 `with_retry(..., split_in_half_by_rows)` (memory/retry.py), as the JAX
@@ -371,3 +371,43 @@ class ExpandExec(TpuExec):
         for batch in self.child.execute():
             for bound in self._bound:
                 yield eval_projection(bound, batch, self._schema)
+
+
+class SampleExec(TpuExec):
+    """Bernoulli row sampling (reference GpuSampleExec): each row survives
+    with probability `fraction`, decided by JAX's threefry counter RNG
+    (ops/threefry.py) as in the JAX package: batch i draws
+    uniform(fold_in(key(seed), i), (capacity,), float32), so a seed keeps
+    the same rows in both packages, every batch's draw independent."""
+
+    #: compaction gathers a dictionary column's codes
+    consumes_encoded = True
+
+    def __init__(self, fraction: float, seed: int, child: TpuExec):
+        super().__init__(child)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def keep_mask(self, batch: ColumnarBatch, batch_index: int
+                  ) -> torch.Tensor:
+        """The rows batch `batch_index` keeps (active rows only)."""
+        from ..ops import threefry
+        from ..ops.basic import active_mask
+        k = threefry.fold_in(threefry.key(self.seed), batch_index)
+        u = threefry.uniform(k, batch.capacity, batch.device)
+        frac = torch.tensor(self.fraction, dtype=torch.float32,
+                            device=batch.device)
+        return (u < frac) & active_mask(batch.num_rows, batch.capacity)
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        for i, batch in enumerate(self.child.execute()):
+            cols, n = compact_columns(batch.columns, self.keep_mask(batch, i),
+                                      batch.num_rows)
+            yield ColumnarBatch(cols, n, batch.schema)
+
+    def node_description(self):
+        return f"SampleExec[fraction={self.fraction}, seed={self.seed}]"

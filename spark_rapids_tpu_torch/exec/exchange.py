@@ -91,7 +91,8 @@ PARTITIONINGS = ("hash", "roundrobin", "single", "range")
 def _host_key_array(col: Column, n: int, idx=None) -> np.ndarray:
     """A range-partition sort key's first n rows as an object array of
     host values (None for nulls; floats as python floats, strings
-    decoded), restricted to the rows `idx` when given."""
+    decoded, a decimal as its unscaled int), restricted to the rows `idx`
+    when given."""
     from ..types import BinaryType
     if type(col) is Column:
         data = col.data[:n].cpu().numpy()
@@ -115,6 +116,10 @@ def _host_key_array(col: Column, n: int, idx=None) -> np.ndarray:
                 raw = buf[offsets[i]: offsets[i + 1]]
                 out[j] = raw if binary else raw.decode("utf-8")
         return out
+    from ..columnar.column import Decimal128Column
+    if type(col) is Decimal128Column:
+        vals = np.array(col.to_pylist(n) + [None], dtype=object)[:n]
+        return vals if idx is None else vals[idx]
     raise NotImplementedError(
         f"range partitioning on {type(col).__name__} keys waits for its "
         f"slice (ROADMAP A.8)")

@@ -455,7 +455,7 @@ class HashJoinExec(TpuExec):
                 build_matched
 
         dev = verified.device
-        plan_p, pmat_b, pfmat_b, ppi, poi = build.pack
+        plan_p, pmat_b, pfmat_b, members_of, poi = build.pack
         if jt == INNER and all(type(c) is Column
                                for c in skey_cols + build.key_cols):
             # key-grouped emission: verified pairs first, equal join keys
@@ -503,11 +503,12 @@ class HashJoinExec(TpuExec):
                 b_map = outer_extend_maps(pairs_s, b_map, n_pairs, un_idx,
                                           n_un, "build", out_cap)[1]
         bcols: List[Optional[Column]] = [None] * len(build.payload)
-        if ppi:
+        if plan_p.kinds:
             pmat_out, pfmat_out = G.gather_rows(plan_p, pmat_b, pfmat_b,
                                                 b_pos_out)
-            for j, c in zip(ppi, unpack_rows(plan_p, pmat_out, pfmat_out)):
-                bcols[j] = c
+            G.rebuild_members(build.payload, members_of,
+                              unpack_rows(plan_p, pmat_out, pfmat_out),
+                              bcols)
         for j in poi:
             bcols[j] = gather_column(
                 build.payload[j], b_map,

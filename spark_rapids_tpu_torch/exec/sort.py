@@ -352,3 +352,32 @@ class TopNExec(SortExec):
                         for c in batch.columns]
                 batch = ColumnarBatch(cols, n, batch.schema)
             yield batch
+
+
+class PartitionWiseSortExec(TpuExec):
+    """Per-partition sort over a range exchange (the reference's
+    distributed sort: GpuRangePartitioner bounds and a GpuSortExec per
+    partition): the child hands out one batch stream per partition
+    (`execute_partitions`) in ascending bound order, so sorting each
+    partition on its own yields a globally sorted stream. One inner
+    SortExec serves every partition."""
+
+    def __init__(self, orders: Sequence, child: TpuExec):
+        super().__init__(child)
+        from .basic import InMemoryScanExec
+        self._scan = InMemoryScanExec([], child.output_schema)
+        self._sort = SortExec(orders, self._scan)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        for gen in self.child.execute_partitions():
+            self._scan._batches = list(gen)
+            if not self._scan._batches:
+                continue
+            yield from self._sort.execute()
+
+    def node_description(self):
+        return "PartitionWiseSortExec"

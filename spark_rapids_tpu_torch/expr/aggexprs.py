@@ -5,8 +5,12 @@ function declares its buffer ops for the masked-bucket group-by
 
 Spark semantics:
   * sum(int*) -> long, sum(float|double) -> double; all-null group -> null
+  * sum(decimal(p, s)) -> decimal(min(p + 10, 38), s), summed exactly in
+    a two-limb buffer; past the result precision -> null (CheckOverflow)
   * count(x) counts non-null, count(*) counts rows; never null
-  * avg -> double, from (sum, count) buffers; null when the count is 0
+  * avg -> double, from (sum, count) buffers; null when the count is 0;
+    avg over a DECIMAL is tagged off at plan time (the JAX package's
+    raises, ROADMAP C.5)
   * min/max ignore nulls; null for all-null groups
 """
 
@@ -17,7 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar.column import Column
-from ..types import DataType, DoubleType, FloatType, LongType
+from ..types import (DataType, DecimalType, DoubleType, FloatType,
+                     LongType)
 from .core import Expression
 
 
@@ -67,7 +72,18 @@ class AggregateFunction:
 def _sum_buffer_type(dt: DataType) -> DataType:
     if isinstance(dt, (DoubleType, FloatType)):
         return DoubleType()
+    if isinstance(dt, DecimalType):
+        # always two limbs (precision > 18): a one-limb partial could
+        # overflow int64 across merges, and a nulled partial would be
+        # skipped by the next merge; overflow surfaces only at evaluate
+        return DecimalType(min(max(dt.precision + 10, 19), 38), dt.scale)
     return LongType()
+
+
+def _sum_result_type(dt: DataType) -> DataType:
+    if isinstance(dt, DecimalType):
+        return DecimalType(min(dt.precision + 10, 38), dt.scale)
+    return _sum_buffer_type(dt)
 
 
 class Sum(AggregateFunction):
@@ -83,10 +99,33 @@ class Sum(AggregateFunction):
         return [_sum_buffer_type(input_types[0])]
 
     def result_type(self, input_types):
-        return _sum_buffer_type(input_types[0])
+        return _sum_result_type(input_types[0])
+
+    def result_type_from_buffer(self, buffer_types):
+        # final mode cannot recover the input precision from the
+        # two-limb decimal buffer: the buffer type is the result type
+        return buffer_types[0]
 
     def evaluate(self, buffers, input_types):
-        return buffers[0]
+        b = buffers[0]
+        if not isinstance(b.dtype, DecimalType):
+            return b
+        # Spark CheckOverflow: a sum past the RESULT precision is NULL;
+        # a result of at most 18 digits folds to one limb
+        from ..columnar.column import Decimal128Column
+        from ..ops import decimal128 as D
+        in_t = input_types[0] if input_types else b.dtype
+        rt = b.dtype if in_t == b.dtype else _sum_result_type(in_t)
+        if isinstance(b, Decimal128Column):
+            hi, lo = b.hi.data, b.lo.data
+        else:
+            hi, lo = D.from_i64(b.data)
+        v = b.validity & D.fits_precision(hi, lo, rt.precision)
+        zero = torch.zeros((), dtype=torch.int64, device=hi.device)
+        if rt.precision > 18:
+            return Decimal128Column.from_limbs(
+                torch.where(v, hi, zero), torch.where(v, lo, zero), v, rt)
+        return Column(torch.where(v, lo, zero), v, rt)
 
 
 class Count(AggregateFunction):

@@ -19,7 +19,8 @@ import torch
 
 from ..columnar.column import Column
 from ..types import (BOOLEAN, DATE, DOUBLE, INT, LONG, NULL, STRING,
-                     BinaryType, DataType, StringType)
+                     TIMESTAMP, BinaryType, DataType, DecimalType,
+                     StringType)
 
 
 class Expression:
@@ -118,6 +119,10 @@ class Expression:
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
 
+    def cast(self, dt: DataType) -> "Expression":
+        from .cast import Cast
+        return Cast(self, dt)
+
 
 class LeafExpression(Expression):
     children = ()
@@ -127,15 +132,24 @@ class LeafExpression(Expression):
 
 
 class Literal(LeafExpression):
-    """A constant. A `datetime.date` is a DATE literal, held as its days
-    since the epoch (the column's int32 value). `Literal(None, dtype)` is
-    a typed null: every row null over zero data (a string null over
+    """A constant, held as its physical value: a `datetime.date` as a
+    DATE (days since the epoch), a `datetime.datetime` as a TIMESTAMP
+    (microseconds since the epoch, UTC; a naive one is taken as UTC), a
+    `decimal.Decimal` given a DecimalType as its unscaled int. A literal
+    of a decimal type otherwise holds the unscaled int; `lit` infers no
+    decimal type (the JAX package's rule). `Literal(None, dtype)` is a
+    typed null: every row null over zero data (a string null over
     zero-length rows), as in the JAX package; `lit(None)` is of NullType."""
 
     def __init__(self, value, dtype: Optional[DataType] = None):
         self._dtype = dtype or _infer_literal_type(value)
-        if isinstance(value, datetime.date):
-            value = (value - _EPOCH).days
+        if value is not None:
+            from ..columnar.column import _logical_to_physical
+            if isinstance(value, datetime.date) \
+                    and not isinstance(value, datetime.datetime):
+                value = (value - _EPOCH).days
+            else:
+                value = _logical_to_physical(self._dtype)(value)
         self.value = value
 
     @property
@@ -153,6 +167,15 @@ class Literal(LeafExpression):
                            device=dev)
         if isinstance(dt, (StringType, BinaryType)):
             return _string_literal(self.value, cap, dev, valid, dt)
+        if isinstance(dt, DecimalType) and dt.is_decimal128:
+            from ..columnar.column import Decimal128Column
+            u = (self.value or 0) & ((1 << 128) - 1)
+            hi, lo = [v - (1 << 64) if v >= 1 << 63 else v
+                      for v in (u >> 64, u & ((1 << 64) - 1))]
+            return Decimal128Column.from_limbs(
+                torch.full((cap,), hi, dtype=torch.int64, device=dev),
+                torch.full((cap,), lo, dtype=torch.int64, device=dev),
+                valid, dt)
         if self.value is None:
             tdt = dt.torch_dtype or torch.int8
             return Column(torch.zeros(cap, dtype=tdt, device=dev), valid, dt)
@@ -190,8 +213,7 @@ def _infer_literal_type(value) -> DataType:
     if value is None:
         return NULL
     if isinstance(value, datetime.datetime):
-        raise TypeError("timestamp literals wait for a later slice "
-                        "(ROADMAP A.8)")
+        return TIMESTAMP
     if isinstance(value, datetime.date):
         return DATE
     if isinstance(value, bool):

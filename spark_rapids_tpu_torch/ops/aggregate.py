@@ -46,7 +46,7 @@ def _segment_reduce(op: str, col: Optional[Column], seg, act,
     vals, has = bucket_reduce(op, col, seg.long(), capacity, act)
     if has is None:  # count / count_star: never null
         return vals.to(torch.int64), torch.ones_like(act)
-    return vals, has
+    return vals, has  # a decimal sum's vals: its (hi, lo) limb lanes
 
 
 def _reduce_result(op: str, col: Optional[Column], seg, act, group_act,
@@ -58,8 +58,11 @@ def _reduce_result(op: str, col: Optional[Column], seg, act, group_act,
             f"{op} over strings takes the sort path (ops/aggregate."
             f"groupby_aggregate)")
     data, valid = _segment_reduce(op, col, seg, act, capacity)
-    data = torch.where(group_act, data,
-                       torch.zeros((), dtype=data.dtype, device=seg.device))
+    zero = torch.zeros((), dtype=torch.int64, device=seg.device)
+    if isinstance(data, tuple):  # decimal128 (hi, lo) limbs
+        data = tuple(torch.where(group_act, d, zero) for d in data)
+    else:
+        data = torch.where(group_act, data, zero.to(data.dtype))
     return "raw", (data, valid & group_act)
 
 

@@ -7,7 +7,9 @@ Conventions carried over from the JAX package:
     (a DictionaryColumn's code NULL_CODE); a dictionary column's gathers
     move its codes only, and its dictionary rides along untouched;
   * a StringColumn gathers through ops/strings.gather_string, into the
-    caller's byte capacity.
+    caller's byte capacity;
+  * a Decimal128Column moves its two limbs as two more 8-byte lanes of
+    the packed row gather (ops/gather.py), never on its own.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column, StringColumn
+from ..columnar.column import Column, Decimal128Column, StringColumn
 from ..columnar.encoded import NULL_CODE, DictionaryColumn
 
 
@@ -37,6 +39,12 @@ def sanitize(col: Column, num_rows) -> Column:
     if isinstance(col, StringColumn):
         return StringColumn(col.data, col.offsets, col.validity & act,
                             col.dtype)
+    if isinstance(col, Decimal128Column):
+        zero = torch.zeros((), dtype=torch.int64, device=col.device)
+        return Decimal128Column.from_limbs(
+            torch.where(act, col.hi.data, zero),
+            torch.where(act, col.lo.data, zero), col.validity & act,
+            col.dtype)
     data = torch.where(act, col.data, torch.zeros_like(col.data))
     return Column(data, col.validity & act, col.dtype)
 
@@ -61,6 +69,13 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
         y_safe = torch.clamp(b_idx, 0, y.shape[0] - 1).long()
         return torch.where(from_b, y[y_safe], x[x_safe])
 
+    if isinstance(a, Decimal128Column):
+        valid = cat(a.validity, b.validity) & out_valid
+        zero = torch.zeros((), dtype=torch.int64, device=a.device)
+        return Decimal128Column.from_limbs(
+            torch.where(valid, cat(a.hi.data, b.hi.data), zero),
+            torch.where(valid, cat(a.lo.data, b.lo.data), zero), valid,
+            a.dtype)
     if isinstance(a, DictionaryColumn):
         if not (isinstance(b, DictionaryColumn)
                 and a.dict_data is b.dict_data
@@ -83,6 +98,11 @@ def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
     capacity. `out_valid` masks output rows; out-of-range indices give
     invalid rows. `out_byte_capacity` is a string column's output byte
     bucket (default: its input's)."""
+    if isinstance(col, Decimal128Column):
+        from .gather import gather_batch_columns
+        midx = indices if out_valid is None \
+            else torch.where(out_valid, indices, -1)
+        return gather_batch_columns([col], midx)[0]
     from .gather import record
     encoded = isinstance(col, DictionaryColumn)
     record(1, nbytes=indices.shape[0]

@@ -39,7 +39,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..columnar.column import Column
-from ..types import LONG, DataType, numeric_promote
+from ..types import LONG, DataType, DecimalType, numeric_promote
 from .basic import active_mask
 from .maskedagg import (
     _bucket_hash, _unorder_bits, acc_dtype, bucket_reduce, clean_buckets,
@@ -92,8 +92,13 @@ def _expr_supported(expr) -> bool:
     if name not in _SUPPORTED_EXPRS:
         return False
     try:
-        expr.data_type
+        dt = expr.data_type
     except (TypeError, NotImplementedError, ValueError):
+        return False
+    if isinstance(dt, DecimalType):
+        # the kernel would read unscaled lanes as values and sum them
+        # into one limb; a decimal stays on torch ops, as in the JAX
+        # package
         return False
     return all(_expr_supported(c) for c in getattr(expr, "children", ()))
 
@@ -105,8 +110,11 @@ def compile_scan_agg_spec(fused_steps, pre_bound, pre_schema, key_count: int,
     whitelisted elementwise subset."""
     if key_count == 0 or not agg_ops:
         return None
+    # every source column rides the kernel as a (data, validity) lane:
+    # a decimal source makes the whole shape ineligible, referenced or not
     for f in source_schema.fields:
-        if not f.data_type.is_fixed_width:
+        if not f.data_type.is_fixed_width or \
+                isinstance(f.data_type, DecimalType):
             return None
     for step in fused_steps:
         exprs = [step[1]] if step[0] == "filter" else list(step[1])
@@ -116,6 +124,8 @@ def compile_scan_agg_spec(fused_steps, pre_bound, pre_schema, key_count: int,
         return None
     key_dtypes = []
     for f in pre_schema.fields[:key_count]:
+        if isinstance(f.data_type, DecimalType):
+            return None
         tdt = f.data_type.torch_dtype
         # sub-32-bit keys keep the masked_groupby path, as in the JAX
         # package (their u8/u16 order lanes do not round-trip its u32
@@ -134,7 +144,7 @@ def compile_scan_agg_spec(fused_steps, pre_bound, pre_schema, key_count: int,
             agg_dtypes.append(None)
             continue
         dt = pre_schema.fields[slot].data_type
-        if not dt.is_fixed_width:
+        if not dt.is_fixed_width or isinstance(dt, DecimalType):
             return None
         if op in ("sum", "sum_sq") and dt.torch_dtype == torch.bool:
             return None

@@ -8,10 +8,11 @@ one routing and accounting point for every materializing row gather.
 - `gather_lane_matrix` reads a small index-lane matrix with a plain torch
   index, as the JAX package leaves it to XLA.
 - `gather_batch_columns` gathers a batch's columns by an index map: two
-  or more fixed-width columns ride one packed row gather, a single column
-  and every dictionary column (its codes; `rowpack.is_packable` refuses
-  any subclass of Column) take the per-column path
-  (ops/basic.gather_column).
+  or more fixed-width columns ride one packed row gather, a
+  Decimal128Column as its two limbs (two 8-byte lanes, so it always
+  rides one), a single fixed-width column and every dictionary column
+  (its codes; `rowpack.is_packable` refuses any subclass of Column) take
+  the per-column path (ops/basic.gather_column).
 - `GatherStats` counts the gathers, as `counters()` reports them.
 """
 
@@ -23,7 +24,8 @@ from typing import List, Sequence
 import torch
 
 __all__ = ["GatherStats", "gather_rows", "gather_lane_matrix",
-           "gather_batch_columns", "record", "counters"]
+           "gather_batch_columns", "pack_members", "rebuild_members",
+           "record", "counters"]
 
 
 class GatherStats:
@@ -75,6 +77,44 @@ def gather_lane_matrix(mat, idx):
     return mat[torch.where(in_range, idx, torch.zeros_like(idx)).long()]
 
 
+def pack_members(columns: Sequence):
+    """The columns that ride a packed row gather: (member columns, per
+    input column the indices of its members, or None for a column that
+    takes the per-column path). A Decimal128Column is two members, its
+    limbs, each with the column's validity."""
+    from ..columnar.column import Column, Decimal128Column
+    from ..types import LONG
+    from .rowpack import is_packable
+    members: List = []
+    where: List = []
+    for c in columns:
+        if isinstance(c, Decimal128Column):
+            where.append((len(members), len(members) + 1))
+            members += [Column(c.hi.data, c.validity, LONG),
+                        Column(c.lo.data, c.validity, LONG)]
+        elif is_packable(c):
+            where.append((len(members),))
+            members.append(c)
+        else:
+            where.append(None)
+    return members, where
+
+
+def rebuild_members(columns: Sequence, where: Sequence, gathered: Sequence,
+                    out: List) -> None:
+    """Fill `out` with the gathered columns of `pack_members`."""
+    from ..columnar.column import Decimal128Column
+    for j, (c, w) in enumerate(zip(columns, where)):
+        if w is None:
+            continue
+        if len(w) == 2:
+            h, lo = gathered[w[0]], gathered[w[1]]
+            out[j] = Decimal128Column.from_limbs(h.data, lo.data, h.validity,
+                                                 c.dtype)
+        else:
+            out[j] = gathered[w[0]]
+
+
 def gather_batch_columns(columns: Sequence, idx, num_rows=None,
                          out_valid=None, byte_caps=()) -> List:
     """Gather a batch's columns by an index map. `num_rows` masks output
@@ -82,7 +122,7 @@ def gather_batch_columns(columns: Sequence, idx, num_rows=None,
     -1-masked pass neither. `byte_caps` holds each string column's output
     byte bucket (None or absent: its input's)."""
     from .basic import active_mask, gather_column
-    from .rowpack import pack_rows, split_packable, unpack_rows
+    from .rowpack import pack_rows, unpack_rows
     midx = idx
     if num_rows is not None:
         midx = torch.where(active_mask(num_rows, idx.shape[0], idx.device),
@@ -90,14 +130,12 @@ def gather_batch_columns(columns: Sequence, idx, num_rows=None,
     elif out_valid is not None:
         midx = torch.where(out_valid, idx, -1)
     out: List = [None] * len(columns)
-    p_idx, o_idx = split_packable(columns)
-    if len(p_idx) > 1:
-        plan, imat, fmat = pack_rows([columns[i] for i in p_idx])
+    members, where = pack_members(columns)
+    if len(members) > 1:
+        plan, imat, fmat = pack_rows(members)
         gi, gf = gather_rows(plan, imat, fmat, midx)
-        for j, c in zip(p_idx, unpack_rows(plan, gi, gf)):
-            out[j] = c
-    else:
-        o_idx = sorted(p_idx + o_idx)
+        rebuild_members(columns, where, unpack_rows(plan, gi, gf), out)
+    o_idx = [j for j, c in enumerate(out) if c is None]
     for j in o_idx:
         out[j] = gather_column(columns[j], midx,
                                out_byte_capacity=byte_caps[j]

@@ -24,7 +24,7 @@ from typing import List, Sequence
 
 import torch
 
-from ..columnar.column import Column, StringColumn
+from ..columnar.column import Column, Decimal128Column, StringColumn
 from .basic import active_mask
 from .hashing import xxhash64_batch
 from .strings import string_lengths
@@ -46,6 +46,9 @@ def _keys_equal_rows(key_cols: Sequence[Column], idx: torch.Tensor):
             lengths, starts = string_lengths(col), col.offsets[:-1]
             val_eq = _bytes_equal_spans(lengths, starts, col.data,
                                         lengths[i], starts[i], col.data)
+        elif isinstance(col, Decimal128Column):
+            val_eq = (col.hi.data == col.hi.data[i]) \
+                & (col.lo.data == col.lo.data[i])
         else:
             val_eq = col.data == col.data[i]
         this_eq = (~col.validity & ~bv) | (col.validity & bv & val_eq)

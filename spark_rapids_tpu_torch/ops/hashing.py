@@ -31,10 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from ..columnar.column import Column, StringColumn
+from ..columnar.column import Column, Decimal128Column, StringColumn
 from ..types import (
     BooleanType, ByteType, DateType, DoubleType, FloatType, IntegerType,
-    LongType, ShortType, TimestampType,
+    DecimalType, LongType, ShortType, TimestampNTZType, TimestampType,
 )
 from .maskedagg import _M32, _mul32
 
@@ -174,7 +174,8 @@ def murmur3_column_plain(col: Column, seed: torch.Tensor) -> torch.Tensor:
     elif isinstance(dt, (BooleanType, ByteType, ShortType, IntegerType,
                        DateType)):
         h = murmur3_int_plain(col.data.to(torch.int32), seed)
-    elif isinstance(dt, (LongType, TimestampType)):
+    elif isinstance(dt, (LongType, TimestampType, TimestampNTZType)) or (
+            isinstance(dt, DecimalType) and not dt.is_decimal128):
         h = murmur3_long_plain(col.data, seed)
     elif isinstance(dt, FloatType):
         h = murmur3_int_plain(_normalize_float(col.data).view(torch.int32),
@@ -184,7 +185,8 @@ def murmur3_column_plain(col: Column, seed: torch.Tensor) -> torch.Tensor:
                                seed)
     else:
         raise NotImplementedError(
-            f"murmur3 of {dt} waits for a later slice (ROADMAP A.8)")
+            f"murmur3 of {dt}: the JAX package has none (a decimal128 "
+            f"hashes by xxhash64 only) or it waits for ROADMAP A.8")
     return torch.where(col.validity, h, seed)
 
 
@@ -375,15 +377,22 @@ def xxhash64_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     elif isinstance(dt, (BooleanType, ByteType, ShortType, IntegerType,
                          DateType)):
         h = xxhash64_int(col.data.to(torch.int32), seed)
-    elif isinstance(dt, (LongType, TimestampType)):
+    elif isinstance(dt, (LongType, TimestampType, TimestampNTZType)) or (
+            isinstance(dt, DecimalType) and not dt.is_decimal128):
         h = xxhash64_long(col.data, seed)
+    elif isinstance(col, Decimal128Column):
+        # fold the limbs, as the JAX package folds a struct's children
+        # (engine-internal bucketing; no cross-system parity is claimed)
+        h = seed
+        for kid in col.children:
+            h = xxhash64_column(kid, h)
     elif isinstance(dt, FloatType):
         h = xxhash64_int(_normalize_float(col.data).view(torch.int32), seed)
     elif isinstance(dt, DoubleType):
         h = xxhash64_long(_f64_bits_signed(_normalize_float(col.data)), seed)
     else:
         raise NotImplementedError(
-            f"xxhash64 of {dt} waits for a later slice (ROADMAP A.8)")
+            f"xxhash64 of {dt} waits for ROADMAP A.8")
     return torch.where(col.validity, h, seed)
 
 

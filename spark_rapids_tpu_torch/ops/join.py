@@ -132,10 +132,11 @@ class BuildTable:
         self.payload = list(payload)
         self.capacity = capacity
         self.pair_table = pair_table      # (2^B, 2) int32 [lo, hi)
-        # (plan, u32 matrix, f64 matrix, packed idx, other idx): the
-        # packable payload columns packed in sorted order, gathered once
-        # per output batch; the others (dictionary columns) are gathered
-        # by original build row
+        # (plan, u32 matrix, f64 matrix, pack members per payload column
+        # (ops/gather.pack_members), other idx): the packable payload
+        # columns (a decimal128 column as its two limbs) packed in sorted
+        # order, gathered once per output batch; the others (string and
+        # dictionary columns) are gathered by original build row
         self.pack = pack
         # (int32 (capacity, L) lanes, bool validity) in sorted order, or
         # None for keys that are not integer-like
@@ -147,8 +148,7 @@ class BuildTable:
     @staticmethod
     def build(key_cols: Sequence[Column], payload: Sequence[Column],
               num_rows, capacity: int) -> "BuildTable":
-        from .gather import gather_rows
-        from .rowpack import split_packable
+        from .gather import gather_rows, pack_members
         for c in key_cols:
             if not is_gatherable(c):
                 raise NotImplementedError(
@@ -181,16 +181,17 @@ class BuildTable:
             torch.cumsum(counts[:n_buckets], 0, dtype=torch.int32)])
         pair_table = torch.stack([bucket_table[:-1], bucket_table[1:]],
                                  dim=1)
-        ppi, poi = split_packable(payload)
+        members, where = pack_members(payload)
+        poi = [i for i, w in enumerate(where) if w is None]
         for i in poi:
             if not is_gatherable(payload[i]):
                 raise NotImplementedError(
                     f"join payload columns of {type(payload[i]).__name__} "
                     f"wait for a later slice (ROADMAP A.3)")
-        plan_p, pmat, pfmat = pack_rows([payload[i] for i in ppi])
+        plan_p, pmat, pfmat = pack_rows(members)
         pmat_s, pfmat_s = gather_rows(plan_p, pmat, pfmat, perm) \
-            if ppi else (pmat, pfmat)
-        pack = (plan_p, pmat_s, pfmat_s, tuple(ppi), tuple(poi))
+            if members else (pmat, pfmat)
+        pack = (plan_p, pmat_s, pfmat_s, tuple(where), tuple(poi))
         key_lanes = None
         kl = int_key_lanes(key_cols)
         if kl is not None:

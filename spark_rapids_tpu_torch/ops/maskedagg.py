@@ -31,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..columnar.column import Column, bucket_capacity
-from ..types import DataType
+from ..types import DataType, DecimalType
 from .basic import active_mask
 from .sort import (
     INT64_MAX, _numeric_order_key, lane_bits, lane_neutral_max,
@@ -216,14 +216,28 @@ def minmax_neutral(op: str, dtype: torch.dtype):
     return info.max if op == "min" else info.min
 
 
+def _decimal_limbs(col: Column):
+    """(hi, lo) int64 lanes of a decimal column (either tier)."""
+    from ..columnar.column import Decimal128Column
+    from . import decimal128 as D
+    if isinstance(col, Decimal128Column):
+        return col.hi.data, col.lo.data
+    return D.from_i64(col.data.to(torch.int64))
+
+
 def bucket_reduce(op: str, col: Optional[Column], b, S: int, rows):
     """One aggregate over S buckets of `rows`: ((S,) values, (S,) has-a-
-    valid-row or None for the counts)."""
+    valid-row or None for the counts). A decimal sum's values are its
+    (hi, lo) limb lanes: the exact 128-bit sum of eight u16-limb int64
+    sums (ops/decimal128.py), saturated past signed 128 bits."""
     if op == "count_star":
         return _per_bucket_count(b, S, rows), None
     v = rows & col.validity
     if op == "count":
         return _per_bucket_count(b, S, v), None
+    if op == "sum" and isinstance(col.dtype, DecimalType):
+        from .decimal128 import decimal_segment_sum
+        return decimal_segment_sum(col, v, b, S)
     has = _per_bucket_any(b, S, v)
     data = col.data
     adt = acc_dtype(op, data.dtype)
@@ -344,9 +358,17 @@ def masked_reduce(agg_inputs: Sequence[Tuple[str, Optional[Column]]],
             if ok is None:
                 val = val.to(torch.int64)
                 ok = torch.ones(1, dtype=torch.bool, device=val.device)
-        data = torch.zeros(out_capacity, dtype=val.dtype, device=val.device)
-        valid = torch.zeros(out_capacity, dtype=torch.bool, device=val.device)
-        data[:1] = val
+        valid = torch.zeros(out_capacity, dtype=torch.bool, device=ok.device)
         valid[:1] = ok
-        out.append((data, valid))
+        out.append((_first_row(val, out_capacity), valid))
     return out
+
+
+def _first_row(val, out_capacity: int):
+    """A (1,) result (or a (hi, lo) pair of them) at the head of an
+    out_capacity lane."""
+    if isinstance(val, tuple):
+        return tuple(_first_row(v, out_capacity) for v in val)
+    data = torch.zeros(out_capacity, dtype=val.dtype, device=val.device)
+    data[:1] = val
+    return data

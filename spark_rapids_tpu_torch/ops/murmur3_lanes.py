@@ -34,8 +34,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..types import (
-    BooleanType, ByteType, DateType, DoubleType, FloatType, IntegerType,
-    LongType, ShortType, TimestampType,
+    BooleanType, ByteType, DateType, DecimalType, DoubleType, FloatType,
+    IntegerType, LongType, ShortType, TimestampNTZType, TimestampType,
 )
 from .hashing import (
     murmur3_batch_plain, murmur3_column_plain, murmur3_int_plain,
@@ -64,22 +64,25 @@ KINDS = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
 _DTYPES = ((BooleanType, torch.bool), (ByteType, torch.int8),
            (ShortType, torch.int16), (IntegerType, torch.int32),
            (DateType, torch.int32), (LongType, torch.int64),
-           (TimestampType, torch.int64), (FloatType, torch.float32),
-           (DoubleType, torch.float64))
+           (TimestampType, torch.int64), (TimestampNTZType, torch.int64),
+           (FloatType, torch.float32), (DoubleType, torch.float64))
 
 Seed = Union[int, torch.Tensor]
 
 
 def _data_dtype(dt) -> torch.dtype:
     """The torch dtype the kernel hashes a column of `dt` as; raises for
-    the types it does not take."""
+    the types it does not take. A DECIMAL(p<=18) hashes as its unscaled
+    long, as in the JAX package."""
+    if isinstance(dt, DecimalType) and not dt.is_decimal128:
+        return torch.int64
     for cls, dtype in _DTYPES:
         if isinstance(dt, cls):
             return dtype
     raise NotImplementedError(
         f"the murmur3 kernel hashes fixed-width columns, not {dt}: strings "
-        f"hash through ops/hashing.murmur3_batch (ROADMAP A.5), the other "
-        f"types wait for a later slice (A.8)")
+        f"hash through ops/hashing.murmur3_batch (ROADMAP A.5); the JAX "
+        f"package hashes no decimal128 by murmur3")
 
 
 # -- the launch plan (pure functions) -----------------------------------------
@@ -236,7 +239,7 @@ def murmur3_columns(columns: Sequence, seeds: Sequence[Seed]
     if not columns:
         raise ValueError("murmur3 needs at least one column")
     n = columns[0].capacity
-    dev = columns[0].data.device
+    dev = columns[0].validity.device
     keys = []
     for col in columns:
         want = _data_dtype(col.dtype)

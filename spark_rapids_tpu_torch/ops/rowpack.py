@@ -25,8 +25,7 @@ import torch
 from ..columnar.column import Column
 
 __all__ = [
-    "is_packable", "split_packable", "pack_rows", "gather_rows",
-    "unpack_rows", "PackPlan",
+    "is_packable", "pack_rows", "gather_rows", "unpack_rows", "PackPlan",
 ]
 
 
@@ -53,14 +52,6 @@ def is_packable(col: Column) -> bool:
     if dt.is_floating_point:
         return dt in (torch.float32, torch.float64)
     return dt.itemsize <= 8
-
-
-def split_packable(cols: Sequence[Column]):
-    """Partition columns into (packable_idx, other_idx), order-preserving."""
-    p, o = [], []
-    for i, c in enumerate(cols):
-        (p if is_packable(c) else o).append(i)
-    return p, o
 
 
 def _plan(cols: Sequence[Column]) -> PackPlan:

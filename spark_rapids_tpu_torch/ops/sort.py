@@ -95,6 +95,17 @@ def _numeric_order_key(col: Column) -> torch.Tensor:
     return data.to(torch.int64) + (1 << (bits - 1))
 
 
+def numeric_order_lanes(col: Column) -> List["Lane"]:
+    """A fixed-width column's order lanes: one, or for a Decimal128Column
+    its two limbs (the JAX package's u64 lanes `hi ^ sign` and `lo`, here
+    as signed order lanes: `hi` itself and `lo` with its top bit
+    flipped)."""
+    from ..columnar.column import Decimal128Column
+    if isinstance(col, Decimal128Column):
+        return [(col.hi.data, 64), (col.lo.data ^ INT64_MIN, 64)]
+    return [(_numeric_order_key(col), lane_bits(col.data.dtype))]
+
+
 @dataclass(frozen=True)
 class SortOrder:
     """One ORDER BY term: column ordinal + direction + null placement.
@@ -183,7 +194,7 @@ def order_key_lanes(columns: Sequence[Column], orders: Sequence[SortOrder],
         if isinstance(col, StringColumn):
             values = string_order_lanes(col, string_words)
         else:
-            values = [(_numeric_order_key(col), lane_bits(col.data.dtype))]
+            values = numeric_order_lanes(col)
         for v, bits in values:
             zero = INT64_MIN if bits == 64 else 0
             v = torch.where(valid, v, torch.full((), zero, dtype=torch.int64,
@@ -235,18 +246,17 @@ def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
     sort); a string or dictionary column is gathered by the permutation
     on its own."""
     from .basic import gather_column
-    from .gather import gather_rows
-    from .rowpack import pack_rows, split_packable, unpack_rows
+    from .gather import gather_rows, pack_members, rebuild_members
+    from .rowpack import pack_rows, unpack_rows
     perm = sort_permutation(columns, orders, num_rows, capacity,
                             string_words)
-    p_idx, o_idx = split_packable(columns)
     out: List = [None] * len(columns)
-    if p_idx:
-        plan, imat, fmat = pack_rows([columns[i] for i in p_idx])
+    members, where = pack_members(columns)
+    if members:
+        plan, imat, fmat = pack_rows(members)
         gi, gf = gather_rows(plan, imat, fmat, perm)
-        for j, c in zip(p_idx, unpack_rows(plan, gi, gf)):
-            out[j] = c
-    for j in o_idx:
+        rebuild_members(columns, where, unpack_rows(plan, gi, gf), out)
+    for j in [j for j, c in enumerate(out) if c is None]:
         out[j] = gather_column(columns[j], perm.to(torch.int32))
     return out, perm
 

@@ -191,6 +191,25 @@ class LogicalExpand(LogicalPlan):
                                  self.children[0].schema)
 
 
+class LogicalSample(LogicalPlan):
+    """Bernoulli row sample (Spark df.sample; reference GpuSampleExec /
+    GpuPoissonSampler)."""
+
+    def __init__(self, fraction: float, seed: int, child: LogicalPlan):
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction {fraction} outside [0, 1]")
+        self.fraction = fraction
+        self.seed = seed
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Sample[fraction={self.fraction}, seed={self.seed}]"
+
+
 class LogicalRepartition(LogicalPlan):
     """Explicit repartition (Spark df.repartition/coalesce(1); reference
     GpuRoundRobinPartitioning / GpuSinglePartitioning exchanges)."""

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Type
 
-from ..config import RapidsConf
+from ..config import DECIMAL_ENABLED, RapidsConf
 from ..expr.core import Expression, resolve
+from ..types import DecimalType
 from .typesig import TypeSig, commonly_supported
 
 
@@ -94,8 +95,17 @@ class ExprMeta(BaseMeta):
         if str(self.conf._settings.get(key, "true")).lower() == "false":
             self.will_not_work_on_tpu(
                 f"expression {self.rule.name} disabled by {key}")
-        # (the JAX package's decimalType.enabled gate waits for the
-        # decimal type, ROADMAP A.8)
+        # decimal gating (reference decimalType.enabled): this node's own
+        # output type (its children tag themselves)
+        if not self.conf.get(DECIMAL_ENABLED):
+            try:
+                is_dec = isinstance(self.expr.data_type, DecimalType)
+            except TypeError:
+                is_dec = False
+            if is_dec:
+                self.will_not_work_on_tpu(
+                    "decimal disabled by "
+                    "spark.rapids.sql.decimalType.enabled")
         # type checks: children output types against the input signature
         for c in self.children:
             try:

@@ -6,22 +6,27 @@ GpuTransitionOverrides' coalesce insertion :322).
 As in the JAX package, the engine has no host engine underneath: a node
 that cannot run on the card makes `apply` raise PlanNotSupported with the
 whole explain report. The rules cover what the port has: the expressions
-of expr/{core,arithmetic,predicates,conditional,aggexprs} and the scan,
-project, filter, range, union, limit, expand, aggregate (single-stage,
-or partial -> host exchange -> final), hash join of every join type
-(broadcast, host-shuffled or single-partition), nested-loop join of a
-keyless join (over a broadcast when the right side fits), sort, TopN and
-repartition operators. Each node or branch whose operator is not ported
-yet is tagged off during tagging, with a reason naming its ROADMAP item,
-so nothing raises mid-run:
+of expr/{core,arithmetic,predicates,conditional,cast,math,bitwise,
+datetimeexprs,aggexprs} and `stringexprs.FormatNumber`, and the scan,
+project, filter, range, union, limit, expand, sample, aggregate
+(single-stage, or partial -> host exchange -> final), hash join of every
+join type (broadcast, host-shuffled or single-partition), nested-loop
+join of a keyless join (over a broadcast when the right side fits),
+sort (over a range exchange and PartitionWiseSortExec when the host
+shuffle has partitions), TopN and repartition operators. Each node or
+branch whose operator is not ported yet is tagged off during tagging,
+with a reason naming its ROADMAP item, so nothing raises mid-run:
 
-- the range-partitioned sort (PartitionWiseSortExec): A.8 wave 1;
 - the adaptive join the JAX package plans when a side's size is unknown
   (AdaptiveJoinExec): A.3 and A.9;
-- aggregate functions the port lacks: A.2;
+- aggregate functions the port lacks: A.2; an average over a DECIMAL,
+  whose evaluation raises in the JAX package (C.5);
 - a node the JAX package would run on its host row engine
   (`_can_host_fallback`), the cost-based placement and the UDF compiler:
-  A.8 wave 4 (their confs raise in config.RapidsConf);
+  A.8 wave 4 (their confs raise in config.RapidsConf). The expressions
+  the JAX package tags off its device (decimal128 multiply and divide,
+  casts without a kernel, unknown time zones, format_number of a
+  DECIMAL) are tagged off with its reasons;
 - a string comparison the port cannot run: its string predicates run in
   code space only, as equality or IN of a dictionary-encoded column
   against literals (A.8 wave 2 brings comparisons of decoded strings).
@@ -52,29 +57,31 @@ from ..config import (ADAPTIVE_AUTO_BROADCAST_MAX_BYTES, ADAPTIVE_ENABLED,
 from ..exec.aggregate import AggregateExec
 from ..exec.base import TpuExec
 from ..exec.basic import (ExpandExec, FilterExec, GlobalLimitExec,
-                          ProjectExec, RangeExec, SourceScanExec, UnionExec,
-                          bind_projection)
+                          ProjectExec, RangeExec, SampleExec, SourceScanExec,
+                          UnionExec, bind_projection)
 from ..exec.coalesce import CoalesceBatchesExec
 from ..exec.exchange import (BroadcastExchangeExec, HostShuffleExchangeExec,
                              ShuffledHashJoinExec)
 from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, HashJoinExec,
                           NestedLoopJoinExec)
-from ..exec.sort import SortExec, TopNExec, resolve_sort_orders
-from ..expr import aggexprs, arithmetic, conditional, predicates
+from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
+                         resolve_sort_orders)
+from ..expr import (aggexprs, arithmetic, bitwise, cast, conditional,
+                    datetimeexprs, predicates, stringexprs)
+from ..expr import math as emath
 from ..expr.core import (
     Alias, BoundReference, Expression, Literal, UnresolvedAttribute,
     output_name, resolve,
 )
-from ..types import BinaryType, Schema, StringType
+from ..types import BinaryType, DecimalType, Schema, StringType
 from . import logical as L
 from .meta import BaseMeta, ExprMeta, ExprRule
 from .typesig import (
     BOOLEAN, TypeSig, all_types, commonly_supported, comparable, fp,
-    numeric_and_decimal,
+    integral, numeric, numeric_and_decimal, orderable, stringlike,
 )
 
 #: the reasons of nodes that are not ported, by ROADMAP item
-WAVE1 = "waits for ROADMAP A.8 wave 1"
 JOINS = "waits for ROADMAP A.3 and A.9"
 HOST_TIER = "waits for ROADMAP A.8 wave 4"
 STRINGS = "waits for ROADMAP A.8 wave 2"
@@ -112,12 +119,26 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
     _r(rules, BoundReference, "column reference", all_types, all_types)
     _r(rules, UnresolvedAttribute, "column reference", all_types, all_types)
     _r(rules, Alias, "named expression", all_types, all_types)
-    # arithmetic
+    # arithmetic. decimal128: add/sub at any precision, multiply only
+    # from <=18-digit inputs (a wider input would need a 256-bit
+    # intermediate), div/mod past 18 digits need a 128/64 long division:
+    # tagged off at plan time, as in the JAX package
     for c in (arithmetic.Add, arithmetic.Subtract, arithmetic.Multiply):
-        _r(rules, c, f"{c.__name__.lower()}", num, num)
-    _r(rules, arithmetic.Divide, "division", num, fp + TypeSig.of("DECIMAL"))
+        _r(rules, c, f"{c.__name__.lower()}", num, num,
+           tag_fn=_tag_decimal128)
+    _r(rules, arithmetic.Divide, "division", num, fp + TypeSig.of("DECIMAL"),
+       tag_fn=_tag_decimal128)
+    _r(rules, arithmetic.IntegralDivide, "integral division", num, integral,
+       tag_fn=_tag_decimal128)
+    _r(rules, arithmetic.Remainder, "remainder", num, num,
+       tag_fn=_tag_decimal128)
+    _r(rules, arithmetic.Pmod, "positive modulo", num, num,
+       tag_fn=_tag_decimal128)
     _r(rules, arithmetic.UnaryMinus, "negation", num, num)
     _r(rules, arithmetic.Abs, "absolute value", num, num)
+    _r(rules, arithmetic.Least, "least of arguments", orderable, orderable)
+    _r(rules, arithmetic.Greatest, "greatest of arguments", orderable,
+       orderable)
     # predicates
     for c in (predicates.EqualTo, predicates.EqualNullSafe,
               predicates.LessThan, predicates.LessThanOrEqual,
@@ -138,8 +159,138 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
     _r(rules, conditional.Nvl, "nvl/ifnull")
     _r(rules, conditional.Nvl2, "nvl2")
     _r(rules, conditional.NullIf, "nullif")
+    # cast: the pairs without a device kernel are tagged off
+    _r(rules, cast.Cast, "type cast", tag_fn=_tag_cast)
+    # datetime
+    dtsig = TypeSig.of("DATE", "TIMESTAMP", "TIMESTAMP_NTZ")
+    tssig = TypeSig.of("TIMESTAMP", "TIMESTAMP_NTZ")
+    for c in (datetimeexprs.Year, datetimeexprs.Month,
+              datetimeexprs.DayOfMonth, datetimeexprs.DayOfWeek,
+              datetimeexprs.DayOfYear, datetimeexprs.Quarter):
+        _r(rules, c, "date part extraction", dtsig, integral)
+    for c in (datetimeexprs.Hour, datetimeexprs.Minute,
+              datetimeexprs.Second):
+        _r(rules, c, "time part extraction", tssig, integral)
+    _r(rules, datetimeexprs.DateAdd, "date_add/date_sub", dtsig + integral,
+       dtsig)
+    _r(rules, datetimeexprs.DateDiff, "datediff", dtsig, integral)
+    _r(rules, datetimeexprs.AddMonths, "add_months", dtsig + integral, dtsig)
+    _r(rules, datetimeexprs.LastDay, "last_day", dtsig, dtsig)
+    _r(rules, datetimeexprs.TruncDate, "trunc", dtsig, dtsig)
+    _r(rules, datetimeexprs.FromUTCTimestamp,
+       "UTC -> zone wall clock (device tz transition tables)", tssig, tssig,
+       tag_fn=_tag_timezone)
+    _r(rules, datetimeexprs.ToUTCTimestamp,
+       "zone wall clock -> UTC (device tz transition tables)", tssig, tssig,
+       tag_fn=_tag_timezone)
+    # math: one rule per Spark expression, as the reference's table is
+    for c in (emath.Sqrt, emath.Exp, emath.Expm1, emath.Log, emath.Log2,
+              emath.Log10, emath.Log1p, emath.Sin, emath.Cos, emath.Tan,
+              emath.Asin, emath.Acos, emath.Atan, emath.Sinh, emath.Cosh,
+              emath.Tanh, emath.Asinh, emath.Acosh, emath.Atanh,
+              emath.Cbrt, emath.ToDegrees, emath.ToRadians, emath.Signum,
+              emath.Rint, emath.Pow, emath.Atan2, emath.Floor, emath.Ceil,
+              emath.Round, emath.BRound):
+        _r(rules, c, f"math function {c.__name__.lower()}", num, num,
+           tag_fn=_tag_decimal128_input)
+    _r(rules, emath.UnaryMath, "math function (family base)", num, num)
+    # bitwise and shifts
+    for c, d in ((bitwise.BitwiseAnd, "bitwise AND"),
+                 (bitwise.BitwiseOr, "bitwise OR"),
+                 (bitwise.BitwiseXor, "bitwise XOR"),
+                 (bitwise.BitwiseNot, "bitwise NOT"),
+                 (bitwise.ShiftLeft, "left shift"),
+                 (bitwise.ShiftRight, "arithmetic right shift"),
+                 (bitwise.ShiftRightUnsigned, "logical right shift")):
+        _r(rules, c, d, integral, integral)
+    _r(rules, stringexprs.FormatNumber,
+       "format_number (device digit emission; decimal inputs host tier)",
+       numeric, stringlike, tag_fn=_tag_device_when_supported)
     _EXPR_RULES = rules
     return rules
+
+
+def _tag_decimal128(meta) -> None:
+    """Tag off a decimal multiply, divide or modulo with a >18-digit
+    input, with the JAX package's reasons."""
+    e = meta.expr
+    try:
+        out_t = e.data_type
+        in_ts = [c.data_type for c in e.children]
+    except (TypeError, NotImplementedError):
+        return
+    name = type(e).__name__
+    if not (isinstance(out_t, DecimalType)
+            or any(isinstance(t, DecimalType) for t in in_ts)):
+        return
+    big_in = any(isinstance(t, DecimalType) and t.precision > 18
+                 for t in in_ts)
+    if name == "Multiply" and big_in:
+        meta.will_not_work_on_tpu(
+            "decimal multiply with >18-digit inputs needs a 256-bit "
+            "intermediate")
+    if name in ("Divide", "IntegralDivide", "Remainder", "Pmod") \
+            and big_in:
+        meta.will_not_work_on_tpu(
+            f"decimal {name.lower()} with >18-digit inputs has no "
+            "device kernel")
+
+
+def _tag_decimal128_input(meta) -> None:
+    """Math reads a DECIMAL input's one unscaled lane: a decimal128 input
+    has no device path in either package."""
+    try:
+        in_ts = [c.data_type for c in meta.expr.children]
+    except (TypeError, NotImplementedError):
+        return
+    if any(isinstance(t, DecimalType) and t.is_decimal128 for t in in_ts):
+        meta.will_not_work_on_tpu(
+            f"{type(meta.expr).__name__} of a decimal128 input has no "
+            "device kernel")
+
+
+def _tag_cast(meta) -> None:
+    """The cast pairs without a device kernel (the JAX package runs some
+    on its host row tier, ROADMAP A.8 wave 4), tagged off at plan time."""
+    from ..types import DoubleType, FloatType, TimestampType
+    c = meta.expr
+    try:
+        src = c.children[0].data_type
+        dst = c.data_type
+    except (TypeError, NotImplementedError):
+        return  # unresolved; re-checked post-bind
+    off = (isinstance(dst, StringType)
+           and isinstance(src, (FloatType, DoubleType, TimestampType))) \
+        or (isinstance(src, StringType)
+            and isinstance(dst, (TimestampType, DecimalType))) \
+        or (isinstance(src, DecimalType) and src.precision > 18) \
+        or (isinstance(dst, DecimalType) and dst.precision > 18)
+    if off:
+        meta.will_not_work_on_tpu(
+            f"cast {src.simple_name()} -> {dst.simple_name()} has no "
+            "device kernel")
+
+
+def _tag_timezone(meta) -> None:
+    """Resolve the zone at plan time: an unknown zone or a corrupt tzdata
+    file tags the expression off instead of failing mid-kernel."""
+    import struct as _struct
+
+    from ..ops.timezone import timezone_db
+    try:
+        timezone_db().tables(meta.expr.tz)
+    except (ValueError, OSError, AssertionError, IndexError, TypeError,
+            _struct.error) as e:
+        meta.will_not_work_on_tpu(f"timezone: {e}")
+
+
+def _tag_device_when_supported(meta) -> None:
+    """An expression with a partial device kernel: the shapes it does not
+    take run on the JAX package's host row tier (ROADMAP A.8 wave 4)."""
+    if not getattr(meta.expr, "device_supported", True):
+        meta.will_not_work_on_tpu(
+            f"{type(meta.expr).__name__} is a host-tier expression "
+            "(runs via CPU fallback; no device kernel)")
 
 
 _AGG_RULES = None
@@ -371,19 +522,19 @@ class PlanMeta(BaseMeta):
         """Tag off the nodes whose operators the port lacks, naming the
         ROADMAP item that brings each."""
         p = self.plan
-        if isinstance(p, L.LogicalSort) and p.limit is None \
-                and self._host_shuffle_partitions() > 1 \
-                and self._range_sort_order(p) is not None:
-            self.will_not_work_on_tpu(
-                f"the range-partitioned sort (PartitionWiseSortExec) "
-                f"{WAVE1}")
-        elif isinstance(p, L.LogicalAggregate):
+        if isinstance(p, L.LogicalAggregate):
             rules = aggregate_window_rules()
             for fn, _ in p.aggregates:
                 if type(fn) not in rules:
                     self.will_not_work_on_tpu(
                         f"aggregate {type(fn).__name__} waits for ROADMAP "
                         "A.2")
+                elif isinstance(fn, aggexprs.Average) \
+                        and self._decimal_input(fn, p):
+                    self.will_not_work_on_tpu(
+                        "avg over a DECIMAL: the JAX package's evaluation "
+                        "raises there (ROADMAP C.5), and the port adds no "
+                        "decimal average it lacks")
         elif isinstance(p, L.LogicalJoin):
             strategy = self._join_strategy(p)[0]
             if strategy.endswith("nested_loop") \
@@ -396,6 +547,17 @@ class PlanMeta(BaseMeta):
                 self.will_not_work_on_tpu(
                     "a join with a side of unknown size (AdaptiveJoinExec) "
                     f"{JOINS}")
+
+    @staticmethod
+    def _decimal_input(fn, p: L.LogicalAggregate) -> bool:
+        schema = p.children[0].schema
+        for e in fn.inputs:
+            try:
+                if isinstance(resolve(e, schema).data_type, DecimalType):
+                    return True
+            except (KeyError, TypeError):
+                continue
+        return False
 
     def encoded_out(self) -> frozenset:
         """The string columns that leave this node dictionary-encoded
@@ -661,8 +823,22 @@ class PlanMeta(BaseMeta):
             return AggregateExec(p.group_exprs, p.aggregates, kids[0])
         if isinstance(p, L.LogicalSort):
             if p.limit is None:
+                n_parts = self._host_shuffle_partitions()
+                first = self._range_sort_order(p)
+                if n_parts > 1 and first is not None:
+                    # distributed global sort: a range exchange on the
+                    # first key (sampled bounds), then a sort per
+                    # partition, streamed in partition order
+                    exchange = HostShuffleExchangeExec(
+                        [], kids[0], n_parts, self.conf,
+                        partitioning="range",
+                        range_order=(first.ordinal, first.ascending,
+                                     first.nulls_first))
+                    return PartitionWiseSortExec(p.orders, exchange)
                 return SortExec(p.orders, kids[0])
             return TopNExec(p.limit, p.orders, kids[0], offset=p.offset)
+        if isinstance(p, L.LogicalSample):
+            return SampleExec(p.fraction, p.seed, kids[0])
         if isinstance(p, L.LogicalRepartition):
             return HostShuffleExchangeExec(
                 [], kids[0], p.n_partitions, self.conf,

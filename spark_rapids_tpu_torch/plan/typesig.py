@@ -3,9 +3,9 @@ spark_rapids_tpu/plan/typesig.py (reference TypeChecks.scala:168 TypeSig /
 :1456 ExprChecks; drives both tagging and the generated supported-ops
 documentation).
 
-The tags are the JAX package's. The port has no DECIMAL, TIMESTAMP_NTZ
-or nested types yet (ROADMAP A.8): their tags name no class here, so no
-type of the port matches them.
+The tags are the JAX package's. The port has no nested types yet
+(ROADMAP A.8): their tags name no class here, so no type of the port
+matches them.
 """
 
 from __future__ import annotations
@@ -13,17 +13,18 @@ from __future__ import annotations
 from typing import FrozenSet, Optional
 
 from ..types import (
-    BinaryType, BooleanType, ByteType, DataType, DateType, DoubleType,
-    FloatType, IntegerType, LongType, NullType, ShortType, StringType,
-    TimestampType,
+    BinaryType, BooleanType, ByteType, DataType, DateType, DecimalType,
+    DoubleType, FloatType, IntegerType, LongType, NullType, ShortType,
+    StringType, TimestampNTZType, TimestampType,
 )
 
 _ALL_TAGS = {
     "BOOLEAN": BooleanType, "BYTE": ByteType, "SHORT": ShortType,
     "INT": IntegerType, "LONG": LongType, "FLOAT": FloatType,
     "DOUBLE": DoubleType, "DATE": DateType, "TIMESTAMP": TimestampType,
-    "TIMESTAMP_NTZ": None, "STRING": StringType, "BINARY": BinaryType,
-    "NULL": NullType, "DECIMAL": None, "ARRAY": None, "MAP": None,
+    "TIMESTAMP_NTZ": TimestampNTZType, "STRING": StringType,
+    "BINARY": BinaryType, "NULL": NullType, "DECIMAL": DecimalType,
+    "ARRAY": None, "MAP": None,
     "STRUCT": None,
 }
 

@@ -22,6 +22,9 @@ never reaches the wire):
                  data[:num_rows]
     string:      validity bitmask, offsets[:num_rows+1] rebased to 0,
                  bytes[:total]
+    decimal128:  validity bitmask, then the hi and lo limbs each as a
+                 fixed-width LONG column (the JAX package's struct
+                 children)
 
 Columns are encoded from host tensors (CPU): `serialize_batch` fetches a
 batch on the card in one packed copy first (columnar/transfer.py), and
@@ -31,6 +34,7 @@ capacity buckets, as `host_gather_column` makes them); the caller
 promotes it at its own seam (columnar/upload.promote_stream). Array,
 struct and map columns wait for their slice (ROADMAP A.8); a dictionary
 column decodes at the exchange's boundary before it gets here.
+DECIMAL(p<=18) crosses as its int64 lane.
 
 A codec that fails to build raises (native/__init__.py): COPY is a codec
 a caller asks for by name, never a fallback. LZ4 output that is not
@@ -47,9 +51,10 @@ import numpy as np
 import torch
 
 from ..columnar.batch import ColumnarBatch
-from ..columnar.column import Column, StringColumn, bucket_capacity
+from ..columnar.column import (Column, Decimal128Column, StringColumn,
+                               bucket_capacity)
 from ..native import lz4_compress, lz4_decompress, xxh64
-from ..types import BinaryType, Schema, StringType
+from ..types import LONG, BinaryType, DecimalType, Schema, StringType
 
 __all__ = [
     "MAGIC", "VERSION", "CODEC_COPY", "CODEC_LZ4", "CorruptFrameError",
@@ -88,7 +93,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _check_kind(col: Column) -> None:
-    if type(col) is not Column and type(col) is not StringColumn:
+    if type(col) not in (Column, StringColumn, Decimal128Column):
         raise NotImplementedError(
             f"{type(col).__name__} columns do not cross the shuffle: "
             f"dictionary columns decode at the exchange's boundary, "
@@ -113,6 +118,9 @@ def _encode_column(col: Column, n: int, out: List[np.ndarray],
         lo = int(off[start])
         hi = int(off[start + n]) if n else lo
         out.append(_np(col.data)[lo:hi].astype(np.uint8, copy=False))
+    elif isinstance(col, Decimal128Column):
+        for limb in col.children:
+            _encode_column(limb, n, out, start)
     else:
         out.append(np.ascontiguousarray(_np(col.data)[start: start + n]))
 
@@ -138,6 +146,11 @@ def _decode_column(dtype, n: int, bufs: List[bytes], pos: int,
         dpad[: len(data)] = data
         return StringColumn(torch.from_numpy(dpad), torch.from_numpy(opad),
                             torch.from_numpy(vpad), dtype), pos
+    if isinstance(dtype, DecimalType) and dtype.is_decimal128:
+        hi, pos = _decode_column(LONG, n, bufs, pos, capacity)
+        lo, pos = _decode_column(LONG, n, bufs, pos, capacity)
+        return Decimal128Column((hi, lo), torch.from_numpy(vpad),
+                                dtype), pos
     if dtype.torch_dtype is None:
         raise NotImplementedError(
             f"{dtype} columns wait for their slice (ROADMAP A.8)")
@@ -311,6 +324,9 @@ def host_gather_column(col: Column, idx: np.ndarray) -> Column:
             out[:total] = data[byte_idx]
         return StringColumn(torch.from_numpy(out), torch.from_numpy(new_off),
                             torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, Decimal128Column):
+        kids = tuple(host_gather_column(c, idx) for c in col.children)
+        return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
     data = _np(col.data)
     dpad = np.zeros(cap, data.dtype)
     dpad[:k] = data[idx]
@@ -343,6 +359,9 @@ def host_slice_column(col: Column, lo: int, hi: int) -> Column:
         out[: end - base] = _np(col.data)[base:end]
         return StringColumn(torch.from_numpy(out), torch.from_numpy(new_off),
                             torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, Decimal128Column):
+        kids = tuple(host_slice_column(c, lo, hi) for c in col.children)
+        return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
     data = _np(col.data)
     dpad = np.zeros(cap, data.dtype)
     dpad[:n] = data[lo:hi]

@@ -6,11 +6,15 @@ Physical encodings on the card:
   - BOOLEAN           -> torch.bool (validity is carried separately)
   - DATE              -> int32 days since epoch
   - TIMESTAMP         -> int64 microseconds since epoch UTC
+  - TIMESTAMP_NTZ     -> int64 microseconds since epoch, local wall clock
+  - DECIMAL(p<=18)    -> int64 unscaled values + (precision, scale)
+  - DECIMAL(p>18)     -> two int64 limbs (hi, lo): decimal128
+                         (columnar/column.py Decimal128Column)
   - STRING / BINARY   -> uint8 bytes + int32 offsets (columnar/column.py
                          StringColumn), or int32 codes into a per-batch
                          dictionary (columnar/encoded.py DictionaryColumn)
 
-Decimals and nested types wait for a later slice of the port.
+Nested types wait for a later slice of the port (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ class DataType:
         return self.simple_name()
 
     def __eq__(self, other) -> bool:
+        if dataclasses.is_dataclass(self):
+            return type(self) is type(other) \
+                and dataclasses.asdict(self) == dataclasses.asdict(other)
         return type(self) is type(other)
 
     def __hash__(self) -> int:
@@ -121,6 +128,43 @@ class TimestampType(DataType):
     torch_dtype = torch.int64
 
 
+class TimestampNTZType(DataType):
+    """Timestamp without timezone; micros since epoch in local wall clock."""
+    torch_dtype = torch.int64
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class DecimalType(FractionalType):
+    """Fixed-point decimal. p<=18 packs in one int64 of unscaled value
+    (Spark's Decimal64 fast path); p<=38 in two int64 limbs (decimal128)."""
+    precision: int = 10
+    scale: int = 0
+
+    MAX_INT_DIGITS = 9
+    MAX_LONG_DIGITS = 18
+    MAX_PRECISION = 38
+
+    #: the unscaled lane (decimal128: each limb's)
+    torch_dtype = torch.int64
+
+    def __post_init__(self):
+        if not 1 <= self.precision <= self.MAX_PRECISION:
+            raise ValueError(f"decimal precision {self.precision}")
+        if not 0 <= self.scale <= self.precision:
+            raise ValueError(f"decimal scale {self.scale} of precision "
+                             f"{self.precision}")
+
+    @property
+    def is_decimal128(self) -> bool:
+        return self.precision > self.MAX_LONG_DIGITS
+
+    def simple_name(self) -> str:
+        return f"decimal({self.precision},{self.scale})"
+
+    def __hash__(self) -> int:
+        return hash(("decimal", self.precision, self.scale))
+
+
 # Canonical singletons (Spark-style)
 BOOLEAN = BooleanType()
 BYTE = ByteType()
@@ -131,6 +175,7 @@ FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
 TIMESTAMP = TimestampType()
+TIMESTAMP_NTZ = TimestampNTZType()
 STRING = StringType()
 BINARY = BinaryType()
 NULL = NullType()
@@ -148,6 +193,8 @@ _NUMERIC_ORDER = [ByteType, ShortType, IntegerType, LongType, FloatType,
 
 def numeric_promote(a: DataType, b: DataType) -> DataType:
     """Spark's binary-arithmetic common type for non-decimal numerics."""
+    if isinstance(a, DecimalType) or isinstance(b, DecimalType):
+        raise TypeError("decimal promotion handled by DecimalPrecision rules")
     ia = _NUMERIC_ORDER.index(type(a))
     ib = _NUMERIC_ORDER.index(type(b))
     return (a, b)[ia < ib]
@@ -195,8 +242,8 @@ class Schema:
 
 def from_arrow(at) -> DataType:
     """A pyarrow type as the engine's (a dictionary type as its value
-    type: the encoding is the column's layout, not its type). Types the
-    port lacks raise, naming ROADMAP A.8."""
+    type: the encoding is the column's layout, not its type). Nested and
+    null types raise, naming ROADMAP A.8."""
     import pyarrow as pa
     checks = ((pa.types.is_boolean, BOOLEAN), (pa.types.is_int8, BYTE),
               (pa.types.is_int16, SHORT), (pa.types.is_int32, INT),
@@ -209,12 +256,15 @@ def from_arrow(at) -> DataType:
     for check, dt in checks:
         if check(at):
             return dt
-    if pa.types.is_timestamp(at) and at.tz is not None:
-        return TIMESTAMP
+    if pa.types.is_timestamp(at):
+        return TIMESTAMP if at.tz is not None else TIMESTAMP_NTZ
+    if pa.types.is_decimal(at):
+        return DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return from_arrow(at.value_type)
     raise NotImplementedError(
-        f"arrow type {at} waits for its slice (ROADMAP A.8)")
+        f"arrow type {at}: nested and null types wait for their slice "
+        f"(ROADMAP A.8)")
 
 
 def to_arrow(dt: DataType):
@@ -224,8 +274,11 @@ def to_arrow(dt: DataType):
            LongType: pa.int64(), FloatType: pa.float32(),
            DoubleType: pa.float64(), StringType: pa.string(),
            BinaryType: pa.binary(), DateType: pa.date32(),
-           TimestampType: pa.timestamp("us", tz="UTC")}.get(type(dt))
+           TimestampType: pa.timestamp("us", tz="UTC"),
+           TimestampNTZType: pa.timestamp("us")}.get(type(dt))
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     if out is None:
-        raise NotImplementedError(f"{dt!r} waits for its slice "
-                                  f"(ROADMAP A.8)")
+        raise NotImplementedError(f"{dt!r}: nested and null types wait for "
+                                  f"their slice (ROADMAP A.8)")
     return out

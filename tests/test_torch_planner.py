@@ -217,14 +217,12 @@ def planned():
 @pytest.mark.parametrize("conf", list(CONFS))
 def test_converted_trees_match_jax(planned, conf, label):
     jdf, tdf = planned[conf][label]
+    got = tree(converted(TORCH, tdf))
+    assert got == tree(converted(JAX, jdf))
     if conf.startswith("4 partitions") and label == "P6":
         # an unlimited sort over 4 partitions is a range-partitioned sort
-        # in the JAX package, which the port tags off
-        with pytest.raises(tover.PlanNotSupported, match="A.8 wave 1"):
-            tdf.collect()
-        assert "PartitionWiseSortExec" in repr(tree(converted(JAX, jdf)))
-        return
-    assert tree(converted(TORCH, tdf)) == tree(converted(JAX, jdf))
+        # in both packages
+        assert "PartitionWiseSortExec" in repr(got)
 
 
 def test_the_strategies_the_cases_reach(planned):
@@ -329,19 +327,27 @@ def _port_df():
 def test_unported_nodes_raise_naming_their_item(case):
     """Nodes the port has not ported raise naming their ROADMAP item: at
     planning (PlanNotSupported with the explain report), or at the
-    DataFrame method that would build a node the port lacks."""
+    DataFrame method that would build a node the port lacks. The sample
+    and the range-partitioned sort were such nodes until A.8 wave 1
+    ported them: they now plan and run."""
     ts, df = _port_df()
-    if case in ("sample", "windows"):
-        item = "A.8 wave 1" if case == "sample" else "A.8 wave 3"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            df.sample(0.5) if case == "sample" else df.with_windows()
+    if case == "windows":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8 wave 3"):
+            df.with_windows()
+        return
+    if case == "sample":
+        rows = df.sample(0.5, seed=3).collect()
+        assert set(rows) <= set(df.collect())
+        assert rows == df.sample(0.5, seed=3).collect()
         return
     if case == "range-partitioned sort":
         sess = tsession.TpuSession({"spark.rapids.sql.shuffle.partitions":
                                     "4"}, device="cpu")
         df = tsession.DataFrame(df.sort("k").logical_plan(), sess)
-        item = "A.8 wave 1"
-    elif case == "adaptive join":
+        assert "PartitionWiseSortExec" in repr(tree(converted(TORCH, df)))
+        assert df.collect() == sorted(df.collect())
+        return
+    if case == "adaptive join":
         sess = tsession.TpuSession(
             {"spark.rapids.sql.broadcastSizeThreshold": "100"}, device="cpu")
         side = tsession.DataFrame(df.group_by("k").agg(

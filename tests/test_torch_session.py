@@ -97,14 +97,13 @@ def test_phase3c_queries_match_jax_and_the_oracles(planned_queries, label):
     jrows = None if label in ("q3 INT keys", "P6") else jdf.collect()
     for conf, (_, df) in (("one partition", (None, tdf)),
                           ("4 partitions", shuffled[label])):
-        if conf == "4 partitions" and label in ("P6", "q19"):
-            # P6 sorts without a limit: a range-partitioned sort over 4
-            # partitions (A.8 wave 1); Q19's exchanges decode the part
-            # side, whose string equalities the port runs in code space
-            # only (A.8 wave 2)
-            item = "A.8 wave 1" if label == "P6" else "A.8 wave 2"
+        if conf == "4 partitions" and label == "q19":
+            # Q19's exchanges decode the part side, whose string
+            # equalities the port runs in code space only (A.8 wave 2);
+            # P6's unlimited sort over 4 partitions is a range-partitioned
+            # sort, which A.8 wave 1 ported
             with pytest.raises(tover.PlanNotSupported,
-                               match=f"ROADMAP {item}"):
+                               match="ROADMAP A.8 wave 2"):
                 df.collect()
             continue
         rows = df.collect()
@@ -252,6 +251,10 @@ def test_session_device_rules():
 ])
 def test_methods_that_wait_for_their_slice_name_it(call, item):
     _, tdf = _frames()
+    if item == "A.8 wave 1":
+        # sample() waited for A.8 wave 1, which has landed: it plans now
+        assert isinstance(call(tdf.session, tdf), tsession.DataFrame)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call(tdf.session, tdf)
 
@@ -259,7 +262,14 @@ def test_methods_that_wait_for_their_slice_name_it(call, item):
 #: the JAX package's functions the port has (api/functions.py)
 PORTED_FUNCTIONS = {"col", "lit", "sum", "count", "avg", "mean", "min",
                     "max", "abs", "when", "coalesce", "nvl", "ifnull",
-                    "nvl2", "nullif"}
+                    "nvl2", "nullif",
+                    # A.8 wave 1: dates, times, bitwise, format_number
+                    "add_months", "date_add", "date_sub", "datediff",
+                    "dayofmonth", "dayofweek", "dayofyear", "last_day",
+                    "month", "quarter", "trunc", "year", "hour", "minute",
+                    "second", "from_utc_timestamp", "to_utc_timestamp",
+                    "bitwise_not", "shiftleft", "shiftright",
+                    "shiftrightunsigned", "format_number"}
 
 
 def _public(mod):
@@ -283,29 +293,23 @@ def test_the_functions_gap_is_explicit():
     assert jax_names - port_names == MISSING_FUNCTIONS
 
 
-#: the JAX package's functions that wait for their expressions (120)
+#: the JAX package's functions that wait for their expressions (98)
 MISSING_FUNCTIONS = {
-    'add_months', 'aggregate', 'approx_percentile', 'array',
-    'array_contains', 'array_distinct', 'array_join', 'array_max',
-    'array_min', 'array_position', 'array_remove', 'array_repeat',
-    'arrays_overlap', 'ascii', 'base64', 'bit_length', 'bitwise_not', 'chr',
-    'collect_list', 'collect_set', 'concat', 'concat_ws',
-    'contains', 'create_map', 'date_add', 'date_sub', 'datediff',
-    'dayofmonth', 'dayofweek', 'dayofyear', 'decode', 'dense_rank',
-    'element_at', 'element_at_key', 'encode', 'endswith', 'exists',
-    'filter_', 'find_in_set', 'first', 'first_value', 'flatten', 'forall',
-    'format_number', 'from_utc_timestamp', 'get_array_item',
-    'get_json_object', 'get_map_value', 'hash', 'hex', 'hour',
-    'initcap', 'instr', 'lag', 'last', 'last_day', 'last_value', 'lead',
-    'left', 'length', 'levenshtein', 'like', 'locate', 'lower', 'lpad',
-    'ltrim', 'map_contains_key', 'map_keys', 'map_values', 'minute',
-    'month', 'octet_length', 'parse_url',
-    'percentile', 'quarter', 'rank', 'regexp_extract', 'regexp_replace',
-    'repeat', 'replace', 'reverse', 'right', 'rlike', 'row_number', 'rpad',
-    'rtrim', 'second', 'sequence', 'shiftleft', 'shiftright',
-    'shiftrightunsigned', 'size', 'slice', 'sort_array', 'split',
-    'startswith', 'stddev', 'stddev_pop', 'stddev_samp', 'substring',
-    'substring_index', 'to_utc_timestamp', 'transform', 'translate', 'trim',
-    'trunc', 'udf', 'unbase64', 'unhex', 'upper', 'var_pop', 'var_samp',
-    'variance', 'window_avg', 'window_count', 'window_max',
-    'window_min', 'window_sum', 'xxhash64', 'year'}
+    'aggregate', 'approx_percentile', 'array', 'array_contains',
+    'array_distinct', 'array_join', 'array_max', 'array_min',
+    'array_position', 'array_remove', 'array_repeat', 'arrays_overlap',
+    'ascii', 'base64', 'bit_length', 'chr', 'collect_list', 'collect_set',
+    'concat', 'concat_ws', 'contains', 'create_map', 'decode', 'dense_rank',
+    'element_at', 'element_at_key', 'encode', 'endswith', 'exists', 'filter_',
+    'find_in_set', 'first', 'first_value', 'flatten', 'forall',
+    'get_array_item', 'get_json_object', 'get_map_value', 'hash', 'hex',
+    'initcap', 'instr', 'lag', 'last', 'last_value', 'lead', 'left', 'length',
+    'levenshtein', 'like', 'locate', 'lower', 'lpad', 'ltrim',
+    'map_contains_key', 'map_keys', 'map_values', 'octet_length', 'parse_url',
+    'percentile', 'rank', 'regexp_extract', 'regexp_replace', 'repeat',
+    'replace', 'reverse', 'right', 'rlike', 'row_number', 'rpad', 'rtrim',
+    'sequence', 'size', 'slice', 'sort_array', 'split', 'startswith',
+    'stddev', 'stddev_pop', 'stddev_samp', 'substring', 'substring_index',
+    'transform', 'translate', 'trim', 'udf', 'unbase64', 'unhex', 'upper',
+    'var_pop', 'var_samp', 'variance', 'window_avg', 'window_count',
+    'window_max', 'window_min', 'window_sum', 'xxhash64'}
