@@ -55,7 +55,10 @@ fails the run on error:
      among them; every row gather of P16's planned semi join and its
      join kernels at its first partition pair; P19's murmur3 chain and
      probe at both joins, every row gather (the TopN's sort moves the
-     decimal128 revenue as two limb lanes) and its dictionary take);
+     decimal128 revenue as two limb lanes) and its dictionary take;
+     every launch of a run of P21-P25: each join's murmur3 chain, probe
+     and row gathers (P21, P22, P25), every murmur3 launch of P23's hash
+     of a long, every row gather of P24's group-by and sort);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -188,6 +191,23 @@ fails the run on error:
      at +05:30; the orders sorted by (o_orderdate, o_orderkey) over 16
      host partitions (PartitionWiseSortExec) against np.lexsort; and
      count(*) by year(o_orderdate);
+  3f. drives A.8 wave 2 and A.2's scalar aggregates, planned from
+     DataFrames at SF1 with plain StringColumns (as a Parquet page without
+     a dictionary gives them): P21, TPC-H Q14 (lineitem x part on the
+     part key, p_type LIKE 'PROMO%', its two DECIMAL sums exact; the
+     ratio formed from the two sums); P22, TPC-H Q22 (its average as its own
+     query of sum and count, then substring(c_phone, 1, 2) IN (...) on
+     decoded strings, c_acctbal above the average, NOT EXISTS as a left
+     anti join, count and sum by the string cntrycode); P23, every new
+     device expression over 200,000 p_type, 150,000 c_phone and P8's
+     1,048,576 names, checked columnwise against Python and numpy
+     oracles (the hashes against np_murmur3_bytes / np_xxhash64_bytes);
+     P24, the moments and first/last by the two flags over P6's lines;
+     P25, count(*) and max(p_type) by the part key over lineitem x part,
+     whose aggregate takes the string route's sort fallback over the
+     inner join's key-grouped output and skips its update sort (the
+     pre-grouped path); with the regex loop's evaluations, steps and
+     host reads;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -229,37 +249,44 @@ fails the run on error:
      Q21's semi and anti joins and the row gather at every shape of Q21.
      Then P17-P20 (collect() of the planned tree, 3 runs each, one
      synchronisation a run) and rows 2, 4, 5 and 6 at every P19 shape
-     (p19_kernel_shapes).
+     (p19_kernel_shapes). Then P21-P25 and P25 with its update sort
+     taken (3 runs each, in turns, one synchronisation a run; P23's
+     execute() checked columnwise) and
+     rows 2+3, 4 and 5 at every P21 and P22 shape
+     (strings_kernel_shapes).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6", "_p7",
-"_p17", "_p18", "_p19", "_p20_sample", "_p20_sort" or "_p20_year" before
-its suffix.
+"_p17", "_p18", "_p19", "_p20_sample", "_p20_sort", "_p20_year", "_p21",
+"_p22", "_p23_part", "_p23_customer", "_p23_names", "_p24" or "_p25"
+before its suffix.
 
 The last lines are a JSON line with the records of P1-P11, the spill
 rates, the ingest rates, the split's fetch rates and the planned queries
 of phase 3c (under "planned": plan ms, launches beside the hand-built
 plan's, the differences and the session timings) and phase 3d's (under
-"join_paths": launches, rows and ms) and phase 3e's (under
-"types_paths"), a JSON line with one record per
+"join_paths": launches, rows and ms), phase 3e's (under
+"types_paths") and phase 3f's (under "strings_paths"), a JSON line with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
 gather's every shape under "shapes", the reorders' under
 "reorder_shapes" and Q21's under "q21_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
-kernel's launches on P1-P20 and the planned queries under
-"path_launches", and rows 2, 4, 5 and 6 at P19's shapes under
-"p19_shapes"), the card as
+kernel's launches on P1-P25 and the planned queries under
+"path_launches", and rows 2, 4, 5 and 6 at P19's, P21's and P22's
+shapes under "p19_shapes", "p21_shapes" and "p22_shapes"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import base64
 import contextlib
 import datetime
 import json
+import re
 import subprocess
 import sys
 import time
@@ -4517,7 +4544,7 @@ def q3_types_data(dj, seed=23):
     (never a multiple of 3, as the spec's rule leaves a third of the
     customers without orders), o_shippriority (0), and the lines'
     l_extendedprice (quantity x retail price in cents, over a random
-    part) and l_discount as DECIMAL(12, 2)."""
+    part, l_partkey) and l_discount as DECIMAL(12, 2)."""
     rng = np.random.default_rng(seed)
     n_orders, n_line = dj["o_orderkey"].shape[0], dj["l_orderkey"].shape[0]
     n_cust = max(n_orders // 10, 3)
@@ -4532,7 +4559,8 @@ def q3_types_data(dj, seed=23):
             "o_custkey": cust.astype(np.int64),
             "o_shippriority": np.zeros(n_orders, np.int32),
             "l_extendedprice": (qty * retail).astype(np.int64),
-            "l_discount": money(dj["l_discount"])}
+            "l_discount": money(dj["l_discount"]),
+            "l_partkey": pk.astype(np.int64)}
 
 
 def q3_types_tables(dj, q3d):
@@ -4791,12 +4819,14 @@ def compare_types_paths(dev, m, b):
         del gathers
 
 
-def p19_kernel_shapes(dev, m, b, counts):
-    """Phase 4: each kernel at P19's shapes, L2 cold: the murmur3 chain at
-    both joins' build pairs and stream keys, the probe at both joins
-    (time_probe_shape), every row gather (time_gather_call) and every
-    dictionary take of a run; each with its plain version, bound and
-    launches in P19's counted run. Returns {kernel name: record}."""
+def join_kernel_shapes(label, joins_of, counts):
+    """Phase 4: each kernel at a planned join path's shapes, L2 cold: the
+    murmur3 chain at every hash join's build pair and stream keys, the
+    probe at each join (time_probe_shape), every row gather
+    (time_gather_call) and every dictionary take of a run; each with its
+    plain version, bound and launches in the path's counted run.
+    `joins_of()` plans a fresh tree: (tree, its hash joins). Returns
+    {kernel name: record}."""
     import torch
     from spark_rapids_tpu_torch.ops import dict_gather as dg
     from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
@@ -4804,10 +4834,10 @@ def p19_kernel_shapes(dev, m, b, counts):
     pair = (oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2)
     out = {"murmur3_columns": [], "fused_probe_verify": [],
            "dma_row_gather": [], "dict_gather": []}
-    for k in range(2):
-        inp = JoinInputs(p19_joins(m, dev, b)[1][k])
+    for k in range(len(joins_of()[1])):
+        inp = JoinInputs(joins_of()[1][k])
         out["fused_probe_verify"].append(
-            time_probe_shape(f"P19 join {k}", inp))
+            time_probe_shape(f"{label} join {k}", inp))
         for site, cols, seeds in (("build pair", inp.build_keys, pair),
                                   ("stream", inp.stream_keys, pair[:1])):
             n = cols[0].capacity
@@ -4819,7 +4849,7 @@ def p19_kernel_shapes(dev, m, b, counts):
                                     + 4 * len(seeds)),
                                n * sum(m3_ops(w, len(seeds))
                                        for w in widths))
-            print(f"murmur3_columns P19 join {k} {site} ({n} rows, "
+            print(f"murmur3_columns {label} join {k} {site} ({n} rows, "
                   f"{len(cols)} columns, {len(seeds)} seeds): {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                   f"{b_ms / ms:.1%} of the bound")
@@ -4828,9 +4858,9 @@ def p19_kernel_shapes(dev, m, b, counts):
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "max_abs_err": 0.0})
     out["dma_row_gather"] = [
-        time_gather_call("P19", *call, generic=False)
-        for call in capture_row_gathers(p19_joins(m, dev, b)[0])]
-    for t, i in capture_dict_gathers(p19_joins(m, dev, b)[0]):
+        time_gather_call(label, *call, generic=False)
+        for call in capture_row_gathers(joins_of()[0])]
+    for t, i in capture_dict_gathers(joins_of()[0]):
         rows, lanes = i.shape
         flat = t.reshape(-1)
         safe = i.clamp(0, t.shape[0] - 1).reshape(-1).long()
@@ -4840,7 +4870,7 @@ def p19_kernel_shapes(dev, m, b, counts):
             else device_ms(lambda: torch.gather(t, 0, i.long()), reps)
         b_ms, b_by = bound(rows * lanes * (4 + t.element_size())
                            + t.shape[0] * lanes * t.element_size(), 0)
-        print(f"dict_gather P19 take ({rows}x{lanes} codes into "
+        print(f"dict_gather {label} take ({rows}x{lanes} codes into "
               f"{t.shape[0]} entries of {t.element_size()} bytes): "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}), library {lib_ms:.4f} ms")
@@ -4850,11 +4880,812 @@ def p19_kernel_shapes(dev, m, b, counts):
             "library_ms": lib_ms, "max_abs_err": 0.0})
     for name, recs in out.items():
         total = sum(r["ms"] for r in recs)
-        print(f"{name} at P19's shapes: {counts.get(name, 0)} launches in "
-              f"the counted run; {len(recs)} shapes timed, {total:.4f} ms "
-              f"summed")
+        print(f"{name} at {label}'s shapes: {counts.get(name, 0)} launches "
+              f"in the counted run; {len(recs)} shapes timed, {total:.4f} "
+              f"ms summed")
     return {name: {"launches": counts.get(name, 0), "shapes": recs}
             for name, recs in out.items()}
+
+
+def p19_kernel_shapes(dev, m, b, counts):
+    """Phase 4: each kernel at P19's shapes (join_kernel_shapes)."""
+    return join_kernel_shapes("P19", lambda: p19_joins(m, dev, b), counts)
+
+
+# -- slice 11: strings, regex and A.2's scalar aggregates (phase 3f) --------
+
+#: TPC-H's substitution values: Q14 (clause 2.4.14.3), Q22 (clause
+#: 2.4.22.3, I1-I7); clause 4.2.2.13's p_type syllables
+Q14_DATE = datetime.date(1995, 9, 1)
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+TYPE_SYLLABLES = (("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY",
+                   "PROMO"),
+                  ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"),
+                  ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+P_TYPES = tuple(f"{a} {b} {c}" for a in TYPE_SYLLABLES[0]
+                for b in TYPE_SYLLABLES[1] for c in TYPE_SYLLABLES[2])
+P24_NULL_SEED = 25       # l_shipdate's nulls in P24 (about a tenth)
+P_STRING_ITERS = 3       # phase 4's timed runs of P21-P24 each
+#: P21 and P22 plan at the default confs; the kernels each path launches
+STRINGS_NEED = {"P21": Q_NEED, "P22": Q_NEED, "P22 avg": [],
+                "P23": ["murmur3_columns"], "P24": ["dma_row_gather"],
+                "P25": Q_NEED}
+
+
+def digits_into(mat, col, values, width):
+    """Write `values` as `width` decimal digits into mat[:, col:col+width]."""
+    for i in range(width):
+        mat[:, col + width - 1 - i] = ord("0") + (values // 10 ** i) % 10
+
+
+def strings_data(dj, q3d, seed=24):
+    """P21-P22's new columns, from their own seed (P12-P20's data stay as
+    they were): the parts q3_types_data's lines draw (its l_partkey) with
+    clause 4.2.2.13's p_type (three syllables drawn uniformly), and the
+    customers' c_nationkey (uniform over 0-24), c_phone (clause 4.2.2.9:
+    'CC-LLL-LLL-LLLL', CC = c_nationkey + 10) and c_acctbal (DECIMAL(12,
+    2) cents, uniform over [-999.99, 9999.99])."""
+    rng = np.random.default_rng(seed)
+    n_part = int(max(dj["o_orderkey"].shape[0] // 7.5, 1))
+    n_cust = q3d["c_custkey"].shape[0]
+    syl = [rng.integers(0, len(s), n_part) for s in TYPE_SYLLABLES]
+    nation = rng.integers(0, 25, n_cust)
+    phone = np.full((n_cust, 15), ord("-"), np.uint8)
+    digits_into(phone, 0, nation + 10, 2)
+    for col, lo, hi in ((3, 100, 1000), (7, 100, 1000), (11, 1000, 10000)):
+        digits_into(phone, col, rng.integers(lo, hi, n_cust), len(str(lo)))
+    return {"p_partkey": np.arange(1, n_part + 1, dtype=np.int64),
+            "p_type": (((syl[0] * 5 + syl[1]) * 5 + syl[2]).astype(np.int32),
+                       P_TYPES),
+            "c_nationkey": nation.astype(np.int32),
+            "c_phone": phone,
+            "c_acctbal": rng.integers(-99999, 1000000, n_cust)}
+
+
+def fixed_strings(mat, dev):
+    """A StringColumn of the rows of a (n, w) uint8 matrix."""
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    n, w = mat.shape
+    return StringColumn.from_numpy(np.ascontiguousarray(mat).reshape(-1),
+                                   np.arange(n + 1, dtype=np.int32) * w,
+                                   device=dev)
+
+
+def batch_of(m, dev, cols):
+    """A port batch of [(name, numpy lane or a built column, type)]."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    out = [v if not isinstance(v, np.ndarray) else
+           Column.from_numpy(v, dt, device=dev) for _, v, dt in cols]
+    n = cols[0][1].shape[0] if isinstance(cols[0][1], np.ndarray) \
+        else out[0].capacity
+    return ColumnarBatch(out, n, m.t.Schema(tuple(
+        m.t.StructField(name, dt) for name, _, dt in cols)))
+
+
+def strings_batches(m, dev, dj, q3d, sd, d19, names):
+    """P21-P24's batches on `dev`. A string column here is a plain
+    StringColumn, as a Parquet page without a dictionary gives it (the
+    flags of P24 stay dictionaries, as P6's)."""
+    from spark_rapids_tpu_torch.columnar.column import Column
+    t = m.t
+    dec = t.DecimalType(*MONEY)
+    n_names = names.shape[0]
+    ptype = string_column(*sd["p_type"], dev)
+    lines24, n24 = q19_columns(d19, t.Schema(tuple(
+        t.StructField(n, getattr(t, ty)) for n, ty in Q1_LINE_FIELDS)), dev)
+    valid = np.random.default_rng(P24_NULL_SEED).random(n24) > 0.1
+    names24 = [n for n, _ in Q1_LINE_FIELDS]
+    k = names24.index("l_shipdate")
+    lines24[k] = Column.from_numpy(d19["l_shipdate"], t.DATE, device=dev,
+                                   validity=valid)
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    return {
+        "lineitem": batch_of(m, dev, [
+            ("l_partkey", q3d["l_partkey"], t.LONG),
+            ("l_extendedprice", q3d["l_extendedprice"], dec),
+            ("l_discount", q3d["l_discount"], dec),
+            ("l_shipdate", dj["l_shipdate"], t.DATE)]),
+        "part": batch_of(m, dev, [("p_partkey", sd["p_partkey"], t.LONG),
+                                  ("p_type", ptype, t.STRING)]),
+        "customer": batch_of(m, dev, [
+            ("c_custkey", q3d["c_custkey"], t.LONG),
+            ("c_nationkey", sd["c_nationkey"], t.INT),
+            ("c_phone", fixed_strings(sd["c_phone"], dev), t.STRING),
+            ("c_acctbal", sd["c_acctbal"], dec)]),
+        "orders": batch_of(m, dev, [("o_custkey", q3d["o_custkey"],
+                                     t.LONG)]),
+        "names": batch_of(m, dev, [
+            ("c_custkey", np.arange(1, n_names + 1, dtype=np.int64), t.LONG),
+            ("c_name", fixed_strings(names, dev), t.STRING)]),
+        "p24": ColumnarBatch(lines24, n24, t.Schema(tuple(
+            t.StructField(n, getattr(t, ty)) for n, ty in Q1_LINE_FIELDS))),
+        "p24_valid": valid}
+
+
+def q14_df(m, sess, b):
+    """P21: TPC-H Q14 (clause 2.4.14, DATE 1995-09-01) on DECIMAL(12, 2)
+    money, its two sums: sum(case when p_type like 'PROMO%' then
+    l_extendedprice * (1 - l_discount) else 0 end), written as (case when
+    ... then l_extendedprice else 0 end) * (1 - l_discount), and the sum
+    of the same product over every line. The query's 100.00 * a / b
+    multiplies a decimal128 sum, tagged off in both packages (as P17's
+    sum_charge), so q14_ratio forms the ratio from the two sums."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    start = date_lit(m, Q14_DATE)
+    lines = sess.from_batches([b["lineitem"]], b["lineitem"].schema).filter(
+        m.pred.And(m.pred.GreaterThanOrEqual(col("l_shipdate"), start),
+                   m.pred.LessThan(col("l_shipdate"),
+                                   F.add_months(start, 1))))
+    part = sess.from_batches([b["part"]], b["part"].schema)
+    joined = lines.join(part, left_on="l_partkey", right_on="p_partkey")
+    price, disc = col("l_extendedprice"), lit(1) - col("l_discount")
+    # the CASE picks the DECIMAL(12, 2) price, not the DECIMAL(26, 4)
+    # product: a CASE over a decimal128 value raises in the JAX package
+    # (ROADMAP C.5); the sum is the same
+    promo = m.cond.CaseWhen([(F.like(col("p_type"), "PROMO%"), price)],
+                            dec_lit(m, 0)) * disc
+    return joined.agg((F.sum(promo), "promo_revenue"),
+                      (F.sum(price * disc), "revenue"))
+
+
+def q14_oracle(dj, q3d, sd):
+    """P21 exactly: the two sums as unscaled DECIMAL(36, 4) ints."""
+    sdate = dj["l_shipdate"]
+    end = datetime.date(1995, 10, 1)
+    keep = (sdate >= days(Q14_DATE)) & (sdate < days(end))
+    rev = (q3d["l_extendedprice"] * (100 - q3d["l_discount"]))[keep]
+    ptype = np.asarray(P_TYPES)[sd["p_type"][0]]
+    promo = np.char.startswith(ptype, "PROMO")[q3d["l_partkey"][keep] - 1]
+    return [(int(rev[promo].sum()), int(rev.sum()))]
+
+
+def q14_ratio(row):
+    """100.00 * promo / total, as Python decimals (28 digits)."""
+    import decimal
+    promo, total = (decimal.Decimal(v).scaleb(-4) for v in row)
+    return decimal.Decimal(100) * promo / total
+
+
+def _code_in(m, col):
+    code = m.F.substring(col("c_phone"), 1, 2)
+    return m.pred.In(code, list(Q22_CODES))
+
+
+def q22_avg_df(m, sess, b):
+    """P22's subquery as its own query: sum and count of c_acctbal over the
+    customers with a positive balance in the seven country codes (a
+    decimal avg raises in the JAX package, ROADMAP C.5)."""
+    col = m.core.col
+    return (sess.from_batches([b["customer"]], b["customer"].schema)
+            .filter(m.pred.And(m.pred.GreaterThan(col("c_acctbal"),
+                                                  dec_lit(m, 0)),
+                               _code_in(m, col)))
+            .agg((m.F.sum("c_acctbal"), "s"), (m.F.count(), "n")))
+
+
+def q22_threshold(row):
+    """(Spark's avg(DECIMAL(12, 2)) as DECIMAL(16, 6), HALF_UP, unscaled;
+    the DECIMAL(12, 2) cents c_acctbal must exceed): c > avg holds for a
+    two-decimal c exactly when c > floor(avg to two decimals)."""
+    s, n = row
+    q, r = divmod(s * 10 ** 4, n)
+    avg6 = q + (1 if 2 * r >= n else 0)
+    return avg6, avg6 // 10 ** 4
+
+
+def q22_df(m, sess, b, cents):
+    """P22: TPC-H Q22 (clause 2.4.22, I1-I7 = 13, 31, 23, 29, 30, 18, 17):
+    the customers in the seven country codes (substring of the decoded
+    c_phone) whose balance exceeds the average (`cents`, from
+    q22_avg_df) and who placed no order (NOT EXISTS: a left anti join),
+    counted and summed by the string cntrycode, ordered by it."""
+    col, F = m.core.col, m.F
+    cust = (sess.from_batches([b["customer"]], b["customer"].schema)
+            .filter(m.pred.And(_code_in(m, col), m.pred.GreaterThan(
+                col("c_acctbal"), dec_lit(m, cents)))))
+    orders = sess.from_batches([b["orders"]], b["orders"].schema)
+    return (cust.join(orders, left_on="c_custkey", right_on="o_custkey",
+                      how="left_anti")
+            .select(F.substring(col("c_phone"), 1, 2).alias("cntrycode"),
+                    col("c_acctbal"))
+            .group_by("cntrycode")
+            .agg((F.count(), "numcust"), (F.sum("c_acctbal"), "totacctbal"))
+            .sort("cntrycode"))
+
+
+def q22_oracle(q3d, sd):
+    """P22 exactly: (the subquery's (sum, count), the threshold's cents,
+    the rows (cntrycode, numcust, totacctbal as unscaled cents))."""
+    code = (sd["c_nationkey"] + 10).astype(np.int64)
+    in_set = np.isin(code, [int(c) for c in Q22_CODES])
+    bal = sd["c_acctbal"]
+    pos = in_set & (bal > 0)
+    sub = (int(bal[pos].sum()), int(pos.sum()))
+    _, cents = q22_threshold(sub)
+    has_order = np.zeros(q3d["c_custkey"].shape[0] + 1, bool)
+    has_order[q3d["o_custkey"]] = True
+    keep = in_set & (bal > cents) & ~has_order[q3d["c_custkey"]]
+    rows = [(str(c), int(np.sum(keep & (code == c))),
+             int(bal[keep & (code == c)].sum()))
+            for c in sorted(set(code[keep].tolist()))]
+    return sub, cents, rows
+
+
+# P23: every new device expression once, as planned projections over the
+# part's p_type, the customers' c_phone and P8's names; each entry is
+# (output name, make(m, col, lit, F), oracle of one row's inputs)
+def _initcap(s):
+    return " ".join(w[:1].upper() + w[1:].lower() for w in s.split(" "))
+
+
+def _lpad(s, n, p):
+    return s[:n] if len(s) >= n else (p * n)[:n - len(s)] + s
+
+
+SWEEP = {
+    "part": (("p_type",), [
+        ("length", lambda m, c, lit, F: F.length(c("p_type")), len),
+        ("upper", lambda m, c, lit, F: F.upper(c("p_type")), str.upper),
+        ("lower", lambda m, c, lit, F: F.lower(c("p_type")), str.lower),
+        ("initcap", lambda m, c, lit, F: F.initcap(c("p_type")), _initcap),
+        ("substring", lambda m, c, lit, F: F.substring(c("p_type"), 1, 5),
+         lambda s: s[:5]),
+        ("left", lambda m, c, lit, F: F.left(c("p_type"), 3),
+         lambda s: s[:3]),
+        ("right", lambda m, c, lit, F: F.right(c("p_type"), 4),
+         lambda s: s[-4:]),
+        ("startswith", lambda m, c, lit, F: F.startswith(c("p_type"),
+                                                         "PROMO"),
+         lambda s: s.startswith("PROMO")),
+        ("endswith", lambda m, c, lit, F: F.endswith(c("p_type"), "TIN"),
+         lambda s: s.endswith("TIN")),
+        ("contains", lambda m, c, lit, F: F.contains(c("p_type"),
+                                                     "BRUSHED"),
+         lambda s: "BRUSHED" in s),
+        ("trim", lambda m, c, lit, F: F.trim(c("p_type"), "SNTL"),
+         lambda s: s.strip("SNTL")),
+        ("ltrim", lambda m, c, lit, F: F.ltrim(c("p_type"), "SE"),
+         lambda s: s.lstrip("SE")),
+        ("rtrim", lambda m, c, lit, F: F.rtrim(c("p_type"), "RL"),
+         lambda s: s.rstrip("RL")),
+        ("rpad", lambda m, c, lit, F: F.rpad(c("p_type"), 30, "*"),
+         lambda s: (s + "*" * 30)[:30]),
+        ("lpad", lambda m, c, lit, F: F.lpad(c("p_type"), 12, "."),
+         lambda s: _lpad(s, 12, ".")),
+        ("repeat", lambda m, c, lit, F: F.repeat(c("p_type"), 2),
+         lambda s: s * 2),
+        ("reverse", lambda m, c, lit, F: F.reverse(c("p_type")),
+         lambda s: s[::-1]),
+        ("locate", lambda m, c, lit, F: F.locate("ED", c("p_type")),
+         lambda s: s.find("ED") + 1),
+        ("instr", lambda m, c, lit, F: F.instr(c("p_type"), "L"),
+         lambda s: s.find("L") + 1),
+        ("replace", lambda m, c, lit, F: F.replace(c("p_type"), " ", "_"),
+         lambda s: s.replace(" ", "_")),
+        ("translate", lambda m, c, lit, F: F.translate(c("p_type"),
+                                                       "AEIOU", "aei"),
+         lambda s: s.translate(str.maketrans("AEI", "aei", "OU"))),
+        ("like", lambda m, c, lit, F: F.like(c("p_type"), "%BRASS"),
+         lambda s: s.endswith("BRASS")),
+        ("like_promo", lambda m, c, lit, F: F.like(c("p_type"), "PROMO%"),
+         lambda s: s.startswith("PROMO")),
+        ("rlike", lambda m, c, lit, F: F.rlike(c("p_type"),
+                                               "^(STANDARD|SMALL) "),
+         lambda s: re.search("^(STANDARD|SMALL) ", s) is not None),
+        ("rlike_plated", lambda m, c, lit, F: F.rlike(c("p_type"),
+                                                      "[A-Z]+ PLATED"),
+         lambda s: re.search("[A-Z]+ PLATED", s) is not None),
+        ("regexp_extract", lambda m, c, lit, F: F.regexp_extract(
+            c("p_type"), "([A-Z]+)$", 1),
+         lambda s: re.search("([A-Z]+)$", s).group(1)),
+        ("regexp_replace", lambda m, c, lit, F: F.regexp_replace(
+            c("p_type"), "[AEIOU]", ""),
+         lambda s: re.sub("[AEIOU]", "", s)),
+        ("substring_index", lambda m, c, lit, F: F.substring_index(
+            c("p_type"), " ", 2), lambda s: " ".join(s.split(" ")[:2])),
+        ("concat_ws", lambda m, c, lit, F: F.concat_ws("-", c("p_type"),
+                                                       c("p_type")),
+         lambda s: s + "-" + s),
+        ("concat", lambda m, c, lit, F: F.concat(c("p_type"), lit("!"),
+                                                 c("p_type")),
+         lambda s: s + "!" + s),
+        ("octet_length", lambda m, c, lit, F: F.octet_length(c("p_type")),
+         len),
+        ("bit_length", lambda m, c, lit, F: F.bit_length(c("p_type")),
+         lambda s: 8 * len(s)),
+        ("ascii", lambda m, c, lit, F: F.ascii(c("p_type")),
+         lambda s: ord(s[0])),
+    ]),
+    "customer": (("c_phone", "c_nationkey"), [
+        ("cntrycode", lambda m, c, lit, F: F.substring(c("c_phone"), 1, 2),
+         lambda s, n: s[:2]),
+        ("find_in_set", lambda m, c, lit, F: F.find_in_set(
+            F.substring(c("c_phone"), 1, 2), lit(",".join(Q22_CODES))),
+         lambda s, n: (Q22_CODES.index(s[:2]) + 1) if s[:2] in Q22_CODES
+         else 0),
+        ("regexp_extract", lambda m, c, lit, F: F.regexp_extract(
+            c("c_phone"), "([0-9]{3})-([0-9]{4})", 2),
+         lambda s, n: re.search("([0-9]{3})-([0-9]{4})", s).group(2)),
+        ("regexp_replace", lambda m, c, lit, F: F.regexp_replace(
+            c("c_phone"), "-", ""), lambda s, n: s.replace("-", "")),
+        ("rlike", lambda m, c, lit, F: F.rlike(c("c_phone"), "^(13|31)-"),
+         lambda s, n: s[:3] in ("13-", "31-")),
+        ("like", lambda m, c, lit, F: F.like(c("c_phone"), "1_-%"),
+         lambda s, n: s[0] == "1" and s[2] == "-"),
+        ("base64", lambda m, c, lit, F: F.base64(c("c_phone")),
+         lambda s, n: base64.b64encode(s.encode()).decode()),
+        ("unbase64", lambda m, c, lit, F: F.unbase64(F.base64(
+            c("c_phone"))), lambda s, n: s.encode()),
+        ("hex", lambda m, c, lit, F: F.hex(c("c_phone")),
+         lambda s, n: s.encode().hex().upper()),
+        ("unhex", lambda m, c, lit, F: F.unhex(F.hex(c("c_phone"))),
+         lambda s, n: s.encode()),
+        ("encode", lambda m, c, lit, F: F.encode(c("c_phone"), "US-ASCII"),
+         lambda s, n: s.encode("ascii")),
+        ("decode", lambda m, c, lit, F: F.decode(F.encode(
+            c("c_phone"), "ISO-8859-1"), "ISO-8859-1"), lambda s, n: s),
+        ("chr", lambda m, c, lit, F: F.chr(c("c_nationkey") + lit(65)),
+         lambda s, n: chr(n + 65)),
+        ("locate", lambda m, c, lit, F: F.locate("-", c("c_phone"), 4),
+         lambda s, n: s.find("-", 3) + 1),
+    ]),
+    "names": (("c_name",), [
+        ("like", lambda m, c, lit, F: F.like(c("c_name"), "Customer#0000%"),
+         None),
+        ("rlike", lambda m, c, lit, F: F.rlike(c("c_name"), "[13579]$"),
+         None),
+        ("reverse", lambda m, c, lit, F: F.reverse(c("c_name")), None),
+        ("substring_index", lambda m, c, lit, F: F.substring_index(
+            c("c_name"), "#", -1), None),
+    ]),
+}
+#: hash and xxhash64 over a string and a long of each table
+SWEEP_HASHES = {"part": ("p_type", "p_partkey"),
+                "customer": ("c_phone", "c_custkey"),
+                "names": ("c_name", "c_custkey")}
+
+
+def sweep_dfs(m, sess, b):
+    """P23: one planned projection per input table, each output column
+    one expression of SWEEP, then hash and xxhash64 of a string and a
+    long column."""
+    col, lit, F = m.core.col, m.core.lit, m.F
+    out = {}
+    for table, (_, exprs) in SWEEP.items():
+        s, k = SWEEP_HASHES[table]
+        sel = [build(m, col, lit, F).alias(name)
+               for name, build, _ in exprs] + [
+            F.hash(col(s)).alias("hash_s"), F.xxhash64(col(s)).alias("xx_s"),
+            F.hash(col(k)).alias("hash_l"), F.xxhash64(col(k)).alias("xx_l")]
+        out[f"P23 {table}"] = sess.from_batches(
+            [b[table]], b[table].schema).select(*sel)
+    return out
+
+
+def _le_bytes(values):
+    """(n, 8) uint8: the little-endian bytes of int64 values."""
+    return np.ascontiguousarray(values.astype("<i8")).view(np.uint8) \
+        .reshape(-1, 8)
+
+
+def sweep_oracles(sd, q3d, names):
+    """P23's expected columns per table: a list of Python values (str,
+    bytes, bool or int) per output, or for the names a (matrix, lengths)
+    of bytes; the hashes from np_murmur3_bytes / np_xxhash64_bytes."""
+    out = {}
+    codes = sd["p_type"][0]
+    per_type = [[f(w) for w in P_TYPES] for _, _, f in SWEEP["part"][1]]
+    out["part"] = [[vals[c] for c in codes.tolist()] for vals in per_type]
+    phones = [bytes(r).decode() for r in sd["c_phone"]]
+    nations = sd["c_nationkey"].tolist()
+    out["customer"] = [[f(s, n) for s, n in zip(phones, nations)]
+                       for _, _, f in SWEEP["customer"][1]]
+    n, w = names.shape
+    digits = names[:, 9:]
+    out["names"] = [
+        np.all(names[:, 9:13] == ord("0"), axis=1).tolist(),
+        ((names[:, -1] - ord("0")) % 2 == 1).tolist(),
+        (names[:, ::-1], np.full(n, w)),
+        (digits, np.full(n, digits.shape[1]))]
+    ptype_mat = np.zeros((len(P_TYPES), max(map(len, P_TYPES))), np.uint8)
+    plens = np.array([len(p) for p in P_TYPES])
+    for i, p in enumerate(P_TYPES):
+        ptype_mat[i, :len(p)] = np.frombuffer(p.encode(), np.uint8)
+    strings = {"part": (ptype_mat[codes], plens[codes]),
+               "customer": (sd["c_phone"], np.full(len(phones), 15)),
+               "names": (names, np.full(n, w))}
+    longs = {"part": sd["p_partkey"], "customer": q3d["c_custkey"],
+             "names": np.arange(1, n + 1, dtype=np.int64)}
+    for table in out:
+        mat, lens = strings[table]
+        le = _le_bytes(longs[table])
+        eight = np.full(le.shape[0], 8)
+        # the numpy references give u32 / u64: as the port's int32 and
+        # int64 lanes hold them
+        out[table] += [np_murmur3_bytes(mat, lens, 42).view(np.int32),
+                       np_xxhash64_bytes(mat, lens, 42).view(np.int64),
+                       np_murmur3_bytes(le, eight, 42).view(np.int32),
+                       np_xxhash64_bytes(le, eight, 42).view(np.int64)]
+    return out
+
+
+def _to_bytes(v):
+    return v if isinstance(v, bytes) else v.encode() \
+        if isinstance(v, str) else None
+
+
+def check_sweep_column(label, col, n, want):
+    """One P23 output column against its oracle, columnwise: a string
+    column's offsets and bytes, a fixed-width column's values."""
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    valid = col.validity[:n].cpu().numpy()
+    if not valid.all():
+        raise AssertionError(f"{label}: {int((~valid).sum())} null rows")
+    if isinstance(col, StringColumn):
+        off = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
+        data = col.data[:int(off[-1])].cpu().numpy()
+        if isinstance(want, tuple):
+            mat, lens = want
+            keep = np.arange(mat.shape[1])[None, :] < lens[:, None]
+            exp_data, exp_lens = mat[keep], lens
+        else:
+            enc = [_to_bytes(v) for v in want]
+            exp_lens = np.array([len(b) for b in enc])
+            exp_data = np.frombuffer(b"".join(enc), np.uint8)
+        if not (np.array_equal(np.diff(off), exp_lens)
+                and np.array_equal(data, exp_data)):
+            raise AssertionError(f"{label}: bytes differ from the oracle")
+        return
+    got = col.data[:n].cpu().numpy()
+    exp = np.asarray(want)
+    if got.dtype == np.bool_ or exp.dtype == np.bool_:
+        ok = np.array_equal(got.astype(bool), exp.astype(bool))
+    else:
+        ok = np.array_equal(got.astype(np.int64), exp.astype(np.int64))
+    if not ok:
+        bad = np.nonzero(got.astype(np.int64) != exp.astype(np.int64))[0]
+        raise AssertionError(f"{label}: {bad.shape[0]} rows differ from the "
+                             f"oracle, first {bad[:3]}")
+
+
+def sweep_check(table, wants):
+    """check(batches, label): every P23 output column of `table`."""
+    names = [name for name, _, _ in SWEEP[table][1]] + [
+        "hash_s", "xx_s", "hash_l", "xx_l"]
+
+    def check(batches, label):
+        if len(batches) != 1:
+            raise AssertionError(f"{label}: {len(batches)} batches")
+        b = batches[0]
+        n = b.num_rows_host
+        for name, col, want in zip(names, b.columns, wants[table]):
+            check_sweep_column(f"{label} {name}", col, n, want)
+    return check
+
+
+def p24_df(m, sess, batch):
+    """P24: the new aggregates over P6's 6,001,215 lineitems by
+    (l_returnflag, l_linestatus): stddev_samp, stddev_pop, var_samp and
+    var_pop of l_quantity and l_extendedprice, first and last of the
+    nullable l_shipdate with and without ignoreNulls."""
+    F = m.F
+    aggs = []
+    for c in ("l_quantity", "l_extendedprice"):
+        aggs += [(F.stddev_samp(c), f"ss_{c}"), (F.stddev_pop(c), f"sp_{c}"),
+                 (F.var_samp(c), f"vs_{c}"), (F.var_pop(c), f"vp_{c}")]
+    aggs += [(F.first("l_shipdate"), "first"),
+             (F.first("l_shipdate", True), "first_nn"),
+             (F.last("l_shipdate"), "last"),
+             (F.last("l_shipdate", True), "last_nn")]
+    return (sess.from_batches([batch], batch.schema)
+            .group_by("l_returnflag", "l_linestatus").agg(*aggs)
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def p24_oracle(d, valid):
+    """P24's rows: the moments by the reference's one-pass formula in
+    numpy (f64 to rtol 1e-9 of the port's sums), first/last by position in
+    the batch (the hash route's semantics in the JAX package)."""
+    rf = np.asarray(RETURNFLAGS)[d["l_returnflag"][0]]
+    ls = np.asarray(LINESTATUSES)[d["l_linestatus"][0]]
+    sdate = d["l_shipdate"]
+    rows = []
+    for f, s in sorted(set(zip(rf.tolist(), ls.tolist()))):
+        idx = np.nonzero((rf == f) & (ls == s))[0]
+        row = [f, s]
+        for c in ("l_quantity", "l_extendedprice"):
+            x = d[c][idx]
+            n = x.shape[0]
+            mean = x.sum() / n
+            m2 = max((x * x).sum() - n * mean * mean, 0.0)
+            vs, vp = m2 / (n - 1), m2 / n
+            row += [float(np.sqrt(vs)), float(np.sqrt(vp)), float(vs),
+                    float(vp)]
+        vi = idx[valid[idx]]
+        row += [int(sdate[idx[0]]) if valid[idx[0]] else None,
+                int(sdate[vi[0]]),
+                int(sdate[idx[-1]]) if valid[idx[-1]] else None,
+                int(sdate[vi[-1]])]
+        rows.append(tuple(row))
+    return rows
+
+
+def p25_df(m, sess, b):
+    """P25: the pre-grouped update path. P21's lineitem x part on the part
+    key, without Q14's date filter, grouped by that key: count(*) and
+    max(p_type). max over a string buffer sends the aggregate down the
+    string route's sort fallback, and the inner join's key-grouped
+    emission lets that update skip its sort
+    (exec/aggregate._input_pre_grouped)."""
+    lines = sess.from_batches([b["lineitem"]], b["lineitem"].schema)
+    part = sess.from_batches([b["part"]], b["part"].schema)
+    return (lines.join(part, left_on="l_partkey", right_on="p_partkey")
+            .group_by("l_partkey")
+            .agg((m.F.count(), "n"), (m.F.max("p_type"), "p_type")))
+
+
+def p25_oracle(q3d, sd):
+    """P25's rows in numpy: (part key, its lines, its p_type)."""
+    keys, n = np.unique(q3d["l_partkey"], return_counts=True)
+    types = np.asarray(P_TYPES)[sd["p_type"][0]][keys - 1]
+    return [(int(k), int(c), str(t)) for k, c, t in zip(keys, n, types)]
+
+
+def pre_grouped_aggs(tree):
+    """The AggregateExecs of `tree` that take the pre-grouped path."""
+    return [n for n in exec_nodes(tree)
+            if type(n).__name__ == "AggregateExec" and n._pre_grouped]
+
+
+def check_close_rows(want):
+    """check(rows, label): keys and ints exact, floats to RTOL."""
+    def check(rows, label, _metrics=None):
+        if len(rows) != len(want):
+            raise AssertionError(f"{label}: {len(rows)} rows != oracle "
+                                 f"{len(want)}")
+        for g, w in zip(rows, want):
+            for a, b in zip(g, w):
+                ok = abs(a - b) <= RTOL * abs(b) if isinstance(b, float) \
+                    else a == b
+                if not ok:
+                    raise AssertionError(f"{label}: {g} != oracle {w}")
+    return check
+
+
+def strings_modules():
+    """types_modules() with the conditional expressions."""
+    from spark_rapids_tpu_torch.expr import conditional
+    m = types_modules()
+    m.cond = conditional
+    return m
+
+
+def strings_inputs(dev, dj, q3d, d19, names):
+    """P21-P24's batches on `dev` and their oracles."""
+    m = strings_modules()
+    sd = strings_data(dj, q3d)
+    b = strings_batches(m, dev, dj, q3d, sd, d19, names)
+    sub, cents, q22_rows = q22_oracle(q3d, sd)
+    wants = {"P21": q14_oracle(dj, q3d, sd), "P22 avg": [sub],
+             "P22": q22_rows, "P22 cents": cents,
+             "P23": sweep_oracles(sd, q3d, names),
+             "P24": p24_oracle(d19, b["p24_valid"]),
+             "P25": p25_oracle(q3d, sd)}
+    return m, b, wants
+
+
+#: each path's input tables (strings_batches' keys)
+STRINGS_INPUTS = {"P21": ("lineitem", "part"), "P22 avg": ("customer",),
+                  "P22": ("customer", "orders"), "P23 part": ("part",),
+                  "P23 customer": ("customer",), "P23 names": ("names",),
+                  "P24": ("p24",), "P25": ("lineitem", "part")}
+
+
+def input_bound(b, label):
+    """(bytes, ms): one read of the path's input columns at capacity (every
+    tensor of each column) at PEAK_BYTES_PER_S."""
+    nbytes = sum(x.numel() * x.element_size()
+                 for t in STRINGS_INPUTS[label] for c in b[t].columns
+                 for x in c.leaves())
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def strings_dfs(m, dev, b, wants):
+    sess = m.session.TpuSession(device=dev)
+    dfs = {"P21": q14_df(m, sess, b), "P22 avg": q22_avg_df(m, sess, b),
+           "P22": q22_df(m, sess, b, wants["P22 cents"]),
+           "P24": p24_df(m, sess, b["p24"]), "P25": p25_df(m, sess, b)}
+    dfs.update(sweep_dfs(m, sess, b))
+    return dfs
+
+
+def drive_strings_paths(dev, m, b, wants):
+    """Phase 3f: P21 (Q14), P22 (Q22 and its subquery), P23 (the string
+    sweep, checked columnwise on the card's output) and P24 (the new
+    aggregates), planned from DataFrames, counted; the regex loop's
+    evaluations, steps and host reads for P21 and P23. Returns (counts,
+    records, the runs phase 4 times, the planned trees --profile
+    traces)."""
+    from spark_rapids_tpu_torch.regex import kernel as rk
+    from spark_rapids_tpu_torch.ops import strings as ostr
+    dfs = strings_dfs(m, dev, b, wants)
+    counts, recs, runs, trees = {}, {}, {}, {}
+    for label in ("P21", "P22 avg", "P22", "P24", "P25"):
+        check = check_close_rows(wants[label]) if label == "P24" \
+            else sorted_rows(wants[label]) if label == "P25" \
+            else exact_rows(wants[label])
+        rk.reset_counters()
+        ostr.reset_counters()
+        recs[label] = drive_planned(f"{label} planned", m, dfs[label],
+                                    STRINGS_NEED[label], None, check)
+        recs[label]["regex"] = rk.counters()
+        recs[label]["string_loop_reads"] = ostr.counters()["host_reads"]
+        counts[label] = recs[label]["launches"]
+        trees[label] = planned(m, dfs[label])[0]
+        runs[label] = (trees[label].collect, check)
+        recs[label]["input_bytes"], recs[label]["bound_ms"] = \
+            input_bound(b, label)
+        print(f"{label}: reads {recs[label]['input_bytes']} bytes at "
+              f"capacity, bound {recs[label]['bound_ms']:.4f} ms")
+        print(f"{label}: {len(wants[label])} rows equal to the oracle, "
+              f"first {wants[label][:2]}; regex loop {recs[label]['regex']} "
+              f"(two drives)")
+    # P25 again with its aggregates' update sorting (the pre-grouped
+    # path off), the yardstick phase 4 times in turns with it
+    aggs = pre_grouped_aggs(trees["P25"])
+    p25_check = runs["P25"][1]
+    p25_check(trees["P25"].collect(), "P25 routes")
+    if not aggs or not all(a.metrics["sort_fallback"].value for a in aggs):
+        raise AssertionError(f"P25: {len(aggs)} pre-grouped aggregates, "
+                             f"routes {[route_counts(a) for a in aggs]}")
+    recs["P25"]["routes"] = [route_counts(a) for a in aggs]
+    sorting = planned(m, dfs["P25"])[0]
+    for a in pre_grouped_aggs(sorting):
+        a._pre_grouped = False
+    # timed as execute(): collect() of 200,000 rows would build tuples
+    # for longer than the sort it skips takes
+
+    def check_batches(out, label):
+        p25_check([r for batch in out for r in batch.to_pylist()], label)
+    runs["P25"] = (lambda: list(trees["P25"].execute()), check_batches)
+    runs["P25 sorting"] = (lambda: list(sorting.execute()), check_batches)
+    print(f"P25: {len(aggs)} pre-grouped aggregates, routes "
+          f"{recs['P25']['routes']}")
+    print(f"P21 promo_revenue = {q14_ratio(wants['P21'][0])} % (100.00 * "
+          f"the two exact sums, formed on the host)")
+    avg6, cents = q22_threshold(wants["P22 avg"][0])
+    print(f"P22 avg(c_acctbal) = {avg6} x 10^-6 (DECIMAL(16, 6), HALF_UP); "
+          f"c_acctbal > {cents} x 10^-2")
+    for table in SWEEP:
+        label = f"P23 {table}"
+        tree = planned(m, dfs[label])[0]
+        rk.reset_counters()
+        ostr.reset_counters()
+        out, cnt, reads = drive_batches(label, tree, STRINGS_NEED["P23"])
+        sweep_check(table, wants["P23"])(out, label)
+        counts[label] = cnt
+        recs[label] = {"launches": cnt, "host_reads": reads,
+                       "regex": rk.counters(),
+                       "string_loop_reads": ostr.counters()["host_reads"],
+                       "rows": out[0].num_rows_host,
+                       "columns": len(out[0].columns)}
+        recs[label]["input_bytes"], recs[label]["bound_ms"] = \
+            input_bound(b, label)
+        trees[label] = tree
+        runs[label] = (lambda t=tree: list(t.execute()),
+                       lambda out, label, t=table:
+                       sweep_check(t, wants["P23"])(out, label))
+        print(f"{label}: {recs[label]['columns']} columns of "
+              f"{recs[label]['rows']} rows equal to their oracles "
+              f"(reads {recs[label]['input_bytes']} bytes at capacity, "
+              f"bound {recs[label]['bound_ms']:.4f} ms); "
+              f"launches {cnt}; host reads {reads}; regex loop "
+              f"{recs[label]['regex']}; string loop reads "
+              f"{recs[label]['string_loop_reads']}")
+    return counts, recs, runs, trees
+
+
+def strings_tree(m, dev, b, wants, label):
+    """A fresh planned tree of one of P21-P25 (phase 2 captures its
+    kernels' inputs from a run of it)."""
+    return planned(m, strings_dfs(m, dev, b, wants)[label])[0]
+
+
+def capture_murmur3(plan):
+    """Run `plan` once and keep the inputs of every murmur3 chain launch
+    (ops/murmur3_lanes.murmur3_columns), in call order: [(columns,
+    seeds)]."""
+    import torch
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    calls, real = [], m3.murmur3_columns
+
+    def record(columns, seeds):
+        calls.append((list(columns), [s.clone() if hasattr(s, "clone")
+                                      else s for s in seeds]))
+        return real(columns, seeds)
+    record.launches = real.launches
+    m3.murmur3_columns = record
+    try:
+        with speculation_scope():
+            list(plan.execute())
+            torch.cuda.synchronize()
+    finally:
+        m3.murmur3_columns = real
+    return calls
+
+
+def compare_strings_paths(dev, m, b, wants):
+    """Phase 2 at P21-P25's own inputs: every launch of a run of each path,
+    held exactly to its plain version: the murmur3 chain (each join's
+    build pair and stream keys; P23's hash of a long), the probe of each
+    join, every row gather (P24's group-by and sort too) and every
+    dictionary take."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+
+    def tree(label):
+        return strings_tree(m, dev, b, wants, label)
+    for label in ("P21", "P22", "P25"):
+        joins = [n for n in exec_nodes(tree(label))
+                 if type(n).__name__ == "HashJoinExec"]
+        if len(joins) != 1:
+            raise AssertionError(f"{label}: {len(joins)} hash joins")
+        gathers = capture_row_gathers(tree(label))
+        compare_join_inputs(label, JoinInputs(joins[0]), gathers)
+        takes = capture_dict_gathers(tree(label))
+        if takes:
+            print(f"compare {label} main-path dictionary gathers: "
+                  f"{'; '.join(compare_dict_takes(label, takes))}; exact")
+    gathers = capture_row_gathers(tree("P24"))
+    print(f"compare P24 main-path row gathers: "
+          f"{'; '.join(compare_row_gathers('P24', gathers))}; exact")
+    del gathers
+    for table in SWEEP:
+        label = f"P23 {table}"
+        calls = capture_murmur3(tree(label))
+        if not calls:
+            raise AssertionError(f"{label}: no murmur3 launch captured")
+        for k, (cols, seeds) in enumerate(calls):
+            _exact(f"murmur3 {label} call {k}", m3.murmur3_columns(cols,
+                                                                   seeds),
+                   m3.murmur3_columns_plain(cols, seeds))
+        print(f"compare {label} murmur3 launches: {len(calls)} of "
+              f"{calls[0][0][0].capacity} rows; exact")
+
+
+def strings_kernel_shapes(dev, m, b, wants, counts):
+    """Phase 4: each kernel at P21's and P22's shapes (join_kernel_shapes).
+    Returns {path: {kernel name: record}}."""
+    def joins_of(label):
+        def fresh():
+            tree = strings_tree(m, dev, b, wants, label)
+            return tree, [n for n in exec_nodes(tree)
+                          if type(n).__name__ == "HashJoinExec"]
+        return fresh
+    return {label: join_kernel_shapes(label, joins_of(label), counts[label])
+            for label in ("P21", "P22")}
+
+
+def time_strings_paths(runs):
+    """Phase 4: P21-P25 and P25 with its update sorting, in turns (the
+    order reversed every other round), P_STRING_ITERS runs each, one
+    synchronisation a run: collect() of the planned tree (P23 and P25:
+    its execute(), checked afterwards)."""
+    import torch
+    out = {label: [] for label in runs}
+    for i in range(P_STRING_ITERS):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            run, check = runs[label]
+            t0 = time.perf_counter()
+            rows = run()
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+            check(rows, f"{label} timed")
+    for label, ms in out.items():
+        print(f"{label} ms per run ({P_STRING_ITERS} runs, in turns): "
+              f"{[round(x, 3) for x in ms]}")
+    return out
 
 
 def main() -> int:
@@ -4925,7 +5756,9 @@ def main() -> int:
         for i in range(0, ROWS, step)]
     dj = tpch_join_data()
     jb = join_batches(dj, dev)
-    tm, tb, types_want = types_inputs(dev, d19, dj, q3_types_data(dj))
+    q3d = q3_types_data(dj)
+    tm, tb, types_want = types_inputs(dev, d19, dj, q3d)
+    str_m, str_b, strings_want = strings_inputs(dev, dj, q3d, d19, names)
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -5056,6 +5889,9 @@ def main() -> int:
     # among the payloads)
     with default_conf_after():
         compare_types_paths(dev, tm, tb)
+    # P21-P23's own inputs (phase 3f drives them): every launch of a run
+    with default_conf_after():
+        compare_strings_paths(dev, str_m, str_b, strings_want)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -5279,6 +6115,13 @@ def main() -> int:
             dev, tm, tb, types_want)
     print(f"phase 3e: {time.perf_counter() - t_types:.1f} s")
 
+    # -- phase 3f, slice 11: strings, regex and the new aggregates ---------
+    t_strings = time.perf_counter()
+    with default_conf_after():
+        str_counts, str_recs, str_runs, str_trees = drive_strings_paths(
+            dev, str_m, str_b, strings_want)
+    print(f"phase 3f: {time.perf_counter() - t_strings:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -5455,6 +6298,13 @@ def main() -> int:
         p19_shapes = p19_kernel_shapes(dev, tm, tb, types_counts["P19"])
     print(f"P17-P20 timings and P19's kernel shapes (phase 4): "
           f"{time.perf_counter() - t_types:.1f} s")
+    t_strings = time.perf_counter()
+    strings_ms = time_strings_paths(str_runs)
+    with default_conf_after():
+        str_shapes = strings_kernel_shapes(dev, str_m, str_b, strings_want,
+                                           str_counts)
+    print(f"P21-P25 timings and P21's and P22's kernel shapes (phase 4): "
+          f"{time.perf_counter() - t_strings:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -5509,12 +6359,14 @@ def main() -> int:
             m, scan_of(m, lines7), scan_of(m, build7)), P6_ITERS,
             args.profile.with_name(args.profile.stem + "_p7"
                                    + args.profile.suffix))
-        for label, (run, _) in types_runs.items():
+        profiled = [(label, run.__self__, P_TYPES_ITERS)
+                    for label, (run, _) in types_runs.items()] + [
+            (label, tree, P_STRING_ITERS)
+            for label, tree in str_trees.items()]
+        for label, tree, iters in profiled:
             tag = label.lower().replace(" ", "_")
-            profile_plan(label, run.__self__, P_TYPES_ITERS,
-                         args.profile.with_name(
-                             f"{args.profile.stem}_{tag}"
-                             f"{args.profile.suffix}"))
+            profile_plan(label, tree, iters, args.profile.with_name(
+                f"{args.profile.stem}_{tag}{args.profile.suffix}"))
     for r in records:
         r["path_launches"] = {
             "P1_q19_decoded": p1_counts.get(r["name"], 0),
@@ -5540,9 +6392,14 @@ def main() -> int:
             "P13_planned": join_recs["P13_planned"]["launches"].get(
                 r["name"], 0),
             **{k.replace(" ", "_"): v.get(r["name"], 0)
-               for k, v in types_counts.items()}}
+               for k, v in types_counts.items()},
+            **{k.replace(" ", "_"): v.get(r["name"], 0)
+               for k, v in str_counts.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
+        for label, shapes in str_shapes.items():
+            if r["name"] in shapes:
+                r[f"{label.lower()}_shapes"] = shapes[r["name"]]
         if r["name"] == "murmur3_columns":
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
@@ -5567,7 +6424,9 @@ def main() -> int:
                     planned_recs.items()},
         "join_paths": dict(join_recs, counts=join_counts, ms=join_ms),
         "types_paths": dict(types_recs, counts=types_counts,
-                            ms=types_ms)}}))
+                            ms=types_ms),
+        "strings_paths": dict(str_recs, counts=str_counts,
+                              ms=strings_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,18 +53,20 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
-from ..columnar.column import Column, Decimal128Column, bucket_capacity
+from ..columnar.column import (Column, Decimal128Column, StringColumn,
+                               bucket_capacity)
 from ..config import (AGG_GROUP_SLOTS, AGG_ROUNDS, AGG_SPECULATIVE,
                       FUSION_ENABLED, active_conf)
 from ..expr.aggexprs import AggregateFunction
-from ..expr.core import Expression
+from ..expr.core import Expression, UnresolvedAttribute
 from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
 from ..ops.aggregate import groupby_aggregate, groupby_aggregate_hash
 from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
-    masked_groupby, masked_groupby_exact, masked_reduce,
+    FIRST_LAST_OPS, masked_groupby, masked_groupby_exact, masked_reduce,
+    pick_string_row,
 )
 from ..types import (BinaryType, DataType, DecimalType, Schema, StringType,
                      StructField)
@@ -125,6 +127,7 @@ class AggregateExec(TpuExec):
             # the input is a partial's keys+buffers
             self._input_types = input_types
             self._buffer_schema = in_schema
+            self._pre_grouped = False
             return
 
         # pre-projection: keys then the union of agg inputs
@@ -155,6 +158,11 @@ class AggregateExec(TpuExec):
         self._fused_steps = list(reversed(steps))
         self._source = node
 
+        # when the child's contract (output_grouped_by) already groups the
+        # rows by this aggregate's keys (the inner join's key-grouped
+        # emission), the sort path of a source batch skips its sort
+        self._pre_grouped = self._input_pre_grouped()
+
         # the fused scan-aggregate kernel, when every absorbed expression
         # is in its whitelist
         if self.group_exprs and self._masked_ok:
@@ -167,6 +175,21 @@ class AggregateExec(TpuExec):
             self._scan_agg_spec = compile_scan_agg_spec(
                 self._fused_steps, self._pre_bound, self._pre_schema,
                 self._key_count, agg_op_slots, self._source.output_schema)
+
+    def _input_pre_grouped(self) -> bool:
+        """True when every key is a bare column that represents one of the
+        child's grouping classes, and every class is represented (else the
+        joint key tuples need not be contiguous)."""
+        hint = self.children[0].output_grouped_by
+        if not hint or not self.group_exprs:
+            return False
+        names = set()
+        for e in self.group_exprs:
+            if not isinstance(e, UnresolvedAttribute):
+                return False
+            names.add(e.name)
+        return names <= set().union(*hint) \
+            and all(cls & names for cls in hint)
 
     def _make_buffer_schema(self) -> Schema:
         fields = list(self._pre_schema.fields[: self._key_count])
@@ -356,11 +379,18 @@ class AggregateExec(TpuExec):
         """Exact group-by of one keys+inputs batch into a keys+buffers
         batch at the batch's capacity (one row for a grand aggregate)."""
         if not keys:
-            results = masked_reduce(agg_inputs, batch.num_rows, row_mask,
-                                    128)
+            def string_pick(op, c):
+                return op in FIRST_LAST_OPS and isinstance(c, StringColumn)
+            reduced = iter(masked_reduce(
+                [(op, c) for op, c in agg_inputs if not string_pick(op, c)],
+                batch.num_rows, row_mask, 128))
+            results = [("col", pick_string_row(op, c, batch.num_rows,
+                                               row_mask))
+                       if string_pick(op, c) else ("raw", next(reduced))
+                       for op, c in agg_inputs]
             return self._build_small_batch(
-                [], [("raw", r) for r in results],
-                torch.ones((), dtype=torch.int32, device=batch.device))
+                [], results, torch.ones((), dtype=torch.int32,
+                                        device=batch.device))
         out_keys, results, num_groups = masked_groupby_exact(
             keys, agg_inputs, batch.num_rows, batch.capacity, row_mask,
             self._slots, self._rounds)
@@ -381,14 +411,17 @@ class AggregateExec(TpuExec):
             return self._fused_update_exact(batch)
         pre = eval_projection(self._pre_bound, batch, self._pre_schema)
         keys, agg_inputs = self._update_inputs(pre)
-        return self._string_route(keys, agg_inputs, pre)
+        return self._string_route(keys, agg_inputs, pre, is_update=True)
 
-    def _string_route(self, keys, agg_inputs, batch: ColumnarBatch
-                      ) -> ColumnarBatch:
+    def _string_route(self, keys, agg_inputs, batch: ColumnarBatch,
+                      is_update: bool = False) -> ColumnarBatch:
         """Group-by without masked buckets: the hash path at 2 rounds, then
         6, then the exact sort path with string lanes that cover the
         longest string key or min/max input. Each hash attempt costs one
-        host read of its `leftover` flag."""
+        host read of its `leftover` flag. The sort path skips its sort for
+        a source batch whose keys the child's contract groups (merge
+        inputs are concatenated partials, so never there), as the JAX
+        package's `_jit_update` does."""
         if not keys:
             return self._run_groupby(keys, agg_inputs, batch)
         n, cap = batch.num_rows, batch.capacity
@@ -402,7 +435,8 @@ class AggregateExec(TpuExec):
                                                    num_groups)
         self.metrics[SORT_FALLBACK].add(1)
         out_keys, results, num_groups = groupby_aggregate(
-            keys, agg_inputs, n, cap)
+            keys, agg_inputs, n, cap,
+            pre_grouped=self._pre_grouped and is_update)
         return self._build_small_batch(out_keys, results, num_groups)
 
     def _fused_update_exact(self, batch: ColumnarBatch) -> ColumnarBatch:

@@ -110,6 +110,19 @@ class TpuExec:
     def additional_metrics(self) -> Sequence[str]:
         return ()
 
+    @property
+    def output_grouped_by(self):
+        """Grouping contract of this exec's output batches, or None.
+
+        A tuple of frozensets of output column names: within every
+        emitted batch, rows carrying equal values for (one representative
+        of each class) are contiguous, and the columns inside one class
+        are pairwise equal per row (the two sides of an equi-join key). A
+        group-by whose keys pick a representative from every class, and
+        nothing else, may skip its sort (ops/aggregate.groupby_aggregate
+        `pre_grouped`)."""
+        return None
+
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
 

@@ -17,7 +17,8 @@ import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import Column, bucket_capacity, resolve_device
-from ..expr.core import Expression, output_name, resolve
+from ..expr.core import (Alias, Expression, UnresolvedAttribute,
+                         output_name, resolve)
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
@@ -184,6 +185,31 @@ class ProjectExec(TpuExec):
         # every projection passes an encoded column through untouched or
         # touches strings only in code-space positions
         return all(encoded_safe_projection(e) for e in self._bound)
+
+    @property
+    def output_grouped_by(self):
+        """A projection keeps the row order: the child's grouping contract
+        carries through for the columns projected as bare references,
+        under their output names."""
+        child_hint = self.child.output_grouped_by
+        if not child_hint:
+            return None
+        renames = {}  # child name -> output names
+        for e in self.exprs:
+            out_name = None
+            src = e
+            if isinstance(e, Alias):
+                out_name = e.name
+                src = e.children[0]
+            if isinstance(src, UnresolvedAttribute):
+                renames.setdefault(src.name, set()).add(out_name or src.name)
+        classes = []
+        for cls in child_hint:
+            mapped = frozenset(n for c in cls for n in renames.get(c, ()))
+            if not mapped:
+                return None  # a grouping class left the output
+            classes.append(mapped)
+        return tuple(classes)
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():

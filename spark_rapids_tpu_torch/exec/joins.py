@@ -78,7 +78,7 @@ from ..ops.probe_verify import fused_probe_verify
 from ..ops.rowpack import unpack_rows
 from ..ops.sort import _float_order_bits, lexsort
 from ..ops.strings import string_lengths
-from ..types import BOOLEAN, Schema, StructField
+from ..types import BOOLEAN, DecimalType, Schema, StructField
 from .base import TpuExec
 from .basic import FilterExec, bind_projection
 from .coalesce import concat_batches
@@ -269,10 +269,12 @@ class HashJoinExec(TpuExec):
         """Inner-join output batches of fixed-width keys are emitted
         key-grouped: one equivalence class per key pair (left key == right
         key on every emitted row), by the names the output schema carries
-        once. Other joins, and string keys, emit in candidate order
-        (None)."""
+        once. Other joins, and string and decimal keys (not in the
+        packed key lanes), emit in candidate order (None), as in the JAX
+        package."""
         if self.join_type != INNER or not all(
                 e.data_type.is_fixed_width
+                and not isinstance(e.data_type, DecimalType)
                 for e in self._stream_keys + self._build_keys):
             return None
         out_names = [f.name for f in self.output_schema.fields]

@@ -1,5 +1,7 @@
 """Declarative aggregate functions — the counterpart of
-spark_rapids_tpu/expr/aggexprs.py for Sum, Count, Min, Max and Average. Each
+spark_rapids_tpu/expr/aggexprs.py for Sum, Count, Min, Max, First, Last,
+Average and the central moments (VarianceSamp, VariancePop, StddevSamp,
+StddevPop). Each
 function declares its buffer ops for the masked-bucket group-by
 (ops/maskedagg.py, ops/fused_scan_agg.py) and a final `evaluate`.
 
@@ -12,6 +14,13 @@ Spark semantics:
     avg over a DECIMAL is tagged off at plan time (the JAX package's
     raises, ROADMAP C.5)
   * min/max ignore nulls; null for all-null groups
+  * first/last: the group's first/last row in the input's order (the
+    batch order, partials merged in partition order), skipping nulls
+    with ignore_nulls; null for a group without one
+  * var_samp, var_pop, stddev_samp, stddev_pop -> double, from (count,
+    sum, sum_sq) buffers with the JAX package's formula: m2 = sum_sq -
+    n * mean^2 clamped at 0; NaN for n == 1 in the sample forms; null
+    for an empty group
 """
 
 from __future__ import annotations
@@ -180,6 +189,41 @@ class Max(Min):
         return ["max"]
 
 
+class First(AggregateFunction):
+    """first(expr[, ignoreNulls]): Spark's default ignoreNulls=False takes
+    the first row's value even when null; deterministic only over an
+    ordered input."""
+    name = "first"
+    _OPS = ("first", "first_any")
+
+    def __init__(self, *inputs, ignore_nulls: bool = False):
+        super().__init__(*inputs)
+        self.ignore_nulls = ignore_nulls
+
+    def _op(self) -> str:
+        return self._OPS[0] if self.ignore_nulls else self._OPS[1]
+
+    def update_ops(self):
+        return [(self._op(), 0)]
+
+    def merge_ops(self):
+        return [self._op()]
+
+    def buffer_types(self, input_types):
+        return [input_types[0]]
+
+    def result_type(self, input_types):
+        return input_types[0]
+
+    def evaluate(self, buffers, input_types):
+        return buffers[0]
+
+
+class Last(First):
+    name = "last"
+    _OPS = ("last", "last_any")
+
+
 class Average(AggregateFunction):
     name = "avg"
 
@@ -203,3 +247,65 @@ class Average(AggregateFunction):
         data = s.data.to(torch.float64) / denom.to(torch.float64)
         return Column(torch.where(ok, data, torch.zeros_like(data)), ok,
                       DoubleType())
+
+
+class _CentralMoment(AggregateFunction):
+    """The (count, sum, sum_sq) buffers of variance and stddev, and the JAX
+    package's one-pass formula (not Welford's: the last bits follow the
+    reference)."""
+
+    sample = True
+    sqrt = False
+
+    def update_ops(self):
+        return [("count", 0), ("sum", 0), ("sum_sq", 0)]
+
+    def merge_ops(self):
+        return ["sum", "sum", "sum"]
+
+    def buffer_types(self, input_types):
+        return [LongType(), DoubleType(), DoubleType()]
+
+    def result_type(self, input_types):
+        return DoubleType()
+
+    def evaluate(self, buffers, input_types):
+        c, s, sq = buffers
+        n = torch.where(c.validity, c.data, torch.zeros_like(c.data)) \
+            .to(torch.float64)
+        has = n > 0
+        safe_n = torch.where(has, n, torch.ones_like(n))
+        mean = s.data.to(torch.float64) / safe_n
+        m2 = sq.data.to(torch.float64) - n * mean * mean
+        m2 = torch.clamp(m2, min=0.0)  # catastrophic cancellation
+        if self.sample:
+            denom = n - 1.0
+            var = torch.where(denom > 0,
+                              m2 / torch.where(denom > 0, denom,
+                                               torch.ones_like(denom)),
+                              torch.full_like(m2, float("nan")))  # n == 1
+        else:
+            var = m2 / safe_n
+        out = torch.sqrt(var) if self.sqrt else var
+        return Column(torch.where(has, out, torch.zeros_like(out)), has,
+                      DoubleType())
+
+
+class VarianceSamp(_CentralMoment):
+    name = "var_samp"
+    sample = True
+
+
+class VariancePop(_CentralMoment):
+    name = "var_pop"
+    sample = False
+
+
+class StddevSamp(_CentralMoment):
+    name = "stddev_samp"
+    sample, sqrt = True, True
+
+
+class StddevPop(_CentralMoment):
+    name = "stddev_pop"
+    sample, sqrt = False, True

@@ -8,8 +8,12 @@ above every other value.
 
 `EqualTo` of a dictionary column and a string literal, and `In` over
 string literals, evaluate on the codes (columnar/encoded.py); any other
-comparison that meets a dictionary column raises TypeError. Comparisons
-of decoded strings wait for a later slice (ROADMAP A.8).
+comparison that meets a dictionary column raises TypeError (the exec
+layer decodes first: `encoded_safe_predicate`). Decoded strings compare
+as bytes: the orderings through ops/strings.string_compare_cols (a loop
+over the common prefix, one counted host read), equality and `In`
+through ops/strings.string_equal (no loop), where the JAX package takes
+the compare's sign for both.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from ..columnar.column import Column, StringColumn
 from ..columnar.encoded import DictionaryColumn, encoded_equal_literal
+from ..ops.strings import string_compare_cols, string_equal
 from ..types import BOOLEAN, BinaryType, DataType, StringType, numeric_promote
 from .core import Alias, BoundReference, Expression, Literal, \
     UnresolvedAttribute, lit
@@ -57,8 +62,7 @@ class BinaryComparison(Expression):
 
     def columnar_eval(self, batch) -> Column:
         # the column operand first: a dictionary column fails loudly
-        # before a string literal (no per-row form yet, ROADMAP A.8) is
-        # evaluated
+        # before a string literal is expanded to its rows
         order = (1, 0) if isinstance(self.left, Literal) else (0, 1)
         cols = [None, None]
         for i in order:
@@ -73,11 +77,10 @@ class BinaryComparison(Expression):
         return self._compare_cols(*cols)
 
     def _compare_cols(self, l: Column, r: Column) -> Column:
-        if isinstance(l, StringColumn) or isinstance(r, StringColumn):
-            raise NotImplementedError(
-                "comparisons of decoded strings wait for a later slice "
-                "(ROADMAP A.8)")
         valid = l.validity & r.validity
+        if isinstance(l, StringColumn) or isinstance(r, StringColumn):
+            data = self._compare_strings(l, r)
+            return Column(data & valid, valid, BOOLEAN)
         common = l.dtype if l.dtype == r.dtype \
             else numeric_promote(l.dtype, r.dtype)
         ld = l.data.to(common.torch_dtype)
@@ -87,6 +90,9 @@ class BinaryComparison(Expression):
         else:
             data = self._op(ld, rd)
         return Column(data & valid, valid, BOOLEAN)
+
+    def _compare_strings(self, l: StringColumn, r: StringColumn):
+        return self._cmp_from_sign(string_compare_cols(l, r))
 
     def _op(self, l, r):
         raise NotImplementedError
@@ -120,6 +126,10 @@ class EqualTo(BinaryComparison):
         if isinstance(c, DictionaryColumn):
             return encoded_equal_literal(c, literal.value)
         return self._compare_cols(c, literal.columnar_eval(batch))
+
+    def _compare_strings(self, l: StringColumn, r: StringColumn):
+        # equal lengths and bytes: the compare's sign == 0 without its loop
+        return string_equal(l, r).data
 
     def _op(self, l, r):
         return l == r

@@ -1,8 +1,11 @@
 """Group-by kernels — the counterpart of `groupby_aggregate`,
 `groupby_aggregate_hash` and `_aggregate_with_assignment` in
 spark_rapids_tpu/ops/aggregate.py, for fixed-width and string keys and
-the sum, sum_sq, count, count_star, min and max aggregates (min and max
-over strings too).
+the sum, sum_sq, count, count_star, min, max and first/last aggregates
+(min, max, first and last over strings too). first/last pick by row
+position within the batch, as the JAX package's do: after the stable
+sort on the sort path (or in input order when `pre_grouped`), in input
+order on the hash path.
 
 Sort-based: order-key lanes (ops/sort.py; a string key orders by its
 prefix lanes, `string_words` of them, and its length) -> one stable sort
@@ -29,11 +32,14 @@ import torch
 
 from ..columnar.column import Column, StringColumn
 from .basic import active_mask, gather_column
-from .maskedagg import bucket_reduce
+from .maskedagg import FIRST_LAST_OPS, bucket_reduce, pick_position
 from .sort import (SortOrder, group_segment_ids, lexsort,
                    sort_batch_columns, string_order_lanes, string_words_for)
 
-AGG_OPS = ("sum", "sum_sq", "count", "count_star", "min", "max")
+#: first/last skip nulls (ignoreNulls=True); first_any/last_any take the
+#: first/last row whatever its value (Spark's default ignoreNulls=False)
+AGG_OPS = ("sum", "sum_sq", "count", "count_star", "min", "max", "first",
+           "last", "first_any", "last_any")
 
 
 def _segment_reduce(op: str, col: Optional[Column], seg, act,
@@ -52,7 +58,14 @@ def _segment_reduce(op: str, col: Optional[Column], seg, act,
 def _reduce_result(op: str, col: Optional[Column], seg, act, group_act,
                    capacity: int):
     """One aggregate's tagged result over the segments: ("raw", (data,
-    validity)), or for min/max over strings ("col", a StringColumn)."""
+    validity)), or for first/last over strings ("col", a StringColumn:
+    the picked row of each segment, gathered)."""
+    if isinstance(col, StringColumn) and op in FIRST_LAST_OPS:
+        pick = pick_position(op, seg.long(), capacity, act,
+                             col.validity & act)
+        ok = (pick >= 0) & (pick < capacity) & group_act
+        safe = torch.clamp(pick, 0, capacity - 1).to(torch.int32)
+        return "col", gather_column(col, safe, out_valid=ok)
     if isinstance(col, StringColumn) and op != "count":
         raise NotImplementedError(
             f"{op} over strings takes the sort path (ops/aggregate."
@@ -108,9 +121,12 @@ def groupby_aggregate(key_columns: Sequence[Column],
     results = []
     for op, col in agg_inputs:
         g = next(sorted_in) if col is not None else None
-        if isinstance(g, StringColumn) and op in ("min", "max"):
-            pick = _pick_string_pos(op, string_order_lanes(g, string_words),
-                                    g.validity, seg, capacity, positions)
+        if isinstance(g, StringColumn) and op in ("min", "max",
+                                                   *FIRST_LAST_OPS):
+            lanes = string_order_lanes(g, string_words) \
+                if op in ("min", "max") else ()
+            pick = _pick_string_pos(op, lanes, g.validity, seg, capacity,
+                                    positions)
             ok = pick < capacity
             results.append(("col", gather_column(
                 g, torch.clamp(pick, 0, capacity - 1),
@@ -135,7 +151,12 @@ def _pick_string_pos(op: str, lanes, valid, seg, capacity: int, positions):
     """Row of the min (max) valid string of each segment, or capacity for a
     segment without one: rows sorted by (segment, null last, the string's
     order lanes, inverted for max), then each segment's first valid
-    row."""
+    row. first/last pick by position (`pick_position`)."""
+    if op in FIRST_LAST_OPS:
+        act = seg < capacity
+        pick = pick_position(op, seg.long(), capacity, act, valid & act)
+        ok = (pick >= 0) & (pick < capacity)
+        return torch.where(ok, pick, capacity).to(torch.int32)
     key = [(seg.to(torch.int64), 32), ((~valid).to(torch.int64), 1)]
     for lane, bits in lanes:
         if op == "max":

@@ -201,7 +201,7 @@ def masked_group_assignment(key_cols: Sequence[Column], num_rows,
 def acc_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
     """Accumulator dtype of a masked aggregate (the JAX package's
     `_acc_dtype`: i32 counts, i64/f64 sums, the input dtype for min/max
-    with bool on an int8 lane)."""
+    with bool on an int8 lane, and for first/last)."""
     if op in ("count", "count_star"):
         return torch.int32
     if op in ("sum", "sum_sq"):
@@ -249,7 +249,52 @@ def bucket_reduce(op: str, col: Optional[Column], b, S: int, rows):
     if op in ("min", "max"):
         data = data.to(adt)
         return _per_bucket(b, S, v, data, op, minmax_neutral(op, adt)), has
+    if op in FIRST_LAST_OPS:
+        return pick_first_last(op, col, b, S, rows, v)
     raise ValueError(f"unsupported masked aggregate {op!r}")
+
+
+#: first/last skip nulls (ignoreNulls=True); the _any forms take the
+#: first/last active row whatever its value (Spark's default)
+FIRST_LAST_OPS = ("first", "last", "first_any", "last_any")
+
+
+def pick_position(op: str, b, S: int, rows, valid) -> torch.Tensor:
+    """(S,) row position of each bucket's first (last) row: among its
+    valid rows for first/last, among its active `rows` for the _any
+    forms; capacity (-1 for last) when there is none. The JAX package's
+    position semantics: rows count in batch order.
+
+    A stable sort of the bucket ids keeps each bucket's rows in position
+    order, so its first (last) row sits where a binary search for the
+    bucket id starts (ends): no atomics, where a scatter-min into a few
+    buckets serialises on them (PERF.md §5k, P24)."""
+    cap = b.shape[0]
+    mask = rows if op.endswith("_any") else valid
+    last = op.startswith("last")
+    if cap == 0:
+        return torch.full((S,), -1 if last else 0, dtype=torch.int64,
+                          device=b.device)
+    key = torch.where(mask, b.long(), S)
+    ids, order = torch.sort(key, stable=True)
+    q = torch.arange(S, dtype=torch.int64, device=b.device)
+    lo = torch.searchsorted(ids, q)
+    hi = torch.searchsorted(ids, q, right=True)
+    if last:
+        return torch.where(hi > lo, order[torch.clamp(hi - 1, min=0)], -1)
+    return torch.where(hi > lo, order[torch.clamp(lo, max=cap - 1)], cap)
+
+
+def pick_first_last(op: str, col: Column, b, S: int, rows, valid):
+    """((S,) values, (S,) validity) of first/last per bucket: the value
+    at the picked position; an _any pick is null where that row is."""
+    cap = b.shape[0]
+    pick = pick_position(op, b, S, rows, valid)
+    ok = (pick >= 0) & (pick < cap)
+    safe = torch.clamp(pick, 0, cap - 1)
+    if op.endswith("_any"):
+        ok = ok & col.validity[safe]
+    return col.data[safe], ok
 
 
 def masked_groupby(key_columns: Sequence[Column],
@@ -362,6 +407,25 @@ def masked_reduce(agg_inputs: Sequence[Tuple[str, Optional[Column]]],
         valid[:1] = ok
         out.append((_first_row(val, out_capacity), valid))
     return out
+
+
+def pick_string_row(op: str, col, num_rows, row_mask=None,
+                    out_capacity: int = 128):
+    """A grand first/last over a string column: the picked row as a
+    one-row StringColumn at out_capacity (the JAX package's masked
+    reduction returns the row's first byte here, ROADMAP C.5)."""
+    from .basic import gather_column
+    cap = col.capacity
+    act = active_mask(num_rows, cap, col.device)
+    if row_mask is not None:
+        act = act & row_mask
+    pick = pick_position(op, torch.zeros(cap, dtype=torch.int64,
+                                         device=col.device), 1, act,
+                         col.validity & act)
+    idx = torch.full((out_capacity,), -1, dtype=torch.int64,
+                     device=col.device)
+    idx[:1] = torch.where((pick >= 0) & (pick < cap), pick, -1)
+    return gather_column(col, idx.to(torch.int32))
 
 
 def _first_row(val, out_capacity: int):

@@ -7,7 +7,7 @@ As in the JAX package, the engine has no host engine underneath: a node
 that cannot run on the card makes `apply` raise PlanNotSupported with the
 whole explain report. The rules cover what the port has: the expressions
 of expr/{core,arithmetic,predicates,conditional,cast,math,bitwise,
-datetimeexprs,aggexprs} and `stringexprs.FormatNumber`, and the scan,
+datetimeexprs,hashexprs,stringexprs,aggexprs}, and the scan,
 project, filter, range, union, limit, expand, sample, aggregate
 (single-stage, or partial -> host exchange -> final), hash join of every
 join type (broadcast, host-shuffled or single-partition), nested-loop
@@ -19,23 +19,17 @@ with a reason naming its ROADMAP item, so nothing raises mid-run:
 
 - the adaptive join the JAX package plans when a side's size is unknown
   (AdaptiveJoinExec): A.3 and A.9;
-- aggregate functions the port lacks: A.2; an average over a DECIMAL,
-  whose evaluation raises in the JAX package (C.5);
+- aggregate functions the port lacks (collect_list, collect_set,
+  percentile, approx_percentile: A.2 with wave 3's ArrayColumn); an
+  average over a DECIMAL, whose evaluation raises in the JAX package
+  (C.5);
 - a node the JAX package would run on its host row engine
   (`_can_host_fallback`), the cost-based placement and the UDF compiler:
   A.8 wave 4 (their confs raise in config.RapidsConf). The expressions
   the JAX package tags off its device (decimal128 multiply and divide,
-  casts without a kernel, unknown time zones, format_number of a
-  DECIMAL) are tagged off with its reasons;
-- a string comparison the port cannot run: its string predicates run in
-  code space only, as equality or IN of a dictionary-encoded column
-  against literals (A.8 wave 2 brings comparisons of decoded strings).
-  The planner follows which string columns reach each node encoded
-  (`encoded_out`: a source's `encoded_columns()`, through the filters,
-  projections and joins that keep them encoded; an aggregate, sort or
-  exchange decodes them, and an aggregate whose keys and buffers are
-  fixed-width reads its absorbed filter and projection over decoded
-  columns).
+  casts without a kernel, unknown time zones, a regex pattern its
+  compiler or span finder rejects, a UTF-16 charset, Levenshtein,
+  format_number of a DECIMAL) are tagged off with its reasons.
 
 Also waiting for their items: the mesh (`_plan_mesh` and the
 distributed aggregate and join over it, A.6: with no mesh the JAX
@@ -67,13 +61,12 @@ from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, HashJoinExec,
 from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
                          resolve_sort_orders)
 from ..expr import (aggexprs, arithmetic, bitwise, cast, conditional,
-                    datetimeexprs, predicates, stringexprs)
+                    datetimeexprs, hashexprs, predicates, stringexprs)
 from ..expr import math as emath
 from ..expr.core import (
-    Alias, BoundReference, Expression, Literal, UnresolvedAttribute,
-    output_name, resolve,
+    Alias, BoundReference, Expression, Literal, UnresolvedAttribute, resolve,
 )
-from ..types import BinaryType, DecimalType, Schema, StringType
+from ..types import DecimalType, StringType
 from . import logical as L
 from .meta import BaseMeta, ExprMeta, ExprRule
 from .typesig import (
@@ -84,7 +77,6 @@ from .typesig import (
 #: the reasons of nodes that are not ported, by ROADMAP item
 JOINS = "waits for ROADMAP A.3 and A.9"
 HOST_TIER = "waits for ROADMAP A.8 wave 4"
-STRINGS = "waits for ROADMAP A.8 wave 2"
 
 
 class PlanNotSupported(Exception):
@@ -203,9 +195,67 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
                  (bitwise.ShiftRight, "arithmetic right shift"),
                  (bitwise.ShiftRightUnsigned, "logical right shift")):
         _r(rules, c, d, integral, integral)
-    _r(rules, stringexprs.FormatNumber,
+    # hash
+    _r(rules, hashexprs.Murmur3Hash, "murmur3 hash", commonly_supported,
+       integral)
+    _r(rules, hashexprs.XxHash64, "xxhash64", commonly_supported, integral)
+    # strings
+    se = stringexprs
+    _r(rules, se.Length, "string length", stringlike, integral)
+    _r(rules, se.Upper, "uppercase (ASCII)", stringlike, stringlike)
+    _r(rules, se.Lower, "lowercase (ASCII)", stringlike, stringlike)
+    _r(rules, se.Substring, "substring", stringlike, stringlike)
+    _r(rules, se.StartsWith, "prefix match", stringlike, BOOLEAN)
+    _r(rules, se.EndsWith, "suffix match", stringlike, BOOLEAN)
+    _r(rules, se.Contains, "substring match", stringlike, BOOLEAN)
+    for c, d in ((se.StringTrim, "trim"), (se.StringTrimLeft, "ltrim"),
+                 (se.StringTrimRight, "rtrim"), (se.StringLPad, "lpad"),
+                 (se.StringRPad, "rpad"), (se.StringRepeat, "repeat"),
+                 (se.Reverse, "reverse (byte order)"),
+                 (se.InitCap, "initcap"),
+                 (se.StringReplace, "literal replace"),
+                 (se.Concat, "string concatenation"),
+                 (se.ConcatWs, "concat with separator"),
+                 (se.StringTranslate, "character translation"),
+                 (se.Left, "left substring"), (se.Right, "right substring")):
+        _r(rules, c, d, stringlike, stringlike)
+    _r(rules, se.StringLocate, "substring position", stringlike, integral)
+    _r(rules, se.Ascii, "first byte code", stringlike, integral)
+    _r(rules, se.Chr, "code point to string", integral, stringlike)
+    _r(rules, se.OctetLength, "byte length", stringlike, integral)
+    _r(rules, se.BitLength, "bit length", stringlike, integral)
+    _r(rules, se.RLike,
+       "regex match (device Glushkov automaton; unsupported constructs "
+       "tag off, reference RegexParser.scala:687)",
+       stringlike, BOOLEAN, tag_fn=_tag_regex)
+    _r(rules, se.Like, "SQL LIKE pattern", stringlike, BOOLEAN,
+       tag_fn=_tag_regex)
+    # the JAX package's host-tier family: device kernels where
+    # `device_supported`, tagged off elsewhere
+    _r(rules, se.SubstringIndex, "substring_index", stringlike, stringlike,
+       tag_fn=_tag_device_when_supported)
+    _r(rules, se.FindInSet, "find_in_set", stringlike, integral)
+    _r(rules, se.RegExpExtract, "regex group extract", stringlike,
+       stringlike, tag_fn=_tag_device_when_supported)
+    _r(rules, se.RegExpReplace, "regex replace", stringlike, stringlike,
+       tag_fn=_tag_device_when_supported)
+    _r(rules, se.FormatNumber,
        "format_number (device digit emission; decimal inputs host tier)",
        numeric, stringlike, tag_fn=_tag_device_when_supported)
+    _r(rules, se.Levenshtein, "edit distance (host tier)", stringlike,
+       integral, tag_fn=_tag_device_when_supported)
+    for c, d, in_sig in (
+            (se.Base64Encode, "base64 encode", stringlike),
+            (se.UnBase64, "base64 decode", stringlike),
+            (se.Hex, "hex encode", stringlike + integral),
+            (se.Unhex, "hex decode", stringlike)):
+        _r(rules, c, d, in_sig, stringlike)
+    for c, d, in_sig in (
+            (se.Encode, "charset encode", TypeSig.of("STRING")),
+            (se.Decode, "charset decode", stringlike)):
+        _r(rules, c,
+           d + " (device UTF-8/ASCII/Latin-1 byte maps; UTF-16 host tier)",
+           in_sig, stringlike, tag_fn=_tag_device_when_supported)
     _EXPR_RULES = rules
     return rules
 
@@ -290,7 +340,20 @@ def _tag_device_when_supported(meta) -> None:
     if not getattr(meta.expr, "device_supported", True):
         meta.will_not_work_on_tpu(
             f"{type(meta.expr).__name__} is a host-tier expression "
-            "(runs via CPU fallback; no device kernel)")
+            "(runs via CPU fallback; no device kernel) and the port's host "
+            f"tier {HOST_TIER}")
+
+
+def _tag_regex(meta) -> None:
+    """Compile the pattern at tag time: a construct the automaton cannot
+    run tags the expression off instead of raising mid-run (reference
+    RegexParser.scala:687 transpile-or-fallback), with the compiler's
+    message as the JAX package gives it."""
+    from ..regex import RegexUnsupported
+    try:
+        meta.expr.program
+    except RegexUnsupported as e:
+        meta.will_not_work_on_tpu(str(e))
 
 
 _AGG_RULES = None
@@ -299,8 +362,9 @@ _AGG_RULES = None
 def aggregate_window_rules() -> Dict[type, ExprRule]:
     """Aggregate functions as rules, in a table of their own as in the
     JAX package (AggregateFunction is not an Expression: its tagging runs
-    at the LogicalAggregate node). The window functions come with A.8
-    wave 3."""
+    at the LogicalAggregate node). collect_list, collect_set and the
+    percentiles come with A.8 wave 3's ArrayColumn (A.2), the window
+    functions with wave 3."""
     global _AGG_RULES
     if _AGG_RULES is not None:
         return _AGG_RULES
@@ -309,7 +373,13 @@ def aggregate_window_rules() -> Dict[type, ExprRule]:
                  (aggexprs.Count, "count aggregate"),
                  (aggexprs.Min, "min aggregate"),
                  (aggexprs.Max, "max aggregate"),
-                 (aggexprs.Average, "average aggregate")):
+                 (aggexprs.First, "first aggregate"),
+                 (aggexprs.Last, "last aggregate"),
+                 (aggexprs.Average, "average aggregate"),
+                 (aggexprs.StddevPop, "stddev_pop aggregate"),
+                 (aggexprs.StddevSamp, "stddev_samp aggregate"),
+                 (aggexprs.VariancePop, "var_pop aggregate"),
+                 (aggexprs.VarianceSamp, "var_samp aggregate")):
         _r(rules, c, d, commonly_supported, commonly_supported)
     _AGG_RULES = rules
     return rules
@@ -397,54 +467,6 @@ def estimate_plan_size(plan: L.LogicalPlan) -> Optional[int]:
     return None
 
 
-def _string_typed(e: Expression) -> bool:
-    try:
-        return isinstance(e.data_type, (StringType, BinaryType))
-    except TypeError:
-        return False
-
-
-def _bare_name(e: Expression) -> Optional[str]:
-    while isinstance(e, Alias):
-        e = e.children[0]
-    if isinstance(e, (BoundReference, UnresolvedAttribute)):
-        return e.name
-    return None
-
-
-def code_space_ok(e: Expression, encoded) -> bool:
-    """True when every string comparison in the bound expression `e` has
-    a code-space lane over the columns named in `encoded`: equality of a
-    bare encoded reference with a literal, or its IN list."""
-    if isinstance(e, (predicates.BinaryComparison, predicates.In)) \
-            and any(_string_typed(c) for c in e.children):
-        kids = e.children
-        ref = None
-        if isinstance(e, predicates.In):
-            ref = kids[0]
-        elif type(e) is predicates.EqualTo:
-            if isinstance(kids[1], Literal):
-                ref = kids[0]
-            elif isinstance(kids[0], Literal):
-                ref = kids[1]
-        return ref is not None and _bare_name(ref) in encoded
-    return all(code_space_ok(c, encoded) for c in e.children)
-
-
-def _strings_ok(e: Expression, schema, encoded) -> bool:
-    try:
-        bound = resolve(e, schema)
-    except (KeyError, TypeError):
-        return True  # unresolvable: the expression tags say so
-    return code_space_ok(bound, encoded)
-
-
-def _pair_schema(p: L.LogicalJoin) -> Schema:
-    """The schema a join's condition binds to: left columns, then right."""
-    return Schema(tuple(p.children[0].schema.fields)
-                  + tuple(p.children[1].schema.fields))
-
-
 class PlanMeta(BaseMeta):
     def __init__(self, plan: L.LogicalPlan, conf: RapidsConf):
         super().__init__()
@@ -454,7 +476,6 @@ class PlanMeta(BaseMeta):
         self.expr_metas: List[ExprMeta] = [
             ExprMeta.wrap(e, conf, sch)
             for e, sch in self._expression_pairs()]
-        self._encoded = None
 
     def _expression_pairs(self):
         """(expression, input schema) pairs — the schema lets tagging bind
@@ -496,7 +517,6 @@ class PlanMeta(BaseMeta):
             if not c.can_run_on_tpu:
                 self.will_not_work_on_tpu("child plan cannot run on TPU")
         self._tag_unported()
-        self._tag_strings()
         for em in self.expr_metas:
             em.tag_for_tpu()
         if any(not em.can_run_on_tpu for em in self.expr_metas):
@@ -558,86 +578,6 @@ class PlanMeta(BaseMeta):
             except (KeyError, TypeError):
                 continue
         return False
-
-    def encoded_out(self) -> frozenset:
-        """The string columns that leave this node dictionary-encoded
-        (when its parent takes encoded input)."""
-        if self._encoded is None:
-            self._encoded = frozenset(self._encoded_out())
-        return self._encoded
-
-    def _encoded_out(self):
-        p = self.plan
-        if isinstance(p, L.LogicalScan):
-            cols = getattr(p.source, "encoded_columns", None)
-            return cols() if callable(cols) else ()
-        if isinstance(p, (L.LogicalFilter, L.LogicalProject)):
-            enc = self.children[0].encoded_out()
-            exprs = [p.condition] if isinstance(p, L.LogicalFilter) \
-                else p.exprs
-            if not all(_strings_ok(e, p.children[0].schema, enc)
-                       for e in exprs):
-                return ()
-            if isinstance(p, L.LogicalFilter):
-                return enc
-            return [output_name(e, f"col{i}") for i, e in enumerate(exprs)
-                    if _bare_name(e) in enc]
-        if isinstance(p, L.LogicalJoin) and self._join_strategy(p)[0] in (
-                "broadcast_right", "broadcast_left", "hash"):
-            enc = self.children[0].encoded_out() \
-                | self.children[1].encoded_out()
-            if p.condition is None \
-                    or _strings_ok(p.condition, _pair_schema(p), enc):
-                if p.join_type in ("left_semi", "left_anti", "existence"):
-                    return self.children[0].encoded_out()
-                return enc
-        if isinstance(p, L.LogicalUnion):
-            return frozenset.intersection(*(c.encoded_out()
-                                            for c in self.children))
-        if isinstance(p, L.LogicalLimit):
-            return self.children[0].encoded_out()
-        return ()
-
-    def _tag_strings(self) -> None:
-        """Tag off a string comparison that would meet decoded strings."""
-        p = self.plan
-        checks = []  # (expression, schema, encoded columns)
-        if isinstance(p, L.LogicalFilter):
-            checks.append((p.condition, p.children[0].schema,
-                           self.children[0].encoded_out()))
-        elif isinstance(p, L.LogicalProject):
-            checks += [(e, p.children[0].schema,
-                        self.children[0].encoded_out()) for e in p.exprs]
-        elif isinstance(p, L.LogicalJoin) and p.condition is not None:
-            enc = self.children[0].encoded_out() \
-                | self.children[1].encoded_out() \
-                if self._join_strategy(p)[0] in (
-                    "broadcast_right", "broadcast_left", "hash") \
-                else frozenset()
-            checks.append((p.condition, _pair_schema(p), enc))
-        elif isinstance(p, L.LogicalExpand):
-            checks += [(e, p.children[0].schema, frozenset())
-                       for proj in p.projections for e in proj]
-        elif isinstance(p, L.LogicalAggregate):
-            child = p.children[0]
-            checks += [(e, child.schema, frozenset()) for e in
-                       p.group_exprs + [e for fn, _ in p.aggregates
-                                        for e in fn.inputs]]
-            # fixed-width keys and buffers: the aggregate absorbs the
-            # filter/project chain below it and reads its source decoded
-            if all(f.data_type.is_fixed_width for f in p.schema.fields):
-                while isinstance(child, (L.LogicalFilter, L.LogicalProject)):
-                    exprs = [child.condition] \
-                        if isinstance(child, L.LogicalFilter) else child.exprs
-                    checks += [(e, child.children[0].schema, frozenset())
-                               for e in exprs]
-                    child = child.children[0]
-        for e, schema, enc in checks:
-            if not _strings_ok(e, schema, enc):
-                self.will_not_work_on_tpu(
-                    f"a comparison of decoded strings in {e!r} {STRINGS} "
-                    "(the port compares strings as dictionary codes "
-                    "only)")
 
     def _can_host_fallback(self) -> bool:
         """True where the JAX package would run this node on its host row

@@ -357,8 +357,8 @@ def test_unported_nodes_raise_naming_their_item(case):
             left_on="k", right_on="k2", how="left_outer")
         item = "A.3"
     else:
-        # the JAX package's first(): an aggregate function the port's
-        # rule table lacks
+        # an aggregate function the port's rule table lacks (A.2's
+        # collect_* and percentiles wait for wave 3's ArrayColumn)
         from spark_rapids_tpu_torch.expr.aggexprs import Min
 
         class FirstValue(Min):
@@ -415,3 +415,38 @@ def test_disabled_operator_and_sql_off_tag_off():
             q.collect()
     ok = df.filter(tcore.col("k") > tcore.lit(2))
     assert [r[0] for r in ok.collect()] == [3, 4, 5, 6, 7]
+
+
+#: string expressions the device cannot run: (a function of a namespace,
+#: the words the port's tag-off reason holds)
+STRING_TAG_OFFS = {
+    "rlike backreference": (lambda m: m.F.rlike("s", "(a)\\1"),
+                            "backreferences not supported"),
+    "like over 32 positions": (lambda m: m.F.like("s", "a" * 40),
+                               "more than 32 positions"),
+    "regexp_replace variable span": (
+        lambda m: m.F.regexp_replace("s", "a*b", "x"), "A.8 wave 4"),
+    "levenshtein": (lambda m: m.F.levenshtein("s", "s"), "A.8 wave 4"),
+    "encode UTF-16": (lambda m: m.F.encode("s", "UTF-16"), "A.8 wave 4"),
+}
+
+
+@pytest.mark.parametrize("case", list(STRING_TAG_OFFS))
+def test_string_expressions_without_a_device_path_tag_off(case):
+    """A regex the automaton rejects tags off at plan time with the
+    reference's reason (the same text the JAX package's explain holds); a
+    shape with no device path (a span the finder cannot place, the host
+    tier's Levenshtein and UTF-16) tags off naming ROADMAP A.8 wave 4.
+    Nothing raises mid-run."""
+    build, words = STRING_TAG_OFFS[case]
+    js, ts = sessions()
+    data = {"s": ["abab", "b", None]}
+    dfs = [sess.from_pydict(data, m.t.Schema((m.t.StructField(
+        "s", m.t.STRING),))).select(build(m).alias("x"))
+        for m, sess in ((JAX, js), (TORCH, ts))]
+    with pytest.raises(tover.PlanNotSupported) as e:
+        dfs[1].collect()
+    assert words in str(e.value)
+    assert "! " in dfs[1].explain()
+    if "wave 4" not in words:
+        assert words in dfs[0].explain()
