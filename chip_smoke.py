@@ -58,7 +58,11 @@ fails the run on error:
      decimal128 revenue as two limb lanes) and its dictionary take;
      every launch of a run of P21-P25: each join's murmur3 chain, probe
      and row gathers (P21, P22, P25), every murmur3 launch of P23's hash
-     of a long, every row gather of P24's group-by and sort);
+     of a long, every row gather of P24's group-by and sort; every row
+     gather (and dictionary gather, none so far) of a run of P26-P28:
+     the window's sorts, P26's filter compaction, P27's out-of-core
+     sort runs and merges, P28's group-by sorts and the explode's
+     payload);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -208,6 +212,29 @@ fails the run on error:
      inner join's key-grouped output and skips its update sort (the
      pre-grouped path); with the regex loop's evaluations, steps and
      host reads;
+  3g. drives A.8 wave 3a, planned from DataFrames at SF1 and held to
+     numpy oracles columnwise, with launches, host reads and each
+     path's input bound: P26, P12's 1,500,000 orders with o_custkey
+     (about 100,000 customers) and o_totalprice (its lines' price x
+     (1 - discount)), cache()d once (one materialization for both
+     specs): spec A ranks each customer's orders by o_totalprice DESC
+     (row_number, rank, dense_rank, lag, lead) and keeps rank <= 3,
+     spec B by o_orderdate a running sum, a 3-row sliding min/max, a
+     RANGE 90-day sum, whole-partition avg and count and
+     first/last_value; P27, P6's 6,001,215 lines as 16 batches (more
+     sorted runs than the sort's merge fan-in) windowed by the two flags
+     (sum, avg, count, each line's share of its group's revenue) under
+     a device budget (drive_under_budget): the sort goes out of core,
+     the N/O partition takes the two-pass carry (its counters printed),
+     the catalog empty after; P28, the lines' parts and suppliers
+     collected by order (collect_list, collect_set, size, sort_array,
+     array_contains, element_at, array_max), exploded and posexploded
+     back to the lines, percentile and approx_percentile by the flags
+     (within n/accuracy in rank of numpy's quantiles) and P21's 200,000
+     p_type split into words, exploded and counted by word; the
+     collect over 16 shuffle partitions is planned and printed as
+     single-partition (list buffers never cross the host shuffle in
+     either package);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -253,22 +280,28 @@ fails the run on error:
      taken (3 runs each, in turns, one synchronisation a run; P23's
      execute() checked columnwise) and
      rows 2+3, 4 and 5 at every P21 and P22 shape
-     (strings_kernel_shapes).
+     (strings_kernel_shapes). Then P26 and P28 in turns with P27's
+     unconstrained twin (3 runs each, one synchronisation a run), P27
+     under its budget (3 runs), and dma_row_gather at every distinct
+     shape of P26-P28 beside index_select (windows_gather_shapes).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
 prints the device's busy share and time by kernel, and writes the Chrome
 traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6", "_p7",
 "_p17", "_p18", "_p19", "_p20_sample", "_p20_sort", "_p20_year", "_p21",
-"_p22", "_p23_part", "_p23_customer", "_p23_names", "_p24" or "_p25"
-before its suffix.
+"_p22", "_p23_part", "_p23_customer", "_p23_names", "_p24", "_p25",
+"_p26_a", "_p26_b", "_p28_collect", "_p28_explode", "_p28_posexplode",
+"_p28_percentile", "_p28_split" or "_p27_unconstrained" before its
+suffix.
 
 The last lines are a JSON line with the records of P1-P11, the spill
 rates, the ingest rates, the split's fetch rates and the planned queries
 of phase 3c (under "planned": plan ms, launches beside the hand-built
 plan's, the differences and the session timings) and phase 3d's (under
 "join_paths": launches, rows and ms), phase 3e's (under
-"types_paths") and phase 3f's (under "strings_paths"), a JSON line with one record per
+"types_paths"), phase 3f's (under "strings_paths") and phase 3g's (under
+"windows_paths"), a JSON line with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
@@ -276,8 +309,9 @@ gather's every shape under "shapes", the reorders' under
 "reorder_shapes" and Q21's under "q21_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
 kernel's launches on P1-P25 and the planned queries under
-"path_launches", and rows 2, 4, 5 and 6 at P19's, P21's and P22's
-shapes under "p19_shapes", "p21_shapes" and "p22_shapes"), the card as
+"path_launches", rows 2, 4, 5 and 6 at P19's, P21's and P22's
+shapes under "p19_shapes", "p21_shapes" and "p22_shapes", and the row
+gather at P26-P28's under "windows_shapes"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -286,6 +320,7 @@ import base64
 import contextlib
 import datetime
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2633,6 +2668,8 @@ GATHER_SITES = (
     (("_join_stream",), "nested-loop chunk"),
     (("_probe_kernel", "gather_batch_columns"), "stream payload"),
     (("_probe_kernel",), "build payload"),
+    (("_window_batch",), "window sort"),
+    (("_explode",), "explode payload"),
 )
 
 
@@ -5688,14 +5725,661 @@ def time_strings_paths(runs):
     return out
 
 
+# -- slice 12: windows, arrays, split, the list aggregates and the cache
+# -- (phase 3g) -------------------------------------------------------------
+
+#: P27's lineitems as 16 batches: more sorted runs than the sort's merge
+#: fan-in (8), so the sort goes out of core and emits chunks of its runs'
+#: bucket (524,288 rows)
+P27_BATCHES = 16
+P28_PART = 7             # array_contains' literal part key
+P_WINDOW_ITERS = 3       # phase 4's timed runs of P26-P28 each
+#: the kernels each path must launch
+WINDOW_NEED = {"P26 A": ["dma_row_gather"], "P26 B": ["dma_row_gather"],
+               "P27": ["dma_row_gather"], "P28 collect": ["dma_row_gather"],
+               "P28 explode": ["dma_row_gather"],
+               "P28 posexplode": ["dma_row_gather"],
+               "P28 percentile": ["dma_row_gather"], "P28 split": []}
+#: each path's input tables (windows_batches' keys)
+WINDOW_INPUTS = {"P26 A": ("orders",), "P26 B": ("orders",),
+                 "P27": ("p27",), "P28 collect": ("lines",),
+                 "P28 explode": ("lines",), "P28 posexplode": ("lines",),
+                 "P28 percentile": ("q1_lines",), "P28 split": ("part",)}
+P27_FIELDS = (("l_quantity", "DOUBLE"), ("l_extendedprice", "DOUBLE"),
+              ("l_returnflag", "STRING"), ("l_linestatus", "STRING"))
+P28_QUANTILES = [0.25, 0.5, 0.75]
+
+
+def windows_modules():
+    """strings_modules() with the port's window expressions."""
+    from spark_rapids_tpu_torch.expr import windowexprs
+    m = strings_modules()
+    m.win = windowexprs
+    return m
+
+
+def windows_data(dj, q3d):
+    """P26's orders (tpch_join_data's, with q3_types_data's o_custkey: about
+    100,000 customers of about 15 orders each) and their o_totalprice, the
+    sum of the order's lines' l_extendedprice x (1 - l_discount) in
+    dollars; P28's lines (l_orderkey, l_partkey, l_suppkey)."""
+    n_orders = dj["o_orderkey"].shape[0]
+    okey = dj["l_orderkey"] - 1
+    owner = (okey // 32) * 8 + okey % 32
+    price = q3d["l_extendedprice"] / 100.0 * (1.0 - dj["l_discount"])
+    return {"o_orderkey": dj["o_orderkey"], "o_custkey": q3d["o_custkey"],
+            "o_orderdate": dj["o_orderdate"],
+            "o_totalprice": np.bincount(owner, weights=price,
+                                        minlength=n_orders),
+            "l_orderkey": dj["l_orderkey"], "l_partkey": q3d["l_partkey"],
+            "l_suppkey": dj["l_suppkey"]}
+
+
+def windows_batches(m, dev, wd, d19, sd):
+    """P26-P28's batches on `dev`: the orders, P27's lines (P6's, the flags
+    DictionaryColumns) as P27_BATCHES batches and as one, P28's lines and
+    P21's parts (p_type a plain StringColumn)."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    t = m.t
+    schema = t.Schema(tuple(t.StructField(n, getattr(t, ty))
+                            for n, ty in P27_FIELDS))
+    n19 = d19["l_quantity"].shape[0]
+    step = -(-n19 // P27_BATCHES)
+    p27 = []
+    for lo in range(0, n19, step):
+        part = {n: (d19[n][0][lo: lo + step], d19[n][1])
+                if isinstance(d19[n], tuple) else d19[n][lo: lo + step]
+                for n, _ in P27_FIELDS}
+        p27.append(ColumnarBatch(*q19_columns(part, schema, dev), schema))
+    return {
+        "orders": batch_of(m, dev, [
+            ("o_orderkey", wd["o_orderkey"], t.LONG),
+            ("o_custkey", wd["o_custkey"], t.LONG),
+            ("o_orderdate", wd["o_orderdate"], t.DATE),
+            ("o_totalprice", wd["o_totalprice"], t.DOUBLE)]),
+        "p27": p27,
+        "q1_lines": ColumnarBatch(*q19_columns(d19, schema, dev), schema),
+        "lines": batch_of(m, dev, [
+            ("l_orderkey", wd["l_orderkey"], t.LONG),
+            ("l_partkey", wd["l_partkey"], t.LONG),
+            ("l_suppkey", wd["l_suppkey"], t.LONG)]),
+        "part": batch_of(m, dev, [("p_partkey", sd["p_partkey"], t.LONG),
+                                  ("p_type", string_column(*sd["p_type"],
+                                                           dev), t.STRING)])}
+
+
+def p26_dfs(m, sess, b):
+    """P26 over one cache()d orders frame: spec A (partition by o_custkey,
+    order by o_totalprice DESC) ranks the orders and keeps each
+    customer's top 3; spec B (order by o_orderdate) takes running, sliding,
+    RANGE and whole-partition aggregates and first/last_value."""
+    F, col, lit, W = m.F, m.core.col, m.core.lit, m.win
+    Fr = W.WindowFrame
+    orders = sess.from_batches([b["orders"]], b["orders"].schema).cache()
+    a = W.window(["o_custkey"], [("o_totalprice", False)])
+    p26a = orders.with_windows(
+        (F.row_number().over(a), "rn"), (F.rank().over(a), "rk"),
+        (F.dense_rank().over(a), "drk"),
+        (F.lag("o_totalprice", 1).over(a), "prev_price"),
+        (F.lead("o_orderdate", 1).over(a), "next_date")) \
+        .filter(col("rk") <= lit(3))
+    spec = W.window(["o_custkey"], [("o_orderdate", True)])
+
+    def over(fn, frame=None):
+        return fn.over(spec.with_frame(frame) if frame else spec)
+    price = "o_totalprice"
+    p26b = orders.with_windows(
+        (over(F.window_sum(price), Fr.rows(None, 0)), "run_sum"),
+        (over(F.window_min(price), Fr.rows(2, 0)), "min3"),
+        (over(F.window_max(price), Fr.rows(2, 0)), "max3"),
+        (over(F.window_sum(price), Fr.range(90, 0)), "sum90"),
+        (over(F.window_avg(price), Fr.unbounded()), "avg_all"),
+        (over(F.window_count(price), Fr.unbounded()), "cnt"),
+        (over(F.first_value(price)), "first"),
+        (over(F.last_value(price)), "last"))
+    return {"P26 A": p26a, "P26 B": p26b}, orders
+
+
+def p27_df(m, sess, batches):
+    """P27: the whole (returnflag, linestatus) partition's revenue, average
+    quantity and count, then each line's share of its group's revenue."""
+    F, col, W = m.F, m.core.col, m.win
+    part = W.window(["l_returnflag", "l_linestatus"])
+    return sess.from_batches(batches, batches[0].schema).with_windows(
+        (F.window_sum("l_extendedprice").over(part), "rev"),
+        (F.window_avg("l_quantity").over(part), "avg_qty"),
+        (F.window_count().over(part), "cnt")).select(
+        col("l_returnflag"), col("l_linestatus"), col("l_extendedprice"),
+        col("rev"), col("avg_qty"), col("cnt"),
+        (col("l_extendedprice") / col("rev")).alias("share"))
+
+
+def p28_dfs(m, sess, b):
+    """P28: the lines' parts and suppliers collected by order and the
+    array expressions over them; the lists exploded and posexploded back
+    to lines; the exact and approximate percentiles of Q1's lines by the
+    two flags; p_type split into words, exploded and counted by word."""
+    F, col = m.F, m.core.col
+    lines = sess.from_batches([b["lines"]], b["lines"].schema)
+    coll = lines.group_by("l_orderkey").agg(
+        (F.collect_list("l_partkey"), "parts"),
+        (F.collect_set("l_suppkey"), "supps"))
+    keep = coll.select(col("l_orderkey"), F.size("parts").alias("n"),
+                       col("parts"))
+    q1 = sess.from_batches([b["q1_lines"]], b["q1_lines"].schema)
+    part = sess.from_batches([b["part"]], b["part"].schema)
+    return {
+        "P28 collect": coll.select(
+            col("l_orderkey"), col("parts"), col("supps"),
+            F.size("parts").alias("n"), F.sort_array("parts").alias("sorted"),
+            F.array_contains("parts", P28_PART).alias("has"),
+            F.element_at("parts", 1).alias("first"),
+            F.array_max("parts").alias("top")),
+        "P28 explode": keep.explode("parts", "pk"),
+        "P28 posexplode": keep.posexplode("parts", "pk", "pos"),
+        "P28 percentile": q1.group_by("l_returnflag", "l_linestatus").agg(
+            (F.percentile("l_quantity", 0.5), "median_qty"),
+            (F.approx_percentile("l_extendedprice", P28_QUANTILES),
+             "price_q")),
+        "P28 split": part.select(F.split("p_type", " ").alias("words"))
+        .explode("words", "word").group_by("word").agg((F.count(), "n"))}
+
+
+def p27_conf(batches):
+    """A coalesce target of one input batch: P27's scan keeps its batches
+    apart (the default target would merge them into one sorted run)."""
+    return {"spark.rapids.sql.batchSizeBytes":
+            str(max(x.nbytes for x in batches))}
+
+
+def windows_dfs(m, dev, b):
+    sess = m.session.TpuSession(device=dev)
+    dfs, orders = p26_dfs(m, sess, b)
+    dfs["P27"] = p27_df(m, m.session.TpuSession(p27_conf(b["p27"]),
+                                                device=dev), b["p27"])
+    dfs.update(p28_dfs(m, sess, b))
+    return dfs, orders
+
+
+# -- P26-P28's oracles (numpy), checked columnwise on the output batches ----
+
+def fetch_columns(out):
+    """Concatenated host arrays of result batches: per column (data,
+    validity), or (offsets from 0, child data, child validity) for a list
+    column, or (the first byte of each row, validity) for a string column
+    of one-byte rows."""
+    from spark_rapids_tpu_torch.columnar.column import (ArrayColumn,
+                                                        StringColumn)
+    from spark_rapids_tpu_torch.columnar.transfer import fetch_batch_host
+    cols = None
+    for b in out:
+        host, n = fetch_batch_host(b)
+        got = []
+        for c in host:
+            if isinstance(c, ArrayColumn):
+                off = c.offsets[: n + 1].numpy().astype(np.int64)
+                k = int(off[-1]) if n else 0
+                got.append(("array", off, c.child.data[:k].numpy(),
+                            c.child.validity[:k].numpy()))
+            elif isinstance(c, StringColumn):
+                off = c.offsets[: n + 1].numpy().astype(np.int64)
+                raw = c.data.numpy()
+                got.append(("string", off, raw, c.validity[:n].numpy()))
+            else:
+                got.append(("fixed", c.data[:n].numpy(),
+                            c.validity[:n].numpy()))
+        if cols is None:
+            cols = [[g] for g in got]
+        else:
+            for acc, g in zip(cols, got):
+                acc.append(g)
+    merged = []
+    for parts in cols or []:
+        kind = parts[0][0]
+        if kind == "fixed":
+            merged.append((np.concatenate([p[1] for p in parts]),
+                           np.concatenate([p[2] for p in parts])))
+        elif kind == "array":
+            offs, base = [], 0
+            for p in parts:
+                offs.append(p[1][:-1] + base)
+                base += int(p[1][-1])
+            merged.append((np.concatenate(offs + [np.array([base])]),
+                           np.concatenate([p[2] for p in parts]),
+                           np.concatenate([p[3] for p in parts])))
+        else:
+            first = np.concatenate([p[2][np.minimum(p[1][:-1],
+                                                    p[2].shape[0] - 1)]
+                                    for p in parts])
+            merged.append((first, np.concatenate([p[3] for p in parts])))
+    return merged
+
+
+def _close(label, got, want, valid=None):
+    want = np.asarray(want, np.float64)
+    ok = np.abs(got - want) <= RTOL * np.maximum(np.abs(want), 1e-300)
+    if valid is not None:
+        ok = ok | ~valid
+    if not ok.all():
+        i = int(np.argmin(ok))
+        raise AssertionError(f"{label}: row {i} {got[i]!r} != {want[i]!r}")
+
+
+def _equal(label, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: {got[:8]} != oracle {want[:8]}")
+
+
+def _groups(keys):
+    """(start flags, each row's group start) of sorted key columns."""
+    n = keys[0].shape[0]
+    start = np.zeros(n, bool)
+    start[:1] = True
+    for k in keys:
+        start[1:] |= k[1:] != k[:-1]
+    first = np.maximum.accumulate(np.where(start, np.arange(n), 0))
+    return start, first
+
+
+def _window_sums(v, lo, hi):
+    """Sum of v[lo:hi] a row, in order (every frame spans few rows)."""
+    out = np.zeros(v.shape[0])
+    width = hi - lo
+    for j in range(int(width.max(initial=0))):
+        use = j < width
+        out[use] += v[lo[use] + j]
+    return out
+
+
+def p26_oracles(wd):
+    """Spec A's kept rows and spec B's rows, as numpy columns in the
+    window's output order."""
+    cust, price = wd["o_custkey"], wd["o_totalprice"]
+    date, okey = wd["o_orderdate"], wd["o_orderkey"]
+    n = cust.shape[0]
+    idx = np.arange(n)
+    a = np.lexsort((idx, -price, cust))
+    c, p, d = cust[a], price[a], date[a]
+    start, first = _groups([c])
+    rn = idx - first + 1
+    tie = start | np.r_[True, p[1:] != p[:-1]]
+    rk = np.maximum.accumulate(np.where(tie, idx, 0)) - first + 1
+    cs = np.cumsum(tie)
+    drk = cs - cs[first] + 1
+    end = np.r_[start[1:], True]
+    keep = rk <= 3
+    want_a = {"o_orderkey": okey[a], "o_custkey": c, "o_orderdate": d,
+              "o_totalprice": p, "rn": rn, "rk": rk, "drk": drk,
+              "prev_price": (np.r_[0.0, p[:-1]], ~start),
+              "next_date": (np.r_[d[1:], 0], ~end)}
+    want_a = {k: ((v[0][keep], v[1][keep]) if isinstance(v, tuple)
+                  else v[keep]) for k, v in want_a.items()}
+    b = np.lexsort((idx, date, cust))
+    c, p, d = cust[b], price[b], date[b]
+    start, first = _groups([c])
+    last = np.r_[np.nonzero(start)[0][1:], n] - 1
+    glast = last[np.cumsum(start) - 1]
+    key = (c.astype(np.int64) << 16) | d.astype(np.int64)
+    lo90 = np.searchsorted(key, key - 90, "left")
+    hi90 = np.searchsorted(key, key, "right")
+    total = _window_sums(p, first, glast + 1)
+    cnt = glast - first + 1
+    lo3 = np.maximum(idx - 2, first)
+    mins = np.minimum.reduce([p[np.maximum(idx - j, lo3)]
+                              for j in range(3)])
+    maxs = np.maximum.reduce([p[np.maximum(idx - j, lo3)]
+                              for j in range(3)])
+    want_b = {"o_orderkey": okey[b], "o_custkey": c, "o_orderdate": d,
+              "o_totalprice": p, "run_sum": _window_sums(p, first, idx + 1),
+              "min3": mins, "max3": maxs,
+              "sum90": _window_sums(p, lo90, hi90), "avg_all": total / cnt,
+              "cnt": cnt, "first": p[first], "last": p[hi90 - 1]}
+    return want_a, want_b
+
+
+def check_columns(names, want, close=()):
+    """A check of output batches against numpy columns: exact, f64 in
+    `close` to RTOL; a (values, validity) want checks both."""
+    def check(out, label):
+        got = fetch_columns(out)
+        if len(got) != len(names):
+            raise AssertionError(f"{label}: {len(got)} columns")
+        for name, g in zip(names, got):
+            w = want[name]
+            data, valid = g[0], g[-1]
+            if isinstance(w, tuple):
+                _equal(f"{label} {name} validity", valid, w[1])
+                w = np.where(w[1], w[0], 0)
+                data = np.where(valid, data, 0)
+            elif not valid.all():
+                raise AssertionError(f"{label}: nulls in {name}")
+            if name in close:
+                _close(f"{label} {name}", data, w)
+            else:
+                _equal(f"{label} {name}", data, np.asarray(w).astype(
+                    data.dtype))
+    return check
+
+
+def p27_check(d19):
+    """Every line once, with its (returnflag, linestatus) group's revenue,
+    average quantity and count, and its share of the revenue."""
+    flags = [d19[n] for n in ("l_returnflag", "l_linestatus")]
+    gid = flags[0][0].astype(np.int64) * 8 + flags[1][0]
+    price, qty = d19["l_extendedprice"], d19["l_quantity"]
+    groups = {g: (math.fsum(price[gid == g]), qty[gid == g].mean(),
+                  int((gid == g).sum())) for g in np.unique(gid)}
+    codes = [{ord(w): k for k, w in enumerate(f[1])} for f in flags]
+
+    def check(out, label):
+        rf, ls, pr, rev, avg, cnt, share = fetch_columns(out)
+        g = np.array([codes[0][x] for x in rf[0].tolist()]) * 8 \
+            + np.array([codes[1][x] for x in ls[0].tolist()])
+        _equal(f"{label} lines", np.sort(g * 1e9 + pr[0]),
+               np.sort(gid * 1e9 + price))
+        for k, (s, q, c) in groups.items():
+            at = g == k
+            _close(f"{label} revenue {k}", rev[0][at], np.full(at.sum(), s))
+            _close(f"{label} avg_qty {k}", avg[0][at], np.full(at.sum(), q))
+            _equal(f"{label} cnt {k}", cnt[0][at], np.full(at.sum(), c))
+        _close(f"{label} share", share[0], pr[0] / rev[0])
+        # a group's rows are one contiguous run (partition order)
+        if (np.diff(g) != 0).sum() != len(groups) - 1:
+            raise AssertionError(f"{label}: a group is not contiguous")
+    return check
+
+
+def p28_oracles(wd):
+    """Per order in l_orderkey order: its parts in line order, its distinct
+    suppliers, and the lines in (order, line) order."""
+    order = np.lexsort((np.arange(wd["l_orderkey"].shape[0]),
+                        wd["l_orderkey"]))
+    ok, pk, sk = (wd[n][order] for n in ("l_orderkey", "l_partkey",
+                                         "l_suppkey"))
+    start, _ = _groups([ok])
+    starts = np.nonzero(start)[0]
+    counts = np.diff(np.r_[starts, ok.shape[0]])
+    row = np.repeat(np.arange(starts.shape[0]), counts)
+    sorted_pk = pk[np.lexsort((pk, row))]
+    return {"keys": ok[starts], "counts": counts, "row": row, "parts": pk,
+            "supps": np.unique(row.astype(np.int64) << 32 | sk),
+            "sorted": sorted_pk,
+            "has": np.bincount(row, weights=pk == P28_PART) > 0,
+            "first": pk[starts], "top": np.maximum.reduceat(pk, starts)}
+
+
+def p28_collect_check(w):
+    def check(out, label):
+        key, parts, supps, n, srt, has, first, top = fetch_columns(out)
+        _equal(f"{label} keys", key[0], w["keys"])
+        offs = np.r_[0, np.cumsum(w["counts"])]
+        for name, got, child in (("parts", parts, w["parts"]),
+                                 ("sorted", srt, w["sorted"])):
+            _equal(f"{label} {name} offsets", got[0], offs)
+            _equal(f"{label} {name}", got[1], child)
+        srow = np.repeat(np.arange(supps[0].shape[0] - 1), np.diff(supps[0]))
+        _equal(f"{label} supps", np.sort(srow.astype(np.int64) << 32
+                                         | supps[1]), w["supps"])
+        _equal(f"{label} n", n[0], w["counts"].astype(np.int32))
+        _equal(f"{label} has", has[0], w["has"])
+        _equal(f"{label} first", first[0], w["first"])
+        _equal(f"{label} top", top[0], w["top"])
+    return check
+
+
+def p28_explode_check(w, position):
+    def check(out, label):
+        cols = fetch_columns(out)
+        key, n, pk = cols[0][0], cols[1][0], cols[-1][0]
+        _equal(f"{label} keys", key, np.repeat(w["keys"], w["counts"]))
+        _equal(f"{label} n", n, np.repeat(w["counts"], w["counts"])
+               .astype(np.int32))
+        _equal(f"{label} parts", pk, w["parts"])
+        if position:
+            starts = np.r_[0, np.cumsum(w["counts"])[:-1]]
+            _equal(f"{label} pos", cols[3][0], (np.arange(key.shape[0])
+                   - np.repeat(starts, w["counts"])).astype(np.int32))
+    return check
+
+
+def p28_percentile_check(d19):
+    flags = [d19[n] for n in ("l_returnflag", "l_linestatus")]
+    gid = flags[0][0].astype(np.int64) * 8 + flags[1][0]
+    acc = 10000  # approx_percentile's default accuracy
+
+    def check(rows, label, _metrics=None):
+        if len(rows) != len(np.unique(gid)):
+            raise AssertionError(f"{label}: {len(rows)} groups")
+        for rf, ls, median, qs in rows:
+            at = gid == (flags[0][1].index(rf) * 8 + flags[1][1].index(ls))
+            _close(f"{label} median {rf}{ls}", np.array([median]),
+                   [np.percentile(d19["l_quantity"][at], 50)])
+            s = np.sort(d19["l_extendedprice"][at])
+            n = s.shape[0]
+            for p, v in zip(P28_QUANTILES, qs):
+                lo = np.searchsorted(s, v, "left")
+                hi = np.searchsorted(s, v, "right")
+                if not (lo - n / acc <= p * n <= hi + n / acc):
+                    raise AssertionError(
+                        f"{label}: {rf}{ls} p={p}: {v} ranks {lo}-{hi} of "
+                        f"{n}, beyond n/accuracy of {p * n}")
+    return check
+
+
+def p28_split_oracle(sd):
+    codes, types = sd["p_type"]
+    per_type = np.bincount(codes, minlength=len(types))
+    tally = {}
+    for k, t in enumerate(types):
+        for word in t.split(" "):
+            tally[word] = tally.get(word, 0) + int(per_type[k])
+    return sorted(tally.items())
+
+
+def windows_inputs(dev, dj, q3d, d19, sd):
+    """P26-P28's batches on `dev` and their checks."""
+    m = windows_modules()
+    wd = windows_data(dj, q3d)
+    b = windows_batches(m, dev, wd, d19, sd)
+    want_a, want_b = p26_oracles(wd)
+    w28 = p28_oracles(wd)
+    checks = {
+        "P26 A": check_columns(list(want_a), want_a, ("o_totalprice",)),
+        "P26 B": check_columns(list(want_b), want_b,
+                               ("run_sum", "sum90", "avg_all")),
+        "P27": p27_check(d19),
+        "P28 collect": p28_collect_check(w28),
+        "P28 explode": p28_explode_check(w28, False),
+        "P28 posexplode": p28_explode_check(w28, True),
+        "P28 percentile": p28_percentile_check(d19),
+        "P28 split": sorted_rows(p28_split_oracle(sd))}
+    return m, b, checks
+
+
+def window_bound(b, label):
+    """(bytes, ms): one read of the path's input columns at capacity at
+    PEAK_BYTES_PER_S (as input_bound)."""
+    batches = [x for t in WINDOW_INPUTS[label]
+               for x in (b[t] if isinstance(b[t], list) else [b[t]])]
+    nbytes = sum(x.numel() * x.element_size() for bb in batches
+                 for c in bb.columns for x in c.leaves())
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def window_metrics(tree):
+    """The drive's host reads and the carry's counters of a planned tree
+    (WindowExec and GenerateExec metrics)."""
+    out = {}
+    for node in exec_nodes(tree):
+        for k in ("partitionHostReads", "carriedPartitions", "carryPieces",
+                  "measureHostReads"):
+            if k in node.metrics:
+                out[k] = out.get(k, 0) + node.metrics[k].value
+    return out
+
+
+def drive_window_path(label, m, df, need, check):
+    """One of P26-P28 planned from its DataFrame and driven once counted
+    (drive_batches); checked with `check` on the output batches, or on
+    collect()'s rows for the small outputs. Returns (tree, record)."""
+    tree, tag_ms, convert_ms = planned(m, df)
+    out, counts, reads = drive_batches(label, tree, need)
+    if label in ("P28 percentile", "P28 split"):
+        check([r for b in out for r in b.to_pylist()], label)
+    else:
+        check(out, label)
+    rec = {"plan_ms": tag_ms + convert_ms, "launches": counts,
+           "host_reads": reads, "rows": sum(b.num_rows_host for b in out),
+           **window_metrics(tree)}
+    del out
+    check_idle(label)
+    print(f"{label}: {rec['rows']} rows equal to the oracle; launches "
+          f"{counts}; host reads {reads}; drive {window_metrics(tree)}")
+    return tree, rec
+
+
+def drive_windows_paths(dev, m, b, checks):
+    """Phase 3g: P26 (spec A and B over one cached orders frame, one
+    materialization), P27 under a device budget (the out-of-core sort's
+    chunks, the carry on the N/O partition), P28's five steps (the fifth
+    planned with 16 shuffle partitions: single-partition in both packages,
+    list buffers never cross the host shuffle). Returns (counts, records,
+    runs, trees)."""
+    from spark_rapids_tpu_torch import memory as M
+    dfs, orders = windows_dfs(m, dev, b)
+    counts, recs, runs, trees = {}, {}, {}, {}
+    for label in ("P26 A", "P26 B", "P28 collect", "P28 explode",
+                  "P28 posexplode", "P28 percentile", "P28 split"):
+        tree, rec = drive_window_path(label, m, dfs[label],
+                                      WINDOW_NEED[label], checks[label])
+        rec["input_bytes"], rec["bound_ms"] = window_bound(b, label)
+        counts[label], recs[label], trees[label] = rec["launches"], rec, tree
+        small = label in ("P28 percentile", "P28 split")
+        runs[label] = ((lambda t=tree: t.collect()) if small else
+                       (lambda t=tree: list(t.execute())), checks[label])
+    mat = orders._cached_relation.materializations
+    if mat != 1:
+        raise AssertionError(f"P26: the cache materialized {mat} times")
+    recs["P26 A"]["cache_materializations"] = mat
+    print(f"P26: the orders cache materialized {mat} time for both specs "
+          f"({orders._cached_relation.compressed_bytes} bytes of frames)")
+    # P27 under a budget: its 16 sorted runs spill, the sort merges them
+    # out of core, the N/O partition takes the carry
+    plan, p27_counts, p27_rec = drive_under_budget(
+        "P27", lambda: planned(m, dfs["P27"])[0], WINDOW_NEED["P27"],
+        checks["P27"], False)
+    drive = window_metrics(plan)
+    if not drive.get("carriedPartitions"):
+        raise AssertionError(f"P27: no partition took the carry ({drive})")
+    if M.buffer_catalog().num_entries():
+        raise AssertionError("P27: the catalog is not empty")
+    p27_rec.update(drive, launches=p27_counts)
+    p27_rec["input_bytes"], p27_rec["bound_ms"] = window_bound(b, "P27")
+    counts["P27"], recs["P27"], trees["P27"] = p27_counts, p27_rec, plan
+    runs["P27"] = (plan, p27_rec)
+    # the yardstick: the same plan with no budget, in turns with the rest
+    trees["P27 unconstrained"] = planned(m, dfs["P27"])[0]
+    runs["P27 unconstrained"] = (
+        lambda t=trees["P27 unconstrained"]: list(t.execute()),
+        checks["P27"])
+    print(f"P27: carried partitions {drive['carriedPartitions']}, pieces "
+          f"{drive['carryPieces']}, partition host reads "
+          f"{drive['partitionHostReads']}; catalog empty")
+    # step 5: the collect over 16 partitions of the host shuffle
+    sess16 = m.session.TpuSession(
+        {"spark.rapids.sql.shuffle.partitions": "16"}, device=dev)
+    df16 = p28_dfs(m, sess16, b)["P28 collect"]
+    names = {type(n).__name__ for n in exec_nodes(planned(m, df16)[0])}
+    if "HostShuffleExchangeExec" in names:
+        raise AssertionError("P28 step 5: list buffers crossed a shuffle")
+    recs["P28 collect"]["shuffled_16"] = "skipped: planned single-partition"
+    print("P28 step 5 (16 shuffle partitions): skipped, the planner keeps "
+          "the list aggregate single-partition, as the JAX package does")
+    for label, rec in recs.items():
+        print(f"{label}: reads {rec['input_bytes']} bytes at capacity, "
+              f"bound {rec['bound_ms']:.4f} ms")
+    return counts, recs, runs, trees
+
+
+def windows_tree(m, dev, b, label):
+    """A fresh planned tree of one of P26-P28 (phase 2 captures its
+    kernels' inputs from a run of it)."""
+    return planned(m, windows_dfs(m, dev, b)[0][label])[0]
+
+
+def compare_windows_paths(dev, m, b):
+    """Phase 2 at P26-P28's own inputs: every row gather of a run of each
+    path (the window's sort, the filter's compaction, the group-by's sort,
+    the explode's payload) and every dictionary take (P27 and P28's
+    percentiles decode the flags), held exactly to the plain versions."""
+    shapes = {}
+    for label in ("P26 A", "P26 B", "P27", "P28 collect", "P28 explode",
+                  "P28 percentile"):
+        gathers = capture_row_gathers(windows_tree(m, dev, b, label))
+        shapes[label] = compare_row_gathers(label, gathers)
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(shapes[label])}; exact")
+        del gathers
+        if label in ("P27", "P28 percentile"):
+            takes = capture_dict_gathers(windows_tree(m, dev, b, label))
+            if takes:
+                print(f"compare {label} main-path dictionary gathers: "
+                      f"{'; '.join(compare_dict_takes(label, takes))}; "
+                      f"exact")
+    return shapes
+
+
+def windows_gather_shapes(dev, m, b):
+    """Phase 4: dma_row_gather at every distinct shape of P26, P27 and
+    P28's collect (time_gather_call: the kernel, the plain version, the
+    bound and index_select), the generic kernel among them where a row is
+    wider than the fixed-width kinds (ROADMAP B.3)."""
+    out = []
+    for label in ("P26 A", "P26 B", "P27", "P28 collect", "P28 explode"):
+        seen = set()
+        for call in capture_row_gathers(windows_tree(m, dev, b, label)):
+            site, plan, imat, fmat, idx = call
+            key = (site, idx.shape[0], imat.shape, None if fmat is None
+                   else fmat.shape)
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(time_gather_call(label, *call))
+    return out
+
+
+def time_windows_paths(runs):
+    """Phase 4: P26 and P28 in turns (the order reversed every other
+    round), P_WINDOW_ITERS runs each, one synchronisation a run; then P27
+    under its budget (time_under_budget, P_ITERS runs)."""
+    import torch
+    runs = dict(runs)
+    p27 = runs.pop("P27")
+    out = {label: [] for label in runs}
+    for i in range(P_WINDOW_ITERS):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            run, check = runs[label]
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+            check(res, f"{label} timed")
+            del res
+    out["P27"] = time_under_budget(*p27)
+    for label, ms in out.items():
+        print(f"{label} ms per run ({P_WINDOW_ITERS} runs, in turns): "
+              f"{[round(x, 3) for x in ms]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1, q3, q19, P6, P7 and P17-P20 steady "
+        help="also profile the q1, q3, q19, P6, P7 and P17-P28 steady "
              "states (device busy share, time by kernel) and write their "
              "Chrome traces to TRACE and TRACE with _q3, _q19, _p6, _p7, "
-             "_p17 ... _p20_year before its suffix")
+             "_p17 ... _p28_split before its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5759,6 +6443,8 @@ def main() -> int:
     q3d = q3_types_data(dj)
     tm, tb, types_want = types_inputs(dev, d19, dj, q3d)
     str_m, str_b, strings_want = strings_inputs(dev, dj, q3d, d19, names)
+    win_m, win_b, win_checks = windows_inputs(dev, dj, q3d, d19,
+                                              strings_data(dj, q3d))
     print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
 
     # -- phase 1: build every kernel at once -------------------------------
@@ -5892,6 +6578,10 @@ def main() -> int:
     # P21-P23's own inputs (phase 3f drives them): every launch of a run
     with default_conf_after():
         compare_strings_paths(dev, str_m, str_b, strings_want)
+    # P26-P28's own inputs (phase 3g drives them): every row gather and
+    # dictionary take of a run of each path
+    with default_conf_after():
+        compare_windows_paths(dev, win_m, win_b)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -6122,6 +6812,14 @@ def main() -> int:
             dev, str_m, str_b, strings_want)
     print(f"phase 3f: {time.perf_counter() - t_strings:.1f} s")
 
+    # -- phase 3g, slice 12: windows, arrays, split, the list aggregates
+    # and the cache ----------------------------------------------------------
+    t_windows = time.perf_counter()
+    with default_conf_after():
+        win_counts, win_recs, win_runs, win_trees = drive_windows_paths(
+            dev, win_m, win_b, win_checks)
+    print(f"phase 3g: {time.perf_counter() - t_windows:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -6305,6 +7003,12 @@ def main() -> int:
                                            str_counts)
     print(f"P21-P25 timings and P21's and P22's kernel shapes (phase 4): "
           f"{time.perf_counter() - t_strings:.1f} s")
+    t_windows = time.perf_counter()
+    with default_conf_after():
+        windows_ms = time_windows_paths(win_runs)
+        win_gathers = windows_gather_shapes(dev, win_m, win_b)
+    print(f"P26-P28 timings and their row gather shapes (phase 4): "
+          f"{time.perf_counter() - t_windows:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -6362,7 +7066,9 @@ def main() -> int:
         profiled = [(label, run.__self__, P_TYPES_ITERS)
                     for label, (run, _) in types_runs.items()] + [
             (label, tree, P_STRING_ITERS)
-            for label, tree in str_trees.items()]
+            for label, tree in str_trees.items()] + [
+            (label, tree, P_WINDOW_ITERS)
+            for label, tree in win_trees.items() if label != "P27"]
         for label, tree, iters in profiled:
             tag = label.lower().replace(" ", "_")
             profile_plan(label, tree, iters, args.profile.with_name(
@@ -6394,7 +7100,9 @@ def main() -> int:
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in types_counts.items()},
             **{k.replace(" ", "_"): v.get(r["name"], 0)
-               for k, v in str_counts.items()}}
+               for k, v in str_counts.items()},
+            **{k.replace(" ", "_"): v.get(r["name"], 0)
+               for k, v in win_counts.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -6403,6 +7111,7 @@ def main() -> int:
         if r["name"] == "murmur3_columns":
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
+            r["windows_shapes"] = win_gathers
             r["reorder_shapes"] = reorder_recs
             r["q21_shapes"] = q21_gathers
         if r["name"] == "fused_probe_verify":
@@ -6426,7 +7135,9 @@ def main() -> int:
         "types_paths": dict(types_recs, counts=types_counts,
                             ms=types_ms),
         "strings_paths": dict(str_recs, counts=str_counts,
-                              ms=strings_ms)}}))
+                              ms=strings_ms),
+        "windows_paths": dict(win_recs, counts=win_counts,
+                              ms=windows_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

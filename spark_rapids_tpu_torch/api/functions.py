@@ -3,22 +3,24 @@
 the port has: `col`, `lit`, the aggregates (`sum`, `count`, `avg`/`mean`,
 `min`, `max`, `first`, `last`, the variances and standard deviations),
 `abs`, the conditionals, the date and time functions, the bitwise ones,
-the string functions, `hash` and `xxhash64`, with the JAX package's names
-and signatures. The rest of the JAX package's functions come with their
-expressions (ROADMAP A.2 and A.8), each wave adding its own here.
-
-`first_value` and `last_value` are the JAX package's window functions
-FirstValue and LastValue: they raise, naming the window functions' slice
-(ROADMAP A.8 wave 3), until those land.
+the string functions, `hash` and `xxhash64`, the collection functions,
+the list aggregates (`collect_list`, `collect_set`, `percentile`,
+`approx_percentile`) and the window functions (`row_number`, `rank`,
+`dense_rank`, `lag`, `lead`, `first_value`, `last_value` and the
+`window_*` aggregates; `.over(expr.windowexprs.window(...))` places
+them), with the JAX package's names and signatures. The maps, the
+higher-order array functions, JSON and URL parsing come with ROADMAP A.8
+wave 3b, `udf` with wave 4.
 """
 
 from __future__ import annotations
 
-from ..expr import (arithmetic, bitwise, conditional, datetimeexprs,
-                    hashexprs, stringexprs)
+from ..expr import (arithmetic, bitwise, collectionexprs, conditional,
+                    datetimeexprs, hashexprs, stringexprs, windowexprs)
 from ..expr.aggexprs import (
-    Average, Count, First, Last, Max, Min, StddevPop, StddevSamp, Sum,
-    VariancePop, VarianceSamp,
+    ApproxPercentile, Average, CollectList, CollectSet, Count, First, Last,
+    Max, Min, Percentile, StddevPop, StddevSamp, Sum, VariancePop,
+    VarianceSamp,
 )
 from ..expr.core import Expression, col, lit  # noqa: F401
 
@@ -60,18 +62,139 @@ def last(x, ignore_nulls=False):
     return Last(_e(x), ignore_nulls=ignore_nulls)
 
 
-def _window_function(what: str):
-    raise NotImplementedError(
-        f"{what} is a window function: it waits for its slice "
-        f"(ROADMAP A.8 wave 3)")
+def percentile(x, percentage):
+    return Percentile(_e(x), percentage)
+
+
+def approx_percentile(x, percentage, accuracy=None):
+    return ApproxPercentile(_e(x), percentage, accuracy)
+
+
+def collect_list(x):
+    return CollectList(_e(x))
+
+
+def collect_set(x):
+    return CollectSet(_e(x))
+
+
+# window functions ------------------------------------------------------------
+def row_number():
+    return windowexprs.RowNumber()
+
+
+def rank():
+    return windowexprs.Rank()
+
+
+def dense_rank():
+    return windowexprs.DenseRank()
+
+
+def lag(x, offset=1, default=None):
+    return windowexprs.Lag(_e(x), offset, default)
+
+
+def lead(x, offset=1, default=None):
+    return windowexprs.Lead(_e(x), offset, default)
+
+
+def window_sum(x):
+    return windowexprs.WindowAgg("sum", _e(x))
+
+
+def window_min(x):
+    return windowexprs.WindowAgg("min", _e(x))
+
+
+def window_max(x):
+    return windowexprs.WindowAgg("max", _e(x))
+
+
+def window_count(x=None):
+    return windowexprs.WindowAgg("count", _e(x) if x is not None else None)
+
+
+def window_avg(x):
+    return windowexprs.WindowAgg("avg", _e(x))
 
 
 def first_value(x):
-    _window_function("first_value")
+    return windowexprs.FirstValue(_e(x))
 
 
 def last_value(x):
-    _window_function("last_value")
+    return windowexprs.LastValue(_e(x))
+
+
+# collections ------------------------------------------------------------------
+def size(x):
+    return collectionexprs.Size(_e(x))
+
+
+def array_contains(x, value):
+    return collectionexprs.ArrayContains(_e(x), value)
+
+
+def element_at(x, index):
+    return collectionexprs.ElementAt(_e(x), index)
+
+
+def get_array_item(x, index):
+    return collectionexprs.GetArrayItem(_e(x), index)
+
+
+def sort_array(x, asc=True):
+    return collectionexprs.SortArray(_e(x), asc)
+
+
+def array_min(x):
+    return collectionexprs.ArrayMin(_e(x))
+
+
+def array_max(x):
+    return collectionexprs.ArrayMax(_e(x))
+
+
+def array(*xs):
+    return collectionexprs.CreateArray(*[_e(x) for x in xs])
+
+
+def array_position(x, v):
+    return collectionexprs.ArrayPosition(_e(x), _e(v))
+
+
+def array_remove(x, v):
+    return collectionexprs.ArrayRemove(_e(x), _e(v))
+
+
+def array_distinct(x):
+    return collectionexprs.ArrayDistinct(_e(x))
+
+
+def slice(x, start, length):  # noqa: A001 - Spark name
+    return collectionexprs.Slice(_e(x), _e(start), _e(length))
+
+
+def flatten(x):
+    return collectionexprs.Flatten(_e(x))
+
+
+def arrays_overlap(a, b):
+    return collectionexprs.ArraysOverlap(_e(a), _e(b))
+
+
+def array_join(x, delim, null_replacement=None):
+    return collectionexprs.ArrayJoin(_e(x), delim, null_replacement)
+
+
+def sequence(start, stop, step=None):
+    return collectionexprs.Sequence(_e(start), _e(stop),
+                                    _e(step) if step is not None else None)
+
+
+def array_repeat(x, n):
+    return collectionexprs.ArrayRepeat(_e(x), _e(n))
 
 
 def stddev(x):
@@ -328,6 +451,10 @@ def rlike(x, pattern):
 
 def like(x, pattern, escape_char="\\"):
     return stringexprs.Like(_e(x), pattern, escape_char)
+
+
+def split(x, pattern, limit=-1):
+    return stringexprs.StringSplit(_e(x), pattern, limit)
 
 
 def substring_index(x, delim, count):

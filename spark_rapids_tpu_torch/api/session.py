@@ -19,9 +19,8 @@ the query history, telemetry, the faults and the health surfaces
 (`cancel_query`, `health`, `active_queries`, `last_query_profile`).
 `last_query_metrics()` is the executed plan's operator metrics. The other
 methods raise NotImplementedError naming their items: the pandas UDFs
-(A.8 wave 4), windows, explode and cache (A.8 wave 3), the other
-readers (A.8 wave 5) and the writers (Parquet's with A.5, the others with
-A.8 wave 5).
+(A.8 wave 4), the other readers (A.8 wave 5) and the writers (Parquet's
+with A.5, the others with A.8 wave 5).
 """
 
 from __future__ import annotations
@@ -310,19 +309,44 @@ class DataFrame:
         return self._with(L.LogicalSample(fraction, seed, self._plan))
 
     def with_windows(self, *window_exprs) -> "DataFrame":
-        _not_ported("with_windows", "A.8 wave 3")
+        """Append window-function columns: (WindowExpression, name) pairs
+        (pyspark's F.xxx().over(w)); an unnamed one is `<function>_<i>`."""
+        named = [we if isinstance(we, tuple) else (we, f"{we.fn.name}_{i}")
+                 for i, we in enumerate(window_exprs)]
+        return self._with(L.LogicalWindow(named, self._plan))
 
-    def explode(self, column, *args, **kwargs) -> "DataFrame":
-        _not_ported("explode", "A.8 wave 3")
+    def explode(self, column, alias: str = "col",
+                outer: bool = False) -> "DataFrame":
+        """One output row per array element, the other columns kept; an
+        empty or null array drops its row (outer=True keeps it with a null
+        element)."""
+        return self._with(L.LogicalGenerate(_to_expr(column), self._plan,
+                                            outer=outer, elem_name=alias))
 
-    def posexplode(self, column, *args, **kwargs) -> "DataFrame":
-        _not_ported("posexplode", "A.8 wave 3")
+    def posexplode(self, column, alias: str = "col", pos_name: str = "pos",
+                   outer: bool = False) -> "DataFrame":
+        return self._with(L.LogicalGenerate(_to_expr(column), self._plan,
+                                            outer=outer, position=True,
+                                            elem_name=alias,
+                                            pos_name=pos_name))
 
     def cache(self) -> "DataFrame":
-        _not_ported("cache", "A.8 wave 3")
+        """A materialize-once columnar cache (reference
+        ParquetCachedBatchSerializer / GpuInMemoryTableScanExec,
+        exec/cache.py): the first action on the returned frame runs this
+        plan into compressed host frames; later actions scan them. Call
+        `unpersist()` on the returned frame to drop them."""
+        from ..exec.cache import CachedRelation
+        rel = CachedRelation(self._exec, self.schema, self.session.device)
+        out = self._with(L.LogicalScan(rel))
+        out._cached_relation = rel
+        return out
 
     def unpersist(self) -> "DataFrame":
-        _not_ported("unpersist", "A.8 wave 3")
+        rel = getattr(self, "_cached_relation", None)
+        if rel is not None:
+            rel.unpersist()
+        return self
 
     def map_in_pandas(self, fn, schema) -> "DataFrame":
         _not_ported("map_in_pandas", "A.8 wave 4")

@@ -1,7 +1,7 @@
 """Device columns — the counterpart of spark_rapids_tpu/columnar/column.py:
-fixed-width columns, string columns as far as a dictionary needs them
-(columnar/encoded.py), and decimal128 columns (`Decimal128Column`, two
-int64 limb children).
+fixed-width columns, string columns, decimal128 columns
+(`Decimal128Column`, two int64 limb children) and list columns
+(`ArrayColumn`, int32 offsets into a child column).
 
 Every column is padded to a power-of-two capacity bucket, exactly as in
 the JAX package, and the logical row count rides beside the data as a
@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import BinaryType, DataType, DecimalType, StringType
+from ..types import ArrayType, BinaryType, DataType, DecimalType, StringType
 
 #: minimum capacity bucket (the JAX package's TPU lane width, kept so the
 #: two packages pad identically)
@@ -363,6 +363,103 @@ class Decimal128Column(Column):
         return f"Decimal128Column({self.dtype!r}, cap={self.capacity})"
 
 
+class ArrayColumn(Column):
+    """List column: int32 offsets (capacity + 1,) into a child column of
+    the element type, and the rows' validity. Row i's elements are child
+    rows [offsets[i], offsets[i + 1]); the child has its own capacity
+    bucket. It has no `data` tensor: every path that moves rows gathers
+    the offsets' spans (ops/collection.gather_array)."""
+
+    __slots__ = ("offsets", "child")
+
+    def __init__(self, child: Column, offsets: torch.Tensor,
+                 validity: torch.Tensor, dtype: ArrayType):
+        super().__init__(None, validity, dtype)
+        self.child = child
+        self.offsets = offsets
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def child_capacity(self) -> int:
+        return self.child.capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: ArrayType,
+                    capacity: Optional[int] = None,
+                    device=None) -> "ArrayColumn":
+        """Python lists (None for a null row) -> column on `device`."""
+        dev = resolve_device(device)
+        n = len(values)
+        cap = capacity or bucket_capacity(n)
+        validity = _pad_np(np.array([v is not None for v in values],
+                                    np.bool_), cap, False)
+        lengths = np.array([0 if v is None else len(v) for v in values],
+                           np.int64)
+        off = np.zeros(cap + 1, np.int32)
+        off[1: n + 1] = np.cumsum(lengths)
+        off[n + 1:] = off[n] if n else 0
+        flat = [x for v in values if v is not None for x in v]
+        child = build_column(flat, dtype.element_type, device=dev)
+        return ArrayColumn(child, torch.from_numpy(off).to(dev),
+                           torch.from_numpy(validity).to(dev), dtype)
+
+    def leaves(self) -> tuple:
+        """The child's leaves, then the offsets and the validity (the JAX
+        package's pytree order)."""
+        return tuple(self.child.leaves()) + (self.offsets, self.validity)
+
+    @classmethod
+    def from_leaves(cls, dtype: DataType, leaves) -> "ArrayColumn":
+        leaves = tuple(leaves)
+        child = column_class(dtype.element_type).from_leaves(
+            dtype.element_type, leaves[:-2])
+        return cls(child, leaves[-2], leaves[-1], dtype)
+
+    def with_capacity(self, capacity: int) -> "ArrayColumn":
+        """Grow (never shrink) the row bucket with empty rows."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        extra = capacity - cap
+        offsets = torch.cat([self.offsets, self.offsets[-1:].expand(extra)])
+        validity = torch.cat([self.validity,
+                              self.validity.new_zeros(extra)])
+        return ArrayColumn(self.child, offsets, validity, self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        off = self.offsets[: num_rows + 1].cpu().numpy().tolist()
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
+        kid = self.child.to_pylist(off[num_rows] if num_rows else 0)
+        return [kid[off[i]: off[i + 1]] if ok else None
+                for i, ok in enumerate(valid)]
+
+    def __repr__(self):
+        return (f"ArrayColumn({self.dtype!r}, cap={self.capacity}, "
+                f"child={self.child!r})")
+
+
+def column_class(dtype: DataType) -> type:
+    """The column class that holds `dtype` (a string as a plain
+    StringColumn: a dictionary is a batch column's layout, never a
+    child's)."""
+    if isinstance(dtype, ArrayType):
+        return ArrayColumn
+    if isinstance(dtype, DecimalType) and dtype.is_decimal128:
+        return Decimal128Column
+    if dtype.torch_dtype is None:
+        return StringColumn
+    return Column
+
+
 def to_decimals(unscaled: Sequence, dtype: DecimalType) -> List:
     """Unscaled ints of a decimal column as decimal.Decimal values."""
     import decimal as _d
@@ -374,6 +471,8 @@ def to_decimals(unscaled: Sequence, dtype: DecimalType) -> List:
 def build_column(values: Sequence, dtype: DataType,
                  capacity: Optional[int] = None, device=None) -> Column:
     """Python values -> a column of the class for `dtype` on `device`."""
+    if isinstance(dtype, ArrayType):
+        return ArrayColumn.from_pylist(values, dtype, capacity, device)
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
         return Decimal128Column.from_pylist(values, dtype, capacity, device)
     if dtype.torch_dtype is None:
@@ -443,8 +542,9 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     host columns with device="cpu"). A dictionary array of strings stays
     a DictionaryColumn when `encoded` (default: the active conf's
     spark.rapids.tpu.scan.encoded.enabled), else
-    it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane; decimal128
-    arrays wait for ROADMAP A.5, nested and null types for A.8."""
+    it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane, a list
+    array an ArrayColumn; decimal128 arrays wait for ROADMAP A.5, maps,
+    structs and the null type for A.8."""
     import pyarrow as pa
     from ..types import BOOLEAN, from_arrow
     if isinstance(arr, pa.ChunkedArray):
@@ -466,6 +566,19 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     if isinstance(dt, (StringType, BinaryType)):
         return _string_from_arrow_buffers(arr, dt, n, device)
     validity = np.asarray(arr.is_valid(), dtype=np.bool_)
+    if isinstance(dt, ArrayType):
+        # the list's own offsets into its (unsliced) values, as the JAX
+        # package takes them
+        cap = bucket_capacity(n)
+        off = np.zeros(cap + 1, dtype=np.int32)
+        off[: n + 1] = np.asarray(arr.offsets, dtype=np.int32)
+        off[n + 1:] = off[n] if n else 0
+        child = column_from_arrow(arr.values, dt.element_type, device,
+                                  encoded=False)
+        dev = resolve_device(device)
+        return ArrayColumn(child, torch.from_numpy(off).to(dev),
+                           torch.from_numpy(_pad_np(validity, cap, False))
+                           .to(dev), dt)
     if isinstance(dt, DecimalType):
         if dt.is_decimal128:
             raise NotImplementedError(
@@ -491,6 +604,10 @@ def column_to_arrow(col: Column, num_rows: int):
         raise NotImplementedError(
             f"{col.dtype!r} arrow arrays (decimal128) wait for ROADMAP A.5")
     vals = col.to_pylist(num_rows)
-    if isinstance(col.dtype, DecimalType):
+    if isinstance(col, ArrayColumn) and isinstance(
+            col.dtype.element_type, DecimalType):
+        vals = [None if v is None else to_decimals(v, col.dtype.element_type)
+                for v in vals]
+    elif isinstance(col.dtype, DecimalType):
         vals = to_decimals(vals, col.dtype)
     return pa.array(vals, type=to_arrow(col.dtype))

@@ -61,15 +61,16 @@ from ..expr.aggexprs import AggregateFunction
 from ..expr.core import Expression, UnresolvedAttribute
 from ..memory.retry import split_in_half_by_rows, with_retry
 from ..memory.spillable import SpillableBatch
-from ..ops.aggregate import groupby_aggregate, groupby_aggregate_hash
+from ..ops.aggregate import (collect_all, groupby_aggregate,
+                             groupby_aggregate_hash, is_collect_op)
 from ..ops.basic import concat_columns, sanitize, slice_rows
 from ..ops.fused_scan_agg import compile_scan_agg_spec, fused_scan_agg
 from ..ops.maskedagg import (
     FIRST_LAST_OPS, masked_groupby, masked_groupby_exact, masked_reduce,
     pick_string_row,
 )
-from ..types import (BinaryType, DataType, DecimalType, Schema, StringType,
-                     StructField)
+from ..types import (ArrayType, BinaryType, DataType, DecimalType, Schema,
+                     StringType, StructField)
 from .base import AGG_TIME, TpuExec
 from .basic import (bind_projection, eval_projection, projection_schema,
                     run_spillable)
@@ -228,7 +229,8 @@ class AggregateExec(TpuExec):
         fixed-width and one lane wide (strings have no masked order lanes;
         a decimal128 key or buffer, every decimal sum's, takes the hash
         route, as in the JAX package)."""
-        return not any(isinstance(f.data_type, (StringType, BinaryType))
+        return not any(isinstance(f.data_type, (StringType, BinaryType,
+                                                ArrayType))
                        or (isinstance(f.data_type, DecimalType)
                            and f.data_type.is_decimal128)
                        for f in self._buffer_schema.fields)
@@ -237,13 +239,16 @@ class AggregateExec(TpuExec):
     def _hash_path_ok(self) -> bool:
         """The hash group-by serves every aggregate but min/max over a
         string buffer, which needs order lanes (update and merge both see
-        them as min/max over the string buffer)."""
+        them as min/max over the string buffer), and the list buffers,
+        which need the sort's order."""
         pos = self._key_count
         for fn, _ in self.aggregates:
             for op in fn.merge_ops():
                 bt = self._buffer_schema.fields[pos].data_type
                 if op in ("min", "max") and isinstance(
                         bt, (StringType, BinaryType)):
+                    return False
+                if isinstance(bt, ArrayType):  # list buffers: sort order
                     return False
                 pos += 1
         return True
@@ -381,11 +386,17 @@ class AggregateExec(TpuExec):
         if not keys:
             def string_pick(op, c):
                 return op in FIRST_LAST_OPS and isinstance(c, StringColumn)
+            # a list buffer holds the batch's values: the one-row result
+            # keeps the batch's capacity, as in the JAX package
+            lists = any(is_collect_op(op) for op, _ in agg_inputs)
+            cap = batch.capacity if lists else 128
             reduced = iter(masked_reduce(
-                [(op, c) for op, c in agg_inputs if not string_pick(op, c)],
-                batch.num_rows, row_mask, 128))
-            results = [("col", pick_string_row(op, c, batch.num_rows,
-                                               row_mask))
+                [(op, c) for op, c in agg_inputs if not string_pick(op, c)
+                 and not is_collect_op(op)], batch.num_rows, row_mask, cap))
+            results = [("col", collect_all(op, c, batch.num_rows, cap))
+                       if is_collect_op(op) else
+                       ("col", pick_string_row(op, c, batch.num_rows,
+                                               row_mask, cap))
                        if string_pick(op, c) else ("raw", next(reduced))
                        for op, c in agg_inputs]
             return self._build_small_batch(

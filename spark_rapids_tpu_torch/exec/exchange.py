@@ -50,7 +50,7 @@ from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, StringColumn
 from ..expr.core import Expression
 from ..ops import gather as G
-from ..types import Schema
+from ..types import BinaryType, Schema, StringType
 from .base import PIPELINE_STAGE_METRICS, UPLOAD_METRICS, NUM_UPLOADS, \
     UPLOAD_PACK_TIME, TpuExec
 from .basic import bind_projection
@@ -93,7 +93,6 @@ def _host_key_array(col: Column, n: int, idx=None) -> np.ndarray:
     host values (None for nulls; floats as python floats, strings
     decoded, a decimal as its unscaled int), restricted to the rows `idx`
     when given."""
-    from ..types import BinaryType
     if type(col) is Column:
         data = col.data[:n].cpu().numpy()
         valid = col.validity[:n].cpu().numpy()
@@ -131,7 +130,7 @@ def _empty_output(schema: Schema, device) -> ColumnarBatch:
     batch = empty_batch(schema, device=device)
     cols = []
     for c, f in zip(batch.columns, schema.fields):
-        if f.data_type.torch_dtype is None:
+        if isinstance(f.data_type, (StringType, BinaryType)):
             c = StringColumn(
                 torch.zeros(128, dtype=torch.uint8, device=device),
                 torch.zeros(c.capacity + 1, dtype=torch.int32,

@@ -71,9 +71,9 @@ from ..ops import gather as G
 from ..ops.basic import active_mask, compaction_order, gather_column
 from ..ops.hashing import u32_of
 from ..ops.join import (BuildTable, cross_pairs, expand_candidates,
-                        inner_gather_maps, int_key_lanes, matched_flags,
-                        outer_extend_maps, probe_counts, unmatched_indices,
-                        verify_pairs)
+                        inner_gather_maps, int_key_lanes, is_varsize,
+                        matched_flags, outer_extend_maps, probe_counts,
+                        unmatched_indices, var_lengths, verify_pairs)
 from ..ops.probe_verify import fused_probe_verify
 from ..ops.rowpack import unpack_rows
 from ..ops.sort import _float_order_bits, lexsort
@@ -117,8 +117,9 @@ def join_output_schema(left: Schema, right: Schema, join_type: str,
 
 def _string_byte_needs(stream_columns, build: BuildTable, lo, counts,
                        num_rows):
-    """The exact byte need of each string column of the join output, on
-    the device, in column order (stream side, then build payload). A
+    """The exact byte need of each string column (the element need of each
+    list column) of the join output, on the device, in column order
+    (stream side, then build payload). A
     stream row is emitted count_i times among the candidates plus at most
     once more (the outer join's unmatched tail); the build side's need is
     the byte prefix sum over each row's candidate range."""
@@ -126,8 +127,8 @@ def _string_byte_needs(stream_columns, build: BuildTable, lo, counts,
     act = active_mask(num_rows, counts.shape[0])
     needs = []
     for c in stream_columns:
-        if isinstance(c, StringColumn):
-            lens = torch.where(act, string_lengths(c), 0).to(torch.int64)
+        if is_varsize(c):
+            lens = torch.where(act, var_lengths(c), 0).to(torch.int64)
             needs.append(torch.sum(cnt * lens) + torch.sum(lens))
     lo64 = lo.long()
     for prefix in build.payload_prefix:
@@ -136,11 +137,12 @@ def _string_byte_needs(stream_columns, build: BuildTable, lo, counts,
 
 
 def _byte_caps(columns, needs) -> tuple:
-    """Per-column output byte bucket of the string columns (None for the
-    others), from fetched needs in column order."""
+    """Per-column output byte bucket of the string columns, element bucket
+    of the list columns (None for the others), from fetched needs in
+    column order."""
     it = iter(needs)
     return tuple(bucket_capacity(max(int(next(it)), 8))
-                 if isinstance(c, StringColumn) else None for c in columns)
+                 if is_varsize(c) else None for c in columns)
 
 
 def _key_sort_lanes(key_cols: Sequence[Column]):
@@ -406,11 +408,11 @@ class HashJoinExec(TpuExec):
         columns = list(stream_batch.columns) + list(build.payload)
         needs = _string_byte_needs(stream_batch.columns, build, lo, counts,
                                    stream_batch.num_rows) \
-            if any(isinstance(c, StringColumn) for c in columns) else []
+            if any(is_varsize(c) for c in columns) else []
         # the key names which columns are strings: an empty build side
         # (an empty dictionary) may differ there from the others
         key = (self.partition, stream_batch.capacity, build.capacity,
-               tuple(isinstance(c, StringColumn) for c in columns))
+               tuple(is_varsize(c) for c in columns))
         cand_cap, caps = self._candidate_capacity(key, total_dev, needs,
                                                   columns)
         n_s = len(stream_batch.columns)

@@ -1,9 +1,10 @@
 """Declarative aggregate functions — the counterpart of
-spark_rapids_tpu/expr/aggexprs.py for Sum, Count, Min, Max, First, Last,
-Average and the central moments (VarianceSamp, VariancePop, StddevSamp,
-StddevPop). Each
-function declares its buffer ops for the masked-bucket group-by
-(ops/maskedagg.py, ops/fused_scan_agg.py) and a final `evaluate`.
+spark_rapids_tpu/expr/aggexprs.py: Sum, Count, Min, Max, First, Last,
+Average, the central moments (VarianceSamp, VariancePop, StddevSamp,
+StddevPop), CollectList, CollectSet, Percentile and ApproxPercentile.
+Each function declares its buffer ops for the group-by (ops/maskedagg.py,
+ops/fused_scan_agg.py, ops/aggregate.py) and a final `evaluate`; list
+buffers (collect_*, the percentiles) take the sort path.
 
 Spark semantics:
   * sum(int*) -> long, sum(float|double) -> double; all-null group -> null
@@ -309,3 +310,123 @@ class StddevSamp(_CentralMoment):
 class StddevPop(_CentralMoment):
     name = "stddev_pop"
     sample, sqrt = False, True
+
+
+class CollectList(AggregateFunction):
+    """collect_list(expr): the group's values as an array, nulls dropped
+    (reference GpuCollectList)."""
+    name = "collect_list"
+    _UPDATE = "collect"
+
+    def update_ops(self):
+        return [(self._UPDATE, 0)]
+
+    def merge_ops(self):
+        return ["collect_merge"]
+
+    def buffer_types(self, input_types):
+        from ..types import ArrayType
+        return [ArrayType(input_types[0])]
+
+    def result_type(self, input_types):
+        from ..types import ArrayType
+        return ArrayType(input_types[0])
+
+    def result_type_from_buffer(self, buffer_types):
+        # final mode: the buffer already is the list type
+        return buffer_types[0]
+
+    def evaluate(self, buffers, input_types):
+        return buffers[0]
+
+
+class CollectSet(CollectList):
+    """collect_set(expr): the deduplicated values (reference
+    GpuCollectSet). Partials merge by concatenation; evaluate dedups."""
+    name = "collect_set"
+    _UPDATE = "collect_set"
+
+    def evaluate(self, buffers, input_types):
+        from ..ops.aggregate import dedup_array
+        return dedup_array(buffers[0])
+
+
+class Percentile(AggregateFunction):
+    """percentile(col, p [, ...]): the exact interpolated percentile
+    (reference GpuPercentile) over the group's values collected as a
+    list."""
+    name = "percentile"
+    _INTERPOLATE = True
+
+    def __init__(self, child, percentage):
+        super().__init__(child)
+        from .core import Literal
+        if isinstance(percentage, Literal):
+            percentage = percentage.value
+        self.percentage = percentage
+
+    def update_ops(self):
+        return [("collect", 0)]
+
+    def merge_ops(self):
+        return ["collect_merge"]
+
+    def buffer_types(self, input_types):
+        from ..types import ArrayType
+        return [ArrayType(input_types[0])]
+
+    def _scalar_result(self, elem_t):
+        return DoubleType() if self._INTERPOLATE else elem_t
+
+    def result_type(self, input_types):
+        from ..types import ArrayType
+        rt = self._scalar_result(input_types[0])
+        return ArrayType(rt) if isinstance(self.percentage, (list, tuple)) \
+            else rt
+
+    def result_type_from_buffer(self, buffer_types):
+        return self.result_type([buffer_types[0].element_type])
+
+    def evaluate(self, buffers, input_types):
+        from ..ops.percentile import percentile_of_arrays
+        return percentile_of_arrays(buffers[0], self.percentage,
+                                    self._INTERPOLATE)
+
+
+class ApproxPercentile(Percentile):
+    """approx_percentile(col, p [, accuracy]): the JAX package's bounded
+    sketch (ops/percentile.py), at most K = 2 x accuracy value points a
+    group, exact for groups of K values or fewer. Values ride f64 points,
+    so integral inputs beyond 2^53 lose low bits."""
+    name = "approx_percentile"
+    _INTERPOLATE = False
+    DEFAULT_ACCURACY = 10000
+
+    def __init__(self, child, percentage, accuracy=None):
+        super().__init__(child, percentage)
+        from .core import Literal
+        if isinstance(accuracy, Literal):
+            accuracy = accuracy.value
+        self.accuracy = int(accuracy) if accuracy else self.DEFAULT_ACCURACY
+
+    @property
+    def _k(self) -> int:
+        return 2 * self.accuracy
+
+    def update_ops(self):
+        return [(f"psketch:{self._k}", 0)]
+
+    def merge_ops(self):
+        return [f"psketch_merge:{self._k}"]
+
+    def buffer_types(self, input_types):
+        from ..types import DOUBLE, ArrayType
+        return [ArrayType(DOUBLE)]
+
+    def result_type_from_buffer(self, buffer_types):
+        return self.result_type([DoubleType()])
+
+    def evaluate(self, buffers, input_types):
+        from ..ops.percentile import approx_percentile_of_sketches
+        return approx_percentile_of_sketches(
+            buffers[0], self.percentage, self._scalar_result(input_types[0]))

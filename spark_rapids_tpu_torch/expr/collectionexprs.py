@@ -1,0 +1,419 @@
+"""Collection (array) expressions — the counterpart of spark_rapids_tpu/
+expr/collectionexprs.py without its higher-order functions (reference
+collectionOperations.scala: GpuSize, GpuArrayContains, GpuElementAt,
+GpuGetArrayItem, GpuSortArray, GpuArrayMin/Max, GpuCreateArray, and the
+device kernels of GpuArrayPosition, GpuArrayRemove, GpuArrayDistinct,
+GpuSlice, GpuFlatten, GpuArraysOverlap, GpuArrayRepeat and GpuSequence).
+
+The JAX package evaluates some shapes of the second family on its host
+row tier: string elements, per-row counts and bounds, and all of
+ArrayJoin. Each class says whether an instance has a device path
+(`device_supported`); the planner tags the others off, naming the port's
+host tier (ROADMAP A.8 wave 4). The lambdas (transform, filter, exists,
+forall, aggregate) come with wave 3b, map lookups with MapColumn.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..columnar.column import Column, bucket_capacity
+from ..ops import collection as C
+from ..types import (BOOLEAN, INT, LONG, STRING, ArrayType, ByteType,
+                     IntegerType, LongType, ShortType)
+from .core import Expression, Literal
+
+
+def _value(x):
+    return x.value if isinstance(x, Literal) else x
+
+
+class Size(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def with_children(self, children):
+        return Size(children[0])
+
+    @property
+    def data_type(self):
+        return INT
+
+    def columnar_eval(self, batch):
+        return C.array_size(self.children[0].columnar_eval(batch))
+
+
+class ArrayContains(Expression):
+    def __init__(self, child: Expression, value):
+        self.children = (child,)
+        self.value = _value(value)
+
+    def with_children(self, children):
+        return ArrayContains(children[0], self.value)
+
+    @property
+    def data_type(self):
+        return BOOLEAN
+
+    def columnar_eval(self, batch):
+        return C.array_contains(self.children[0].columnar_eval(batch),
+                                self.value)
+
+
+class ElementAt(Expression):
+    """element_at(arr, i): 1-based, negative from the end, null out of
+    bounds (non-ANSI); an expression index is read per row."""
+
+    def __init__(self, child: Expression, index):
+        if isinstance(index, Expression) and not isinstance(index, Literal):
+            self.children = (child, index)
+            self.index = None
+        else:
+            self.children = (child,)
+            self.index = _value(index)
+
+    def with_children(self, children):
+        return type(self)(children[0],
+                          children[1] if len(children) == 2 else self.index)
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type.element_type
+
+    def columnar_eval(self, batch):
+        c = self.children[0].columnar_eval(batch)
+        if len(self.children) == 2:
+            return C.element_at_col(c, self.children[1].columnar_eval(batch))
+        if self.index == 0:
+            # Spark raises even in non-ANSI mode; the per-row index path
+            # gives NULL (ops/collection.element_at_col)
+            raise ValueError("SQL array indices start at 1")
+        return C.element_at(c, self.index)
+
+
+class GetArrayItem(ElementAt):
+    """arr[i]: 0-based, null out of bounds (non-ANSI)."""
+
+    def columnar_eval(self, batch):
+        return C.get_array_item(self.children[0].columnar_eval(batch),
+                                self.index)
+
+
+class SortArray(Expression):
+    def __init__(self, child: Expression, ascending: bool = True):
+        self.children = (child,)
+        self.ascending = _value(ascending)
+
+    def with_children(self, children):
+        return SortArray(children[0], self.ascending)
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def columnar_eval(self, batch):
+        return C.sort_array(self.children[0].columnar_eval(batch),
+                            self.ascending)
+
+
+class ArrayMin(Expression):
+    OP = "min"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type.element_type
+
+    def columnar_eval(self, batch):
+        return C.array_min_max(self.children[0].columnar_eval(batch),
+                               self.OP)
+
+
+class ArrayMax(ArrayMin):
+    OP = "max"
+
+
+class CreateArray(Expression):
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    def with_children(self, children):
+        return CreateArray(*children)
+
+    @property
+    def data_type(self):
+        return ArrayType(self.children[0].data_type)
+
+    @property
+    def nullable(self):
+        return False
+
+    def columnar_eval(self, batch):
+        return C.create_array([c.columnar_eval(batch)
+                               for c in self.children], self.data_type)
+
+
+# -- the JAX package's host-tier family: device kernels where
+# `device_supported` -------------------------------------------------------
+
+class _HostCollection(Expression):
+    """Base of the collection expressions the JAX package runs on its host
+    row tier where they have no device kernel."""
+
+    device_supported = True
+
+    def columnar_eval(self, batch):
+        raise NotImplementedError(
+            f"{type(self).__name__} runs on the JAX package's host tier, "
+            "which waits for ROADMAP A.8 wave 4")
+
+
+def _fixed_width_elems(expr) -> bool:
+    """The device gate: an array of fixed-width (not nested, not string)
+    elements."""
+    try:
+        dt = expr.data_type
+    except TypeError:
+        return False
+    return isinstance(dt, ArrayType) and dt.element_type.is_fixed_width
+
+
+class ArrayPosition(_HostCollection):
+    """array_position(arr, v): the 1-based first index, 0 if absent."""
+
+    def __init__(self, child: Expression, value: Expression):
+        self.children = (child, value)
+
+    def with_children(self, cs):
+        return ArrayPosition(cs[0], cs[1])
+
+    @property
+    def device_supported(self):
+        return _fixed_width_elems(self.children[0])
+
+    @property
+    def data_type(self):
+        return LONG
+
+    def columnar_eval(self, batch):
+        return C.array_position(self.children[0].columnar_eval(batch),
+                                self.children[1].columnar_eval(batch))
+
+
+class ArrayRemove(_HostCollection):
+    def __init__(self, child: Expression, value: Expression):
+        self.children = (child, value)
+
+    def with_children(self, cs):
+        return ArrayRemove(cs[0], cs[1])
+
+    @property
+    def device_supported(self):
+        return _fixed_width_elems(self.children[0])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def columnar_eval(self, batch):
+        return C.array_remove(self.children[0].columnar_eval(batch),
+                              self.children[1].columnar_eval(batch))
+
+
+class ArrayDistinct(_HostCollection):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def with_children(self, cs):
+        return ArrayDistinct(cs[0])
+
+    @property
+    def device_supported(self):
+        return _fixed_width_elems(self.children[0])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def columnar_eval(self, batch):
+        return C.array_distinct(self.children[0].columnar_eval(batch))
+
+
+class Slice(_HostCollection):
+    """slice(arr, start, length): 1-based; a negative start from the
+    end."""
+
+    def __init__(self, child: Expression, start: Expression,
+                 length: Expression):
+        self.children = (child, start, length)
+
+    def with_children(self, cs):
+        return Slice(cs[0], cs[1], cs[2])
+
+    @property
+    def device_supported(self):
+        return _fixed_width_elems(self.children[0])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def columnar_eval(self, batch):
+        return C.array_slice(*[c.columnar_eval(batch)
+                               for c in self.children])
+
+
+class Flatten(_HostCollection):
+    """flatten(arr<arr<T>>): a composition of offsets for any element
+    type."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def with_children(self, cs):
+        return Flatten(cs[0])
+
+    @property
+    def device_supported(self):
+        try:
+            dt = self.children[0].data_type
+        except TypeError:
+            return False
+        return isinstance(dt, ArrayType) \
+            and isinstance(dt.element_type, ArrayType)
+
+    @property
+    def data_type(self):
+        dt = self.children[0].data_type
+        return dt.element_type if isinstance(dt, ArrayType) else dt
+
+    def columnar_eval(self, batch):
+        return C.flatten_array(self.children[0].columnar_eval(batch))
+
+
+class ArraysOverlap(_HostCollection):
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    def with_children(self, cs):
+        return ArraysOverlap(cs[0], cs[1])
+
+    @property
+    def device_supported(self):
+        return _fixed_width_elems(self.children[0]) \
+            and _fixed_width_elems(self.children[1])
+
+    @property
+    def data_type(self):
+        return BOOLEAN
+
+    def columnar_eval(self, batch):
+        return C.arrays_overlap(self.children[0].columnar_eval(batch),
+                                self.children[1].columnar_eval(batch))
+
+
+class ArrayJoin(_HostCollection):
+    """array_join: per-row string assembly, host tier in the JAX
+    package."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression, delim, null_replacement=None):
+        self.children = (child,)
+        self.delim = _value(delim)
+        self.null_replacement = _value(null_replacement)
+
+    def with_children(self, cs):
+        return ArrayJoin(cs[0], self.delim, self.null_replacement)
+
+    @property
+    def data_type(self):
+        return STRING
+
+
+_INTEGRAL = (ByteType, ShortType, IntegerType, LongType)
+
+
+class Sequence(_HostCollection):
+    """sequence(start, stop[, step]): a device kernel when every bound is
+    a literal (a static child capacity)."""
+
+    def __init__(self, start: Expression, stop: Expression,
+                 step: Expression = None):
+        self.children = (start, stop) + ((step,) if step is not None
+                                         else ())
+
+    def with_children(self, cs):
+        return Sequence(*cs)
+
+    @property
+    def device_supported(self):
+        if not all(isinstance(c, Literal) and c.value is not None
+                   for c in self.children):
+            return False
+        try:
+            return all(isinstance(c.data_type, _INTEGRAL)
+                       for c in self.children)
+        except TypeError:
+            return False
+
+    @property
+    def data_type(self):
+        return ArrayType(self.children[0].data_type)
+
+    def columnar_eval(self, batch):
+        start, stop = self.children[0].value, self.children[1].value
+        step = self.children[2].value if len(self.children) > 2 \
+            else (1 if stop >= start else -1)
+        if step == 0:
+            raise ValueError("sequence(): step must not be 0")
+        n = max((stop - start) // step + 1, 0) \
+            if (stop - start) * step >= 0 else 0
+        cols = [c.columnar_eval(batch) for c in self.children]
+        cap = cols[0].capacity
+        if len(cols) < 3:
+            cols.append(Column(torch.full((cap,), step,
+                                          dtype=cols[0].data.dtype,
+                                          device=cols[0].device),
+                               torch.ones(cap, dtype=torch.bool,
+                                          device=cols[0].device),
+                               cols[0].dtype))
+        return C.sequence_array(cols[0], cols[1], cols[2],
+                                bucket_capacity(max(int(n) * cap, 1)))
+
+
+class ArrayRepeat(_HostCollection):
+    """array_repeat(e, n): a device kernel when the count is a literal (a
+    static child capacity)."""
+
+    def __init__(self, elem: Expression, count: Expression):
+        self.children = (elem, count)
+
+    def with_children(self, cs):
+        return ArrayRepeat(cs[0], cs[1])
+
+    @property
+    def device_supported(self):
+        c = self.children[1]
+        if not (isinstance(c, Literal) and c.value is not None):
+            return False
+        try:
+            return self.children[0].data_type.is_fixed_width
+        except TypeError:
+            return False
+
+    @property
+    def data_type(self):
+        return ArrayType(self.children[0].data_type)
+
+    def columnar_eval(self, batch):
+        elem = self.children[0].columnar_eval(batch)
+        count = self.children[1].columnar_eval(batch)
+        n = max(int(self.children[1].value), 0)
+        return C.array_repeat(elem, count,
+                              bucket_capacity(max(n * elem.capacity, 1)))

@@ -1,14 +1,14 @@
 """String expressions — the counterpart of
 spark_rapids_tpu/expr/stringexprs.py (reference stringFunctions.scala),
-every class but StringSplit, whose array<string> result waits for the
-port's ArrayColumn (ROADMAP A.8 wave 3).
+every class, StringSplit's array<string> result an ArrayColumn.
 
 The device classes (Length through Like) evaluate through ops/strings.py
 and the regex automaton (regex/). The JAX package's `_HostString`
 classes run on its host row tier unless `device_supported`; the port has
 no host tier (ROADMAP A.8 wave 4), so the planner tags off the shapes
 without a device path (a regex pattern the span finder rejects, a UTF-16
-charset, Levenshtein) and the rest run on the card: SubstringIndex,
+charset, Levenshtein, a regex split) and the rest run on the card:
+StringSplit of a literal delimiter, SubstringIndex,
 FindInSet, RegExpExtract, RegExpReplace, the base64 and hex codecs,
 Encode, Decode and FormatNumber.
 
@@ -20,6 +20,7 @@ only (ROADMAP C.5 lists where this differs from Spark).
 
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 from ..columnar.column import Column, StringColumn
@@ -477,6 +478,43 @@ class _HostString(Expression):
         raise NotImplementedError(
             f"{type(self).__name__} runs on the JAX package's host tier, "
             "which waits for ROADMAP A.8 wave 4")
+
+
+#: a split pattern without these characters is a literal delimiter
+_REGEX_META = re.compile(r"[\\.\[\]{}()*+?^$|]")
+
+
+class StringSplit(_HostString):
+    """split(str, regex[, limit]) -> array<string> (reference
+    GpuStringSplit, Java's split semantics): a metacharacter-free literal
+    pattern takes the device kernel; regex patterns run on the JAX
+    package's host tier."""
+
+    def __init__(self, child: Expression, pattern, limit=-1):
+        self.children = (child,)
+        self.pattern = _value(pattern)
+        self.limit = _value(limit)
+
+    def with_children(self, cs):
+        return StringSplit(cs[0], self.pattern, self.limit)
+
+    @property
+    def data_type(self):
+        from ..types import ArrayType
+        return ArrayType(STRING)
+
+    @property
+    def device_supported(self) -> bool:
+        return (isinstance(self.pattern, str) and len(self.pattern) > 0
+                and not _REGEX_META.search(self.pattern)
+                and isinstance(self.limit, int))
+
+    def columnar_eval(self, batch):
+        from ..ops.string_split import split_literal
+        if not self.device_supported:
+            return super().columnar_eval(batch)
+        return split_literal(self.children[0].columnar_eval(batch),
+                             self.pattern.encode("utf-8"), self.limit)
 
 
 class SubstringIndex(_HostString):

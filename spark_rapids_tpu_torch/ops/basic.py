@@ -9,7 +9,9 @@ Conventions carried over from the JAX package:
   * a StringColumn gathers through ops/strings.gather_string, into the
     caller's byte capacity;
   * a Decimal128Column moves its two limbs as two more 8-byte lanes of
-    the packed row gather (ops/gather.py), never on its own.
+    the packed row gather (ops/gather.py), never on its own;
+  * an ArrayColumn gathers and concatenates its offsets' element spans
+    (ops/collection.py), its child by the child's own path.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column, Decimal128Column, StringColumn
+from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
+                               StringColumn)
 from ..columnar.encoded import NULL_CODE, DictionaryColumn
 
 
@@ -39,6 +42,9 @@ def sanitize(col: Column, num_rows) -> Column:
     if isinstance(col, StringColumn):
         return StringColumn(col.data, col.offsets, col.validity & act,
                             col.dtype)
+    if isinstance(col, ArrayColumn):
+        return ArrayColumn(col.child, col.offsets, col.validity & act,
+                           col.dtype)
     if isinstance(col, Decimal128Column):
         zero = torch.zeros((), dtype=torch.int64, device=col.device)
         return Decimal128Column.from_limbs(
@@ -59,6 +65,9 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
     if isinstance(a, StringColumn):
         from .strings import concat_string
         return concat_string(a, b, a_rows, b_rows, out_capacity)
+    if isinstance(a, ArrayColumn):
+        from .collection import concat_arrays
+        return concat_arrays(a, b, a_rows, b_rows, out_capacity)
     idx = torch.arange(out_capacity, dtype=torch.int32, device=a.device)
     from_b = idx >= a_rows
     b_idx = idx - a_rows
@@ -97,7 +106,8 @@ def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
     """Gather rows by int32 indices; the index length is the output
     capacity. `out_valid` masks output rows; out-of-range indices give
     invalid rows. `out_byte_capacity` is a string column's output byte
-    bucket (default: its input's)."""
+    bucket (default: its input's), or a list column's element bucket (an
+    (elements, bytes) pair for string elements)."""
     if isinstance(col, Decimal128Column):
         from .gather import gather_batch_columns
         midx = indices if out_valid is None \
@@ -119,6 +129,9 @@ def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
     if isinstance(col, StringColumn):
         from .strings import gather_string
         return gather_string(col, safe, valid, out_byte_capacity)
+    if isinstance(col, ArrayColumn):
+        from .collection import gather_array
+        return gather_array(col, safe, valid, out_byte_capacity)
     data = torch.where(valid, col.data[safe],
                        torch.zeros((), dtype=col.data.dtype,
                                    device=col.device))

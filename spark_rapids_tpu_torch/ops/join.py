@@ -112,6 +112,24 @@ def candidate_fill_inputs(lo, counts, out_capacity: int):
     return seg[:out_capacity], torch.stack([lo, start], dim=1)
 
 
+def is_varsize(c: Column) -> bool:
+    """A column whose rows vary in size: strings (bytes) and lists
+    (elements), whose gathers need an output bucket measured for them."""
+    from ..columnar.column import ArrayColumn
+    return isinstance(c, (StringColumn, ArrayColumn))
+
+
+def var_lengths(c: Column) -> torch.Tensor:
+    """Per-row payload size of a variable-size column: bytes for a
+    string, elements for a list."""
+    from ..columnar.column import ArrayColumn
+    if isinstance(c, ArrayColumn):
+        from .collection import array_lengths
+        return array_lengths(c)
+    from .strings import string_lengths
+    return string_lengths(c)
+
+
 class BuildTable:
     """Hash-bucketed build side: rows sorted by the u32 hash pair, a
     top-B-bits bucket offsets table, the payload packed in sorted order,
@@ -198,13 +216,12 @@ class BuildTable:
             lanes, kvalid = kl
             p = perm.long()
             key_lanes = (lanes[p], kvalid[p])
-        from .strings import string_lengths
         p = perm.long()
         prefix = [torch.cat([torch.zeros(1, dtype=torch.int64,
                                          device=perm.device),
-                             torch.cumsum(string_lengths(c)[p], 0,
+                             torch.cumsum(var_lengths(c)[p], 0,
                                           dtype=torch.int64)])
-                  for c in payload if isinstance(c, StringColumn)]
+                  for c in payload if is_varsize(c)]
         return BuildTable(bucket_table, perm, valid_count, num_rows,
                           key_cols, payload, capacity, pair_table, pack,
                           key_lanes, prefix)
@@ -212,9 +229,11 @@ class BuildTable:
 
 def is_gatherable(col: Column) -> bool:
     """A column ops/basic.gather_column moves: fixed-width, a dictionary
-    column (its codes) or a string column."""
+    column (its codes), a string column or a list column."""
+    from ..columnar.column import ArrayColumn
     return type(col) is Column or isinstance(col, (DictionaryColumn,
-                                                   StringColumn))
+                                                   StringColumn,
+                                                   ArrayColumn))
 
 
 def probe_counts(build: BuildTable, stream_keys: Sequence[Column],

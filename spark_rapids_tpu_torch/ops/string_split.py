@@ -1,22 +1,22 @@
 """The delimiter-driven string family — the counterpart of
-spark_rapids_tpu/ops/string_split.py for `find_in_set` and
-`substring_index` (reference stringFunctions.scala over cuDF string
+spark_rapids_tpu/ops/string_split.py: `find_in_set`, `substring_index`
+and `split_literal` (reference stringFunctions.scala over cuDF string
 kernels). Byte-parallel over the (offsets, bytes) layout: delimiter
 occurrences are a byte mask (ops/strings.select_literal_hits), per-row
-ranks come from segmented cumsums, and the result is a span gather.
-
-`split_literal` returns an array<string>, which needs the port's
-ArrayColumn: it comes with ROADMAP A.8 wave 3.
+ranks come from segmented cumsums, and the result is a span gather
+(split's, an array<string> ArrayColumn).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..columnar.column import Column, StringColumn
-from ..types import INT
-from .strings import (_BIG, _col_bytes, _segment, _substring_gather,
-                      seg_incl_cumsum, select_literal_hits, string_lengths)
+from ..columnar.column import (ArrayColumn, Column, StringColumn,
+                               bucket_capacity)
+from ..types import INT, STRING, ArrayType
+from .strings import (_BIG, _col_bytes, _rebuild_offsets, _segment,
+                      _substring_gather, seg_incl_cumsum,
+                      select_literal_hits, string_lengths)
 
 
 def find_in_set(needle: StringColumn, sets: StringColumn) -> Column:
@@ -114,3 +114,86 @@ def substring_index(col: StringColumn, delim: bytes,
         out_len = torch.where(enough, col.offsets[1:] - out_start, lens)
     return _substring_gather(col, out_start.to(torch.int32),
                              out_len.to(torch.int32))
+
+
+def split_literal(col: StringColumn, delim: bytes, limit: int) -> ArrayColumn:
+    """split(str, delim, limit) for a literal delimiter, with Java's
+    semantics: limit > 0 caps the part count, limit == 0 strips trailing
+    empty parts, a negative limit keeps everything. The child's offsets
+    take the JAX package's bucket (bytes + rows parts at most), its bytes
+    the input's byte bucket."""
+    cap = col.capacity
+    byte_cap = col.byte_capacity
+    dev = col.device
+    out_t = ArrayType(STRING)
+    if not delim or limit == 1:
+        # no split: row i is the 1-element array of child row i
+        return ArrayColumn(StringColumn(col.data, col.offsets, col.validity,
+                                        col.dtype),
+                           torch.arange(cap + 1, dtype=torch.int32,
+                                        device=dev), col.validity, out_t)
+    ld = len(delim)
+    pos, row, _, _ = _col_bytes(col)
+    row_start = col.offsets[row]
+    sel = select_literal_hits(col, delim) & col.validity[row]
+    rank = seg_incl_cumsum(sel.to(torch.int32), row_start)  # 1-based
+    if limit > 0:
+        sel = sel & (rank <= limit - 1)
+        rank = torch.clamp(rank, max=limit - 1)
+    m = _segment(sel.to(torch.int32), row, cap, "sum")
+    n_parts = torch.where(col.validity, m + 1, 0).to(torch.int32)
+    arr_off = _rebuild_offsets(n_parts)
+    part_cap = byte_cap + cap  # m + 1 parts a row, m <= its bytes
+
+    def scatter(gid, values):
+        # gid == part_cap drops the write (the JAX package's mode="drop")
+        out = torch.zeros(part_cap + 1, dtype=torch.int32, device=dev)
+        out[gid.long()] = values.to(torch.int32)
+        return out[:part_cap]
+
+    # part k >= 1 starts after the k-th delimiter; part k - 1 ends at it;
+    # part 0 starts at the row's start, the last part ends at its end
+    starts = torch.where(col.validity, arr_off[:-1], part_cap)
+    lasts = torch.where(col.validity, arr_off[:-1] + m, part_cap)
+    hit_gid = torch.where(sel, arr_off[row] + rank, part_cap)
+    prev_gid = torch.where(sel, arr_off[row] + rank - 1, part_cap)
+    p_start = scatter(torch.cat([hit_gid, starts]),
+                      torch.cat([pos + ld, col.offsets[:-1]]))
+    p_end = scatter(torch.cat([prev_gid, lasts]),
+                    torch.cat([pos, col.offsets[1:]]))
+    p_len = torch.clamp(p_end - p_start, min=0)
+    total_parts = arr_off[cap]
+    if limit == 0:
+        # strip each row's trailing empty parts
+        pids = torch.arange(part_cap, dtype=torch.int32, device=dev)
+        prow = torch.clamp(torch.searchsorted(arr_off, pids, right=True) - 1,
+                           0, cap - 1)
+        nonempty = (pids < total_parts) & (p_len > 0)
+        last_ne = _segment(torch.where(nonempty, pids - arr_off[prow], -1),
+                           prow, cap, "amax")
+        n_parts = torch.where(col.validity, last_ne + 1, 0).to(torch.int32)
+        new_off = _rebuild_offsets(n_parts)
+        nrow = torch.clamp(torch.searchsorted(new_off, pids, right=True) - 1,
+                           0, cap - 1)
+        old_gid = torch.clamp(arr_off[nrow] + (pids - new_off[nrow]), 0,
+                              part_cap - 1).long()
+        p_start, p_len = p_start[old_gid], p_len[old_gid]
+        arr_off = new_off
+        total_parts = arr_off[cap]
+    # the child's bytes: each part's span, in part order
+    child_off = _rebuild_offsets(p_len)
+    tp = torch.clamp(total_parts, 0, part_cap).long()
+    opos = torch.arange(byte_cap, dtype=torch.int32, device=dev)
+    src_part = torch.clamp(torch.searchsorted(child_off, opos, right=True)
+                           - 1, 0, part_cap - 1)
+    src = torch.clamp(p_start[src_part] + opos - child_off[src_part], 0,
+                      byte_cap - 1)
+    cdata = torch.where(opos < child_off[tp], col.data[src.long()], 0) \
+        .to(torch.uint8)
+    ccap = bucket_capacity(max(part_cap, 1))
+    c_idx = torch.arange(ccap + 1, dtype=torch.int32, device=dev)
+    c_off = torch.zeros(ccap + 1, dtype=torch.int32, device=dev)
+    c_off[: part_cap + 1] = child_off
+    c_off = torch.where(c_idx > total_parts, child_off[tp], c_off)
+    child = StringColumn(cdata, c_off, c_idx[:ccap] < total_parts, STRING)
+    return ArrayColumn(child, arr_off, col.validity, out_t)

@@ -4,8 +4,8 @@ layer (overrides.py) wraps, tags and converts to TpuExec trees (reference
 GpuOverrides.scala wrap/tag/convert over SparkPlan).
 
 These are the nodes the ported DataFrame methods build, and the expand
-node of grouping sets. The generate, window, sample and pandas nodes
-come with their operators (ROADMAP A.8).
+node of grouping sets. The pandas nodes come with their operators
+(ROADMAP A.8 wave 4).
 """
 
 from __future__ import annotations
@@ -226,3 +226,56 @@ class LogicalRepartition(LogicalPlan):
 
     def describe(self):
         return f"Repartition[{self.mode}, n={self.n_partitions}]"
+
+
+class LogicalGenerate(LogicalPlan):
+    """explode/posexplode of an array expression (reference
+    GpuGenerateExec.scala:829)."""
+
+    def __init__(self, generator: Expression, child: LogicalPlan,
+                 outer: bool = False, position: bool = False,
+                 elem_name: str = "col", pos_name: str = "pos"):
+        self.generator = generator
+        self.outer = outer
+        self.position = position
+        self.elem_name = elem_name
+        self.pos_name = pos_name
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        from ..expr.core import resolve
+        from ..types import ArrayType, IntegerType
+        arr_t = resolve(self.generator, self.children[0].schema).data_type
+        if not isinstance(arr_t, ArrayType):
+            raise TypeError(f"explode needs an ARRAY input, got "
+                            f"{arr_t.simple_name()}")
+        fields = list(self.children[0].schema.fields)
+        if self.position:
+            fields.append(StructField(self.pos_name, IntegerType(),
+                                      self.outer))
+        fields.append(StructField(self.elem_name, arr_t.element_type, True))
+        return Schema(tuple(fields))
+
+    def describe(self):
+        kind = "PosExplode" if self.position else "Explode"
+        return f"Generate {kind}{' outer' if self.outer else ''} " \
+            f"{self.generator!r}"
+
+
+class LogicalWindow(LogicalPlan):
+    def __init__(self, window_exprs, child: LogicalPlan):
+        self.window_exprs = list(window_exprs)
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        from ..exec.basic import InMemoryScanExec
+        from ..exec.window import WindowExec
+        probe = WindowExec(self.window_exprs,
+                           InMemoryScanExec([], self.children[0].schema))
+        return probe.output_schema
+
+    def describe(self):
+        return "Window [" + ", ".join(
+            f"{we!r} AS {n}" for we, n in self.window_exprs) + "]"

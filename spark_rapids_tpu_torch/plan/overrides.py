@@ -7,21 +7,20 @@ As in the JAX package, the engine has no host engine underneath: a node
 that cannot run on the card makes `apply` raise PlanNotSupported with the
 whole explain report. The rules cover what the port has: the expressions
 of expr/{core,arithmetic,predicates,conditional,cast,math,bitwise,
-datetimeexprs,hashexprs,stringexprs,aggexprs}, and the scan,
-project, filter, range, union, limit, expand, sample, aggregate
-(single-stage, or partial -> host exchange -> final), hash join of every
-join type (broadcast, host-shuffled or single-partition), nested-loop
-join of a keyless join (over a broadcast when the right side fits),
-sort (over a range exchange and PartitionWiseSortExec when the host
-shuffle has partitions), TopN and repartition operators. Each node or
-branch whose operator is not ported yet is tagged off during tagging,
+datetimeexprs,hashexprs,stringexprs,collectionexprs}, the aggregate and
+window functions of expr/{aggexprs,windowexprs}, and the scan, project,
+filter, range, union, limit, expand, sample, aggregate (single-stage, or
+partial -> host exchange -> final), hash join of every join type
+(broadcast, host-shuffled or single-partition), nested-loop join of a
+keyless join (over a broadcast when the right side fits), sort (over a
+range exchange and PartitionWiseSortExec when the host shuffle has
+partitions), TopN, repartition, window and generate operators. Each node
+or branch whose operator is not ported yet is tagged off during tagging,
 with a reason naming its ROADMAP item, so nothing raises mid-run:
 
 - the adaptive join the JAX package plans when a side's size is unknown
   (AdaptiveJoinExec): A.3 and A.9;
-- aggregate functions the port lacks (collect_list, collect_set,
-  percentile, approx_percentile: A.2 with wave 3's ArrayColumn); an
-  average over a DECIMAL, whose evaluation raises in the JAX package
+- an average over a DECIMAL, whose evaluation raises in the JAX package
   (C.5);
 - a node the JAX package would run on its host row engine
   (`_can_host_fallback`), the cost-based placement and the UDF compiler:
@@ -29,7 +28,10 @@ with a reason naming its ROADMAP item, so nothing raises mid-run:
   the JAX package tags off its device (decimal128 multiply and divide,
   casts without a kernel, unknown time zones, a regex pattern its
   compiler or span finder rejects, a UTF-16 charset, Levenshtein,
-  format_number of a DECIMAL) are tagged off with its reasons.
+  format_number of a DECIMAL, a regex split, array_join and the host-tier
+  shapes of the collection expressions) are tagged off with its reasons,
+  and so are its plan-level tag-offs (collect_set over strings, a join
+  whose payload holds an array of strings).
 
 Also waiting for their items: the mesh (`_plan_mesh` and the
 distributed aggregate and join over it, A.6: with no mesh the JAX
@@ -54,19 +56,22 @@ from ..exec.basic import (ExpandExec, FilterExec, GlobalLimitExec,
                           ProjectExec, RangeExec, SampleExec, SourceScanExec,
                           UnionExec, bind_projection)
 from ..exec.coalesce import CoalesceBatchesExec
+from ..exec.generate import GenerateExec
 from ..exec.exchange import (BroadcastExchangeExec, HostShuffleExchangeExec,
                              ShuffledHashJoinExec)
 from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, HashJoinExec,
                           NestedLoopJoinExec)
 from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
                          resolve_sort_orders)
-from ..expr import (aggexprs, arithmetic, bitwise, cast, conditional,
-                    datetimeexprs, hashexprs, predicates, stringexprs)
+from ..exec.window import WindowExec
+from ..expr import (aggexprs, arithmetic, bitwise, cast, collectionexprs,
+                    conditional, datetimeexprs, hashexprs, predicates,
+                    stringexprs, windowexprs)
 from ..expr import math as emath
 from ..expr.core import (
     Alias, BoundReference, Expression, Literal, UnresolvedAttribute, resolve,
 )
-from ..types import DecimalType, StringType
+from ..types import ArrayType, DecimalType, StringType
 from . import logical as L
 from .meta import BaseMeta, ExprMeta, ExprRule
 from .typesig import (
@@ -256,8 +261,55 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
         _r(rules, c,
            d + " (device UTF-8/ASCII/Latin-1 byte maps; UTF-16 host tier)",
            in_sig, stringlike, tag_fn=_tag_device_when_supported)
+    arr = TypeSig.of("ARRAY")
+    _r(rules, se.StringSplit, "string split", stringlike, arr,
+       tag_fn=_tag_device_when_supported)
+    ce = collectionexprs
+    _r(rules, ce.Size, "array size", arr, integral)
+    _r(rules, ce.ArrayContains, "array membership", arr, BOOLEAN)
+    _r(rules, ce.ElementAt, "element access (array)",
+       arr + commonly_supported, commonly_supported)
+    _r(rules, ce.GetArrayItem, "0-based element access", arr,
+       commonly_supported)
+    _r(rules, ce.SortArray, "in-array sort", arr, arr,
+       tag_fn=_tag_fixed_width_elements)
+    _r(rules, ce.ArrayMin, "array minimum", arr, numeric_and_decimal,
+       tag_fn=_tag_fixed_width_elements)
+    _r(rules, ce.ArrayMax, "array maximum", arr, numeric_and_decimal,
+       tag_fn=_tag_fixed_width_elements)
+    # fixed-width inputs only: the interleave has no string element path
+    _r(rules, ce.CreateArray, "array constructor",
+       numeric_and_decimal + TypeSig.of("BOOLEAN", "DATE", "TIMESTAMP",
+                                        "TIMESTAMP_NTZ"), arr)
+    # the JAX package's host-tier family: device kernels where
+    # `device_supported` (array_join has none)
+    for c, d in ((ce.ArrayPosition, "array_position"),
+                 (ce.ArrayRemove, "array_remove"),
+                 (ce.ArrayDistinct, "array_distinct"),
+                 (ce.Slice, "slice"),
+                 (ce.Flatten, "flatten"),
+                 (ce.ArraysOverlap, "arrays_overlap"),
+                 (ce.ArrayRepeat, "array_repeat (literal count)"),
+                 (ce.Sequence, "sequence (literal bounds)"),
+                 (ce.ArrayJoin, "array_join (host tier)")):
+        _r(rules, c, d, commonly_supported + arr, commonly_supported + arr,
+           tag_fn=_tag_device_when_supported)
     _EXPR_RULES = rules
     return rules
+
+
+def _tag_fixed_width_elements(meta) -> None:
+    """Sort, min and max kernels need fixed-width elements (no string sort
+    lanes in arrays): tagged off at plan time, as in the JAX package."""
+    for c in meta.children:
+        try:
+            dt = c.expr.data_type
+        except TypeError:
+            continue
+        if isinstance(dt, ArrayType) and not dt.element_type.is_fixed_width:
+            meta.will_not_work_on_tpu(
+                f"array<{dt.element_type.simple_name()}> elements are not "
+                "fixed-width (string sort lanes in arrays planned)")
 
 
 def _tag_decimal128(meta) -> None:
@@ -360,11 +412,9 @@ _AGG_RULES = None
 
 
 def aggregate_window_rules() -> Dict[type, ExprRule]:
-    """Aggregate functions as rules, in a table of their own as in the
-    JAX package (AggregateFunction is not an Expression: its tagging runs
-    at the LogicalAggregate node). collect_list, collect_set and the
-    percentiles come with A.8 wave 3's ArrayColumn (A.2), the window
-    functions with wave 3."""
+    """Aggregate and window functions as rules, in a table of their own as
+    in the JAX package (neither is an Expression: their tagging runs at
+    the LogicalAggregate and LogicalWindow nodes)."""
     global _AGG_RULES
     if _AGG_RULES is not None:
         return _AGG_RULES
@@ -379,7 +429,22 @@ def aggregate_window_rules() -> Dict[type, ExprRule]:
                  (aggexprs.StddevPop, "stddev_pop aggregate"),
                  (aggexprs.StddevSamp, "stddev_samp aggregate"),
                  (aggexprs.VariancePop, "var_pop aggregate"),
-                 (aggexprs.VarianceSamp, "var_samp aggregate")):
+                 (aggexprs.VarianceSamp, "var_samp aggregate"),
+                 (aggexprs.CollectList, "collect_list aggregate"),
+                 (aggexprs.CollectSet, "collect_set aggregate"),
+                 (aggexprs.Percentile, "percentile aggregate"),
+                 (aggexprs.ApproxPercentile,
+                  "approx_percentile aggregate (bounded sketch)")):
+        _r(rules, c, d, commonly_supported, commonly_supported)
+    win = windowexprs
+    for c, d in ((win.RowNumber, "row_number window function"),
+                 (win.Rank, "rank window function"),
+                 (win.DenseRank, "dense_rank window function"),
+                 (win.Lag, "lag window function"),
+                 (win.Lead, "lead window function"),
+                 (win.FirstValue, "first_value window function"),
+                 (win.LastValue, "last_value window function"),
+                 (win.WindowAgg, "aggregate over window frame")):
         _r(rules, c, d, commonly_supported, commonly_supported)
     _AGG_RULES = rules
     return rules
@@ -508,6 +573,15 @@ class PlanMeta(BaseMeta):
                 if isinstance(e, Expression):
                     out.append((e, child_sch))
             return out
+        if isinstance(p, L.LogicalGenerate):
+            return [(p.generator, child_sch)]
+        if isinstance(p, L.LogicalWindow):
+            out = []
+            for we, _ in p.window_exprs:
+                out.extend((e, child_sch) for e in we.fn.inputs)
+                out.extend((e, child_sch) for e in we.spec.partition_by)
+                out.extend((o[0], child_sch) for o in we.spec.order_by)
+            return out
         return []
 
     def tag_for_tpu(self):
@@ -542,13 +616,25 @@ class PlanMeta(BaseMeta):
         """Tag off the nodes whose operators the port lacks, naming the
         ROADMAP item that brings each."""
         p = self.plan
-        if isinstance(p, L.LogicalAggregate):
+        if isinstance(p, L.LogicalWindow):
+            rules = aggregate_window_rules()
+            for we, _ in p.window_exprs:
+                if type(we.fn) not in rules:
+                    self.will_not_work_on_tpu(
+                        f"window function {type(we.fn).__name__} has no "
+                        "rule")
+        elif isinstance(p, L.LogicalAggregate):
             rules = aggregate_window_rules()
             for fn, _ in p.aggregates:
                 if type(fn) not in rules:
                     self.will_not_work_on_tpu(
-                        f"aggregate {type(fn).__name__} waits for ROADMAP "
-                        "A.2")
+                        f"aggregate {type(fn).__name__} has no rule")
+                elif isinstance(fn, aggexprs.CollectSet) \
+                        and self._non_fixed_width_input(fn, p):
+                    # the dedup lanes exist for fixed-width values only
+                    self.will_not_work_on_tpu(
+                        "collect_set over a string needs string dedup "
+                        "lanes (planned, as in the JAX package)")
                 elif isinstance(fn, aggexprs.Average) \
                         and self._decimal_input(fn, p):
                     self.will_not_work_on_tpu(
@@ -556,6 +642,17 @@ class PlanMeta(BaseMeta):
                         "raises there (ROADMAP C.5), and the port adds no "
                         "decimal average it lacks")
         elif isinstance(p, L.LogicalJoin):
+            # a join duplicates payload rows; the duplicating gather of an
+            # array<string> has no child byte measurement (JAX package)
+            for child in p.children:
+                for f in child.schema.fields:
+                    if isinstance(f.data_type, ArrayType) \
+                            and not f.data_type.element_type.is_fixed_width:
+                        self.will_not_work_on_tpu(
+                            f"join payload column {f.name!r}: "
+                            f"{f.data_type.simple_name()} elements are not "
+                            "fixed-width (the duplicating gather lacks "
+                            "their byte measurement)")
             strategy = self._join_strategy(p)[0]
             if strategy.endswith("nested_loop") \
                     and p.join_type not in NESTED_LOOP_JOIN_TYPES:
@@ -567,6 +664,15 @@ class PlanMeta(BaseMeta):
                 self.will_not_work_on_tpu(
                     "a join with a side of unknown size (AdaptiveJoinExec) "
                     f"{JOINS}")
+
+    @staticmethod
+    def _non_fixed_width_input(fn, p: L.LogicalAggregate) -> bool:
+        schema = p.children[0].schema
+        try:
+            return not resolve(fn.inputs[0], schema).data_type \
+                .is_fixed_width
+        except (KeyError, TypeError, IndexError):
+            return False
 
     @staticmethod
     def _decimal_input(fn, p: L.LogicalAggregate) -> bool:
@@ -628,6 +734,11 @@ class PlanMeta(BaseMeta):
         shuffle under partial/final agg)."""
         partial = AggregateExec(p.group_exprs, p.aggregates, child,
                                 mode="partial")
+        if any(isinstance(f.data_type, ArrayType)
+               for f in partial.output_schema.fields):
+            # list buffers (collect_*, the percentiles): the JAX package
+            # keeps these aggregates single-partition
+            return AggregateExec(p.group_exprs, p.aggregates, child)
         key_names = partial.output_schema.names[: len(p.group_exprs)]
         part_keys = [UnresolvedAttribute(n) for n in key_names]
         exchange = HostShuffleExchangeExec(part_keys, partial, n_parts,
@@ -791,6 +902,11 @@ class PlanMeta(BaseMeta):
             return UnionExec(*kids)
         if isinstance(p, L.LogicalExpand):
             return ExpandExec(p.projections, kids[0])
+        if isinstance(p, L.LogicalWindow):
+            return WindowExec(p.window_exprs, kids[0])
+        if isinstance(p, L.LogicalGenerate):
+            return GenerateExec(p.generator, kids[0], p.outer, p.position,
+                                p.elem_name, p.pos_name)
         raise PlanNotSupported(f"no conversion for {type(p).__name__}")
 
 

@@ -3,9 +3,9 @@ spark_rapids_tpu/plan/typesig.py (reference TypeChecks.scala:168 TypeSig /
 :1456 ExprChecks; drives both tagging and the generated supported-ops
 documentation).
 
-The tags are the JAX package's. The port has no nested types yet
-(ROADMAP A.8): their tags name no class here, so no type of the port
-matches them.
+The tags are the JAX package's. Maps and structs wait for their slice
+(ROADMAP A.8 wave 3b): their tags name no class here, so no type of the
+port matches them.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from __future__ import annotations
 from typing import FrozenSet, Optional
 
 from ..types import (
-    BinaryType, BooleanType, ByteType, DataType, DateType, DecimalType,
-    DoubleType, FloatType, IntegerType, LongType, NullType, ShortType,
-    StringType, TimestampNTZType, TimestampType,
+    ArrayType, BinaryType, BooleanType, ByteType, DataType, DateType,
+    DecimalType, DoubleType, FloatType, IntegerType, LongType, NullType,
+    ShortType, StringType, TimestampNTZType, TimestampType,
 )
 
 _ALL_TAGS = {
@@ -24,7 +24,7 @@ _ALL_TAGS = {
     "DOUBLE": DoubleType, "DATE": DateType, "TIMESTAMP": TimestampType,
     "TIMESTAMP_NTZ": TimestampNTZType, "STRING": StringType,
     "BINARY": BinaryType, "NULL": NullType, "DECIMAL": DecimalType,
-    "ARRAY": None, "MAP": None,
+    "ARRAY": ArrayType, "MAP": None,
     "STRUCT": None,
 }
 

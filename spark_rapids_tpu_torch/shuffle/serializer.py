@@ -25,15 +25,18 @@ never reaches the wire):
     decimal128:  validity bitmask, then the hi and lo limbs each as a
                  fixed-width LONG column (the JAX package's struct
                  children)
+    array:       validity bitmask, offsets[:num_rows+1] rebased to 0,
+                 then the child encoded over exactly the referenced
+                 element span
 
 Columns are encoded from host tensors (CPU): `serialize_batch` fetches a
 batch on the card in one packed copy first (columnar/transfer.py), and
 the exchange serializes slices of the host batch its split fetched.
 `deserialize_batch` returns a host-backed batch (CPU tensors at their
 capacity buckets, as `host_gather_column` makes them); the caller
-promotes it at its own seam (columnar/upload.promote_stream). Array,
-struct and map columns wait for their slice (ROADMAP A.8); a dictionary
-column decodes at the exchange's boundary before it gets here.
+promotes it at its own seam (columnar/upload.promote_stream). Struct
+and map columns wait for their slice (ROADMAP A.8); a dictionary column
+decodes at the exchange's boundary before it gets here.
 DECIMAL(p<=18) crosses as its int64 lane.
 
 A codec that fails to build raises (native/__init__.py): COPY is a codec
@@ -51,10 +54,11 @@ import numpy as np
 import torch
 
 from ..columnar.batch import ColumnarBatch
-from ..columnar.column import (Column, Decimal128Column, StringColumn,
-                               bucket_capacity)
+from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
+                               StringColumn, bucket_capacity)
 from ..native import lz4_compress, lz4_decompress, xxh64
-from ..types import LONG, BinaryType, DecimalType, Schema, StringType
+from ..types import (LONG, ArrayType, BinaryType, DecimalType, Schema,
+                     StringType)
 
 __all__ = [
     "MAGIC", "VERSION", "CODEC_COPY", "CODEC_LZ4", "CorruptFrameError",
@@ -93,11 +97,12 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _check_kind(col: Column) -> None:
-    if type(col) not in (Column, StringColumn, Decimal128Column):
+    if type(col) not in (Column, StringColumn, Decimal128Column,
+                         ArrayColumn):
         raise NotImplementedError(
             f"{type(col).__name__} columns do not cross the shuffle: "
             f"dictionary columns decode at the exchange's boundary, "
-            f"nested ones wait for their slice (ROADMAP A.8)")
+            f"maps and structs wait for their slice (ROADMAP A.8)")
 
 
 def _rebase_offsets(off: np.ndarray, n: int, start: int = 0) -> np.ndarray:
@@ -121,6 +126,13 @@ def _encode_column(col: Column, n: int, out: List[np.ndarray],
     elif isinstance(col, Decimal128Column):
         for limb in col.children:
             _encode_column(limb, n, out, start)
+    elif isinstance(col, ArrayColumn):
+        off = _np(col.offsets)
+        out.append(_rebase_offsets(off, n, start))
+        # the child is encoded for exactly the referenced element span
+        lo = int(off[start])
+        hi = int(off[start + n]) if n else lo
+        _encode_column(col.child, hi - lo, out, start=lo)
     else:
         out.append(np.ascontiguousarray(_np(col.data)[start: start + n]))
 
@@ -146,6 +158,17 @@ def _decode_column(dtype, n: int, bufs: List[bytes], pos: int,
         dpad[: len(data)] = data
         return StringColumn(torch.from_numpy(dpad), torch.from_numpy(opad),
                             torch.from_numpy(vpad), dtype), pos
+    if isinstance(dtype, ArrayType):
+        off = np.frombuffer(bufs[pos], dtype=np.int32)
+        pos += 1
+        opad = np.zeros(capacity + 1, np.int32)
+        opad[: n + 1] = off
+        opad[n + 1:] = off[n] if n else 0
+        child_n = int(off[n]) if n else 0
+        child, pos = _decode_column(dtype.element_type, child_n, bufs, pos,
+                                    bucket_capacity(max(child_n, 1)))
+        return ArrayColumn(child, torch.from_numpy(opad),
+                           torch.from_numpy(vpad), dtype), pos
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
         hi, pos = _decode_column(LONG, n, bufs, pos, capacity)
         lo, pos = _decode_column(LONG, n, bufs, pos, capacity)
@@ -327,6 +350,22 @@ def host_gather_column(col: Column, idx: np.ndarray) -> Column:
     if isinstance(col, Decimal128Column):
         kids = tuple(host_gather_column(c, idx) for c in col.children)
         return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, ArrayColumn):
+        off = _np(col.offsets)
+        starts = off[idx].astype(np.int64)
+        lens = off[idx + 1].astype(np.int64) - starts
+        total = int(lens.sum())
+        new_off = np.zeros(cap + 1, np.int32)
+        np.cumsum(lens, out=new_off[1: k + 1])
+        new_off[k + 1:] = new_off[k]
+        elem_idx = np.zeros(0, np.int64)
+        if total:
+            cum = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            elem_idx = (np.repeat(starts, lens) + np.arange(total)
+                        - np.repeat(cum, lens))
+        return ArrayColumn(host_gather_column(col.child, elem_idx),
+                           torch.from_numpy(new_off),
+                           torch.from_numpy(vpad), col.dtype)
     data = _np(col.data)
     dpad = np.zeros(cap, data.dtype)
     dpad[:k] = data[idx]
@@ -362,6 +401,16 @@ def host_slice_column(col: Column, lo: int, hi: int) -> Column:
     if isinstance(col, Decimal128Column):
         kids = tuple(host_slice_column(c, lo, hi) for c in col.children)
         return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, ArrayColumn):
+        off = _np(col.offsets)
+        base = int(off[lo])
+        end = int(off[hi]) if n else base
+        new_off = np.zeros(cap + 1, np.int32)
+        new_off[: n + 1] = off[lo: hi + 1] - base
+        new_off[n + 1:] = new_off[n]
+        return ArrayColumn(host_slice_column(col.child, base, end),
+                           torch.from_numpy(new_off),
+                           torch.from_numpy(vpad), col.dtype)
     data = _np(col.data)
     dpad = np.zeros(cap, data.dtype)
     dpad[:n] = data[lo:hi]

@@ -13,8 +13,10 @@ Physical encodings on the card:
   - STRING / BINARY   -> uint8 bytes + int32 offsets (columnar/column.py
                          StringColumn), or int32 codes into a per-batch
                          dictionary (columnar/encoded.py DictionaryColumn)
+  - ARRAY<T>          -> int32 offsets into a child column of T
+                         (columnar/column.py ArrayColumn)
 
-Nested types wait for a later slice of the port (ROADMAP A.8).
+Maps and structs wait for their slice (ROADMAP A.8 wave 3b).
 """
 
 from __future__ import annotations
@@ -165,6 +167,20 @@ class DecimalType(FractionalType):
         return hash(("decimal", self.precision, self.scale))
 
 
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class ArrayType(DataType):
+    """A list of `element_type` values per row (ArrayColumn)."""
+    element_type: DataType = dataclasses.field(
+        default_factory=lambda: IntegerType())
+    contains_null: bool = True
+
+    def simple_name(self) -> str:
+        return f"array<{self.element_type.simple_name()}>"
+
+    def __hash__(self) -> int:
+        return hash(("array", self.element_type))
+
+
 # Canonical singletons (Spark-style)
 BOOLEAN = BooleanType()
 BYTE = ByteType()
@@ -262,9 +278,11 @@ def from_arrow(at) -> DataType:
         return DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return from_arrow(at.value_type)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow(at.value_type))
     raise NotImplementedError(
-        f"arrow type {at}: nested and null types wait for their slice "
-        f"(ROADMAP A.8)")
+        f"arrow type {at}: maps, structs and the null type wait for their "
+        f"slice (ROADMAP A.8)")
 
 
 def to_arrow(dt: DataType):
@@ -278,7 +296,9 @@ def to_arrow(dt: DataType):
            TimestampNTZType: pa.timestamp("us")}.get(type(dt))
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, ArrayType):
+        return pa.list_(to_arrow(dt.element_type))
     if out is None:
-        raise NotImplementedError(f"{dt!r}: nested and null types wait for "
-                                  f"their slice (ROADMAP A.8)")
+        raise NotImplementedError(f"{dt!r}: maps, structs and the null type "
+                                  f"wait for their slice (ROADMAP A.8)")
     return out

@@ -46,6 +46,21 @@ def jax_aliases():
         dispatch.reset_dispatch_ledger()
 
 
+@contextmanager
+def one_torch_thread():
+    """Run the port's CPU ops on one thread: the parity suites run in
+    several worker processes, and torch's default of a thread per core in
+    each worker oversubscribes the cores (the small tensors here gain
+    nothing from threads). The previous count comes back on exit."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def test_aliases_are_removed_on_exit():
     before = (hasattr(jax.core, "trace_state_clean"),
               hasattr(jax.experimental, "enable_x64"))

@@ -329,11 +329,18 @@ def test_unported_nodes_raise_naming_their_item(case):
     planning (PlanNotSupported with the explain report), or at the
     DataFrame method that would build a node the port lacks. The sample
     and the range-partitioned sort were such nodes until A.8 wave 1
-    ported them: they now plan and run."""
+    ported them, windows until wave 3a: they now plan and run."""
     ts, df = _port_df()
     if case == "windows":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8 wave 3"):
-            df.with_windows()
+        # windows waited for A.8 wave 3a, which has landed: they plan
+        from spark_rapids_tpu_torch.expr.windowexprs import window
+        w = df.with_windows((tF.row_number().over(window(["k"])), "rn"))
+        rows = w.collect()
+        per_key = {}
+        for r in rows:
+            per_key.setdefault(r[0], []).append(r[-1])
+        assert all(v == list(range(1, len(v) + 1))
+                   for v in per_key.values())
         return
     if case == "sample":
         rows = df.sample(0.5, seed=3).collect()
@@ -357,17 +364,19 @@ def test_unported_nodes_raise_naming_their_item(case):
             left_on="k", right_on="k2", how="left_outer")
         item = "A.3"
     else:
-        # an aggregate function the port's rule table lacks (A.2's
-        # collect_* and percentiles wait for wave 3's ArrayColumn)
+        # an aggregate function the rule table lacks (A.2 is done: every
+        # aggregate of the JAX package has its rule), tagged off naming
+        # the missing rule
         from spark_rapids_tpu_torch.expr.aggexprs import Min
 
         class FirstValue(Min):
             name = "first"
         df = df.group_by("k").agg((FirstValue(tcore.col("v")), "f"))
-        item = "A.2"
+        item = None
     with pytest.raises(tover.PlanNotSupported) as e:
         df.collect()
-    assert f"ROADMAP {item}" in str(e.value)
+    assert (f"ROADMAP {item}" if item else
+            "aggregate FirstValue has no rule") in str(e.value)
     assert e.value.report == df.explain()
 
 

@@ -19,8 +19,11 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from spark_rapids_tpu import types as jtypes
 from spark_rapids_tpu.api import functions as jF
+from spark_rapids_tpu.api import session as jsession
 from spark_rapids_tpu_torch import functions as tF
+from spark_rapids_tpu_torch import types as ttypes
 from spark_rapids_tpu_torch.api import session as tsession
 from spark_rapids_tpu_torch.plan import overrides as tover
 
@@ -246,8 +249,9 @@ def test_session_device_rules():
 ])
 def test_methods_that_wait_for_their_slice_name_it(call, item):
     _, tdf = _frames()
-    if item == "A.8 wave 1":
-        # sample() waited for A.8 wave 1, which has landed: it plans now
+    if item in ("A.8 wave 1", "A.8 wave 3"):
+        # sample() waited for A.8 wave 1, windows, explode and the cache
+        # for wave 3a: they have landed and build DataFrames now
         assert isinstance(call(tdf.session, tdf), tsession.DataFrame)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -265,10 +269,8 @@ PORTED_FUNCTIONS = {"col", "lit", "sum", "count", "avg", "mean", "min",
                     "second", "from_utc_timestamp", "to_utc_timestamp",
                     "bitwise_not", "shiftleft", "shiftright",
                     "shiftrightunsigned", "format_number",
-                    # A.2's scalar aggregates (first_value and
-                    # last_value are window functions: they raise
-                    # naming wave 3, test_window_function_names_...)
-                    "first", "first_value", "last", "last_value",
+                    # A.2's scalar aggregates
+                    "first", "last",
                     "stddev", "stddev_pop", "stddev_samp", "var_pop",
                     "var_samp", "variance",
                     # A.8 wave 2: strings, regex, codecs, hashes
@@ -281,7 +283,19 @@ PORTED_FUNCTIONS = {"col", "lit", "sum", "count", "avg", "mean", "min",
                     "replace", "reverse", "right", "rlike", "rpad",
                     "rtrim", "startswith", "substring", "substring_index",
                     "translate", "trim", "unbase64", "unhex", "upper",
-                    "xxhash64"}
+                    "xxhash64",
+                    # A.8 wave 3a: windows, arrays, split and the list
+                    # aggregates (A.2)
+                    "approx_percentile", "array", "array_contains",
+                    "array_distinct", "array_join", "array_max",
+                    "array_min", "array_position", "array_remove",
+                    "array_repeat", "arrays_overlap", "collect_list",
+                    "collect_set", "dense_rank", "element_at",
+                    "first_value", "flatten", "get_array_item", "lag",
+                    "last_value", "lead", "percentile", "rank",
+                    "row_number", "sequence", "size", "slice",
+                    "sort_array", "split", "window_avg", "window_count",
+                    "window_max", "window_min", "window_sum"}
 
 
 def _public(mod):
@@ -306,29 +320,39 @@ def test_the_functions_gap_is_explicit():
 
 
 @pytest.mark.parametrize("name", ["first_value", "last_value"])
-def test_window_function_names_wait_for_their_slice(name):
-    """first_value and last_value build the JAX package's window functions
-    (FirstValue, LastValue), not the first/last aggregates: the port's
-    raise naming the window functions' slice rather than mean something
-    else under the same name."""
-    from spark_rapids_tpu.expr.windowexprs import WindowFunction
-    assert isinstance(getattr(jF, name)("returnflag"), WindowFunction)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8 wave 3"):
-        getattr(tF, name)("returnflag")
+def test_window_function_names_build_window_functions(name):
+    """first_value and last_value build the window functions FirstValue
+    and LastValue in both packages (not the first/last aggregates), and
+    over one window they compute the same thing."""
+    from spark_rapids_tpu.expr import windowexprs as jwin
+    from spark_rapids_tpu_torch.expr import windowexprs as twin
+    jfn, tfn = getattr(jF, name)("v"), getattr(tF, name)("v")
+    cls = {"first_value": "FirstValue", "last_value": "LastValue"}[name]
+    assert type(jfn) is getattr(jwin, cls)
+    assert type(tfn) is getattr(twin, cls)
+    data = {"k": [1, 1, 2, 1, 2], "o": [3, 1, 2, 2, 1],
+            "v": [10.0, None, 7.5, 2.5, 1.0]}
+    rows = []
+    for sess, F, win, t in ((jsession.TpuSession(), jF, jwin, jtypes),
+                            (tsession.TpuSession(device="cpu"), tF, twin,
+                             ttypes)):
+        schema = t.Schema((t.StructField("k", t.INT),
+                           t.StructField("o", t.INT),
+                           t.StructField("v", t.DOUBLE)))
+        spec = win.window(["k"], [("o", True)])
+        df = sess.from_pydict(data, schema)
+        rows.append(df.with_windows(
+            (getattr(F, name)("v").over(spec), "w")).collect())
+    assert rows[0] == rows[1]
+    want = {"first_value": [None, None, None, 1.0, 1.0],
+            "last_value": [None, 2.5, 10.0, 1.0, 7.5]}[name]
+    assert [r[3] for r in rows[1]] == want
 
 
-#: the JAX package's functions that wait for their expressions (46):
-#: the array, map and window functions and the aggregates that buffer
-#: arrays (A.8 wave 3, A.2), the JSON, URL and higher-order functions,
-#: udf and split (waves 3-4)
+#: the JAX package's functions that wait for their expressions (14): the
+#: maps, the higher-order array functions, JSON and URL parsing (A.8 wave
+#: 3b) and udf (wave 4)
 MISSING_FUNCTIONS = {
-    'aggregate', 'approx_percentile', 'array', 'array_contains',
-    'array_distinct', 'array_join', 'array_max', 'array_min',
-    'array_position', 'array_remove', 'array_repeat', 'arrays_overlap',
-    'collect_list', 'collect_set', 'create_map', 'dense_rank', 'element_at',
-    'element_at_key', 'exists', 'filter_', 'flatten', 'forall',
-    'get_array_item', 'get_json_object', 'get_map_value', 'lag', 'lead',
-    'map_contains_key', 'map_keys', 'map_values', 'parse_url', 'percentile',
-    'rank', 'row_number', 'sequence', 'size', 'slice', 'sort_array', 'split',
-    'transform', 'udf', 'window_avg', 'window_count', 'window_max',
-    'window_min', 'window_sum'}
+    'aggregate', 'create_map', 'element_at_key', 'exists', 'filter_',
+    'forall', 'get_json_object', 'get_map_value', 'map_contains_key',
+    'map_keys', 'map_values', 'parse_url', 'transform', 'udf'}
