@@ -62,7 +62,11 @@ fails the run on error:
      gather (and dictionary gather, none so far) of a run of P26-P28:
      the window's sorts, P26's filter compaction, P27's out-of-core
      sort runs and merges, P28's group-by sorts and the explode's
-     payload);
+     payload; every row gather and dictionary gather of a run of P29
+     and P30: P29's join (the build permute, the build payload with the
+     customers' struct's fixed-width leaves and validity, the stream
+     payload), its filter and sort, the exchanges' reorders over 16
+     partitions, P30's group-by sort and z-order sort);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -235,6 +239,28 @@ fails the run on error:
      collect over 16 shuffle partitions is planned and printed as
      single-partition (list buffers never cross the host shuffle in
      either package);
+  3h. drives A.8 wave 3b, planned from DataFrames at SF1 and held to
+     numpy and Python oracles, with launches, host reads, each path's
+     input bound and its peak device memory: P29, the 1,500,000 orders
+     joined to 150,000 customers whose STRUCT c_info (c_mktsegment,
+     c_nationkey, c_acctbal; built from its leaves) rides the join's
+     build payload, the map of priority, status and clerk over the join
+     (4,500,000 entries) and its lookups (get_map_value,
+     element_at_key by a key column, map_contains_key,
+     size(map_keys), map_values), grouped by priority, exploded and
+     counted by (key, value), the first 1,000 orders collected with
+     the struct and the map, and the collect and the group-by over 16
+     host shuffle partitions with broadcasts off (the struct and the
+     map cross the frames: printed); P30, P28's lines' l_quantity
+     collected by order and the four device lambdas (transform,
+     filter_ and its size, exists, forall) over 5,999,580 elements,
+     InterleaveBits(l_partkey, l_suppkey) and a sort by it, and the
+     host-tier aggregate() and outer-column lambda planned only (their
+     wave 4 tag-offs printed); P31, 1,048,576 event documents (drawn
+     from 131,072 distinct ones: nested objects, item arrays, decimal
+     prices, escapes and surrogate pairs, whitespace, 1 % malformed) by
+     five get_json_object paths, 1,048,576 URLs by seven parse_url parts
+     and counted by host;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -283,7 +309,10 @@ fails the run on error:
      (strings_kernel_shapes). Then P26 and P28 in turns with P27's
      unconstrained twin (3 runs each, one synchronisation a run), P27
      under its budget (3 runs), and dma_row_gather at every distinct
-     shape of P26-P28 beside index_select (windows_gather_shapes).
+     shape of P26-P28 beside index_select (windows_gather_shapes). Then
+     P29-P31 in turns (3 runs each, one synchronisation a run) and
+     dma_row_gather at every distinct shape of P29's join and P30's
+     sorts beside index_select (nested_gather_shapes).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
@@ -292,16 +321,19 @@ traces to TRACE (q1) and TRACE with "_q3", "_q19", "_p6", "_p7",
 "_p17", "_p18", "_p19", "_p20_sample", "_p20_sort", "_p20_year", "_p21",
 "_p22", "_p23_part", "_p23_customer", "_p23_names", "_p24", "_p25",
 "_p26_a", "_p26_b", "_p28_collect", "_p28_explode", "_p28_posexplode",
-"_p28_percentile", "_p28_split" or "_p27_unconstrained" before its
-suffix.
+"_p28_percentile", "_p28_split", "_p27_unconstrained", "_p29_lookups",
+"_p29_group", "_p29_explode", "_p29_collect", "_p29_shuffled",
+"_p29_shuffled_group", "_p30_lambdas", "_p30_zorder", "_p31_json",
+"_p31_url" or "_p31_hosts" before its suffix.
 
 The last lines are a JSON line with the records of P1-P11, the spill
 rates, the ingest rates, the split's fetch rates and the planned queries
 of phase 3c (under "planned": plan ms, launches beside the hand-built
 plan's, the differences and the session timings) and phase 3d's (under
 "join_paths": launches, rows and ms), phase 3e's (under
-"types_paths"), phase 3f's (under "strings_paths") and phase 3g's (under
-"windows_paths"), a JSON line with one record per
+"types_paths"), phase 3f's (under "strings_paths"), phase 3g's (under
+"windows_paths") and phase 3h's (under "nested_paths"), a JSON line
+with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
 probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
@@ -311,7 +343,8 @@ three sites under "sites" and the pid hash under "pid_shapes", and each
 kernel's launches on P1-P25 and the planned queries under
 "path_launches", rows 2, 4, 5 and 6 at P19's, P21's and P22's
 shapes under "p19_shapes", "p21_shapes" and "p22_shapes", and the row
-gather at P26-P28's under "windows_shapes"), the card as
+gather at P26-P28's under "windows_shapes" and at P29's and P30's under
+"nested_shapes"), the card as
 nvidia-smi names it, and {"ok": true, "device": {...}}.
 """
 
@@ -6372,14 +6405,838 @@ def time_windows_paths(runs):
     return out
 
 
+# -- slice 13: structs, maps, lambdas, JSON, URL and z-order (phase 3h) -----
+
+P_NESTED_ITERS = 3       # phase 4's timed runs of P29-P31 each
+CLERKS = tuple(f"Clerk#{k:09d}" for k in range(1, 1001))  # clause 4.2.3
+P29_LOOKUP = ("status", "clerk", "none")   # element_at_key's key column
+P29_COLLECT = 1000       # P29 step 4: the rows collect() brings back
+P31_ROWS = 1 << 20       # P31's event documents and URLs
+#: P31's rows draw from this many distinct documents and URLs (the host
+#: builds them and their oracles in Python, a row at a time)
+P31_POOL = 1 << 17
+P31_DOMAINS = 10_000
+P31_PATHS = ("$.user.id", "$.user.geo.country", "$.items[0].sku",
+             "$.items[1]", "$.ts")
+P31_PARTS = (("PROTOCOL", None), ("HOST", None), ("PATH", None),
+             ("QUERY", None), ("REF", None), ("FILE", None), ("QUERY", "q"))
+#: the kernels each path must launch (P29's join: murmur3, the probe and
+#: the row gather of its build payload, the c_info struct's leaves)
+NESTED_NEED = {
+    "P29 lookups": ["murmur3_columns", "fused_probe_verify",
+                    "dma_row_gather"],
+    "P29 group": ["murmur3_columns", "fused_probe_verify", "dma_row_gather"],
+    "P29 explode": ["murmur3_columns", "fused_probe_verify",
+                    "dma_row_gather"],
+    "P29 collect": ["murmur3_columns", "fused_probe_verify",
+                    "dma_row_gather"],
+    "P29 shuffled": ["murmur3_columns", "dma_row_gather"],
+    "P29 shuffled group": ["murmur3_columns", "dma_row_gather"],
+    "P30 lambdas": ["dma_row_gather"], "P30 zorder": ["dma_row_gather"],
+    "P31 json": [], "P31 url": [], "P31 hosts": []}
+#: each path's input tables (nested_batches' keys)
+NESTED_INPUTS = {"P29 lookups": ("orders", "customer"),
+                 "P29 group": ("orders", "customer"),
+                 "P29 explode": ("orders", "customer"),
+                 "P29 collect": ("orders", "customer"),
+                 "P29 shuffled": ("orders", "customer"),
+                 "P29 shuffled group": ("orders", "customer"),
+                 "P30 lambdas": ("lines",), "P30 zorder": ("lines",),
+                 "P31 json": ("json",), "P31 url": ("url",),
+                 "P31 hosts": ("url",)}
+#: P29 step 5: 16 host partitions, broadcasts off (the customers cross
+#: the shuffle's frames with their struct)
+P29_SHUFFLED_CONF = {"spark.rapids.sql.shuffle.partitions": "16",
+                     "spark.rapids.sql.broadcastSizeThreshold": "-1"}
+
+
+def nested_modules():
+    """windows_modules() with the z-order expression (the maps, lambdas,
+    JSON and URL come through `functions`)."""
+    from spark_rapids_tpu_torch.expr import zorder
+    m = windows_modules()
+    m.zorder = zorder
+    return m
+
+
+def nested_data(dj, q3d, wd, seed=29):
+    """P29's orders and customers: tpch_join_data's orders with
+    q3_types_data's o_custkey, windows_data's o_totalprice, the order
+    priority and status (derived from the lines, clause 4.2.3) as they
+    are, o_clerk (Clerk#000000001-Clerk#000001000) drawn from `seed`, and
+    the lookup key column cycling P29_LOOKUP; the customers with c_info's
+    fields c_mktsegment (q3_types_data's), c_nationkey and c_acctbal (in
+    cents) drawn from `seed`, a hundredth of the structs null. P30's
+    lines are windows_data's with l_quantity (1-50) from seed + 1."""
+    rng = np.random.default_rng(seed)
+    n_orders = dj["o_orderkey"].shape[0]
+    n_cust = q3d["c_custkey"].shape[0]
+    clerk = rng.integers(0, len(CLERKS), n_orders).astype(np.int32)
+    nation = rng.integers(0, 25, n_cust).astype(np.int32)
+    acctbal = rng.integers(-99_999, 1_000_000, n_cust).astype(np.int64)
+    info_valid = rng.random(n_cust) >= 0.01
+    qty = np.random.default_rng(seed + 1).integers(
+        1, 51, wd["l_orderkey"].shape[0]).astype(np.float64)
+    return {"o_orderkey": dj["o_orderkey"], "o_custkey": q3d["o_custkey"],
+            "o_totalprice": wd["o_totalprice"],
+            "o_orderpriority": dj["o_orderpriority"][0],
+            "o_orderstatus": dj["o_orderstatus"][0], "o_clerk": clerk,
+            "o_lookup": (np.arange(n_orders) % 3).astype(np.int32),
+            "c_custkey": q3d["c_custkey"],
+            "c_mktsegment": q3d["c_mktsegment"][0], "c_nationkey": nation,
+            "c_acctbal": acctbal, "c_info_valid": info_valid,
+            "l_orderkey": wd["l_orderkey"], "l_partkey": wd["l_partkey"],
+            "l_suppkey": wd["l_suppkey"], "l_quantity": qty}
+
+
+def c_info_type(t):
+    return t.StructType((t.StructField("c_mktsegment", t.STRING),
+                         t.StructField("c_nationkey", t.INT),
+                         t.StructField("c_acctbal", t.LONG)))
+
+
+def c_info_column(m, nd, dev):
+    """The customers' STRUCT<c_mktsegment, c_nationkey, c_acctbal>,
+    built from its leaves (the card's machine has no pyarrow)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import Column, StructColumn
+    t = m.t
+    valid = nd["c_info_valid"]
+    seg = string_column(nd["c_mktsegment"], SEGMENTS, dev)
+    cap = seg.capacity
+    vpad = torch.from_numpy(np.pad(valid, (0, cap - valid.shape[0]))
+                            ).to(dev)
+    seg.validity = vpad
+    kids = [seg] + [Column.from_numpy(nd[n], dt, capacity=cap, device=dev,
+                                      validity=valid)
+                    for n, dt in (("c_nationkey", t.INT),
+                                  ("c_acctbal", t.LONG))]
+    return StructColumn(kids, vpad, c_info_type(t))
+
+
+def nested_batches(m, dev, nd, cd):
+    """P29-P31's batches on `dev`: the orders and customers, P30's lines,
+    and P31's event documents and URLs as StringColumns."""
+    t = m.t
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+    lookup = string_column(nd["o_lookup"], P29_LOOKUP, dev)
+
+    def strings(values, dev):
+        data, off = cd[values]
+        return StringColumn.from_numpy(data, off, cd[values + "_valid"],
+                                       device=dev)
+    return {
+        "orders": batch_of(m, dev, [
+            ("o_orderkey", nd["o_orderkey"], t.LONG),
+            ("o_custkey", nd["o_custkey"], t.LONG),
+            ("o_totalprice", nd["o_totalprice"], t.DOUBLE),
+            ("o_orderpriority", string_column(
+                nd["o_orderpriority"], ORDER_PRIORITIES, dev), t.STRING),
+            ("o_orderstatus", string_column(nd["o_orderstatus"],
+                                            ORDER_STATUSES, dev), t.STRING),
+            ("o_clerk", string_column(nd["o_clerk"], CLERKS, dev),
+             t.STRING),
+            ("o_lookup", lookup, t.STRING)]),
+        "customer": batch_of(m, dev, [
+            ("c_custkey", nd["c_custkey"], t.LONG),
+            ("c_info", c_info_column(m, nd, dev), c_info_type(t))]),
+        "lines": batch_of(m, dev, [
+            ("l_orderkey", nd["l_orderkey"], t.LONG),
+            ("l_partkey", nd["l_partkey"], t.LONG),
+            ("l_suppkey", nd["l_suppkey"], t.LONG),
+            ("l_quantity", nd["l_quantity"], t.DOUBLE)]),
+        "json": batch_of(m, dev, [
+            ("row", np.arange(cd["n"], dtype=np.int64), t.LONG),
+            ("doc", strings("docs", dev), t.STRING)]),
+        "url": batch_of(m, dev, [
+            ("row", np.arange(cd["n"], dtype=np.int64), t.LONG),
+            ("url", strings("urls", dev), t.STRING)])}
+
+
+def p29_dfs(m, sess, b):
+    """P29: orders x customer on the customer key with c_info as build
+    payload; the map of three entries a row over the join; the lookups,
+    grouped by priority; the map exploded and counted by (key, value);
+    the first P29_COLLECT orders with c_info and the map, sorted."""
+    F, col, lit = m.F, m.core.col, m.core.lit
+    orders = sess.from_batches([b["orders"]], b["orders"].schema)
+    cust = sess.from_batches([b["customer"]], b["customer"].schema)
+    joined = orders.join(cust, left_on="o_custkey", right_on="c_custkey")
+    mp = F.create_map(lit("priority"), col("o_orderpriority"),
+                      lit("status"), col("o_orderstatus"),
+                      lit("clerk"), col("o_clerk"))
+    with_m = joined.select(col("o_orderkey"), col("o_totalprice"),
+                           col("o_lookup"), col("c_info"), mp.alias("m"))
+    lookups = with_m.select(
+        col("o_orderkey"), col("o_totalprice"), col("c_info"),
+        F.get_map_value("m", "priority").alias("pri"),
+        F.element_at_key("m", col("o_lookup")).alias("ek"),
+        F.map_contains_key("m", "clerk").alias("has_clerk"),
+        F.size(F.map_keys("m")).alias("nk"),
+        F.map_values("m").alias("vals"))
+    last_key = int(b["orders"].columns[0].data[P29_COLLECT - 1])
+    return {
+        "P29 lookups": lookups,
+        "P29 group": lookups.group_by("pri").agg(
+            (F.count(), "n"), (F.sum("o_totalprice"), "rev")),
+        "P29 explode": with_m.select(col("m")).explode("m").group_by(
+            "key", "value").agg((F.count(), "n")),
+        "P29 collect": with_m.filter(col("o_orderkey") <= lit(last_key))
+        .select(col("o_orderkey"), col("c_info"), col("m"))
+        .sort("o_orderkey")}
+
+
+def p30_dfs(m, sess, b):
+    """P30: the lines' quantities collected by order, the four device
+    lambdas over them; the z-order codes of (l_partkey, l_suppkey) and a
+    sort by them; and the two host-tier shapes, planned only."""
+    F, col, lit = m.F, m.core.col, m.core.lit
+    lines = sess.from_batches([b["lines"]], b["lines"].schema)
+    lists = lines.group_by("l_orderkey").agg(
+        (F.collect_list("l_quantity"), "qs"))
+    return {
+        "P30 lambdas": lists.select(
+            col("l_orderkey"),
+            F.transform("qs", lambda x: x * lit(2.0) + lit(1.0)).alias("t"),
+            F.filter_("qs", lambda x: x > lit(25.0)).alias("f"),
+            F.size(F.filter_("qs", lambda x: x > lit(25.0))).alias("nf"),
+            F.exists("qs", lambda x: x > lit(49.0)).alias("e"),
+            F.forall("qs", lambda x: x >= lit(1.0)).alias("fa")),
+        "P30 zorder": lines.select(
+            col("l_partkey"), col("l_suppkey"),
+            m.zorder.InterleaveBits(col("l_partkey"), col("l_suppkey"))
+            .alias("z")).sort("z"),
+        "P30 aggregate": lists.select(F.aggregate(
+            "qs", lit(0.0), lambda acc, x: acc + x).alias("total")),
+        "P30 outer column": lists.select(F.transform(
+            "qs", lambda x: x + col("l_orderkey")).alias("shifted"))}
+
+
+def p31_dfs(m, sess, b):
+    """P31: the five JSON paths over the event documents; the seven URL
+    parts; the URLs counted by host."""
+    F, col = m.F, m.core.col
+    docs = sess.from_batches([b["json"]], b["json"].schema)
+    urls = sess.from_batches([b["url"]], b["url"].schema)
+    return {
+        "P31 json": docs.select(col("row"), *[
+            F.get_json_object("doc", p).alias(f"j{k}")
+            for k, p in enumerate(P31_PATHS)]),
+        "P31 url": urls.select(col("row"), *[
+            F.parse_url("url", part, key).alias(f"u{k}")
+            for k, (part, key) in enumerate(P31_PARTS)]),
+        "P31 hosts": urls.select(F.parse_url("url", "HOST").alias("host"))
+        .group_by("host").agg((F.count(), "n"))}
+
+
+def nested_dfs(m, dev, b):
+    sess = m.session.TpuSession(device=dev)
+    dfs = p29_dfs(m, sess, b)
+    dfs.update(p30_dfs(m, sess, b))
+    dfs.update(p31_dfs(m, sess, b))
+    shuffled = p29_dfs(m, m.session.TpuSession(P29_SHUFFLED_CONF,
+                                               device=dev), b)
+    dfs["P29 shuffled"] = shuffled["P29 collect"]
+    dfs["P29 shuffled group"] = shuffled["P29 group"]
+    return dfs
+
+
+# -- P31's data: event documents and URLs from one seed ----------------------
+
+#: country names as JSON text: \uXXXX escapes, a surrogate pair, escaped
+#: quotes and backslashes
+P31_COUNTRIES = (
+    "France", "C\\u00f4te d'Ivoire", "Espa\\u00f1a", "T\\u00fcrkiye",
+    "\\ud83c\\uddef\\ud83c\\uddf5 Japan", 'The \\"Bahamas\\"',
+    "Back\\\\slash", "\\u65e5\\u672c", "Brazil", "Kenya")
+P31_WS = ("", " ", "  ", "\n  ", "\t")
+P31_PARAMS = ("q", "lang", "ref", "page", "utm_source")
+P31_VALUES = ("a+b", "x%20y", "caf%C3%A9", "1", "hello+world%21", "",
+              "a%2Fb")
+
+
+def _sku(rng_val):
+    """An item's sku as JSON text: plain or with escaped quotes and
+    backslashes (what json.dumps writes for them)."""
+    k = int(rng_val)
+    if k % 7 == 0:
+        return f'SKU-\\"{k:05d}\\"'
+    if k % 11 == 0:
+        return f"SKU\\\\{k:05d}"
+    return f"SKU-{k:05d}"
+
+
+def clickstream_data(n=P31_ROWS, seed=31):
+    """P31's columns from `seed`: event documents (a nested user object,
+    1-4 item objects with decimal prices, escapes and surrogate pairs,
+    whitespace, about 1 % structurally malformed, 0.5 % null) and URLs
+    (hosts Zipf-like over P31_DOMAINS domains; 1 % userinfo, 1 % IPv6, 5 %
+    a port; 1-5 path segments; 0-4 query pairs with %XX and '+'; 10 % a
+    fragment; 0.5 % null). Rows past P31_POOL draw uniformly from the
+    first P31_POOL distinct documents and URLs (`idx`); each column as
+    (bytes, offsets) with validity, and the pools as Python lists."""
+    pool = min(n, P31_POOL)
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n) if n == pool else rng.integers(0, pool, n)
+    n = pool
+    uid = rng.integers(1, 10_000_000, n)
+    country = rng.integers(0, len(P31_COUNTRIES), n)
+    n_items = rng.integers(1, 5, n)
+    sku = rng.integers(1, 100_000, (n, 4))
+    cents = rng.integers(100, 100_000, (n, 4))
+    qty = rng.integers(1, 10, (n, 4))
+    ts = 1_700_000_000_000 + rng.integers(0, 10**9, n)
+    ws = rng.integers(0, len(P31_WS), (n, 4))
+    bad = rng.random(n)
+    null_doc = rng.random(n) < 0.005
+    docs = []
+    for i in range(n):
+        w = [P31_WS[k] for k in ws[i]]
+        items = ",".join(
+            f'{{"sku":{w[0]}"{_sku(sku[i, j])}",{w[1]}"qty":{qty[i, j]},'
+            f'"price":{w[2]}{cents[i, j] // 100}.{cents[i, j] % 100:02d}}}'
+            for j in range(n_items[i]))
+        doc = (f'{w[3]}{{"event":"view",{w[0]}"user":{{"id":{uid[i]},'
+               f'"name":"u{uid[i] % 977}",{w[1]}"geo":{{"country":'
+               f'{w[2]}"{P31_COUNTRIES[country[i]]}","city":"c'
+               f'{uid[i] % 89}"}}}},"items":{w[1]}[{items}],'
+               f'{w[0]}"ts":{ts[i]}}}{w[3]}')
+        if bad[i] < 0.005:
+            doc = doc.rstrip()[:-1]                # unbalanced
+        elif bad[i] < 0.01:
+            doc = doc.replace('"sku":', '"sku:', 1)  # unterminated
+        docs.append(None if null_doc[i] else doc)
+
+    host_rank = np.minimum(rng.zipf(1.3, n), P31_DOMAINS) - 1
+    kind = rng.random((n, 4))
+    n_seg = rng.integers(1, 6, n)
+    seg = rng.integers(0, 1 << 20, (n, 5))
+    n_par = rng.integers(0, 5, n)
+    par = rng.integers(0, len(P31_PARAMS), (n, 4))
+    val = rng.integers(0, len(P31_VALUES), (n, 4))
+    null_url = rng.random(n) < 0.005
+    urls = []
+    for i in range(n):
+        h = int(host_rank[i])
+        host = (f"[2001:db8::{h:x}]" if kind[i, 1] < 0.01 else
+                f"{'WWW' if h % 5 == 0 else 'www'}.site{h}.example.com")
+        auth = ("user:pw@" if kind[i, 0] < 0.01 else "") + host \
+            + (f":{8000 + h % 100}" if kind[i, 2] < 0.05 else "")
+        path = "".join(f"/p{seg[i, j]:x}" for j in range(n_seg[i]))
+        query = "&".join(f"{P31_PARAMS[par[i, j]]}={P31_VALUES[val[i, j]]}"
+                         for j in range(n_par[i]))
+        url = f"{'https' if h % 3 else 'http'}://{auth}{path}" \
+            + (f"?{query}" if query else "") \
+            + (f"#sec{h % 7}" if kind[i, 3] < 0.1 else "")
+        urls.append(None if null_url[i] else url)
+    out = {"n": idx.shape[0], "idx": idx, "docs_pool": docs,
+           "urls_pool": urls}
+    for name, vals in (("docs", docs), ("urls", urls)):
+        out[name], out[name + "_valid"] = pool_buffers(vals, idx)
+        out[name + "_list"] = [vals[i] for i in idx]
+    return out
+
+
+def pool_buffers(pool, idx):
+    """((bytes, offsets), validity) of the column whose row r is
+    pool[idx[r]] (a str or None)."""
+    enc = [b"" if v is None else v.encode("utf-8") for v in pool]
+    lens = np.fromiter(map(len, enc), np.int64, len(enc))[idx]
+    off = np.zeros(idx.shape[0] + 1, np.int32)
+    np.cumsum(lens, out=off[1:])
+    data = np.frombuffer(b"".join([enc[i] for i in idx]), np.uint8)
+    valid = np.array([v is not None for v in pool], bool)[idx]
+    return (data, off), valid
+
+
+def word_buffers(codes, words, valid):
+    """((bytes, offsets), validity) of the column whose row r is
+    words[codes[r]], NULL where not valid[r]."""
+    enc = [w.encode("utf-8") for w in words]
+    lens = np.array([len(b) for b in enc], np.int64)
+    width = max(int(lens.max()), 1)
+    mat = np.zeros((len(enc), width), np.uint8)
+    for k, b in enumerate(enc):
+        mat[k, :len(b)] = np.frombuffer(b, np.uint8)
+    row_lens = np.where(valid, lens[codes], 0)
+    off = np.zeros(codes.shape[0] + 1, np.int32)
+    np.cumsum(row_lens, out=off[1:])
+    keep = np.arange(width)[None, :] < row_lens[:, None]
+    return (mat[codes][keep], off), np.asarray(valid, bool)
+
+
+
+
+class _RawNumber(str):
+    """A JSON number kept as its source text (the device's rule)."""
+
+
+def _render_compact(v):
+    """A JSON value as the device renders a container: compact, strings
+    as json.dumps writes them, numbers raw."""
+    import json
+    if isinstance(v, _RawNumber):
+        return str(v)
+    if isinstance(v, str):
+        return json.dumps(v, ensure_ascii=False)
+    if isinstance(v, dict):
+        return "{" + ",".join(json.dumps(k, ensure_ascii=False) + ":"
+                              + _render_compact(x)
+                              for k, x in v.items()) + "}"
+    if isinstance(v, list):
+        return "[" + ",".join(_render_compact(x) for x in v) + "]"
+    return json.dumps(v)
+
+
+def json_oracle(docs):
+    """get_json_object of P31_PATHS by Python's json, following the
+    device's rules (ops/json_device.py): scalar numbers as their raw
+    text, containers compact, strings decoded, 'null' -> None, and a
+    document json rejects -> None (P31's malformed documents are
+    structural)."""
+    import json
+    from spark_rapids_tpu_torch.expr.jsonexprs import parse_json_path
+    steps = [parse_json_path(p) for p in P31_PATHS]
+    out = [[] for _ in P31_PATHS]
+    for d in docs:
+        try:
+            doc = None if d is None else json.loads(
+                d, parse_int=_RawNumber, parse_float=_RawNumber)
+        except ValueError:
+            doc = None
+        for k, st in enumerate(steps):
+            v = doc
+            for s in st:
+                if isinstance(s, int):
+                    v = v[s] if isinstance(v, list) and s < len(v) else None
+                else:
+                    v = v.get(s) if isinstance(v, dict) else None
+            out[k].append(None if v is None else
+                          v if isinstance(v, str)
+                          and not isinstance(v, _RawNumber)
+                          else _render_compact(v))
+    return out
+
+
+def url_oracle(urls):
+    """parse_url of P31_PARTS by urllib.parse, as the JAX package's host
+    tier takes them (expr/urlexprs.py)."""
+    from urllib.parse import parse_qs, urlparse
+    out = [[] for _ in P31_PARTS]
+    for u in urls:
+        p = None if u is None else urlparse(u)
+        for k, (part, key) in enumerate(P31_PARTS):
+            if p is None:
+                v = None
+            elif part == "PROTOCOL":
+                v = p.scheme or None
+            elif part == "HOST":
+                v = p.hostname
+            elif part == "PATH":
+                v = p.path
+            elif part == "REF":
+                v = p.fragment or None
+            elif part == "FILE":
+                v = p.path + ("?" + p.query if p.query else "")
+            elif key is None:
+                v = p.query or None
+            else:
+                vals = parse_qs(p.query, keep_blank_values=True).get(key)
+                v = vals[0] if vals else None
+            out[k].append(v)
+    return out
+
+
+# -- P29-P31's oracles, checked on the output batches -------------------------
+
+def _check_strings(label, col, n, want):
+    """A host string column's first n rows against the expected
+    ((bytes, offsets), validity) (`pool_buffers`, `word_buffers`) or a
+    list of str/None: validity, lengths and bytes, compared as arrays."""
+    if isinstance(want, list):
+        want = pool_buffers(want, np.arange(len(want)))
+    (data, off), wvalid = want
+    valid = col.validity[:n].numpy()
+    _equal(f"{label} validity", valid, wvalid)
+    got_off = col.offsets[: n + 1].numpy().astype(np.int64)
+    _equal(f"{label} lengths", np.diff(got_off), np.diff(off).astype(
+        np.int64))
+    total = int(off[-1])
+    _equal(f"{label} bytes", col.data[int(got_off[0]):
+                                     int(got_off[0]) + total].numpy(), data)
+
+
+def _host_batch(out):
+    """The one output batch of a path on the host."""
+    from spark_rapids_tpu_torch.columnar.transfer import fetch_batch_host
+    if len(out) != 1:
+        raise AssertionError(f"{len(out)} output batches, expected one")
+    return fetch_batch_host(out[0])
+
+
+def p29_oracles(nd):
+    """Per order (in o_orderkey order): its lookups, and the group and
+    explode counts."""
+    prio, status, clerk = (nd[k] for k in ("o_orderpriority",
+                                           "o_orderstatus", "o_clerk"))
+    price = nd["o_totalprice"]
+    cust = nd["o_custkey"] - 1
+    groups = sorted(((ORDER_PRIORITIES[p], int(c), float(s)) for p, c, s in
+                     zip(range(5), np.bincount(prio, minlength=5),
+                         np.bincount(prio, weights=price, minlength=5))),
+                    key=repr)
+    explode = [("priority", ORDER_PRIORITIES[k], int(c)) for k, c in
+               enumerate(np.bincount(prio, minlength=5)) if c]
+    explode += [("status", ORDER_STATUSES[k], int(c)) for k, c in
+                enumerate(np.bincount(status, minlength=3)) if c]
+    explode += [("clerk", CLERKS[k], int(c)) for k, c in
+                enumerate(np.bincount(clerk, minlength=len(CLERKS))) if c]
+    return {"groups": groups, "explode": sorted(explode), "cust": cust}
+
+
+def _c_info_rows(nd, cust):
+    return [{"c_mktsegment": SEGMENTS[nd["c_mktsegment"][c]],
+             "c_nationkey": int(nd["c_nationkey"][c]),
+             "c_acctbal": int(nd["c_acctbal"][c])}
+            if nd["c_info_valid"][c] else None for c in cust]
+
+
+def p29_lookups_check(nd):
+    prio, status, clerk, lookup = (nd[k] for k in (
+        "o_orderpriority", "o_orderstatus", "o_clerk", "o_lookup"))
+
+    def check(out, label):
+        cols, n = _host_batch(out)
+        okey = cols[0].data[:n].numpy()
+        i = np.searchsorted(nd["o_orderkey"], okey)
+        _equal(f"{label} keys", nd["o_orderkey"][i], okey)
+        _equal(f"{label} rows", np.sort(i), np.arange(i.shape[0]))
+        _equal(f"{label} price", cols[1].data[:n].numpy(),
+               nd["o_totalprice"][i])
+        cust = nd["o_custkey"][i] - 1
+        info = cols[2]
+        _equal(f"{label} c_info validity", info.validity[:n].numpy(),
+               nd["c_info_valid"][cust])
+        ok = nd["c_info_valid"][cust]
+        _check_strings(f"{label} c_info.c_mktsegment", info.children[0], n,
+                       word_buffers(nd["c_mktsegment"][cust], SEGMENTS, ok))
+        for k, name in ((1, "c_nationkey"), (2, "c_acctbal")):
+            _equal(f"{label} c_info.{name}",
+                   info.children[k].data[:n].numpy()[ok], nd[name][cust][ok])
+        _check_strings(f"{label} pri", cols[3], n, word_buffers(
+            prio[i], ORDER_PRIORITIES, np.ones(n, bool)))
+        # element_at_key: the status, the clerk, or NULL for 'none'
+        ek = np.where(lookup[i] == 0, status[i],
+                      len(ORDER_STATUSES) + clerk[i])
+        _check_strings(f"{label} element_at_key", cols[4], n, word_buffers(
+            ek, ORDER_STATUSES + CLERKS, lookup[i] != 2))
+        _equal(f"{label} map_contains_key", cols[5].data[:n].numpy(),
+               np.ones(n, bool))
+        _equal(f"{label} size(map_keys)", cols[6].data[:n].numpy(),
+               np.full(n, 3, np.int32))
+        vals = cols[7]
+        _equal(f"{label} map_values offsets",
+               vals.offsets[: n + 1].numpy(), np.arange(n + 1) * 3)
+        words = ORDER_PRIORITIES + ORDER_STATUSES + CLERKS
+        entries = np.stack([prio[i], len(ORDER_PRIORITIES) + status[i],
+                            len(ORDER_PRIORITIES) + len(ORDER_STATUSES)
+                            + clerk[i]], axis=1).reshape(-1)
+        _check_strings(f"{label} map_values", vals.child, 3 * n,
+                       word_buffers(entries, words, np.ones(3 * n, bool)))
+    return check
+
+
+def p29_collect_check(nd):
+    okey = nd["o_orderkey"][:P29_COLLECT]
+    cust = nd["o_custkey"][:P29_COLLECT] - 1
+    want = [(int(k), info, {"priority": ORDER_PRIORITIES[p],
+                            "status": ORDER_STATUSES[s], "clerk": CLERKS[c]})
+            for k, info, p, s, c in zip(
+                okey, _c_info_rows(nd, cust),
+                nd["o_orderpriority"][:P29_COLLECT],
+                nd["o_orderstatus"][:P29_COLLECT], nd["o_clerk"][:P29_COLLECT])]
+    return exact_rows(want)
+
+
+def p30_oracles(nd):
+    """Per order (in l_orderkey order): its quantities in line order, and
+    the lambdas' results."""
+    okey = nd["l_orderkey"]
+    order = np.lexsort((np.arange(okey.shape[0]), okey))
+    ok, q = okey[order], nd["l_quantity"][order]
+    start, _ = _groups([ok])
+    starts = np.nonzero(start)[0]
+    counts = np.diff(np.r_[starts, ok.shape[0]])
+    row = np.repeat(np.arange(starts.shape[0]), counts)
+    keep = q > 25.0
+    pk, sk = nd["l_partkey"], nd["l_suppkey"]
+    z = zorder_codes([pk, sk])
+    zperm = np.argsort(z, kind="stable")
+    return {"keys": ok[starts], "counts": counts, "q": q, "keep": keep,
+            "nf": np.bincount(row, weights=keep, minlength=starts.shape[0]),
+            "e": np.bincount(row, weights=q > 49.0,
+                             minlength=starts.shape[0]) > 0,
+            "fa": np.bincount(row, weights=q < 1.0,
+                              minlength=starts.shape[0]) == 0,
+            "row": row, "z": z[zperm], "pk": pk[zperm], "sk": sk[zperm]}
+
+
+def zorder_codes(keys):
+    """InterleaveBits' rule (expr/zorder.py) in numpy uint64: bit b of
+    the code from the top is bit 63 - b // n of key b % n's rank (its sign
+    bit flipped), the code's top bit flipped. Each key's top 64 // n bits
+    spread to every n-th bit a byte at a time by a table."""
+    n = len(keys)
+    bits = 64 // n
+    spread = np.zeros(256, np.uint64)
+    for v in range(256):
+        spread[v] = sum(((v >> i) & 1) << (i * n) for i in range(8))
+    out = np.zeros(keys[0].shape[0], np.uint64)
+    for j, k in enumerate(keys):
+        rank = k.astype(np.int64).view(np.uint64) ^ np.uint64(1 << 63)
+        top = rank >> np.uint64(64 - bits)
+        for c in range(0, bits, 8):
+            byte = (top >> np.uint64(c)) & np.uint64(0xFF)
+            out |= spread[byte.astype(np.intp)] \
+                << np.uint64(c * n + n - 1 - j)
+    return (out ^ np.uint64(1 << 63)).view(np.int64)
+
+
+def p30_lambdas_check(w):
+    def check(out, label):
+        key, t, f, nf, e, fa = fetch_columns(out)
+        _equal(f"{label} keys", key[0], w["keys"])
+        offs = np.r_[0, np.cumsum(w["counts"])]
+        _equal(f"{label} transform offsets", t[0], offs)
+        _equal(f"{label} transform", t[1], w["q"] * 2.0 + 1.0)
+        _equal(f"{label} filter offsets", f[0],
+               np.r_[0, np.cumsum(w["nf"])].astype(np.int64))
+        _equal(f"{label} filter", f[1], w["q"][w["keep"]])
+        _equal(f"{label} size(filter)", nf[0], w["nf"].astype(np.int32))
+        _equal(f"{label} exists", e[0], w["e"])
+        _equal(f"{label} forall", fa[0], w["fa"])
+    return check
+
+
+def p30_zorder_check(w):
+    def check(out, label):
+        pk, sk, z = fetch_columns(out)
+        _equal(f"{label} codes", z[0], w["z"])
+        _equal(f"{label} l_partkey", pk[0], w["pk"])
+        _equal(f"{label} l_suppkey", sk[0], w["sk"])
+    return check
+
+
+def p31_check(want, label_of):
+    def check(out, label):
+        cols, n = _host_batch(out)
+        _equal(f"{label} rows", cols[0].data[:n].numpy(), np.arange(n))
+        for k, w in enumerate(want):
+            _check_strings(f"{label} {label_of(k)}", cols[k + 1], n, w)
+    return check
+
+
+def nested_inputs(dev, dj, q3d, d19):
+    """P29-P31's batches on `dev` and their checks."""
+    m = nested_modules()
+    wd = windows_data(dj, q3d)
+    nd = nested_data(dj, q3d, wd)
+    cd = clickstream_data(n=min(P31_ROWS, dj["o_orderkey"].shape[0]))
+    b = nested_batches(m, dev, nd, cd)
+    w29, w30 = p29_oracles(nd), p30_oracles(nd)
+    idx = cd["idx"]
+    jw = [pool_buffers(w, idx) for w in json_oracle(cd["docs_pool"])]
+    uw_pool = url_oracle(cd["urls_pool"])
+    uw = [pool_buffers(w, idx) for w in uw_pool]
+    hosts = {}
+    for i in idx:
+        h = uw_pool[1][i]
+        hosts[h] = hosts.get(h, 0) + 1
+    checks = {
+        "P29 lookups": p29_lookups_check(nd),
+        "P29 group": lambda rows, label: check_rows(
+            sorted(rows, key=repr), w29["groups"], label),
+        "P29 explode": sorted_rows(w29["explode"]),
+        "P29 collect": p29_collect_check(nd),
+        "P29 shuffled": p29_collect_check(nd),
+        "P29 shuffled group": lambda rows, label: check_rows(
+            sorted(rows, key=repr), w29["groups"], label),
+        "P30 lambdas": p30_lambdas_check(w30),
+        "P30 zorder": p30_zorder_check(w30),
+        "P31 json": p31_check(jw, lambda k: P31_PATHS[k]),
+        "P31 url": p31_check(uw, lambda k: "/".join(
+            x for x in P31_PARTS[k] if x)),
+        "P31 hosts": sorted_rows(list(hosts.items()))}
+    return m, b, checks
+
+
+#: the paths whose results collect() reads (small outputs, or rows)
+NESTED_COLLECTED = ("P29 group", "P29 explode", "P29 collect",
+                    "P29 shuffled", "P29 shuffled group", "P31 hosts")
+#: the host-tier shapes of P30, planned only
+NESTED_PLANNED_ONLY = ("P30 aggregate", "P30 outer column")
+
+
+def nested_bound(b, label):
+    """(bytes, ms): one read of the path's input columns at capacity at
+    PEAK_BYTES_PER_S (as input_bound)."""
+    nbytes = sum(x.numel() * x.element_size() for t in NESTED_INPUTS[label]
+                 for c in b[t].columns for x in c.leaves())
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def nested_tree(m, dev, b, label):
+    """A fresh planned tree of one of P29-P31 (phase 2 captures its
+    kernels' inputs from a run of it)."""
+    return planned(m, nested_dfs(m, dev, b)[label])[0]
+
+
+def shuffle_carried(tree):
+    """The types that cross a host shuffle's frames in a planned tree:
+    the names of the struct and map fields of every exchange's output."""
+    out = []
+    for node in exec_nodes(tree):
+        if type(node).__name__ != "HostShuffleExchangeExec":
+            continue
+        for f in node.output_schema.fields:
+            name = type(f.data_type).__name__
+            if name in ("StructType", "MapType"):
+                out.append(f"{f.name}:{f.data_type.simple_name()}")
+    return out
+
+
+def drive_nested_paths(dev, m, b, checks):
+    """Phase 3h: P29 (the join with a struct payload, the map's lookups,
+    group-by, explode and collect, and the collect over 16 host shuffle
+    partitions), P30 (the lambdas and the z-order sort; the host-tier
+    shapes planned only, their tag-off reasons printed) and P31 (the
+    JSON paths, the URL parts, the count by host; the peak device memory
+    of each). Returns (counts, records, runs, trees)."""
+    import torch
+    dfs = nested_dfs(m, dev, b)
+    counts, recs, runs, trees = {}, {}, {}, {}
+    for label in ("P29 lookups", "P29 group", "P29 explode", "P29 collect",
+                  "P29 shuffled", "P29 shuffled group", "P30 lambdas",
+                  "P30 zorder", "P31 json", "P31 url", "P31 hosts"):
+        tree, tag_ms, convert_ms = planned(m, dfs[label])
+        need = NESTED_NEED[label]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, cnt, reads = drive_batches(label, tree, need)
+        peak = torch.cuda.max_memory_allocated() - base
+        if label in NESTED_COLLECTED:
+            checks[label]([r for x in out for r in x.to_pylist()], label)
+        else:
+            checks[label](out, label)
+        rows = sum(x.num_rows_host for x in out)
+        del out
+        check_idle(label)
+        rec = {"plan_ms": tag_ms + convert_ms, "launches": cnt,
+               "host_reads": reads, "rows": rows, "peak_bytes": peak,
+               **window_metrics(tree)}
+        rec["input_bytes"], rec["bound_ms"] = nested_bound(b, label)
+        carried = shuffle_carried(tree)
+        if label.startswith("P29 shuffled"):
+            rec["shuffle_carries"] = carried
+        counts[label], recs[label], trees[label] = cnt, rec, tree
+        small = label in NESTED_COLLECTED
+        runs[label] = ((lambda t=tree: t.collect()) if small else
+                       (lambda t=tree: list(t.execute())), rec["rows"])
+        print(f"{label}: {rows} rows equal to the oracle; launches {cnt}; "
+              f"host reads {reads}; peak device memory {peak} bytes above "
+              f"the inputs; reads {rec['input_bytes']} bytes at capacity, "
+              f"bound {rec['bound_ms']:.4f} ms"
+              + (f"; through the shuffle's frames: {carried}"
+                 if label.startswith("P29 shuffled") else ""))
+    for label in NESTED_PLANNED_ONLY:
+        try:
+            planned(m, dfs[label])
+        except m.overrides.PlanNotSupported as e:
+            reason = [ln.strip() for ln in e.report.splitlines()
+                      if "wave 4" in ln]
+            if not reason:
+                raise AssertionError(f"{label}: tagged off without naming "
+                                     f"wave 4:\n{e.report}")
+            recs[label] = {"tag_off": reason[-1]}
+            print(f"{label}: planned only, tagged off: {reason[-1]}")
+            continue
+        raise AssertionError(f"{label}: a host-tier shape planned on the "
+                             f"device")
+    return counts, recs, runs, trees
+
+
+def compare_nested_paths(dev, m, b):
+    """Phase 2 at P29-P31's own inputs: every row gather of a run of each
+    path that makes one (the join's build payload with the struct's
+    leaves, the sorts, the group-bys, the exchanges' reorders; P31 makes
+    none) and every dictionary take, held exactly to the plain
+    versions."""
+    shapes = {}
+    for label in ("P29 lookups", "P29 explode", "P29 collect",
+                  "P29 shuffled", "P30 lambdas", "P30 zorder"):
+        tree = nested_tree(m, dev, b, label)
+        gathers = capture_row_gathers(tree)
+        shapes[label] = compare_row_gathers(label, gathers)
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(shapes[label])}; exact")
+        del gathers
+        takes = capture_dict_gathers(nested_tree(m, dev, b, label))
+        if takes:
+            print(f"compare {label} main-path dictionary gathers: "
+                  f"{'; '.join(compare_dict_takes(label, takes))}; exact")
+    return shapes
+
+
+def nested_gather_shapes(dev, m, b):
+    """Phase 4: dma_row_gather at every distinct shape of P29's join and
+    P30's sort and group-by (time_gather_call: the kernel, the plain
+    version, the bound and index_select)."""
+    out = []
+    for label in ("P29 lookups", "P30 lambdas", "P30 zorder"):
+        seen = set()
+        for call in capture_row_gathers(nested_tree(m, dev, b, label)):
+            site, plan, imat, fmat, idx = call
+            key = (site, idx.shape[0], imat.shape, None if fmat is None
+                   else fmat.shape)
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(time_gather_call(label, *call))
+    return out
+
+
+def time_nested_paths(runs):
+    """Phase 4: P29-P31 in turns (the order reversed every other round),
+    P_NESTED_ITERS runs each, one synchronisation a run; each run's row
+    count held to the counted run's."""
+    import torch
+    out = {label: [] for label in runs}
+    for i in range(P_NESTED_ITERS):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            run, rows = runs[label]
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+            got = len(res) if label in NESTED_COLLECTED \
+                else sum(x.num_rows_host for x in res)
+            if got != rows:
+                raise AssertionError(f"{label} timed: {got} rows != {rows}")
+            del res
+    for label, ms in out.items():
+        print(f"{label} ms per run ({P_NESTED_ITERS} runs, in turns): "
+              f"{[round(x, 3) for x in ms]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--profile", metavar="TRACE", type=Path,
-        help="also profile the q1, q3, q19, P6, P7 and P17-P28 steady "
+        help="also profile the q1, q3, q19, P6, P7 and P17-P31 steady "
              "states (device busy share, time by kernel) and write their "
              "Chrome traces to TRACE and TRACE with _q3, _q19, _p6, _p7, "
-             "_p17 ... _p28_split before its suffix")
+             "_p17 ... _p31_hosts before its suffix")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -6445,7 +7302,10 @@ def main() -> int:
     str_m, str_b, strings_want = strings_inputs(dev, dj, q3d, d19, names)
     win_m, win_b, win_checks = windows_inputs(dev, dj, q3d, d19,
                                               strings_data(dj, q3d))
-    print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans)")
+    t_nested = time.perf_counter()
+    nest_m, nest_b, nest_checks = nested_inputs(dev, dj, q3d, d19)
+    print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans; "
+          f"P29-P31's {time.perf_counter() - t_nested:.1f} s)")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
@@ -6582,6 +7442,10 @@ def main() -> int:
     # dictionary take of a run of each path
     with default_conf_after():
         compare_windows_paths(dev, win_m, win_b)
+    # P29-P31's own inputs (phase 3h drives them): every row gather and
+    # dictionary take of a run of each path
+    with default_conf_after():
+        compare_nested_paths(dev, nest_m, nest_b)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -6820,6 +7684,13 @@ def main() -> int:
             dev, win_m, win_b, win_checks)
     print(f"phase 3g: {time.perf_counter() - t_windows:.1f} s")
 
+    # -- phase 3h, slice 13: structs, maps, lambdas, JSON, URL, z-order ----
+    t_nested = time.perf_counter()
+    with default_conf_after():
+        nest_counts, nest_recs, nest_runs, nest_trees = drive_nested_paths(
+            dev, nest_m, nest_b, nest_checks)
+    print(f"phase 3h: {time.perf_counter() - t_nested:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -7009,6 +7880,12 @@ def main() -> int:
         win_gathers = windows_gather_shapes(dev, win_m, win_b)
     print(f"P26-P28 timings and their row gather shapes (phase 4): "
           f"{time.perf_counter() - t_windows:.1f} s")
+    t_nested = time.perf_counter()
+    with default_conf_after():
+        nested_ms = time_nested_paths(nest_runs)
+        nest_gathers = nested_gather_shapes(dev, nest_m, nest_b)
+    print(f"P29-P31 timings and their row gather shapes (phase 4): "
+          f"{time.perf_counter() - t_nested:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -7068,7 +7945,9 @@ def main() -> int:
             (label, tree, P_STRING_ITERS)
             for label, tree in str_trees.items()] + [
             (label, tree, P_WINDOW_ITERS)
-            for label, tree in win_trees.items() if label != "P27"]
+            for label, tree in win_trees.items() if label != "P27"] + [
+            (label, tree, P_NESTED_ITERS)
+            for label, tree in nest_trees.items()]
         for label, tree, iters in profiled:
             tag = label.lower().replace(" ", "_")
             profile_plan(label, tree, iters, args.profile.with_name(
@@ -7102,7 +7981,9 @@ def main() -> int:
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in str_counts.items()},
             **{k.replace(" ", "_"): v.get(r["name"], 0)
-               for k, v in win_counts.items()}}
+               for k, v in win_counts.items()},
+            **{k.replace(" ", "_"): v.get(r["name"], 0)
+               for k, v in nest_counts.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -7112,6 +7993,7 @@ def main() -> int:
             r["pid_shapes"] = pid_recs
         if r["name"] == "dma_row_gather":
             r["windows_shapes"] = win_gathers
+            r["nested_shapes"] = nest_gathers
             r["reorder_shapes"] = reorder_recs
             r["q21_shapes"] = q21_gathers
         if r["name"] == "fused_probe_verify":
@@ -7137,7 +8019,9 @@ def main() -> int:
         "strings_paths": dict(str_recs, counts=str_counts,
                               ms=strings_ms),
         "windows_paths": dict(win_recs, counts=win_counts,
-                              ms=windows_ms)}}))
+                              ms=windows_ms),
+        "nested_paths": dict(nest_recs, counts=nest_counts,
+                             ms=nested_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

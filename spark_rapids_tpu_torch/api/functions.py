@@ -8,15 +8,18 @@ the list aggregates (`collect_list`, `collect_set`, `percentile`,
 `approx_percentile`) and the window functions (`row_number`, `rank`,
 `dense_rank`, `lag`, `lead`, `first_value`, `last_value` and the
 `window_*` aggregates; `.over(expr.windowexprs.window(...))` places
-them), with the JAX package's names and signatures. The maps, the
-higher-order array functions, JSON and URL parsing come with ROADMAP A.8
-wave 3b, `udf` with wave 4.
+them), the maps, the higher-order array functions (lambdas over
+`LambdaVar` placeholders), JSON and URL parsing, with the JAX package's
+names and signatures (z-order's InterleaveBits is an expression class,
+expr/zorder.py, as in the JAX package). `udf` comes with ROADMAP A.8
+wave 4.
 """
 
 from __future__ import annotations
 
 from ..expr import (arithmetic, bitwise, collectionexprs, conditional,
-                    datetimeexprs, hashexprs, stringexprs, windowexprs)
+                    datetimeexprs, hashexprs, jsonexprs, mapexprs,
+                    stringexprs, urlexprs, windowexprs)
 from ..expr.aggexprs import (
     ApproxPercentile, Average, CollectList, CollectSet, Count, First, Last,
     Max, Min, Percentile, StddevPop, StddevSamp, Sum, VariancePop,
@@ -142,6 +145,73 @@ def element_at(x, index):
 
 def get_array_item(x, index):
     return collectionexprs.GetArrayItem(_e(x), index)
+
+
+# maps -----------------------------------------------------------------------
+def create_map(*cols):
+    return mapexprs.CreateMap(*[_e(c) for c in cols])
+
+
+def map_keys(x):
+    return mapexprs.MapKeys(_e(x))
+
+
+def map_values(x):
+    return mapexprs.MapValues(_e(x))
+
+
+def map_contains_key(x, key):
+    return mapexprs.MapContainsKey(_e(x), key)
+
+
+def get_map_value(x, key):
+    k = _e(key) if not isinstance(key, (str, int, float)) else key
+    return mapexprs.GetMapValue(_e(x), k)
+
+
+def element_at_key(x, key):
+    """element_at over a MAP with a non-literal (column) key."""
+    return get_map_value(x, key)
+
+
+# higher-order functions ----------------------------------------------------
+def _lambda_body(fn, *var_names):
+    """The body expression of a Python lambda over LambdaVar placeholders:
+    F.transform(c, lambda x: x + 1)."""
+    return fn(*[collectionexprs.LambdaVar(n) for n in var_names])
+
+
+def transform(x, fn):
+    return collectionexprs.ArrayTransform(_e(x), _lambda_body(fn, "x"), "x")
+
+
+def filter_(x, fn):
+    return collectionexprs.ArrayFilter(_e(x), _lambda_body(fn, "x"), "x")
+
+
+def exists(x, fn):
+    return collectionexprs.ArrayExists(_e(x), _lambda_body(fn, "x"), "x")
+
+
+def forall(x, fn):
+    return collectionexprs.ArrayForAll(_e(x), _lambda_body(fn, "x"), "x")
+
+
+def aggregate(x, zero, merge, finish=None):
+    LambdaVar = collectionexprs.LambdaVar
+    merge_body = merge(LambdaVar("acc"), LambdaVar("x"))
+    finish_body = finish(LambdaVar("acc")) if finish is not None else None
+    return collectionexprs.ArrayAggregate(_e(x), _e(zero), merge_body,
+                                          finish_body)
+
+
+# JSON and URL ---------------------------------------------------------------
+def get_json_object(x, path):
+    return jsonexprs.GetJsonObject(_e(x), path)
+
+
+def parse_url(x, part, key=None):
+    return urlexprs.ParseUrl(_e(x), part, key)
 
 
 def sort_array(x, asc=True):

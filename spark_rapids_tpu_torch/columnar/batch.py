@@ -181,12 +181,12 @@ class ColumnarBatch:
 
 
 def _empty_column(dtype, capacity: int, dev) -> Column:
-    from ..types import ArrayType
-    if isinstance(dtype, ArrayType):
-        # as the JAX package's build_column([], ...): a child at its
-        # smallest bucket
-        from .column import ArrayColumn
-        return ArrayColumn.from_pylist([], dtype, capacity, dev)
+    from ..types import ArrayType, MapType, StructType
+    if isinstance(dtype, (ArrayType, StructType, MapType)):
+        # as the JAX package's build_column([], ...): a list's or map's
+        # children at their smallest bucket, a struct's at its capacity
+        from .column import build_column
+        return build_column([], dtype, capacity, dev)
     valid = torch.zeros(capacity, dtype=torch.bool, device=dev)
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
         from .column import Decimal128Column

@@ -1,7 +1,15 @@
 """Device columns — the counterpart of spark_rapids_tpu/columnar/column.py:
 fixed-width columns, string columns, decimal128 columns
-(`Decimal128Column`, two int64 limb children) and list columns
-(`ArrayColumn`, int32 offsets into a child column).
+(`Decimal128Column`, two int64 limb children), list columns
+(`ArrayColumn`, int32 offsets into a child column), struct columns
+(`StructColumn`, a child a field) and map columns (`MapColumn`, int32
+offsets into parallel keys and values children).
+
+The JAX package's Decimal128Column subclasses its StructColumn; here the
+two are siblings under Column: a decimal128 column is a value, not a
+struct of fields, and every path that moves one takes its two limbs as
+lanes of the packed row gather. So `isinstance(c, StructColumn)` never
+holds for a decimal, and each seam has a branch for each.
 
 Every column is padded to a power-of-two capacity bucket, exactly as in
 the JAX package, and the logical row count rides beside the data as a
@@ -18,7 +26,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import ArrayType, BinaryType, DataType, DecimalType, StringType
+from ..types import (ArrayType, BinaryType, DataType, DecimalType, MapType,
+                     StringType, StructType)
 
 #: minimum capacity bucket (the JAX package's TPU lane width, kept so the
 #: two packages pad identically)
@@ -87,6 +96,16 @@ def _pad_np(arr: np.ndarray, capacity: int, fill=0) -> np.ndarray:
     out = np.full((capacity,) + arr.shape[1:], fill, dtype=arr.dtype)
     out[: arr.shape[0]] = arr
     return out
+
+
+def _offsets_np(values: Sequence, n: int, cap: int) -> np.ndarray:
+    """int32 (cap + 1,) offsets of the rows' entry counts (None: 0)."""
+    lengths = np.array([0 if v is None else len(v) for v in values],
+                       np.int64)
+    off = np.zeros(cap + 1, np.int32)
+    off[1: n + 1] = np.cumsum(lengths)
+    off[n + 1:] = off[n] if n else 0
+    return off
 
 
 class Column:
@@ -400,11 +419,7 @@ class ArrayColumn(Column):
         cap = capacity or bucket_capacity(n)
         validity = _pad_np(np.array([v is not None for v in values],
                                     np.bool_), cap, False)
-        lengths = np.array([0 if v is None else len(v) for v in values],
-                           np.int64)
-        off = np.zeros(cap + 1, np.int32)
-        off[1: n + 1] = np.cumsum(lengths)
-        off[n + 1:] = off[n] if n else 0
+        off = _offsets_np(values, n, cap)
         flat = [x for v in values if v is not None for x in v]
         child = build_column(flat, dtype.element_type, device=dev)
         return ArrayColumn(child, torch.from_numpy(off).to(dev),
@@ -447,12 +462,212 @@ class ArrayColumn(Column):
                 f"child={self.child!r})")
 
 
+class StructColumn(Column):
+    """Struct column: one child column a field, each at the struct's
+    capacity, and the struct's own validity; no data tensor."""
+
+    __slots__ = ("children",)
+
+    def __init__(self, children, validity: torch.Tensor, dtype: StructType):
+        super().__init__(None, validity, dtype)
+        self.children = tuple(children)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: StructType,
+                    capacity: Optional[int] = None,
+                    device=None) -> "StructColumn":
+        """dicts (or objects with the field names as attributes; None for
+        a null row) -> column on `device`."""
+        dev = resolve_device(device)
+        n = len(values)
+        cap = capacity or bucket_capacity(n)
+        validity = _pad_np(np.array([v is not None for v in values],
+                                    np.bool_), cap, False)
+        kids = []
+        for f in dtype.fields:
+            fv = [None if v is None else
+                  (v.get(f.name) if isinstance(v, dict)
+                   else getattr(v, f.name)) for v in values]
+            kids.append(build_column(fv, f.data_type, cap, dev))
+        return StructColumn(kids, torch.from_numpy(validity).to(dev), dtype)
+
+    def leaves(self) -> tuple:
+        """Each child's leaves in field order, then the validity (the JAX
+        package's pytree order)."""
+        return tuple(t for c in self.children for t in c.leaves()) \
+            + (self.validity,)
+
+    @classmethod
+    def from_leaves(cls, dtype: DataType, leaves) -> "StructColumn":
+        leaves = tuple(leaves)
+        kids, pos = [], 0
+        for f in dtype.fields:
+            n = leaf_count(f.data_type)
+            kids.append(column_class(f.data_type).from_leaves(
+                f.data_type, leaves[pos: pos + n]))
+            pos += n
+        return cls(kids, leaves[pos], dtype)
+
+    def with_capacity(self, capacity: int) -> "StructColumn":
+        """Grow (never shrink) the row bucket, the children with it."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        return StructColumn(
+            [c.with_capacity(capacity) for c in self.children],
+            torch.cat([self.validity,
+                       self.validity.new_zeros(capacity - cap)]),
+            self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
+        kids = [c.to_pylist(num_rows) for c in self.children]
+        names = [f.name for f in self.dtype.fields]
+        return [{nm: k[i] for nm, k in zip(names, kids)} if ok else None
+                for i, ok in enumerate(valid)]
+
+    def __repr__(self):
+        return f"StructColumn({self.dtype!r}, cap={self.capacity})"
+
+
+class MapColumn(Column):
+    """Map column: int32 offsets (capacity + 1,) into parallel `keys` and
+    `values` child columns (the entries), and the rows' validity. The
+    JAX package's layout: cuDF's list of structs with the struct
+    unzipped, so a lookup is a flat compare over the keys child. A row
+    may hold a key twice; every consumer takes the FIRST entry."""
+
+    __slots__ = ("offsets", "keys", "values")
+
+    def __init__(self, keys: Column, values: Column, offsets: torch.Tensor,
+                 validity: torch.Tensor, dtype: MapType):
+        super().__init__(None, validity, dtype)
+        self.keys = keys
+        self.values = values
+        self.offsets = offsets
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def entry_capacity(self) -> int:
+        return self.keys.capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: MapType,
+                    capacity: Optional[int] = None,
+                    device=None) -> "MapColumn":
+        """dicts or lists of (key, value) pairs (None for a null row) ->
+        column on `device`."""
+        dev = resolve_device(device)
+        n = len(values)
+        cap = capacity or bucket_capacity(n)
+        validity = _pad_np(np.array([v is not None for v in values],
+                                    np.bool_), cap, False)
+        off = _offsets_np(values, n, cap)
+        items = [(k, x) for v in values if v is not None
+                 for k, x in (v.items() if isinstance(v, dict) else v)]
+        keys = build_column([k for k, _ in items], dtype.key_type,
+                            device=dev)
+        vals = build_column([x for _, x in items], dtype.value_type,
+                            device=dev)
+        return MapColumn(keys, vals, torch.from_numpy(off).to(dev),
+                         torch.from_numpy(validity).to(dev), dtype)
+
+    def leaves(self) -> tuple:
+        """The keys' leaves, the values' leaves, the offsets and the
+        validity (the JAX package's pytree order)."""
+        return tuple(self.keys.leaves()) + tuple(self.values.leaves()) \
+            + (self.offsets, self.validity)
+
+    @classmethod
+    def from_leaves(cls, dtype: DataType, leaves) -> "MapColumn":
+        leaves = tuple(leaves)
+        nk = leaf_count(dtype.key_type)
+        nv = leaf_count(dtype.value_type)
+        keys = column_class(dtype.key_type).from_leaves(dtype.key_type,
+                                                        leaves[:nk])
+        vals = column_class(dtype.value_type).from_leaves(
+            dtype.value_type, leaves[nk: nk + nv])
+        return cls(keys, vals, leaves[nk + nv], leaves[nk + nv + 1], dtype)
+
+    def with_capacity(self, capacity: int) -> "MapColumn":
+        """Grow (never shrink) the row bucket with empty rows."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            raise ValueError(f"cannot shrink capacity {cap} to {capacity}")
+        extra = capacity - cap
+        offsets = torch.cat([self.offsets, self.offsets[-1:].expand(extra)])
+        validity = torch.cat([self.validity,
+                              self.validity.new_zeros(extra)])
+        return MapColumn(self.keys, self.values, offsets, validity,
+                         self.dtype)
+
+    def to_pylist(self, num_rows: int) -> List:
+        """dicts, the FIRST entry of a duplicated key winning (as map_get
+        does)."""
+        off = self.offsets[: num_rows + 1].cpu().numpy().tolist()
+        valid = self.validity[:num_rows].cpu().numpy().tolist()
+        n_entries = off[num_rows] if num_rows else 0
+        ks = self.keys.to_pylist(n_entries)
+        vs = self.values.to_pylist(n_entries)
+        out: List = []
+        for i, ok in enumerate(valid):
+            if not ok:
+                out.append(None)
+                continue
+            d = {}
+            for k, v in zip(ks[off[i]: off[i + 1]], vs[off[i]: off[i + 1]]):
+                if k not in d:
+                    d[k] = v
+            out.append(d)
+        return out
+
+    def __repr__(self):
+        return f"MapColumn({self.dtype!r}, cap={self.capacity})"
+
+
+def leaf_count(dtype: DataType) -> int:
+    """How many tensors `column_class(dtype).leaves()` gives."""
+    if isinstance(dtype, ArrayType):
+        return leaf_count(dtype.element_type) + 2
+    if isinstance(dtype, StructType):
+        return sum(leaf_count(f.data_type) for f in dtype.fields) + 1
+    if isinstance(dtype, MapType):
+        return leaf_count(dtype.key_type) + leaf_count(dtype.value_type) + 2
+    if (isinstance(dtype, DecimalType) and dtype.is_decimal128) \
+            or dtype.torch_dtype is None:
+        return 3
+    return 2
+
+
 def column_class(dtype: DataType) -> type:
     """The column class that holds `dtype` (a string as a plain
     StringColumn: a dictionary is a batch column's layout, never a
     child's)."""
     if isinstance(dtype, ArrayType):
         return ArrayColumn
+    if isinstance(dtype, StructType):
+        return StructColumn
+    if isinstance(dtype, MapType):
+        return MapColumn
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
         return Decimal128Column
     if dtype.torch_dtype is None:
@@ -473,6 +688,10 @@ def build_column(values: Sequence, dtype: DataType,
     """Python values -> a column of the class for `dtype` on `device`."""
     if isinstance(dtype, ArrayType):
         return ArrayColumn.from_pylist(values, dtype, capacity, device)
+    if isinstance(dtype, StructType):
+        return StructColumn.from_pylist(values, dtype, capacity, device)
+    if isinstance(dtype, MapType):
+        return MapColumn.from_pylist(values, dtype, capacity, device)
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
         return Decimal128Column.from_pylist(values, dtype, capacity, device)
     if dtype.torch_dtype is None:
@@ -543,8 +762,9 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     a DictionaryColumn when `encoded` (default: the active conf's
     spark.rapids.tpu.scan.encoded.enabled), else
     it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane, a list
-    array an ArrayColumn; decimal128 arrays wait for ROADMAP A.5, maps,
-    structs and the null type for A.8."""
+    array an ArrayColumn, a struct array a StructColumn, a map array a
+    MapColumn; decimal128 arrays wait for ROADMAP A.5, the null type for
+    A.8."""
     import pyarrow as pa
     from ..types import BOOLEAN, from_arrow
     if isinstance(arr, pa.ChunkedArray):
@@ -566,6 +786,28 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     if isinstance(dt, (StringType, BinaryType)):
         return _string_from_arrow_buffers(arr, dt, n, device)
     validity = np.asarray(arr.is_valid(), dtype=np.bool_)
+    if isinstance(dt, StructType):
+        kids = [column_from_arrow(arr.field(i), f.data_type, device,
+                                  encoded=False)
+                for i, f in enumerate(dt.fields)]
+        return StructColumn(kids, torch.from_numpy(_pad_np(
+            validity, bucket_capacity(n), False)).to(resolve_device(device)),
+            dt)
+    if isinstance(dt, MapType):
+        # the map's own offsets into its (unsliced) keys and items, as
+        # the JAX package takes them
+        cap = bucket_capacity(n)
+        off = np.zeros(cap + 1, dtype=np.int32)
+        off[: n + 1] = np.asarray(arr.offsets, dtype=np.int32)
+        off[n + 1:] = off[n] if n else 0
+        keys = column_from_arrow(arr.keys, dt.key_type, device,
+                                 encoded=False)
+        vals = column_from_arrow(arr.items, dt.value_type, device,
+                                 encoded=False)
+        dev = resolve_device(device)
+        return MapColumn(keys, vals, torch.from_numpy(off).to(dev),
+                         torch.from_numpy(_pad_np(validity, cap, False))
+                         .to(dev), dt)
     if isinstance(dt, ArrayType):
         # the list's own offsets into its (unsliced) values, as the JAX
         # package takes them
@@ -603,6 +845,9 @@ def column_to_arrow(col: Column, num_rows: int):
     if isinstance(col, Decimal128Column):
         raise NotImplementedError(
             f"{col.dtype!r} arrow arrays (decimal128) wait for ROADMAP A.5")
+    if isinstance(col, (StructColumn, MapColumn)):
+        return pa.array(_arrow_values(col, col.to_pylist(num_rows)),
+                        type=to_arrow(col.dtype))
     vals = col.to_pylist(num_rows)
     if isinstance(col, ArrayColumn) and isinstance(
             col.dtype.element_type, DecimalType):
@@ -611,3 +856,25 @@ def column_to_arrow(col: Column, num_rows: int):
     elif isinstance(col.dtype, DecimalType):
         vals = to_decimals(vals, col.dtype)
     return pa.array(vals, type=to_arrow(col.dtype))
+
+
+def _arrow_values(col: Column, vals: List) -> List:
+    """A struct's or map's Python rows with DECIMAL leaves as
+    decimal.Decimal values (what pyarrow takes), as lists of pairs for a
+    map (a pyarrow map keeps a duplicated key)."""
+    dt = col.dtype
+    if isinstance(dt, DecimalType):
+        return to_decimals(vals, dt)
+    if isinstance(col, StructColumn):
+        kids = [_arrow_values(c, [None if v is None else v[f.name]
+                                  for v in vals])
+                for c, f in zip(col.children, dt.fields)]
+        return [None if v is None else
+                {f.name: k[i] for f, k in zip(dt.fields, kids)}
+                for i, v in enumerate(vals)]
+    if isinstance(col, MapColumn):
+        return [None if v is None else
+                list(zip(_arrow_values(col.keys, list(v.keys())),
+                         _arrow_values(col.values, list(v.values()))))
+                for v in vals]
+    return vals

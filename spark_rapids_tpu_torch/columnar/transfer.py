@@ -11,7 +11,9 @@ Layout, little-endian: the int32 row count, then every column's leaves in
 StringColumn's bytes, offsets and validity; a DictionaryColumn's codes,
 dictionary bytes, dictionary offsets and validity; a Decimal128Column's
 hi limb, lo limb and validity; an ArrayColumn's child leaves, offsets and
-validity). The row count and each
+validity; a StructColumn's children's leaves and validity; a MapColumn's
+keys' leaves, values' leaves, offsets and validity). The row count and
+each
 leaf start on an ALIGN-byte boundary, zero-padded, so that every leaf of
 any dtype is a `Tensor.view` of the one buffer on either side. The JAX
 package packs its blocks back to back (XLA's bitcasts need no alignment):
@@ -19,8 +21,7 @@ the wire bytes of the two packages differ, their columns do not. The packed
 upload (columnar/upload.py) lays out the host pack the same way, and the
 two are byte-identical (tests/test_torch_upload.py).
 
-Map and struct columns wait for their slice (ROADMAP A.8). Not ported by
-design: the TPU's double-double staging of f64 (`_dd_split`); the H100
+Not ported by design: the TPU's double-double staging of f64 (`_dd_split`); the H100
 moves f64 as it is.
 """
 
@@ -32,7 +33,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .column import ArrayColumn, Column, Decimal128Column, StringColumn
+from .column import (ArrayColumn, Column, Decimal128Column, MapColumn,
+                     StringColumn, StructColumn)
 from .encoded import DictionaryColumn
 
 #: every block of the layout starts on this byte boundary
@@ -41,7 +43,7 @@ ALIGN = 16
 HEADER_BYTES = ALIGN
 
 _KINDS = (Column, StringColumn, DictionaryColumn, Decimal128Column,
-          ArrayColumn)
+          ArrayColumn, StructColumn, MapColumn)
 
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {"d2h_copies": 0, "d2h_bytes": 0}
@@ -68,8 +70,8 @@ def column_layout(col: Column) -> tuple:
     what sizes a pack and rebuilds the column from one."""
     if type(col) not in _KINDS:
         raise NotImplementedError(
-            f"{type(col).__name__} columns: maps and structs wait for "
-            f"their slice (ROADMAP A.8)")
+            f"{type(col).__name__} columns have no packed layout (the "
+            f"port packs the column kinds of ROADMAP A.8's types)")
     return (type(col), col.dtype,
             tuple((t.dtype, t.numel()) for t in col.leaves()))
 

@@ -37,10 +37,10 @@ the event, and the one device buffer is recorded on its stream for the
 caching allocator.
 
 Every failure raises: there is no per-buffer lane to fall back to.
-Column, StringColumn, DictionaryColumn, Decimal128Column and ArrayColumn
-pack (a decimal128 column as its two limbs, a list column as its child's
-leaves, offsets and validity); maps and structs wait for their slice
-(ROADMAP A.8). Not ported by design: the TPU's double-double
+Every column kind packs by its leaves (a decimal128 column as its two
+limbs, a list column as its child's leaves, offsets and validity, a
+struct as its children's leaves and validity, a map as its keys' and
+values' leaves, offsets and validity). Not ported by design: the TPU's double-double
 f64 staging (`_host_bytes` with `dd`) and PJRT's zero-copy probe
 (`_put_aliased`): the port compares the copy's pointer with the staging
 buffer's. Left out with their modules (ROADMAP A.9): the

@@ -146,7 +146,12 @@ def projection_schema(exprs: Sequence[Expression], schema: Schema) -> Schema:
 
 def eval_projection(bound: Sequence[Expression], batch: ColumnarBatch,
                     schema: Schema) -> ColumnarBatch:
-    cols = [sanitize(e.columnar_eval(batch), batch.num_rows) for e in bound]
+    """The projection of a batch; JSON paths over one column share its
+    structural masks (ops/json_device.shared_structures)."""
+    from ..ops.json_device import shared_structures
+    with shared_structures():
+        cols = [sanitize(e.columnar_eval(batch), batch.num_rows)
+                for e in bound]
     return batch.with_columns(cols, schema)
 
 

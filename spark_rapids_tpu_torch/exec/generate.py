@@ -1,6 +1,7 @@
-"""GenerateExec — explode and posexplode over a list column, outer or not:
-the counterpart of spark_rapids_tpu/exec/generate.py (reference
+"""GenerateExec — explode and posexplode over a list or map column, outer
+or not: the counterpart of spark_rapids_tpu/exec/generate.py (reference
 GpuGenerateExec.scala:829 and its GpuExplode/GpuPosExplode generators).
+A map explodes into (key, value) columns.
 
 The output capacity is the list child's capacity bucket (every element
 is at most one row) plus the input capacity for the outer variant. A
@@ -9,8 +10,8 @@ payload need (explode repeats a row once per element: the input's byte
 and element buckets would overflow), one host read a batch (the
 `measureHostReads` metric). The payload columns then move by one gather
 of the batch (ops/gather.gather_batch_columns: the fixed-width ones in
-one packed row gather), the elements by one gather of the child. Maps
-explode with MapColumn (ROADMAP A.8 wave 3b).
+one packed row gather), the elements by one gather of the child (a map's
+keys and values by one gather each).
 """
 
 from __future__ import annotations
@@ -20,18 +21,30 @@ from typing import Iterator
 import torch
 
 from ..columnar.batch import ColumnarBatch
-from ..columnar.column import (ArrayColumn, Column, StringColumn,
-                               bucket_capacity)
+from ..columnar.column import (ArrayColumn, Column, MapColumn,
+                               StringColumn, StructColumn, bucket_capacity)
 from ..expr.core import Expression, resolve
 from ..ops.basic import active_mask, compaction_order, gather_column
 from ..ops.collection import array_lengths, row_of_element
 from ..ops.gather import gather_batch_columns
 from ..ops.strings import string_lengths
-from ..types import ArrayType, IntegerType, Schema, StructField
+from ..types import ArrayType, IntegerType, MapType, Schema, StructField
 from .base import TpuExec
 
 #: host reads of the payload measurement, one a batch with varlen columns
 MEASURE_HOST_READS = "measureHostReads"
+
+
+def _varlen(c) -> bool:
+    """A payload column whose rows vary in size."""
+    from ..ops.join import is_varsize
+    return isinstance(c, MapColumn) or is_varsize(c)
+
+
+def _string_sides(c):
+    """The string children of a list or map column."""
+    sides = (c.child,) if isinstance(c, ArrayColumn) else (c.keys, c.values)
+    return [s for s in sides if isinstance(s, StringColumn)]
 
 
 class GenerateExec(TpuExec):
@@ -46,9 +59,15 @@ class GenerateExec(TpuExec):
         self.pos_name = pos_name
         self._bound = resolve(generator, child.output_schema)
         arr_t = self._bound.data_type
-        if not isinstance(arr_t, ArrayType):
-            raise TypeError(f"explode needs an ARRAY input, got {arr_t}")
-        self._elem_type = arr_t.element_type
+        self._is_map = isinstance(arr_t, MapType)
+        if self._is_map:
+            self._key_type = arr_t.key_type
+            self._elem_type = arr_t.value_type
+        elif isinstance(arr_t, ArrayType):
+            self._elem_type = arr_t.element_type
+        else:
+            raise TypeError(f"explode needs an ARRAY or MAP input, got "
+                            f"{arr_t}")
 
     @property
     def output_schema(self) -> Schema:
@@ -56,7 +75,12 @@ class GenerateExec(TpuExec):
         if self.position:
             fields.append(StructField(self.pos_name, IntegerType(),
                                       self.outer))
-        fields.append(StructField(self.elem_name, self._elem_type, True))
+        if self._is_map:
+            fields.append(StructField("key", self._key_type, self.outer))
+            fields.append(StructField("value", self._elem_type, True))
+        else:
+            fields.append(StructField(self.elem_name, self._elem_type,
+                                      True))
         return Schema(tuple(fields))
 
     def additional_metrics(self):
@@ -75,42 +99,61 @@ class GenerateExec(TpuExec):
     def _payload_caps(self, batch: ColumnarBatch, arr: ArrayColumn) -> tuple:
         """The output bucket of each varlen payload column (None for the
         others): string bytes; list elements (with their child bytes for
-        a list of strings), from one host read of the exact needs."""
-        if not any(isinstance(c, (StringColumn, ArrayColumn))
-                   for c in batch.columns):
+        a list of strings); a map's entries with its key and value bytes
+        where they are strings; a struct's one bucket over its string
+        fields, from one host read of the exact needs."""
+        if not any(_varlen(c) for c in batch.columns):
             return (None,) * len(batch.columns)
         copies, act = self._copies(batch, arr)
+
+        def need(x):
+            return torch.sum(copies * torch.where(act, x, 0).to(torch.int64))
+
+        def span_bytes(side, offsets):
+            # each row's byte span of a string child
+            return side.offsets[offsets[1:].long()] \
+                - side.offsets[offsets[:-1].long()]
         needs = []
         for c in batch.columns:
             if isinstance(c, StringColumn):
-                sl = torch.where(act, string_lengths(c), 0).to(torch.int64)
-                needs.append(torch.sum(copies * sl))
-            elif isinstance(c, ArrayColumn):
-                al = torch.where(act, array_lengths(c), 0).to(torch.int64)
-                needs.append(torch.sum(copies * al))
-                if isinstance(c.child, StringColumn):
-                    # each row's child byte span
-                    row_bytes = (c.child.offsets[c.offsets[1:].long()]
-                                 - c.child.offsets[c.offsets[:-1].long()]
-                                 ).to(torch.int64)
-                    needs.append(torch.sum(copies * torch.where(
-                        act, row_bytes, 0)))
+                needs.append(need(string_lengths(c)))
+            elif isinstance(c, (ArrayColumn, MapColumn)):
+                needs.append(need(array_lengths(c)))
+                for side in _string_sides(c):
+                    needs.append(need(span_bytes(side, c.offsets)))
+            elif isinstance(c, StructColumn) and _varlen(c):
+                from ..ops.join import var_lengths
+                needs.append(need(var_lengths(c)))
         self.metrics[MEASURE_HOST_READS].add(1)
         fetched = iter(torch.stack(needs).tolist())
+
+        def bucket():
+            return bucket_capacity(max(next(fetched), 8))
         caps = []
         for c in batch.columns:
-            if isinstance(c, StringColumn):
-                caps.append(bucket_capacity(max(next(fetched), 8)))
+            if isinstance(c, StringColumn) \
+                    or (isinstance(c, StructColumn) and _varlen(c)):
+                caps.append(bucket())
             elif isinstance(c, ArrayColumn):
-                elems = bucket_capacity(max(next(fetched), 8))
-                caps.append((elems, bucket_capacity(max(next(fetched), 8)))
+                elems = bucket()
+                caps.append((elems, bucket())
                             if isinstance(c.child, StringColumn) else elems)
+            elif isinstance(c, MapColumn):
+                elems = bucket()
+                kb = bucket() if isinstance(c.keys, StringColumn) else None
+                vb = bucket() if isinstance(c.values, StringColumn) \
+                    else None
+                caps.append((elems, kb, vb))
             else:
                 caps.append(None)
         return tuple(caps)
 
     def _explode(self, batch: ColumnarBatch) -> ColumnarBatch:
         arr = self._bound.columnar_eval(batch)
+        map_col = None
+        if isinstance(arr, MapColumn):
+            from ..ops.maps import map_keys
+            map_col, arr = arr, map_keys(arr)  # the offsets' vehicle
         caps = self._payload_caps(batch, arr)
         cap = batch.capacity
         dev = batch.device
@@ -153,8 +196,12 @@ class GenerateExec(TpuExec):
             cols.append(Column(torch.where(pos_valid, intra, 0),
                                pos_valid if self.outer else act_out,
                                IntegerType()))
-        cols.append(gather_column(arr.child,
-                                  torch.where(is_elem & act_out, e, -1)))
+        elem_idx = torch.where(is_elem & act_out, e, -1)
+        if map_col is not None:
+            cols.append(gather_column(map_col.keys, elem_idx))
+            cols.append(gather_column(map_col.values, elem_idx))
+        else:
+            cols.append(gather_column(arr.child, elem_idx))
         return ColumnarBatch(cols, n_out, self.output_schema)
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:

@@ -510,10 +510,13 @@ class HashJoinExec(TpuExec):
         if plan_p.kinds:
             pmat_out, pfmat_out = G.gather_rows(plan_p, pmat_b, pfmat_b,
                                                 b_pos_out)
-            G.rebuild_members(build.payload, members_of,
-                              unpack_rows(plan_p, pmat_out, pfmat_out),
-                              bcols)
-        for j in poi:
+            G.rebuild_members(
+                build.payload, members_of,
+                unpack_rows(plan_p, pmat_out, pfmat_out), bcols,
+                lambda k, j: gather_column(
+                    k, b_map, out_byte_capacity=b_caps[j] if b_caps
+                    else None))
+        for j in (j for j in poi if members_of[j] is None):
             bcols[j] = gather_column(
                 build.payload[j], b_map,
                 out_byte_capacity=b_caps[j] if b_caps else None)

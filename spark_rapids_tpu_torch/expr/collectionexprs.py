@@ -1,26 +1,27 @@
 """Collection (array) expressions — the counterpart of spark_rapids_tpu/
-expr/collectionexprs.py without its higher-order functions (reference
-collectionOperations.scala: GpuSize, GpuArrayContains, GpuElementAt,
-GpuGetArrayItem, GpuSortArray, GpuArrayMin/Max, GpuCreateArray, and the
-device kernels of GpuArrayPosition, GpuArrayRemove, GpuArrayDistinct,
-GpuSlice, GpuFlatten, GpuArraysOverlap, GpuArrayRepeat and GpuSequence).
+expr/collectionexprs.py (reference collectionOperations.scala: GpuSize,
+GpuArrayContains, GpuElementAt (arrays and maps), GpuGetArrayItem,
+GpuSortArray, GpuArrayMin/Max, GpuCreateArray, and the device kernels of
+GpuArrayPosition, GpuArrayRemove, GpuArrayDistinct, GpuSlice, GpuFlatten,
+GpuArraysOverlap, GpuArrayRepeat and GpuSequence; higherOrderFunctions.
+scala: the lambdas transform, filter, exists, forall and aggregate).
 
-The JAX package evaluates some shapes of the second family on its host
-row tier: string elements, per-row counts and bounds, and all of
-ArrayJoin. Each class says whether an instance has a device path
-(`device_supported`); the planner tags the others off, naming the port's
-host tier (ROADMAP A.8 wave 4). The lambdas (transform, filter, exists,
-forall, aggregate) come with wave 3b, map lookups with MapColumn.
+The JAX package evaluates some shapes of the second family and of the
+lambdas on its host row tier: string elements, per-row counts and
+bounds, all of ArrayJoin and ArrayAggregate, and lambda bodies that read
+an outer column or run over nested arrays. Each class says whether an
+instance has a device path (`device_supported`); the planner tags the
+others off, naming the port's host tier (ROADMAP A.8 wave 4).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..columnar.column import Column, bucket_capacity
+from ..columnar.column import Column, MapColumn, bucket_capacity
 from ..ops import collection as C
-from ..types import (BOOLEAN, INT, LONG, STRING, ArrayType, ByteType,
-                     IntegerType, LongType, ShortType)
+from ..types import (BOOLEAN, INT, LONG, NULL, STRING, ArrayType, ByteType,
+                     IntegerType, LongType, MapType, ShortType)
 from .core import Expression, Literal
 
 
@@ -78,12 +79,20 @@ class ElementAt(Expression):
 
     @property
     def data_type(self):
-        return self.children[0].data_type.element_type
+        ct = self.children[0].data_type
+        if isinstance(ct, MapType):
+            return ct.value_type
+        return ct.element_type
 
     def columnar_eval(self, batch):
         c = self.children[0].columnar_eval(batch)
+        key = self.children[1].columnar_eval(batch) \
+            if len(self.children) == 2 else self.index
+        if isinstance(c, MapColumn):
+            from ..ops.maps import map_get
+            return map_get(c, key)
         if len(self.children) == 2:
-            return C.element_at_col(c, self.children[1].columnar_eval(batch))
+            return C.element_at_col(c, key)
         if self.index == 0:
             # Spark raises even in non-ANSI mode; the per-row index path
             # gives NULL (ops/collection.element_at_col)
@@ -92,11 +101,17 @@ class ElementAt(Expression):
 
 
 class GetArrayItem(ElementAt):
-    """arr[i]: 0-based, null out of bounds (non-ANSI)."""
+    """arr[i]: 0-based, null out of bounds, for a negative index or a null
+    array or index (non-ANSI). A column index is read per row. The JAX
+    package gives NULL on every row for a column index (ROADMAP C.5);
+    the port gives Spark's rows, a deliberate change of scope."""
 
     def columnar_eval(self, batch):
-        return C.get_array_item(self.children[0].columnar_eval(batch),
-                                self.index)
+        c = self.children[0].columnar_eval(batch)
+        if len(self.children) == 2:
+            return C.get_array_item_col(
+                c, self.children[1].columnar_eval(batch))
+        return C.get_array_item(c, self.index)
 
 
 class SortArray(Expression):
@@ -417,3 +432,195 @@ class ArrayRepeat(_HostCollection):
         n = max(int(self.children[1].value), 0)
         return C.array_repeat(elem, count,
                               bucket_capacity(max(n * elem.capacity, 1)))
+
+
+# -- higher-order functions (reference higherOrderFunctions.scala) --------
+# Lambdas are expression trees over LambdaVar placeholders, mirroring
+# Catalyst's LambdaFunction/NamedLambdaVariable.
+
+class LambdaVar(Expression):
+    """Catalyst NamedLambdaVariable analog: a placeholder the function
+    binds per element at evaluation time."""
+
+    children = ()
+
+    def __init__(self, name: str = "x"):
+        self.name = name
+
+    def with_children(self, cs):
+        return self
+
+    @property
+    def data_type(self):
+        raise TypeError(f"unbound lambda variable {self.name!r}")
+
+    def __repr__(self):
+        return f"λ{self.name}"
+
+
+def _subst(body: Expression, mapping, types=None) -> Expression:
+    """`body` with the lambda variables of `mapping` bound to literals of
+    their values (typed by `types` where given)."""
+    def fn(node):
+        if isinstance(node, LambdaVar) and node.name in mapping:
+            return Literal(mapping[node.name],
+                           (types or {}).get(node.name))
+        return node
+    return body.transform_up(fn)
+
+
+class _HostHOF(Expression):
+    """Base: children = (array,); `body` is the lambda expression over
+    LambdaVar(var)."""
+
+    #: device kernel per subclass (ops/array_hof.py)
+    _device_kernel = None
+
+    def __init__(self, child: Expression, body: Expression,
+                 var: str = "x"):
+        self.children = (child,)
+        self.body = body
+        self.var = var
+
+    def with_children(self, cs):
+        return type(self)(cs[0], self.body, self.var)
+
+    def transform_up(self, fn):
+        # the body sees tree rewrites too (column resolution binds outer
+        # references inside it; LambdaVars pass through untouched)
+        child = self.children[0].transform_up(fn)
+        return fn(type(self)(child, self.body.transform_up(fn), self.var))
+
+    @property
+    def device_supported(self) -> bool:
+        """Bodies whose leaves are the lambda variable and literals, and
+        whose every interior operator has a device path, over an array
+        that is not nested: one flat pass over the child column."""
+        try:
+            arr_t = self.children[0].data_type
+        except (TypeError, NotImplementedError):
+            return False
+        if not isinstance(arr_t, ArrayType) \
+                or isinstance(arr_t.element_type, ArrayType):
+            return False
+
+        def node_ok(node) -> bool:
+            if isinstance(node, LambdaVar):
+                return node.name == self.var
+            if isinstance(node, Literal):
+                return True
+            try:
+                if getattr(node, "device_supported", True) is False:
+                    return False
+            except (TypeError, NotImplementedError):
+                return False
+            kids = getattr(node, "children", ())
+            return bool(kids) and all(node_ok(c) for c in kids)
+        return node_ok(self.body)
+
+    def columnar_eval(self, batch):
+        from ..ops import array_hof
+        if not self.device_supported:
+            raise NotImplementedError(
+                f"{type(self).__name__} of this lambda runs on the JAX "
+                f"package's host tier, which waits for ROADMAP A.8 wave 4")
+        arr = self.children[0].columnar_eval(batch)
+        return getattr(array_hof, self._device_kernel)(arr, self.body,
+                                                       self.var)
+
+    def _body_type(self):
+        """The body's type with the variable bound to the element type
+        (Catalyst's bind step)."""
+        arr_t = self.children[0].data_type
+        elem = arr_t.element_type if isinstance(arr_t, ArrayType) else arr_t
+        return _subst(self.body, {self.var: None},
+                      {self.var: elem}).data_type
+
+
+class ArrayTransform(_HostHOF):
+    """transform(arr, x -> expr)"""
+
+    _device_kernel = "array_transform"
+
+    @property
+    def data_type(self):
+        try:
+            return ArrayType(self._body_type())
+        except TypeError:
+            return ArrayType(NULL)
+
+
+class ArrayFilter(_HostHOF):
+    """filter(arr, x -> predicate)"""
+
+    _device_kernel = "array_filter"
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+
+class ArrayExists(_HostHOF):
+    """exists(arr, x -> predicate): Spark's 3-valued result."""
+
+    _device_kernel = "array_exists"
+
+    @property
+    def data_type(self):
+        return BOOLEAN
+
+
+class ArrayForAll(ArrayExists):
+    """forall(arr, x -> predicate)"""
+
+    _device_kernel = "array_forall"
+
+
+class ArrayAggregate(Expression):
+    """aggregate(arr, zero, (acc, x) -> merge[, acc -> finish]): a fold
+    with no static-shape device formulation; the JAX package runs it on
+    its host tier, and the planner tags it off (ROADMAP A.8 wave 4)."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression, zero: Expression,
+                 merge: Expression, finish: Expression = None,
+                 acc_var: str = "acc", var: str = "x"):
+        self.children = (child, zero)
+        self.merge = merge
+        self.finish = finish
+        self.acc_var = acc_var
+        self.var = var
+
+    def with_children(self, cs):
+        return ArrayAggregate(cs[0], cs[1], self.merge, self.finish,
+                              self.acc_var, self.var)
+
+    def transform_up(self, fn):
+        cs = [c.transform_up(fn) for c in self.children]
+        finish = self.finish.transform_up(fn) \
+            if self.finish is not None else None
+        return fn(ArrayAggregate(cs[0], cs[1], self.merge.transform_up(fn),
+                                 finish, self.acc_var, self.var))
+
+    @property
+    def data_type(self):
+        try:
+            zero_t = self.children[1].data_type
+            arr_t = self.children[0].data_type
+            elem = arr_t.element_type if isinstance(arr_t, ArrayType) \
+                else arr_t
+            merged_t = _subst(self.merge, {self.acc_var: None, self.var: None},
+                              {self.acc_var: zero_t, self.var: elem}
+                              ).data_type
+            if self.finish is None:
+                return merged_t
+            return _subst(self.finish, {self.acc_var: None},
+                          {self.acc_var: merged_t}).data_type
+        except TypeError:
+            return self.children[1].data_type
+
+    def columnar_eval(self, batch):
+        raise NotImplementedError(
+            "aggregate() runs on the JAX package's host tier, which waits "
+            "for ROADMAP A.8 wave 4")

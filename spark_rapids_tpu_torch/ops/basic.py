@@ -11,7 +11,11 @@ Conventions carried over from the JAX package:
   * a Decimal128Column moves its two limbs as two more 8-byte lanes of
     the packed row gather (ops/gather.py), never on its own;
   * an ArrayColumn gathers and concatenates its offsets' element spans
-    (ops/collection.py), its child by the child's own path.
+    (ops/collection.py), its child by the child's own path;
+  * a StructColumn moves each child by the child's own path beside its
+    validity (ops/gather.py packs its fixed-width children into the
+    packed row gather), a MapColumn its keys and values as two lists
+    over one offsets.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
-                               StringColumn)
+                               MapColumn, StringColumn, StructColumn)
 from ..columnar.encoded import NULL_CODE, DictionaryColumn
 
 
@@ -45,6 +49,12 @@ def sanitize(col: Column, num_rows) -> Column:
     if isinstance(col, ArrayColumn):
         return ArrayColumn(col.child, col.offsets, col.validity & act,
                            col.dtype)
+    if isinstance(col, StructColumn):
+        return StructColumn([sanitize(k, num_rows) for k in col.children],
+                            col.validity & act, col.dtype)
+    if isinstance(col, MapColumn):
+        return MapColumn(col.keys, col.values, col.offsets,
+                         col.validity & act, col.dtype)
     if isinstance(col, Decimal128Column):
         zero = torch.zeros((), dtype=torch.int64, device=col.device)
         return Decimal128Column.from_limbs(
@@ -68,6 +78,15 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
     if isinstance(a, ArrayColumn):
         from .collection import concat_arrays
         return concat_arrays(a, b, a_rows, b_rows, out_capacity)
+    if isinstance(a, MapColumn):
+        from .maps import map_keys, map_values
+        from .collection import concat_arrays
+        ck = concat_arrays(map_keys(a), map_keys(b), a_rows, b_rows,
+                           out_capacity)
+        cv = concat_arrays(map_values(a), map_values(b), a_rows, b_rows,
+                           out_capacity)
+        return MapColumn(ck.child, cv.child, ck.offsets, ck.validity,
+                         a.dtype)
     idx = torch.arange(out_capacity, dtype=torch.int32, device=a.device)
     from_b = idx >= a_rows
     b_idx = idx - a_rows
@@ -78,6 +97,11 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
         y_safe = torch.clamp(b_idx, 0, y.shape[0] - 1).long()
         return torch.where(from_b, y[y_safe], x[x_safe])
 
+    if isinstance(a, StructColumn):
+        return StructColumn(
+            [concat_columns(x, y, a_rows, b_rows, out_capacity)
+             for x, y in zip(a.children, b.children)],
+            cat(a.validity, b.validity) & out_valid, a.dtype)
     if isinstance(a, Decimal128Column):
         valid = cat(a.validity, b.validity) & out_valid
         zero = torch.zeros((), dtype=torch.int64, device=a.device)
@@ -107,7 +131,18 @@ def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
     capacity. `out_valid` masks output rows; out-of-range indices give
     invalid rows. `out_byte_capacity` is a string column's output byte
     bucket (default: its input's), or a list column's element bucket (an
-    (elements, bytes) pair for string elements)."""
+    (elements, bytes) pair for string elements), or a map's (entries,
+    key bytes or None, value bytes or None); a struct passes it to each
+    child."""
+    if isinstance(col, StructColumn):
+        in_range = (indices >= 0) & (indices < col.capacity)
+        safe = torch.where(in_range, indices, 0).long()
+        valid = col.validity[safe] & in_range
+        if out_valid is not None:
+            valid = valid & out_valid
+        return StructColumn(
+            [gather_column(k, indices, out_valid, out_byte_capacity)
+             for k in col.children], valid, col.dtype)
     if isinstance(col, Decimal128Column):
         from .gather import gather_batch_columns
         midx = indices if out_valid is None \
@@ -132,10 +167,29 @@ def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
     if isinstance(col, ArrayColumn):
         from .collection import gather_array
         return gather_array(col, safe, valid, out_byte_capacity)
+    if isinstance(col, MapColumn):
+        return _gather_map(col, safe, valid, out_byte_capacity)
     data = torch.where(valid, col.data[safe],
                        torch.zeros((), dtype=col.data.dtype,
                                    device=col.device))
     return Column(data, valid, col.dtype)
+
+
+def _gather_map(col: MapColumn, safe, valid, caps) -> MapColumn:
+    """A map's rows as its keys' and values' lists gathered by one index
+    (the JAX package's formulation); a duplicating gather passes
+    (entries, key bytes, value bytes)."""
+    from .collection import gather_array
+    from .maps import map_keys, map_values
+    if isinstance(caps, tuple):
+        elems, kb, vb = caps
+        kcap = (elems, kb) if kb is not None else elems
+        vcap = (elems, vb) if vb is not None else elems
+    else:
+        kcap = vcap = caps
+    gk = gather_array(map_keys(col), safe, valid, kcap)
+    gv = gather_array(map_values(col), safe, valid, vcap)
+    return MapColumn(gk.child, gv.child, gk.offsets, valid, col.dtype)
 
 
 def compaction_order(keep: torch.Tensor, num_rows):

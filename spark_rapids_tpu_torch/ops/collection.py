@@ -265,11 +265,22 @@ def element_at_col(col: ArrayColumn, idx: Column) -> Column:
 
 
 def get_array_item(col: ArrayColumn, index: int) -> Column:
-    """arr[i]: 0-based, null out of bounds (GetArrayItem non-ANSI)."""
+    """arr[i]: 0-based, null out of bounds (GetArrayItem non-ANSI); a
+    NULL literal index gives NULL rows."""
     lens = array_lengths(col)
-    pos = torch.full_like(lens, index)
+    pos = torch.full_like(lens, -1 if index is None else index)
     ok = (pos >= 0) & (pos < lens) & col.validity
     return _take_element(col, pos, ok)
+
+
+def get_array_item_col(col: ArrayColumn, idx: Column) -> Column:
+    """arr[expr]: a per-row 0-based index, null for a negative or
+    out-of-bounds index and for a null array or index (GetArrayItem,
+    non-ANSI)."""
+    lens = array_lengths(col).to(torch.int64)
+    i = idx.data.to(torch.int64)
+    ok = (i >= 0) & (i < lens) & col.validity & idx.validity
+    return _take_element(col, torch.where(ok, i, 0).to(torch.int32), ok)
 
 
 def _element_sort(lanes):

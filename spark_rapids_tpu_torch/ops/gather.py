@@ -10,9 +10,11 @@ one routing and accounting point for every materializing row gather.
 - `gather_batch_columns` gathers a batch's columns by an index map: two
   or more fixed-width columns ride one packed row gather, a
   Decimal128Column as its two limbs (two 8-byte lanes, so it always
-  rides one), a single fixed-width column and every dictionary column
-  (its codes; `rowpack.is_packable` refuses any subclass of Column) take
-  the per-column path (ops/basic.gather_column).
+  rides one), a StructColumn as its validity (a BOOLEAN lane) and its
+  packable children, a single fixed-width column and every dictionary
+  column (its codes; `rowpack.is_packable` refuses any subclass of
+  Column) take the per-column path (ops/basic.gather_column), as do a
+  struct's other children.
 - `GatherStats` counts the gathers, as `counters()` reports them.
 """
 
@@ -25,7 +27,7 @@ import torch
 
 __all__ = ["GatherStats", "gather_rows", "gather_lane_matrix",
            "gather_batch_columns", "pack_members", "rebuild_members",
-           "record", "counters"]
+           "needs_rest", "record", "counters"]
 
 
 class GatherStats:
@@ -79,40 +81,64 @@ def gather_lane_matrix(mat, idx):
 
 def pack_members(columns: Sequence):
     """The columns that ride a packed row gather: (member columns, per
-    input column the indices of its members, or None for a column that
-    takes the per-column path). A Decimal128Column is two members, its
-    limbs, each with the column's validity."""
-    from ..columnar.column import Column, Decimal128Column
-    from ..types import LONG
-    from .rowpack import is_packable
+    input column where its members are). A column's entry is None for a
+    column that takes the per-column path, (i,) for a packed column,
+    (i, j) for a Decimal128Column (its limbs, each with the column's
+    validity), and ("struct", i, entries) for a StructColumn: member i
+    carries its validity as a BOOLEAN lane, `entries` hold its children's
+    (None for a child that takes the per-column path)."""
     members: List = []
-    where: List = []
-    for c in columns:
-        if isinstance(c, Decimal128Column):
-            where.append((len(members), len(members) + 1))
-            members += [Column(c.hi.data, c.validity, LONG),
-                        Column(c.lo.data, c.validity, LONG)]
-        elif is_packable(c):
-            where.append((len(members),))
-            members.append(c)
-        else:
-            where.append(None)
+    where = [_member_entry(c, members) for c in columns]
     return members, where
 
 
+def _member_entry(c, members: List):
+    from ..columnar.column import Column, Decimal128Column, StructColumn
+    from ..types import BOOLEAN, LONG
+    from .rowpack import is_packable
+    if isinstance(c, Decimal128Column):
+        members += [Column(c.hi.data, c.validity, LONG),
+                    Column(c.lo.data, c.validity, LONG)]
+        return (len(members) - 2, len(members) - 1)
+    if isinstance(c, StructColumn):
+        members.append(Column(c.validity, c.validity, BOOLEAN))
+        vi = len(members) - 1
+        return ("struct", vi,
+                tuple(_member_entry(k, members) for k in c.children))
+    if is_packable(c):
+        members.append(c)
+        return (len(members) - 1,)
+    return None
+
+
+def needs_rest(w) -> bool:
+    """A struct entry with a child that takes the per-column path."""
+    return w is not None and w[0] == "struct" \
+        and any(k is None or needs_rest(k) for k in w[2])
+
+
+def _rebuild(c, w, gathered: Sequence, rest):
+    from ..columnar.column import Decimal128Column, StructColumn
+    if w[0] == "struct":
+        kids = [rest(k) if kw is None else _rebuild(k, kw, gathered, rest)
+                for k, kw in zip(c.children, w[2])]
+        return StructColumn(kids, gathered[w[1]].validity, c.dtype)
+    if len(w) == 2:
+        h, lo = gathered[w[0]], gathered[w[1]]
+        return Decimal128Column.from_limbs(h.data, lo.data, h.validity,
+                                           c.dtype)
+    return gathered[w[0]]
+
+
 def rebuild_members(columns: Sequence, where: Sequence, gathered: Sequence,
-                    out: List) -> None:
-    """Fill `out` with the gathered columns of `pack_members`."""
-    from ..columnar.column import Decimal128Column
+                    out: List, rest=None) -> None:
+    """Fill `out` with the gathered columns of `pack_members`; `rest(col,
+    j)` gathers a child of input column j that took the per-column
+    path."""
     for j, (c, w) in enumerate(zip(columns, where)):
-        if w is None:
-            continue
-        if len(w) == 2:
-            h, lo = gathered[w[0]], gathered[w[1]]
-            out[j] = Decimal128Column.from_limbs(h.data, lo.data, h.validity,
-                                                 c.dtype)
-        else:
-            out[j] = gathered[w[0]]
+        if w is not None:
+            out[j] = _rebuild(c, w, gathered,
+                              lambda k, j=j: rest(k, j))
 
 
 def gather_batch_columns(columns: Sequence, idx, num_rows=None,
@@ -134,7 +160,10 @@ def gather_batch_columns(columns: Sequence, idx, num_rows=None,
     if len(members) > 1:
         plan, imat, fmat = pack_rows(members)
         gi, gf = gather_rows(plan, imat, fmat, midx)
-        rebuild_members(columns, where, unpack_rows(plan, gi, gf), out)
+        rebuild_members(
+            columns, where, unpack_rows(plan, gi, gf), out,
+            lambda k, j: gather_column(k, midx, out_byte_capacity=byte_caps[j]
+                                       if byte_caps else None))
     o_idx = [j for j, c in enumerate(out) if c is None]
     for j in o_idx:
         out[j] = gather_column(columns[j], midx,

@@ -113,16 +113,26 @@ def candidate_fill_inputs(lo, counts, out_capacity: int):
 
 
 def is_varsize(c: Column) -> bool:
-    """A column whose rows vary in size: strings (bytes) and lists
-    (elements), whose gathers need an output bucket measured for them."""
-    from ..columnar.column import ArrayColumn
+    """A column whose rows vary in size: strings (bytes), lists
+    (elements) and structs with such a field, whose gathers need an
+    output bucket measured for them."""
+    from ..columnar.column import ArrayColumn, StructColumn
+    if isinstance(c, StructColumn):
+        return any(is_varsize(k) for k in c.children)
     return isinstance(c, (StringColumn, ArrayColumn))
 
 
 def var_lengths(c: Column) -> torch.Tensor:
     """Per-row payload size of a variable-size column: bytes for a
-    string, elements for a list."""
-    from ..columnar.column import ArrayColumn
+    string, elements for a list; for a struct, the sum over its varying
+    fields (one bucket that holds each field's need, passed to each)."""
+    from ..columnar.column import ArrayColumn, StructColumn
+    if isinstance(c, StructColumn):
+        lens = [var_lengths(k) for k in c.children if is_varsize(k)]
+        total = lens[0]
+        for x in lens[1:]:
+            total = total + x
+        return total
     if isinstance(c, ArrayColumn):
         from .collection import array_lengths
         return array_lengths(c)
@@ -166,7 +176,7 @@ class BuildTable:
     @staticmethod
     def build(key_cols: Sequence[Column], payload: Sequence[Column],
               num_rows, capacity: int) -> "BuildTable":
-        from .gather import gather_rows, pack_members
+        from .gather import gather_rows, needs_rest, pack_members
         for c in key_cols:
             if not is_gatherable(c):
                 raise NotImplementedError(
@@ -200,8 +210,11 @@ class BuildTable:
         pair_table = torch.stack([bucket_table[:-1], bucket_table[1:]],
                                  dim=1)
         members, where = pack_members(payload)
-        poi = [i for i, w in enumerate(where) if w is None]
-        for i in poi:
+        # gathered by original build row: the unpacked columns and the
+        # structs with an unpacked field
+        poi = [i for i, w in enumerate(where)
+               if w is None or needs_rest(w)]
+        for i in (i for i in poi if where[i] is None):
             if not is_gatherable(payload[i]):
                 raise NotImplementedError(
                     f"join payload columns of {type(payload[i]).__name__} "

@@ -255,7 +255,8 @@ def sort_batch_columns(columns: Sequence[Column], orders: Sequence[SortOrder],
     if members:
         plan, imat, fmat = pack_rows(members)
         gi, gf = gather_rows(plan, imat, fmat, perm)
-        rebuild_members(columns, where, unpack_rows(plan, gi, gf), out)
+        rebuild_members(columns, where, unpack_rows(plan, gi, gf), out,
+                        lambda k, j: gather_column(k, perm.to(torch.int32)))
     for j in [j for j, c in enumerate(out) if c is None]:
         out[j] = gather_column(columns[j], perm.to(torch.int32))
     return out, perm

@@ -71,9 +71,9 @@ def _row_of_byte(offsets: torch.Tensor, byte_cap: int, rows: int):
     out by `offsets`: the last row whose start is <= the byte's position,
     clipped into [0, rows)."""
     pos = torch.arange(byte_cap, dtype=torch.int32, device=offsets.device)
-    row = torch.searchsorted(offsets, pos, right=True).to(torch.int32) - 1
+    row = torch.searchsorted(offsets, pos, right=True, out_int32=True) - 1
     row = torch.clamp(row, 0, rows - 1)
-    return pos, row, pos - offsets[row.long()]
+    return pos, row, pos - offsets[row]
 
 
 def _col_bytes(col: StringColumn):
@@ -132,6 +132,51 @@ def seg_incl_cumsum(x: torch.Tensor, row_start_pos: torch.Tensor):
     global cumsum minus the exclusive cumsum at each byte's row start."""
     c = torch.cumsum(x, 0, dtype=torch.int32)
     return c - (c - x)[row_start_pos.long()]
+
+
+def count_set(mask: torch.Tensor) -> torch.Tensor:
+    """Exclusive int32 cumsum of a mask or of int32 values, (n + 1,):
+    [j] sums [0, j)."""
+    return torch.cat([mask.new_zeros(1, dtype=torch.int32),
+                      torch.cumsum(mask, 0, dtype=torch.int32)])
+
+
+def kth_set(csum: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Position of the k-th (1-based) set element counted by `csum`
+    (`count_set` of a mask; n + 1 past the last)."""
+    return torch.searchsorted(csum, k, out_int32=True) - 1
+
+
+def span_sums(x: torch.Tensor, offsets: torch.Tensor):
+    """(count_set(x), the sum before each row's span, the sum over each
+    row's span [offsets[r], offsets[r + 1])): a row's elements or bytes
+    are contiguous, so one cumsum serves every row, with no scatter."""
+    csum = count_set(x)
+    off = torch.clamp(offsets, 0, x.shape[0]).long()
+    before = csum[off[:-1]]
+    return csum, before, csum[off[1:]] - before
+
+
+def first_from(csum, lo, hi):
+    """Per query: the first set position p with lo <= p < hi, or _BIG."""
+    n = csum.shape[0] - 1
+    p = kth_set(csum, csum[torch.clamp(lo, 0, n).long()] + 1)
+    return torch.where(p < hi, p, _BIG)
+
+
+def last_before(csum, lo, hi):
+    """Per query: the last set position p with lo <= p < hi, or -1."""
+    n = csum.shape[0] - 1
+    lo_c = csum[torch.clamp(lo, 0, n).long()]
+    hi_c = csum[torch.clamp(hi, 0, n).long()]
+    return torch.where((hi_c > lo_c) & (hi > lo), kth_set(csum, hi_c), -1)
+
+
+def first_in_spans(flag: torch.Tensor, offsets: torch.Tensor):
+    """Per row: the index of the first flagged element of its span, or
+    _BIG (the JAX package's segment_min of the flagged positions)."""
+    csum, before, count = span_sums(flag, offsets)
+    return torch.where(count > 0, kth_set(csum, before + 1), _BIG)
 
 
 def gather_string(col: StringColumn, indices: torch.Tensor,

@@ -245,16 +245,22 @@ class LogicalGenerate(LogicalPlan):
     @property
     def schema(self) -> Schema:
         from ..expr.core import resolve
-        from ..types import ArrayType, IntegerType
+        from ..types import ArrayType, IntegerType, MapType
         arr_t = resolve(self.generator, self.children[0].schema).data_type
-        if not isinstance(arr_t, ArrayType):
-            raise TypeError(f"explode needs an ARRAY input, got "
+        if not isinstance(arr_t, (ArrayType, MapType)):
+            raise TypeError(f"explode needs an ARRAY or MAP input, got "
                             f"{arr_t.simple_name()}")
         fields = list(self.children[0].schema.fields)
         if self.position:
             fields.append(StructField(self.pos_name, IntegerType(),
                                       self.outer))
-        fields.append(StructField(self.elem_name, arr_t.element_type, True))
+        if isinstance(arr_t, MapType):
+            # explode(map) emits (key, value) pairs, as Spark does
+            fields.append(StructField("key", arr_t.key_type, self.outer))
+            fields.append(StructField("value", arr_t.value_type, True))
+        else:
+            fields.append(StructField(self.elem_name, arr_t.element_type,
+                                      True))
         return Schema(tuple(fields))
 
     def describe(self):

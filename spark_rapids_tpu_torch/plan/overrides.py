@@ -65,13 +65,14 @@ from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
                          resolve_sort_orders)
 from ..exec.window import WindowExec
 from ..expr import (aggexprs, arithmetic, bitwise, cast, collectionexprs,
-                    conditional, datetimeexprs, hashexprs, predicates,
-                    stringexprs, windowexprs)
+                    conditional, datetimeexprs, hashexprs, jsonexprs,
+                    mapexprs, predicates, stringexprs, urlexprs,
+                    windowexprs, zorder)
 from ..expr import math as emath
 from ..expr.core import (
     Alias, BoundReference, Expression, Literal, UnresolvedAttribute, resolve,
 )
-from ..types import ArrayType, DecimalType, StringType
+from ..types import ArrayType, DecimalType, MapType, StringType, StructType
 from . import logical as L
 from .meta import BaseMeta, ExprMeta, ExprRule
 from .typesig import (
@@ -265,12 +266,48 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
     _r(rules, se.StringSplit, "string split", stringlike, arr,
        tag_fn=_tag_device_when_supported)
     ce = collectionexprs
-    _r(rules, ce.Size, "array size", arr, integral)
+    mapsig = TypeSig.of("MAP")
+    _r(rules, ce.Size, "array/map size", arr + mapsig, integral)
     _r(rules, ce.ArrayContains, "array membership", arr, BOOLEAN)
-    _r(rules, ce.ElementAt, "element access (array)",
-       arr + commonly_supported, commonly_supported)
-    _r(rules, ce.GetArrayItem, "0-based element access", arr,
+    _r(rules, ce.ElementAt, "element access (array/map)",
+       arr + mapsig + commonly_supported, commonly_supported)
+    # a column index too: the port gives Spark's rows where the JAX
+    # package's host tier gives NULL (ROADMAP C.5, C.12)
+    _r(rules, ce.GetArrayItem, "0-based element access", arr + integral,
        commonly_supported)
+    # maps (reference GpuCreateMap/GpuGetMapValue/GpuMapKeys/
+    # GpuMapValues); a column key of map_contains_key runs on the device
+    # too, where the JAX package's rule sends it to its host tier
+    me = mapexprs
+    _r(rules, me.CreateMap, "map constructor", commonly_supported, mapsig)
+    _r(rules, me.GetMapValue, "map value lookup",
+       mapsig + commonly_supported, commonly_supported)
+    _r(rules, me.MapKeys, "map_keys", mapsig, arr)
+    _r(rules, me.MapValues, "map_values", mapsig, arr)
+    _r(rules, me.MapContainsKey, "map_contains_key",
+       mapsig + commonly_supported, BOOLEAN)
+    # higher-order functions: lambdas over the variable and literals run
+    # as one flat pass over the child column, the others (and
+    # aggregate()) on the JAX package's host tier
+    for c, d in ((ce.ArrayTransform, "transform() HOF"),
+                 (ce.ArrayFilter, "filter() HOF"),
+                 (ce.ArrayExists, "exists() HOF"),
+                 (ce.ArrayForAll, "forall() HOF"),
+                 (ce.ArrayAggregate, "aggregate() HOF (host tier)")):
+        _r(rules, c, d, commonly_supported + arr, commonly_supported + arr,
+           tag_fn=_tag_device_when_supported)
+    # JSON and URL: literal wildcard-free paths and literal parts run the
+    # byte-parallel kernels; from_json is host tier
+    _r(rules, jsonexprs.GetJsonObject, "JSON path extraction", stringlike,
+       stringlike, tag_fn=_tag_device_when_supported)
+    _r(rules, jsonexprs.JsonToStructsField,
+       "from_json single field (host tier)", stringlike, commonly_supported,
+       tag_fn=_tag_device_when_supported)
+    _r(rules, urlexprs.ParseUrl, "URL part extraction", stringlike,
+       stringlike, tag_fn=_tag_device_when_supported)
+    _r(rules, zorder.InterleaveBits,
+       "z-order bit interleave (reference GpuInterleaveBits)", integral,
+       integral)
     _r(rules, ce.SortArray, "in-array sort", arr, arr,
        tag_fn=_tag_fixed_width_elements)
     _r(rules, ce.ArrayMin, "array minimum", arr, numeric_and_decimal,
@@ -646,13 +683,7 @@ class PlanMeta(BaseMeta):
             # array<string> has no child byte measurement (JAX package)
             for child in p.children:
                 for f in child.schema.fields:
-                    if isinstance(f.data_type, ArrayType) \
-                            and not f.data_type.element_type.is_fixed_width:
-                        self.will_not_work_on_tpu(
-                            f"join payload column {f.name!r}: "
-                            f"{f.data_type.simple_name()} elements are not "
-                            "fixed-width (the duplicating gather lacks "
-                            "their byte measurement)")
+                    self._tag_join_payload(f.name, f.data_type)
             strategy = self._join_strategy(p)[0]
             if strategy.endswith("nested_loop") \
                     and p.join_type not in NESTED_LOOP_JOIN_TYPES:
@@ -664,6 +695,23 @@ class PlanMeta(BaseMeta):
                 self.will_not_work_on_tpu(
                     "a join with a side of unknown size (AdaptiveJoinExec) "
                     f"{JOINS}")
+
+    def _tag_join_payload(self, name: str, dt) -> None:
+        """The JAX package's join payload tag-offs (a list of strings, a
+        map), and the same inside a struct, whose string fields the port
+        measures."""
+        if isinstance(dt, ArrayType) and not dt.element_type.is_fixed_width:
+            self.will_not_work_on_tpu(
+                f"join payload column {name!r}: {dt.simple_name()} "
+                "elements are not fixed-width (the duplicating gather lacks "
+                "their byte measurement)")
+        elif isinstance(dt, MapType):
+            self.will_not_work_on_tpu(
+                f"join payload column {name!r}: map payloads lack the "
+                "join-side duplicating byte measurement")
+        elif isinstance(dt, StructType):
+            for f in dt.fields:
+                self._tag_join_payload(f"{name}.{f.name}", f.data_type)
 
     @staticmethod
     def _non_fixed_width_input(fn, p: L.LogicalAggregate) -> bool:

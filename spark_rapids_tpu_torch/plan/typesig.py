@@ -3,9 +3,7 @@ spark_rapids_tpu/plan/typesig.py (reference TypeChecks.scala:168 TypeSig /
 :1456 ExprChecks; drives both tagging and the generated supported-ops
 documentation).
 
-The tags are the JAX package's. Maps and structs wait for their slice
-(ROADMAP A.8 wave 3b): their tags name no class here, so no type of the
-port matches them.
+The tags are the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,8 +12,9 @@ from typing import FrozenSet, Optional
 
 from ..types import (
     ArrayType, BinaryType, BooleanType, ByteType, DataType, DateType,
-    DecimalType, DoubleType, FloatType, IntegerType, LongType, NullType,
-    ShortType, StringType, TimestampNTZType, TimestampType,
+    DecimalType, DoubleType, FloatType, IntegerType, LongType, MapType,
+    NullType, ShortType, StringType, StructType, TimestampNTZType,
+    TimestampType,
 )
 
 _ALL_TAGS = {
@@ -24,8 +23,7 @@ _ALL_TAGS = {
     "DOUBLE": DoubleType, "DATE": DateType, "TIMESTAMP": TimestampType,
     "TIMESTAMP_NTZ": TimestampNTZType, "STRING": StringType,
     "BINARY": BinaryType, "NULL": NullType, "DECIMAL": DecimalType,
-    "ARRAY": ArrayType, "MAP": None,
-    "STRUCT": None,
+    "ARRAY": ArrayType, "MAP": MapType, "STRUCT": StructType,
 }
 
 
@@ -49,8 +47,7 @@ class TypeSig:
 
     def supports(self, dt: DataType) -> bool:
         for tag in self.tags:
-            cls = _ALL_TAGS[tag]
-            if cls is not None and isinstance(dt, cls):
+            if isinstance(dt, _ALL_TAGS[tag]):
                 return True
         return False
 

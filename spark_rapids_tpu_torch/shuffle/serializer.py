@@ -28,15 +28,20 @@ never reaches the wire):
     array:       validity bitmask, offsets[:num_rows+1] rebased to 0,
                  then the child encoded over exactly the referenced
                  element span
+    struct:      validity bitmask, then each child encoded over the same
+                 rows, in field order
+    map:         validity bitmask, offsets[:num_rows+1] rebased to 0,
+                 then the keys and the values each encoded over exactly
+                 the referenced entry span
 
 Columns are encoded from host tensors (CPU): `serialize_batch` fetches a
 batch on the card in one packed copy first (columnar/transfer.py), and
 the exchange serializes slices of the host batch its split fetched.
 `deserialize_batch` returns a host-backed batch (CPU tensors at their
 capacity buckets, as `host_gather_column` makes them); the caller
-promotes it at its own seam (columnar/upload.promote_stream). Struct
-and map columns wait for their slice (ROADMAP A.8); a dictionary column
-decodes at the exchange's boundary before it gets here.
+promotes it at its own seam (columnar/upload.promote_stream). A
+dictionary column decodes at the exchange's boundary before it gets
+here.
 DECIMAL(p<=18) crosses as its int64 lane.
 
 A codec that fails to build raises (native/__init__.py): COPY is a codec
@@ -55,9 +60,11 @@ import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
-                               StringColumn, bucket_capacity)
+                               MapColumn, StringColumn, StructColumn,
+                               bucket_capacity)
 from ..native import lz4_compress, lz4_decompress, xxh64
-from ..types import (LONG, ArrayType, BinaryType, DecimalType, Schema,
+from ..types import (LONG, ArrayType, BinaryType, DecimalType, MapType,
+                     Schema, StructType,
                      StringType)
 
 __all__ = [
@@ -98,11 +105,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def _check_kind(col: Column) -> None:
     if type(col) not in (Column, StringColumn, Decimal128Column,
-                         ArrayColumn):
+                         ArrayColumn, StructColumn, MapColumn):
         raise NotImplementedError(
             f"{type(col).__name__} columns do not cross the shuffle: "
-            f"dictionary columns decode at the exchange's boundary, "
-            f"maps and structs wait for their slice (ROADMAP A.8)")
+            f"dictionary columns decode at the exchange's boundary")
 
 
 def _rebase_offsets(off: np.ndarray, n: int, start: int = 0) -> np.ndarray:
@@ -133,6 +139,16 @@ def _encode_column(col: Column, n: int, out: List[np.ndarray],
         lo = int(off[start])
         hi = int(off[start + n]) if n else lo
         _encode_column(col.child, hi - lo, out, start=lo)
+    elif isinstance(col, StructColumn):
+        for ch in col.children:
+            _encode_column(ch, n, out, start)
+    elif isinstance(col, MapColumn):
+        off = _np(col.offsets)
+        out.append(_rebase_offsets(off, n, start))
+        lo = int(off[start])
+        hi = int(off[start + n]) if n else lo
+        _encode_column(col.keys, hi - lo, out, start=lo)
+        _encode_column(col.values, hi - lo, out, start=lo)
     else:
         out.append(np.ascontiguousarray(_np(col.data)[start: start + n]))
 
@@ -158,15 +174,29 @@ def _decode_column(dtype, n: int, bufs: List[bytes], pos: int,
         dpad[: len(data)] = data
         return StringColumn(torch.from_numpy(dpad), torch.from_numpy(opad),
                             torch.from_numpy(vpad), dtype), pos
-    if isinstance(dtype, ArrayType):
+    if isinstance(dtype, StructType):
+        kids = []
+        for f in dtype.fields:
+            k, pos = _decode_column(f.data_type, n, bufs, pos, capacity)
+            kids.append(k)
+        return StructColumn(kids, torch.from_numpy(vpad), dtype), pos
+    if isinstance(dtype, (ArrayType, MapType)):
         off = np.frombuffer(bufs[pos], dtype=np.int32)
         pos += 1
         opad = np.zeros(capacity + 1, np.int32)
         opad[: n + 1] = off
         opad[n + 1:] = off[n] if n else 0
         child_n = int(off[n]) if n else 0
+        child_cap = bucket_capacity(max(child_n, 1))
+        if isinstance(dtype, MapType):
+            keys, pos = _decode_column(dtype.key_type, child_n, bufs, pos,
+                                       child_cap)
+            vals, pos = _decode_column(dtype.value_type, child_n, bufs,
+                                       pos, child_cap)
+            return MapColumn(keys, vals, torch.from_numpy(opad),
+                             torch.from_numpy(vpad), dtype), pos
         child, pos = _decode_column(dtype.element_type, child_n, bufs, pos,
-                                    bucket_capacity(max(child_n, 1)))
+                                    child_cap)
         return ArrayColumn(child, torch.from_numpy(opad),
                            torch.from_numpy(vpad), dtype), pos
     if isinstance(dtype, DecimalType) and dtype.is_decimal128:
@@ -350,7 +380,10 @@ def host_gather_column(col: Column, idx: np.ndarray) -> Column:
     if isinstance(col, Decimal128Column):
         kids = tuple(host_gather_column(c, idx) for c in col.children)
         return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
-    if isinstance(col, ArrayColumn):
+    if isinstance(col, StructColumn):
+        kids = [host_gather_column(c, idx) for c in col.children]
+        return StructColumn(kids, torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, (ArrayColumn, MapColumn)):
         off = _np(col.offsets)
         starts = off[idx].astype(np.int64)
         lens = off[idx + 1].astype(np.int64) - starts
@@ -363,6 +396,11 @@ def host_gather_column(col: Column, idx: np.ndarray) -> Column:
             cum = np.concatenate([[0], np.cumsum(lens)[:-1]])
             elem_idx = (np.repeat(starts, lens) + np.arange(total)
                         - np.repeat(cum, lens))
+        if isinstance(col, MapColumn):
+            return MapColumn(host_gather_column(col.keys, elem_idx),
+                             host_gather_column(col.values, elem_idx),
+                             torch.from_numpy(new_off),
+                             torch.from_numpy(vpad), col.dtype)
         return ArrayColumn(host_gather_column(col.child, elem_idx),
                            torch.from_numpy(new_off),
                            torch.from_numpy(vpad), col.dtype)
@@ -401,13 +439,21 @@ def host_slice_column(col: Column, lo: int, hi: int) -> Column:
     if isinstance(col, Decimal128Column):
         kids = tuple(host_slice_column(c, lo, hi) for c in col.children)
         return Decimal128Column(kids, torch.from_numpy(vpad), col.dtype)
-    if isinstance(col, ArrayColumn):
+    if isinstance(col, StructColumn):
+        kids = [host_slice_column(c, lo, hi) for c in col.children]
+        return StructColumn(kids, torch.from_numpy(vpad), col.dtype)
+    if isinstance(col, (ArrayColumn, MapColumn)):
         off = _np(col.offsets)
         base = int(off[lo])
         end = int(off[hi]) if n else base
         new_off = np.zeros(cap + 1, np.int32)
         new_off[: n + 1] = off[lo: hi + 1] - base
         new_off[n + 1:] = new_off[n]
+        if isinstance(col, MapColumn):
+            return MapColumn(host_slice_column(col.keys, base, end),
+                             host_slice_column(col.values, base, end),
+                             torch.from_numpy(new_off),
+                             torch.from_numpy(vpad), col.dtype)
         return ArrayColumn(host_slice_column(col.child, base, end),
                            torch.from_numpy(new_off),
                            torch.from_numpy(vpad), col.dtype)

@@ -15,8 +15,10 @@ Physical encodings on the card:
                          dictionary (columnar/encoded.py DictionaryColumn)
   - ARRAY<T>          -> int32 offsets into a child column of T
                          (columnar/column.py ArrayColumn)
-
-Maps and structs wait for their slice (ROADMAP A.8 wave 3b).
+  - STRUCT<...>       -> one child column a field, side by side, and the
+                         struct's validity (columnar/column.py StructColumn)
+  - MAP<K,V>          -> int32 offsets into parallel keys and values
+                         child columns (columnar/column.py MapColumn)
 """
 
 from __future__ import annotations
@@ -181,6 +183,45 @@ class ArrayType(DataType):
         return hash(("array", self.element_type))
 
 
+@dataclasses.dataclass(frozen=True, eq=True)
+class StructField:
+    name: str
+    data_type: DataType
+    nullable: bool = True
+
+    def __hash__(self) -> int:
+        return hash((self.name, self.data_type, self.nullable))
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class StructType(DataType):
+    """Named fields side by side (StructColumn)."""
+    fields: Tuple[StructField, ...] = ()
+
+    def simple_name(self) -> str:
+        inner = ",".join(f"{f.name}:{f.data_type.simple_name()}"
+                         for f in self.fields)
+        return f"struct<{inner}>"
+
+    def __hash__(self) -> int:
+        return hash(("struct", self.fields))
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class MapType(DataType):
+    """Key -> value entries per row (MapColumn)."""
+    key_type: DataType = dataclasses.field(default_factory=StringType)
+    value_type: DataType = dataclasses.field(default_factory=StringType)
+    value_contains_null: bool = True
+
+    def simple_name(self) -> str:
+        return (f"map<{self.key_type.simple_name()},"
+                f"{self.value_type.simple_name()}>")
+
+    def __hash__(self) -> int:
+        return hash(("map", self.key_type, self.value_type))
+
+
 # Canonical singletons (Spark-style)
 BOOLEAN = BooleanType()
 BYTE = ByteType()
@@ -216,16 +257,6 @@ def numeric_promote(a: DataType, b: DataType) -> DataType:
     return (a, b)[ia < ib]
 
 
-@dataclasses.dataclass(frozen=True, eq=True)
-class StructField:
-    name: str
-    data_type: DataType
-    nullable: bool = True
-
-    def __hash__(self) -> int:
-        return hash((self.name, self.data_type, self.nullable))
-
-
 @dataclasses.dataclass(frozen=True)
 class Schema:
     """Ordered named columns; the engine's row-schema object."""
@@ -258,8 +289,8 @@ class Schema:
 
 def from_arrow(at) -> DataType:
     """A pyarrow type as the engine's (a dictionary type as its value
-    type: the encoding is the column's layout, not its type). Nested and
-    null types raise, naming ROADMAP A.8."""
+    type: the encoding is the column's layout, not its type). The null
+    type raises, naming ROADMAP A.8."""
     import pyarrow as pa
     checks = ((pa.types.is_boolean, BOOLEAN), (pa.types.is_int8, BYTE),
               (pa.types.is_int16, SHORT), (pa.types.is_int32, INT),
@@ -280,9 +311,13 @@ def from_arrow(at) -> DataType:
         return from_arrow(at.value_type)
     if pa.types.is_list(at) or pa.types.is_large_list(at):
         return ArrayType(from_arrow(at.value_type))
+    if pa.types.is_struct(at):
+        return StructType(tuple(StructField(f.name, from_arrow(f.type))
+                                for f in at))
+    if pa.types.is_map(at):
+        return MapType(from_arrow(at.key_type), from_arrow(at.item_type))
     raise NotImplementedError(
-        f"arrow type {at}: maps, structs and the null type wait for their "
-        f"slice (ROADMAP A.8)")
+        f"arrow type {at}: the null type waits for its slice (ROADMAP A.8)")
 
 
 def to_arrow(dt: DataType):
@@ -298,7 +333,12 @@ def to_arrow(dt: DataType):
         return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, ArrayType):
         return pa.list_(to_arrow(dt.element_type))
+    if isinstance(dt, StructType):
+        return pa.struct([pa.field(f.name, to_arrow(f.data_type), f.nullable)
+                          for f in dt.fields])
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow(dt.key_type), to_arrow(dt.value_type))
     if out is None:
-        raise NotImplementedError(f"{dt!r}: maps, structs and the null type "
-                                  f"wait for their slice (ROADMAP A.8)")
+        raise NotImplementedError(f"{dt!r}: the null type waits for its "
+                                  f"slice (ROADMAP A.8)")
     return out

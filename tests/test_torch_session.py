@@ -295,7 +295,12 @@ PORTED_FUNCTIONS = {"col", "lit", "sum", "count", "avg", "mean", "min",
                     "last_value", "lead", "percentile", "rank",
                     "row_number", "sequence", "size", "slice",
                     "sort_array", "split", "window_avg", "window_count",
-                    "window_max", "window_min", "window_sum"}
+                    "window_max", "window_min", "window_sum",
+                    # A.8 wave 3b: maps, lambdas, JSON and URL
+                    "aggregate", "create_map", "element_at_key", "exists",
+                    "filter_", "forall", "get_json_object",
+                    "get_map_value", "map_contains_key", "map_keys",
+                    "map_values", "parse_url", "transform"}
 
 
 def _public(mod):
@@ -349,10 +354,6 @@ def test_window_function_names_build_window_functions(name):
     assert [r[3] for r in rows[1]] == want
 
 
-#: the JAX package's functions that wait for their expressions (14): the
-#: maps, the higher-order array functions, JSON and URL parsing (A.8 wave
-#: 3b) and udf (wave 4)
-MISSING_FUNCTIONS = {
-    'aggregate', 'create_map', 'element_at_key', 'exists', 'filter_',
-    'forall', 'get_json_object', 'get_map_value', 'map_contains_key',
-    'map_keys', 'map_values', 'parse_url', 'transform', 'udf'}
+#: the JAX package's functions that wait for their expressions: udf
+#: (A.8 wave 4)
+MISSING_FUNCTIONS = {'udf'}
