@@ -66,7 +66,10 @@ fails the run on error:
      and P30: P29's join (the build permute, the build payload with the
      customers' struct's fixed-width leaves and validity, the stream
      payload), its filter and sort, the exchanges' reorders over 16
-     partitions, P30's group-by sort and z-order sort);
+     partitions, P30's group-by sort and z-order sort); every murmur3
+     chain, probe and row gather launch of a run of P32 (Q21 and P19
+     through their adaptive joins, P20's sort, P32 sub's sub-partitioned
+     join over 16 partitions, P32 demote);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -171,8 +174,8 @@ fails the run on error:
      planned at the default confs; P13, TPC-H Q21 (clause 2.4.21, a left
      semi and a left anti join with residual conditions, three inner
      joins, TopN(100) by numwait DESC, s_name), hand-built and planned
-     with broadcasts off (at the default confs the planner of either
-     package takes the adaptive join there); P14, q3's filtered sides
+     with broadcasts off (phase 3i plans it at the default confs,
+     through the adaptive join); P14, q3's filtered sides
      under every join type on both build sides where allowed (row count,
      both sides' key multisets and null counts); P15, 1,048,576
      lineitems left-outer-joined to 11 discount bands on a band condition
@@ -255,12 +258,34 @@ fails the run on error:
      collected by order and the four device lambdas (transform,
      filter_ and its size, exists, forall) over 5,999,580 elements,
      InterleaveBits(l_partkey, l_suppkey) and a sort by it, and the
-     host-tier aggregate() and outer-column lambda planned only (their
-     wave 4 tag-offs printed); P31, 1,048,576 event documents (drawn
+     host-tier aggregate() and outer-column lambda planned only (on the
+     host row engine: the `~` reason printed); P31, 1,048,576 event documents (drawn
      from 131,072 distinct ones: nested objects, item arrays, decimal
      prices, escapes and surrogate pairs, whitespace, 1 % malformed) by
      five get_json_object paths, 1,048,576 URLs by seven parse_url parts
      and counted by host;
+  3i. drives the adaptive join, the host row engine, Python UDFs and the
+     cost model: P32, TPC-H Q21 (P13), Q3 on the true types (P19) and
+     P20's sort planned at the default confs with the exact aggregate
+     (the twins' confs but for the broadcast threshold), Q21 and P19
+     through AdaptiveJoinExec, each held to its oracle (q21_oracle,
+     q3_types_oracle, p20_oracles) with each adaptive join's choice and
+     measured bytes and adaptive.counters(); P32 sub, the planned Q21
+     whose adaptive joins decide under shuffle.partitions 16 and
+     join.subPartitionThreshold one byte under the largest side P32 Q21
+     built (a sub-partitioned join, k = 16); P32 demote, Q21 planned with
+     broadcastSizeThreshold 1 GiB, a right side measuring past
+     adaptive.autoBroadcastMaxBytes demoted (the cap lowered under the
+     largest right side if none does); P33 host, a month of P29's
+     1,500,000 orders (a device filter) through a Project on the host
+     row engine (levenshtein, a regex split, array_join) into a device
+     aggregate by priority, held to a Python oracle; P33 udf, a Python
+     UDF with a branch over every order as the host round trip and
+     compiled (udfCompiler.enabled), held to each other and to numpy,
+     with the round trips and the compiled tree; P33 cbo, a Project and
+     Filter over the 25 nations (placed on the host) and over the lines
+     (on the device) under optimizer.enabled; and the cost model's four
+     constants measured on the card (measure_cost_constants);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -312,7 +337,10 @@ fails the run on error:
      shape of P26-P28 beside index_select (windows_gather_shapes). Then
      P29-P31 in turns (3 runs each, one synchronisation a run) and
      dma_row_gather at every distinct shape of P29's join and P30's
-     sorts beside index_select (nested_gather_shapes).
+     sorts beside index_select (nested_gather_shapes). Then P32's three
+     default-conf plans beside their twins (P13's, P19's and P20's sort),
+     P32 sub and demote, P33 host and P33 udf compiled, in turns (3 runs
+     each, one synchronisation a run).
 
 With --profile TRACE it also runs each steady state under torch.profiler
 (after the kernel timings, which a profiled process perturbs),
@@ -332,7 +360,9 @@ of phase 3c (under "planned": plan ms, launches beside the hand-built
 plan's, the differences and the session timings) and phase 3d's (under
 "join_paths": launches, rows and ms), phase 3e's (under
 "types_paths"), phase 3f's (under "strings_paths"), phase 3g's (under
-"windows_paths") and phase 3h's (under "nested_paths"), a JSON line
+"windows_paths"), phase 3h's (under "nested_paths") and phase 3i's
+(under "adaptive_paths": choices, counters, round trips, placements,
+the cost constants, ms), a JSON line
 with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
@@ -3685,9 +3715,9 @@ P14_KINDS = (("inner", "right"), ("inner", "left"), ("left_outer", "right"),
 P15_LINES = 1 << 20      # P15's lineitems
 P15_BANDS = 11           # discount bands [k/100, (k+1)/100), k = 0..10
 P_JOIN_ITERS = 3         # phase 4's timed runs of P12-P16 each
-#: P13's conf: with a join's estimated size unknown (a join below it) the
-#: planner of either package takes the adaptive join (AdaptiveJoinExec,
-#: ROADMAP A.3 / A.9) unless broadcasts are off
+#: P13's conf, broadcasts off: every join a hash join the plan builds as
+#: it stands. At the default confs a join whose side has no size estimate
+#: (a join below it) takes AdaptiveJoinExec, which phase 3i drives (P32)
 Q21_CONF = dict(Q3_CONF, **{"spark.rapids.sql.broadcastSizeThreshold": "-1"})
 #: P15's conf: the exact aggregate, as q3's (the chunks' band ranges
 #: differ, and the speculative tier would trip and re-run)
@@ -4477,9 +4507,9 @@ MONEY = (12, 2)
 P20_FRACTION, P20_SEED = 0.1, 7
 P20_ZONE = "+05:30"
 P20_ZONE_US = (5 * 3600 + 30 * 60) * 1_000_000
-#: P19 and P20 plan with broadcasts off (a join whose side is a join
-#: takes AdaptiveJoinExec at the default confs, ROADMAP A.3 / A.9); P20's
-#: sort plans over P_PARTS host partitions
+#: P19 plans with broadcasts off (phase 3i plans it at the default confs,
+#: its upper join through AdaptiveJoinExec); P20's sort plans over P_PARTS
+#: host partitions
 P19_CONF = Q21_CONF
 P20_SORT_CONF = dict(Q3_CONF, **{"spark.rapids.sql.shuffle.partitions":
                                  str(P_PARTS)})
@@ -5664,11 +5694,11 @@ def strings_tree(m, dev, b, wants, label):
 
 def capture_murmur3(plan):
     """Run `plan` once and keep the inputs of every murmur3 chain launch
-    (ops/murmur3_lanes.murmur3_columns), in call order: [(columns,
-    seeds)]."""
+    (ops/murmur3_lanes.murmur3_columns, which ops/join.py imports by
+    name for the join's hash), in call order: [(columns, seeds)]."""
     import torch
     from spark_rapids_tpu_torch.exec.speculation import speculation_scope
-    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
     calls, real = [], m3.murmur3_columns
 
     def record(columns, seeds):
@@ -5676,13 +5706,13 @@ def capture_murmur3(plan):
                                       else s for s in seeds]))
         return real(columns, seeds)
     record.launches = real.launches
-    m3.murmur3_columns = record
+    m3.murmur3_columns = oj.murmur3_columns = record
     try:
         with speculation_scope():
             list(plan.execute())
             torch.cuda.synchronize()
     finally:
-        m3.murmur3_columns = real
+        m3.murmur3_columns = oj.murmur3_columns = real
     return calls
 
 
@@ -7073,7 +7103,8 @@ def nested_inputs(dev, dj, q3d, d19):
 #: the paths whose results collect() reads (small outputs, or rows)
 NESTED_COLLECTED = ("P29 group", "P29 explode", "P29 collect",
                     "P29 shuffled", "P29 shuffled group", "P31 hosts")
-#: the host-tier shapes of P30, planned only
+#: the host-tier shapes of P30, planned only (the row engine would take
+#: minutes over 1,500,000 lists of quantities)
 NESTED_PLANNED_ONLY = ("P30 aggregate", "P30 outer column")
 
 
@@ -7149,19 +7180,16 @@ def drive_nested_paths(dev, m, b, checks):
               + (f"; through the shuffle's frames: {carried}"
                  if label.startswith("P29 shuffled") else ""))
     for label in NESTED_PLANNED_ONLY:
-        try:
-            planned(m, dfs[label])
-        except m.overrides.PlanNotSupported as e:
-            reason = [ln.strip() for ln in e.report.splitlines()
-                      if "wave 4" in ln]
-            if not reason:
-                raise AssertionError(f"{label}: tagged off without naming "
-                                     f"wave 4:\n{e.report}")
-            recs[label] = {"tag_off": reason[-1]}
-            print(f"{label}: planned only, tagged off: {reason[-1]}")
-            continue
-        raise AssertionError(f"{label}: a host-tier shape planned on the "
-                             f"device")
+        planned(m, dfs[label])
+        text = dfs[label].explain()
+        if not text.startswith("~ Project"):
+            raise AssertionError(f"{label}: not placed on the host row "
+                                 f"engine:\n{text}")
+        reason = [ln.strip() for ln in text.splitlines()
+                  if "host-tier expression" in ln]
+        recs[label] = {"host_placement": reason[-1]}
+        print(f"{label}: planned only, on the host row engine: "
+              f"{reason[-1]}")
     return counts, recs, runs, trees
 
 
@@ -7225,6 +7253,578 @@ def time_nested_paths(runs):
             del res
     for label, ms in out.items():
         print(f"{label} ms per run ({P_NESTED_ITERS} runs, in turns): "
+              f"{[round(x, 3) for x in ms]}")
+    return out
+
+
+# -- slice 14: the adaptive join, the host row engine, Python UDFs and the
+# -- cost model (phase 3i) ---------------------------------------------------
+
+#: P32 demote's broadcastSizeThreshold: past every measured side, so that
+#: the adaptive cap (adaptive.autoBroadcastMaxBytes, 64 MB by default)
+#: decides the broadcast
+P32_DEMOTE_THRESHOLD = 1 << 30
+#: P32 sub's runtime shuffle.partitions (the sub-partitioned join's k)
+P32_SUB_PARTS = 16
+P_ADAPTIVE_ITERS = 3     # phase 4's timed runs of P32 (and twins) and P33
+#: P33 host's month of o_orderdate (about 18,000 of the 1,500,000 orders)
+P33_FROM, P33_TO = datetime.date(1995, 3, 1), datetime.date(1995, 4, 1)
+P33_PRIORITY, P33_PATTERN, P33_JOIN = "1-URGENT", "#0+", "-"
+P33_COST_ROWS = 1 << 16  # rows of the row engine's and transitions' costs
+P33_COST_REPS = 15       # runs of each cost measurement (the median kept)
+P33_CBO_BELOW = 31       # P33 cbo keeps the rows with k * 3 + 1 below it
+#: the kernels each path must launch
+ADAPTIVE_NEED = {"P32 Q21": ["dict_gather"] + Q_NEED, "P32 P19": Q_NEED,
+                 "P32 P20 sort": ["dma_row_gather"],
+                 "P32 sub": ["dict_gather"] + Q_NEED,
+                 "P32 demote": ["dict_gather"] + Q_NEED}
+
+
+def p33_discount(price, key):
+    """P33 udf's function: a branch on the order key, arithmetic on the
+    price."""
+    if key % 7 == 0:
+        return price * 0.9
+    return price + 1.0
+
+
+def adaptive_nodes(tree):
+    return [n for n in exec_nodes(tree)
+            if type(n).__name__ == "AdaptiveJoinExec"]
+
+
+def adaptive_choices(tree):
+    """Each AdaptiveJoinExec's last decision: (join type, choice, measured
+    left bytes or None, measured right bytes)."""
+    return [(n.join_type, n._choice, *n._measured)
+            for n in adaptive_nodes(tree)]
+
+
+def built_bytes(choices):
+    """The largest side an adaptive join built."""
+    return max(r if c == "build_right" or l is None else
+               (l if c == "build_left" else min(l, r))
+               for _, c, l, r in choices)
+
+
+def with_runtime_conf(tree, settings):
+    """`tree` with its adaptive joins deciding under `settings` added to
+    their conf. At plan time shuffle.partitions > 1 makes the planner of
+    either package take the static shuffled join (`_join_strategy`:
+    "shuffled" precedes "adaptive"), so P32 sub gives its partitions to
+    the planned adaptive nodes at run time."""
+    from spark_rapids_tpu_torch.config import RapidsConf
+    for n in adaptive_nodes(tree):
+        n._conf = RapidsConf(dict(n._conf._settings, **settings))
+    return tree
+
+
+def adaptive_dfs(sm, tm, dev, jb, tb, settings=None):
+    """P32's queries planned from DataFrames at the default confs (with
+    `settings`): Q21 (P13), Q3 on the true types (P19) and P20's sort by
+    (o_orderdate, o_orderkey); and their twins as phases 3d and 3e plan
+    them (broadcasts off; the sort over P_PARTS partitions). Each takes
+    its twin's exact aggregate (Q3_CONF), so P32 and its twin differ by
+    the broadcast threshold alone."""
+    settings = dict(Q3_CONF, **(settings or {}))
+    sess = sm.session.TpuSession(settings, dev)
+    tsess = tm.session.TpuSession(settings, dev)
+    return {
+        "P32 Q21": q21_df(sm, sess, jb),
+        "P32 P19": q3_types_df(tm, tsess, tb["q3"]),
+        "P32 P20 sort": p20_dfs(tm, tsess, tsess, tb["l20"],
+                                tb["o20"])["P20 sort"],
+        "P13 twin": q21_df(sm, sm.session.TpuSession(Q21_CONF, dev), jb),
+        "P19 twin": q3_types_df(tm, tm.session.TpuSession(P19_CONF, dev),
+                                tb["q3"]),
+        "P20 sort twin": types_dfs(tm, dev, tb)["P20 sort"]}
+
+
+def p33_orders(m, dev, dj, q3d):
+    """P33's orders: P29's 1,500,000 (nested_data: o_orderpriority,
+    o_clerk, o_totalprice) with their o_orderdate."""
+    nd = nested_data(dj, q3d, windows_data(dj, q3d))
+    t = m.t
+    b = batch_of(m, dev, [
+        ("o_orderkey", nd["o_orderkey"], t.LONG),
+        ("o_orderdate", dj["o_orderdate"], t.DATE),
+        ("o_orderpriority", string_column(nd["o_orderpriority"],
+                                          ORDER_PRIORITIES, dev), t.STRING),
+        ("o_clerk", string_column(nd["o_clerk"], CLERKS, dev), t.STRING),
+        ("o_totalprice", nd["o_totalprice"], t.DOUBLE)])
+    return b, nd
+
+
+def _edit_distance(a, b):
+    """Levenshtein's distance by the full (len(a)+1) x (len(b)+1) table,
+    the oracle of P33 host."""
+    d = [[i + j if i * j == 0 else 0 for j in range(len(b) + 1)]
+         for i in range(len(a) + 1)]
+    for i in range(1, len(a) + 1):
+        for j in range(1, len(b) + 1):
+            d[i][j] = min(d[i - 1][j] + 1, d[i][j - 1] + 1,
+                          d[i - 1][j - 1] + (a[i - 1] != b[j - 1]))
+    return d[-1][-1]
+
+
+def p33_host_df(m, sess, orders):
+    """P33 host: a device filter keeps a month of o_orderdate; a Project
+    on the host row engine computes levenshtein(o_orderpriority,
+    '1-URGENT'), split(o_clerk, '#0+') (a regex split) and array_join of
+    the split; a device aggregate counts each priority's orders, sums
+    their distance and keeps the largest joined clerk."""
+    col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
+    o = sess.from_batches([orders], orders.schema)
+    month = o.filter(pr.And(
+        pr.GreaterThanOrEqual(col("o_orderdate"), date_lit(m, P33_FROM)),
+        pr.LessThan(col("o_orderdate"), date_lit(m, P33_TO))))
+    host = month.select(
+        col("o_orderpriority"),
+        F.levenshtein("o_orderpriority", lit(P33_PRIORITY)).alias("dist"),
+        F.array_join(F.split("o_clerk", P33_PATTERN), P33_JOIN)
+        .alias("clerk"))
+    return host.group_by("o_orderpriority").agg(
+        (F.count(), "n"), (F.sum("dist"), "dist"),
+        (F.max("clerk"), "clerk")).sort("o_orderpriority")
+
+
+def p33_host_oracle(dj, nd):
+    keep = (dj["o_orderdate"] >= days(P33_FROM)) \
+        & (dj["o_orderdate"] < days(P33_TO))
+    groups = {}
+    for p, c in zip(nd["o_orderpriority"][keep], nd["o_clerk"][keep]):
+        pri = ORDER_PRIORITIES[p]
+        joined = P33_JOIN.join(re.split(P33_PATTERN, CLERKS[c]))
+        n, dist, top = groups.get(pri, (0, 0, ""))
+        groups[pri] = (n + 1, dist + _edit_distance(pri, P33_PRIORITY),
+                       max(top, joined))
+    return [(k, *v) for k, v in sorted(groups.items())], int(keep.sum())
+
+
+def p33_udf_df(m, dev, orders, compiled):
+    """P33 udf: p33_discount over all the orders' (o_totalprice,
+    o_orderkey), as the host round trip or compiled."""
+    col = m.core.col
+    sess = m.session.TpuSession(
+        {"spark.rapids.sql.udfCompiler.enabled": str(compiled).lower()}, dev)
+    fn = m.F.udf(p33_discount, return_type=m.t.DOUBLE)
+    return sess.from_batches([orders], orders.schema).select(
+        col("o_orderkey"), fn("o_totalprice", "o_orderkey").alias("adj"))
+
+
+def p33_cbo_dfs(m, dev, jb):
+    """P33 cbo under optimizer.enabled: a Project and Filter over the 25
+    nations (the cost model must place them on the host) and over the
+    6,001,215 lines (on the device)."""
+    col, lit, pr = m.core.col, m.core.lit, m.pred
+    sess = m.session.TpuSession({"spark.rapids.sql.optimizer.enabled":
+                                 "true"}, dev)
+
+    def q(table, key):
+        df = sess.from_batches([jb[table]], jb[table].schema)
+        return df.select(col(key), (col(key) * lit(3) + lit(1)).alias("k3")) \
+            .filter(pr.LessThan(col("k3"), lit(P33_CBO_BELOW)))
+    return {"P33 cbo nations": q("nation", "n_nationkey"),
+            "P33 cbo lines": q("lineitem", "l_orderkey")}
+
+
+def udf_round_trips():
+    """expr/udf.counters(): the host round trips and their rows."""
+    from spark_rapids_tpu_torch.expr import udf
+    return udf.counters()
+
+
+def check_udf_columns(out, okey, price, label):
+    cols = fetch_columns(out)
+    want = np.where(okey % 7 == 0, price * 0.9, price + 1.0)
+    if not (np.array_equal(cols[0][0], okey) and cols[1][1].all()
+            and np.array_equal(cols[1][0], want)):
+        raise AssertionError(f"{label}: != numpy")
+    return cols[1][0]
+
+
+class _RowSource:
+    """A row-engine input of prepared host rows (the cost measurement's
+    leaf)."""
+
+    def __init__(self, rows, schema, device):
+        self._rows, self.output_schema, self.device = rows, schema, device
+        self.children = []
+
+    def rows(self):
+        return iter(self._rows)
+
+
+def _median_us(fn, reps=P33_COST_REPS):
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(ts))
+
+
+def measure_cost_constants(m, dev, jb, orders):
+    """The cost model's four constants on this card (plan/cost.py), each
+    the median of P33_COST_REPS runs: the launch cost of a small device
+    Project (ProjectExec of `k * 3 + 1` over the 25 nations, to the
+    synchronisation), the device cost per row of a large one (the same
+    over the 6,001,215 lines, less the small one, per row), the row
+    engine's cost per row (HostProjectExec of the same expression over
+    P33_COST_ROWS prepared rows) and the transitions' per row, each way
+    (ColumnarToRowExec over a P33_COST_ROWS-row batch; RowToColumnarExec
+    of its rows)."""
+    from spark_rapids_tpu_torch.exec.basic import InMemoryScanExec, ProjectExec
+    from spark_rapids_tpu_torch.exec.fallback import (
+        ColumnarToRowExec, HostProjectExec, RowToColumnarExec)
+    col, lit, t = m.core.col, m.core.lit, m.t
+
+    def project(batch, key):
+        return ProjectExec([(col(key) * lit(3) + lit(1)).alias("k3")],
+                           InMemoryScanExec([batch], batch.schema))
+    small, large = jb["nation"], jb["lineitem"]
+    dispatch = _median_us(lambda: list(project(small, "n_nationkey")
+                                       .execute()))
+    big = _median_us(lambda: list(project(large, "l_orderkey").execute()))
+    n_large = large.num_rows_host
+    rows_batch = batch_of(m, dev, [("k", orders.columns[0].data[
+        :P33_COST_ROWS].cpu().numpy(), t.LONG)])
+    scan = InMemoryScanExec([rows_batch], rows_batch.schema)
+    down = _median_us(lambda: list(ColumnarToRowExec(scan).rows()))
+    rows = list(ColumnarToRowExec(scan).rows())
+    src = _RowSource(rows, rows_batch.schema, dev)
+    host = _median_us(lambda: list(HostProjectExec(
+        [(col("k") * lit(3) + lit(1)).alias("k3")], src).rows()))
+    up = _median_us(lambda: list(RowToColumnarExec(
+        src, rows_batch.schema).execute()))
+    n = P33_COST_ROWS
+    return {"DEVICE_DISPATCH_US": dispatch,
+            "DEVICE_ROW_US": max(big - dispatch, 0.0) / n_large,
+            "HOST_ROW_US": host / n,
+            "TRANSITION_ROW_US": (down + up) / 2 / n,
+            "transition_down_row_us": down / n,
+            "transition_up_row_us": up / n,
+            "large_project_us": big, "rows": n, "large_rows": n_large}
+
+
+def sub_partitions(choices, threshold):
+    """Each subpartition choice's k, as AdaptiveJoinExec sizes it from
+    the side it builds (the right side unless an inner join without a
+    condition: `built_bytes`)."""
+    return [min(256, max(P32_SUB_PARTS, -(-built_bytes([c]) // threshold)))
+            for c in choices if c[1] == "subpartition"]
+
+
+def drive_adaptive(label, tree, need, check, exact=False):
+    """One phase 3i path, counted (drive_batches; with `exact`, on the
+    exact tier, as collect() re-runs a plan whose flag tripped), its rows
+    held with `check`; the catalog empty and no permit held after.
+    Returns a record with each adaptive join's decision."""
+    from spark_rapids_tpu_torch.exec import adaptive
+    from spark_rapids_tpu_torch.exec.speculation import force_exact
+    before = adaptive.counters()
+    with (force_exact() if exact else contextlib.nullcontext()):
+        out, cnt, reads = drive_batches(label, tree, need)
+    check([r for b in out for r in b.to_pylist()], label)
+    del out
+    check_idle(label)
+    shuffle_root_empty(label)
+    after = adaptive.counters()
+    return {"launches": cnt, "host_reads": reads,
+            "choices": adaptive_choices(tree),
+            "adaptive_counters": {k: after[k] - before[k] for k in after},
+            "shape": repr(plan_shape(tree))}
+
+
+def drive_adaptive_paths(dev, sm, tm, jb, tb, dj, q3d, types_want,
+                         card="not read"):
+    """Phase 3i: P32 (Q21, P19 and P20's sort planned at the default
+    confs, each held to its oracle, with each adaptive join's choice and
+    measured bytes and adaptive.counters(); P32 sub: the Q21 tree whose
+    adaptive joins decide under shuffle.partitions = 16 and
+    join.subPartitionThreshold one byte under the largest side P32 Q21
+    built; P32 demote: Q21 planned with broadcastSizeThreshold 1 GiB,
+    whose right side measuring past adaptive.autoBroadcastMaxBytes is
+    demoted) and P33 (host: the row engine between a device filter and a
+    device aggregate; udf: the host round trip and the compiled tree over
+    every order; cbo: the placements under optimizer.enabled; and the
+    cost model's constants). Returns (counts, records, runs)."""
+    from spark_rapids_tpu_torch.udf_compiler import compile_udf
+    counts, recs, runs = {}, {}, {}
+    q21_want = q21_oracle(dj)
+    wants = {"P32 Q21": q21_want, "P32 P19": types_want["P19"],
+             "P32 P20 sort": types_want["P20 sort"],
+             "P13 twin": q21_want, "P19 twin": types_want["P19"],
+             "P20 sort twin": types_want["P20 sort"]}
+    dfs = adaptive_dfs(sm, tm, dev, jb, tb)
+
+    def module(label):
+        return sm if "Q21" in label or "P13" in label else tm
+    for label in ("P32 Q21", "P32 P19", "P32 P20 sort"):
+        print(f"{label} explain:\n{dfs[label].explain()}")
+        tree, tag_ms, convert_ms = planned(module(label), dfs[label])
+        rec = drive_adaptive(label, tree, ADAPTIVE_NEED[label],
+                             exact_rows(wants[label]))
+        rec["plan_ms"] = tag_ms + convert_ms
+        if (label != "P32 P20 sort") != bool(rec["choices"]):
+            raise AssertionError(f"{label}: adaptive joins "
+                                 f"{rec['choices']}")
+        counts[label], recs[label] = rec["launches"], rec
+        print(f"{label}: {len(wants[label])} rows equal to the oracle; "
+              f"AdaptiveJoinExec (join type, choice, measured left bytes, "
+              f"right bytes) {rec['choices']}; adaptive.counters() moved "
+              f"{rec['adaptive_counters']}; launches {rec['launches']}; "
+              f"host reads {rec['host_reads']}")
+    for label in ("P32 Q21", "P13 twin", "P32 P19", "P19 twin",
+                  "P32 P20 sort", "P20 sort twin"):
+        tree = planned(module(label), dfs[label])[0]
+        runs[label] = (tree.collect, exact_rows(wants[label]))
+
+    # P32 sub: the planned Q21, its adaptive joins under the sub conf
+    largest = built_bytes(recs["P32 Q21"]["choices"])
+    sub_conf = {"spark.rapids.sql.shuffle.partitions": str(P32_SUB_PARTS),
+                "spark.rapids.sql.join.subPartitionThreshold":
+                    str(largest - 1)}
+
+    def sub_tree():
+        return with_runtime_conf(planned(sm, dfs["P32 Q21"])[0], sub_conf)
+    # the exact tier: a partition's later stream blocks would reuse its
+    # first block's candidate bucket, and a trip re-runs the plan
+    rec = drive_adaptive("P32 sub", sub_tree(), ADAPTIVE_NEED["P32 sub"],
+                         exact_rows(q21_want), exact=True)
+    rec["runtime_conf"] = sub_conf
+    rec["k"] = sub_partitions(rec["choices"], largest - 1)
+    if not rec["k"]:
+        raise AssertionError(f"P32 sub: no subpartition {rec['choices']}")
+    counts["P32 sub"], recs["P32 sub"] = rec["launches"], rec
+    runs["P32 sub"] = (lambda: sub_tree().collect(), exact_rows(q21_want))
+
+    # P32 demote: a broadcast threshold past every side; the cap lowered
+    # below the largest measured right side only if no side measures past
+    # the default cap at this scale factor
+    demote_conf = dict(Q3_CONF, **{"spark.rapids.sql.broadcastSizeThreshold":
+                                   str(P32_DEMOTE_THRESHOLD)})
+
+    def demote_tree(conf):
+        return planned(sm, q21_df(sm, sm.session.TpuSession(conf, dev),
+                                  jb))[0]
+    rec = drive_adaptive("P32 demote", demote_tree(demote_conf),
+                         ADAPTIVE_NEED["P32 demote"], exact_rows(q21_want),
+                         exact=True)
+    if not rec["adaptive_counters"]["broadcast_demotes"]:
+        cap = max(r for *_, r in recs["P32 Q21"]["choices"]) - 1
+        print(f"P32 demote: no right side measured past the default cap "
+              f"{rec['choices']}; the cap lowered to {cap} bytes, one "
+              f"under P32 Q21's largest measured right side")
+        demote_conf = dict(demote_conf, **{
+            "spark.rapids.tpu.adaptive.autoBroadcastMaxBytes": str(cap)})
+        rec = dict(drive_adaptive("P32 demote", demote_tree(demote_conf),
+                                  ADAPTIVE_NEED["P32 demote"],
+                                  exact_rows(q21_want), exact=True),
+                   lowered_cap=cap)
+    if not rec["adaptive_counters"]["broadcast_demotes"]:
+        raise AssertionError(f"P32 demote: no broadcast_demote "
+                             f"{rec['choices']}")
+    rec["conf"] = demote_conf
+    counts["P32 demote"], recs["P32 demote"] = rec["launches"], rec
+    runs["P32 demote"] = (lambda: demote_tree(demote_conf).collect(),
+                          exact_rows(q21_want))
+    for label in ("P32 sub", "P32 demote"):
+        rec = recs[label]
+        print(f"{label}: {len(q21_want)} rows equal to q21_oracle; "
+              f"AdaptiveJoinExec {rec['choices']}"
+              + (f" (k {rec['k']})" if label == "P32 sub" else "")
+              + f"; adaptive.counters() moved {rec['adaptive_counters']}; "
+              f"conf {rec.get('runtime_conf', rec.get('conf'))}; launches "
+              f"{rec['launches']}; host reads {rec['host_reads']}")
+
+    # P33 host: the row engine between a device filter and aggregate
+    orders, nd = p33_orders(tm, dev, dj, q3d)
+    want, month_rows = p33_host_oracle(dj, nd)
+    host_df = p33_host_df(tm, tm.session.TpuSession(device=dev), orders)
+    text = host_df.explain()
+    print(f"P33 host explain:\n{text}")
+    if "~ Project" not in text:
+        raise AssertionError("P33 host: the Project is not on the host")
+    tree, tag_ms, convert_ms = planned(tm, host_df)
+    t0 = time.perf_counter()
+    rec = drive_adaptive("P33 host", tree, [], exact_rows(want))
+    rec.update(ms=(time.perf_counter() - t0) * 1e3, month_rows=month_rows,
+               plan_ms=tag_ms + convert_ms)
+    counts["P33 host"], recs["P33 host"] = rec["launches"], rec
+    runs["P33 host"] = (tree.collect, exact_rows(want))
+    print(f"P33 host: {month_rows} orders of {orders.num_rows_host} in the "
+          f"month through the row engine; {want} equal to the Python "
+          f"oracle; one run {rec['ms']:.3f} ms (counted, sync debug on); "
+          f"launches {rec['launches']}; host reads {rec['host_reads']}")
+
+    # P33 udf: the host round trip, then compiled
+    okey, price = nd["o_orderkey"], nd["o_totalprice"]
+    adj = {}
+    for compiled in (False, True):
+        label = "P33 udf compiled" if compiled else "P33 udf host"
+        df = p33_udf_df(tm, dev, orders, compiled)
+
+        def tree_of(df=df):
+            # apply() runs the UDF compiler when its conf is on
+            return tm.overrides.TpuOverrides(df.session.conf).apply(
+                df.logical_plan())
+        trips = udf_round_trips()
+        t0 = time.perf_counter()
+        out, cnt, reads = drive_batches(label, tree_of(), [])
+        ms = (time.perf_counter() - t0) * 1e3
+        after = udf_round_trips()
+        adj[label] = check_udf_columns(out, okey, price, label)
+        del out
+        check_idle(label)
+        moved = {k: after[k] - trips[k] for k in after}
+        if compiled != (moved["round_trips"] == 0):
+            raise AssertionError(f"{label}: host round trips {moved}")
+        recs[label] = {"launches": cnt, "host_reads": reads, "ms": ms,
+                       "round_trips": moved, "rows": int(okey.shape[0])}
+        counts[label] = cnt
+        if compiled:
+            runs[label] = (lambda tree_of=tree_of: tree_of().execute(),
+                           lambda out, lb: check_udf_columns(
+                               out, okey, price, lb))
+        print(f"{label}: {okey.shape[0]} rows equal to numpy; host round "
+              f"trips {moved}; one run {ms:.3f} ms (counted, sync debug "
+              f"on); launches {cnt}; host reads {reads}")
+    if not np.array_equal(adj["P33 udf host"], adj["P33 udf compiled"]):
+        raise AssertionError("P33 udf: host round trip != compiled")
+    compiled_tree = compile_udf(p33_discount, [tm.core.col("o_totalprice"),
+                                               tm.core.col("o_orderkey")])
+    recs["P33 udf compiled"]["tree"] = repr(compiled_tree)
+    print(f"P33 udf compiled tree: {compiled_tree!r}")
+
+    # P33 cbo: the placements under optimizer.enabled
+    for label, df in p33_cbo_dfs(tm, dev, jb).items():
+        text = df.explain()
+        marks = [ln.strip()[:1] for ln in text.splitlines()
+                 if ln.strip()[:2] in ("~ ", "* ", "! ")]
+        on_host = marks[:2] == ["~", "~"]
+        if on_host != (label == "P33 cbo nations"):
+            raise AssertionError(f"{label}: placed {marks}:\n{text}")
+        notes = [ln.strip() for ln in text.splitlines()
+                 if "cost optimizer" in ln]
+        table = jb["nation" if "nations" in label else "lineitem"]
+        k = table.columns[0].data[:table.num_rows_host].cpu().numpy()
+        want = sorted((int(a), int(a) * 3 + 1) for a in k
+                      if int(a) * 3 + 1 < P33_CBO_BELOW)
+        rows = df.collect()
+        if sorted(rows) != want:
+            raise AssertionError(f"{label}: {sorted(rows)[:4]} != numpy "
+                                 f"{want[:4]}")
+        check_idle(label)
+        recs[label] = {"placement": marks, "cost_notes": notes,
+                       "rows": len(rows)}
+        print(f"{label}: placed {marks} (Filter, Project, Scan); "
+              f"{notes}; {len(rows)} rows equal to numpy")
+
+    # the cost model's constants on this card
+    consts = measure_cost_constants(tm, dev, jb, orders)
+    recs["cost_constants"] = consts
+    print(f"cost constants (plan/cost.py, microseconds) on {card}: "
+          f"{json.dumps(consts)}")
+    return counts, recs, runs
+
+
+def compare_adaptive_paths(dev, sm, tm, jb, tb):
+    """Phase 2 at P32's own inputs: every murmur3 chain, probe and row
+    gather launch of a run of P32 Q21, P32 P19, P32 P20's sort, P32 sub
+    and P32 demote (at 1 GiB, the default cap), each held exactly to its
+    plain version."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    dfs = adaptive_dfs(sm, tm, dev, jb, tb)
+    probe = planned(sm, dfs["P32 Q21"])[0]
+    probe.collect()
+    sub_conf = {"spark.rapids.sql.shuffle.partitions": str(P32_SUB_PARTS),
+                "spark.rapids.sql.join.subPartitionThreshold":
+                    str(built_bytes(adaptive_choices(probe)) - 1)}
+    del probe
+
+    def fresh(label):
+        if label == "P32 demote":
+            sess = sm.session.TpuSession(dict(Q3_CONF, **{
+                "spark.rapids.sql.broadcastSizeThreshold":
+                    str(P32_DEMOTE_THRESHOLD)}), dev)
+            return planned(sm, q21_df(sm, sess, jb))[0]
+        m = sm if "Q21" in label or label == "P32 sub" else tm
+        tree = planned(m, dfs[label if label != "P32 sub" else "P32 Q21"])[0]
+        if label == "P32 sub":
+            with_runtime_conf(tree, sub_conf)
+        return tree
+    for label in ("P32 Q21", "P32 P19", "P32 P20 sort", "P32 sub",
+                  "P32 demote"):
+        gathers = capture_row_gathers(fresh(label))
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
+        del gathers
+        if label == "P32 P20 sort":
+            continue
+        calls = capture_murmur3(fresh(label))
+        for k, (cols, seeds) in enumerate(calls):
+            _exact(f"murmur3 {label} call {k}",
+                   m3.murmur3_columns(cols, seeds),
+                   m3.murmur3_columns_plain(cols, seeds))
+        probes = capture_probes(fresh(label))
+        hits = [compare_probe(f"probe {label} call {k}", args, cap, total)
+                for k, (args, cap, total) in enumerate(probes)]
+        if not calls or not probes:
+            raise AssertionError(f"{label}: {len(calls)} murmur3 and "
+                                 f"{len(probes)} probe launches captured")
+        print(f"compare {label} main-path murmur3 launches ({len(calls)}) "
+              f"and probes ({len(probes)}, {sum(hits)} verified pairs); "
+              f"exact")
+
+
+def capture_probes(plan):
+    """Run `plan` once and keep the inputs of every fused probe-verify
+    launch (exec/joins' fused_probe_verify), in call order: [(its seven
+    input tensors, the candidate bucket, the candidate total)]."""
+    import torch
+    from spark_rapids_tpu_torch.exec import joins
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    calls, real = [], joins.fused_probe_verify
+
+    def record(*args):
+        *ins, cap = args
+        total = int(ins[1].to(torch.int64).sum())
+        calls.append(([x.clone() for x in ins], cap, total))
+        return real(*args)
+    joins.fused_probe_verify = record
+    try:
+        with speculation_scope():
+            list(plan.execute())
+            torch.cuda.synchronize()
+    finally:
+        joins.fused_probe_verify = real
+    return calls
+
+
+def time_adaptive_paths(runs):
+    """Phase 4: P32's default-conf plans beside their twins, P32 sub and
+    demote, P33 host and P33 udf compiled, in turns (the order reversed
+    every other round), P_ADAPTIVE_ITERS runs each, one synchronisation a
+    run; each run held to its oracle."""
+    import torch
+    out = {label: [] for label in runs}
+    for i in range(P_ADAPTIVE_ITERS):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            run, check = runs[label]
+            t0 = time.perf_counter()
+            res = run()
+            if not isinstance(res, list):
+                res = list(res)
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+            check(res, f"{label} timed")
+            del res
+    for label, ms in out.items():
+        print(f"{label} ms per run ({P_ADAPTIVE_ITERS} runs, in turns): "
               f"{[round(x, 3) for x in ms]}")
     return out
 
@@ -7446,6 +8046,10 @@ def main() -> int:
     # dictionary take of a run of each path
     with default_conf_after():
         compare_nested_paths(dev, nest_m, nest_b)
+    # P32's own inputs (phase 3i drives them): every murmur3 chain, probe
+    # and row gather launch of a run of each path
+    with default_conf_after():
+        compare_adaptive_paths(dev, join_session_modules(), tm, jb, tb)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -7691,6 +8295,15 @@ def main() -> int:
             dev, nest_m, nest_b, nest_checks)
     print(f"phase 3h: {time.perf_counter() - t_nested:.1f} s")
 
+    # -- phase 3i, slice 14: the adaptive join, the host row engine, UDFs
+    # and the cost model ------------------------------------------------------
+    t_adaptive = time.perf_counter()
+    with default_conf_after():
+        ad_counts, ad_recs, ad_runs = drive_adaptive_paths(
+            dev, join_session_modules(), tm, jb, tb, dj, q3d, types_want,
+            card=smi)
+    print(f"phase 3i: {time.perf_counter() - t_adaptive:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -7886,6 +8499,11 @@ def main() -> int:
         nest_gathers = nested_gather_shapes(dev, nest_m, nest_b)
     print(f"P29-P31 timings and their row gather shapes (phase 4): "
           f"{time.perf_counter() - t_nested:.1f} s")
+    t_adaptive = time.perf_counter()
+    with default_conf_after():
+        adaptive_ms = time_adaptive_paths(ad_runs)
+    print(f"P32 and P33 timings (phase 4): "
+          f"{time.perf_counter() - t_adaptive:.1f} s")
 
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
@@ -7983,7 +8601,9 @@ def main() -> int:
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in win_counts.items()},
             **{k.replace(" ", "_"): v.get(r["name"], 0)
-               for k, v in nest_counts.items()}}
+               for k, v in nest_counts.items()},
+            **{k.replace(" ", "_"): v.get(r["name"], 0)
+               for k, v in ad_counts.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -8021,7 +8641,9 @@ def main() -> int:
         "windows_paths": dict(win_recs, counts=win_counts,
                               ms=windows_ms),
         "nested_paths": dict(nest_recs, counts=nest_counts,
-                             ms=nested_ms)}}))
+                             ms=nested_ms),
+        "adaptive_paths": dict(ad_recs, counts=ad_counts,
+                               ms=adaptive_ms)}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

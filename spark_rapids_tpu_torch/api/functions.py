@@ -9,10 +9,10 @@ the list aggregates (`collect_list`, `collect_set`, `percentile`,
 `dense_rank`, `lag`, `lead`, `first_value`, `last_value` and the
 `window_*` aggregates; `.over(expr.windowexprs.window(...))` places
 them), the maps, the higher-order array functions (lambdas over
-`LambdaVar` placeholders), JSON and URL parsing, with the JAX package's
-names and signatures (z-order's InterleaveBits is an expression class,
-expr/zorder.py, as in the JAX package). `udf` comes with ROADMAP A.8
-wave 4.
+`LambdaVar` placeholders), JSON and URL parsing and `udf` (a Python
+function as an expression, expr/udf.py), with the JAX package's names
+and signatures (z-order's InterleaveBits is an expression class,
+expr/zorder.py, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -31,6 +31,11 @@ from ..expr.core import Expression, col, lit  # noqa: F401
 def _e(x) -> Expression:
     return x if isinstance(x, Expression) else (col(x) if isinstance(x, str)
                                                 else lit(x))
+
+
+def udf(fn=None, *, return_type=None):
+    from ..expr.udf import udf as _udf
+    return _udf(fn, return_type=return_type)
 
 
 # aggregates ---------------------------------------------------------------

@@ -19,7 +19,8 @@ the query history, telemetry, the faults and the health surfaces
 (`cancel_query`, `health`, `active_queries`, `last_query_profile`).
 `last_query_metrics()` is the executed plan's operator metrics. The other
 methods raise NotImplementedError naming their items: the pandas UDFs
-(A.8 wave 4), the other readers (A.8 wave 5) and the writers (Parquet's
+(A.8 wave 4: they go through pandas and pyarrow, which the machine with
+the card lacks), the other readers (A.8 wave 5) and the writers (Parquet's
 with A.5, the others with A.8 wave 5).
 """
 

@@ -32,7 +32,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.shuffle.planExchange` | A.6 (the mesh planner) | any: there is no mesh, as in the JAX package without one |
 | `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
 | `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
-| `sql.udfCompiler.enabled`, `sql.optimizer.enabled` | A.8 wave 4 (udf_compiler, the cost-based placement) | false |
 | `sql.debug.dumpPath`, `tpu.test.faults` | A.9 (faults) | default |
 | `tpu.profile.{enabled,dir}`, `sql.metrics.level`, `tpu.eventLog.{enabled,dir,level,maxBytes}`, `tpu.dispatch.storm.{traces,windowMs}`, `tpu.telemetry.{enabled,intervalMs,historySize}`, `tpu.history.{enabled,dir,maxBytes}` | A.9 (obs) | default |
 | `tpu.dispatch.ledger.enabled`, `tpu.phases.enabled` | A.9 (obs) | true, false |
@@ -44,12 +43,15 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.adaptive.{skewedPartitionFactor,skewedPartitionMinBytes,coalesceTargetBytes}` | A.9 (adaptive) | default |
 | `tpu.workload.{enabled,maxConcurrentQueries,queueDepth,admissionTimeoutMs,memoryQuotaFraction,priority}` | A.9 (workload) | default |
 
-The planner reads `tpu.adaptive.enabled` only for the broadcast cap
-(`adaptive.autoBroadcastMaxBytes`, as the JAX package's `_convert_join`
-does); the runtime replanner it also switches in the JAX package waits
-for A.9, and its decisions change no result. The planner reads
-`sql.cpuFallback.enabled`: a node the JAX package would run on its host
-row engine is tagged off in the port, naming A.8 wave 4.
+The planner reads `tpu.adaptive.enabled` and
+`adaptive.autoBroadcastMaxBytes` for the broadcast cap, as the JAX
+package's `_convert_join` does, and AdaptiveJoinExec reads them for its
+measured demotion (exec/adaptive.py); the exchange's decisions (skew
+splits, coalesced reads) wait for A.9 and change no result. The planner
+reads `sql.cpuFallback.enabled` (a Project or Filter without a device
+path runs on the host row engine), `sql.optimizer.enabled` (the
+cost-based placement, plan/cost.py) and `sql.udfCompiler.enabled` (the
+UDF compiler, udf_compiler).
 """
 
 from __future__ import annotations
@@ -986,8 +988,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     SHUFFLE_PLAN_EXCHANGE.key: ("ROADMAP A.6", _ANY),
     UPLOAD_PACKED.key: ("ROADMAP A.5", ()),
     PARQUET_REBASE_MODE_READ.key: ("ROADMAP A.8", ()),
-    UDF_COMPILER_ENABLED.key: ("ROADMAP A.8 wave 4", ()),
-    OPTIMIZER_ENABLED.key: ("ROADMAP A.8 wave 4", ()),
     DEBUG_DUMP_PATH.key: ("ROADMAP A.9 (faults)", ()),
     TEST_FAULTS.key: ("ROADMAP A.9 (faults)", ()),
     PROFILE_ENABLED.key: (_A9_OBS, ()),

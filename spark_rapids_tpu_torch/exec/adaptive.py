@@ -1,0 +1,185 @@
+"""Adaptive runtime replanner — the counterpart of
+spark_rapids_tpu/exec/adaptive.py: the part that joins and exchanges
+consult, every decision from measured bytes, never estimates.
+
+The JAX package makes five decisions (`DECISIONS`). The port makes the
+one its AdaptiveJoinExec takes today, ``broadcast_demote``: a join whose
+build side fits the broadcast threshold but MEASURES over
+``adaptive.autoBroadcastMaxBytes`` is demoted to the sub-partitioned
+strategy before any OOM retry. `skew_threshold` and `coalesce_groups`
+are the exchange's decisions, ported as functions; the exchange that
+consults them waits for ROADMAP A.9, as does ``batch_right_size``.
+
+Named hooks that wait for A.9: the `adaptive` breaker domain
+(`lifecycle.breaker_allows`, `record_domain_failure`, `engage_domain`),
+the `adaptive_replan` / `adaptive_demote` events (`obs.events`) and the
+workload governor's quota share (`workload.quota_bytes`). So `consult`
+checks the conf alone, `demote_cap` gives the conf's cap, and the
+`note_*` functions count.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+#: decision slug -> what it does / its evidence (the JAX package's table)
+DECISIONS: Dict[str, str] = {
+    "skew_split": "reducer partition over factor x median bytes read "
+                  "as map-granular sub-reads, one probe stream each",
+    "broadcast_demote": "measured-oversized build side (conf cap or "
+                        "quota share) demoted to sub-partitioned "
+                        "strategy before any OOM retry",
+    "single_build_convert": "shuffle join whose build side measured "
+                            "small converted to a single-build probe "
+                            "pass (probe-side exchange skipped)",
+    "partition_coalesce": "adjacent reducer partitions under the "
+                          "target merged into one read (flat "
+                          "consumers only)",
+    "batch_right_size": "query batch target halved after an OOM "
+                        "split, consumed by CoalesceBatchesExec",
+}
+
+#: decision slug -> counter key
+_DECISION_COUNTER = {
+    "skew_split": "skew_splits",
+    "broadcast_demote": "broadcast_demotes",
+    "single_build_convert": "single_build_converts",
+    "partition_coalesce": "partition_coalesces",
+    "batch_right_size": "batch_right_sizes",
+}
+
+_COUNTER_LOCK = threading.Lock()
+_COUNTERS: Dict[str, int] = {
+    "consults": 0,
+    "skew_splits": 0,
+    "broadcast_demotes": 0,
+    "single_build_converts": 0,
+    "partition_coalesces": 0,
+    "batch_right_sizes": 0,
+    "breaker_demotions": 0,
+    "errors": 0,
+}
+
+
+def _note(**deltas: int) -> None:
+    with _COUNTER_LOCK:
+        for k, v in deltas.items():
+            _COUNTERS[k] = _COUNTERS.get(k, 0) + v
+
+
+def counters() -> Dict[str, int]:
+    """Cumulative process-wide decision counters."""
+    with _COUNTER_LOCK:
+        return dict(_COUNTERS)
+
+
+def reset_adaptive() -> None:
+    """Zero the counters (test isolation)."""
+    with _COUNTER_LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
+
+
+# -- gate --------------------------------------------------------------------
+
+def consult(conf, op: str = "", op_id: int = -1) -> bool:
+    """May adaptive decisions apply here? The conf on (the `adaptive`
+    breaker domain, which can also refuse in the JAX package, waits for
+    A.9)."""
+    from ..config import ADAPTIVE_ENABLED
+    if not conf.get(ADAPTIVE_ENABLED):
+        return False
+    _note(consults=1)
+    return True
+
+
+def note_error(op: str = "", op_id: int = -1, error: str = "") -> None:
+    """A consult-path failure, counted (the breaker's domain failure and
+    the event wait for A.9)."""
+    _note(errors=1)
+
+
+def note_decision(decision: str, op: str = "", op_id: int = -1,
+                  **evidence) -> None:
+    """One applied decision, counted."""
+    _note(**{_DECISION_COUNTER[decision]: 1})
+
+
+def note_demote(decision: str, op: str = "", op_id: int = -1,
+                **evidence) -> None:
+    """A strategy demotion: a planned cheap strategy measured
+    unaffordable and the safe one was chosen. Counted."""
+    _note(**{_DECISION_COUNTER[decision]: 1})
+
+
+# -- decision 1: skewed-reducer splitting ------------------------------------
+
+def skew_threshold(per_part_bytes: Sequence[int], factor: float,
+                   min_bytes: int) -> Optional[Tuple[int, int]]:
+    """(threshold_bytes, median_bytes) above which a partition is skewed,
+    or None when splitting is off or undecidable. The median is over the
+    nonzero partitions (empty partitions of a sparse key space would drag
+    it to zero and flag everything). `factor` and `min_bytes` are
+    adaptive.skewedPartitionFactor and skewedPartitionMinBytes, which the
+    JAX package reads here from the conf: in the port the exchange that
+    consults this (A.9) reads them at its construction, as every conf the
+    port honours is read."""
+    if factor <= 0:
+        return None
+    nz = sorted(b for b in per_part_bytes if b > 0)
+    if len(nz) < 2:
+        return None
+    median = nz[len(nz) // 2]
+    return max(int(factor * median), max(0, min_bytes)), median
+
+
+# -- decision 2: measured build-side caps ------------------------------------
+
+def auto_broadcast_max(conf) -> int:
+    """The conf cap for measured single-build/broadcast decisions (-1 =
+    conversions off)."""
+    from ..config import ADAPTIVE_AUTO_BROADCAST_MAX_BYTES
+    return conf.get(ADAPTIVE_AUTO_BROADCAST_MAX_BYTES)
+
+
+def demote_cap(conf) -> Optional[Tuple[int, str]]:
+    """(cap_bytes, basis) a measured build side must stay under to keep a
+    single-build plan: adaptive.autoBroadcastMaxBytes (basis "conf"), or
+    None when it is off. The JAX package also takes the admitting
+    ticket's workload quota share when tighter (basis "quota"); the
+    governor waits for A.9."""
+    cap = auto_broadcast_max(conf)
+    return (cap, "conf") if cap >= 0 else None
+
+
+# -- decision 3: tiny-partition coalescing -----------------------------------
+
+def coalesce_groups(per_part_bytes: Sequence[int], target: int,
+                    exclude: Optional[Set[int]] = None,
+                    ) -> Optional[List[List[int]]]:
+    """Greedy adjacent grouping of reducer partitions whose measured
+    bytes fit `target` together; `exclude`d partitions always stand
+    alone. Returns the full partition cover in order, or None when no
+    group would merge anything."""
+    exclude = exclude or set()
+    groups: List[List[int]] = []
+    cur: List[int] = []
+    cur_b = 0
+    for p, b in enumerate(per_part_bytes):
+        if p in exclude or b > target:
+            if cur:
+                groups.append(cur)
+                cur, cur_b = [], 0
+            groups.append([p])
+            continue
+        if cur and cur_b + b > target:
+            groups.append(cur)
+            cur, cur_b = [], 0
+        cur.append(p)
+        cur_b += b
+    if cur:
+        groups.append(cur)
+    if all(len(g) == 1 for g in groups):
+        return None
+    return groups

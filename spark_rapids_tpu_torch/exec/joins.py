@@ -1,7 +1,7 @@
-"""HashJoinExec and NestedLoopJoinExec — the counterparts of
-spark_rapids_tpu/exec/joins.py, for every join type the JAX package has:
-inner, left/right/full outer, left semi, left anti and existence, each
-with an optional residual condition.
+"""HashJoinExec, NestedLoopJoinExec and AdaptiveJoinExec — the
+counterparts of spark_rapids_tpu/exec/joins.py, for every join type the
+JAX package has: inner, left/right/full outer, left semi, left anti and
+existence, each with an optional residual condition.
 
 HashJoinExec, per stream batch:
   1. `_counts_kernel`: the stream keys (an absorbed child filter ANDed
@@ -54,6 +54,10 @@ of `chunk_rows` flat pair indices (ops/join.cross_pairs), filters them by
 the condition and emits each chunk's pairs through the packed row
 gather; outer, semi, anti and existence reduce to the stream's matched
 flags.
+
+AdaptiveJoinExec measures its sides at run time and runs one of the
+above (or a ShuffledHashJoinExec over two host exchanges) by the measured
+bytes: the planner's choice for a join whose side has no size estimate.
 """
 
 from __future__ import annotations
@@ -724,3 +728,162 @@ class NestedLoopJoinExec(TpuExec):
         pair = ColumnarBatch(scols + bcols, cap, self._pair_schema)
         pred = self._cond_bound.columnar_eval(pair)
         return pred.data & pred.validity
+
+
+class AdaptiveJoinExec(TpuExec):
+    """The join the planner takes when a side's size is unknown (the JAX
+    package's AdaptiveJoinExec, AQE-lite): materialize the right side
+    first, as a hash join would, measure its padded device bytes
+    (`ColumnarBatch.nbytes`, the JAX catalog's leaf bytes) and pick the
+    strategy at run time:
+
+    * ``build_right``: the side fits broadcastSizeThreshold and the
+      adaptive cap (exec/adaptive.demote_cap); the left side streams
+      straight through;
+    * otherwise both sides are held spillable and measured, then
+      ``subpartition`` (a ShuffledHashJoinExec over two
+      HostShuffleExchangeExecs, k partitions from the built side) under
+      MULTITHREADED past join.subPartitionThreshold or past the cap that
+      demoted it;
+    * otherwise ``build_left`` or ``build_right`` by the measured sizes;
+      only an inner join without a condition may swap.
+
+    `_choice` and `_measured` (left bytes or None, right bytes) record
+    the last run's decision."""
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 join_type: str, condition: Optional[Expression],
+                 conf):
+        super().__init__(left, right)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = join_type
+        self.condition = condition
+        self._conf = conf
+        self._choice: Optional[str] = None
+        self._measured: Optional[Tuple[Optional[int], int]] = None
+        # every strategy has the plain join's schema; building it here
+        # also raises at plan time for a key type the join lacks
+        from .basic import InMemoryScanExec
+        self._template = HashJoinExec(
+            InMemoryScanExec([], left.output_schema),
+            InMemoryScanExec([], right.output_schema),
+            left_keys, right_keys, join_type, condition=condition)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._template.output_schema
+
+    @staticmethod
+    def _materialize(side: TpuExec):
+        """Drain a side into spillable batches and their padded bytes (the
+        reference's GpuShuffledSymmetricHashJoinExec holds both sides
+        spillable while deciding)."""
+        from ..memory.spillable import SpillableBatch
+        sps, size = [], 0
+        for b in side.execute():
+            size += b.nbytes
+            sps.append(SpillableBatch.from_batch(b))
+        return sps, size
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        from ..config import (BROADCAST_SIZE_THRESHOLD,
+                              JOIN_SUBPARTITION_THRESHOLD, SHUFFLE_MODE,
+                              SHUFFLE_PARTITIONS)
+        from . import adaptive
+        thr_b = self._conf.get(BROADCAST_SIZE_THRESHOLD)
+        thr_sub = self._conf.get(JOIN_SUBPARTITION_THRESHOLD)
+        multithreaded = self._conf.get(SHUFFLE_MODE).upper() \
+            == "MULTITHREADED"
+        left, right = self.children
+        name = type(self).__name__
+        # a single-build plan whose build side measures over the cap
+        # demotes to the sub-partitioned strategy before any OOM retry
+        cap_basis = None
+        if adaptive.consult(self._conf, op=name, op_id=self._op_id):
+            cap_basis = adaptive.demote_cap(self._conf)
+        r_sps, size_r = self._materialize(right)
+        r_scan = _SpillableScanExec(r_sps, right.output_schema,
+                                    right.device)
+        swappable = self.join_type == INNER and not self.condition
+        demoted = False
+        if thr_b >= 0 and size_r <= thr_b:
+            if cap_basis is not None and size_r > cap_basis[0]:
+                demoted = True
+                adaptive.note_demote(
+                    "broadcast_demote", op=name, op_id=self._op_id,
+                    measured_bytes=size_r, threshold=cap_basis[0],
+                    basis=cap_basis[1], planned="build_right")
+            else:
+                self._measured = (None, size_r)
+                self._choice = "build_right"
+                yield from HashJoinExec(
+                    left, r_scan, self.left_keys, self.right_keys,
+                    self.join_type, build_side="right",
+                    condition=self.condition).execute()
+                return
+        l_sps, size_l = self._materialize(left)
+        l_scan = _SpillableScanExec(l_sps, left.output_schema, left.device)
+        self._measured = (size_l, size_r)
+        # the side that would be built must fit: only an inner join
+        # without a condition may swap its build side
+        build_size = min(size_l, size_r) if swappable else size_r
+        over_cap = (demoted and cap_basis is not None
+                    and build_size > cap_basis[0])
+        eff_sub = thr_sub
+        if over_cap:
+            eff_sub = cap_basis[0] if thr_sub < 0 \
+                else min(thr_sub, cap_basis[0])
+        if multithreaded and ((thr_sub >= 0 and build_size > thr_sub)
+                              or over_cap):
+            from .exchange import (HostShuffleExchangeExec,
+                                   ShuffledHashJoinExec)
+            # k from the side that will be built (the right side for a
+            # join that may not swap)
+            k = min(256, max(self._conf.get(SHUFFLE_PARTITIONS),
+                             -(-build_size // max(eff_sub, 1))))
+            lex = HostShuffleExchangeExec(self.left_keys, l_scan, int(k),
+                                          self._conf)
+            rex = HostShuffleExchangeExec(self.right_keys, r_scan, int(k),
+                                          self._conf)
+            self._choice = "subpartition"
+            join: TpuExec = ShuffledHashJoinExec(
+                lex, rex, self.left_keys, self.right_keys, self.join_type,
+                condition=self.condition)
+        else:
+            build_left = swappable and size_l < size_r
+            self._choice = "build_left" if build_left else "build_right"
+            join = HashJoinExec(
+                l_scan, r_scan, self.left_keys, self.right_keys,
+                self.join_type,
+                build_side="left" if build_left else "right",
+                condition=self.condition)
+        yield from join.execute()
+
+
+class _SpillableScanExec(TpuExec):
+    """Leaf replaying spillable batches (unspilled on demand); each one is
+    released and closed as the consumer takes it."""
+
+    def __init__(self, sps, schema: Schema, device=None):
+        super().__init__()
+        self._sps = sps
+        self._schema = schema
+        self._device = device
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def device(self):
+        return self._device
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        for sp in self._sps:
+            b = sp.get_batch()
+            sp.release()
+            sp.close()
+            yield b

@@ -237,8 +237,9 @@ class BinaryArithmetic(Expression):
             valid = valid & div_ok
         else:
             raise NotImplementedError(
-                f"decimal128 {name} runs on the JAX package's host row "
-                "tier, which waits for ROADMAP A.8 wave 4")
+                f"decimal128 {name} has no device kernel, and a decimal "
+                "never runs on the host row engine: the planner tags it "
+                "off, as in the JAX package")
         valid = valid & D.fits_precision(rh, rl, out_t.precision) & ~over
         rh = _masked(rh, valid)
         rl = _masked(rl, valid)

@@ -6,12 +6,13 @@ GpuArrayPosition, GpuArrayRemove, GpuArrayDistinct, GpuSlice, GpuFlatten,
 GpuArraysOverlap, GpuArrayRepeat and GpuSequence; higherOrderFunctions.
 scala: the lambdas transform, filter, exists, forall and aggregate).
 
-The JAX package evaluates some shapes of the second family and of the
-lambdas on its host row tier: string elements, per-row counts and
-bounds, all of ArrayJoin and ArrayAggregate, and lambda bodies that read
-an outer column or run over nested arrays. Each class says whether an
-instance has a device path (`device_supported`); the planner tags the
-others off, naming the port's host tier (ROADMAP A.8 wave 4).
+Some shapes of the second family and of the lambdas run on the host row
+engine (exec/fallback.py), as in the JAX package: string elements,
+per-row counts and bounds, all of ArrayJoin and ArrayAggregate, and
+lambda bodies that read an outer column or run over nested arrays. Each
+class says whether an instance has a device path (`device_supported`);
+the planner places the others on the host, where `host_eval_row` (or
+`host_eval_with_row`, for a lambda) gives one row's value.
 """
 
 from __future__ import annotations
@@ -99,6 +100,22 @@ class ElementAt(Expression):
             raise ValueError("SQL array indices start at 1")
         return C.element_at(c, self.index)
 
+    def host_eval_row(self, *vals):
+        v = vals[0]
+        i = vals[1] if len(self.children) == 2 else self.index
+        if len(self.children) == 1 and i == 0 \
+                and not isinstance(self.children[0].data_type, MapType):
+            # a literal 0 raises before the null check, as on the device
+            raise ValueError("SQL array indices start at 1")
+        if v is None or i is None:
+            return None
+        if isinstance(v, dict):
+            return v.get(i)
+        if i == 0 or abs(i) > len(v):
+            # a per-row 0 gives NULL, as ops/collection.element_at_col
+            return None
+        return v[i - 1] if i > 0 else v[i]
+
 
 class GetArrayItem(ElementAt):
     """arr[i]: 0-based, null out of bounds, for a negative index or a null
@@ -112,6 +129,13 @@ class GetArrayItem(ElementAt):
             return C.get_array_item_col(
                 c, self.children[1].columnar_eval(batch))
         return C.get_array_item(c, self.index)
+
+    def host_eval_row(self, *vals):
+        v = vals[0]
+        i = vals[1] if len(self.children) == 2 else self.index
+        if v is None or i is None or not 0 <= i < len(v):
+            return None
+        return v[i]
 
 
 class SortArray(Expression):
@@ -177,15 +201,27 @@ class CreateArray(Expression):
 # `device_supported` -------------------------------------------------------
 
 class _HostCollection(Expression):
-    """Base of the collection expressions the JAX package runs on its host
-    row tier where they have no device kernel."""
+    """Base of the collection expressions that run on the host row engine
+    where they have no device kernel."""
 
     device_supported = True
 
     def columnar_eval(self, batch):
         raise NotImplementedError(
-            f"{type(self).__name__} runs on the JAX package's host tier, "
-            "which waits for ROADMAP A.8 wave 4")
+            f"{type(self).__name__} runs on the host row engine "
+            "(exec/fallback.py)")
+
+
+def _host_spark_eq(a, b) -> bool:
+    """Spark's ordering equality on the host: NaN equals NaN, -0.0 is not
+    0.0 (java.lang.Double.compare)."""
+    import math
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) and math.isnan(b):
+            return True
+        if a == 0.0 and b == 0.0:
+            return math.copysign(1.0, a) == math.copysign(1.0, b)
+    return a == b
 
 
 def _fixed_width_elems(expr) -> bool:
@@ -219,6 +255,14 @@ class ArrayPosition(_HostCollection):
         return C.array_position(self.children[0].columnar_eval(batch),
                                 self.children[1].columnar_eval(batch))
 
+    def host_eval_row(self, arr, v):
+        if arr is None or v is None:
+            return None
+        for i, item in enumerate(arr):
+            if item is not None and _host_spark_eq(item, v):
+                return i + 1
+        return 0
+
 
 class ArrayRemove(_HostCollection):
     def __init__(self, child: Expression, value: Expression):
@@ -239,6 +283,11 @@ class ArrayRemove(_HostCollection):
         return C.array_remove(self.children[0].columnar_eval(batch),
                               self.children[1].columnar_eval(batch))
 
+    def host_eval_row(self, arr, v):
+        if arr is None or v is None:
+            return None
+        return [x for x in arr if x is None or not _host_spark_eq(x, v)]
+
 
 class ArrayDistinct(_HostCollection):
     def __init__(self, child: Expression):
@@ -257,6 +306,19 @@ class ArrayDistinct(_HostCollection):
 
     def columnar_eval(self, batch):
         return C.array_distinct(self.children[0].columnar_eval(batch))
+
+    def host_eval_row(self, arr):
+        if arr is None:
+            return None
+        out, saw_null = [], False
+        for x in arr:
+            if x is None:
+                if not saw_null:
+                    out.append(None)
+                    saw_null = True
+            elif x not in out:
+                out.append(x)
+        return out
 
 
 class Slice(_HostCollection):
@@ -281,6 +343,18 @@ class Slice(_HostCollection):
     def columnar_eval(self, batch):
         return C.array_slice(*[c.columnar_eval(batch)
                                for c in self.children])
+
+    def host_eval_row(self, arr, start, length):
+        if arr is None or start is None or length is None:
+            return None
+        if start == 0:
+            raise ValueError("slice(): start must not be 0")
+        if length < 0:
+            raise ValueError("slice(): length must be >= 0")
+        i = start - 1 if start > 0 else len(arr) + start
+        if i < 0:
+            return []
+        return arr[i: i + length]
 
 
 class Flatten(_HostCollection):
@@ -310,6 +384,16 @@ class Flatten(_HostCollection):
     def columnar_eval(self, batch):
         return C.flatten_array(self.children[0].columnar_eval(batch))
 
+    def host_eval_row(self, arr):
+        if arr is None:
+            return None
+        out = []
+        for sub in arr:
+            if sub is None:
+                return None  # Spark: a null inner array gives null
+            out.extend(sub)
+        return out
+
 
 class ArraysOverlap(_HostCollection):
     def __init__(self, left: Expression, right: Expression):
@@ -331,10 +415,22 @@ class ArraysOverlap(_HostCollection):
         return C.arrays_overlap(self.children[0].columnar_eval(batch),
                                 self.children[1].columnar_eval(batch))
 
+    def host_eval_row(self, a, b):
+        if a is None or b is None:
+            return None
+        bs = {x for x in b if x is not None}
+        if any(x in bs for x in a if x is not None):
+            return True
+        # Spark: NULL only when both arrays are non-empty and either holds
+        # a null element; an empty side gives false
+        if a and b and (None in a or None in b):
+            return None
+        return False
+
 
 class ArrayJoin(_HostCollection):
-    """array_join: per-row string assembly, host tier in the JAX
-    package."""
+    """array_join: per-row string assembly, on the host row engine only,
+    as in the JAX package."""
 
     device_supported = False
 
@@ -349,6 +445,18 @@ class ArrayJoin(_HostCollection):
     @property
     def data_type(self):
         return STRING
+
+    def host_eval_row(self, arr):
+        if arr is None:
+            return None
+        parts = []
+        for x in arr:
+            if x is None:
+                if self.null_replacement is not None:
+                    parts.append(self.null_replacement)
+            else:
+                parts.append(str(x))
+        return self.delim.join(parts)
 
 
 _INTEGRAL = (ByteType, ShortType, IntegerType, LongType)
@@ -401,6 +509,19 @@ class Sequence(_HostCollection):
         return C.sequence_array(cols[0], cols[1], cols[2],
                                 bucket_capacity(max(int(n) * cap, 1)))
 
+    def host_eval_row(self, start, stop, step=None):
+        if start is None or stop is None:
+            return None
+        if step is None:
+            step = 1 if stop >= start else -1
+        if step == 0:
+            raise ValueError("sequence(): step must not be 0")
+        out, v = [], start
+        while (v <= stop) if step > 0 else (v >= stop):
+            out.append(v)
+            v += step
+        return out
+
 
 class ArrayRepeat(_HostCollection):
     """array_repeat(e, n): a device kernel when the count is a literal (a
@@ -432,6 +553,11 @@ class ArrayRepeat(_HostCollection):
         n = max(int(self.children[1].value), 0)
         return C.array_repeat(elem, count,
                               bucket_capacity(max(n * elem.capacity, 1)))
+
+    def host_eval_row(self, v, n):
+        if n is None:
+            return None
+        return [v] * max(n, 0)
 
 
 # -- higher-order functions (reference higherOrderFunctions.scala) --------
@@ -522,11 +648,24 @@ class _HostHOF(Expression):
         from ..ops import array_hof
         if not self.device_supported:
             raise NotImplementedError(
-                f"{type(self).__name__} of this lambda runs on the JAX "
-                f"package's host tier, which waits for ROADMAP A.8 wave 4")
+                f"{type(self).__name__} of this lambda runs on the host "
+                "row engine (exec/fallback.py)")
         arr = self.children[0].columnar_eval(batch)
         return getattr(array_hof, self._device_kernel)(arr, self.body,
                                                        self.var)
+
+    def _elem(self, row, eval_fn, v):
+        """The body's value with the variable bound to `v`, typed by the
+        array's element type (a nested array's element is a list)."""
+        arr_t = self.children[0].data_type
+        elem = arr_t.element_type if isinstance(arr_t, ArrayType) else None
+        return eval_fn(_subst(self.body, {self.var: v}, {self.var: elem}),
+                       row)
+
+    def _host_values(self, row, eval_fn):
+        arr = eval_fn(self.children[0], row)
+        return None if arr is None else \
+            [(v, self._elem(row, eval_fn, v)) for v in arr]
 
     def _body_type(self):
         """The body's type with the variable bound to the element type
@@ -549,6 +688,10 @@ class ArrayTransform(_HostHOF):
         except TypeError:
             return ArrayType(NULL)
 
+    def host_eval_with_row(self, row, eval_fn):
+        vals = self._host_values(row, eval_fn)
+        return None if vals is None else [r for _, r in vals]
+
 
 class ArrayFilter(_HostHOF):
     """filter(arr, x -> predicate)"""
@@ -559,27 +702,47 @@ class ArrayFilter(_HostHOF):
     def data_type(self):
         return self.children[0].data_type
 
+    def host_eval_with_row(self, row, eval_fn):
+        vals = self._host_values(row, eval_fn)
+        return None if vals is None else [v for v, r in vals if r is True]
+
 
 class ArrayExists(_HostHOF):
     """exists(arr, x -> predicate): Spark's 3-valued result."""
 
     _device_kernel = "array_exists"
+    #: the element result that decides the row (exists: a true one)
+    _decides = True
 
     @property
     def data_type(self):
         return BOOLEAN
+
+    def host_eval_with_row(self, row, eval_fn):
+        arr = eval_fn(self.children[0], row)
+        if arr is None:
+            return None
+        saw_null = False
+        for v in arr:
+            r = self._elem(row, eval_fn, v)
+            if r is self._decides:
+                return self._decides
+            if r is None:
+                saw_null = True
+        return None if saw_null else not self._decides
 
 
 class ArrayForAll(ArrayExists):
     """forall(arr, x -> predicate)"""
 
     _device_kernel = "array_forall"
+    _decides = False
 
 
 class ArrayAggregate(Expression):
     """aggregate(arr, zero, (acc, x) -> merge[, acc -> finish]): a fold
-    with no static-shape device formulation; the JAX package runs it on
-    its host tier, and the planner tags it off (ROADMAP A.8 wave 4)."""
+    with no static-shape device formulation, on the host row engine only,
+    as in the JAX package."""
 
     device_supported = False
 
@@ -622,5 +785,19 @@ class ArrayAggregate(Expression):
 
     def columnar_eval(self, batch):
         raise NotImplementedError(
-            "aggregate() runs on the JAX package's host tier, which waits "
-            "for ROADMAP A.8 wave 4")
+            "aggregate() runs on the host row engine (exec/fallback.py)")
+
+    def host_eval_with_row(self, row, eval_fn):
+        arr = eval_fn(self.children[0], row)
+        if arr is None:
+            return None
+        arr_t = self.children[0].data_type
+        elem = arr_t.element_type if isinstance(arr_t, ArrayType) else None
+        acc = eval_fn(self.children[1], row)
+        for v in arr:
+            acc = eval_fn(_subst(self.merge, {self.acc_var: acc,
+                                              self.var: v},
+                                 {self.var: elem}), row)
+        if self.finish is not None:
+            acc = eval_fn(_subst(self.finish, {self.acc_var: acc}), row)
+        return acc

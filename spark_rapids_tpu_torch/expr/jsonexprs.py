@@ -4,13 +4,13 @@
 JSONPath subset (Spark's get_json_object): `$` root, `.field`,
 `['field']`, `[n]` array index, `[*]` wildcard over arrays. A literal path
 without wildcards runs the byte-parallel device scanner
-(ops/json_device.py); a wildcard path and from_json run on the JAX
-package's host row tier, which the port's planner tags off (ROADMAP A.8
-wave 4).
+(ops/json_device.py); a wildcard path and from_json run on the host row
+engine (`host_eval_row`, exec/fallback.py), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import List, Optional
 
@@ -50,6 +50,41 @@ def parse_json_path(path: str) -> Optional[List]:
     return out
 
 
+def _first_key_wins(pairs):
+    d = {}
+    for k, v in pairs:
+        if k not in d:
+            d[k] = v
+    return d
+
+
+def _walk(node, steps, i):
+    if i == len(steps):
+        yield node
+        return
+    step = steps[i]
+    if step == "*":
+        if isinstance(node, list):
+            for item in node:
+                yield from _walk(item, steps, i + 1)
+        return
+    if isinstance(step, int):
+        if isinstance(node, list) and 0 <= step < len(node):
+            yield from _walk(node[step], steps, i + 1)
+        return
+    if isinstance(node, dict) and step in node:
+        yield from _walk(node[step], steps, i + 1)
+
+
+def _render(v) -> Optional[str]:
+    """Spark's scalar rendering: a string bare, the rest as JSON text."""
+    if v is None:
+        return None
+    if isinstance(v, str):
+        return v
+    return json.dumps(v, separators=(",", ":"))
+
+
 class GetJsonObject(Expression):
     """get_json_object(json, path)."""
 
@@ -73,6 +108,24 @@ class GetJsonObject(Expression):
         return self._steps is None or "*" not in [
             s for s in self._steps if isinstance(s, str)]
 
+    def host_eval_row(self, s):
+        steps = self._steps
+        if s is None or steps is None:
+            return None
+        try:
+            # the first duplicate key wins, as in Jackson's streaming
+            # get_json_object and the device scanner
+            doc = json.loads(s, object_pairs_hook=_first_key_wins)
+        except ValueError:
+            return None
+        hits = list(_walk(doc, steps, 0))
+        if not hits:
+            return None
+        if len(hits) == 1:
+            return _render(hits[0])
+        # a wildcard with several matches renders as a JSON array
+        return json.dumps(hits, separators=(",", ":"))
+
     def columnar_eval(self, batch):
         from ..columnar.column import StringColumn
         from ..columnar.encoded import materialize_column
@@ -88,15 +141,15 @@ class GetJsonObject(Expression):
                 STRING)
         if not self.device_supported:
             raise NotImplementedError(
-                "wildcard JSON paths run on the JAX package's host tier, "
-                "which waits for ROADMAP A.8 wave 4")
+                "wildcard JSON paths run on the host row engine "
+                "(exec/fallback.py)")
         return json_extract(c, self._steps)
 
 
 class JsonToStructsField(Expression):
     """from_json limited to extracting ONE typed field (the common
-    `from_json(col, schema).field` shape). Host tier in the JAX package:
-    the planner tags it off."""
+    `from_json(col, schema).field` shape), on the host row engine only,
+    as in the JAX package."""
 
     device_supported = False
 
@@ -112,7 +165,31 @@ class JsonToStructsField(Expression):
     def data_type(self):
         return self._dtype
 
+    def host_eval_row(self, s):
+        from ..types import (BooleanType, DoubleType, FloatType,
+                             IntegerType, LongType, StringType)
+        if s is None:
+            return None
+        try:
+            doc = json.loads(s)
+        except ValueError:
+            return None
+        if not isinstance(doc, dict) or self.field not in doc:
+            return None
+        v = doc[self.field]
+        try:
+            if isinstance(self._dtype, (LongType, IntegerType)):
+                return int(v)
+            if isinstance(self._dtype, (DoubleType, FloatType)):
+                return float(v)
+            if isinstance(self._dtype, BooleanType):
+                return bool(v)
+            if isinstance(self._dtype, StringType):
+                return v if isinstance(v, str) else json.dumps(v)
+        except (TypeError, ValueError):
+            return None
+        return None
+
     def columnar_eval(self, batch):
         raise NotImplementedError(
-            "from_json runs on the JAX package's host tier, which waits "
-            "for ROADMAP A.8 wave 4")
+            "from_json runs on the host row engine (exec/fallback.py)")

@@ -1,7 +1,9 @@
 """Map expressions — the counterpart of spark_rapids_tpu/expr/mapexprs.py
 (reference collectionOperations.scala GpuCreateMap / GpuGetMapValue /
 GpuMapKeys / GpuMapValues; GpuElementAt over a map is
-collectionexprs.ElementAt)."""
+collectionexprs.ElementAt). A host row holds a map as a dict, in the
+order of its entries (`host_eval_row` and `host_eval_with_row` serve the
+host row engine)."""
 
 from __future__ import annotations
 
@@ -45,6 +47,14 @@ class CreateMap(Expression):
         return M.create_map(cols[0::2], cols[1::2], batch.num_rows,
                             self.data_type)
 
+    def host_eval_with_row(self, row, eval_fn):
+        vals = [eval_fn(c, row) for c in self.children]
+        d = {}
+        for k, v in zip(vals[0::2], vals[1::2]):
+            if k not in d:  # the first duplicate wins, as on the device
+                d[k] = v
+        return d
+
 
 class _KeyedLookup(Expression):
     """A lookup of a map by a literal key or a per-row key column."""
@@ -61,6 +71,12 @@ class _KeyedLookup(Expression):
             else self.children[1].columnar_eval(batch)
         return m, key
 
+    def _host_args(self, vals):
+        """(map, key) of one row, or None when either is null."""
+        m = vals[0]
+        k = self.key if len(self.children) == 1 else vals[1]
+        return None if m is None or k is None else (m, k)
+
 
 class GetMapValue(_KeyedLookup):
     """map[key] / element_at(map, key): NULL when absent (non-ANSI)."""
@@ -72,6 +88,10 @@ class GetMapValue(_KeyedLookup):
     def columnar_eval(self, batch):
         return M.map_get(*self._eval(batch))
 
+    def host_eval_row(self, *vals):
+        mk = self._host_args(vals)
+        return None if mk is None else mk[0].get(mk[1])
+
 
 class MapContainsKey(_KeyedLookup):
     """map_contains_key(map, key)"""
@@ -82,6 +102,10 @@ class MapContainsKey(_KeyedLookup):
 
     def columnar_eval(self, batch):
         return M.map_contains_key(*self._eval(batch))
+
+    def host_eval_row(self, *vals):
+        mk = self._host_args(vals)
+        return None if mk is None else mk[1] in mk[0]
 
 
 class MapKeys(Expression):
@@ -98,6 +122,9 @@ class MapKeys(Expression):
     def columnar_eval(self, batch):
         return M.map_keys(self.children[0].columnar_eval(batch))
 
+    def host_eval_row(self, m):
+        return None if m is None else list(m.keys())
+
 
 class MapValues(MapKeys):
     @property
@@ -107,3 +134,6 @@ class MapValues(MapKeys):
 
     def columnar_eval(self, batch):
         return M.map_values(self.children[0].columnar_eval(batch))
+
+    def host_eval_row(self, m):
+        return None if m is None else list(m.values())

@@ -3,12 +3,12 @@ spark_rapids_tpu/expr/stringexprs.py (reference stringFunctions.scala),
 every class, StringSplit's array<string> result an ArrayColumn.
 
 The device classes (Length through Like) evaluate through ops/strings.py
-and the regex automaton (regex/). The JAX package's `_HostString`
-classes run on its host row tier unless `device_supported`; the port has
-no host tier (ROADMAP A.8 wave 4), so the planner tags off the shapes
-without a device path (a regex pattern the span finder rejects, a UTF-16
-charset, Levenshtein, a regex split) and the rest run on the card:
-StringSplit of a literal delimiter, SubstringIndex,
+and the regex automaton (regex/). The `_HostString` classes carry their
+row semantics (`host_eval_row`) for the host row engine
+(exec/fallback.py), where the planner places the shapes without a
+device path (a regex pattern the span finder rejects, a UTF-16 charset,
+Levenshtein, a regex split), as the JAX package does; the rest run on
+the card: StringSplit of a literal delimiter, SubstringIndex,
 FindInSet, RegExpExtract, RegExpReplace, the base64 and hex codecs,
 Encode, Decode and FormatNumber.
 
@@ -462,22 +462,22 @@ class Like(Expression):
 
 
 # ---------------------------------------------------------------------------
-# the JAX package's host-tier family: a device kernel where
-# `device_supported`, its host row tier otherwise (tagged off here)
+# the host-tier family: a device kernel where `device_supported`, the host
+# row engine otherwise
 # ---------------------------------------------------------------------------
 
 class _HostString(Expression):
-    """Base of the string expressions the JAX package runs on its host row
-    tier where they have no device kernel. `device_supported` says whether
-    this instance has one; the planner tags off the others (the port's
-    host tier waits for ROADMAP A.8 wave 4)."""
+    """Base of the string expressions that run on the host row engine
+    where they have no device kernel. `device_supported` says whether
+    this instance has one; the planner places the others on the host,
+    where `host_eval_row` gives one row's value."""
 
     device_supported = True
 
     def columnar_eval(self, batch):
         raise NotImplementedError(
-            f"{type(self).__name__} runs on the JAX package's host tier, "
-            "which waits for ROADMAP A.8 wave 4")
+            f"{type(self).__name__} runs on the host row engine "
+            "(exec/fallback.py)")
 
 
 #: a split pattern without these characters is a literal delimiter
@@ -487,8 +487,8 @@ _REGEX_META = re.compile(r"[\\.\[\]{}()*+?^$|]")
 class StringSplit(_HostString):
     """split(str, regex[, limit]) -> array<string> (reference
     GpuStringSplit, Java's split semantics): a metacharacter-free literal
-    pattern takes the device kernel; regex patterns run on the JAX
-    package's host tier."""
+    pattern takes the device kernel; regex patterns run on the host row
+    engine."""
 
     def __init__(self, child: Expression, pattern, limit=-1):
         self.children = (child,)
@@ -508,6 +508,20 @@ class StringSplit(_HostString):
         return (isinstance(self.pattern, str) and len(self.pattern) > 0
                 and not _REGEX_META.search(self.pattern)
                 and isinstance(self.limit, int))
+
+    def host_eval_row(self, s):
+        if s is None or not isinstance(self.pattern, str):
+            return None
+        limit = self.limit if isinstance(self.limit, int) else -1
+        if limit == 1:
+            return [s]  # Java: at most one element is no split at all
+        parts = re.split(self.pattern, s,
+                         maxsplit=limit - 1 if limit > 0 else 0)
+        # Java's split: only limit == 0 drops trailing empty strings
+        if limit == 0:
+            while parts and parts[-1] == "":
+                parts.pop()
+        return parts
 
     def columnar_eval(self, batch):
         from ..ops.string_split import split_literal
@@ -536,6 +550,17 @@ class SubstringIndex(_HostString):
     def device_supported(self) -> bool:
         return isinstance(self.delim, str) and isinstance(self.count, int)
 
+    def host_eval_row(self, s):
+        if s is None:
+            return None
+        d, c = self.delim, self.count
+        if not d or c == 0:
+            return ""
+        parts = s.split(d)
+        if c > 0:
+            return d.join(parts[:c]) if len(parts) > c else s
+        return d.join(parts[c:]) if len(parts) > -c else s
+
     def columnar_eval(self, batch):
         from ..ops.string_split import substring_index
         if not self.device_supported:
@@ -556,6 +581,14 @@ class FindInSet(_HostString):
     @property
     def data_type(self):
         return INT
+
+    def host_eval_row(self, needle, s):
+        if needle is None or s is None:
+            return None
+        if "," in needle:
+            return 0
+        items = s.split(",")
+        return items.index(needle) + 1 if needle in items else 0
 
     def columnar_eval(self, batch):
         from ..ops.string_split import find_in_set
@@ -601,6 +634,22 @@ class RegExpExtract(_HostString):
     @property
     def device_supported(self) -> bool:
         return self._device_plan() is not None
+
+    def host_eval_row(self, s):
+        if s is None or not isinstance(self.pattern, str):
+            return None
+        m = re.search(self.pattern, s)
+        if m is None:
+            return ""
+        try:
+            g = m.group(self.idx)
+        except (IndexError, re.error):
+            # Spark raises for a group index out of range
+            raise ValueError(
+                f"regexp_extract: group {self.idx} out of range for "
+                f"pattern {self.pattern!r} "
+                f"({re.compile(self.pattern).groups} groups)")
+        return g if g is not None else ""
 
     def columnar_eval(self, batch):
         from ..regex.spans import regexp_extract_device
@@ -649,6 +698,15 @@ class RegExpReplace(_HostString):
     def device_supported(self) -> bool:
         return self._device_plan() is not None
 
+    def host_eval_row(self, s):
+        if s is None or not isinstance(self.pattern, str):
+            return None
+        # Java's replacement dialect: $1 group references, \$ a dollar;
+        # \g<1> so that a digit after the reference stays literal
+        rep = re.sub(r"(?<!\\)\$(\d)", r"\\g<\1>", self.replacement)
+        rep = rep.replace(r"\$", "$")
+        return re.sub(self.pattern, rep, s)
+
     def columnar_eval(self, batch):
         from ..regex.spans import regexp_replace_device
         plan = self._device_plan()
@@ -689,11 +747,15 @@ class FormatNumber(_HostString):
         return format_number_string(self.children[0].columnar_eval(batch),
                                     int(self.decimals))
 
+    def host_eval_row(self, v):
+        if v is None or self.decimals is None or self.decimals < 0:
+            return None
+        return f"{v:,.{int(self.decimals)}f}"
+
 
 class Levenshtein(_HostString):
-    """levenshtein(a, b) edit distance (reference GpuLevenshtein): host
-    tier only in the JAX package, so tagged off here (ROADMAP A.8 wave
-    4)."""
+    """levenshtein(a, b) edit distance (reference GpuLevenshtein): the
+    host row engine only, as in the JAX package."""
 
     device_supported = False
 
@@ -706,6 +768,20 @@ class Levenshtein(_HostString):
     @property
     def data_type(self):
         return INT
+
+    def host_eval_row(self, a, b):
+        if a is None or b is None:
+            return None
+        if len(a) < len(b):
+            a, b = b, a
+        prev = list(range(len(b) + 1))
+        for i, ca in enumerate(a, 1):
+            cur = [i]
+            for j, cb in enumerate(b, 1):
+                cur.append(min(prev[j] + 1, cur[-1] + 1,
+                               prev[j - 1] + (ca != cb)))
+            prev = cur
+        return prev[-1]
 
 
 class Base64Encode(_HostString):
@@ -725,6 +801,13 @@ class Base64Encode(_HostString):
         from ..ops.codecs import base64_encode
         return base64_encode(self.children[0].columnar_eval(batch))
 
+    def host_eval_row(self, v):
+        import base64
+        if v is None:
+            return None
+        raw = v.encode("utf-8") if isinstance(v, str) else bytes(v)
+        return base64.b64encode(raw).decode("ascii")
+
 
 class UnBase64(_HostString):
     """unbase64(str) -> binary (reference GpuUnBase64)."""
@@ -742,6 +825,20 @@ class UnBase64(_HostString):
     def columnar_eval(self, batch):
         from ..ops.codecs import base64_decode
         return base64_decode(self.children[0].columnar_eval(batch))
+
+    def host_eval_row(self, v):
+        import base64
+        import binascii
+        if v is None:
+            return None
+        if isinstance(v, (bytes, bytearray)):
+            v = bytes(v).decode("ascii", errors="ignore")
+        # java.util.Base64 takes missing padding; Python's decoder does not
+        v = v + "=" * (-len(v) % 4)
+        try:
+            return base64.b64decode(v, validate=False)
+        except (ValueError, binascii.Error):
+            return None
 
 
 class Hex(_HostString):
@@ -764,6 +861,15 @@ class Hex(_HostString):
             return hex_encode(c)
         return hex_encode_long(c)
 
+    def host_eval_row(self, v):
+        if v is None:
+            return None
+        if isinstance(v, str):
+            return v.encode("utf-8").hex().upper()
+        if isinstance(v, (bytes, bytearray)):
+            return bytes(v).hex().upper()
+        return format(v & ((1 << 64) - 1), "X")
+
 
 class Unhex(_HostString):
     """unhex(str) -> binary; null on malformed input (an odd length gets
@@ -782,6 +888,22 @@ class Unhex(_HostString):
     def columnar_eval(self, batch):
         from ..ops.codecs import hex_decode
         return hex_decode(self.children[0].columnar_eval(batch))
+
+    def host_eval_row(self, v):
+        if v is None:
+            return None
+        if isinstance(v, (bytes, bytearray)):
+            v = bytes(v).decode("ascii", errors="ignore")
+        # Spark rejects any non-hex character, whitespace included
+        # (bytes.fromhex would skip spaces)
+        if not re.fullmatch(r"[0-9A-Fa-f]*", v):
+            return None
+        if len(v) % 2:
+            v = "0" + v
+        try:
+            return bytes.fromhex(v)
+        except ValueError:
+            return None
 
 
 class Encode(_HostString):
@@ -822,6 +944,12 @@ class Encode(_HostString):
             return recast_bytes(c, BINARY)
         return encode_single_byte(c, cs)
 
+    def host_eval_row(self, v):
+        if v is None:
+            return None
+        # Java's String.getBytes puts '?' for an unmappable character
+        return v.encode(self.charset.replace("-", "_"), errors="replace")
+
 
 class Decode(_HostString):
     """decode(bin, charset) -> string."""
@@ -856,3 +984,10 @@ class Decode(_HostString):
         if cs == "UTF-8":
             return recast_bytes(c, STRING)
         return decode_single_byte(c, cs)
+
+    def host_eval_row(self, v):
+        if v is None:
+            return None
+        raw = v.encode("utf-8") if isinstance(v, str) else bytes(v)
+        # Java's new String(bytes, cs) puts U+FFFD for a bad sequence
+        return raw.decode(self.charset.replace("-", "_"), errors="replace")

@@ -12,7 +12,7 @@ a search of that cumsum, where the JAX package scatters.
 
 Scope, as in the JAX package: bodies whose leaves are the lambda
 variable and literals, over arrays that are not nested. The other shapes
-run on the JAX package's host tier; the port's planner tags them off
+run on the host row engine (exec/fallback.py), placed there by the planner
 (expr/collectionexprs._HostHOF.device_supported).
 """
 

@@ -12,7 +12,7 @@ Engine strings are UTF-8 bytes, so:
                                documented deviation)
   decode(b, 'ISO-8859-1')   -> bytes >= 0x80 expand to two UTF-8 bytes
   decode(b, 'US-ASCII')     -> bytes >= 0x80 expand to U+FFFD (3 bytes)
-The UTF-16 variants are tagged off (the JAX package's host tier).
+The UTF-16 variants run on the host row engine, as in the JAX package.
 """
 
 from __future__ import annotations

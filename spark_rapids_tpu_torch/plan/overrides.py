@@ -3,35 +3,35 @@ spark_rapids_tpu/plan/overrides.py (the reference's GpuOverrides.scala:
 rule tables :919/:3838, wrapAndTagPlan :4421, doConvertPlan :4427; and
 GpuTransitionOverrides' coalesce insertion :322).
 
-As in the JAX package, the engine has no host engine underneath: a node
-that cannot run on the card makes `apply` raise PlanNotSupported with the
-whole explain report. The rules cover what the port has: the expressions
-of expr/{core,arithmetic,predicates,conditional,cast,math,bitwise,
-datetimeexprs,hashexprs,stringexprs,collectionexprs}, the aggregate and
-window functions of expr/{aggexprs,windowexprs}, and the scan, project,
-filter, range, union, limit, expand, sample, aggregate (single-stage, or
-partial -> host exchange -> final), hash join of every join type
-(broadcast, host-shuffled or single-partition), nested-loop join of a
-keyless join (over a broadcast when the right side fits), sort (over a
+As in the JAX package, a node that can run neither on the card nor on
+the host row engine makes `apply` raise PlanNotSupported with the whole
+explain report. The rules cover what the port has: the expressions of
+expr/{core,arithmetic,predicates,conditional,cast,math,bitwise,
+datetimeexprs,hashexprs,stringexprs,collectionexprs,mapexprs,jsonexprs,
+urlexprs,zorder,udf}, the aggregate and window functions of
+expr/{aggexprs,windowexprs}, and the scan, project, filter, range, union,
+limit, expand, sample, aggregate (single-stage, or partial -> host
+exchange -> final), hash join of every join type (broadcast,
+host-shuffled, single-partition or, when a side's size is unknown, the
+adaptive join that measures its sides at run time), nested-loop join of
+a keyless join (over a broadcast when the right side fits), sort (over a
 range exchange and PartitionWiseSortExec when the host shuffle has
-partitions), TopN, repartition, window and generate operators. Each node
-or branch whose operator is not ported yet is tagged off during tagging,
-with a reason naming its ROADMAP item, so nothing raises mid-run:
+partitions), TopN, repartition, window and generate operators.
 
-- the adaptive join the JAX package plans when a side's size is unknown
-  (AdaptiveJoinExec): A.3 and A.9;
-- an average over a DECIMAL, whose evaluation raises in the JAX package
-  (C.5);
-- a node the JAX package would run on its host row engine
-  (`_can_host_fallback`), the cost-based placement and the UDF compiler:
-  A.8 wave 4 (their confs raise in config.RapidsConf). The expressions
-  the JAX package tags off its device (decimal128 multiply and divide,
-  casts without a kernel, unknown time zones, a regex pattern its
-  compiler or span finder rejects, a UTF-16 charset, Levenshtein,
-  format_number of a DECIMAL, a regex split, array_join and the host-tier
-  shapes of the collection expressions) are tagged off with its reasons,
-  and so are its plan-level tag-offs (collect_set over strings, a join
-  whose payload holds an array of strings).
+A Project or Filter whose expressions lack a device path runs on the
+host row engine (exec/fallback.py) when every one of them has a host
+evaluator (`_can_host_fallback`): `convert` wraps it in the transitions
+and explain() marks it `~` with the reason. Under
+spark.rapids.sql.optimizer.enabled the cost model (plan/cost.py) may
+place a device-eligible one there too; under
+spark.rapids.sql.udfCompiler.enabled `apply` first compiles the plan's
+Python UDFs into expressions (udf_compiler). Other nodes tag off, as in
+the JAX package: an expression the device and the host both lack
+(decimal128 multiply and divide, casts without a kernel to a type the
+host cannot cast to, unknown time zones, a regex Python's re rejects),
+an average over a DECIMAL, whose evaluation raises in the JAX package
+(C.5), and its plan-level tag-offs (collect_set over strings, a join
+whose payload holds an array of strings).
 
 Also waiting for their items: the mesh (`_plan_mesh` and the
 distributed aggregate and join over it, A.6: with no mesh the JAX
@@ -47,20 +47,24 @@ from typing import Dict, List, Optional, Type
 
 from ..config import (ADAPTIVE_AUTO_BROADCAST_MAX_BYTES, ADAPTIVE_ENABLED,
                       BROADCAST_SIZE_THRESHOLD, CPU_FALLBACK_ENABLED,
-                      JOIN_SUBPARTITION_THRESHOLD, PARQUET_PUSHDOWN_ENABLED,
-                      SHUFFLE_MODE, SHUFFLE_PARTITIONS, SQL_ENABLED,
-                      RapidsConf, active_conf, set_active_conf)
+                      JOIN_SUBPARTITION_THRESHOLD, OPTIMIZER_ENABLED,
+                      PARQUET_PUSHDOWN_ENABLED, SHUFFLE_MODE,
+                      SHUFFLE_PARTITIONS, SQL_ENABLED, RapidsConf,
+                      active_conf, set_active_conf)
 from ..exec.aggregate import AggregateExec
 from ..exec.base import TpuExec
 from ..exec.basic import (ExpandExec, FilterExec, GlobalLimitExec,
                           ProjectExec, RangeExec, SampleExec, SourceScanExec,
                           UnionExec, bind_projection)
 from ..exec.coalesce import CoalesceBatchesExec
+from ..exec.fallback import (ColumnarToRowExec, HostFilterExec,
+                             HostProjectExec, RowToColumnarExec,
+                             supports_host_eval)
 from ..exec.generate import GenerateExec
 from ..exec.exchange import (BroadcastExchangeExec, HostShuffleExchangeExec,
                              ShuffledHashJoinExec)
-from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, HashJoinExec,
-                          NestedLoopJoinExec)
+from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, AdaptiveJoinExec,
+                          HashJoinExec, NestedLoopJoinExec)
 from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
                          resolve_sort_orders)
 from ..exec.window import WindowExec
@@ -79,11 +83,6 @@ from .typesig import (
     BOOLEAN, TypeSig, all_types, commonly_supported, comparable, fp,
     integral, numeric, numeric_and_decimal, orderable, stringlike,
 )
-
-#: the reasons of nodes that are not ported, by ROADMAP item
-JOINS = "waits for ROADMAP A.3 and A.9"
-HOST_TIER = "waits for ROADMAP A.8 wave 4"
-
 
 class PlanNotSupported(Exception):
     def __init__(self, report: str):
@@ -288,7 +287,7 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
        mapsig + commonly_supported, BOOLEAN)
     # higher-order functions: lambdas over the variable and literals run
     # as one flat pass over the child column, the others (and
-    # aggregate()) on the JAX package's host tier
+    # aggregate()) on the host row engine
     for c, d in ((ce.ArrayTransform, "transform() HOF"),
                  (ce.ArrayFilter, "filter() HOF"),
                  (ce.ArrayExists, "exists() HOF"),
@@ -308,6 +307,13 @@ def expression_rules() -> Dict[Type[Expression], ExprRule]:
     _r(rules, zorder.InterleaveBits,
        "z-order bit interleave (reference GpuInterleaveBits)", integral,
        integral)
+    from ..expr.udf import PythonUDF
+    # the types the host boundary converts (a DECIMAL, DATE or TIMESTAMP
+    # would arrive as its physical int)
+    _r(rules, PythonUDF,
+       "Python UDF (host round trip: one packed copy down and one up a "
+       "batch, the reference's Arrow-batched Python worker)",
+       numeric + BOOLEAN + TypeSig.of("STRING"), numeric + BOOLEAN)
     _r(rules, ce.SortArray, "in-array sort", arr, arr,
        tag_fn=_tag_fixed_width_elements)
     _r(rules, ce.ArrayMin, "array minimum", arr, numeric_and_decimal,
@@ -389,8 +395,9 @@ def _tag_decimal128_input(meta) -> None:
 
 
 def _tag_cast(meta) -> None:
-    """The cast pairs without a device kernel (the JAX package runs some
-    on its host row tier, ROADMAP A.8 wave 4), tagged off at plan time."""
+    """The cast pairs without a device kernel, tagged off the device at
+    plan time (to a host-castable type, the node runs on the host row
+    engine, as in the JAX package)."""
     from ..types import DoubleType, FloatType, TimestampType
     c = meta.expr
     try:
@@ -425,12 +432,11 @@ def _tag_timezone(meta) -> None:
 
 def _tag_device_when_supported(meta) -> None:
     """An expression with a partial device kernel: the shapes it does not
-    take run on the JAX package's host row tier (ROADMAP A.8 wave 4)."""
+    take run on the host row engine, with the JAX package's reason."""
     if not getattr(meta.expr, "device_supported", True):
         meta.will_not_work_on_tpu(
             f"{type(meta.expr).__name__} is a host-tier expression "
-            "(runs via CPU fallback; no device kernel) and the port's host "
-            f"tier {HOST_TIER}")
+            "(runs via CPU fallback; no device kernel)")
 
 
 def _tag_regex(meta) -> None:
@@ -574,6 +580,7 @@ class PlanMeta(BaseMeta):
         super().__init__()
         self.plan = plan
         self.conf = conf
+        self.host_fallback = False  # convert on the host row engine
         self.children = [PlanMeta(c, conf) for c in plan.children]
         self.expr_metas: List[ExprMeta] = [
             ExprMeta.wrap(e, conf, sch)
@@ -632,9 +639,9 @@ class PlanMeta(BaseMeta):
             em.tag_for_tpu()
         if any(not em.can_run_on_tpu for em in self.expr_metas):
             if self._can_host_fallback():
-                self.will_not_work_on_tpu(
-                    "the JAX package runs this node on its host row "
-                    f"engine, which {HOST_TIER}")
+                # reference GpuOverrides.scala:4427 convertToCpu: the node
+                # runs on the host row engine and the plan stays viable
+                self.host_fallback = True
             else:
                 for em in self.expr_metas:
                     if not em.can_run_on_tpu:
@@ -644,6 +651,8 @@ class PlanMeta(BaseMeta):
         name = self.plan.node_name()
         key = f"spark.rapids.sql.exec.{name}"
         if str(self.conf._settings.get(key, "true")).lower() == "false":
+            # a disabled operator runs nowhere, the host included
+            self.host_fallback = False
             self.will_not_work_on_tpu(f"operator {name} disabled by {key}")
         if not self.conf.get(SQL_ENABLED):
             self.will_not_work_on_tpu(
@@ -691,10 +700,6 @@ class PlanMeta(BaseMeta):
                     f"a keyless {p.join_type} join: NestedLoopJoinExec "
                     f"joins {', '.join(NESTED_LOOP_JOIN_TYPES)}, as in the "
                     "JAX package")
-            elif strategy == "adaptive":
-                self.will_not_work_on_tpu(
-                    "a join with a side of unknown size (AdaptiveJoinExec) "
-                    f"{JOINS}")
 
     def _tag_join_payload(self, name: str, dt) -> None:
         """The JAX package's join payload tag-offs (a list of strings, a
@@ -734,17 +739,43 @@ class PlanMeta(BaseMeta):
         return False
 
     def _can_host_fallback(self) -> bool:
-        """True where the JAX package would run this node on its host row
-        engine (only Project/Filter have host operators there)."""
-        return bool(self.conf.get(CPU_FALLBACK_ENABLED)) and isinstance(
-            self.plan, (L.LogicalProject, L.LogicalFilter))
+        """True when every expression of this node can run on the host row
+        engine instead (reference convertToCpu; only Project and Filter
+        have host operators, as in the JAX package)."""
+        if not self.conf.get(CPU_FALLBACK_ENABLED):
+            return False
+        p = self.plan
+        if isinstance(p, L.LogicalProject):
+            exprs = list(p.exprs)
+        elif isinstance(p, L.LogicalFilter):
+            exprs = [p.condition]
+        else:
+            return False
+        # bound first: the type checks (a decimal, a cast target) need the
+        # column types
+        child_schema = p.children[0].schema
+        bound = []
+        for e in exprs:
+            try:
+                bound.append(resolve(e, child_schema))
+            except (KeyError, TypeError):
+                bound.append(e)
+        return all(supports_host_eval(e) for e in bound)
 
     def explain(self, indent: int = 0, lines: Optional[List[str]] = None
                 ) -> str:
-        """The reference's explain output (GpuOverrides.scala:4764)."""
+        """The reference's explain output (GpuOverrides.scala:4764); `~`
+        marks a node on the host row engine."""
         lines = [] if lines is None else lines
         mark = "*" if self.can_run_on_tpu else "!"
+        if self.host_fallback:
+            mark = "~"
         lines.append("  " * indent + f"{mark} {self.plan.describe()}")
+        if self.host_fallback:
+            note = getattr(self, "cost_note", None) \
+                or ("host row engine fallback: expression lacks a "
+                    "device kernel")
+            lines.append("  " * indent + f"    @ will run on CPU ({note})")
         for r in self._reasons:
             lines.append("  " * indent + f"    @ {r}")
         expr_reasons: List[str] = []
@@ -849,6 +880,9 @@ class PlanMeta(BaseMeta):
         if n_parts > 1 and self._shuffle_keys_match(p):
             return "shuffled", n_parts
         if thr >= 0 and (size_r is None or size_l is None):
+            # unknown sizes: both sides measured at run time, the build
+            # side chosen by the measured bytes (reference
+            # GpuShuffledSymmetricHashJoinExec:354)
             return "adaptive", 1
         return "hash", 1
 
@@ -878,6 +912,10 @@ class PlanMeta(BaseMeta):
         if kind == "hash":
             return HashJoinExec(kids[0], kids[1], p.left_keys, p.right_keys,
                                 p.join_type, condition=p.condition)
+        if kind == "adaptive":
+            return AdaptiveJoinExec(kids[0], kids[1], p.left_keys,
+                                    p.right_keys, p.join_type, p.condition,
+                                    self.conf)
         if kind == "broadcast_nested_loop":
             return NestedLoopJoinExec(kids[0], BroadcastExchangeExec(kids[1]),
                                       p.join_type, p.condition)
@@ -886,9 +924,19 @@ class PlanMeta(BaseMeta):
                                       p.condition)
         raise PlanNotSupported(f"no conversion for a {kind} join")
 
+    def _convert_host_node(self, p, child: TpuExec) -> TpuExec:
+        """ColumnarToRow -> the host row operator -> RowToColumnar
+        (reference transition insertion, GpuTransitionOverrides.scala:50)."""
+        rows_in = ColumnarToRowExec(child)
+        if isinstance(p, L.LogicalProject):
+            host: TpuExec = HostProjectExec(p.exprs, rows_in)
+        else:
+            host = HostFilterExec(p.condition, rows_in)
+        return RowToColumnarExec(host, host.output_schema)
+
     def convert(self) -> TpuExec:
         p = self.plan
-        if isinstance(p, L.LogicalFilter) \
+        if isinstance(p, L.LogicalFilter) and not self.host_fallback \
                 and isinstance(p.children[0], L.LogicalScan):
             # predicate pushdown: hand simple conjuncts to the source for
             # footer-stats row-group pruning; the Filter stays for
@@ -910,6 +958,9 @@ class PlanMeta(BaseMeta):
         if isinstance(p, L.LogicalRange):
             return RangeExec(p.start, p.end, p.step, name=p.name,
                              device=p.device)
+        if isinstance(p, (L.LogicalProject, L.LogicalFilter)) \
+                and self.host_fallback:
+            return self._convert_host_node(p, kids[0])
         if isinstance(p, L.LogicalProject):
             return ProjectExec(p.exprs, kids[0])
         if isinstance(p, L.LogicalFilter):
@@ -967,9 +1018,14 @@ class TpuOverrides:
     def wrap_and_tag(self, plan: L.LogicalPlan) -> PlanMeta:
         meta = PlanMeta(plan, self.conf)
         meta.tag_for_tpu()
+        if self.conf.get(OPTIMIZER_ENABLED):
+            from .cost import CostBasedOptimizer
+            CostBasedOptimizer(self.conf).optimize(meta)
         return meta
 
     def apply(self, plan: L.LogicalPlan) -> TpuExec:
+        from ..udf_compiler import maybe_compile_plan_udfs
+        plan = maybe_compile_plan_udfs(plan, self.conf)
         meta = self.wrap_and_tag(plan)
         if not self._all_ok(meta):
             raise PlanNotSupported(meta.explain())

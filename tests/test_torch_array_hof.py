@@ -3,8 +3,8 @@ ArrayTransform, ArrayFilter, ArrayExists, ArrayForAll) against the JAX
 package on the CPU, in one projection a package: LONG, DOUBLE and STRING
 elements, null arrays, null elements, empty arrays, Spark's three-valued
 exists/forall. The host-tier shapes (aggregate, a body that reads an outer
-column, nested arrays) tag off naming ROADMAP A.8 wave 4, where the JAX
-package plans them onto its host tier. GetArrayItem with a column index
+column, nested arrays) run on the host row engine in both packages.
+GetArrayItem with a column index
 (ROADMAP C.12) gives Spark's rows on a hand-built and a planned plan,
 held to Python (the JAX package gives NULL there, C.5). Then P30's
 lambdas at a small size against chip_smoke's oracle. Everything exact."""
@@ -25,7 +25,6 @@ from spark_rapids_tpu_torch.api import session as tsession
 from spark_rapids_tpu_torch.exec import basic as tb
 from spark_rapids_tpu_torch.expr import collectionexprs as tce
 from spark_rapids_tpu_torch.expr import core as tc
-from spark_rapids_tpu_torch.plan import overrides as tover
 
 from test_torch_jax_ref import jax_aliases, one_torch_thread
 from test_torch_planner import active_confs
@@ -97,8 +96,10 @@ def test_lambdas_through_the_session_match_jax():
 
 def test_host_tier_lambdas_tag_off_naming_wave_4():
     """aggregate(), a body over an outer column and a lambda over nested
-    arrays plan on the JAX package's host tier; the port tags them off,
-    naming wave 4, and raises nothing mid-run."""
+    arrays have no device path: both packages plan them on the host row
+    engine (`~`). The first two give the JAX package's rows; the third
+    raises in the JAX package's host tier (ROADMAP C.5), so the port is
+    held to Python's rows there."""
     data = {"k": [1, 2], "l": [[1, 2], None], "n": [[[1], [2, 3]], None]}
     tdf = tsession.TpuSession(device="cpu").from_pydict(
         data, tt.Schema((tt.StructField("k", tt.LONG),
@@ -113,14 +114,16 @@ def test_host_tier_lambdas_tag_off_naming_wave_4():
         lambda F, c: F.aggregate("l", c.lit(0), lambda acc, x: acc + x),
         lambda F, c: F.transform("l", lambda x: x + c.col("k")),
         lambda F, c: F.transform("n", lambda x: F.size(x))]
-    for make in cases:
+    for k, make in enumerate(cases):
         tq = tdf.select(make(tF, tc).alias("r"))
-        with pytest.raises(tover.PlanNotSupported) as e:
-            tq.collect()
-        assert "A.8 wave 4" in str(e.value)
+        assert tq.explain().startswith("~ ")
         jq = jdf.select(make(jF, jc).alias("r"))
         assert JOverrides._all_ok(JOverrides(jdf.session.conf).wrap_and_tag(
             jq.logical_plan()))
+        if k < 2:
+            assert tq.collect() == jq.collect()
+        else:
+            assert tq.collect() == [([1, 2],), (None,)]
 
 
 def test_get_array_item_with_a_column_index_gives_spark_rows():

@@ -236,20 +236,28 @@ def test_format_number_matches_jax(batches, src, digits):
 @pytest.mark.parametrize("src, dst", [("d", "STRING"), ("s", "DEC"),
                                       ("ts", "STRING"), ("s", "TIMESTAMP")])
 def test_casts_without_a_kernel_are_tagged_off(batches, src, dst):
-    """As in the JAX package: the planner tags them off with the same
-    reason, rather than failing mid-run."""
+    """As in the JAX package: the planner tags them off the device with
+    the same reason, rather than failing mid-run. A cast to a string then
+    runs on the host row engine (`~`) with the JAX package's rows; a cast
+    to a DECIMAL or TIMESTAMP has no host cast either, and the plan is
+    refused."""
     tb = batches[1]
     sess = tsession.TpuSession(device="cpu")
     df = sess.from_batches([tb], tb.schema).select(
         tcore.col(src).cast(_types(TORCH)[dst]).alias("c"))
     reason = f"cast {tb.schema[tb.schema.index_of(src)].data_type.simple_name()}" \
         f" -> {_types(TORCH)[dst].simple_name()} has no device kernel"
-    with pytest.raises(PlanNotSupported, match=re.escape(reason)):
-        df.collect()
     jb = batches[0]
     jdf = jsession.TpuSession().from_batches([jb], jb.schema).select(
         jcore.col(src).cast(_types(JAX)[dst]).alias("c"))
-    assert reason in jdf.explain()
+    assert reason in jdf.explain() and reason in df.explain()
+    if dst == "STRING":
+        assert df.explain().startswith("~ ")
+        assert jdf.explain().startswith("~ ")
+        assert df.collect() == jdf.collect()
+        return
+    with pytest.raises(PlanNotSupported, match=re.escape(reason)):
+        df.collect()
 
 
 def test_decimal_to_string_renders_like_python(batches):

@@ -79,8 +79,8 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.pallas.fusedTier", "off", "no tier switch"),
     ("spark.rapids.tpu.shuffle.ici.enabled", "true", "A.6"),
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
-    ("spark.rapids.sql.optimizer.enabled", "true", "A.8 wave 4"),
-    ("spark.rapids.sql.udfCompiler.enabled", "true", "A.8 wave 4"),
+    ("spark.rapids.tpu.adaptive.skewedPartitionFactor", "2.0", "A.9"),
+    ("spark.rapids.tpu.adaptive.coalesceTargetBytes", "1", "A.9"),
     ("spark.rapids.tpu.eventLog.enabled", "true", "A.9"),
     ("spark.rapids.tpu.workload.enabled", "true", "A.9"),
     ("spark.rapids.tpu.query.timeoutMs", "1000", "A.9"),

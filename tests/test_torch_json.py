@@ -4,8 +4,8 @@ surrogates, nesting, arrays, whitespace, raw numbers, the null literal,
 duplicate keys, quoted keys, malformed documents (unbalanced, unterminated)
 and null rows, many documents a call (the reference's JSON path compiles
 for about 10 s). A projection of several paths builds one column's masks
-once. Wildcard paths and from_json tag off naming ROADMAP A.8 wave 4,
-where the JAX package plans its host tier. Then P31's JSON path at a
+once. Wildcard paths and from_json run on the host row engine in both
+packages, with the same rows. Then P31's JSON path at a
 small size against chip_smoke's oracle (Python's json under the device's
 rules). Strings are compared exactly."""
 
@@ -27,7 +27,6 @@ from spark_rapids_tpu_torch.columnar.column import StringColumn
 from spark_rapids_tpu_torch.expr import jsonexprs
 from spark_rapids_tpu_torch.expr.core import col
 from spark_rapids_tpu_torch.ops import json_device
-from spark_rapids_tpu_torch.plan import overrides as tover
 
 from test_torch_jax_ref import jax_aliases, one_torch_thread
 from test_torch_planner import active_confs
@@ -105,6 +104,8 @@ def test_malformed_path_gives_null_rows():
 
 
 def test_wildcards_and_from_json_tag_off_naming_wave_4():
+    """A wildcard path and from_json have no device path: both packages
+    plan them on the host row engine (`~`), with the same rows."""
     from spark_rapids_tpu.expr import core as jc
     from spark_rapids_tpu.expr.jsonexprs import JsonToStructsField as JJson
     data = {"j": ['{"a": [1, 2]}', None]}
@@ -117,12 +118,12 @@ def test_wildcards_and_from_json_tag_off_naming_wave_4():
              (jsonexprs.JsonToStructsField(col("j"), "a", tt.LONG),
               JJson(jc.col("j"), "a", jt.LONG))]
     for texpr, jexpr in cases:
-        with pytest.raises(tover.PlanNotSupported) as e:
-            tdf.select(texpr.alias("r")).collect()
-        assert "A.8 wave 4" in str(e.value)
+        tq = tdf.select(texpr.alias("r"))
+        assert tq.explain().startswith("~ ")
         jq = jdf.select(jexpr.alias("r"))
         assert JOverrides._all_ok(JOverrides(jdf.session.conf).wrap_and_tag(
             jq.logical_plan()))
+        assert tq.collect() == jq.collect()
 
 
 def test_p31_json_path_plans_and_matches_the_oracle():

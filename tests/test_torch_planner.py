@@ -8,10 +8,10 @@ the same classes, with the same aggregate modes, join build sides and
 exchange partitionings; `estimate_plan_size` gives the same bytes for
 every join side; `extract_pushable_filters` gives the same conjuncts.
 Cases: the default confs (the order side of q3 broadcast), broadcasting
-off, a host shuffle of 4 partitions, and a join side of unknown size.
-Nodes the port has not ported raise PlanNotSupported naming their
-ROADMAP item; conversion is deterministic, so exact equality is the
-tolerance throughout.
+off, a host shuffle of 4 partitions, and a join side of unknown size
+(AdaptiveJoinExec in both packages). Nodes the port has not ported raise
+PlanNotSupported naming their ROADMAP item; conversion is deterministic,
+so exact equality is the tolerance throughout.
 """
 
 from contextlib import contextmanager
@@ -256,8 +256,8 @@ def test_estimated_join_side_sizes_match_jax(planned, label):
 def test_unknown_join_side_size_matches_jax(threshold):
     """A keyed aggregate's size is unknown. Under the default threshold
     the known side is broadcast, the build on the left, in both packages;
-    under a threshold of 100 bytes the JAX package plans its adaptive
-    join, which the port tags off naming ROADMAP A.3."""
+    under a threshold of 100 bytes both plan the adaptive join, which
+    measures its sides at run time and gives the same rows."""
     js, ts = sessions({} if threshold is None else {
         "spark.rapids.sql.broadcastSizeThreshold": threshold})
     sides = []
@@ -281,9 +281,9 @@ def test_unknown_join_side_size_matches_jax(threshold):
             for k, c in zip(keys, counts)]
         return
     assert "AdaptiveJoinExec" in repr(tree(converted(JAX, jdf)))
-    with pytest.raises(tover.PlanNotSupported, match="AdaptiveJoinExec"):
-        tdf.collect()
-    assert "ROADMAP A.3" in tdf.explain()
+    assert tree(converted(TORCH, tdf)) == tree(converted(JAX, jdf))
+    assert sorted(tdf.collect()) == sorted(jdf.collect())
+    assert tdf.explain().startswith("*")
 
 
 @pytest.mark.parametrize("label", LABELS)
@@ -329,7 +329,8 @@ def test_unported_nodes_raise_naming_their_item(case):
     planning (PlanNotSupported with the explain report), or at the
     DataFrame method that would build a node the port lacks. The sample
     and the range-partitioned sort were such nodes until A.8 wave 1
-    ported them, windows until wave 3a: they now plan and run."""
+    ported them, windows until wave 3a, the adaptive join until A.3's
+    AdaptiveJoinExec: they now plan and run."""
     ts, df = _port_df()
     if case == "windows":
         # windows waited for A.8 wave 3a, which has landed: they plan
@@ -355,6 +356,7 @@ def test_unported_nodes_raise_naming_their_item(case):
         assert df.collect() == sorted(df.collect())
         return
     if case == "adaptive join":
+        # AdaptiveJoinExec waited for A.3, which has landed: it plans
         sess = tsession.TpuSession(
             {"spark.rapids.sql.broadcastSizeThreshold": "100"}, device="cpu")
         side = tsession.DataFrame(df.group_by("k").agg(
@@ -362,7 +364,9 @@ def test_unported_nodes_raise_naming_their_item(case):
         df = tsession.DataFrame(df.logical_plan(), sess).join(
             side.select(tcore.col("k").alias("k2"), tcore.col("n")),
             left_on="k", right_on="k2", how="left_outer")
-        item = "A.3"
+        assert "AdaptiveJoinExec" in repr(tree(converted(TORCH, df)))
+        assert sorted(df.collect()) == [(k, 1.0, k, 1) for k in range(8)]
+        return
     else:
         # an aggregate function the rule table lacks (A.2 is done: every
         # aggregate of the JAX package has its rule), tagged off naming
@@ -427,35 +431,35 @@ def test_disabled_operator_and_sql_off_tag_off():
 
 
 #: string expressions the device cannot run: (a function of a namespace,
-#: the words the port's tag-off reason holds)
+#: the words the port's reason holds)
 STRING_TAG_OFFS = {
     "rlike backreference": (lambda m: m.F.rlike("s", "(a)\\1"),
                             "backreferences not supported"),
     "like over 32 positions": (lambda m: m.F.like("s", "a" * 40),
                                "more than 32 positions"),
     "regexp_replace variable span": (
-        lambda m: m.F.regexp_replace("s", "a*b", "x"), "A.8 wave 4"),
-    "levenshtein": (lambda m: m.F.levenshtein("s", "s"), "A.8 wave 4"),
-    "encode UTF-16": (lambda m: m.F.encode("s", "UTF-16"), "A.8 wave 4"),
+        lambda m: m.F.regexp_replace("s", "a*b", "x"), "host-tier"),
+    "levenshtein": (lambda m: m.F.levenshtein("s", "s"), "host-tier"),
+    "encode UTF-16": (lambda m: m.F.encode("s", "UTF-16"), "host-tier"),
 }
 
 
 @pytest.mark.parametrize("case", list(STRING_TAG_OFFS))
 def test_string_expressions_without_a_device_path_tag_off(case):
-    """A regex the automaton rejects tags off at plan time with the
-    reference's reason (the same text the JAX package's explain holds); a
-    shape with no device path (a span the finder cannot place, the host
-    tier's Levenshtein and UTF-16) tags off naming ROADMAP A.8 wave 4.
-    Nothing raises mid-run."""
+    """A regex the automaton rejects is tagged off the device at plan time
+    with the reference's reason (the same text the JAX package's explain
+    holds), and so is a shape with no device path (a span the finder
+    cannot place, Levenshtein, UTF-16): each Project then runs on the
+    host row engine (`~`), as in the JAX package, with its rows. Nothing
+    raises mid-run."""
     build, words = STRING_TAG_OFFS[case]
     js, ts = sessions()
     data = {"s": ["abab", "b", None]}
     dfs = [sess.from_pydict(data, m.t.Schema((m.t.StructField(
         "s", m.t.STRING),))).select(build(m).alias("x"))
         for m, sess in ((JAX, js), (TORCH, ts))]
-    with pytest.raises(tover.PlanNotSupported) as e:
-        dfs[1].collect()
-    assert words in str(e.value)
-    assert "! " in dfs[1].explain()
-    if "wave 4" not in words:
-        assert words in dfs[0].explain()
+    text = dfs[1].explain()
+    assert words in text and text.startswith("~ ")
+    assert words in dfs[0].explain()
+    assert dfs[0].explain().startswith("~ ")
+    assert dfs[1].collect() == dfs[0].collect()

@@ -300,7 +300,9 @@ PORTED_FUNCTIONS = {"col", "lit", "sum", "count", "avg", "mean", "min",
                     "aggregate", "create_map", "element_at_key", "exists",
                     "filter_", "forall", "get_json_object",
                     "get_map_value", "map_contains_key", "map_keys",
-                    "map_values", "parse_url", "transform"}
+                    "map_values", "parse_url", "transform",
+                    # A.8 wave 4: Python UDFs
+                    "udf"}
 
 
 def _public(mod):
@@ -354,6 +356,6 @@ def test_window_function_names_build_window_functions(name):
     assert [r[3] for r in rows[1]] == want
 
 
-#: the JAX package's functions that wait for their expressions: udf
-#: (A.8 wave 4)
-MISSING_FUNCTIONS = {'udf'}
+#: the JAX package's functions that wait for their expressions: none
+#: (udf came with A.8 wave 4)
+MISSING_FUNCTIONS = set()

@@ -3,8 +3,8 @@ path on the CPU, every part and a query key, over ordinary and exotic
 URLs alike (userinfo, IPv6 literals, ports, empty queries and fragments,
 scheme-less strings with stray delimiters, %-escapes good and bad, '+',
 unknown and lowercase part names): the port equals the reference on all
-of them. A non-literal part tags off naming ROADMAP A.8 wave 4, where the
-JAX package plans its host tier. Then P31's URL paths at a small size
+of them. A non-literal part runs on the host row engine in both
+packages, with the same rows. Then P31's URL paths at a small size
 against chip_smoke's oracle (urllib.parse, as the JAX package's host
 tier). Strings are compared exactly."""
 
@@ -25,7 +25,6 @@ from spark_rapids_tpu_torch.columnar.column import StringColumn
 from spark_rapids_tpu_torch.expr.core import col
 from spark_rapids_tpu_torch.expr.urlexprs import ParseUrl
 from spark_rapids_tpu_torch.ops.url import parse_url
-from spark_rapids_tpu_torch.plan import overrides as tover
 
 from test_torch_jax_ref import jax_aliases, one_torch_thread
 from test_torch_planner import active_confs
@@ -74,12 +73,12 @@ def test_non_literal_part_tags_off_naming_wave_4():
     jdf = jsession.TpuSession().from_pydict(
         data, jt.Schema((jt.StructField("u", jt.STRING),
                          jt.StructField("p", jt.STRING))))
-    with pytest.raises(tover.PlanNotSupported) as e:
-        tdf.select(ParseUrl(col("u"), col("p")).alias("r")).collect()
-    assert "A.8 wave 4" in str(e.value)
+    tq = tdf.select(ParseUrl(col("u"), col("p")).alias("r"))
+    assert tq.explain().startswith("~ ")
     jq = jdf.select(JParseUrl(jc.col("u"), jc.col("p")).alias("r"))
     assert JOverrides._all_ok(JOverrides(jdf.session.conf).wrap_and_tag(
         jq.logical_plan()))
+    assert tq.collect() == jq.collect() == [("h",)]
     assert tdf.select(ParseUrl(col("u"), "HOST").alias("h")).collect() \
         == [("h",)]
 
