@@ -286,6 +286,30 @@ fails the run on error:
      Filter over the 25 nations (placed on the host) and over the lines
      (on the device) under optimizer.enabled; and the cost model's four
      constants measured on the card (measure_cost_constants);
+  3j. drives the governed collect() (drive_governed_paths): P34, q3, Q19
+     and P19 collected through the governed drive with the phase ledger,
+     the event log at MODERATE, telemetry every 100 ms and the dispatch
+     ledger, P34_RUNS times in turns with exec/base.collect of the same
+     converted plan (the ungoverned twin), each run held to its oracle,
+     its phases summing to its wall to the ns and the ledger's calls per
+     kernel label equal to the wrappers' launches, with the events by
+     kind, the telemetry samples and the profile's top operators; P35,
+     P16 (Q4's semi join over 16 host partitions) under a shuffle.fetch
+     io fault and a one-shot device.dispatch fault, and P3 (the
+     out-of-core sort at P3's device budget and host limit; P2, q3 at
+     P2's, when P3 writes no spill file to disk) under a spill.disk_write
+     corrupt fault, task.maxAttempts 3: rows equal to q4_oracle and
+     np.lexsort (or q3_oracle), more than one attempt, the faults'
+     stats, the catalog empty, no permit held, the shuffle root empty;
+     P36, P11 cancelled by cancel_query() from a second thread after
+     0.3 s and run again under query.timeoutMs 500: the latency to the
+     raise, where it was noticed, no catalog entry, permit or pipeline
+     thread left and torch.cuda.memory_allocated() back at its level;
+     P37, four sessions on four threads under workload.enabled,
+     maxConcurrentQueries 2, queueDepth 4 (two interactive on Q19, two
+     batch on P19, 3 rounds): every result equal to its oracle, the
+     grant order equal to pick_fair replayed on the recorded arrivals,
+     active_queries() read mid-flight, health()["slo"];
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -362,7 +386,8 @@ plan's, the differences and the session timings) and phase 3d's (under
 "types_paths"), phase 3f's (under "strings_paths"), phase 3g's (under
 "windows_paths"), phase 3h's (under "nested_paths") and phase 3i's
 (under "adaptive_paths": choices, counters, round trips, placements,
-the cost constants, ms), a JSON line
+the cost constants, ms) and phase 3j's (under "governed_paths"), a JSON
+line
 with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
@@ -7829,6 +7854,432 @@ def time_adaptive_paths(runs):
     return out
 
 
+# -- slice 15: the governed collect (phase 3j) --------------------------------
+
+P34_RUNS = 3             # governed runs and ungoverned twin runs, in turns
+P36_CANCEL_S = 0.3       # P36: cancel_query() this long after the start
+P36_TIMEOUT_MS = 500     # P36: query.timeoutMs of the second run
+P37_ROUNDS = 3           # P37: queries per session
+P35_FAULTS = ("shuffle.fetch:prob=0.25,seed=35,kind=io,max=3;"
+              "device.dispatch:prob=1,seed=35,kind=device,max=1")
+P35_SPILL_FAULT = "spill.disk_write:prob=1,seed=35,kind=corrupt,max=1"
+
+
+def governed_conf(event_dir):
+    """P34's planes: phases, the event log at MODERATE, telemetry every
+    100 ms and the dispatch ledger."""
+    return {"spark.rapids.tpu.phases.enabled": "true",
+            "spark.rapids.tpu.eventLog.enabled": "true",
+            "spark.rapids.tpu.eventLog.dir": event_dir,
+            "spark.rapids.tpu.eventLog.level": "MODERATE",
+            "spark.rapids.tpu.telemetry.enabled": "true",
+            "spark.rapids.tpu.telemetry.intervalMs": "100",
+            "spark.rapids.tpu.dispatch.ledger.enabled": "true"}
+
+
+def join_pairs(metrics):
+    return next(v["numOutputRows"] for k, v in metrics.items()
+                if k.startswith("HashJoinExec#"))
+
+
+def engine_threads():
+    """The threads a query starts and must stop: pipeline producers."""
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name.startswith("pipeline-")]
+
+
+def wait_engine_threads(label, timeout_s=10.0):
+    deadline = time.monotonic() + timeout_s
+    while engine_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    left = [t.name for t in engine_threads()]
+    if left:
+        raise AssertionError(f"{label}: engine threads alive: {left}")
+
+
+def zero_launches():
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def governed_run(label, df, check):
+    """One governed collect() with every launch counter and the dispatch
+    ledger reset just before: (ms, launches, ledger calls per kernel
+    label, the phase split, its wall)."""
+    import torch
+    from spark_rapids_tpu_torch.obs import dispatch
+    wrappers = zero_launches()
+    dispatch.reset_dispatch_ledger()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = df.collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: w.launches for k, w in wrappers.items()}
+    calls = dispatch.calls_by_label("kernel")
+    check(rows, label, df.session.last_query_metrics())
+    prof = df.session.last_query_profile()
+    phases, wall = prof.phases(), prof.phases_wall_ns()
+    if sum(phases.values()) != wall:
+        raise AssertionError(f"{label}: phases sum to {sum(phases.values())}"
+                             f" ns, not the wall {wall}")
+    if calls != {k: v for k, v in counts.items() if v}:
+        raise AssertionError(f"{label}: ledger calls {calls} != launches "
+                             f"{counts}")
+    return ms, counts, calls, phases, wall
+
+
+def drive_p34(dev, sm, tm, dfs_of, checks):
+    """P34: q3, Q19 and P19 collected through the governed drive, P34_RUNS
+    times in turns with exec/base.collect of the same converted plan (the
+    ungoverned twin). Returns a record per query."""
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch.obs import events, telemetry
+    event_dir = tempfile.mkdtemp(prefix="p34-events-")
+    conf = governed_conf(event_dir)
+    recs = {}
+    for label, (m, make_df) in dfs_of.items():
+        df = make_df(conf)
+        check = checks[label]
+        twin = planned(m, df)[0]
+        bus = events.active_bus() or events.configure(df.session.conf)
+        n_before = len(events.read_events(bus)) if bus.paths else 0
+        reg = telemetry.active_registry()
+        samples0 = reg.samples_taken if reg is not None else 0
+        gov_ms, twin_ms, last = [], [], None
+        for i in range(P34_RUNS):
+            order = ("gov", "twin") if i % 2 == 0 else ("twin", "gov")
+            for which in order:
+                if which == "gov":
+                    last = governed_run(f"{label} governed", df, check)
+                    gov_ms.append(last[0])
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rows = twin.collect()
+                    twin_ms.append((time.perf_counter() - t0) * 1e3)
+                    check(rows, f"{label} twin", None)
+        ms, counts, calls, phases, wall = last
+        bus = events.active_bus()
+        kinds = {}
+        for r in events.read_events(bus)[n_before:]:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        reg = telemetry.active_registry()
+        samples = (reg.samples_taken if reg is not None else 0) - samples0
+        top = df.session.last_query_profile().top_operators()
+        if kinds.get("query_phases") != P34_RUNS or not samples:
+            raise AssertionError(f"{label}: events {kinds}, telemetry "
+                                 f"samples {samples}")
+        recs[label] = {"governed_ms": gov_ms, "twin_ms": twin_ms,
+                       "phases": phases, "wall_ns": wall,
+                       "launches": counts, "ledger_calls": calls,
+                       "events": kinds, "telemetry_samples": samples,
+                       "top_operators": top}
+        print(f"P34 {label}: governed ms {[round(x, 3) for x in gov_ms]}, "
+              f"ungoverned twin ms {[round(x, 3) for x in twin_ms]}; "
+              f"phases (sum == wall {wall} ns) {phases}; ledger calls "
+              f"{calls} == launches; events {kinds}; telemetry samples "
+              f"{samples}; top operators "
+              f"{[(r['op'], r['time_ns']) for r in top]}")
+    telemetry.reset_telemetry()
+    events.reset_event_bus()
+    return recs
+
+
+def p3_session_df(sm, dev, d3, conf):
+    """P3 through the session: q3's lineitems in P3_LINE_BATCHES batches
+    sorted by l_orderkey ASC, l_price DESC, one partition, each input
+    batch its own coalesce target (as the hand-built SortExec sees them)."""
+    schema = q3_schemas("LONG")[1]
+    batches = q3_batches(d3, dev, schema, Q3_LINES, P3_LINE_BATCHES)
+    nbytes = batches[0].nbytes
+    sess = sm.session.TpuSession(dict(conf, **{
+        "spark.rapids.sql.shuffle.partitions": "1",
+        "spark.rapids.sql.batchSizeBytes": str(nbytes)}), dev)
+    return sess.from_batches(batches, schema).sort(
+        ("l_orderkey", True), ("l_price", False))
+
+
+def p2_session_df(sm, dev, d3, conf):
+    """P2 through the session: q3 over P2_LINE_BATCHES lineitem batches,
+    each its own coalesce target."""
+    o_schema, l_schema = q3_schemas("LONG")
+    lines = q3_batches(d3, dev, l_schema, Q3_LINES, P2_LINE_BATCHES)
+    sess = sm.session.TpuSession(dict(conf, **{
+        "spark.rapids.sql.batchSizeBytes": str(lines[0].nbytes)}), dev)
+    return q3_df(sm, sess, q3_batches(d3, dev, o_schema, Q3_ORDERS), lines)
+
+
+def check_sort_rows(rows, d, label):
+    order = np.lexsort((-d["l_price"], d["l_orderkey"]))
+    names = [f.name for f in q3_schemas("LONG")[1].fields]
+    if len(rows) != Q3_LINES:
+        raise AssertionError(f"{label}: {len(rows)} rows, not {Q3_LINES}")
+    for i, name in enumerate(names):
+        got = np.fromiter((r[i] for r in rows), d[name].dtype, len(rows))
+        if not np.array_equal(got, d[name][order]):
+            raise AssertionError(f"{label}: {name} out of order")
+
+
+def retry_run(label, df, check):
+    """One collect() under an armed fault plan; the plan disarmed after.
+    Returns a record: attempts, the faults' stats, launches, ms."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.exec import task_retry
+    wrappers = zero_launches()
+    before = task_retry.task_retry_total()
+    t0 = time.perf_counter()
+    try:
+        rows = df.collect()
+    finally:
+        stats = faults.stats()
+        faults.install(None)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(rows, label)
+    attempts = task_retry.task_retry_total() - before + 1
+    wait_engine_threads(label)
+    check_idle(label)
+    shuffle_root_empty(label)
+    return {"attempts": attempts, "faults": stats, "ms": ms,
+            "launches": {k: w.launches for k, w in wrappers.items()}}
+
+
+def drive_p35(dev, sm, jb, d3, q3_want, q4_want, p2_rec, p3_rec):
+    """P35: P16 (Q4's semi join over 16 host partitions) under a
+    `shuffle.fetch` io fault and a one-shot `device.dispatch` device
+    fault, then P3 (the out-of-core sort, at its device budget and host
+    limit) under a `spill.disk_write` corrupt fault — or P2 (q3 under its
+    budget) when P3 writes no spill file to disk — each with
+    task.maxAttempts 3."""
+    from spark_rapids_tpu_torch import memory as M
+    from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    recs = {}
+    conf = dict(P16_CONF, **{"spark.rapids.tpu.task.maxAttempts": "3",
+                             "spark.rapids.tpu.test.faults": P35_FAULTS})
+    df = q4_df(sm, sm.session.TpuSession(conf, dev), jb, False, sort=False)
+    recs["P16"] = retry_run("P35 P16", df, sorted_rows(q4_want))
+    for label, rec, make in (
+            ("P3", p3_rec, lambda c: p3_session_df(sm, dev, d3, c)),
+            ("P2", p2_rec, lambda c: p2_session_df(sm, dev, d3, c))):
+        c = dict(Q3_CONF, **{
+            "spark.rapids.tpu.task.maxAttempts": "3",
+            "spark.rapids.tpu.test.faults": P35_SPILL_FAULT,
+            "spark.rapids.memory.tpu.budgetBytes": str(rec["budget"]),
+            "spark.rapids.memory.host.spillStorageSize":
+                str(rec["host_limit"])})
+        df = make(c)
+        # the budget and the catalog read the session's conf when made
+        M.reset_memory_budget()
+        M.reset_buffer_catalog()
+        check = ((lambda r, lb: check_sort_rows(r, d3, lb)) if label == "P3"
+                 else (lambda r, lb: check_q3(r, q3_want, lb)))
+        try:
+            run = retry_run(f"P35 {label}", df, check)
+            cat = M.buffer_catalog().counters()
+        finally:
+            # the later paths run under the default budget again
+            set_active_conf(RapidsConf())
+            M.reset_buffer_catalog()
+            M.reset_memory_budget()
+        run.update(budget=rec["budget"], host_limit=rec["host_limit"],
+                   spills=cat)
+        recs[label] = run
+        if run["faults"].get("spill.disk_write"):
+            break
+        print(f"P35 {label}: no spill file written to disk ({cat}); "
+              f"the next path takes the fault")
+    for label, run in recs.items():
+        print(f"P35 {label}: rows equal to the oracle after "
+              f"{run['attempts']} attempts; faults {run['faults']}; "
+              f"{run['ms']:.1f} ms; launches {run['launches']}; catalog "
+              f"empty, no permit held, shuffle root empty")
+    last = list(recs)[-1]
+    if recs["P16"]["attempts"] < 2 or recs[last]["attempts"] < 2 \
+            or not recs[last]["faults"].get("spill.disk_write"):
+        raise AssertionError(f"P35: {recs}")
+    return recs
+
+
+def drive_p36(dev, sm, d3, q3_want):
+    """P36: P11 (q3 over 16 host partitions) cancelled with
+    cancel_query() from a second thread after P36_CANCEL_S, then run
+    under query.timeoutMs P36_TIMEOUT_MS: where each was noticed, the
+    latency to the raise, and the catalog, permits, engine threads and
+    device memory after."""
+    import gc
+    import threading
+    import torch
+    from spark_rapids_tpu_torch.exec.lifecycle import QueryCancelledError
+    o_schema, l_schema = q3_schemas("LONG")
+    orders = q3_batches(d3, dev, o_schema, Q3_ORDERS, P11_ORDER_BATCHES)
+    lines = q3_batches(d3, dev, l_schema, Q3_LINES, P11_LINE_BATCHES)
+    recs = {}
+    for label, extra in (("cancel", {}), ("deadline", {
+            "spark.rapids.tpu.query.timeoutMs": str(P36_TIMEOUT_MS)})):
+        sess = sm.session.TpuSession(dict(P11_CONF, **extra), dev)
+        df = q3_df(sm, sess, orders, lines)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        cancel_at = {}
+
+        def cancel():
+            time.sleep(P36_CANCEL_S)
+            cancel_at["t"] = time.monotonic()
+            cancel_at["n"] = sess.cancel_query()
+
+        canceller = threading.Thread(target=cancel, name="p36-cancel")
+        t0 = time.monotonic()
+        if label == "cancel":
+            canceller.start()
+        try:
+            df.collect()
+            raise AssertionError(f"P36 {label}: the query finished")
+        except QueryCancelledError as e:
+            t_raise = time.monotonic()
+            noticed, reason = e.phase, e.reason
+        if label == "cancel":
+            canceller.join(timeout=30)
+            if canceller.is_alive() or cancel_at.get("n") != 1:
+                raise AssertionError(f"P36: cancel_query() {cancel_at}")
+            start = cancel_at["t"]
+        else:
+            start = t0 + P36_TIMEOUT_MS / 1000.0
+        wait_engine_threads(f"P36 {label}")
+        check_idle(f"P36 {label}")
+        shuffle_root_empty(f"P36 {label}")
+        del df
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        if mem1 != mem0:
+            raise AssertionError(f"P36 {label}: memory_allocated {mem1} "
+                                 f"after, {mem0} before")
+        recs[label] = {"latency_ms": (t_raise - start) * 1e3,
+                       "noticed": noticed, "reason": reason,
+                       "ran_ms": (t_raise - t0) * 1e3,
+                       "memory_allocated": [mem0, mem1]}
+        print(f"P36 {label}: QueryCancelledError ({reason}) noticed in "
+              f"{noticed} {recs[label]['latency_ms']:.1f} ms after the "
+              f"{'cancel' if label == 'cancel' else 'deadline'}, "
+              f"{recs[label]['ran_ms']:.1f} ms after the start; catalog "
+              f"empty, no permit held, no pipeline thread alive, "
+              f"memory_allocated {mem0} before and after")
+    return recs
+
+
+def drive_p37(dev, sm, tm, l19, p19, tb, q19_want, p19_want):
+    """P37: four sessions on four threads under workload.enabled,
+    maxConcurrentQueries 2, queueDepth 4: two interactive sessions run
+    Q19, two batch sessions P19, P37_ROUNDS each. Every result equals its
+    oracle, the grant order equals pick_fair replayed on the recorded
+    arrivals, active_queries() is read mid-flight and health()["slo"]
+    gives the percentiles."""
+    import threading
+    from spark_rapids_tpu_torch.exec import workload
+    from spark_rapids_tpu_torch.obs import telemetry
+    workload.reset_workload()
+    base = {"spark.rapids.tpu.workload.enabled": "true",
+            "spark.rapids.tpu.workload.maxConcurrentQueries": "2",
+            "spark.rapids.tpu.workload.queueDepth": "4",
+            "spark.rapids.tpu.telemetry.enabled": "true",
+            "spark.rapids.tpu.telemetry.intervalMs": "100"}
+    jobs = []
+    for i, prio in enumerate(("interactive", "interactive", "batch",
+                              "batch")):
+        conf = dict(base, **{"spark.rapids.tpu.workload.priority": prio})
+        if prio == "interactive":
+            df = q19_df(sm, sm.session.TpuSession(conf, dev), l19, p19)
+            check = (lambda r, lb: check_q19(r, q19_want[1], q19_want, lb))
+        else:
+            df = q3_types_df(tm, tm.session.TpuSession(
+                dict(P19_CONF, **conf), dev), tb["q3"])
+            check = exact_rows(p19_want)
+        jobs.append((f"{prio}-{i}", df, check))
+    errors, done, seen = [], [], []
+    wrappers = zero_launches()
+
+    def run(tag, df, check):
+        try:
+            for r in range(P37_ROUNDS):
+                check(df.collect(), f"P37 {tag} round {r}")
+                done.append(tag)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append((tag, e))
+
+    threads = [threading.Thread(target=run, args=j, name=f"p37-{j[0]}")
+               for j in jobs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        rows = jobs[0][1].session.active_queries()
+        if len(rows) > len(seen):
+            seen = rows
+        time.sleep(0.005)
+    for t in threads:
+        t.join(timeout=60)
+    ms = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise AssertionError(f"P37: {errors}")
+    log = workload.admission_log()
+    grants = [rec[1] for rec in log if rec[0] == "grant"]
+    if grants != workload.replay_grants(log) or \
+            len(grants) != 4 * P37_ROUNDS:
+        raise AssertionError(f"P37: grants {grants} != pick_fair's "
+                             f"{workload.replay_grants(log)}")
+    slo = jobs[0][1].session.health()["slo"]
+    counts = {k: w.launches for k, w in wrappers.items()}
+    snap = workload.snapshot()
+    telemetry.reset_telemetry()
+    check_idle("P37")
+    if snap["admitted"] or snap["queue_depth"] or not seen:
+        raise AssertionError(f"P37: {snap}, mid-flight {seen}")
+    print(f"P37: {len(done)} queries in {ms:.1f} ms, every result equal to "
+          f"its oracle; grant order {grants} equals pick_fair replayed on "
+          f"the arrivals; counters {snap['counters']}; most queries seen "
+          f"mid-flight {len(seen)}: "
+          f"{[(r['query'], r['phase'], r['current_op']) for r in seen]}; "
+          f"slo {slo}; launches {counts}")
+    return {"ms": ms, "grants": grants, "counters": snap["counters"],
+            "mid_flight": seen, "slo": slo, "launches": counts}
+
+
+def drive_governed_paths(dev, sm, tm, d3, q3_want, l19, p19, q19_want, jb,
+                         tb, types_want, q4_want, p2_rec, p3_rec):
+    """Phase 3j: P34-P37. Returns (records, launches per path)."""
+    o_schema, l_schema = q3_schemas("LONG")
+    orders = q3_batches(d3, dev, o_schema, Q3_ORDERS)
+    lines = q3_batches(d3, dev, l_schema, Q3_LINES)
+
+    def q19_check(rows, label, _metrics=None):
+        check_q19(rows, q19_want[1], q19_want, label)
+
+    dfs_of = {
+        "q3": (sm, lambda c: q3_df(sm, sm.session.TpuSession(
+            dict(Q3_CONF, **c), dev), orders, lines)),
+        "Q19": (sm, lambda c: q19_df(sm, sm.session.TpuSession(c, dev),
+                                     l19, p19)),
+        "P19": (tm, lambda c: q3_types_df(tm, tm.session.TpuSession(
+            dict(Q3_CONF, **c), dev), tb["q3"]))}
+    checks = {"q3": lambda r, lb, _m=None: check_q3(r, q3_want, lb),
+              "Q19": q19_check, "P19": exact_rows(types_want["P19"])}
+    recs = {"P34": drive_p34(dev, sm, tm, dfs_of, checks)}
+    recs["P35"] = drive_p35(dev, sm, jb, d3, q3_want, q4_want, p2_rec,
+                            p3_rec)
+    recs["P36"] = drive_p36(dev, sm, d3, q3_want)
+    recs["P37"] = drive_p37(dev, sm, tm, l19, p19, tb, q19_want,
+                            types_want["P19"])
+    launches = {f"P34_{k}": v["launches"] for k, v in recs["P34"].items()}
+    launches.update({f"P35_{k}": v["launches"]
+                     for k, v in recs["P35"].items()})
+    launches["P37"] = recs["P37"]["launches"]
+    return recs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -8304,6 +8755,14 @@ def main() -> int:
             card=smi)
     print(f"phase 3i: {time.perf_counter() - t_adaptive:.1f} s")
 
+    # -- phase 3j, slice 15: the governed collect -------------------------
+    t_gov = time.perf_counter()
+    with default_conf_after():
+        gov_recs, gov_launches = drive_governed_paths(
+            dev, join_session_modules(), tm, d3, q3_want, l19, p19,
+            q19_want, jb, tb, types_want, q4_oracle(dj), p2_rec, p3_rec)
+    print(f"phase 3j: {time.perf_counter() - t_gov:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -8603,7 +9062,8 @@ def main() -> int:
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in nest_counts.items()},
             **{k.replace(" ", "_"): v.get(r["name"], 0)
-               for k, v in ad_counts.items()}}
+               for k, v in ad_counts.items()},
+            **{k: v.get(r["name"], 0) for k, v in gov_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -8643,7 +9103,8 @@ def main() -> int:
         "nested_paths": dict(nest_recs, counts=nest_counts,
                              ms=nested_ms),
         "adaptive_paths": dict(ad_recs, counts=ad_counts,
-                               ms=adaptive_ms)}}))
+                               ms=adaptive_ms),
+        "governed_paths": gov_recs}}, default=str))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

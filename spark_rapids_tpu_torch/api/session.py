@@ -10,18 +10,37 @@ execute the TpuExec tree on the card.
 The session runs on `cuda` unless it is given `device="cpu"` (the tests
 do); without a card it raises. Its conf is a RapidsConf, made active on
 the calling thread when the session is built and again at every action,
-so the execs built for a query read it at construction.
+so the execs built for a query read it at construction; the same calls
+(re)configure the process planes it names: the event log, telemetry,
+the dispatch ledger and the fault plan.
 
-`collect()` is `TpuOverrides(conf).apply(plan).collect()`, with the exact
-re-run of exec/base.collect. Left out with the governance planes (ROADMAP
-A.9): the lifecycle and workload governors, task retry, phase attribution,
-the query history, telemetry, the faults and the health surfaces
-(`cancel_query`, `health`, `active_queries`, `last_query_profile`).
-`last_query_metrics()` is the executed plan's operator metrics. The other
-methods raise NotImplementedError naming their items: the pandas UDFs
-(A.8 wave 4: they go through pandas and pyarrow, which the machine with
-the card lacks), the other readers (A.8 wave 5) and the writers (Parquet's
-with A.5, the others with A.8 wave 5).
+`collect()` is the governed drive, as the JAX package's:
+
+  * `lifecycle.governed` — one QueryContext for the whole drive, so
+    spark.rapids.tpu.query.timeoutMs bounds its wall-clock and
+    `cancel_query()` unwinds it from another thread;
+  * `workload.admitted` — fair admission when
+    spark.rapids.tpu.workload.enabled;
+  * `with_task_retry` — a transient failure re-runs the plan from the
+    sources, up to spark.rapids.tpu.task.maxAttempts attempts;
+  * the phase ledger (spark.rapids.tpu.phases.enabled) over all of it;
+  * per attempt (`_collect_once`), the events plane's `query_scope`,
+    a fresh RuntimeStats, the plan's `exec/base.collect` (its exact
+    re-run when a speculative tier trips), and the QueryProfile built
+    from the executed plan even when the attempt fails.
+
+The health surfaces: `cancel_query()`, `health()` (breakers, the
+lifecycle counters, the workload governor, telemetry, the dispatch
+ledger, the SLO percentiles, skew), `active_queries()` and
+`last_query_profile()`. `last_query_metrics()` is the executed plan's
+operator metrics; the task-level roll-up (semaphore wait, retries, spill
+volumes) is the profile's `summary`.
+
+The other methods raise NotImplementedError naming their items: the
+pandas UDFs (A.8 wave 4: they go through pandas and pyarrow, which the
+machine with the card lacks), the other readers (A.8 wave 5) and the
+writers (Parquet's with A.5, the others with A.8 wave 5). The query
+history capsules and the stall watchdog wait for A.9b.
 """
 
 from __future__ import annotations
@@ -36,6 +55,19 @@ from ..expr.core import Expression, col, lit
 from ..plan import logical as L
 from ..plan.overrides import TpuOverrides
 from ..types import Schema
+
+
+def _configure_planes(conf: RapidsConf) -> None:
+    """(Re)configure the process-wide planes a conf names: the event
+    log, telemetry, the dispatch ledger and the fault plan."""
+    from .. import faults
+    from ..obs import dispatch as obs_dispatch
+    from ..obs import events as obs_events
+    from ..obs import telemetry
+    obs_events.configure(conf)
+    telemetry.configure(conf)
+    obs_dispatch.configure(conf)
+    faults.configure(conf)
 
 
 def _not_ported(what: str, item: str):
@@ -81,15 +113,23 @@ class TpuSession:
         self.conf = RapidsConf(conf or {})
         self.device = resolve_device(device)
         set_active_conf(self.conf)
+        _configure_planes(self.conf)
         # pre-size the upload staging pool's buckets from batchSizeBytes
         upload.configure(self.conf)
         #: the operator metrics of the last collect()
         self._last_query_metrics = None
+        #: the QueryProfile of the last collect() (obs/profile.py)
+        self._last_query_profile = None
+        #: lifecycle ownership token: every governed collect registers
+        #: its QueryContext under it, so cancel_query() (from any
+        #: thread) finds this session's queries
+        self._lifecycle_owner = object()
 
     def last_query_metrics(self) -> Optional[Dict[str, Dict[str, int]]]:
         """Per operator of the last collect()'s executed plan
         ("<Exec>#<id>"), its metrics. The JAX package's task-level
-        roll-up (semaphore wait, retries, spill volumes) waits for A.9."""
+        roll-up (semaphore wait, retries, spill volumes) is
+        `last_query_profile().summary` (exec/task_metrics.py)."""
         return self._last_query_metrics
 
     # -- ingestion ---------------------------------------------------------
@@ -147,16 +187,47 @@ class TpuSession:
         _not_ported("read_avro", "A.8 wave 5")
 
     def cancel_query(self) -> int:
-        _not_ported("cancel_query", "A.9")
+        """Cooperatively cancel every query this session is running: each
+        blocked or computing thread raises QueryCancelledError at its
+        next batch boundary or wait-loop poll, and the query unwinds
+        through its try/finally chains. Returns the number of queries
+        cancelled (0: none running)."""
+        from ..exec import lifecycle
+        return lifecycle.cancel_owner(self._lifecycle_owner)
 
     def health(self) -> Dict:
-        _not_ported("health", "A.9")
+        """Engine health: the breaker states (with the JAX package's
+        domains the port does not have marked), kernel-family failure
+        counts, governed-query count, the lifecycle counters, the
+        workload governor's queue, telemetry's state and newest sample,
+        the dispatch ledger, the per-priority-class latency percentiles
+        (`slo`) and the recent exchanges' skew (`stats`). `peers` waits
+        for the mesh lane (ROADMAP A.6)."""
+        from ..exec import lifecycle
+        from ..obs import dispatch, telemetry
+        from ..obs import stats as obs_stats
+        out = lifecycle.health()
+        out["telemetry"] = telemetry.health_section()
+        out["dispatch"] = dispatch.health_section()
+        out["peers"] = {"enabled": False, "item": "ROADMAP A.6"}
+        out["slo"] = telemetry.slo_section()
+        out["stats"] = obs_stats.health_section()
+        return out
 
     def active_queries(self) -> List[Dict]:
-        _not_ported("active_queries", "A.9")
+        """One row per in-flight governed query (engine-wide): phase,
+        the operator yielding batches, root batches and rows so far,
+        elapsed and deadline-remaining ms, attempt, spills, and the
+        workload quota when governed; `mine` marks this session's."""
+        from ..exec import lifecycle
+        return lifecycle.active_queries(owner=self._lifecycle_owner)
 
     def last_query_profile(self):
-        _not_ported("last_query_profile", "A.9")
+        """QueryProfile of the most recent collect(): the executed plan
+        annotated with its metrics, `.text()`, `.to_json()`,
+        `.top_operators()`, `.statistics()` and `.phases()`. None before
+        the first collect."""
+        return self._last_query_profile
 
     def _df(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self)
@@ -362,15 +433,105 @@ class DataFrame:
         """The converted plan, under the session's conf."""
         from ..columnar import upload
         set_active_conf(self.session.conf)
+        _configure_planes(self.session.conf)
         upload.configure(self.session.conf)
         return TpuOverrides(self.session.conf).apply(self._plan)
 
     def collect(self) -> List[tuple]:
-        plan = self._exec()
+        """Materialize the results under the governance planes (module
+        docstring): the whole drive — admission, every attempt and its
+        backoff — under one QueryContext and one phase ledger."""
+        import time as _time
+
+        from ..config import PHASES_ENABLED
+        from ..exec import lifecycle, workload
+        from ..exec.task_retry import with_task_retry
+        from ..obs import phase as obs_phase
+        with lifecycle.governed(self.session.conf,
+                                owner=self.session._lifecycle_owner) as ctx:
+            if self.session.conf.get(PHASES_ENABLED):
+                obs_phase.attach(ctx)
+            t0 = _time.perf_counter_ns()
+            ok = False
+            try:
+                with workload.admitted(self.session.conf, ctx):
+                    out = with_task_retry(
+                        lambda attempt: self._collect_once(),
+                        conf=self.session.conf)
+                    ok = True
+                    return out
+            finally:
+                self._finish_query(ctx, ok, _time.perf_counter_ns() - t0)
+
+    def _finish_query(self, ctx, ok: bool, fallback_wall_ns: int) -> None:
+        """Query-end observability, inside collect's finally chain: close
+        the phase ledger, emit `query_phases`, feed the SLO latency ring.
+        Never raises (it would mask the query's exception)."""
+        from ..config import WORKLOAD_PRIORITY
+        from ..exec.workload import PRIORITIES
+        from ..obs import events as obs_events
+        from ..obs import telemetry
         try:
-            return plan.collect()
-        finally:
-            self.session._last_query_metrics = _operator_metrics(plan)
+            priority = str(self.session.conf.get(
+                WORKLOAD_PRIORITY)).strip().lower()
+            if priority not in PRIORITIES:
+                priority = "interactive"
+            ledger = ctx.phase_ledger
+            wall_ns = fallback_wall_ns
+            if ledger is not None:
+                wall_ns = ledger.finish()
+                obs_events.emit(
+                    "query_phases", query=ctx.events_qid or ctx.ctx_id,
+                    ok=ok, wall_ns=wall_ns, attempts=ctx.attempt_no,
+                    priority=priority, phases=ledger.snapshot())
+            if ok:
+                # only completed queries feed the percentiles: a shed or
+                # failed arrival returns in microseconds
+                telemetry.note_query_latency(priority, wall_ns)
+        except Exception:  # noqa: BLE001 — observability never masks
+            pass
+
+    def _collect_once(self) -> List[tuple]:
+        """One attempt: a fresh plan, RuntimeStats and events query id;
+        the profile and metrics are harvested even when it fails."""
+        import time as _time
+
+        from ..exec import lifecycle
+        from ..exec.task_metrics import query_snapshot, query_summary
+        from ..obs import events as obs_events
+        from ..obs.profile import QueryProfile
+        from ..obs.stats import RuntimeStats
+        with obs_events.query_scope() as qid:
+            # conversion inside the scope: planning events carry the id
+            plan = self._exec()
+            ctx = lifecycle.current_context()
+            stats = RuntimeStats()
+            if ctx is not None:
+                ctx.runtime_stats = stats
+                ctx.root_op_id = plan._op_id
+                ctx.events_qid = qid
+            before = query_snapshot()
+            obs_events.emit("query_start", root=type(plan).__name__)
+            t0 = _time.perf_counter_ns()
+            ok = False
+            try:
+                out = plan.collect()
+                ok = True
+                return out
+            finally:
+                try:
+                    self.session._last_query_metrics = \
+                        _operator_metrics(plan)
+                    self.session._last_query_profile = QueryProfile(
+                        plan, query_summary(plan, before),
+                        statistics=stats,
+                        phases=ctx.phase_ledger if ctx is not None
+                        else None)
+                except Exception:  # noqa: BLE001 — must never mask
+                    pass
+                obs_events.emit(
+                    "query_end", root=type(plan).__name__, ok=ok,
+                    wall_ns=_time.perf_counter_ns() - t0)
 
     def _batches(self) -> List[ColumnarBatch]:
         return list(self._exec().execute())

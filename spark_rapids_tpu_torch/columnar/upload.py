@@ -43,8 +43,8 @@ struct as its children's leaves and validity, a map as its keys' and
 values' leaves, offsets and validity). Not ported by design: the TPU's double-double
 f64 staging (`_host_bytes` with `dd`) and PJRT's zero-copy probe
 (`_put_aliased`): the port compares the copy's pointer with the staging
-buffer's. Left out with their modules (ROADMAP A.9): the
-`device.dispatch` fault point and the upload events.
+buffer's. The one copy is the `device.dispatch` fault point
+(faults.py), and each upload is an `upload` event.
 """
 
 from __future__ import annotations
@@ -396,12 +396,15 @@ def metric_sink(num_metric, time_metric):
         _TLS.sink = prev
 
 
-def _record(nbytes: int, pack_ns: int) -> None:
+def _record(nbytes: int, pack_ns: int, seam: str = "scan") -> None:
     _note(uploads=1, transfers=1, bytes=nbytes, pack_ns=pack_ns)
     sink = getattr(_TLS, "sink", None)
     if sink is not None:
         sink[0].add(1)
         sink[1].add(pack_ns)
+    from ..obs import events as obs_events
+    obs_events.emit("upload", lane="packed", seam=seam, bytes=nbytes,
+                    transfers=1, pack_ns=pack_ns)
 
 
 def _one_transfer(pool: StagingPool, buf: torch.Tensor, total: int,
@@ -412,6 +415,8 @@ def _one_transfer(pool: StagingPool, buf: torch.Tensor, total: int,
     it, or if the copy failed)."""
     src = buf[:total]
     try:
+        from .. import faults
+        faults.check("device.dispatch")
         out = src.to(device, non_blocking=True)
         event = None
         if out.is_cuda:
@@ -547,6 +552,8 @@ def upload_leaves(host_leaves: Sequence[torch.Tensor], device
     total = _leaves_nbytes(leaves)
     packed = _packed_buffer(leaves, total)
     if packed is not None:
+        from .. import faults
+        faults.check("device.dispatch")
         out = packed.to(dev, non_blocking=True)
     else:
         pool = staging_pool()
@@ -559,5 +566,5 @@ def upload_leaves(host_leaves: Sequence[torch.Tensor], device
             pool.discard(buf)
             raise
         out, _ = _one_transfer(pool, buf, total, dev)
-    _record(total, time.perf_counter_ns() - t0)
+    _record(total, time.perf_counter_ns() - t0, seam="unspill")
     return _leaf_views(out, leaves)

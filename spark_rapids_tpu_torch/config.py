@@ -32,22 +32,27 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.shuffle.planExchange` | A.6 (the mesh planner) | any: there is no mesh, as in the JAX package without one |
 | `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
 | `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
-| `sql.debug.dumpPath`, `tpu.test.faults` | A.9 (faults) | default |
-| `tpu.profile.{enabled,dir}`, `sql.metrics.level`, `tpu.eventLog.{enabled,dir,level,maxBytes}`, `tpu.dispatch.storm.{traces,windowMs}`, `tpu.telemetry.{enabled,intervalMs,historySize}`, `tpu.history.{enabled,dir,maxBytes}` | A.9 (obs) | default |
-| `tpu.dispatch.ledger.enabled`, `tpu.phases.enabled` | A.9 (obs) | true, false |
-| `tpu.task.maxAttempts` | A.9 (task_retry) | default, 1 |
-| `tpu.task.retryBackoffMs` | A.9 (task_retry) | default |
-| `tpu.task.partitionRecovery.enabled` | A.9 (lifecycle) | any: recovery changes no result |
-| `tpu.query.{timeoutMs,cancelCheckBatches}`, `tpu.breaker.{enabled,threshold,windowMs,cooldownMs}` | A.9 (lifecycle) | default |
-| `tpu.stall.{timeoutMs,action}`, `tpu.shuffle.speculation.{enabled,multiplier,minMs,maxInFlight}`, `tpu.dispatch.timeoutMs` | A.9 (speculation_shield) | default |
-| `tpu.adaptive.{skewedPartitionFactor,skewedPartitionMinBytes,coalesceTargetBytes}` | A.9 (adaptive) | default |
-| `tpu.workload.{enabled,maxConcurrentQueries,queueDepth,admissionTimeoutMs,memoryQuotaFraction,priority}` | A.9 (workload) | default |
+| `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
+| `tpu.history.{enabled,dir,maxBytes}` | A.9b (obs/history.py) | default |
+| `tpu.task.partitionRecovery.enabled` | A.9b (the shuffle's lineage recovery) | any: recovery changes no result |
+| `tpu.stall.{timeoutMs,action}`, `tpu.shuffle.speculation.{enabled,multiplier,minMs,maxInFlight}`, `tpu.dispatch.timeoutMs` | A.9b (speculation_shield) | default |
+| `tpu.adaptive.{skewedPartitionFactor,skewedPartitionMinBytes,coalesceTargetBytes}` | A.9b (the exchange's adaptive decisions) | default |
+
+The governance planes read their entries where the JAX package does:
+`tpu.test.faults` (faults.configure), `tpu.eventLog.*`
+(obs/events.configure), `tpu.telemetry.*` (obs/telemetry.configure),
+`tpu.dispatch.ledger.enabled` and `tpu.dispatch.storm.*`
+(obs/dispatch.configure), `tpu.profile.*` (utils/tracing.profile_trace),
+`sql.metrics.level` (TpuExec.all_metrics and the query profile),
+`tpu.phases.enabled`, `tpu.task.*`, `tpu.query.*`, `tpu.breaker.*` and
+`tpu.workload.*` (the governed `DataFrame.collect()`: exec/lifecycle.py,
+exec/workload.py, exec/task_retry.py).
 
 The planner reads `tpu.adaptive.enabled` and
 `adaptive.autoBroadcastMaxBytes` for the broadcast cap, as the JAX
 package's `_convert_join` does, and AdaptiveJoinExec reads them for its
 measured demotion (exec/adaptive.py); the exchange's decisions (skew
-splits, coalesced reads) wait for A.9 and change no result. The planner
+splits, coalesced reads) wait for A.9b and change no result. The planner
 reads `sql.cpuFallback.enabled` (a Project or Filter without a device
 path runs on the host row engine), `sql.optimizer.enabled` (the
 cost-based placement, plan/cost.py) and `sql.udfCompiler.enabled` (the
@@ -963,11 +968,9 @@ AGG_ROUNDS = conf_int(
 # --- what the port honours of the entries it does not read yet -----------
 
 _ANY = None
-_A9_OBS = "ROADMAP A.9 (obs)"
-_A9_LIFE = "ROADMAP A.9 (lifecycle)"
-_A9_SHIELD = "ROADMAP A.9 (speculation_shield)"
-_A9_ADAPT = "ROADMAP A.9 (adaptive)"
-_A9_WORK = "ROADMAP A.9 (workload)"
+_A9B_HISTORY = "ROADMAP A.9b (obs/history.py)"
+_A9B_SHIELD = "ROADMAP A.9b (speculation_shield)"
+_A9B_ADAPT = "ROADMAP A.9b (the exchange's adaptive decisions)"
 _BY_DESIGN = "ROADMAP A, not ported by design: the port has no tier switch"
 
 #: key -> (item, honoured values besides the default; _ANY = every value)
@@ -988,50 +991,22 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     SHUFFLE_PLAN_EXCHANGE.key: ("ROADMAP A.6", _ANY),
     UPLOAD_PACKED.key: ("ROADMAP A.5", ()),
     PARQUET_REBASE_MODE_READ.key: ("ROADMAP A.8", ()),
-    DEBUG_DUMP_PATH.key: ("ROADMAP A.9 (faults)", ()),
-    TEST_FAULTS.key: ("ROADMAP A.9 (faults)", ()),
-    PROFILE_ENABLED.key: (_A9_OBS, ()),
-    PROFILE_DIR.key: (_A9_OBS, ()),
-    METRICS_LEVEL.key: (_A9_OBS, ()),
-    EVENT_LOG_ENABLED.key: (_A9_OBS, ()),
-    EVENT_LOG_DIR.key: (_A9_OBS, ()),
-    EVENT_LOG_LEVEL.key: (_A9_OBS, ()),
-    EVENT_LOG_MAX_BYTES.key: (_A9_OBS, ()),
-    DISPATCH_STORM_TRACES.key: (_A9_OBS, ()),
-    DISPATCH_STORM_WINDOW_MS.key: (_A9_OBS, ()),
-    TELEMETRY_ENABLED.key: (_A9_OBS, ()),
-    TELEMETRY_INTERVAL_MS.key: (_A9_OBS, ()),
-    TELEMETRY_HISTORY_SIZE.key: (_A9_OBS, ()),
-    HISTORY_ENABLED.key: (_A9_OBS, ()),
-    HISTORY_DIR.key: (_A9_OBS, ()),
-    HISTORY_MAX_BYTES.key: (_A9_OBS, ()),
-    DISPATCH_LEDGER_ENABLED.key: (_A9_OBS, (False,)),
-    PHASES_ENABLED.key: (_A9_OBS, (False,)),
-    TASK_MAX_ATTEMPTS.key: ("ROADMAP A.9 (task_retry)", (1,)),
-    TASK_RETRY_BACKOFF_MS.key: ("ROADMAP A.9 (task_retry)", ()),
-    PARTITION_RECOVERY_ENABLED.key: (_A9_LIFE, _ANY),
-    QUERY_TIMEOUT_MS.key: (_A9_LIFE, ()),
-    QUERY_CANCEL_CHECK_BATCHES.key: (_A9_LIFE, ()),
-    BREAKER_ENABLED.key: (_A9_LIFE, ()),
-    BREAKER_THRESHOLD.key: (_A9_LIFE, ()),
-    BREAKER_WINDOW_MS.key: (_A9_LIFE, ()),
-    BREAKER_COOLDOWN_MS.key: (_A9_LIFE, ()),
-    STALL_TIMEOUT_MS.key: (_A9_SHIELD, ()),
-    STALL_ACTION.key: (_A9_SHIELD, ()),
-    SHUFFLE_SPECULATION_ENABLED.key: (_A9_SHIELD, ()),
-    SHUFFLE_SPECULATION_MULTIPLIER.key: (_A9_SHIELD, ()),
-    SHUFFLE_SPECULATION_MIN_MS.key: (_A9_SHIELD, ()),
-    SHUFFLE_SPECULATION_MAX_INFLIGHT.key: (_A9_SHIELD, ()),
-    DISPATCH_TIMEOUT_MS.key: (_A9_SHIELD, ()),
-    ADAPTIVE_SKEW_FACTOR.key: (_A9_ADAPT, ()),
-    ADAPTIVE_SKEW_MIN_BYTES.key: (_A9_ADAPT, ()),
-    ADAPTIVE_COALESCE_TARGET_BYTES.key: (_A9_ADAPT, ()),
-    WORKLOAD_ENABLED.key: (_A9_WORK, ()),
-    WORKLOAD_MAX_CONCURRENT.key: (_A9_WORK, ()),
-    WORKLOAD_QUEUE_DEPTH.key: (_A9_WORK, ()),
-    WORKLOAD_ADMISSION_TIMEOUT_MS.key: (_A9_WORK, ()),
-    WORKLOAD_MEMORY_QUOTA_FRACTION.key: (_A9_WORK, ()),
-    WORKLOAD_PRIORITY.key: (_A9_WORK, ()),
+    DEBUG_DUMP_PATH.key: ("ROADMAP A.9c (utils/dump.py)", ()),
+    HISTORY_ENABLED.key: (_A9B_HISTORY, ()),
+    HISTORY_DIR.key: (_A9B_HISTORY, ()),
+    HISTORY_MAX_BYTES.key: (_A9B_HISTORY, ()),
+    PARTITION_RECOVERY_ENABLED.key: ("ROADMAP A.9b (lineage recovery)",
+                                     _ANY),
+    STALL_TIMEOUT_MS.key: (_A9B_SHIELD, ()),
+    STALL_ACTION.key: (_A9B_SHIELD, ()),
+    SHUFFLE_SPECULATION_ENABLED.key: (_A9B_SHIELD, ()),
+    SHUFFLE_SPECULATION_MULTIPLIER.key: (_A9B_SHIELD, ()),
+    SHUFFLE_SPECULATION_MIN_MS.key: (_A9B_SHIELD, ()),
+    SHUFFLE_SPECULATION_MAX_INFLIGHT.key: (_A9B_SHIELD, ()),
+    DISPATCH_TIMEOUT_MS.key: (_A9B_SHIELD, ()),
+    ADAPTIVE_SKEW_FACTOR.key: (_A9B_ADAPT, ()),
+    ADAPTIVE_SKEW_MIN_BYTES.key: (_A9B_ADAPT, ()),
+    ADAPTIVE_COALESCE_TARGET_BYTES.key: (_A9B_ADAPT, ()),
 }
 
 

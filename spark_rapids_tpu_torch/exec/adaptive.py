@@ -8,14 +8,14 @@ build side fits the broadcast threshold but MEASURES over
 ``adaptive.autoBroadcastMaxBytes`` is demoted to the sub-partitioned
 strategy before any OOM retry. `skew_threshold` and `coalesce_groups`
 are the exchange's decisions, ported as functions; the exchange that
-consults them waits for ROADMAP A.9, as does ``batch_right_size``.
+consults them waits for ROADMAP A.9b, as does ``batch_right_size``.
 
-Named hooks that wait for A.9: the `adaptive` breaker domain
-(`lifecycle.breaker_allows`, `record_domain_failure`, `engage_domain`),
-the `adaptive_replan` / `adaptive_demote` events (`obs.events`) and the
-workload governor's quota share (`workload.quota_bytes`). So `consult`
-checks the conf alone, `demote_cap` gives the conf's cap, and the
-`note_*` functions count.
+`consult` is gated by the conf and by the `adaptive` breaker domain
+(exec/lifecycle.py): a breaker refusal is counted and emitted as an
+`adaptive_demote`. An applied decision is an `adaptive_replan` event and
+engages the domain for the attempt; a consult-path failure counts
+against it. `demote_cap` takes the tighter of the conf's cap and the
+workload governor's quota share of the admitting query.
 """
 
 from __future__ import annotations
@@ -84,33 +84,58 @@ def reset_adaptive() -> None:
 # -- gate --------------------------------------------------------------------
 
 def consult(conf, op: str = "", op_id: int = -1) -> bool:
-    """May adaptive decisions apply here? The conf on (the `adaptive`
-    breaker domain, which can also refuse in the JAX package, waits for
-    A.9)."""
+    """May adaptive decisions apply here? The conf on and the `adaptive`
+    breaker closed; a breaker refusal is a demotion, counted and
+    emitted."""
     from ..config import ADAPTIVE_ENABLED
     if not conf.get(ADAPTIVE_ENABLED):
+        return False
+    from . import lifecycle
+    if not lifecycle.breaker_allows("adaptive"):
+        _note(breaker_demotions=1)
+        from ..obs import events as obs_events
+        obs_events.emit("adaptive_demote", exec=op, op_id=op_id,
+                        decision="lane", reason="breaker_open")
         return False
     _note(consults=1)
     return True
 
 
 def note_error(op: str = "", op_id: int = -1, error: str = "") -> None:
-    """A consult-path failure, counted (the breaker's domain failure and
-    the event wait for A.9)."""
+    """A consult-path failure: the replanner must never take a query
+    down, so callers fall back to the static plan and record the
+    failure against the `adaptive` breaker domain here."""
     _note(errors=1)
+    from . import lifecycle
+    lifecycle.record_domain_failure("adaptive")
+    from ..obs import events as obs_events
+    obs_events.emit("adaptive_demote", exec=op, op_id=op_id,
+                    decision="lane", reason="error",
+                    error=str(error)[:200])
 
 
 def note_decision(decision: str, op: str = "", op_id: int = -1,
                   **evidence) -> None:
-    """One applied decision, counted."""
+    """One applied decision: counted, emitted with its evidence, and the
+    breaker domain engaged for the attempt."""
     _note(**{_DECISION_COUNTER[decision]: 1})
+    from ..obs import events as obs_events
+    obs_events.emit("adaptive_replan", exec=op, op_id=op_id,
+                    decision=decision, **evidence)
+    from . import lifecycle
+    lifecycle.engage_domain("adaptive")
 
 
 def note_demote(decision: str, op: str = "", op_id: int = -1,
                 **evidence) -> None:
     """A strategy demotion: a planned cheap strategy measured
-    unaffordable and the safe one was chosen. Counted."""
+    unaffordable and the safe one was chosen. Counted and emitted."""
     _note(**{_DECISION_COUNTER[decision]: 1})
+    from ..obs import events as obs_events
+    obs_events.emit("adaptive_demote", exec=op, op_id=op_id,
+                    decision=decision, **evidence)
+    from . import lifecycle
+    lifecycle.engage_domain("adaptive")
 
 
 # -- decision 1: skewed-reducer splitting ------------------------------------
@@ -123,7 +148,7 @@ def skew_threshold(per_part_bytes: Sequence[int], factor: float,
     it to zero and flag everything). `factor` and `min_bytes` are
     adaptive.skewedPartitionFactor and skewedPartitionMinBytes, which the
     JAX package reads here from the conf: in the port the exchange that
-    consults this (A.9) reads them at its construction, as every conf the
+    consults this (A.9b) reads them at its construction, as every conf the
     port honours is read."""
     if factor <= 0:
         return None
@@ -145,12 +170,17 @@ def auto_broadcast_max(conf) -> int:
 
 def demote_cap(conf) -> Optional[Tuple[int, str]]:
     """(cap_bytes, basis) a measured build side must stay under to keep a
-    single-build plan: adaptive.autoBroadcastMaxBytes (basis "conf"), or
-    None when it is off. The JAX package also takes the admitting
-    ticket's workload quota share when tighter (basis "quota"); the
-    governor waits for A.9."""
+    single-build plan: the tighter of adaptive.autoBroadcastMaxBytes
+    (basis "conf") and the admitting ticket's workload quota share
+    (basis "quota"); None when neither bound applies."""
     cap = auto_broadcast_max(conf)
-    return (cap, "conf") if cap >= 0 else None
+    bound = (cap, "conf") if cap >= 0 else None
+    from ..memory.budget import memory_budget
+    from . import workload
+    share = workload.quota_bytes(memory_budget().limit)
+    if share is not None and (bound is None or share < bound[0]):
+        bound = (share, "quota")
+    return bound
 
 
 # -- decision 3: tiny-partition coalescing -----------------------------------

@@ -1,21 +1,34 @@
 """TpuExec — base of the columnar operator tree, the counterpart of
-spark_rapids_tpu/exec/base.py (lean: the metrics the ported execs record,
-and no event log, lifecycle or dispatch plane yet).
+spark_rapids_tpu/exec/base.py.
 
 Operators form a tree; `execute()` returns an iterator of ColumnarBatch.
+Every pull of a batch runs under the governance planes, each one pointer
+check when off: the governed query's cancellation tick
+(exec/lifecycle.py), a profiler range of the operator's name
+(utils/tracing.annotate_op), the dispatch ledger's exec scope, which is
+the operator's `device-compute` phase span (obs/dispatch.py), and the
+event log's op_open / op_batch / op_close / op_error records
+(obs/events.py). Metrics carry the JAX package's visibility levels
+(ESSENTIAL / MODERATE / DEBUG, by name: `METRIC_LEVELS`), cut by
+spark.rapids.sql.metrics.level in `all_metrics()` and the query profile.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.encoded import materialize_batch
 from ..types import Schema
+
+# the three-level scale of obs/events.py
+ESSENTIAL = 0
+MODERATE = 1
+DEBUG = 2
 
 NUM_OUTPUT_ROWS = "numOutputRows"
 AGG_TIME = "computeAggTime"
@@ -34,16 +47,32 @@ UPLOAD_METRICS = (NUM_UPLOADS, UPLOAD_PACK_TIME)
 #: per-operator ids (the admission semaphore's task ids, stage labels)
 _OP_IDS = itertools.count(1)
 
+#: metric name -> its visibility level where it is not MODERATE (the
+#: levels the JAX package's execs register these names at)
+METRIC_LEVELS = {NUM_OUTPUT_ROWS: ESSENTIAL, "numOutputBatches": ESSENTIAL,
+                 "partitionSize": ESSENTIAL, "numInputRows": DEBUG,
+                 "numInputBatches": DEBUG}
+
+
+def metrics_level_from_conf(conf=None) -> int:
+    """spark.rapids.sql.metrics.level as an int (unknown: MODERATE)."""
+    from ..config import METRICS_LEVEL, active_conf
+    from ..obs.events import parse_level
+    conf = conf if conf is not None else active_conf()
+    return parse_level(conf.get(METRICS_LEVEL))
+
 
 class TpuMetric:
     """Accumulating operator metric. Device-produced values (a row count
     on the card) accumulate lazily and are read only when the metric is,
     so the batch loop never waits for the device."""
 
-    __slots__ = ("name", "_value", "_pending")
+    __slots__ = ("name", "level", "_value", "_pending")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, level: Optional[int] = None):
         self.name = name
+        self.level = METRIC_LEVELS.get(name, MODERATE) if level is None \
+            else level
         self._value = 0
         self._pending: List[torch.Tensor] = []
 
@@ -100,8 +129,9 @@ class TpuExec:
         self._op_id = next(_OP_IDS)
         self.metrics: Dict[str, TpuMetric] = {
             NUM_OUTPUT_ROWS: TpuMetric(NUM_OUTPUT_ROWS)}
-        for name in self.additional_metrics():
-            self.metrics[name] = TpuMetric(name)
+        for spec in self.additional_metrics():
+            name, level = spec if isinstance(spec, tuple) else (spec, None)
+            self.metrics[name] = TpuMetric(name, level)
 
     @property
     def output_schema(self) -> Schema:
@@ -168,20 +198,73 @@ class TpuExec:
         return self._execute(self._encoded_ok_for_parent)
 
     def _execute(self, encoded_out: bool) -> Iterator[ColumnarBatch]:
+        from ..obs import events as obs_events
+        from . import lifecycle
         self.stamp_inputs()
-        rows = self.metrics[NUM_OUTPUT_ROWS]
         it = self.internal_execute()
         try:
-            for batch in it:
-                if not encoded_out:
-                    batch = materialize_batch(batch)
+            yield from self._drive(it, encoded_out,
+                                   obs_events.active_bus(),
+                                   lifecycle.current_context())
+        finally:
+            it.close()
+
+    def _drive(self, it, encoded_out: bool, bus, qctx
+               ) -> Iterator[ColumnarBatch]:
+        from ..obs import dispatch as obs_dispatch
+        from ..utils.tracing import annotate_op
+        rows = self.metrics[NUM_OUTPUT_ROWS]
+        name = type(self).__name__
+        dev = self.device
+        dev_type = torch.device(dev).type if dev is not None else "cuda"
+        total_ns = nbatches = 0
+        if bus is not None:
+            bus.emit("op_open", op=name, op_id=self._op_id)
+            rows_at_open = rows.value
+            emit_batches = bus.level >= DEBUG
+        try:
+            while True:
+                if qctx is not None:
+                    # the governed query's cancellation tick
+                    qctx.tick()
+                t0 = time.perf_counter_ns()
+                with annotate_op(name), \
+                        obs_dispatch.exec_scope(name, dev_type) as scope:
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    except Exception:
+                        if bus is not None:
+                            bus.emit("op_error", op=name, op_id=self._op_id)
+                        raise
+                    if not encoded_out:
+                        batch = materialize_batch(batch)
+                    if scope is not None:
+                        scope.count()
+                        scope.bucket = obs_dispatch.shape_bucket(
+                            (batch.capacity,))
+                step_ns = time.perf_counter_ns() - t0
+                total_ns += step_ns
+                nbatches += 1
                 if batch._host_rows is not None:
                     rows.add(batch._host_rows)
                 else:
                     rows.add_device(batch.num_rows)
+                if qctx is not None:
+                    qctx.note_batch(name, self._op_id, batch._host_rows)
+                if bus is not None and emit_batches:
+                    bus.emit("op_batch", op=name, op_id=self._op_id,
+                             wall_ns=step_ns, rows=batch._host_rows)
                 yield batch
         finally:
-            it.close()
+            if bus is not None:
+                try:
+                    out_rows = rows.value - rows_at_open
+                except Exception:  # noqa: BLE001 — close is best-effort
+                    out_rows = None
+                bus.emit("op_close", op=name, op_id=self._op_id,
+                         wall_ns=total_ns, batches=nbatches, rows=out_rows)
 
     @property
     def device(self):
@@ -190,6 +273,28 @@ class TpuExec:
             if c.device is not None:
                 return c.device
         return None
+
+    def node_description(self) -> str:
+        return type(self).__name__
+
+    def all_metrics(self, level: Optional[int] = None) -> Dict[str, int]:
+        """Flat per-operator metric values (`<Exec>[i]/.../<Exec>.<name>`,
+        the child ordinal disambiguating siblings of one class), cut to
+        entries at or below `level` (None: spark.rapids.sql.metrics.level
+        of the active conf)."""
+        if level is None:
+            level = metrics_level_from_conf()
+        out: Dict[str, int] = {}
+
+        def walk(node, path, label):
+            for name, m in node.metrics.items():
+                if m.level <= level:
+                    out[f"{path}{label}.{name}"] = m.value
+            for i, c in enumerate(node.children):
+                walk(c, f"{path}{label}/", f"{type(c).__name__}[{i}]")
+
+        walk(self, "", type(self).__name__)
+        return out
 
     @property
     def child(self) -> "TpuExec":

@@ -9,8 +9,9 @@ than the catalog allows, and the concat runs under `with_retry_no_split`.
 A batch counts its bytes at capacity, every leaf included
 (`ColumnarBatch.nbytes`, the JAX package's `device_size_bytes`).
 
-Left out with their modules (ROADMAP A.9): the adaptive batch target
-after an OOM split, and the dispatch metrics.
+Left out with its module (ROADMAP A.9b): the adaptive batch target
+after an OOM split. Its dispatches are the dispatch ledger's exec scope
+(obs/dispatch.py), as every exec's are.
 """
 
 from __future__ import annotations

@@ -31,10 +31,18 @@ go once every partition stream is done and the outer stream is
 exhausted, or at once when the write phase raises or the outer stream is
 closed early.
 
+Each map write's wall is the `host-pack-serialize` phase but for the
+writer's file IO, which is `shuffle-io`; its per-partition row counts
+(the split's count table, already on the host) and byte counts (the
+serializer's offsets) feed the query's RuntimeStats through an
+ExchangeRecorder (obs/stats.py), with no new host read; each map task is
+an `exchange` and a `shuffle_write` event, and the execution one
+`exchange_stats` event.
+
 Left out: the mesh exchange ShuffleExchangeExec and the ICI lane (ROADMAP
 A.6); the lineage capture and partition recompute, the adaptive read
 plan (skew splits, coalescing) and ShuffledHashJoinExec's single-build
-conversion, the runtime statistics and the `obs` events (ROADMAP A.9).
+conversion (ROADMAP A.9b).
 """
 
 from __future__ import annotations
@@ -308,7 +316,8 @@ class HostShuffleExchangeExec(TpuExec):
     def _write_map(self, b: ColumnarBatch, n: int, range_bounds, handle,
                    mgr, map_id: int):
         """Partition, serialize and write one map task's output on its
-        lane. Returns the writer."""
+        lane. Returns (the writer, the lane, the split's ns, the rows of
+        each partition)."""
         from ..shuffle.manager import (HostShuffleWriter, note_shuffle,
                                        partition_batch_host)
         writer = HostShuffleWriter(handle, map_id, mgr, self.codec,
@@ -316,7 +325,7 @@ class HostShuffleExchangeExec(TpuExec):
         if not n:
             # an empty batch: zero frames, no partitioning work
             writer.write([[] for _ in range(self.n_partitions)])
-            return writer
+            return writer, "host", 0, [0] * self.n_partitions
         self.metrics[NUM_MAPS_WITH_ROWS].add(1)
         if self.partitioning != "range":
             t0 = time.perf_counter_ns()
@@ -326,14 +335,14 @@ class HostShuffleExchangeExec(TpuExec):
             note_shuffle(pack_ns=pack_ns)
             writer.write_slices(ColumnarBatch(cols, n, self.output_schema),
                                 bounds)
-            return writer
+            return writer, "device", pack_ns, np.diff(bounds).tolist()
         from ..columnar.transfer import fetch_batch_host
         cols, _ = fetch_batch_host(b)
         host = ColumnarBatch(cols, n, self.output_schema)
         pid = self._pid_for(host, n, range_bounds)
         parts = partition_batch_host(host, pid, self.n_partitions)
         writer.write([[p] if p.num_rows_host else [] for p in parts])
-        return writer
+        return writer, "host", 0, [p.num_rows_host for p in parts]
 
     # -- the range lane ----------------------------------------------------
     def _host_keys(self, batch: ColumnarBatch, n: int, stride: int = 1):
@@ -474,8 +483,15 @@ class HostShuffleExchangeExec(TpuExec):
             raise
 
     def _write_phase(self, source, bounds, handle, mgr) -> None:
+        from ..obs import events as obs_events
+        from ..obs import phase as obs_phase
+        from ..obs import stats as obs_stats
+        from ..obs import telemetry
         in_batches = self.metrics[NUM_INPUT_BATCHES]
         in_rows = self.metrics[NUM_INPUT_ROWS]
+        name = type(self).__name__
+        stats_rec = obs_stats.ExchangeRecorder(name, self._op_id,
+                                               self.n_partitions)
         map_id = 0
         try:
             for b in source:
@@ -484,10 +500,28 @@ class HostShuffleExchangeExec(TpuExec):
                 in_batches.add(1)
                 n = b.num_rows_host
                 in_rows.add(n)
-                # time the shuffle's own work, not the child's compute
-                with self.metrics[SHUFFLE_WRITE_TIME].ns_timer():
-                    writer = self._write_map(b, n, bounds, handle, mgr,
-                                             map_id)
+                # time the shuffle's own work, not the child's compute;
+                # the writer's file IO is carved out of the span
+                with self.metrics[SHUFFLE_WRITE_TIME].ns_timer(), \
+                        obs_phase.span("host-pack-serialize"):
+                    writer, lane, pack_ns, rows_pp = self._write_map(
+                        b, n, bounds, handle, mgr, map_id)
+                    obs_phase.add("shuffle-io", writer.io_ns)
+                stats_rec.record_map(rows_pp, writer.partition_bytes,
+                                     writer.bytes_written)
+                telemetry.add("exchange.write_bytes", writer.bytes_written)
+                obs_events.emit("exchange", exec=name, op_id=self._op_id,
+                                map_id=map_id,
+                                partitions=self.n_partitions,
+                                bytes=writer.bytes_written,
+                                partitioning=self.partitioning)
+                obs_events.emit("shuffle_write", exec=name,
+                                op_id=self._op_id, map_id=map_id,
+                                lane=lane, bytes=writer.bytes_written,
+                                frames=writer.frames_written,
+                                pack_ns=pack_ns,
+                                serialize_ns=writer.serialize_ns,
+                                io_ns=writer.io_ns)
                 self.metrics[PARTITION_SIZE].add(writer.bytes_written)
                 self.metrics[SHUFFLE_SERIALIZE_TIME].add(writer.serialize_ns)
                 self.metrics[SHUFFLE_COMPRESS_TIME].add(writer.compress_ns)
@@ -495,6 +529,7 @@ class HostShuffleExchangeExec(TpuExec):
                 self.metrics[NUM_FRAMES].add(writer.frames_written)
                 self.metrics[RAW_BYTES].add(writer.raw_bytes)
                 map_id += 1
+            stats_rec.finish_and_emit()
         finally:
             close = getattr(source, "close", None)
             if close is not None:
@@ -602,7 +637,7 @@ class ShuffledHashJoinExec(TpuExec):
     build-preserving outer join), an empty stream side where no unmatched
     build row is (everything but a build-preserving outer join). No
     kernel launches on zero rows there. Left out: the adaptive
-    single-build conversion (ROADMAP A.9)."""
+    single-build conversion (ROADMAP A.9b)."""
 
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: Sequence[Expression],

@@ -19,17 +19,23 @@ Contracts (tests/test_torch_pipeline.py):
 
 The consumer's thread-local state is captured when the stage is built and
 installed on the producer: the active conf (config.active_conf), the
-speculation scope and `forced_exact`
-(exec/speculation.py) and the retry runtime's task state
-(memory/retry.py), so that work behind the boundary records its flags into
-the consumer's scope and runs as the consumer's task.
+speculation scope and `forced_exact` (exec/speculation.py), the retry
+runtime's task state (memory/retry.py), the events query id, the task
+attempt (exec/task_retry.py) and the governed query's context and
+engagement notes (exec/lifecycle.py), so that work behind the boundary
+records into the consumer's scope, runs as the consumer's task and
+attempt, and notices the query's cancellation.
 
-The boundary counts the consumer's stall on an empty queue (`wait_ns`)
-and the producer's on a full one (`full_ns`), into the owning exec's
-pipelineWaitNs / pipelineFullWaitNs / pipelineWallNs metrics when given.
-Left out with their modules (ROADMAP A.9): the `pipeline.produce` fault
-point, the lifecycle governor's cancellation checks, the task-retry
-attempt carried into the producer, the query id and the pipeline events.
+The boundary counts the consumer's stall on an empty queue (`wait_ns`,
+also the `pipeline-stall` phase, the budget producer-thread accruals fold
+into) and the producer's on a full one (`full_ns`), into the owning
+exec's pipelineWaitNs / pipelineFullWaitNs / pipelineWallNs metrics when
+given, and emits `pipeline_wait` / `pipeline_full` when the stage ends
+and `pipeline_stuck` when close() leaves a wedged producer behind. Each
+producer step is the `pipeline.produce` fault point, keyed by the stage
+label. A cancelled query's producer stops starting work and carries the
+cancellation to the consumer, whose wait checks it too
+(`pipeline-wait`).
 """
 
 from __future__ import annotations
@@ -145,8 +151,15 @@ class PipelinedIterator:
         self.batches = 0
         self._t0 = time.perf_counter_ns()
         # the consumer's thread-local state, captured on its thread
+        from ..obs import events as obs_events
+        from . import lifecycle
+        from .task_retry import capture_attempt
         self._spec_ctx = capture_context()
         self._task_state = capture_task_state()
+        self._qid = obs_events.current_query_id()
+        self._attempt = capture_attempt()
+        self._lctx = lifecycle.current_context()
+        self._engaged = lifecycle.capture_engagement()
         self._thread = threading.Thread(
             target=self._run, name=f"pipeline-{label}", daemon=True)
         self._thread.start()
@@ -157,16 +170,32 @@ class PipelinedIterator:
         # in iter(source) must still post _END, or the consumer waits
         # forever
         it = None
+        lctx = self._lctx
         try:
+            from .. import faults
             from ..memory.retry import adopt_task_state
+            from ..obs import events as obs_events
+            from . import lifecycle
             from .speculation import adopt_context
+            from .task_retry import adopt_attempt
             set_active_conf(self._conf)
             adopt_context(*self._spec_ctx)
             adopt_task_state(self._task_state)
+            obs_events.adopt_query_id(self._qid)
+            adopt_attempt(self._attempt)
+            lifecycle.adopt_context(lctx)
+            lifecycle.adopt_engagement(self._engaged)
             _tls.cancel_event = self._closed
             it = iter(self._source)
             while not self._closed.is_set():
+                if lctx is not None and lctx.cancelled():
+                    # a cancelled query: start no more producer work.
+                    # check() raises, and the consumer re-raises it at
+                    # the end of the stream: a bare break would read as
+                    # a complete stream
+                    lctx.check("compute")
                 try:
+                    faults.check("pipeline.produce", key=self._label)
                     item = next(it)
                 except StopIteration:
                     break
@@ -177,7 +206,16 @@ class PipelinedIterator:
         except BaseException as e:  # noqa: BLE001 — raised at the consumer
             self._exc = e
         finally:
-            if it is not None and self._closed.is_set():
+            if self._exc is None and not self._closed.is_set() \
+                    and lctx is not None and lctx.cancelled():
+                # the loop left through an _offer() that noticed the
+                # cancellation: the stream is cut, carry it over
+                try:
+                    lctx.check("compute")
+                except BaseException as e:  # noqa: BLE001 — the
+                    self._exc = e           # cancellation itself
+            if it is not None and (self._closed.is_set() or (
+                    lctx is not None and lctx.cancelled())):
                 # abandoned: close the source so its finally blocks run
                 close = getattr(it, "close", None)
                 if close is not None:
@@ -194,6 +232,9 @@ class PipelinedIterator:
                 self._q.put(item, timeout=_POLL_S)
                 return True
             except queue.Full:
+                if self._lctx is not None and self._lctx.cancelled():
+                    # the cancelled query's consumer stopped draining
+                    return False
                 continue
         return False
 
@@ -210,12 +251,21 @@ class PipelinedIterator:
                 item = self._q.get(timeout=_POLL_S)
                 break
             except queue.Empty:
+                # a consumer parked on an empty queue is where a stalled
+                # producer wedges a query: the deadline and cancel token
+                # are checked here
+                from . import lifecycle
+                try:
+                    lifecycle.check_current("pipeline-wait")
+                except BaseException:
+                    self._note_wait(t0)
+                    raise
                 if cancelled():
                     # this consumer is an outer stage's producer, and that
                     # stage was closed: stop pulling so its close() joins
-                    self.wait_ns += time.perf_counter_ns() - t0
+                    self._note_wait(t0)
                     raise StageCancelled(self._label)
-        self.wait_ns += time.perf_counter_ns() - t0
+        self._note_wait(t0)
         if item is _END:
             self._finished = True
             self._thread.join()
@@ -227,6 +277,12 @@ class PipelinedIterator:
         self.batches += 1
         return item
 
+    def _note_wait(self, t0: int) -> None:
+        from ..obs import phase as obs_phase
+        dt = time.perf_counter_ns() - t0
+        self.wait_ns += dt
+        obs_phase.add("pipeline-stall", dt)
+
     def close(self) -> None:
         """Shut the stage down (idempotent): unblock and join the
         producer, drain the queue, report the stalls. A producer still
@@ -237,6 +293,10 @@ class PipelinedIterator:
         while self._thread.is_alive():
             if time.monotonic() >= deadline:
                 self.stuck = True
+                from ..obs import events as obs_events
+                obs_events.emit(
+                    "pipeline_stuck", stage=self._label,
+                    timeout_ms=int(self._close_timeout_s * 1000))
                 break
             self._thread.join(timeout=_POLL_S)
             self._drain()
@@ -260,3 +320,11 @@ class PipelinedIterator:
                           (self._wall_metric, self.wall_ns)):
             if metric is not None:
                 metric.add(v)
+        from ..obs import events as obs_events
+        bus = obs_events.active_bus()
+        if bus is not None:
+            bus.emit("pipeline_wait", stage=self._label,
+                     wait_ns=self.wait_ns, wall_ns=self.wall_ns,
+                     batches=self.batches)
+            bus.emit("pipeline_full", stage=self._label,
+                     full_ns=self.full_ns, batches=self.batches)

@@ -6,8 +6,10 @@ A thread pool decodes the next chunks on the host while the device
 consumes the current batch, emitting in order. The pool's size
 (spark.rapids.sql.multiThreadedRead.numThreads), the look-ahead window
 (fetchAheadWindow) and the IO retry settings are read from the active
-conf on the thread that drives the reader, never on a pool thread. Left out with their module
-(ROADMAP A.9): the query id carried onto the pool's threads.
+conf on the thread that drives the reader, never on a pool thread. Each
+decode task is the `io.multifile_read` fault point (keyed by its chunk
+index) inside its IO retry, and runs with the driving thread's query id,
+so its io_retry events are attributed to the query.
 """
 
 from __future__ import annotations
@@ -87,9 +89,13 @@ def threaded_chunks(tasks: Sequence[Callable[[], object]],
     conf = active_conf()
     retries, backoff_ms = conf.get(IO_RETRIES), conf.get(IO_RETRY_BACKOFF_MS)
 
+    from ..obs import events as obs_events
+    qid = obs_events.current_query_id()
+
     def retrying(t: Callable[[], object], i: int) -> object:
-        return with_io_retry(t, "multifile_read", retries, backoff_ms,
-                             salt=str(i))
+        return obs_events.with_query_id(
+            qid, with_io_retry, t, "multifile_read", retries, backoff_ms,
+            salt=str(i), fault_point="io.multifile_read")
 
     if num_threads <= 1 or len(tasks) <= 1:
         for i, t in enumerate(tasks):

@@ -7,8 +7,10 @@ spark.rapids.tpu.io.retryBackoffMs (doubled per attempt). A caller on a
 pool thread passes both, read on the thread that owns the drive
 (io/multifile.threaded_chunks): the active conf is thread-local. Only transient-looking errors retry: a
 missing file, a directory in a file's place or a permission wall fail the
-same way on every attempt. Left out with their module (ROADMAP A.9): the
-`io.multifile_read` fault point and the `io_retry` events.
+same way on every attempt. A caller names its fault point
+(`fault_point`, checked inside each attempt, keyed by the salt), so an
+injected io fault takes exactly the retry path a flaky read would; each
+retry is an `io_retry` event.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import time
 import zlib
 from typing import Callable, Optional, TypeVar
 
+from .. import faults
 from ..config import IO_RETRIES, IO_RETRY_BACKOFF_MS, active_conf
 
 T = TypeVar("T")
@@ -48,11 +51,13 @@ def backoff_s(what: str, salt: str, attempt: int, base_ms: int) -> float:
 
 def with_io_retry(fn: Callable[[], T], what: str,
                   retries: Optional[int] = None,
-                  backoff_ms: Optional[int] = None, salt: str = "") -> T:
+                  backoff_ms: Optional[int] = None, salt: str = "",
+                  fault_point: Optional[str] = None) -> T:
     """Run `fn`, retrying transient OSErrors up to `retries` times
     (default: the active conf's io.retries; `backoff_ms` its
     io.retryBackoffMs). `salt` names the work item (a chunk index) so
-    that concurrent callers back off differently."""
+    that concurrent callers back off differently; it is also the
+    injection key of `fault_point`."""
     if retries is None or backoff_ms is None:
         conf = active_conf()
         retries = conf.get(IO_RETRIES) if retries is None else retries
@@ -64,11 +69,19 @@ def with_io_retry(fn: Callable[[], T], what: str,
     while True:
         attempt += 1
         try:
+            if fault_point is not None:
+                faults.check(fault_point, key=salt or None)
             result = fn()
         except OSError as e:
             if isinstance(e, _NON_TRANSIENT) or attempt > retries:
                 raise
-            time.sleep(backoff_s(what, salt, attempt, base_ms))
+            backoff = backoff_s(what, salt, attempt, base_ms)
+            from ..obs import events as obs_events
+            obs_events.emit("io_retry", what=what, attempt=attempt,
+                            max_attempts=retries + 1,
+                            backoff_ns=int(backoff * 1e9),
+                            error=f"{type(e).__name__}: {e}"[:200])
+            time.sleep(backoff)
             continue
         if attempt > 1:
             global _recoveries

@@ -9,6 +9,11 @@ compiled once per checkout. Builds happen at first use; `start` and
 `build_host` compiles a host C++ source (the shuffle's block codec,
 csrc/blockcodec.cpp) the same way with the host compiler (`cxx_path`).
 
+A library's first use in a process — its build, or the lookup of the
+cached one, and its load — is reported to the dispatch ledger
+(obs/dispatch.note_build), which accrues it to the `compile` phase. A
+build or load failure raises; nothing retries it or routes around it.
+
 Usage:
     from spark_rapids_tpu_torch.kernels import build
     lib = build.load(build.build(source_text))
@@ -168,7 +173,11 @@ def csrc_library(name: str, signatures) -> ctypes.CDLL:
     (every entry point returns the launch's CUDA error as an int)."""
     lib = _csrc_libs.get(name)
     if lib is None:
+        import time
+        from ..obs.dispatch import note_build
+        t0 = time.perf_counter_ns()
         lib = load(build(csrc_source(name)))
+        note_build(name, time.perf_counter_ns() - t0)
         for fn_name, argtypes in signatures.items():
             fn = getattr(lib, fn_name)
             fn.restype = ctypes.c_int

@@ -10,8 +10,12 @@ retry framework. A spill frees budget, not allocator blocks: the caching
 allocator keeps freed blocks reserved for reuse, so
 `torch.cuda.memory_reserved` never shows a spill.
 
-Left out with the module it belongs to (ROADMAP A.9): the workload
-governor's per-query quota.
+Per-query quota: under the workload governor (exec/workload.py), a
+query past its soft share of the budget that hits the pressure path
+spills its OWN catalog entries (a quota_spill event) and raises its own
+TpuRetryOOM when that is not enough: it never pushes a neighbour's
+working set down a tier. The quota is consulted on the pressure path
+only, so a lone or ungoverned query pays nothing.
 """
 
 from __future__ import annotations
@@ -60,23 +64,39 @@ class MemoryBudget:
         TpuRetryOOM and the retry loop waits the writebacks out."""
         if self._try_take(nbytes):
             return
+        from ..exec import workload
         from .catalog import buffer_catalog
         with self._lock:
             needed = nbytes - (self.limit - self.used)
         hops: list = []
-        freed = buffer_catalog().synchronous_spill(needed, events_out=hops)
+        ticket = workload.current_ticket()
+        quota = workload.quota_bytes(self.limit) \
+            if ticket is not None else None
+        over_quota = quota is not None \
+            and ticket.device_bytes + nbytes > quota
+        if over_quota:
+            # the offender spills the offender: only this query's entries
+            freed = buffer_catalog().synchronous_spill(
+                needed, events_out=hops, owner=ticket)
+            workload.note_quota_spill(ticket, nbytes, quota, freed)
+        else:
+            freed = buffer_catalog().synchronous_spill(needed,
+                                                       events_out=hops)
         if self._try_take(nbytes):
             return
         # an asynchronous spill frees the budget only when each copy to
         # the host lands: wait the hops this spill queued, then the rest
+        # (an over-quota query does not wait out its neighbours' hops to
+        # take the bytes they freed: its retry lane settles instead)
         if wait_for_writeback:
             for ev in hops:
                 ev.wait()
             if self._try_take(nbytes):
                 return
-            buffer_catalog().drain_writeback()
-            if self._try_take(nbytes):
-                return
+            if not over_quota:
+                buffer_catalog().drain_writeback()
+                if self._try_take(nbytes):
+                    return
         raise TpuRetryOOM(
             f"device budget exhausted: need {nbytes}, used {self.used} of "
             f"{self.limit} (freed {freed} by spill)")
@@ -119,9 +139,20 @@ def spill_for_retry():
     """Between OOM retries, push every idle device entry down a tier and
     wait for the writebacks to land (no catalog lock is held between
     attempts, so this is the one safe place to wait the writer out)."""
+    from ..exec import workload
     from .catalog import buffer_catalog
     cat = buffer_catalog()
     hops: list = []
+    ticket = workload.current_ticket()
+    if ticket is not None:
+        # while this query is over its quota share, only its own entries
+        # spill and only its own hops are waited
+        quota = workload.quota_bytes(memory_budget().limit)
+        if quota is not None and ticket.device_bytes > quota:
+            cat.synchronous_spill(None, events_out=hops, owner=ticket)
+            for ev in hops:
+                ev.wait()
+            return
     cat.synchronous_spill(None, events_out=hops)
     for ev in hops:
         ev.wait()

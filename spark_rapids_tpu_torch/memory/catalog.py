@@ -33,18 +33,29 @@ read back from disk are packed into a pooled staging buffer first, which
 returns to its pool when the copy's event completes. Nothing here waits on
 the card.
 
-Left out with the modules they belong to (ROADMAP A.9): the workload
-quota's owners, fault points, spill events and phase attribution.
+Each entry is owned by the workload ticket of the query that registered
+it (exec/workload.py): its device bytes are charged to that query's
+quota and discharged as it leaves the device tier, and an over-quota
+query's pressure spills only its own entries (`owner=`). The fault
+points `spill.d2h_copy`, `spill.disk_write` and `spill.disk_read`
+(faults.py) are keyed on the entry's registration ordinal, so where an
+injection lands does not depend on which thread runs the hop. A
+synchronous spill's wall and a wait on an in-flight writeback accrue to
+the `spill-wait` phase, and a governed query's cancellation is checked
+inside that wait. A corrupt spill file raises SpillFileCorruption, an
+IntegrityError: the task-retry lane recomputes the data.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import os
 import queue
 import struct
 import tempfile
 import threading
+import time
 import uuid
 import zlib
 from enum import IntEnum
@@ -53,6 +64,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import faults
 from ..columnar.upload import packed_host_leaves, upload_leaves
 from ..config import (HOST_SPILL_LIMIT, SPILL_ASYNC_WRITE, SPILL_DIR,
                       active_conf)
@@ -69,8 +81,9 @@ ACTIVE_ON_DECK_PRIORITY = 100
 ACTIVE_BATCHING_PRIORITY = 50
 
 
-class SpillFileCorruption(IOError):
-    """Spill file failed its CRC32 / structure check at read."""
+class SpillFileCorruption(faults.IntegrityError):
+    """Spill file failed its CRC32 / structure check at read: the bytes
+    are gone, recomputation (task retry) is the recovery."""
 
 
 class SpillWriteError(IOError):
@@ -103,12 +116,38 @@ _SPILL_MAGIC = b"SRTPUSP1"
 _SPILL_HEADER = struct.Struct("<8sIQ")
 
 
+#: the fault key of the entry whose hop runs on this thread
+_hop = threading.local()
+
+
+def _hop_key() -> Optional[str]:
+    return getattr(_hop, "key", None)
+
+
+class _HopOf:
+    """Name the entry whose spill file this thread writes or reads (the
+    fault points' work-item key)."""
+
+    def __init__(self, entry):
+        self.key = entry.fault_key
+
+    def __enter__(self):
+        self.prev, _hop.key = _hop_key(), self.key
+
+    def __exit__(self, *exc):
+        _hop.key = self.prev
+
+
 def write_spill_file(path: str, host_leaves) -> None:
-    """CRC32-stamped container, fsync'd before the hop counts."""
+    """CRC32-stamped container, fsync'd before the hop counts. The
+    `spill.disk_write` fault point acts after the CRC is taken: kind=io
+    fails the write, kind=corrupt flips a byte of the stored payload,
+    which the read-side check then catches."""
     buf = io.BytesIO()
     np.savez(buf, **{str(i): t.numpy() for i, t in enumerate(host_leaves)})
     payload = buf.getvalue()
     crc = zlib.crc32(payload)
+    payload = faults.apply("spill.disk_write", payload, key=_hop_key())
     with open(path, "wb") as f:
         f.write(_SPILL_HEADER.pack(_SPILL_MAGIC, crc, len(payload)))
         f.write(payload)
@@ -119,6 +158,7 @@ def write_spill_file(path: str, host_leaves) -> None:
 def read_spill_file(path: str) -> List[torch.Tensor]:
     """Verified read: a structural or checksum failure raises
     SpillFileCorruption."""
+    faults.check("spill.disk_read", key=_hop_key())
     with open(path, "rb") as f:
         header = f.read(_SPILL_HEADER.size)
         if len(header) < _SPILL_HEADER.size:
@@ -136,10 +176,14 @@ def read_spill_file(path: str) -> List[torch.Tensor]:
 class _Entry:
     __slots__ = ("handle_id", "tier", "batch", "host_leaves", "treedef",
                  "device", "disk_path", "nbytes", "priority", "in_use",
-                 "closed", "writeback", "pending", "error")
+                 "closed", "writeback", "pending", "error", "owner", "seq")
 
-    def __init__(self, handle_id, batch, priority):
+    def __init__(self, handle_id, batch, priority, owner=None, seq=0):
         self.handle_id = handle_id
+        #: the workload ticket of the registering query (None ungoverned)
+        self.owner = owner
+        #: registration ordinal: the fault-injection work-item key
+        self.seq = seq
         self.tier = StorageTier.DEVICE
         self.batch = batch
         self.host_leaves = None
@@ -156,6 +200,10 @@ class _Entry:
         self.pending = None
         #: a failed writeback, raised at the next acquire
         self.error: Optional[BaseException] = None
+
+    @property
+    def fault_key(self) -> str:
+        return f"spill:{self.seq}"
 
 
 class BufferCatalog:
@@ -191,18 +239,25 @@ class BufferCatalog:
         #: TpuRetryOOM whatever spills.
         self._pinned_bytes = 0
         self.peak_pinned_bytes = 0
+        #: registration ordinal (the fault-injection keys)
+        self._add_seq = itertools.count(1)
 
     # -- registration ------------------------------------------------------
     def add(self, batch, priority: int = ACTIVE_BATCHING_PRIORITY) -> str:
         """Register a device batch; returns a handle id. Accounts its
         footprint against the device budget."""
+        from ..exec import workload
         from .budget import memory_budget
         handle = uuid.uuid4().hex
-        entry = _Entry(handle, batch, priority)
+        owner = workload.current_ticket()
+        with self._lock:
+            seq = next(self._add_seq)
+        entry = _Entry(handle, batch, priority, owner=owner, seq=seq)
         with self._lock:
             self.peak_pinned_bytes = max(self.peak_pinned_bytes,
                                          self._pinned_bytes + entry.nbytes)
         memory_budget().reserve(entry.nbytes)
+        workload.charge(owner, entry.nbytes)
         with self._lock:
             self._entries[handle] = entry
         return handle
@@ -233,8 +288,18 @@ class BufferCatalog:
                         self._pinned_bytes += entry.nbytes
                     entry.in_use += 1
                     return entry.batch
-            if not ev.wait(timeout=1.0):
-                self._writer_ok()
+            # a governed query blocked on an in-flight writeback unwinds
+            # with spill-wait attribution instead of waiting the hop out
+            from ..exec import lifecycle
+            from ..obs import phase as obs_phase
+            lifecycle.check_current("spill-wait")
+            t0w = time.perf_counter_ns()
+            try:
+                if not ev.wait(timeout=1.0):
+                    self._writer_ok()
+            finally:
+                obs_phase.add("spill-wait", time.perf_counter_ns() - t0w)
+            lifecycle.check_current("spill-wait")
 
     def release(self, handle: str):
         with self._lock:
@@ -255,7 +320,9 @@ class BufferCatalog:
             entry.closed = True  # an in-flight writeback discards its
             # result when it sees this (a just-written file included)
         if entry.tier == StorageTier.DEVICE:
+            from ..exec import workload
             memory_budget().release(entry.nbytes)
+            workload.discharge(entry.owner, entry.nbytes)
         if entry.disk_path and os.path.exists(entry.disk_path):
             os.unlink(entry.disk_path)
 
@@ -269,37 +336,53 @@ class BufferCatalog:
 
     # -- spilling ----------------------------------------------------------
     def synchronous_spill(self, target_bytes: Optional[int],
-                          events_out: Optional[List[threading.Event]] = None
-                          ) -> int:
+                          events_out: Optional[List[threading.Event]] = None,
+                          owner=None) -> int:
         """Move idle DEVICE entries to HOST, lowest priority first, until
         target_bytes are freed (None: everything idle), then hold the host
         tier to its limit. Returns the bytes freed from the device. With
         async_write the copies land on the writer thread and this returns
         once they are queued; `events_out` collects each queued host hop's
-        completion event."""
+        completion event. `owner` restricts the victims to the entries of
+        that workload ticket (the over-quota pressure path)."""
+        from ..exec import lifecycle, workload
+        from ..obs import events as obs_events
+        from ..obs import phase as obs_phase
         from .budget import memory_budget
+        t0 = time.perf_counter_ns()
         freed = 0
-        while target_bytes is None or freed < target_bytes:
-            with self._lock:
-                candidates = [e for e in self._entries.values()
-                              if e.tier == StorageTier.DEVICE and
-                              e.in_use == 0 and not e.closed]
-                if not candidates:
-                    break
-                victim = min(candidates, key=lambda e: e.priority)
-                self._spill_to_host_locked(victim)
-                if self.async_write and events_out is not None:
-                    events_out.append(victim.writeback)
-                freed += victim.nbytes
-            if not self.async_write:
-                # asynchronous: the device leaves stay alive in
-                # entry.pending until the copy lands; the writer releases
-                # the budget then
-                memory_budget().release(victim.nbytes)
-        self._enforce_host_limit()
+        try:
+            while target_bytes is None or freed < target_bytes:
+                with self._lock:
+                    candidates = [e for e in self._entries.values()
+                                  if e.tier == StorageTier.DEVICE and
+                                  e.in_use == 0 and not e.closed and
+                                  (owner is None or e.owner is owner)]
+                    if not candidates:
+                        break
+                    victim = min(candidates, key=lambda e: e.priority)
+                    self._spill_to_host_locked(victim)
+                    if self.async_write and events_out is not None:
+                        events_out.append(victim.writeback)
+                    freed += victim.nbytes
+                obs_events.emit("spill", tier="host", bytes=victim.nbytes,
+                                async_write=self.async_write)
+                if not self.async_write:
+                    # asynchronous: the device leaves stay alive in
+                    # entry.pending until the copy lands; the writer
+                    # releases the budget then
+                    memory_budget().release(victim.nbytes)
+                    workload.discharge(victim.owner, victim.nbytes)
+            self._enforce_host_limit()
+        finally:
+            obs_phase.add("spill-wait", time.perf_counter_ns() - t0)
+        if freed:
+            lifecycle.note_spill(freed)
         return freed
 
     def _spill_to_host_locked(self, entry: _Entry):
+        # an injected fault leaves the entry on the device
+        faults.check("spill.d2h_copy", key=entry.fault_key)
         leaves, _ = entry.batch.flatten()
         host, ev = copy_to_host(leaves)
         entry.batch = None
@@ -341,7 +424,8 @@ class BufferCatalog:
             self._enqueue_writeback("to_disk", entry, path, entry.writeback)
         else:
             try:
-                write_spill_file(path, entry.host_leaves)
+                with _HopOf(entry):
+                    write_spill_file(path, entry.host_leaves)
             except BaseException:
                 entry.tier = StorageTier.HOST
                 try:
@@ -357,7 +441,8 @@ class BufferCatalog:
     def _unspill_locked(self, entry: _Entry):
         from .budget import memory_budget
         if entry.tier == StorageTier.DISK:
-            entry.host_leaves = read_spill_file(entry.disk_path)
+            with _HopOf(entry):
+                entry.host_leaves = read_spill_file(entry.disk_path)
             os.unlink(entry.disk_path)
             entry.disk_path = None
             entry.tier = StorageTier.HOST
@@ -379,6 +464,8 @@ class BufferCatalog:
             except BaseException:
                 memory_budget().release(entry.nbytes)
                 raise
+            from ..exec import workload
+            workload.charge(entry.owner, entry.nbytes)
             from ..columnar.batch import ColumnarBatch
             entry.batch = ColumnarBatch.unflatten(entry.treedef, leaves)
             entry.host_leaves = None
@@ -468,7 +555,9 @@ class BufferCatalog:
             # the device leaves drop here, after the copy landed: only
             # now is the memory free
             del leaves
+            from ..exec import workload
             memory_budget().release(entry.nbytes)
+            workload.discharge(entry.owner, entry.nbytes)
             return
         # to_disk: by the FIFO the host hop has landed
         with self._lock:
@@ -477,7 +566,8 @@ class BufferCatalog:
         if closed or host is None:
             return
         try:
-            write_spill_file(path, host)
+            with _HopOf(entry):
+                write_spill_file(path, host)
         except BaseException:
             try:
                 os.unlink(path)
@@ -535,6 +625,30 @@ class BufferCatalog:
     def num_entries(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def bytes_by_owner(self):
+        """Per-owner resident bytes for the telemetry plane: ({owner:
+        device bytes}, {owner: host bytes}, device total, host total),
+        from one lock pass, so the per-owner sums equal the totals.
+        Owners are the workload tickets (`q<ticket_id>`), `unowned` for
+        ungoverned queries; an entry whose writeback is in flight counts
+        at its target tier."""
+        dev: Dict[str, int] = {}
+        host: Dict[str, int] = {}
+        dev_total = host_total = 0
+        with self._lock:
+            for e in self._entries.values():
+                if e.closed:
+                    continue
+                owner = f"q{e.owner.ticket_id}" if e.owner is not None \
+                    else "unowned"
+                if e.tier == StorageTier.DEVICE:
+                    dev[owner] = dev.get(owner, 0) + e.nbytes
+                    dev_total += e.nbytes
+                elif e.tier == StorageTier.HOST:
+                    host[owner] = host.get(owner, 0) + e.nbytes
+                    host_total += e.nbytes
+        return dev, host, dev_total, host_total
 
     def counters(self) -> Dict[str, int]:
         with self._lock:

@@ -19,10 +19,12 @@ thread for the next guarded sections (the reference's RmmSpark test API);
 from its thread's active conf (a pipeline producer adopts its
 consumer's).
 
-Left out with the modules they belong to (ROADMAP A.9): the
-`device.dispatch` fault point in
-`oom_guard`, the oom_retry events and phase attribution, and the batch
-right-sizing after a split.
+`oom_guard` is also the `device.dispatch` fault point (faults.py). A
+failure inside a guarded section takes the retry lane only when
+faults.classify calls it "oom"; each retry and split is an `oom_retry`
+event, and the backoff sleep accrues to the `retry-backoff` phase.
+Left out with its module (ROADMAP A.9b, the exchange's adaptive
+decisions): the batch right-sizing after a split.
 """
 
 from __future__ import annotations
@@ -134,7 +136,7 @@ def force_split_and_retry_oom(num_ooms: int = 1):
 
 def oom_guard():
     """Called at the top of every guarded device section; applies the
-    armed injection."""
+    armed OOM injection and the `device.dispatch` fault point."""
     _state.guarded_calls += 1
     if (_state.inject_mode and _state.inject_remaining > 0
             and _state.guarded_calls >= _state.inject_at):
@@ -143,6 +145,8 @@ def oom_guard():
             raise TpuRetryOOM("injected retry OOM")
         if _state.inject_mode == "split":
             raise TpuSplitAndRetryOOM("injected split-and-retry OOM")
+    from ..faults import check
+    check("device.dispatch")
 
 
 def task_retry_counts():
@@ -221,12 +225,20 @@ def with_retry(input_item: T, fn: Callable[[T], R],
         """Count, spill, then sleep a capped exponential backoff so that
         the writebacks the spill queued can land."""
         _state.retry_count += 1
+        backoff = _oom_backoff_s(attempts)
+        from ..obs import events as obs_events
+        obs_events.emit("oom_retry", oom="retry", attempt=attempts,
+                        max_attempts=max_attempts,
+                        backoff_ns=int(backoff * 1e9),
+                        task_id=_state.task_id)
         if attempts >= max_attempts:
             return False
         spill_for_retry()
-        backoff = _oom_backoff_s(attempts)
         if backoff:
+            from ..obs import phase as obs_phase
+            t0b = time.perf_counter_ns()
             time.sleep(backoff)
+            obs_phase.add("retry-backoff", time.perf_counter_ns() - t0b)
         return True
 
     try:
@@ -247,6 +259,10 @@ def with_retry(input_item: T, fn: Callable[[T], R],
                             raise
                     except TpuSplitAndRetryOOM:
                         _state.split_retry_count += 1
+                        from ..obs import events as obs_events
+                        obs_events.emit("oom_retry", oom="split",
+                                        attempt=attempts,
+                                        task_id=_state.task_id)
                         if split_policy is None:
                             raise
                         halves = split_policy(item)
@@ -256,8 +272,11 @@ def with_retry(input_item: T, fn: Callable[[T], R],
                         break
                     except Exception as e:
                         # the card's allocator failed: the spill-and-retry
-                        # lane, at the guarded section
-                        if not is_oom_error(e):
+                        # lane, at the guarded section (the taxonomy's
+                        # "oom"); anything else goes up to task retry or
+                        # surfaces
+                        from ..faults import classify
+                        if classify(e) != "oom":
                             raise
                         if not handle_retry_oom(attempts):
                             raise TpuRetryOOM(str(e)) from e

@@ -13,10 +13,13 @@ winner instead of taking a second permit. A blocked acquire polls an
 optional `cancel` predicate, so an abandoned pipelined scan can always
 tear down.
 
-Waiters are served first in, first out. Left out with the modules they
-belong to (ROADMAP A.9): the workload governor's priority classes and
-aging, and the lifecycle governor's cancellation checks and the
-semaphore events.
+Waiters are served by the workload governor's fairness rule
+(exec/workload.pick_fair): priority class first — the class of the
+waiting thread's governed query, interactive when ungoverned — then
+first in, first out, with every AGING_EVERY-th grant going to the oldest
+waiter whatever its class. A governed query's cancellation or deadline
+is checked inside the wait (phase `sem-wait`); the wait accrues to the
+`semaphore-wait` phase and is emitted as `semaphore_acquire`.
 """
 
 from __future__ import annotations
@@ -37,30 +40,37 @@ class SemaphoreTimeout(TimeoutError):
 
 
 class _Waiter:
-    __slots__ = ("seq", "granted")
+    __slots__ = ("priority", "seq", "granted")
 
-    def __init__(self, seq: int):
+    def __init__(self, priority: int, seq: int):
+        self.priority = priority
         self.seq = seq
         self.granted = False
 
 
 class _FairPermits:
-    """Permit pool that grants in registration order. A waiter registers
+    """Permit pool that grants by the fairness rule. A waiter registers
     once per blocked acquire (its place in line survives poll timeouts)
-    and polls `try_acquire`; a permit goes to the oldest waiter, never to
-    whichever thread the scheduler wakes first."""
+    and polls `try_acquire`; a permit goes to the waiter the rule picks,
+    never to whichever thread the scheduler wakes first."""
 
     def __init__(self, permits: int):
         self._cond = threading.Condition()
         self._avail = permits
         self._waiters: list = []
         self._seq = itertools.count(1)
+        self._grants = 0
 
-    def register(self) -> _Waiter:
+    def register(self, priority: int = 0) -> _Waiter:
         with self._cond:
-            w = _Waiter(next(self._seq))
+            w = _Waiter(priority, next(self._seq))
             self._waiters.append(w)
             return w
+
+    def _next_waiter(self) -> Optional[_Waiter]:
+        from ..exec.workload import pick_fair
+        return pick_fair(self._waiters, self._grants,
+                         rank=lambda w: w.priority, seq=lambda w: w.seq)
 
     def try_acquire(self, w: _Waiter, timeout: float) -> bool:
         """True when `w` was granted a permit; False on timeout (`w`
@@ -68,9 +78,10 @@ class _FairPermits:
         deadline = time.monotonic() + timeout
         with self._cond:
             while True:
-                if self._avail > 0 and self._waiters[0] is w:
+                if self._avail > 0 and self._next_waiter() is w:
                     self._avail -= 1
-                    self._waiters.pop(0)
+                    self._grants += 1
+                    self._waiters.remove(w)
                     w.granted = True
                     self._cond.notify_all()
                     return True
@@ -140,25 +151,33 @@ class TpuSemaphore:
         while True:
             with self._lock:
                 hold = self._holders.get(task_id)
-                if hold is not None and hold.count > 0:
+                reentered = hold is not None and hold.count > 0
+                if reentered:
                     hold.count += 1
-                    if raced:
-                        # this thread lost the race for the first acquire:
-                        # its wait is real semaphore wait
-                        self.total_wait_ns += time.monotonic_ns() - t0
-                    return True
-                if hold is None:
+                    # a thread that lost the race for the first acquire
+                    # waited for real
+                    waited = time.monotonic_ns() - t0 if raced else 0
+                    self.total_wait_ns += waited
+                elif hold is None:
                     hold = _TaskHold()
                     self._holders[task_id] = hold
                     break  # this thread owns the first acquire
+            if reentered:
+                if raced:
+                    _note_wait(task_id, waited)
+                return True
             # another thread is mid-first-acquire for this task: wait for
             # it (or its cancellation) and check again
             raced = True
             hold.ready.wait(_POLL_S)
             if (cancel is not None and cancel()) or hold.abandoned:
                 return False
+            # nothing is registered for this thread yet: raising is clean
+            from ..exec import lifecycle
+            lifecycle.check_current("sem-wait")
             self._check_deadline(t0, task_id)
-        w = self._pool.register()
+        from ..exec.workload import current_priority_rank
+        w = self._pool.register(current_priority_rank())
         try:
             while not self._pool.try_acquire(w, timeout=_POLL_S):
                 if hold.abandoned:
@@ -166,6 +185,16 @@ class TpuSemaphore:
                     return False
                 timed_out = self.timeout_s is not None and \
                     time.monotonic_ns() - t0 > self.timeout_s * 1e9
+                from ..exec import lifecycle
+                if lifecycle.current_cancelled():
+                    # the governed query was cancelled while this thread
+                    # waited for a permit: drop the pending hold, then
+                    # raise with sem-wait attribution
+                    with self._lock:
+                        if self._holders.get(task_id) is hold:
+                            del self._holders[task_id]
+                    hold.ready.set()
+                    lifecycle.check_current("sem-wait")
                 if (cancel is not None and cancel()) or timed_out:
                     with self._lock:
                         if self._holders.get(task_id) is hold:
@@ -176,13 +205,14 @@ class TpuSemaphore:
         finally:
             if not w.granted:
                 self._pool.deregister(w)
+        waited = time.monotonic_ns() - t0
         with self._lock:
             abandoned = hold.abandoned
             if abandoned:
                 if self._holders.get(task_id) is hold:
                     del self._holders[task_id]
             else:
-                self.total_wait_ns += time.monotonic_ns() - t0
+                self.total_wait_ns += waited
                 hold.count = 1
         hold.ready.set()
         if abandoned:
@@ -190,6 +220,7 @@ class TpuSemaphore:
             # permit would leak it (the task never releases again)
             self._pool.release()
             return False
+        _note_wait(task_id, waited)
         return True
 
     def release_if_necessary(self, task_id: int) -> None:
@@ -218,6 +249,13 @@ class TpuSemaphore:
     @property
     def available(self) -> int:
         return self._pool.available
+
+
+def _note_wait(task_id: int, waited: int) -> None:
+    from ..obs import events as obs_events
+    from ..obs import phase as obs_phase
+    obs_phase.add("semaphore-wait", waited)
+    obs_events.emit("semaphore_acquire", task_id=task_id, wait_ns=waited)
 
 
 _semaphore: Optional[TpuSemaphore] = None

@@ -218,9 +218,12 @@ def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{table.device}")
     if idx.numel() == 0:
         return _output(table, idx)   # nothing to gather: no launch
-    out, _, launch = launcher(table, idx)
-    launch()
-    dict_gather.launches += 1
+    from ..obs.dispatch import kernel_site
+    with kernel_site("dict_gather", tuple(idx.shape), table.device) as site:
+        out, _, launch = launcher(table, idx)
+        launch()
+        dict_gather.launches += 1
+        site.count()
     return out
 
 

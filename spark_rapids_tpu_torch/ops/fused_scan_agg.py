@@ -262,7 +262,10 @@ def fused_scan_agg(spec: ScanAggSpec, batch, G: int, out_cap: int):
         return fused_scan_agg_plain(spec, batch, G, out_cap)
     if dev.type != "cuda":
         raise ValueError(f"fused_scan_agg runs on cuda or cpu, not {dev}")
-    kstats, astats = _partials_cuda(spec, batch, G)
+    from ..obs.dispatch import kernel_site
+    with kernel_site("fused_scan_agg", (batch.capacity,), dev) as site:
+        kstats, astats = _partials_cuda(spec, batch, G)
+        site.count()
     return _finish(spec, kstats, astats, out_cap)
 
 
@@ -279,8 +282,12 @@ def kernel_source(spec: ScanAggSpec) -> str:
 
 def _library(spec: ScanAggSpec) -> ctypes.CDLL:
     if spec._lib is None:
+        import time
         from ..kernels import build
+        from ..obs.dispatch import note_build
+        t0 = time.perf_counter_ns()
         lib = build.load(build.build(kernel_source(spec)))
+        note_build("fused_scan_agg", time.perf_counter_ns() - t0)
         lib.fsa_run.restype = ctypes.c_int
         lib.fsa_run.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -182,11 +182,22 @@ def _launch(wrapper, keys: Sequence[Key], seeds: Sequence[Seed], n: int
     """One launch hashing up to MAX_COLS `keys` of n rows on the card into
     one int32 output per seed, counted on `wrapper` (no rows: no
     launch)."""
-    from ..kernels.build import csrc_library
+    from ..obs.dispatch import kernel_site
     dev = keys[0][0].device
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in seeds]
     if n == 0:
         return outs
+    with kernel_site(wrapper.__name__, (n, len(keys)), dev) as site:
+        _run(keys, seeds, n, dev, outs)
+        wrapper.launches += 1
+        site.count()
+    return outs
+
+
+def _run(keys: Sequence[Key], seeds: Sequence[Seed], n: int,
+         dev: torch.device, outs: List[torch.Tensor]) -> None:
+    """The one launch behind _launch."""
+    from ..kernels.build import csrc_library
     planes = [s if isinstance(s, torch.Tensor) else None for s in seeds]
     p = plan(n, [(d.data_ptr(), d.element_size(),
                   v.data_ptr() if v is not None else None) for d, v in keys],
@@ -213,8 +224,6 @@ def _launch(wrapper, keys: Sequence[Key], seeds: Sequence[Seed], n: int
         p.grid, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"murmur3 kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    return outs
 
 
 def _check_seeds(seeds: Sequence[Seed], n: int, dev: torch.device):

@@ -198,11 +198,15 @@ def fused_probe_verify(lo, counts, bk_lanes, bvalid, sk_lanes, svalid, perm,
                                         sk_lanes, svalid, perm, out_capacity)
     if dev.type != "cuda":
         raise ValueError(f"fused_probe_verify runs on cuda or cpu, not {dev}")
-    outs, launch = launcher(lo, counts, bk_lanes, bvalid, sk_lanes, svalid,
-                            perm, out_capacity)
-    if launch is not None:
-        launch()
-        fused_probe_verify.launches += 1
+    from ..obs.dispatch import kernel_site
+    with kernel_site("fused_probe_verify", (counts.shape[0], out_capacity),
+                     dev) as site:
+        outs, launch = launcher(lo, counts, bk_lanes, bvalid, sk_lanes,
+                                svalid, perm, out_capacity)
+        if launch is not None:
+            launch()
+            fused_probe_verify.launches += 1
+            site.count()
     return outs
 
 

@@ -35,10 +35,11 @@ whose payload holds an array of strings).
 
 Also waiting for their items: the mesh (`_plan_mesh` and the
 distributed aggregate and join over it, A.6: with no mesh the JAX
-package plans the same host lane as the port), the plan-decision events
-(`_emit_plan_decisions`, A.9), and the stage compiler (`compile_stages`), whose counterpart on the
-card is a CUDA graph per stage (A.1.4): `apply` returns the converted
-tree as it is.
+package plans the same host lane as the port) and the stage compiler
+(`compile_stages`), whose counterpart on the card is a CUDA graph per
+stage (A.1.4): `apply` returns the converted tree as it is. The plan's
+decisions are events (`_emit_plan_decisions`): one `plan_fallback` per
+host-row-engine node and one `plan_not_on_tpu` per tag-off reason.
 """
 
 from __future__ import annotations
@@ -1021,7 +1022,33 @@ class TpuOverrides:
         if self.conf.get(OPTIMIZER_ENABLED):
             from .cost import CostBasedOptimizer
             CostBasedOptimizer(self.conf).optimize(meta)
+        self._emit_plan_decisions(meta)
         return meta
+
+    @staticmethod
+    def _emit_plan_decisions(meta: "PlanMeta") -> None:
+        """Plan-time why-not records (the reference's "will not run on
+        GPU because ..." explain lines) as events: one `plan_fallback`
+        per host-row-engine node, one `plan_not_on_tpu` per tag-off
+        reason. One pointer check when logging is off."""
+        from ..obs import events as obs_events
+        if obs_events.active_bus() is None:
+            return
+
+        def walk(m: "PlanMeta"):
+            node = m.plan.node_name()
+            if m.host_fallback:
+                reasons: List[str] = []
+                for em in m.expr_metas:
+                    em.collect_reasons(reasons)
+                obs_events.emit("plan_fallback", node=node,
+                                reasons=reasons)
+            for r in m.reasons:
+                obs_events.emit("plan_not_on_tpu", node=node, reason=r)
+            for c in m.children:
+                walk(c)
+
+        walk(meta)
 
     def apply(self, plan: L.LogicalPlan) -> TpuExec:
         from ..udf_compiler import maybe_compile_plan_udfs

@@ -22,12 +22,18 @@ each is read, from the conf the exchange captured at its construction,
 when the pool or the directory is made (first use), as the JAX package
 reads them. A writer or reader is built on the exchange's thread, never
 on a pool thread.
-Left out with their planes (ROADMAP A.9): partition-granular recovery
+A reader's segment fetch runs under the bounded IO retry
+(io/retrying.py) with the `shuffle.fetch` fault point inside each
+attempt, keyed by map file and partition; each frame's decode is the
+`shuffle.decode` fault point, keyed by partition and frame ordinal. A
+corrupt frame is quarantined — an `integrity_fail` event — and raises
+faults.IntegrityError, so the task-retry lane recomputes the query.
+The pool's work items run with the submitting thread's query id.
+Left out with their planes (ROADMAP A.9b): partition-granular recovery
 from captured lineage (`_refresh_invalidated`, `_recover_block`, the
 dead-peer bookkeeping `bind_peer_output`/`invalidate_peer_outputs`), the
-adaptive map groups (`plan_map_groups`, `read_partition_maps`),
-speculative sub-reads, the `faults` points, the IO retry and the `obs`
-events. A corrupt frame raises CorruptFrameError from the read.
+adaptive map groups (`plan_map_groups`, `read_partition_maps`) and the
+speculative sub-reads.
 """
 
 from __future__ import annotations
@@ -42,11 +48,14 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import faults
 from ..columnar.batch import ColumnarBatch
-from ..config import (SHUFFLE_READER_THREADS, SHUFFLE_WRITER_THREADS,
+from ..config import (IO_RETRIES, IO_RETRY_BACKOFF_MS,
+                      SHUFFLE_READER_THREADS, SHUFFLE_WRITER_THREADS,
                       SPILL_DIR, RapidsConf, active_conf)
 from ..types import Schema
-from .serializer import (CODEC_LZ4, deserialize_batch, host_gather_batch,
+from .serializer import (CODEC_LZ4, CorruptFrameError, deserialize_batch,
+                         host_gather_batch,
                          host_slice_batch, serialize_batch_stats,
                          serialize_slice_stats)
 
@@ -204,9 +213,13 @@ class HostShuffleReader:
     def __init__(self, handle: HostShuffleHandle,
                  manager: "HostShuffleManager",
                  conf: Optional[RapidsConf] = None):
+        conf = conf or active_conf()
         self.handle = handle
         self.manager = manager
-        self._pool = manager.reader_pool(conf or active_conf())
+        self._pool = manager.reader_pool(conf)
+        #: the IO retry settings, read here (the fetches run on the pool)
+        self._retries = conf.get(IO_RETRIES)
+        self._backoff_ms = conf.get(IO_RETRY_BACKOFF_MS)
         #: one parse of each map output's index table
         self._index_cache: Dict[str, Tuple[int, ...]] = {}
         self._index_lock = threading.Lock()
@@ -223,33 +236,55 @@ class HostShuffleReader:
         return cached
 
     def _fetch_segment(self, data_path: str, partition: int) -> List[bytes]:
-        """One partition's frames from one map output."""
+        """One partition's frames from one map output, under the bounded
+        IO retry (the index read too: a flaky mount fails its open as
+        readily)."""
+        from ..io.retrying import with_io_retry
         t0 = time.perf_counter_ns()
-        offsets = self._index(data_path)
-        lo, hi = offsets[partition], offsets[partition + 1]
-        frames: List[bytes] = []
-        if hi > lo:
-            with open(data_path, "rb") as f:
-                f.seek(lo)
-                seg = f.read(hi - lo)
-            if len(seg) != hi - lo:
-                raise OSError(f"short read of {data_path}: {len(seg)} of "
-                              f"{hi - lo} bytes")
-            p = 0
-            while p < len(seg):
-                (ln,) = struct.unpack_from("<Q", seg, p)
-                frames.append(seg[p + 8: p + 8 + ln])
-                p += 8 + ln
+
+        def fetch() -> List[bytes]:
+            offsets = self._index(data_path)
+            lo, hi = offsets[partition], offsets[partition + 1]
+            frames: List[bytes] = []
+            if hi > lo:
+                with open(data_path, "rb") as f:
+                    f.seek(lo)
+                    seg = f.read(hi - lo)
+                if len(seg) != hi - lo:
+                    raise OSError(f"short read of {data_path}: {len(seg)} "
+                                  f"of {hi - lo} bytes")
+                p = 0
+                while p < len(seg):
+                    (ln,) = struct.unpack_from("<Q", seg, p)
+                    frames.append(seg[p + 8: p + 8 + ln])
+                    p += 8 + ln
+            return frames
+
+        frames = with_io_retry(
+            fetch, "shuffle.fetch", self._retries, self._backoff_ms,
+            salt=f"{os.path.basename(data_path)}:{partition}",
+            fault_point="shuffle.fetch")
         note_shuffle(fetch_ns=time.perf_counter_ns() - t0,
-                     bytes_read=hi - lo)
+                     bytes_read=sum(8 + len(f) for f in frames))
         return frames
 
-    def _decode(self, frame: bytes) -> ColumnarBatch:
+    def _decode(self, frame: bytes, key: str = "") -> ColumnarBatch:
         """Checksum-verified decode into a host-backed batch: the device
         promotion happens at the exchange's read seam, not on this pool
-        thread."""
+        thread. A corrupt block is quarantined and raises IntegrityError
+        (the query recomputes)."""
         t0 = time.perf_counter_ns()
-        batch = deserialize_batch(frame, self.handle.schema)
+        frame = faults.apply("shuffle.decode", frame, key=key or None)
+        try:
+            batch = deserialize_batch(frame, self.handle.schema)
+        except CorruptFrameError as e:
+            from ..obs import events as obs_events
+            obs_events.emit("integrity_fail", what="shuffle_block",
+                            shuffle_id=self.handle.shuffle_id,
+                            bytes=len(frame), error=str(e)[:200])
+            raise faults.IntegrityError(
+                f"corrupt shuffle block (shuffle {self.handle.shuffle_id}):"
+                f" {e}") from e
         note_shuffle(frames_read=1, decode_ns=time.perf_counter_ns() - t0)
         return batch
 
@@ -257,11 +292,18 @@ class HostShuffleReader:
         """Partition `partition`'s blocks, in map order: the segments are
         fetched and the frames decoded on the reader pool, and yielded in
         order. Closing the iterator cancels the decodes not yet started."""
+        from ..obs import events as obs_events
+        qid = obs_events.current_query_id()
         paths = list(self.handle.map_outputs)
         segs = list(self._pool.map(
-            lambda path: self._fetch_segment(path, partition), paths))
-        futs = [self._pool.submit(self._decode, fr)
-                for frames in segs for fr in frames]
+            lambda path: obs_events.with_query_id(
+                qid, self._fetch_segment, path, partition), paths))
+        # the decode key: partition and the frame's ordinal in map order,
+        # so a verdict follows the frame, not the pool's scheduling
+        futs = [self._pool.submit(obs_events.with_query_id, qid,
+                                  self._decode, fr, f"p{partition}:{i}")
+                for i, fr in enumerate(fr for frames in segs
+                                       for fr in frames)]
         del segs
         try:
             for fut in futs:

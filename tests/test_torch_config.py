@@ -81,10 +81,12 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
     ("spark.rapids.tpu.adaptive.skewedPartitionFactor", "2.0", "A.9"),
     ("spark.rapids.tpu.adaptive.coalesceTargetBytes", "1", "A.9"),
-    ("spark.rapids.tpu.eventLog.enabled", "true", "A.9"),
-    ("spark.rapids.tpu.workload.enabled", "true", "A.9"),
-    ("spark.rapids.tpu.query.timeoutMs", "1000", "A.9"),
-    ("spark.rapids.tpu.task.maxAttempts", "2", "A.9"),
+    # the governance planes read eventLog, workload, query and task since
+    # A.9a (test_values_the_port_honours_are_accepted); A.9b's keys wait
+    ("spark.rapids.tpu.stall.timeoutMs", "1000", "A.9b"),
+    ("spark.rapids.tpu.history.enabled", "true", "A.9b"),
+    ("spark.rapids.tpu.shuffle.speculation.enabled", "true", "A.9b"),
+    ("spark.rapids.tpu.dispatch.timeoutMs", "100", "A.9b"),
     ("spark.rapids.tpu.stage.programCache.maxSites", "8", "A.1.4"),
     ("spark.rapids.sql.format.parquet.datetimeRebaseModeInRead", "LEGACY",
      "A.8"),
@@ -107,6 +109,10 @@ def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
     ("spark.rapids.tpu.pallas.fusedTier", "on"),
     ("spark.rapids.tpu.phases.enabled", "false"),
     ("spark.rapids.tpu.eventLog.enabled", "false"),
+    ("spark.rapids.tpu.eventLog.enabled", "true"),
+    ("spark.rapids.tpu.workload.enabled", "true"),
+    ("spark.rapids.tpu.query.timeoutMs", "1000"),
+    ("spark.rapids.tpu.task.maxAttempts", "2"),
     ("spark.rapids.sql.decimalType.enabled", "false"),
     ("spark.rapids.sql.explain", "ALL"),
 ])

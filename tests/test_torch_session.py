@@ -254,6 +254,22 @@ def test_methods_that_wait_for_their_slice_name_it(call, item):
         # for wave 3a: they have landed and build DataFrames now
         assert isinstance(call(tdf.session, tdf), tsession.DataFrame)
         return
+    if item == "A.9":
+        # health() and cancel_query() landed with A.9a: with nothing
+        # running, health() reports every section and cancel_query()
+        # cancels no query
+        out = call(tdf.session, tdf)
+        if isinstance(out, dict):
+            assert {"breakers", "counters", "workload", "telemetry",
+                    "dispatch", "slo", "stats"} <= set(out)
+            assert out["active_queries"] == 0
+            assert out["breakers"]["device_dispatch"]["state"] == \
+                "not ported"
+        else:
+            assert out == 0
+        assert tdf.session.active_queries() == []
+        assert tdf.session.last_query_profile() is None
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call(tdf.session, tdf)
 
