@@ -45,7 +45,8 @@ fails the run on error:
      every dictionary gather of P7, its take of the ship-mode hash table
      by the stream's codes among them; every row gather of P9-P11, the
      exchanges' reorders among them, the murmur3 chain at the exchange's
-     pid shape, and P11's join kernels at its first partition pair;
+     pid shape, and P11's join kernels at its single build and (its
+     static twin's, under STATIC_CONF) at its first partition pair;
      every row gather of P13, its semi join's hash, probe and gathers,
      its anti join's probe and its dictionary gathers at the
      o_orderstatus and n_name filters; P12's join kernels and row
@@ -53,7 +54,8 @@ fails the run on error:
      outer join (the unmatched stream tail, the unmatched build rows);
      every row gather of P15's planned nested-loop join, its chunks
      among them; every row gather of P16's planned semi join and its
-     join kernels at its first partition pair; P19's murmur3 chain and
+     join kernels at its single build, and its static twin's at its
+     first partition pair; P19's murmur3 chain and
      probe at both joins, every row gather (the TopN's sort moves the
      decimal128 revenue as two limb lanes) and its dictionary take;
      every launch of a run of P21-P25: each join's murmur3 chain, probe
@@ -66,10 +68,10 @@ fails the run on error:
      and P30: P29's join (the build permute, the build payload with the
      customers' struct's fixed-width leaves and validity, the stream
      payload), its filter and sort, the exchanges' reorders over 16
-     partitions, P30's group-by sort and z-order sort); every murmur3
+     partitions (and as the static twin), P30's group-by sort and z-order sort); every murmur3
      chain, probe and row gather launch of a run of P32 (Q21 and P19
      through their adaptive joins, P20's sort, P32 sub's sub-partitioned
-     join over 16 partitions, P32 demote);
+     join over 16 partitions and its static twin, P32 demote);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -140,7 +142,10 @@ fails the run on error:
      tpch_q1_oracle in the order A/F, N/F, N/O, R/F; P11, q3 as 16
      lineitem and 4 order batches, both filtered sides exchanged on the
      order key into a ShuffledHashJoinExec, partial -> exchange -> final,
-     TopN(10), LONG and INT keys, equal to bench.q3_oracle. Each path's
+     TopN(10), LONG and INT keys, equal to bench.q3_oracle, each at the
+     default confs (the join converts to one single-build pass) and as
+     its static twin (STATIC_CONF: the adaptive read plan off, one join
+     a partition pair with rows on both sides). Each path's
      launches equal what its plan implies (expect_p9, expect_p10,
      expect_p11: one murmur3 launch and one reorder gather a map batch
      with rows on fixed-width keys, none for P10's string keys, the probe
@@ -154,7 +159,7 @@ fails the run on error:
      phase 3 built: q1, q3 with LONG and INT keys and the exact tier by
      conf (spark.rapids.tpu.agg.speculative.enabled=false), Q19, P6 and
      P11 (spark.rapids.sql.shuffle.partitions=16, broadcastSizeThreshold
-     -1); prints each one's explain() text and its plan ms (wrap_and_tag
+     -1) and its static twin; prints each one's explain() text and its plan ms (wrap_and_tag
      and convert, timed apart), holds q1's, P6's and P11's converted trees
      to the hand-built plans' shapes, drives each converted tree counted
      as phase 3 does (the speculation flags must stay False) and holds it
@@ -181,7 +186,8 @@ fails the run on error:
      lineitems left-outer-joined to 11 discount bands on a band condition
      (planned: a NestedLoopJoinExec over a broadcast), counted by band;
      P16, Q4's semi and anti joins through 16 partitions of the host
-     shuffle (planned, broadcasts off, at the default tier); then a range
+     shuffle (planned, broadcasts off, at the default tier), each also
+     as its static twin (untimed); then a range
      of 2^24 ids summed, the union of the orders' two halves counted by
      priority, a limit of 100 at offset 1,000 and TPC-H Q1's count and
      sum over the grouping sets ((l_returnflag, l_linestatus), ())
@@ -254,7 +260,8 @@ fails the run on error:
      counted by (key, value), the first 1,000 orders collected with
      the struct and the map, and the collect and the group-by over 16
      host shuffle partitions with broadcasts off (the struct and the
-     map cross the frames: printed); P30, P28's lines' l_quantity
+     map cross the frames: printed), the collect also as its static twin
+     (untimed); P30, P28's lines' l_quantity
      collected by order and the four device lambdas (transform,
      filter_ and its size, exists, forall) over 5,999,580 elements,
      InterleaveBits(l_partkey, l_suppkey) and a sort by it, and the
@@ -273,7 +280,8 @@ fails the run on error:
      measured bytes and adaptive.counters(); P32 sub, the planned Q21
      whose adaptive joins decide under shuffle.partitions 16 and
      join.subPartitionThreshold one byte under the largest side P32 Q21
-     built (a sub-partitioned join, k = 16); P32 demote, Q21 planned with
+     built (a sub-partitioned join, k = 16), and as its static twin
+     (untimed, one join a partition pair); P32 demote, Q21 planned with
      broadcastSizeThreshold 1 GiB, a right side measuring past
      adaptive.autoBroadcastMaxBytes demoted (the cap lowered under the
      largest right side if none does); P33 host, a month of P29's
@@ -301,8 +309,9 @@ fails the run on error:
      corrupt fault, task.maxAttempts 3: rows equal to q4_oracle and
      np.lexsort (or q3_oracle), more than one attempt, the faults'
      stats, the catalog empty, no permit held, the shuffle root empty;
-     P36, P11 cancelled by cancel_query() from a second thread after
-     0.3 s and run again under query.timeoutMs 500: the latency to the
+     P36, P11 timed twice, then cancelled by cancel_query() from a
+     second thread after 0.3 of the faster run and run again under a
+     query.timeoutMs of half of it: the latency to the
      raise, where it was noticed, no catalog entry, permit or pipeline
      thread left and torch.cuda.memory_allocated() back at its level;
      P37, four sessions on four threads under workload.enabled,
@@ -310,6 +319,31 @@ fails the run on error:
      batch on P19, 3 rounds): every result equal to its oracle, the
      grant order equal to pick_fair replayed on the recorded arrivals,
      active_queries() read mid-flight, health()["slo"];
+  3k. drives the adaptive read plan and the robustness paths
+     (drive_a9b_paths): P38, tpch_join_data's 5,999,580 SF1 lines (their
+     lineitem columns and an l_quantity of 1-50, 80 % moved onto one order
+     key from seed 38) as 16 host map batches, inner-joined to the
+     1,500,000 orders over 16 host partitions (broadcasts off), then
+     count(*) and sum(l_quantity) by o_orderpriority, held bit for bit
+     to p38_oracle: static (adaptive off), split (the defaults but
+     adaptive.autoBroadcastMaxBytes -1: the hot partition read as
+     map-granular sub-reads) and convert (the defaults: the orders side
+     measured under 64 MiB, one single-build pass), in turns (static
+     once, split and convert 3 times each: P38_RUNS), with their decisions and measured bytes, launches and peak
+     device memory (over the run, and over the read: from the join's first
+     partition pair); P9 at the default confs (its partitions read as one
+     coalesced stream); P16 at the default confs (its decision); P35's
+     P16 under one shuffle.decode corrupt fault (one attempt, one
+     partition_recompute); P38 split under one shuffle.skew_split corrupt
+     fault (one map output recomputed) and with speculation on and one
+     500 ms shuffle.fetch straggler (the duplicate wins, the straggling
+     fetch resolves within half the delay, no plan retry);
+     P11 under a pipeline.produce delay past stall.timeoutMs with each
+     watchdog action (report: one query_stalled; retry-seam: two
+     attempts; cancel: cancelled, memory back to its level); q3 with
+     dispatch.timeoutMs 10,000 against none, in turns (no timeout); P2's
+     injected split inside a governed query (the batch target halves);
+     one history capsule per governed query of the phase;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -386,7 +420,8 @@ plan's, the differences and the session timings) and phase 3d's (under
 "types_paths"), phase 3f's (under "strings_paths"), phase 3g's (under
 "windows_paths"), phase 3h's (under "nested_paths") and phase 3i's
 (under "adaptive_paths": choices, counters, round trips, placements,
-the cost constants, ms) and phase 3j's (under "governed_paths"), a JSON
+the cost constants, ms) and phase 3j's (under "governed_paths"), before
+it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
 ported kernel (the
@@ -407,6 +442,7 @@ import argparse
 import base64
 import contextlib
 import datetime
+import itertools
 import json
 import math
 import re
@@ -1929,6 +1965,12 @@ P9_BATCHES = 16          # q1's rows as 16 batches of 1,048,576
 P11_LINE_BATCHES = 16    # q3's lineitems as 16 batches of 131,072 (P2's)
 P11_ORDER_BATCHES = 4    # q3's orders as 4 batches of 131,072 (P4's)
 P_SHUFFLE_ITERS = 3      # timed runs of P9, P10 and P11 each
+#: a shuffled join's static twin: the adaptive read plan off, so that the
+#: join reads every partition pair as written (no skew split, coalesced
+#: read or single-build conversion); each shuffled join that converts at
+#: the default confs runs its twin too, which keeps the per-pair join
+#: (its empty-pair skips, one sizing a pair) on the card
+STATIC_CONF = {"spark.rapids.tpu.adaptive.enabled": "false"}
 #: the exchange metrics P9-P11 record, per exchange
 EXCHANGE_METRICS = (
     "numInputBatches", "numMapsWithRows", "numReorderGathers",
@@ -2028,8 +2070,9 @@ def drive_shuffled(label, plan, need, expect):
     implies for each kernel it names; every count must equal it. Then
     each exchange's frames and uploads (one a frame read, all written
     frames read), the shuffle root (empty) and the catalog and permits
-    (idle). Returns (rows, counts, per-exchange metrics, ms, the run's
-    upload, fetch and staging-pool counters)."""
+    (idle). The run's adaptive decisions are left on `plan._adaptive`.
+    Returns (rows, counts, per-exchange metrics, ms, the run's upload,
+    fetch and staging-pool counters)."""
     import torch
     from spark_rapids_tpu_torch.exec.speculation import speculation_scope
     wrappers = kernel_wrappers()
@@ -2038,12 +2081,16 @@ def drive_shuffled(label, plan, need, expect):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    with speculation_scope() as scope:
+    with event_spy(("adaptive_replan",)) as seen, \
+            speculation_scope() as scope:
         rows = [r for b in plan._execute(encoded_out=True)
                 for r in b.to_pylist()]
         tripped = scope.tripped()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    # the adaptive read plan's decisions (exec/adaptive.py), which the
+    # launch expectations derive from
+    plan._adaptive = decisions_of(seen)
     counts = {name: w.launches for name, w in wrappers.items()}
     io = {k: v - io_before[k] for k, v in io_counters().items()}
     if tripped:
@@ -2118,11 +2165,21 @@ def expect_p11(counts, exs, plan):
     rows, the join's build permute a pair and its two payload gathers a
     stream batch, the TopN's sort; the aggregates' sort-path group-bys
     add the rest (data-dependent: how many of their updates and merges
-    leave rows over), which `p11_row_gathers` reports."""
+    leave rows over), which `p11_row_gathers` reports. At the default
+    confs the orders side measures under adaptive.autoBroadcastMaxBytes:
+    the join converts to one single-build pass (one pair; the lines'
+    exchange skipped, no map of it written; a probe a filtered lineitem
+    batch), else one pair a partition at most."""
     j = p11_join(plan)
     pairs = j.metrics["numPartitionPairs"].value - j._pairs_before
     stream = j.metrics["numStreamBatches"].value - j._stream_before
     maps = sum(e["numMapsWithRows"] for e in exs)
+    if any(d["decision"] == "single_build_convert" for d in plan._adaptive):
+        if pairs != 1 or stream != P11_LINE_BATCHES:
+            raise AssertionError(f"P11: converted, yet {pairs} pairs and "
+                                 f"{stream} stream batches")
+    elif pairs > P_PARTS:
+        raise AssertionError(f"P11: {pairs} pairs over {P_PARTS} partitions")
     floor = P11_LINE_BATCHES + P11_ORDER_BATCHES + maps + pairs \
         + 2 * stream + 1
     if counts["dma_row_gather"] < floor:
@@ -2139,9 +2196,13 @@ def expect_p11(counts, exs, plan):
             "murmur3_long_lanes": 0, "murmur3_int_lanes": 0}
 
 
-def p11_plan(d, dev, key_type):
-    """q3 shuffled (P11) over 16 lineitem and 4 order batches on `dev`."""
+def p11_plan(d, dev, key_type, settings=None):
+    """q3 shuffled (P11) over 16 lineitem and 4 order batches on `dev`,
+    its exchanges under `settings` (default: the active conf)."""
+    from spark_rapids_tpu_torch.config import RapidsConf
     m = port_modules()
+    if settings is not None:
+        m.exchange_kw = {"conf": RapidsConf(settings)}
     o_schema, l_schema = q3_schemas(key_type)
     plan = q3_tree(m, m.basic.InMemoryScanExec(
         q3_batches(d, dev, o_schema, Q3_ORDERS, P11_ORDER_BATCHES), o_schema),
@@ -2175,8 +2236,9 @@ def drive_shuffle_paths(dev, q1_batches, q1_want, q1t_batch, q1t_want, d3,
     """Phase 3b's shuffle paths, each counted with drive_shuffled and held
     to its oracle: P9 (bench q1 over 16 batches, partial -> exchange ->
     final), P10 (TPC-H Q1 at SF1, the string route split the same way,
-    then the sort), P11 (q3 shuffled, LONG and INT order keys). Returns
-    {path: (plan, launches, record)}."""
+    then the sort), P11 (q3 shuffled, LONG and INT order keys, each at
+    the default confs and as its static twin under STATIC_CONF, one pair
+    a partition). Returns {path: (plan, launches, record)}."""
     m = port_modules()
     out = {}
     p9 = q1_tree(m, m.basic.InMemoryScanExec(q1_batches,
@@ -2187,12 +2249,13 @@ def drive_shuffle_paths(dev, q1_batches, q1_want, q1t_batch, q1t_want, d3,
         "P9 q1 shuffled", p9, ["fused_scan_agg"], expect_p9)
     check_q1(rows, q1_want, "P9")
     out["P9"] = (p9, counts, {"first_run_ms": ms, "exchanges": exs,
-                              "io": io})
+                              "io": io, "decisions": p9._adaptive})
     print(f"P9 q1 shuffled ({P9_BATCHES} batches of "
           f"{q1_batches[0].num_rows_host} rows, {P_PARTS} partitions): "
           f"{len(rows)} groups equal to the numpy oracle in {ms:.1f} ms "
-          f"(first run); {describe_exchanges(exs)}; io {io}; launches "
-          f"{counts}; shuffle root empty, catalog empty, no permit held")
+          f"(first run); adaptive decisions {p9._adaptive}; "
+          f"{describe_exchanges(exs)}; io {io}; launches {counts}; shuffle "
+          f"root empty, catalog empty, no permit held")
     p10 = tpch_q1_tree(m, scan_of(m, q1t_batch), n_parts=P_PARTS)
     rows, counts, exs, ms, io = drive_shuffled(
         "P10 TPC-H Q1 shuffled", p10, ["dma_row_gather"], expect_p10)
@@ -2210,21 +2273,28 @@ def drive_shuffle_paths(dev, q1_batches, q1_want, q1t_batch, q1t_want, d3,
           f"{[r[:2] for r in rows]} equal to the numpy oracle in "
           f"{ms:.1f} ms (first run); routes {routes}; "
           f"{describe_exchanges(exs)}; io {io}; launches {counts}")
-    for key, data in (("LONG", d3), ("INT", d3i)):
-        label = f"P11 q3 shuffled, {key} keys"
-        plan = p11_plan(data, dev, key)
+    for (key, data), static in itertools.product(
+            (("LONG", d3), ("INT", d3i)), (False, True)):
+        label = f"P11 q3 shuffled, {key} keys" + (", static" if static
+                                                  else "")
+        plan = p11_plan(data, dev, key, STATIC_CONF if static else None)
         rows, counts, exs, ms, io = drive_p11(label, plan, q3_want)
         pairs, stream = plan._p11_pairs
+        if static and (plan._adaptive or pairs < 2):
+            raise AssertionError(f"{label}: decisions {plan._adaptive}, "
+                                 f"{pairs} partition pairs")
         rec = {"first_run_ms": ms, "exchanges": exs, "io": io,
-               "pairs": pairs,
+               "decisions": plan._adaptive, "pairs": pairs,
                "stream_batches": stream,
                "row_gathers": plan._p11_row_gathers}
-        out["P11" if key == "LONG" else "P11_INT"] = (plan, counts, rec)
+        out[("P11" if key == "LONG" else "P11_INT")
+            + ("_static" if static else "")] = (plan, counts, rec)
         print(f"{label} ({Q3_LINES} x {Q3_ORDERS}, {P11_LINE_BATCHES} + "
               f"{P11_ORDER_BATCHES} batches, {P_PARTS} partitions): top 10 "
               f"equal to the numpy oracle in {ms:.1f} ms (first run); "
               f"{pairs} partition pairs joined, {stream} stream batches "
-              f"probed; row gathers {plan._p11_row_gathers}; "
+              f"probed; adaptive decisions {plan._adaptive}; row gathers "
+              f"{plan._p11_row_gathers}; "
               f"{describe_exchanges(exs)}; io {io}; launches {counts}")
     return out
 
@@ -2385,6 +2455,27 @@ def shuffled_join_inputs(j):
     finally:
         lit_.close()
         rit.close()
+
+
+def single_build_inputs(j):
+    """JoinInputs of a ShuffledHashJoinExec built on the right, at its
+    converted pass: every build partition's batches as one build, and the
+    first batch with rows of the stream exchange's child (the exchange the
+    pass skips). The build exchange's files go when its stream closes."""
+    j.stamp_inputs()
+    parts = j.children[1].execute_partitions()
+    try:
+        build = [b for part in parts for b in part if b.num_rows_host]
+    finally:
+        parts.close()
+    src = j.children[0].child.execute()
+    try:
+        stream = next(b for b in src if b.num_rows_host)
+    finally:
+        src.close()
+    j._rscan.set_batches(build)
+    j._lscan.set_batches([stream])
+    return JoinInputs(j._join)
 
 
 def reorder_gathers(captured):
@@ -4388,17 +4479,25 @@ def drive_join_paths(dev, d, batches, d3, d19, q1t_batch):
     runs["P15"] = (p15.collect, sorted_rows(p15_want))
 
     # P16: Q4's semi and anti joins over the host shuffle, planned, at the
-    # default tier (each partition pair sizes its own buckets)
-    for anti, want in ((False, q4_want), (True, q4_anti_want)):
-        key = "P16_anti" if anti else "P16_semi"
-        p16 = q4_df(sm, TpuSession(P16_CONF, dev), batches, anti,
-                    sort=False)
+    # default tier: at the default confs (the join converts to one
+    # single-build pass) and as the static twin (each partition pair sizes
+    # its own buckets; pairs without rows skipped), the twin untimed
+    for (anti, want), static in itertools.product(
+            ((False, q4_want), (True, q4_anti_want)), (False, True)):
+        key = ("P16_anti" if anti else "P16_semi") \
+            + ("_static" if static else "")
+        conf = dict(P16_CONF, **STATIC_CONF) if static else P16_CONF
+        p16 = q4_df(sm, TpuSession(conf, dev), batches, anti, sort=False)
         recs[key] = drive_planned(f"{key} Q4 shuffled planned", sm, p16,
                                   Q_NEED, None, sorted_rows(want))
         counts[key] = recs[key]["launches"]
         if "ShuffledHashJoinExec" not in recs[key]["shape"]:
             raise AssertionError(f"{key}: planned {recs[key]['shape']}")
-        runs[key] = (p16.collect, sorted_rows(want))
+        if static and counts[key]["fused_probe_verify"] < 2:
+            raise AssertionError(f"{key}: {counts[key]['fused_probe_verify']}"
+                                 f" probes, one pass")
+        if not static:
+            runs[key] = (p16.collect, sorted_rows(want))
 
     # Range, Union, Limit and Expand, planned
     half = d["o_orderkey"].shape[0] // 2
@@ -4461,8 +4560,8 @@ def compare_join_paths(dev, d, batches, d3, sites):
     version, exactly, at the path's own inputs: P12's semi join (hash,
     probe, every row gather), P14's outer joins in P14_COMPARED, every
     row gather of P15's planned nested-loop join, and P16's planned semi
-    join (every row gather, the join's kernels at its first partition
-    pair). Fails unless every label of JOIN_GATHER_SITES was met here or
+    join (every row gather, the join's kernels at its single build) and
+    its static twin's (at its first partition pair). Fails unless every label of JOIN_GATHER_SITES was met here or
     in `sites` (the sites P13's capture met)."""
     from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
     pm, sm = port_modules(), join_session_modules()
@@ -4487,12 +4586,18 @@ def compare_join_paths(dev, d, batches, d3, sites):
     compare("P15 band join planned", capture_row_gathers(planned(
         sm, p15_df(sm, sess15, *p15_batches(d, dev)))[0]))
 
-    def p16():
-        sess = sm.session.TpuSession(P16_CONF, dev)
+    def p16(settings):
+        sess = sm.session.TpuSession(settings, dev)
         return planned(sm, q4_df(sm, sess, batches, sort=False))[0]
-    compare("P16 Q4 shuffled semi join planned (its first partition pair)",
-            capture_row_gathers(p16()),
-            shuffled_join_inputs(find_exec(p16(), "ShuffledHashJoinExec")))
+    compare("P16 Q4 shuffled semi join planned (its single build)",
+            capture_row_gathers(p16(P16_CONF)),
+            single_build_inputs(find_exec(p16(P16_CONF),
+                                          "ShuffledHashJoinExec")))
+    static = dict(P16_CONF, **STATIC_CONF)
+    compare("P16 static Q4 shuffled semi join planned (its first partition "
+            "pair)", capture_row_gathers(p16(static)),
+            shuffled_join_inputs(find_exec(p16(static),
+                                           "ShuffledHashJoinExec")))
     set_active_conf(RapidsConf())     # the sessions' confs are not kept
     missing = [label for label in JOIN_GATHER_SITES if label not in sites]
     if missing:
@@ -6486,6 +6591,8 @@ NESTED_NEED = {
     "P29 collect": ["murmur3_columns", "fused_probe_verify",
                     "dma_row_gather"],
     "P29 shuffled": ["murmur3_columns", "dma_row_gather"],
+    "P29 shuffled static": ["murmur3_columns", "fused_probe_verify",
+                            "dma_row_gather"],
     "P29 shuffled group": ["murmur3_columns", "dma_row_gather"],
     "P30 lambdas": ["dma_row_gather"], "P30 zorder": ["dma_row_gather"],
     "P31 json": [], "P31 url": [], "P31 hosts": []}
@@ -6495,6 +6602,7 @@ NESTED_INPUTS = {"P29 lookups": ("orders", "customer"),
                  "P29 explode": ("orders", "customer"),
                  "P29 collect": ("orders", "customer"),
                  "P29 shuffled": ("orders", "customer"),
+                 "P29 shuffled static": ("orders", "customer"),
                  "P29 shuffled group": ("orders", "customer"),
                  "P30 lambdas": ("lines",), "P30 zorder": ("lines",),
                  "P31 json": ("json",), "P31 url": ("url",),
@@ -6693,6 +6801,8 @@ def nested_dfs(m, dev, b):
                                                device=dev), b)
     dfs["P29 shuffled"] = shuffled["P29 collect"]
     dfs["P29 shuffled group"] = shuffled["P29 group"]
+    dfs["P29 shuffled static"] = p29_dfs(m, m.session.TpuSession(
+        dict(P29_SHUFFLED_CONF, **STATIC_CONF), device=dev), b)["P29 collect"]
     return dfs
 
 
@@ -7114,6 +7224,7 @@ def nested_inputs(dev, dj, q3d, d19):
         "P29 explode": sorted_rows(w29["explode"]),
         "P29 collect": p29_collect_check(nd),
         "P29 shuffled": p29_collect_check(nd),
+        "P29 shuffled static": p29_collect_check(nd),
         "P29 shuffled group": lambda rows, label: check_rows(
             sorted(rows, key=repr), w29["groups"], label),
         "P30 lambdas": p30_lambdas_check(w30),
@@ -7127,7 +7238,8 @@ def nested_inputs(dev, dj, q3d, d19):
 
 #: the paths whose results collect() reads (small outputs, or rows)
 NESTED_COLLECTED = ("P29 group", "P29 explode", "P29 collect",
-                    "P29 shuffled", "P29 shuffled group", "P31 hosts")
+                    "P29 shuffled", "P29 shuffled static",
+                    "P29 shuffled group", "P31 hosts")
 #: the host-tier shapes of P30, planned only (the row engine would take
 #: minutes over 1,500,000 lists of quantities)
 NESTED_PLANNED_ONLY = ("P30 aggregate", "P30 outer column")
@@ -7164,7 +7276,7 @@ def shuffle_carried(tree):
 def drive_nested_paths(dev, m, b, checks):
     """Phase 3h: P29 (the join with a struct payload, the map's lookups,
     group-by, explode and collect, and the collect over 16 host shuffle
-    partitions), P30 (the lambdas and the z-order sort; the host-tier
+    partitions, with its static twin under STATIC_CONF, untimed), P30 (the lambdas and the z-order sort; the host-tier
     shapes planned only, their tag-off reasons printed) and P31 (the
     JSON paths, the URL parts, the count by host; the peak device memory
     of each). Returns (counts, records, runs, trees)."""
@@ -7172,8 +7284,9 @@ def drive_nested_paths(dev, m, b, checks):
     dfs = nested_dfs(m, dev, b)
     counts, recs, runs, trees = {}, {}, {}, {}
     for label in ("P29 lookups", "P29 group", "P29 explode", "P29 collect",
-                  "P29 shuffled", "P29 shuffled group", "P30 lambdas",
-                  "P30 zorder", "P31 json", "P31 url", "P31 hosts"):
+                  "P29 shuffled", "P29 shuffled static",
+                  "P29 shuffled group", "P30 lambdas", "P30 zorder",
+                  "P31 json", "P31 url", "P31 hosts"):
         tree, tag_ms, convert_ms = planned(m, dfs[label])
         need = NESTED_NEED[label]
         torch.cuda.reset_peak_memory_stats()
@@ -7196,8 +7309,11 @@ def drive_nested_paths(dev, m, b, checks):
             rec["shuffle_carries"] = carried
         counts[label], recs[label], trees[label] = cnt, rec, tree
         small = label in NESTED_COLLECTED
-        runs[label] = ((lambda t=tree: t.collect()) if small else
-                       (lambda t=tree: list(t.execute())), rec["rows"])
+        if label.endswith("static") and cnt["fused_probe_verify"] < 2:
+            raise AssertionError(f"{label}: launches {cnt}, one pass")
+        if not label.endswith("static"):
+            runs[label] = ((lambda t=tree: t.collect()) if small else
+                           (lambda t=tree: list(t.execute())), rec["rows"])
         print(f"{label}: {rows} rows equal to the oracle; launches {cnt}; "
               f"host reads {reads}; peak device memory {peak} bytes above "
               f"the inputs; reads {rec['input_bytes']} bytes at capacity, "
@@ -7226,7 +7342,8 @@ def compare_nested_paths(dev, m, b):
     versions."""
     shapes = {}
     for label in ("P29 lookups", "P29 explode", "P29 collect",
-                  "P29 shuffled", "P30 lambdas", "P30 zorder"):
+                  "P29 shuffled", "P29 shuffled static", "P30 lambdas",
+                  "P30 zorder"):
         tree = nested_tree(m, dev, b, label)
         gathers = capture_row_gathers(tree)
         shapes[label] = compare_row_gathers(label, gathers)
@@ -7626,6 +7743,19 @@ def drive_adaptive_paths(dev, sm, tm, jb, tb, dj, q3d, types_want,
         raise AssertionError(f"P32 sub: no subpartition {rec['choices']}")
     counts["P32 sub"], recs["P32 sub"] = rec["launches"], rec
     runs["P32 sub"] = (lambda: sub_tree().collect(), exact_rows(q21_want))
+    # its static twin: the same k-way sub-partitioned join, read a
+    # partition pair at a time (untimed)
+    static_conf = dict(sub_conf, **STATIC_CONF)
+    rec = drive_adaptive("P32 sub static", with_runtime_conf(
+        planned(sm, dfs["P32 Q21"])[0], static_conf),
+        ADAPTIVE_NEED["P32 sub"], exact_rows(q21_want), exact=True)
+    rec["runtime_conf"] = static_conf
+    rec["k"] = sub_partitions(rec["choices"], largest - 1)
+    if not rec["k"] or rec["adaptive_counters"]["single_build_converts"] \
+            or rec["launches"]["fused_probe_verify"] < P32_SUB_PARTS:
+        raise AssertionError(f"P32 sub static: {rec['choices']}, launches "
+                             f"{rec['launches']}")
+    counts["P32 sub static"], recs["P32 sub static"] = rec["launches"], rec
 
     # P32 demote: a broadcast threshold past every side; the cap lowered
     # below the largest measured right side only if no side measures past
@@ -7657,11 +7787,11 @@ def drive_adaptive_paths(dev, sm, tm, jb, tb, dj, q3d, types_want,
     counts["P32 demote"], recs["P32 demote"] = rec["launches"], rec
     runs["P32 demote"] = (lambda: demote_tree(demote_conf).collect(),
                           exact_rows(q21_want))
-    for label in ("P32 sub", "P32 demote"):
+    for label in ("P32 sub", "P32 sub static", "P32 demote"):
         rec = recs[label]
         print(f"{label}: {len(q21_want)} rows equal to q21_oracle; "
               f"AdaptiveJoinExec {rec['choices']}"
-              + (f" (k {rec['k']})" if label == "P32 sub" else "")
+              + (f" (k {rec['k']})" if "sub" in label else "")
               + f"; adaptive.counters() moved {rec['adaptive_counters']}; "
               f"conf {rec.get('runtime_conf', rec.get('conf'))}; launches "
               f"{rec['launches']}; host reads {rec['host_reads']}")
@@ -7759,9 +7889,9 @@ def drive_adaptive_paths(dev, sm, tm, jb, tb, dj, q3d, types_want,
 
 def compare_adaptive_paths(dev, sm, tm, jb, tb):
     """Phase 2 at P32's own inputs: every murmur3 chain, probe and row
-    gather launch of a run of P32 Q21, P32 P19, P32 P20's sort, P32 sub
-    and P32 demote (at 1 GiB, the default cap), each held exactly to its
-    plain version."""
+    gather launch of a run of P32 Q21, P32 P19, P32 P20's sort, P32 sub,
+    its static twin and P32 demote (at 1 GiB, the default cap), each held
+    exactly to its plain version."""
     from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
     dfs = adaptive_dfs(sm, tm, dev, jb, tb)
     probe = planned(sm, dfs["P32 Q21"])[0]
@@ -7777,13 +7907,16 @@ def compare_adaptive_paths(dev, sm, tm, jb, tb):
                 "spark.rapids.sql.broadcastSizeThreshold":
                     str(P32_DEMOTE_THRESHOLD)}), dev)
             return planned(sm, q21_df(sm, sess, jb))[0]
-        m = sm if "Q21" in label or label == "P32 sub" else tm
-        tree = planned(m, dfs[label if label != "P32 sub" else "P32 Q21"])[0]
+        sub = label.startswith("P32 sub")
+        m = sm if "Q21" in label or sub else tm
+        tree = planned(m, dfs["P32 Q21" if sub else label])[0]
         if label == "P32 sub":
             with_runtime_conf(tree, sub_conf)
+        elif label == "P32 sub static":
+            with_runtime_conf(tree, dict(sub_conf, **STATIC_CONF))
         return tree
     for label in ("P32 Q21", "P32 P19", "P32 P20 sort", "P32 sub",
-                  "P32 demote"):
+                  "P32 sub static", "P32 demote"):
         gathers = capture_row_gathers(fresh(label))
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
@@ -7857,8 +7990,11 @@ def time_adaptive_paths(runs):
 # -- slice 15: the governed collect (phase 3j) --------------------------------
 
 P34_RUNS = 3             # governed runs and ungoverned twin runs, in turns
-P36_CANCEL_S = 0.3       # P36: cancel_query() this long after the start
-P36_TIMEOUT_MS = 500     # P36: query.timeoutMs of the second run
+#: P36: cancel_query() and the deadline at these shares of a measured
+#: uncancelled run (at the default confs P11 converts to one single-build
+#: pass and can finish within a fixed 0.3 s)
+P36_CANCEL_SHARE = 0.3
+P36_TIMEOUT_SHARE = 0.5
 P37_ROUNDS = 3           # P37: queries per session
 P35_FAULTS = ("shuffle.fetch:prob=0.25,seed=35,kind=io,max=3;"
               "device.dispatch:prob=1,seed=35,kind=device,max=1")
@@ -8104,11 +8240,12 @@ def drive_p35(dev, sm, jb, d3, q3_want, q4_want, p2_rec, p3_rec):
 
 
 def drive_p36(dev, sm, d3, q3_want):
-    """P36: P11 (q3 over 16 host partitions) cancelled with
-    cancel_query() from a second thread after P36_CANCEL_S, then run
-    under query.timeoutMs P36_TIMEOUT_MS: where each was noticed, the
-    latency to the raise, and the catalog, permits, engine threads and
-    device memory after."""
+    """P36: P11 (q3 over 16 host partitions) timed twice uncancelled, then
+    cancelled with cancel_query() from a second thread after
+    P36_CANCEL_SHARE of the faster run, then run under a query.timeoutMs
+    of P36_TIMEOUT_SHARE of it: where each was noticed, the latency to the
+    raise, and the catalog, permits, engine threads and device memory
+    after."""
     import gc
     import threading
     import torch
@@ -8117,8 +8254,18 @@ def drive_p36(dev, sm, d3, q3_want):
     orders = q3_batches(d3, dev, o_schema, Q3_ORDERS, P11_ORDER_BATCHES)
     lines = q3_batches(d3, dev, l_schema, Q3_LINES, P11_LINE_BATCHES)
     recs = {}
+    runs = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        check_q3(q3_df(sm, sm.session.TpuSession(P11_CONF, dev), orders,
+                       lines).collect(), q3_want, "P36 uncancelled")
+        runs.append(time.monotonic() - t0)
+    full_s = min(runs)
+    cancel_s = full_s * P36_CANCEL_SHARE
+    timeout_ms = max(1, int(full_s * P36_TIMEOUT_SHARE * 1000))
+    recs["uncancelled_ms"] = full_s * 1e3
     for label, extra in (("cancel", {}), ("deadline", {
-            "spark.rapids.tpu.query.timeoutMs": str(P36_TIMEOUT_MS)})):
+            "spark.rapids.tpu.query.timeoutMs": str(timeout_ms)})):
         sess = sm.session.TpuSession(dict(P11_CONF, **extra), dev)
         df = q3_df(sm, sess, orders, lines)
         gc.collect()
@@ -8127,7 +8274,7 @@ def drive_p36(dev, sm, d3, q3_want):
         cancel_at = {}
 
         def cancel():
-            time.sleep(P36_CANCEL_S)
+            time.sleep(cancel_s)
             cancel_at["t"] = time.monotonic()
             cancel_at["n"] = sess.cancel_query()
 
@@ -8147,7 +8294,7 @@ def drive_p36(dev, sm, d3, q3_want):
                 raise AssertionError(f"P36: cancel_query() {cancel_at}")
             start = cancel_at["t"]
         else:
-            start = t0 + P36_TIMEOUT_MS / 1000.0
+            start = t0 + timeout_ms / 1000.0
         wait_engine_threads(f"P36 {label}")
         check_idle(f"P36 {label}")
         shuffle_root_empty(f"P36 {label}")
@@ -8161,6 +8308,8 @@ def drive_p36(dev, sm, d3, q3_want):
         recs[label] = {"latency_ms": (t_raise - start) * 1e3,
                        "noticed": noticed, "reason": reason,
                        "ran_ms": (t_raise - t0) * 1e3,
+                       "at_ms": (cancel_s * 1e3 if label == "cancel"
+                                 else timeout_ms),
                        "memory_allocated": [mem0, mem1]}
         print(f"P36 {label}: QueryCancelledError ({reason}) noticed in "
               f"{noticed} {recs[label]['latency_ms']:.1f} ms after the "
@@ -8280,6 +8429,639 @@ def drive_governed_paths(dev, sm, tm, d3, q3_want, l19, p19, q19_want, jb,
     return recs, launches
 
 
+# -- phase 3k: the adaptive read plan and the robustness paths (A.9b) --------
+
+P38_HOT = 0.8            # P38: the lines' share on one order key (the JAX
+#                          package's zipf shape, tests/test_adaptive.py)
+P38_SEED = 38
+P38_MAP_BATCHES = 16     # P38's lines as 16 host map batches
+#: P38's runs of each plan, in turns: static once (its 256 partition-pair
+#: reads take 8-11 s a run on an H100), split and convert 3 each
+P38_RUNS = {"static": 1, "split": 3, "convert": 3}
+#: P38's three plans, all over 16 partitions with broadcasts off: static
+#: (adaptive off), split (the defaults but the conversion cap, as the JAX
+#: package's skew test BASE sets it) and convert (the defaults)
+P38_CONFS = {
+    "static": STATIC_CONF,
+    "split": {"spark.rapids.tpu.adaptive.autoBroadcastMaxBytes": "-1"},
+    "convert": {}}
+P38_SKEW_FAULT = "shuffle.skew_split:prob=1,seed=38,kind=corrupt,max=1"
+P38_SPEC_DELAY_MS = 500  # one shuffle.fetch straggler under speculation
+P38_DECODE_FAULT = "shuffle.decode:prob=1,seed=35,kind=corrupt,max=1"
+#: P11 under the watchdog: the root yields nothing until the end (~1 s),
+#: so the window is longer than the run and the delay longer than the
+#: window, and shorter than two: one episode
+P38_STALL_MS = 2000
+P38_STALL_DELAY_MS = 2300
+P38_TIMEOUT_MS = 10000   # q3's dispatch hang bound
+P38_Q3_RUNS = 5          # q3 with and without the bound, in turns
+STALL_ACTIONS = ("report", "retry-seam", "cancel")
+
+
+#: P38's lines: tpch_join_data's lineitem columns and an l_quantity, each
+#: carried through the shuffle as a query without column pruning carries
+#: it (the join reads l_orderkey, the aggregate l_quantity)
+P38_LINE_FIELDS = tuple((n, t) for n, t, _ in JOIN_TABLES["lineitem"]) \
+    + (("l_quantity", "LONG"),)
+
+
+def p38_data(dj, seed=P38_SEED):
+    """tpch_join_data's lines with P38_HOT of them moved onto one existing
+    order key (both from `seed`) and an l_quantity of 1-50 (clause
+    4.2.3)."""
+    rng = np.random.default_rng(seed)
+    lkey = dj["l_orderkey"].copy()
+    hot = rng.random(lkey.shape[0]) < P38_HOT
+    key = int(dj["o_orderkey"][rng.integers(0, dj["o_orderkey"].shape[0])])
+    lkey[hot] = key
+    out = {name: dj[name] for name, _ in P38_LINE_FIELDS[1:-1]}
+    out.update(l_orderkey=lkey,
+               l_quantity=rng.integers(1, 51, lkey.shape[0]),
+               hot_key=key, hot_rows=int(hot.sum()))
+    return out
+
+
+def p38_oracle(dj, pd):
+    """count(*) and sum(l_quantity) by o_orderpriority of the lines joined
+    to their orders, in numpy (every line has its order)."""
+    prio = dj["o_orderpriority"][0][order_index(pd["l_orderkey"])]
+    counts = np.bincount(prio, minlength=5)
+    sums = np.zeros(5, np.int64)
+    np.add.at(sums, prio, pd["l_quantity"])
+    return [(ORDER_PRIORITIES[k], int(counts[k]), int(sums[k]))
+            for k in range(5) if counts[k]]
+
+
+def p38_lines_scan(m, pd, dev):
+    """P38's lines as a SourceScanExec of P38_MAP_BATCHES host batches."""
+    from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
+    schema = m.t.Schema(tuple(m.t.StructField(name, getattr(m.t, ty))
+                              for name, ty in P38_LINE_FIELDS))
+    bounds = np.linspace(0, pd["l_orderkey"].shape[0], P38_MAP_BATCHES + 1,
+                         dtype=np.int64)
+
+    def part(lo, hi):
+        cap = bucket_capacity(hi - lo)
+        return lambda: ([Column.from_numpy(pd[f.name][lo:hi], f.data_type,
+                                           capacity=cap, device="cpu")
+                         for f in schema.fields], hi - lo)
+    return m.basic.SourceScanExec(
+        HostSource(schema, [part(int(a), int(b)) for a, b in
+                            zip(bounds[:-1], bounds[1:])], dev), schema, 0)
+
+
+def p38_plan(pd, orders, dev, settings):
+    """P38: the lines hash-exchanged on l_orderkey and the orders
+    (o_orderkey, o_orderpriority) on o_orderkey into a ShuffledHashJoinExec
+    built on the orders, then count(*) and sum(l_quantity) by
+    o_orderpriority, partial -> exchange -> final, every exchange over
+    P_PARTS partitions under `settings`."""
+    from spark_rapids_tpu_torch.config import RapidsConf
+    m = port_modules()
+    m.exchange_kw = {"conf": RapidsConf(settings)}
+    col = m.core.col
+    lines = p38_lines_scan(m, pd, dev)
+    orders = m.basic.ProjectExec(
+        [col("o_orderkey"), col("o_orderpriority")],
+        m.basic.InMemoryScanExec([orders], orders.schema))
+    join = m.exchange.ShuffledHashJoinExec(
+        shuffle_of(m, [col("l_orderkey")], lines, P_PARTS),
+        shuffle_of(m, [col("o_orderkey")], orders, P_PARTS),
+        [col("l_orderkey")], [col("o_orderkey")], "inner",
+        build_side="right")
+    return shuffled_aggregate(
+        m, [col("o_orderpriority")],
+        [(m.aggexprs.Count(), "cnt"),
+         (m.aggexprs.Sum(col("l_quantity")), "qty")], join, P_PARTS)
+
+
+@contextlib.contextmanager
+def event_spy(kinds):
+    """The port's events of `kinds` emitted inside the block (whether or
+    not a bus is on), as (kind, fields) pairs."""
+    from spark_rapids_tpu_torch.obs import events
+    seen, real = [], events.emit
+
+    def emit(kind, **fields):
+        if kind in kinds:
+            seen.append((kind, dict(fields)))
+        return real(kind, **fields)
+    events.emit = emit
+    try:
+        yield seen
+    finally:
+        events.emit = real
+
+
+def decisions_of(seen):
+    """The adaptive_replan records among spied events, without op ids."""
+    return [{k: v for k, v in f.items() if k not in ("op_id", "exec")}
+            for kind, f in seen if kind == "adaptive_replan"]
+
+
+def row_counts(counts):
+    """Rows 2+3, 4 and 5 of the kernel table, from the wrappers' counts."""
+    return {"murmur3": counts["murmur3_columns"]
+            + counts["murmur3_long_lanes"] + counts["murmur3_int_lanes"],
+            "probe": counts["fused_probe_verify"],
+            "row_gather": counts["dma_row_gather"]}
+
+
+def drive_p38(label, plan, want):
+    """One run of a P38 plan as collect() runs it (its speculation scope,
+    the exact re-run when a flag trips), counted: (record, rows). The
+    launches and `peak_bytes` cover the whole run, the decisions, the
+    join's pairs and `read_peak_bytes` the execution whose rows are kept.
+    A peak is torch.cuda.max_memory_allocated above what was allocated
+    when it started: the run's start, or (the read's) the join's first
+    partition pair, once both exchanges are written."""
+    import torch
+    from spark_rapids_tpu_torch.exec import lifecycle
+    from spark_rapids_tpu_torch.exec.speculation import (force_exact,
+                                                         speculation_scope)
+    wrappers = zero_launches()
+    rec0 = lifecycle.counters()["partition_recompute"]
+    join = p11_join(plan)
+    read, pair = {}, join._pair
+
+    def first_pair(*args):
+        if not read:
+            torch.cuda.synchronize()
+            read["base"] = torch.cuda.memory_allocated()
+            read["peak0"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        return pair(*args)
+    join._pair = first_pair
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with event_spy(("adaptive_replan", "partition_recompute",
+                    "speculative_fetch")) as seen:
+        with speculation_scope() as scope:
+            rows = [r for b in plan._execute(encoded_out=True)
+                    for r in b.to_pylist()]
+            tripped = scope.tripped()
+        if tripped:
+            # the decisions and the read of the exact re-run alone
+            seen[:] = [x for x in seen if x[0] != "adaptive_replan"]
+            read.clear()
+            pairs0 = join.metrics["numPartitionPairs"].value
+            stream0 = join.metrics["numStreamBatches"].value
+            with force_exact():
+                rows = [r for b in plan._execute(encoded_out=True)
+                        for r in b.to_pylist()]
+        else:
+            pairs0 = stream0 = 0
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    read_peak = torch.cuda.max_memory_allocated() - read["base"]
+    peak = max(read["peak0"], torch.cuda.max_memory_allocated()) - base
+    rows = sorted(rows)
+    if rows != want:
+        raise AssertionError(f"{label}: rows {rows} != oracle {want}")
+    check_idle(label)
+    shuffle_root_empty(label)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    return {"ms": ms, "decisions": decisions_of(seen),
+            "recomputes": lifecycle.counters()["partition_recompute"] - rec0,
+            "spec_events": [f for k, f in seen if k == "speculative_fetch"],
+            "launches": row_counts(counts), "all_launches": counts,
+            "peak_bytes": peak, "read_peak_bytes": read_peak,
+            "tripped": tripped,
+            "pairs": join.metrics["numPartitionPairs"].value - pairs0,
+            "stream_batches": join.metrics["numStreamBatches"].value
+            - stream0,
+            "build_bytes": join.children[1]._adaptive_write_bytes}, rows
+
+
+def p38_expect(label, kind, rec):
+    """What each P38 plan must have decided: static nothing; split a skew
+    split of the hot partition (its sub-reads under the threshold) and no
+    conversion; convert the single build when the orders side measured
+    under the cap (the split otherwise)."""
+    kinds = [d["decision"] for d in rec["decisions"]]
+    splits = [d for d in rec["decisions"] if d["decision"] == "skew_split"]
+    if kind == "static" and kinds:
+        raise AssertionError(f"{label}: decisions {kinds} with adaptive off")
+    if kind == "split":
+        if not splits or "single_build_convert" in kinds:
+            raise AssertionError(f"{label}: decisions {rec['decisions']}")
+    for d in splits:
+        if not (d["bytes"] > d["threshold"] >= d["max_sub_bytes"]
+                and d["subs"] >= 2):
+            raise AssertionError(f"{label}: split {d}")
+    if kind == "convert":
+        cap = 64 << 20
+        if rec["build_bytes"] is not None and rec["build_bytes"] <= cap:
+            if "single_build_convert" not in kinds or rec["pairs"] != 1:
+                raise AssertionError(f"{label}: {rec['decisions']}, "
+                                     f"{rec['pairs']} pairs")
+        elif "single_build_convert" in kinds:
+            raise AssertionError(f"{label}: converted over the cap")
+
+
+def drive_p38_runs(pd, orders, dev, want):
+    """P38 static, split and convert, P38_RUNS of each in turns."""
+    recs = {k: [] for k in P38_CONFS}
+    kinds = list(P38_CONFS)
+    for i in range(max(P38_RUNS.values())):
+        for kind in [k for k in kinds[i:] + kinds[:i] if i < P38_RUNS[k]]:
+            label = f"P38 {kind} run {i + 1}"
+            rec, _ = drive_p38(label, p38_plan(pd, orders, dev,
+                                               P38_CONFS[kind]), want)
+            p38_expect(label, kind, rec)
+            recs[kind].append(rec)
+    out = {}
+    for kind, runs in recs.items():
+        last = runs[-1]
+        out[kind] = {"ms": [r["ms"] for r in runs],
+                     "peak_bytes": [r["peak_bytes"] for r in runs],
+                     "read_peak_bytes": [r["read_peak_bytes"] for r in runs],
+                     **{k: last[k] for k in ("decisions", "launches",
+                                             "all_launches", "pairs",
+                                             "stream_batches", "build_bytes",
+                                             "tripped")}}
+        print(f"P38 {kind}: rows equal to the oracle; ms {[round(r['ms'], 1) for r in runs]}; "
+              f"peak device memory over the read "
+              f"{[r['read_peak_bytes'] for r in runs]} bytes (over the run "
+              f"{[r['peak_bytes'] for r in runs]}); decisions "
+              f"{last['decisions']}; orders side measured "
+              f"{last['build_bytes']} bytes; {last['pairs']} partition "
+              f"pairs, {last['stream_batches']} stream batches; launches "
+              f"{last['launches']}")
+    if out["convert"]["build_bytes"] > 64 << 20:
+        print(f"P38 convert: the orders side measured "
+              f"{out['convert']['build_bytes']} bytes, over "
+              f"adaptive.autoBroadcastMaxBytes (64 MiB): no conversion, the "
+              f"split plan ran")
+    return out
+
+
+def a9b_conf(base, history_dir, **extra):
+    """A phase 3k session's conf: `base`, the history store on, `extra`."""
+    return dict(base, **{"spark.rapids.tpu.history.enabled": "true",
+                         "spark.rapids.tpu.history.dir": history_dir},
+                **extra)
+
+
+def drive_p11_stalls(dev, sm, d3, q3_want, history_dir):
+    """P11 (planned, 16 partitions) under a `pipeline.produce` delay of
+    P38_STALL_DELAY_MS past a stall window of P38_STALL_MS, once per
+    action: report (one query_stalled, rows right), retry-seam (two
+    attempts, rows right), cancel (QueryCancelledError, memory back to
+    its level)."""
+    import gc
+    import torch
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.exec import task_retry
+    from spark_rapids_tpu_torch.exec.lifecycle import QueryCancelledError
+    o_schema, l_schema = q3_schemas("LONG")
+    orders = q3_batches(d3, dev, o_schema, Q3_ORDERS, P11_ORDER_BATCHES)
+    lines = q3_batches(d3, dev, l_schema, Q3_LINES, P11_LINE_BATCHES)
+    recs = {}
+    for action in STALL_ACTIONS:
+        label = f"P11 stalled, {action}"
+        conf = a9b_conf(P11_CONF, history_dir, **{
+            "spark.rapids.tpu.stall.timeoutMs": str(P38_STALL_MS),
+            "spark.rapids.tpu.stall.action": action,
+            "spark.rapids.tpu.task.retryBackoffMs": "1",
+            "spark.rapids.tpu.test.faults":
+                f"pipeline.produce:prob=1,seed=11,kind=delay,"
+                f"ms={P38_STALL_DELAY_MS},max=1"})
+        df = q3_df(sm, sm.session.TpuSession(conf, dev), orders, lines)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        before = task_retry.task_retry_total()
+        t0 = time.perf_counter()
+        err = None
+        with event_spy(("query_stalled",)) as seen:
+            try:
+                rows = df.collect()
+            except QueryCancelledError as e:
+                err = e
+            finally:
+                faults.install(None)
+        ms = (time.perf_counter() - t0) * 1e3
+        attempts = task_retry.task_retry_total() - before + 1
+        stalls = [f for _, f in seen]
+        wait_engine_threads(label)
+        check_idle(label)
+        shuffle_root_empty(label)
+        del df
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        if action == "cancel":
+            if err is None or err.reason != "stalled" or mem1 != mem0:
+                raise AssertionError(f"{label}: {err!r}, memory_allocated "
+                                     f"{mem0} before, {mem1} after")
+        else:
+            if err is not None:
+                raise err
+            check_q3(rows, q3_want, label)
+            want_attempts = 2 if action == "retry-seam" else 1
+            if len(stalls) != 1 or attempts != want_attempts:
+                raise AssertionError(f"{label}: {len(stalls)} stalls, "
+                                     f"{attempts} attempts")
+        recs[action] = {"ms": ms, "attempts": attempts, "stalls": stalls,
+                        "memory_allocated": [mem0, mem1],
+                        "cancelled": err is not None}
+        print(f"{label}: {len(stalls)} query_stalled "
+              f"{[(s['seam'], s['phase'], s['stalled_ms']) for s in stalls]}"
+              f"; {attempts} attempt(s); "
+              + ("QueryCancelledError (stalled)" if err is not None
+                 else "top 10 equal to the oracle")
+              + f" in {ms:.1f} ms; memory_allocated {mem0} before, {mem1} "
+              f"after; catalog empty, no permit, no pipeline thread")
+    return recs
+
+
+def drive_a9b_paths(dev, sm, dj, jb, p9_batches, q1_want, d3, q3_want,
+                    q4_want, pd, p38_want):
+    """Phase 3k: P38 (static, split, convert), then the earlier paths
+    under A.9b: P9's coalesced read, P16's decision, P35's P16 under a
+    shuffle.decode corrupt fault, P38 split under a skew-split fault and
+    under speculation with a fetch straggler, P11 under the watchdog's
+    three actions, q3 under the dispatch hang bound against none, P2's
+    injected split's right-sizing, with one history capsule per governed
+    query, written to a temporary directory that goes after. Returns
+    (records, launches by path)."""
+    import shutil
+    import tempfile
+    from spark_rapids_tpu_torch.obs import history
+    history_dir = tempfile.mkdtemp(prefix="p38-history-")
+    try:
+        return a9b_paths(dev, sm, jb, p9_batches, q1_want, d3, q3_want,
+                         q4_want, pd, p38_want, history_dir)
+    finally:
+        history.reset_history()
+        shutil.rmtree(history_dir, ignore_errors=True)
+
+
+def a9b_paths(dev, sm, jb, p9_batches, q1_want, d3, q3_want, q4_want, pd,
+              p38_want, history_dir):
+    """drive_a9b_paths' body, its capsules under `history_dir`."""
+    import os
+    import torch
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch import memory as M
+    from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    from spark_rapids_tpu_torch.exec import (adaptive, lifecycle,
+                                             speculation_shield, task_retry)
+    from spark_rapids_tpu_torch.obs import history
+    governed = 0
+    recs, launches = {}, {}
+    orders = jb["orders"]
+
+    # P38 itself
+    recs["P38"] = drive_p38_runs(pd, orders, dev, p38_want)
+    for kind, rec in recs["P38"].items():
+        launches[f"P38_{kind}"] = rec.pop("all_launches")
+
+    # P9 at the default confs: the final aggregate reads its tiny
+    # partitions as one coalesced stream
+    pm = port_modules()
+    p9 = q1_tree(pm, pm.basic.InMemoryScanExec(p9_batches,
+                                               p9_batches[0].schema), P_PARTS)
+    with event_spy(("adaptive_replan",)) as seen:
+        rows, counts, exs, ms, _ = drive_shuffled(
+            "P9 default confs", p9, ["fused_scan_agg"], expect_p9)
+    check_q1(rows, q1_want, "P9 default confs")
+    dec = decisions_of(seen)
+    reads = [d["reads"] for d in dec if d["decision"] == "partition_coalesce"]
+    if reads != [1]:
+        raise AssertionError(f"P9: decisions {dec}")
+    recs["P9"] = {"decisions": dec, "reads": reads[0], "ms": ms}
+    launches["P9_default"] = counts
+    print(f"P9 at the default confs: {P_PARTS} partitions read as "
+          f"{reads[0]} coalesced stream(s) ({dec}); {ms:.1f} ms; launches "
+          f"{counts}")
+
+    # P16 at the default confs: its decision and the measured build bytes
+    sess = sm.session.TpuSession(a9b_conf(P16_CONF, history_dir), dev)
+    df = q4_df(sm, sess, jb, False, sort=False)
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    with event_spy(("adaptive_replan",)) as seen:
+        rows = df.collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    governed += 1
+    sorted_rows(q4_want)(rows, "P16 default confs")
+    dec = decisions_of(seen)
+    recs["P16"] = {"decisions": dec, "ms": ms,
+                   "launches": {k: w.launches for k, w in wrappers.items()}}
+    launches["P16_default"] = recs["P16"]["launches"]
+    conv = [d for d in dec if d["decision"] == "single_build_convert"]
+    print(f"P16 at the default confs: rows equal to q4_oracle in {ms:.1f} ms;"
+          f" decisions {dec}"
+          + (f"; single build, the lines measured "
+             f"{conv[0]['measured_bytes']} bytes under "
+             f"{conv[0]['threshold']}" if conv else
+             "; no conversion (the lines measured over the cap)")
+          + f"; launches {recs['P16']['launches']}")
+
+    # P35's P16 under one shuffle.decode corrupt fault: recovered in place
+    rec0 = lifecycle.counters()["partition_recompute"]
+    conf = a9b_conf(P16_CONF, history_dir, **{
+        "spark.rapids.tpu.task.maxAttempts": "3",
+        "spark.rapids.tpu.test.faults": P38_DECODE_FAULT})
+    df = q4_df(sm, sm.session.TpuSession(conf, dev), jb, False, sort=False)
+    with event_spy(("partition_recompute",)) as seen:
+        run = retry_run("P35 P16 decode fault", df, sorted_rows(q4_want))
+    governed += 1
+    run["recomputes"] = lifecycle.counters()["partition_recompute"] - rec0
+    if run["attempts"] != 1 or run["recomputes"] != 1 \
+            or run["faults"].get("shuffle.decode") != 1:
+        raise AssertionError(f"P35 P16 decode fault: {run}")
+    recs["P35_P16_decode"] = run
+    launches["P35_P16_decode"] = run["launches"]
+    print(f"P35 P16 under one shuffle.decode corrupt fault: rows equal to "
+          f"q4_oracle after {run['attempts']} attempt, "
+          f"{run['recomputes']} partition_recompute "
+          f"({[f['map_path'] for _, f in seen]}); {run['ms']:.1f} ms; "
+          f"launches {run['launches']}")
+
+    # P38 split under one skew-split sub-read fault
+    faults.install(P38_SKEW_FAULT)
+    try:
+        rec, _ = drive_p38("P38 split, skew_split fault",
+                           p38_plan(pd, orders, dev, P38_CONFS["split"]),
+                           p38_want)
+        fired = faults.stats()
+    finally:
+        faults.install(None)
+    if rec["recomputes"] != 1 or fired.get("shuffle.skew_split") != 1:
+        raise AssertionError(f"P38 split fault: {rec}, {fired}")
+    recs["P38_split_fault"] = {k: rec[k] for k in (
+        "ms", "recomputes", "launches", "decisions")}
+    launches["P38_split_fault"] = rec["all_launches"]
+    print(f"P38 split under one shuffle.skew_split corrupt fault: rows equal "
+          f"to the oracle, {rec['recomputes']} map output recomputed; "
+          f"{rec['ms']:.1f} ms; launches {rec['launches']}")
+
+    # P38 split under speculation with one fetch straggler: its duplicate
+    # must win, and the straggling fetch must resolve well inside the delay
+    # (its wait: the bound, then the race past it)
+    before = speculation_shield.counters()
+    retries0 = task_retry.task_retry_total()
+    faults.install(f"shuffle.fetch:prob=1,seed=38,kind=delay,"
+                   f"ms={P38_SPEC_DELAY_MS},max=1")
+    try:
+        rec, _ = drive_p38("P38 split, speculation",
+                           p38_plan(pd, orders, dev, dict(
+                               P38_CONFS["split"], **{
+                                   "spark.rapids.tpu.shuffle.speculation."
+                                   "enabled": "true"})), p38_want)
+        fired = faults.stats()
+    finally:
+        faults.install(None)
+    shield = {k: v - before[k]
+              for k, v in speculation_shield.counters().items()}
+    waits = [e["bound_ms"] + e["wait_ms"] for e in rec["spec_events"]
+             if e["winner"] == "spec"]
+    if not waits or shield["spec_wins"] < 1 \
+            or task_retry.task_retry_total() != retries0 \
+            or fired.get("shuffle.fetch") != 1 \
+            or max(waits) >= P38_SPEC_DELAY_MS // 2:
+        raise AssertionError(f"P38 speculation: {shield}, {fired}, events "
+                             f"{rec['spec_events']}")
+    recs["P38_speculation"] = {"ms": rec["ms"], "shield": shield,
+                               "straggler_wait_ms": waits,
+                               "events": rec["spec_events"],
+                               "launches": rec["launches"]}
+    launches["P38_speculation"] = rec["all_launches"]
+    print(f"P38 split under speculation, one {P38_SPEC_DELAY_MS} ms fetch "
+          f"straggler: rows equal to the oracle in {rec['ms']:.1f} ms; the "
+          f"straggling fetch resolved in {waits} ms (the duplicate won); "
+          f"shield {shield}; events {rec['spec_events']}; 0 plan retries")
+
+    # P11 under the watchdog
+    recs["P11_stalls"] = drive_p11_stalls(dev, sm, d3, q3_want, history_dir)
+    governed += len(STALL_ACTIONS)
+
+    # q3 under the dispatch hang bound, against none, in turns
+    o_schema, l_schema = q3_schemas("LONG")
+    q3o = q3_batches(d3, dev, o_schema, Q3_ORDERS)
+    q3l = q3_batches(d3, dev, l_schema, Q3_LINES)
+    dfs = {on: q3_df(sm, sm.session.TpuSession(a9b_conf(
+        Q3_CONF, history_dir, **({"spark.rapids.tpu.dispatch.timeoutMs":
+                                  str(P38_TIMEOUT_MS)} if on else {})),
+        dev), q3o, q3l) for on in (True, False)}
+    before = speculation_shield.counters()["dispatch_timeouts"]
+    q3_ms = {True: [], False: []}
+    for i in range(P38_Q3_RUNS):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = dfs[on].collect()
+            q3_ms[on].append((time.perf_counter() - t0) * 1e3)
+            governed += 1
+            check_q3(rows, q3_want, f"q3 dispatch bound {on}")
+    timeouts = speculation_shield.counters()["dispatch_timeouts"] - before
+    if timeouts:
+        raise AssertionError(f"q3: {timeouts} dispatch timeouts")
+    recs["q3_dispatch_bound"] = {"timeout_ms": P38_TIMEOUT_MS,
+                                 "bounded_ms": q3_ms[True],
+                                 "unbounded_ms": q3_ms[False],
+                                 "timeouts": timeouts}
+    print(f"q3 with dispatch.timeoutMs {P38_TIMEOUT_MS}: ms "
+          f"{[round(x, 2) for x in q3_ms[True]]}, without "
+          f"{[round(x, 2) for x in q3_ms[False]]} (in turns); 0 timeouts")
+
+    # P2's injected split under a governed query: the batch target halves
+    conf = RapidsConf(Q3_CONF)
+    set_active_conf(conf)
+    before = adaptive.counters()["batch_right_sizes"]
+    try:
+        with lifecycle.governed(conf) as ctx:
+            M.register_task(1)
+            M.force_split_and_retry_oom(1)
+            rows = q3_plan(d3, dev, "LONG", P2_LINE_BATCHES).collect()
+            target = ctx.adaptive_batch_target
+    finally:
+        set_active_conf(RapidsConf())
+    check_q3(rows, q3_want, "P2 injected split")
+    _, splits = M.task_retry_counts()
+    from spark_rapids_tpu_torch.config import BATCH_SIZE_BYTES
+    full = conf.get(BATCH_SIZE_BYTES)
+    sizes = adaptive.counters()["batch_right_sizes"] - before
+    if sizes != 1 or target != full // 2:
+        raise AssertionError(f"P2: {sizes} right-sizings, target {target}")
+    check_idle("P2 injected split")
+    recs["P2_right_size"] = {"batch_right_sizes": sizes,
+                             "target_bytes": [full, target]}
+    print(f"P2 with one injected split in a governed query: rows equal to "
+          f"the oracle; 1 batch_right_size, the coalesce target {full} -> "
+          f"{target} bytes")
+
+    # one capsule per governed query of the phase
+    caps = []
+    for name in sorted(os.listdir(history_dir)):
+        with open(os.path.join(history_dir, name)) as f:
+            caps.extend(json.loads(line) for line in f if line.strip())
+    history.reset_history()
+    if len(caps) != governed:
+        raise AssertionError(f"history: {len(caps)} capsules for "
+                             f"{governed} governed queries")
+    recs["history"] = {"capsules": len(caps),
+                       "fingerprints": len({c["fingerprint"] for c in caps}),
+                       "ok": sum(1 for c in caps if c["ok"])}
+    print(f"history: {len(caps)} capsules for {governed} governed queries "
+          f"({recs['history']['fingerprints']} plan fingerprints, "
+          f"{recs['history']['ok']} ok)")
+    return recs, launches
+
+
+def p38_join_inputs(plan, convert):
+    """JoinInputs of a P38 plan's join: with `convert`, the converted
+    pass's one build over every orders partition and the lines' first
+    batch; else the split's hot probe window (the first sub-read batch of
+    the partition with the most stream rows, against that partition's
+    build). The exchanges' files go when their streams close."""
+    j = p11_join(plan)
+    if convert:
+        return single_build_inputs(j)
+    j.stamp_inputs()
+    lit_ = j.children[0].execute_partitions()
+    rit = j.children[1].execute_partitions()
+    best = (0, None, None)
+    try:
+        for lp, rp in zip(lit_, rit):
+            first, n = None, 0
+            for b in lp:
+                if first is None and b.num_rows_host:
+                    first = b
+                n += b.num_rows_host
+            if n > best[0]:
+                best = (n, [b for b in rp if b.num_rows_host], first)
+            else:
+                rp.close()
+    finally:
+        lit_.close()
+        rit.close()
+    _, build, stream = best
+    j._rscan.set_batches(build)
+    j._lscan.set_batches([stream])
+    return JoinInputs(j._join)
+
+
+def compare_p38(pd, orders, dev):
+    """Phase 2 for P38: every row gather of a run of the split and the
+    converted plans, and the join's kernels (murmur3 chain, probe) at the
+    split's hot probe window and at the converted pass's one build over
+    the whole orders side, each against its plain version."""
+    for kind in ("split", "convert"):
+        gathers = capture_row_gathers(p38_plan(pd, orders, dev,
+                                               P38_CONFS[kind]))
+        inputs = p38_join_inputs(p38_plan(pd, orders, dev, P38_CONFS[kind]),
+                                 kind == "convert")
+        compare_join_inputs(f"P38 {kind}", inputs, gathers)
+        del inputs, gathers
+    shuffle_root_empty("P38 phase 2")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -8348,6 +9130,8 @@ def main() -> int:
         for i in range(0, ROWS, step)]
     dj = tpch_join_data()
     jb = join_batches(dj, dev)
+    pd38 = p38_data(dj)
+    p38_want = p38_oracle(dj, pd38)
     q3d = q3_types_data(dj)
     tm, tb, types_want = types_inputs(dev, d19, dj, q3d)
     str_m, str_b, strings_want = strings_inputs(dev, dj, q3d, d19, names)
@@ -8451,13 +9235,19 @@ def main() -> int:
     gathers["P10"] = capture_row_gathers(tpch_q1_tree(
         pm, scan_of(pm, q1t_batch), n_parts=P_PARTS))
     gathers["P11"] = capture_row_gathers(p11_plan(d3, dev, "LONG"))
+    gathers["P11 static"] = capture_row_gathers(p11_plan(d3, dev, "LONG",
+                                                         STATIC_CONF))
     for key in ("P9", "P10"):
         print(f"compare {key} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
-    compare_join_inputs("P11 (its first partition pair)",
-                        shuffled_join_inputs(p11_join(p11_plan(d3, dev,
-                                                               "LONG"))),
+    compare_join_inputs("P11 (its single build)",
+                        single_build_inputs(p11_join(p11_plan(d3, dev,
+                                                              "LONG"))),
                         gathers["P11"])
+    compare_join_inputs("P11 static (its first partition pair)",
+                        shuffled_join_inputs(p11_join(p11_plan(
+                            d3, dev, "LONG", STATIC_CONF))),
+                        gathers["P11 static"])
     pid_cols = compare_pid_hash(dev, d3, d3i)
     # the join types' own inputs (phase 3d drives them): every row gather
     # of Q21, its semi join's hash, probe and gathers, its anti join's
@@ -8501,6 +9291,11 @@ def main() -> int:
     # and row gather launch of a run of each path
     with default_conf_after():
         compare_adaptive_paths(dev, join_session_modules(), tm, jb, tb)
+    # P38's own inputs (phase 3k drives it): every row gather of its split
+    # and converted plans, the join's kernels at the split's hot probe
+    # window and at the converted pass's one build
+    with default_conf_after():
+        compare_p38(pd38, jb["orders"], dev)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -8689,6 +9484,9 @@ def main() -> int:
         "q19": q19_df(sm, sess, l19, p19),
         "P6": tpch_q1_df(sm, sess, q1t_batch),
         "P11": q3_df(sm, p11_sess, *q3_side_batches(
+            d3, "LONG", P11_LINE_BATCHES, P11_ORDER_BATCHES)),
+        "P11 static": q3_df(sm, TpuSession(dict(P11_CONF, **STATIC_CONF),
+                                           DEVICE), *q3_side_batches(
             d3, "LONG", P11_LINE_BATCHES, P11_ORDER_BATCHES))}
     planned_recs = {}
     for label, need, hand, check, hand_shape in (
@@ -8705,7 +9503,10 @@ def main() -> int:
              lambda r, lb, _: check_rows(r, q1t_want, lb), plan_shape(p6)),
             ("P11", q3_need, shuffled["P11"][1],
              lambda r, lb, _: check_q3(r, q3_want, lb),
-             plan_shape(shuffled["P11"][0]))):
+             plan_shape(shuffled["P11"][0])),
+            ("P11 static", q3_need, shuffled["P11_static"][1],
+             lambda r, lb, _: check_q3(r, q3_want, lb),
+             plan_shape(shuffled["P11_static"][0]))):
         planned_recs[label] = drive_planned(
             f"{label} planned", sm, session_dfs[label], need, hand, check,
             hand_shape)
@@ -8762,6 +9563,15 @@ def main() -> int:
             dev, join_session_modules(), tm, d3, q3_want, l19, p19,
             q19_want, jb, tb, types_want, q4_oracle(dj), p2_rec, p3_rec)
     print(f"phase 3j: {time.perf_counter() - t_gov:.1f} s")
+
+    # -- phase 3k, slice 16: the adaptive read plan and the robustness
+    # paths ------------------------------------------------------------------
+    t_a9b = time.perf_counter()
+    with default_conf_after():
+        a9b_recs, a9b_launches = drive_a9b_paths(
+            dev, join_session_modules(), dj, jb, p9_batches, oracle, d3,
+            q3_want, q4_oracle(dj), pd38, p38_want)
+    print(f"phase 3k: {time.perf_counter() - t_a9b:.1f} s")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -9046,6 +9856,10 @@ def main() -> int:
             "P11_q3_shuffled": shuffled["P11"][1].get(r["name"], 0),
             "P11_q3_shuffled_int_keys": shuffled["P11_INT"][1].get(
                 r["name"], 0),
+            "P11_q3_shuffled_static": shuffled["P11_static"][1].get(
+                r["name"], 0),
+            "P11_q3_shuffled_int_keys_static": shuffled["P11_INT_static"][
+                1].get(r["name"], 0),
             **{f"planned_{k.replace(' ', '_')}": v["launches"].get(
                 r["name"], 0) for k, v in planned_recs.items()},
             **{k: v.get(r["name"], 0) for k, v in join_counts.items()},
@@ -9063,7 +9877,8 @@ def main() -> int:
                for k, v in nest_counts.items()},
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in ad_counts.items()},
-            **{k: v.get(r["name"], 0) for k, v in gov_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in gov_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -9078,6 +9893,8 @@ def main() -> int:
             r["q21_shapes"] = q21_gathers
         if r["name"] == "fused_probe_verify":
             r["q21_shapes"] = q21_probes
+    print(json.dumps({"adaptive_paths": dict(a9b_recs, phase="3k")},
+                     default=str))
     print(json.dumps({"paths": {
         "P1": dict(dec, host_reads=p1_reads, ms=q19_ms),
         "P2": p2_rec, "P3": p3_rec, "spill_gb_s": rates,

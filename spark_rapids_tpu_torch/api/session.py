@@ -12,7 +12,8 @@ do); without a card it raises. Its conf is a RapidsConf, made active on
 the calling thread when the session is built and again at every action,
 so the execs built for a query read it at construction; the same calls
 (re)configure the process planes it names: the event log, telemetry,
-the dispatch ledger and the fault plan.
+the dispatch ledger (and its hang bound, dispatch.timeoutMs), the query
+history store and the fault plan.
 
 `collect()` is the governed drive, as the JAX package's:
 
@@ -24,6 +25,10 @@ the dispatch ledger and the fault plan.
   * `with_task_retry` — a transient failure re-runs the plan from the
     sources, up to spark.rapids.tpu.task.maxAttempts attempts;
   * the phase ledger (spark.rapids.tpu.phases.enabled) over all of it;
+  * the progress watchdog when spark.rapids.tpu.stall.timeoutMs > 0
+    (exec/speculation_shield.py), stopped in the same finally;
+  * one history capsule per query when spark.rapids.tpu.history.enabled
+    (obs/history.py), written in that finally, failed queries included;
   * per attempt (`_collect_once`), the events plane's `query_scope`,
     a fresh RuntimeStats, the plan's `exec/base.collect` (its exact
     re-run when a speculative tier trips), and the QueryProfile built
@@ -39,8 +44,7 @@ volumes) is the profile's `summary`.
 The other methods raise NotImplementedError naming their items: the
 pandas UDFs (A.8 wave 4: they go through pandas and pyarrow, which the
 machine with the card lacks), the other readers (A.8 wave 5) and the
-writers (Parquet's with A.5, the others with A.8 wave 5). The query
-history capsules and the stall watchdog wait for A.9b.
+writers (Parquet's with A.5, the others with A.8 wave 5).
 """
 
 from __future__ import annotations
@@ -59,14 +63,17 @@ from ..types import Schema
 
 def _configure_planes(conf: RapidsConf) -> None:
     """(Re)configure the process-wide planes a conf names: the event
-    log, telemetry, the dispatch ledger and the fault plan."""
+    log, telemetry, the dispatch ledger, the history store and the fault
+    plan."""
     from .. import faults
     from ..obs import dispatch as obs_dispatch
     from ..obs import events as obs_events
+    from ..obs import history as obs_history
     from ..obs import telemetry
     obs_events.configure(conf)
     telemetry.configure(conf)
     obs_dispatch.configure(conf)
+    obs_history.configure(conf)
     faults.configure(conf)
 
 
@@ -444,13 +451,25 @@ class DataFrame:
         import time as _time
 
         from ..config import PHASES_ENABLED
-        from ..exec import lifecycle, workload
+        from ..exec import lifecycle, speculation_shield, workload
         from ..exec.task_retry import with_task_retry
+        from ..obs import history as obs_history
         from ..obs import phase as obs_phase
         with lifecycle.governed(self.session.conf,
                                 owner=self.session._lifecycle_owner) as ctx:
             if self.session.conf.get(PHASES_ENABLED):
                 obs_phase.attach(ctx)
+            # after the ledger: a stall event names the dominant phase
+            watchdog = speculation_shield.watchdog_for(ctx,
+                                                       self.session.conf)
+            store = obs_history.active_store()
+            before = obs_history.process_counters() \
+                if store is not None else None
+            if store is not None:
+                # a query that fails before its harvest must not write
+                # the previous query's profile into its capsule
+                self.session._last_query_metrics = None
+                self.session._last_query_profile = None
             t0 = _time.perf_counter_ns()
             ok = False
             try:
@@ -461,15 +480,21 @@ class DataFrame:
                     ok = True
                     return out
             finally:
-                self._finish_query(ctx, ok, _time.perf_counter_ns() - t0)
+                if watchdog is not None:
+                    watchdog.stop()
+                self._finish_query(ctx, ok, store, before,
+                                   _time.perf_counter_ns() - t0)
 
-    def _finish_query(self, ctx, ok: bool, fallback_wall_ns: int) -> None:
+    def _finish_query(self, ctx, ok: bool, store, before,
+                      fallback_wall_ns: int) -> None:
         """Query-end observability, inside collect's finally chain: close
-        the phase ledger, emit `query_phases`, feed the SLO latency ring.
-        Never raises (it would mask the query's exception)."""
+        the phase ledger, emit `query_phases`, feed the SLO latency ring,
+        append the history capsule. Never raises (it would mask the
+        query's exception)."""
         from ..config import WORKLOAD_PRIORITY
         from ..exec.workload import PRIORITIES
         from ..obs import events as obs_events
+        from ..obs import history as obs_history
         from ..obs import telemetry
         try:
             priority = str(self.session.conf.get(
@@ -478,16 +503,29 @@ class DataFrame:
                 priority = "interactive"
             ledger = ctx.phase_ledger
             wall_ns = fallback_wall_ns
+            phases = None
             if ledger is not None:
                 wall_ns = ledger.finish()
+                phases = ledger.snapshot()
                 obs_events.emit(
                     "query_phases", query=ctx.events_qid or ctx.ctx_id,
                     ok=ok, wall_ns=wall_ns, attempts=ctx.attempt_no,
-                    priority=priority, phases=ledger.snapshot())
+                    priority=priority, phases=phases)
             if ok:
                 # only completed queries feed the percentiles: a shed or
                 # failed arrival returns in microseconds
                 telemetry.note_query_latency(priority, wall_ns)
+            if store is not None:
+                profile = self.session._last_query_profile
+                store.append(obs_history.build_capsule(
+                    query_id=ctx.ctx_id,
+                    fingerprint=getattr(profile, "fingerprint", None),
+                    ok=ok, priority=priority, attempts=ctx.attempt_no,
+                    wall_ns=wall_ns, phases=phases,
+                    stats=ctx.runtime_stats,
+                    summary=getattr(profile, "summary", None),
+                    deltas=obs_history.counters_delta(
+                        before, obs_history.process_counters())))
         except Exception:  # noqa: BLE001 — observability never masks
             pass
 

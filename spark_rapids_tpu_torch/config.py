@@ -33,10 +33,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
 | `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
 | `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
-| `tpu.history.{enabled,dir,maxBytes}` | A.9b (obs/history.py) | default |
-| `tpu.task.partitionRecovery.enabled` | A.9b (the shuffle's lineage recovery) | any: recovery changes no result |
-| `tpu.stall.{timeoutMs,action}`, `tpu.shuffle.speculation.{enabled,multiplier,minMs,maxInFlight}`, `tpu.dispatch.timeoutMs` | A.9b (speculation_shield) | default |
-| `tpu.adaptive.{skewedPartitionFactor,skewedPartitionMinBytes,coalesceTargetBytes}` | A.9b (the exchange's adaptive decisions) | default |
 
 The governance planes read their entries where the JAX package does:
 `tpu.test.faults` (faults.configure), `tpu.eventLog.*`
@@ -46,13 +42,19 @@ The governance planes read their entries where the JAX package does:
 `sql.metrics.level` (TpuExec.all_metrics and the query profile),
 `tpu.phases.enabled`, `tpu.task.*`, `tpu.query.*`, `tpu.breaker.*` and
 `tpu.workload.*` (the governed `DataFrame.collect()`: exec/lifecycle.py,
-exec/workload.py, exec/task_retry.py).
+exec/workload.py, exec/task_retry.py), `tpu.history.*`
+(obs/history.configure), `tpu.stall.*` (speculation_shield.watchdog_for,
+at each collect), `tpu.shuffle.speculation.*` and
+`tpu.task.partitionRecovery.enabled` (the shuffle reader, at its
+construction), `tpu.dispatch.timeoutMs` (obs/dispatch.configure).
 
 The planner reads `tpu.adaptive.enabled` and
 `adaptive.autoBroadcastMaxBytes` for the broadcast cap, as the JAX
 package's `_convert_join` does, and AdaptiveJoinExec reads them for its
-measured demotion (exec/adaptive.py); the exchange's decisions (skew
-splits, coalesced reads) wait for A.9b and change no result. The planner
+measured demotion (exec/adaptive.py); the host exchange reads
+`adaptive.{skewedPartitionFactor,skewedPartitionMinBytes,
+coalesceTargetBytes}` at its construction (skew splits, coalesced reads)
+and ShuffledHashJoinExec the cap for its single-build conversion. The planner
 reads `sql.cpuFallback.enabled` (a Project or Filter without a device
 path runs on the host row engine), `sql.optimizer.enabled` (the
 cost-based placement, plan/cost.py) and `sql.udfCompiler.enabled` (the
@@ -968,9 +970,6 @@ AGG_ROUNDS = conf_int(
 # --- what the port honours of the entries it does not read yet -----------
 
 _ANY = None
-_A9B_HISTORY = "ROADMAP A.9b (obs/history.py)"
-_A9B_SHIELD = "ROADMAP A.9b (speculation_shield)"
-_A9B_ADAPT = "ROADMAP A.9b (the exchange's adaptive decisions)"
 _BY_DESIGN = "ROADMAP A, not ported by design: the port has no tier switch"
 
 #: key -> (item, honoured values besides the default; _ANY = every value)
@@ -992,21 +991,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     UPLOAD_PACKED.key: ("ROADMAP A.5", ()),
     PARQUET_REBASE_MODE_READ.key: ("ROADMAP A.8", ()),
     DEBUG_DUMP_PATH.key: ("ROADMAP A.9c (utils/dump.py)", ()),
-    HISTORY_ENABLED.key: (_A9B_HISTORY, ()),
-    HISTORY_DIR.key: (_A9B_HISTORY, ()),
-    HISTORY_MAX_BYTES.key: (_A9B_HISTORY, ()),
-    PARTITION_RECOVERY_ENABLED.key: ("ROADMAP A.9b (lineage recovery)",
-                                     _ANY),
-    STALL_TIMEOUT_MS.key: (_A9B_SHIELD, ()),
-    STALL_ACTION.key: (_A9B_SHIELD, ()),
-    SHUFFLE_SPECULATION_ENABLED.key: (_A9B_SHIELD, ()),
-    SHUFFLE_SPECULATION_MULTIPLIER.key: (_A9B_SHIELD, ()),
-    SHUFFLE_SPECULATION_MIN_MS.key: (_A9B_SHIELD, ()),
-    SHUFFLE_SPECULATION_MAX_INFLIGHT.key: (_A9B_SHIELD, ()),
-    DISPATCH_TIMEOUT_MS.key: (_A9B_SHIELD, ()),
-    ADAPTIVE_SKEW_FACTOR.key: (_A9B_ADAPT, ()),
-    ADAPTIVE_SKEW_MIN_BYTES.key: (_A9B_ADAPT, ()),
-    ADAPTIVE_COALESCE_TARGET_BYTES.key: (_A9B_ADAPT, ()),
 }
 
 

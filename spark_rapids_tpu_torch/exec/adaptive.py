@@ -2,13 +2,19 @@
 spark_rapids_tpu/exec/adaptive.py: the part that joins and exchanges
 consult, every decision from measured bytes, never estimates.
 
-The JAX package makes five decisions (`DECISIONS`). The port makes the
-one its AdaptiveJoinExec takes today, ``broadcast_demote``: a join whose
-build side fits the broadcast threshold but MEASURES over
-``adaptive.autoBroadcastMaxBytes`` is demoted to the sub-partitioned
-strategy before any OOM retry. `skew_threshold` and `coalesce_groups`
-are the exchange's decisions, ported as functions; the exchange that
-consults them waits for ROADMAP A.9b, as does ``batch_right_size``.
+The five decisions (`DECISIONS`) and where they are taken:
+
+  * ``skew_split`` and ``partition_coalesce``: the host exchange's read
+    plan (exec/exchange.HostShuffleExchangeExec._adaptive_read_plan),
+    from `skew_threshold` and `coalesce_groups` over the write phase's
+    measured per-partition bytes;
+  * ``single_build_convert``: ShuffledHashJoinExec, when its build
+    exchange measures at or under ``adaptive.autoBroadcastMaxBytes``;
+  * ``broadcast_demote``: AdaptiveJoinExec, a join whose build side fits
+    the broadcast threshold but MEASURES over the cap;
+  * ``batch_right_size``: `note_oom_split`, called by with_retry's split
+    branch (memory/retry.py), halves the governed query's batch target,
+    which CoalesceBatchesExec reads (`batch_target_override`).
 
 `consult` is gated by the conf and by the `adaptive` breaker domain
 (exec/lifecycle.py): a breaker refusal is counted and emitted as an
@@ -147,9 +153,8 @@ def skew_threshold(per_part_bytes: Sequence[int], factor: float,
     nonzero partitions (empty partitions of a sparse key space would drag
     it to zero and flag everything). `factor` and `min_bytes` are
     adaptive.skewedPartitionFactor and skewedPartitionMinBytes, which the
-    JAX package reads here from the conf: in the port the exchange that
-    consults this (A.9b) reads them at its construction, as every conf the
-    port honours is read."""
+    JAX package reads here from the conf: in the port the exchange reads
+    them at its construction, as every conf the port honours is read."""
     if factor <= 0:
         return None
     nz = sorted(b for b in per_part_bytes if b > 0)
@@ -213,3 +218,45 @@ def coalesce_groups(per_part_bytes: Sequence[int], target: int,
     if all(len(g) == 1 for g in groups):
         return None
     return groups
+
+
+# -- decision 5: OOM-feedback batch right-sizing ------------------------------
+
+#: the batch target never shrinks below this: a cascade of splits must
+#: not degenerate to row-at-a-time batches
+MIN_BATCH_TARGET = 4 * 1024
+
+
+def note_oom_split() -> None:
+    """with_retry's split branch: halve the governed query's batch target
+    (floored), so CoalesceBatchesExec stops building batches the card
+    just proved it cannot hold. A no-op outside a governed query or with
+    adaptive off (read from the splitting thread's active conf, as
+    with_retry reads its own)."""
+    from . import lifecycle
+    ctx = lifecycle.current_context()
+    if ctx is None:
+        return
+    from ..config import ADAPTIVE_ENABLED, BATCH_SIZE_BYTES, active_conf
+    conf = active_conf()
+    if not conf.get(ADAPTIVE_ENABLED):
+        return
+    cur = ctx.adaptive_batch_target
+    if cur is None:
+        cur = conf.get(BATCH_SIZE_BYTES)
+    new = max(MIN_BATCH_TARGET, cur // 2)
+    if new >= cur:
+        return
+    ctx.adaptive_batch_target = new
+    note_decision("batch_right_size", op="with_retry",
+                  prev_target=cur, new_target=new)
+
+
+def batch_target_override() -> Optional[int]:
+    """The governed query's shrunken batch target, or None: one
+    context-pointer read and one attribute read, no conf access."""
+    from . import lifecycle
+    ctx = lifecycle.current_context()
+    if ctx is None:
+        return None
+    return ctx.adaptive_batch_target

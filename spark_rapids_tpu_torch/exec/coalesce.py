@@ -9,9 +9,11 @@ than the catalog allows, and the concat runs under `with_retry_no_split`.
 A batch counts its bytes at capacity, every leaf included
 (`ColumnarBatch.nbytes`, the JAX package's `device_size_bytes`).
 
-Left out with its module (ROADMAP A.9b): the adaptive batch target
-after an OOM split. Its dispatches are the dispatch ledger's exec scope
-(obs/dispatch.py), as every exec's are.
+After an OOM split the governed query's batch target is halved
+(exec/adaptive.note_oom_split): each batch reads it
+(`batch_target_override`, one context-pointer read) and flushes at the
+smaller of it and the conf's. Its dispatches are the dispatch ledger's
+exec scope (obs/dispatch.py), as every exec's are.
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ class CoalesceBatchesExec(TpuExec):
                 s.close()
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
+        from .adaptive import batch_target_override
         in_rows = self.metrics[NUM_INPUT_ROWS]
         in_batches = self.metrics[NUM_INPUT_BATCHES]
         pending: List[SpillableBatch] = []
@@ -120,12 +123,16 @@ class CoalesceBatchesExec(TpuExec):
                 else:
                     in_rows.add_device(batch.num_rows)
                 size = batch.nbytes
-                if pending and pending_bytes + size > self.target_bytes:
+                target = self.target_bytes
+                override = batch_target_override()
+                if override is not None and override < target:
+                    target = override
+                if pending and pending_bytes + size > target:
                     flushed, pending, pending_bytes = pending, [], 0
                     yield self._flush(flushed)
                 pending.append(SpillableBatch.from_batch(batch))
                 pending_bytes += size
-                if pending_bytes >= self.target_bytes:
+                if pending_bytes >= target:
                     flushed, pending, pending_bytes = pending, [], 0
                     yield self._flush(flushed)
             if pending:

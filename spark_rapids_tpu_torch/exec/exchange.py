@@ -39,10 +39,36 @@ ExchangeRecorder (obs/stats.py), with no new host read; each map task is
 an `exchange` and a `shuffle_write` event, and the execution one
 `exchange_stats` event.
 
+Partition-granular recovery: unless partitioning is range (its bounds
+come from a sample of a buffer the write consumes) or
+task.partitionRecovery.enabled is off, each map output's lineage is
+captured as it is written (`_make_recompute`: re-run the child, replay
+the round-robin cursor from zero, rewrite that one output in place);
+the reader recomputes a corrupt block's output from it
+(shuffle/manager.py).
+
+The adaptive read plan (`_adaptive_read_plan`, exec/adaptive.py) is
+consulted after the write, from its measured per-partition bytes:
+
+  * skew split, for any consumer: a partition over
+    max(skewedPartitionFactor x the median of the non-empty partitions,
+    skewedPartitionMinBytes) with more than one map output is read as
+    map-granular sub-reads (`_read_partition` over
+    HostShuffleReader.plan_map_groups), each its own pipelined stage, so
+    a probe never holds the whole hot partition's decode window;
+  * coalescing, for the flat stream only (`internal_execute`): adjacent
+    partitions that fit adaptive.coalesceTargetBytes together are read
+    as one stream. A partition-aware consumer always sees the static
+    boundaries.
+
+ShuffledHashJoinExec converts to one single-build pass when its build
+exchange measures at or under adaptive.autoBroadcastMaxBytes (the
+stream side's exchange is skipped). The JAX package also flags the
+stream-side exchange (`_adaptive_probe_split`), which only its mesh lane
+reads; the port has no mesh lane, so it keeps no such flag.
+
 Left out: the mesh exchange ShuffleExchangeExec and the ICI lane (ROADMAP
-A.6); the lineage capture and partition recompute, the adaptive read
-plan (skew splits, coalescing) and ShuffledHashJoinExec's single-build
-conversion (ROADMAP A.9b).
+A.6).
 """
 
 from __future__ import annotations
@@ -229,6 +255,19 @@ class HostShuffleExchangeExec(TpuExec):
         self._rr_offset = 0
         #: the device of the map batches (the read seam promotes there)
         self._map_device = None
+        from ..config import (ADAPTIVE_COALESCE_TARGET_BYTES,
+                              ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
+                              PARTITION_RECOVERY_ENABLED)
+        #: lineage capture (never for range: see the module docstring)
+        self._capture_lineage = partitioning != "range" and bool(
+            self._conf.get(PARTITION_RECOVERY_ENABLED))
+        #: the skew split's factor and floor, and the coalesce target
+        self._skew_factor = self._conf.get(ADAPTIVE_SKEW_FACTOR)
+        self._skew_min_bytes = self._conf.get(ADAPTIVE_SKEW_MIN_BYTES)
+        self._coalesce_target = self._conf.get(
+            ADAPTIVE_COALESCE_TARGET_BYTES)
+        #: the last write's measured bytes (single-build conversion)
+        self._adaptive_write_bytes: Optional[int] = None
 
     @property
     def output_schema(self) -> Schema:
@@ -314,17 +353,18 @@ class HostShuffleExchangeExec(TpuExec):
         return cols, bounds
 
     def _write_map(self, b: ColumnarBatch, n: int, range_bounds, handle,
-                   mgr, map_id: int):
+                   mgr, map_id: int, register: bool = True):
         """Partition, serialize and write one map task's output on its
-        lane. Returns (the writer, the lane, the split's ns, the rows of
-        each partition)."""
+        lane (`register=False`: a recovery's rewrite of a registered
+        output). Returns (the writer, the lane, the split's ns, the rows
+        of each partition)."""
         from ..shuffle.manager import (HostShuffleWriter, note_shuffle,
                                        partition_batch_host)
         writer = HostShuffleWriter(handle, map_id, mgr, self.codec,
                                    self._conf)
         if not n:
             # an empty batch: zero frames, no partitioning work
-            writer.write([[] for _ in range(self.n_partitions)])
+            writer.write([[] for _ in range(self.n_partitions)], register)
             return writer, "host", 0, [0] * self.n_partitions
         self.metrics[NUM_MAPS_WITH_ROWS].add(1)
         if self.partitioning != "range":
@@ -334,14 +374,15 @@ class HostShuffleExchangeExec(TpuExec):
             self.metrics[SHUFFLE_PACK_TIME].add(pack_ns)
             note_shuffle(pack_ns=pack_ns)
             writer.write_slices(ColumnarBatch(cols, n, self.output_schema),
-                                bounds)
+                                bounds, register)
             return writer, "device", pack_ns, np.diff(bounds).tolist()
         from ..columnar.transfer import fetch_batch_host
         cols, _ = fetch_batch_host(b)
         host = ColumnarBatch(cols, n, self.output_schema)
         pid = self._pid_for(host, n, range_bounds)
         parts = partition_batch_host(host, pid, self.n_partitions)
-        writer.write([[p] if p.num_rows_host else [] for p in parts])
+        writer.write([[p] if p.num_rows_host else [] for p in parts],
+                     register)
         return writer, "host", 0, [p.num_rows_host for p in parts]
 
     # -- the range lane ----------------------------------------------------
@@ -429,19 +470,26 @@ class HostShuffleExchangeExec(TpuExec):
 
     # -- drive -------------------------------------------------------------
     def internal_execute(self) -> Iterator[ColumnarBatch]:
-        parts = self.execute_partitions()
+        # the flat stream: the one consumer whose tiny partitions may
+        # coalesce into one read
+        parts = self.execute_partitions(flat=True)
         try:
             for part in parts:
                 yield from part
         finally:
             parts.close()
 
-    def execute_partitions(self) -> Iterator[Iterator[ColumnarBatch]]:
+    def execute_partitions(self, flat: bool = False
+                           ) -> Iterator[Iterator[ColumnarBatch]]:
         """One lazy batch stream per partition, in partition order:
         decoded blocks stream without concatenation. The map side runs
-        in full before the first stream is handed out."""
+        in full before the first stream is handed out. `flat` marks a
+        partition-oblivious consumer: only then may adjacent small
+        partitions come as one stream (a zipped pair of exchanges must
+        keep the static boundaries)."""
         from ..shuffle.manager import HostShuffleReader, shuffle_manager
         self.stamp_inputs()
+        self._adaptive_write_bytes = None
         mgr = shuffle_manager()
         handle = mgr.register(self.n_partitions, self.output_schema)
         state = {"done": 0, "outer_done": False, "closed": False}
@@ -455,8 +503,8 @@ class HostShuffleExchangeExec(TpuExec):
             if state["outer_done"] and state["done"] >= self.n_partitions:
                 unregister()
 
-        def mark_done():
-            state["done"] += 1
+        def mark_done(k: int):
+            state["done"] += k
             cleanup_if_finished()
 
         try:
@@ -465,14 +513,20 @@ class HostShuffleExchangeExec(TpuExec):
                 source, bounds = self._range_source()
             else:
                 source, bounds = self.child.execute(), None
-            self._write_phase(source, bounds, handle, mgr)
+            stats_rec = self._write_phase(source, bounds, handle, mgr)
+            self._adaptive_write_bytes = stats_rec.total_bytes() or None
             reader = HostShuffleReader(handle, mgr, self._conf)
+            split_plan, flat_groups = self._adaptive_read_plan(
+                stats_rec, reader, handle, flat)
             dev = self.device
+            if flat_groups is None:
+                flat_groups = [[p] for p in range(self.n_partitions)]
             try:
-                for p in range(self.n_partitions):
+                for ps in flat_groups:
                     yield _PartitionStream(
-                        lambda p=p: self._read_partition(reader, p, dev),
-                        mark_done)
+                        lambda ps=ps: self._read_group(reader, ps,
+                                                       split_plan, dev),
+                        lambda k=len(ps): mark_done(k))
             finally:
                 state["outer_done"] = True
                 cleanup_if_finished()
@@ -482,7 +536,9 @@ class HostShuffleExchangeExec(TpuExec):
             unregister()
             raise
 
-    def _write_phase(self, source, bounds, handle, mgr) -> None:
+    def _write_phase(self, source, bounds, handle, mgr):
+        """Write every map batch of `source`; returns the exchange's
+        ExchangeRecorder (its measured bytes feed the read plan)."""
         from ..obs import events as obs_events
         from ..obs import phase as obs_phase
         from ..obs import stats as obs_stats
@@ -510,6 +566,10 @@ class HostShuffleExchangeExec(TpuExec):
                 stats_rec.record_map(rows_pp, writer.partition_bytes,
                                      writer.bytes_written)
                 telemetry.add("exchange.write_bytes", writer.bytes_written)
+                if self._capture_lineage:
+                    handle.lineage[mgr.map_data_path(
+                        handle.shuffle_id, map_id)] = \
+                        self._make_recompute(handle, mgr, map_id)
                 obs_events.emit("exchange", exec=name, op_id=self._op_id,
                                 map_id=map_id,
                                 partitions=self.n_partitions,
@@ -534,37 +594,139 @@ class HostShuffleExchangeExec(TpuExec):
             close = getattr(source, "close", None)
             if close is not None:
                 close()
+        return stats_rec
 
-    def _read_partition(self, reader, p: int, dev
+    def _make_recompute(self, handle, mgr, map_id: int):
+        """The lineage of map output `map_id`: a zero-argument closure
+        that re-runs the child from its sources and rewrites only that
+        output, in place and on its original lane, so the frame layout
+        and the fault keys stay valid. The round-robin cursor replays
+        from zero over the skipped batches (hash and single pids are
+        stateless). The reader calls it under the handle's recover_lock,
+        so two recomputes never share the cursor."""
+
+        def recompute() -> None:
+            saved_rr = self._rr_offset
+            self._rr_offset = 0
+            try:
+                src = self.child.execute()
+                try:
+                    for i, b in enumerate(src):
+                        n = b.num_rows_host
+                        if i < map_id:
+                            if self.partitioning == "roundrobin":
+                                self._rr_offset = \
+                                    (self._rr_offset + n) % self.n_partitions
+                            continue
+                        self._write_map(b, n, None, handle, mgr, map_id,
+                                        register=False)
+                        return
+                    raise RuntimeError(
+                        f"partition recovery: the child gave no batch "
+                        f"{map_id} on re-execution")
+                finally:
+                    src.close()
+            finally:
+                self._rr_offset = saved_rr
+
+        return recompute
+
+    # -- the adaptive read plan --------------------------------------------
+    def _adaptive_read_plan(self, stats_rec, reader, handle, flat: bool):
+        """({partition: map groups} to skew-split, the flat stream's
+        partition groups or None), from the write's measured bytes. Never
+        raises: a failure counts against the `adaptive` breaker domain
+        and the static plan runs."""
+        from . import adaptive
+        op = type(self).__name__
+        try:
+            per_part = stats_rec.partition_bytes()
+            if self.n_partitions <= 1 or per_part is None:
+                return {}, None
+            if not adaptive.consult(self._conf, op=op, op_id=self._op_id):
+                return {}, None
+            split_plan = {}
+            thr = adaptive.skew_threshold(per_part, self._skew_factor,
+                                          self._skew_min_bytes)
+            if thr is not None and len(handle.map_outputs) > 1:
+                threshold, median = thr
+                for p, b in enumerate(per_part):
+                    if b <= threshold:
+                        continue
+                    groups = reader.plan_map_groups(p, threshold)
+                    if len(groups) <= 1:
+                        continue
+                    split_plan[p] = groups
+                    adaptive.note_decision(
+                        "skew_split", op=op, op_id=self._op_id,
+                        partition=p, bytes=b, threshold=threshold,
+                        median_bytes=median, subs=len(groups),
+                        max_sub_bytes=max(g[1] for g in groups))
+            flat_groups = None
+            if flat and self._coalesce_target > 0:
+                flat_groups = adaptive.coalesce_groups(
+                    per_part, self._coalesce_target,
+                    exclude=set(split_plan))
+                if flat_groups is not None:
+                    adaptive.note_decision(
+                        "partition_coalesce", op=op, op_id=self._op_id,
+                        partitions=self.n_partitions,
+                        reads=len(flat_groups),
+                        target_bytes=self._coalesce_target)
+            return split_plan, flat_groups
+        except Exception as e:  # noqa: BLE001 — a replan must not kill
+            adaptive.note_error(op=op, op_id=self._op_id, error=e)
+            return {}, None
+
+    def _read_group(self, reader, ps: Sequence[int], split_plan, dev
+                    ) -> Iterator[ColumnarBatch]:
+        """The stream of partitions `ps` (one, or a coalesced run), each
+        read whole or as its skew split's sub-reads."""
+        for p in ps:
+            yield from self._read_partition(reader, p, dev,
+                                            split_plan.get(p))
+
+    def _read_partition(self, reader, p: int, dev, groups=None
                         ) -> Iterator[ColumnarBatch]:
         """Stream one partition's decoded blocks, pipelined: the fetch and
         LZ4 decode (on the reader pool) and the upload of block k+1 run on
         the producer thread while the consumer computes on block k;
         shuffleReadTime counts only the time this operator blocked
-        waiting for a block."""
+        waiting for a block. A skew-split partition (`groups`) reads its
+        sub-reads one after another, each its own stage, so the decode
+        window is one sub-read; their blocks in order are the unsplit
+        read's."""
         from ..columnar.upload import await_upload, promote_stream
         read_time = self.metrics[SHUFFLE_READ_TIME]
         out_batches = self.metrics[NUM_OUTPUT_BATCHES]
         frames_read = self.metrics[NUM_FRAMES_READ]
-        stage = self.pipeline_stage(
-            promote_stream(reader.read_partition(p), dev,
-                           num_metric=self.metrics[NUM_UPLOADS],
-                           time_metric=self.metrics[UPLOAD_PACK_TIME]),
-            "shuffle-read")
+        if groups is None:
+            sources = [lambda: reader.read_partition(p)]
+        else:
+            ordinal = [0]
+            sources = [lambda sub=sub, paths=paths:
+                       reader.read_partition_maps(p, paths, sub, ordinal)
+                       for sub, (paths, _b) in enumerate(groups)]
         saw = False
-        try:
-            while True:
-                with read_time.ns_timer():
-                    try:
-                        b = next(stage)
-                    except StopIteration:
-                        break
-                saw = True
-                out_batches.add(1)
-                frames_read.add(1)
-                yield await_upload(b)
-        finally:
-            stage.close()
+        for open_source in sources:
+            stage = self.pipeline_stage(
+                promote_stream(open_source(), dev,
+                               num_metric=self.metrics[NUM_UPLOADS],
+                               time_metric=self.metrics[UPLOAD_PACK_TIME]),
+                "shuffle-read")
+            try:
+                while True:
+                    with read_time.ns_timer():
+                        try:
+                            b = next(stage)
+                        except StopIteration:
+                            break
+                    saw = True
+                    out_batches.add(1)
+                    frames_read.add(1)
+                    yield await_upload(b)
+            finally:
+                stage.close()
         if not saw:
             out_batches.add(1)
             yield _empty_output(self.output_schema, dev)
@@ -636,8 +798,17 @@ class ShuffledHashJoinExec(TpuExec):
     build side where no unmatched stream row is emitted (inner, semi, a
     build-preserving outer join), an empty stream side where no unmatched
     build row is (everything but a build-preserving outer join). No
-    kernel launches on zero rows there. Left out: the adaptive
-    single-build conversion (ROADMAP A.9b)."""
+    kernel launches on zero rows there.
+
+    Adaptive (exec/adaptive.py, when both children are host exchanges
+    and adaptive.autoBroadcastMaxBytes >= 0): the build exchange runs
+    first, and when its write measures at or under the cap the join
+    converts to one single-build pass: the whole build against the
+    stream exchange's child, read straight (that exchange is skipped),
+    sized once (partition -1). The union of the pairs' joins is the
+    join, so only the row order changes. Otherwise the pairs run as
+    above, and the stream exchange's skewed partitions arrive as
+    sub-reads, each a run of probe windows against the pair's build."""
 
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: Sequence[Expression],
@@ -693,8 +864,22 @@ class ShuffledHashJoinExec(TpuExec):
         stream_unmatched = join._stream_preserved \
             or join.join_type in (LEFT_ANTI, EXISTENCE)
         build_unmatched = join._need_build_flags
-        lit_ = self.children[0].execute_partitions()
-        rit = self.children[1].execute_partitions()
+        stream_child, build_child = (self.children[0], self.children[1]) \
+            if build_right else (self.children[1], self.children[0])
+        build_parts = self._measured_build(stream_child, build_child)
+        if build_parts is None:
+            lit_ = self.children[0].execute_partitions()
+            rit = self.children[1].execute_partitions()
+        else:
+            if build_parts[0]:
+                yield from self._single_build(
+                    build_parts[1], stream_child, stream_unmatched,
+                    build_unmatched)
+                return
+            build_it = _streams_of(build_parts[1])
+            stream_it = stream_child.execute_partitions()
+            lit_, rit = (stream_it, build_it) if build_right \
+                else (build_it, stream_it)
         try:
             for pid in itertools.count():
                 lp = next(lit_, None)
@@ -705,27 +890,102 @@ class ShuffledHashJoinExec(TpuExec):
                 if lp is None:
                     return
                 stream, build = (lp, rp) if build_right else (rp, lp)
-                batches = list(self._nonempty(build))
-                rows = self._nonempty(stream)
-                first = None
-                if batches or stream_unmatched:
-                    first = next(rows, None)
-                if (not batches and not stream_unmatched) or (
-                        first is None and not build_unmatched):
-                    rows.close()
-                    stream.close()
-                    continue
-                scan_s, scan_b = (self._lscan, self._rscan) if build_right \
-                    else (self._rscan, self._lscan)
-                scan_b.set_batches(batches)
-                scan_s.set_stream(self._counted(first, rows)
-                                  if first is not None else _no_batches())
-                self.metrics[NUM_PARTITION_PAIRS].add(1)
-                join.partition = pid
-                yield from join.execute()
+                yield from self._pair(stream, build, pid, stream_unmatched,
+                                      build_unmatched)
         finally:
             lit_.close()
             rit.close()
+
+    def _measured_build(self, stream_child, build_child):
+        """None, or (convert?, the build exchange's partition streams)
+        once the build side was written and measured against
+        adaptive.autoBroadcastMaxBytes."""
+        if not (isinstance(stream_child, HostShuffleExchangeExec)
+                and isinstance(build_child, HostShuffleExchangeExec)):
+            return None
+        from . import adaptive
+        from ..config import ADAPTIVE_ENABLED
+        conf = build_child._conf
+        cap = adaptive.auto_broadcast_max(conf) \
+            if conf.get(ADAPTIVE_ENABLED) else -1
+        if cap < 0 or not adaptive.consult(conf, op=type(self).__name__,
+                                           op_id=self._op_id):
+            return None
+        parts = list(build_child.execute_partitions())
+        measured = build_child._adaptive_write_bytes
+        convert = measured is not None and measured <= cap
+        if convert:
+            adaptive.note_decision(
+                "single_build_convert", op=type(self).__name__,
+                op_id=self._op_id, measured_bytes=measured, threshold=cap)
+        return convert, parts
+
+    def _pair(self, stream, build, pid, stream_unmatched: bool,
+              build_unmatched: bool) -> Iterator[ColumnarBatch]:
+        """Join one partition pair (or, from `_single_build`, the whole
+        build against the whole stream), skipping it where it can emit
+        nothing."""
+        join = self._join
+        batches = list(self._nonempty(build))
+        rows = self._nonempty(stream)
+        first = None
+        if batches or stream_unmatched:
+            first = next(rows, None)
+        if (not batches and not stream_unmatched) or (
+                first is None and not build_unmatched):
+            rows.close()
+            stream.close()
+            return
+        scan_s, scan_b = (self._lscan, self._rscan) \
+            if join.build_side == "right" else (self._rscan, self._lscan)
+        scan_b.set_batches(batches)
+        scan_s.set_stream(self._counted(first, rows)
+                          if first is not None else _no_batches())
+        self.metrics[NUM_PARTITION_PAIRS].add(1)
+        join.partition = pid
+        yield from join.execute()
+
+    def _single_build(self, build_streams, stream_child,
+                      stream_unmatched: bool, build_unmatched: bool
+                      ) -> Iterator[ColumnarBatch]:
+        """The converted pass: every build partition's blocks as one
+        build, the stream exchange's child as the stream."""
+        build = _chain_streams(build_streams)
+        stream = stream_child.child.execute()
+        try:
+            yield from self._pair(stream, build, -1, stream_unmatched,
+                                  build_unmatched)
+        finally:
+            build.close()
+            stream.close()
+
+
+def _streams_of(streams) -> Iterator:
+    """A list of partition streams as a closable iterator: closing it
+    closes the streams not handed out."""
+    pending = list(streams)
+    try:
+        while pending:
+            yield pending.pop(0)
+    finally:
+        for st in pending:
+            st.close()
+
+
+def _chain_streams(streams) -> Iterator[ColumnarBatch]:
+    """The batches of several partition streams, in order; closing it
+    closes them all."""
+    pending = list(streams)
+    try:
+        while pending:
+            st = pending.pop(0)
+            try:
+                yield from st
+            finally:
+                st.close()
+    finally:
+        for st in pending:
+            st.close()
 
 
 def _no_batches() -> Iterator[ColumnarBatch]:

@@ -18,7 +18,14 @@ circuit breakers.
   (`CANCEL_PHASES`).
 
 * **Partition-recompute accounting** — the counter the shuffle's
-  lineage recovery bumps; the recovery itself waits for ROADMAP A.9b.
+  lineage recovery bumps (shuffle/manager.py).
+
+* **The stall verdict** — the progress watchdog
+  (exec/speculation_shield.py) sets `stall_retry` under
+  `stall.action=retry-seam`; the next cancellation checkpoint consumes
+  it and raises `QueryStalledError`, a transient error, onto the
+  task-retry lane. `adaptive_batch_target` carries the OOM-feedback
+  batch right-sizing (exec/adaptive.py) across the query's attempts.
 
 * **Circuit breakers** — a sliding failure window per fault domain:
   past `spark.rapids.tpu.breaker.threshold` failures inside `windowMs`
@@ -126,7 +133,8 @@ class QueryContext:
                  "phase", "current_op", "root_op_id", "batches_produced",
                  "rows_produced", "attempt_no", "spill_count",
                  "spill_bytes", "runtime_stats", "phase_ledger",
-                 "events_qid", "cancel_noticed")
+                 "events_qid", "cancel_noticed", "adaptive_batch_target",
+                 "stall_retry")
 
     def __init__(self, timeout_ms: int = 0, check_every: int = 8,
                  owner: Any = None):
@@ -167,6 +175,11 @@ class QueryContext:
         self.events_qid = None
         #: (phase, monotonic s) of the first checker that raised
         self.cancel_noticed: Optional[tuple] = None
+        #: the batch target halved after an OOM split (exec/adaptive.py),
+        #: read by CoalesceBatchesExec; kept across attempts
+        self.adaptive_batch_target: Optional[int] = None
+        #: the watchdog's retry-seam verdict, consumed once by check()
+        self.stall_retry = False
 
     def note_batch(self, op: str, op_id: int,
                    rows: Optional[int]) -> None:
@@ -226,7 +239,14 @@ class QueryContext:
         """Raise QueryCancelledError when the query is cancelled or past
         its deadline. The first checker (any thread) emits the one
         `query_cancelled` event with its phase: the wait the query died
-        in."""
+        in. A pending stall verdict raises QueryStalledError first."""
+        if self.stall_retry:
+            # consumed here, so the retried attempt starts clean
+            self.stall_retry = False
+            from ..faults import QueryStalledError
+            raise QueryStalledError(
+                f"query stalled at seam {self.current_op!r}; retrying "
+                f"the attempt (noticed in phase {phase})")
         if not self.cancelled():
             return
         reason = self.reason or "user"

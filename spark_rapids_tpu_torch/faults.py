@@ -33,9 +33,9 @@ everything that can die at runtime besides OOM.
     an in-process retry cannot clear it, and retrying a kernel that
     fails to build or load would only hide a broken kernel.
 
-Not ported with their items: the `shuffle.ici_exchange` point (A.6, the
-mesh lane) and `shuffle.skew_split` (A.9b, the adaptive sub-reads); a
-spec naming either raises NotImplementedError naming the item.
+Not ported with its item: the `shuffle.ici_exchange` point (A.6, the
+mesh lane); a spec naming it raises NotImplementedError naming the
+item.
 """
 
 from __future__ import annotations
@@ -63,12 +63,13 @@ FAULT_POINTS: Dict[str, str] = {
                        "(columnar/upload.py)",
     "pipeline.produce": "pipeline producer step "
                         "(exec/pipeline.py PipelinedIterator)",
+    "shuffle.skew_split": "adaptive skew-split sub-read frame "
+                          "(shuffle/manager.py read_partition_maps)",
 }
 
 #: the JAX package's points whose seams are not ported yet -> the item
 NOT_PORTED_POINTS: Dict[str, str] = {
     "shuffle.ici_exchange": "ROADMAP A.6",
-    "shuffle.skew_split": "ROADMAP A.9b",
 }
 
 KINDS = ("io", "device", "corrupt", "delay")
@@ -90,6 +91,20 @@ class TpuTaskRetryError(RuntimeError):
 class IntegrityError(TpuTaskRetryError):
     """Checksum mismatch on a spill file or shuffle block: the bytes are
     quarantined, the only recovery is recomputation (task retry)."""
+
+
+class QueryStalledError(TpuTaskRetryError):
+    """The progress watchdog (exec/speculation_shield.py) declared this
+    attempt's driving seam stalled under `stall.action=retry-seam`: the
+    attempt is abandoned at its next cancellation checkpoint and re-runs
+    on the bounded task-retry lane."""
+
+
+class DispatchTimeoutError(TpuTaskRetryError):
+    """A launched kernel was not done inside `dispatch.timeoutMs`
+    (exec/speculation_shield.timed_call): the attempt re-runs on the
+    task-retry lane. The kernel keeps its stream busy, so the retry
+    queues behind it (ROADMAP C.16)."""
 
 
 class InjectedIOError(OSError):
@@ -370,6 +385,7 @@ def uniform_spec(prob: float, seed: int, points=None) -> str:
         "spill.disk_write": "corrupt",
         "shuffle.decode": "corrupt",
         "shuffle.fetch": "io",
+        "shuffle.skew_split": "corrupt",
         "io.multifile_read": "io",
     }
     parts = []

@@ -22,9 +22,9 @@ consumer's).
 `oom_guard` is also the `device.dispatch` fault point (faults.py). A
 failure inside a guarded section takes the retry lane only when
 faults.classify calls it "oom"; each retry and split is an `oom_retry`
-event, and the backoff sleep accrues to the `retry-backoff` phase.
-Left out with its module (ROADMAP A.9b, the exchange's adaptive
-decisions): the batch right-sizing after a split.
+event, and the backoff sleep accrues to the `retry-backoff` phase. A
+split halves the governed query's batch target
+(exec/adaptive.note_oom_split), which CoalesceBatchesExec reads.
 """
 
 from __future__ import annotations
@@ -265,6 +265,10 @@ def with_retry(input_item: T, fn: Callable[[T], R],
                                         task_id=_state.task_id)
                         if split_policy is None:
                             raise
+                        # the card just proved this batch size wrong:
+                        # later batches of the query coalesce smaller
+                        from ..exec import adaptive
+                        adaptive.note_oom_split()
                         halves = split_policy(item)
                         owned.discard(id(item))
                         owned.update(id(h) for h in halves)

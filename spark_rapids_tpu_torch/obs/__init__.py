@@ -8,9 +8,9 @@
     execs' batch steps;
   * `stats` — per-exchange runtime statistics;
   * `telemetry` — the sampled metrics registry and the SLO latency ring;
-  * `profile` — QueryProfile, surfaced as TpuSession.last_query_profile().
-
-`history` (the query history capsules) waits for ROADMAP A.9b.
+  * `profile` — QueryProfile, surfaced as TpuSession.last_query_profile();
+  * `history` — one JSONL capsule per governed query, gated by
+    spark.rapids.tpu.history.{enabled,dir,maxBytes}.
 """
 
 from . import events  # noqa: F401

@@ -30,6 +30,16 @@ Phases (obs/phase.py): an exec scope is a `device-compute` span on its
 thread; a kernel site outside any span is one too; a build inside either
 is `compile` and is excluded from the enclosing span.
 
+Hang bound: with spark.rapids.tpu.dispatch.timeoutMs > 0 (read by
+`configure`), a kernel site, after its body's launches, and an exec
+scope, after its pull, record a CUDA event on the current stream and
+poll it on the calling thread until the deadline
+(exec/speculation_shield.await_ready): a wedged kernel raises
+DispatchTimeoutError instead of hanging the query, and never changes a
+kernel's route. The JAX package blocks on a helper thread instead; here
+no thread is left behind. Off, the cost is the ledger's one attribute
+check.
+
 `metric_scope(num, time)` keeps the JAX package's surface: kernel
 launches inside the block add to an exec's (numDispatches,
 compileTimeNs) metric pair.
@@ -103,9 +113,11 @@ class DispatchLedger:
     events are emitted after it drops."""
 
     def __init__(self, storm_traces: int = 8,
-                 storm_window_ms: int = 10_000):
+                 storm_window_ms: int = 10_000, timeout_ms: int = 0):
         self.storm_traces = max(1, int(storm_traces))
         self.storm_window_ms = max(1, int(storm_window_ms))
+        #: the hang bound of a site's device work (0 = off)
+        self.timeout_ms = max(0, int(timeout_ms))
         self._lock = threading.Lock()
         self._programs: Dict[Tuple, ProgramStats] = {}
         self._calls = 0
@@ -197,20 +209,23 @@ def configure(conf=None) -> Optional[DispatchLedger]:
     dispatch.ledger.enabled=false tears it down."""
     global _ledger
     from ..config import (DISPATCH_LEDGER_ENABLED, DISPATCH_STORM_TRACES,
-                          DISPATCH_STORM_WINDOW_MS, active_conf)
+                          DISPATCH_STORM_WINDOW_MS, DISPATCH_TIMEOUT_MS,
+                          active_conf)
     conf = conf if conf is not None else active_conf()
     enabled = conf.get(DISPATCH_LEDGER_ENABLED)
     traces = conf.get(DISPATCH_STORM_TRACES)
     window = conf.get(DISPATCH_STORM_WINDOW_MS)
+    timeout = conf.get(DISPATCH_TIMEOUT_MS)
     with _ledger_lock:
         if not enabled:
             _ledger = None
             return None
         if _ledger is None:
-            _ledger = DispatchLedger(traces, window)
+            _ledger = DispatchLedger(traces, window, timeout)
         else:
             _ledger.storm_traces = max(1, int(traces))
             _ledger.storm_window_ms = max(1, int(window))
+            _ledger.timeout_ms = max(0, int(timeout))
         return _ledger
 
 
@@ -331,6 +346,13 @@ def _pop(f: "_Frame") -> None:
         frames[-1].build_ns += f.build_ns
 
 
+def _bound(led: DispatchLedger, label: str, device) -> None:
+    """Wait for the site's device work under the ledger's hang bound."""
+    from ..exec import speculation_shield as shield
+    shield.await_ready(shield.cuda_ready(device), led.timeout_ms,
+                       shield.current_dispatch_domain(), label)
+
+
 @contextmanager
 def kernel_site(label: str, shape, device):
     """Wrap one kernel wrapper's CUDA branch; the body calls `.count()`
@@ -350,9 +372,13 @@ def kernel_site(label: str, shape, device):
     try:
         if obs_phase.in_span():
             yield f
+            if led.timeout_ms:
+                _bound(led, label, device)
         else:
             with obs_phase.span("device-compute"):
                 yield f
+                if led.timeout_ms:
+                    _bound(led, label, device)
         ok = True
     finally:
         wall = time.perf_counter_ns() - t0
@@ -384,6 +410,8 @@ def exec_scope(label: str, device_type: str):
         with obs_phase.span("device-compute"):
             frame = stack[-1]
             yield f
+            if led.timeout_ms and device_type == "cuda":
+                _bound(led, label, "cuda")
             nested = frame[1]
     finally:
         _pop(f)

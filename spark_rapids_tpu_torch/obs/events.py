@@ -8,9 +8,7 @@ record:
 
 `EVENT_LEVELS` gives each kind the lowest spark.rapids.tpu.eventLog.level
 (ESSENTIAL < MODERATE < DEBUG) at which it is written: the JAX package's
-table less the kinds of the modules still to port (ROADMAP A.9b: the
-stall watchdog, speculative sub-reads, dispatch timeouts and the
-shuffle's lineage recovery), plus `kernel_failure`, the port's record of
+table, plus `kernel_failure`, the port's record of
 a transient attempt failure that engaged a CUDA kernel family (such
 failures are counted and emitted, and never change a kernel's route:
 exec/lifecycle.py).
@@ -62,6 +60,9 @@ EVENT_LEVELS: Dict[str, int] = {
     "io_retry": MODERATE,
     "task_retry": MODERATE,
     "integrity_fail": MODERATE,
+    # partition-granular recovery: one map output recomputed from its
+    # lineage (shuffle/manager.py)
+    "partition_recompute": MODERATE,
     "pipeline_stuck": MODERATE,
     "spill_error": MODERATE,
     "spill_writer_dead": MODERATE,
@@ -101,6 +102,12 @@ EVENT_LEVELS: Dict[str, int] = {
     # the adaptive replanner (exec/adaptive.py)
     "adaptive_replan": MODERATE,
     "adaptive_demote": ESSENTIAL,
+    # the straggler and stall shield (exec/speculation_shield.py): a
+    # stalled query is headline, the rest MODERATE
+    "query_stalled": ESSENTIAL,
+    "speculative_fetch": MODERATE,
+    "dispatch_timeout": MODERATE,
+    "map_output_invalidated": MODERATE,
     # the port's own: a transient attempt failure that engaged a CUDA
     # kernel family (exec/lifecycle.attempt_failed)
     "kernel_failure": MODERATE,

@@ -20,8 +20,10 @@ The sites that accrue, in the port:
 * `pipeline-stall`: a consumer blocked on its producer
   (exec/pipeline.py);
 * `retry-backoff`: the task-retry and OOM-retry sleeps;
-* `ici-collective` and `spec-wait` stay in the set and accrue 0 until
-  the mesh lane (ROADMAP A.6) and the speculation shield (A.9b) land;
+* `spec-wait`: the wait past the straggler bound of a speculative
+  shuffle sub-read (exec/speculation_shield.py);
+* `ici-collective` stays in the set and accrues 0 until the mesh lane
+  (ROADMAP A.6) lands;
 * `other`: the derived remainder, never accrued directly.
 
 Two surfaces fed by the same `add`/`span` calls: process-global
@@ -57,7 +59,7 @@ PHASES = (
     "semaphore-wait",      # device admission (memory/semaphore.py)
     "pipeline-stall",      # consumer blocked on producer (exec/pipeline.py)
     "retry-backoff",       # task-retry + OOM-retry backoff sleeps
-    "spec-wait",           # the speculation shield (ROADMAP A.9b): 0
+    "spec-wait",           # speculative sub-reads (speculation_shield)
     "other",               # derived remainder — never negative
 )
 
@@ -181,6 +183,18 @@ class PhaseLedger:
     @property
     def wall_ns(self) -> int:
         return self.finish()
+
+    def dominant_phase(self) -> Optional[str]:
+        """The largest phase accrued so far, read mid-flight without
+        closing the window (the stall watchdog's attribution); None when
+        nothing has accrued."""
+        with self._lock:
+            merged = dict(self._direct)
+            for p, v in self._folded.items():
+                merged[p] = merged.get(p, 0) + v
+        if not merged:
+            return None
+        return max(merged, key=merged.get)
 
     def snapshot(self) -> Dict[str, int]:
         """The closed phase dict: every name in PHASES present,

@@ -75,6 +75,11 @@ class QueryProfile:
         level = metrics_level() if level is None else level
         self.tree = _node(root, level)
         self.summary = dict(summary or {})
+        #: the executed plan's shape digest (obs/history.plan_fingerprint),
+        #: taken only when a history store is on
+        from . import history
+        self.fingerprint = history.plan_fingerprint(root) \
+            if history.active_store() is not None else None
         #: the query's RuntimeStats (obs/stats.py)
         self._runtime_stats = statistics
         #: the governed query's PhaseLedger (obs/phase.py), or None

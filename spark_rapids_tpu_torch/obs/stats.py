@@ -259,6 +259,21 @@ class ExchangeRecorder:
             if total_bytes:
                 _global_map_bytes.add(int(total_bytes))
 
+    def partition_bytes(self) -> Optional[List[int]]:
+        """The exact per-partition byte totals measured so far (the
+        serializer's offsets), or None when no map recorded bytes: the
+        adaptive read plan's evidence. A copy."""
+        st = self._local
+        with st._lock:
+            if st.maps == 0 or not any(st.per_partition_bytes):
+                return None
+            return list(st.per_partition_bytes)
+
+    def total_bytes(self) -> int:
+        """Total serialized bytes measured so far."""
+        with self._local._lock:
+            return self._local.bytes
+
     def finish(self) -> Optional[Dict[str, Any]]:
         global _global_last_skew
         if self._local.maps == 0:

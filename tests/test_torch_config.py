@@ -79,14 +79,6 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.pallas.fusedTier", "off", "no tier switch"),
     ("spark.rapids.tpu.shuffle.ici.enabled", "true", "A.6"),
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
-    ("spark.rapids.tpu.adaptive.skewedPartitionFactor", "2.0", "A.9"),
-    ("spark.rapids.tpu.adaptive.coalesceTargetBytes", "1", "A.9"),
-    # the governance planes read eventLog, workload, query and task since
-    # A.9a (test_values_the_port_honours_are_accepted); A.9b's keys wait
-    ("spark.rapids.tpu.stall.timeoutMs", "1000", "A.9b"),
-    ("spark.rapids.tpu.history.enabled", "true", "A.9b"),
-    ("spark.rapids.tpu.shuffle.speculation.enabled", "true", "A.9b"),
-    ("spark.rapids.tpu.dispatch.timeoutMs", "100", "A.9b"),
     ("spark.rapids.tpu.stage.programCache.maxSites", "8", "A.1.4"),
     ("spark.rapids.sql.format.parquet.datetimeRebaseModeInRead", "LEGACY",
      "A.8"),
@@ -115,9 +107,36 @@ def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
     ("spark.rapids.tpu.task.maxAttempts", "2"),
     ("spark.rapids.sql.decimalType.enabled", "false"),
     ("spark.rapids.sql.explain", "ALL"),
+    # the adaptive read plan, the shield and the history store
+    ("spark.rapids.tpu.adaptive.skewedPartitionFactor", "2.0"),
+    ("spark.rapids.tpu.adaptive.coalesceTargetBytes", "1"),
+    ("spark.rapids.tpu.stall.timeoutMs", "1000"),
+    ("spark.rapids.tpu.history.enabled", "true"),
+    ("spark.rapids.tpu.shuffle.speculation.enabled", "true"),
+    ("spark.rapids.tpu.dispatch.timeoutMs", "100"),
 ])
 def test_values_the_port_honours_are_accepted(key, value):
     tconfig.RapidsConf({key: value})
+
+
+#: the entries the adaptive read plan, the lineage recovery, the
+#: speculation shield and the history store read
+SHIELD_ENTRIES = (
+    "HISTORY_ENABLED", "HISTORY_DIR", "HISTORY_MAX_BYTES",
+    "PARTITION_RECOVERY_ENABLED", "STALL_TIMEOUT_MS", "STALL_ACTION",
+    "SHUFFLE_SPECULATION_ENABLED", "SHUFFLE_SPECULATION_MULTIPLIER",
+    "SHUFFLE_SPECULATION_MIN_MS", "SHUFFLE_SPECULATION_MAX_INFLIGHT",
+    "DISPATCH_TIMEOUT_MS", "ADAPTIVE_SKEW_FACTOR",
+    "ADAPTIVE_SKEW_MIN_BYTES", "ADAPTIVE_COALESCE_TARGET_BYTES")
+
+
+@pytest.mark.parametrize("name", SHIELD_ENTRIES)
+def test_shield_and_adaptive_entries_are_read(name):
+    entry = getattr(tconfig, name)
+    assert entry.key not in tconfig._UNREAD
+    sources = "\n".join(p.read_text() for p in PORT.rglob("*.py")
+                        if p.name != "config.py")
+    assert re.search(rf"\b{name}\b", sources), name
 
 
 def test_every_entry_is_read_or_listed_with_its_item():

@@ -4,8 +4,8 @@ shuffle/manager.py) against the JAX package's, on the CPU:
 - hash, roundrobin, single and range partitioning into 1, 3 and 8
   partitions, over several map batches with an empty one among them:
   every partition's rows, in order, equal the reference's static plan
-  (the reference with its adaptive and partition-recovery planes off,
-  which the port does not have);
+  (both packages with their adaptive and partition-recovery planes off:
+  test_torch_adaptive_reads.py and test_torch_recovery.py hold them on);
 - the flat stream is the partitions in order; the output stays on the
   child's device (the CPU here) and every frame is one upload seam;
 - no file is left under the shuffle root after the partitions are
@@ -27,6 +27,7 @@ from spark_rapids_tpu.exec import basic as jbasic
 from spark_rapids_tpu.exec import exchange as jexchange
 from spark_rapids_tpu.expr import core as jcore
 
+from spark_rapids_tpu_torch.config import RapidsConf as TRapidsConf
 from spark_rapids_tpu_torch.exec import basic as tbasic
 from spark_rapids_tpu_torch.exec import exchange as texchange
 from spark_rapids_tpu_torch.expr import core as tcore
@@ -36,10 +37,11 @@ from spark_rapids_tpu_torch.shuffle.serializer import CODEC_COPY
 from test_torch_encoded import both_batch
 from test_torch_jax_ref import jax_aliases
 
-#: the reference's static plan: no adaptive replanning, no lineage
-JAX_CONF = RapidsConf({"spark.rapids.tpu.adaptive.enabled": False,
-                       "spark.rapids.tpu.task.partitionRecovery.enabled":
-                       False})
+#: the static plan: no adaptive replanning, no lineage
+STATIC = {"spark.rapids.tpu.adaptive.enabled": False,
+          "spark.rapids.tpu.task.partitionRecovery.enabled": False}
+JAX_CONF = RapidsConf(STATIC)
+PORT_CONF = TRapidsConf(STATIC)
 WORDS = ["", "a", "REG AIR", "héllo", "AIR", "x" * 40]
 SIZES = (300, 0, 517, 1)
 
@@ -229,7 +231,7 @@ def _join_pair(keys, build_side, condition, n_parts=4):
     plans = []
     for m, core, l, r, kw in (
             (jexchange, jcore, jl, jr, {"conf": JAX_CONF}),
-            (texchange, tcore, tl, tr, {})):
+            (texchange, tcore, tl, tr, {"conf": PORT_CONF})):
         lk = [core.col(k) for k in keys]
         rk = [core.col(k + "_b") for k in keys]
         cond = None if not condition else \

@@ -1,8 +1,8 @@
 """faults.py against the JAX package's: the fault decisions over a grid
 of (seed, point, task, key, call index) and `parse_faults` are exact;
-the point names are the JAX package's less the two whose seams are not
-ported (`shuffle.ici_exchange`, ROADMAP A.6, and `shuffle.skew_split`,
-A.9b), which raise naming their item. Port-only: the taxonomy maps
+the point names are the JAX package's less the one whose seam is not
+ported (`shuffle.ici_exchange`, ROADMAP A.6), which raises naming its
+item. Port-only: the taxonomy maps
 `torch.OutOfMemoryError` to "oom", the injected kinds and integrity
 failures to "task", and a CUDA runtime error or a kernel build failure
 to "fatal" (ROADMAP C)."""
@@ -23,7 +23,7 @@ from spark_rapids_tpu_torch.memory import retry as tretry
 from test_torch_jax_ref import jax_aliases
 
 #: the JAX package's points whose seams wait for their items
-NOT_PORTED = {"shuffle.ici_exchange": "A.6", "shuffle.skew_split": "A.9b"}
+NOT_PORTED = {"shuffle.ici_exchange": "A.6"}
 
 
 @pytest.fixture(scope="module", autouse=True)

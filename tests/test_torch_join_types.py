@@ -383,12 +383,9 @@ def test_shuffled_join_types_match_jax(jt, build):
     build flags start over for each partition pair. The rows equal a
     nested-loop oracle's; in SHUFFLED_WITH_JAX, rows and order also equal
     the JAX package's ShuffledHashJoinExec."""
-    from spark_rapids_tpu.config import RapidsConf
     from spark_rapids_tpu.exec import exchange as jexchange
     from spark_rapids_tpu_torch.exec import exchange as texchange
-    conf = RapidsConf({"spark.rapids.tpu.adaptive.enabled": False,
-                       "spark.rapids.tpu.task.partitionRecovery.enabled":
-                       False})
+    from test_torch_exchange import JAX_CONF, PORT_CONF
     rng = np.random.default_rng(9)
     n_l, n_r = 60, 14
     left = {"lk": (rng.integers(0, 40, n_l).astype(np.int64), "LONG",
@@ -401,9 +398,10 @@ def test_shuffled_join_types_match_jax(jt, build):
              "rs": ([f"r{i}" for i in range(n_r)], "STRING", None)}
     lb, rb = both_batch(left, n_l), both_batch(right, n_r)
     out = []
-    sides = [(TORCH, texchange, 1, {})]
+    # both packages' static plans: one join a partition pair
+    sides = [(TORCH, texchange, 1, {"conf": PORT_CONF})]
     if (jt, build) in SHUFFLED_WITH_JAX:
-        sides.insert(0, (JAX, jexchange, 0, {"conf": conf}))
+        sides.insert(0, (JAX, jexchange, 0, {"conf": JAX_CONF}))
     for m, ex, k, kw in sides:
         col = m.core.col
         lk, rk = [col("lk")], [col("rk")]

@@ -1,6 +1,5 @@
-"""obs/events.py: the event kinds and levels are the JAX package's less
-the kinds of the modules still to port (`A9B_KINDS`) plus the port's
-`kernel_failure`; the query-level event sequence of one planned query is
+"""obs/events.py: the event kinds and levels are the JAX package's plus
+the port's `kernel_failure`; the query-level event sequence of one planned query is
 the JAX package's exactly. Port-only: records carry the query id and the
 emitting thread's name, levels filter, the file rotates at maxBytes,
 configure() keeps or tears down the process bus as the JAX package's
@@ -20,11 +19,10 @@ from test_torch_jax_ref import jax_aliases, one_torch_thread
 from test_torch_planner import active_confs
 from test_torch_task_retry import _q3
 
-#: kinds emitted by modules of ROADMAP A.9b (the stall watchdog, the
-#: speculative sub-reads, dispatch timeouts, the shuffle's lineage
-#: recovery and dead-peer invalidation)
-A9B_KINDS = {"query_stalled", "speculative_fetch", "dispatch_timeout",
-             "map_output_invalidated", "partition_recompute"}
+#: kinds of the stall watchdog, the speculative sub-reads, dispatch
+#: timeouts, the shuffle's lineage recovery and dead-peer invalidation
+SHIELD_KINDS = {"query_stalled", "speculative_fetch", "dispatch_timeout",
+                "map_output_invalidated", "partition_recompute"}
 PORT_ONLY = {"kernel_failure"}
 
 
@@ -37,12 +35,11 @@ def _aliases():
 
 
 def test_event_levels_match_jax():
-    ref = {k: v for k, v in jevents.EVENT_LEVELS.items()
-           if k not in A9B_KINDS}
+    ref = dict(jevents.EVENT_LEVELS)
     port = {k: v for k, v in tevents.EVENT_LEVELS.items()
             if k not in PORT_ONLY}
     assert port == ref
-    assert A9B_KINDS <= set(jevents.EVENT_LEVELS)
+    assert SHIELD_KINDS <= set(tevents.EVENT_LEVELS)
     assert (tevents.ESSENTIAL, tevents.MODERATE, tevents.DEBUG) == \
         (jevents.ESSENTIAL, jevents.MODERATE, jevents.DEBUG)
 

@@ -1,7 +1,8 @@
 """The slice's three paths over the host shuffle (chip_smoke.py's P9-P11)
 at a small size, built by chip_smoke's own plan functions in both
-packages (the JAX package's exchanges with its adaptive and recovery
-planes off) from the same numpy arrays, on the CPU:
+packages (both packages' exchanges with their adaptive and recovery
+planes off: test_torch_adaptive_reads.py holds P11 with them on) from the
+same numpy arrays, on the CPU:
 
 - P9, bench q1 over 16 batches: partial (the absorbed filter and
   project) -> hash exchange on the flag into 16 partitions -> final;
@@ -37,7 +38,7 @@ from spark_rapids_tpu_torch.exec import speculation as tspec
 from spark_rapids_tpu_torch.shuffle import manager as tmanager
 
 from test_torch_encoded import both_batch
-from test_torch_exchange import JAX_CONF
+from test_torch_exchange import JAX_CONF, PORT_CONF
 from test_torch_jax_ref import jax_aliases
 from test_torch_tpch_q1_slice import CUTOFF_DAYS, _assert_rows_close
 
@@ -46,6 +47,13 @@ JAX = SimpleNamespace(t=jt, core=jcore, pred=jpred, basic=jbasic,
                       exchange=jexchange, exchange_kw={"conf": JAX_CONF})
 PARTS = 16
 BATCH = 1024
+
+
+def _port():
+    """chip_smoke's port namespace, its exchanges on the static plan."""
+    m = cs.port_modules()
+    m.exchange_kw = {"conf": PORT_CONF}
+    return m
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -148,7 +156,7 @@ def test_p11_q3_shuffled_matches_jax_and_the_oracle(monkeypatch, key):
              for schema, n, parts in ((o_schema, cs.Q3_ORDERS, 2),
                                       (l_schema, cs.Q3_LINES, 8))]
     (jo, to), (jl, tl) = scans
-    tplan = cs.q3_tree(cs.port_modules(), to, tl, n_parts=8)
+    tplan = cs.q3_tree(_port(), to, tl, n_parts=8)
     jplan = cs.q3_tree(JAX, jo, jl, n_parts=8)
     rows = _spec_rows(tplan)
     cs.check_q3(rows, cs.q3_oracle(d), "P11")
