@@ -298,10 +298,12 @@ fails the run on error:
      and P19 collected through the governed drive with the phase ledger,
      the event log at MODERATE, telemetry every 100 ms and the dispatch
      ledger, P34_RUNS times in turns with exec/base.collect of the same
-     converted plan (the ungoverned twin), each run held to its oracle,
-     its phases summing to its wall to the ns and the ledger's calls per
-     kernel label equal to the wrappers' launches, with the events by
-     kind, the telemetry samples and the profile's top operators; P35,
+     plan, converted and its stages compiled (the ungoverned twin), each
+     run held to its oracle, its phases summing to its wall to the ns and
+     the ledger's calls per kernel label equal to the wrappers' launches,
+     then one governed run under torch.profiler whose device kernels
+     equal those launches (traced_check), with the events by kind, the
+     telemetry samples and the profile's top operators; P35,
      P16 (Q4's semi join over 16 host partitions) under a shuffle.fetch
      io fault and a one-shot device.dispatch fault, and P3 (the
      out-of-core sort at P3's device budget and host limit; P2, q3 at
@@ -344,6 +346,17 @@ fails the run on error:
      dispatch.timeoutMs 10,000 against none, in turns (no timeout); P2's
      injected split inside a governed query (the batch target halves);
      one history capsule per governed query of the phase;
+  3l. drives the stage compiler (drive_stage_paths): P39, planned q1 (an
+     agg stage), q3 (join_agg), Q19 (join_agg) and a Filter/Project/Filter
+     chain under a TopN (map), each at the default confs beside its twin
+     with stage.fusion.enabled false: the stages' kinds and absorbed
+     operators; a cold collect() (one CUDA graph captured per stage step),
+     the twin's and a warm one (0 captures, each graph step replayed),
+     each held to its oracle with its launches and host reads; a warm
+     collect() under torch.profiler whose device kernels equal the
+     launches the counters recorded (traced_check); P39_PAIRS timed warm
+     pairs and P39_COLD_PAIRS cold ones (the site cache and the join
+     sizes emptied before each), in turns; then q3 under P2's budget;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -1192,6 +1205,68 @@ def kernel_wrappers():
             "fused_probe_verify": probe_verify.fused_probe_verify,
             "dma_row_gather": row_gather.dma_row_gather,
             "dict_gather": dict_gather.dict_gather}
+
+
+#: each ported kernel's device functions (a substring of the traced
+#: name) and the launch counter family it counts on: each counted launch
+#: is one launch of one of them
+KERNEL_FAMILIES = (("fsa_rows", "fused_scan_agg"), ("m3_rows", "murmur3"),
+                   ("probe_scan_emit", "fused_probe_verify"),
+                   ("row_gather_", "dma_row_gather"),
+                   ("dict_gather_", "dict_gather"))
+MURMUR3_LABELS = ("murmur3_columns", "murmur3_long_lanes",
+                  "murmur3_int_lanes")
+
+
+def family_counts(counts):
+    """Launch counts by wrapper label, summed by KERNEL_FAMILIES' family
+    (the three murmur3 wrappers launch one device function)."""
+    out = {}
+    for k, v in counts.items():
+        if v:
+            fam = "murmur3" if k in MURMUR3_LABELS else k
+            out[fam] = out.get(fam, 0) + v
+    return out
+
+
+def traced_launches(fn):
+    """fn() under torch.profiler, whose CUPTI trace reports every kernel
+    the device ran, each kernel node of a CUDA graph replay included:
+    (fn's result, the ported kernels' launches by family)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        fam = next((f for sub, f in KERNEL_FAMILIES if sub in e.name), None)
+        if fam is not None:
+            counts[fam] = counts.get(fam, 0) + 1
+    return out, counts
+
+
+def traced_check(label, fn):
+    """fn() traced with every launch counter at 0 just before: fails
+    unless the kernels the device ran equal, by family, the launches the
+    counters recorded (a graph replay adds its capture's). Returns
+    (fn's result, the counters' launches, the traced ones by label: the
+    counters' own split of the murmur3 family, which one device function
+    serves)."""
+    wrappers = zero_launches()
+    out, traced = traced_launches(fn)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if family_counts(counts) != traced:
+        raise AssertionError(f"{label}: the device ran {traced}, the "
+                             f"counters recorded {family_counts(counts)}")
+    by_label = {k: (v if k in MURMUR3_LABELS else traced.get(k, 0))
+                for k, v in counts.items()}
+    return out, counts, by_label
 
 
 def drive_counted(label, plan, need):
@@ -3755,17 +3830,28 @@ def drive_planned(label, m, df, need, hand_counts, check, hand_shape=None):
           m.session._operator_metrics(tree))
     notes = explain_launches(label, tree, counts, hand_counts) \
         if hand_counts is not None else []
+    from spark_rapids_tpu_torch.exec import stage_compiler
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    sized0 = stage_compiler.counters()["sizing_launches"]
     t0 = time.perf_counter()
     rows = df.collect()
     collect_ms = (time.perf_counter() - t0) * 1e3
     again = {name: w.launches for name, w in wrappers.items()}
     check(rows, label + " collect()", df.session.last_query_metrics())
-    if again != counts:
+    # collect() runs the plan's compiled stages (the tree counted above is
+    # the converted one): a join_agg stage's cold sizing pass runs the
+    # probe's counts once more than the per-operator join
+    sized = {k: v - sized0.get(k, 0) for k, v in
+             stage_compiler.counters()["sizing_launches"].items()}
+    if again != {k: v + sized.get(k, 0) for k, v in counts.items()}:
         raise AssertionError(f"{label}: collect() launched {again}, the "
-                             f"counted run {counts}")
+                             f"counted run {counts} and the stages' "
+                             f"sizing passes {sized}")
+    if any(sized.values()):
+        notes.append(f"collect() launched {again}: the counted run's plus "
+                     f"a join_agg stage's cold sizing pass {sized}")
     check_idle(label)
     shuffle_root_empty(label)
     print(f"{label}: plan {tag_ms + convert_ms:.3f} ms (wrap_and_tag "
@@ -8069,10 +8155,13 @@ def governed_run(label, df, check):
 
 def drive_p34(dev, sm, tm, dfs_of, checks):
     """P34: q3, Q19 and P19 collected through the governed drive, P34_RUNS
-    times in turns with exec/base.collect of the same converted plan (the
-    ungoverned twin). Returns a record per query."""
+    times in turns with exec/base.collect of the same plan, converted and
+    its stages compiled as apply() does (the ungoverned twin); then one
+    governed run traced, whose device kernels must equal its ledger calls
+    and launches. Returns a record per query."""
     import tempfile
     import torch
+    from spark_rapids_tpu_torch.exec.stage_compiler import compile_stages
     from spark_rapids_tpu_torch.obs import events, telemetry
     event_dir = tempfile.mkdtemp(prefix="p34-events-")
     conf = governed_conf(event_dir)
@@ -8080,7 +8169,7 @@ def drive_p34(dev, sm, tm, dfs_of, checks):
     for label, (m, make_df) in dfs_of.items():
         df = make_df(conf)
         check = checks[label]
-        twin = planned(m, df)[0]
+        twin = compile_stages(planned(m, df)[0], df.session.conf)
         bus = events.active_bus() or events.configure(df.session.conf)
         n_before = len(events.read_events(bus)) if bus.paths else 0
         reg = telemetry.active_registry()
@@ -8099,6 +8188,8 @@ def drive_p34(dev, sm, tm, dfs_of, checks):
                     twin_ms.append((time.perf_counter() - t0) * 1e3)
                     check(rows, f"{label} twin", None)
         ms, counts, calls, phases, wall = last
+        _, _, traced = traced_check(f"{label} governed", lambda: governed_run(
+            f"{label} governed, traced", df, check))
         bus = events.active_bus()
         kinds = {}
         for r in events.read_events(bus)[n_before:]:
@@ -8106,18 +8197,19 @@ def drive_p34(dev, sm, tm, dfs_of, checks):
         reg = telemetry.active_registry()
         samples = (reg.samples_taken if reg is not None else 0) - samples0
         top = df.session.last_query_profile().top_operators()
-        if kinds.get("query_phases") != P34_RUNS or not samples:
+        if kinds.get("query_phases") != P34_RUNS + 1 or not samples:
             raise AssertionError(f"{label}: events {kinds}, telemetry "
                                  f"samples {samples}")
         recs[label] = {"governed_ms": gov_ms, "twin_ms": twin_ms,
                        "phases": phases, "wall_ns": wall,
                        "launches": counts, "ledger_calls": calls,
-                       "events": kinds, "telemetry_samples": samples,
+                       "launches_traced": traced, "events": kinds, "telemetry_samples": samples,
                        "top_operators": top}
         print(f"P34 {label}: governed ms {[round(x, 3) for x in gov_ms]}, "
               f"ungoverned twin ms {[round(x, 3) for x in twin_ms]}; "
               f"phases (sum == wall {wall} ns) {phases}; ledger calls "
-              f"{calls} == launches; events {kinds}; telemetry samples "
+              f"{calls} == launches == the traced device kernels; "
+              f"events {kinds}; telemetry samples "
               f"{samples}; top operators "
               f"{[(r['op'], r['time_ns']) for r in top]}")
     telemetry.reset_telemetry()
@@ -8422,7 +8514,8 @@ def drive_governed_paths(dev, sm, tm, d3, q3_want, l19, p19, q19_want, jb,
     recs["P36"] = drive_p36(dev, sm, d3, q3_want)
     recs["P37"] = drive_p37(dev, sm, tm, l19, p19, tb, q19_want,
                             types_want["P19"])
-    launches = {f"P34_{k}": v["launches"] for k, v in recs["P34"].items()}
+    launches = {f"P34_{k}": v["launches_traced"]
+                for k, v in recs["P34"].items()}
     launches.update({f"P35_{k}": v["launches"]
                      for k, v in recs["P35"].items()})
     launches["P37"] = recs["P37"]["launches"]
@@ -9062,6 +9155,287 @@ def compare_p38(pd, orders, dev):
     shuffle_root_empty("P38 phase 2")
 
 
+# -- phase 3l: the stage compiler, one CUDA graph per stage step (P39) --------
+
+#: P39's timed pairs per path: fusion on and off in turns, one
+#: synchronisation a run
+P39_PAIRS = 5
+#: P39's timed cold pairs per path, each run from an emptied site cache
+P39_COLD_PAIRS = 3
+#: the map path's second filter keeps l_price * (1 - l_disc) above this
+P39_REV_FLOOR = 900.0
+FUSION_OFF = {"spark.rapids.tpu.stage.fusion.enabled": "false"}
+#: the stage counters a P39 run reports as deltas
+STAGE_DELTAS = ("executions", "fallbacks", "graph_captures", "graph_replays",
+                "eager_steps", "cold_sizings", "cache_hits", "cache_misses",
+                "batches")
+
+
+def map_path_df(m, sess, line_batches):
+    """P39's map path: q3's lineitems filtered on l_flag, projected to
+    (l_orderkey, rev), filtered on rev, the top 10 by rev: a
+    Filter/Project/Filter chain under a TopN (a sort), one map stage."""
+    col, lit = m.core.col, m.core.lit
+    return (sess.from_batches(line_batches, line_batches[0].schema)
+            .filter(col("l_flag") != lit(0))
+            .select(col("l_orderkey"),
+                    (col("l_price") * (lit(1.0) - col("l_disc")))
+                    .alias("rev"))
+            .filter(col("rev") > lit(P39_REV_FLOOR))
+            .sort((col("rev"), False)).limit(10))
+
+
+def map_path_oracle(d):
+    """numpy's top 10 of the map path: (l_orderkey, rev), rev descending."""
+    rev = d["l_price"] * (1.0 - d["l_disc"])
+    sel = (d["l_flag"] != 0) & (rev > P39_REV_FLOOR)
+    keys, revs = d["l_orderkey"][sel], rev[sel]
+    top = np.argsort(-revs, kind="stable")[:10]
+    return [(int(keys[i]), float(revs[i])) for i in top]
+
+
+def check_map_path(rows, want, label):
+    """Keys and revenues exact: one multiply and one subtract per row, in
+    the same order as numpy's."""
+    got = [(int(k), v) for k, v in rows]
+    if got != want:
+        raise AssertionError(f"{label}: top 10 {got} != oracle {want}")
+
+
+def stage_shapes(tree):
+    """A plan's compiled stages in tree order: (kind, absorbed classes)."""
+    return [(n._kind, [type(o).__name__ for o in n._absorbed])
+            for n in exec_nodes(tree)
+            if type(n).__name__ == "CompiledStageExec"]
+
+
+def p39_collect(label, df, check):
+    """One df.collect() counted: every launch counter at 0 just before,
+    the host reads (CUDA's sync debug mode warns on each), the stage
+    compiler's counters as deltas. Returns (launches, host reads, stage
+    deltas)."""
+    import warnings
+    import torch
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    wrappers = zero_launches()
+    c0 = stage_compiler.counters()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = df.collect()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    c1 = stage_compiler.counters()
+    check(rows, label, df.session.last_query_metrics())
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    delta = {k: c1[k] - c0[k] for k in STAGE_DELTAS}
+    for k in ("graph_ineligible", "sizing_launches"):
+        delta[k] = {n: v - c0[k].get(n, 0) for n, v in c1[k].items()
+                    if v != c0[k].get(n, 0)}
+    delta["graph_pool_bytes"] = c1["graph_pool_bytes"]
+    return counts, reads, delta
+
+
+def drive_stage_paths(paths):
+    """Phase 3l (P39): each path planned at the default confs (fusion on)
+    beside its twin with stage.fusion.enabled=false. Per path: its stages
+    (kind and absorbed operators); a cold collect() (the graphs captured),
+    the twin's, a warm collect() (no capture: every graph step replayed),
+    each against its oracle with its launches and host reads; the warm
+    run's launches equal the twin's (a map stage's one compaction per
+    input batch less, where the twin's filters each compacted), the cold
+    run's exceed the warm run's by exactly its sizing passes' launches;
+    a warm collect() traced, whose device kernels must equal the launches
+    the counters recorded (the graph replays' included); then P39_PAIRS
+    timed warm pairs in turns, and P39_COLD_PAIRS cold pairs, each run
+    after the site cache and the join sizes were emptied (fusion on pays
+    its sizing pass and its captures: `capture_ns`).
+    Each path starts with the site cache and the join size caches empty.
+    `paths` maps a label to (make_df(conf), check, need, kind). Returns
+    (records, launches by run)."""
+    import torch
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    from spark_rapids_tpu_torch.obs import dispatch
+    recs, launches = {}, {}
+    for label, (make, check, need, kind) in paths.items():
+        # cold for this path: the earlier phases' collects of equal plans
+        # left their sites, graphs and join sizes cached
+        dispatch.reset_site_cache()
+        stage_compiler.reset_stage_counters()
+        on, off = make({}), make(FUSION_OFF)
+        print(f"P39 {label} explain:\n{on.explain()}")
+        shapes = stage_shapes(on._exec())
+        if kind not in [k for k, _ in shapes] or stage_shapes(off._exec()):
+            raise AssertionError(f"P39 {label}: stages {shapes}, want a "
+                                 f"{kind} stage with fusion on only")
+        cold, cold_reads, cold_st = p39_collect(f"P39 {label} cold", on,
+                                                check)
+        twin, twin_reads, twin_st = p39_collect(f"P39 {label} off", off,
+                                                check)
+        warm, warm_reads, warm_st = p39_collect(f"P39 {label} warm", on,
+                                                check)
+        _, traced_rec, traced = traced_check(
+            f"P39 {label} warm", lambda: check(
+                on.collect(), f"P39 {label} traced",
+                on.session.last_query_metrics()))
+        if traced_rec != warm:
+            raise AssertionError(f"P39 {label}: the traced warm run "
+                                 f"launched {traced_rec}, the warm run "
+                                 f"{warm}")
+        idle = [k for k in need if warm[k] < 1 or twin[k] < 1]
+        if idle:
+            raise AssertionError(f"P39 {label}: kernels not launched: "
+                                 f"{idle} (on {warm}, off {twin})")
+        # a map stage compacts once where each of the chain's filters
+        # compacted (one packed row gather each, per input batch)
+        saved = (len([op for op in shapes[0][1] if op == "FilterExec"]) - 1) \
+            * warm_st["batches"] if kind == "map" else 0
+        if warm != dict(twin, dma_row_gather=twin["dma_row_gather"] - saved):
+            raise AssertionError(f"P39 {label}: warm launches {warm} != "
+                                 f"the per-operator twin's {twin} less "
+                                 f"{saved} compactions")
+        sized = {k: warm[k] + cold_st["sizing_launches"].get(k, 0)
+                 for k in warm}
+        if cold != sized:
+            raise AssertionError(f"P39 {label}: cold launches {cold} != "
+                                 f"the twin's plus its sizing passes' "
+                                 f"{cold_st['sizing_launches']}")
+        if twin_st["executions"] or not cold_st["executions"]:
+            raise AssertionError(f"P39 {label}: fused executions on "
+                                 f"{cold_st['executions']}, off "
+                                 f"{twin_st['executions']}")
+        if warm_st["graph_captures"] or warm_st["cache_misses"] \
+                or not warm_st["graph_replays"]:
+            raise AssertionError(f"P39 {label}: the second collect() "
+                                 f"captured {warm_st['graph_captures']}, "
+                                 f"built {warm_st['cache_misses']} sites, "
+                                 f"replayed {warm_st['graph_replays']}")
+        ms = {"on": [], "off": []}
+        for i in range(P39_PAIRS):
+            for k in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                df = on if k == "on" else off
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = df.collect()
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+                check(rows, f"P39 {label} timed {k}",
+                      df.session.last_query_metrics())
+        graphs = dispatch.cached_graphs()
+        cold_ms = {"on": [], "off": []}
+        capture_ms = []
+        for i in range(P39_COLD_PAIRS):
+            for k in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                df = on if k == "on" else off
+                dispatch.reset_site_cache()
+                stage_compiler.reset_stage_counters()
+                g0 = dispatch.graph_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = df.collect()
+                torch.cuda.synchronize()
+                cold_ms[k].append((time.perf_counter() - t0) * 1e3)
+                check(rows, f"P39 {label} timed cold {k}",
+                      df.session.last_query_metrics())
+                if k == "on":
+                    capture_ms.append((dispatch.graph_counters()[
+                        "capture_ns"] - g0["capture_ns"]) / 1e6)
+        check_idle(f"P39 {label}")
+        per_replay = [(g["label"], g["kernels"], g["pool_bytes"])
+                      for g in graphs]
+        recs[label] = {
+            "stages": shapes, "compactions_saved": saved, "graphs": graphs,
+            "launches_cold": cold, "launches_warm": warm,
+            "launches_off": twin, "host_reads_cold": cold_reads,
+            "host_reads_warm": warm_reads, "host_reads_off": twin_reads,
+            "stage_cold": cold_st, "stage_warm": warm_st, "ms": ms,
+            "launches_traced": traced, "cold_ms": cold_ms,
+            "capture_ms": capture_ms}
+        launches[f"P39_{label}_warm"] = traced
+        launches[f"P39_{label}_off"] = twin
+        print(f"P39 {label}: stages {shapes}; rows equal to the oracle on "
+              f"and off; launches warm {warm} == off; cold {cold} (its "
+              f"sizing passes {cold_st['sizing_launches']}); cold: "
+              f"captures {cold_st['graph_captures']}, replays "
+              f"{cold_st['graph_replays']}, eager steps "
+              f"{cold_st['graph_ineligible']}; warm (second collect): "
+              f"captures {warm_st['graph_captures']}, replays "
+              f"{warm_st['graph_replays']}, eager steps "
+              f"{warm_st['graph_ineligible']}; graph pools "
+              f"{warm_st['graph_pool_bytes']} bytes; launches a replay "
+              f"(site, launches, pool bytes) {per_replay}; host reads cold "
+              f"{cold_reads}, warm {warm_reads}, off {twin_reads}; ms on "
+              f"{[round(x, 3) for x in ms['on']]}, off "
+              f"{[round(x, 3) for x in ms['off']]}; traced warm run's "
+              f"device kernels {traced} == its counters; cold ms on "
+              f"{[round(x, 3) for x in cold_ms['on']]} (captures "
+              f"{[round(x, 3) for x in capture_ms]} ms of them), off "
+              f"{[round(x, 3) for x in cold_ms['off']]}" + (
+                  f"; the stage compacted once where the twin's filters "
+                  f"made {saved} more packed row gathers" if saved else ""))
+    return recs, launches
+
+
+def drive_stage_budget(sm, dev, d3, q3_want, rec):
+    """P39 q3 under P2's device budget and host limit (16 lineitem
+    batches, the exact tier, through the session): the graphs' pools
+    count against the budget, so a graph the budget cannot hold after its
+    spills is not kept and its key's steps run eagerly ("graph pool over
+    the device budget"). Rows equal to the oracle; every graph step either
+    captured and kept within the budget or counted over it; prints the
+    captures, replays, the steps over the budget, the pools and the
+    catalog's hops. Returns a record."""
+    from spark_rapids_tpu_torch import memory as M
+    from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    from spark_rapids_tpu_torch.obs import dispatch
+    dispatch.reset_site_cache()
+    stage_compiler.reset_stage_counters()
+    df = p2_session_df(sm, dev, d3, dict(Q3_CONF, **{
+        "spark.rapids.memory.tpu.budgetBytes": str(rec["budget"]),
+        "spark.rapids.memory.host.spillStorageSize": str(rec["host_limit"])}))
+    # the budget and the catalog read the session's conf when made
+    M.reset_memory_budget()
+    M.reset_buffer_catalog()
+    try:
+        retries0, splits0 = M.task_retry_counts()
+        graphs0 = dispatch.graph_counters()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_q3(rows, q3_want, "P39 q3 under P2's budget")
+        retries, splits = (n - n0 for n, n0 in zip(M.task_retry_counts(),
+                                                   (retries0, splits0)))
+        st = stage_compiler.counters()
+        cat = M.buffer_catalog().counters()
+        graphs = {k: v - graphs0[k]
+                  for k, v in dispatch.graph_counters().items()}
+    finally:
+        set_active_conf(RapidsConf())
+        M.reset_buffer_catalog()
+        M.reset_memory_budget()
+        dispatch.reset_site_cache()
+    over = st["graph_ineligible"].get(dispatch.OVER_BUDGET, 0)
+    if graphs["pool_bytes"] > rec["budget"] or not (
+            graphs["captures"] or over):
+        raise AssertionError(f"P39 q3 under P2's budget: graphs {graphs}, "
+                             f"steps over the budget {over}")
+    out = {"budget": rec["budget"], "ms": ms, "retries": retries,
+           "splits": splits, "graphs": graphs, "over_budget_steps": over,
+           "spills": cat, "eager_steps": st["graph_ineligible"]}
+    print(f"P39 q3 under P2's budget ({rec['budget']} bytes): rows equal to "
+          f"the oracle in {ms:.1f} ms; {splits} split(s), {retries} "
+          f"retries; graphs captured {graphs['captures']}, not kept (over "
+          f"the budget) {graphs['over_budget']}, replayed "
+          f"{graphs['replays']}, dropped {graphs['dropped']}; eager steps "
+          f"{st['graph_ineligible']}; catalog {cat}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -9573,6 +9947,31 @@ def main() -> int:
             q3_want, q4_oracle(dj), pd38, p38_want)
     print(f"phase 3k: {time.perf_counter() - t_a9b:.1f} s")
 
+    # -- phase 3l, slice 17: the stage compiler, a CUDA graph per stage
+    # step (P39) -------------------------------------------------------------
+    t_stage = time.perf_counter()
+    map_want = map_path_oracle(d3)
+    stage_paths = {
+        "q1": (lambda c: q1_df(sm, TpuSession(c, DEVICE), [batch]),
+               lambda r, lb, _: check_q1(r, oracle, lb), ["fused_scan_agg"],
+               "agg"),
+        "q3": (lambda c: q3_df(sm, TpuSession(dict(Q3_CONF, **c), DEVICE),
+                               *q3_side_batches(d3, "LONG")),
+               lambda r, lb, _: check_q3(r, q3_want, lb), q3_need,
+               "join_agg"),
+        "q19": (lambda c: q19_df(sm, TpuSession(c, DEVICE), l19, p19),
+                lambda r, lb, mx: check_q19(r, q19_pairs(mx), q19_want, lb),
+                ["dict_gather"] + q3_need, "join_agg"),
+        "map": (lambda c: map_path_df(sm, TpuSession(c, DEVICE), q3_batches(
+            d3, dev, q3_schemas("LONG")[1], Q3_LINES, P11_LINE_BATCHES)),
+            lambda r, lb, _: check_map_path(r, map_want, lb),
+            ["dma_row_gather"], "map")}
+    with default_conf_after():
+        stage_recs, stage_launches = drive_stage_paths(stage_paths)
+        stage_recs["q3 under P2's budget"] = drive_stage_budget(
+            sm, dev, d3, q3_want, p2_rec)
+    print(f"phase 3l: {time.perf_counter() - t_stage:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -9878,7 +10277,8 @@ def main() -> int:
             **{k.replace(" ", "_"): v.get(r["name"], 0)
                for k, v in ad_counts.items()},
             **{k: v.get(r["name"], 0) for k, v in gov_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in stage_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -9921,7 +10321,8 @@ def main() -> int:
                              ms=nested_ms),
         "adaptive_paths": dict(ad_recs, counts=ad_counts,
                                ms=adaptive_ms),
-        "governed_paths": gov_recs}}, default=str))
+        "governed_paths": gov_recs, "stage_paths": stage_recs}},
+        default=str))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

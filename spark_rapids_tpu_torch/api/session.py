@@ -256,6 +256,8 @@ def _operator_metrics(root) -> Dict[str, Dict[str, int]]:
         out[f"{type(node).__name__}#{node._op_id}"] = {
             name: m.value for name, m in node.metrics.items()}
         stack.extend(node.children)
+        # a compiled stage's absorbed operators (exec/stage_compiler.py)
+        stack.extend(getattr(node, "_absorbed", ()))
     return out
 
 

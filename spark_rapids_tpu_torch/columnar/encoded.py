@@ -308,6 +308,19 @@ def bytes_equal_at(a, a_idx, b, b_idx) -> torch.Tensor:
     return _bytes_equal_spans(la, sa, da, lb, sb, db) & va & vb
 
 
+def device_bytes(raw: bytes, dev) -> torch.Tensor:
+    """`raw` as a uint8 tensor on `dev`, filled eight bytes at a time by
+    scalar fills rather than copied from host memory: a copy from pageable
+    host memory cannot be captured into a CUDA graph (a compiled stage's
+    step evaluates its predicates inside one)."""
+    if not raw:
+        return torch.zeros(0, dtype=torch.uint8, device=dev)
+    words = np.frombuffer(raw + b"\0" * (-len(raw) % 8), dtype="<i8")
+    packed = torch.stack([torch.full((), int(w), dtype=torch.int64,
+                                     device=dev) for w in words])
+    return packed.view(torch.uint8)[:len(raw)]
+
+
 def literal_hits(col: DictionaryColumn, value) -> torch.Tensor:
     """bool (dict_capacity,): which dictionary entries equal the string
     (or bytes) literal — dict_capacity byte compares, once per batch."""
@@ -317,7 +330,7 @@ def literal_hits(col: DictionaryColumn, value) -> torch.Tensor:
     dlens = col.dict_offsets[1:] - col.dict_offsets[:-1]
     if m == 0:
         return dlens == 0
-    lit = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+    lit = device_bytes(raw, dev)
     pos = col.dict_offsets[:-1, None].to(torch.int64) \
         + torch.arange(m, dtype=torch.int64, device=dev)[None, :]
     entry = col.dict_data[pos.clamp(0, col.dict_byte_capacity - 1)]

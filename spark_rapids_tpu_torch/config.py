@@ -21,8 +21,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | Key (`spark.rapids.` omitted) | Item | Honoured |
 | --- | --- | --- |
 | `sql.explain`, `sql.reader.batchSizeRows`, `sql.stableSort.enabled`, `sql.improvedFloatOps.enabled` | none: the JAX package reads them in no operator either | any |
-| `tpu.stage.fusion.enabled` | A.1.4 (a CUDA graph per stage) | any: results are the same on and off |
-| `tpu.stage.programCache.maxSites` | A.1.4 | default |
 | `tpu.pallas.enabled` | not ported by design (ROADMAP A: the port has no tier switch) | true |
 | `tpu.pallas.fusedTier` | not ported by design | auto, on |
 | `tpu.pallas.fusedTier.benchFile` | not ported by design | default |
@@ -33,6 +31,11 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
 | `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
 | `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
+
+The stage compiler reads `tpu.stage.fusion.enabled` (TpuOverrides.apply,
+and the plan fingerprint's conf digest) and the program-site cache reads
+`tpu.stage.programCache.maxSites` (obs/dispatch.instrument), as the JAX
+package does: on the card a compiled stage's step is a CUDA graph.
 
 The governance planes read their entries where the JAX package does:
 `tpu.test.faults` (faults.configure), `tpu.eventLog.*`
@@ -978,8 +981,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     MAX_READER_BATCH_SIZE_ROWS.key: ("none", _ANY),
     STABLE_SORT.key: ("none", _ANY),
     IMPROVED_FLOAT_OPS.key: ("none", _ANY),
-    STAGE_FUSION_ENABLED.key: ("ROADMAP A.1.4", _ANY),
-    STAGE_PROGRAM_CACHE_ENTRIES.key: ("ROADMAP A.1.4", ()),
     PALLAS_ENABLED.key: (_BY_DESIGN, ()),
     PALLAS_FUSED_TIER.key: (_BY_DESIGN, ("on",)),
     PALLAS_FUSED_BENCH_FILE.key: (_BY_DESIGN, ()),

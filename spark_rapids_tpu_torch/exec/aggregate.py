@@ -39,6 +39,11 @@ does, and counts the route that produced the result (`hash_rounds_2`,
 `hash_rounds_6`, `sort_fallback`). Its partials merge by one concat and
 one re-aggregation.
 
+A compiled `agg` or `join_agg` stage (exec/stage_compiler.py) drives
+`_streaming_step` (one CUDA graph replay a batch on the card) and
+`_update_and_aggregate` (eager: its exact group-by reads the host) as
+its bodies, and `_absorb_partial`, `_merge_all` and `_evaluate` after.
+
 Both tiers run each source batch as a SpillableBatch under
 `with_retry(..., split_in_half_by_rows)`, and the merge of the held
 partials under `with_retry` with a policy that splits the set of
@@ -176,6 +181,17 @@ class AggregateExec(TpuExec):
             self._scan_agg_spec = compile_scan_agg_spec(
                 self._fused_steps, self._pre_bound, self._pre_schema,
                 self._key_count, agg_op_slots, self._source.output_schema)
+
+    def _fingerprint_extras(self):
+        """Everything the aggregate's bodies depend on: its mode, keys,
+        functions and absorbed chain (by semantic key), the input types a
+        final mode takes, and the bucket settings read at construction."""
+        from .stage_compiler import keys_of
+        steps = [(s[0],) + tuple(s[1:]) for s in self._fused_steps]
+        return keys_of([self.mode, self.group_exprs, self.aggregates, steps,
+                        getattr(self, "_input_types", None), self._slots,
+                        self._rounds, self._spec_enabled,
+                        self._fusion_enabled])
 
     def _input_pre_grouped(self) -> bool:
         """True when every key is a bare column that represents one of the

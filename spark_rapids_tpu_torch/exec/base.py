@@ -11,10 +11,17 @@ event log's op_open / op_batch / op_close / op_error records
 (obs/events.py). Metrics carry the JAX package's visibility levels
 (ESSENTIAL / MODERATE / DEBUG, by name: `METRIC_LEVELS`), cut by
 spark.rapids.sql.metrics.level in `all_metrics()` and the query profile.
+
+The stage compiler's surface (exec/stage_compiler.py) is here too, as in
+the JAX package: `plan_fingerprint` (from each node's
+`_fingerprint_extras`; None opts a subtree out), `_site` (a program site
+keyed by it: one CUDA graph per static shape on the card) and
+`batch_harness` (the per-step hooks at the stage boundary).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -32,6 +39,7 @@ DEBUG = 2
 
 NUM_OUTPUT_ROWS = "numOutputRows"
 AGG_TIME = "computeAggTime"
+NUM_DISPATCHES = "numDispatches"
 PIPELINE_WAIT = "pipelineWaitNs"
 PIPELINE_FULL_WAIT = "pipelineFullWaitNs"
 PIPELINE_WALL = "pipelineWallNs"
@@ -276,6 +284,66 @@ class TpuExec:
 
     def node_description(self) -> str:
         return type(self).__name__
+
+    # -- the plan fingerprint and the stage boundary ----------------------
+    def _fingerprint_extras(self):
+        """Semantic parameters of this node beyond its class, output schema
+        and children: everything its bodies depend on (bound expressions,
+        modes, confs read at construction). None, the default, opts the
+        subtree out of the plan-fingerprint program cache: an exec whose
+        semantics are not all captured here never shares a program site
+        (and its CUDA graphs) with another instance."""
+        return None
+
+    def plan_fingerprint(self) -> Optional[str]:
+        """The canonical fingerprint of this subtree
+        (exec/stage_compiler.fingerprint_node): equal fingerprints promise
+        equal bodies, so the process-wide site cache (obs/dispatch.py) may
+        hand a later collect()'s rebuilt exec the sites, and the graphs,
+        an equal plan built. None when a node of the subtree opted out or
+        the stage.fusion gate is off. Memoized per instance: compute it
+        only once the node's semantic fields are final."""
+        memo = self.__dict__.get("_plan_fp", False)
+        if memo is not False:
+            return memo
+        fp = None
+        extras = self._fingerprint_extras()
+        if extras is not None:
+            from .stage_compiler import fingerprint_node
+            fp = fingerprint_node(self, extras)
+        self.__dict__["_plan_fp"] = fp
+        return fp
+
+    def _site(self, fn, label: str, key_salt=None, graph: bool = True,
+              cause: Optional[str] = None, cause_of=None):
+        """One of this exec's program sites (obs/dispatch.instrument),
+        keyed by the plan fingerprint when there is one, so that an equal
+        exec of a later collect() replays the same graphs. `key_salt`
+        tells apart several sites of one label on one exec; `graph=False`
+        names a body that reads the host (`cause`), and `cause_of(*args)`
+        a call whose inputs make it read the host: those run eagerly."""
+        from ..obs.dispatch import instrument
+        fp = self.plan_fingerprint()
+        key = None if fp is None else \
+            (fp if key_salt is None else (fp, key_salt))
+        return instrument(fn, label=label, owner=self, cache_key=key,
+                          graph=graph, cause=cause, cause_of=cause_of)
+
+    @contextlib.contextmanager
+    def batch_harness(self, fault_key: Optional[str] = None):
+        """The per-batch hooks of a stage step, around its one site call
+        and never inside a captured body: the governed query's cancel
+        check, and the `device.dispatch` fault point keyed by the step.
+        The program site adds the dispatch metric, the kernel launches and
+        gathers of a replay and the hang bound after it (obs/dispatch.py).
+        """
+        from .. import faults
+        from . import lifecycle
+        qctx = lifecycle.current_context()
+        if qctx is not None:
+            qctx.tick()
+        faults.check("device.dispatch", key=fault_key)
+        yield
 
     def all_metrics(self, level: Optional[int] = None) -> Dict[str, int]:
         """Flat per-operator metric values (`<Exec>[i]/.../<Exec>.<name>`,

@@ -6,7 +6,9 @@ Filter and project run each input batch as a SpillableBatch under
 package's filter and project do. They also offer `fused_step`: an AggregateExec absorbs the
 chain above its source into its own per-batch step (whole-stage fusion),
 where the filter becomes a row mask and no intermediate column is
-compacted or materialized.
+compacted or materialized. Filter, project and expand also offer
+`stage_step`, the step a compiled map stage (exec/stage_compiler.py)
+runs: one mask, every projection, one compaction per input batch.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ class InMemoryScanExec(TpuExec):
     def device(self):
         return self._batches[0].device if self._batches else self._device
 
+    def _fingerprint_extras(self):
+        # bodies depend on the schema (in the fingerprint already) and the
+        # batches' shapes (the site keys), never on the data
+        return ()
+
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         yield from self._batches
 
@@ -77,6 +84,11 @@ class SourceScanExec(TpuExec):
     @property
     def device(self):
         return getattr(self._source, "device", None)
+
+    def _fingerprint_extras(self):
+        # the source's class scopes the fingerprint; its data never shapes
+        # a body (shapes ride the site keys)
+        return (type(self._source).__name__,)
 
     def additional_metrics(self):
         return PIPELINE_STAGE_METRICS + UPLOAD_METRICS
@@ -226,6 +238,13 @@ class ProjectExec(TpuExec):
         inlines into its own per-batch step."""
         return ("project", self._bound, self._schema)
 
+    #: a compiled map stage takes the same step (exec/stage_compiler.py)
+    stage_step = fused_step
+
+    def _fingerprint_extras(self):
+        from .stage_compiler import keys_of
+        return keys_of(self._bound)
+
 
 class FilterExec(TpuExec):
     def __init__(self, condition: Expression, child: TpuExec):
@@ -258,6 +277,13 @@ class FilterExec(TpuExec):
         """Fusion hook: in a fused stage the filter contributes a row MASK
         (ANDed into the consumer's reductions) instead of a compaction."""
         return ("filter", self._bound)
+
+    #: a compiled map stage ANDs the same mask and compacts once
+    stage_step = fused_step
+
+    def _fingerprint_extras(self):
+        from .stage_compiler import keys_of
+        return keys_of([self._bound])
 
 
 class RangeExec(TpuExec):
@@ -402,6 +428,15 @@ class ExpandExec(TpuExec):
         for batch in self.child.execute():
             for bound in self._bound:
                 yield eval_projection(bound, batch, self._schema)
+
+    def stage_step(self):
+        """A compiled map stage emits every projection of an input batch
+        from its one step."""
+        return ("expand", self._bound, self._schema)
+
+    def _fingerprint_extras(self):
+        from .stage_compiler import keys_of
+        return keys_of(self._bound)
 
 
 class SampleExec(TpuExec):

@@ -70,6 +70,11 @@ class CoalesceBatchesExec(TpuExec):
         self.target_bytes = target_bytes or \
             active_conf().get(BATCH_SIZE_BYTES)
 
+    def _fingerprint_extras(self):
+        # its concat runs outside any stage body: the extras keep parent
+        # subtrees cacheable
+        return (self.target_bytes,)
+
     @property
     def output_schema(self) -> Schema:
         return self.child.output_schema

@@ -751,6 +751,11 @@ class BroadcastExchangeExec(TpuExec):
         super().__init__(child)
         self._materialized: Optional[ColumnarBatch] = None
 
+    def _fingerprint_extras(self):
+        # a pass-through at the body level: the extras keep parent
+        # subtrees over a broadcast build side cacheable
+        return ()
+
     @property
     def output_schema(self) -> Schema:
         return self.child.output_schema

@@ -234,6 +234,14 @@ class HashJoinExec(TpuExec):
         self._cond_bound = None if condition is None \
             else resolve(condition, self._pair_schema)
 
+    def _fingerprint_extras(self):
+        """The join's semantics: type, build side, bound keys, absorbed
+        filters and residual condition (by semantic key)."""
+        from .stage_compiler import keys_of
+        return keys_of([self.join_type, self.build_side, self.exists_name,
+                        self._stream_keys, self._build_keys, self._filters,
+                        self._cond_bound])
+
     @property
     def _need_build_flags(self) -> bool:
         """True when unmatched build rows are emitted."""
@@ -324,21 +332,26 @@ class HashJoinExec(TpuExec):
 
     # -- build -------------------------------------------------------------
     def _build(self):
-        b = 1 - self._stream_side
-        child = self.children[b]
+        child = self.children[1 - self._stream_side]
         with self.metrics[BUILD_TIME].ns_timer():
-            batches = list(child.execute())
-            if len(batches) > 1:
-                # distinct per-batch dictionaries do not concatenate:
-                # decode first; a single batch stays encoded
-                batches = [materialize_batch(b) for b in batches]
-            batch = concat_batches(batches, child.output_schema) \
-                if batches else empty_batch(child.output_schema,
-                                            device=child.device)
-            keys = self._key_columns(self._build_keys, self._filters[b],
-                                     batch)
-            return BuildTable.build(keys, list(batch.columns),
-                                    batch.num_rows, batch.capacity)
+            return self.build_table_of(list(child.execute()), child)
+
+    def build_table_of(self, batches: List[ColumnarBatch], child: TpuExec
+                       ) -> BuildTable:
+        """The bucketed build table of the build side's `batches` (the
+        output of `child`); a compiled join_agg stage builds its table
+        through it on its first step."""
+        if len(batches) > 1:
+            # distinct per-batch dictionaries do not concatenate: decode
+            # first; a single batch stays encoded
+            batches = [materialize_batch(b) for b in batches]
+        batch = concat_batches(batches, child.output_schema) \
+            if batches else empty_batch(child.output_schema,
+                                        device=child.device)
+        keys = self._key_columns(self._build_keys,
+                                 self._filters[1 - self._stream_side], batch)
+        return BuildTable.build(keys, list(batch.columns), batch.num_rows,
+                                batch.capacity)
 
     # -- probe -------------------------------------------------------------
     def internal_execute(self) -> Iterator[ColumnarBatch]:
@@ -584,7 +597,11 @@ class HashJoinExec(TpuExec):
                  for c, bc in zip(build.payload, b_caps)]
         left, right = (scols, bcols) if self.build_side == "right" \
             else (bcols, scols)
-        pair = ColumnarBatch(left + right, cand_cap, self._pair_schema)
+        # the row count as a device scalar (a host int would be copied in,
+        # which a CUDA graph cannot capture), known on the host as well
+        pair = ColumnarBatch(left + right, torch.full(
+            (), cand_cap, dtype=torch.int32, device=s_idx.device),
+            self._pair_schema, host_rows=cand_cap)
         pred = self._cond_bound.columnar_eval(pair)
         return pred.data & pred.validity
 

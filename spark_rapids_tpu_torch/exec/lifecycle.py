@@ -36,11 +36,13 @@ circuit breakers.
   that sent a CUDA kernel to its plain PyTorch version would be the
   fallback the port forbids (ROADMAP C): the port keeps only the
   domains whose safe path is another real plan — `adaptive`, whose
-  safe path is the static plan. A kernel family's transient attempt
-  failures are counted (`kernel_failures()`) and emitted
-  (`kernel_failure`), and never change the route. `health()` reports
-  the JAX package's sections, with `device_dispatch` (ROADMAP A.1.4)
-  and `ici_exchange` (A.6) marked as not ported.
+  safe path is the static plan, and `device_dispatch`, whose safe path
+  demotes a compiled stage (exec/stage_compiler.py) to the per-operator
+  execs over the same sources, which launch the same hand-written
+  kernels. A kernel family's transient attempt failures are counted
+  (`kernel_failures()`) and emitted (`kernel_failure`), and never change
+  the route. `health()` reports the JAX package's sections, with
+  `ici_exchange` (A.6) marked as not ported.
 """
 
 from __future__ import annotations
@@ -382,11 +384,13 @@ BREAKER_DOMAINS: Dict[str, str] = {
     "adaptive": "runtime replanner (exec/adaptive.py) "
                 "-> static plan: measured-statistics decisions are "
                 "skipped while open",
+    "device_dispatch": "compiled stages (exec/stage_compiler.py) -> "
+                       "per-operator execution over the same sources, "
+                       "on the same hand-written kernels",
 }
 
 #: the JAX package's domains the port does not have -> why
 NOT_PORTED_DOMAINS: Dict[str, str] = {
-    "device_dispatch": "ROADMAP A.1.4 (the stage compiler's graph)",
     "ici_exchange": "ROADMAP A.6 (the mesh lane)",
 }
 
@@ -510,9 +514,8 @@ def record_domain_success(domain: str) -> None:
 
 def breaker_shed_hint_ms(domain: str, conf=None) -> Optional[int]:
     """Read-only admission consult: the remaining cooldown in ms while
-    `domain`'s breaker is open, else None. The port has no
-    device_dispatch domain, so the workload governor's breaker shed
-    never fires."""
+    `domain`'s breaker is open, else None (the workload governor sheds
+    while the device_dispatch breaker is open, as in the JAX package)."""
     if not _breakers:
         return None
     enabled, _thr, _window, cooldown = _breaker_conf(conf)
@@ -562,7 +565,8 @@ def note_engagement(family: str) -> None:
 
 def engage_domain(domain: str) -> None:
     """Engage a breaker domain for the current attempt (the adaptive
-    replanner, on each decision it applies)."""
+    replanner, on each decision it applies; a compiled stage, on each
+    fused execution)."""
     if domain not in BREAKER_DOMAINS:
         return
     ctx = getattr(_tls, "ctx", None)

@@ -24,8 +24,9 @@ quotas, overload shedding.
   deadline-infeasible arrivals fail fast with QueryAdmissionError
   (classified fatal) carrying a `retry_after_ms` hint.
   `TpuSession.health()` reports the queue depth, the admitted count and
-  the counters. The JAX package also sheds while its `device_dispatch`
-  breaker is open; the port has no such domain (exec/lifecycle.py).
+  the counters. Arrivals are also shed while the `device_dispatch`
+  breaker (compiled stages, exec/lifecycle.py) is open, as in the JAX
+  package.
 
 Disabled (`spark.rapids.tpu.workload.enabled`, default false) the module
 costs one conf read per collect and nothing per batch.

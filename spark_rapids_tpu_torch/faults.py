@@ -59,8 +59,9 @@ FAULT_POINTS: Dict[str, str] = {
     "io.multifile_read": "multi-file decode task "
                          "(io/multifile.py threaded_chunks)",
     "device.dispatch": "guarded device section (memory/retry.py "
-                       "oom_guard) and the packed upload's one copy "
-                       "(columnar/upload.py)",
+                       "oom_guard), the packed upload's one copy "
+                       "(columnar/upload.py) and a compiled stage's step "
+                       "(exec/base.TpuExec.batch_harness)",
     "pipeline.produce": "pipeline producer step "
                         "(exec/pipeline.py PipelinedIterator)",
     "shuffle.skew_split": "adaptive skew-split sub-read frame "

@@ -10,6 +10,11 @@ retry framework. A spill frees budget, not allocator blocks: the caching
 allocator keeps freed blocks reserved for reuse, so
 `torch.cuda.memory_reserved` never shows a spill.
 
+The private memory pools of the compiled stages' CUDA graphs
+(obs/dispatch.ProgramSite) reserve their bytes here when captured and
+release them when dropped; on pressure, after the catalog's spill, the
+graphs no run holds are dropped, least recently used first.
+
 Per-query quota: under the workload governor (exec/workload.py), a
 query past its soft share of the budget that hits the pressure path
 spills its OWN catalog entries (a quota_spill event) and raises its own
@@ -83,6 +88,15 @@ class MemoryBudget:
             freed = buffer_catalog().synchronous_spill(needed,
                                                        events_out=hops)
         if self._try_take(nbytes):
+            return
+        # the pools of CUDA graphs no stage run holds (obs/dispatch.py)
+        # count against the budget too: drop them, least recently used
+        # first (a later step of their stage captures again)
+        from ..obs.dispatch import drop_cached_graphs
+        with self._lock:
+            short = nbytes - (self.limit - self.used)
+        if drop_cached_graphs(short, budget=self) \
+                and self._try_take(nbytes):
             return
         # an asynchronous spill frees the budget only when each copy to
         # the host lands: wait the hops this spill queued, then the rest

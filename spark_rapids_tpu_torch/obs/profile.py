@@ -54,7 +54,7 @@ def _fmt_metric(name: str, value: int) -> str:
 
 
 def _node(op, level: int) -> Dict[str, Any]:
-    return {
+    node = {
         "op": type(op).__name__,
         "op_id": getattr(op, "_op_id", None),
         "desc": op.node_description(),
@@ -62,6 +62,11 @@ def _node(op, level: int) -> Dict[str, Any]:
                     if m.level <= level},
         "children": [_node(c, level) for c in op.children],
     }
+    sites = getattr(op, "stage_sites", None)
+    if sites is not None:
+        # a compiled stage's programs: the sites it has called
+        node["programs"] = sum(1 for s in sites() if s.calls)
+    return node
 
 
 class QueryProfile:
@@ -130,6 +135,35 @@ class QueryProfile:
 
         walk(self.tree)
         return out
+
+    def dispatch_summary(self) -> Dict[str, Any]:
+        """Per compiled stage: the program-site calls it made (on the card
+        a graph replay or an eager step each), its output batches, the
+        calls per output batch and its programs (the sites it called). A
+        fused chain is one row. `counters` are the dispatch ledger's
+        process totals and the stage compiler's."""
+        from ..exec import stage_compiler
+        from . import dispatch as obs_dispatch
+        stages: List[Dict[str, Any]] = []
+
+        def walk(node):
+            m = node["metrics"]
+            d = m.get("numDispatches")
+            if d is not None:
+                batches = m.get("numOutputBatches", 0)
+                stages.append({
+                    "op": node["op"], "op_id": node["op_id"],
+                    "desc": node["desc"], "dispatches": d,
+                    "batches": batches,
+                    "dispatches_per_batch": (round(d / batches, 4)
+                                             if batches else None),
+                    "programs": node.get("programs", 0)})
+            for c in node["children"]:
+                walk(c)
+
+        walk(self.tree)
+        return {"stages": stages, "counters": obs_dispatch.counters(),
+                "stage": stage_compiler.counters()}
 
     def to_json(self, indent: Optional[int] = None) -> str:
         return json.dumps(self.to_dict(), indent=indent, default=str)

@@ -55,8 +55,17 @@ def _is_leap(y):
         | (torch.remainder(y, 400) == 0)
 
 
+#: device -> the month-length table, made once per device and kept: a
+#: compiled stage's CUDA graph holds its address, and a copy from host
+#: memory cannot be captured into one
+_MONTH_TABLES = {}
+
+
 def days_in_month(y, m):
-    table = torch.tensor(_DAYS_IN_MONTH, dtype=torch.int32, device=y.device)
+    table = _MONTH_TABLES.get(y.device)
+    if table is None:
+        table = _MONTH_TABLES[y.device] = torch.tensor(
+            _DAYS_IN_MONTH, dtype=torch.int32, device=y.device)
     base = table[torch.clamp(m - 1, 0, 11).long()]
     return torch.where((m == 2) & _is_leap(y), 29, base).to(torch.int32)
 

@@ -219,7 +219,8 @@ def dict_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.numel() == 0:
         return _output(table, idx)   # nothing to gather: no launch
     from ..obs.dispatch import kernel_site
-    with kernel_site("dict_gather", tuple(idx.shape), table.device) as site:
+    with kernel_site("dict_gather", tuple(idx.shape), table.device,
+                     counter=dict_gather) as site:
         out, _, launch = launcher(table, idx)
         launch()
         dict_gather.launches += 1

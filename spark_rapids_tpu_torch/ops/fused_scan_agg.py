@@ -263,7 +263,8 @@ def fused_scan_agg(spec: ScanAggSpec, batch, G: int, out_cap: int):
     if dev.type != "cuda":
         raise ValueError(f"fused_scan_agg runs on cuda or cpu, not {dev}")
     from ..obs.dispatch import kernel_site
-    with kernel_site("fused_scan_agg", (batch.capacity,), dev) as site:
+    with kernel_site("fused_scan_agg", (batch.capacity,), dev,
+                     counter=fused_scan_agg) as site:
         kstats, astats = _partials_cuda(spec, batch, G)
         site.count()
     return _finish(spec, kstats, astats, out_cap)

@@ -27,7 +27,7 @@ import torch
 
 __all__ = ["GatherStats", "gather_rows", "gather_lane_matrix",
            "gather_batch_columns", "pack_members", "rebuild_members",
-           "needs_rest", "record", "counters"]
+           "needs_rest", "record", "counters", "add_counts"]
 
 
 class GatherStats:
@@ -57,6 +57,16 @@ def record(n: int = 1, packed: bool = False, kernel: bool = False,
         _proc.packed_count += n if packed else 0
         _proc.kernel_count += n if kernel else 0
         _proc.bytes += nbytes
+
+
+def add_counts(delta: dict) -> None:
+    """Add a `counters()` difference: the gathers a captured CUDA graph
+    runs on each replay (obs/dispatch.ProgramSite)."""
+    with _proc_lock:
+        _proc.count += delta["count"]
+        _proc.packed_count += delta["packed_count"]
+        _proc.kernel_count += delta["kernel_count"]
+        _proc.bytes += delta["bytes"]
 
 
 def gather_rows(plan, imat, fmat, idx):

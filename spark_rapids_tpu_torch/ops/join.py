@@ -148,6 +148,11 @@ class BuildTable:
     sorted order for its XLA verify route; the port's verify route, which
     the other keys take, compares the key columns by row.)"""
 
+    #: what a stage site's graph keeps of a table (obs/dispatch.flatten)
+    _site_fields = ("bucket_table", "perm", "valid_count", "num_rows",
+                    "key_cols", "payload", "capacity", "pair_table", "pack",
+                    "key_lanes", "payload_prefix")
+
     def __init__(self, bucket_table, perm, valid_count, num_rows,
                  key_cols: Sequence[Column], payload: Sequence[Column],
                  capacity: int, pair_table, pack, key_lanes,

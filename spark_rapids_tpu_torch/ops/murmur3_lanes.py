@@ -187,7 +187,8 @@ def _launch(wrapper, keys: Sequence[Key], seeds: Sequence[Seed], n: int
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in seeds]
     if n == 0:
         return outs
-    with kernel_site(wrapper.__name__, (n, len(keys)), dev) as site:
+    with kernel_site(wrapper.__name__, (n, len(keys)), dev,
+                     counter=wrapper) as site:
         _run(keys, seeds, n, dev, outs)
         wrapper.launches += 1
         site.count()

@@ -83,6 +83,12 @@ def scratch_for(dev: torch.device, stream: int, n_chunks: int
     """The zeroed scratch of launches on `stream`, at least SCRATCH_HEAD +
     n_chunks int64 words: allocated (and zeroed) when it must grow, else
     the one the last launch on that stream left zero."""
+    if torch.cuda.is_current_stream_capturing():
+        # inside a CUDA graph capture: a scratch of the graph's own pool,
+        # zeroed by the graph on each replay. A cached one could be
+        # outgrown and freed while the graph still held its address.
+        return torch.zeros(SCRATCH_HEAD + max(n_chunks, 1),
+                           dtype=torch.int64, device=dev)
     key = (dev.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.shape[0] < SCRATCH_HEAD + n_chunks:
@@ -200,7 +206,7 @@ def fused_probe_verify(lo, counts, bk_lanes, bvalid, sk_lanes, svalid, perm,
         raise ValueError(f"fused_probe_verify runs on cuda or cpu, not {dev}")
     from ..obs.dispatch import kernel_site
     with kernel_site("fused_probe_verify", (counts.shape[0], out_capacity),
-                     dev) as site:
+                     dev, counter=fused_probe_verify) as site:
         outs, launch = launcher(lo, counts, bk_lanes, bvalid, sk_lanes,
                                 svalid, perm, out_capacity)
         if launch is not None:

@@ -177,7 +177,8 @@ def _launch(idx: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
             nv: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     from ..obs.dispatch import kernel_site
     shape = (idx.shape[0], a.shape[1] + (b.shape[1] if b is not None else 0))
-    with kernel_site("dma_row_gather", shape, a.device) as site:
+    with kernel_site("dma_row_gather", shape, a.device,
+                     counter=dma_row_gather) as site:
         oa, ob, _, launch = launcher(idx, a, b, nv)
         if launch is not None:
             launch()

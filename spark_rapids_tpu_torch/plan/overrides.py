@@ -33,11 +33,14 @@ an average over a DECIMAL, whose evaluation raises in the JAX package
 (C.5), and its plan-level tag-offs (collect_set over strings, a join
 whose payload holds an array of strings).
 
-Also waiting for their items: the mesh (`_plan_mesh` and the
-distributed aggregate and join over it, A.6: with no mesh the JAX
-package plans the same host lane as the port) and the stage compiler
-(`compile_stages`), whose counterpart on the card is a CUDA graph per
-stage (A.1.4): `apply` returns the converted tree as it is. The plan's
+Also waiting for its item: the mesh (`_plan_mesh` and the distributed
+aggregate and join over it, A.6: with no mesh the JAX package plans the
+same host lane as the port). `apply` ends, as the JAX package's does, in
+the stage compiler (exec/stage_compiler.compile_stages), which groups
+whitelisted chains into CompiledStageExec nodes: one CUDA graph per stage
+step on the card, the same bodies run eagerly on the CPU; with
+spark.rapids.tpu.stage.fusion.enabled=false the tree is returned as it
+was converted. The plan's
 decisions are events (`_emit_plan_decisions`): one `plan_fallback` per
 host-row-engine node and one `plan_not_on_tpu` per tag-off reason.
 """
@@ -1059,11 +1062,16 @@ class TpuOverrides:
         # the execs read their confs at construction, from the active one
         set_active_conf(self.conf)
         try:
-            return meta.convert()
+            tree = meta.convert()
         except NotImplementedError as e:
             # an operator's own limit (a key type its join lacks): the
             # same report, with the operator's reason
             raise PlanNotSupported(f"{meta.explain()}\n    @ {e}") from e
+        # whole-stage compilation: whitelisted chains become
+        # CompiledStageExec nodes (one CUDA graph per stage step on the
+        # card); a no-op with stage.fusion off
+        from ..exec.stage_compiler import compile_stages
+        return compile_stages(tree, self.conf)
 
     def explain(self, plan: L.LogicalPlan) -> str:
         return self.wrap_and_tag(plan).explain()

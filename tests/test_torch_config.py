@@ -79,7 +79,7 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.pallas.fusedTier", "off", "no tier switch"),
     ("spark.rapids.tpu.shuffle.ici.enabled", "true", "A.6"),
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
-    ("spark.rapids.tpu.stage.programCache.maxSites", "8", "A.1.4"),
+    ("spark.rapids.tpu.transfer.packedUpload.enabled", "false", "A.5"),
     ("spark.rapids.sql.format.parquet.datetimeRebaseModeInRead", "LEGACY",
      "A.8"),
 ])
@@ -97,6 +97,7 @@ def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
     ("spark.rapids.tpu.task.partitionRecovery.enabled", "false"),
     ("spark.rapids.tpu.stage.fusion.enabled", "false"),
     ("spark.rapids.tpu.stage.fusion.enabled", "true"),
+    ("spark.rapids.tpu.stage.programCache.maxSites", "8"),
     ("spark.rapids.tpu.task.maxAttempts", "1"),
     ("spark.rapids.tpu.pallas.fusedTier", "on"),
     ("spark.rapids.tpu.phases.enabled", "false"),

@@ -3,10 +3,11 @@ from a second thread, and the breakers. Exact against the JAX package:
 the cancel phases, breaker states and the surviving domain's name.
 Port-only: a cancel or a deadline raises QueryCancelledError soon, and
 leaves an empty catalog, no permit held and no engine thread alive;
-`active_queries()` shows the query mid-flight; only the `adaptive`
-domain has a breaker, the JAX package's `device_dispatch` and
-`ici_exchange` are marked not ported, and a kernel family's transient
-failures are counted, never routed. Every thread joins with a timeout.
+`active_queries()` shows the query mid-flight; the `adaptive` and
+`device_dispatch` (compiled stages) domains have breakers, the JAX
+package's `ici_exchange` is marked not ported, and a kernel family's
+transient failures are counted, never routed. Every thread joins with a
+timeout.
 """
 
 import threading
@@ -92,7 +93,7 @@ def test_names_match_jax():
     assert lifecycle.BREAKER_STATES == jlifecycle.BREAKER_STATES
     assert set(lifecycle.BREAKER_DOMAINS) | set(
         lifecycle.NOT_PORTED_DOMAINS) <= set(jlifecycle.BREAKER_DOMAINS)
-    assert set(lifecycle.BREAKER_DOMAINS) == {"adaptive"}
+    assert set(lifecycle.BREAKER_DOMAINS) == {"adaptive", "device_dispatch"}
 
 
 def test_cancel_from_a_second_thread():
@@ -167,15 +168,20 @@ def test_the_adaptive_breaker_opens_and_recovers():
     lifecycle.attempt_succeeded()
     assert lifecycle.open_breakers() == []
     # a domain the port does not have never opens
-    lifecycle.record_domain_failure("device_dispatch")
-    lifecycle.record_domain_failure("device_dispatch")
+    lifecycle.record_domain_failure("ici_exchange")
+    lifecycle.record_domain_failure("ici_exchange")
     assert lifecycle.open_breakers() == []
+    # the compiled stages' domain opens as the JAX package's does
+    lifecycle.record_domain_failure("device_dispatch")
+    lifecycle.record_domain_failure("device_dispatch")
+    assert lifecycle.open_breakers() == ["device_dispatch"]
     h = lifecycle.health()
     assert h["breakers"]["adaptive"]["trips"] == 1
-    assert h["breakers"]["device_dispatch"] == {
+    assert h["breakers"]["device_dispatch"]["state"] == "open"
+    assert h["breakers"]["ici_exchange"] == {
         "state": "not ported",
-        "item": lifecycle.NOT_PORTED_DOMAINS["device_dispatch"]}
-    assert h["breakers"]["ici_exchange"]["state"] == "not ported"
+        "item": lifecycle.NOT_PORTED_DOMAINS["ici_exchange"]}
+    assert "device_dispatch" not in lifecycle.NOT_PORTED_DOMAINS
     lifecycle.reset_lifecycle()
 
 

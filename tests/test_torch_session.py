@@ -263,7 +263,7 @@ def test_methods_that_wait_for_their_slice_name_it(call, item):
             assert {"breakers", "counters", "workload", "telemetry",
                     "dispatch", "slo", "stats"} <= set(out)
             assert out["active_queries"] == 0
-            assert out["breakers"]["device_dispatch"]["state"] == \
+            assert out["breakers"]["ici_exchange"]["state"] == \
                 "not ported"
         else:
             assert out == 0
