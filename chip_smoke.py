@@ -71,7 +71,9 @@ fails the run on error:
      partitions (and as the static twin), P30's group-by sort and z-order sort); every murmur3
      chain, probe and row gather launch of a run of P32 (Q21 and P19
      through their adaptive joins, P20's sort, P32 sub's sub-partitioned
-     join over 16 partitions and its static twin, P32 demote);
+     join over 16 partitions and its static twin, P32 demote); every
+     murmur3 chain, probe and row gather launch of a run of each P40
+     query over its file's table as read back (phase 3m's shapes);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -357,6 +359,22 @@ fails the run on error:
      launches the counters recorded (traced_check); P39_PAIRS timed warm
      pairs and P39_COLD_PAIRS cold ones (the site cache and the join
      sizes emptied before each), in turns; then q3 under P2's budget;
+  3m. drives the file lane (drive_file_paths): P40. In the set-up the
+     port's writers write P12's SF1 orders (1,500,000 rows, all four
+     columns) with write_avro(codec="deflate") and P19's 150,000
+     customers with write_hive_text under the run's temporary directory,
+     and the session's readers read each back once on the card (write
+     ms and file bytes; read ms split into the host decode, the host
+     build of the columns and the upload), equal to its input column for
+     column. Phase 3m plans TPC-H Q4 over the orders from read_avro and
+     P12's 5,999,580 lines as host numpy batches (P40 avro), and P19's
+     Q3 over the customers from read_hive_text and P19's orders and lines
+     as host numpy batches (P40 hive): one collect() each, counted, from
+     an emptied site cache, the file read inside the query, held to
+     q4_oracle and q3_types_oracle, beside its numpy-built twin (P12,
+     P19) counted the same way, every launch difference named; then the
+     query over the table read back against the twin, P40_RUNS runs in
+     turns, one synchronisation a run;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -433,7 +451,8 @@ plan's, the differences and the session timings) and phase 3d's (under
 "types_paths"), phase 3f's (under "strings_paths"), phase 3g's (under
 "windows_paths"), phase 3h's (under "nested_paths") and phase 3i's
 (under "adaptive_paths": choices, counters, round trips, placements,
-the cost constants, ms) and phase 3j's (under "governed_paths"), before
+the cost constants, ms), phase 3j's (under "governed_paths"), phase
+3l's (under "stage_paths") and phase 3m's (under "file_paths"), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
@@ -459,8 +478,10 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4223,15 +4244,19 @@ def q21_oracle(d, nation=Q21_NATION):
     return rows[:Q21_LIMIT]
 
 
-def q4_df(m, sess, batches, anti=False, sort=True):
-    """Q4 as a DataFrame query (how="left_semi", or "left_anti")."""
+def q4_df(m, sess, batches, anti=False, sort=True, frames=None):
+    """Q4 as a DataFrame query (how="left_semi", or "left_anti"); a table
+    in `frames` ({name: DataFrame}) replaces its batch."""
     col, pr, F = m.core.col, m.pred, m.F
-    orders = sess.from_batches([batches["orders"]],
-                               batches["orders"].schema).filter(pr.And(
+
+    def df(k):
+        if frames and k in frames:
+            return frames[k]
+        return sess.from_batches([batches[k]], batches[k].schema)
+    orders = df("orders").filter(pr.And(
         pr.GreaterThanOrEqual(col("o_orderdate"), date_lit(m, Q4_DATE)),
         pr.LessThan(col("o_orderdate"), date_lit(m, Q4_END))))
-    lines = sess.from_batches([batches["lineitem"]],
-                              batches["lineitem"].schema).filter(
+    lines = df("lineitem").filter(
         pr.LessThan(col("l_commitdate"), col("l_receiptdate")))
     q = orders.join(lines, left_on="o_orderkey", right_on="l_orderkey",
                     how="left_anti" if anti else "left_semi") \
@@ -4891,14 +4916,17 @@ def q3_types_tables(dj, q3d):
                          "l_shipdate": dj["l_shipdate"]}}
 
 
-def q3_types_df(m, sess, b):
+def q3_types_df(m, sess, b, frames=None):
     """P19: TPC-H Q3 (clause 2.4.3: SEGMENT BUILDING, DATE 1995-03-15):
     customer x orders x lineitem, revenue = sum(l_extendedprice *
     (1 - l_discount)) as decimal128 by (l_orderkey, o_orderdate,
-    o_shippriority), its top 10 by revenue desc, o_orderdate."""
+    o_shippriority), its top 10 by revenue desc, o_orderdate. A table in
+    `frames` ({name: DataFrame}) replaces its batch."""
     col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
 
     def df(k):
+        if frames and k in frames:
+            return frames[k]
         return sess.from_batches([b[k]], b[k].schema)
     cust = df("customer").filter(pr.EqualTo(col("c_mktsegment"),
                                             lit(Q3_SEGMENT)))
@@ -9436,6 +9464,317 @@ def drive_stage_budget(sm, dev, d3, q3_want, rec):
     return out
 
 
+# -- slice 18 (phase 3m): the file lane, P40 ---------------------------------
+
+P40_RUNS = 3             # timed runs of each P40 query and its twin, in turns
+P40_PATHS = ("P40 avro", "P40 hive")
+
+
+class SizedHostSource(HostSource):
+    """A HostSource with a planner estimate: the bytes of the same batch
+    on the card, so that the planner sizes a join side of host data as it
+    sizes the twin's in-memory batch."""
+
+    def __init__(self, schema, parts, device, nbytes):
+        super().__init__(schema, parts, device)
+        self._nbytes = nbytes
+
+    def estimated_size_bytes(self):
+        return self._nbytes
+
+
+def numpy_scan_df(sess, cols, twin, dev):
+    """A DataFrame over one host batch of the numpy columns `cols`, typed
+    and sized as the device batch `twin`: its scan builds the host columns
+    and uploads them in one packed copy each run."""
+    from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
+    from spark_rapids_tpu_torch.plan import logical as L
+    schema, n = twin.schema, twin.num_rows_host
+    cap = bucket_capacity(n)
+
+    def part():
+        return ([Column.from_numpy(np.asarray(cols[f.name]), f.data_type,
+                                   capacity=cap, device="cpu")
+                 for f in schema.fields], n)
+    return sess._df(L.LogicalScan(SizedHostSource(schema, [part], dev,
+                                                  twin.nbytes)))
+
+
+def same_table(label, got, want):
+    """The batches read back from a file, concatenated, against the batch
+    that was written, column for column on the card: every validity bit,
+    every valid fixed-width value, every string's offsets and bytes (the
+    written batch's dictionary columns decoded first)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.encoded import materialize_batch
+    from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+    got = got[0] if len(got) == 1 else concat_batches(got, want.schema)
+    want = materialize_batch(want)
+    n = want.num_rows_host
+    if got.num_rows_host != n or got.schema.names != want.schema.names:
+        raise AssertionError(f"{label}: read back {got.num_rows_host} rows "
+                             f"of {got.schema.names}, wrote {n} of "
+                             f"{want.schema.names}")
+    for f, a, b in zip(want.schema.fields, got.columns, want.columns):
+        va, vb = a.validity[:n], b.validity[:n]
+        same = torch.equal(va, vb)
+        if hasattr(b, "offsets"):
+            oa, ob = a.offsets[: n + 1].long(), b.offsets[: n + 1].long()
+            la, lb = int(oa[0]), int(ob[0])
+            same = same and torch.equal(oa - la, ob - lb) and torch.equal(
+                a.data[la: int(oa[n])], b.data[lb: int(ob[n])])
+        else:
+            same = same and torch.equal(
+                torch.where(va, a.data[:n], torch.zeros_like(a.data[:n])),
+                torch.where(vb, b.data[:n], torch.zeros_like(b.data[:n])))
+        if not same:
+            raise AssertionError(f"{label}: column {f.name} read back "
+                                 f"differs from the batch written")
+
+
+def file_inputs(dev, sm, dj, jb, q3d, tb, workdir):
+    """P40's files, written by the port's writers under `workdir` and read
+    back once through the session's readers on the card (set-up: phase 2
+    holds the kernels at the read-back tables' shapes): P40 avro, P12's
+    SF1 orders (all four columns) by `write_avro(path, codec="deflate")`;
+    P40 hive, P19's 150,000 customers by `write_hive_text`. Each read-back
+    equals its input column for column. Returns {path: record}, each with
+    the write ms and file bytes, the read ms split into the host decode,
+    the host build of the columns and the upload (the rest of the read's
+    wall, its copy waited for), and the read-back batches."""
+    import os
+    import torch
+    TpuSession = sm.session.TpuSession
+    sess = TpuSession(device=dev)
+    t = sm.t
+    cust = tb["q3"]["customer"]
+    tables = {
+        "P40 avro": (jb["orders"], os.path.join(workdir, "orders.avro"),
+                     lambda df, p: df.write_avro(p, codec="deflate"),
+                     lambda p: sess.read_avro(p)),
+        "P40 hive": (cust, os.path.join(workdir, "customer.txt"),
+                     lambda df, p: df.write_hive_text(p),
+                     lambda p: sess.read_hive_text(p, t.Schema(tuple(
+                         t.StructField(f.name, f.data_type)
+                         for f in cust.schema.fields))))}
+    out = {}
+    for label, (batch, path, write, read) in tables.items():
+        df = sess.from_batches([batch], batch.schema)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(df, path)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        src = read(path)._plan.source
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = list(src.batches())
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        st = dict(src.scan_stats)
+        same_table(label, back, batch)
+        places = {t.device.type for b in back for c in b.columns
+                  for t in c.leaves()}
+        if places != {torch.device(dev).type}:
+            raise AssertionError(f"{label}: read-back leaves on {places}, "
+                                 f"the session's device is {dev}")
+        decode_ms, build_ms = st["decode_ns"] / 1e6, st["build_ns"] / 1e6
+        rec = {"path": path, "rows": st["rows"], "batches": st["batches"],
+               "write_ms": write_ms, "file_bytes": os.path.getsize(path),
+               "read_ms": read_ms, "decode_ms": decode_ms,
+               "build_ms": build_ms,
+               "upload_ms": read_ms - decode_ms - build_ms,
+               "upload_enqueue_ms": st["upload_ns"] / 1e6,
+               "back": back, "schema": back[0].schema}
+        print(f"{label}: wrote {batch.num_rows_host} rows "
+              f"({', '.join(batch.schema.names)}) in {write_ms:.1f} ms, "
+              f"{rec['file_bytes']} bytes; read back {st['rows']} rows in "
+              f"{st['batches']} batch(es) in {read_ms:.1f} ms (host decode "
+              f"{decode_ms:.1f}, host build {build_ms:.1f}, upload "
+              f"{rec['upload_ms']:.1f}); equal to the input column for "
+              f"column")
+        out[label] = rec
+    return out
+
+
+def file_dfs(sm, dev, fi, dj, jb, q3d, tb):
+    """{P40 path: make(kind)} of the P40 queries. Kind "file" reads the
+    file through the session's reader (P40 avro's orders, P40 hive's
+    customers) beside the other tables as host numpy batches; "back" takes
+    the file's table as read back once (file_inputs) beside the same host
+    batches (phase 2 captures its kernels' inputs: the file's shapes,
+    without a second decode); "read" takes it beside the twin's device
+    batches; "twin" is the numpy-built twin (P12, P19), every table a
+    device batch."""
+    TpuSession = sm.session.TpuSession
+    q3 = tb["q3"]
+    q3np = q3_types_tables(dj, q3d)
+    lines = {k: dj[k] for k, _, _ in JOIN_TABLES["lineitem"]}
+
+    def table(sess, label, kind):
+        rec = fi[label]
+        if kind == "file":
+            return sess.read_avro(rec["path"]) if label == "P40 avro" \
+                else sess.read_hive_text(rec["path"], rec["schema"])
+        return sess.from_batches(rec["back"], rec["schema"])
+
+    def avro(kind):
+        sess = TpuSession(device=dev)
+        if kind == "twin":
+            return q4_df(sm, sess, jb)
+        frames = {"orders": table(sess, "P40 avro", kind)}
+        if kind != "read":
+            frames["lineitem"] = numpy_scan_df(sess, lines, jb["lineitem"],
+                                               dev)
+        return q4_df(sm, sess, jb, frames=frames)
+
+    def hive(kind):
+        sess = TpuSession(P19_CONF, dev)
+        if kind == "twin":
+            return q3_types_df(sm, sess, q3)
+        frames = {"customer": table(sess, "P40 hive", kind)}
+        if kind != "read":
+            frames.update({k: numpy_scan_df(sess, q3np[k], q3[k], dev)
+                           for k in ("orders", "lineitem")})
+        return q3_types_df(sm, sess, q3, frames=frames)
+    return {"P40 avro": avro, "P40 hive": hive}
+
+
+def compare_file_paths(dev, sm, fi, dj, jb, q3d, tb):
+    """Phase 2 at P40's own inputs: every murmur3 chain, probe and row
+    gather launch of a run of each P40 query (its file's table as read
+    back, the other tables as host numpy batches: phase 3m's shapes), each
+    held exactly to its plain version."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    dfs = file_dfs(sm, dev, fi, dj, jb, q3d, tb)
+    for label in P40_PATHS:
+        def fresh():
+            return planned(sm, dfs[label]("back"))[0]
+        gathers = capture_row_gathers(fresh())
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
+        del gathers
+        calls = capture_murmur3(fresh())
+        for k, (cols, seeds) in enumerate(calls):
+            _exact(f"murmur3 {label} call {k}",
+                   m3.murmur3_columns(cols, seeds),
+                   m3.murmur3_columns_plain(cols, seeds))
+        probes = capture_probes(fresh())
+        hits = [compare_probe(f"probe {label} call {k}", args, cap, total)
+                for k, (args, cap, total) in enumerate(probes)]
+        if not calls or not probes:
+            raise AssertionError(f"{label}: {len(calls)} murmur3 and "
+                                 f"{len(probes)} probe launches captured")
+        print(f"compare {label} main-path murmur3 launches ({len(calls)}) "
+              f"and probes ({len(probes)}, {sum(hits)} verified pairs); "
+              f"exact")
+
+
+def file_launch_notes(label, file_counts, twin_counts, batches):
+    """Each kernel whose launches on the file's run differ from the twin's,
+    named with what the file's table changes: its strings arrive as plain
+    StringColumns (the twin's dictionary columns take by code through
+    dict_gather), and its read's batches."""
+    notes = []
+    for name in sorted(file_counts):
+        a, b = file_counts[name], twin_counts[name]
+        if a == b:
+            continue
+        if name == "dict_gather" and a < b:
+            why = ("the twin's dictionary-encoded string filter takes by "
+                   "code; the file's plain strings compare bytes")
+        else:
+            why = (f"the file's table arrives as {batches} batch(es), the "
+                   f"twin's as one")
+        notes.append(f"{name} {a} (twin {b}): {why}")
+    return notes
+
+
+def drive_file_paths(dev, sm, fi, dj, jb, q3d, tb, wants):
+    """Phase 3m (P40): each P40 query planned at its twin's confs. The
+    twin's collect() and then the file query's, each from an emptied site
+    cache (cold: a join_agg stage pays its sizing pass in both), counted
+    (every launch counter at 0 just before, read just after, the host
+    reads by CUDA's sync debug mode), each held to its oracle; the file's
+    run reads its file inside the query. Then P40_RUNS timed pairs in
+    turns of the query over the table read back once ("read") against the
+    twin, one synchronisation a run. Returns (records, launches by
+    run)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import encoded
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    from spark_rapids_tpu_torch.obs import dispatch
+    dfs = file_dfs(sm, dev, fi, dj, jb, q3d, tb)
+    recs, launches = {}, {}
+    for label in P40_PATHS:
+        want = wants[label]
+        make = dfs[label]
+        counted = {}
+        for kind in ("twin", "file"):
+            dispatch.reset_site_cache()
+            stage_compiler.reset_stage_counters()
+            df = make(kind)
+            if kind == "file":
+                print(f"{label} explain:\n{df.explain()}")
+            m0 = encoded.counters()["materializations"]
+            t0 = time.perf_counter()
+            c, reads, st = p39_collect(f"{label} {kind}",
+                                       df, exact_rows(want))
+            ms = (time.perf_counter() - t0) * 1e3
+            st["materializations"] = \
+                encoded.counters()["materializations"] - m0
+            counted[kind] = (c, reads, st, ms, df)
+        fc, freads, fst, fms, fdf = counted["file"]
+        tc, treads, tst, tms, _ = counted["twin"]
+        idle = [k for k in Q_NEED if fc[k] < 1]
+        if idle:
+            raise AssertionError(f"{label}: kernels not launched: {idle} "
+                                 f"(counts {fc})")
+        src = fdf._plan
+        while not hasattr(src, "source"):
+            src = src.children[0]
+        scan = dict(src.source.scan_stats)
+        notes = file_launch_notes(label, fc, tc, scan["batches"])
+        launches[label.replace(" ", "_")] = fc
+        launches[label.replace(" ", "_") + "_twin"] = tc
+        ms = {"read": [], "twin": []}
+        runs = {"read": make("read"), "twin": make("twin")}
+        for i in range(P40_RUNS):
+            for kind in (("read", "twin") if i % 2 == 0
+                         else ("twin", "read")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = runs[kind].collect()
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+                exact_rows(want)(rows, f"{label} timed {kind}")
+        recs[label] = {
+            "rows": want, "file_run_ms": fms, "twin_run_ms": tms,
+            "file_scan": {k: scan[k] for k in ("rows", "batches")},
+            "file_scan_ms": {k.replace("_ns", "_ms"): scan[k] / 1e6
+                             for k in ("decode_ns", "build_ns",
+                                       "upload_ns")},
+            "launches": fc, "twin_launches": tc, "differences": notes,
+            "host_reads": freads, "twin_host_reads": treads,
+            "stages": fst, "twin_stages": tst, "ms": ms,
+            **{k: v for k, v in fi[label].items()
+               if k not in ("back", "schema")}}
+        print(f"{label}: rows equal to the oracle {want[:3]}...; the file's "
+              f"collect() {fms:.1f} ms (its read: {scan['rows']} rows in "
+              f"{scan['batches']} batch(es), host decode "
+              f"{scan['decode_ns'] / 1e6:.1f} ms, host build "
+              f"{scan['build_ns'] / 1e6:.1f} ms), the twin's {tms:.1f} ms; "
+              f"launches {fc}, twin {tc}; host reads {freads}, twin "
+              f"{treads}; dictionary columns decoded at a boundary "
+              f"{fst['materializations']}, twin "
+              f"{tst['materializations']}")
+        for note in notes:
+            print(f"  {label}: {note}")
+        print(f"{label} timed, the table read back against the twin, in "
+              f"turns: read {['%.2f' % v for v in ms['read']]} ms, twin "
+              f"{['%.2f' % v for v in ms['twin']]} ms")
+    return recs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -9513,8 +9852,17 @@ def main() -> int:
                                               strings_data(dj, q3d))
     t_nested = time.perf_counter()
     nest_m, nest_b, nest_checks = nested_inputs(dev, dj, q3d, d19)
-    print(f"setup: {time.perf_counter() - t0:.1f} s (data, oracles, plans; "
-          f"P29-P31's {time.perf_counter() - t_nested:.1f} s)")
+    t_files = time.perf_counter()
+    print(f"setup: {t_files - t0:.1f} s (data, oracles, plans; "
+          f"P29-P31's {t_files - t_nested:.1f} s)")
+    # P40's files (phase 3m drives the file lane): written by the port's
+    # writers under the run's temporary directory and read back once
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_p40_")
+    with default_conf_after():
+        files = file_inputs(dev, join_session_modules(), dj, jb, q3d, tb,
+                            workdir)
+    print(f"setup: P40's files written and read back in "
+          f"{time.perf_counter() - t_files:.1f} s")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
@@ -9670,6 +10018,11 @@ def main() -> int:
     # window and at the converted pass's one build
     with default_conf_after():
         compare_p38(pd38, jb["orders"], dev)
+    # P40's own inputs (phase 3m drives them): every murmur3 chain, probe
+    # and row gather launch of a run of each query over its file's table
+    with default_conf_after():
+        compare_file_paths(dev, join_session_modules(), files, dj, jb, q3d,
+                           tb)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -9971,6 +10324,15 @@ def main() -> int:
         stage_recs["q3 under P2's budget"] = drive_stage_budget(
             sm, dev, d3, q3_want, p2_rec)
     print(f"phase 3l: {time.perf_counter() - t_stage:.1f} s")
+
+    # -- phase 3m, slice 18: the file lane (P40) ----------------------------
+    t_files = time.perf_counter()
+    with default_conf_after():
+        file_recs, file_launches = drive_file_paths(
+            dev, join_session_modules(), files, dj, jb, q3d, tb,
+            {"P40 avro": q4_oracle(dj), "P40 hive": types_want["P19"]})
+    shutil.rmtree(workdir)
+    print(f"phase 3m: {time.perf_counter() - t_files:.1f} s")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -10278,7 +10640,8 @@ def main() -> int:
                for k, v in ad_counts.items()},
             **{k: v.get(r["name"], 0) for k, v in gov_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in stage_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in stage_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in file_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -10321,7 +10684,8 @@ def main() -> int:
                              ms=nested_ms),
         "adaptive_paths": dict(ad_recs, counts=ad_counts,
                                ms=adaptive_ms),
-        "governed_paths": gov_recs, "stage_paths": stage_recs}},
+        "governed_paths": gov_recs, "stage_paths": stage_recs,
+        "file_paths": file_recs}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

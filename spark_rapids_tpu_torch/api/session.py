@@ -41,10 +41,17 @@ ledger, the SLO percentiles, skew), `active_queries()` and
 operator metrics; the task-level roll-up (semaphore wait, retries, spill
 volumes) is the profile's `summary`.
 
-The other methods raise NotImplementedError naming their items: the
-pandas UDFs (A.8 wave 4: they go through pandas and pyarrow, which the
-machine with the card lacks), the other readers (A.8 wave 5) and the
-writers (Parquet's with A.5, the others with A.8 wave 5).
+The readers (`read_parquet`, `read_csv`, `read_json`, `read_orc`,
+`read_iceberg`, `read_avro`, `read_hive_text`) put their batches on the
+session's device; the writers (`write_*`) fetch the result once (Avro,
+Hive text and JSON through `collect()` or `to_pydict()`, the others
+through `to_arrow()`). Parquet, CSV, JSON, ORC and Iceberg go through
+pyarrow (the machine with the card has none: they run on the CPU until it
+does); Avro and Hive text are pure Python.
+
+The other methods raise NotImplementedError naming their items: Delta
+(`read_delta`, `write_delta`: A.8 wave 5b) and the pandas UDFs (A.8 wave
+4: they go through pandas and pyarrow).
 """
 
 from __future__ import annotations
@@ -172,26 +179,41 @@ class TpuSession:
         return self._df(L.LogicalScan(
             ParquetSource(path, self.conf, device=self.device)))
 
-    def read_csv(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_csv", "A.8 wave 5")
+    def read_csv(self, path, schema: Optional[Schema] = None,
+                 header: bool = True, **options) -> "DataFrame":
+        from ..io.csv import CsvSource
+        return self._df(L.LogicalScan(CsvSource(
+            path, self.conf, schema=schema, header=header,
+            device=self.device, **options)))
 
-    def read_json(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_json", "A.8 wave 5")
+    def read_json(self, path, schema: Optional[Schema] = None,
+                  **options) -> "DataFrame":
+        from ..io.json import JsonSource
+        return self._df(L.LogicalScan(JsonSource(
+            path, self.conf, schema=schema, device=self.device, **options)))
 
-    def read_orc(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_orc", "A.8 wave 5")
+    def read_orc(self, path, columns=None) -> "DataFrame":
+        from ..io.orc import OrcSource
+        return self._df(L.LogicalScan(OrcSource(
+            path, self.conf, columns=columns, device=self.device)))
 
-    def read_iceberg(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_iceberg", "A.8 wave 5")
+    def read_iceberg(self, path, snapshot_id=None) -> "DataFrame":
+        from ..io.iceberg import IcebergSource
+        return self._df(L.LogicalScan(IcebergSource(
+            path, self.conf, snapshot_id, device=self.device)))
 
-    def read_hive_text(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_hive_text", "A.8 wave 5")
+    def read_hive_text(self, path, schema, **options) -> "DataFrame":
+        from ..io.hivetext import HiveTextSource
+        return self._df(L.LogicalScan(HiveTextSource(
+            path, schema, self.conf, device=self.device, **options)))
 
-    def read_delta(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_delta", "A.8 wave 5")
+    def read_delta(self, path, version=None) -> "DataFrame":
+        _not_ported("read_delta", "A.8 wave 5b")
 
-    def read_avro(self, path, *args, **options) -> "DataFrame":
-        _not_ported("read_avro", "A.8 wave 5")
+    def read_avro(self, path, **options) -> "DataFrame":
+        from ..io.avro import AvroSource
+        return self._df(L.LogicalScan(AvroSource(
+            path, self.conf, device=self.device, **options)))
 
     def cancel_query(self) -> int:
         """Cooperatively cancel every query this session is running: each
@@ -626,29 +648,38 @@ class DataFrame:
     def logical_plan(self) -> L.LogicalPlan:
         return self._plan
 
-    def write_parquet(self, path, partition_by=None):
-        _not_ported("write_parquet", "A.5")
+    def write_parquet(self, path,
+                      partition_by: Optional[Sequence[str]] = None):
+        from ..io.parquet import write_parquet
+        write_parquet(self, path, partition_by=partition_by)
 
-    def write_csv(self, path, *args, **options):
-        _not_ported("write_csv", "A.8 wave 5")
+    def write_csv(self, path, header: bool = True, delimiter: str = ","):
+        from ..io.csv import write_csv
+        write_csv(self, path, header=header, delimiter=delimiter)
 
-    def write_json(self, path, *args, **options):
-        _not_ported("write_json", "A.8 wave 5")
+    def write_json(self, path):
+        from ..io.json import write_json
+        write_json(self, path)
 
-    def write_orc(self, path, *args, **options):
-        _not_ported("write_orc", "A.8 wave 5")
+    def write_orc(self, path):
+        from ..io.orc import write_orc
+        write_orc(self, path)
 
-    def write_avro(self, path, *args, **options):
-        _not_ported("write_avro", "A.8 wave 5")
+    def write_avro(self, path, codec: str = "deflate"):
+        from ..io.avro import write_avro
+        write_avro(self, path, codec=codec)
 
-    def write_delta(self, path, *args, **options):
-        _not_ported("write_delta", "A.8 wave 5")
+    def write_delta(self, path, mode: str = "append",
+                    partition_by: Optional[Sequence[str]] = None):
+        _not_ported("write_delta", "A.8 wave 5b")
 
-    def write_iceberg(self, path, *args, **options):
-        _not_ported("write_iceberg", "A.8 wave 5")
+    def write_iceberg(self, path, mode: str = "append"):
+        from ..io.iceberg import write_iceberg
+        write_iceberg(self, path, mode=mode)
 
-    def write_hive_text(self, path, *args, **options):
-        _not_ported("write_hive_text", "A.8 wave 5")
+    def write_hive_text(self, path, **options):
+        from ..io.hivetext import write_hive_text
+        write_hive_text(self, path, **options)
 
     def _with(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self.session)

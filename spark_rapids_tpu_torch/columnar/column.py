@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..types import (ArrayType, BinaryType, DataType, DecimalType, MapType,
-                     StringType, StructType)
+                     NullType, StringType, StructType)
 
 #: minimum capacity bucket (the JAX package's TPU lane width, kept so the
 #: two packages pad identically)
@@ -761,10 +761,11 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
     host columns with device="cpu"). A dictionary array of strings stays
     a DictionaryColumn when `encoded` (default: the active conf's
     spark.rapids.tpu.scan.encoded.enabled), else
-    it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane, a list
-    array an ArrayColumn, a struct array a StructColumn, a map array a
-    MapColumn; decimal128 arrays wait for ROADMAP A.5, the null type for
-    A.8."""
+    it decodes. DECIMAL(p<=18) becomes its unscaled int64 lane, a wider
+    decimal a Decimal128Column (two int64 limbs), a list array an
+    ArrayColumn, a struct array a StructColumn, a map array a MapColumn,
+    and a null array a column of the null type (int8 zeros, every row
+    null), as in the JAX package."""
     import pyarrow as pa
     from ..types import BOOLEAN, from_arrow
     if isinstance(arr, pa.ChunkedArray):
@@ -821,10 +822,15 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
         return ArrayColumn(child, torch.from_numpy(off).to(dev),
                            torch.from_numpy(_pad_np(validity, cap, False))
                            .to(dev), dt)
+    if isinstance(dt, NullType):
+        cap = bucket_capacity(max(n, 1))
+        dev = resolve_device(device)
+        return Column(torch.zeros(cap, dtype=torch.int8, device=dev),
+                      torch.zeros(cap, dtype=torch.bool, device=dev), dt)
     if isinstance(dt, DecimalType):
         if dt.is_decimal128:
-            raise NotImplementedError(
-                f"{dt!r} arrow arrays (decimal128) wait for ROADMAP A.5")
+            return Decimal128Column.from_pylist(arr.to_pylist(), dt,
+                                                device=device)
         conv = _logical_to_physical(dt)
         dense = np.array([0 if v is None else conv(v)
                           for v in arr.to_pylist()], dtype=np.int64)
@@ -838,13 +844,12 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
 
 def column_to_arrow(col: Column, num_rows: int):
     """A host column's first `num_rows` rows as a pyarrow array (a
-    DECIMAL(p<=18) as decimal.Decimal values; decimal128 waits for
-    ROADMAP A.5)."""
+    DECIMAL, either lane, as decimal.Decimal values; the null type as a
+    null array)."""
     import pyarrow as pa
     from ..types import to_arrow
-    if isinstance(col, Decimal128Column):
-        raise NotImplementedError(
-            f"{col.dtype!r} arrow arrays (decimal128) wait for ROADMAP A.5")
+    if isinstance(col.dtype, NullType):
+        return pa.nulls(num_rows)
     if isinstance(col, (StructColumn, MapColumn)):
         return pa.array(_arrow_values(col, col.to_pylist(num_rows)),
                         type=to_arrow(col.dtype))

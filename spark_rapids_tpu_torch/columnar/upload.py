@@ -36,8 +36,12 @@ consumer calls `await_upload` before its first use: its stream waits on
 the event, and the one device buffer is recorded on its stream for the
 caching allocator.
 
-Every failure raises: there is no per-buffer lane to fall back to.
-Every column kind packs by its leaves (a decimal128 column as its two
+spark.rapids.tpu.transfer.packedUpload.enabled=false (read from the
+active conf at each upload) selects the per-buffer lane instead, as in
+the JAX package: one copy per leaf of every column, no staging pack
+(`per_buffer_upload_batch`; the `per_buffer` counter). The two lanes give
+the same batch. Every failure raises: neither lane falls back to the
+other. Every column kind packs by its leaves (a decimal128 column as its two
 limbs, a list column as its child's leaves, offsets and validity, a
 struct as its children's leaves and validity, a map as its keys' and
 values' leaves, offsets and validity). Not ported by design: the TPU's double-double
@@ -57,21 +61,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import BATCH_SIZE_BYTES, UPLOAD_POOL_BYTES, active_conf
+from ..config import (BATCH_SIZE_BYTES, UPLOAD_PACKED, UPLOAD_POOL_BYTES,
+                      active_conf)
 from .column import Column, resolve_device
 from .transfer import (HEADER_BYTES, column_layout, layout_nbytes,
                        leaf_bytes, padded, unpack_columns)
 
 __all__ = [
     "StagingPool", "staging_pool", "reset_staging_pool", "configure",
-    "counters", "pack_host_batch", "packed_upload_batch", "to_device_batch",
+    "counters", "pack_host_batch", "packed_upload_batch",
+    "per_buffer_upload_batch", "to_device_batch",
     "promote_batch", "promote_stream", "upload_leaves", "metric_sink",
     "upload_stream", "await_upload",
 ]
 
 _COUNTER_LOCK = threading.Lock()
-_COUNTERS = {"uploads": 0, "transfers": 0, "bytes": 0, "pack_ns": 0,
-             "pool_hits": 0, "pool_misses": 0}
+_COUNTERS = {"uploads": 0, "packed": 0, "per_buffer": 0, "transfers": 0,
+             "bytes": 0, "pack_ns": 0, "pool_hits": 0, "pool_misses": 0}
 
 
 def _note(**deltas) -> None:
@@ -271,9 +277,12 @@ _PRESIZED_FOR: Optional[Tuple[int, int]] = None
 def configure(conf=None) -> None:
     """Pre-size the process pool's ladder of buckets from
     spark.rapids.sql.batchSizeBytes within packedUpload.poolBytes, once
-    per pair of values (poolBytes 0: no pool, nothing to do)."""
+    per pair of values (poolBytes 0: no pool, nothing to do; the
+    per-buffer lane stages nothing)."""
     global _PRESIZED_FOR
     conf = conf if conf is not None else active_conf()
+    if not conf.get(UPLOAD_PACKED):
+        return
     cap = max(int(conf.get(UPLOAD_POOL_BYTES)), 0)
     if cap <= 0:
         return
@@ -322,10 +331,12 @@ def await_upload(batch):
     if pending is None:
         return batch
     batch._upload = None
-    event, buf = pending
-    cur = torch.cuda.current_stream(buf.device)
+    event, bufs = pending
+    bufs = bufs if isinstance(bufs, (list, tuple)) else (bufs,)
+    cur = torch.cuda.current_stream(bufs[0].device)
     cur.wait_event(event)
-    buf.record_stream(cur)
+    for buf in bufs:
+        buf.record_stream(cur)
     return batch
 
 
@@ -396,15 +407,17 @@ def metric_sink(num_metric, time_metric):
         _TLS.sink = prev
 
 
-def _record(nbytes: int, pack_ns: int, seam: str = "scan") -> None:
-    _note(uploads=1, transfers=1, bytes=nbytes, pack_ns=pack_ns)
+def _record(nbytes: int, pack_ns: int, seam: str = "scan",
+            lane: str = "packed", transfers: int = 1) -> None:
+    _note(uploads=1, transfers=transfers, bytes=nbytes, pack_ns=pack_ns,
+          **{lane: 1})
     sink = getattr(_TLS, "sink", None)
     if sink is not None:
         sink[0].add(1)
         sink[1].add(pack_ns)
     from ..obs import events as obs_events
-    obs_events.emit("upload", lane="packed", seam=seam, bytes=nbytes,
-                    transfers=1, pack_ns=pack_ns)
+    obs_events.emit("upload", lane=lane, seam=seam, bytes=nbytes,
+                    transfers=transfers, pack_ns=pack_ns)
 
 
 def _one_transfer(pool: StagingPool, buf: torch.Tensor, total: int,
@@ -453,8 +466,42 @@ def packed_upload_batch(cols: Sequence[Column], n: int, schema,
     return batch
 
 
-#: the JAX package's name for the conf-gated entry; the port has one lane
-to_device_batch = packed_upload_batch
+def per_buffer_upload_batch(cols: Sequence[Column], n: int, schema,
+                            device=None):
+    """Host columns as a batch on `device`, one copy per leaf (the JAX
+    package's `_per_buffer_batch`): no staging pack, no pool."""
+    from .batch import ColumnarBatch
+    from .. import faults
+    t0 = time.perf_counter_ns()
+    dev = resolve_device(device)
+    faults.check("device.dispatch")
+    out_cols, bufs, nbytes = [], [], 0
+    for c in cols:
+        leaves = []
+        for leaf in c.leaves():
+            out = leaf.to(dev, non_blocking=True)
+            nbytes += leaf.numel() * leaf.element_size()
+            leaves.append(out)
+        bufs.extend(leaves)
+        out_cols.append(type(c).from_leaves(c.dtype, leaves))
+    batch = ColumnarBatch(out_cols, n, schema, host_rows=n)
+    if dev.type == "cuda" and torch.cuda.current_stream(dev) \
+            != torch.cuda.default_stream(dev):
+        event = torch.cuda.Event()
+        event.record()
+        batch._upload = (event, bufs)
+    _record(nbytes, time.perf_counter_ns() - t0, lane="per_buffer",
+            transfers=len(bufs))
+    return batch
+
+
+def to_device_batch(cols: Sequence[Column], n: int, schema, device=None):
+    """Host columns as a batch on `device`, on the lane the active conf
+    selects: packed (one copy) unless
+    spark.rapids.tpu.transfer.packedUpload.enabled is false."""
+    if active_conf().get(UPLOAD_PACKED):
+        return packed_upload_batch(cols, n, schema, device)
+    return per_buffer_upload_batch(cols, n, schema, device)
 
 
 def promote_batch(batch, device=None):

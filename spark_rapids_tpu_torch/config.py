@@ -28,9 +28,13 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.shuffle.devicePartition.enabled` | A.6 (the host split) | true |
 | `tpu.shuffle.deadPeerInvalidation.enabled` | A.6 (heartbeats) | any: no peers on one card |
 | `tpu.shuffle.planExchange` | A.6 (the mesh planner) | any: there is no mesh, as in the JAX package without one |
-| `tpu.transfer.packedUpload.enabled` | A.5 (the per-buffer upload) | true |
-| `sql.format.parquet.datetimeRebaseModeInRead` | A.8 (LEGACY rebase) | CORRECTED |
 | `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
+
+The ingest reads `tpu.transfer.packedUpload.enabled` at each upload
+(columnar/upload.to_device_batch: false selects the per-buffer lane) and
+`sql.format.parquet.datetimeRebaseModeInRead` when a Parquet source is
+built (io/parquet.ParquetSource: LEGACY rebases its dates and
+timestamps), as the JAX package does.
 
 The stage compiler reads `tpu.stage.fusion.enabled` (TpuOverrides.apply,
 and the plan fingerprint's conf digest) and the program-site cache reads
@@ -989,8 +993,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     SHUFFLE_DEVICE_PARTITION.key: ("ROADMAP A.6", ()),
     DEAD_PEER_INVALIDATION_ENABLED.key: ("ROADMAP A.6", _ANY),
     SHUFFLE_PLAN_EXCHANGE.key: ("ROADMAP A.6", _ANY),
-    UPLOAD_PACKED.key: ("ROADMAP A.5", ()),
-    PARQUET_REBASE_MODE_READ.key: ("ROADMAP A.8", ()),
     DEBUG_DUMP_PATH.key: ("ROADMAP A.9c (utils/dump.py)", ()),
 }
 

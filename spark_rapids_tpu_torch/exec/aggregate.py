@@ -155,10 +155,14 @@ class AggregateExec(TpuExec):
 
         # whole-stage fusion: inline the upstream filter/project chain
         # into this operator's per-batch step (masked buckets only: the
-        # string route reads its child's batches)
+        # string route reads its child's batches). The chain ends below a
+        # step that holds a Python UDF (ROADMAP C.18): folded, it would be
+        # called on the rows a filter under it only masked
+        from .stage_compiler import holds_python_udf
         steps, node = [], child
         while self._fusion_enabled and self._masked_ok \
-                and hasattr(node, "fused_step"):
+                and hasattr(node, "fused_step") \
+                and not holds_python_udf(node):
             steps.append(node.fused_step())
             node = node.child
         self._fused_steps = list(reversed(steps))

@@ -36,7 +36,12 @@ one replay. On the CPU a site calls the body: the same bodies, eagerly.
      the stage boundary. With the exact aggregate the probe is the
      graphed step and the aggregate's update runs eagerly after it.
 
-   Other operators break a stage and keep their execs.
+   Other operators break a stage and keep their execs, and so does a
+   filter, projection or expand that holds a Python UDF (ROADMAP C.18):
+   folded into a chain, the UDF would be called on the rows an earlier
+   filter only masked. It runs as its own exec over its child's
+   compacted output, and no chain reaches past it; the aggregate's
+   absorption stops there too (`AggregateExec`).
 
 2. **The program cache.** Sites are built through `TpuExec._site` with
    the owner's plan fingerprint (`fingerprint_node`: class x semantic
@@ -351,6 +356,16 @@ def _host_expression(e) -> bool:
     if isinstance(e, PythonUDF):
         return True
     return any(_host_expression(c) for c in e.children)
+
+
+def holds_python_udf(node) -> bool:
+    """True when a fusable operator's step evaluates a Python UDF: such a
+    node ends every chain below it (ROADMAP C.18), since a chain masks its
+    filters and compacts only at its end."""
+    def flat(x):
+        return [e for y in x for e in flat(y)] \
+            if isinstance(x, (list, tuple)) else [x]
+    return any(_host_expression(e) for e in flat(node.stage_step()[1]))
 
 
 def _note_ineligible(cause: str) -> None:
@@ -1026,10 +1041,11 @@ def _try_stage(node: TpuExec) -> Optional[CompiledStageExec]:
                 sources=[src], agg=node)
         return None
     fusable = (FilterExec, ProjectExec, ExpandExec)
-    if type(node) in fusable:
+    if type(node) in fusable and not holds_python_udf(node):
         chain = [node]
         cur = node
-        while type(cur.children[0]) in fusable:
+        while type(cur.children[0]) in fusable \
+                and not holds_python_udf(cur.children[0]):
             cur = cur.children[0]
             chain.append(cur)
         if len(chain) >= 2:

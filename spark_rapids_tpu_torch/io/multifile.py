@@ -135,3 +135,41 @@ def arrow_to_batches(table, target_rows: int, device=None,
     for start in range(0, n, target_rows):
         yield ColumnarBatch.from_arrow(table.slice(start, target_rows),
                                        device, encoded)
+
+
+def host_batch_upload(data: dict, schema, device, stats: Optional[dict] = None
+                      ) -> ColumnarBatch:
+    """Python lists by column name (None for null) as one batch on
+    `device`: the columns are built on the host at one capacity bucket
+    and cross in one packed upload (columnar/upload.to_device_batch), as
+    an arrow table's do. `stats`, when given, gains the host build's and
+    the upload's ns (`build_ns`, `upload_ns`)."""
+    import time
+    from ..columnar.column import bucket_capacity, build_column
+    from ..columnar.upload import to_device_batch
+    t0 = time.perf_counter_ns()
+    lengths = {len(v) for v in data.values()} or {0}
+    if len(lengths) != 1:
+        raise ValueError("ragged input columns")
+    n = lengths.pop()
+    cap = bucket_capacity(n)
+    cols = [build_column(data[f.name], f.data_type, cap, "cpu")
+            for f in schema.fields]
+    t1 = time.perf_counter_ns()
+    batch = to_device_batch(cols, n, schema, device)
+    if stats is not None:
+        stats["build_ns"] = stats.get("build_ns", 0) + t1 - t0
+        stats["upload_ns"] = stats.get("upload_ns", 0) \
+            + time.perf_counter_ns() - t1
+    return batch
+
+
+def need_pyarrow(what: str, module: str = "pyarrow"):
+    """`module` imported, or ImportError naming pyarrow: the readers and
+    writers that go through pyarrow have no other lane."""
+    import importlib
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(f"{what} needs pyarrow ({module}), which is not "
+                          f"installed") from e

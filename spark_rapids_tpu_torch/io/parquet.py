@@ -20,10 +20,19 @@ spark.rapids.sql.multiThreadedRead.numThreads, `reader_type` from
 spark.rapids.sql.format.parquet.reader.type and `encoded` from
 spark.rapids.tpu.scan.encoded.enabled.
 
-pyarrow is imported only when a reader is built, so the package imports
-without it; building one without pyarrow raises ImportError. Waiting for
-their slices: the writer (`write_parquet`, ROADMAP A.5) and the LEGACY
-datetime rebase on read (ROADMAP A.8).
+With spark.rapids.sql.format.parquet.datetimeRebaseModeInRead=LEGACY
+(read when the source is built) the files are taken as written in the
+hybrid Julian calendar: every DATE and TIMESTAMP column is rebased to proleptic
+Gregorian on the device (ops/rebase.py), and footer statistics prune
+nothing (they hold hybrid day numbers, the pushed literals proleptic
+ones), as in the JAX package.
+
+`write_parquet` writes `df.to_arrow()` (one fetch a batch) as one file,
+or as a hive-partitioned directory by `partition_by`.
+
+pyarrow is imported only when a reader or the writer is built, so the
+package imports without it; building one without pyarrow raises
+ImportError naming pyarrow.
 """
 
 from __future__ import annotations
@@ -31,12 +40,16 @@ from __future__ import annotations
 import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import torch
+
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import resolve_device
 from ..types import Schema, StructField
-from ..config import (MULTITHREADED_READ_NUM_THREADS, PARQUET_READER_TYPE,
+from ..config import (MULTITHREADED_READ_NUM_THREADS,
+                      PARQUET_READER_TYPE, PARQUET_REBASE_MODE_READ,
                       SCAN_ENCODED, active_conf)
-from .multifile import arrow_to_batches, expand_paths, threaded_chunks
+from .multifile import (arrow_to_batches, expand_paths, need_pyarrow,
+                        threaded_chunks)
 
 READER_TYPES = ("MULTITHREADED", "COALESCING", "PERFILE")
 #: rows per emitted batch
@@ -47,12 +60,7 @@ _PRUNE_OPS = ("<", "<=", ">", ">=", "==", "is_null", "is_not_null")
 
 
 def _parquet():
-    try:
-        import pyarrow.parquet as pq
-    except ImportError as e:
-        raise ImportError("the Parquet reader needs pyarrow, which is not "
-                          "installed") from e
-    return pq
+    return need_pyarrow("the Parquet reader", "pyarrow.parquet")
 
 
 def _stats_can_skip(stats, op: str, value) -> bool:
@@ -116,6 +124,8 @@ class ParquetSource:
                              f"{READER_TYPES}")
         self.encoded = conf.get(SCAN_ENCODED) if encoded is None \
             else encoded
+        self.legacy_rebase = \
+            conf.get(PARQUET_REBASE_MODE_READ).upper() == "LEGACY"
         self.device = resolve_device(device)
         arrow_schema = pq.read_schema(self.paths[0])
         fields = []
@@ -185,17 +195,24 @@ class ParquetSource:
         return False
 
     def batches(self) -> Iterator[ColumnarBatch]:
+        yield from self._maybe_rebase(self._decoded_batches())
+
+    def _decoded_batches(self) -> Iterator[ColumnarBatch]:
         pq = _parquet()
         tasks = []
         self.scan_stats["row_groups_read"] = 0
         self.scan_stats["row_groups_pruned"] = 0
+        # LEGACY: the footer's statistics are hybrid-Julian day numbers
+        # and the pushed literals proleptic-Gregorian, so comparing them
+        # could prune a group whose rebased rows match: no pruning
+        may_prune = bool(self.filters) and not self.legacy_rebase
         read_dict = self._read_dictionary()
         for p in self.paths:
             md = pq.ParquetFile(p).metadata
             name_to_idx = {md.schema.column(i).name: i
                            for i in range(md.num_columns)}
             for rg in range(md.num_row_groups):
-                if self.filters and self._group_pruned(md, rg, name_to_idx):
+                if may_prune and self._group_pruned(md, rg, name_to_idx):
                     self.scan_stats["row_groups_pruned"] += 1
                     continue
                 self.scan_stats["row_groups_read"] += 1
@@ -216,6 +233,36 @@ class ParquetSource:
             yield from arrow_to_batches(table, self.batch_rows, self.device,
                                         self.encoded)
 
+    def _maybe_rebase(self, batches: Iterator[ColumnarBatch]
+                      ) -> Iterator[ColumnarBatch]:
+        """LEGACY datetimeRebaseModeInRead: files written in the hybrid
+        Julian calendar get their DATE and TIMESTAMP columns rebased to
+        proleptic Gregorian on the device (reference datetimeRebaseUtils
+        and the JNI DateTimeRebase; ops/rebase.py). The same flag turned
+        off the statistics pruning, so the two cannot disagree."""
+        if not self.legacy_rebase:
+            yield from batches
+            return
+        from ..columnar.column import Column
+        from ..ops.rebase import (rebase_julian_to_gregorian_days,
+                                  rebase_julian_to_gregorian_micros)
+        from ..types import DateType, TimestampNTZType, TimestampType
+        for b in batches:
+            cols = []
+            for c, f in zip(b.columns, b.schema.fields):
+                if isinstance(f.data_type, DateType):
+                    cols.append(Column(rebase_julian_to_gregorian_days(
+                        c.data.to(torch.int64)).to(c.data.dtype),
+                        c.validity, c.dtype))
+                elif isinstance(f.data_type,
+                                (TimestampType, TimestampNTZType)):
+                    cols.append(Column(
+                        rebase_julian_to_gregorian_micros(c.data),
+                        c.validity, c.dtype))
+                else:
+                    cols.append(c)
+            yield b.with_columns(cols, b.schema)
+
     def _coalescing_drive(self, tasks) -> Iterator[ColumnarBatch]:
         """Decoded row groups stitched on the host into tables of about
         batch_rows before the upload (reference COALESCING reader,
@@ -235,3 +282,26 @@ class ParquetSource:
             yield from arrow_to_batches(pa.concat_tables(pending),
                                         self.batch_rows, self.device,
                                         self.encoded)
+
+
+def write_parquet(df, path, partition_by: Optional[Sequence[str]] = None):
+    """DataFrame -> a Parquet file, or a directory when `path` is one or
+    ends in "/", or a hive-partitioned directory by `partition_by`; the
+    table comes from `df.to_arrow()` (one fetch a batch)."""
+    pq = need_pyarrow("the Parquet writer", "pyarrow.parquet")
+    table = df.to_arrow()
+    if not partition_by:
+        if os.path.isdir(path) or str(path).endswith("/"):
+            os.makedirs(path, exist_ok=True)
+            pq.write_table(table, os.path.join(path, "part-00000.parquet"))
+        else:
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            pq.write_table(table, path)
+        return
+    ds = need_pyarrow("the Parquet writer", "pyarrow.dataset")
+    os.makedirs(path, exist_ok=True)
+    ds.write_dataset(table, path, format="parquet",
+                     partitioning=list(partition_by),
+                     partitioning_flavor="hive",
+                     existing_data_behavior="overwrite_or_ignore")

@@ -10,7 +10,7 @@ century leap days and the 1582-10-15 cutover.
 The breakpoint table is generated once from the standard JDN formulas
 (no data files), as in the JAX package, and moved to the device; the
 kernel is a searchsorted and an add. The Parquet reader's LEGACY mode
-that would call it waits for ROADMAP A.5.
+calls it (io/parquet.ParquetSource).
 """
 
 from __future__ import annotations

@@ -64,8 +64,7 @@ from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
                                bucket_capacity)
 from ..native import lz4_compress, lz4_decompress, xxh64
 from ..types import (LONG, ArrayType, BinaryType, DecimalType, MapType,
-                     Schema, StructType,
-                     StringType)
+                     NullType, Schema, StringType, StructType)
 
 __all__ = [
     "MAGIC", "VERSION", "CODEC_COPY", "CODEC_LZ4", "CorruptFrameError",
@@ -204,12 +203,11 @@ def _decode_column(dtype, n: int, bufs: List[bytes], pos: int,
         lo, pos = _decode_column(LONG, n, bufs, pos, capacity)
         return Decimal128Column((hi, lo), torch.from_numpy(vpad),
                                 dtype), pos
-    if dtype.torch_dtype is None:
-        raise NotImplementedError(
-            f"{dtype} columns wait for their slice (ROADMAP A.8)")
-    data = np.frombuffer(bufs[pos], dtype=dtype.np_dtype)
+    # the null type's lane is int8 zeros under an all-null validity
+    np_dtype = np.int8 if isinstance(dtype, NullType) else dtype.np_dtype
+    data = np.frombuffer(bufs[pos], dtype=np_dtype)
     pos += 1
-    dpad = np.zeros(capacity, dtype.np_dtype)
+    dpad = np.zeros(capacity, np_dtype)
     dpad[:n] = data
     return Column(torch.from_numpy(dpad), torch.from_numpy(vpad),
                   dtype), pos

@@ -289,8 +289,8 @@ class Schema:
 
 def from_arrow(at) -> DataType:
     """A pyarrow type as the engine's (a dictionary type as its value
-    type: the encoding is the column's layout, not its type). The null
-    type raises, naming ROADMAP A.8."""
+    type: the encoding is the column's layout, not its type; the null
+    type as NULL)."""
     import pyarrow as pa
     checks = ((pa.types.is_boolean, BOOLEAN), (pa.types.is_int8, BYTE),
               (pa.types.is_int16, SHORT), (pa.types.is_int32, INT),
@@ -316,8 +316,9 @@ def from_arrow(at) -> DataType:
                                 for f in at))
     if pa.types.is_map(at):
         return MapType(from_arrow(at.key_type), from_arrow(at.item_type))
-    raise NotImplementedError(
-        f"arrow type {at}: the null type waits for its slice (ROADMAP A.8)")
+    if pa.types.is_null(at):
+        return NULL
+    raise TypeError(f"unsupported arrow type {at}")
 
 
 def to_arrow(dt: DataType):
@@ -338,7 +339,8 @@ def to_arrow(dt: DataType):
                           for f in dt.fields])
     if isinstance(dt, MapType):
         return pa.map_(to_arrow(dt.key_type), to_arrow(dt.value_type))
+    if isinstance(dt, NullType):
+        return pa.null()
     if out is None:
-        raise NotImplementedError(f"{dt!r}: the null type waits for its "
-                                  f"slice (ROADMAP A.8)")
+        raise TypeError(f"unsupported type {dt!r}")
     return out

@@ -79,9 +79,11 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.pallas.fusedTier", "off", "no tier switch"),
     ("spark.rapids.tpu.shuffle.ici.enabled", "true", "A.6"),
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
-    ("spark.rapids.tpu.transfer.packedUpload.enabled", "false", "A.5"),
-    ("spark.rapids.sql.format.parquet.datetimeRebaseModeInRead", "LEGACY",
-     "A.8"),
+    # packedUpload.enabled=false (A.5) and the LEGACY rebase (A.8) are
+    # honoured since the formats landed (test_torch_formats.py holds them
+    # to the JAX package); the dump path still waits for A.9c
+    ("spark.rapids.sql.debug.dumpPath", "/tmp/dump", "A.9c"),
+    ("spark.rapids.sql.exchange.roundBytes", "1024", "A.6"),
 ])
 def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
                                                                 item):
@@ -115,9 +117,22 @@ def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
     ("spark.rapids.tpu.history.enabled", "true"),
     ("spark.rapids.tpu.shuffle.speculation.enabled", "true"),
     ("spark.rapids.tpu.dispatch.timeoutMs", "100"),
+    # the ingest's two (columnar/upload.py, io/parquet.py)
+    ("spark.rapids.tpu.transfer.packedUpload.enabled", "false"),
+    ("spark.rapids.sql.format.parquet.datetimeRebaseModeInRead", "LEGACY"),
 ])
 def test_values_the_port_honours_are_accepted(key, value):
     tconfig.RapidsConf({key: value})
+
+
+@pytest.mark.parametrize("name", ["UPLOAD_PACKED",
+                                  "PARQUET_REBASE_MODE_READ"])
+def test_the_ingest_entries_are_read(name):
+    entry = getattr(tconfig, name)
+    assert entry.key not in tconfig._UNREAD
+    sources = "\n".join(p.read_text() for p in PORT.rglob("*.py")
+                        if p.name != "config.py")
+    assert name in sources
 
 
 #: the entries the adaptive read plan, the lineage recovery, the

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: in a fresh interpreter where `jax`,
 `spark_rapids_tpu` and `pyarrow` cannot be imported (the machine with the
 card has no pyarrow), every module of the port and chip_smoke.py import,
-the Parquet reader raises a clear ImportError only when it is called, and
+the Parquet, CSV, JSON, ORC and Iceberg readers raise a clear ImportError
+only when they are called, Avro and Hive text write and read, and
 an entry point asked for no device raises when there is no card instead
 of falling back to the CPU."""
 
@@ -51,8 +52,10 @@ governance = ["faults", "exec.task_retry", "exec.lifecycle",
               "obs.phase", "obs.span", "obs.dispatch", "obs.stats",
               "obs.telemetry", "obs.profile", "utils.tracing"]
 shield = ["exec.speculation_shield", "obs.history"]
+formats = ["io.avro", "io.hivetext", "io.csv", "io.json", "io.orc",
+           "io.orc_meta", "io.iceberg"]
 missing = [m for m in q3 + q19 + ingest + strings + windows_arrays + nested
-           + wave4 + governance + shield
+           + wave4 + governance + shield + formats
            if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
@@ -70,6 +73,34 @@ except ImportError as e:
     print("PARQUET", e)
 else:
     raise AssertionError("ParquetSource without pyarrow must raise")
+
+from spark_rapids_tpu_torch.io import csv, iceberg, json, orc
+for make in (lambda: csv.CsvSource("any.csv", device="cpu"),
+             lambda: json.JsonSource("any.json", device="cpu"),
+             lambda: orc.OrcSource("any.orc", device="cpu"),
+             lambda: iceberg.IcebergSource("any", device="cpu")):
+    try:
+        make()
+    except ImportError as e:
+        assert "pyarrow" in str(e), e
+    else:
+        raise AssertionError("a pyarrow reader without pyarrow must raise")
+print("FORMATS pyarrow readers raise")
+
+# Avro and Hive text are pure Python: they run without pyarrow
+import os, tempfile
+from spark_rapids_tpu_torch.api.session import TpuSession
+from spark_rapids_tpu_torch.types import LONG, STRING, Schema, StructField
+sch = Schema((StructField("k", LONG), StructField("s", STRING)))
+sess = TpuSession(device="cpu")
+df = sess.from_pydict({"k": [1, None], "s": ["a", None]}, sch)
+with tempfile.TemporaryDirectory() as d:
+    df.write_avro(os.path.join(d, "t.avro"))
+    df.write_hive_text(os.path.join(d, "t.txt"))
+    assert sess.read_avro(os.path.join(d, "t.avro")).collect() == \
+        sess.read_hive_text(os.path.join(d, "t.txt"), sch).collect() == \
+        [(1, "a"), (None, None)]
+print("PURE avro and hive text")
 
 import numpy as np
 import torch
@@ -93,6 +124,8 @@ def test_port_imports_without_jax_and_refuses_implicit_cpu():
     assert n >= 20, proc.stdout
     assert "RAISED" in proc.stdout
     assert "PARQUET the Parquet reader needs pyarrow" in proc.stdout
+    assert "FORMATS pyarrow readers raise" in proc.stdout
+    assert "PURE avro and hive text" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

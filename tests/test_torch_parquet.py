@@ -22,7 +22,8 @@ from spark_rapids_tpu_torch import types as tt
 from spark_rapids_tpu_torch.columnar import encoded as tenc
 from spark_rapids_tpu_torch.columnar import upload
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch as TBatch
-from spark_rapids_tpu_torch.columnar.column import column_from_arrow
+from spark_rapids_tpu_torch.columnar.column import (column_from_arrow,
+                                                    column_to_arrow)
 from spark_rapids_tpu_torch.exec import basic as tbasic
 from spark_rapids_tpu_torch.io import multifile, parquet, retrying
 
@@ -151,14 +152,17 @@ def test_from_arrow_to_arrow_equal_jax(n):
 
 def test_arrow_types_the_port_lacks_raise():
     # A.8 wave 1 brought DECIMAL(p<=18) (its unscaled lane); decimal128
-    # arrays wait for A.5
+    # arrays convert since the formats landed, as in the JAX package
     col = column_from_arrow(pa.array([decimal.Decimal("1.5")],
                                      pa.decimal128(10, 2)), device="cpu")
     assert col.to_pylist(1) == [150]
-    with pytest.raises(NotImplementedError, match="A.5"):
-        column_from_arrow(pa.array([decimal.Decimal("1.5")],
-                                   pa.decimal128(20, 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    arr = pa.array([decimal.Decimal("1.5"), None], pa.decimal128(20, 2))
+    wide = column_from_arrow(arr, device="cpu")
+    assert wide.to_pylist(2) == [150, None] == \
+        JBatch.from_arrow(pa.table({"d": arr})).columns[0].to_pylist(2)
+    assert column_to_arrow(wide, 2).equals(arr)
+    # a type with no arrow counterpart still raises, as in the JAX package
+    with pytest.raises(TypeError, match="unsupported type"):
         tt.to_arrow(object.__new__(tt.DataType))
 
 

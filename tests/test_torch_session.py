@@ -244,11 +244,31 @@ def test_session_device_rules():
     (lambda s, df: df.write_parquet("x"), "A.5"),
     (lambda s, df: df.write_csv("x"), "A.8 wave 5"),
     (lambda s, df: s.read_csv("x"), "A.8 wave 5"),
+    (lambda s, df: s.read_delta("x"), "A.8 wave 5b"),
+    (lambda s, df: df.write_delta("x"), "A.8 wave 5b"),
     (lambda s, df: s.health(), "A.9"),
     (lambda s, df: s.cancel_query(), "A.9"),
 ])
-def test_methods_that_wait_for_their_slice_name_it(call, item):
+def test_methods_that_wait_for_their_slice_name_it(call, item, tmp_path,
+                                                   monkeypatch):
     _, tdf = _frames()
+    if item in ("A.5", "A.8 wave 5"):
+        # the writers and readers landed with the formats: each call
+        # writes or reads "x", and the JAX package reads the same rows
+        monkeypatch.chdir(tmp_path)
+        jdf, _ = _frames()
+        js = jdf.session
+        jdf.write_csv("x")
+        jdf.write_csv("y")
+        out = call(tdf.session, tdf)
+        if out is not None:
+            assert isinstance(out, tsession.DataFrame)
+            assert out.collect() == js.read_csv("x").collect()
+        elif item == "A.5":
+            assert js.read_parquet("x").collect() == jdf.collect()
+        else:
+            assert js.read_csv("x").collect() == js.read_csv("y").collect()
+        return
     if item in ("A.8 wave 1", "A.8 wave 3"):
         # sample() waited for A.8 wave 1, windows, explode and the cache
         # for wave 3a: they have landed and build DataFrames now
