@@ -73,7 +73,10 @@ fails the run on error:
      through their adaptive joins, P20's sort, P32 sub's sub-partitioned
      join over 16 partitions and its static twin, P32 demote); every
      murmur3 chain, probe and row gather launch of a run of each P40
-     query over its file's table as read back (phase 3m's shapes);
+     query over its file's table as read back (phase 3m's shapes); every
+     row gather of each P41 command's plans, and the murmur3 chains and
+     probes of MERGE's semi, left outer and anti joins (phase 3n's
+     shapes);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -375,6 +378,19 @@ fails the run on error:
      P19) counted the same way, every launch difference named; then the
      query over the table read back against the twin, P40_RUNS runs in
      turns, one synchronisation a run;
+  3n. drives Delta's DML plans (drive_delta_paths): P41. P12's SF1
+     orders (1,500,000 rows, o_orderstatus a dictionary column) as one
+     data file's rows through delta/table.py's four per-file rewrites:
+     DELETE o_orderstatus = 'F', UPDATE o_orderpriority where o_orderdate
+     < 1993-01-01, MERGE on o_orderkey against 150,000 source rows
+     (100,000 orders' keys chosen by seed, 50,000 new; the ambiguity
+     check, the matched count by a semi join, the left outer join's
+     rewrite, the rows to insert by an anti join) and OPTIMIZE ZORDER BY
+     o_orderdate. Each once counted (launches, host reads) beside the
+     plain filter, filter, left outer join or sort it is built from, then
+     P41_RUNS runs of the four in turns, one synchronisation a run; every
+     run held to p41_oracles (the stats dict, the rows as a multiset,
+     OPTIMIZE's z-order codes not decreasing);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -452,7 +468,8 @@ plan's, the differences and the session timings) and phase 3d's (under
 "windows_paths"), phase 3h's (under "nested_paths") and phase 3i's
 (under "adaptive_paths": choices, counters, round trips, placements,
 the cost constants, ms), phase 3j's (under "governed_paths"), phase
-3l's (under "stage_paths") and phase 3m's (under "file_paths"), before
+3l's (under "stage_paths"), phase 3m's (under "file_paths") and phase
+3n's (under "delta_paths"), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
@@ -9237,29 +9254,36 @@ def stage_shapes(tree):
             if type(n).__name__ == "CompiledStageExec"]
 
 
-def p39_collect(label, df, check):
-    """One df.collect() counted: every launch counter at 0 just before,
-    the host reads (CUDA's sync debug mode warns on each), the stage
-    compiler's counters as deltas. Returns (launches, host reads, stage
-    deltas)."""
+def counted_run(fn):
+    """fn() with every launch counter at 0 just before and read just
+    after, and the host reads it made (CUDA's sync debug mode warns on
+    each): (fn's result, launches, host reads)."""
     import warnings
     import torch
-    from spark_rapids_tpu_torch.exec import stage_compiler
     wrappers = zero_launches()
-    c0 = stage_compiler.counters()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            rows = df.collect()
+            out = fn()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     counts = {k: w.launches for k, w in wrappers.items()}
+    return out, counts, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def p39_collect(label, df, check):
+    """One df.collect() counted: every launch counter at 0 just before,
+    the host reads (CUDA's sync debug mode warns on each), the stage
+    compiler's counters as deltas. Returns (launches, host reads, stage
+    deltas)."""
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    c0 = stage_compiler.counters()
+    rows, counts, reads = counted_run(df.collect)
     c1 = stage_compiler.counters()
     check(rows, label, df.session.last_query_metrics())
-    reads = sum("synchroniz" in str(w.message) for w in caught)
     delta = {k: c1[k] - c0[k] for k in STAGE_DELTAS}
     for k in ("graph_ineligible", "sizing_launches"):
         delta[k] = {n: v - c0[k].get(n, 0) for n, v in c1[k].items()
@@ -9775,6 +9799,276 @@ def drive_file_paths(dev, sm, fi, dj, jb, q3d, tb, wants):
     return recs, launches
 
 
+# -- slice 19 (phase 3n): Delta's DML plans, P41 -----------------------------
+
+P41_RUNS = 3             # timed runs of each P41 command, in turns
+P41_MATCHED = 100_000    # MERGE source rows with an order's o_orderkey
+P41_NEW = 50_000         # MERGE source rows with a key above every order's
+P41_SEED = 41
+P41_UPDATE_BEFORE = datetime.date(1993, 1, 1)   # UPDATE where o_orderdate <
+P41_URGENT = "1-URGENT"                          # ... SET o_orderpriority =
+P41_COMMANDS = ("P41 delete", "P41 update", "P41 merge", "P41 optimize")
+#: the ported kernels each command's run must launch: DELETE's compaction
+#: gather, MERGE's join (the murmur3 chain, the probe, the gathers) and
+#: OPTIMIZE's sort permutation gather; UPDATE's filter count and If
+#: projection have none of the port's kernels on their path
+P41_NEED = {"P41 delete": ["dma_row_gather"], "P41 update": [],
+            "P41 merge": Q_NEED, "P41 optimize": ["dma_row_gather"]}
+
+
+def p41_source(dj, matched=P41_MATCHED, new=P41_NEW, seed=P41_SEED):
+    """MERGE's source in tpch_join_data's form: `matched` o_orderkeys of
+    the orders chosen by seed and `new` keys above the largest, shuffled,
+    each with a random date, priority and status."""
+    rng = np.random.default_rng(seed)
+    okey = dj["o_orderkey"]
+    keys = np.concatenate([
+        okey[rng.choice(okey.shape[0], matched, replace=False)],
+        okey.max() + 1 + np.arange(new, dtype=np.int64)])
+    keys = keys[rng.permutation(keys.shape[0])]
+    n = keys.shape[0]
+    return {"o_orderkey": keys,
+            "o_orderdate": rng.integers(ORDER_DATE_FIRST, ORDER_DATE_LAST + 1,
+                                        n).astype(np.int32),
+            "o_orderpriority": (rng.integers(0, 5, n).astype(np.int32),
+                                ORDER_PRIORITIES),
+            "o_orderstatus": (rng.integers(0, 3, n).astype(np.int32),
+                              ORDER_STATUSES)}
+
+
+def first_bytes(column):
+    """A (codes, words) string column as each row's first byte (P41's
+    words differ in their first byte)."""
+    codes, words = column
+    return np.array([w.encode()[0] for w in words], np.uint8)[codes]
+
+
+def p41_table(key, date, prio, status):
+    """Rows as columns sorted by key (P41's keys are unique): the order
+    of a multiset."""
+    o = np.argsort(key, kind="stable")
+    return tuple(np.asarray(a)[o] for a in (key, date, prio, status))
+
+
+def p41_oracles(d, src):
+    """{command: {"stats", "rows"[, "inserted"]}} by numpy."""
+    k, dt = d["o_orderkey"], d["o_orderdate"]
+    pb, sb = first_bytes(d["o_orderpriority"]), first_bytes(d["o_orderstatus"])
+    keep = d["o_orderstatus"][0] != ORDER_STATUSES.index("F")
+    hit = dt < days(P41_UPDATE_BEFORE)
+    sk, sdt = src["o_orderkey"], src["o_orderdate"]
+    spb = first_bytes(src["o_orderpriority"])
+    ssb = first_bytes(src["o_orderstatus"])
+    so = np.argsort(sk)
+    pos = np.minimum(np.searchsorted(sk[so], k), sk.shape[0] - 1)
+    matched = sk[so][pos] == k
+    at = so[pos[matched]]
+    m_dt, m_pb = dt.copy(), pb.copy()
+    m_dt[matched], m_pb[matched] = sdt[at], spb[at]
+    ins = ~np.isin(sk, k)
+    return {
+        "P41 delete": {"stats": {"deleted": int((~keep).sum())},
+                       "rows": p41_table(k[keep], dt[keep], pb[keep],
+                                         sb[keep])},
+        "P41 update": {"stats": {"updated": int(hit.sum())},
+                       "rows": p41_table(k, dt, np.where(
+                           hit, np.uint8(P41_URGENT.encode()[0]), pb), sb)},
+        "P41 merge": {"stats": {"updated": int(matched.sum()), "deleted": 0,
+                                "inserted": int(ins.sum())},
+                      "rows": p41_table(k, m_dt, m_pb, sb),
+                      "inserted": p41_table(sk[ins], sdt[ins], spb[ins],
+                                            ssb[ins])},
+        "P41 optimize": {"stats": {"rows": int(k.shape[0])},
+                         "rows": p41_table(k, dt, pb, sb)}}
+
+
+def p41_frames(sm, dev, orders, source):
+    """{command: run()} and {command: twin()} of P41 over the card's
+    orders batch (phase 3m's P12 table) and MERGE's source batch. A run
+    is the command's per-file device work through delta/table.py: DELETE
+    the rows `delete_rewrite` keeps (its count from them), UPDATE
+    `match_count` and `update_rewrite`, MERGE the ambiguity check
+    (`key_rows_max`), `merge_hit_count`, `merge_rewrite` (SET
+    o_orderdate and o_orderpriority from the source) and
+    `merge_insert_rows`, OPTIMIZE `zorder_rewrite` by o_orderdate; each
+    returns (its stats, {"rows": batches[, "inserted": batches]}). A twin
+    is the plain filter, filter, left outer join or sort it is built
+    from."""
+    from spark_rapids_tpu_torch.delta import table as T
+    sess = sm.session.TpuSession(device=dev)
+    col, lit = sm.core.col, sm.core.lit
+    df = sess.from_batches([orders], orders.schema)
+    src = sess.from_batches([source], source.schema)
+    marked = T.marked_source(src)
+    n, on = orders.num_rows_host, ["o_orderkey"]
+    gone = col("o_orderstatus") == lit("F")
+    early = col("o_orderdate") < date_lit(sm, P41_UPDATE_BEFORE)
+    sets = {"o_orderpriority": lit(P41_URGENT)}
+    upd = {"o_orderdate": col("__s_o_orderdate"),
+           "o_orderpriority": col("__s_o_orderpriority")}
+
+    def rows(batches):
+        return sum(b.num_rows_host for b in batches)
+
+    def delete():
+        kept = T.delete_rewrite(df, gone)._batches()
+        return {"deleted": n - rows(kept)}, {"rows": kept}
+
+    def update():
+        hits = T.match_count(df, early)
+        return {"updated": hits}, {
+            "rows": T.update_rewrite(df, df.schema, sets, early)._batches()}
+
+    def merge():
+        if (T.key_rows_max(src, on).collect()[0][0] or 0) > 1:
+            raise AssertionError("P41 merge: an ambiguous source")
+        hits = T.merge_hit_count(df, marked, on)
+        out = T.merge_rewrite(df, marked, on, upd, False)._batches()
+        ins = T.merge_insert_rows(src, df, on, df.schema)._batches()
+        return {"updated": hits, "deleted": 0, "inserted": rows(ins)}, {
+            "rows": out, "inserted": ins}
+
+    def optimize():
+        out = T.zorder_rewrite(df, ["o_orderdate"], df.columns)._batches()
+        return {"rows": rows(out)}, {"rows": out}
+    runs = dict(zip(P41_COMMANDS, (delete, update, merge, optimize)))
+    twins = {
+        "P41 delete": lambda: df.filter(gone)._batches(),
+        "P41 update": lambda: df.filter(early)._batches(),
+        "P41 merge": lambda: df.join(
+            marked, left_on=on, right_on=["__s_o_orderkey"],
+            how="left_outer")._batches(),
+        "P41 optimize": lambda: df.sort("o_orderdate")._batches()}
+    plans = {
+        "P41 delete": [T.delete_rewrite(df, gone)],
+        "P41 update": [df.filter(early),
+                       T.update_rewrite(df, df.schema, sets, early)],
+        "P41 merge": [T.key_rows_max(src, on),
+                      df.join(marked.select(col("__s_o_orderkey")),
+                              left_on=on, right_on=["__s_o_orderkey"],
+                              how="left_semi"),
+                      T.merge_rewrite(df, marked, on, upd, False),
+                      T.merge_insert_rows(src, df, on, df.schema)],
+        "P41 optimize": [T.zorder_rewrite(df, ["o_orderdate"],
+                                          df.columns)]}
+    return runs, twins, plans
+
+
+def p41_check(label, want, got):
+    """A P41 run's (stats, parts) against its oracle: the stats dict, the
+    rows and inserted rows as multisets (every value valid), and
+    OPTIMIZE's rows in order of their z-order codes."""
+    stats, parts = got
+    if stats != want["stats"]:
+        raise AssertionError(f"{label}: stats {stats} != oracle "
+                             f"{want['stats']}")
+    for part, batches in parts.items():
+        cols = fetch_columns(batches)
+        if not all(c[1].all() for c in cols):
+            raise AssertionError(f"{label} {part}: a NULL in the output")
+        if label == "P41 optimize":
+            code = zorder_codes([cols[1][0]])
+            if not (code[1:] >= code[:-1]).all():
+                raise AssertionError(f"{label}: z-order codes decrease")
+        table = p41_table(*(c[0] for c in cols))
+        for name, a, b in zip(("o_orderkey", "o_orderdate",
+                               "o_orderpriority", "o_orderstatus"),
+                              table, want[part]):
+            _equal(f"{label} {part} {name}", a, b)
+
+
+def compare_delta_paths(dev, sm, orders, source):
+    """Phase 2 at P41's own inputs: every row gather of each command's
+    plans, MERGE's murmur3 chains and probes (the ambiguity check's
+    group-by, the semi join, the left outer join, the anti join) and
+    DELETE's dictionary gathers, each held exactly to its plain
+    version."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    _, _, plans = p41_frames(sm, dev, orders, source)
+    for label in P41_COMMANDS:
+        n_gathers = 0
+        for k, df in enumerate(plans[label]):
+            def fresh():
+                return planned(sm, df)[0]
+            gathers = capture_row_gathers(fresh())
+            n_gathers += len(gathers)
+            if gathers:
+                print(f"compare {label} plan {k} row gathers: "
+                      f"{'; '.join(compare_row_gathers(label, gathers))}; "
+                      f"exact")
+            del gathers
+            if label == "P41 merge" and k > 0:
+                calls = capture_murmur3(fresh())
+                for j, (cols, seeds) in enumerate(calls):
+                    _exact(f"murmur3 {label} plan {k} call {j}",
+                           m3.murmur3_columns(cols, seeds),
+                           m3.murmur3_columns_plain(cols, seeds))
+                probes = capture_probes(fresh())
+                hits = [compare_probe(f"probe {label} plan {k} call {j}",
+                                      args, cap, total)
+                        for j, (args, cap, total) in enumerate(probes)]
+                if not calls or not probes:
+                    raise AssertionError(
+                        f"{label} plan {k}: {len(calls)} murmur3 and "
+                        f"{len(probes)} probe launches captured")
+                print(f"compare {label} plan {k} murmur3 launches "
+                      f"({len(calls)}) and probes ({len(probes)}, "
+                      f"{sum(hits)} verified pairs); exact")
+            if label == "P41 delete":
+                takes = capture_dict_gathers(fresh())
+                if takes:
+                    print(f"compare {label} dictionary gathers: "
+                          f"{'; '.join(compare_dict_takes(label, takes))}; "
+                          f"exact")
+        if "dma_row_gather" in P41_NEED[label] and not n_gathers:
+            raise AssertionError(f"{label}: no row gather captured")
+
+
+def drive_delta_paths(dev, sm, orders, source, wants):
+    """Phase 3n (P41): each command's run once counted (launches, host
+    reads) beside its twin counted the same way, each held to its numpy
+    oracle, then P41_RUNS runs of the four in turns, one synchronisation
+    a run, each held to its oracle after its time is taken. Returns
+    (records, launches by run)."""
+    import torch
+    runs, twins, _ = p41_frames(sm, dev, orders, source)
+    recs, launches, ms = {}, {}, {k: [] for k in P41_COMMANDS}
+    for label in P41_COMMANDS:
+        t0 = time.perf_counter()
+        out, counts, reads = counted_run(runs[label])
+        first_ms = (time.perf_counter() - t0) * 1e3
+        p41_check(label, wants[label], out)
+        idle = [k for k in P41_NEED[label] if counts[k] < 1]
+        if idle:
+            raise AssertionError(f"{label}: kernels not launched: {idle} "
+                                 f"(counts {counts})")
+        _, tcounts, treads = counted_run(twins[label])
+        key = label.replace(" ", "_")
+        launches[key], launches[key + "_twin"] = counts, tcounts
+        recs[label] = {"stats": out[0], "first_run_ms": first_ms,
+                       "launches": counts, "twin_launches": tcounts,
+                       "host_reads": reads, "twin_host_reads": treads}
+        print(f"{label}: stats {out[0]} equal to the oracle, rows equal as "
+              f"a multiset; first run {first_ms:.1f} ms; launches "
+              f"{family_counts(counts)} (the plain twin's "
+              f"{family_counts(tcounts)}); host reads {reads} (twin "
+              f"{treads})")
+    for i in range(P41_RUNS):
+        order = P41_COMMANDS if i % 2 == 0 else P41_COMMANDS[::-1]
+        for label in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runs[label]()
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            p41_check(f"{label} timed", wants[label], out)
+    for label in P41_COMMANDS:
+        recs[label]["ms"] = ms[label]
+        print(f"{label} timed, {P41_RUNS} runs in turns: "
+              f"{['%.2f' % v for v in ms[label]]} ms")
+    return recs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -9863,6 +10157,14 @@ def main() -> int:
                             workdir)
     print(f"setup: P40's files written and read back in "
           f"{time.perf_counter() - t_files:.1f} s")
+    # P41's MERGE source (phase 3n drives Delta's DML plans): 150,000
+    # orders rows built on the card, and the four commands' oracles
+    t0 = time.perf_counter()
+    p41_src = p41_source(dj)
+    p41_batch = join_batch(p41_src, "orders", dev)
+    p41_want = p41_oracles(dj, p41_src)
+    print(f"setup: P41's source and oracles in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
@@ -10023,6 +10325,12 @@ def main() -> int:
     with default_conf_after():
         compare_file_paths(dev, join_session_modules(), files, dj, jb, q3d,
                            tb)
+    # P41's own inputs (phase 3n drives them): every row gather of each
+    # command's plans, MERGE's murmur3 chains and probes, DELETE's
+    # dictionary gathers
+    with default_conf_after():
+        compare_delta_paths(dev, join_session_modules(), jb["orders"],
+                            p41_batch)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -10334,6 +10642,13 @@ def main() -> int:
     shutil.rmtree(workdir)
     print(f"phase 3m: {time.perf_counter() - t_files:.1f} s")
 
+    # -- phase 3n, slice 19: Delta's DML plans (P41) ------------------------
+    t_delta = time.perf_counter()
+    with default_conf_after():
+        delta_recs, delta_launches = drive_delta_paths(
+            dev, join_session_modules(), jb["orders"], p41_batch, p41_want)
+    print(f"phase 3n: {time.perf_counter() - t_delta:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -10641,7 +10956,8 @@ def main() -> int:
             **{k: v.get(r["name"], 0) for k, v in gov_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in stage_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in file_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in file_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in delta_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -10685,7 +11001,7 @@ def main() -> int:
         "adaptive_paths": dict(ad_recs, counts=ad_counts,
                                ms=adaptive_ms),
         "governed_paths": gov_recs, "stage_paths": stage_recs,
-        "file_paths": file_recs}},
+        "file_paths": file_recs, "delta_paths": delta_recs}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

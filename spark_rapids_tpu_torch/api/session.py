@@ -45,13 +45,16 @@ The readers (`read_parquet`, `read_csv`, `read_json`, `read_orc`,
 `read_iceberg`, `read_avro`, `read_hive_text`) put their batches on the
 session's device; the writers (`write_*`) fetch the result once (Avro,
 Hive text and JSON through `collect()` or `to_pydict()`, the others
-through `to_arrow()`). Parquet, CSV, JSON, ORC and Iceberg go through
-pyarrow (the machine with the card has none: they run on the CPU until it
-does); Avro and Hive text are pure Python.
+through `to_arrow()`). Parquet, CSV, JSON, ORC, Iceberg and Delta
+(`read_delta`, `write_delta`, delta/) go through pyarrow (the machine with
+the card has none: they run on the CPU until it does); Avro and Hive text
+are pure Python. Delta's DML (delta/table.DeltaTable) rewrites a file's
+rows with device plans.
 
-The other methods raise NotImplementedError naming their items: Delta
-(`read_delta`, `write_delta`: A.8 wave 5b) and the pandas UDFs (A.8 wave
-4: they go through pandas and pyarrow).
+The pandas UDFs (`map_in_pandas`, `window_in_pandas`, and
+`apply_in_pandas`, `agg_in_pandas` and `cogroup` on grouped data) build
+the five pandas nodes; their operators (exec/python_udf.py) go through
+pandas and pyarrow, imported when they run.
 """
 
 from __future__ import annotations
@@ -82,10 +85,6 @@ def _configure_planes(conf: RapidsConf) -> None:
     obs_dispatch.configure(conf)
     obs_history.configure(conf)
     faults.configure(conf)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} waits for its slice (ROADMAP {item})")
 
 
 class _InMemorySource:
@@ -208,7 +207,8 @@ class TpuSession:
             path, schema, self.conf, device=self.device, **options)))
 
     def read_delta(self, path, version=None) -> "DataFrame":
-        _not_ported("read_delta", "A.8 wave 5b")
+        from ..delta import read_delta
+        return read_delta(self, path, version)
 
     def read_avro(self, path, **options) -> "DataFrame":
         from ..io.avro import AvroSource
@@ -452,12 +452,23 @@ class DataFrame:
         return self
 
     def map_in_pandas(self, fn, schema) -> "DataFrame":
-        _not_ported("map_in_pandas", "A.8 wave 4")
+        """Spark df.mapInPandas(fn, schema): fn(iterator of pandas
+        DataFrames) -> iterator of DataFrames (reference
+        GpuMapInBatchExec.scala)."""
+        return self._with(L.LogicalMapInBatch(fn, _to_schema(schema),
+                                              self._plan))
 
     mapInPandas = map_in_pandas
 
     def window_in_pandas(self, partition_by, *wins) -> "DataFrame":
-        _not_ported("window_in_pandas", "A.8 wave 4")
+        """Whole-partition pandas window UDFs: each win is (fn, name,
+        result_type, input columns...); fn(series...) -> scalar broadcast
+        over its partition (reference GpuWindowInPandasExecBase)."""
+        parts = [_to_expr(p) for p in (
+            partition_by if isinstance(partition_by, (list, tuple))
+            else [partition_by])]
+        return self._with(L.LogicalWindowInPandas(
+            parts, _named_pandas_fns(wins), self._plan))
 
     # -- actions -----------------------------------------------------------
     def _exec(self):
@@ -671,7 +682,8 @@ class DataFrame:
 
     def write_delta(self, path, mode: str = "append",
                     partition_by: Optional[Sequence[str]] = None):
-        _not_ported("write_delta", "A.8 wave 5b")
+        from ..delta import write_delta
+        write_delta(self, path, mode=mode, partition_by=partition_by)
 
     def write_iceberg(self, path, mode: str = "append"):
         from ..io.iceberg import write_iceberg
@@ -683,6 +695,39 @@ class DataFrame:
 
     def _with(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self.session)
+
+
+def _to_schema(schema) -> Schema:
+    if not isinstance(schema, Schema):
+        raise TypeError("pandas UDF output schema must be a Schema")
+    return schema
+
+
+def _named_pandas_fns(specs):
+    """Normalize (fn, name, result_type, inputs...) pandas-UDF specs: the
+    inputs may be varargs or one list/tuple."""
+    named = []
+    for fn, name, rt, *ins in specs:
+        exprs = [_to_expr(e) for e in
+                 (ins[0] if len(ins) == 1
+                  and isinstance(ins[0], (list, tuple)) else ins)]
+        named.append((fn, name, rt, exprs))
+    return named
+
+
+class CoGroupedData:
+    def __init__(self, left: "GroupedData", right: "GroupedData"):
+        self.left = left
+        self.right = right
+
+    def apply_in_pandas(self, fn, schema) -> DataFrame:
+        """fn(left_group_df, right_group_df) -> DataFrame per key in
+        either input (reference GpuFlatMapCoGroupsInPandasExec)."""
+        return self.left.df._with(L.LogicalCoGroupedMapInPandas(
+            self.left.keys, self.right.keys, fn, _to_schema(schema),
+            self.left.df._plan, self.right.df._plan))
+
+    applyInPandas = apply_in_pandas
 
 
 class GroupedData:
@@ -705,12 +750,23 @@ class GroupedData:
                                                 self.df._plan))
 
     def apply_in_pandas(self, fn, schema) -> DataFrame:
-        _not_ported("apply_in_pandas", "A.8 wave 4")
+        """Spark df.groupBy(...).applyInPandas(fn, schema): fn receives
+        each group as a pandas DataFrame and returns a DataFrame matching
+        `schema` (reference GpuFlatMapGroupsInPandasExec.scala:79)."""
+        return self.df._with(L.LogicalGroupedMapInPandas(
+            self.keys, fn, _to_schema(schema), self.df._plan))
 
     applyInPandas = apply_in_pandas
 
     def agg_in_pandas(self, *aggs) -> DataFrame:
-        _not_ported("agg_in_pandas", "A.8 wave 4")
+        """Grouped pandas aggregates: each agg is (fn, name, result_type,
+        input columns/exprs...); fn receives one pandas Series per input
+        and returns a scalar (reference GpuAggregateInPandasExec)."""
+        key_names = [getattr(k, "name", f"key_{i}")
+                     for i, k in enumerate(self.keys)]
+        return self.df._with(L.LogicalAggregateInPandas(
+            self.keys, key_names, _named_pandas_fns(aggs), self.df._plan))
 
-    def cogroup(self, other: "GroupedData"):
-        _not_ported("cogroup", "A.8 wave 4")
+    def cogroup(self, other: "GroupedData") -> CoGroupedData:
+        """Spark df.groupBy(k).cogroup(other.groupBy(k))."""
+        return CoGroupedData(self, other)

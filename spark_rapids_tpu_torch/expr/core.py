@@ -73,6 +73,10 @@ class Expression:
         from .arithmetic import Divide
         return self._bin(other, Divide)
 
+    def __mod__(self, other):
+        from .arithmetic import Remainder
+        return self._bin(other, Remainder)
+
     def __neg__(self):
         from .arithmetic import UnaryMinus
         return UnaryMinus(self)

@@ -393,6 +393,10 @@ def encoded_safe_predicate(e: Expression) -> bool:
         return _string_free_subtree(e)
     if isinstance(e, In):
         return _encoded_operand(e.children[0])
+    if isinstance(e, EqualNullSafe) and isinstance(e.children[1], Literal) \
+            and e.children[1].data_type == BOOLEAN:
+        # `p IS TRUE` (Delta's DML conditions): p's own walk
+        return encoded_safe_predicate(e.children[0])
     return _string_free_subtree(e)
 
 

@@ -3,9 +3,9 @@ the engine's Catalyst analog: a small logical algebra that the override
 layer (overrides.py) wraps, tags and converts to TpuExec trees (reference
 GpuOverrides.scala wrap/tag/convert over SparkPlan).
 
-These are the nodes the ported DataFrame methods build, and the expand
-node of grouping sets. The pandas nodes come with their operators
-(ROADMAP A.8 wave 4).
+These are the nodes the ported DataFrame methods build, the expand
+node of grouping sets, and the pandas UDF family's five nodes (their
+operators are exec/python_udf.py).
 """
 
 from __future__ import annotations
@@ -285,3 +285,99 @@ class LogicalWindow(LogicalPlan):
     def describe(self):
         return "Window [" + ", ".join(
             f"{we!r} AS {n}" for we, n in self.window_exprs) + "]"
+
+
+class LogicalGroupedMapInPandas(LogicalPlan):
+    """df.groupBy(keys).applyInPandas(fn, schema) — reference
+    GpuFlatMapGroupsInPandasExec.scala:79."""
+
+    def __init__(self, keys, fn, out_schema: Schema, child: LogicalPlan):
+        self.keys = list(keys)
+        self.fn = fn
+        self.out_schema = out_schema
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def describe(self):
+        return f"GroupedMapInPandas[{getattr(self.fn, '__name__', 'fn')}]"
+
+
+class LogicalAggregateInPandas(LogicalPlan):
+    """df.groupBy(keys).agg(pandas_udf...) — reference
+    GpuAggregateInPandasExec.scala."""
+
+    def __init__(self, keys, key_names, aggs, child: LogicalPlan):
+        self.keys = list(keys)
+        self.key_names = list(key_names)
+        self.aggs = list(aggs)  # (fn, name, result type, [input exprs])
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        from ..expr.core import resolve
+        child = self.children[0].schema
+        fields = [StructField(n, resolve(k, child).data_type)
+                  for n, k in zip(self.key_names, self.keys)]
+        fields += [StructField(name, rt) for _, name, rt, _ in self.aggs]
+        return Schema(tuple(fields))
+
+    def describe(self):
+        return f"AggregateInPandas[{len(self.aggs)} aggs]"
+
+
+class LogicalMapInBatch(LogicalPlan):
+    """df.mapInPandas(fn, schema) — reference GpuMapInBatchExec.scala."""
+
+    def __init__(self, fn, out_schema: Schema, child: LogicalPlan):
+        self.fn = fn
+        self.out_schema = out_schema
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def describe(self):
+        return f"MapInPandas[{getattr(self.fn, '__name__', 'fn')}]"
+
+
+class LogicalCoGroupedMapInPandas(LogicalPlan):
+    """cogroup(...).applyInPandas(fn, schema) — reference
+    GpuFlatMapCoGroupsInPandasExec.scala."""
+
+    def __init__(self, left_keys, right_keys, fn, out_schema: Schema,
+                 left: LogicalPlan, right: LogicalPlan):
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.fn = fn
+        self.out_schema = out_schema
+        self.children = (left, right)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+    def describe(self):
+        return "CoGroupedMapInPandas"
+
+
+class LogicalWindowInPandas(LogicalPlan):
+    """Whole-partition pandas window UDF — reference
+    GpuWindowInPandasExecBase.scala."""
+
+    def __init__(self, part_exprs, wins, child: LogicalPlan):
+        self.part_exprs = list(part_exprs)
+        self.wins = list(wins)  # (fn, name, result type, [input exprs])
+        self.children = (child,)
+
+    @property
+    def schema(self) -> Schema:
+        fields = list(self.children[0].schema.fields)
+        fields += [StructField(name, rt) for _, name, rt, _ in self.wins]
+        return Schema(tuple(fields))
+
+    def describe(self):
+        return f"WindowInPandas[{len(self.wins)} fns]"

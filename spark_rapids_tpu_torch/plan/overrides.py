@@ -16,7 +16,8 @@ host-shuffled, single-partition or, when a side's size is unknown, the
 adaptive join that measures its sides at run time), nested-loop join of
 a keyless join (over a broadcast when the right side fits), sort (over a
 range exchange and PartitionWiseSortExec when the host shuffle has
-partitions), TopN, repartition, window and generate operators.
+partitions), TopN, repartition, window and generate operators, and
+the pandas UDF family's five (exec/python_udf.py).
 
 A Project or Filter whose expressions lack a device path runs on the
 host row engine (exec/fallback.py) when every one of them has a host
@@ -612,6 +613,17 @@ class PlanMeta(BaseMeta):
             if p.condition is not None:
                 out.append((p.condition, None))  # pair-scope, binds later
             return out
+        if isinstance(p, L.LogicalGroupedMapInPandas):
+            return [(k, child_sch) for k in p.keys]
+        if isinstance(p, L.LogicalAggregateInPandas):
+            return [(k, child_sch) for k in p.keys] + [
+                (e, child_sch) for _, _, _, ins in p.aggs for e in ins]
+        if isinstance(p, L.LogicalCoGroupedMapInPandas):
+            return [(k, p.children[0].schema) for k in p.left_keys] + \
+                [(k, p.children[1].schema) for k in p.right_keys]
+        if isinstance(p, L.LogicalWindowInPandas):
+            return [(e, child_sch) for e in p.part_exprs] + [
+                (e, child_sch) for _, _, _, ins in p.wins for e in ins]
         if isinstance(p, L.LogicalExpand):
             return [(e, child_sch) for proj in p.projections for e in proj]
         if isinstance(p, L.LogicalSort):
@@ -1010,6 +1022,25 @@ class PlanMeta(BaseMeta):
         if isinstance(p, L.LogicalGenerate):
             return GenerateExec(p.generator, kids[0], p.outer, p.position,
                                 p.elem_name, p.pos_name)
+        if isinstance(p, L.LogicalGroupedMapInPandas):
+            from ..exec.python_udf import GroupedMapInPandasExec
+            return GroupedMapInPandasExec(p.keys, p.fn, p.out_schema,
+                                          kids[0])
+        if isinstance(p, L.LogicalAggregateInPandas):
+            from ..exec.python_udf import AggregateInPandasExec
+            return AggregateInPandasExec(p.keys, p.aggs, p.key_names,
+                                         kids[0])
+        if isinstance(p, L.LogicalMapInBatch):
+            from ..exec.python_udf import MapInBatchExec
+            return MapInBatchExec(p.fn, p.out_schema, kids[0])
+        if isinstance(p, L.LogicalCoGroupedMapInPandas):
+            from ..exec.python_udf import CoGroupedMapInPandasExec
+            return CoGroupedMapInPandasExec(p.left_keys, p.right_keys,
+                                            p.fn, p.out_schema, kids[0],
+                                            kids[1])
+        if isinstance(p, L.LogicalWindowInPandas):
+            from ..exec.python_udf import WindowInPandasExec
+            return WindowInPandasExec(p.part_exprs, p.wins, kids[0])
         raise PlanNotSupported(f"no conversion for {type(p).__name__}")
 
 

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: in a fresh interpreter where `jax`,
-`spark_rapids_tpu` and `pyarrow` cannot be imported (the machine with the
-card has no pyarrow), every module of the port and chip_smoke.py import,
-the Parquet, CSV, JSON, ORC and Iceberg readers raise a clear ImportError
-only when they are called, Avro and Hive text write and read, and
-an entry point asked for no device raises when there is no card instead
-of falling back to the CPU."""
+`spark_rapids_tpu`, `pyarrow` and `pandas` cannot be imported (the
+machine with the card has neither pyarrow nor pandas), every module of
+the port and chip_smoke.py import, the Parquet, CSV, JSON, ORC, Iceberg
+and Delta readers and writers raise a clear ImportError naming pyarrow
+only when they are called, the pandas UDFs one naming pandas, Avro and
+Hive text write and read, Delta's per-file rewrites plan and run, and an
+entry point asked for no device raises when there is no card instead of
+falling back to the CPU."""
 
 import shutil
 import subprocess
@@ -22,7 +24,7 @@ import importlib, pkgutil, sys
 class _Blocked:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
-                                  "pyarrow"):
+                                  "pyarrow", "pandas"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -54,14 +56,15 @@ governance = ["faults", "exec.task_retry", "exec.lifecycle",
 shield = ["exec.speculation_shield", "obs.history"]
 formats = ["io.avro", "io.hivetext", "io.csv", "io.json", "io.orc",
            "io.orc_meta", "io.iceberg"]
+delta_pandas = ["delta", "delta.log", "delta.table", "exec.python_udf"]
 missing = [m for m in q3 + q19 + ingest + strings + windows_arrays + nested
-           + wave4 + governance + shield + formats
+           + wave4 + governance + shield + formats + delta_pandas
            if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
-                                       "pyarrow"))
+                                       "pyarrow", "pandas"))
 assert not leaked, leaked
 print("MODULES", len(mods))
 
@@ -102,6 +105,42 @@ with tempfile.TemporaryDirectory() as d:
         [(1, "a"), (None, None)]
 print("PURE avro and hive text")
 
+# Delta's file layer needs pyarrow, the pandas UDFs pandas; Delta's
+# per-file rewrites are device plans and run without either
+from spark_rapids_tpu_torch.api import functions as F
+from spark_rapids_tpu_torch.delta import table as dtable
+with tempfile.TemporaryDirectory() as d:
+    for call in (lambda: df.write_delta(os.path.join(d, "t")),
+                 lambda: sess.read_delta(os.path.join(d, "t")),
+                 lambda: dtable.DeltaTable.for_path(sess, d).delete("k")):
+        try:
+            call()
+        except ImportError as e:
+            assert "pyarrow" in str(e), e
+        else:
+            raise AssertionError("Delta's files without pyarrow must raise")
+print("DELTA files raise")
+kept = dtable.delete_rewrite(df, F.col("k") == F.lit(1)).collect()
+code = dtable.zorder_rewrite(df, ["k"], ["k", "s"]).collect()
+assert kept == [(None, None)] and code == [(None, None), (1, "a")], \
+    (kept, code)
+print("DELTA rewrites run")
+for make in (lambda: df.map_in_pandas(lambda f: f, sch),
+             lambda: df.group_by("k").apply_in_pandas(lambda g: g, sch),
+             lambda: df.group_by("k").agg_in_pandas(
+                 (len, "n", LONG, "k")),
+             lambda: df.window_in_pandas("k", (len, "n", LONG, "k")),
+             lambda: df.group_by("k").cogroup(df.group_by("k"))
+             .apply_in_pandas(lambda a, b: a, sch)):
+    out = make()  # the plan builds without pandas
+    try:
+        out.collect()
+    except ImportError as e:
+        assert "pandas" in str(e), e
+    else:
+        raise AssertionError("a pandas UDF without pandas must raise")
+print("PANDAS udfs raise")
+
 import numpy as np
 import torch
 from spark_rapids_tpu_torch.columnar.column import Column
@@ -126,6 +165,9 @@ def test_port_imports_without_jax_and_refuses_implicit_cpu():
     assert "PARQUET the Parquet reader needs pyarrow" in proc.stdout
     assert "FORMATS pyarrow readers raise" in proc.stdout
     assert "PURE avro and hive text" in proc.stdout
+    assert "DELTA files raise" in proc.stdout
+    assert "DELTA rewrites run" in proc.stdout
+    assert "PANDAS udfs raise" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -10,8 +10,9 @@ with limit (TopN), a grand aggregate, distinct, repartition,
 coalesce(1), count, to_pydict, to_arrow, to_torch, and read_parquet with
 its filter pushed down to the row groups. Keys, integers and row order
 exact; f64 sums to rtol 1e-9 (summation order). Also: the session's
-device rules, the methods that wait for their slices, and the names of
-the JAX package's functions that the port does not have yet.
+device rules, the methods that waited for their slices (each now builds
+a DataFrame, or writes a table, equal to the JAX package's), and the
+names of the JAX package's functions that the port does not have yet.
 """
 
 import numpy as np
@@ -238,13 +239,14 @@ def test_session_device_rules():
     (lambda s, df: df.with_windows(), "A.8 wave 3"),
     (lambda s, df: df.explode("returnflag"), "A.8 wave 3"),
     (lambda s, df: df.cache(), "A.8 wave 3"),
-    (lambda s, df: df.map_in_pandas(None, None), "A.8 wave 4"),
-    (lambda s, df: df.group_by("returnflag").apply_in_pandas(None, None),
+    (lambda s, df: df.map_in_pandas(lambda frames: frames, df.schema),
      "A.8 wave 4"),
+    (lambda s, df: df.group_by("returnflag").apply_in_pandas(
+        lambda g: g.iloc[:3], df.schema), "A.8 wave 4"),
     (lambda s, df: df.write_parquet("x"), "A.5"),
     (lambda s, df: df.write_csv("x"), "A.8 wave 5"),
     (lambda s, df: s.read_csv("x"), "A.8 wave 5"),
-    (lambda s, df: s.read_delta("x"), "A.8 wave 5b"),
+    (lambda s, df: s.read_delta("y"), "A.8 wave 5b"),
     (lambda s, df: df.write_delta("x"), "A.8 wave 5b"),
     (lambda s, df: s.health(), "A.9"),
     (lambda s, df: s.cancel_query(), "A.9"),
@@ -268,6 +270,23 @@ def test_methods_that_wait_for_their_slice_name_it(call, item, tmp_path,
             assert js.read_parquet("x").collect() == jdf.collect()
         else:
             assert js.read_csv("x").collect() == js.read_csv("y").collect()
+        return
+    if item in ("A.8 wave 4", "A.8 wave 5b"):
+        # the pandas UDFs (wave 4) and Delta (wave 5b) landed: each call
+        # builds a DataFrame whose rows equal the JAX package's, or writes
+        # the table "x" that the JAX package reads back as its rows
+        monkeypatch.chdir(tmp_path)
+        jdf, _ = _frames()
+        js = jdf.session
+        jdf.write_delta("y")
+        out = call(tdf.session, tdf)
+        if out is None:
+            assert_rows_close(js.read_delta("x").collect(), jdf.collect(),
+                              ordered=False)
+        else:
+            assert isinstance(out, tsession.DataFrame)
+            assert_rows_close(out.collect(), call(js, jdf).collect(),
+                              ordered=False)
         return
     if item in ("A.8 wave 1", "A.8 wave 3"):
         # sample() waited for A.8 wave 1, windows, explode and the cache
