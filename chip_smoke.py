@@ -76,7 +76,10 @@ fails the run on error:
      query over its file's table as read back (phase 3m's shapes); every
      row gather of each P41 command's plans, and the murmur3 chains and
      probes of MERGE's semi, left outer and anti joins (phase 3n's
-     shapes);
+     shapes); every murmur3 chain, probe and row gather launch of a run of
+     P42 mesh q3 and P42 ici q3 (the exchanges' pids and grids over the
+     four shards, the per-shard joins and aggregates) and every row
+     gather of P42 mesh Q1 (phase 3o's shapes);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -391,6 +394,25 @@ fails the run on error:
      P41_RUNS runs of the four in turns, one synchronisation a run; every
      run held to p41_oracles (the stats dict, the rows as a multiset,
      OPTIMIZE's z-order codes not decreasing);
+  3o. drives the mesh lane (drive_mesh_paths): P42, four shards of one
+     mesh on cuda:0 (the machine has one card: the all-to-all is a copy
+     inside its memory). q3 (LONG keys, 2,097,152 x 524,288, its
+     aggregate exact and broadcasts off) planned over the mesh: a
+     ShuffledHashJoinExec over two ShuffleExchangeExecs, partial ->
+     ShuffleExchangeExec -> final, TopN(10); TPC-H Q1 at SF1 by its two
+     string flags over the mesh (the keys through the padded string
+     lane); q3 through the host exchange's device lane (planExchange
+     off, 4 partitions) with adaptive off, at the default confs (the
+     skew shield stands the join's stream side down) and on the host
+     lane; each beside its single-partition twin. Each path once counted
+     (launches, host reads, the lane's counters, the all-to-all's bytes
+     and host ns, frames, device peak), held to q3_oracle or
+     tpch_q1_oracle, its launches to its plan's shape (p42_expect: a
+     probe a stream batch over a pair a shard; a pid hash a shard and
+     round, the build and each stream batch hashed a pair), the lane's
+     rounds > 0 with no fallback and no frame with adaptive off, one
+     stand-down a shuffled join at the defaults; then P42_RUNS runs of
+     every path in turns, one synchronisation a run;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -469,7 +491,8 @@ plan's, the differences and the session timings) and phase 3d's (under
 (under "adaptive_paths": choices, counters, round trips, placements,
 the cost constants, ms), phase 3j's (under "governed_paths"), phase
 3l's (under "stage_paths"), phase 3m's (under "file_paths") and phase
-3n's (under "delta_paths"), before
+3n's (under "delta_paths") and phase 3o's (under "mesh_paths", with the
+card's name and power limit), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
@@ -3779,6 +3802,12 @@ def planned(m, df):
     explain text, and the execs are built under the session's conf, as
     apply() does."""
     m.session.set_active_conf(df.session.conf)
+    if hasattr(df.session, "mesh"):
+        # the planner and the exchanges read the session's mesh
+        import importlib
+        importlib.import_module(m.session.__name__.split(".")[0]
+                                + ".parallel.mesh").set_active_mesh(
+            df.session.mesh)
     overrides = m.overrides.TpuOverrides(df.session.conf)
     t0 = time.perf_counter()
     meta = overrides.wrap_and_tag(df.logical_plan())
@@ -5121,14 +5150,16 @@ def drive_types_paths(dev, m, b, wants):
 
 @contextlib.contextmanager
 def default_conf_after():
-    """Put the default conf back as the active one on exit: planning makes
-    a session's conf active, and execs built later (P9's, phase 3b's)
-    read theirs from the active conf at construction."""
+    """Put the default conf back as the active one on exit, and no mesh:
+    planning makes a session's conf and mesh active, and execs built later
+    (P9's, phase 3b's) read theirs at construction."""
     from spark_rapids_tpu_torch.config import RapidsConf, set_active_conf
+    from spark_rapids_tpu_torch.parallel.mesh import set_active_mesh
     try:
         yield
     finally:
         set_active_conf(RapidsConf())
+        set_active_mesh(None)
 
 
 def p19_joins(m, dev, b):
@@ -10069,6 +10100,244 @@ def drive_delta_paths(dev, sm, orders, source, wants):
     return recs, launches
 
 
+# -- slice 20 (phase 3o): the mesh lane, P42 ---------------------------------
+
+P42_SHARDS = 4
+P42_RUNS = 3             # timed runs of each P42 path, in turns
+#: q3 over the mesh: the aggregate on its exact tier, as phases 3c and 3l
+#: pin it (its speculative tier would trip at q3's cardinality and re-run
+#: the plan), and broadcasts off: at the default 10 MiB threshold the
+#: planner broadcasts q3's filtered orders (7.3 MB estimated), and only
+#: the aggregate would cross the mesh
+P42_Q3_CONF = dict(Q3_CONF, **{"spark.rapids.sql.broadcastSizeThreshold":
+                               "-1"})
+#: the host exchange's device lane: the planner keeps its host exchanges
+#: (planExchange off) over shuffle.partitions = the mesh's shards
+P42_ICI_CONF = dict(P42_Q3_CONF, **{
+    "spark.rapids.tpu.shuffle.planExchange": "false",
+    "spark.rapids.sql.shuffle.partitions": str(P42_SHARDS),
+    "spark.rapids.tpu.shuffle.ici.enabled": "true"})
+P42_ADAPTIVE_OFF = {"spark.rapids.tpu.adaptive.enabled": "false"}
+#: each twin first: the paths after it are held to its launches
+P42_PATHS = ("P42 mesh q3 twin", "P42 mesh q3", "P42 mesh Q1 twin",
+             "P42 mesh Q1", "P42 ici q3", "P42 ici q3 defaults",
+             "P42 host q3")
+
+
+def p42_mesh(dev):
+    """P42_SHARDS shards on one device: on the card, all on cuda:0."""
+    import torch
+    from spark_rapids_tpu_torch.parallel.mesh import Mesh
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return Mesh([dev] * P42_SHARDS)
+
+
+def p42_frames(sm, dev, d3, q1t_batch, order_batches, line_batches):
+    """{label: DataFrame} of P42, each in a session of its own: q3 and
+    TPC-H Q1 planned over the mesh (ShuffleExchangeExec) and without it
+    (the twins), and q3 through the host exchange's device lane with
+    adaptive off, at its default confs (the skew shield's stand-down) and
+    on the host lane (ici off)."""
+    Session = sm.session.TpuSession
+    mesh = p42_mesh(dev)
+    ici_off = dict(P42_ICI_CONF, **P42_ADAPTIVE_OFF)
+    sessions = {
+        "P42 mesh q3": Session(P42_Q3_CONF, dev, mesh=mesh),
+        "P42 mesh q3 twin": Session(P42_Q3_CONF, dev),
+        "P42 mesh Q1": Session({}, dev, mesh=mesh),
+        "P42 mesh Q1 twin": Session({}, dev),
+        "P42 ici q3": Session(ici_off, dev, mesh=mesh),
+        "P42 ici q3 defaults": Session(P42_ICI_CONF, dev, mesh=mesh),
+        "P42 host q3": Session(dict(ici_off, **{
+            "spark.rapids.tpu.shuffle.ici.enabled": "false"}), dev,
+            mesh=mesh)}
+    return {label: (tpch_q1_df(sm, sess, q1t_batch) if "Q1" in label
+                    else q3_df(sm, sess, order_batches, line_batches))
+            for label, sess in sessions.items()}
+
+
+def exec_metrics(metrics, name):
+    """The operator metrics of every `name` exec of a collect()."""
+    return [v for k, v in metrics.items() if k.startswith(name + "#")]
+
+
+def p42_expect(label, counts, metrics, twin):
+    """Each P42 path's launches against its plan's shape, from its
+    operators' metrics: a shuffled join probes once a stream batch, over
+    one pair a shard; each exchange round hashes each shard's pid once,
+    and the host lane each map batch with rows (fixed-width keys: q3's
+    order key and its aggregate's keys; Q1's string flags hash in plain
+    torch, so Q1 hashes as its twin does), and each pair's join hashes
+    its build keys (both seeds in one launch) and each stream batch (the
+    twin's one join adds its compiled stage's cold sizing pass); each
+    round gathers each shard twice (its send grid, its received slots)
+    and the host lane once a map's reorder, a floor under the row
+    gathers. Returns the shape it read; raises on a mismatch."""
+    rounds = sum(m["numRounds"] for name in ("ShuffleExchangeExec",
+                                             "HostShuffleExchangeExec")
+                 for m in exec_metrics(metrics, name))
+    host_x = exec_metrics(metrics, "HostShuffleExchangeExec")
+    maps = sum(m["numMapsWithRows"] for m in host_x)
+    reorders = sum(m["numReorderGathers"] for m in host_x)
+    joins = exec_metrics(metrics, "ShuffledHashJoinExec")
+    pairs = sum(m["numPartitionPairs"] for m in joins)
+    stream = sum(m["numStreamBatches"] for m in joins)
+    want = {}
+    if "q3" in label:
+        if pairs != P42_SHARDS:
+            raise AssertionError(f"{label}: {pairs} partition pairs joined, "
+                                 f"not one a shard ({P42_SHARDS})")
+        want["fused_probe_verify"] = stream
+        want["murmur3_columns"] = P42_SHARDS * rounds + maps + pairs + stream
+    else:
+        want["murmur3_columns"] = twin["murmur3_columns"]
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}; rounds "
+                             f"{rounds}, host maps {maps}, pairs {pairs}, "
+                             f"stream batches {stream}")
+    floor = 2 * P42_SHARDS * rounds + reorders
+    if counts["dma_row_gather"] < floor:
+        raise AssertionError(f"{label}: {counts['dma_row_gather']} row "
+                             f"gathers, below {floor}")
+    return {"rounds": rounds, "host_maps": maps, "pairs": pairs,
+            "stream_batches": stream, "want": want,
+            "row_gather_floor": floor}
+
+
+def compare_mesh_paths(dev, sm, d3, q1t_batch, order_batches, line_batches):
+    """Phase 2 at P42's own inputs: every murmur3 chain launch (the
+    exchange pids over each shard or map batch and the per-shard joins'
+    hashes), every probe of the per-shard joins and every row gather (the
+    send grids, the received slots, the host lane's reorders, the joins'
+    and aggregates') of a run of each P42 q3 path over the mesh, and the
+    row gathers of P42 mesh Q1, each held exactly to its plain
+    version."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    frames = p42_frames(sm, dev, d3, q1t_batch, order_batches, line_batches)
+    for label in ("P42 mesh q3", "P42 ici q3", "P42 ici q3 defaults",
+                  "P42 host q3", "P42 mesh Q1"):
+        def fresh():
+            return planned(sm, frames[label])[0]
+        gathers = capture_row_gathers(fresh())
+        print(f"compare {label} row gathers: "
+              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
+        del gathers
+        if "q3" not in label:
+            continue
+        calls = capture_murmur3(fresh())
+        for j, (cols, seeds) in enumerate(calls):
+            _exact(f"murmur3 {label} call {j}",
+                   m3.murmur3_columns(cols, seeds),
+                   m3.murmur3_columns_plain(cols, seeds))
+        probes = capture_probes(fresh())
+        hits = [compare_probe(f"probe {label} call {j}", args, cap, total)
+                for j, (args, cap, total) in enumerate(probes)]
+        if len(probes) < P42_SHARDS or not calls:
+            raise AssertionError(f"{label}: {len(calls)} murmur3 and "
+                                 f"{len(probes)} probe launches captured")
+        print(f"compare {label} murmur3 launches ({len(calls)}) and probes "
+              f"({len(probes)}, {sum(hits)} verified pairs); exact")
+
+
+def drive_mesh_paths(dev, sm, d3, q3_want, q1t_batch, q1t_want,
+                     order_batches, line_batches):
+    """Phase 3o (P42): each path's collect() once counted (launches,
+    host reads, the lane's counters, the all-to-all's bytes and host ns,
+    the shuffle's frames, the device memory peak, the phase ledger),
+    held to its oracle and
+    its launches to its plan's shape (p42_expect); the device lane's
+    rounds > 0 with no fallback and no frame with adaptive off, the skew
+    shield's one stand-down a shuffled join at the default confs; then
+    P42_RUNS runs of every path in turns, one synchronisation a run, each
+    held to its oracle. Returns (records, launches by path)."""
+    import torch
+    from spark_rapids_tpu_torch.parallel import exchange as px
+    from spark_rapids_tpu_torch.shuffle import manager as shuffle_mgr
+    frames = p42_frames(sm, dev, d3, q1t_batch, order_batches, line_batches)
+
+    def check(label, rows):
+        if "Q1" in label:
+            check_rows(rows, q1t_want, label)
+        else:
+            check_q3(rows, q3_want, label)
+
+    recs, launches = {}, {}
+    for label in P42_PATHS:
+        df = frames[label]
+        i0, s0, a0 = (shuffle_mgr.ici_counters(), shuffle_mgr.counters(),
+                      px.counters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rows, counts, reads = counted_run(df.collect)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        check(label, rows)
+        ici = {k: v - i0[k] for k, v in shuffle_mgr.ici_counters().items()}
+        frames_w = shuffle_mgr.counters()["frames"] - s0["frames"]
+        a2a = {k: v - a0[k] for k, v in px.counters().items()}
+        metrics = df.session.last_query_metrics()
+        # the governed collect()'s phase ledger: the rounds' share is
+        # ici-collective, the host lane's host-pack-serialize and
+        # shuffle-io
+        phases = {k: round(v / 1e6, 3) for k, v in
+                  df.session.last_query_profile().phases().items() if v}
+        twin = launches.get(label.replace(" defaults", "").replace(
+            "ici", "mesh").replace("host", "mesh") + " twin") \
+            if "twin" not in label else None
+        shape = p42_expect(label, counts, metrics, twin) \
+            if twin is not None else None
+        if label == "P42 ici q3":
+            if ici["rounds"] < 1 or ici["fallbacks"] or frames_w:
+                raise AssertionError(f"{label}: the device lane must carry "
+                                     f"every exchange: {ici}, {frames_w} "
+                                     f"frames")
+        if label == "P42 ici q3 defaults":
+            joins = len(exec_metrics(metrics, "ShuffledHashJoinExec"))
+            if ici["fallbacks"] != joins or ici["rounds"] < 1 \
+                    or not frames_w:
+                raise AssertionError(
+                    f"{label}: the skew shield stands down once a shuffled "
+                    f"join ({joins}), its build side and the aggregate "
+                    f"take the lane: {ici}, {frames_w} frames")
+        if label == "P42 host q3" and (ici["rounds"] or not frames_w):
+            raise AssertionError(f"{label}: {ici}, {frames_w} frames")
+        if "mesh" in label and "twin" not in label and not a2a["calls"]:
+            raise AssertionError(f"{label}: no all-to-all")
+        launches[label] = counts
+        recs[label] = {"first_run_ms": first_ms, "launches": counts,
+                       "families": family_counts(counts),
+                       "host_reads": reads, "ici": ici,
+                       "frames_written": frames_w, "all_to_all": a2a,
+                       "peak_bytes": peak, "shape": shape,
+                       "phases_ms": phases}
+        print(f"{label}: equal to the oracle; first run {first_ms:.1f} ms; "
+              f"launches {family_counts(counts)}; host reads {reads}; ici "
+              f"{ici}; frames {frames_w}; all-to-all {a2a['calls']} lanes, "
+              f"{a2a['bytes']} bytes, {a2a['ns']} host ns; device peak "
+              f"{peak} bytes; plan shape {shape}; phases ms {phases}")
+    ms = {k: [] for k in P42_PATHS}
+    for i in range(P42_RUNS):
+        for label in (P42_PATHS if i % 2 == 0 else P42_PATHS[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = frames[label].collect()
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            check(f"{label} timed", rows)
+    for label in P42_PATHS:
+        recs[label]["ms"] = ms[label]
+        print(f"{label} timed, {P42_RUNS} runs in turns: "
+              f"{['%.2f' % v for v in ms[label]]} ms")
+    check_idle("P42")
+    shuffle_root_empty("P42")
+    return recs, {k.replace(" ", "_"): v for k, v in launches.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -10165,6 +10434,11 @@ def main() -> int:
     p41_want = p41_oracles(dj, p41_src)
     print(f"setup: P41's source and oracles in "
           f"{time.perf_counter() - t0:.1f} s")
+    # P42's q3 sides (phase 3o drives the mesh lane over them and Q1's
+    # lineitems): one batch each, built on the card
+    o_schema42, l_schema42 = q3_schemas("LONG")
+    p42_o = q3_batches(d3, dev, o_schema42, Q3_ORDERS)
+    p42_l = q3_batches(d3, dev, l_schema42, Q3_LINES)
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
@@ -10331,6 +10605,12 @@ def main() -> int:
     with default_conf_after():
         compare_delta_paths(dev, join_session_modules(), jb["orders"],
                             p41_batch)
+    # P42's own inputs (phase 3o drives them): every murmur3 chain, probe
+    # and row gather launch of a run of q3 over the mesh and through the
+    # host exchange's device lane, and Q1's row gathers over the mesh
+    with default_conf_after():
+        compare_mesh_paths(dev, session_modules(), d3, q1t_batch, p42_o,
+                           p42_l)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -10649,6 +10929,14 @@ def main() -> int:
             dev, join_session_modules(), jb["orders"], p41_batch, p41_want)
     print(f"phase 3n: {time.perf_counter() - t_delta:.1f} s")
 
+    # -- phase 3o, slice 20: the mesh lane (P42) ----------------------------
+    t_mesh = time.perf_counter()
+    with default_conf_after():
+        mesh_recs, mesh_launches = drive_mesh_paths(
+            dev, session_modules(), d3, q3_want, q1t_batch, q1t_want, p42_o,
+            p42_l)
+    print(f"phase 3o: {time.perf_counter() - t_mesh:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -10957,7 +11245,8 @@ def main() -> int:
             **{k: v.get(r["name"], 0) for k, v in a9b_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in stage_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in file_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in delta_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in delta_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in mesh_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -11001,7 +11290,8 @@ def main() -> int:
         "adaptive_paths": dict(ad_recs, counts=ad_counts,
                                ms=adaptive_ms),
         "governed_paths": gov_recs, "stage_paths": stage_recs,
-        "file_paths": file_recs, "delta_paths": delta_recs}},
+        "file_paths": file_recs, "delta_paths": delta_recs,
+        "mesh_paths": dict(mesh_recs, card=smi)}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -15,6 +15,14 @@ so the execs built for a query read it at construction; the same calls
 the dispatch ledger (and its hang bound, dispatch.timeoutMs), the query
 history store and the fault plan.
 
+A session given `mesh_devices=n` or `mesh=` plans over that mesh
+(parallel/mesh.py): it is the active mesh from construction and at every
+action, so the planner's `_plan_mesh` sees it and the history capsule
+records its shard count. `TpuSession(device="cpu", mesh_devices=4)` plans
+over four CPU shards; on the card `mesh_devices=4` takes the first four
+cards (fewer raise), and `mesh=Mesh([torch.device("cuda", 0)] * 4)` puts
+four shards on one card.
+
 `collect()` is the governed drive, as the JAX package's:
 
   * `lifecycle.governed` — one QueryContext for the whole drive, so
@@ -121,10 +129,27 @@ class _InMemorySource:
 
 
 class TpuSession:
-    def __init__(self, conf: Optional[Dict] = None, device=None):
+    def __init__(self, conf: Optional[Dict] = None, device=None,
+                 mesh_devices: Optional[int] = None, mesh=None):
+        """`mesh_devices` (a shard count) or `mesh` (a parallel/mesh.Mesh)
+        turn on distributed planning: grouped aggregates and equi-joins
+        run as partial -> all-to-all exchange -> final over the mesh's
+        shards. `mesh_devices` builds the mesh on the session's device:
+        the first n cards (fewer raise), or n CPU shards with
+        device="cpu". A mesh whose devices are not of the session's type
+        raises. Default: the single-partition plan."""
         from ..columnar import upload
+        from ..parallel.mesh import device_mesh, set_active_mesh
         self.conf = RapidsConf(conf or {})
         self.device = resolve_device(device)
+        if mesh is None and mesh_devices is not None:
+            mesh = device_mesh(mesh_devices, device=self.device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh in a "
+                             f"{self.device.type} session: every shard "
+                             f"runs on the session's device type")
+        self.mesh = mesh
+        set_active_mesh(mesh)
         set_active_conf(self.conf)
         _configure_planes(self.conf)
         # pre-size the upload staging pool's buckets from batchSizeBytes
@@ -230,15 +255,17 @@ class TpuSession:
         counts, governed-query count, the lifecycle counters, the
         workload governor's queue, telemetry's state and newest sample,
         the dispatch ledger, the per-priority-class latency percentiles
-        (`slo`) and the recent exchanges' skew (`stats`). `peers` waits
-        for the mesh lane (ROADMAP A.6)."""
+        (`slo`), the recent exchanges' skew (`stats`) and the installed
+        heartbeat manager's peers (`peers`: live and dead peers, purges,
+        blacklisted slots; {"enabled": False} without a manager)."""
         from ..exec import lifecycle
         from ..obs import dispatch, telemetry
         from ..obs import stats as obs_stats
+        from ..parallel import heartbeat
         out = lifecycle.health()
         out["telemetry"] = telemetry.health_section()
         out["dispatch"] = dispatch.health_section()
-        out["peers"] = {"enabled": False, "item": "ROADMAP A.6"}
+        out["peers"] = heartbeat.health_section()
         out["slo"] = telemetry.slo_section()
         out["stats"] = obs_stats.health_section()
         return out
@@ -472,9 +499,11 @@ class DataFrame:
 
     # -- actions -----------------------------------------------------------
     def _exec(self):
-        """The converted plan, under the session's conf."""
+        """The converted plan, under the session's conf and mesh."""
         from ..columnar import upload
+        from ..parallel.mesh import set_active_mesh
         set_active_conf(self.session.conf)
+        set_active_mesh(self.session.mesh)
         _configure_planes(self.session.conf)
         upload.configure(self.session.conf)
         return TpuOverrides(self.session.conf).apply(self._plan)
@@ -552,8 +581,10 @@ class DataFrame:
                 telemetry.note_query_latency(priority, wall_ns)
             if store is not None:
                 profile = self.session._last_query_profile
+                mesh = self.session.mesh
                 store.append(obs_history.build_capsule(
                     query_id=ctx.ctx_id,
+                    mesh_devices=1 if mesh is None else mesh.devices.size,
                     fingerprint=getattr(profile, "fingerprint", None),
                     ok=ok, priority=priority, attempts=ctx.attempt_no,
                     wall_ns=wall_ns, phases=phases,

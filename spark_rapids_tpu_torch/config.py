@@ -24,10 +24,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.pallas.enabled` | not ported by design (ROADMAP A: the port has no tier switch) | true |
 | `tpu.pallas.fusedTier` | not ported by design | auto, on |
 | `tpu.pallas.fusedTier.benchFile` | not ported by design | default |
-| `sql.exchange.roundBytes`, `tpu.shuffle.ici.enabled` | A.6 (the mesh lane) | default |
-| `tpu.shuffle.devicePartition.enabled` | A.6 (the host split) | true |
-| `tpu.shuffle.deadPeerInvalidation.enabled` | A.6 (heartbeats) | any: no peers on one card |
-| `tpu.shuffle.planExchange` | A.6 (the mesh planner) | any: there is no mesh, as in the JAX package without one |
 | `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
 
 The ingest reads `tpu.transfer.packedUpload.enabled` at each upload
@@ -66,6 +62,14 @@ reads `sql.cpuFallback.enabled` (a Project or Filter without a device
 path runs on the host row engine), `sql.optimizer.enabled` (the
 cost-based placement, plan/cost.py) and `sql.udfCompiler.enabled` (the
 UDF compiler, udf_compiler).
+
+The mesh lane reads its entries where the JAX package does: the planner
+`tpu.shuffle.planExchange` (`_plan_mesh`), ShuffleExchangeExec
+`sql.exchange.roundBytes` (its rounds), the host exchange
+`tpu.shuffle.ici.enabled` and `tpu.shuffle.devicePartition.enabled` at
+its construction, and the heartbeat's dead-peer hook
+`tpu.shuffle.deadPeerInvalidation.enabled`
+(exec/speculation_shield.on_peer_dead).
 """
 
 from __future__ import annotations
@@ -988,11 +992,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     PALLAS_ENABLED.key: (_BY_DESIGN, ()),
     PALLAS_FUSED_TIER.key: (_BY_DESIGN, ("on",)),
     PALLAS_FUSED_BENCH_FILE.key: (_BY_DESIGN, ()),
-    EXCHANGE_ROUND_BYTES.key: ("ROADMAP A.6", ()),
-    SHUFFLE_ICI_ENABLED.key: ("ROADMAP A.6", ()),
-    SHUFFLE_DEVICE_PARTITION.key: ("ROADMAP A.6", ()),
-    DEAD_PEER_INVALIDATION_ENABLED.key: ("ROADMAP A.6", _ANY),
-    SHUFFLE_PLAN_EXCHANGE.key: ("ROADMAP A.6", _ANY),
     DEBUG_DUMP_PATH.key: ("ROADMAP A.9c (utils/dump.py)", ()),
 }
 

@@ -330,19 +330,20 @@ class TpuExec:
                           graph=graph, cause=cause, cause_of=cause_of)
 
     @contextlib.contextmanager
-    def batch_harness(self, fault_key: Optional[str] = None):
+    def batch_harness(self, fault_key: Optional[str] = None,
+                      fault_point: str = "device.dispatch"):
         """The per-batch hooks of a stage step, around its one site call
         and never inside a captured body: the governed query's cancel
-        check, and the `device.dispatch` fault point keyed by the step.
-        The program site adds the dispatch metric, the kernel launches and
-        gathers of a replay and the hang bound after it (obs/dispatch.py).
-        """
+        check, and the fault point (`device.dispatch`, or the mesh round's
+        `shuffle.ici_exchange`) keyed by the step. The program site adds
+        the dispatch metric, the kernel launches and gathers of a replay
+        and the hang bound after it (obs/dispatch.py)."""
         from .. import faults
         from . import lifecycle
         qctx = lifecycle.current_context()
         if qctx is not None:
             qctx.tick()
-        faults.check("device.dispatch", key=fault_key)
+        faults.check(fault_point, key=fault_key)
         yield
 
     def all_metrics(self, level: Optional[int] = None) -> Dict[str, int]:

@@ -63,12 +63,41 @@ consulted after the write, from its measured per-partition bytes:
 
 ShuffledHashJoinExec converts to one single-build pass when its build
 exchange measures at or under adaptive.autoBroadcastMaxBytes (the
-stream side's exchange is skipped). The JAX package also flags the
-stream-side exchange (`_adaptive_probe_split`), which only its mesh lane
-reads; the port has no mesh lane, so it keeps no such flag.
+stream side's exchange is skipped), and flags its stream-side host
+exchange (`_adaptive_probe_split`): a skew split needs the host lane's
+map-granular files, so that exchange stands down from the device lane.
 
-Left out: the mesh exchange ShuffleExchangeExec and the ICI lane (ROADMAP
-A.6).
+`tpu.shuffle.devicePartition.enabled=false` splits hash, roundrobin and
+single partitioning on the host instead (`_write_map`'s host lane: the
+pid on the device for hash keys, then the batch fetched and partitioned
+by numpy), as the JAX package does; the user asks for it, so it is a plan
+and not a fallback.
+
+The mesh lane (parallel/, ROADMAP A.6), over the session's active mesh:
+
+  * ShuffleExchangeExec, the planner's exchange over a mesh
+    (`_plan_mesh`): the identity with no mesh or a one-shard mesh, else
+    rounds bounded by sql.exchange.roundBytes, each grouping its batches
+    one group a shard, measuring every shard's partition histogram and
+    longest string in one host read, and running the all-to-all
+    (parallel/exchange.exchange_columns) on a grid sized to the measure;
+    each shard's received rows are staged as SpillableBatches, drained
+    per partition one piece at a time.
+  * The host exchange's device lane (`_ici_eligible`, with
+    tpu.shuffle.ici.enabled): when the active mesh's shard count equals
+    the partition count, each round takes one map batch a shard in map
+    order, so each partition receives its rows in the host lane's order,
+    bit for bit; the round robin cursor is the host lane's. It stands
+    down to the host lane for range partitioning, an array or map
+    payload, a mesh of another size, an open `ici_exchange` breaker and
+    an armed skew split (`adaptive_skew_split`, counted and emitted as
+    a fallback). A failing round (the `shuffle.ici_exchange` fault point)
+    counts against the breaker and the rest of the stream takes the host
+    lane; each partition then drains its staged pieces first and the host
+    lane's stream after (`_drain_staged`). Staged shards are catalog
+    entries tagged `ici_exchange`: they count against the device budget,
+    spill, and are released when their partition stream is closed,
+    dropped unstarted, or never handed out.
 """
 
 from __future__ import annotations
@@ -214,6 +243,353 @@ class _PartitionStream:
         self.close()
 
 
+NUM_HOST_READS = "numHostReads"
+NUM_ROUNDS = "numRounds"
+
+
+def _measure(shards: Sequence[ColumnarBatch], pids, n: int) -> np.ndarray:
+    """Every shard's rows per partition and its longest active string (a
+    struct's string children included: the padded lane carries them at
+    the same width), in one host read: an (shards, n + 1) int64 array,
+    the length last."""
+    from ..ops.basic import active_mask
+    from ..ops.strings import string_lengths
+    from ..parallel.exchange import string_columns
+    rows = []
+    home = shards[0].device
+    for b, pid in zip(shards, pids):
+        counts = torch.zeros(n + 1, dtype=torch.int64, device=b.device)
+        counts = counts.scatter_add_(0, pid.long(),
+                                     torch.ones_like(pid, dtype=torch.int64))[:n]
+        longest = torch.zeros((), dtype=torch.int64, device=b.device)
+        act = active_mask(b.num_rows, b.capacity, b.device)
+        for c in string_columns(b.columns):
+            lens = torch.where(act, string_lengths(c), 0)
+            longest = torch.maximum(longest, lens.max().to(torch.int64))
+        rows.append(torch.cat([counts.to(torch.int64), longest.reshape(1)])
+                    .to(home, non_blocking=True))
+    return torch.stack(rows).cpu().numpy()
+
+
+def _shard_inputs(batches, schema: Schema, devs) -> List[ColumnarBatch]:
+    """One batch a shard (an empty one where there is none), each on its
+    shard's device at its own capacity: the JAX package pads every shard
+    to the largest for its stacked program; the port's loop over the
+    shards needs no padding, so an empty shard hashes, sorts and gathers
+    a 128-row bucket, not the largest shard's."""
+    from ..parallel.distributed import batch_to_device
+    out = []
+    for d, dev in enumerate(devs):
+        b = batches[d] if d < len(batches) else None
+        out.append(_empty_output(schema, dev) if b is None
+                   else batch_to_device(b, dev))
+    return out
+
+
+def _unspill(pieces) -> Iterator[ColumnarBatch]:
+    """Staged shard pieces one at a time, each closed once handed out; a
+    failed promotion closes its own piece, and an early close drops the
+    staged rest."""
+    it = iter(pieces)
+    try:
+        for sp in it:
+            try:
+                b = sp.get_batch()
+                sp.release()
+            except BaseException:
+                sp.close()
+                raise
+            sp.close()
+            yield b
+    finally:
+        for sp in it:
+            sp.close()
+
+
+def _close_pieces(pieces) -> None:
+    for sp in pieces:
+        sp.close()
+
+
+def _release(pieces, host) -> None:
+    """A mesh partition stream is done: its staged pieces go, and the
+    host lane's stream it chains, when there is one."""
+    _close_pieces(pieces)
+    if host is not None:
+        host.close()
+
+
+def _chain_rest(pending: List[ColumnarBatch], source
+                ) -> Iterator[ColumnarBatch]:
+    """The batches in hand, then the rest of `source`; closing it closes
+    `source`."""
+    try:
+        yield from pending
+        yield from source
+    finally:
+        source.close()
+
+
+def _mesh_round(mesh, groups, schema: Schema, pid_of, hints=None):
+    """One all-to-all round over `mesh`: groups[d] (a batch, or None for
+    none) is shard d's input and pid_of(d, local) its pids. One host read
+    measures every shard's rows per partition and its longest string, so
+    the grid fits the largest partition and the string lanes the longest
+    string. `hints` ([rows, width], raised in place) are running
+    high-water marks that keep later, smaller rounds on one grid. Returns
+    (the received shard batches, the (shards, partitions) rows, the slot
+    cap, the string width)."""
+    from ..parallel.exchange import exchange_columns, negotiate_slot_cap
+    devs = mesh.shard_devices
+    n = len(devs)
+    local = _shard_inputs(groups, schema, devs)
+    caps = [b.capacity for b in local]
+    pids = [pid_of(d, b) for d, b in enumerate(local)]
+    stats = _measure(local, pids, n)
+    per_map = stats[:, :n]
+    largest = int(per_map.max())
+    width = max(8, (int(stats[:, n].max()) + 7) // 8 * 8)
+    if hints is not None:
+        hints[0] = largest = max(hints[0], largest)
+        hints[1] = width = max(hints[1], width)
+    slot_cap = negotiate_slot_cap(largest, max(caps))
+    cols, n_recv = exchange_columns(
+        [b.columns for b in local], (), [b.num_rows for b in local], caps,
+        mesh, n, slot_cap=slot_cap, string_width=width, pids=pids)
+    totals = per_map.sum(axis=0)
+    shards = [ColumnarBatch(c, r, schema, int(t))
+              for c, r, t in zip(cols, n_recv, totals)]
+    return shards, per_map, slot_cap, width
+
+
+def _stage(staged: List[list], shards, origin=None) -> None:
+    """A round's received shards onto each partition's staged pieces."""
+    from ..memory.spillable import SpillableBatch
+    for d, shard in enumerate(shards):
+        staged[d].append(SpillableBatch.from_batch(shard, origin=origin))
+
+
+def _staged_partitions(op: TpuExec, staged, devs, stage_name: str,
+                       host_parts=None) -> Iterator[Iterator[ColumnarBatch]]:
+    """A mesh exchange's partition streams, one a shard's staged pieces
+    (with `host_parts`, each chained with the host lane's stream of its
+    partition). A stream closed, or dropped unstarted, releases its
+    staged pieces; so does the outer stream, closed early, for those it
+    never handed out."""
+    handed = 0
+    try:
+        for p in range(len(staged)):
+            host = next(host_parts) if host_parts is not None else None
+            handed += 1
+            yield _PartitionStream(
+                lambda p=p, host=host: _drain_staged(
+                    op, staged[p], devs[p], stage_name, host),
+                lambda p=p, host=host: _release(staged[p], host))
+    finally:
+        for q in range(handed, len(staged)):
+            _close_pieces(staged[q])
+        if host_parts is not None:
+            host_parts.close()
+
+
+def _drain_staged(op: TpuExec, pieces, dev, stage_name: str, host=None
+                  ) -> Iterator[ColumnarBatch]:
+    """One partition: its staged pieces (pipelined: the unspill of piece
+    k + 1 overlaps the consumer's work on k), then the host lane's stream
+    when there is one (it yields at least an empty batch, so the staged
+    side adds none); with neither, one empty batch on `dev`."""
+    out_batches = op.metrics[NUM_OUTPUT_BATCHES]
+    try:
+        if pieces:
+            stage = op.pipeline_stage(_unspill(pieces), stage_name)
+            try:
+                for b in stage:
+                    out_batches.add(1)
+                    yield b
+            finally:
+                stage.close()
+        elif host is None:
+            out_batches.add(1)
+            yield _empty_output(op.output_schema, dev)
+        if host is not None:
+            yield from host
+    finally:
+        if host is not None:
+            host.close()
+
+
+class ShuffleExchangeExec(TpuExec):
+    """Hash-repartition the child's rows across the mesh so equal
+    partition keys meet on one shard (the reference's
+    GpuShuffleExchangeExecBase over its UCX transport). With no mesh or a
+    one-shard mesh it is the identity. The flat stream yields each
+    shard's staged pieces in partition order; partition-aware consumers
+    take the boundaries from `execute_partitions()`."""
+
+    def __init__(self, partition_exprs: Sequence[Expression], child: TpuExec,
+                 mesh=None, conf=None):
+        super().__init__(child)
+        from ..config import EXCHANGE_ROUND_BYTES, active_conf
+        from ..parallel.mesh import active_mesh
+        self.partition_exprs = list(partition_exprs)
+        self._mesh = mesh if mesh is not None else active_mesh()
+        if self._mesh is not None and \
+                self._mesh.devices.size != self.n_partitions:
+            raise ValueError(f"the exchange runs over the mesh's "
+                             f"{self.n_partitions}-shard data axis, not "
+                             f"{self._mesh.devices.size} devices")
+        self._bound = bind_projection(self.partition_exprs,
+                                      child.output_schema)
+        self._round_bytes = (conf or active_conf()).get(EXCHANGE_ROUND_BYTES)
+        self.rounds = 0
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    @property
+    def n_partitions(self) -> int:
+        from ..parallel.mesh import mesh_axis_size
+        return 1 if self._mesh is None else mesh_axis_size(self._mesh)
+
+    def additional_metrics(self):
+        return (NUM_INPUT_BATCHES, NUM_INPUT_ROWS, NUM_OUTPUT_BATCHES,
+                PARTITION_SIZE, SHUFFLE_WRITE_TIME, NUM_HOST_READS,
+                NUM_ROUNDS) + PIPELINE_STAGE_METRICS
+
+    @property
+    def runs_own_pipeline_stage(self) -> bool:
+        # _drain_staged prefetches the staged pieces through its own
+        # pipelined() stage
+        return True
+
+    def _local_pid(self, local: ColumnarBatch, n: int) -> torch.Tensor:
+        from ..parallel.exchange import partition_ids
+        keys = [e.columnar_eval(local) for e in self._bound]
+        return partition_ids(keys, local.num_rows, local.capacity, n)
+
+    def _exchange_round(self, batches: List[ColumnarBatch]):
+        """One all-to-all over a bounded group of input batches (shard d
+        takes batches d, d + n, ..., concatenated). Returns (the n
+        received shard batches, the partitions' row totals)."""
+        from .coalesce import concat_batches
+        n = self.n_partitions
+        schema = self.output_schema
+        groups = []
+        for d in range(n):
+            g = batches[d::n]
+            groups.append(None if not g else g[0] if len(g) == 1
+                          else concat_batches(g, schema))
+        shards, per_map, _, _ = _mesh_round(
+            self._mesh, groups, schema, lambda d, b: self._local_pid(b, n))
+        self.metrics[NUM_HOST_READS].add(1)
+        return shards, per_map.sum(axis=0)
+
+    def internal_execute(self) -> Iterator[ColumnarBatch]:
+        parts = self.execute_partitions()
+        try:
+            for part in parts:
+                yield from part
+        finally:
+            parts.close()
+
+    def execute_partitions(self) -> Iterator[Iterator[ColumnarBatch]]:
+        """One lazy batch stream per partition, in partition order; the
+        rounds run in full before the first is handed out. A stream
+        closed or dropped undrained releases its staged pieces."""
+        self.stamp_inputs()
+        if self.n_partitions == 1:
+            yield self._stream_single()
+            return
+        staged = self._run_rounds()
+        yield from _staged_partitions(self, staged, self._mesh.shard_devices,
+                                      "exchange-read")
+
+    def _stream_single(self) -> Iterator[ColumnarBatch]:
+        in_batches = self.metrics[NUM_INPUT_BATCHES]
+        in_rows = self.metrics[NUM_INPUT_ROWS]
+        src = self.child.execute()
+        try:
+            for b in src:
+                in_batches.add(1)
+                if b._host_rows is not None:
+                    in_rows.add(b._host_rows)
+                else:
+                    in_rows.add_device(b.num_rows)
+                yield b
+        finally:
+            src.close()
+
+    def _run_rounds(self):
+        """The child's batches through the all-to-all in rounds of at most
+        sql.exchange.roundBytes of input; each round's received shards
+        are staged as SpillableBatches. Returns the staged pieces of each
+        partition."""
+        from ..obs import events as obs_events
+        from ..obs import phase as obs_phase
+        from ..obs import stats as obs_stats
+        n = self.n_partitions
+        in_batches = self.metrics[NUM_INPUT_BATCHES]
+        in_rows = self.metrics[NUM_INPUT_ROWS]
+        staged: List[list] = [[] for _ in range(n)]
+        pending: List[ColumnarBatch] = []
+        pending_bytes = 0
+        part_totals = None
+        self.rounds = 0
+        # the mesh exchange measures rows per partition, not bytes: its
+        # skew basis is rows
+        stats_rec = obs_stats.ExchangeRecorder(type(self).__name__,
+                                               self._op_id, n)
+
+        def flush():
+            nonlocal pending, pending_bytes, part_totals
+            if not pending:
+                return
+            with self.metrics[SHUFFLE_WRITE_TIME].ns_timer(), \
+                    obs_phase.span("ici-collective"):
+                shards, totals = self._exchange_round(pending)
+            part_totals = totals if part_totals is None \
+                else part_totals + totals
+            stats_rec.record_map(totals.tolist(), None, 0)
+            _stage(staged, shards)
+            pending, pending_bytes = [], 0
+            self.rounds += 1
+            self.metrics[NUM_ROUNDS].add(1)
+
+        src = self.child.execute()
+        try:
+            for b in src:
+                in_batches.add(1)
+                if b._host_rows is not None:
+                    in_rows.add(b._host_rows)
+                else:
+                    in_rows.add_device(b.num_rows)
+                pending.append(b)
+                pending_bytes += b.nbytes
+                if pending_bytes >= self._round_bytes:
+                    flush()
+            flush()
+        except BaseException:
+            for pieces in staged:
+                _close_pieces(pieces)
+            raise
+        finally:
+            src.close()
+        if part_totals is not None:
+            max_part = int(part_totals.max())
+            self.metrics[PARTITION_SIZE].add(max_part)
+            obs_events.emit("exchange", exec=type(self).__name__,
+                            op_id=self._op_id, partitions=n,
+                            rounds=self.rounds,
+                            max_partition_rows=max_part)
+            stats_rec.finish_and_emit()
+        return staged
+
+    def node_description(self):
+        return (f"ShuffleExchangeExec[n={self.n_partitions}, "
+                f"keys={self.partition_exprs!r}]")
+
+
 class HostShuffleExchangeExec(TpuExec):
     """Repartition the child's rows through the host shuffle manager
     (the reference's MULTITHREADED shuffle). The flat stream yields each
@@ -256,8 +632,10 @@ class HostShuffleExchangeExec(TpuExec):
         #: the device of the map batches (the read seam promotes there)
         self._map_device = None
         from ..config import (ADAPTIVE_COALESCE_TARGET_BYTES,
-                              ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_MIN_BYTES,
-                              PARTITION_RECOVERY_ENABLED)
+                              ADAPTIVE_ENABLED, ADAPTIVE_SKEW_FACTOR,
+                              ADAPTIVE_SKEW_MIN_BYTES,
+                              PARTITION_RECOVERY_ENABLED,
+                              SHUFFLE_DEVICE_PARTITION, SHUFFLE_ICI_ENABLED)
         #: lineage capture (never for range: see the module docstring)
         self._capture_lineage = partitioning != "range" and bool(
             self._conf.get(PARTITION_RECOVERY_ENABLED))
@@ -268,6 +646,21 @@ class HostShuffleExchangeExec(TpuExec):
             ADAPTIVE_COALESCE_TARGET_BYTES)
         #: the last write's measured bytes (single-build conversion)
         self._adaptive_write_bytes: Optional[int] = None
+        self._adaptive_enabled = bool(self._conf.get(ADAPTIVE_ENABLED))
+        #: hash, roundrobin and single split on the device unless
+        #: tpu.shuffle.devicePartition.enabled is false
+        self._device_partition = partitioning != "range" and bool(
+            self._conf.get(SHUFFLE_DEVICE_PARTITION))
+        #: the device lane (tpu.shuffle.ici.enabled), the mesh it runs
+        #: over (the active mesh when eligible), and the running
+        #: high-water marks [rows, string width] that keep later rounds
+        #: on one grid
+        self._ici_enabled = bool(self._conf.get(SHUFFLE_ICI_ENABLED))
+        self._ici_mesh = None
+        self._ici_hints = [0, 8]
+        #: set by a ShuffledHashJoinExec on its stream-side exchange: an
+        #: armed skew split needs the host lane's map-granular files
+        self._adaptive_probe_split = False
 
     @property
     def output_schema(self) -> Schema:
@@ -283,8 +676,8 @@ class HostShuffleExchangeExec(TpuExec):
                 SHUFFLE_PACK_TIME, SHUFFLE_SERIALIZE_TIME,
                 SHUFFLE_COMPRESS_TIME, SHUFFLE_IO_TIME, SHUFFLE_FETCH_TIME,
                 SHUFFLE_FETCH_BYTES, NUM_FRAMES, RAW_BYTES, NUM_FRAMES_READ,
-                NUM_MAPS_WITH_ROWS, NUM_REORDER_GATHERS) \
-            + UPLOAD_METRICS + PIPELINE_STAGE_METRICS
+                NUM_MAPS_WITH_ROWS, NUM_REORDER_GATHERS, NUM_HOST_READS,
+                NUM_ROUNDS) + UPLOAD_METRICS + PIPELINE_STAGE_METRICS
 
     @property
     def runs_own_pipeline_stage(self) -> bool:
@@ -367,7 +760,7 @@ class HostShuffleExchangeExec(TpuExec):
             writer.write([[] for _ in range(self.n_partitions)], register)
             return writer, "host", 0, [0] * self.n_partitions
         self.metrics[NUM_MAPS_WITH_ROWS].add(1)
-        if self.partitioning != "range":
+        if self._device_partition:
             t0 = time.perf_counter_ns()
             cols, bounds = self._device_split(b, n)
             pack_ns = time.perf_counter_ns() - t0
@@ -377,9 +770,11 @@ class HostShuffleExchangeExec(TpuExec):
                                 bounds, register)
             return writer, "device", pack_ns, np.diff(bounds).tolist()
         from ..columnar.transfer import fetch_batch_host
+        dev_pid = self._pid_kernel(b) if self.partitioning == "hash" \
+            else None
         cols, _ = fetch_batch_host(b)
         host = ColumnarBatch(cols, n, self.output_schema)
-        pid = self._pid_for(host, n, range_bounds)
+        pid = self._pid_for(host, n, range_bounds, dev_pid)
         parts = partition_batch_host(host, pid, self.n_partitions)
         writer.write([[p] if p.num_rows_host else [] for p in parts],
                      register)
@@ -412,8 +807,20 @@ class HostShuffleExchangeExec(TpuExec):
                for i in range(self.n_partitions - 1)]
         return [sample[min(i, len(sample) - 1)] for i in idx]
 
-    def _pid_for(self, batch: ColumnarBatch, n: int, bounds) -> np.ndarray:
-        """Range pids of a host batch's first n rows."""
+    def _pid_for(self, batch: ColumnarBatch, n: int, bounds,
+                 dev_pid=None) -> np.ndarray:
+        """The pids of a host batch's first n rows: a hash batch's from
+        its device pid (`dev_pid`), round robin's from the cursor, range's
+        from the sampled bounds."""
+        if self.partitioning == "hash":
+            return dev_pid[:n].cpu().numpy().astype(np.int64)
+        if self.partitioning == "single":
+            return np.zeros(n, np.int64)
+        if self.partitioning == "roundrobin":
+            pid = (np.arange(n, dtype=np.int64) + self._rr_offset) \
+                % self.n_partitions
+            self._rr_offset = (self._rr_offset + n) % self.n_partitions
+            return pid
         keys = self._host_keys(batch, n)
         _ordinal, asc, nulls_first = self.range_order
         null_pid = 0 if nulls_first else self.n_partitions - 1
@@ -486,10 +893,26 @@ class HostShuffleExchangeExec(TpuExec):
         in full before the first stream is handed out. `flat` marks a
         partition-oblivious consumer: only then may adjacent small
         partitions come as one stream (a zipped pair of exchanges must
-        keep the static boundaries)."""
-        from ..shuffle.manager import HostShuffleReader, shuffle_manager
+        keep the static boundaries). The device lane runs when eligible
+        (`_ici_eligible`), else the host lane."""
         self.stamp_inputs()
         self._adaptive_write_bytes = None
+        if self._ici_eligible():
+            yield from self._execute_partitions_ici()
+        else:
+            yield from self._execute_partitions_host(flat)
+
+    def _execute_partitions_host(self, flat: bool = False,
+                                 override_source=None, stats_rec=None
+                                 ) -> Iterator[Iterator[ColumnarBatch]]:
+        """The host serialize lane, and the device lane's fallback:
+        `override_source` is then the rest of the stream after a failed
+        round (the round's batches still in hand, then the child's
+        unread batches), written with no lineage (a recompute would
+        replay the child from its first batch), the round robin cursor
+        going on from the rounds, `stats_rec` carrying the rounds' maps
+        and no adaptive read plan."""
+        from ..shuffle.manager import HostShuffleReader, shuffle_manager
         mgr = shuffle_manager()
         handle = mgr.register(self.n_partitions, self.output_schema)
         state = {"done": 0, "outer_done": False, "closed": False}
@@ -508,16 +931,23 @@ class HostShuffleExchangeExec(TpuExec):
             cleanup_if_finished()
 
         try:
-            self._rr_offset = 0
-            if self.partitioning == "range":
+            if override_source is not None:
+                source, bounds = override_source, None
+            elif self.partitioning == "range":
+                self._rr_offset = 0
                 source, bounds = self._range_source()
             else:
+                self._rr_offset = 0
                 source, bounds = self.child.execute(), None
-            stats_rec = self._write_phase(source, bounds, handle, mgr)
+            stats_rec = self._write_phase(source, bounds, handle, mgr,
+                                          stats_rec,
+                                          override_source is None)
             self._adaptive_write_bytes = stats_rec.total_bytes() or None
             reader = HostShuffleReader(handle, mgr, self._conf)
-            split_plan, flat_groups = self._adaptive_read_plan(
-                stats_rec, reader, handle, flat)
+            split_plan, flat_groups = ({}, None) \
+                if override_source is not None \
+                else self._adaptive_read_plan(stats_rec, reader, handle,
+                                              flat)
             dev = self.device
             if flat_groups is None:
                 flat_groups = [[p] for p in range(self.n_partitions)]
@@ -536,9 +966,12 @@ class HostShuffleExchangeExec(TpuExec):
             unregister()
             raise
 
-    def _write_phase(self, source, bounds, handle, mgr):
+    def _write_phase(self, source, bounds, handle, mgr, stats_rec=None,
+                     capture: bool = True):
         """Write every map batch of `source`; returns the exchange's
-        ExchangeRecorder (its measured bytes feed the read plan)."""
+        ExchangeRecorder (its measured bytes feed the read plan): a new
+        one, or `stats_rec` holding earlier maps. `capture` False writes
+        no lineage."""
         from ..obs import events as obs_events
         from ..obs import phase as obs_phase
         from ..obs import stats as obs_stats
@@ -546,8 +979,9 @@ class HostShuffleExchangeExec(TpuExec):
         in_batches = self.metrics[NUM_INPUT_BATCHES]
         in_rows = self.metrics[NUM_INPUT_ROWS]
         name = type(self).__name__
-        stats_rec = obs_stats.ExchangeRecorder(name, self._op_id,
-                                               self.n_partitions)
+        if stats_rec is None:
+            stats_rec = obs_stats.ExchangeRecorder(name, self._op_id,
+                                                   self.n_partitions)
         map_id = 0
         try:
             for b in source:
@@ -566,7 +1000,7 @@ class HostShuffleExchangeExec(TpuExec):
                 stats_rec.record_map(rows_pp, writer.partition_bytes,
                                      writer.bytes_written)
                 telemetry.add("exchange.write_bytes", writer.bytes_written)
-                if self._capture_lineage:
+                if self._capture_lineage and capture:
                     handle.lineage[mgr.map_data_path(
                         handle.shuffle_id, map_id)] = \
                         self._make_recompute(handle, mgr, map_id)
@@ -630,6 +1064,210 @@ class HostShuffleExchangeExec(TpuExec):
                 self._rr_offset = saved_rr
 
         return recompute
+
+    # -- the device lane over the mesh -------------------------------------
+    def _ici_eligible(self) -> bool:
+        """May this execution take the device lane? The conf, a partitioning
+        the device computes (range bounds are host objects), no array or
+        map payload (the lane carries fixed-width, string, struct and
+        decimal128 columns), an active mesh whose shards are the
+        partitions, a closed `ici_exchange` breaker, and no armed skew
+        split (a stand-down counted and emitted as a fallback). No is
+        the host lane, which is always right."""
+        from ..parallel.mesh import active_mesh, mesh_axis_size
+        from ..types import ArrayType, MapType, StructType
+        if not self._ici_enabled or self.n_partitions <= 1:
+            return False
+        if self.partitioning not in ("hash", "roundrobin", "single"):
+            return False
+
+        def collective_ok(dt) -> bool:
+            if isinstance(dt, (ArrayType, MapType)):
+                return False
+            if isinstance(dt, StructType):
+                return all(collective_ok(f.data_type) for f in dt.fields)
+            return True
+
+        if not all(collective_ok(f.data_type)
+                   for f in self.output_schema.fields):
+            return False
+        mesh = active_mesh()
+        if mesh is None or mesh_axis_size(mesh) != self.n_partitions \
+                or mesh.devices.size != self.n_partitions:
+            return False
+        from . import lifecycle
+        if not lifecycle.breaker_allows("ici_exchange"):
+            return False
+        if self._adaptive_probe_split and self._adaptive_enabled \
+                and self._skew_factor > 0:
+            from ..obs import events as obs_events
+            from ..shuffle.manager import note_ici_exchange
+            note_ici_exchange(fallbacks=1)
+            obs_events.emit("ici_exchange", exec=type(self).__name__,
+                            op_id=self._op_id, fallback=True,
+                            reason="adaptive_skew_split")
+            return False
+        self._ici_mesh = mesh
+        return True
+
+    def _ici_pid(self, local: ColumnarBatch, rr_off: int) -> torch.Tensor:
+        """A shard's pids: the hash of its keys, or round robin from the
+        cursor at its batch's first row (the host lane's assignment), or
+        partition 0; inactive rows get n."""
+        from ..ops.basic import active_mask
+        n = self.n_partitions
+        if self.partitioning == "hash":
+            return self._pid_kernel(local)
+        act = active_mask(local.num_rows, local.capacity, local.device)
+        if self.partitioning == "roundrobin":
+            iota = torch.arange(local.capacity, dtype=torch.int64,
+                                device=local.device)
+            return torch.where(act, (iota + rr_off) % n, n).to(torch.int32)
+        return torch.where(act, 0, n).to(torch.int32)
+
+    def _ici_exchange_round(self, batches, rr_offs, round_idx: int):
+        """One round: one map batch a shard, in map order (empty batches
+        pad the rest), so partition p receives its rows in the host lane's
+        map order. Returns (the n received shard batches, the
+        (shards, partitions) rows of each map batch)."""
+        from ..obs import events as obs_events
+        from ..obs import phase as obs_phase
+        from ..shuffle.manager import note_ici_exchange
+        from . import lifecycle, speculation_shield
+        n = self.n_partitions
+        rr = list(rr_offs) + [0] * (n - len(rr_offs))
+        lifecycle.engage_domain("ici_exchange")
+        t0 = time.perf_counter_ns()
+        # the round is the fault seam (key: its ordinal) and the
+        # ici-collective phase; a hang-bounded dispatch inside it names
+        # the ici_exchange domain
+        with obs_phase.span("ici-collective"), \
+                speculation_shield.dispatch_domain("ici_exchange"), \
+                self.batch_harness(fault_key=f"r{round_idx}",
+                                   fault_point="shuffle.ici_exchange"):
+            shards, per_map, slot_cap, width = _mesh_round(
+                self._ici_mesh, list(batches), self.output_schema,
+                lambda d, b: self._ici_pid(b, rr[d]), self._ici_hints)
+        collective_ns = time.perf_counter_ns() - t0
+        moved = sum(b.nbytes for b in shards)
+        rows = int(per_map.sum())
+        self.metrics[SHUFFLE_PACK_TIME].add(collective_ns)
+        self.metrics[NUM_HOST_READS].add(1)
+        self.metrics[NUM_ROUNDS].add(1)
+        note_ici_exchange(rounds=1, batches=len(batches), bytes=moved,
+                          collective_ns=collective_ns, host_reads=1)
+        obs_events.emit("ici_exchange", exec=type(self).__name__,
+                        op_id=self._op_id, round=round_idx, partitions=n,
+                        batches=len(batches), rows=rows, bytes=moved,
+                        slot_cap=slot_cap, width=width,
+                        fill=round(rows / float(n * n * slot_cap), 4),
+                        collective_ns=collective_ns)
+        return shards, per_map
+
+    def _execute_partitions_ici(self) -> Iterator[Iterator[ColumnarBatch]]:
+        """The device lane: the child's batches in rounds of one a shard,
+        each round measured and exchanged, its received shards staged as
+        SpillableBatches tagged `ici_exchange`. A classified-transient
+        failure of the round itself (not of the child's stream, which
+        propagates as on the host lane: a generator that raised is
+        finished, and its unread batches would be lost) counts against
+        the breaker, and the rest of the stream takes the host lane."""
+        from .. import faults
+        from ..obs import events as obs_events
+        from ..obs import stats as obs_stats
+        from ..shuffle.manager import note_ici_exchange
+        from . import lifecycle
+        n = self.n_partitions
+        devs = self._ici_mesh.shard_devices
+        in_batches = self.metrics[NUM_INPUT_BATCHES]
+        in_rows = self.metrics[NUM_INPUT_ROWS]
+        self._rr_offset = 0
+        self._ici_hints = [0, 8]
+        staged: List[list] = [[] for _ in range(n)]
+        pending: List[ColumnarBatch] = []
+        rr_offs: List[int] = []
+        state = {"rows": 0, "round": 0, "fell_back": False, "totals": None}
+        stats_rec = obs_stats.ExchangeRecorder(type(self).__name__,
+                                               self._op_id, n)
+
+        def try_flush() -> bool:
+            # only the round itself is inside the degradation seam: once
+            # its shards are in hand they are staged (replaying the
+            # batches on the host lane after that would duplicate rows)
+            try:
+                with self.metrics[SHUFFLE_WRITE_TIME].ns_timer():
+                    shards, per_map = self._ici_exchange_round(
+                        pending, rr_offs, state["round"])
+            except Exception as e:  # noqa: BLE001 — the degradation seam
+                if not faults.is_task_transient(e):
+                    raise
+                lifecycle.record_domain_failure("ici_exchange")
+                note_ici_exchange(fallbacks=1)
+                obs_events.emit("ici_exchange", exec=type(self).__name__,
+                                op_id=self._op_id, round=state["round"],
+                                fallback=True, error=str(e)[:200])
+                # the failed round's batches replay on the host lane from
+                # the cursor at its first batch
+                if rr_offs:
+                    self._rr_offset = rr_offs[0]
+                state["fell_back"] = True
+                return False
+            _stage(staged, shards, origin="ici_exchange")
+            totals = per_map.sum(axis=0)
+            state["totals"] = totals if state["totals"] is None \
+                else state["totals"] + totals
+            # one stats record a map batch (the host lane's granularity)
+            for d in range(len(pending)):
+                stats_rec.record_map(per_map[d].tolist(), None, 0)
+            in_batches.add(len(pending))
+            in_rows.add(state["rows"])
+            state["round"] += 1
+            state["rows"] = 0
+            del pending[:], rr_offs[:]
+            return True
+
+        source = self.child.execute()
+        try:
+            for b in source:
+                if self._map_device is None:
+                    self._map_device = b.device
+                rows = b.num_rows_host
+                rr_offs.append(self._rr_offset)
+                if self.partitioning == "roundrobin":
+                    self._rr_offset = (self._rr_offset + rows) % n
+                pending.append(b)
+                state["rows"] += rows
+                if len(pending) == n and not try_flush():
+                    break
+            if not state["fell_back"] and pending:
+                try_flush()
+        except BaseException:
+            source.close()
+            for pieces in staged:
+                _close_pieces(pieces)
+            raise
+        if state["totals"] is not None:
+            max_part = int(state["totals"].max())
+            self.metrics[PARTITION_SIZE].add(max_part)
+            obs_events.emit("exchange", exec=type(self).__name__,
+                            op_id=self._op_id, partitions=n,
+                            rounds=state["round"], lane="ici",
+                            max_partition_rows=max_part,
+                            partitioning=self.partitioning)
+        if not state["fell_back"]:
+            source.close()
+            stats_rec.finish_and_emit()
+            lifecycle.record_domain_success("ici_exchange")
+            yield from _staged_partitions(self, staged, devs, "ici-read")
+            return
+        # the hybrid drain: the staged rounds hold the earlier map
+        # batches, the host lane the rest; the recorder rides into the
+        # host lane, which emits the execution's one exchange_stats
+        host_parts = self._execute_partitions_host(
+            override_source=_chain_rest(list(pending), source),
+            stats_rec=stats_rec)
+        yield from _staged_partitions(self, staged, devs, "ici-read",
+                                      host_parts)
 
     # -- the adaptive read plan --------------------------------------------
     def _adaptive_read_plan(self, stats_rec, reader, handle, flat: bool):
@@ -871,6 +1509,10 @@ class ShuffledHashJoinExec(TpuExec):
         build_unmatched = join._need_build_flags
         stream_child, build_child = (self.children[0], self.children[1]) \
             if build_right else (self.children[1], self.children[0])
+        if isinstance(stream_child, HostShuffleExchangeExec):
+            # the skew split may cut the stream side's partitions into
+            # map-granular sub-reads, which need the host lane's files
+            stream_child._adaptive_probe_split = True
         build_parts = self._measured_build(stream_child, build_child)
         if build_parts is None:
             lit_ = self.children[0].execute_partitions()

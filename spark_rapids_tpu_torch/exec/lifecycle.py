@@ -36,13 +36,15 @@ circuit breakers.
   that sent a CUDA kernel to its plain PyTorch version would be the
   fallback the port forbids (ROADMAP C): the port keeps only the
   domains whose safe path is another real plan — `adaptive`, whose
-  safe path is the static plan, and `device_dispatch`, whose safe path
+  safe path is the static plan; `device_dispatch`, whose safe path
   demotes a compiled stage (exec/stage_compiler.py) to the per-operator
   execs over the same sources, which launch the same hand-written
-  kernels. A kernel family's transient attempt failures are counted
-  (`kernel_failures()`) and emitted (`kernel_failure`), and never change
-  the route. `health()` reports the JAX package's sections, with
-  `ici_exchange` (A.6) marked as not ported.
+  kernels; and `ici_exchange`, whose safe path is the host exchange's
+  serialize lane instead of its device lane, the same partition ids and
+  reorders on the same kernels. A kernel family's transient attempt
+  failures are counted (`kernel_failures()`) and emitted
+  (`kernel_failure`), and never change the route. `health()` reports
+  the JAX package's sections.
 """
 
 from __future__ import annotations
@@ -387,11 +389,9 @@ BREAKER_DOMAINS: Dict[str, str] = {
     "device_dispatch": "compiled stages (exec/stage_compiler.py) -> "
                        "per-operator execution over the same sources, "
                        "on the same hand-written kernels",
-}
-
-#: the JAX package's domains the port does not have -> why
-NOT_PORTED_DOMAINS: Dict[str, str] = {
-    "ici_exchange": "ROADMAP A.6 (the mesh lane)",
+    "ici_exchange": "the host exchange's device lane (exec/exchange.py) "
+                    "-> the host serialize lane over the same kernels: "
+                    "exchanges skip the lane while open",
 }
 
 #: the CUDA kernel families (the six wrappers' labels): their failures
@@ -654,8 +654,6 @@ def health() -> Dict[str, Any]:
                 "open_for_ms": int((now - b.opened_at) * 1000)
                 if b.state != "closed" else 0}
             for d, b in _breakers.items()}
-    for d, item in NOT_PORTED_DOMAINS.items():
-        breakers[d] = {"state": "not ported", "item": item}
     from . import workload
     return {"breakers": breakers,
             "kernel_failures": kernel_failures(),

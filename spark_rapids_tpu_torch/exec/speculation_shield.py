@@ -37,9 +37,9 @@ pieces.
 
 * **Dead-peer invalidation** (`on_peer_dead`): a peer's death invalidates
   its registered map outputs (shuffle/manager.invalidate_peer_outputs),
-  so their next read recomputes them from lineage. What calls it, the
-  heartbeat, and its gate (`shuffle.deadPeerInvalidation.enabled`) are
-  the mesh lane's (ROADMAP A.6).
+  so their next read recomputes them from lineage. The heartbeat
+  manager's dead-peer emit calls it (parallel/heartbeat.install), gated
+  by `shuffle.deadPeerInvalidation.enabled`.
 
 Every piece is off by default and costs one conf or pointer check when
 off. The counters are process-cumulative (`counters()`).
@@ -437,10 +437,15 @@ def current_dispatch_domain() -> str:
 # ---------------------------------------------------------------------------
 
 def on_peer_dead(executor_id: str) -> None:
-    """A peer died: invalidate its registered map outputs, so the next
-    read recovers them through the partition-granular lane. The gate,
-    `shuffle.deadPeerInvalidation.enabled`, belongs to the heartbeat that
-    calls this (ROADMAP A.6), as does the conf read."""
+    """The HeartbeatManager's dead-peer hook (wired by
+    parallel/heartbeat.install): invalidate the dead peer's registered
+    map outputs, so the next read recovers them through the
+    partition-granular lane. Gated by
+    `shuffle.deadPeerInvalidation.enabled`; runs outside the heartbeat
+    lock, on whatever thread noticed the transition."""
+    from ..config import DEAD_PEER_INVALIDATION_ENABLED, active_conf
+    if not active_conf().get(DEAD_PEER_INVALIDATION_ENABLED):
+        return
     from ..shuffle.manager import shuffle_manager
     n = shuffle_manager().invalidate_peer_outputs(executor_id)
     if n:

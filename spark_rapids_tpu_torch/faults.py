@@ -32,10 +32,6 @@ everything that can die at runtime besides OOM.
     error that poisons the CUDA context for the rest of the process, so
     an in-process retry cannot clear it, and retrying a kernel that
     fails to build or load would only hide a broken kernel.
-
-Not ported with its item: the `shuffle.ici_exchange` point (A.6, the
-mesh lane); a spec naming it raises NotImplementedError naming the
-item.
 """
 
 from __future__ import annotations
@@ -66,11 +62,8 @@ FAULT_POINTS: Dict[str, str] = {
                         "(exec/pipeline.py PipelinedIterator)",
     "shuffle.skew_split": "adaptive skew-split sub-read frame "
                           "(shuffle/manager.py read_partition_maps)",
-}
-
-#: the JAX package's points whose seams are not ported yet -> the item
-NOT_PORTED_POINTS: Dict[str, str] = {
-    "shuffle.ici_exchange": "ROADMAP A.6",
+    "shuffle.ici_exchange": "a round of the host exchange's device lane "
+                            "(exec/exchange.py _ici_exchange_round)",
 }
 
 KINDS = ("io", "device", "corrupt", "delay")
@@ -263,10 +256,6 @@ def parse_faults(spec: str) -> Optional[FaultPlan]:
             continue
         point, _, kvs = part.partition(":")
         point = point.strip()
-        if point in NOT_PORTED_POINTS:
-            raise NotImplementedError(
-                f"fault point {point!r} waits for its seam "
-                f"({NOT_PORTED_POINTS[point]})")
         if point not in FAULT_POINTS:
             raise ValueError(f"unknown fault point {point!r}; known: "
                              f"{sorted(FAULT_POINTS)}")
@@ -386,6 +375,7 @@ def uniform_spec(prob: float, seed: int, points=None) -> str:
         "spill.disk_write": "corrupt",
         "shuffle.decode": "corrupt",
         "shuffle.fetch": "io",
+        "shuffle.ici_exchange": "device",
         "shuffle.skew_split": "corrupt",
         "io.multifile_read": "io",
     }

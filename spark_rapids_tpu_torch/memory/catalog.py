@@ -59,7 +59,7 @@ import time
 import uuid
 import zlib
 from enum import IntEnum
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,10 +176,14 @@ def read_spill_file(path: str) -> List[torch.Tensor]:
 class _Entry:
     __slots__ = ("handle_id", "tier", "batch", "host_leaves", "treedef",
                  "device", "disk_path", "nbytes", "priority", "in_use",
-                 "closed", "writeback", "pending", "error", "owner", "seq")
+                 "closed", "writeback", "pending", "error", "owner", "seq",
+                 "origin")
 
-    def __init__(self, handle_id, batch, priority, owner=None, seq=0):
+    def __init__(self, handle_id, batch, priority, owner=None, seq=0,
+                 origin=None):
         self.handle_id = handle_id
+        #: the seam that registered it (bytes_by_origin), None untagged
+        self.origin = origin
         #: the workload ticket of the registering query (None ungoverned)
         self.owner = owner
         #: registration ordinal: the fault-injection work-item key
@@ -243,16 +247,19 @@ class BufferCatalog:
         self._add_seq = itertools.count(1)
 
     # -- registration ------------------------------------------------------
-    def add(self, batch, priority: int = ACTIVE_BATCHING_PRIORITY) -> str:
+    def add(self, batch, priority: int = ACTIVE_BATCHING_PRIORITY,
+            origin: Optional[str] = None) -> str:
         """Register a device batch; returns a handle id. Accounts its
-        footprint against the device budget."""
+        footprint against the device budget. `origin` names the seam that
+        registered it (bytes_by_origin)."""
         from ..exec import workload
         from .budget import memory_budget
         handle = uuid.uuid4().hex
         owner = workload.current_ticket()
         with self._lock:
             seq = next(self._add_seq)
-        entry = _Entry(handle, batch, priority, owner=owner, seq=seq)
+        entry = _Entry(handle, batch, priority, owner=owner, seq=seq,
+                       origin=origin)
         with self._lock:
             self.peak_pinned_bytes = max(self.peak_pinned_bytes,
                                          self._pinned_bytes + entry.nbytes)
@@ -333,6 +340,22 @@ class BufferCatalog:
     def size_of(self, handle: str) -> int:
         with self._lock:
             return self._entries[handle].nbytes
+
+    def bytes_by_origin(self) -> Dict[str, Tuple[int, int]]:
+        """{origin: (device bytes, host bytes)} over the open entries,
+        untagged ones under "untagged": the mesh exchange's staged shards
+        show under "ici_exchange"."""
+        out: Dict[str, list] = {}
+        with self._lock:
+            for e in self._entries.values():
+                if e.closed:
+                    continue
+                row = out.setdefault(e.origin or "untagged", [0, 0])
+                if e.tier == StorageTier.DEVICE:
+                    row[0] += e.nbytes
+                elif e.tier == StorageTier.HOST:
+                    row[1] += e.nbytes
+        return {k: tuple(v) for k, v in out.items()}
 
     # -- spilling ----------------------------------------------------------
     def synchronous_spill(self, target_bytes: Optional[int],

@@ -4,9 +4,12 @@ spark_rapids_tpu/memory/device_manager.py (reference GpuDeviceManager.scala
 
 `initialize()` picks the card (`cuda:<ordinal>`, or the CPU when the caller
 asks for it, as the tests do), sizes the device memory budget against what
-`torch.cuda.mem_get_info` reports, and resets the admission semaphore. The
-JAX package can also build a device mesh here for its collective shuffle;
-that waits for the port's exchange (ROADMAP A.6).
+`torch.cuda.mem_get_info` reports, and resets the admission semaphore.
+With `mesh_axes` ({axis name: size}, the data axis) it also builds the
+device mesh of the collective shuffle on the manager's device
+(parallel/mesh.device_mesh). The JAX package's branch imports a
+`build_mesh` its parallel/mesh.py does not define, so it raises there
+(ROADMAP C.5); the port builds the mesh that branch meant.
 """
 
 from __future__ import annotations
@@ -25,17 +28,24 @@ class DeviceManager:
     def __init__(self):
         self.initialized = False
         self.device: Optional[torch.device] = None
+        #: the mesh built from `mesh_axes`, None without
+        self.mesh = None
         self._lock = threading.Lock()
 
     def initialize(self, device_ordinal: int = 0,
                    mesh_axes: Optional[dict] = None, device=None
                    ) -> "DeviceManager":
         """Executor init (reference Plugin.scala:484): pick the card, size
-        the budget, arm the semaphore. `device="cpu"` runs on the CPU with
+        the budget, arm the semaphore, and build the mesh `mesh_axes`
+        names ({"data": n}: n shards on the manager's device type, the
+        first n cards on the card). `device="cpu"` runs on the CPU with
         the budget's default size."""
         if mesh_axes:
-            raise NotImplementedError(
-                "a device mesh waits for the exchange (ROADMAP A.6)")
+            from ..parallel.mesh import DATA_AXIS
+            unknown = set(mesh_axes) - {DATA_AXIS}
+            if unknown:
+                raise ValueError(f"mesh axes {sorted(unknown)}: the mesh "
+                                 f"has the one axis {DATA_AXIS!r}")
         with self._lock:
             if self.initialized:
                 return self
@@ -54,6 +64,11 @@ class DeviceManager:
                 reset_memory_budget(conf.get(HBM_BUDGET_BYTES) or int(
                     min(free, total * conf.get(HBM_POOL_FRACTION))))
             reset_tpu_semaphore()
+            if mesh_axes:
+                from ..parallel.mesh import DATA_AXIS, device_mesh
+                self.mesh = device_mesh(
+                    mesh_axes[DATA_AXIS], device=self.device
+                    if self.device.type == "cpu" else None)
             self.initialized = True
             return self
 
@@ -61,6 +76,7 @@ class DeviceManager:
         with self._lock:
             self.initialized = False
             self.device = None
+            self.mesh = None
 
 
 _manager: Optional[DeviceManager] = None

@@ -19,9 +19,9 @@ class SpillableBatch:
 
     @staticmethod
     def from_batch(batch: ColumnarBatch,
-                   priority: int = ACTIVE_BATCHING_PRIORITY
-                   ) -> "SpillableBatch":
-        handle = buffer_catalog().add(batch, priority)
+                   priority: int = ACTIVE_BATCHING_PRIORITY,
+                   origin=None) -> "SpillableBatch":
+        handle = buffer_catalog().add(batch, priority, origin)
         # the row count stays lazy: only split paths need it on the host
         rows = batch._host_rows if batch._host_rows is not None \
             else batch.num_rows

@@ -13,8 +13,9 @@ per query, with the JAX package's keys:
      "adaptive", "speculation"}
 
 The last eight are the query's deltas of the process counter families.
-The port has no mesh lane yet (ROADMAP A.6): `ici` is `{}` and
-`mesh_devices` is 1. `fingerprint` is `plan_fingerprint` of the executed
+`ici` is the mesh exchange lane's counters (shuffle/manager.
+ici_counters) and `mesh_devices` the session mesh's shard count (1
+without one). `fingerprint` is `plan_fingerprint` of the executed
 plan: a digest of each node's class and output schema, so one plan shape
 gives one fingerprint across sessions and processes (the JAX package's
 digest also covers each node's semantic fields; the two packages'
@@ -194,7 +195,7 @@ def process_counters() -> Dict[str, Dict[str, int]]:
     from ..shuffle import manager as shuffle_manager
     return {
         "shuffle": shuffle_manager.counters(),
-        "ici": {},
+        "ici": shuffle_manager.ici_counters(),
         "upload": upload.counters(),
         "dispatch": obs_dispatch.counters(),
         "workload": workload.counters(),

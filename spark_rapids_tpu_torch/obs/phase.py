@@ -22,8 +22,8 @@ The sites that accrue, in the port:
 * `retry-backoff`: the task-retry and OOM-retry sleeps;
 * `spec-wait`: the wait past the straggler bound of a speculative
   shuffle sub-read (exec/speculation_shield.py);
-* `ici-collective` stays in the set and accrues 0 until the mesh lane
-  (ROADMAP A.6) lands;
+* `ici-collective`: a round of the host exchange's device lane — its
+  measure, its all-to-all step and its staging (exec/exchange.py);
 * `other`: the derived remainder, never accrued directly.
 
 Two surfaces fed by the same `add`/`span` calls: process-global
@@ -54,7 +54,7 @@ PHASES = (
     "device-compute",      # instrumented dispatch sites (obs/dispatch.py)
     "host-pack-serialize", # shuffle write pack/serialize (exec/exchange.py)
     "shuffle-io",          # shuffle file write/read io
-    "ici-collective",      # the mesh lane's collectives (ROADMAP A.6): 0
+    "ici-collective",      # the mesh lane's rounds (exec/exchange.py)
     "spill-wait",          # catalog writeback waits + synchronous spill
     "semaphore-wait",      # device admission (memory/semaphore.py)
     "pipeline-stall",      # consumer blocked on producer (exec/pipeline.py)

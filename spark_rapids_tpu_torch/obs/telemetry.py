@@ -10,8 +10,8 @@ upload and fetch link bytes, the semaphore wait, the workload queue, the
 breakers, the spill volumes — so instrumented code pays nothing new.
 Push counters (`telemetry.add`) cost one pointer check when disabled.
 Each sample lands in every series' ring and, when the event bus is up,
-flushes as one `telemetry_sample` record. The `ici.*` series keep their
-names and read 0 until the mesh lane lands (ROADMAP A.6).
+flushes as one `telemetry_sample` record. The `ici.*` series read the
+mesh exchange lane's counters (shuffle/manager.ici_counters).
 
 `reset_telemetry()` stops and joins the sampler thread.
 """
@@ -197,8 +197,8 @@ def collect_sample() -> Dict[str, Any]:
     up = upload.counters()
     d2h = transfer.counters()
     wl = workload.snapshot()
-    # the mesh lane's counters (ROADMAP A.6): none on one card yet
-    ici = {"rounds": 0, "bytes": 0, "fallbacks": 0}
+    from ..shuffle import manager as shuffle_manager
+    ici = shuffle_manager.ici_counters()
     return {
         "ts_ms": int(time.time() * 1000),
         "hbm.device_bytes": dev_total,

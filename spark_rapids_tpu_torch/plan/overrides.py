@@ -34,9 +34,13 @@ an average over a DECIMAL, whose evaluation raises in the JAX package
 (C.5), and its plan-level tag-offs (collect_set over strings, a join
 whose payload holds an array of strings).
 
-Also waiting for its item: the mesh (`_plan_mesh` and the distributed
-aggregate and join over it, A.6: with no mesh the JAX package plans the
-same host lane as the port). `apply` ends, as the JAX package's does, in
+Over the session's mesh (parallel/mesh.active_mesh, of more than one
+shard, with tpu.shuffle.planExchange on: `_plan_mesh`) a grouped
+aggregate plans partial -> ShuffleExchangeExec -> final and an equi-join
+that broadcasts neither side a ShuffledHashJoinExec over two
+ShuffleExchangeExecs, as the JAX package's planner does; the host
+shuffle's sub-partitioned join, shuffled join and range sort are planned
+only without a mesh. `apply` ends, as the JAX package's does, in
 the stage compiler (exec/stage_compiler.compile_stages), which groups
 whitelisted chains into CompiledStageExec nodes: one CUDA graph per stage
 step on the card, the same bodies run eagerly on the CPU; with
@@ -54,7 +58,8 @@ from ..config import (ADAPTIVE_AUTO_BROADCAST_MAX_BYTES, ADAPTIVE_ENABLED,
                       BROADCAST_SIZE_THRESHOLD, CPU_FALLBACK_ENABLED,
                       JOIN_SUBPARTITION_THRESHOLD, OPTIMIZER_ENABLED,
                       PARQUET_PUSHDOWN_ENABLED, SHUFFLE_MODE,
-                      SHUFFLE_PARTITIONS, SQL_ENABLED, RapidsConf,
+                      SHUFFLE_PARTITIONS, SHUFFLE_PLAN_EXCHANGE,
+                      SQL_ENABLED, RapidsConf,
                       active_conf, set_active_conf)
 from ..exec.aggregate import AggregateExec
 from ..exec.base import TpuExec
@@ -67,7 +72,7 @@ from ..exec.fallback import (ColumnarToRowExec, HostFilterExec,
                              supports_host_eval)
 from ..exec.generate import GenerateExec
 from ..exec.exchange import (BroadcastExchangeExec, HostShuffleExchangeExec,
-                             ShuffledHashJoinExec)
+                             ShuffledHashJoinExec, ShuffleExchangeExec)
 from ..exec.joins import (NESTED_LOOP_JOIN_TYPES, AdaptiveJoinExec,
                           HashJoinExec, NestedLoopJoinExec)
 from ..exec.sort import (PartitionWiseSortExec, SortExec, TopNExec,
@@ -804,6 +809,18 @@ class PlanMeta(BaseMeta):
         return "\n".join(lines)
 
     # -- conversion --------------------------------------------------------
+    def _plan_mesh(self):
+        """The active mesh of more than one shard, or None when the plan
+        stays single-partition (no mesh, a one-shard mesh, or
+        tpu.shuffle.planExchange off)."""
+        from ..parallel.mesh import active_mesh, mesh_axis_size
+        mesh = active_mesh()
+        if mesh is None or mesh_axis_size(mesh) <= 1:
+            return None
+        if not self.conf.get(SHUFFLE_PLAN_EXCHANGE):
+            return None
+        return mesh
+
     def _host_shuffle_partitions(self) -> int:
         """Partition count for the MULTITHREADED host shuffle, or 1 when
         host-shuffled planning is off (it is the no-mesh fallback: the
@@ -822,11 +839,13 @@ class PlanMeta(BaseMeta):
         except (AssertionError, KeyError, TypeError, NotImplementedError):
             return None
 
-    def _convert_host_shuffled_aggregate(self, p, child: TpuExec,
-                                         n_parts: int) -> TpuExec:
-        """partial → host shuffle exchange → final over partition files
-        (device memory bounded per partition; reference MULTITHREADED
-        shuffle under partial/final agg)."""
+    def _convert_split_aggregate(self, p, child: TpuExec,
+                                 exchange_of) -> TpuExec:
+        """partial → exchange_of(group keys, partial) → final: over the
+        mesh's ShuffleExchangeExec (Spark's partial/final split over
+        GpuShuffleExchangeExecBase), or the host shuffle's partition
+        files (device memory bounded per partition; reference
+        MULTITHREADED shuffle under partial/final agg)."""
         partial = AggregateExec(p.group_exprs, p.aggregates, child,
                                 mode="partial")
         if any(isinstance(f.data_type, ArrayType)
@@ -835,9 +854,8 @@ class PlanMeta(BaseMeta):
             # keeps these aggregates single-partition
             return AggregateExec(p.group_exprs, p.aggregates, child)
         key_names = partial.output_schema.names[: len(p.group_exprs)]
-        part_keys = [UnresolvedAttribute(n) for n in key_names]
-        exchange = HostShuffleExchangeExec(part_keys, partial, n_parts,
-                                           self.conf)
+        exchange = exchange_of([UnresolvedAttribute(n) for n in key_names],
+                               partial)
         return AggregateExec(p.group_exprs, p.aggregates, exchange,
                              mode="final",
                              input_types=partial._input_types)
@@ -853,7 +871,9 @@ class PlanMeta(BaseMeta):
     def _join_strategy(self, p: L.LogicalJoin):
         """The JAX package's join strategy (`_convert_join`), in its
         preference order: broadcast when a side's estimated size is under
-        the threshold, else the host-shuffled hash join (partitions from
+        the threshold, else over a mesh the distributed join (both sides
+        through ShuffleExchangeExec), else the host-shuffled hash join
+        (without a mesh; partitions from
         shuffle.partitions, raised by the sub-partition split of a big
         build side), else the adaptive join when a size is unknown, else
         the single-partition hash join; keyless joins go to the
@@ -884,16 +904,20 @@ class PlanMeta(BaseMeta):
             return "broadcast_right", 1
         if can_bcast_l:
             return "broadcast_left", 1
+        mesh = self._plan_mesh()
+        if mesh is not None and self._shuffle_keys_match(p):
+            return "distributed", 1
         n_parts = self._host_shuffle_partitions()
         # sub-partitioned join (reference GpuSubPartitionHashJoin.scala
         # :547): a build side past the threshold splits into hash
         # sub-partitions, folded into the host-shuffle partition count
         thr_sub = self.conf.get(JOIN_SUBPARTITION_THRESHOLD)
-        if thr_sub >= 0 and size_r is not None and size_r > thr_sub \
+        if mesh is None and thr_sub >= 0 and size_r is not None \
+                and size_r > thr_sub \
                 and self.conf.get(SHUFFLE_MODE).upper() == "MULTITHREADED":
             n_parts = max(n_parts, min(256, int(-(-size_r
                                                   // max(thr_sub, 1)))))
-        if n_parts > 1 and self._shuffle_keys_match(p):
+        if mesh is None and n_parts > 1 and self._shuffle_keys_match(p):
             return "shuffled", n_parts
         if thr >= 0 and (size_r is None or size_l is None):
             # unknown sizes: both sides measured at run time, the build
@@ -925,6 +949,15 @@ class PlanMeta(BaseMeta):
         if kind == "shuffled":
             return self._convert_host_shuffled_join(p, kids[0], kids[1],
                                                     n_parts)
+        if kind == "distributed":
+            # both sides exchanged over the mesh, then a hash join per
+            # shard (reference GpuShuffledHashJoinExec)
+            mesh = self._plan_mesh()
+            return ShuffledHashJoinExec(
+                ShuffleExchangeExec(p.left_keys, kids[0], mesh, self.conf),
+                ShuffleExchangeExec(p.right_keys, kids[1], mesh, self.conf),
+                p.left_keys, p.right_keys, p.join_type,
+                condition=p.condition)
         if kind == "hash":
             return HashJoinExec(kids[0], kids[1], p.left_keys, p.right_keys,
                                 p.join_type, condition=p.condition)
@@ -982,16 +1015,23 @@ class PlanMeta(BaseMeta):
         if isinstance(p, L.LogicalFilter):
             return FilterExec(p.condition, kids[0])
         if isinstance(p, L.LogicalAggregate):
+            mesh = self._plan_mesh()
+            if mesh is not None and p.group_exprs:
+                return self._convert_split_aggregate(
+                    p, kids[0], lambda keys, partial: ShuffleExchangeExec(
+                        keys, partial, mesh, self.conf))
             n_parts = self._host_shuffle_partitions()
             if n_parts > 1 and p.group_exprs:
-                return self._convert_host_shuffled_aggregate(
-                    p, kids[0], n_parts)
+                return self._convert_split_aggregate(
+                    p, kids[0], lambda keys, partial: HostShuffleExchangeExec(
+                        keys, partial, n_parts, self.conf))
             return AggregateExec(p.group_exprs, p.aggregates, kids[0])
         if isinstance(p, L.LogicalSort):
             if p.limit is None:
                 n_parts = self._host_shuffle_partitions()
                 first = self._range_sort_order(p)
-                if n_parts > 1 and first is not None:
+                if n_parts > 1 and first is not None \
+                        and self._plan_mesh() is None:
                     # distributed global sort: a range exchange on the
                     # first key (sampled bounds), then a sort per
                     # partition, streamed in partition order

@@ -11,9 +11,10 @@ object the embedding application drives:
 reference's: environment validation (a card of compute capability 9.0
 and a torch built with CUDA) -> device and memory runtime
 (memory/device_manager: the card, the budget from its free memory and
-the confs) -> admission semaphore. The heartbeats between driver and
-executors wait for the mesh lane (ROADMAP A.6): the driver plugin keeps
-no heartbeat manager, and an executor registers with none.
+the confs) -> heartbeats -> admission semaphore. The driver plugin runs
+the heartbeat manager (parallel/heartbeat.py); an executor given its
+driver registers with it and beats from an endpoint thread, learning its
+peers (`peers`), and stops the thread at shutdown.
 """
 
 from __future__ import annotations
@@ -46,11 +47,13 @@ class TpuDriverPlugin:
     def __init__(self, conf=None):
         from .config import RapidsConf, active_conf
         self.conf: RapidsConf = conf or active_conf()
-        #: the executors' peer discovery waits for ROADMAP A.6
+        #: the executors' peer registry, from init()
         self.heartbeat_manager = None
 
     def init(self) -> "TpuDriverPlugin":
-        log.info("TpuDriverPlugin initialized")
+        from .parallel.heartbeat import HeartbeatManager
+        self.heartbeat_manager = HeartbeatManager()
+        log.info("TpuDriverPlugin initialized (heartbeat manager up)")
         return self
 
     def shutdown(self) -> None:
@@ -67,6 +70,7 @@ class TpuExecutorPlugin:
         self.conf: RapidsConf = conf or active_conf()
         self.executor_id = executor_id
         self.driver = driver
+        self.heartbeat_endpoint = None
         self.peers: List[str] = []
         #: test seam: production exits the process like Plugin.scala:655
         self._exit = exit_fn or (lambda code: os._exit(code))
@@ -78,6 +82,7 @@ class TpuExecutorPlugin:
         set_active_conf(self.conf)
         self._validate_environment()
         self._init_device_and_memory()
+        self._init_heartbeats()
         self._init_semaphore()
         self._initialized = True
         log.info("TpuExecutorPlugin %s initialized", self.executor_id)
@@ -108,6 +113,18 @@ class TpuExecutorPlugin:
         except Exception as e:  # noqa: BLE001 — classified below
             self.on_fatal_error(e)
             raise
+
+    def _init_heartbeats(self) -> None:
+        """Register with the driver's heartbeat manager and beat from an
+        endpoint thread (no driver, or a driver without a manager: no
+        heartbeats)."""
+        if self.driver is None or self.driver.heartbeat_manager is None:
+            return
+        from .parallel.heartbeat import HeartbeatEndpoint
+        self.heartbeat_endpoint = HeartbeatEndpoint(
+            self.driver.heartbeat_manager, self.executor_id,
+            on_new_peer=lambda p: self.peers.append(p.executor_id))
+        self.heartbeat_endpoint.start()
 
     def _init_semaphore(self) -> None:
         from .memory.semaphore import tpu_semaphore
@@ -151,6 +168,9 @@ class TpuExecutorPlugin:
             self.on_fatal_error(exc)
 
     def shutdown(self) -> None:
+        if self.heartbeat_endpoint is not None:
+            self.heartbeat_endpoint.stop()
+            self.heartbeat_endpoint = None
         from .memory.device_manager import device_manager
         device_manager().shutdown()
         self._initialized = False

@@ -2,8 +2,9 @@
 the reference's MULTITHREADED shuffle mode (RapidsShuffleInternalManager
 Base.scala:238 writer, :569 reader). Partition blocks are serialized and
 LZ4-compressed on a writer thread pool into per-map data and index files,
-then fetched and decoded on a reader pool. The device-to-device exchange
-over NCCL is the mesh lane (ROADMAP A.6)."""
+then fetched and decoded on a reader pool. The shard-to-shard exchange is
+the mesh lane (parallel/exchange.py, exec/exchange.py's device lane); its
+counters are manager.ici_counters()."""
 
 from .manager import (HostShuffleManager, HostShuffleReader,
                       HostShuffleWriter, shuffle_manager)

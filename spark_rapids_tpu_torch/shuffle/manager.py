@@ -80,7 +80,8 @@ from .serializer import (CODEC_LZ4, CorruptFrameError, deserialize_batch,
 
 __all__ = ["HostShuffleHandle", "HostShuffleWriter", "HostShuffleReader",
            "HostShuffleManager", "shuffle_manager", "reset_shuffle_manager",
-           "partition_batch_host", "counters"]
+           "partition_batch_host", "counters", "note_ici_exchange",
+           "ici_counters"]
 
 _COUNTER_LOCK = threading.Lock()
 #: process-cumulative shuffle counters: map batches written per lane,
@@ -103,6 +104,28 @@ def note_shuffle(**deltas) -> None:
 def counters() -> Dict[str, int]:
     with _COUNTER_LOCK:
         return dict(_COUNTERS)
+
+
+#: process-cumulative counters of the host exchange's device lane
+#: (exec/exchange.py): collective rounds and map batches exchanged shard
+#: to shard, the bytes received, the rounds' wall ns on the host, the
+#: measure's host reads, and exchanges that stood down or degraded to the
+#: host serialize lane
+_ICI_COUNTERS = {"rounds": 0, "batches": 0, "bytes": 0,
+                 "collective_ns": 0, "host_reads": 0, "fallbacks": 0}
+
+
+def note_ici_exchange(**deltas) -> None:
+    with _COUNTER_LOCK:
+        for k, v in deltas.items():
+            _ICI_COUNTERS[k] += v
+
+
+def ici_counters() -> Dict[str, int]:
+    """The device lane's counters. counters()'s frames and bytes stay
+    flat while this lane carries the data."""
+    with _COUNTER_LOCK:
+        return dict(_ICI_COUNTERS)
 
 
 class HostShuffleHandle:

@@ -88,6 +88,14 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
 def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
                                                                 item):
     jconfig.RapidsConf({key: value})  # the JAX package takes them all
+    if item == "A.6":
+        # the mesh lane's keys are read since A.6 landed: the device lane,
+        # the host split and the round budget take every value
+        assert tconfig.RapidsConf({key: value}).get(
+            tconfig._REGISTRY[key]) == tconfig._REGISTRY[key].conv(value)
+        tsession.TpuSession({key: value}, device="cpu")
+        assert key not in tconfig._UNREAD
+        return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         tconfig.RapidsConf({key: value})
     with pytest.raises(NotImplementedError):
@@ -273,4 +281,6 @@ def test_executor_plugin_validates_and_classifies():
     ex.on_task_failed(TpuRetryOOM("transient"))
     assert exits == [1]
     driver = plugin.TpuDriverPlugin().init()
-    assert driver.heartbeat_manager is None
+    # the driver runs the executors' heartbeat registry
+    assert driver.heartbeat_manager is not None
+    driver.shutdown()

@@ -1,8 +1,7 @@
 """faults.py against the JAX package's: the fault decisions over a grid
 of (seed, point, task, key, call index) and `parse_faults` are exact;
-the point names are the JAX package's less the one whose seam is not
-ported (`shuffle.ici_exchange`, ROADMAP A.6), which raises naming its
-item. Port-only: the taxonomy maps
+the point names are the JAX package's, the mesh lane's
+`shuffle.ici_exchange` among them. Port-only: the taxonomy maps
 `torch.OutOfMemoryError` to "oom", the injected kinds and integrity
 failures to "task", and a CUDA runtime error or a kernel build failure
 to "fatal" (ROADMAP C)."""
@@ -22,8 +21,9 @@ from spark_rapids_tpu_torch.memory import retry as tretry
 
 from test_torch_jax_ref import jax_aliases
 
-#: the JAX package's points whose seams wait for their items
-NOT_PORTED = {"shuffle.ici_exchange": "A.6"}
+#: the JAX package's points whose seams wait for their items: none since
+#: the mesh lane's `shuffle.ici_exchange` landed
+NOT_PORTED = {}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -38,6 +38,8 @@ def test_fault_points_are_the_jax_packages_less_the_unported():
     assert set(tfaults.FAULT_POINTS) == set(jfaults.FAULT_POINTS) \
         - set(NOT_PORTED)
     assert tfaults.KINDS == jfaults.KINDS
+    assert "shuffle.ici_exchange" in tfaults.FAULT_POINTS
+    assert tfaults.parse_faults("shuffle.ici_exchange:prob=1,kind=device")
     for point, item in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=item):
             tfaults.parse_faults(f"{point}:prob=1,kind=io")

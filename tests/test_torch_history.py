@@ -2,8 +2,8 @@
 
 - one capsule per governed collect() (a failed query's too), with the
   JAX package's keys for the same query and the same keys in each
-  counter family but the mesh lane's (`ici` is {} and `mesh_devices` 1
-  until ROADMAP A.6); one plan shape, one fingerprint;
+  counter family (`ici` the mesh lane's counters, no round for a query
+  without a mesh, and `mesh_devices` 1); one plan shape, one fingerprint;
 - the store rotates past history.maxBytes, keeps its file when a conf
   repeats it, and a conf that sets history.enabled=false tears it down;
 - a failed write warns once and uninstalls the store;
@@ -77,7 +77,8 @@ def test_one_capsule_per_collect_with_the_jax_packages_keys(tmp_path):
     assert len(caps) == 2 == history.active_store().records
     assert caps[0]["fingerprint"] == caps[1]["fingerprint"]
     assert caps[0]["ok"] and caps[0]["attempts"] == 1
-    assert caps[0]["ici"] == {} and caps[0]["mesh_devices"] == 1
+    assert caps[0]["ici"]["rounds"] == caps[0]["ici"]["fallbacks"] == 0
+    assert caps[0]["mesh_devices"] == 1
     assert sum(caps[0]["phases"].values()) == caps[0]["wall_ns"]
 
     jsess = JSession(_conf(tmp_path / "jax"))
@@ -93,6 +94,8 @@ def test_one_capsule_per_collect_with_the_jax_packages_keys(tmp_path):
         assert isinstance(caps[0][fam], dict), fam
     for fam in ("adaptive", "speculation", "workload"):
         assert set(caps[0][fam]) == set(jcap[fam]), fam
+    # the port's ici family adds the measure's host reads
+    assert set(caps[0]["ici"]) == set(jcap["ici"]) | {"host_reads"}
 
 
 def test_a_failed_query_writes_its_capsule(tmp_path):

@@ -4,8 +4,8 @@ the cancel phases, breaker states and the surviving domain's name.
 Port-only: a cancel or a deadline raises QueryCancelledError soon, and
 leaves an empty catalog, no permit held and no engine thread alive;
 `active_queries()` shows the query mid-flight; the `adaptive` and
-`device_dispatch` (compiled stages) domains have breakers, the JAX
-package's `ici_exchange` is marked not ported, and a kernel family's
+`device_dispatch` (compiled stages) and `ici_exchange` (the mesh lane)
+domains have breakers, and a kernel family's
 transient failures are counted, never routed. Every thread joins with a
 timeout.
 """
@@ -91,9 +91,9 @@ def _settled():
 def test_names_match_jax():
     assert lifecycle.CANCEL_PHASES == jlifecycle.CANCEL_PHASES
     assert lifecycle.BREAKER_STATES == jlifecycle.BREAKER_STATES
-    assert set(lifecycle.BREAKER_DOMAINS) | set(
-        lifecycle.NOT_PORTED_DOMAINS) <= set(jlifecycle.BREAKER_DOMAINS)
-    assert set(lifecycle.BREAKER_DOMAINS) == {"adaptive", "device_dispatch"}
+    assert set(lifecycle.BREAKER_DOMAINS) <= set(jlifecycle.BREAKER_DOMAINS)
+    assert set(lifecycle.BREAKER_DOMAINS) == {"adaptive", "device_dispatch",
+                                              "ici_exchange"}
 
 
 def test_cancel_from_a_second_thread():
@@ -167,21 +167,20 @@ def test_the_adaptive_breaker_opens_and_recovers():
     lifecycle.engage_domain("adaptive")
     lifecycle.attempt_succeeded()
     assert lifecycle.open_breakers() == []
-    # a domain the port does not have never opens
+    # the mesh lane's domain opens as the JAX package's does
     lifecycle.record_domain_failure("ici_exchange")
     lifecycle.record_domain_failure("ici_exchange")
-    assert lifecycle.open_breakers() == []
+    assert lifecycle.open_breakers() == ["ici_exchange"]
+    assert not lifecycle.breaker_allows("ici_exchange")
     # the compiled stages' domain opens as the JAX package's does
     lifecycle.record_domain_failure("device_dispatch")
     lifecycle.record_domain_failure("device_dispatch")
-    assert lifecycle.open_breakers() == ["device_dispatch"]
+    assert lifecycle.open_breakers() == ["device_dispatch", "ici_exchange"]
     h = lifecycle.health()
     assert h["breakers"]["adaptive"]["trips"] == 1
     assert h["breakers"]["device_dispatch"]["state"] == "open"
-    assert h["breakers"]["ici_exchange"] == {
-        "state": "not ported",
-        "item": lifecycle.NOT_PORTED_DOMAINS["ici_exchange"]}
-    assert "device_dispatch" not in lifecycle.NOT_PORTED_DOMAINS
+    assert h["breakers"]["ici_exchange"]["state"] == "open"
+    assert all(b["state"] != "not ported" for b in h["breakers"].values())
     lifecycle.reset_lifecycle()
 
 

@@ -4,7 +4,8 @@ machine with the card has neither pyarrow nor pandas), every module of
 the port and chip_smoke.py import, the Parquet, CSV, JSON, ORC, Iceberg
 and Delta readers and writers raise a clear ImportError naming pyarrow
 only when they are called, the pandas UDFs one naming pandas, Avro and
-Hive text write and read, Delta's per-file rewrites plan and run, and an
+Hive text write and read, Delta's per-file rewrites plan and run, a
+group-by and a shuffled join run over a mesh of CPU shards, and an
 entry point asked for no device raises when there is no card instead of
 falling back to the CPU."""
 
@@ -57,8 +58,10 @@ shield = ["exec.speculation_shield", "obs.history"]
 formats = ["io.avro", "io.hivetext", "io.csv", "io.json", "io.orc",
            "io.orc_meta", "io.iceberg"]
 delta_pandas = ["delta", "delta.log", "delta.table", "exec.python_udf"]
+mesh = ["parallel.mesh", "parallel.exchange", "parallel.distributed",
+        "parallel.multihost", "parallel.heartbeat"]
 missing = [m for m in q3 + q19 + ingest + strings + windows_arrays + nested
-           + wave4 + governance + shield + formats + delta_pandas
+           + wave4 + governance + shield + formats + delta_pandas + mesh
            if pkg.__name__ + "." + m not in mods]
 assert not missing, missing
 import chip_smoke
@@ -141,6 +144,16 @@ for make in (lambda: df.map_in_pandas(lambda f: f, sch),
         raise AssertionError("a pandas UDF without pandas must raise")
 print("PANDAS udfs raise")
 
+# the mesh lane: a distributed group-by and join over two CPU shards
+msess = TpuSession({"spark.rapids.sql.broadcastSizeThreshold": "-1"},
+                   device="cpu", mesh_devices=2)
+mdf = msess.from_pydict({"k": [1, 2, 1, 3], "s": ["a", "b", "c", None]},
+                        sch)
+got = sorted(mdf.join(mdf.select(F.col("k")), on="k").group_by("k").agg(
+    (F.count(), "n")).collect())
+assert got == [(1, 4), (2, 1), (3, 1)], got
+print("MESH group-by and join")
+
 import numpy as np
 import torch
 from spark_rapids_tpu_torch.columnar.column import Column
@@ -168,6 +181,7 @@ def test_port_imports_without_jax_and_refuses_implicit_cpu():
     assert "DELTA files raise" in proc.stdout
     assert "DELTA rewrites run" in proc.stdout
     assert "PANDAS udfs raise" in proc.stdout
+    assert "MESH group-by and join" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -1,5 +1,5 @@
 """obs/telemetry.py: the series names are the JAX package's (the `ici.*`
-series read 0 until the mesh lane lands). Port-only: a sample's
+series read the mesh lane's counters). Port-only: a sample's
 per-owner device bytes sum to its device total, the sampler thread
 samples at its interval and is gone after reset_telemetry(), the SLO
 section reports per-priority percentiles of finished governed queries,
@@ -42,7 +42,10 @@ def test_series_match_jax():
     assert list(telemetry.SERIES) == list(jtelemetry.SERIES)
     s = telemetry.collect_sample()
     assert set(telemetry.SERIES) <= set(s)
-    assert s["ici.rounds"] == s["ici.bytes"] == s["ici.fallbacks"] == 0
+    from spark_rapids_tpu_torch.shuffle import manager as shuffle_manager
+    ici = shuffle_manager.ici_counters()
+    assert (s["ici.rounds"], s["ici.bytes"], s["ici.fallbacks"]) == (
+        ici["rounds"], ici["bytes"], ici["fallbacks"])
 
 
 def test_owner_attribution_sums_to_the_totals():
