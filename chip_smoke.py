@@ -413,6 +413,28 @@ fails the run on error:
      rounds > 0 with no fallback and no frame with adaptive off, one
      stand-down a shuffled join at the defaults; then P42_RUNS runs of
      every path in turns, one synchronisation a run;
+  3p. drives the tooling (drive_tooling_paths): P43. The tier matrix:
+     P6, q3 and Q19 planned, each through the port's own harness,
+     testing.assert_consistent_across_configs, over its three
+     CONFIG_TIERS (speculative, exact, exact unfused) and its mesh and
+     mesh+exact tiers over P42's mesh (four shards on cuda:0), every
+     tier equal to the others and to tpch_q1_oracle, q3_oracle or
+     q19_oracle; each tier's first collect counted (ms, launches, host
+     reads), then P43_RUNS runs of every tier in turns. The fuzz:
+     tests/test_fuzz.py's shapes (group-by sum/count, string-key
+     min/max, filter-project, a left outer join, sort-limit, a group-by
+     on DOUBLE keys with NaN, +-inf and -0.0) over the port's datagen
+     tables of 262,144 rows (the join's build side 16,384) at the
+     default special-value and null weights, made by worker processes
+     while the earlier phases run, each across the three CONFIG_TIERS
+     (testing.collect_with_conf) and held to its Python oracle, with
+     each tier's launches. The
+     dump: planned q3 under sql.debug.dumpPath with one injected device
+     fault and task retry off raises the injected error and leaves
+     error.txt, repro.py and one record per retained input batch in
+     each dump directory (a .FAILED naming pyarrow where it is missing);
+     then q3 with the path set beside the path empty, P43_RUNS runs in
+     turns, each with its device peak;
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -491,8 +513,9 @@ plan's, the differences and the session timings) and phase 3d's (under
 (under "adaptive_paths": choices, counters, round trips, placements,
 the cost constants, ms), phase 3j's (under "governed_paths"), phase
 3l's (under "stage_paths"), phase 3m's (under "file_paths") and phase
-3n's (under "delta_paths") and phase 3o's (under "mesh_paths", with the
-card's name and power limit), before
+3n's (under "delta_paths"), phase 3o's (under "mesh_paths", with the
+card's name and power limit) and phase 3p's (under "tooling_paths", with
+the card's name and power limit), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
@@ -2906,6 +2929,7 @@ def compare_gather(dev):
         _exact(label, [gi] + ([gf.view(torch.int64)] if gf is not None
                               else []),
                [wi] + ([wf.view(torch.int64)] if wf is not None else []))
+        # contract: ok dispatch-ledger — reads the plan's kernel kind; launches nothing here
         k = rg.gather_launcher(plan, imat, fmat, idx)[2].kind
         kinds[k] = kinds.get(k, 0) + 1
 
@@ -3388,6 +3412,7 @@ def time_probe_shape(label, inp):
     from spark_rapids_tpu_torch.ops import probe_verify as pv
     reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
     args, cap = inp.probe, inp.cand_cap
+    # contract: ok dispatch-ledger — times the kernel alone; the compared launches count nothing
     _, launch = pv.launcher(*args, cap)
     launch()
     kernel_ms = device_ms(launch, reps)
@@ -3434,6 +3459,7 @@ def time_gather_call(path, site, plan, imat, fmat, idx, generic=True):
     reps, plain_reps = KERNEL_REPS, max(3, KERNEL_REPS // 4)
     n, cap = idx.shape[0], imat.shape[0]
     lanes = imat.shape[1] + (2 * fmat.shape[1] if fmat is not None else 0)
+    # contract: ok dispatch-ledger — times the kernel alone; the compared launches count nothing
     _, _, p, launch = rg.gather_launcher(plan, imat, fmat, idx)
     launch()
     kernel_ms = device_ms(launch, reps)
@@ -3456,6 +3482,7 @@ def time_gather_call(path, site, plan, imat, fmat, idx, generic=True):
     if p.kind != rg.ANY and generic:
         # the generic kernel at the same shape: the matrices copied off
         # their pieces' alignment
+        # contract: ok dispatch-ledger — times the generic kernel beside the specialised one, uncounted
         _, _, pg, launch_g = rg.launcher(
             idx, _off_aligned(imat), _off_aligned(fmat.view(torch.int32))
             if fmat is not None else None, plan.n_valid_lanes)
@@ -3596,6 +3623,7 @@ def compare_dict_gather(dev, q19_lines):
         flat = torch.from_numpy(rng.integers(-1, 4097, 1001 * 128 + 1)
                                 .astype(np.int32)).to(dev)
         c = flat[1:].view(1001, 128)
+        # contract: ok dispatch-ledger — holds the kernel to its plain version, uncounted
         got, plan, launch = dg.launcher(t, c)
         launch()
         _exact(f"dict_gather 128 lanes elt={elt} index off alignment",
@@ -3654,6 +3682,7 @@ def time_dict_gather(q19_lines, launches, p7_take, p7_launches):
              lambda: torch.gather(table, 0, idx64), 0)):
         rows, lanes = i.shape
         n, elt = t.shape[0], t.element_size()
+        # contract: ok dispatch-ledger — times the kernel alone; the compared launches count nothing
         _, plan, launch = dg.launcher(t, i)
         launch()
         ms = device_ms(launch, reps)
@@ -10338,6 +10367,434 @@ def drive_mesh_paths(dev, sm, d3, q3_want, q1t_batch, q1t_want,
     return recs, {k.replace(" ", "_"): v for k, v in launches.items()}
 
 
+# -- slice 21 (phase 3p): the tooling, P43 -----------------------------------
+
+P43_RUNS = 3             # timed runs of each P43 tier, in turns
+P43_FUZZ_ROWS = 262_144  # each fuzz fact table's rows
+P43_FUZZ_BATCH = 65_536  # its batches' rows (four, as test_fuzz's shapes)
+#: the fuzz join's build side: a dimension table whose keys repeat about
+#: once, so the left outer join's output stays near its fact side
+P43_JOIN_BUILD_ROWS = 16_384
+P43_FUZZ_SHAPES = ("groupby_sum_count", "string_minmax", "filter_project",
+                   "join", "sort_limit", "double_specials")
+P43_DUMP_KEY = "spark.rapids.sql.debug.dumpPath"
+#: one device fault at the first `device.dispatch` check q3 reaches
+P43_FAULT = {"spark.rapids.tpu.test.faults":
+             "device.dispatch:prob=1.0,seed=43,kind=device,max=1",
+             "spark.rapids.tpu.task.maxAttempts": "1"}
+
+
+def _wrap64(x):
+    """Spark's non-ANSI long arithmetic: two's-complement wrap."""
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def _float_key(k):
+    """Spark's group key of a double: NaNs one group, -0.0 with 0.0."""
+    if k is None:
+        return None
+    if math.isnan(k):
+        return "nan"
+    return 0.0 if k == 0.0 else k
+
+
+def p43_fuzz_case(name, n, br, build_rows):
+    """One fuzz shape's tables and Python oracle (tests/test_fuzz.py's
+    shapes at n rows in batches of br, the join's build side build_rows;
+    the port's datagen at its default special-value and null weights):
+    ([(data, schema, batch rows)], oracle, seconds). Pure Python: it runs
+    in a worker process while the earlier phases run."""
+    import collections
+    from spark_rapids_tpu_torch import testing as T
+    from spark_rapids_tpu_torch import types as t
+    t0 = time.perf_counter()
+    if name == "groupby_sum_count":
+        data, sch = T.gen_pydict(
+            [("k", T.SetValuesGen(t.LONG, [0, 1, 2, 3, 4, None])),
+             ("v", T.LongGen(min_val=-1 << 40, max_val=1 << 40))], n, 0)
+        acc = collections.defaultdict(lambda: [0, 0])
+        for k, v in zip(data["k"], data["v"]):
+            acc[k][0] += v or 0
+            acc[k][1] += v is not None
+        oracle = [(k, (s if c else None), c) for k, (s, c) in acc.items()]
+        tables = [(data, sch, br)]
+    elif name == "string_minmax":
+        data, sch = T.gen_pydict(
+            [("k", T.SetValuesGen(t.STRING, ["a", "bb", "ccc", None])),
+             ("v", T.DoubleGen(no_nans=True))], n, 3)
+        acc = collections.defaultdict(list)
+        for k, v in zip(data["k"], data["v"]):
+            acc[k].extend(() if v is None else (v,))
+        oracle = [(k, min(vs, default=None), max(vs, default=None))
+                  for k, vs in acc.items()]
+        tables = [(data, sch, br)]
+    elif name == "filter_project":
+        data, sch = T.gen_pydict(
+            [("a", T.IntegerGen()), ("b", T.LongGen()),
+             ("s", T.StringGen(max_length=12))], n, 5)
+        oracle = [(a, None if b is None else _wrap64(b + 1), s)
+                  for a, b, s in zip(data["a"], data["b"], data["s"])
+                  if a is not None and a > 0]
+        tables = [(data, sch, br)]
+    elif name == "join":
+        keys = build_rows
+        ldata, lsch = T.gen_pydict(
+            [("k", T.SetValuesGen(t.LONG, list(range(keys)) + [None])),
+             ("lv", T.LongGen())], n, 7)
+        rdata, rsch = T.gen_pydict(
+            [("k", T.SetValuesGen(t.LONG, list(range(keys // 2,
+                                                     keys // 2 + keys))
+                                  + [None])),
+             ("rv", T.StringGen(max_length=30))], build_rows, 107)
+        rmap = collections.defaultdict(list)
+        for k, v in zip(rdata["k"], rdata["rv"]):
+            if k is not None:
+                rmap[k].append(v)
+        oracle = []
+        for k, lv in zip(ldata["k"], ldata["lv"]):
+            matches = rmap.get(k, []) if k is not None else []
+            oracle.extend([(k, lv, rv) for rv in matches] or [(k, lv, None)])
+        tables = [(ldata, lsch, br), (rdata, rsch, br)]
+    elif name == "sort_limit":
+        data, sch = T.gen_pydict(
+            [("a", T.IntegerGen()), ("s", T.StringGen(max_length=8))], n, 9)
+        # Spark's ascending default is NULLS FIRST
+        key = [(a is not None, a if a is not None else 0, s is not None,
+                s or "") for a, s in zip(data["a"], data["s"])]
+        order = sorted(range(n), key=lambda i: key[i])
+        oracle = [(data["a"][i], data["s"][i]) for i in order[:25]]
+        tables = [(data, sch, br)]
+    else:  # double_specials: NaN, +-inf, -0.0 among the keys
+        data, sch = T.gen_pydict(
+            [("k", T.DoubleGen()),
+             ("v", T.LongGen(min_val=-1 << 40, max_val=1 << 40))], n, 11)
+        acc = collections.defaultdict(lambda: [0, 0])
+        for k, v in zip(data["k"], data["v"]):
+            g = acc[_float_key(k)]
+            g[0] += v or 0
+            g[1] += v is not None
+        oracle = {k: (s if c else None, c) for k, (s, c) in acc.items()}
+        tables = [(data, sch, br)]
+    return tables, oracle, time.perf_counter() - t0
+
+
+def p43_start_fuzz_data():
+    """P43's fuzz tables and oracles, made in worker processes (spawned,
+    no CUDA) while the earlier phases run: {shape: future}, and the pool
+    to shut down once they are read."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(max_workers=3,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    return pool, {name: pool.submit(p43_fuzz_case, name, P43_FUZZ_ROWS,
+                                    P43_FUZZ_BATCH, P43_JOIN_BUILD_ROWS)
+                  for name in P43_FUZZ_SHAPES}
+
+
+def p43_fuzz_df(sm, sess, name, tables):
+    """The fuzz shape's DataFrame query (tests/test_fuzz.py:45-177)."""
+    F, col = sm.F, sm.core.col
+    dfs = [sess.from_pydict(d, s, batch_rows=br) for d, s, br in tables]
+    df = dfs[0]
+    if name == "groupby_sum_count":
+        return df.group_by("k").agg((F.sum("v"), "s"), (F.count("v"), "c"))
+    if name == "string_minmax":
+        return df.group_by("k").agg((F.min("v"), "mn"), (F.max("v"), "mx"))
+    if name == "filter_project":
+        return df.filter(col("a") > 0).select(
+            col("a"), (col("b") + 1).alias("b1"), col("s"))
+    if name == "join":
+        return df.join(dfs[1], on="k", how="left_outer")
+    if name == "sort_limit":
+        return df.sort("a", "s").limit(25)
+    return df.group_by("k").agg((F.sum("v"), "s"), (F.count("v"), "c"))
+
+
+def p43_tier_name(conf, mesh):
+    from spark_rapids_tpu_torch.testing import CONFIG_TIERS
+    exact = "+exact" if conf else ""
+    if mesh is not None:
+        return f"mesh{exact}"
+    return ("speculative", "exact", "exact unfused")[
+        CONFIG_TIERS.index(dict(conf or {}))]
+
+
+@contextlib.contextmanager
+def p43_recorded(recs):
+    """Every collect the harness makes (testing.asserts.collect_with_conf,
+    the harness's own) counted: the tier, the first run's ms (session and
+    plan included), the launches, the host reads and the rows; the
+    DataFrame is kept for the timed runs."""
+    from spark_rapids_tpu_torch.testing import asserts
+    real = asserts.collect_with_conf
+
+    def collect(build, conf=None, mesh_devices=None, device=None,
+                mesh=None):
+        kept = []
+
+        def keep(sess):
+            kept.append(build(sess))
+            return kept[-1]
+
+        t0 = time.perf_counter()
+        rows, counts, reads = counted_run(lambda: real(
+            keep, conf, mesh_devices=mesh_devices, device=device,
+            mesh=mesh))
+        recs[p43_tier_name(conf, mesh or mesh_devices)] = {
+            "first_run_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": counts, "families": family_counts(counts),
+            "host_reads": reads, "rows": len(rows), "df": kept[0],
+            "result": rows}
+        return rows
+
+    asserts.collect_with_conf = collect
+    try:
+        yield
+    finally:
+        asserts.collect_with_conf = real
+
+
+def p43_tiers(sm, dev, mesh, label, build, expected, check):
+    """P43's tier matrix for one planned query: the harness over the three
+    CONFIG_TIERS and the mesh tiers over `mesh`, every tier equal to the
+    others and to `expected` (rtol 1e-9), and each tier's rows to `check`
+    (the query's own oracle check); then P43_RUNS timed runs of every tier
+    in turns, one synchronisation a run, each checked. Returns
+    {tier: record}."""
+    import torch
+    from spark_rapids_tpu_torch import testing
+    recs = {}
+    with p43_recorded(recs):
+        testing.assert_consistent_across_configs(
+            build, device=dev, mesh=mesh, expected=expected, rel_tol=RTOL)
+    for tier, rec in recs.items():
+        check(rec.pop("result"), f"P43 {label} {tier}")
+    names = list(recs)
+    for tier in names:
+        recs[tier]["ms"] = []
+    for i in range(P43_RUNS):
+        for tier in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = recs[tier]["df"].collect()
+            torch.cuda.synchronize()
+            recs[tier]["ms"].append((time.perf_counter() - t0) * 1e3)
+            check(rows, f"P43 {label} {tier} timed")
+    for tier in names:
+        rec = recs[tier]
+        del rec["df"]
+        print(f"P43 {label} {tier}: equal to the oracle and the other "
+              f"tiers; first run {rec['first_run_ms']:.1f} ms, timed "
+              f"{['%.2f' % v for v in rec['ms']]} ms; launches "
+              f"{rec['families']}; host reads {rec['host_reads']}")
+    return recs
+
+
+def p43_fuzz(sm, dev, name, tables, oracle):
+    """One fuzz shape across the three CONFIG_TIERS on the card (each
+    tier's collect through the harness's testing.collect_with_conf), each
+    tier held to its Python oracle as tests/test_fuzz.py holds it:
+    integers and strings exact (the rows as a multiset; one pass, where
+    the harness's sorted comparison of 300,000 rows takes seconds), f64
+    to rtol 1e-9 (string_minmax through testing.assert_rows_equal),
+    sort-limit in order, the DOUBLE keys by Spark's grouping (NaNs one
+    group, -0.0 with 0.0). Returns {tier: record}."""
+    import collections
+    from spark_rapids_tpu_torch import testing
+    from spark_rapids_tpu_torch.testing import asserts
+
+    def build(sess):
+        return p43_fuzz_df(sm, sess, name, tables)
+
+    recs = {}
+    with p43_recorded(recs):
+        for conf in testing.CONFIG_TIERS:
+            asserts.collect_with_conf(build, conf, device=dev)
+    for tier, rec in recs.items():
+        rows = rec.pop("result")
+        rec.pop("df")
+        label = f"P43 fuzz {name} {tier}"
+        if name == "string_minmax":
+            testing.assert_rows_equal(rows, oracle, rel_tol=RTOL)
+        elif name == "sort_limit":
+            testing.assert_rows_equal(rows, oracle, rel_tol=RTOL,
+                                      ordered=True)
+        elif name == "double_specials":
+            by_key = {_float_key(k): (s, c) for k, s, c in rows}
+            if len(by_key) != len(rows) or by_key != oracle:
+                raise AssertionError(f"{label}: {len(rows)} groups, oracle "
+                                     f"{len(oracle)}; they differ")
+        elif collections.Counter(rows) != collections.Counter(oracle):
+            raise AssertionError(f"{label}: {len(rows)} rows, oracle "
+                                 f"{len(oracle)}; the multisets differ")
+        print(f"{label}: equal to the Python oracle; {rec['rows']} rows; "
+              f"first run {rec['first_run_ms']:.1f} ms; launches "
+              f"{rec['families']}; host reads {rec['host_reads']}")
+    return recs
+
+
+def p43_dump(sm, dev, order_batches, line_batches, q3_want):
+    """P43's dump: planned q3 under sql.debug.dumpPath (a temporary
+    directory) with one injected device fault and task retry off:
+    collect() must raise the injected error; each dump directory must hold
+    error.txt with it, a repro.py naming the port and no jax, and one
+    record per input batch its operator retained (.parquet + .meta.json,
+    or .FAILED naming pyarrow's absence where it is missing). Then q3
+    with the path set and no fault beside the path empty, P43_RUNS runs
+    in turns, one synchronisation a run, each run's device peak above
+    what was allocated before it. Returns the record."""
+    import importlib.util
+    import os
+    import torch
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.faults import InjectedDeviceError
+    from spark_rapids_tpu_torch.utils import dump
+    Session = sm.session.TpuSession
+    root = tempfile.mkdtemp(prefix="chip_smoke_p43_")
+    retained = {}
+    real_exit = dump.dump_on_error.__exit__
+
+    def exit_noting(self, *exc):
+        out = real_exit(self, *exc)
+        if self.out_dir is not None:
+            retained[os.path.basename(self.out_dir)] = len(self._batches)
+        return out
+
+    faults.install(None)
+    dump.dump_on_error.__exit__ = exit_noting
+    try:
+        df = q3_df(sm, Session(dict(Q3_CONF, **P43_FAULT,
+                                    **{P43_DUMP_KEY: root}), dev),
+                   order_batches, line_batches)
+        try:
+            df.collect()
+        except InjectedDeviceError as e:
+            err = e
+        else:
+            raise AssertionError("P43 dump: q3 ran through its injected "
+                                 "fault")
+    finally:
+        dump.dump_on_error.__exit__ = real_exit
+        faults.install(None)
+    no_pyarrow = importlib.util.find_spec("pyarrow") is None
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("pyarrow", "pandas")}
+    dirs = sorted(os.listdir(root))
+    if not dirs or set(dirs) != set(retained) or not sum(retained.values()):
+        raise AssertionError(f"P43 dump: directories {dirs}, retained "
+                             f"batches {retained}")
+    files = {}
+    for d in dirs:
+        names = sorted(os.listdir(os.path.join(root, d)))
+        files[d] = names
+
+        def text(f):
+            return Path(root, d, f).read_text()
+
+        if "InjectedDeviceError" not in text("error.txt") or \
+                str(err) not in text("error.txt"):
+            raise AssertionError(f"P43 dump {d}: error.txt lacks {err!r}")
+        repro = text("repro.py")
+        if "spark_rapids_tpu_torch" not in repro or "jax" in repro:
+            raise AssertionError(f"P43 dump {d}: repro.py names the wrong "
+                                 f"package")
+        parquet = [f for f in names if f.endswith(".parquet")]
+        failed = [f for f in names if f.endswith(".FAILED")]
+        metas = [f for f in names if f.endswith(".meta.json")]
+        if len(parquet) + len(failed) != retained[d] or \
+                metas != [f + ".meta.json" for f in parquet]:
+            raise AssertionError(f"P43 dump {d}: {names} for "
+                                 f"{retained[d]} retained batches")
+        if no_pyarrow and (parquet or any(
+                "pyarrow" not in text(f) for f in failed)):
+            raise AssertionError(f"P43 dump {d}: without pyarrow each "
+                                 f"record is a .FAILED naming it: {names}")
+    shutil.rmtree(root)
+    print(f"P43 dump: collect() raised {type(err).__name__}: {err}; "
+          f"{files}; retained batches {retained}; importable on this "
+          f"machine: {found}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_p43_")
+    frames = {"path set": q3_df(sm, Session(dict(Q3_CONF, **{
+        P43_DUMP_KEY: root}), dev), order_batches, line_batches),
+              "path empty": q3_df(sm, Session(Q3_CONF, dev), order_batches,
+                                  line_batches)}
+    ms = {k: [] for k in frames}
+    peaks = {k: [] for k in frames}
+    for i in range(P43_RUNS):
+        for label in (list(frames) if i % 2 == 0 else list(frames)[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rows = frames[label].collect()
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            peaks[label].append(torch.cuda.max_memory_allocated() - base)
+            check_q3(rows, q3_want, f"P43 dump q3, {label}")
+    if os.listdir(root):
+        raise AssertionError(f"P43 dump: a run with no fault dumped "
+                             f"{os.listdir(root)}")
+    shutil.rmtree(root)
+    for label in frames:
+        print(f"P43 dump q3, {label}, {P43_RUNS} runs in turns: "
+              f"{['%.2f' % v for v in ms[label]]} ms; device peak "
+              f"{peaks[label]} bytes")
+    return {"error": repr(err), "files": files, "retained": retained,
+            "importable": found, "ms": ms, "peak_bytes": peaks}
+
+
+def drive_tooling_paths(dev, sm, fuzz_futures, d3, q3_want, order_batches,
+                        line_batches, l19, p19, q19_want, q1t_batch,
+                        q1t_want):
+    """Phase 3p (P43): the tier matrix (P6, q3, Q19 through
+    testing.assert_consistent_across_configs over CONFIG_TIERS and the
+    mesh tiers on P42's mesh), the fuzz shapes on the card across
+    CONFIG_TIERS, and the failure dump. Returns (records, launches by
+    path)."""
+    mesh = p42_mesh(dev)
+    recs = {"tiers": {}, "fuzz": {}}
+
+    def q19_check(rows, label):
+        got, want = (rows[0][0] if len(rows) == 1 else rows), q19_want[0]
+        if (got is None) != (want is None) or (
+                want is not None and abs(got - want) > RTOL * abs(want)):
+            raise AssertionError(f"{label}: revenue {got} != oracle {want}")
+
+    tier_cases = {
+        "P6": (lambda s: tpch_q1_df(sm, s, q1t_batch),
+               [tuple(r) for r in q1t_want],
+               lambda r, lb: check_rows(r, q1t_want, lb)),
+        "q3": (lambda s: q3_df(sm, s, order_batches, line_batches),
+               list(q3_want.items()),
+               lambda r, lb: check_q3(r, q3_want, lb)),
+        "Q19": (lambda s: q19_df(sm, s, l19, p19), [(q19_want[0],)],
+                q19_check)}
+    for label, (build, expected, check) in tier_cases.items():
+        with default_conf_after():
+            recs["tiers"][label] = p43_tiers(sm, dev, mesh, label, build,
+                                             expected, check)
+    t0 = time.perf_counter()
+    fuzz_data = {k: f.result(timeout=600) for k, f in fuzz_futures.items()}
+    recs["fuzz_data_wait_s"] = time.perf_counter() - t0
+    recs["fuzz_data_s"] = {k: v[2] for k, v in fuzz_data.items()}
+    for name, (tables, oracle, _) in fuzz_data.items():
+        with default_conf_after():
+            recs["fuzz"][name] = p43_fuzz(sm, dev, name, tables, oracle)
+    del fuzz_data
+    with default_conf_after():
+        recs["dump"] = p43_dump(sm, dev, order_batches, line_batches,
+                                q3_want)
+    check_idle("P43")
+    launches = {f"P43_{q}_{t.replace(' ', '_').replace('+', '_')}":
+                r["launches"] for q, ts in recs["tiers"].items()
+                for t, r in ts.items()}
+    launches.update({
+        f"P43_fuzz_{q}_{t.replace(' ', '_')}": r["launches"]
+        for q, ts in recs["fuzz"].items() for t, r in ts.items()})
+    return recs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -10367,6 +10824,9 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    # P43's fuzz tables and oracles (phase 3p) are pure Python: worker
+    # processes make them while the phases before 3p run
+    fuzz_pool, fuzz_futures = p43_start_fuzz_data()
 
     # -- data and plans (host set-up) --------------------------------------
     t0 = time.perf_counter()
@@ -10937,6 +11397,17 @@ def main() -> int:
             p42_l)
     print(f"phase 3o: {time.perf_counter() - t_mesh:.1f} s")
 
+    # -- phase 3p, slice 21: the tooling (P43) -------------------------------
+    t_tool = time.perf_counter()
+    with default_conf_after():
+        tool_recs, tool_launches = drive_tooling_paths(
+            dev, session_modules(), fuzz_futures, d3, q3_want, p42_o,
+            p42_l, l19, p19, q19_want, q1t_batch, q1t_want)
+    fuzz_pool.shutdown()
+    print(f"phase 3p: {time.perf_counter() - t_tool:.1f} s (fuzz data made "
+          f"in the workers in {tool_recs['fuzz_data_s']} s, waited "
+          f"{tool_recs['fuzz_data_wait_s']:.1f} s)")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -11138,6 +11609,7 @@ def main() -> int:
     print(f"P32 and P33 timings (phase 4): "
           f"{time.perf_counter() - t_adaptive:.1f} s")
 
+    # contract: ok dispatch-ledger — times the kernel alone; the compared launches count nothing
     launch = fsa.launcher(q1_spec, batch, BUCKETS)
     ms = device_ms(launch, KERNEL_REPS)
     b2b_ms = cuda_ms(launch, KERNEL_REPS)
@@ -11246,7 +11718,8 @@ def main() -> int:
             **{k: v.get(r["name"], 0) for k, v in stage_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in file_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in delta_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in mesh_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in mesh_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in tool_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -11291,7 +11764,8 @@ def main() -> int:
                                ms=adaptive_ms),
         "governed_paths": gov_recs, "stage_paths": stage_recs,
         "file_paths": file_recs, "delta_paths": delta_recs,
-        "mesh_paths": dict(mesh_recs, card=smi)}},
+        "mesh_paths": dict(mesh_recs, card=smi),
+        "tooling_paths": dict(tool_recs, card=smi)}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -17,3 +17,4 @@ from .columnar.column import Column, bucket_capacity  # noqa: F401
 from .config import RapidsConf  # noqa: F401
 from .api import functions  # noqa: F401
 from .api.session import TpuSession  # noqa: F401
+from .version import __version__  # noqa: F401

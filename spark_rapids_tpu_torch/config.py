@@ -24,7 +24,6 @@ naming the item (`_UNREAD`); nothing is ignored silently.
 | `tpu.pallas.enabled` | not ported by design (ROADMAP A: the port has no tier switch) | true |
 | `tpu.pallas.fusedTier` | not ported by design | auto, on |
 | `tpu.pallas.fusedTier.benchFile` | not ported by design | default |
-| `sql.debug.dumpPath` | A.9c (utils/dump.py) | default |
 
 The ingest reads `tpu.transfer.packedUpload.enabled` at each upload
 (columnar/upload.to_device_batch: false selects the per-buffer lane) and
@@ -70,6 +69,10 @@ The mesh lane reads its entries where the JAX package does: the planner
 its construction, and the heartbeat's dead-peer hook
 `tpu.shuffle.deadPeerInvalidation.enabled`
 (exec/speculation_shield.on_peer_dead).
+
+The failure dump reads `sql.debug.dumpPath` where the JAX package does:
+TpuExec.execute retains each operator's last output only while it is
+set, and a failing child pull dumps them (exec/base.py, utils/dump.py).
 """
 
 from __future__ import annotations
@@ -992,7 +995,6 @@ _UNREAD: Dict[str, Tuple[str, Optional[tuple]]] = {
     PALLAS_ENABLED.key: (_BY_DESIGN, ()),
     PALLAS_FUSED_TIER.key: (_BY_DESIGN, ("on",)),
     PALLAS_FUSED_BENCH_FILE.key: (_BY_DESIGN, ()),
-    DEBUG_DUMP_PATH.key: ("ROADMAP A.9c (utils/dump.py)", ()),
 }
 
 

@@ -8,9 +8,12 @@ check when off: the governed query's cancellation tick
 (utils/tracing.annotate_op), the dispatch ledger's exec scope, which is
 the operator's `device-compute` phase span (obs/dispatch.py), and the
 event log's op_open / op_batch / op_close / op_error records
-(obs/events.py). Metrics carry the JAX package's visibility levels
-(ESSENTIAL / MODERATE / DEBUG, by name: `METRIC_LEVELS`), cut by
-spark.rapids.sql.metrics.level in `all_metrics()` and the query profile.
+(obs/events.py). With spark.rapids.sql.debug.dumpPath set, each
+operator keeps its last output, and a pull that raises dumps its
+children's (utils/dump.py) before the error goes on. Metrics carry the
+JAX package's visibility levels (ESSENTIAL / MODERATE / DEBUG, by name:
+`METRIC_LEVELS`), cut by spark.rapids.sql.metrics.level in
+`all_metrics()` and the query profile.
 
 The stage compiler's surface (exec/stage_compiler.py) is here too, as in
 the JAX package: `plan_fingerprint` (from each node's
@@ -206,18 +209,23 @@ class TpuExec:
         return self._execute(self._encoded_ok_for_parent)
 
     def _execute(self, encoded_out: bool) -> Iterator[ColumnarBatch]:
+        from ..config import DEBUG_DUMP_PATH, active_conf
         from ..obs import events as obs_events
         from . import lifecycle
         self.stamp_inputs()
+        # retain the last output only while failure dumping is configured:
+        # otherwise each operator would pin one device batch for the whole
+        # query, memory the spill machinery counts as free
+        dump = bool(active_conf().get(DEBUG_DUMP_PATH))
         it = self.internal_execute()
         try:
             yield from self._drive(it, encoded_out,
                                    obs_events.active_bus(),
-                                   lifecycle.current_context())
+                                   lifecycle.current_context(), dump)
         finally:
             it.close()
 
-    def _drive(self, it, encoded_out: bool, bus, qctx
+    def _drive(self, it, encoded_out: bool, bus, qctx, dump: bool
                ) -> Iterator[ColumnarBatch]:
         from ..obs import dispatch as obs_dispatch
         from ..utils.tracing import annotate_op
@@ -243,6 +251,7 @@ class TpuExec:
                     except StopIteration:
                         return
                     except Exception:
+                        self._dump_failure_inputs(name)
                         if bus is not None:
                             bus.emit("op_error", op=name, op_id=self._op_id)
                         raise
@@ -264,6 +273,8 @@ class TpuExec:
                 if bus is not None and emit_batches:
                     bus.emit("op_batch", op=name, op_id=self._op_id,
                              wall_ns=step_ns, rows=batch._host_rows)
+                if dump:
+                    self._last_output = batch
                 yield batch
         finally:
             if bus is not None:
@@ -273,6 +284,32 @@ class TpuExec:
                     out_rows = None
                 bus.emit("op_close", op=name, op_id=self._op_id,
                          wall_ns=total_ns, batches=nbatches, rows=out_rows)
+
+    #: the batch this operator yielded last (a parent's view of its
+    #: input), kept only while spark.rapids.sql.debug.dumpPath is set;
+    #: the failure dump below reads it
+    _last_output: Optional[ColumnarBatch] = None
+
+    def _dump_failure_inputs(self, name: str) -> None:
+        """On an operator failure, dump its children's last batches (the
+        failing operator's inputs, reference DumpUtils) with the active
+        exception's traceback, under spark.rapids.sql.debug.dumpPath.
+        Called from the drive's except block, which re-raises the original
+        error: the dump is best-effort and never masks it."""
+        try:
+            import sys
+
+            from ..config import DEBUG_DUMP_PATH, active_conf
+            if not active_conf().get(DEBUG_DUMP_PATH):
+                return
+            from ..utils.dump import dump_on_error
+            scope = dump_on_error(name)
+            for c in self.children:
+                if c._last_output is not None:
+                    scope.observe(c._last_output)
+            scope.__exit__(*sys.exc_info())
+        except Exception:  # noqa: BLE001 — dumping is best-effort
+            pass
 
     @property
     def device(self):

@@ -328,6 +328,9 @@ class ReadSpeculation:
                 if err is None:
                     for loser in pending:
                         loser.cancel()
+                    # contract: ok bounded-wait — fut came from the
+                    # FIRST_COMPLETED done set: already resolved,
+                    # result() returns without blocking
                     return who, fut.result(), None
                 errs[who] = err
         return "none", None, errs.get("primary") or errs.get("spec")

@@ -144,14 +144,20 @@ def write_spill_file(path: str, host_leaves) -> None:
     fails the write, kind=corrupt flips a byte of the stored payload,
     which the read-side check then catches."""
     buf = io.BytesIO()
+    # contract: ok lock-blocking-call — reached under the catalog lock
+    # only on the dead-writer drain (recovery, by design: the entry must
+    # not be observable mid-hop); steady-state writes run on the writer
+    # thread lock-free. The leaves are host tensors: .numpy() is a view
     np.savez(buf, **{str(i): t.numpy() for i, t in enumerate(host_leaves)})
     payload = buf.getvalue()
     crc = zlib.crc32(payload)
     payload = faults.apply("spill.disk_write", payload, key=_hop_key())
+    # contract: ok lock-blocking-call — see the savez note above
     with open(path, "wb") as f:
         f.write(_SPILL_HEADER.pack(_SPILL_MAGIC, crc, len(payload)))
         f.write(payload)
         f.flush()
+        # contract: ok lock-blocking-call — see the savez note above
         os.fsync(f.fileno())
 
 
@@ -159,6 +165,9 @@ def read_spill_file(path: str) -> List[torch.Tensor]:
     """Verified read: a structural or checksum failure raises
     SpillFileCorruption."""
     faults.check("spill.disk_read", key=_hop_key())
+    # contract: ok lock-blocking-call — disk unspill runs under the
+    # catalog lock by design (atomic promotion, module docstring); the
+    # async writer never calls this
     with open(path, "rb") as f:
         header = f.read(_SPILL_HEADER.size)
         if len(header) < _SPILL_HEADER.size:
@@ -416,6 +425,11 @@ class BufferCatalog:
             self._enqueue_writeback("to_host", entry, None, entry.writeback)
         else:
             if ev is not None:
+                # contract: ok lock-blocking-call — the SYNC lane
+                # (asyncWrite=false) deliberately copies under the
+                # catalog lock: the entry must not be observable
+                # mid-hop, and the async lane exists precisely for
+                # callers that cannot afford this hold
                 ev.synchronize()
             entry.host_leaves = host
         self.spilled_device_bytes += entry.nbytes
@@ -482,15 +496,24 @@ class BufferCatalog:
                                         wait_for_writeback=False)
             finally:
                 entry.in_use -= 1
+            from ..columnar.batch import ColumnarBatch
+            # the upload and the rebuild can fail: release the reservation
+            # on either, and charge the quota only once nothing after it
+            # can raise (the DEVICE-tier entry owns both from here on;
+            # remove() and a spill discharge them)
             try:
+                # contract: ok lock-blocking-call — unspill promotes under
+                # the catalog lock by design (atomic: the entry must not be
+                # observable mid-promotion; module docstring); the reserve
+                # above uses the lock-safe wait_for_writeback=False form
                 leaves = upload_leaves(entry.host_leaves, entry.device)
+                batch = ColumnarBatch.unflatten(entry.treedef, leaves)
             except BaseException:
                 memory_budget().release(entry.nbytes)
                 raise
             from ..exec import workload
             workload.charge(entry.owner, entry.nbytes)
-            from ..columnar.batch import ColumnarBatch
-            entry.batch = ColumnarBatch.unflatten(entry.treedef, leaves)
+            entry.batch = batch
             entry.host_leaves = None
             entry.tier = StorageTier.DEVICE
             self.stats["to_device"] += 1
@@ -513,10 +536,16 @@ class BufferCatalog:
             self._recover_dead_writer_locked()
         if self._write_q is None:
             self._write_q = queue.Queue()
+            # contract: ok thread-adopt — the spill-writer daemon serves
+            # every query's hops and reads no thread-local: its fault keys
+            # ride the entry's registration ordinal (_HopOf), and it emits
+            # no event (an error surfaces at the entry's acquire)
             self._writer = threading.Thread(
                 target=self._writer_loop, args=(self._write_q,),
                 name="spill-writer", daemon=True)
             self._writer.start()
+        # contract: ok lock-blocking-call — unbounded queue: put() never
+        # blocks, it is a list append under the queue's own mutex
         self._write_q.put((kind, entry, path, ev))
 
     def _run_job(self, job) -> None:
@@ -571,6 +600,9 @@ class BufferCatalog:
             if ev is not None:
                 # a thread that touches CUDA sets its device itself
                 torch.cuda.set_device(leaves[-1].device)
+                # contract: ok lock-blocking-call — lock-free on the
+                # writer thread (steady state); under the catalog lock
+                # only on the dead-writer synchronous drain (recovery)
                 ev.synchronize()
             with self._lock:
                 if not entry.closed:

@@ -179,6 +179,10 @@ class EventBus:
                     return
                 if self._file is None:
                     os.makedirs(self.directory, exist_ok=True)
+                    # contract: ok lock-blocking-call — the bus lock is
+                    # the declared LEAF lock and exists precisely to
+                    # serialize this lazy open + append; nothing is ever
+                    # acquired under it
                     self._file = open(self.path, "a")
                     self.paths.append(self.path)
                 self._file.write(line + "\n")

@@ -87,6 +87,10 @@ class HistoryStore:
                     return
                 if self._file is None:
                     os.makedirs(self.directory, exist_ok=True)
+                    # contract: ok lock-blocking-call — the store lock
+                    # is the declared LEAF lock and exists precisely to
+                    # serialize this lazy open + append; nothing is ever
+                    # acquired under it
                     self._file = open(self.path, "a")
                 self._file.write(line + "\n")
                 self._file.flush()

@@ -239,5 +239,7 @@ def gather_launcher(plan, imat: torch.Tensor, fmat: Optional[torch.Tensor],
                     idx: torch.Tensor):
     """`launcher` for pallas_gather_rows' arguments on CUDA tensors:
     (oa, ob, plan, launch)."""
+    # contract: ok dispatch-ledger — hands out an uncounted launch for
+    # timing (chip_smoke.py); the wrappers' launches count in _launch
     return launcher(idx.to(torch.int32), _matrix(imat, "imat"),
                     _fbits(fmat), plan.n_valid_lanes)

@@ -181,6 +181,9 @@ class HostShuffleWriter:
         if len(partitioned) != n:
             raise ValueError(f"{len(partitioned)} partitions, not {n}")
         t0 = time.perf_counter_ns()
+        # contract: ok thread-adopt — serialize_batch_stats is a pure
+        # function of its batch and codec: no conf/event/attempt reads on
+        # the pool thread (fault keys ride the frame ordinals at decode)
         jobs = [(p, self._pool.submit(serialize_batch_stats, b,
                                       self.codec))
                 for p in range(n) for b in partitioned[p]]
@@ -197,6 +200,9 @@ class HostShuffleWriter:
         if len(bounds) != n + 1:
             raise ValueError(f"{len(bounds)} bounds, not {n + 1}")
         t0 = time.perf_counter_ns()
+        # contract: ok thread-adopt — serialize_slice_stats is a pure
+        # function of (packed batch, row range, codec): no thread-local
+        # reads on the pool
         jobs = [(p, self._pool.submit(serialize_slice_stats, packed,
                                       int(bounds[p]), int(bounds[p + 1]),
                                       self.codec))

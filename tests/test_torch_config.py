@@ -81,13 +81,20 @@ def test_dynamic_prefixes_and_foreign_keys_are_accepted():
     ("spark.rapids.tpu.shuffle.devicePartition.enabled", "false", "A.6"),
     # packedUpload.enabled=false (A.5) and the LEGACY rebase (A.8) are
     # honoured since the formats landed (test_torch_formats.py holds them
-    # to the JAX package); the dump path still waits for A.9c
+    # to the JAX package); the dump path since A.9c (test_torch_dump.py)
     ("spark.rapids.sql.debug.dumpPath", "/tmp/dump", "A.9c"),
     ("spark.rapids.sql.exchange.roundBytes", "1024", "A.6"),
 ])
 def test_values_the_port_cannot_honour_raise_naming_their_item(key, value,
                                                                 item):
     jconfig.RapidsConf({key: value})  # the JAX package takes them all
+    if item == "A.9c":
+        # the failure dump reads its path since A.9c landed
+        assert tconfig.RapidsConf({key: value}).get(
+            tconfig.DEBUG_DUMP_PATH) == value
+        tsession.TpuSession({key: value}, device="cpu")
+        assert key not in tconfig._UNREAD
+        return
     if item == "A.6":
         # the mesh lane's keys are read since A.6 landed: the device lane,
         # the host split and the round budget take every value
