@@ -79,7 +79,11 @@ fails the run on error:
      shapes); every murmur3 chain, probe and row gather launch of a run of
      P42 mesh q3 and P42 ici q3 (the exchanges' pids and grids over the
      four shards, the per-shard joins and aggregates) and every row
-     gather of P42 mesh Q1 (phase 3o's shapes);
+     gather of P42 mesh Q1 (phase 3o's shapes); the murmur3 chain at
+     P44's keys and at the DECIMAL(38,0) q3's (two limb lanes a key),
+     every row gather of a run of each, the probe at P44's first (hot)
+     and last windows and at every probe launch of windowed Q21 (phase
+     3q's shapes);
   3. drives bench.py's q1 plan (scan -> filter -> project -> aggregate) at
      16,777,216 rows, bench.py's q3 plan (two filtered scans -> inner hash
      join -> project -> exact aggregate -> TopN(10)) at 2,097,152 lineitems
@@ -435,6 +439,26 @@ fails the run on error:
      each dump directory (a .FAILED naming pyarrow where it is missing);
      then q3 with the path set beside the path empty, P43_RUNS runs in
      turns, each with its device peak;
+  3q. drives joins past one probe pass (drive_window_paths): P44, an
+     event-to-session join of 8,388,608 events (user_id, ts, event_id)
+     into 4,194,304 sessions (s_user, start, end, session_id), all LONG,
+     made with numpy from P44_SEED: 1,048,576 ordinary users with
+     uniform events and about four non-overlapping sessions each, and
+     one hot user with 49,152 events and 49,152 sessions, whose
+     2,415,919,104 candidates pass 2^31. Inner, left semi, left anti and
+     left outer on user_id = s_user with ts >= start AND ts < end, each
+     probed in windows (HashJoinExec.probe_windows), once counted
+     (launches, host reads, windows, window size, device peak) and held
+     to a numpy oracle (each event's session by searchsorted over the
+     sessions sorted by (user, start); the rows exactly and in the JAX
+     package's order), row 4's launches equal to the windows; then
+     P44_RUNS runs of the four in turns, one synchronisation a run.
+     Then TPC-H Q21 at SF1 with WINDOW_SLOTS at P44_Q21_WINDOW, its
+     semi and anti probes in windows, equal to its one pass bit for bit,
+     and q3 joined on its order keys as DECIMAL(38,0) columns, equal to
+     q3's LONG-key rows (keys exact, revenue to rtol 1e-9); last, the
+     probe at P44's hot window timed against its plain version and its
+     bound (time_window_probe; here, while the card's memory is free);
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -514,14 +538,16 @@ plan's, the differences and the session timings) and phase 3d's (under
 the cost constants, ms), phase 3j's (under "governed_paths"), phase
 3l's (under "stage_paths"), phase 3m's (under "file_paths") and phase
 3n's (under "delta_paths"), phase 3o's (under "mesh_paths", with the
-card's name and power limit) and phase 3p's (under "tooling_paths", with
-the card's name and power limit), before
+card's name and power limit), phase 3p's (under "tooling_paths", with
+the card's name and power limit) and phase 3q's (under "window_paths",
+with the card's name and power limit), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
 ported kernel (the
 dictionary gather's holds its times at dg's shape under "dg_shape", the
-probe's Q19's under "q19_shape" and Q21's under "q21_shapes", the row
+probe's Q19's under "q19_shape", Q21's under "q21_shapes" and P44's
+hot window under "p44_shape", the row
 gather's every shape under "shapes", the reorders' under
 "reorder_shapes" and Q21's under "q21_shapes", the murmur3 chain's
 three sites under "sites" and the pid hash under "pid_shapes", and each
@@ -3005,8 +3031,9 @@ GATHER_SITES = (
     (("_emit_stream_flags",), "semi/anti compaction"),
     (("_emit_build_unmatched",), "unmatched build rows"),
     (("_join_stream",), "nested-loop chunk"),
-    (("_probe_kernel", "gather_batch_columns"), "stream payload"),
-    (("_probe_kernel",), "build payload"),
+    (("_eval_condition",), "condition pairs"),
+    (("_emit_pairs", "gather_batch_columns"), "stream payload"),
+    (("_emit_pairs",), "build payload"),
     (("_window_batch",), "window sort"),
     (("_explode",), "explode payload"),
 )
@@ -10795,6 +10822,418 @@ def drive_tooling_paths(dev, sm, fuzz_futures, d3, q3_want, order_batches,
     return recs, launches
 
 
+# -- slice 22 (phase 3q): joins past one probe pass, P44 ---------------------
+
+P44_SEED = 44
+P44_EVENTS = 1 << 23     # events, the stream side: 8,388,608 rows
+P44_SESSIONS = 1 << 22   # sessions, the build side: 4,194,304 rows
+P44_USERS = 1 << 20      # ordinary users, about four sessions each
+P44_HOT = 49_152         # the hot user's events, and its sessions
+P44_HOT_ID = 1 << 40     # the hot user's id (a bot, or "anonymous")
+P44_SPAN = 1 << 20       # an ordinary user's time span, four session slots
+P44_HOT_SLOT = 1000      # the hot user's session slot and length
+P44_HOT_LENGTH = 600
+P44_RUNS = 3             # timed runs of each P44 join, in turns
+P44_JOINS = ("inner", "left_semi", "left_anti", "left_outer")
+P44_Q21_WINDOW = 1 << 22  # WINDOW_SLOTS for Q21 windowed: ~8 semi windows
+P44_NEED = ["murmur3_columns", "fused_probe_verify", "dma_row_gather"]
+
+
+def p44_data(seed=P44_SEED):
+    """The event-to-session join's tables, made with numpy from `seed`:
+    events (user_id, ts, event_id) and sessions (s_user, start, end,
+    session_id), all LONG. 1,048,576 ordinary users with uniform events
+    and four non-overlapping sessions each (three for the few that make
+    the sessions' count 2^22), and one hot user with P44_HOT events and
+    P44_HOT non-overlapping sessions: 49,152^2 = 2,415,919,104 hot
+    candidates, past 2^31. Both tables in random row order; event_id and
+    session_id are the row numbers."""
+    rng = np.random.default_rng(seed)
+    n_ord = P44_SESSIONS - P44_HOT
+    per_user = np.full(P44_USERS, 4, np.int64)
+    per_user[rng.choice(P44_USERS, 4 * P44_USERS - n_ord,
+                        replace=False)] = 3
+    s_user = np.repeat(np.arange(P44_USERS, dtype=np.int64), per_user)
+    first = np.repeat(np.cumsum(per_user) - per_user, per_user)
+    slot = P44_SPAN // 4
+    start = (np.arange(n_ord) - first) * slot \
+        + rng.integers(0, slot // 4, n_ord)
+    end = start + rng.integers(slot // 4, slot // 2, n_ord)
+    hot_start = np.arange(P44_HOT, dtype=np.int64) * P44_HOT_SLOT
+    s_user = np.concatenate([s_user, np.full(P44_HOT, P44_HOT_ID)])
+    start = np.concatenate([start, hot_start])
+    end = np.concatenate([end, hot_start + P44_HOT_LENGTH])
+    perm = rng.permutation(P44_SESSIONS)
+    n_ev = P44_EVENTS - P44_HOT
+    user = np.concatenate([rng.integers(0, P44_USERS, n_ev),
+                           np.full(P44_HOT, P44_HOT_ID)])
+    ts = np.concatenate([rng.integers(0, P44_SPAN, n_ev),
+                         rng.integers(0, P44_HOT * P44_HOT_SLOT, P44_HOT)])
+    eperm = rng.permutation(P44_EVENTS)
+    return {"user_id": user[eperm].astype(np.int64),
+            "ts": ts[eperm].astype(np.int64),
+            "event_id": np.arange(P44_EVENTS, dtype=np.int64),
+            "s_user": s_user[perm], "start": start[perm].astype(np.int64),
+            "end": end[perm].astype(np.int64),
+            "session_id": np.arange(P44_SESSIONS, dtype=np.int64)}
+
+
+def _search(sorted_values, queries, side="left"):
+    """np.searchsorted with the queries taken in sorted order (numpy's
+    binary searches run some 20x faster over sorted queries)."""
+    qo = np.argsort(queries)
+    out = np.empty(queries.shape[0], np.int64)
+    out[qo] = np.searchsorted(sorted_values, queries[qo], side=side)
+    return out
+
+
+def p44_oracle(d):
+    """Each event's session row (-1 for none), by searchsorted over the
+    sessions sorted by (user, start): the last session of the event's
+    user starting at or before ts, kept when ts < its end."""
+    users = np.unique(d["s_user"])
+    s_key = (_search(users, d["s_user"]) << 32) | d["start"]
+    order = np.argsort(s_key, kind="stable")
+    rank = _search(users, d["user_id"])
+    known = users[np.minimum(rank, users.shape[0] - 1)] == d["user_id"]
+    pos = _search(s_key[order], (rank << 32) | d["ts"], side="right") - 1
+    cand = order[np.maximum(pos, 0)]
+    ok = known & (pos >= 0) & (d["s_user"][cand] == d["user_id"]) \
+        & (d["start"][cand] <= d["ts"]) & (d["ts"] < d["end"][cand])
+    return np.where(ok, cand, -1)
+
+
+def p44_want(d, match):
+    """Each join's expected (event rows, session rows or -1), in the
+    order the JAX package emits: the inner join key-grouped (a stable
+    sort of the pairs in candidate order by the key's (lo, hi) u32
+    lanes), semi and anti the kept events in row order, the left outer
+    join the pairs in candidate order and then the unmatched events in
+    row order. An event meets at most one session, so candidate order is
+    row order."""
+    rows = np.arange(P44_EVENTS)
+    hit = rows[match >= 0]
+    miss = rows[match < 0]
+    key = d["user_id"][hit]
+    grouped = hit[np.lexsort((hit, key >> 32, key & 0xFFFFFFFF))]
+    return {"inner": (grouped, match[grouped]),
+            "left_semi": (hit, None), "left_anti": (miss, None),
+            "left_outer": (np.concatenate([hit, miss]),
+                           np.concatenate([match[hit], match[miss]]))}
+
+
+def p44_inputs():
+    """(p44_data(), each join's expected rows): host work a spawned worker
+    does while the earlier phases run."""
+    d = p44_data()
+    return d, p44_want(d, p44_oracle(d))
+
+
+def p44_batches(m, d, dev):
+    """(events, sessions) as one batch each on `dev`."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    t = m.t
+    out = []
+    for names, n in ((("user_id", "ts", "event_id"), P44_EVENTS),
+                     (("s_user", "start", "end", "session_id"),
+                      P44_SESSIONS)):
+        schema = t.Schema(tuple(t.StructField(k, t.LONG) for k in names))
+        out.append(ColumnarBatch([Column.from_numpy(
+            d[k], t.LONG, capacity=n, device=dev) for k in names], n,
+            schema))
+    return out
+
+
+def p44_join(m, events, sessions, jt):
+    """events JOIN sessions ON user_id = s_user AND ts >= start AND ts <
+    end, built on the sessions."""
+    col, pr = m.core.col, m.pred
+    cond = pr.And(pr.GreaterThanOrEqual(col("ts"), col("start")),
+                  pr.LessThan(col("ts"), col("end")))
+    return m.joins.HashJoinExec(
+        m.basic.InMemoryScanExec([events], events.schema),
+        m.basic.InMemoryScanExec([sessions], sessions.schema),
+        [col("user_id")], [col("s_user")], jt, build_side="right",
+        condition=cond)
+
+
+def p44_check(label, out, want):
+    """The output's event_id (and session_id, null where none) columns
+    against the expected rows, exactly and in order."""
+    rows, sessions = want
+    n = sum(b.num_rows_host for b in out)
+    ev = np.concatenate([b.columns[2].data[:b.num_rows_host].cpu().numpy()
+                         for b in out]) if out else np.zeros(0, np.int64)
+    if n != rows.shape[0] or not np.array_equal(ev, rows):
+        raise AssertionError(f"{label}: {n} rows, event ids differ from "
+                             f"the numpy oracle's {rows.shape[0]}")
+    if sessions is not None:
+        sid = np.concatenate([np.where(
+            b.columns[6].validity[:b.num_rows_host].cpu().numpy(),
+            b.columns[6].data[:b.num_rows_host].cpu().numpy(), -1)
+            for b in out])
+        if not np.array_equal(sid, sessions):
+            raise AssertionError(f"{label}: session ids differ from the "
+                                 f"numpy oracle's")
+
+
+def q3_decimal_tree(m, orders, lines):
+    """bench.py's q3 tree joined on l_dkey = o_dkey, its order keys as
+    DECIMAL(38,0) columns (q3_decimal_plan): the join hashes and verifies
+    the decimal128 keys (two limbs); the aggregate groups by the LONG
+    l_orderkey."""
+    col, lit, b = m.core.col, m.core.lit, m.basic
+    lines = b.FilterExec(col("l_flag") != lit(0), lines)
+    orders = b.FilterExec(col("o_flag") < lit(5), orders)
+    joined = m.joins.HashJoinExec(lines, orders, [col("l_dkey")],
+                                  [col("o_dkey")], "inner",
+                                  build_side="right")
+    proj = b.ProjectExec([
+        col("l_orderkey"),
+        (col("l_price") * (lit(1.0) - col("l_disc"))).alias("rev")], joined)
+    agg = m.agg.AggregateExec([col("l_orderkey")],
+                              [(m.aggexprs.Sum(col("rev")), "revenue")],
+                              proj)
+    agg._spec_enabled = False
+    return m.sort.TopNExec(10, [(col("revenue"), False)], agg)
+
+
+def q3_decimal_plan(d, dev):
+    """q3 over q3_data's columns with o_orderkey and l_orderkey cast to
+    DECIMAL(38,0) on the host (o_dkey, l_dkey: the hi limb the sign, the
+    lo limb the key), one batch a side."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import (Column,
+                                                        Decimal128Column)
+    m = port_modules()
+    t = m.t
+    dec = t.DecimalType(38, 0)
+
+    def side(n, fields, key, dkey):
+        cols = [Column.from_numpy(d[f][:n], getattr(t, ty), capacity=n,
+                                  device=dev) for f, ty in fields]
+        k = d[key][:n]
+        cols.append(Decimal128Column.from_limbs(
+            torch.from_numpy(k >> 63).to(dev), torch.from_numpy(k).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev), dec))
+        schema = t.Schema(tuple(t.StructField(f, getattr(t, ty))
+                                for f, ty in fields)
+                          + (t.StructField(dkey, dec),))
+        return m.basic.InMemoryScanExec([ColumnarBatch(cols, n, schema)],
+                                        schema)
+    import torch
+    return q3_decimal_tree(
+        m, side(Q3_ORDERS, (("o_orderkey", "LONG"), ("o_flag", "INT")),
+                "o_orderkey", "o_dkey"),
+        side(Q3_LINES, (("l_orderkey", "LONG"), ("l_price", "DOUBLE"),
+                        ("l_disc", "DOUBLE"), ("l_flag", "INT")),
+             "l_orderkey", "l_dkey"))
+
+
+@contextlib.contextmanager
+def window_slots(n):
+    """exec/joins.WINDOW_SLOTS set to `n` inside, put back on exit."""
+    from spark_rapids_tpu_torch.exec import joins
+    before = joins.WINDOW_SLOTS
+    joins.WINDOW_SLOTS = n
+    try:
+        yield
+    finally:
+        joins.WINDOW_SLOTS = before
+
+
+def p44_probe_windows(plan):
+    """The probe windows of one run of `plan` (capture_probes): the hot
+    first window and the last, whose bucket is partly empty."""
+    calls = capture_probes(plan)
+    if len(calls) < 2:
+        raise AssertionError(f"P44: {len(calls)} probe windows captured")
+    return [calls[0], calls[-1]]
+
+
+def compare_window_paths(dev, p44_in, d3, jb):
+    """Phase 2 at phase 3q's own inputs: the murmur3 chain at P44's build
+    and stream keys, the probe at P44's first and last windows, every row
+    gather of a run of P44's inner join; the murmur3 chain at q3's
+    DECIMAL(38,0) keys (their two limbs) and every row gather of that q3;
+    the probe at every launch of windowed Q21; each held exactly to its
+    plain version."""
+    import torch
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    m = port_modules()
+    events, sessions = p44_in
+    for label, plan in (("P44 inner", p44_join(m, events, sessions,
+                                               "inner")),
+                        ("q3 DECIMAL(38,0)", q3_decimal_plan(d3, dev))):
+        calls = capture_murmur3(plan)
+        for j, (cols, seeds) in enumerate(calls):
+            _exact(f"murmur3 {label} call {j}",
+                   m3.murmur3_columns(cols, seeds),
+                   m3.murmur3_columns_plain(cols, seeds))
+        print(f"compare {label} murmur3 launches ({len(calls)}: "
+              f"{[len(c) for c, _ in calls]} key lanes of "
+              f"{[c[0].capacity for c, _ in calls]} rows); exact")
+        del calls
+    for label, plan in (("P44 inner", p44_join(m, events, sessions,
+                                               "inner")),
+                        ("q3 DECIMAL(38,0)", q3_decimal_plan(d3, dev))):
+        gathers = capture_row_gathers(plan)
+        print(f"compare {label} main-path row gathers: "
+              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
+        del gathers
+    for j, (args, cap, total) in enumerate(p44_probe_windows(
+            p44_join(m, events, sessions, "inner"))):
+        hits = compare_probe(f"probe P44 window {j}", args, cap, total)
+        print(f"compare P44 probe window {j}: {args[1].shape[0]} stream "
+              f"rows into {args[6].shape[0]} build rows, {total} "
+              f"candidates in {cap} slots, {hits} verified pairs; exact")
+        torch.cuda.empty_cache()
+    with window_slots(P44_Q21_WINDOW):
+        calls = capture_probes(q21_plan(m, jb))
+    hits = [compare_probe(f"probe Q21 windowed launch {j}", args, cap, total)
+            for j, (args, cap, total) in enumerate(calls)]
+    print(f"compare Q21 windowed probe launches ({len(calls)}: the semi and "
+          f"anti joins' windows, then one a join; up to "
+          f"{max(total for _, _, total in calls)} candidates in "
+          f"{max(cap for _, cap, _ in calls)} slots, {sum(hits)} verified "
+          f"pairs); exact")
+
+
+def drive_window_paths(dev, p44_in, want, jb, q21_want, d3, q3_want,
+                       q3_rows):
+    """Phase 3q (P44): the four event-to-session joins, each once counted
+    (launches, host reads, windows, window size, device peak) and held to
+    the numpy oracle, then P44_RUNS runs of the four in turns; Q21 at
+    SF1 with WINDOW_SLOTS at P44_Q21_WINDOW against its one pass, bit for
+    bit; q3 on DECIMAL(38,0) join keys against q3's LONG-key rows.
+    Returns (records, launches by path)."""
+    import torch
+    m = port_modules()
+    events, sessions = p44_in
+    recs, launches = {"joins": {}}, {}
+    for jt in P44_JOINS:
+        label = f"P44 {jt}"
+        plan = p44_join(m, events, sessions, jt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out, counts, reads = drive_batches(label, plan, P44_NEED)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        p44_check(label, out, want[jt])
+        windows = plan.window_counters["windows"]
+        if counts["fused_probe_verify"] != windows or windows < 2:
+            raise AssertionError(f"{label}: {counts['fused_probe_verify']} "
+                                 f"probe launches, {windows} windows")
+        del out
+        launches[label.replace(" ", "_")] = counts
+        recs["joins"][jt] = {
+            "rows": int(want[jt][0].shape[0]), "windows": windows,
+            "window_slots": plan.window_counters["slots"],
+            "launches": counts,
+            "host_reads": reads, "first_run_ms": first_ms,
+            "peak_bytes": peak, "base_bytes": base}
+        print(f"{label}: {want[jt][0].shape[0]} rows equal to the numpy "
+              f"oracle in order; {windows} windows of "
+              f"{plan.window_counters['slots']} "
+              f"slots; launches {family_counts(counts)}; host reads "
+              f"{reads}; first run {first_ms:.1f} ms; device peak "
+              f"{peak / 1e9:.2f} GB ({base / 1e9:.2f} GB held before)")
+        del plan
+        torch.cuda.empty_cache()
+    ms = {jt: [] for jt in P44_JOINS}
+    for i in range(P44_RUNS):
+        for jt in (P44_JOINS if i % 2 == 0 else P44_JOINS[::-1]):
+            plan = p44_join(m, events, sessions, jt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = list(plan.execute())
+            torch.cuda.synchronize()
+            ms[jt].append((time.perf_counter() - t0) * 1e3)
+            p44_check(f"P44 {jt} timed", out, want[jt])
+            del out, plan
+    for jt in P44_JOINS:
+        recs["joins"][jt]["ms"] = ms[jt]
+        print(f"P44 {jt} timed, {P44_RUNS} runs in turns: "
+              f"{['%.1f' % v for v in ms[jt]]} ms")
+    torch.cuda.empty_cache()
+
+    # Q21 with its semi and anti probes cut into windows
+    pm = port_modules()
+    one, one_counts = drive_counted("Q21 one pass", q21_plan(pm, jb),
+                                    ["dict_gather"] + Q_NEED)
+    with window_slots(P44_Q21_WINDOW):
+        plan = q21_plan(pm, jb)
+        win, win_counts = drive_counted("Q21 windowed", plan,
+                                        ["dict_gather"] + Q_NEED)
+    if win != one:
+        raise AssertionError("Q21 windowed: rows differ from its one pass")
+    exact_rows(q21_want)(win, "Q21 windowed")
+    semi, anti = q21_join(plan, 6), q21_join(plan, 5)
+    q21_windows = {k: (j.window_counters["windows"],
+                       j.window_counters["slots"])
+                   for k, j in (("semi", semi), ("anti", anti))}
+    if q21_windows["semi"][0] < 2:
+        raise AssertionError(f"Q21 windowed: {q21_windows}")
+    launches["P44_Q21_windowed"] = win_counts
+    recs["q21"] = {"rows": len(win), "windows": q21_windows,
+                   "launches": win_counts, "one_pass_launches": one_counts}
+    print(f"Q21 windowed (WINDOW_SLOTS {P44_Q21_WINDOW}): {len(win)} rows "
+          f"equal to its one pass bit for bit; semi / anti windows "
+          f"{q21_windows}; launches {family_counts(win_counts)} (one pass "
+          f"{family_counts(one_counts)})")
+
+    # q3 on DECIMAL(38,0) join keys
+    # decimal128 keys verify off the probe kernel (expand_candidates and
+    # verify_pairs): rows 2+3 and 5 only
+    rows, dec_counts = drive_counted("q3 DECIMAL(38,0)",
+                                     q3_decimal_plan(d3, dev),
+                                     ["murmur3_columns", "dma_row_gather"])
+    check_q3(rows, q3_want, "q3 DECIMAL(38,0)")
+    if [int(k) for k, _ in rows] != [int(k) for k, _ in q3_rows]:
+        raise AssertionError(f"q3 DECIMAL(38,0): keys {rows} != q3's "
+                             f"{q3_rows}")
+    check_q3(rows, dict((int(k), v) for k, v in q3_rows),
+             "q3 DECIMAL(38,0) against q3")
+    launches["P44_q3_decimal"] = dec_counts
+    recs["q3_decimal"] = {"rows": rows, "launches": dec_counts}
+    print(f"q3 on DECIMAL(38,0) keys: top 10 equal to q3's LONG-key rows "
+          f"(keys exact, revenue to rtol {RTOL}); launches "
+          f"{family_counts(dec_counts)}")
+    check_idle("P44")
+    return recs, launches
+
+
+def time_window_probe(p44_in, launches):
+    """fused_probe_verify at P44's first (hot) window: the wrapper's whole
+    device work, its launch alone, the plain version and the bound."""
+    import torch
+    from spark_rapids_tpu_torch.ops import probe_verify as pv
+    args, cap, total = p44_probe_windows(p44_join(
+        port_modules(), *p44_in, "inner"))[0]
+    # contract: ok dispatch-ledger — times the kernel alone; the compared launches count nothing
+    _, launch = pv.launcher(*args, cap)
+    launch()
+    kernel_ms = device_ms(launch, 5)
+    ms = device_ms(lambda: pv.fused_probe_verify(*args, cap), 5)
+    plain_ms = device_ms(lambda: pv.fused_probe_verify_plain(*args, cap), 2)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(*probe_need(args, cap, total))
+    torch.cuda.empty_cache()
+    print(f"fused_probe_verify P44 window ({args[1].shape[0]} stream rows, "
+          f"{args[6].shape[0]} build rows, {total} candidates in {cap} "
+          f"slots): wrapper {ms:.4f} ms on the device, kernel launch "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "stream_rows": int(args[1].shape[0]),
+            "build_rows": int(args[6].shape[0]), "candidates": total,
+            "cand_cap": cap, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -10827,6 +11266,8 @@ def main() -> int:
     # P43's fuzz tables and oracles (phase 3p) are pure Python: worker
     # processes make them while the phases before 3p run
     fuzz_pool, fuzz_futures = p43_start_fuzz_data()
+    # P44's tables and oracle (phase 3q), made the same way
+    p44_future = fuzz_pool.submit(p44_inputs)
 
     # -- data and plans (host set-up) --------------------------------------
     t0 = time.perf_counter()
@@ -10899,6 +11340,14 @@ def main() -> int:
     o_schema42, l_schema42 = q3_schemas("LONG")
     p42_o = q3_batches(d3, dev, o_schema42, Q3_ORDERS)
     p42_l = q3_batches(d3, dev, l_schema42, Q3_LINES)
+    # P44's tables (phase 3q drives the windowed probe over them), from
+    # the worker: one batch a side on the card
+    t_p44 = time.perf_counter()
+    p44, p44_wants = p44_future.result(timeout=600)
+    p44_in = p44_batches(port_modules(), p44, dev)
+    del p44, p44_future
+    print(f"P44 data and oracle (made in a worker; waited and uploaded in "
+          f"{time.perf_counter() - t_p44:.1f} s)")
 
     # -- phase 1: build every kernel at once -------------------------------
     t0 = time.perf_counter()
@@ -11071,6 +11520,10 @@ def main() -> int:
     with default_conf_after():
         compare_mesh_paths(dev, session_modules(), d3, q1t_batch, p42_o,
                            p42_l)
+    # P44's and the DECIMAL(38,0) q3's own inputs (phase 3q drives them):
+    # the murmur3 chains, every row gather of a run, the probe windows
+    with default_conf_after():
+        compare_window_paths(dev, p44_in, d3, jb)
     shuffle_root_empty("phase 2")
     torch.cuda.synchronize()
 
@@ -11096,6 +11549,7 @@ def main() -> int:
             "murmur3_int_lanes": (0, 0)}
     rows, q3_counts = drive_counted("q3", q3, q3_need)
     check_q3(rows, q3_want, "q3")
+    q3_rows = rows
     print(f"q3 at {Q3_LINES} x {Q3_ORDERS}: top 10 equal to the numpy "
           f"oracle; launches {q3_counts}")
     rows, warm_counts = drive_counted("q3 warm", q3, q3_need)
@@ -11408,6 +11862,20 @@ def main() -> int:
           f"in the workers in {tool_recs['fuzz_data_s']} s, waited "
           f"{tool_recs['fuzz_data_wait_s']:.1f} s)")
 
+    # -- phase 3q, slice 22: joins past one probe pass (P44) ----------------
+    t_win = time.perf_counter()
+    torch.cuda.empty_cache()
+    with default_conf_after():
+        win_recs, win_launches = drive_window_paths(
+            dev, p44_in, p44_wants, jb, q21_oracle(dj), d3, q3_want, q3_rows)
+    # the probe at P44's hot window, timed here while the card's memory
+    # is free (a window of 2^29 slots and its plain version need ~40 GB)
+    torch.cuda.empty_cache()
+    p44_probe = time_window_probe(p44_in,
+                                  win_recs["joins"]["inner"]["windows"])
+    torch.cuda.empty_cache()
+    print(f"phase 3q: {time.perf_counter() - t_win:.1f} s")
+
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
     with speculation_scope() as scope:
@@ -11719,7 +12187,8 @@ def main() -> int:
             **{k: v.get(r["name"], 0) for k, v in file_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in delta_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in mesh_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in tool_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in tool_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in win_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -11734,6 +12203,7 @@ def main() -> int:
             r["q21_shapes"] = q21_gathers
         if r["name"] == "fused_probe_verify":
             r["q21_shapes"] = q21_probes
+            r["p44_shape"] = p44_probe
     print(json.dumps({"adaptive_paths": dict(a9b_recs, phase="3k")},
                      default=str))
     print(json.dumps({"paths": {
@@ -11765,7 +12235,8 @@ def main() -> int:
         "governed_paths": gov_recs, "stage_paths": stage_recs,
         "file_paths": file_recs, "delta_paths": delta_recs,
         "mesh_paths": dict(mesh_recs, card=smi),
-        "tooling_paths": dict(tool_recs, card=smi)}},
+        "tooling_paths": dict(tool_recs, card=smi),
+        "window_paths": dict(win_recs, card=smi)}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -9,14 +9,19 @@ HashJoinExec, per stream batch:
      build table (ops/join.probe_counts) and the int64 candidate total;
   2. the candidate bucket: measured (one host read of the total) or,
      inside a speculation scope, the bucket cached for this shape, with a
-     device flag recorded with the scope in case the total outgrew it;
+     device flag recorded with the scope in case the total outgrew it. A
+     measured total past WINDOW_SLOTS takes the windowed probe
+     (`probe_windows`): step 3 once a window of the candidate space, its
+     verified pairs concatenated in window order, then one emission;
   3. `_probe_kernel`: for integer-like keys of equal lane widths the
      fused probe-verify kernel (ops/probe_verify.fused_probe_verify), for
      the others (a string or dictionary key, floating-point keys, keys of
-     unequal widths) the candidate expansion and the key verify of
-     ops/join.py (`expand_candidates`, `verify_pairs`: a varlen key byte
-     for byte through spans into each side's own buffers, a fixed-width
-     key by value, so NaN never matches and -0.0 matches 0.0); the
+     unequal widths, decimal128 and struct keys) the candidate expansion
+     and the key verify of ops/join.py (`expand_candidates`,
+     `verify_pairs`: a varlen key byte for byte through spans into each
+     side's own buffers, a decimal128 key by both limbs, a struct key
+     field by field, a fixed-width key by value, so NaN never matches and
+     -0.0 matches 0.0); the
      residual condition over the candidate pairs (`_eval_condition`);
      then the emission by join type, as the JAX package emits:
        * inner with fixed-width keys: key-grouped (one sort puts verified
@@ -68,11 +73,12 @@ import torch
 
 from ..columnar.batch import ColumnarBatch, empty_batch
 from ..columnar.column import Column, StringColumn, bucket_capacity
-from ..columnar.encoded import DictionaryColumn, materialize_batch
+from ..columnar.encoded import materialize_batch
 from ..expr.core import Expression, UnresolvedAttribute, resolve
 from ..expr.predicates import encoded_safe_predicate, encoded_safe_projection
 from ..ops import gather as G
-from ..ops.basic import active_mask, compaction_order, gather_column
+from ..ops.basic import (active_mask, compaction_order, gather_column,
+                         with_validity)
 from ..ops.hashing import u32_of
 from ..ops.join import (BuildTable, cross_pairs, expand_candidates,
                         inner_gather_maps, int_key_lanes, is_varsize,
@@ -100,6 +106,18 @@ NESTED_LOOP_JOIN_TYPES = (INNER, CROSS, LEFT_OUTER, LEFT_SEMI, LEFT_ANTI,
                           EXISTENCE)
 BUILD_TIME = "buildTime"
 JOIN_TIME = "joinTime"
+#: the most candidate slots one probe pass takes: a stream batch whose
+#: candidate total passes it is probed in windows of at most this many
+#: slots (HashJoinExec.probe_windows), so that every candidate bucket
+#: stays below 2^31 (the probe kernel's and expand_candidates' int32
+#: slots). A module constant, not a conf; the tests lower it.
+WINDOW_SLOTS = 1 << 30
+#: the most verified pairs one stream batch emits: a batch's output row
+#: index is int32, as the JAX package's (`iota_c` in its probe)
+MAX_BATCH_PAIRS = 1 << 30
+#: device bytes a candidate slot takes while a window is verified: the
+#: verified flag, the stream row, the build position and the build row
+SLOT_BYTES = 13
 
 
 def join_output_schema(left: Schema, right: Schema, join_type: str,
@@ -120,24 +138,55 @@ def join_output_schema(left: Schema, right: Schema, join_type: str,
 
 
 def _string_byte_needs(stream_columns, build: BuildTable, lo, counts,
-                       num_rows):
+                       num_rows, row0: int = 0):
     """The exact byte need of each string column (the element need of each
     list column) of the join output, on the device, in column order
     (stream side, then build payload). A
     stream row is emitted count_i times among the candidates plus at most
     once more (the outer join's unmatched tail); the build side's need is
-    the byte prefix sum over each row's candidate range."""
+    the byte prefix sum over each row's candidate range. `lo` and
+    `counts` may cover the stream rows from `row0` on (a probe window)."""
     cnt = counts.to(torch.int64)
-    act = active_mask(num_rows, counts.shape[0])
+    n = counts.shape[0]
+    act = active_mask(num_rows, row0 + n, counts.device)[row0:]
     needs = []
     for c in stream_columns:
         if is_varsize(c):
-            lens = torch.where(act, var_lengths(c), 0).to(torch.int64)
+            lens = torch.where(act, var_lengths(c)[row0: row0 + n],
+                               0).to(torch.int64)
             needs.append(torch.sum(cnt * lens) + torch.sum(lens))
     lo64 = lo.long()
     for prefix in build.payload_prefix:
         needs.append(torch.sum(prefix[lo64 + cnt] - prefix[lo64]))
     return needs
+
+
+def _pair_byte_needs(stream_batch: ColumnarBatch, build: BuildTable, s_idx,
+                     b_pos, verified):
+    """_string_byte_needs over verified pairs (stream row, sorted build
+    position) in place of candidate ranges: the exact need of the
+    emission's gathers, in the same column order."""
+    act = active_mask(stream_batch.num_rows, stream_batch.capacity,
+                      verified.device)
+    s_safe = torch.clamp(s_idx, min=0).long()
+    needs = []
+    for c in stream_batch.columns:
+        if is_varsize(c):
+            lens = torch.where(act, var_lengths(c), 0).to(torch.int64)
+            needs.append(torch.sum(torch.where(verified, lens[s_safe], 0))
+                         + torch.sum(lens))
+    b_safe = torch.clamp(b_pos, min=0).long()
+    for prefix in build.payload_prefix:
+        row = prefix[b_safe + 1] - prefix[b_safe]
+        needs.append(torch.sum(torch.where(verified, row, 0)))
+    return needs
+
+
+def _row_bytes(col: Column) -> int:
+    """A column's device bytes a row: its tensors' bytes over its
+    capacity, rounded up."""
+    nbytes = sum(t.numel() * t.element_size() for t in col.leaves())
+    return -(-nbytes // max(col.capacity, 1))
 
 
 def _byte_caps(columns, needs) -> tuple:
@@ -207,6 +256,10 @@ class HashJoinExec(TpuExec):
         self._spec_uses = {}
         # the same key -> the string columns' byte buckets
         self._caps_cache = {}
+        #: the windowed probe's counts: stream batches probed in windows,
+        #: the windows they took, and the largest window's slots (0:
+        #: every batch took one pass)
+        self.window_counters = {"batches": 0, "windows": 0, "slots": 0}
         self._stream_side = 0 if build_side == "right" else 1
         s, b = self._stream_side, 1 - self._stream_side
         # a child filter becomes a key-validity mask (an invalid key never
@@ -228,11 +281,13 @@ class HashJoinExec(TpuExec):
                                             kids[s].output_schema)
         self._build_keys = bind_projection(keys[b], kids[b].output_schema)
         # the residual condition, bound to the pair schema (left columns
-        # then right columns)
-        self._pair_schema = Schema(tuple(kids[0].output_schema.fields)
-                                   + tuple(kids[1].output_schema.fields))
-        self._cond_bound = None if condition is None \
-            else resolve(condition, self._pair_schema)
+        # then right columns); without one the sides may share names (a
+        # USING join's keys)
+        self._pair_schema = self._cond_bound = None
+        if condition is not None:
+            self._pair_schema = Schema(tuple(kids[0].output_schema.fields)
+                                       + tuple(kids[1].output_schema.fields))
+            self._cond_bound = resolve(condition, self._pair_schema)
 
     def _fingerprint_extras(self):
         """The join's semantics: type, build side, bound keys, absorbed
@@ -306,17 +361,7 @@ class HashJoinExec(TpuExec):
     def _mask_keys(key_cols, keep) -> List[Column]:
         """AND an absorbed filter's mask into key validity (an invalid key
         never matches, so the filtered rows vanish from the output)."""
-        out = []
-        for c in key_cols:
-            v = c.validity & keep
-            if isinstance(c, DictionaryColumn):
-                out.append(DictionaryColumn(c.codes, c.dict_data,
-                                            c.dict_offsets, v, c.dtype))
-            elif isinstance(c, StringColumn):
-                out.append(StringColumn(c.data, c.offsets, v, c.dtype))
-            else:
-                out.append(Column(c.data, v, c.dtype))
-        return out
+        return [with_validity(c, c.validity & keep) for c in key_cols]
 
     @classmethod
     def _key_columns(cls, bound, preds, batch: ColumnarBatch) -> List[Column]:
@@ -381,10 +426,13 @@ class HashJoinExec(TpuExec):
         return lo, counts, skey_cols, torch.sum(counts, dtype=torch.int64)
 
     def _candidate_capacity(self, key, total_dev, needs=(), columns=()):
-        """The candidate bucket, and the byte buckets of the string
-        columns in `columns` (stream side, then build payload) from their
-        device `needs`: cached inside a speculation scope, with a device
-        flag for outgrowing them; else measured by one host read."""
+        """(cand_cap, caps, total): the candidate bucket and the byte
+        buckets of the string columns in `columns` (stream side, then
+        build payload) from their device `needs`, cached inside a
+        speculation scope with a device flag for outgrowing them (total
+        None), else measured by one host read. A measured total past
+        WINDOW_SLOTS gives cand_cap None: the batch takes the windowed
+        route, which sizes its own buckets and caches nothing."""
         from .speculation import current_scope, speculation_allowed
         cached = self._size_cache.get(key)
         if cached is not None and speculation_allowed():
@@ -403,10 +451,12 @@ class HashJoinExec(TpuExec):
             for need, cap in zip(needs, [c for c in caps if c is not None]):
                 flag = flag | (need > cap)
             current_scope().record(flag)
-            return cached, caps
+            return cached, caps, None
         # one host read of the total and the byte needs
         fetched = torch.stack([total_dev] + list(needs)).tolist() \
             if needs else [int(total_dev)]
+        if fetched[0] > WINDOW_SLOTS:
+            return None, (), fetched[0]
         cand_cap = bucket_capacity(max(fetched[0], 1))
         caps = _byte_caps(columns, fetched[1:])
         if cached is not None:
@@ -416,7 +466,7 @@ class HashJoinExec(TpuExec):
                          for c, o in zip(caps, self._caps_cache[key]))
         self._size_cache[key] = cand_cap
         self._caps_cache[key] = caps
-        return cand_cap, caps
+        return cand_cap, caps, fetched[0]
 
     def _probe_one(self, build: BuildTable, stream_batch: ColumnarBatch,
                    build_matched=None):
@@ -430,51 +480,184 @@ class HashJoinExec(TpuExec):
         # (an empty dictionary) may differ there from the others
         key = (self.partition, stream_batch.capacity, build.capacity,
                tuple(is_varsize(c) for c in columns))
-        cand_cap, caps = self._candidate_capacity(key, total_dev, needs,
-                                                  columns)
+        cand_cap, caps, total = self._candidate_capacity(key, total_dev,
+                                                         needs, columns)
+        if cand_cap is None:
+            return self.probe_windows(build, stream_batch, lo, counts,
+                                      skey_cols, total, build_matched)
         n_s = len(stream_batch.columns)
         return self._probe_kernel(build, stream_batch, lo, counts,
                                   skey_cols, total_dev, cand_cap,
                                   caps[:n_s], caps[n_s:], build_matched)
 
-    def _verify(self, build: BuildTable, lo, counts, skey_cols, cand_cap):
+    def _verify(self, build: BuildTable, lo, counts, skey_cols, cand_cap,
+                row0: int = 0):
         """(fused, verified, s_idx, b_pos, b_row) over the candidate
-        slots: b_pos is the sorted build position (-1 past the total),
-        b_row the original build row."""
+        slots of the stream rows [row0, row0 + len(counts)): b_pos is the
+        sorted build position (-1 past the total), b_row the original
+        build row, s_idx the stream row in the whole batch."""
         sk = int_key_lanes(skey_cols)
         if build.key_lanes is not None and sk is not None \
                 and sk[0].shape[1] == build.key_lanes[0].shape[1]:
             bk_lanes, bvalid = build.key_lanes
-            sk_lanes, svalid = sk
+            n = counts.shape[0]
+            sk_lanes, svalid = sk[0][row0: row0 + n], sk[1][row0: row0 + n]
             verified, s_idx, b_pos, b_row = fused_probe_verify(
                 lo, counts, bk_lanes, bvalid, sk_lanes, svalid, build.perm,
                 cand_cap)
+            if row0:
+                s_idx = torch.where(s_idx >= 0, s_idx + row0, -1)
             return True, verified, s_idx, b_pos, b_row
         s_idx, b_pos, _ = expand_candidates(lo, counts, cand_cap)
         pair_valid = s_idx >= 0
+        if row0:
+            s_idx = torch.where(pair_valid, s_idx + row0, -1)
         b_pos = torch.where(pair_valid, b_pos, -1)
         verified, b_row = verify_pairs(build, skey_cols, s_idx, b_pos,
                                        pair_valid)
         return False, verified, s_idx, b_pos, b_row
 
-    def _probe_kernel(self, build: BuildTable, stream_batch: ColumnarBatch,
-                      lo, counts, skey_cols, total_dev, cand_cap: int,
-                      s_caps=(), b_caps=(), build_matched=None):
-        jt = self.join_type
+    def _verified_pairs(self, build: BuildTable, stream_batch, lo, counts,
+                        skey_cols, cand_cap: int, s_caps=(), b_caps=(),
+                        row0: int = 0):
+        """The key verify, then the residual condition over the candidate
+        pairs: (fused, verified, s_idx, b_pos, b_row)."""
         fused, verified, s_idx, b_pos, b_row = self._verify(
-            build, lo, counts, skey_cols, cand_cap)
+            build, lo, counts, skey_cols, cand_cap, row0)
         if self._cond_bound is not None:
             verified = verified & self._eval_condition(
                 build, stream_batch, s_idx, b_row, s_caps, b_caps)
+        return fused, verified, s_idx, b_pos, b_row
+
+    def _probe_kernel(self, build: BuildTable, stream_batch: ColumnarBatch,
+                      lo, counts, skey_cols, total_dev, cand_cap: int,
+                      s_caps=(), b_caps=(), build_matched=None):
+        """One pass over the candidate space: the verified pairs, then
+        the emission by join type."""
+        fused, verified, s_idx, b_pos, b_row = self._verified_pairs(
+            build, stream_batch, lo, counts, skey_cols, cand_cap, s_caps,
+            b_caps)
         if build_matched is not None:
             build_matched = build_matched | matched_flags(
                 verified, b_pos, build.capacity)
-        scap = stream_batch.capacity
-        if jt in RIGHT_BUILD_ONLY:
-            return self._emit_stream_flags(
-                stream_batch, matched_flags(verified, s_idx, scap)), \
-                build_matched
+        if self.join_type in RIGHT_BUILD_ONLY:
+            return self._emit_stream_flags(stream_batch, matched_flags(
+                verified, s_idx, stream_batch.capacity)), build_matched
+        return self._emit_pairs(build, stream_batch, fused, verified, s_idx,
+                                b_pos, b_row, skey_cols, total_dev,
+                                cand_cap, s_caps, b_caps), build_matched
 
+    # -- the windowed probe ------------------------------------------------
+    def window_slots(self, build: BuildTable, stream_batch) -> int:
+        """The window: WINDOW_SLOTS, or the largest power of two of slots
+        whose candidate-level working set the device budget still holds
+        (SLOT_BYTES a slot, and with a condition the pair batch's bytes a
+        slot: every column of both sides), whichever is smaller."""
+        from ..memory.budget import memory_budget
+        per_slot = SLOT_BYTES
+        if self._cond_bound is not None:
+            per_slot += sum(_row_bytes(c) for c in
+                            list(stream_batch.columns) + list(build.payload))
+        budget = memory_budget()
+        fits = max(budget.limit - budget.used, 0) // per_slot
+        pow2 = 1 << (max(fits, 1).bit_length() - 1)
+        return max(1, min(WINDOW_SLOTS, pow2))
+
+    def probe_windows(self, build: BuildTable, stream_batch: ColumnarBatch,
+                      lo, counts, skey_cols, total: int, build_matched=None):
+        """A stream batch whose candidate total (`total`, read on the host)
+        passes WINDOW_SLOTS, probed in windows: the flat candidate space
+        cut at multiples of the window (`window_slots`), each window one
+        pass of the probe route over the stream rows it covers (a window
+        may start or end inside a row: that row's range is cut to it),
+        the residual condition over each window's pairs. The verified
+        (stream_idx, build_pos, build_row) of the windows, compacted and
+        concatenated in window order, are the pairs one pass gives, in
+        its order; the emission runs once over them. Semi, anti and
+        existence joins OR each window's stream flags instead, and a
+        build-preserving join its build flags. Host reads: one of the
+        window edges, one of each window's verified count, and with a
+        condition over string columns one of each window's byte needs.
+        The speculative size cache is not used."""
+        jt = self.join_type
+        dev = counts.device
+        scap = stream_batch.capacity
+        w = self.window_slots(build, stream_batch)
+        n_w = -(-total // w)
+        wc = self.window_counters
+        wc["batches"] += 1
+        wc["windows"] += n_w
+        wc["slots"] = max(wc["slots"], w)
+        # the edges: each window's first and last stream row, one read
+        cum = torch.cumsum(counts, 0, dtype=torch.int64)
+        starts = torch.arange(n_w, dtype=torch.int64, device=dev) * w
+        ends = torch.clamp(starts + w, max=total) - 1
+        edges = torch.stack([torch.searchsorted(cum, starts, right=True),
+                             torch.searchsorted(cum, ends, right=True)],
+                            dim=1).tolist()
+        columns = list(stream_batch.columns) + list(build.payload)
+        cond_sized = self._cond_bound is not None and any(
+            is_varsize(c) for c in columns)
+        n_s = len(stream_batch.columns)
+        fused = False
+        smatched = torch.zeros(scap, dtype=torch.bool, device=dev)
+        parts: List[Tuple[torch.Tensor, ...]] = []
+        n_pairs = 0
+        for k, (r0, r1) in enumerate(edges):
+            a, b = k * w, min((k + 1) * w, total)
+            end = cum[r0: r1 + 1]
+            start = end - counts[r0: r1 + 1]
+            lo_w = lo[r0: r1 + 1] + torch.clamp(a - start, min=0).to(
+                torch.int32)
+            cnt_w = (torch.clamp(end, max=b)
+                     - torch.clamp(start, min=a)).to(torch.int32)
+            cap_w = bucket_capacity(b - a)
+            caps = ()
+            if cond_sized:
+                caps = _byte_caps(columns, torch.stack(_string_byte_needs(
+                    stream_batch.columns, build, lo_w, cnt_w,
+                    stream_batch.num_rows, r0)).tolist())
+            fused, verified, s_idx, b_pos, b_row = self._verified_pairs(
+                build, stream_batch, lo_w, cnt_w, skey_cols, cap_w,
+                caps[:n_s], caps[n_s:], r0)
+            if build_matched is not None:
+                build_matched = build_matched | matched_flags(
+                    verified, b_pos, build.capacity)
+            if jt in RIGHT_BUILD_ONLY:
+                smatched = smatched | matched_flags(verified, s_idx, scap)
+                continue
+            keep = torch.nonzero(verified).squeeze(1)   # a host read
+            parts.append((s_idx[keep], b_pos[keep], b_row[keep]))
+            n_pairs += keep.shape[0]
+        if jt in RIGHT_BUILD_ONLY:
+            return self._emit_stream_flags(stream_batch, smatched), \
+                build_matched
+        if n_pairs > MAX_BATCH_PAIRS:
+            raise NotImplementedError(
+                f"{n_pairs} verified pairs in one stream batch: a batch's "
+                f"output row index is int32, as in the JAX package, so it "
+                f"emits at most {MAX_BATCH_PAIRS} (ROADMAP A.3)")
+        cap = bucket_capacity(max(n_pairs, 1))
+        pad = torch.full((cap - n_pairs,), -1, dtype=torch.int32,
+                         device=dev)
+        s_idx, b_pos, b_row = (torch.cat([p[i] for p in parts] + [pad])
+                               for i in range(3))
+        verified = active_mask(n_pairs, cap, dev)
+        caps = _byte_caps(columns, torch.stack(_pair_byte_needs(
+            stream_batch, build, s_idx, b_pos, verified)).tolist()) \
+            if any(is_varsize(c) for c in columns) else ()
+        return self._emit_pairs(build, stream_batch, fused, verified, s_idx,
+                                b_pos, b_row, skey_cols, n_pairs, cap,
+                                caps[:n_s], caps[n_s:]), build_matched
+
+    def _emit_pairs(self, build: BuildTable, stream_batch: ColumnarBatch,
+                    fused: bool, verified, s_idx, b_pos, b_row, skey_cols,
+                    total, cand_cap: int, s_caps=(), b_caps=()
+                    ) -> ColumnarBatch:
+        """The output of the pair-emitting join types from the verified
+        slots among `cand_cap` candidate slots (`total` of them used)."""
+        jt = self.join_type
+        scap = stream_batch.capacity
         dev = verified.device
         plan_p, pmat_b, pfmat_b, members_of, poi = build.pack
         if jt == INNER and all(type(c) is Column
@@ -482,7 +665,7 @@ class HashJoinExec(TpuExec):
             # key-grouped emission: verified pairs first, equal join keys
             # contiguous (any consistent total order over the key bits
             # groups them), so a downstream group-by may skip its sort
-            kflag = verified & active_mask(total_dev, cand_cap, dev)
+            kflag = verified & active_mask(total, cand_cap, dev)
             if fused:
                 bk_lanes = build.key_lanes[0]
                 safe_c = torch.clamp(b_pos, 0, bk_lanes.shape[0] - 1).long()
@@ -496,7 +679,7 @@ class HashJoinExec(TpuExec):
             n_pairs = torch.sum(kflag, dtype=torch.int32)
         else:
             # verified pairs first, in candidate order
-            perm_c, n_pairs = compaction_order(verified, total_dev)
+            perm_c, n_pairs = compaction_order(verified, total)
 
         # ONE index materialization of the compacted pairs, then one
         # packed payload gather per side; dictionary columns of the build
@@ -541,8 +724,7 @@ class HashJoinExec(TpuExec):
                                        num_rows=n_out, byte_caps=s_caps)
         left, right = (scols, bcols) if self.build_side == "right" \
             else (bcols, scols)
-        return ColumnarBatch(left + right, n_out, self.output_schema), \
-            build_matched
+        return ColumnarBatch(left + right, n_out, self.output_schema)
 
     def _emit_stream_flags(self, stream_batch: ColumnarBatch, smatched):
         """Semi, anti and existence: the stream rows with (or without) a
@@ -627,11 +809,12 @@ class NestedLoopJoinExec(TpuExec):
         self.join_type = join_type
         self.condition = condition
         self.chunk_rows = chunk_rows
-        self._pair_schema = Schema(
-            tuple(left.output_schema.fields)
-            + tuple(right.output_schema.fields))
-        self._cond_bound = None if condition is None \
-            else resolve(condition, self._pair_schema)
+        self._pair_schema = self._cond_bound = None
+        if condition is not None:
+            self._pair_schema = Schema(
+                tuple(left.output_schema.fields)
+                + tuple(right.output_schema.fields))
+            self._cond_bound = resolve(condition, self._pair_schema)
 
     @property
     def output_schema(self) -> Schema:

@@ -113,6 +113,7 @@ CAUSE_VARWIDTH = "string or nested columns: host-bounded loops (C.6)"
 CAUSE_DECODE = "decode of an encoded column the aggregate reads"
 CAUSE_SIZING = "cold join sizing reads the candidate total"
 CAUSE_UDF = "a Python UDF evaluates on the host"
+CAUSE_WINDOWED = "a probe past one pass reads its window edges (C.20)"
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +123,7 @@ CAUSE_UDF = "a Python UDF evaluates on the host"
 _COUNTER_LOCK = threading.Lock()
 _COUNTERS = {"stages_fused": 0, "ops_fused": 0, "executions": 0,
              "fallbacks": 0, "dispatches": 0, "batches": 0,
-             "cold_sizings": 0}
+             "cold_sizings": 0, "windowed_steps": 0}
 #: cause -> eager steps run on the card for it
 _INELIGIBLE: Dict[str, int] = {}
 #: kernel label -> launches made by cold sizing passes (a step that
@@ -141,7 +142,9 @@ def counters() -> Dict:
     and the graphs': `graph_captures`, `graph_replays`, `eager_steps` (on
     the card, by cause in `graph_ineligible`), `graph_pool_bytes` (held
     by live graphs), `cold_sizings` and the kernel launches of those
-    sizing passes (`sizing_launches`)."""
+    sizing passes (`sizing_launches`), and `windowed_steps`: join_agg
+    steps whose probe took windows (HashJoinExec.probe_windows), eager
+    under CAUSE_WINDOWED on the card."""
     from ..obs import dispatch as obs_dispatch
     with _COUNTER_LOCK:
         out: Dict = dict(_COUNTERS)
@@ -547,12 +550,15 @@ class CompiledStageExec(TpuExec):
             + list(self._agg._pre_bound)
         return _exprs_cause(later)
 
-    def _encoded_cause(self, table, stream_batch, *_rest) -> Optional[str]:
-        """Per call: the string columns the stream filters and the residual
-        condition read must arrive dictionary-encoded (code-space
-        predicates read nothing on the host); a decoded one compares byte
-        spans under a host-bounded loop."""
+    def _encoded_cause(self, table, stream_batch, *rest) -> Optional[str]:
+        """Per call: a step whose probe takes windows (its candidate bucket
+        None) reads their edges; the string columns the stream filters
+        and the residual condition read must arrive dictionary-encoded
+        (code-space predicates read nothing on the host); a decoded one
+        compares byte spans under a host-bounded loop."""
         from ..columnar.encoded import DictionaryColumn
+        if rest[-2] is None:
+            return CAUSE_WINDOWED
         join = self._join
         s = join._stream_side
         for p in join._filters[s] or ():
@@ -818,8 +824,11 @@ class CompiledStageExec(TpuExec):
         step's flag reports an outgrown one); a cold one runs the sizing
         pass. After HashJoinExec.SPEC_REFRESH warm uses an entry expires
         and the next step measures again, with no monotone max, so one
-        pathological batch cannot keep the buckets large."""
+        pathological batch cannot keep the buckets large. A measured
+        total past the join's WINDOW_SLOTS gives (None, total, False):
+        that step probes in windows, eagerly, and nothing is cached."""
         from ..columnar.column import bucket_capacity
+        from . import joins
         from .joins import HashJoinExec, _byte_caps, is_varsize
         from .speculation import speculation_allowed
         columns = list(stream_batch.columns) + list(table.payload)
@@ -841,6 +850,8 @@ class CompiledStageExec(TpuExec):
             _COUNTERS["cold_sizings"] += 1
             for k, v in launched.items():
                 _SIZING_LAUNCHES[k] = _SIZING_LAUNCHES.get(k, 0) + v
+        if fetched[0] > joins.WINDOW_SLOTS:
+            return None, int(fetched[0]), False
         cand_cap = bucket_capacity(max(int(fetched[0]), 1))
         caps = _byte_caps(columns, fetched[1:])
         if cached is not None:
@@ -853,12 +864,23 @@ class CompiledStageExec(TpuExec):
 
     def _probe_in_stage(self, table, stream_batch, cand_cap, caps):
         """Counts + probe + emission, and the speculative-sizing overflow
-        flag (the join's _candidate_capacity contract, inside the step)."""
+        flag (the join's _candidate_capacity contract, inside the step).
+        `cand_cap` None marks a step whose measured candidate total
+        (`caps`, then) passes the window: the join's windowed probe, with
+        no flag to raise."""
         from ..columnar.encoded import materialize_batch
         from .joins import _string_byte_needs, is_varsize
         join = self._join
         lo, counts, skey_cols, total = join._counts_kernel(table,
                                                            stream_batch)
+        if cand_cap is None:
+            _note(windowed_steps=1)
+            out, _ = join.probe_windows(table, stream_batch, lo, counts,
+                                        skey_cols, caps)
+            if self._decode:
+                out = materialize_batch(out)
+            return out, torch.zeros((), dtype=torch.bool,
+                                    device=counts.device)
         columns = list(stream_batch.columns) + list(table.payload)
         flag = total > cand_cap
         if any(is_varsize(c) for c in columns):

@@ -65,8 +65,11 @@ def shared_read_pool(num_threads: Optional[int] = None
             # the old pool is retired, never shut down
             if _pool is not None:
                 _retired.append(_pool)
-            _pool = ThreadPoolExecutor(max_workers=num_threads,
-                                       thread_name_prefix="multifile-read")
+            # named apart from the JAX package's pool, whose tests count
+            # its threads by name in a process that may hold both
+            _pool = ThreadPoolExecutor(
+                max_workers=num_threads,
+                thread_name_prefix="port-multifile-read")
             _pool_size = num_threads
         return _pool
 

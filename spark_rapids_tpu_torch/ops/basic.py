@@ -125,6 +125,25 @@ def concat_columns(a: Column, b: Column, a_rows, b_rows,
     return Column(data, valid, a.dtype)
 
 
+def with_validity(col: Column, validity: torch.Tensor) -> Column:
+    """`col` with `validity` in place of its own; its data, children,
+    offsets and dictionary are shared (a struct's and a decimal's children
+    keep their own validity)."""
+    if isinstance(col, DictionaryColumn):
+        return DictionaryColumn(col.codes, col.dict_data, col.dict_offsets,
+                                validity, col.dtype)
+    if isinstance(col, StringColumn):
+        return StringColumn(col.data, col.offsets, validity, col.dtype)
+    if isinstance(col, (Decimal128Column, StructColumn)):
+        return type(col)(col.children, validity, col.dtype)
+    if isinstance(col, ArrayColumn):
+        return ArrayColumn(col.child, col.offsets, validity, col.dtype)
+    if isinstance(col, MapColumn):
+        return MapColumn(col.keys, col.values, col.offsets, validity,
+                         col.dtype)
+    return Column(col.data, validity, col.dtype)
+
+
 def gather_column(col: Column, indices: torch.Tensor, out_valid=None,
                   out_byte_capacity=None) -> Column:
     """Gather rows by int32 indices; the index length is the output

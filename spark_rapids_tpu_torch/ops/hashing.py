@@ -10,7 +10,10 @@ below. PyTorch's CPU has no shifts or remainders on uint32, so the plain
 version computes in int64 holding 32-bit values and masks after every
 step (`_mul32` keeps products below 2^63).
 
-String and dictionary columns hash in plain torch on either device, over
+A decimal128 column hashes as the JAX package's struct of its hi and lo
+limbs, a struct column by its fields (`hash_leaves`), so that partitions
+agree with the JAX package's. String and dictionary columns hash in plain
+torch on either device, over
 (start, length) byte spans (`murmur3_bytes`, Spark's hashUnsafeBytes): a
 dictionary column hashes each row's dictionary entry through its code, or
 in `murmur3_batch`'s first position the dictionary once and each row's
@@ -31,7 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from ..columnar.column import Column, Decimal128Column, StringColumn
+from ..columnar.column import (Column, Decimal128Column, StringColumn,
+                               StructColumn)
 from ..types import (
     BooleanType, ByteType, DateType, DoubleType, FloatType, IntegerType,
     DecimalType, LongType, ShortType, TimestampNTZType, TimestampType,
@@ -160,11 +164,34 @@ def _is_varlen(col: Column) -> bool:
     return isinstance(col, (StringColumn, DictionaryColumn))
 
 
+def hash_leaves(columns) -> list:
+    """The columns murmur3 folds, in order: a decimal128 column as its hi
+    then its lo limb, a struct as its fields' leaves, each leaf carrying
+    its own validity ANDed with every enclosing column's. The JAX
+    package's Decimal128Column is a StructColumn, and its struct hash
+    folds the children and keeps the running hash on a null struct: the
+    fold of these leaves gives the same hash, so partitions and buckets
+    agree with it."""
+    from .basic import with_validity
+    out = []
+    for c in columns:
+        if isinstance(c, (Decimal128Column, StructColumn)):
+            out += hash_leaves([with_validity(k, k.validity & c.validity)
+                                for k in c.children])
+        else:
+            out.append(c)
+    return out
+
+
 def murmur3_column_plain(col: Column, seed: torch.Tensor) -> torch.Tensor:
     """Per-row murmur3 update in plain PyTorch: null rows leave the running
     hash unchanged (Spark semantics). seed is u32 lanes (the running
     hash)."""
     dt = col.dtype
+    if isinstance(col, (Decimal128Column, StructColumn)):
+        for leaf in hash_leaves([col]):
+            seed = murmur3_column_plain(leaf, seed)
+        return seed
     if _is_varlen(col):
         # a dictionary column hashes each row's entry through its code:
         # no decode (murmur3_batch owns the hash-the-dictionary-once path)
@@ -185,8 +212,8 @@ def murmur3_column_plain(col: Column, seed: torch.Tensor) -> torch.Tensor:
                                seed)
     else:
         raise NotImplementedError(
-            f"murmur3 of {dt}: the JAX package has none (a decimal128 "
-            f"hashes by xxhash64 only) or it waits for ROADMAP A.8")
+            f"murmur3 of {dt}: the JAX package has none, or it waits for "
+            f"ROADMAP A.8")
     return torch.where(col.validity, h, seed)
 
 
@@ -206,21 +233,26 @@ def murmur3_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     """Per-row murmur3 update of the running hash `seed` (u32 lanes) by
     one column; null rows leave it unchanged. A fixed-width column is one
     launch on CUDA tensors; a string or dictionary column hashes its byte
-    spans in plain torch."""
+    spans in plain torch; a decimal128 or struct column folds its leaves
+    (`hash_leaves`) as `murmur3_batch` does."""
+    if isinstance(col, (Decimal128Column, StructColumn)):
+        return murmur3_batch([col], seed)
     if _is_varlen(col):
         return murmur3_column_plain(col, seed)
     from .murmur3_lanes import murmur3_columns
     return murmur3_columns([col], [seed])[0]
 
 
-def murmur3_batch(columns, seed: int = 42) -> torch.Tensor:
+def murmur3_batch(columns, seed=42) -> torch.Tensor:
     """Spark Murmur3Hash(cols..., seed) -> int32 lanes: each column's hash
-    is the next column's seed. Every run of fixed-width columns is one
-    launch per four columns on CUDA tensors; a string column hashes its
-    bytes in plain torch, and a dictionary column in first position
-    hashes its dictionary once and takes each row's hash by code."""
+    is the next column's seed (an int, or u32 lanes of per-row running
+    hashes). A decimal128 or struct column folds its leaves
+    (`hash_leaves`). Every run of fixed-width columns is one launch per
+    four columns on CUDA tensors; a string column hashes its bytes in
+    plain torch, and a dictionary column in first position under an int
+    seed hashes its dictionary once and takes each row's hash by code."""
     from .murmur3_lanes import murmur3_columns
-    columns = list(columns)
+    columns = hash_leaves(columns)
     if not any(_is_varlen(c) for c in columns):
         return murmur3_columns(columns, [seed])[0]
     from ..columnar.encoded import (DictionaryColumn, dict_take,
@@ -234,7 +266,8 @@ def murmur3_batch(columns, seed: int = 42) -> torch.Tensor:
         if run:
             h = murmur3_columns(run, [h])[0]
             run = []
-        if i == 0 and isinstance(col, DictionaryColumn):
+        if i == 0 and isinstance(col, DictionaryColumn) \
+                and isinstance(seed, int):
             # the running hash is still the scalar seed: hash the
             # dictionary once, then take each row's hash by its code
             seed_lane = torch.full((col.capacity,), seed & _M32,

@@ -1,5 +1,5 @@
 """Equi-join gather-map ops — the counterpart of spark_rapids_tpu/ops/join.py
-for fixed-width, string and dictionary keys.
+for fixed-width, string, dictionary, decimal128 and struct keys.
 
 No device hash table with collision chains: the build side sorts by a
 pair of u32 murmur3 hashes, a top-B-bits bucket offsets table gives each
@@ -21,7 +21,10 @@ a `dict_take` by code), so that a string and its encoded form land in the
 same bucket; it expands its candidates (`expand_candidates`) and verifies
 them here (`verify_pairs`), a varlen key byte for byte through spans into
 both sides' own buffers (columnar/encoded.bytes_equal_at): the two sides'
-dictionaries differ, and code equality means nothing across them.
+dictionaries differ, and code equality means nothing across them. A
+decimal128 or struct key hashes by its leaves (ops/hashing.hash_leaves,
+the JAX package's struct hash) and verifies by `keys_equal_at`: both
+limbs, or every field as Spark compares a key row.
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.column import Column, StringColumn
+from ..columnar.column import (ArrayColumn, Column, Decimal128Column,
+                               StringColumn, StructColumn)
 from ..columnar.encoded import DictionaryColumn, bytes_equal_at
 from .basic import active_mask, compaction_order, gather_column
-from .hashing import _is_varlen, murmur3_batch, u32_of
+from .hashing import _is_varlen, hash_leaves, murmur3_batch, u32_of
 from .murmur3_lanes import murmur3_columns
 from .rowpack import pack_rows
 from .sort import lexsort
@@ -44,15 +48,18 @@ JOIN_HASH_SEED2 = 0x85EB_CA6B
 
 def join_hash_pair(key_cols: Sequence[Column], lo_too: bool = True):
     """Internal join bucket hash: murmur3 chains of the keys from two
-    independent seeds (u32 bits), the second only when `lo_too`. Fixed-
-    width keys hash both seeds from one read of the keys, one launch on a
-    card; a key list with a string or dictionary column hashes each seed
-    through murmur3_batch."""
+    independent seeds (u32 bits), the second only when `lo_too`. A
+    decimal128 or struct key folds its leaves (ops/hashing.hash_leaves),
+    as the JAX package's struct hash does. Fixed-width leaves hash both
+    seeds from one read of the keys, one launch on a card; a key list
+    with a string or dictionary leaf hashes each seed through
+    murmur3_batch."""
     seeds = (JOIN_HASH_SEED, JOIN_HASH_SEED2) if lo_too else (JOIN_HASH_SEED,)
-    if any(_is_varlen(c) for c in key_cols):
-        h = [murmur3_batch(key_cols, seed) for seed in seeds]
+    leaves = hash_leaves(key_cols)
+    if any(_is_varlen(c) for c in leaves):
+        h = [murmur3_batch(leaves, seed) for seed in seeds]
     else:
-        h = murmur3_columns(list(key_cols), seeds)
+        h = murmur3_columns(leaves, seeds)
     return h[0], (h[1] if lo_too else None)
 
 
@@ -116,7 +123,6 @@ def is_varsize(c: Column) -> bool:
     """A column whose rows vary in size: strings (bytes), lists
     (elements) and structs with such a field, whose gathers need an
     output bucket measured for them."""
-    from ..columnar.column import ArrayColumn, StructColumn
     if isinstance(c, StructColumn):
         return any(is_varsize(k) for k in c.children)
     return isinstance(c, (StringColumn, ArrayColumn))
@@ -126,7 +132,6 @@ def var_lengths(c: Column) -> torch.Tensor:
     """Per-row payload size of a variable-size column: bytes for a
     string, elements for a list; for a struct, the sum over its varying
     fields (one bucket that holds each field's need, passed to each)."""
-    from ..columnar.column import ArrayColumn, StructColumn
     if isinstance(c, StructColumn):
         lens = [var_lengths(k) for k in c.children if is_varsize(k)]
         total = lens[0]
@@ -183,10 +188,10 @@ class BuildTable:
               num_rows, capacity: int) -> "BuildTable":
         from .gather import gather_rows, needs_rest, pack_members
         for c in key_cols:
-            if not is_gatherable(c):
-                raise NotImplementedError(
-                    f"join keys of {type(c).__name__} wait for a later "
-                    f"slice (ROADMAP A.3)")
+            if not is_key_column(c):
+                raise TypeError(f"the join hashes and compares no key of "
+                                f"{c.dtype}, as the JAX package's does "
+                                f"not")
         valid = _keys_valid(key_cols, num_rows, capacity)
         # invalid/inactive rows sort last (max hash, then the invalid
         # flag) and stay out of every range via the valid-count boundary
@@ -223,7 +228,7 @@ class BuildTable:
             if not is_gatherable(payload[i]):
                 raise NotImplementedError(
                     f"join payload columns of {type(payload[i]).__name__} "
-                    f"wait for a later slice (ROADMAP A.3)")
+                    f"are not gathered by the join (ROADMAP A.3)")
         plan_p, pmat, pfmat = pack_rows(members)
         pmat_s, pfmat_s = gather_rows(plan_p, pmat, pfmat, perm) \
             if members else (pmat, pfmat)
@@ -245,10 +250,18 @@ class BuildTable:
                           key_lanes, prefix)
 
 
+def is_key_column(col: Column) -> bool:
+    """A column the join hashes and verifies: fixed-width, a string or
+    dictionary column, a decimal128 column, or a struct of such fields."""
+    if isinstance(col, StructColumn):
+        return all(is_key_column(k) for k in col.children)
+    return type(col) is Column or isinstance(
+        col, (DictionaryColumn, StringColumn, Decimal128Column))
+
+
 def is_gatherable(col: Column) -> bool:
     """A column ops/basic.gather_column moves: fixed-width, a dictionary
     column (its codes), a string column or a list column."""
-    from ..columnar.column import ArrayColumn
     return type(col) is Column or isinstance(col, (DictionaryColumn,
                                                    StringColumn,
                                                    ArrayColumn))
@@ -277,8 +290,9 @@ def expand_candidates(lo, counts, out_capacity: int):
     positions. Slots >= total have stream_idx -1."""
     if out_capacity >= (1 << 31):
         raise NotImplementedError(
-            "candidate buckets of 2^31 or more wait for the int64 "
-            "expansion (ROADMAP A.3)")
+            "candidate buckets of 2^31 or more: the join probes a larger "
+            "candidate space in windows (exec/joins.WINDOW_SLOTS, "
+            "ROADMAP A.3)")
     dev = counts.device
     total = torch.sum(counts, dtype=torch.int64)
     i = torch.arange(out_capacity, dtype=torch.int32, device=dev)
@@ -301,15 +315,47 @@ def verify_pairs(build: BuildTable, stream_keys: Sequence[Column],
     build_row = gather_column_indices(build.perm, build_pos)
     ok = pair_valid
     for bk, sk in zip(build.key_cols, stream_keys):
-        if _is_varlen(bk) != _is_varlen(sk):
-            raise TypeError(f"join keys {bk!r} and {sk!r} do not compare")
-        if _is_varlen(bk):
-            ok = ok & bytes_equal_at(bk, build_row, sk, stream_idx)
-            continue
-        b = gather_column(bk, build_row)
-        s = gather_column(sk, stream_idx)
-        ok = ok & (b.data == s.data) & b.validity & s.validity
+        ok = ok & keys_equal_at(bk, build_row, sk, stream_idx)
     return ok, build_row
+
+
+def keys_equal_at(a: Column, a_idx, b: Column, b_idx,
+                  null_equal: bool = False) -> torch.Tensor:
+    """Per index pair: whether key a[a_idx] equals key b[b_idx]. A string
+    or dictionary key compares byte for byte (spans into each side's
+    buffers), a decimal128 key both limbs, a struct key every field as
+    Spark's hash join compares the key row, and any other key by value
+    (NaN never equal, -0.0 equal to 0.0). At the top (`null_equal`
+    False) a null key, a null struct among them, matches nothing; inside
+    a struct a null field equals a null field and nothing else.
+    Indices out of range read as null."""
+    kinds = [(_is_varlen(c), isinstance(c, StructColumn),
+              isinstance(c, Decimal128Column)) for c in (a, b)]
+    if kinds[0] != kinds[1]:
+        raise TypeError(f"join keys {a!r} and {b!r} do not compare")
+    va, vb = _valid_at(a, a_idx), _valid_at(b, b_idx)
+    if _is_varlen(a):
+        eq = bytes_equal_at(a, a_idx, b, b_idx)
+    elif isinstance(a, StructColumn):
+        if len(a.children) != len(b.children):
+            raise TypeError(f"struct keys {a.dtype} and {b.dtype} do not "
+                            f"compare")
+        eq = va & vb
+        for fa, fb in zip(a.children, b.children):
+            eq = eq & keys_equal_at(fa, a_idx, fb, b_idx, null_equal=True)
+    else:
+        pairs = zip(a.children, b.children) \
+            if isinstance(a, Decimal128Column) else ((a, b),)
+        eq = va & vb
+        for la, lb in pairs:
+            eq = eq & (gather_column(la, a_idx).data
+                       == gather_column(lb, b_idx).data)
+    return eq | (~va & ~vb) if null_equal else eq
+
+
+def _valid_at(col: Column, idx) -> torch.Tensor:
+    in_range = (idx >= 0) & (idx < col.capacity)
+    return col.validity[torch.where(in_range, idx, 0).long()] & in_range
 
 
 def gather_column_indices(arr, idx):

@@ -143,16 +143,17 @@ def launcher(lo, counts, bk_lanes, bvalid, sk_lanes, svalid, perm,
     n, cap, n_lanes = counts.shape[0], perm.shape[0], bk_lanes.shape[1]
     if out_capacity >= (1 << 31):
         raise NotImplementedError(
-            "candidate buckets of 2^31 or more wait for the int64 "
-            "expansion (ROADMAP A.3)")
+            "candidate buckets of 2^31 or more: the join probes a larger "
+            "candidate space in windows (exec/joins.WINDOW_SLOTS, "
+            "ROADMAP A.3)")
     dev = perm.device
     sms, bps = card_limits(dev, n_lanes) if out_capacity else (1, 1)
     per, n_chunks = grid(tile_count(n), sms, bps)
     if (n_chunks * per * TILE >= (1 << 31)
             or cap * max(n_lanes, 1) >= (1 << 31)):
         raise NotImplementedError(
-            "probe sides of 2^31 rows or lanes wait for the int64 "
-            "expansion (ROADMAP A.3)")
+            "a probe side of 2^31 stream tile rows, or of build rows "
+            "times key lanes, is past the join's bound (ROADMAP A.3)")
     verified = torch.empty(out_capacity, dtype=torch.bool, device=dev)
     s_idx, b_pos, b_row = (torch.empty(out_capacity, dtype=torch.int32,
                                        device=dev) for _ in range(3))
@@ -196,8 +197,9 @@ def fused_probe_verify(lo, counts, bk_lanes, bvalid, sk_lanes, svalid, perm,
     _check(lo, counts, bk_lanes, bvalid, sk_lanes, svalid, perm)
     if out_capacity >= (1 << 31):
         raise NotImplementedError(
-            "candidate buckets of 2^31 or more wait for the int64 "
-            "expansion (ROADMAP A.3)")
+            "candidate buckets of 2^31 or more: the join probes a larger "
+            "candidate space in windows (exec/joins.WINDOW_SLOTS, "
+            "ROADMAP A.3)")
     dev = perm.device
     if dev.type == "cpu":
         return fused_probe_verify_plain(lo, counts, bk_lanes, bvalid,

@@ -40,6 +40,7 @@ from spark_rapids_tpu_torch.parallel import mesh as tmesh
 from spark_rapids_tpu_torch.testing import asserts as tasserts
 
 from test_torch_jax_ref import jax_aliases, one_torch_thread
+from test_torch_planner import active_confs
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -47,7 +48,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.fixture(scope="module", autouse=True)
 def _env():
     from spark_rapids_tpu.parallel.mesh import set_active_mesh as jset
-    with jax_aliases(), one_torch_thread():
+    # the tiers' sessions make their confs active: later modules on this
+    # worker read the defaults
+    with jax_aliases(), one_torch_thread(), active_confs():
         yield
     tmesh.set_active_mesh(None)
     jset(None)
