@@ -343,7 +343,7 @@ fails the run on error:
      adaptive.autoBroadcastMaxBytes -1: the hot partition read as
      map-granular sub-reads) and convert (the defaults: the orders side
      measured under 64 MiB, one single-build pass), in turns (static
-     once, split and convert 3 times each: P38_RUNS), with their decisions and measured bytes, launches and peak
+     and split once, convert 3 times: P38_RUNS), with their decisions and measured bytes, launches and peak
      device memory (over the run, and over the read: from the join's first
      partition pair); P9 at the default confs (its partitions read as one
      coalesced stream); P16 at the default confs (its decision); P35's
@@ -383,7 +383,7 @@ fails the run on error:
      an emptied site cache, the file read inside the query, held to
      q4_oracle and q3_types_oracle, beside its numpy-built twin (P12,
      P19) counted the same way, every launch difference named; then the
-     query over the table read back against the twin, P40_RUNS runs in
+     query over the table read back against the twin, PA_RUNS runs in
      turns, one synchronisation a run;
   3n. drives Delta's DML plans (drive_delta_paths): P41. P12's SF1
      orders (1,500,000 rows, o_orderstatus a dictionary column) as one
@@ -459,6 +459,39 @@ fails the run on error:
      q3's LONG-key rows (keys exact, revenue to rtol 1e-9); last, the
      probe at P44's hot window timed against its plain version and its
      bound (time_window_probe; here, while the card's memory is free);
+  3r-3u. drive the pyarrow and pandas paths (they need pyarrow and
+     pandas on the card's machine: an ImportError fails the run). Each
+     phase writes its files with the port's writers under a temporary
+     directory, reads each back once through the session's reader (equal
+     to its input column for column, every leaf on the card; write ms
+     split into the to_arrow fetch and the encode, file bytes, read wall
+     and the readers' scan_stats: host decode summed over the pool's
+     threads, host build, upload enqueue), holds every row gather,
+     murmur3 chain, probe and dictionary gather of its paths over the
+     tables read back to their plain versions (phase 2 at these shapes:
+     capture_kernels), drives them and removes the directory. 3r, P45:
+     TPC-H Q1 by the string flags over P6's SF1 lineitem as 4 Parquet
+     files (MULTITHREADED, and COALESCING), P19's Q3 with its orders as
+     8 files of date spans (its date conjuncts prune row groups) and
+     Q19 with the encoded lane on, every table read through
+     TpuSession.read_parquet at the default confs; 3s, P46: Q4 with
+     P12's orders from ORC (its lineitem too), CSV, JSON and Iceberg
+     (two appends; the first snapshot read alone). Each query's twin
+     (the in-memory query) and file query once counted (launches, host
+     reads, boundary decodes; each difference named), then PA_RUNS runs
+     in turns of the file query, the tables read back and the twin. 3t,
+     P47: P12's orders by write_delta partitioned by o_orderpriority,
+     then UPDATE (it moves rows between partitions), DELETE, MERGE
+     (P41's source) and OPTIMIZE ZORDER BY o_orderdate through
+     DeltaTable, each first run on a copy of the table under capture,
+     then counted and timed, its snapshot equal to the numpy oracle;
+     time travel to version 0, history(), appends past the checkpoint
+     interval, file skipping by partition values and by stats. 3u, P48:
+     mapInPandas, applyInPandas, a grouped pandas aggregate, a cogroup
+     with P41's source, a pandas window and the aggregate above a filter
+     over P12's orders by o_orderpriority, P48_RUNS runs each (the first
+     counted) equal to numpy oracles, with the fetch, Python and upload
+     ms (exec/python_udf.counters()); q3's result through to_arrow();
   4. times the q1, q3 and q19 steady states (one synchronisation per run
      of iterations) and each kernel against its plain version, its bound
      and, for the row gather and the dictionary gather, the one PyTorch
@@ -506,7 +539,7 @@ fails the run on error:
      rows 2+3, 4 and 5 at every P21 and P22 shape
      (strings_kernel_shapes). Then P26 and P28 in turns with P27's
      unconstrained twin (3 runs each, one synchronisation a run), P27
-     under its budget (3 runs), and dma_row_gather at every distinct
+     under its budget (1 run: P27_RUNS), and dma_row_gather at every distinct
      shape of P26-P28 beside index_select (windows_gather_shapes). Then
      P29-P31 in turns (3 runs each, one synchronisation a run) and
      dma_row_gather at every distinct shape of P29's join and P30's
@@ -539,8 +572,9 @@ the cost constants, ms), phase 3j's (under "governed_paths"), phase
 3l's (under "stage_paths"), phase 3m's (under "file_paths") and phase
 3n's (under "delta_paths"), phase 3o's (under "mesh_paths", with the
 card's name and power limit), phase 3p's (under "tooling_paths", with
-the card's name and power limit) and phase 3q's (under "window_paths",
-with the card's name and power limit), before
+the card's name and power limit), phase 3q's (under "window_paths",
+with the card's name and power limit) and phases 3r-3u's (under
+"pyarrow_paths", with the card's name and power limit), before
 it a JSON line {"adaptive_paths": ...} with phase 3k's records, a JSON
 line
 with one record per
@@ -1515,14 +1549,14 @@ def drive_under_budget(label, make_plan, need, check, split):
     return plan, counts, rec
 
 
-def time_under_budget(plan, rec):
-    """ms per iteration of a budgeted plan (fresh catalog, same budget,
-    no injection), one synchronisation per run."""
+def time_under_budget(plan, rec, runs=P_ITERS):
+    """ms of each of `runs` runs of a budgeted plan (fresh catalog, same
+    budget, no injection), one synchronisation per run."""
     import torch
     from spark_rapids_tpu_torch import memory as M
     from spark_rapids_tpu_torch.exec.speculation import speculation_scope
     times = []
-    for _ in range(P_ITERS):
+    for _ in range(runs):
         cat = M.reset_buffer_catalog(host_limit=rec["host_limit"])
         M.reset_memory_budget(rec["budget"])
         torch.cuda.synchronize()
@@ -3039,38 +3073,10 @@ GATHER_SITES = (
 )
 
 
-def capture_row_gathers(plan):
-    """Run `plan` once under a speculation scope and keep the inputs of
-    every packed row gather it makes (each goes through the gather
-    engine's `gather_rows`), in call order: [(site, pack plan, u32
-    matrix, f64 matrix or None, int32 index)]."""
-    import inspect
-    import torch
-    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
-    from spark_rapids_tpu_torch.ops import gather as G
-    calls, real = [], G.gather_rows
-
-    def record(pack, imat, fmat, idx):
-        names = {f.function for f in inspect.stack(0)[1:]}
-        site = next((label for need, label in GATHER_SITES
-                     if all(n in names for n in need)), "other")
-        calls.append((site, pack, imat, fmat, idx.to(torch.int32).clone()))
-        return real(pack, imat, fmat, idx)
-
-    G.gather_rows = record
-    try:
-        with speculation_scope():
-            list(plan.execute())
-            torch.cuda.synchronize()
-    finally:
-        G.gather_rows = real
-    return calls
-
-
 def compare_join_inputs(label, inputs, gathers):
     """Each join kernel against its plain version, exactly, on a main
     path's own inputs: the stream keys' hash, the probe, and every row
-    gather that the path makes (`capture_row_gathers`)."""
+    gather that the path makes (`capture_kernels`' "gathers")."""
     from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
     pair = [oj.JOIN_HASH_SEED, oj.JOIN_HASH_SEED2]
     _exact(f"murmur3 {label} build pair",
@@ -3093,7 +3099,8 @@ def compare_join_inputs(label, inputs, gathers):
 
 def compare_row_gathers(label, gathers):
     """dma_row_gather against its plain version, exactly, at every row
-    gather a main path made (`capture_row_gathers`); returns the shapes."""
+    gather a main path made (`capture_kernels`' "gathers"); returns the
+    shapes."""
     import torch
     from spark_rapids_tpu_torch.ops import row_gather as rg
     from spark_rapids_tpu_torch.ops.rowpack import gather_rows
@@ -3118,35 +3125,9 @@ def compare_row_gathers(label, gathers):
     return [s if n == 1 else f"{s} x{n}" for s, n in shapes.items()]
 
 
-def capture_dict_gathers(plan):
-    """Run `plan` once under a speculation scope and keep the inputs of
-    every dictionary gather it launches (each `dict_take` goes through
-    ops/dict_gather.dict_gather), in call order: [(table, index)]."""
-    import torch
-    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
-    from spark_rapids_tpu_torch.ops import dict_gather as dg
-    calls, real = [], dg.dict_gather
-
-    def record(table, idx):
-        calls.append((table.clone(), idx.clone()))
-        return real(table, idx)
-
-    # the wrapper counts its launches on the module's `dict_gather`, which
-    # is `record` meanwhile; those launches are the capture's own
-    record.launches = real.launches
-    dg.dict_gather = record
-    try:
-        with speculation_scope():
-            list(plan.execute())
-            torch.cuda.synchronize()
-    finally:
-        dg.dict_gather = real
-    return calls
-
-
 def compare_dict_takes(label, takes):
     """dict_gather against dict_gather_plain, exactly, at every dictionary
-    gather a main path made (`capture_dict_gathers`); returns the shapes
+    gather a main path made (`capture_kernels`' "takes"); returns the shapes
     (index rows x lanes into table entries, element bytes)."""
     from spark_rapids_tpu_torch.ops import dict_gather as dg
     if not takes:
@@ -3549,14 +3530,15 @@ def _off_aligned(m):
 
 def time_row_gathers(paths, launches):
     """dma_row_gather at every shape the main paths give it (`paths`:
-    {path: capture_row_gathers(plan)}): the kernel's launch alone, the
-    wrapper's whole call, the plain version, the bound (the index, each
-    distinct row an in-range index reads, row 0 once, every output row
-    written) and the faster of the two PyTorch calls that compute the
-    same function on the same matrix (index_select, a tensor index), all
-    on the device with L2 cold. The record's own numbers are the q3
-    stream payload's (the shape earlier records timed); "shapes" lists
-    every shape and "per_iteration" sums each path's kernel time."""
+    {path: capture_kernels(plan, ("gathers",))["gathers"]}): the kernel's
+    launch alone, the wrapper's whole call, the plain version, the bound
+    (the index, each distinct row an in-range index reads, row 0 once,
+    every output row written) and the faster of the two PyTorch calls
+    that compute the same function on the same matrix (index_select, a
+    tensor index), all on the device with L2 cold. The record's own
+    numbers are the q3 stream payload's (the shape earlier records
+    timed); "shapes" lists every shape and "per_iteration" sums each
+    path's kernel time."""
     shapes, per_it, main = [], {}, None
     for path, calls in paths.items():
         per_it[path] = 0.0
@@ -3788,10 +3770,13 @@ def q3_df(m, sess, order_batches, line_batches):
 
 
 def q19_df(m, sess, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
-           shipmodes=Q19_SHIPMODES):
+           shipmodes=Q19_SHIPMODES, frames=None):
     """TPC-H Q19 as a DataFrame query (q19_tree's predicates): the
     filtered lineitems joined to the filtered parts on the part key with
-    the three-way OR as the join's condition, then the grand sum."""
+    the three-way OR as the join's condition, then the grand sum. A table
+    in `frames` ({"lineitem" or "part": DataFrame}) replaces its
+    batch."""
+    frames = frames or {}
     col, lit, pr, F = m.core.col, m.core.lit, m.pred, m.F
 
     def all_of(*es):
@@ -3820,9 +3805,12 @@ def q19_df(m, sess, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
             pr.LessThanOrEqual(col("l_quantity"), lit(float(q + span))),
             pr.GreaterThanOrEqual(col("p_size"), lit(1)),
             pr.LessThanOrEqual(col("p_size"), lit(s)), *ship))
-    lines = sess.from_batches([l_batch], l_batch.schema) \
-        .filter(all_of(*ship))
-    parts = sess.from_batches([p_batch], p_batch.schema).filter(
+    lines = frames["lineitem"] if "lineitem" in frames \
+        else sess.from_batches([l_batch], l_batch.schema)
+    parts = frames["part"] if "part" in frames \
+        else sess.from_batches([p_batch], p_batch.schema)
+    lines = lines.filter(all_of(*ship))
+    parts = parts.filter(
         pr.And(pr.GreaterThanOrEqual(col("p_size"), lit(1)),
                any_of(*part_terms)))
     return (lines.join(parts, left_on="l_partkey", right_on="p_partkey",
@@ -3832,14 +3820,17 @@ def q19_df(m, sess, l_batch, p_batch, terms=Q19_TERMS, span=Q19_QTY_SPAN,
                         * (lit(1.0) - col("l_discount"))), "revenue")))
 
 
-def tpch_q1_df(m, sess, l_batch, cutoff=None):
+def tpch_q1_df(m, sess, l_batch, cutoff=None, frame=None):
     """TPC-H Q1 (P6) as a DataFrame query: tpch_q1_tree's filter, its
-    eight aggregates by the two string flags, ordered by them."""
+    eight aggregates by the two string flags, ordered by them; `frame`
+    (a DataFrame) replaces the lineitem batch."""
     col, lit, F = m.core.col, m.core.lit, m.F
     cutoff = lit(Q1_SHIP_CUTOFF) if cutoff is None else cutoff
     price, disc = col("l_extendedprice"), col("l_discount")
     disc_price = price * (lit(1.0) - disc)
-    return (sess.from_batches([l_batch], l_batch.schema)
+    lines = frame if frame is not None \
+        else sess.from_batches([l_batch], l_batch.schema)
+    return (lines
             .filter(m.pred.LessThanOrEqual(col("l_shipdate"), cutoff))
             .group_by("l_returnflag", "l_linestatus")
             .agg((F.sum("l_quantity"), "sum_qty"),
@@ -4788,27 +4779,29 @@ def compare_join_paths(dev, d, batches, d3, sites):
             print(f"compare {label} main-path row gathers: "
                   f"{'; '.join(compare_row_gathers(label, calls))}; exact")
 
-    compare("P12 Q4 semi join", capture_row_gathers(q4_plan(pm, batches)),
+    compare("P12 Q4 semi join",
+            capture_kernels(q4_plan(pm, batches), ("gathers",))["gathers"],
             JoinInputs(find_exec(q4_plan(pm, batches), "HashJoinExec")))
     p14 = p14_plans(pm, d3, dev)
     for jt, build in P14_COMPARED:
         compare(f"P14 {jt} build {build}",
-                capture_row_gathers(p14(jt, build)),
+                capture_kernels(p14(jt, build), ("gathers",))["gathers"],
                 JoinInputs(p14(jt, build)))
     sess15 = sm.session.TpuSession(P15_CONF, dev)
-    compare("P15 band join planned", capture_row_gathers(planned(
-        sm, p15_df(sm, sess15, *p15_batches(d, dev)))[0]))
+    compare("P15 band join planned", capture_kernels(planned(
+        sm, p15_df(sm, sess15, *p15_batches(d, dev)))[0],
+        ("gathers",))["gathers"])
 
     def p16(settings):
         sess = sm.session.TpuSession(settings, dev)
         return planned(sm, q4_df(sm, sess, batches, sort=False))[0]
     compare("P16 Q4 shuffled semi join planned (its single build)",
-            capture_row_gathers(p16(P16_CONF)),
+            capture_kernels(p16(P16_CONF), ("gathers",))["gathers"],
             single_build_inputs(find_exec(p16(P16_CONF),
                                           "ShuffledHashJoinExec")))
     static = dict(P16_CONF, **STATIC_CONF)
     compare("P16 static Q4 shuffled semi join planned (its first partition "
-            "pair)", capture_row_gathers(p16(static)),
+            "pair)", capture_kernels(p16(static), ("gathers",))["gathers"],
             shuffled_join_inputs(find_exec(p16(static),
                                            "ShuffledHashJoinExec")))
     set_active_conf(RapidsConf())     # the sessions' confs are not kept
@@ -4834,7 +4827,8 @@ def q21_kernel_shapes(batches, launches):
         probes[key] = dict(time_probe_shape(f"Q21 {key}", JoinInputs(j)),
                            launches=launches)
     gathers = [time_gather_call("P13", *call, generic=False)
-               for call in capture_row_gathers(q21_plan(pm, batches))]
+               for call in capture_kernels(q21_plan(pm, batches),
+                                           ("gathers",))["gathers"]]
     return probes, gathers
 
 
@@ -5249,10 +5243,10 @@ def compare_types_paths(dev, m, b):
               f"of {inp.stream_rows} stream rows into {inp.build_rows} "
               f"build rows, candidate total {inp.total} in {inp.cand_cap} "
               f"slots, {hits} verified pairs; exact")
-    gathers = capture_row_gathers(p19_joins(m, dev, b)[0])
+    gathers = capture_kernels(p19_joins(m, dev, b)[0], ("gathers",))["gathers"]
     print(f"compare P19 main-path row gathers: "
           f"{'; '.join(compare_row_gathers('P19', gathers))}; exact")
-    takes = capture_dict_gathers(p19_joins(m, dev, b)[0])
+    takes = capture_kernels(p19_joins(m, dev, b)[0], ("takes",))["takes"]
     print(f"compare P19 main-path dictionary gathers: "
           f"{'; '.join(compare_dict_takes('P19', takes))}; exact")
     # the other paths of phase 3e launch only row gathers: P17's filter
@@ -5260,8 +5254,9 @@ def compare_types_paths(dev, m, b):
     # P18's, the sample's compaction, the 16 partitions' sorts, the count
     # by year's
     for label in ("P17", "P18", "P20 sample", "P20 sort", "P20 year"):
-        gathers = capture_row_gathers(
-            planned(m, types_dfs(m, dev, b)[label])[0])
+        gathers = capture_kernels(
+            planned(m, types_dfs(m, dev, b)[label])[0],
+            ("gathers",))["gathers"]
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
         del gathers
@@ -5307,8 +5302,8 @@ def join_kernel_shapes(label, joins_of, counts):
                 "library_ms": None, "max_abs_err": 0.0})
     out["dma_row_gather"] = [
         time_gather_call(label, *call, generic=False)
-        for call in capture_row_gathers(joins_of()[0])]
-    for t, i in capture_dict_gathers(joins_of()[0]):
+        for call in capture_kernels(joins_of()[0], ("gathers",))["gathers"]]
+    for t, i in capture_kernels(joins_of()[0], ("takes",))["takes"]:
         rows, lanes = i.shape
         flat = t.reshape(-1)
         safe = i.clamp(0, t.shape[0] - 1).reshape(-1).long()
@@ -6040,30 +6035,6 @@ def strings_tree(m, dev, b, wants, label):
     return planned(m, strings_dfs(m, dev, b, wants)[label])[0]
 
 
-def capture_murmur3(plan):
-    """Run `plan` once and keep the inputs of every murmur3 chain launch
-    (ops/murmur3_lanes.murmur3_columns, which ops/join.py imports by
-    name for the join's hash), in call order: [(columns, seeds)]."""
-    import torch
-    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
-    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
-    calls, real = [], m3.murmur3_columns
-
-    def record(columns, seeds):
-        calls.append((list(columns), [s.clone() if hasattr(s, "clone")
-                                      else s for s in seeds]))
-        return real(columns, seeds)
-    record.launches = real.launches
-    m3.murmur3_columns = oj.murmur3_columns = record
-    try:
-        with speculation_scope():
-            list(plan.execute())
-            torch.cuda.synchronize()
-    finally:
-        m3.murmur3_columns = oj.murmur3_columns = real
-    return calls
-
-
 def compare_strings_paths(dev, m, b, wants):
     """Phase 2 at P21-P25's own inputs: every launch of a run of each path,
     held exactly to its plain version: the murmur3 chain (each join's
@@ -6079,19 +6050,19 @@ def compare_strings_paths(dev, m, b, wants):
                  if type(n).__name__ == "HashJoinExec"]
         if len(joins) != 1:
             raise AssertionError(f"{label}: {len(joins)} hash joins")
-        gathers = capture_row_gathers(tree(label))
+        gathers = capture_kernels(tree(label), ("gathers",))["gathers"]
         compare_join_inputs(label, JoinInputs(joins[0]), gathers)
-        takes = capture_dict_gathers(tree(label))
+        takes = capture_kernels(tree(label), ("takes",))["takes"]
         if takes:
             print(f"compare {label} main-path dictionary gathers: "
                   f"{'; '.join(compare_dict_takes(label, takes))}; exact")
-    gathers = capture_row_gathers(tree("P24"))
+    gathers = capture_kernels(tree("P24"), ("gathers",))["gathers"]
     print(f"compare P24 main-path row gathers: "
           f"{'; '.join(compare_row_gathers('P24', gathers))}; exact")
     del gathers
     for table in SWEEP:
         label = f"P23 {table}"
-        calls = capture_murmur3(tree(label))
+        calls = capture_kernels(tree(label), ("murmur3",))["murmur3"]
         if not calls:
             raise AssertionError(f"{label}: no murmur3 launch captured")
         for k, (cols, seeds) in enumerate(calls):
@@ -6144,7 +6115,9 @@ def time_strings_paths(runs):
 #: bucket (524,288 rows)
 P27_BATCHES = 16
 P28_PART = 7             # array_contains' literal part key
-P_WINDOW_ITERS = 3       # phase 4's timed runs of P26-P28 each
+P_WINDOW_ITERS = 3       # phase 4's timed runs of P26 and P28 each
+P27_RUNS = 1             # and of P27 (11-12 s a run on an H100), cut to keep
+                         # the script's whole run inside its time limit
 #: the kernels each path must launch
 WINDOW_NEED = {"P26 A": ["dma_row_gather"], "P26 B": ["dma_row_gather"],
                "P27": ["dma_row_gather"], "P28 collect": ["dma_row_gather"],
@@ -6726,13 +6699,15 @@ def compare_windows_paths(dev, m, b):
     shapes = {}
     for label in ("P26 A", "P26 B", "P27", "P28 collect", "P28 explode",
                   "P28 percentile"):
-        gathers = capture_row_gathers(windows_tree(m, dev, b, label))
+        gathers = capture_kernels(windows_tree(m, dev, b, label),
+                                  ("gathers",))["gathers"]
         shapes[label] = compare_row_gathers(label, gathers)
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(shapes[label])}; exact")
         del gathers
         if label in ("P27", "P28 percentile"):
-            takes = capture_dict_gathers(windows_tree(m, dev, b, label))
+            takes = capture_kernels(windows_tree(m, dev, b, label),
+                                    ("takes",))["takes"]
             if takes:
                 print(f"compare {label} main-path dictionary gathers: "
                       f"{'; '.join(compare_dict_takes(label, takes))}; "
@@ -6748,7 +6723,8 @@ def windows_gather_shapes(dev, m, b):
     out = []
     for label in ("P26 A", "P26 B", "P27", "P28 collect", "P28 explode"):
         seen = set()
-        for call in capture_row_gathers(windows_tree(m, dev, b, label)):
+        for call in capture_kernels(windows_tree(m, dev, b, label),
+                                    ("gathers",))["gathers"]:
             site, plan, imat, fmat, idx = call
             key = (site, idx.shape[0], imat.shape, None if fmat is None
                    else fmat.shape)
@@ -6762,7 +6738,7 @@ def windows_gather_shapes(dev, m, b):
 def time_windows_paths(runs):
     """Phase 4: P26 and P28 in turns (the order reversed every other
     round), P_WINDOW_ITERS runs each, one synchronisation a run; then P27
-    under its budget (time_under_budget, P_ITERS runs)."""
+    under its budget (time_under_budget, P27_RUNS runs)."""
     import torch
     runs = dict(runs)
     p27 = runs.pop("P27")
@@ -6776,9 +6752,9 @@ def time_windows_paths(runs):
             out[label].append((time.perf_counter() - t0) * 1e3)
             check(res, f"{label} timed")
             del res
-    out["P27"] = time_under_budget(*p27)
+    out["P27"] = time_under_budget(*p27, runs=P27_RUNS)
     for label, ms in out.items():
-        print(f"{label} ms per run ({P_WINDOW_ITERS} runs, in turns): "
+        print(f"{label} ms per run ({len(ms)} runs, in turns): "
               f"{[round(x, 3) for x in ms]}")
     return out
 
@@ -6878,7 +6854,7 @@ def c_info_type(t):
 
 def c_info_column(m, nd, dev):
     """The customers' STRUCT<c_mktsegment, c_nationkey, c_acctbal>,
-    built from its leaves (the card's machine has no pyarrow)."""
+    built from its leaves on the card (no host rows to convert)."""
     import torch
     from spark_rapids_tpu_torch.columnar.column import Column, StructColumn
     t = m.t
@@ -7563,12 +7539,13 @@ def compare_nested_paths(dev, m, b):
                   "P29 shuffled", "P29 shuffled static", "P30 lambdas",
                   "P30 zorder"):
         tree = nested_tree(m, dev, b, label)
-        gathers = capture_row_gathers(tree)
+        gathers = capture_kernels(tree, ("gathers",))["gathers"]
         shapes[label] = compare_row_gathers(label, gathers)
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(shapes[label])}; exact")
         del gathers
-        takes = capture_dict_gathers(nested_tree(m, dev, b, label))
+        takes = capture_kernels(nested_tree(m, dev, b, label),
+                                ("takes",))["takes"]
         if takes:
             print(f"compare {label} main-path dictionary gathers: "
                   f"{'; '.join(compare_dict_takes(label, takes))}; exact")
@@ -7582,7 +7559,8 @@ def nested_gather_shapes(dev, m, b):
     out = []
     for label in ("P29 lookups", "P30 lambdas", "P30 zorder"):
         seen = set()
-        for call in capture_row_gathers(nested_tree(m, dev, b, label)):
+        for call in capture_kernels(nested_tree(m, dev, b, label),
+                                    ("gathers",))["gathers"]:
             site, plan, imat, fmat, idx = call
             key = (site, idx.shape[0], imat.shape, None if fmat is None
                    else fmat.shape)
@@ -8135,18 +8113,18 @@ def compare_adaptive_paths(dev, sm, tm, jb, tb):
         return tree
     for label in ("P32 Q21", "P32 P19", "P32 P20 sort", "P32 sub",
                   "P32 sub static", "P32 demote"):
-        gathers = capture_row_gathers(fresh(label))
+        gathers = capture_kernels(fresh(label), ("gathers",))["gathers"]
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
         del gathers
         if label == "P32 P20 sort":
             continue
-        calls = capture_murmur3(fresh(label))
+        calls = capture_kernels(fresh(label), ("murmur3",))["murmur3"]
         for k, (cols, seeds) in enumerate(calls):
             _exact(f"murmur3 {label} call {k}",
                    m3.murmur3_columns(cols, seeds),
                    m3.murmur3_columns_plain(cols, seeds))
-        probes = capture_probes(fresh(label))
+        probes = capture_kernels(fresh(label), ("probes",))["probes"]
         hits = [compare_probe(f"probe {label} call {k}", args, cap, total)
                 for k, (args, cap, total) in enumerate(probes)]
         if not calls or not probes:
@@ -8155,30 +8133,6 @@ def compare_adaptive_paths(dev, sm, tm, jb, tb):
         print(f"compare {label} main-path murmur3 launches ({len(calls)}) "
               f"and probes ({len(probes)}, {sum(hits)} verified pairs); "
               f"exact")
-
-
-def capture_probes(plan):
-    """Run `plan` once and keep the inputs of every fused probe-verify
-    launch (exec/joins' fused_probe_verify), in call order: [(its seven
-    input tensors, the candidate bucket, the candidate total)]."""
-    import torch
-    from spark_rapids_tpu_torch.exec import joins
-    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
-    calls, real = [], joins.fused_probe_verify
-
-    def record(*args):
-        *ins, cap = args
-        total = int(ins[1].to(torch.int64).sum())
-        calls.append(([x.clone() for x in ins], cap, total))
-        return real(*args)
-    joins.fused_probe_verify = record
-    try:
-        with speculation_scope():
-            list(plan.execute())
-            torch.cuda.synchronize()
-    finally:
-        joins.fused_probe_verify = real
-    return calls
 
 
 def time_adaptive_paths(runs):
@@ -8660,9 +8614,10 @@ P38_HOT = 0.8            # P38: the lines' share on one order key (the JAX
 #                          package's zipf shape, tests/test_adaptive.py)
 P38_SEED = 38
 P38_MAP_BATCHES = 16     # P38's lines as 16 host map batches
-#: P38's runs of each plan, in turns: static once (its 256 partition-pair
-#: reads take 8-11 s a run on an H100), split and convert 3 each
-P38_RUNS = {"static": 1, "split": 3, "convert": 3}
+#: P38's runs of each plan, in turns: static and split once (their 256
+#: partition-pair reads take 11-13 s a run on an H100; the script's whole
+#: run must stay inside its time limit), convert 3 times
+P38_RUNS = {"static": 1, "split": 1, "convert": 3}
 #: P38's three plans, all over 16 partitions with broadcasts off: static
 #: (adaptive off), split (the defaults but the conversion cap, as the JAX
 #: package's skew test BASE sets it) and convert (the defaults)
@@ -9278,8 +9233,9 @@ def compare_p38(pd, orders, dev):
     split's hot probe window and at the converted pass's one build over
     the whole orders side, each against its plain version."""
     for kind in ("split", "convert"):
-        gathers = capture_row_gathers(p38_plan(pd, orders, dev,
-                                               P38_CONFS[kind]))
+        gathers = capture_kernels(
+            p38_plan(pd, orders, dev, P38_CONFS[kind]),
+            ("gathers",))["gathers"]
         inputs = p38_join_inputs(p38_plan(pd, orders, dev, P38_CONFS[kind]),
                                  kind == "convert")
         compare_join_inputs(f"P38 {kind}", inputs, gathers)
@@ -9577,7 +9533,6 @@ def drive_stage_budget(sm, dev, d3, q3_want, rec):
 
 # -- slice 18 (phase 3m): the file lane, P40 ---------------------------------
 
-P40_RUNS = 3             # timed runs of each P40 query and its twin, in turns
 P40_PATHS = ("P40 avro", "P40 hive")
 
 
@@ -9615,10 +9570,11 @@ def same_table(label, got, want):
     """The batches read back from a file, concatenated, against the batch
     that was written, column for column on the card: every validity bit,
     every valid fixed-width value, every string's offsets and bytes (the
-    written batch's dictionary columns decoded first)."""
+    dictionary columns of either decoded first)."""
     import torch
     from spark_rapids_tpu_torch.columnar.encoded import materialize_batch
     from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+    got = [materialize_batch(b) for b in got]
     got = got[0] if len(got) == 1 else concat_batches(got, want.schema)
     want = materialize_batch(want)
     n = want.num_rows_host
@@ -9643,67 +9599,32 @@ def same_table(label, got, want):
                                  f"differs from the batch written")
 
 
-def file_inputs(dev, sm, dj, jb, q3d, tb, workdir):
+def file_inputs(dev, sm, jb, tb, workdir):
     """P40's files, written by the port's writers under `workdir` and read
-    back once through the session's readers on the card (set-up: phase 2
-    holds the kernels at the read-back tables' shapes): P40 avro, P12's
-    SF1 orders (all four columns) by `write_avro(path, codec="deflate")`;
-    P40 hive, P19's 150,000 customers by `write_hive_text`. Each read-back
-    equals its input column for column. Returns {path: record}, each with
-    the write ms and file bytes, the read ms split into the host decode,
-    the host build of the columns and the upload (the rest of the read's
-    wall, its copy waited for), and the read-back batches."""
+    back once through the session's readers on the card (`write_read`;
+    phase 2 holds the kernels at the read-back tables' shapes): P40 avro,
+    P12's SF1 orders (all four columns) by `write_avro(path,
+    codec="deflate")`; P40 hive, P19's 150,000 customers by
+    `write_hive_text`. Returns {path: record}."""
     import os
-    import torch
-    TpuSession = sm.session.TpuSession
-    sess = TpuSession(device=dev)
     t = sm.t
+    sess = sm.session.TpuSession(device=dev)
     cust = tb["q3"]["customer"]
+    cust_schema = t.Schema(tuple(t.StructField(f.name, f.data_type)
+                                 for f in cust.schema.fields))
     tables = {
-        "P40 avro": (jb["orders"], os.path.join(workdir, "orders.avro"),
+        "P40 avro": (jb["orders"], "orders.avro",
                      lambda df, p: df.write_avro(p, codec="deflate"),
-                     lambda p: sess.read_avro(p)),
-        "P40 hive": (cust, os.path.join(workdir, "customer.txt"),
+                     sess.read_avro),
+        "P40 hive": (cust, "customer.txt",
                      lambda df, p: df.write_hive_text(p),
-                     lambda p: sess.read_hive_text(p, t.Schema(tuple(
-                         t.StructField(f.name, f.data_type)
-                         for f in cust.schema.fields))))}
+                     lambda p: sess.read_hive_text(p, cust_schema))}
     out = {}
-    for label, (batch, path, write, read) in tables.items():
+    for label, (batch, name, write, read) in tables.items():
+        path = os.path.join(workdir, name)
         df = sess.from_batches([batch], batch.schema)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        write(df, path)
-        write_ms = (time.perf_counter() - t0) * 1e3
-        src = read(path)._plan.source
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        back = list(src.batches())
-        torch.cuda.synchronize()
-        read_ms = (time.perf_counter() - t0) * 1e3
-        st = dict(src.scan_stats)
-        same_table(label, back, batch)
-        places = {t.device.type for b in back for c in b.columns
-                  for t in c.leaves()}
-        if places != {torch.device(dev).type}:
-            raise AssertionError(f"{label}: read-back leaves on {places}, "
-                                 f"the session's device is {dev}")
-        decode_ms, build_ms = st["decode_ns"] / 1e6, st["build_ns"] / 1e6
-        rec = {"path": path, "rows": st["rows"], "batches": st["batches"],
-               "write_ms": write_ms, "file_bytes": os.path.getsize(path),
-               "read_ms": read_ms, "decode_ms": decode_ms,
-               "build_ms": build_ms,
-               "upload_ms": read_ms - decode_ms - build_ms,
-               "upload_enqueue_ms": st["upload_ns"] / 1e6,
-               "back": back, "schema": back[0].schema}
-        print(f"{label}: wrote {batch.num_rows_host} rows "
-              f"({', '.join(batch.schema.names)}) in {write_ms:.1f} ms, "
-              f"{rec['file_bytes']} bytes; read back {st['rows']} rows in "
-              f"{st['batches']} batch(es) in {read_ms:.1f} ms (host decode "
-              f"{decode_ms:.1f}, host build {build_ms:.1f}, upload "
-              f"{rec['upload_ms']:.1f}); equal to the input column for "
-              f"column")
-        out[label] = rec
+        out[label] = write_read(label, sm, lambda: write(df, path),
+                                lambda: read(path), batch, dev, path)
     return out
 
 
@@ -9751,33 +9672,15 @@ def file_dfs(sm, dev, fi, dj, jb, q3d, tb):
 
 
 def compare_file_paths(dev, sm, fi, dj, jb, q3d, tb):
-    """Phase 2 at P40's own inputs: every murmur3 chain, probe and row
-    gather launch of a run of each P40 query (its file's table as read
-    back, the other tables as host numpy batches: phase 3m's shapes), each
-    held exactly to its plain version."""
-    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    """Phase 2 at P40's own inputs: every launch of the port's kernels in
+    a run of each P40 query (its file's table as read back, the other
+    tables as host numpy batches: phase 3m's shapes), each held exactly
+    to its plain version."""
     dfs = file_dfs(sm, dev, fi, dj, jb, q3d, tb)
     for label in P40_PATHS:
-        def fresh():
-            return planned(sm, dfs[label]("back"))[0]
-        gathers = capture_row_gathers(fresh())
-        print(f"compare {label} main-path row gathers: "
-              f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
-        del gathers
-        calls = capture_murmur3(fresh())
-        for k, (cols, seeds) in enumerate(calls):
-            _exact(f"murmur3 {label} call {k}",
-                   m3.murmur3_columns(cols, seeds),
-                   m3.murmur3_columns_plain(cols, seeds))
-        probes = capture_probes(fresh())
-        hits = [compare_probe(f"probe {label} call {k}", args, cap, total)
-                for k, (args, cap, total) in enumerate(probes)]
-        if not calls or not probes:
-            raise AssertionError(f"{label}: {len(calls)} murmur3 and "
-                                 f"{len(probes)} probe launches captured")
-        print(f"compare {label} main-path murmur3 launches ({len(calls)}) "
-              f"and probes ({len(probes)}, {sum(hits)} verified pairs); "
-              f"exact")
+        compare_captured(f"{label} main-path launches", capture_kernels(
+            planned(sm, dfs[label]("back"))[0]),
+            ("gathers", "murmur3", "probes"))
 
 
 def file_launch_notes(label, file_counts, twin_counts, batches):
@@ -9801,88 +9704,17 @@ def file_launch_notes(label, file_counts, twin_counts, batches):
 
 
 def drive_file_paths(dev, sm, fi, dj, jb, q3d, tb, wants):
-    """Phase 3m (P40): each P40 query planned at its twin's confs. The
-    twin's collect() and then the file query's, each from an emptied site
-    cache (cold: a join_agg stage pays its sizing pass in both), counted
-    (every launch counter at 0 just before, read just after, the host
-    reads by CUDA's sync debug mode), each held to its oracle; the file's
-    run reads its file inside the query. Then P40_RUNS timed pairs in
-    turns of the query over the table read back once ("read") against the
-    twin, one synchronisation a run. Returns (records, launches by
-    run)."""
-    import torch
-    from spark_rapids_tpu_torch.columnar import encoded
-    from spark_rapids_tpu_torch.exec import stage_compiler
-    from spark_rapids_tpu_torch.obs import dispatch
+    """Phase 3m (P40): each P40 query at its twin's confs through
+    pa_query, the file's run reading its file inside the query; the timed
+    runs are of the query over the table read back once ("read") against
+    the twin. Returns (records, launches by run)."""
     dfs = file_dfs(sm, dev, fi, dj, jb, q3d, tb)
-    recs, launches = {}, {}
-    for label in P40_PATHS:
-        want = wants[label]
-        make = dfs[label]
-        counted = {}
-        for kind in ("twin", "file"):
-            dispatch.reset_site_cache()
-            stage_compiler.reset_stage_counters()
-            df = make(kind)
-            if kind == "file":
-                print(f"{label} explain:\n{df.explain()}")
-            m0 = encoded.counters()["materializations"]
-            t0 = time.perf_counter()
-            c, reads, st = p39_collect(f"{label} {kind}",
-                                       df, exact_rows(want))
-            ms = (time.perf_counter() - t0) * 1e3
-            st["materializations"] = \
-                encoded.counters()["materializations"] - m0
-            counted[kind] = (c, reads, st, ms, df)
-        fc, freads, fst, fms, fdf = counted["file"]
-        tc, treads, tst, tms, _ = counted["twin"]
-        idle = [k for k in Q_NEED if fc[k] < 1]
-        if idle:
-            raise AssertionError(f"{label}: kernels not launched: {idle} "
-                                 f"(counts {fc})")
-        src = fdf._plan
-        while not hasattr(src, "source"):
-            src = src.children[0]
-        scan = dict(src.source.scan_stats)
-        notes = file_launch_notes(label, fc, tc, scan["batches"])
-        launches[label.replace(" ", "_")] = fc
-        launches[label.replace(" ", "_") + "_twin"] = tc
-        ms = {"read": [], "twin": []}
-        runs = {"read": make("read"), "twin": make("twin")}
-        for i in range(P40_RUNS):
-            for kind in (("read", "twin") if i % 2 == 0
-                         else ("twin", "read")):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                rows = runs[kind].collect()
-                torch.cuda.synchronize()
-                ms[kind].append((time.perf_counter() - t0) * 1e3)
-                exact_rows(want)(rows, f"{label} timed {kind}")
-        recs[label] = {
-            "rows": want, "file_run_ms": fms, "twin_run_ms": tms,
-            "file_scan": {k: scan[k] for k in ("rows", "batches")},
-            "file_scan_ms": {k.replace("_ns", "_ms"): scan[k] / 1e6
-                             for k in ("decode_ns", "build_ns",
-                                       "upload_ns")},
-            "launches": fc, "twin_launches": tc, "differences": notes,
-            "host_reads": freads, "twin_host_reads": treads,
-            "stages": fst, "twin_stages": tst, "ms": ms,
-            **{k: v for k, v in fi[label].items()
-               if k not in ("back", "schema")}}
-        print(f"{label}: rows equal to the oracle {want[:3]}...; the file's "
-              f"collect() {fms:.1f} ms (its read: {scan['rows']} rows in "
-              f"{scan['batches']} batch(es), host decode "
-              f"{scan['decode_ns'] / 1e6:.1f} ms, host build "
-              f"{scan['build_ns'] / 1e6:.1f} ms), the twin's {tms:.1f} ms; "
-              f"launches {fc}, twin {tc}; host reads {freads}, twin "
-              f"{treads}; dictionary columns decoded at a boundary "
-              f"{fst['materializations']}, twin "
-              f"{tst['materializations']}")
-        for note in notes:
-            print(f"  {label}: {note}")
-        print(f"{label} timed, the table read back against the twin, in "
-              f"turns: read {['%.2f' % v for v in ms['read']]} ms, twin "
-              f"{['%.2f' % v for v in ms['twin']]} ms")
+    recs, launches = pa_paths(
+        (label, dfs[label], exact_rows(wants[label]), Q_NEED,
+         ("read", "twin")) for label in P40_PATHS)
+    for label, rec in recs.items():
+        rec.update(rows=wants[label], **{
+            k: v for k, v in fi[label].items() if k not in ("back", "schema")})
     return recs, launches
 
 
@@ -10077,7 +9909,7 @@ def compare_delta_paths(dev, sm, orders, source):
         for k, df in enumerate(plans[label]):
             def fresh():
                 return planned(sm, df)[0]
-            gathers = capture_row_gathers(fresh())
+            gathers = capture_kernels(fresh(), ("gathers",))["gathers"]
             n_gathers += len(gathers)
             if gathers:
                 print(f"compare {label} plan {k} row gathers: "
@@ -10085,12 +9917,12 @@ def compare_delta_paths(dev, sm, orders, source):
                       f"exact")
             del gathers
             if label == "P41 merge" and k > 0:
-                calls = capture_murmur3(fresh())
+                calls = capture_kernels(fresh(), ("murmur3",))["murmur3"]
                 for j, (cols, seeds) in enumerate(calls):
                     _exact(f"murmur3 {label} plan {k} call {j}",
                            m3.murmur3_columns(cols, seeds),
                            m3.murmur3_columns_plain(cols, seeds))
-                probes = capture_probes(fresh())
+                probes = capture_kernels(fresh(), ("probes",))["probes"]
                 hits = [compare_probe(f"probe {label} plan {k} call {j}",
                                       args, cap, total)
                         for j, (args, cap, total) in enumerate(probes)]
@@ -10102,7 +9934,7 @@ def compare_delta_paths(dev, sm, orders, source):
                       f"({len(calls)}) and probes ({len(probes)}, "
                       f"{sum(hits)} verified pairs); exact")
             if label == "P41 delete":
-                takes = capture_dict_gathers(fresh())
+                takes = capture_kernels(fresh(), ("takes",))["takes"]
                 if takes:
                     print(f"compare {label} dictionary gathers: "
                           f"{'; '.join(compare_dict_takes(label, takes))}; "
@@ -10277,18 +10109,18 @@ def compare_mesh_paths(dev, sm, d3, q1t_batch, order_batches, line_batches):
                   "P42 host q3", "P42 mesh Q1"):
         def fresh():
             return planned(sm, frames[label])[0]
-        gathers = capture_row_gathers(fresh())
+        gathers = capture_kernels(fresh(), ("gathers",))["gathers"]
         print(f"compare {label} row gathers: "
               f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
         del gathers
         if "q3" not in label:
             continue
-        calls = capture_murmur3(fresh())
+        calls = capture_kernels(fresh(), ("murmur3",))["murmur3"]
         for j, (cols, seeds) in enumerate(calls):
             _exact(f"murmur3 {label} call {j}",
                    m3.murmur3_columns(cols, seeds),
                    m3.murmur3_columns_plain(cols, seeds))
-        probes = capture_probes(fresh())
+        probes = capture_kernels(fresh(), ("probes",))["probes"]
         hits = [compare_probe(f"probe {label} call {j}", args, cap, total)
                 for j, (args, cap, total) in enumerate(probes)]
         if len(probes) < P42_SHARDS or not calls:
@@ -11044,9 +10876,10 @@ def window_slots(n):
 
 
 def p44_probe_windows(plan):
-    """The probe windows of one run of `plan` (capture_probes): the hot
-    first window and the last, whose bucket is partly empty."""
-    calls = capture_probes(plan)
+    """The probe windows of one run of `plan` (capture_kernels'
+    "probes"): the hot first window and the last, whose bucket is partly
+    empty."""
+    calls = capture_kernels(plan, ("probes",))["probes"]
     if len(calls) < 2:
         raise AssertionError(f"P44: {len(calls)} probe windows captured")
     return [calls[0], calls[-1]]
@@ -11066,7 +10899,7 @@ def compare_window_paths(dev, p44_in, d3, jb):
     for label, plan in (("P44 inner", p44_join(m, events, sessions,
                                                "inner")),
                         ("q3 DECIMAL(38,0)", q3_decimal_plan(d3, dev))):
-        calls = capture_murmur3(plan)
+        calls = capture_kernels(plan, ("murmur3",))["murmur3"]
         for j, (cols, seeds) in enumerate(calls):
             _exact(f"murmur3 {label} call {j}",
                    m3.murmur3_columns(cols, seeds),
@@ -11078,7 +10911,7 @@ def compare_window_paths(dev, p44_in, d3, jb):
     for label, plan in (("P44 inner", p44_join(m, events, sessions,
                                                "inner")),
                         ("q3 DECIMAL(38,0)", q3_decimal_plan(d3, dev))):
-        gathers = capture_row_gathers(plan)
+        gathers = capture_kernels(plan, ("gathers",))["gathers"]
         print(f"compare {label} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(label, gathers))}; exact")
         del gathers
@@ -11090,7 +10923,7 @@ def compare_window_paths(dev, p44_in, d3, jb):
               f"candidates in {cap} slots, {hits} verified pairs; exact")
         torch.cuda.empty_cache()
     with window_slots(P44_Q21_WINDOW):
-        calls = capture_probes(q21_plan(m, jb))
+        calls = capture_kernels(q21_plan(m, jb), ("probes",))["probes"]
     hits = [compare_probe(f"probe Q21 windowed launch {j}", args, cap, total)
             for j, (args, cap, total) in enumerate(calls)]
     print(f"compare Q21 windowed probe launches ({len(calls)}: the semi and "
@@ -11234,6 +11067,1050 @@ def time_window_probe(p44_in, launches):
             "cand_cap": cap, "launches": launches}
 
 
+# -- slice 23 (phases 3r-3u): the pyarrow and pandas paths, P45-P48 ---------
+
+PA_RUNS = 3              # timed runs of each P40, P45, P46 query, in turns
+P45_LINE_FILES = 4       # P45 q1's lineitems: one Parquet file a row slice
+P45_ORDER_FILES = 8      # P45 q3's orders: one file a span of order dates
+P45_PATHS = ("P45 q1", "P45 q1 coalescing", "P45 q3", "P45 q19")
+COALESCING_CONF = {
+    "spark.rapids.sql.format.parquet.reader.type": "COALESCING"}
+#: the ported kernels each P45 path must launch (Q1's string group-by and
+#: sort launch row gathers only)
+P45_NEED = {"P45 q1": ["dma_row_gather"],
+            "P45 q1 coalescing": ["dma_row_gather"],
+            "P45 q3": Q_NEED, "P45 q19": Q_NEED}
+P46_FORMATS = ("orc", "csv", "json", "iceberg")
+
+
+def rows_of(d, lo, hi):
+    """Rows lo..hi of a dict of columns (a (codes, values) string column
+    keeps its values)."""
+    return {k: ((v[0][lo:hi], v[1]) if isinstance(v, tuple) else v[lo:hi])
+            for k, v in d.items()}
+
+
+@contextlib.contextmanager
+def fetch_clock(sm):
+    """DataFrame.to_arrow and to_pydict timed while the block runs: the
+    writers fetch their table through one of them, so a write's ms splits
+    into the fetch and the encode. Yields a list whose [0] gains the
+    fetch ms."""
+    DF = sm.session.DataFrame
+    real = {k: getattr(DF, k) for k in ("to_arrow", "to_pydict")}
+    spent = [0.0]
+
+    def timed(fn):
+        def run(self):
+            t0 = time.perf_counter()
+            try:
+                return fn(self)
+            finally:
+                spent[0] += (time.perf_counter() - t0) * 1e3
+        return run
+    for k, fn in real.items():
+        setattr(DF, k, timed(fn))
+    try:
+        yield spent
+    finally:
+        for k, fn in real.items():
+            setattr(DF, k, fn)
+
+
+def tree_bytes(path):
+    """Bytes of a file, or of every file under a directory."""
+    import os
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def leaves_on(label, batches, dev):
+    """Fail unless every leaf of every batch lies on the session's
+    device."""
+    import torch
+    places = {x.device.type for b in batches for c in b.columns
+              for x in c.leaves()} | {
+        b.num_rows.device.type for b in batches
+        if isinstance(b.num_rows, torch.Tensor)}
+    if places != {torch.device(dev).type}:
+        raise AssertionError(f"{label}: read-back leaves on {places}, the "
+                             f"session's device is {dev}")
+
+
+def write_read(label, sm, write, read, want, dev, path, check=None):
+    """One table through a port writer and back through the session's
+    reader on the card: write() timed, its fetch (to_arrow or to_pydict)
+    apart from the encode; read()'s source drained once, timed with one
+    synchronisation, its scan_stats (the host decode summed over the
+    pool's threads, the host build, the uploads' enqueue); the batches
+    read back equal to `want` column for column (`same_table`, or
+    `check(back)`), every leaf on `dev`. Returns the record, with the
+    batches read back under "back"."""
+    import torch
+    with fetch_clock(sm) as fetch:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write()
+        write_ms = (time.perf_counter() - t0) * 1e3
+    df = read()
+    src = df._plan.source
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = list(src.batches())
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    st = dict(src.scan_stats)
+    if check is None:
+        same_table(label, back, want)
+    else:
+        check(back)
+    leaves_on(label, back, dev)
+    rec = {"path": path, "write_ms": write_ms, "fetch_ms": fetch[0],
+           "encode_ms": write_ms - fetch[0], "file_bytes": tree_bytes(path),
+           "read_ms": read_ms, "scan_stats": st,
+           **{k.replace("_ns", "_ms"): st[k] / 1e6 for k in st
+              if k.endswith("_ns")},
+           "kinds": sorted({type(c).__name__ for b in back
+                            for c in b.columns}),
+           "back": back, "schema": back[0].schema}
+    extra = {k: v for k, v in st.items()
+             if k not in ("rows", "batches") and not k.endswith("_ns")}
+    print(f"{label}: wrote {sum(b.num_rows_host for b in back)} rows "
+          f"({', '.join(rec['schema'].names)}) in {write_ms:.1f} ms "
+          f"(fetch {fetch[0]:.1f}, encode {write_ms - fetch[0]:.1f}), "
+          f"{rec['file_bytes']} bytes; read back "
+          f"{sum(b.num_rows_host for b in back)} rows in "
+          f"{len(back)} batch(es), wall {read_ms:.1f} ms (host "
+          f"decode {st.get('decode_ns', 0) / 1e6:.1f} summed over the "
+          f"threads, host build {st.get('build_ns', 0) / 1e6:.1f}, upload "
+          f"enqueue {st.get('upload_ns', 0) / 1e6:.1f}){' ' if extra else ''}"
+          f"{extra if extra else ''}; columns {rec['kinds']}; equal to the "
+          f"input column for column, every leaf on {dev}")
+    return rec
+
+
+def plan_sources(plan):
+    """The sources of a logical plan's scans, in tree order."""
+    out = []
+    if hasattr(plan, "source"):
+        out.append(plan.source)
+    for c in getattr(plan, "children", ()):
+        out.extend(plan_sources(c))
+    return out
+
+
+def capture_kernels(run,
+                    families=("gathers", "murmur3", "probes", "takes")):
+    """run() once under a speculation scope (a physical plan as `run`: its
+    execute() drained), keeping the inputs of every launch of the kernel
+    `families` it makes, in call order: "gathers",
+    the packed row gathers (each through the gather engine's
+    `gather_rows`: (site, pack plan, u32 matrix, f64 matrix or None,
+    int32 index)); "murmur3", the murmur3 chain (ops/murmur3_lanes.
+    murmur3_columns, which ops/join.py imports by name: (columns,
+    seeds)); "probes", the fused probe-verify (exec/joins'
+    fused_probe_verify: (its seven input tensors, the candidate bucket,
+    the candidate total)); "takes", the dictionary gathers (ops/
+    dict_gather.dict_gather: (table, index)). Returns {family: calls}."""
+    import inspect
+    import torch
+    from spark_rapids_tpu_torch.exec import joins
+    from spark_rapids_tpu_torch.exec.speculation import speculation_scope
+    from spark_rapids_tpu_torch.ops import dict_gather as dg
+    from spark_rapids_tpu_torch.ops import gather as G
+    from spark_rapids_tpu_torch.ops import join as oj, murmur3_lanes as m3
+    if hasattr(run, "execute"):
+        plan = run
+
+        def run():
+            return list(plan.execute())
+    out = {k: [] for k in families}
+    real_g, real_m, real_p, real_t = (G.gather_rows, m3.murmur3_columns,
+                                      joins.fused_probe_verify,
+                                      dg.dict_gather)
+
+    def gather(pack, imat, fmat, idx):
+        names = {f.function for f in inspect.stack(0)[1:]}
+        site = next((label for need, label in GATHER_SITES
+                     if all(n in names for n in need)), "other")
+        out["gathers"].append((site, pack, imat, fmat,
+                               idx.to(torch.int32).clone()))
+        return real_g(pack, imat, fmat, idx)
+
+    def murmur3(columns, seeds):
+        out["murmur3"].append((list(columns), [
+            s.clone() if hasattr(s, "clone") else s for s in seeds]))
+        return real_m(columns, seeds)
+
+    def probe(*args):
+        *ins, cap = args
+        total = int(ins[1].to(torch.int64).sum())
+        out["probes"].append(([x.clone() for x in ins], cap, total))
+        return real_p(*args)
+
+    def take(table, idx):
+        out["takes"].append((table.clone(), idx.clone()))
+        return real_t(table, idx)
+    # the wrappers count on their module's name, the recorder meanwhile:
+    # those launches are the capture's own
+    murmur3.launches, take.launches = real_m.launches, real_t.launches
+    if "gathers" in families:
+        G.gather_rows = gather
+    if "murmur3" in families:
+        m3.murmur3_columns = oj.murmur3_columns = murmur3
+    if "probes" in families:
+        joins.fused_probe_verify = probe
+    if "takes" in families:
+        dg.dict_gather = take
+    try:
+        with speculation_scope():
+            run()
+            torch.cuda.synchronize()
+    finally:
+        G.gather_rows, joins.fused_probe_verify, dg.dict_gather = \
+            real_g, real_p, real_t
+        m3.murmur3_columns = oj.murmur3_columns = real_m
+    return out
+
+
+def compare_captured(label, cap, need=()):
+    """Every launch `capture_kernels` kept, against its plain version,
+    exactly; fails if a family in `need` ("gathers", "murmur3", "probes",
+    "takes") launched nothing. Returns the launches kept by family."""
+    from spark_rapids_tpu_torch.ops import murmur3_lanes as m3
+    idle = [k for k in need if not cap[k]]
+    if idle:
+        raise AssertionError(f"{label}: nothing captured of {idle} "
+                             f"({ {k: len(v) for k, v in cap.items()} })")
+    parts = []
+    if cap["gathers"]:
+        parts.append("row gathers "
+                     + "; ".join(compare_row_gathers(label, cap["gathers"])))
+    for k, (cols, seeds) in enumerate(cap["murmur3"]):
+        _exact(f"murmur3 {label} call {k}", m3.murmur3_columns(cols, seeds),
+               m3.murmur3_columns_plain(cols, seeds))
+    hits = [compare_probe(f"probe {label} call {k}", args, c, total)
+            for k, (args, c, total) in enumerate(cap["probes"])]
+    if cap["murmur3"] or cap["probes"]:
+        parts.append(f"murmur3 launches {len(cap['murmur3'])}, probes "
+                     f"{len(cap['probes'])} ({sum(hits)} verified pairs)")
+    if cap["takes"]:
+        shapes = {}
+        for shape in compare_dict_takes(label, cap["takes"]):
+            shapes[shape] = shapes.get(shape, 0) + 1
+        parts.append("dictionary gathers " + "; ".join(
+            s if n == 1 else f"{s} x{n}" for s, n in shapes.items()))
+    print(f"compare {label}: {'; '.join(parts) or 'no ported kernel'}; "
+          f"exact")
+    return {k: len(v) for k, v in cap.items()}
+
+
+def pa_query(label, make, check, need, kinds=("file", "back", "twin")):
+    """One file-backed query (P40, P45, P46): its twin's collect() and then
+    the file query's, each from an emptied site cache and counted (every
+    launch counter at 0 just before, read just after; the host reads by
+    CUDA's sync debug mode), each held to its oracle; the file's run
+    reads its files inside the query. Then PA_RUNS timed runs in turns of
+    `kinds`: "file" (the read inside), "back" or "read" (the tables read
+    back once, as device batches) and "twin", one synchronisation a run.
+    Returns the record."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import encoded
+    from spark_rapids_tpu_torch.exec import stage_compiler
+    from spark_rapids_tpu_torch.obs import dispatch
+    counted = {}
+    for kind in ("twin", "file"):
+        dispatch.reset_site_cache()
+        stage_compiler.reset_stage_counters()
+        df = make(kind)
+        m0 = encoded.counters()["materializations"]
+        t0 = time.perf_counter()
+        c, reads, st = p39_collect(f"{label} {kind}", df, check)
+        ms = (time.perf_counter() - t0) * 1e3
+        st["materializations"] = \
+            encoded.counters()["materializations"] - m0
+        counted[kind] = (c, reads, st, ms, df)
+    fc, freads, fst, fms, fdf = counted["file"]
+    tc, treads, tst, tms, _ = counted["twin"]
+    idle = [k for k in need if fc[k] < 1]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle} "
+                             f"(counts {fc})")
+    scans = [dict(s.scan_stats, files=len(getattr(s, "paths", ()) or ()))
+             for s in plan_sources(fdf._plan) if hasattr(s, "scan_stats")]
+    notes = file_launch_notes(label, fc, tc,
+                              sum(s.get("batches", 0) for s in scans))
+    ms = {k: [] for k in kinds}
+    runs = {k: make(k) for k in kinds}
+    for i in range(PA_RUNS):
+        order = kinds[i % len(kinds):] + kinds[:i % len(kinds)]
+        for kind in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = runs[kind].collect()
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            check(rows, f"{label} timed {kind}",
+                  runs[kind].session.last_query_metrics())
+    rec = {"file_run_ms": fms, "twin_run_ms": tms, "scans": scans,
+           "launches": fc, "twin_launches": tc, "differences": notes,
+           "host_reads": freads, "twin_host_reads": treads,
+           "stages": fst, "twin_stages": tst, "ms": ms}
+    counts = [{k: v for k, v in s.items() if not k.endswith("_ns")}
+              for s in scans]
+    print(f"{label}: rows equal to the oracle; the file query's collect() "
+          f"{fms:.1f} ms with its read inside (scans {counts}, "
+          f"host decode "
+          f"{sum(s.get('decode_ns', 0) for s in scans) / 1e6:.1f} ms, host "
+          f"build {sum(s.get('build_ns', 0) for s in scans) / 1e6:.1f} ms), "
+          f"the twin's {tms:.1f} ms; launches {family_counts(fc)}, twin "
+          f"{family_counts(tc)}; host reads {freads}, twin {treads}; "
+          f"dictionary columns decoded at a boundary "
+          f"{fst['materializations']}, twin {tst['materializations']}")
+    for note in notes:
+        print(f"  {label}: {note}")
+    print(f"{label} timed, {PA_RUNS} runs in turns: " + ", ".join(
+        f"{k} {['%.2f' % v for v in ms[k]]}" for k in kinds) + " ms")
+    return rec
+
+
+def pa_paths(paths):
+    """pa_query over each (label, make, check, need, kinds) of `paths`.
+    Returns (records by label, launches by run: the file query's under
+    the label, the twin's under label + "_twin", spaces as
+    underscores)."""
+    recs, launches = {}, {}
+    for label, *args in paths:
+        recs[label] = rec = pa_query(label, *args)
+        key = label.replace(" ", "_")
+        launches[key], launches[key + "_twin"] = (rec["launches"],
+                                                  rec["twin_launches"])
+    return recs, launches
+
+
+def p45_inputs(dev, sm, d19, q1t_batch, tb, l19, p19, workdir):
+    """P45's files, written under `workdir` by the port's writer
+    (df.write_parquet) and read back once through TpuSession.read_parquet
+    at the default confs on the card, each equal to its input column for
+    column: P6's SF1 lineitem as P45_LINE_FILES files, one a row slice, in
+    one directory; P19's customer, orders and lineitem, the orders as
+    P45_ORDER_FILES files, each the orders of one span of o_orderdate
+    sorted by it (a date-clustered table's layout); Q19's part and
+    lineitem. Returns {table: record} (`write_read`'s)."""
+    import os
+    TpuSession = sm.session.TpuSession
+    sess = TpuSession(device=dev)
+    col, lit = sm.core.col, sm.core.lit
+    out = {}
+
+    # P45 q1: the lineitem in four row slices, one file each
+    n = q1t_batch.num_rows_host
+    step = -(-n // P45_LINE_FILES)
+    q1_dir = os.path.join(workdir, "q1_lineitem")
+    slices = [tpch_q1_batch(rows_of(d19, lo, lo + step), dev)
+              for lo in range(0, n, step)]
+
+    def write_q1():
+        for k, b in enumerate(slices):
+            sess.from_batches([b], b.schema).write_parquet(
+                os.path.join(q1_dir, f"part-{k:05d}.parquet"))
+    out["q1 lineitem"] = write_read(
+        "P45 q1 lineitem", sm, write_q1, lambda: sess.read_parquet(q1_dir),
+        q1t_batch, dev, q1_dir)
+    del slices
+
+    # P45 q3: the customer and lineitem one file each, the orders one
+    # file a span of order dates, each sorted by date
+    q3 = tb["q3"]
+    for name in ("customer", "lineitem"):
+        path = os.path.join(workdir, f"q3_{name}.parquet")
+        b = q3[name]
+        out[f"q3 {name}"] = write_read(
+            f"P45 q3 {name}", sm,
+            lambda b=b, path=path: sess.from_batches(
+                [b], b.schema).write_parquet(path),
+            lambda path=path: sess.read_parquet(path), b, dev, path)
+    orders = sess.from_batches([q3["orders"]], q3["orders"].schema)
+    edges = np.linspace(ORDER_DATE_FIRST, ORDER_DATE_LAST + 1,
+                        P45_ORDER_FILES + 1).astype(np.int64)
+    day = [sm.core.Literal(int(e), sm.t.DATE) for e in edges]
+    spans = [orders.filter((col("o_orderdate") >= lo)
+                           & (col("o_orderdate") < hi))
+             .sort("o_orderdate")._batches()
+             for lo, hi in zip(day[:-1], day[1:])]
+    o_dir = os.path.join(workdir, "q3_orders")
+
+    def write_orders():
+        for k, bs in enumerate(spans):
+            sess.from_batches(bs, q3["orders"].schema).write_parquet(
+                os.path.join(o_dir, f"part-{k:05d}.parquet"))
+    from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+    sorted_orders = concat_batches([b for bs in spans for b in bs],
+                                   q3["orders"].schema)
+    out["q3 orders"] = write_read(
+        "P45 q3 orders", sm, write_orders, lambda: sess.read_parquet(o_dir),
+        sorted_orders, dev, o_dir)
+    del spans, sorted_orders
+
+    # P45 q19: the part and lineitem, one file each
+    for name, b in (("part", p19), ("lineitem", l19)):
+        path = os.path.join(workdir, f"q19_{name}.parquet")
+        out[f"q19 {name}"] = write_read(
+            f"P45 q19 {name}", sm,
+            lambda b=b, path=path: sess.from_batches(
+                [b], b.schema).write_parquet(path),
+            lambda path=path: sess.read_parquet(path), b, dev, path)
+    return out
+
+
+def p45_dfs(sm, dev, fi, q1t_batch, tb, l19, p19):
+    """{P45 path: make(kind)}: "file" reads every table of the query
+    through TpuSession.read_parquet (Q1's under the COALESCING reader for
+    "P45 q1 coalescing"); "back" takes the tables as read back once
+    (p45_inputs) as device batches; "twin" is the in-memory query (P6,
+    P19, Q19) over the batches the files were written from. All at the
+    default confs."""
+    TpuSession = sm.session.TpuSession
+
+    def frame(sess, key, kind):
+        rec = fi[key]
+        if kind == "file":
+            return sess.read_parquet(rec["path"])
+        return sess.from_batches(rec["back"], rec["schema"])
+
+    def q1(conf=None):
+        def make(kind):
+            sess = TpuSession(conf if kind == "file" else None, dev)
+            if kind == "twin":
+                return tpch_q1_df(sm, sess, q1t_batch)
+            return tpch_q1_df(sm, sess, None,
+                              frame=frame(sess, "q1 lineitem", kind))
+        return make
+
+    def q3(kind):
+        sess = TpuSession(device=dev)
+        if kind == "twin":
+            return q3_types_df(sm, sess, tb["q3"])
+        return q3_types_df(sm, sess, tb["q3"], frames={
+            k: frame(sess, f"q3 {k}", kind)
+            for k in ("customer", "orders", "lineitem")})
+
+    def q19(kind):
+        sess = TpuSession(device=dev)
+        if kind == "twin":
+            return q19_df(sm, sess, l19, p19)
+        return q19_df(sm, sess, l19, p19, frames={
+            k: frame(sess, f"q19 {k}", kind) for k in ("lineitem", "part")})
+    return {"P45 q1": q1(), "P45 q1 coalescing": q1(COALESCING_CONF),
+            "P45 q3": q3, "P45 q19": q19}
+
+
+def compare_p45_paths(dev, sm, fi, q1t_batch, tb, l19, p19):
+    """Phase 2 at P45's own inputs: every row gather, murmur3 chain, probe
+    and dictionary gather of a run of each P45 query over its tables as
+    read back from Parquet (the dictionary columns the encoded lane keeps
+    among them), each held exactly to its plain version."""
+    dfs = p45_dfs(sm, dev, fi, q1t_batch, tb, l19, p19)
+    for label in ("P45 q1", "P45 q3", "P45 q19"):
+        need = ("gathers",) if label == "P45 q1" else (
+            "gathers", "murmur3", "probes")
+        compare_captured(f"{label} main-path launches", capture_kernels(
+            planned(sm, dfs[label]("back"))[0]), need)
+
+
+def q19_pairs(metrics):
+    """Q19's qualifying rows: its join's output rows in the collect()'s
+    metrics."""
+    return next(v["numOutputRows"] for k, v in metrics.items()
+                if k.startswith("HashJoinExec#"))
+
+
+def drive_p45_paths(dev, sm, fi, q1t_batch, tb, l19, p19, wants):
+    """Phase 3r (P45): each query with every table from Parquet, at the
+    default confs, through pa_query; Q1 also under the COALESCING reader;
+    Q3's row groups read and pruned by its pushed date conjuncts; Q19's
+    string columns by kind as they reach the join. Returns (records,
+    launches by run)."""
+    dfs = p45_dfs(sm, dev, fi, q1t_batch, tb, l19, p19)
+    checks = {
+        "P45 q1": lambda r, lb, _: check_rows(r, wants["P6"], lb),
+        "P45 q1 coalescing": lambda r, lb, _: check_rows(r, wants["P6"], lb),
+        "P45 q3": exact_rows(wants["P19"]),
+        "P45 q19": lambda r, lb, mx: check_q19(r, q19_pairs(mx),
+                                               wants["Q19"], lb)}
+    recs, launches = pa_paths(
+        (label, dfs[label], checks[label], P45_NEED[label],
+         ("file", "twin") if label == "P45 q1 coalescing"
+         else ("file", "back", "twin")) for label in P45_PATHS)
+    q3_orders = next(s for s in recs["P45 q3"]["scans"]
+                     if s["files"] == P45_ORDER_FILES)
+    print(f"P45 q3: the orders' row groups read "
+          f"{q3_orders['row_groups_read']}, pruned "
+          f"{q3_orders['row_groups_pruned']} by o_orderdate < {Q3_DATE} "
+          f"(one group a file of {P45_ORDER_FILES})")
+    if not q3_orders["row_groups_pruned"]:
+        raise AssertionError("P45 q3: no orders row group pruned")
+    kinds = {k: fi[f"q19 {k}"]["kinds"] for k in ("lineitem", "part")}
+    r = recs["P45 q19"]
+    print(f"P45 q19: column kinds read back {kinds}; dictionary columns "
+          f"decoded at a boundary {r['stages']['materializations']} (the "
+          f"in-memory twin's {r['twin_stages']['materializations']}); "
+          f"dict_gather launches {r['launches']['dict_gather']} (the "
+          f"twin's {r['twin_launches']['dict_gather']})")
+    return recs, launches
+
+
+def p46_inputs(dev, sm, dj, jb, workdir):
+    """P46's files, written under `workdir` by the port's writers and read
+    back once through the session's readers on the card, each equal to its
+    input column for column: P12's SF1 orders by `write_orc`, `write_csv`,
+    `write_json` and `write_iceberg` (two appends, a half of the rows
+    each), and P12's lineitem by `write_orc`; the Iceberg table's first
+    snapshot (`read_iceberg(path, snapshot_id=...)`) read back equal to
+    the first half. Returns {format: record}."""
+    import os
+    from spark_rapids_tpu_torch.io.iceberg import IcebergTable
+    TpuSession = sm.session.TpuSession
+    sess = TpuSession(device=dev)
+    orders, lines = jb["orders"], jb["lineitem"]
+    df = sess.from_batches([orders], orders.schema)
+    out = {}
+    for fmt in ("orc", "csv", "json"):
+        path = os.path.join(workdir, f"orders.{fmt}")
+        kw = {} if fmt == "orc" else {"schema": orders.schema}
+        out[fmt] = write_read(
+            f"P46 {fmt} orders", sm,
+            lambda fmt=fmt, path=path: getattr(df, f"write_{fmt}")(path),
+            lambda fmt=fmt, path=path, kw=kw: getattr(
+                sess, f"read_{fmt}")(path, **kw), orders, dev, path)
+    path = os.path.join(workdir, "lineitem.orc")
+    out["orc lineitem"] = write_read(
+        "P46 orc lineitem", sm,
+        lambda: sess.from_batches([lines], lines.schema).write_orc(path),
+        lambda: sess.read_orc(path), lines, dev, path)
+    n = orders.num_rows_host
+    halves = [join_batch(dj, "orders", dev, rows=np.arange(lo, hi))
+              for lo, hi in ((0, n // 2), (n // 2, n))]
+    ice = os.path.join(workdir, "orders_iceberg")
+
+    def write_iceberg():
+        for b in halves:
+            sess.from_batches([b], b.schema).write_iceberg(ice)
+    out["iceberg"] = write_read("P46 iceberg orders (both appends)", sm,
+                                write_iceberg, lambda: sess.read_iceberg(ice),
+                                orders, dev, ice)
+    snaps = [s["snapshot-id"] for s in IcebergTable(ice).metadata()[
+        "snapshots"]]
+    src = sess.read_iceberg(ice, snapshot_id=snaps[0])._plan.source
+    back = list(src.batches())
+    same_table("P46 iceberg first snapshot", back, halves[0])
+    leaves_on("P46 iceberg first snapshot", back, dev)
+    out["iceberg"]["snapshots"] = snaps
+    out["iceberg"]["first_snapshot_rows"] = src.scan_stats["rows"]
+    print(f"P46 iceberg: snapshots {snaps}; the first read alone: "
+          f"{src.scan_stats['rows']} rows in {len(src._files)} data file(s), "
+          f"equal to the first append column for column")
+    return out
+
+
+def p46_dfs(sm, dev, fi, jb):
+    """{P46 path: make(kind)}: TPC-H Q4 (P12) with its orders from each
+    format ("file": through the session's reader; ORC's lineitem from ORC
+    too), over the tables read back once ("back"), or the in-memory twin
+    (P12 at the default confs)."""
+    TpuSession = sm.session.TpuSession
+
+    def read(sess, fmt, key):
+        rec = fi[key]
+        if fmt in ("csv", "json"):
+            return getattr(sess, f"read_{fmt}")(rec["path"],
+                                                schema=jb["orders"].schema)
+        return getattr(sess, f"read_{fmt}")(rec["path"])
+
+    def q4(fmt):
+        def make(kind):
+            sess = TpuSession(device=dev)
+            if kind == "twin":
+                return q4_df(sm, sess, jb)
+            keys = {"orders": fmt}
+            if fmt == "orc":
+                keys["lineitem"] = "orc lineitem"
+            frames = {t: (read(sess, fmt, k) if kind == "file" else
+                          sess.from_batches(fi[k]["back"], fi[k]["schema"]))
+                      for t, k in keys.items()}
+            return q4_df(sm, sess, jb, frames=frames)
+        return make
+    return {f"P46 {fmt}": q4(fmt) for fmt in P46_FORMATS}
+
+
+def compare_p46_paths(dev, sm, fi, jb):
+    """Phase 2 at P46's own inputs: every row gather, murmur3 chain and
+    probe of a run of Q4 over each format's tables as read back, held
+    exactly to its plain version."""
+    dfs = p46_dfs(sm, dev, fi, jb)
+    for label, make in dfs.items():
+        compare_captured(f"{label} main-path launches", capture_kernels(
+            planned(sm, make("back"))[0]), ("gathers", "murmur3", "probes"))
+
+
+def drive_p46_paths(dev, sm, fi, jb, want):
+    """Phase 3s (P46): Q4 with its orders from each format through
+    pa_query (the file query and the twin in turns); ORC's stripes read
+    and pruned. Returns (records, launches by run)."""
+    dfs = p46_dfs(sm, dev, fi, jb)
+    recs, launches = pa_paths(
+        (label, make, exact_rows(want), Q_NEED, ("file", "twin"))
+        for label, make in dfs.items())
+    print("P46 orc: stripes read and pruned by the pushed conjuncts " + str(
+        [{k: s[k] for k in ("stripes_read", "stripes_pruned")}
+         for s in recs["P46 orc"]["scans"]]))
+    return recs, launches
+
+
+# -- P47: Delta's file layer --------------------------------------------------
+
+#: the kernel families each command's run launches, as P41's plans do
+#: (UPDATE's count and If projection launch none)
+P47_NEED = {"P47 delete": ("gathers",), "P47 update": (),
+            "P47 merge": ("gathers", "murmur3", "probes"),
+            "P47 optimize": ("gathers",)}
+P47_APPENDS = 6          # appends after OPTIMIZE: versions 5-10, a checkpoint
+P47_APPEND_ROWS = 10_000
+P47_KEY_SHIFT = 1 << 40  # the appended orders' keys: above every other key
+
+
+def p47_oracles(dj, src, appends):
+    """The table after each commit of phase 3t, by numpy: {step: (the
+    command's result, rows as p41_table's columns: key, date, the
+    priority's and the status's first byte)}. The commands run one after
+    another on one table: UPDATE o_orderpriority to P41_URGENT before
+    P41_UPDATE_BEFORE (a partition column: the rows move; it comes first,
+    as every order of 1992 is an 'F' order), DELETE the 'F' orders, MERGE
+    P41's source (matched: o_orderdate and o_orderpriority
+    from the source; the rest inserted), OPTIMIZE ZORDER BY o_orderdate;
+    then the appends."""
+    k, dt = dj["o_orderkey"].copy(), dj["o_orderdate"].copy()
+    pb = first_bytes(dj["o_orderpriority"])
+    sb = first_bytes(dj["o_orderstatus"])
+    out = {"P47 write": (None, p41_table(k, dt, pb, sb))}
+    hit = dt < days(P41_UPDATE_BEFORE)
+    pb = np.where(hit, np.uint8(P41_URGENT.encode()[0]), pb)
+    out["P47 update"] = (int(hit.sum()), p41_table(k, dt, pb, sb))
+    keep = dj["o_orderstatus"][0] != ORDER_STATUSES.index("F")
+    k, dt, pb, sb = k[keep], dt[keep], pb[keep], sb[keep]
+    out["P47 delete"] = (int((~keep).sum()), p41_table(k, dt, pb, sb))
+    sk, sdt = src["o_orderkey"], src["o_orderdate"]
+    spb = first_bytes(src["o_orderpriority"])
+    ssb = first_bytes(src["o_orderstatus"])
+    so = np.argsort(sk)
+    pos = np.minimum(np.searchsorted(sk[so], k), sk.shape[0] - 1)
+    matched = sk[so][pos] == k
+    at = so[pos[matched]]
+    dt, pb = dt.copy(), pb.copy()
+    dt[matched], pb[matched] = sdt[at], spb[at]
+    ins = ~np.isin(sk, k)
+    k, dt, pb, sb = (np.concatenate([a, b[ins]]) for a, b in
+                     ((k, sk), (dt, sdt), (pb, spb), (sb, ssb)))
+    out["P47 merge"] = ({"updated": int(matched.sum()), "deleted": 0,
+                         "inserted": int(ins.sum())},
+                        p41_table(k, dt, pb, sb))
+    out["P47 optimize"] = (None, p41_table(k, dt, pb, sb))
+    out["P47 appends"] = (None, p41_table(*(np.concatenate([base] + [
+        f(a) for a in appends]) for base, f in (
+        (k, lambda a: a["o_orderkey"]), (dt, lambda a: a["o_orderdate"]),
+        (pb, lambda a: first_bytes(a["o_orderpriority"])),
+        (sb, lambda a: first_bytes(a["o_orderstatus"]))))))
+    out["P47 urgent"] = int((out["P47 appends"][1][2]
+                             == ord(P41_URGENT[0])).sum())
+    return out
+
+
+def p47_appends(dj):
+    """P47_APPENDS frames of P47_APPEND_ROWS orders each (P12's first rows,
+    their keys shifted above every key of the table and the source)."""
+    out = []
+    for i in range(P47_APPENDS):
+        rows = rows_of({k: dj[k] for k, _, _ in JOIN_TABLES["orders"]},
+                       i * P47_APPEND_ROWS, (i + 1) * P47_APPEND_ROWS)
+        rows["o_orderkey"] = rows["o_orderkey"] + P47_KEY_SHIFT * (i + 1)
+        out.append(rows)
+    return out
+
+
+def p47_check(label, want, batches, per_file_order=False):
+    """Batches read back from the Delta table against an oracle's rows as
+    a multiset, every value valid; with `per_file_order`, each batch (one
+    data file) in z-order of o_orderdate."""
+    from spark_rapids_tpu_torch.columnar.encoded import materialize_batch
+    batches = [materialize_batch(b) for b in batches]
+    cols = fetch_columns(batches)
+    if not all(c[1].all() for c in cols):
+        raise AssertionError(f"{label}: a NULL in the table")
+    for name, a, b in zip(("o_orderkey", "o_orderdate", "o_orderpriority",
+                           "o_orderstatus"), p41_table(*(c[0] for c in cols)),
+                          want):
+        _equal(f"{label} {name}", a, b)
+    if per_file_order:
+        for i, b in enumerate(batches):
+            code = zorder_codes([fetch_columns([b])[1][0]])
+            if not (code[1:] >= code[:-1]).all():
+                raise AssertionError(f"{label}: file {i}'s z-order codes "
+                                     f"decrease")
+
+
+def delta_back(sess, path, version=None):
+    """The Delta table's batches on the card (one a data file) and its
+    source."""
+    src = sess.read_delta(path, version)._plan.source
+    return list(src.batches()), src
+
+
+def drive_p47_paths(dev, sm, jb, dj, source_batch, src_np, p41_recs,
+                    workdir):
+    """Phase 3t (P47): P12's orders written by `write_delta` partitioned by
+    o_orderpriority, then UPDATE, DELETE, MERGE (P41's source) and
+    OPTIMIZE ZORDER BY o_orderdate through DeltaTable.for_path, each with
+    its files read and written: each command's run held first on a copy
+    of the table, its kernel launches against their plain versions (phase
+    2 at P47's shapes), then counted and timed on the table, its snapshot
+    read back through read_delta equal to the numpy oracle; version 0
+    read back (time travel), history()'s operations, P47_APPENDS appends
+    past CHECKPOINT_INTERVAL (a checkpoint written and replayed), and
+    file skipping by partition values and by stats. Returns (records,
+    launches by run)."""
+    import os
+    import torch
+    from spark_rapids_tpu_torch.delta import log as dlog
+    from spark_rapids_tpu_torch.delta.table import DeltaTable
+    sess = sm.session.TpuSession(device=dev)
+    col, lit = sm.core.col, sm.core.lit
+    appends = p47_appends(dj)
+    wants = p47_oracles(dj, src_np, appends)
+    path = os.path.join(workdir, "orders_delta")
+    orders = jb["orders"]
+    rec = write_read(
+        "P47 write_delta orders", sm,
+        lambda: sess.from_batches([orders], orders.schema).write_delta(
+            path, partition_by=["o_orderpriority"]),
+        lambda: sess.read_delta(path), orders, dev, path,
+        check=lambda back: p47_check("P47 write", wants["P47 write"][1],
+                                     back))
+    recs = {"P47 write": {k: v for k, v in rec.items()
+                          if k not in ("back", "schema")}}
+    del rec
+    source = sess.from_batches([source_batch], source_batch.schema)
+    upd = {"o_orderdate": col("__s_o_orderdate"),
+           "o_orderpriority": col("__s_o_orderpriority")}
+    commands = {
+        "P47 update": lambda t: t.update(
+            {"o_orderpriority": lit(P41_URGENT)},
+            col("o_orderdate") < date_lit(sm, P41_UPDATE_BEFORE)),
+        "P47 delete": lambda t: t.delete(col("o_orderstatus") == lit("F")),
+        "P47 merge": lambda t: t.merge(source, on=["o_orderkey"])
+        .when_matched_update(upd).when_not_matched_insert().execute(),
+        "P47 optimize": lambda t: t.optimize(zorder_by=["o_orderdate"])}
+    launches = {}
+    for label, command in commands.items():
+        files_before = len(dlog.DeltaLog(path).snapshot().files)
+        copy = os.path.join(workdir, "orders_delta_copy")
+        shutil.copytree(path, copy)
+        cap = capture_kernels(lambda: command(DeltaTable.for_path(sess, copy)))
+        shutil.rmtree(copy)
+        compare_captured(f"{label} launches (on a copy of the table)", cap,
+                         P47_NEED[label])
+        del cap
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, counts, reads = counted_run(
+            lambda: command(DeltaTable.for_path(sess, path)))
+        ms = (time.perf_counter() - t0) * 1e3
+        want_stats, want_rows = wants[label]
+        if label == "P47 optimize":
+            want_stats = files_before
+        if got != want_stats:
+            raise AssertionError(f"{label}: {got} != oracle {want_stats}")
+        back, src = delta_back(sess, path)
+        p47_check(label, want_rows, back,
+                  per_file_order=label == "P47 optimize")
+        leaves_on(label, back, dev)
+        snap = dlog.DeltaLog(path).snapshot()
+        key = label.replace(" ", "_")
+        launches[key] = counts
+        twin = p41_recs.get(label.replace("P47", "P41"), {})
+        zorder = ", each file in z-order" if label == "P47 optimize" else ""
+        recs[label] = {"result": got, "ms": ms, "launches": counts,
+                       "host_reads": reads, "version": snap.version,
+                       "files_before": files_before,
+                       "files_after": len(snap.files),
+                       "p41_ms": twin.get("ms"),
+                       "p41_launches": twin.get("launches")}
+        print(f"{label}: {got} equal to the oracle; {ms:.1f} ms with its "
+              f"files read and written (P41's device plans alone "
+              f"{['%.2f' % v for v in twin.get('ms', [])]} ms); version "
+              f"{snap.version}, files {files_before} -> {len(snap.files)}; "
+              f"the snapshot read back through read_delta equal to the "
+              f"oracle as a multiset{zorder}; "
+              f"launches {family_counts(counts)} (P41's "
+              f"{family_counts(twin.get('launches', {}))}: one plan a file "
+              f"here, one a table there); host reads {reads}")
+        del back, src
+    # time travel: version 0 is the table as written
+    back, _ = delta_back(sess, path, 0)
+    p47_check("P47 version 0", wants["P47 write"][1], back)
+    del back
+    ops = [h["operation"] for h in DeltaTable.for_path(sess, path).history()]
+    if ops != ["WRITE", "UPDATE", "DELETE", "MERGE", "OPTIMIZE"]:
+        raise AssertionError(f"P47 history: {ops}")
+    # appends past the checkpoint interval
+    t0 = time.perf_counter()
+    for a in appends:
+        b = join_batch(a, "orders", dev)
+        sess.from_batches([b], b.schema).write_delta(path, mode="append")
+    append_ms = (time.perf_counter() - t0) * 1e3
+    log = dlog.DeltaLog(path)
+    cp = log.last_checkpoint()
+    if cp != dlog.CHECKPOINT_INTERVAL or not os.path.exists(
+            log._checkpoint_file(cp)):
+        raise AssertionError(f"P47: checkpoint {cp} after "
+                             f"{log.latest_version()} versions")
+    t0 = time.perf_counter()
+    snap = log.snapshot()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    back, _ = delta_back(sess, path)
+    p47_check("P47 after the checkpoint", wants["P47 appends"][1], back)
+    del back
+    ops = [h["operation"] for h in DeltaTable.for_path(sess, path).history()]
+    # file skipping: by partition values, and by the add actions' stats
+    skips = {}
+    for name, cond, want in (
+            ("partition o_orderpriority = '1-URGENT'",
+             col("o_orderpriority") == lit(P41_URGENT), wants["P47 urgent"]),
+            (f"stats o_orderkey >= {P47_KEY_SHIFT}",
+             col("o_orderkey") >= lit(P47_KEY_SHIFT),
+             P47_APPENDS * P47_APPEND_ROWS)):
+        df = sess.read_delta(path)
+        dsrc = df._plan.source
+        t0 = time.perf_counter()
+        n = df.filter(cond).count()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = dict(dsrc.scan_stats)
+        if n != want or not st["files_pruned"]:
+            raise AssertionError(f"P47 skipping {name}: {n} rows (oracle "
+                                 f"{want}), {st}")
+        skips[name] = dict(st, rows=n, ms=ms)
+        print(f"P47 file skipping on {name}: {n} rows equal to the oracle; "
+              f"files read {st['files_read']}, skipped "
+              f"{st['files_pruned']}; count() {ms:.1f} ms")
+    recs.update({"history": ops, "checkpoint": cp,
+                 "version": snap.version, "append_ms": append_ms,
+                 "replay_ms": replay_ms, "skipping": skips})
+    print(f"P47: version 0 read back equal to the table as written (time "
+          f"travel); history {ops}; {P47_APPENDS} appends in "
+          f"{append_ms:.1f} ms, the checkpoint at version {cp} written and "
+          f"the snapshot at {snap.version} replayed from it in "
+          f"{replay_ms:.1f} ms, its rows equal to the oracle")
+    return recs, launches
+
+
+# -- P48: the pandas UDFs and to_arrow ---------------------------------------
+
+P48_RUNS = 3             # runs of each pandas exec, the first counted
+P48_EXECS = ("P48 map", "P48 apply", "P48 agg", "P48 cogroup",
+             "P48 window", "P48 agg above a filter")
+
+
+def p48_dfs(sm, dev, orders, source):
+    """{P48 exec: DataFrame} over P12's orders grouped by o_orderpriority:
+    mapInPandas (each frame's keys and 2k + 1), applyInPandas (each
+    group's keys less the group's least), a grouped pandas aggregate (the
+    keys' mean and max), a cogroup with P41's source (rows a side and
+    keys in both), a whole-partition pandas window (the group's mean key
+    on every row), and the aggregate above a filter that drops the 'F'
+    orders (the function must see only the rows kept: ROADMAP C.18)."""
+    import pandas as pd
+    t = sm.t
+    col, lit = sm.core.col, sm.core.lit
+    sess = sm.session.TpuSession(device=dev)
+    df = sess.from_batches([orders], orders.schema)
+    src = sess.from_batches([source], source.schema)
+
+    def schema(*fields):
+        return t.Schema(tuple(t.StructField(n, ty) for n, ty in fields))
+
+    def mapper(frames):
+        for f in frames:
+            yield pd.DataFrame({"o_orderkey": f["o_orderkey"],
+                                "k2": f["o_orderkey"] * 2 + 1})
+
+    def offsets(g):
+        return pd.DataFrame({"o_orderkey": g["o_orderkey"],
+                             "dk": g["o_orderkey"] - g["o_orderkey"].min()})
+
+    def both(left, right):
+        key = (left if len(left) else right)["o_orderpriority"].iloc[0]
+        common = np.intersect1d(left["o_orderkey"].to_numpy(),
+                                right["o_orderkey"].to_numpy())
+        return pd.DataFrame({"o_orderpriority": [key],
+                             "n_left": [len(left)], "n_right": [len(right)],
+                             "common": [common.shape[0]]})
+    by = df.group_by("o_orderpriority")
+    return {
+        "P48 map": df.map_in_pandas(mapper, schema(
+            ("o_orderkey", t.LONG), ("k2", t.LONG))),
+        "P48 apply": by.apply_in_pandas(offsets, schema(
+            ("o_orderkey", t.LONG), ("dk", t.LONG))),
+        "P48 agg": by.agg_in_pandas(
+            (lambda s: float(s.mean()), "mean_key", t.DOUBLE, "o_orderkey"),
+            (lambda s: int(s.max()), "max_key", t.LONG, "o_orderkey")),
+        "P48 cogroup": by.cogroup(src.group_by("o_orderpriority"))
+        .apply_in_pandas(both, schema(
+            ("o_orderpriority", t.STRING), ("n_left", t.LONG),
+            ("n_right", t.LONG), ("common", t.LONG))),
+        "P48 window": df.window_in_pandas("o_orderpriority", (
+            lambda s: float(s.mean()), "mean_key", t.DOUBLE, "o_orderkey")),
+        "P48 agg above a filter": df.filter(col("o_orderstatus") != lit("F"))
+        .group_by("o_orderpriority").agg_in_pandas(
+            (lambda s: int((s == "F").sum()), "f_rows", t.LONG,
+             "o_orderstatus"),
+            (lambda s: int(len(s)), "rows", t.LONG, "o_orderstatus"))}
+
+
+def p48_oracles(dj, src):
+    """P48's results by numpy on the host arrays, apart from the port:
+    {exec: check(batches, label)}. Groups in the priorities' order (their
+    sort order), rows of a group in input order; integers exact, floats to
+    rtol 1e-9."""
+    k = dj["o_orderkey"]
+    pc, words = dj["o_orderpriority"]
+    sc = dj["o_orderstatus"][0]
+    spc = src["o_orderpriority"][0]
+    order = np.argsort(pc, kind="stable")
+    groups = range(len(words))
+    mean = np.array([k[pc == g].mean() for g in groups])
+    least = np.array([k[pc == g].min() for g in groups])
+    kept = sc != ORDER_STATUSES.index("F")
+
+    def host_rows(batches):
+        cols = fetch_columns(batches)
+        return [c[0] for c in cols], [c[1] for c in cols]
+
+    def check_map(batches, label):
+        (key, k2), _ = host_rows(batches)
+        _equal(f"{label} o_orderkey", key, k)
+        _equal(f"{label} k2", k2, 2 * k + 1)
+
+    def check_apply(batches, label):
+        (key, dk), _ = host_rows(batches)
+        _equal(f"{label} o_orderkey", key, k[order])
+        _equal(f"{label} dk", dk, k[order] - least[pc[order]])
+
+    def rows_of_batches(batches):
+        return [r for b in batches for r in b.to_pylist()]
+
+    def check_agg(batches, label):
+        rows = rows_of_batches(batches)
+        if [r[0] for r in rows] != list(words) or \
+                [r[2] for r in rows] != [int(k[pc == g].max())
+                                         for g in groups]:
+            raise AssertionError(f"{label}: {rows} against the oracle")
+        _close(f"{label} mean_key", np.array([r[1] for r in rows]), mean)
+
+    def check_cogroup(batches, label):
+        want = [(words[g], int((pc == g).sum()), int((spc == g).sum()),
+                 int(np.intersect1d(k[pc == g],
+                                    src["o_orderkey"][spc == g]).shape[0]))
+                for g in groups]
+        if rows_of_batches(batches) != want:
+            raise AssertionError(f"{label}: {rows_of_batches(batches)} != "
+                                 f"oracle {want}")
+
+    def check_window(batches, label):
+        cols, _ = host_rows(batches)
+        _equal(f"{label} o_orderkey", cols[0], k[order])
+        _close(f"{label} mean_key", cols[-1], mean[pc[order]])
+
+    def check_filtered(batches, label):
+        want = [(words[g], 0, int((kept & (pc == g)).sum())) for g in groups]
+        if rows_of_batches(batches) != want:
+            raise AssertionError(f"{label}: {rows_of_batches(batches)} != "
+                                 f"oracle {want} (the function saw the rows "
+                                 f"the filter dropped)")
+    return {"P48 map": check_map, "P48 apply": check_apply,
+            "P48 agg": check_agg, "P48 cogroup": check_cogroup,
+            "P48 window": check_window,
+            "P48 agg above a filter": check_filtered}
+
+
+def compare_p48_paths(dev, sm, orders, source):
+    """Phase 2 at P48's own inputs: every ported kernel a run of each
+    pandas exec's plan launches (the filter's compaction below the
+    filtered aggregate), held exactly to its plain version."""
+    dfs = p48_dfs(sm, dev, orders, source)
+    for label in P48_EXECS:
+        compare_captured(f"{label} launches", capture_kernels(
+            planned(sm, dfs[label])[0]),
+            ("gathers",) if "filter" in label else ())
+
+
+def drive_p48_paths(dev, sm, orders, source, checks, q3_frames, q3_want):
+    """Phase 3u (P48): each pandas exec P48_RUNS times (the first counted:
+    every launch counter at 0 just before, read just after), its batches
+    held to the numpy oracle each run, with the fetch, Python and upload
+    ms of the run (exec/python_udf.counters()); then bench q3's result
+    fetched through DataFrame.to_arrow() against q3_oracle. Returns
+    (records, launches by run)."""
+    import torch
+    from spark_rapids_tpu_torch.exec import python_udf
+    recs, launches = {}, {}
+    for label in P48_EXECS:
+        rec = {"ms": [], "fetch_ms": [], "python_ms": [], "upload_ms": []}
+        for i in range(P48_RUNS):
+            df = p48_dfs(sm, dev, orders, source)[label]
+            c0 = python_udf.counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                out, counts, reads = counted_run(df._batches)
+            else:
+                out = df._batches()
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            c1 = python_udf.counters()
+            for k in ("fetch", "python", "upload"):
+                rec[f"{k}_ms"].append((c1[f"{k}_ns"] - c0[f"{k}_ns"]) / 1e6)
+            rec["rows_fetched"] = c1["rows_fetched"] - c0["rows_fetched"]
+            rec["rows_uploaded"] = c1["rows_uploaded"] - c0["rows_uploaded"]
+            checks[label](out, f"{label} run {i}")
+            leaves_on(label, out, dev)
+            del out
+        rec.update(launches=counts, host_reads=reads)
+        launches[label.replace(" ", "_")] = counts
+        recs[label] = rec
+        print(f"{label}: equal to the numpy oracle in each of {P48_RUNS} "
+              f"runs; ms {['%.1f' % v for v in rec['ms']]} (fetch "
+              f"{['%.1f' % v for v in rec['fetch_ms']]}, Python "
+              f"{['%.1f' % v for v in rec['python_ms']]}, upload "
+              f"{['%.1f' % v for v in rec['upload_ms']]}); rows fetched "
+              f"{rec['rows_fetched']}, uploaded {rec['rows_uploaded']}; "
+              f"launches {family_counts(counts)}, host reads {reads}")
+    df = q3_df(sm, sm.session.TpuSession(Q3_CONF, dev), *q3_frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = df.to_arrow()
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = list(zip(*(table.column(i).to_pylist()
+                      for i in range(table.num_columns))))
+    check_q3(rows, q3_want, "P48 q3 to_arrow")
+    recs["q3 to_arrow"] = {"ms": ms, "rows": table.num_rows,
+                           "schema": str(table.schema)}
+    print(f"P48 q3 through DataFrame.to_arrow(): {table.num_rows} rows "
+          f"({', '.join(table.column_names)}) equal to q3_oracle in "
+          f"{ms:.1f} ms")
+    return recs, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -11323,8 +12200,7 @@ def main() -> int:
     # writers under the run's temporary directory and read back once
     workdir = tempfile.mkdtemp(prefix="chip_smoke_p40_")
     with default_conf_after():
-        files = file_inputs(dev, join_session_modules(), dj, jb, q3d, tb,
-                            workdir)
+        files = file_inputs(dev, join_session_modules(), jb, tb, workdir)
     print(f"setup: P40's files written and read back in "
           f"{time.perf_counter() - t_files:.1f} s")
     # P41's MERGE source (phase 3n drives Delta's DML plans): 150,000
@@ -11405,10 +12281,11 @@ def main() -> int:
     q19_in = JoinInputs(q19._source)
     # every row gather of each path, captured from a run of a fresh plan
     # (the counted runs below start with the join's size cache cold)
-    gathers = {"q3": capture_row_gathers(q3_plan(d3, dev, "LONG")),
-               "q3 INT keys": capture_row_gathers(q3_plan(d3i, dev, "INT")),
-               "q19": capture_row_gathers(q19_plan(port_modules(), l19,
-                                                   p19))}
+    gathers = {label: capture_kernels(plan, ("gathers",))["gathers"]
+               for label, plan in (
+                   ("q3", q3_plan(d3, dev, "LONG")),
+                   ("q3 INT keys", q3_plan(d3i, dev, "INT")),
+                   ("q19", q19_plan(port_modules(), l19, p19)))}
     compare_join_inputs("q3", q3_in, gathers["q3"])
     compare_join_inputs("q3 INT keys", q3i_in, gathers["q3 INT keys"])
     compare_join_inputs("q19", q19_in, gathers["q19"])
@@ -11417,15 +12294,17 @@ def main() -> int:
     # compaction and sort, P7's build permute and payloads, and P7's
     # dictionary-hash takes by the stream's codes
     pm = port_modules()
-    gathers["P6"] = capture_row_gathers(tpch_q1_tree(pm,
-                                                     scan_of(pm, q1t_batch)))
+    gathers["P6"] = capture_kernels(
+        tpch_q1_tree(pm, scan_of(pm, q1t_batch)), ("gathers",))["gathers"]
     p7_takes = {}
     for enc, (lines7, build7) in p7_batches.items():
         key = "P7 dictionary build" if enc else "P7 string build"
-        gathers[key] = capture_row_gathers(shipmode_join_tree(
-            pm, scan_of(pm, lines7), scan_of(pm, build7)))
-        p7_takes[key] = capture_dict_gathers(shipmode_join_tree(
-            pm, scan_of(pm, lines7), scan_of(pm, build7)))
+        gathers[key] = capture_kernels(shipmode_join_tree(
+            pm, scan_of(pm, lines7), scan_of(pm, build7)),
+            ("gathers",))["gathers"]
+        p7_takes[key] = capture_kernels(shipmode_join_tree(
+            pm, scan_of(pm, lines7), scan_of(pm, build7)),
+            ("takes",))["takes"]
     for key in ("P6", "P7 string build", "P7 dictionary build"):
         print(f"compare {key} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
@@ -11437,13 +12316,14 @@ def main() -> int:
     # the shuffle paths' own inputs (phase 3b drives them): every row
     # gather of P9-P11 (the exchanges' reorders among them), the pid
     # hash, and P11's join kernels at a partition pair
-    gathers["P9"] = capture_row_gathers(q1_tree(pm, pm.basic.InMemoryScanExec(
-        p9_batches, schema), P_PARTS))
-    gathers["P10"] = capture_row_gathers(tpch_q1_tree(
-        pm, scan_of(pm, q1t_batch), n_parts=P_PARTS))
-    gathers["P11"] = capture_row_gathers(p11_plan(d3, dev, "LONG"))
-    gathers["P11 static"] = capture_row_gathers(p11_plan(d3, dev, "LONG",
-                                                         STATIC_CONF))
+    gathers["P9"] = capture_kernels(q1_tree(pm, pm.basic.InMemoryScanExec(
+        p9_batches, schema), P_PARTS), ("gathers",))["gathers"]
+    gathers["P10"] = capture_kernels(tpch_q1_tree(
+        pm, scan_of(pm, q1t_batch), n_parts=P_PARTS), ("gathers",))["gathers"]
+    gathers["P11"] = capture_kernels(p11_plan(d3, dev, "LONG"),
+                                     ("gathers",))["gathers"]
+    gathers["P11 static"] = capture_kernels(
+        p11_plan(d3, dev, "LONG", STATIC_CONF), ("gathers",))["gathers"]
     for key in ("P9", "P10"):
         print(f"compare {key} main-path row gathers: "
               f"{'; '.join(compare_row_gathers(key, gathers[key]))}; exact")
@@ -11459,7 +12339,7 @@ def main() -> int:
     # the join types' own inputs (phase 3d drives them): every row gather
     # of Q21, its semi join's hash, probe and gathers, its anti join's
     # probe, its dictionary gathers; then compare_join_paths
-    gathers["P13"] = capture_row_gathers(q21_plan(pm, jb))
+    gathers["P13"] = capture_kernels(q21_plan(pm, jb), ("gathers",))["gathers"]
     compare_join_inputs("P13 Q21 semi join", JoinInputs(q21_join(
         q21_plan(pm, jb), 6)), gathers["P13"])
     anti_in = JoinInputs(q21_join(q21_plan(pm, jb), 5))
@@ -11469,7 +12349,7 @@ def main() -> int:
           f"rows into {anti_in.build_rows} build rows, candidate total "
           f"{anti_in.total} in {anti_in.cand_cap} slots, {hits} verified "
           f"pairs; exact")
-    q21_takes = capture_dict_gathers(q21_plan(pm, jb))
+    q21_takes = capture_kernels(q21_plan(pm, jb), ("takes",))["takes"]
     if not any(i.shape[0] >= jb["orders"].num_rows_host
                for _, i in q21_takes):
         raise AssertionError("P13: no dictionary gather over o_orderstatus")
@@ -11701,10 +12581,6 @@ def main() -> int:
         return (q3_batches(d_, dev, o_schema, Q3_ORDERS, n_orders),
                 q3_batches(d_, dev, l_schema, Q3_LINES, n_lines))
 
-    def q19_pairs(metrics):
-        return next(v["numOutputRows"] for k, v in metrics.items()
-                    if k.startswith("HashJoinExec#"))
-
     q3_need = ["murmur3_columns", "fused_probe_verify", "dma_row_gather"]
     session_dfs = {
         "q1": q1_df(sm, sess, [batch]),
@@ -11875,6 +12751,64 @@ def main() -> int:
                                   win_recs["joins"]["inner"]["windows"])
     torch.cuda.empty_cache()
     print(f"phase 3q: {time.perf_counter() - t_win:.1f} s")
+
+    # -- phases 3r-3u, slice 23: the pyarrow and pandas paths (P45-P48) -----
+    # after P44, whose windows take most of the card's memory: each phase
+    # writes its files under a temporary directory, reads them back onto
+    # the card, holds its kernels to their plain versions at those shapes
+    # (phase 2's), drives its paths and removes the directory
+    fm = join_session_modules()
+    pa_recs, pa_launches = {}, {}
+    t_pa = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_p45_")
+    with default_conf_after():
+        fi45 = p45_inputs(dev, fm, d19, q1t_batch, tb, l19, p19, workdir)
+        print(f"phase 3r: P45's files written and read back in "
+              f"{time.perf_counter() - t_pa:.1f} s")
+        compare_p45_paths(dev, fm, fi45, q1t_batch, tb, l19, p19)
+        pa_recs["P45"], launches_ = drive_p45_paths(
+            dev, fm, fi45, q1t_batch, tb, l19, p19,
+            {"P6": q1t_want, "P19": types_want["P19"], "Q19": q19_want})
+    pa_launches.update(launches_)
+    pa_recs["P45"]["files"] = {k: {f: v for f, v in r.items()
+                                   if f not in ("back", "schema")}
+                               for k, r in fi45.items()}
+    del fi45
+    shutil.rmtree(workdir)
+    torch.cuda.empty_cache()
+    print(f"phase 3r: {time.perf_counter() - t_pa:.1f} s")
+    t_p46 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_p46_")
+    with default_conf_after():
+        fi46 = p46_inputs(dev, fm, dj, jb, workdir)
+        compare_p46_paths(dev, fm, fi46, jb)
+        pa_recs["P46"], launches_ = drive_p46_paths(dev, fm, fi46, jb,
+                                                    q4_oracle(dj))
+    pa_launches.update(launches_)
+    pa_recs["P46"]["files"] = {k: {f: v for f, v in r.items()
+                                   if f not in ("back", "schema")}
+                               for k, r in fi46.items()}
+    del fi46
+    shutil.rmtree(workdir)
+    torch.cuda.empty_cache()
+    print(f"phase 3s: {time.perf_counter() - t_p46:.1f} s")
+    t_p47 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_p47_")
+    with default_conf_after():
+        pa_recs["P47"], launches_ = drive_p47_paths(
+            dev, fm, jb, dj, p41_batch, p41_src, delta_recs, workdir)
+    pa_launches.update(launches_)
+    shutil.rmtree(workdir)
+    print(f"phase 3t: {time.perf_counter() - t_p47:.1f} s")
+    t_p48 = time.perf_counter()
+    with default_conf_after():
+        compare_p48_paths(dev, fm, jb["orders"], p41_batch)
+        pa_recs["P48"], launches_ = drive_p48_paths(
+            dev, fm, jb["orders"], p41_batch, p48_oracles(dj, p41_src),
+            (p42_o, p42_l), q3_want)
+    pa_launches.update(launches_)
+    print(f"phase 3u: {time.perf_counter() - t_p48:.1f} s; phases 3r-3u "
+          f"{time.perf_counter() - t_pa:.1f} s")
 
     # -- phase 4: steady state and kernel timings ----------------------------
     in_bytes = sum(ROWS * (c.data.element_size() + 1) for c in batch.columns)
@@ -12188,7 +13122,8 @@ def main() -> int:
             **{k: v.get(r["name"], 0) for k, v in delta_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in mesh_launches.items()},
             **{k: v.get(r["name"], 0) for k, v in tool_launches.items()},
-            **{k: v.get(r["name"], 0) for k, v in win_launches.items()}}
+            **{k: v.get(r["name"], 0) for k, v in win_launches.items()},
+            **{k: v.get(r["name"], 0) for k, v in pa_launches.items()}}
         if r["name"] in p19_shapes:
             r["p19_shapes"] = p19_shapes[r["name"]]
         for label, shapes in str_shapes.items():
@@ -12236,7 +13171,8 @@ def main() -> int:
         "file_paths": file_recs, "delta_paths": delta_recs,
         "mesh_paths": dict(mesh_recs, card=smi),
         "tooling_paths": dict(tool_recs, card=smi),
-        "window_paths": dict(win_recs, card=smi)}},
+        "window_paths": dict(win_recs, card=smi),
+        "pyarrow_paths": dict(pa_recs, card=smi)}},
         default=str))
     print(json.dumps({"kernels": records}))
     print(smi)

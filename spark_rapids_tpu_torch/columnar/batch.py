@@ -94,23 +94,11 @@ class ColumnarBatch:
     def from_arrow(table, device=None, encoded=None) -> "ColumnarBatch":
         """pyarrow Table/RecordBatch -> batch on `device` (default: the
         card), one capacity bucket. The scan's ingest seam: the columns
-        are built on the host (dictionary arrays as DictionaryColumns
-        when `encoded`, default the scan.encoded conf) and cross in one
+        are built on the host (`arrow_host_columns`) and cross in one
         packed upload (columnar/upload.py)."""
-        from ..types import StructField
-        from .column import column_from_arrow
         from .upload import to_device_batch
-        n = table.num_rows
-        cap = bucket_capacity(n)
-        fields, cols = [], []
-        for name in table.column_names:
-            col = column_from_arrow(table.column(name), device="cpu",
-                                    encoded=encoded)
-            if col.capacity < cap:
-                col = col.with_capacity(cap)
-            cols.append(col)
-            fields.append(StructField(name, col.dtype))
-        return to_device_batch(cols, n, Schema(tuple(fields)), device)
+        cols, schema = arrow_host_columns(table, encoded)
+        return to_device_batch(cols, table.num_rows, schema, device)
 
     def to_arrow(self):
         """The batch as a pyarrow Table, fetched in one packed copy."""
@@ -212,3 +200,21 @@ def empty_batch(schema: Schema, capacity: int = 128,
     cols = [_empty_column(f.data_type, capacity, dev) for f in schema.fields]
     return ColumnarBatch(cols, torch.zeros((), dtype=torch.int32, device=dev),
                          schema, 0)
+
+
+def arrow_host_columns(table, encoded=None) -> Tuple[List[Column], Schema]:
+    """A pyarrow Table/RecordBatch's columns built on the host at one
+    capacity bucket (dictionary arrays as DictionaryColumns when
+    `encoded`, default the scan.encoded conf), and their schema."""
+    from ..types import StructField
+    from .column import column_from_arrow
+    cap = bucket_capacity(table.num_rows)
+    fields, cols = [], []
+    for name in table.column_names:
+        col = column_from_arrow(table.column(name), device="cpu",
+                                encoded=encoded)
+        if col.capacity < cap:
+            col = col.with_capacity(cap)
+        cols.append(col)
+        fields.append(StructField(name, col.dtype))
+    return cols, Schema(tuple(fields))

@@ -828,6 +828,22 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
         return Column(torch.zeros(cap, dtype=torch.int8, device=dev),
                       torch.zeros(cap, dtype=torch.bool, device=dev), dt)
     if isinstance(dt, DecimalType):
+        if pa.types.is_decimal128(arr.type) and arr.type.scale == dt.scale:
+            # the unscaled values from the array's 16-byte words (low
+            # word, then the high word that carries the sign), 0 under a
+            # null, as the per-row conversion below gives them
+            words = np.frombuffer(arr.buffers()[1], dtype=np.int64) \
+                .reshape(-1, 2)[arr.offset: arr.offset + n]
+            lo = np.where(validity, words[:, 0], 0)
+            if not dt.is_decimal128:
+                return Column.from_numpy(lo, dt, device=device,
+                                         validity=validity)
+            cap = bucket_capacity(n)
+            dev = resolve_device(device)
+            hi = np.where(validity, words[:, 1], 0)
+            return Decimal128Column.from_limbs(
+                *(torch.from_numpy(_pad_np(x, cap)).to(dev) for x in (hi, lo)),
+                torch.from_numpy(_pad_np(validity, cap, False)).to(dev), dt)
         if dt.is_decimal128:
             return Decimal128Column.from_pylist(arr.to_pylist(), dt,
                                                 device=device)
@@ -843,9 +859,10 @@ def column_from_arrow(arr, dtype: Optional[DataType] = None, device=None,
 
 
 def column_to_arrow(col: Column, num_rows: int):
-    """A host column's first `num_rows` rows as a pyarrow array (a
-    DECIMAL, either lane, as decimal.Decimal values; the null type as a
-    null array)."""
+    """A host column's first `num_rows` rows as a pyarrow array: a flat
+    column from its buffers (`_arrow_from_buffers`), a nested one from its
+    Python rows (DECIMAL leaves as decimal.Decimal values), the null type
+    as a null array."""
     import pyarrow as pa
     from ..types import to_arrow
     if isinstance(col.dtype, NullType):
@@ -853,14 +870,60 @@ def column_to_arrow(col: Column, num_rows: int):
     if isinstance(col, (StructColumn, MapColumn)):
         return pa.array(_arrow_values(col, col.to_pylist(num_rows)),
                         type=to_arrow(col.dtype))
+    if not isinstance(col, ArrayColumn):
+        return _arrow_from_buffers(col, num_rows)
     vals = col.to_pylist(num_rows)
-    if isinstance(col, ArrayColumn) and isinstance(
-            col.dtype.element_type, DecimalType):
+    if isinstance(col.dtype.element_type, DecimalType):
         vals = [None if v is None else to_decimals(v, col.dtype.element_type)
                 for v in vals]
-    elif isinstance(col.dtype, DecimalType):
-        vals = to_decimals(vals, col.dtype)
     return pa.array(vals, type=to_arrow(col.dtype))
+
+
+def _arrow_from_buffers(col: Column, n: int):
+    """A host column of a flat type (fixed-width, DECIMAL, string,
+    dictionary-encoded string) as a pyarrow array built from its buffers:
+    the rows' values and validity as the per-row conversion gives them,
+    without a Python object a row."""
+    import pyarrow as pa
+    from ..types import BOOLEAN, to_arrow
+    from .encoded import DictionaryColumn
+    dt, at = col.dtype, to_arrow(col.dtype)
+    valid = col.validity[:n].cpu().numpy().astype(np.bool_)
+    nulls = int(n - valid.sum())
+    bitmap = pa.py_buffer(np.packbits(valid, bitorder="little")) \
+        if nulls else None
+    if isinstance(col, DictionaryColumn):
+        entries = pa.Array.from_buffers(at, col.dict_capacity, [
+            None, pa.py_buffer(col.dict_offsets.cpu().numpy()
+                               .astype(np.int32)),
+            pa.py_buffer(col.dict_data.cpu().numpy())])
+        codes = col.codes[:n].cpu().numpy()
+        ok = valid & (codes >= 0) & (codes < col.dict_capacity)
+        return entries.take(pa.array(np.where(ok, codes, 0), pa.int32(),
+                                     mask=~ok))
+    if isinstance(col, StringColumn):
+        return pa.Array.from_buffers(at, n, [
+            bitmap, pa.py_buffer(col.offsets[: n + 1].cpu().numpy()
+                                 .astype(np.int32)),
+            pa.py_buffer(col.data.cpu().numpy())], null_count=nulls)
+    if isinstance(dt, DecimalType):
+        # 16-byte little-endian words: the low limb, then the high one
+        words = np.empty((n, 2), np.int64)
+        if isinstance(col, Decimal128Column):
+            words[:, 0] = col.lo.data[:n].cpu().numpy()
+            words[:, 1] = col.hi.data[:n].cpu().numpy()
+        else:
+            words[:, 0] = col.data[:n].cpu().numpy()
+            words[:, 1] = words[:, 0] >> 63
+        data = words
+    elif dt == BOOLEAN:
+        data = np.packbits(col.data[:n].cpu().numpy().astype(np.bool_),
+                           bitorder="little")
+    else:
+        data = np.ascontiguousarray(
+            col.data[:n].cpu().numpy().astype(dt.np_dtype, copy=False))
+    return pa.Array.from_buffers(at, n, [bitmap, pa.py_buffer(data)],
+                                 null_count=nulls)
 
 
 def _arrow_values(col: Column, vals: List) -> List:

@@ -39,6 +39,7 @@ import datetime as _dt
 import decimal
 import json
 import os
+import time
 import uuid
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -47,7 +48,8 @@ from ..columnar.column import Column, build_column, resolve_device
 from ..config import RapidsConf
 from ..expr.core import Expression, col, lit
 from ..expr.predicates import EqualNullSafe, IsNotNull, Not
-from ..io.multifile import need_pyarrow
+from ..io.multifile import (DRIVE_STATS, add_stat, need_pyarrow,
+                            reset_drive_stats, timed_upload)
 from ..types import (BooleanType, ByteType, DataType, DateType, DecimalType,
                      DoubleType, FloatType, IntegerType, LongType, Schema,
                      ShortType, TimestampNTZType, TimestampType)
@@ -107,7 +109,11 @@ class DeltaSource:
         self.filters = list(filters or [])
         self._files = files  # an explicit file subset (DML rewrites)
         self.device = resolve_device(device)
-        self.scan_stats = {"files_read": 0, "files_pruned": 0}
+        #: the last drive's files read and pruned, and
+        #: multifile.DRIVE_STATS (the data files' host decode, the host
+        #: build of their batches with the partition columns, the uploads)
+        self.scan_stats = {"files_read": 0, "files_pruned": 0,
+                           **dict.fromkeys(DRIVE_STATS, 0)}
 
     def with_filters(self, filters) -> "DeltaSource":
         out = DeltaSource(self.log, self.snap, self._conf,
@@ -149,6 +155,15 @@ class DeltaSource:
             elif stats:
                 mn = (stats.get("minValues") or {}).get(name)
                 mx = (stats.get("maxValues") or {}).get(name)
+                if name in self.schema.names and isinstance(
+                        self.schema.fields[self.schema.index_of(name)]
+                        .data_type, DateType) and isinstance(value, int):
+                    # a DATE's stats are ISO strings, its literal a day
+                    # number (ROADMAP C.24)
+                    mn, mx = ((_dt.date.fromisoformat(v)
+                               - _EPOCH.date()).days
+                              if isinstance(v, str) else v
+                              for v in (mn, mx))
                 nc = (stats.get("nullCount") or {}).get(name)
                 nr = stats.get("numRecords")
                 if op == "is_null" and nc == 0:
@@ -178,6 +193,7 @@ class DeltaSource:
         out = []
         self.scan_stats["files_read"] = 0
         self.scan_stats["files_pruned"] = 0
+        reset_drive_stats(self.scan_stats)
         for f in (self._files if self._files is not None
                   else self.snap.files):
             if self.filters and self._file_pruned(f):
@@ -195,7 +211,6 @@ class DeltaSource:
         """One data file's batches: decoded on the host (row groups pruned
         by the data columns' pushed conjuncts), the partition columns
         built there, all uploaded in one packed copy a batch."""
-        from ..columnar.upload import to_device_batch
         from ..io.parquet import ParquetSource
         path = os.path.join(self.log.table_path, f.path)
         part_cols = self.snap.partition_columns
@@ -203,7 +218,9 @@ class DeltaSource:
         src = ParquetSource(path, self._conf, columns=data_cols,
                             filters=[flt for flt in self.filters
                                      if flt[0] in data_cols], device="cpu")
+        st = self.scan_stats
         for b in src.batches():
+            t0 = time.perf_counter_ns()
             n = b.num_rows_host
             cols: List[Column] = []
             for fld in self.schema.fields:
@@ -214,7 +231,11 @@ class DeltaSource:
                                              b.capacity, "cpu"))
                 else:
                     cols.append(b.column(fld.name))
-            yield to_device_batch(cols, n, self.schema, self.device)
+            yield timed_upload(cols, n, self.schema, self.device, st, t0)
+        # the file's own decode and its host batches' build
+        inner = src.scan_stats
+        add_stat(st, "decode_ns", inner["decode_ns"])
+        add_stat(st, "build_ns", inner["build_ns"] + inner["upload_ns"])
 
 
 # ---------------------------------------------------------------------------
@@ -296,13 +317,22 @@ def _write_data_files(df, table_path: str, partition_by: List[str]
 def write_delta(df, path: str, mode: str = "append",
                 partition_by: Optional[Sequence[str]] = None) -> None:
     """DataFrame -> delta table (append / overwrite / error-if-exists
-    semantics of Spark's DataFrameWriter)."""
+    semantics of Spark's DataFrameWriter). A write into an existing table
+    takes the table's partition columns, as Delta's writer does; naming
+    others raises (ROADMAP C.26)."""
     need_pyarrow("write_delta")
     log = DeltaLog(path)
     partition_by = list(partition_by or [])
     exists = log.exists()
     if mode == "error" and exists:
         raise FileExistsError(f"delta table {path!r} already exists")
+    if exists:
+        table_parts = log.snapshot().partition_columns
+        if partition_by and partition_by != table_parts:
+            raise ValueError(
+                f"partition columns {partition_by} do not match the "
+                f"table's {table_parts}")
+        partition_by = list(table_parts)
     os.makedirs(path, exist_ok=True)
     adds = _write_data_files(df, log.table_path, partition_by)
     actions: List[dict] = [DeltaLog.commit_info(
@@ -498,17 +528,14 @@ class DeltaTable:
         return self._snapshot_df(snap, [f])
 
     def _rewrite(self, snap: Snapshot, f: AddFile, new_df) -> List[dict]:
-        """Remove the old file and add the rewritten rows (the partition
-        kept)."""
+        """Remove the old file and add the rewritten rows, each in the
+        partition its values now name: an UPDATE or MERGE that sets a
+        partition column moves its rows, as Delta's copy-on-write writes
+        them (ROADMAP C.25)."""
         actions = [{"remove": {"path": f.path, "dataChange": True,
                                "deletionTimestamp": 0}}]
-        table = new_df.to_arrow()
-        if table.num_rows:
-            sub = table.select([c for c in table.column_names
-                                if c not in snap.partition_columns])
-            actions.append(_write_parquet_file(
-                self.log.table_path, os.path.dirname(f.path), sub,
-                f.partition_values).to_action())
+        actions.extend(a.to_action() for a in _write_data_files(
+            new_df, self.log.table_path, snap.partition_columns))
         return actions
 
     def _matching_files(self, snap: Snapshot, condition: Expression

@@ -30,7 +30,10 @@ raises ImportError naming the package.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Sequence, Tuple
+import threading
+import time
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 from ..columnar.batch import ColumnarBatch
 from ..expr.core import Expression, col
@@ -40,6 +43,36 @@ from .basic import bind_projection, eval_projection, projection_schema
 
 _KEY_PREFIX = "__pandas_gkey_"
 OP_TIME = "opTime"
+_END = object()   # the end of a map function's stream of frames
+
+_LOCK = threading.Lock()
+_COUNTERS = {"fetch_ns": 0, "python_ns": 0, "upload_ns": 0,
+             "rows_fetched": 0, "rows_uploaded": 0}
+
+
+def counters() -> Dict[str, int]:
+    """Where the pandas execs' time went: the fetch of their input to
+    pandas frames (the child's batches waited for, one device->host copy
+    a batch, arrow -> pandas), the Python side (the host grouping and the
+    user's function), and the upload of the function's frames (pandas ->
+    arrow, the host build, one packed upload a batch); with the rows each
+    way."""
+    with _LOCK:
+        return dict(_COUNTERS)
+
+
+def _add(key: str, value: int) -> None:
+    with _LOCK:
+        _COUNTERS[key] += value
+
+
+@contextmanager
+def _timed(key: str):
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        _add(key, time.perf_counter_ns() - t0)
 
 
 def _pandas():
@@ -55,7 +88,10 @@ def _batch_to_pandas(batch: ColumnarBatch):
     from ..io.multifile import need_pyarrow
     _pandas()
     need_pyarrow("the pandas UDFs")
-    return batch.to_arrow().to_pandas()
+    with _timed("fetch_ns"):
+        pdf = batch.to_arrow().to_pandas()
+    _add("rows_fetched", len(pdf))
+    return pdf
 
 
 def _pandas_to_batches(pdf, schema: Schema, device,
@@ -65,19 +101,24 @@ def _pandas_to_batches(pdf, schema: Schema, device,
     pa = need_pyarrow("the pandas UDFs")
     if len(pdf) == 0:
         return []
-    arrow_schema = pa.schema([pa.field(f.name, _t2a(f.data_type))
-                              for f in schema.fields])
-    table = pa.Table.from_pandas(pdf[[f.name for f in schema.fields]],
-                                 schema=arrow_schema, preserve_index=False)
-    return list(arrow_to_batches(table, max_rows, device, encoded=False))
+    with _timed("upload_ns"):
+        arrow_schema = pa.schema([pa.field(f.name, _t2a(f.data_type))
+                                  for f in schema.fields])
+        table = pa.Table.from_pandas(pdf[[f.name for f in schema.fields]],
+                                     schema=arrow_schema,
+                                     preserve_index=False)
+        out = list(arrow_to_batches(table, max_rows, device, encoded=False))
+    _add("rows_uploaded", len(pdf))
+    return out
 
 
 def _emit(outs, schema: Schema, device) -> List[ColumnarBatch]:
     """The function's non-empty frames, concatenated, as batches."""
     if not outs:
         return []
-    merged = _pandas().concat(outs, ignore_index=True) if len(outs) > 1 \
-        else outs[0]
+    with _timed("upload_ns"):
+        merged = _pandas().concat(outs, ignore_index=True) \
+            if len(outs) > 1 else outs[0]
     return _pandas_to_batches(merged, schema, device)
 
 
@@ -166,13 +207,14 @@ class GroupedMapInPandasExec(_PandasExecBase):
             if pdf is None:
                 return
             outs = []
-            for _, g in self._keyed.groups(pdf):
-                r = self.fn(g.reset_index(drop=True))
-                if not isinstance(r, pd.DataFrame):
-                    raise TypeError("applyInPandas function must return a "
-                                    "pandas DataFrame")
-                if len(r):
-                    outs.append(r)
+            with _timed("python_ns"):
+                for _, g in self._keyed.groups(pdf):
+                    r = self.fn(g.reset_index(drop=True))
+                    if not isinstance(r, pd.DataFrame):
+                        raise TypeError("applyInPandas function must "
+                                        "return a pandas DataFrame")
+                    if len(r):
+                        outs.append(r)
             yield from _emit(outs, self._out_schema, self.device)
 
 
@@ -223,11 +265,12 @@ class AggregateInPandasExec(_PandasExecBase):
             if pdf is None:
                 return
             rows: List[tuple] = []
-            for key, g in self._keyed.groups(pdf):
-                rows.append(tuple(key) + tuple(
-                    fn(*[g[s].reset_index(drop=True) for s in slots])
-                    for (fn, _, _, _), slots in zip(self._aggs,
-                                                    self._agg_slots)))
+            with _timed("python_ns"):
+                for key, g in self._keyed.groups(pdf):
+                    rows.append(tuple(key) + tuple(
+                        fn(*[g[s].reset_index(drop=True) for s in slots])
+                        for (fn, _, _, _), slots in zip(self._aggs,
+                                                        self._agg_slots)))
             schema = self.output_schema
             yield from _emit([pd.DataFrame(rows, columns=schema.names)],
                              schema, self.device)
@@ -252,12 +295,24 @@ class MapInBatchExec(TpuExec):
 
     def internal_execute(self) -> Iterator[ColumnarBatch]:
         with self.metrics[OP_TIME].ns_timer():
+            fetched = [0]   # this exec's fetch ns, pulled by the function
+
             def frames():
                 for b in self.child.execute():
+                    t0 = time.perf_counter_ns()
                     pdf = _batch_to_pandas(b)
+                    fetched[0] += time.perf_counter_ns() - t0
                     if len(pdf):
                         yield pdf
-            for out in self.fn(frames()):
+            outs = iter(self.fn(frames()))
+            while True:
+                # the function's time: its step less the fetches it pulled
+                f0, t0 = fetched[0], time.perf_counter_ns()
+                out = next(outs, _END)
+                _add("python_ns", time.perf_counter_ns() - t0
+                     - (fetched[0] - f0))
+                if out is _END:
+                    return
                 yield from _pandas_to_batches(out, self._out_schema,
                                               self.device)
 
@@ -269,7 +324,9 @@ class _PandasSide(_KeyedFrame):
         pdf = self.frame(child.execute())
         if pdf is None:
             return {}
-        return {k: g.reset_index(drop=True) for k, g in self.groups(pdf)}
+        with _timed("python_ns"):
+            return {k: g.reset_index(drop=True)
+                    for k, g in self.groups(pdf)}
 
     def empty_frame(self):
         pd = _pandas()
@@ -308,13 +365,14 @@ class CoGroupedMapInPandasExec(TpuExec):
             lempty = self._lside.empty_frame()
             rempty = self._rside.empty_frame()
             outs = []
-            for k in keys:
-                r = self.fn(lg.get(k, lempty), rg.get(k, rempty))
-                if not isinstance(r, pd.DataFrame):
-                    raise TypeError("cogroup applyInPandas function must "
-                                    "return a pandas DataFrame")
-                if len(r):
-                    outs.append(r)
+            with _timed("python_ns"):
+                for k in keys:
+                    r = self.fn(lg.get(k, lempty), rg.get(k, rempty))
+                    if not isinstance(r, pd.DataFrame):
+                        raise TypeError("cogroup applyInPandas function "
+                                        "must return a pandas DataFrame")
+                    if len(r):
+                        outs.append(r)
             yield from _emit(outs, self._out_schema, self.device)
 
 
@@ -349,11 +407,12 @@ class WindowInPandasExec(_PandasExecBase):
                 return
             child_names = list(self.child.output_schema.names)
             outs = []
-            for _, g in self._keyed.groups(pdf):
-                piece = g[child_names].reset_index(drop=True)
-                for (fn, name, _, _), slots in zip(self._wins,
-                                                   self._win_slots):
-                    piece[name] = fn(*[g[s].reset_index(drop=True)
-                                       for s in slots])
-                outs.append(piece)
+            with _timed("python_ns"):
+                for _, g in self._keyed.groups(pdf):
+                    piece = g[child_names].reset_index(drop=True)
+                    for (fn, name, _, _), slots in zip(self._wins,
+                                                       self._win_slots):
+                        piece[name] = fn(*[g[s].reset_index(drop=True)
+                                           for s in slots])
+                    outs.append(piece)
             yield from _emit(outs, self.output_schema, self.device)

@@ -376,11 +376,8 @@ class AvroSource:
 
     def _flush(self, cols: List[List]) -> ColumnarBatch:
         data = {f.name: c for f, c in zip(self.schema.fields, cols)}
-        batch = host_batch_upload(data, self.schema, self.device,
-                                  self.scan_stats)
-        self.scan_stats["rows"] += batch.num_rows_host
-        self.scan_stats["batches"] += 1
-        return batch
+        return host_batch_upload(data, self.schema, self.device,
+                                 self.scan_stats)
 
 
 # ---------------------------------------------------------------------------

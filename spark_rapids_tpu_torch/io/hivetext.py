@@ -106,11 +106,8 @@ class HiveTextSource:
 
     def _flush(self, cols: List[List]) -> ColumnarBatch:
         data = {f.name: c for f, c in zip(self.schema.fields, cols)}
-        batch = host_batch_upload(data, self.schema, self.device,
-                                  self.scan_stats)
-        self.scan_stats["rows"] += batch.num_rows_host
-        self.scan_stats["batches"] += 1
-        return batch
+        return host_batch_upload(data, self.schema, self.device,
+                                 self.scan_stats)
 
 
 def write_hive_text(df, path: str, field_delim: str = FIELD_DELIM) -> None:

@@ -29,7 +29,7 @@ from ..types import (BooleanType, DateType, DoubleType, FloatType,
                      IntegerType, LongType, Schema, StringType, StructField,
                      TimestampType)
 from .avro import read_avro_rows, write_avro_rows
-from .multifile import need_pyarrow
+from .multifile import DRIVE_STATS, need_pyarrow
 
 _TYPE_TO_ICE = {LongType: "long", IntegerType: "int", DoubleType: "double",
                 FloatType: "float", BooleanType: "boolean",
@@ -153,6 +153,11 @@ class IcebergSource:
         self._conf = conf
         self._files = self.table.data_files(snapshot_id)
         self.filters: List = []
+        #: the last batches() drive's, as its ParquetSource keeps them
+        #: (row groups read and pruned, multifile.DRIVE_STATS); shared
+        #: with with_filters() copies
+        self.scan_stats = {"row_groups_read": 0, "row_groups_pruned": 0,
+                           **dict.fromkeys(DRIVE_STATS, 0)}
 
     def with_filters(self, filters) -> "IcebergSource":
         out = IcebergSource.__new__(IcebergSource)
@@ -170,6 +175,7 @@ class IcebergSource:
         src = ParquetSource(self._files, self._conf,
                             columns=list(self.schema.names),
                             filters=self.filters, device=self.device)
+        src.scan_stats = self.scan_stats
         yield from src.batches()
 
 

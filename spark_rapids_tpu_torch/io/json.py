@@ -24,8 +24,9 @@ from ..columnar.batch import ColumnarBatch
 from ..columnar.column import resolve_device
 from ..config import MULTITHREADED_READ_NUM_THREADS, active_conf
 from ..types import Schema, StructField, from_arrow, to_arrow
-from .multifile import (arrow_to_batches, expand_paths, need_pyarrow,
-                        threaded_chunks)
+from .multifile import (DRIVE_STATS, arrow_to_batches, expand_paths,
+                        need_pyarrow, reset_drive_stats, threaded_chunks,
+                        timed_tasks)
 from .parquet import DEFAULT_BATCH_ROWS
 
 MODES = ("PERMISSIVE", "DROPMALFORMED", "FAILFAST")
@@ -56,6 +57,8 @@ class JsonSource:
         #: lines dropped by PERMISSIVE mode in the last batches() drive
         #: (counted from the pool's threads, under a lock)
         self.malformed_rows = 0
+        #: the last batches() drive's multifile.DRIVE_STATS
+        self.scan_stats = dict.fromkeys(DRIVE_STATS, 0)
         self._count_lock = threading.Lock()
         if schema is not None:
             self.schema = schema
@@ -123,11 +126,14 @@ class JsonSource:
 
     def batches(self) -> Iterator[ColumnarBatch]:
         self.malformed_rows = 0
-        tasks = [lambda p=p: self._read_one(p) for p in self.paths]
+        reset_drive_stats(self.scan_stats)
+        tasks = timed_tasks([lambda p=p: self._read_one(p)
+                             for p in self.paths], self.scan_stats)
         for table in threaded_chunks(tasks, self.num_threads):
             if self._user_schema is not None:
                 table = table.select(list(self._user_schema.names))
-            yield from arrow_to_batches(table, self.batch_rows, self.device)
+            yield from arrow_to_batches(table, self.batch_rows, self.device,
+                                        stats=self.scan_stats)
 
 
 def write_json(df, path):

@@ -126,30 +126,85 @@ def threaded_chunks(tasks: Sequence[Callable[[], object]],
                 f.cancel()
 
 
+#: the keys a reader's `scan_stats` gains from its drive: rows and
+#: batches emitted, and the ns of the host decode (pool tasks, summed over
+#: the threads), the host build of the columns and the uploads
+DRIVE_STATS = ("rows", "batches", "decode_ns", "build_ns", "upload_ns")
+_stats_lock = threading.Lock()
+
+
+def reset_drive_stats(stats: dict) -> None:
+    """Zero the DRIVE_STATS keys of a reader's `scan_stats`, keeping its
+    other keys (row-group or stripe counts)."""
+    for k in DRIVE_STATS:
+        stats[k] = 0
+
+
+def add_stat(stats: Optional[dict], key: str, value: int) -> None:
+    """stats[key] += value under a lock (pool threads add their decode
+    ns to one reader's stats)."""
+    if stats is not None:
+        with _stats_lock:
+            stats[key] = stats.get(key, 0) + value
+
+
+def timed_tasks(tasks: Sequence[Callable[[], object]],
+                stats: Optional[dict]) -> List[Callable[[], object]]:
+    """The decode `tasks`, each adding its ns on its pool thread to
+    `stats["decode_ns"]`."""
+    import time
+
+    def timed(t):
+        def run():
+            t0 = time.perf_counter_ns()
+            try:
+                return t()
+            finally:
+                add_stat(stats, "decode_ns", time.perf_counter_ns() - t0)
+        return run
+    return [timed(t) for t in tasks]
+
+
+def timed_upload(cols, n: int, schema, device, stats: Optional[dict],
+                 t0: int) -> ColumnarBatch:
+    """Host columns whose build began at `t0` (perf_counter_ns) as one
+    batch on `device`, in one packed upload (columnar/upload.
+    to_device_batch). `stats`, when given, gains the rows, one batch, and
+    the host build's and the upload's ns (`build_ns`, `upload_ns`)."""
+    import time
+    from ..columnar.upload import to_device_batch
+    t1 = time.perf_counter_ns()
+    batch = to_device_batch(cols, n, schema, device)
+    for k, v in (("rows", n), ("batches", 1), ("build_ns", t1 - t0),
+                 ("upload_ns", time.perf_counter_ns() - t1)):
+        add_stat(stats, k, v)
+    return batch
+
+
 def arrow_to_batches(table, target_rows: int, device=None,
-                     encoded: Optional[bool] = None
+                     encoded: Optional[bool] = None,
+                     stats: Optional[dict] = None
                      ) -> Iterator[ColumnarBatch]:
     """A host arrow table as batches of at most `target_rows` rows on
-    `device`, one packed upload each (ColumnarBatch.from_arrow)."""
+    `device`, one packed upload each (`timed_upload`)."""
+    import time
+    from ..columnar.batch import arrow_host_columns
     n = table.num_rows
-    if n == 0:
-        yield ColumnarBatch.from_arrow(table, device, encoded)
-        return
-    for start in range(0, n, target_rows):
-        yield ColumnarBatch.from_arrow(table.slice(start, target_rows),
-                                       device, encoded)
+    for start in range(0, max(n, 1), target_rows):
+        t0 = time.perf_counter_ns()
+        part = table.slice(start, target_rows)
+        cols, schema = arrow_host_columns(part, encoded)
+        yield timed_upload(cols, part.num_rows, schema, device, stats, t0)
 
 
 def host_batch_upload(data: dict, schema, device, stats: Optional[dict] = None
                       ) -> ColumnarBatch:
     """Python lists by column name (None for null) as one batch on
     `device`: the columns are built on the host at one capacity bucket
-    and cross in one packed upload (columnar/upload.to_device_batch), as
-    an arrow table's do. `stats`, when given, gains the host build's and
-    the upload's ns (`build_ns`, `upload_ns`)."""
+    and cross in one packed upload (`timed_upload`), as an arrow table's
+    do."""
     import time
     from ..columnar.column import bucket_capacity, build_column
-    from ..columnar.upload import to_device_batch
     t0 = time.perf_counter_ns()
     lengths = {len(v) for v in data.values()} or {0}
     if len(lengths) != 1:
@@ -158,13 +213,7 @@ def host_batch_upload(data: dict, schema, device, stats: Optional[dict] = None
     cap = bucket_capacity(n)
     cols = [build_column(data[f.name], f.data_type, cap, "cpu")
             for f in schema.fields]
-    t1 = time.perf_counter_ns()
-    batch = to_device_batch(cols, n, schema, device)
-    if stats is not None:
-        stats["build_ns"] = stats.get("build_ns", 0) + t1 - t0
-        stats["upload_ns"] = stats.get("upload_ns", 0) \
-            + time.perf_counter_ns() - t1
-    return batch
+    return timed_upload(cols, n, schema, device, stats, t0)
 
 
 def need_pyarrow(what: str, module: str = "pyarrow"):

@@ -21,16 +21,17 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import resolve_device
 from ..config import MULTITHREADED_READ_NUM_THREADS, active_conf
 from ..types import Schema, StructField, from_arrow
-from .multifile import (arrow_to_batches, expand_paths, need_pyarrow,
-                        threaded_chunks)
+from .multifile import (DRIVE_STATS, arrow_to_batches, expand_paths,
+                        need_pyarrow, reset_drive_stats, threaded_chunks,
+                        timed_tasks)
 from .orc_meta import OrcFileMeta
-from .parquet import DEFAULT_BATCH_ROWS, _stats_can_skip
+from .parquet import DEFAULT_BATCH_ROWS, coalesced_batches, _stats_can_skip
 
 
 def _orc():
@@ -76,8 +77,10 @@ class OrcSource:
                                       fld.nullable))
         self.schema = Schema(tuple(fields))
         #: set by the last batches() drive; shared with with_filters()
-        #: copies, as ParquetSource's is
-        self.scan_stats = {"stripes_read": 0, "stripes_pruned": 0}
+        #: copies, as ParquetSource's is: the stripes read and pruned,
+        #: and multifile.DRIVE_STATS
+        self.scan_stats = {"stripes_read": 0, "stripes_pruned": 0,
+                           **dict.fromkeys(DRIVE_STATS, 0)}
 
     @property
     def stripes_read(self) -> int:
@@ -114,6 +117,7 @@ class OrcSource:
         tasks = []
         self.scan_stats["stripes_read"] = 0
         self.scan_stats["stripes_pruned"] = 0
+        reset_drive_stats(self.scan_stats)
         may_prune = bool(self.filters)
         for p in self.paths:
             n = paorc.ORCFile(p).nstripes
@@ -135,6 +139,8 @@ class OrcSource:
                 tasks.append(lambda p=p: paorc.ORCFile(p).read(
                     columns=self.columns))
 
+        tasks = timed_tasks(tasks, self.scan_stats)
+
         def tables():
             for item in threaded_chunks(tasks, self.num_threads):
                 table = pa.Table.from_batches([item]) \
@@ -145,29 +151,13 @@ class OrcSource:
                     else table
 
         if self.reader_type == "COALESCING":
-            yield from self._coalescing_drive(tables())
+            yield from coalesced_batches(tables(), self.batch_rows,
+                                         self.device, self.scan_stats)
         else:
             for table in tables():
                 yield from arrow_to_batches(table, self.batch_rows,
-                                            self.device)
-
-    def _coalescing_drive(self, tables) -> Iterator[ColumnarBatch]:
-        """Decoded stripes stitched on the host into tables of about
-        batch_rows before the upload (reference COALESCING reader,
-        GpuMultiFileReader.scala:830)."""
-        import pyarrow as pa
-        pending: List = []
-        pending_rows = 0
-        for table in tables:
-            pending.append(table)
-            pending_rows += table.num_rows
-            if pending_rows >= self.batch_rows:
-                yield from arrow_to_batches(pa.concat_tables(pending),
-                                            self.batch_rows, self.device)
-                pending, pending_rows = [], 0
-        if pending:
-            yield from arrow_to_batches(pa.concat_tables(pending),
-                                        self.batch_rows, self.device)
+                                            self.device,
+                                            stats=self.scan_stats)
 
 
 def write_orc(df, path, compression: Optional[str] = None,

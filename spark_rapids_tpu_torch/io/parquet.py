@@ -37,6 +37,7 @@ ImportError naming pyarrow.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -48,19 +49,31 @@ from ..types import Schema, StructField
 from ..config import (MULTITHREADED_READ_NUM_THREADS,
                       PARQUET_READER_TYPE, PARQUET_REBASE_MODE_READ,
                       SCAN_ENCODED, active_conf)
-from .multifile import (arrow_to_batches, expand_paths, need_pyarrow,
-                        threaded_chunks)
+from .multifile import (DRIVE_STATS, arrow_to_batches, expand_paths,
+                        need_pyarrow, reset_drive_stats, threaded_chunks,
+                        timed_tasks)
 
 READER_TYPES = ("MULTITHREADED", "COALESCING", "PERFILE")
 #: rows per emitted batch
 DEFAULT_BATCH_ROWS = 1 << 20
 
+_EPOCH_DATE = datetime.date(1970, 1, 1)
 #: pushed predicate ops: (column name, op, literal)
 _PRUNE_OPS = ("<", "<=", ">", ">=", "==", "is_null", "is_not_null")
 
 
 def _parquet():
     return need_pyarrow("the Parquet reader", "pyarrow.parquet")
+
+
+def _stat_value(v, value):
+    """A footer statistic in the pushed literal's domain: a DATE
+    statistic (pyarrow gives a datetime.date) as its day number where the
+    literal is one, as the port's DATE literals are (ROADMAP C.24)."""
+    if isinstance(v, datetime.date) and not isinstance(v, datetime.datetime) \
+            and isinstance(value, int) and not isinstance(value, bool):
+        return (v - _EPOCH_DATE).days
+    return v
 
 
 def _stats_can_skip(stats, op: str, value) -> bool:
@@ -76,7 +89,7 @@ def _stats_can_skip(stats, op: str, value) -> bool:
         return nv == 0 if (nc is not None and nv is not None) else False
     if not stats.has_min_max:
         return False
-    mn, mx = stats.min, stats.max
+    mn, mx = _stat_value(stats.min, value), _stat_value(stats.max, value)
     if mn is None or mx is None:
         return False
     try:
@@ -134,8 +147,12 @@ class ParquetSource:
             fields.append(StructField(f.name, from_arrow(f.type), f.nullable))
         self.schema = Schema(tuple(fields))
         #: set by the last batches() drive; shared with with_filters()
-        #: copies, so the source the user holds sees the effect
-        self.scan_stats = {"row_groups_read": 0, "row_groups_pruned": 0}
+        #: copies, so the source the user holds sees the effect: the row
+        #: groups read and pruned, and multifile.DRIVE_STATS (rows,
+        #: batches, the host decode's ns summed over the pool's threads,
+        #: the host build's and the uploads' ns)
+        self.scan_stats = {"row_groups_read": 0, "row_groups_pruned": 0,
+                           **dict.fromkeys(DRIVE_STATS, 0)}
 
     @property
     def row_groups_read(self) -> int:
@@ -202,6 +219,7 @@ class ParquetSource:
         tasks = []
         self.scan_stats["row_groups_read"] = 0
         self.scan_stats["row_groups_pruned"] = 0
+        reset_drive_stats(self.scan_stats)
         # LEGACY: the footer's statistics are hybrid-Julian day numbers
         # and the pushed literals proleptic-Gregorian, so comparing them
         # could prune a group whose rebased rows match: no pruning
@@ -226,12 +244,16 @@ class ParquetSource:
             if md.num_row_groups == 0:
                 tasks.append(lambda p=p: pq.read_table(
                     p, columns=self.columns, read_dictionary=read_dict))
+        tables = threaded_chunks(timed_tasks(tasks, self.scan_stats),
+                                 self.num_threads)
         if self.reader_type == "COALESCING":
-            yield from self._coalescing_drive(tasks)
+            yield from coalesced_batches(tables, self.batch_rows,
+                                         self.device, self.scan_stats,
+                                         self.encoded)
             return
-        for table in threaded_chunks(tasks, self.num_threads):
+        for table in tables:
             yield from arrow_to_batches(table, self.batch_rows, self.device,
-                                        self.encoded)
+                                        self.encoded, self.scan_stats)
 
     def _maybe_rebase(self, batches: Iterator[ColumnarBatch]
                       ) -> Iterator[ColumnarBatch]:
@@ -263,25 +285,33 @@ class ParquetSource:
                     cols.append(c)
             yield b.with_columns(cols, b.schema)
 
-    def _coalescing_drive(self, tasks) -> Iterator[ColumnarBatch]:
-        """Decoded row groups stitched on the host into tables of about
-        batch_rows before the upload (reference COALESCING reader,
-        GpuMultiFileReader.scala:830)."""
-        import pyarrow as pa
-        pending: List = []
-        pending_rows = 0
-        for table in threaded_chunks(tasks, self.num_threads):
-            pending.append(table)
-            pending_rows += table.num_rows
-            if pending_rows >= self.batch_rows:
-                yield from arrow_to_batches(pa.concat_tables(pending),
-                                            self.batch_rows, self.device,
-                                            self.encoded)
-                pending, pending_rows = [], 0
-        if pending:
-            yield from arrow_to_batches(pa.concat_tables(pending),
-                                        self.batch_rows, self.device,
-                                        self.encoded)
+
+def coalesced_batches(tables, batch_rows: int, device, stats: dict,
+                      encoded: Optional[bool] = None
+                      ) -> Iterator[ColumnarBatch]:
+    """Decoded row groups or stripes stitched on the host into tables of
+    about `batch_rows` before the upload (the COALESCING readers of
+    Parquet and ORC; reference GpuMultiFileReader.scala:830); the stitch
+    adds to `stats["build_ns"]`."""
+    import time
+    import pyarrow as pa
+    from .multifile import add_stat
+
+    def flush(pending):
+        t0 = time.perf_counter_ns()
+        table = pa.concat_tables(pending)
+        add_stat(stats, "build_ns", time.perf_counter_ns() - t0)
+        return arrow_to_batches(table, batch_rows, device, encoded, stats)
+    pending: List = []
+    pending_rows = 0
+    for table in tables:
+        pending.append(table)
+        pending_rows += table.num_rows
+        if pending_rows >= batch_rows:
+            yield from flush(pending)
+            pending, pending_rows = [], 0
+    if pending:
+        yield from flush(pending)
 
 
 def write_parquet(df, path, partition_by: Optional[Sequence[str]] = None):
